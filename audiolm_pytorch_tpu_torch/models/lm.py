@@ -26,9 +26,12 @@ class SemanticTransformer(nn.Module):
     def __init__(self, *, dim: int, depth: int, num_semantic_tokens: int,
                  heads: int = 8, dim_head: int = 64, num_residual_streams: int = 4,
                  rel_pos_bias: bool = True, grad_shrink_alpha: float = 0.1,
+                 attn_dropout: float = 0.0, ff_dropout: float = 0.0,
                  t5_name: str = "google/t5-v1_1-base", cond_dim: "int | None" = None,
                  seed: int = 0, device: "str | torch.device" = "cuda"):
         super().__init__()
+        if attn_dropout > 0 or ff_dropout > 0:
+            raise NotImplementedError("attn_dropout / ff_dropout > 0 is not ported")
         device = resolve_device(device)
         g = torch.Generator().manual_seed(seed)
         self.num_semantic_tokens = num_semantic_tokens
@@ -51,12 +54,17 @@ class SemanticTransformer(nn.Module):
         start = self.start_token.to(tokens.dtype).expand(ids.shape[0], 1, -1)
         return torch.cat([start, tokens], dim=1)
 
-    def forward(self, ids, *, return_loss: bool = False):
+    def forward(self, ids, *, self_attn_mask=None, return_loss: bool = False):
         """Logits (B, N+1, V) for [start] + ids, or (B, N, V) for [start] +
-        ids[:, :-1] with return_loss (the loss itself is the wrapper's)."""
+        ids[:, :-1] with return_loss (the loss itself is the wrapper's).
+        self_attn_mask: (B, N) bool key mask over the ids, True = attend; the
+        start token is always attended."""
         if return_loss:
             ids = ids[:, :-1]
-        return self.to_logits(self.transformer(self.embed_ids(ids)))
+        if self_attn_mask is not None:
+            self_attn_mask = torch.nn.functional.pad(self_attn_mask, (1, 0), value=True)
+        return self.to_logits(self.transformer(self.embed_ids(ids),
+                                               self_attn_mask=self_attn_mask))
 
 
 _UNPORTED = {"has_condition": False, "audio_text_condition": False,

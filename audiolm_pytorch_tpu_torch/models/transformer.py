@@ -3,10 +3,13 @@
 multi-query causal attention with value residuals, dynamic hyper-connections
 over S residual streams, GEGLU feed-forward.
 
-Attention dispatch: uncached self-attention goes through the flash-attention
-kernel with the rel-pos bias as its (2N-1, H) table; the KV-cached prefill
-and decode steps take the plain `attend`, as the JAX package does.
-Cross attention, prefix conditioning and dropout are not part of this port.
+Attention dispatch: uncached self-attention, in scoring and in training,
+goes through the flash-attention kernels with the rel-pos bias as its
+(2N-1, H) table and the key mask (the forgetful causal mask in training); the
+table's gradient flows back into the bias MLP through autograd. The
+KV-cached prefill and decode steps take the plain `attend`, as the JAX
+package does. Cross attention, prefix conditioning and dropout are not part
+of this port: dropout > 0 raises.
 """
 from __future__ import annotations
 
@@ -179,10 +182,15 @@ class Transformer(nn.Module):
 
     def __init__(self, *, dim: int, depth: int, heads: int, dim_head: int = 64,
                  num_residual_streams: int = 4, rel_pos_bias: bool = True,
-                 grad_shrink_alpha: float = 0.1,
+                 grad_shrink_alpha: float = 0.1, attn_dropout: float = 0.0,
+                 ff_dropout: float = 0.0,
                  generator: "torch.Generator | None" = None,
                  device: "str | torch.device" = "cuda"):
         super().__init__()
+        if attn_dropout > 0 or ff_dropout > 0:
+            # the JAX package sends dropout > 0 to the math path
+            # (models/transformer.py:236-240); neither is ported yet
+            raise NotImplementedError("attn_dropout / ff_dropout > 0 is not ported")
         device = resolve_device(device)
         self.depth, self.heads, self.dim_head = depth, heads, dim_head
         self.num_residual_streams = num_residual_streams

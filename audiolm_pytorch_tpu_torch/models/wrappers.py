@@ -1,12 +1,13 @@
-"""Scoring and KV-cached generation for the Semantic LM, held against the JAX
-package's `models/wrappers.py` (`masked_cross_entropy`, `_sample_from_logits`,
-`_semantic_generate_jit`, `SemanticTransformerWrapper`)."""
+"""Scoring, the training loss and KV-cached generation for the Semantic LM,
+held against the JAX package's `models/wrappers.py` (`masked_cross_entropy`,
+`_sample_from_logits`, `_semantic_generate_jit`, `SemanticTransformerWrapper`)."""
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from ..ops.sampling import (batch_unique_consecutive, get_embeds, gumbel_sample,
+from ..ops.sampling import (append_eos_id, batch_unique_consecutive,
+                            generate_mask_with_prob, get_embeds, gumbel_sample,
                             mask_out_after_eos_id, top_k)
 from .lm import SemanticTransformer
 from .transformer import KVCache
@@ -29,23 +30,36 @@ def sample_from_logits(logits, filter_thres: float, temperature: float, *,
 
 
 class SemanticTransformerWrapper(nn.Module):
-    """Scores semantic token sequences (eval mode) and samples continuations."""
+    """Scores semantic token sequences, gives the training loss and samples
+    continuations."""
 
     def __init__(self, *, transformer: SemanticTransformer, pad_id: int = -1,
-                 unique_consecutive: bool = True):
+                 unique_consecutive: bool = True, mask_prob: float = 0.15):
         super().__init__()
         self.transformer = transformer
         self.pad_id = pad_id
         self.eos_id = transformer.eos_id
         self.unique_consecutive = unique_consecutive
+        self.mask_prob = mask_prob
 
-    def forward(self, semantic_token_ids, *, return_loss: bool = False):
+    def forward(self, semantic_token_ids, *, return_loss: bool = False, train: bool = False,
+                generator: "torch.Generator | None" = None):
         """Logits (B, N, V) of the ids, or with return_loss the mean next-token
-        cross entropy. Consecutive repeats are dropped first."""
+        cross entropy. With train, EOS is appended first and the forgetful
+        causal mask (mask_prob of the keys dropped per row, drawn from
+        `generator`) is applied. Consecutive repeats are dropped after EOS is
+        appended."""
         ids = semantic_token_ids.reshape(semantic_token_ids.shape[0], -1)
+        if train:
+            ids = append_eos_id(ids, self.eos_id)
         if self.unique_consecutive:
             ids = batch_unique_consecutive(ids, pad_value=self.pad_id)
-        logits = self.transformer(ids[:, :-1] if return_loss else ids)
+        input_ids = ids[:, :-1] if return_loss else ids
+        mask = None
+        if train and self.mask_prob > 0:
+            mask = generate_mask_with_prob(input_ids.shape, self.mask_prob,
+                                           generator=generator, device=input_ids.device)
+        logits = self.transformer(input_ids, self_attn_mask=mask)
         if not return_loss:
             return logits
         return masked_cross_entropy(logits, ids, self.pad_id)

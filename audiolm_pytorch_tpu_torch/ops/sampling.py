@@ -6,7 +6,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["gumbel_noise", "gumbel_sample", "top_k", "mask_out_after_eos_id",
-           "append_eos_id", "batch_unique_consecutive", "grad_shrink", "get_embeds"]
+           "append_eos_id", "batch_unique_consecutive", "generate_mask_with_prob",
+           "grad_shrink", "get_embeds"]
 
 
 def gumbel_noise(shape, *, generator: "torch.Generator | None" = None,
@@ -52,6 +53,24 @@ def batch_unique_consecutive(t, pad_value: int = -1):
     out = t.new_full((b, n + 1), pad_value)
     out.scatter_(1, dest, torch.where(keep, t, pad_value))
     return out[:, :n]
+
+
+def generate_mask_with_prob(shape, mask_prob: float, *,
+                            generator: "torch.Generator | None" = None, device=None):
+    """Forgetful causal mask (True = keep) on `device`: in each row exactly
+    min(int(n * mask_prob), n - 1) positions are dropped, never position 0.
+    The draws come from `generator`, on the generator's device, so one
+    generator gives the same mask on every device; they are not the bits JAX
+    draws."""
+    n = shape[-1]
+    num_mask = min(int(n * mask_prob), n - 1)
+    if num_mask <= 0:
+        return torch.ones(shape, dtype=torch.bool, device=device)
+    rand = torch.randn(shape, generator=generator,
+                       device=generator.device if generator is not None else device)
+    rand[..., 0] = float("-inf")
+    kth = rand.topk(num_mask, dim=-1).values[..., -1:]
+    return (rand < kth).to(device)
 
 
 def grad_shrink(t, alpha: float = 0.1):
