@@ -1,5 +1,6 @@
-// Flash-attention backward for Hopper (sm_90a): dq (K2), dk/dv (K3) and the
-// gradient of the (2N-1, H) rel-pos distance table (K4). Each recomputes
+// Flash-attention backward for Hopper (sm_90a): dq (K2), dk/dv (K3), the
+// gradient of the (2N-1, H) rel-pos distance table (K4) and the gradient of
+// an (H, N, M) bias shared over the batch (K5). Each recomputes
 // P = exp(S - lse) tile by tile from the forward's row logsumexp, so the
 // (N, M) attention matrix never exists in device memory.
 //
@@ -11,6 +12,8 @@
 //                        folded into the table by AD of
 //                        ops/relpos.py::delta_bias_blocks; here straight into
 //                        dtab[q - k + N - 1, h]
+//   K5 `_dbias_kernel`   dbias = sum_b dS for a batch-shared (H, N, M) bias,
+//                        each tile written once
 // with the same semantics: masked keys at -1e30, keys past M at -inf, a row
 // whose lse is <= -5e29 (every key masked) gets p = 0, padded query rows get
 // no gradient. Delta = rowsum(dO * O) comes in precomputed (a torch
@@ -41,9 +44,24 @@
 //       its kv head and the query tiles from the diagonal on, with dk and dv
 //       in registers, so the MQA sum needs no atomics. This replaces the
 //       TPU's sequential (head, q-block) grid axis.
-// The (H, N, N) bias and its gradient never exist in device memory: a tile
-// loads the 127 table entries its deltas cover. Tensor cores, TMA and wgmma
-// are later work. Instantiated for D=64.
+// With the table, the (H, N, N) bias and its gradient never exist in device
+// memory: a tile loads the 127 table entries its deltas cover. With an
+// (H, N, M) bias (the Coarse and Fine LMs'), K2 and K3 load each tile's
+// 64x64 float32 block of bias[h] into the dS (K2) or P (K3) tile's shared
+// memory, where each thread reads its own elements before it overwrites
+// them (no extra shared memory, so no occupancy lost), and
+//   K5: one block per (key tile, query tile, head), as the TPU grid
+//       (H, nq, nk, B) with the batch innermost: the block loops over the
+//       batch rows (and so over the kv head each query head reads, MQA),
+//       recomputes S, P and dP (2 products) and sums dS in registers, then
+//       writes its tile once; tiles above the causal diagonal are written as
+//       zeros. No atomics, so the sum's order is fixed. It redoes 2 of K2's 3
+//       products; fusing it into K2 with atomics, as K4 was, is later work.
+//       At the Fine LM's training shape (B=4, H=8, N=M=1201, causal) those
+//       are 5.9 GFLOP, 88 us at the float32 peak, against 46 MB of dbias
+//       written and 46 MB of bias read, 28 us at 3.35 TB/s: compute-bound
+//       (worked out from the shapes, not measured).
+// Tensor cores, TMA and wgmma are later work. Instantiated for D=64.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -84,6 +102,17 @@ __device__ __forceinline__ void load_bias(float* Bs, const float* tab, int q0, i
   for (int i = threadIdx.x; i < ND; i += NT) {
     const int idx = q0 - k0 - (BK - 1) + i + n - 1;
     Bs[i] = idx >= 0 && idx < 2 * n - 1 ? tab[(size_t)idx * heads + h] : 0.f;
+  }
+}
+
+// Ts[r * qs + c * ks] = bias_h[q0 + r, k0 + c] (r query, c key) of an (n, m)
+// float32 bias plane, zero outside it; read coalesced along the keys. One of
+// qs, ks is 1 and the other PITCH: query-major (K3, K5) or key-major (K2).
+__device__ __forceinline__ void load_bias_tile(float* Ts, const float* bias_h, int q0, int k0,
+                                               int n, int m, int qs, int ks) {
+  for (int i = threadIdx.x; i < BQ * BK; i += NT) {
+    const int r = i / BK, c = i % BK;
+    Ts[r * qs + c * ks] = q0 + r < n && k0 + c < m ? bias_h[(size_t)(q0 + r) * m + k0 + c] : 0.f;
   }
 }
 
@@ -128,7 +157,8 @@ __global__ void __launch_bounds__(NT)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                       const T* __restrict__ g, const float* __restrict__ lse,
                       const float* __restrict__ delta, const float* __restrict__ tab,
-                      const int8_t* __restrict__ kmask, T* __restrict__ dq,
+                      const float* __restrict__ bias, const int8_t* __restrict__ kmask,
+                      T* __restrict__ dq,
                       float* __restrict__ dtab, int heads, int group, int n, int m,
                       float scale, int causal) {
   constexpr int DC = D / 16;  // dq columns per thread
@@ -137,7 +167,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   float* Gs = Qs + D * PITCH;    // dO^T
   float* Ks = Gs + D * PITCH;    // k^T
   float* Vs = Ks + D * PITCH;    // v^T
-  float* Ss = Vs + D * PITCH;    // dS^T: Ss[c * PITCH + r]
+  float* Ss = Vs + D * PITCH;    // dS^T: Ss[c * PITCH + r]; before dS, the (H, N, M) bias tile
   float* Bs = Ss + BK * PITCH;
   float* Fs = Bs + ND;
   float* Ls = Fs + BK;
@@ -146,6 +176,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int bh = blockIdx.y;
   const int h = bh % heads, b = bh / heads;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // the longest causal rows first
+  const float* biash = bias != nullptr ? bias + (size_t)h * n * m : nullptr;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const T* kb = k + (size_t)(bh / group) * m * D;
   const T* vb = v + (size_t)(bh / group) * m * D;
@@ -166,6 +197,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     load_t<T, D>(Ks, kb, k0, m, 1.f);
     load_t<T, D>(Vs, vb, k0, m, 1.f);
     if (tab != nullptr) load_bias(Bs, tab, q0, k0, n, h, heads);
+    if (biash != nullptr) load_bias_tile(Ss, biash, q0, k0, n, m, 1, PITCH);
     load_flags(Fs, kmask, b, k0, m);
     __syncthreads();
 
@@ -202,8 +234,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j;
         float p, ds;
-        p_ds(s[i][j], dp[i][j], tab != nullptr ? Bs[r - c + BK - 1] : 0.f, Fs[c],
-             causal && k0 + c > q0 + r, Ls[r], Dl[r], p, ds);
+        // the bias tile's element is this thread's own, read before dS overwrites it
+        const float bias_rc = tab != nullptr ? Bs[r - c + BK - 1]
+                              : biash != nullptr ? Ss[c * PITCH + r] : 0.f;
+        p_ds(s[i][j], dp[i][j], bias_rc, Fs[c], causal && k0 + c > q0 + r, Ls[r], Dl[r], p,
+             ds);
         Ss[c * PITCH + r] = ds;
       }
     }
@@ -260,7 +295,8 @@ __global__ void __launch_bounds__(NT)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ g, const float* __restrict__ lse,
                      const float* __restrict__ delta, const float* __restrict__ tab,
-                     const int8_t* __restrict__ kmask, T* __restrict__ dk, T* __restrict__ dv,
+                     const float* __restrict__ bias, const int8_t* __restrict__ kmask,
+                     T* __restrict__ dk, T* __restrict__ dv,
                      int heads, int hk, int n, int m, float scale, int causal) {
   constexpr int DC = D / 16;
   extern __shared__ float smem[];
@@ -268,7 +304,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   float* Vs = Ks + D * PITCH;    // v^T
   float* Qs = Vs + D * PITCH;    // (scale q)^T
   float* Gs = Qs + D * PITCH;    // dO^T
-  float* Ps = Gs + D * PITCH;    // P: Ps[c * PITCH + r], c query, r key
+  float* Ps = Gs + D * PITCH;    // P: Ps[c * PITCH + r], c query, r key; before P, the bias tile
   float* Ss = Ps + BQ * PITCH;   // dS, the same layout
   float* Bs = Ss + BQ * PITCH;
   float* Fs = Bs + ND;
@@ -300,6 +336,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
       load_t<T, D>(Gs, g + (size_t)bh * n * D, q0, n, 1.f);
       load_rows(Ls, Dl, lse + (size_t)bh * n, delta + (size_t)bh * n, q0, n);
       if (tab != nullptr) load_bias(Bs, tab, q0, k0, n, h, heads);
+      if (bias != nullptr) load_bias_tile(Ps, bias + (size_t)h * n * m, q0, k0, n, m, PITCH, 1);
       __syncthreads();
 
       float s[4][4], dp[4][4];
@@ -335,8 +372,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
         for (int j = 0; j < 4; ++j) {
           const int c = tx + 16 * j;  // query
           float p, ds;
-          p_ds(s[i][j], dp[i][j], tab != nullptr ? Bs[c - r + BK - 1] : 0.f, Fs[r],
-               causal && k0 + r > q0 + c, Ls[c], Dl[c], p, ds);
+          const float bias_rc = tab != nullptr ? Bs[c - r + BK - 1]
+                                : bias != nullptr ? Ps[c * PITCH + r] : 0.f;
+          p_ds(s[i][j], dp[i][j], bias_rc, Fs[r], causal && k0 + r > q0 + c, Ls[c], Dl[c], p,
+               ds);
           Ps[c * PITCH + r] = p;
           Ss[c * PITCH + r] = ds;
         }
@@ -380,13 +419,116 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
 }
 
+template <int D>
+constexpr size_t smem_dbias() {
+  // Qs, Gs, Ks, Vs [D][PITCH]; bias tile [BQ][PITCH]; flags [BK]; lse, Delta [BQ]
+  return sizeof(float) * (4 * D * PITCH + BQ * PITCH + BK + 2 * BQ);
+}
+
+// K5. One block per (key tile, query tile, head); loops over the batch.
+template <typename T, int D>
+__global__ void __launch_bounds__(NT)
+flash_bwd_dbias_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                       const T* __restrict__ g, const float* __restrict__ lse,
+                       const float* __restrict__ delta, const float* __restrict__ bias,
+                       const int8_t* __restrict__ kmask, float* __restrict__ dbias,
+                       int batch, int heads, int hk, int n, int m, float scale, int causal) {
+  extern __shared__ float smem[];
+  float* Qs = smem;              // (scale q)^T
+  float* Gs = Qs + D * PITCH;    // dO^T
+  float* Ks = Gs + D * PITCH;    // k^T
+  float* Vs = Ks + D * PITCH;    // v^T
+  float* Ts = Vs + D * PITCH;    // bias tile: Ts[r * PITCH + c]
+  float* Fs = Ts + BQ * PITCH;
+  float* Ls = Fs + BK;
+  float* Dl = Ls + BQ;
+
+  const int k0 = blockIdx.x * BK, q0 = blockIdx.y * BQ, h = blockIdx.z;
+  const int group = heads / hk;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const float* biash = bias + (size_t)h * n * m;
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  // causal: a tile wholly above the diagonal has p = 0, so dbias = 0 there
+  if (!(causal && k0 > q0 + BQ - 1)) {
+    load_bias_tile(Ts, biash, q0, k0, n, m, PITCH, 1);
+    for (int b = 0; b < batch; ++b) {
+      const int bh = b * heads + h;
+      const int kvh = b * hk + h / group;
+      __syncthreads();  // the previous batch row's tiles are consumed
+      load_t<T, D>(Qs, q + (size_t)bh * n * D, q0, n, scale);
+      load_t<T, D>(Gs, g + (size_t)bh * n * D, q0, n, 1.f);
+      load_t<T, D>(Ks, k + (size_t)kvh * m * D, k0, m, 1.f);
+      load_t<T, D>(Vs, v + (size_t)kvh * m * D, k0, m, 1.f);
+      load_rows(Ls, Dl, lse + (size_t)bh * n, delta + (size_t)bh * n, q0, n);
+      load_flags(Fs, kmask, b, k0, m);
+      __syncthreads();
+
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < D; ++d) {
+        float a[4], ga[4], bk[4], bv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          a[i] = Qs[d * PITCH + ty + 16 * i];
+          ga[i] = Gs[d * PITCH + ty + 16 * i];
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          bk[j] = Ks[d * PITCH + tx + 16 * j];
+          bv[j] = Vs[d * PITCH + tx + 16 * j];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(a[i], bk[j], s[i][j]);
+            dp[i][j] = fmaf(ga[i], bv[j], dp[i][j]);
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = ty + 16 * i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = tx + 16 * j;
+          float p, ds;
+          p_ds(s[i][j], dp[i][j], Ts[r * PITCH + c], Fs[c], causal && k0 + c > q0 + r, Ls[r],
+               Dl[r], p, ds);
+          acc[i][j] += ds;
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qp = q0 + ty + 16 * i;
+    if (qp >= n) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int kp = k0 + tx + 16 * j;
+      if (kp < m) dbias[((size_t)h * n + qp) * m + kp] = acc[i][j];
+    }
+  }
+}
+
 template <typename K>
 cudaError_t set_smem(K kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 struct Args {
-  const void *q, *k, *v, *g, *lse, *delta, *tab, *kmask;
+  const void *q, *k, *v, *g, *lse, *delta, *tab, *bias, *kmask;
   int b, heads, hk, n, m;
   float scale;
   int causal;
@@ -404,7 +546,8 @@ cudaError_t launch_dq(const Args& a, void* dq, void* dtab) {
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.g), static_cast<const float*>(a.lse),
       static_cast<const float*>(a.delta), static_cast<const float*>(a.tab),
-      static_cast<const int8_t*>(a.kmask), static_cast<T*>(dq), static_cast<float*>(dtab),
+      static_cast<const float*>(a.bias), static_cast<const int8_t*>(a.kmask),
+      static_cast<T*>(dq), static_cast<float*>(dtab),
       a.heads, a.heads / a.hk, a.n, a.m, a.scale, a.causal);
   return cudaGetLastError();
 }
@@ -420,25 +563,44 @@ cudaError_t launch_dkv(const Args& a, void* dk, void* dv) {
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.g), static_cast<const float*>(a.lse),
       static_cast<const float*>(a.delta), static_cast<const float*>(a.tab),
-      static_cast<const int8_t*>(a.kmask), static_cast<T*>(dk), static_cast<T*>(dv),
+      static_cast<const float*>(a.bias), static_cast<const int8_t*>(a.kmask),
+      static_cast<T*>(dk), static_cast<T*>(dv),
       a.heads, a.hk, a.n, a.m, a.scale, a.causal);
   return cudaGetLastError();
 }
 
-// which: 0 dq (and dtab in o2 when not null), 1 dk/dv
+template <typename T, int D>
+cudaError_t launch_dbias(const Args& a, void* dbias) {
+  constexpr size_t smem = smem_dbias<D>();
+  auto kernel = flash_bwd_dbias_kernel<T, D>;
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.m + BK - 1) / BK, (a.n + BQ - 1) / BQ, a.heads);
+  kernel<<<grid, NT, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.g), static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<const float*>(a.bias),
+      static_cast<const int8_t*>(a.kmask), static_cast<float*>(dbias),
+      a.b, a.heads, a.hk, a.n, a.m, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+// which: 0 dq (and dtab in o2 when not null), 1 dk/dv, 2 dbias
 template <typename T>
 cudaError_t dispatch(int which, int d, const Args& a, void* o1, void* o2) {
   if (d != 64) return cudaErrorInvalidValue;
+  if (a.tab != nullptr && a.bias != nullptr) return cudaErrorInvalidValue;
   if (which == 1) return launch_dkv<T, 64>(a, o1, o2);
+  if (which == 2) return a.bias == nullptr ? cudaErrorInvalidValue : launch_dbias<T, 64>(a, o1);
   if (o2 != nullptr && (a.tab == nullptr || a.n != a.m)) return cudaErrorInvalidValue;
   return launch_dq<T, 64>(a, o1, o2);
 }
 
 int run(int which, const void* q, const void* k, const void* v, const void* g,
-        const void* lse, const void* delta, const void* tab, const void* kmask, void* o1,
-        void* o2, int b, int heads, int hk, int n, int m, int d, float scale, int causal,
-        int dtype, void* stream) {
-  const Args a{q, k, v, g, lse, delta, tab, kmask, b, heads, hk, n, m, scale, causal,
+        const void* lse, const void* delta, const void* tab, const void* bias,
+        const void* kmask, void* o1, void* o2, int b, int heads, int hk, int n, int m, int d,
+        float scale, int causal, int dtype, void* stream) {
+  const Args a{q, k, v, g, lse, delta, tab, bias, kmask, b, heads, hk, n, m, scale, causal,
                static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return dispatch<float>(which, d, a, o1, o2);
   if (dtype == 1) return dispatch<__nv_bfloat16>(which, d, a, o1, o2);
@@ -449,25 +611,37 @@ int run(int which, const void* q, const void* k, const void* v, const void* g,
 
 // q, g (b*heads, n, d); k, v (b*hk, m, d), in one dtype (0 float32, 1
 // bfloat16); lse, delta (b*heads, n) float32; tab (2n-1, heads) float32 or
-// null; kmask (b, m) int8 or null. Each returns a cudaError_t.
+// null; bias (heads, n, m) float32 or null, at most one of tab and bias;
+// kmask (b, m) int8 or null. Each returns a cudaError_t.
 
 // dq (b*heads, n, d) in q's dtype; with dtab not null also the table's
 // gradient, dtab (2n-1, heads) float32, zeroed by the caller (needs tab and n == m)
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* g,
                             const void* lse, const void* delta, const void* tab,
-                            const void* kmask, void* dq, void* dtab, int b, int heads, int hk,
-                            int n, int m, int d, float scale, int causal, int dtype,
-                            void* stream) {
-  return run(0, q, k, v, g, lse, delta, tab, kmask, dq, dtab, b, heads, hk, n, m, d, scale,
-             causal, dtype, stream);
+                            const void* bias, const void* kmask, void* dq, void* dtab, int b,
+                            int heads, int hk, int n, int m, int d, float scale, int causal,
+                            int dtype, void* stream) {
+  return run(0, q, k, v, g, lse, delta, tab, bias, kmask, dq, dtab, b, heads, hk, n, m, d,
+             scale, causal, dtype, stream);
 }
 
 // dk, dv (b*hk, m, d) in k's dtype
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* g,
                              const void* lse, const void* delta, const void* tab,
-                             const void* kmask, void* dk, void* dv, int b, int heads, int hk,
-                             int n, int m, int d, float scale, int causal, int dtype,
-                             void* stream) {
-  return run(1, q, k, v, g, lse, delta, tab, kmask, dk, dv, b, heads, hk, n, m, d, scale,
-             causal, dtype, stream);
+                             const void* bias, const void* kmask, void* dk, void* dv, int b,
+                             int heads, int hk, int n, int m, int d, float scale, int causal,
+                             int dtype, void* stream) {
+  return run(1, q, k, v, g, lse, delta, tab, bias, kmask, dk, dv, b, heads, hk, n, m, d,
+             scale, causal, dtype, stream);
+}
+
+// dbias (heads, n, m) float32, every element written (needs bias; tab and
+// the second output are unused and null)
+extern "C" int flash_bwd_dbias(const void* q, const void* k, const void* v, const void* g,
+                               const void* lse, const void* delta, const void* tab,
+                               const void* bias, const void* kmask, void* dbias, void* unused,
+                               int b, int heads, int hk, int n, int m, int d, float scale,
+                               int causal, int dtype, void* stream) {
+  return run(2, q, k, v, g, lse, delta, tab, bias, kmask, dbias, unused, b, heads, hk, n, m, d,
+             scale, causal, dtype, stream);
 }

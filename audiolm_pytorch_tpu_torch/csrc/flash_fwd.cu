@@ -1,5 +1,6 @@
 // Flash-attention forward for Hopper (sm_90a), with the rel-pos bias read
-// straight from its (2N-1, H) distance table.
+// straight from its (2N-1, H) distance table, or an (H, N, M) float32 bias
+// shared over the batch read tile by tile.
 //
 // Replaces the TPU kernel of the JAX package, ops/pallas/flash_attention.py
 // `_kernel` (launched by `_flash_bh`, entries `flash_attention` and
@@ -19,8 +20,17 @@
 // products run as float32 FMAs on the CUDA cores (no tensor cores yet), each
 // thread owning a 4x4 patch of the 64x64 score tile and a 4x(D/16) patch of
 // the output. The bias never exists as (H, N, N): each key tile loads the
-// 127 table entries its deltas q-k cover. wgmma/TMA come later. Instantiated
-// for D=64, the head dim of every model on the port's path.
+// 127 table entries its deltas q-k cover. With an (H, N, M) bias (the Coarse
+// and Fine LMs' materialised bias), each key tile loads its 64x64 float32
+// block of bias[h] into the P tile's shared memory instead (each thread
+// reads its own elements there before it overwrites them with p, so the
+// tile costs no shared memory and no occupancy), one coalesced pass. At the
+// Fine LM's training shape (B=4, H=8, N=M=1201) the bias is 46 MB, 14 us at
+// 3.35 TB/s, against 88 us for the causal products at the float32 peak, so
+// the kernel stays compute-bound; each batch row reads it again, mostly from
+// the 50 MB L2 (worked out from the shapes, not measured).
+// wgmma/TMA come later. Instantiated for D=64, the head dim of every model
+// on the port's path.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -51,7 +61,8 @@ constexpr size_t smem_bytes() {
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const float* __restrict__ tab, const int8_t* __restrict__ kmask,
+                 const float* __restrict__ tab, const float* __restrict__ bias,
+                 const int8_t* __restrict__ kmask,
                  T* __restrict__ out, float* __restrict__ lse, int heads, int group,
                  int n, int m, float scale, int causal) {
   static_assert(D % 16 == 0, "D must be a multiple of 16");
@@ -60,7 +71,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   float* Qs = smem;                 // q^T * scale
   float* Ks = Qs + D * PITCH;       // k^T
   float* Vs = Ks + D * PITCH;       // v, row-major
-  float* Ps = Vs + BK * D;          // p^T
+  float* Ps = Vs + BK * D;          // p^T; before p, the (H, N, M) bias tile
   float* Bs = Ps + BK * PITCH;      // bias for deltas q0-k0-(BK-1) .. q0-k0+BQ-1
   float* Fs = Bs + BQ + BK - 1;     // key flags: 0 in range, NEG masked, -inf past m
 
@@ -72,6 +83,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const T* qb = q + (size_t)bh * n * D;
   const T* kb = k + (size_t)(bh / group) * m * D;
   const T* vb = v + (size_t)(bh / group) * m * D;
+  const float* biash = bias != nullptr ? bias + (size_t)h * n * m : nullptr;
 
   for (int i = tid; i < BQ * D; i += NT) {
     const int r = i / D, c = i % D;
@@ -101,6 +113,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       for (int i = tid; i < BQ + BK - 1; i += NT) {
         const int idx = q0 - k0 - (BK - 1) + i + n - 1;
         Bs[i] = idx >= 0 && idx < 2 * n - 1 ? tab[(size_t)idx * heads + h] : 0.f;
+      }
+    }
+    if (biash != nullptr) {
+      for (int i = tid; i < BQ * BK; i += NT) {
+        const int r = i / BK, c = i % BK;
+        Ps[c * PITCH + r] = q0 + r < n && k0 + c < m ? biash[(size_t)(q0 + r) * m + k0 + c] : 0.f;
       }
     }
     for (int i = tid; i < BK; i += NT) {
@@ -137,6 +155,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
         const int c = tx + 16 * j;
         float x = s[i][j];
         if (tab != nullptr) x += Bs[r - c + BK - 1];
+        else if (biash != nullptr) x += Ps[c * PITCH + r];  // this thread's own element
         const float f = Fs[c];
         if (f != 0.f) x = f;
         if (causal && k0 + c > q0 + r && f == 0.f) x = NEG;
@@ -194,7 +213,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* tab,
-                   const void* kmask, void* out, void* lse, int bh, int heads, int group,
+                   const void* bias, const void* kmask, void* out, void* lse, int bh, int heads, int group,
                    int n, int m, float scale, int causal, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
@@ -203,17 +222,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* tab,
   dim3 grid((n + BQ - 1) / BQ, bh);
   flash_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(tab), static_cast<const int8_t*>(kmask),
+      static_cast<const float*>(tab), static_cast<const float*>(bias),
+      static_cast<const int8_t*>(kmask),
       static_cast<T*>(out), static_cast<float*>(lse), heads, group, n, m, scale, causal);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v, const void* tab,
-                       const void* kmask, void* out, void* lse, int bh, int heads, int group,
-                       int n, int m, float scale, int causal, cudaStream_t stream) {
+                       const void* bias, const void* kmask, void* out, void* lse, int bh,
+                       int heads, int group, int n, int m, float scale, int causal,
+                       cudaStream_t stream) {
   switch (d) {
-    case 64: return launch<T, 64>(q, k, v, tab, kmask, out, lse, bh, heads, group, n, m, scale, causal, stream);
+    case 64: return launch<T, 64>(q, k, v, tab, bias, kmask, out, lse, bh, heads, group, n, m,
+                                  scale, causal, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -221,16 +243,20 @@ cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v, const
 }  // namespace
 
 // q (bh, n, d); k, v (bh / group, m, d); tab (2n-1, heads) float32 or null;
-// kmask (bh / heads, m) int8 or null; out (bh, n, d) in q's type; lse (bh, n)
+// bias (heads, n, m) float32 or null, at most one of the two; kmask
+// (bh / heads, m) int8 or null; out (bh, n, d) in q's type; lse (bh, n)
 // float32. dtype 0 = float32, 1 = bfloat16. Returns a cudaError_t.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void* tab,
-                         const void* kmask, void* out, void* lse, int bh, int heads,
-                         int group, int n, int m, int d, float scale, int causal,
+                         const void* bias, const void* kmask, void* out, void* lse, int bh,
+                         int heads, int group, int n, int m, int d, float scale, int causal,
                          int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tab != nullptr && bias != nullptr) return cudaErrorInvalidValue;
   if (dtype == 0)
-    return dispatch_d<float>(d, q, k, v, tab, kmask, out, lse, bh, heads, group, n, m, scale, causal, s);
+    return dispatch_d<float>(d, q, k, v, tab, bias, kmask, out, lse, bh, heads, group, n, m,
+                             scale, causal, s);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(d, q, k, v, tab, kmask, out, lse, bh, heads, group, n, m, scale, causal, s);
+    return dispatch_d<__nv_bfloat16>(d, q, k, v, tab, bias, kmask, out, lse, bh, heads, group,
+                                     n, m, scale, causal, s);
   return cudaErrorInvalidValue;
 }

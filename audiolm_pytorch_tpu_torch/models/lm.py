@@ -1,17 +1,32 @@
-"""The Semantic LM, held against the JAX package's `models/lm.py::
-SemanticTransformer` (without text conditioning)."""
+"""The three LMs, held against the JAX package's `models/lm.py`
+(`SemanticTransformer`, `CoarseTransformer`, `FineTransformer`), without
+text conditioning, and their checkpoint loaders.
+
+The Semantic LM's attention takes its rel-pos bias as a (2N-1, H) table. The
+Coarse and Fine LMs build a materialised (H, L, L) bias with learned parts
+(`build_attn_bias`) that replaces the transformer's rel-pos bias: the
+flash-attention kernels read it tile by tile, and its gradient (K5) flows
+back into `cross_attn_bias`, the rel-pos MLP, `null_pos_bias` and the 2-D
+position MLP through autograd.
+"""
 from __future__ import annotations
 
+import functools
+import inspect
+
+import numpy as np
 import torch
 from torch import nn
 
 from ..device import resolve_device
 from ..nn.layers import Linear, init_normal
+from ..ops.relpos import toeplitz_expand
 from ..ops.sampling import get_embeds
 from ..weights import read_npz, state_dict_from_jax
 from .transformer import Transformer
 
-__all__ = ["SemanticTransformer", "load_semantic_transformer"]
+__all__ = ["SemanticTransformer", "CoarseTransformer", "FineTransformer",
+           "load_semantic_transformer", "load_coarse_transformer", "load_fine_transformer"]
 
 # encoder widths of the T5 models the JAX package knows; an unconditioned
 # model still holds the text projection, so its checkpoints load whole
@@ -27,24 +42,23 @@ class SemanticTransformer(nn.Module):
                  heads: int = 8, dim_head: int = 64, num_residual_streams: int = 4,
                  rel_pos_bias: bool = True, grad_shrink_alpha: float = 0.1,
                  attn_dropout: float = 0.0, ff_dropout: float = 0.0,
+                 add_value_residual: bool = True,
                  t5_name: str = "google/t5-v1_1-base", cond_dim: "int | None" = None,
                  seed: int = 0, device: "str | torch.device" = "cuda"):
         super().__init__()
-        if attn_dropout > 0 or ff_dropout > 0:
-            raise NotImplementedError("attn_dropout / ff_dropout > 0 is not ported")
+        _refuse_dropout(attn_dropout, ff_dropout)
         device = resolve_device(device)
         g = torch.Generator().manual_seed(seed)
         self.num_semantic_tokens = num_semantic_tokens
         self.eos_id = num_semantic_tokens
         self.start_token = nn.Parameter(init_normal((dim,), 1.0, g))
         self.semantic_embedding = nn.Parameter(init_normal((num_semantic_tokens + 1, dim), 0.02, g))
-        text_dim = cond_dim if cond_dim is not None else _T5_DIMS[t5_name]
-        self.proj_text_embed = Linear(text_dim, dim, bias=False, generator=g) \
-            if text_dim != dim else None
+        self.proj_text_embed = _text_projection(dim, t5_name, cond_dim, g)
         self.transformer = Transformer(
             dim=dim, depth=depth, heads=heads, dim_head=dim_head,
             num_residual_streams=num_residual_streams, rel_pos_bias=rel_pos_bias,
-            grad_shrink_alpha=grad_shrink_alpha, generator=g, device="cpu")
+            grad_shrink_alpha=grad_shrink_alpha, add_value_residual=add_value_residual,
+            generator=g, device="cpu")
         self.to_logits = Linear(dim, num_semantic_tokens + 1, generator=g)
         self.to(device)
 
@@ -67,23 +81,337 @@ class SemanticTransformer(nn.Module):
                                                self_attn_mask=self_attn_mask))
 
 
+def _tile_offsets(num_q: int, length: int, stride: int):
+    """[0, stride, 2*stride, ...] cycling over the quantizers, `length` long."""
+    return (np.arange(length) % num_q) * stride
+
+
+def _per_quantizer_logits(tokens, logit_weights, num_q: int):
+    """tokens (B, N, D), logit_weights (Q, C, D) -> (B, N, C), position i
+    through head i % Q; one product over the whole groups of Q positions and
+    one over the remainder, so no (N, C, D) weight gather is built."""
+    b, n, d = tokens.shape
+    w = logit_weights.to(tokens.dtype)
+    nq = n - n % num_q
+    group = tokens[:, :nq].reshape(b, nq // num_q, num_q, d)
+    logits = torch.einsum("qcd,bnqd->bnqc", w, group).reshape(b, nq, -1)
+    if nq == n:
+        return logits
+    rest = torch.einsum("qcd,bqd->bqc", w[:n - nq], tokens[:, nq:])
+    return torch.cat([logits, rest], dim=1)
+
+
+def _refuse_dropout(attn_dropout, ff_dropout):
+    if attn_dropout > 0 or ff_dropout > 0:
+        raise NotImplementedError("attn_dropout / ff_dropout > 0 is not ported")
+
+
+def _text_projection(dim, t5_name, cond_dim, generator):
+    text_dim = cond_dim if cond_dim is not None else _T5_DIMS[t5_name]
+    return Linear(text_dim, dim, bias=False, generator=generator) if text_dim != dim else None
+
+
+def _start(token, b, dtype):
+    return token.to(dtype).expand(b, 1, -1)
+
+
+def _pad_cached(out, kv_cache_pos: int):
+    """Outputs of the positions after a cache's fill position, padded with
+    zeros in front to their absolute positions (the JAX package's LM-level
+    cache convenience)."""
+    if not kv_cache_pos:
+        return out
+    pad = out.new_zeros(out.shape[0], kv_cache_pos, out.shape[-1])
+    return torch.cat([pad, out], dim=1)
+
+
+class CoarseTransformer(nn.Module):
+    """Joint LM over [semantic start, semantic ids, coarse start, coarse
+    codes] with per-quantizer embeddings (offset stride codebook_size + 1,
+    so each quantizer has its own EOS row) and heads. Weights are drawn from
+    `seed` on the CPU and then moved to `device`."""
+
+    def __init__(self, *, codebook_size: int, num_coarse_quantizers: int, dim: int, depth: int,
+                 num_semantic_tokens: int, heads: int = 8, dim_head: int = 64,
+                 num_residual_streams: int = 4, rel_pos_bias: bool = True,
+                 grad_shrink_alpha: float = 0.1, attn_dropout: float = 0.0,
+                 ff_dropout: float = 0.0, add_value_residual: bool = True,
+                 project_semantic_logits: bool = True, t5_name: str = "google/t5-v1_1-base",
+                 cond_dim: "int | None" = None, seed: int = 0,
+                 device: "str | torch.device" = "cuda"):
+        super().__init__()
+        _refuse_dropout(attn_dropout, ff_dropout)
+        device = resolve_device(device)
+        g = torch.Generator().manual_seed(seed)
+        self.num_semantic_tokens = num_semantic_tokens
+        self.semantic_eos_id = num_semantic_tokens
+        self.coarse_eos_id = codebook_size
+        self.codebook_size = codebook_size
+        self.num_coarse_quantizers = num_coarse_quantizers
+        cb_eos = codebook_size + 1
+        self.semantic_start_token = nn.Parameter(init_normal((dim,), 1.0, g))
+        self.coarse_start_token = nn.Parameter(init_normal((dim,), 1.0, g))
+        self.semantic_embedding = nn.Parameter(init_normal((num_semantic_tokens + 1, dim), 0.02, g))
+        self.coarse_embedding = nn.Parameter(
+            init_normal((num_coarse_quantizers * cb_eos, dim), 0.02, g))
+        self.coarse_quantize_embedding = nn.Parameter(
+            init_normal((num_coarse_quantizers, dim), 0.02, g))
+        self.proj_text_embed = _text_projection(dim, t5_name, cond_dim, g)
+        self.cross_attn_bias = nn.Parameter(torch.zeros(heads, 1, 1)) if rel_pos_bias else None
+        self.transformer = Transformer(
+            dim=dim, depth=depth, heads=heads, dim_head=dim_head,
+            num_residual_streams=num_residual_streams, rel_pos_bias=rel_pos_bias,
+            grad_shrink_alpha=grad_shrink_alpha, add_value_residual=add_value_residual,
+            generator=g, device="cpu")
+        self.to_semantic_logits = Linear(dim, num_semantic_tokens + 1, generator=g) \
+            if project_semantic_logits else None
+        self.coarse_logit_weights = nn.Parameter(
+            init_normal((num_coarse_quantizers, cb_eos, dim), 0.02, g))
+        self.to(device)
+
+    def embed_coarse(self, coarse_token_ids):
+        """(B, Nc) -> (B, Nc, D): per-quantizer rows, -1 embeds to 0, plus the
+        quantizer embedding."""
+        n = coarse_token_ids.shape[-1]
+        dev = coarse_token_ids.device
+        qpos = torch.arange(n, device=dev) % self.num_coarse_quantizers
+        pad = coarse_token_ids < 0
+        emb = self.coarse_embedding[coarse_token_ids.masked_fill(pad, 0)
+                                    + qpos * (self.codebook_size + 1)]
+        return emb.masked_fill(pad[..., None], 0.0) + self.coarse_quantize_embedding[qpos]
+
+    def build_attn_bias(self, semantic_seq_len: int, total_len: int):
+        """(H, L, L) rel-pos bias with the learned `cross_attn_bias` scalar of
+        each head across the semantic/coarse boundary, or None."""
+        rel = self.transformer.rel_pos_bias
+        if rel is None:
+            return None
+        bias = toeplitz_expand(rel.table(total_len), total_len, total_len)
+        is_semantic = torch.arange(total_len, device=bias.device) < semantic_seq_len + 1
+        is_cross = is_semantic[:, None] ^ is_semantic[None, :]
+        return torch.where(is_cross[None], self.cross_attn_bias, bias)
+
+    def forward(self, semantic_token_ids, coarse_token_ids, *, self_attn_mask=None,
+                return_only_coarse_logits: bool = False, kv_cache=None):
+        """(semantic logits (B, S, num_semantic_tokens + 1) or None, coarse
+        logits (B, Nc + 1, codebook_size + 1)) for [start, semantic ids, start,
+        coarse codes]; self_attn_mask (B, L) is a key mask over all L
+        positions. With kv_cache, only the positions after its fill position
+        run, against a bias as long as the cache; the outputs before them are
+        zeros."""
+        b = semantic_token_ids.shape[0]
+        sem = semantic_token_ids.reshape(b, -1)
+        coarse = coarse_token_ids.reshape(b, -1)
+        sem_tokens = get_embeds(self.semantic_embedding, sem)
+        coarse_tokens = self.embed_coarse(coarse)
+        sem_len = sem.shape[1]
+        tokens = torch.cat([_start(self.semantic_start_token, b, sem_tokens.dtype), sem_tokens,
+                            _start(self.coarse_start_token, b, coarse_tokens.dtype),
+                            coarse_tokens], dim=1)
+        pos = kv_cache.pos if kv_cache is not None else 0
+        bias_len = kv_cache.k.shape[2] if kv_cache is not None else tokens.shape[1]
+        out = self.transformer(tokens[:, pos:], self_attn_mask=self_attn_mask,
+                               attn_bias=self.build_attn_bias(sem_len, bias_len),
+                               kv_cache=kv_cache)
+        out = _pad_cached(out, pos)
+        semantic_logits = None
+        if not return_only_coarse_logits and self.to_semantic_logits is not None:
+            semantic_logits = self.to_semantic_logits(out[:, :sem_len])
+        coarse_logits = _per_quantizer_logits(out[:, sem_len + 1:], self.coarse_logit_weights,
+                                              self.num_coarse_quantizers)
+        return semantic_logits, coarse_logits
+
+
+@functools.lru_cache(maxsize=16)
+def _fine_bias_layout(qc: int, qf: int, coarse_len: int, fine_len: int):
+    """The layout of the Fine LM's 2-D position bias over [coarse start,
+    coarse, fine start, fine] (L = coarse_len + fine_len + 2): the MLP's
+    (rel time step, rel quantizer) inputs, each position's (time step,
+    quantizer) (L, 2), the (L,) start-token flags, and the two offsets that
+    turn a pair's difference into its row of the MLP's table."""
+    coarse_seq = -(-coarse_len // qc)
+    fine_seq = -(-fine_len // qf) if fine_len else 0
+    max_seq = max(coarse_seq, fine_seq, 1)
+    num_offsets = qc + qf
+    coarse_pos = np.repeat(np.arange(coarse_seq), qc)[:coarse_len]
+    fine_pos = np.repeat(np.arange(max(fine_seq, 1)), qf)[:fine_len]
+    seq_positions = np.concatenate([[-1], coarse_pos, [-1], fine_pos])
+    seq_offsets = np.concatenate([[0], _tile_offsets(qc, coarse_len, 1),
+                                  [0], _tile_offsets(qf, fine_len, 1) + qc])
+    pos_inp = np.stack([np.maximum(seq_positions, 0), seq_offsets], axis=-1)
+    rel_seq_len, rel_offsets = 2 * max_seq - 1, 2 * num_offsets - 1
+    mlp_inputs = np.stack([np.repeat(np.arange(rel_seq_len), rel_offsets),
+                           np.tile(np.arange(rel_offsets), rel_seq_len)], -1).astype(np.float32)
+    return mlp_inputs, pos_inp, seq_positions == -1, (max_seq - 1, num_offsets - 1)
+
+
+class FineTransformer(nn.Module):
+    """Joint LM over [coarse start, coarse codes, fine start, fine codes]
+    with a 2-D (time step, quantizer) MLP position bias, `null_pos_bias` on
+    the start tokens' rows and columns, and per-quantizer embeddings (offset
+    stride codebook_size) and heads. Weights are drawn from `seed` on the CPU
+    and then moved to `device`."""
+
+    def __init__(self, *, num_coarse_quantizers: int, num_fine_quantizers: int,
+                 codebook_size: int, dim: int, depth: int, heads: int = 8, dim_head: int = 64,
+                 num_residual_streams: int = 4, rel_pos_bias: bool = True,
+                 grad_shrink_alpha: float = 0.1, attn_dropout: float = 0.0,
+                 ff_dropout: float = 0.0, add_value_residual: bool = True,
+                 project_coarse_logits: bool = True, pad_id: int = -1,
+                 t5_name: str = "google/t5-v1_1-base", cond_dim: "int | None" = None,
+                 seed: int = 0, device: "str | torch.device" = "cuda"):
+        super().__init__()
+        _refuse_dropout(attn_dropout, ff_dropout)
+        device = resolve_device(device)
+        g = torch.Generator().manual_seed(seed)
+        self.num_coarse_quantizers = num_coarse_quantizers
+        self.num_fine_quantizers = num_fine_quantizers
+        self.codebook_size = codebook_size
+        self.pad_id = pad_id
+        self.eos_id = codebook_size
+        self.coarse_start_token = nn.Parameter(init_normal((dim,), 1.0, g))
+        self.fine_start_token = nn.Parameter(init_normal((dim,), 1.0, g))
+        self.coarse_embedding = nn.Parameter(
+            init_normal((num_coarse_quantizers * codebook_size, dim), 0.02, g))
+        self.fine_embedding = nn.Parameter(
+            init_normal((num_fine_quantizers * codebook_size, dim), 0.02, g))
+        self.coarse_quantize_embedding = nn.Parameter(
+            init_normal((num_coarse_quantizers, dim), 0.02, g))
+        self.fine_quantize_embedding = nn.Parameter(
+            init_normal((num_fine_quantizers, dim), 0.02, g))
+        self.proj_text_embed = _text_projection(dim, t5_name, cond_dim, g)
+        self.transformer = Transformer(
+            dim=dim, depth=depth, heads=heads, dim_head=dim_head,
+            num_residual_streams=num_residual_streams, rel_pos_bias=False,
+            grad_shrink_alpha=grad_shrink_alpha, add_value_residual=add_value_residual,
+            generator=g, device="cpu")
+        if rel_pos_bias:
+            self.null_pos_bias = nn.Parameter(init_normal((heads, 1, 1), 1.0, g))
+            pd = dim // 2
+            self.pos_bias_l1 = Linear(2, pd, generator=g)
+            self.pos_bias_l2 = Linear(pd, pd, generator=g)
+            self.pos_bias_l3 = Linear(pd, heads, generator=g)
+        else:
+            self.null_pos_bias = self.pos_bias_l1 = self.pos_bias_l2 = self.pos_bias_l3 = None
+        self.coarse_logit_weights = nn.Parameter(
+            init_normal((num_coarse_quantizers, codebook_size, dim), 0.02, g)) \
+            if project_coarse_logits else None
+        self.fine_logit_weights = nn.Parameter(
+            init_normal((num_fine_quantizers, codebook_size, dim), 0.02, g))
+        self.to(device)
+
+    def _pos_bias_mlp(self, x):
+        h = torch.nn.functional.silu(self.pos_bias_l1(x))
+        h = torch.nn.functional.silu(self.pos_bias_l2(h))
+        return self.pos_bias_l3(h)
+
+    def build_attn_bias(self, coarse_len: int, fine_len: int):
+        """(H, L, L) bias over [coarse start, coarse, fine start, fine], L =
+        coarse_len + fine_len + 2: the MLP of each pair's (rel time step, rel
+        quantizer), `null_pos_bias` on the start tokens' rows and columns; or
+        None."""
+        if self.pos_bias_l1 is None:
+            return None
+        mlp_inputs, pos, is_start, (seq_off, q_off) = _fine_bias_layout(
+            self.num_coarse_quantizers, self.num_fine_quantizers, coarse_len, fine_len)
+        dev = self.null_pos_bias.device
+        table = self._pos_bias_mlp(torch.from_numpy(mlp_inputs).to(dev))  # (R, H)
+        # the (L, L) pair index is formed on the device from the (L, 2) positions
+        pos = torch.from_numpy(pos).to(dev)
+        rel = pos[:, None, :] - pos[None, :, :]
+        idx = (rel[..., 0] + seq_off) * (2 * q_off + 1) + rel[..., 1] + q_off
+        bias = table[idx].permute(2, 0, 1)  # (H, L, L)
+        start = torch.from_numpy(is_start).to(dev)
+        return torch.where((start[:, None] | start[None, :])[None], self.null_pos_bias, bias)
+
+    def _embed(self, table, quantize_table, ids, num_q):
+        qpos = torch.arange(ids.shape[-1], device=ids.device) % num_q
+        return table[ids + qpos * self.codebook_size] + quantize_table[qpos]
+
+    def embed_coarse(self, coarse_token_ids):
+        return self._embed(self.coarse_embedding, self.coarse_quantize_embedding,
+                           coarse_token_ids, self.num_coarse_quantizers)
+
+    def embed_fine(self, fine_token_ids):
+        return self._embed(self.fine_embedding, self.fine_quantize_embedding, fine_token_ids,
+                           self.num_fine_quantizers)
+
+    def coarse_key_mask(self, coarse_token_ids, n_fine: int):
+        """(B, Nc + Nf + 2) key mask that drops the coarse pad and EOS codes,
+        and the coarse ids with those codes set to 0."""
+        ok = (coarse_token_ids != self.pad_id) & (coarse_token_ids != self.eos_id)
+        mask = torch.nn.functional.pad(ok, (1, n_fine + 1), value=True)
+        return mask, coarse_token_ids.masked_fill(~ok, 0)
+
+    def forward(self, coarse_token_ids, fine_token_ids, *, self_attn_mask=None,
+                return_only_fine_logits: bool = False, kv_cache=None):
+        """(coarse logits (B, Nc, cb) or None, fine logits (B, Nf + 1, cb)) for
+        [start, coarse codes, start, fine codes]; the coarse pad and EOS codes
+        are masked out of attention. With kv_cache, only the positions after
+        its fill position run, against the bias of the cache's whole fine
+        budget; the outputs before them are zeros."""
+        b = coarse_token_ids.shape[0]
+        coarse = coarse_token_ids.reshape(b, -1)
+        fine = fine_token_ids.reshape(b, -1)
+        n_coarse, n_fine = coarse.shape[-1], fine.shape[-1]
+        cmask, coarse = self.coarse_key_mask(coarse, n_fine)
+        self_attn_mask = cmask if self_attn_mask is None else self_attn_mask & cmask
+        coarse_tokens = self.embed_coarse(coarse)
+        fine_tokens = self.embed_fine(fine)
+        tokens = torch.cat([_start(self.coarse_start_token, b, coarse_tokens.dtype),
+                            coarse_tokens, _start(self.fine_start_token, b, fine_tokens.dtype),
+                            fine_tokens], dim=1)
+        pos = kv_cache.pos if kv_cache is not None else 0
+        fine_budget = kv_cache.k.shape[2] - n_coarse - 2 if kv_cache is not None else n_fine
+        out = self.transformer(tokens[:, pos:], self_attn_mask=self_attn_mask,
+                               attn_bias=self.build_attn_bias(n_coarse, fine_budget),
+                               kv_cache=kv_cache)
+        out = _pad_cached(out, pos)
+        coarse_logits = None
+        if not return_only_fine_logits and self.coarse_logit_weights is not None:
+            coarse_logits = _per_quantizer_logits(out[:, :n_coarse], self.coarse_logit_weights,
+                                                  self.num_coarse_quantizers)
+        fine_logits = _per_quantizer_logits(out[:, n_coarse + 1:], self.fine_logit_weights,
+                                            self.num_fine_quantizers)
+        return coarse_logits, fine_logits
+
+
+# checkpoint config keys that cannot change what the port computes: the
+# attention dispatch (each choice computes the same function) and the
+# condition dropout of a model without a condition (a condition is refused)
+_INERT_KEYS = ("flash_attn", "cond_drop_prob")
+# conditioning the port does not have: a checkpoint must hold these values
 _UNPORTED = {"has_condition": False, "audio_text_condition": False,
              "cond_as_self_attn_prefix": False}
-_CONFIG_KEYS = ("dim", "depth", "num_semantic_tokens", "heads", "dim_head",
-                "num_residual_streams", "rel_pos_bias", "grad_shrink_alpha",
-                "t5_name", "cond_dim")
+
+
+def _load(cls, path, device):
+    """A `cls` built from the config in a JAX `.npz` checkpoint and loaded
+    with its weights. Raises on any config key the port does not honour."""
+    device = resolve_device(device)
+    meta, arrays = read_npz(path)
+    cfg = {k: v for k, v in meta["config"].items() if k not in _INERT_KEYS}
+    for key, value in _UNPORTED.items():
+        if cfg.pop(key, value) != value:
+            raise NotImplementedError(f"{path}: {key}={meta['config'][key]} is not ported")
+    unknown = sorted(set(cfg) - set(inspect.signature(cls).parameters) - {"seed", "device"})
+    if unknown:
+        raise NotImplementedError(f"{path}: config keys {unknown} are not honoured by the port")
+    model = cls(**cfg, device="cpu")
+    model.load_state_dict(state_dict_from_jax(arrays))
+    return model.to(device)
 
 
 def load_semantic_transformer(path, *, device: "str | torch.device" = "cuda"):
-    """A SemanticTransformer built from the config in a JAX `.npz` checkpoint
-    and loaded with its weights."""
-    device = resolve_device(device)
-    meta, arrays = read_npz(path)
-    cfg = meta["config"]
-    for key, value in _UNPORTED.items():
-        if cfg.get(key, value) != value:
-            raise NotImplementedError(f"{path}: {key}={cfg[key]} is not ported")
-    model = SemanticTransformer(**{k: cfg[k] for k in _CONFIG_KEYS if k in cfg},
-                                device="cpu")
-    model.load_state_dict(state_dict_from_jax(arrays))
-    return model.to(device)
+    """A SemanticTransformer from a JAX `.npz` checkpoint."""
+    return _load(SemanticTransformer, path, device)
+
+
+def load_coarse_transformer(path, *, device: "str | torch.device" = "cuda"):
+    """A CoarseTransformer from a JAX `.npz` checkpoint."""
+    return _load(CoarseTransformer, path, device)
+
+
+def load_fine_transformer(path, *, device: "str | torch.device" = "cuda"):
+    """A FineTransformer from a JAX `.npz` checkpoint."""
+    return _load(FineTransformer, path, device)

@@ -1,15 +1,16 @@
-"""Decoder-only transformer of the Semantic LM, held against the JAX package's
+"""Decoder-only transformer of the three LMs, held against the JAX package's
 `models/transformer.py`: continuous rel-pos bias, a preallocated KV cache,
 multi-query causal attention with value residuals, dynamic hyper-connections
 over S residual streams, GEGLU feed-forward.
 
 Attention dispatch: uncached self-attention, in scoring and in training,
-goes through the flash-attention kernels with the rel-pos bias as its
-(2N-1, H) table and the key mask (the forgetful causal mask in training); the
-table's gradient flows back into the bias MLP through autograd. The
-KV-cached prefill and decode steps take the plain `attend`, as the JAX
-package does. Cross attention, prefix conditioning and dropout are not part
-of this port: dropout > 0 raises.
+goes through the flash-attention kernels with the key mask (the forgetful
+causal mask in training) and either the rel-pos bias as its (2N-1, H) table
+(the Semantic LM) or a caller's materialised (H, N, N) bias that replaces it
+(`attn_bias`, the Coarse and Fine LMs); either bias's gradient flows back
+through autograd. The KV-cached prefill and decode steps take the plain
+`attend`, as the JAX package does. Cross attention, prefix conditioning and
+dropout are not part of this port: dropout > 0 raises.
 """
 from __future__ import annotations
 
@@ -81,10 +82,11 @@ class Attention(nn.Module):
         self.to_kv = Linear(dim, dim_head * 2, bias=False, generator=generator)
         self.to_out = Linear(heads * dim_head, dim, bias=False, generator=generator)
 
-    def forward(self, x, *, mask=None, bias_tab=None, cache_bias=None,
+    def forward(self, x, *, mask=None, bias_tab=None, bias=None, cache_bias=None,
                 value_residual=None, cache_kv=None, cache_pos: int = 0):
         """x: (B, N, D). Without a cache: causal self-attention with
-        bias_tab (2N-1, H) and key mask (B, N). With cache_kv (k, v views of
+        bias_tab (2N-1, H) or bias (H, N, N), and key mask (B, N). With
+        cache_kv (k, v views of
         (B, max_len, dh)): the new k/v are written at cache_pos and the
         queries attend over the whole buffer, cache_bias (H, N, max_len) and
         mask (B, max_len) applied. Returns (out, values before the residual)."""
@@ -97,7 +99,7 @@ class Attention(nn.Module):
 
         if cache_kv is None:
             out = flash_attention(q.contiguous(), k[:, None].contiguous(),
-                                  v[:, None].contiguous(), bias_tab=bias_tab,
+                                  v[:, None].contiguous(), bias_tab=bias_tab, bias=bias,
                                   key_mask=mask, causal=True)
         else:
             ck, cv = cache_kv
@@ -183,7 +185,7 @@ class Transformer(nn.Module):
     def __init__(self, *, dim: int, depth: int, heads: int, dim_head: int = 64,
                  num_residual_streams: int = 4, rel_pos_bias: bool = True,
                  grad_shrink_alpha: float = 0.1, attn_dropout: float = 0.0,
-                 ff_dropout: float = 0.0,
+                 ff_dropout: float = 0.0, add_value_residual: bool = True,
                  generator: "torch.Generator | None" = None,
                  device: "str | torch.device" = "cuda"):
         super().__init__()
@@ -195,6 +197,7 @@ class Transformer(nn.Module):
         self.depth, self.heads, self.dim_head = depth, heads, dim_head
         self.num_residual_streams = num_residual_streams
         self.grad_shrink_alpha = grad_shrink_alpha
+        self.add_value_residual = add_value_residual
         self.layers = nn.ModuleList([
             TransformerLayer(dim, heads=heads, dim_head=dim_head,
                              num_streams=num_residual_streams, index=d, generator=generator)
@@ -204,19 +207,29 @@ class Transformer(nn.Module):
             if rel_pos_bias else None
         self.to(device)
 
-    def forward(self, x, *, self_attn_mask=None, kv_cache: "KVCache | None" = None):
+    def forward(self, x, *, self_attn_mask=None, attn_bias=None,
+                kv_cache: "KVCache | None" = None):
         """x: (B, N, D); with kv_cache, only the new tokens after kv_cache.pos,
-        whose k/v are written into the cache in place (pos advances by N)."""
+        whose k/v are written into the cache in place (pos advances by N).
+        attn_bias: an additive (H, L, L) bias that replaces the rel-pos bias,
+        L = N uncached; with a cache, L = the cache's length and the rows of
+        the new positions are taken from it."""
         n = x.shape[1]
         x = grad_shrink(x, self.grad_shrink_alpha)
         kw = dict(mask=self_attn_mask)
         if kv_cache is not None:
             kw["cache_pos"] = kv_cache.pos
-            if self.rel_pos_bias is not None:
+            if attn_bias is not None:
+                # rows of the current positions (H, n, L); an (H, n, L) bias passes as it is
+                kw["cache_bias"] = attn_bias if attn_bias.shape[1] == n else \
+                    attn_bias[:, kv_cache.pos:kv_cache.pos + n]
+            elif self.rel_pos_bias is not None:
                 # O(L) decode bias: only the rows of the current positions
                 max_len = kv_cache.k.shape[2]
                 q_pos = kv_cache.pos + torch.arange(n, device=x.device)
                 kw["cache_bias"] = table_rows(self.rel_pos_bias.table(max_len), q_pos, max_len)
+        elif attn_bias is not None:
+            kw["bias"] = attn_bias
         elif self.rel_pos_bias is not None:
             kw["bias_tab"] = self.rel_pos_bias.table(n)
 
@@ -227,8 +240,8 @@ class Transformer(nn.Module):
             if kv_cache is not None:
                 kw["cache_kv"] = (kv_cache.k[li], kv_cache.v[li])
             h, values = layer(h, dict(kw, value_residual=value_residual))
-            if value_residual is None:  # the first layer's values feed every later layer
-                value_residual = values
+            if self.add_value_residual and value_residual is None:
+                value_residual = values  # the first layer's values feed every later layer
         if kv_cache is not None:
             kv_cache.pos += n
         return self.final_norm(h.sum(0) if s > 1 else h)

@@ -1,6 +1,8 @@
-"""Scoring, the training loss and KV-cached generation for the Semantic LM,
+"""Scoring, the training loss and KV-cached generation for the three LMs,
 held against the JAX package's `models/wrappers.py` (`masked_cross_entropy`,
-`_sample_from_logits`, `_semantic_generate_jit`, `SemanticTransformerWrapper`)."""
+`_sample_from_logits`, `_semantic_generate_jit`, `_coarse_generate_jit`,
+`_fine_generate_jit` on their sequential paths, and the three wrappers'
+`__call__`), from token ids: no codec, wav2vec, text conditioning or CFG."""
 from __future__ import annotations
 
 import torch
@@ -9,10 +11,11 @@ from torch import nn
 from ..ops.sampling import (append_eos_id, batch_unique_consecutive,
                             generate_mask_with_prob, get_embeds, gumbel_sample,
                             mask_out_after_eos_id, top_k)
-from .lm import SemanticTransformer
+from .lm import CoarseTransformer, FineTransformer, SemanticTransformer
 from .transformer import KVCache
 
-__all__ = ["SemanticTransformerWrapper", "masked_cross_entropy", "sample_from_logits"]
+__all__ = ["SemanticTransformerWrapper", "CoarseTransformerWrapper", "FineTransformerWrapper",
+           "masked_cross_entropy", "sample_from_logits"]
 
 
 def masked_cross_entropy(logits, labels, ignore_index: int = -1):
@@ -106,3 +109,229 @@ class SemanticTransformerWrapper(nn.Module):
         ids_out = mask_out_after_eos_id(ids_buf, self.eos_id, mask_value=self.pad_id,
                                         keep_eos=False)
         return (ids_out, logits_buf) if return_logits else ids_out
+
+
+def _decode_codes(step, head_weights, embed_code, last_out, buf, start: int, *,
+                  eos_id: "int | None", filter_thres, temperature, generator, logits_buf):
+    """The sequential sampler of the Coarse and Fine wrappers: for each code
+    i from `start` on, the logits of position i through head i % Q (the last
+    class, EOS for the coarse heads, only at a time-step boundary after the
+    first step), one sample, and `step` (one cached transformer step) on its
+    embedding. With eos_id, stops once every row holds EOS. Fills buf (B, n)
+    in place and, when given, logits_buf (B, n, C) with the logits before the
+    EOS masking."""
+    num_q = head_weights.shape[0]
+    for i in range(start, buf.shape[1]):
+        if eos_id is not None and bool((buf == eos_id).any(-1).all()):
+            break
+        q = i % num_q
+        logits = last_out @ head_weights[q].t().to(last_out.dtype)
+        if logits_buf is not None:
+            logits_buf[:, i] = logits
+        if not (q == 0 and i > 0):
+            logits = logits.clone()
+            logits[:, -1] = float("-inf")
+        sampled = sample_from_logits(logits, filter_thres, temperature, generator=generator)
+        buf[:, i] = sampled
+        last_out = step(embed_code(sampled, q)[:, None])[:, -1]
+
+
+class CoarseTransformerWrapper(nn.Module):
+    """Scores (semantic ids, coarse codes) pairs, gives the training loss and
+    samples coarse codes for given semantic ids."""
+
+    def __init__(self, *, transformer: CoarseTransformer, pad_id: int = -1,
+                 unique_consecutive: bool = True, mask_prob: float = 0.15):
+        super().__init__()
+        self.transformer = transformer
+        self.pad_id = pad_id
+        self.unique_consecutive = unique_consecutive
+        self.mask_prob = mask_prob
+        self.num_coarse_quantizers = transformer.num_coarse_quantizers
+        self.semantic_eos_id = transformer.semantic_eos_id
+        self.coarse_eos_id = transformer.coarse_eos_id
+
+    def forward(self, semantic_token_ids, coarse_token_ids, *, return_loss: bool = False,
+                train: bool = False, generator: "torch.Generator | None" = None):
+        """(semantic logits, coarse logits), or with return_loss the loss:
+        each head's cross entropy weighted by its count of labels (the JAX
+        wrapper's loss weights at their default, 1). With
+        train, EOS is appended to both streams and the forgetful causal mask
+        (drawn from `generator`) joins the key mask, which always drops the
+        semantic pad and EOS ids."""
+        b = semantic_token_ids.shape[0]
+        sem = semantic_token_ids.reshape(b, -1)
+        coarse = coarse_token_ids.reshape(b, -1)
+        if train:
+            sem = append_eos_id(sem, self.semantic_eos_id)
+            coarse = append_eos_id(coarse, self.coarse_eos_id)
+        if self.unique_consecutive:
+            sem = batch_unique_consecutive(sem, pad_value=self.pad_id)
+        sem_labels, coarse_labels = sem, coarse
+        if return_loss:
+            coarse = coarse[:, :-1]
+        keep = (sem != self.pad_id) & (sem != self.semantic_eos_id)
+        sem = sem.masked_fill(~keep, 0)
+        mask = torch.nn.functional.pad(keep, (1, coarse.shape[-1] + 1), value=True)
+        if train and self.mask_prob > 0:
+            mask = mask & generate_mask_with_prob(mask.shape, self.mask_prob,
+                                                  generator=generator, device=mask.device)
+        semantic_logits, coarse_logits = self.transformer(sem, coarse, self_attn_mask=mask)
+        if not return_loss:
+            return semantic_logits, coarse_logits
+        # the counts as the JAX wrapper takes them: all labels, or all logits
+        num_coarse = coarse_labels.numel() if self.unique_consecutive else coarse_logits.shape[1]
+        num_semantic, semantic_loss = 0, 0.0
+        if semantic_logits is not None:
+            num_semantic = (sem_labels != self.pad_id).sum() if self.unique_consecutive \
+                else semantic_logits.shape[1]
+            semantic_loss = masked_cross_entropy(semantic_logits, sem_labels, self.pad_id)
+        coarse_loss = masked_cross_entropy(coarse_logits, coarse_labels, self.pad_id)
+        return (semantic_loss * num_semantic + coarse_loss * num_coarse) / (num_semantic
+                                                                             + num_coarse)
+
+    @torch.no_grad()
+    def generate(self, *, semantic_token_ids, prime_coarse_token_ids=None,
+                 max_time_steps: int = 512, filter_thres: float = 0.9, temperature: float = 1.0,
+                 generator: "torch.Generator | None" = None, return_logits: bool = False):
+        """Sample max_time_steps x Q coarse codes after the prompt
+        `prime_coarse_token_ids` (B, Pc), for semantic ids (B, S) (-1 pads
+        embed to 0). One prefill of [start, semantic, start, prompt], then
+        one cached step per code; stops once every row holds EOS, and EOS and
+        what follows become -1. Returns the (B, T, Q) grid of the prompt and
+        the samples, T = Pc / Q + max_time_steps; with return_logits also the
+        (B, T * Q, cb + 1) logits each code was sampled from (zeros for the
+        prompt and past the last step)."""
+        tr = self.transformer
+        device = tr.coarse_start_token.device
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        sem = semantic_token_ids.to(device)
+        if self.unique_consecutive:
+            sem = batch_unique_consecutive(sem, pad_value=self.pad_id)
+        b, s = sem.shape
+        prime = prime_coarse_token_ids.to(device).reshape(b, -1) \
+            if prime_coarse_token_ids is not None else sem.new_zeros(b, 0)
+        pc, num_q = prime.shape[1], self.num_coarse_quantizers
+        n_total = pc + max_time_steps * num_q
+        t = tr.transformer
+        dtype = tr.coarse_start_token.dtype
+        total = 1 + s + 1 + n_total  # semantic start, semantic, coarse start, coarse
+        bias = tr.build_attn_bias(s, total)
+        cache = KVCache.create(t.depth, b, total, t.dim_head, dtype=dtype, device=device)
+        tokens = torch.cat([tr.semantic_start_token.expand(b, 1, -1),
+                            get_embeds(tr.semantic_embedding, sem),
+                            tr.coarse_start_token.expand(b, 1, -1), tr.embed_coarse(prime)], 1)
+        last_out = t(tokens.to(dtype), attn_bias=bias, kv_cache=cache)[:, -1]
+        buf = torch.zeros(b, n_total, dtype=torch.long, device=device)
+        buf[:, :pc] = prime
+        logits_buf = buf.new_zeros(b, n_total, tr.codebook_size + 1, dtype=dtype) \
+            if return_logits else None
+        stride = tr.codebook_size + 1
+
+        def embed_code(code, q):
+            return tr.coarse_embedding[code + q * stride] + tr.coarse_quantize_embedding[q]
+
+        _decode_codes(lambda x: t(x, attn_bias=bias, kv_cache=cache), tr.coarse_logit_weights,
+                      embed_code, last_out, buf, pc, eos_id=self.coarse_eos_id,
+                      filter_thres=filter_thres, temperature=temperature, generator=generator,
+                      logits_buf=logits_buf)
+        buf = mask_out_after_eos_id(buf, self.coarse_eos_id, mask_value=-1, keep_eos=False)
+        grid = buf.reshape(b, -1, num_q)
+        return (grid, logits_buf) if return_logits else grid
+
+
+class FineTransformerWrapper(nn.Module):
+    """Scores (coarse codes, fine codes) pairs, gives the training loss and
+    samples the fine codes of given coarse codes."""
+
+    def __init__(self, *, transformer: FineTransformer, pad_id: int = -1,
+                 mask_prob: float = 0.15):
+        super().__init__()
+        self.transformer = transformer
+        self.num_coarse_quantizers = transformer.num_coarse_quantizers
+        self.num_fine_quantizers = transformer.num_fine_quantizers
+        self.pad_id = pad_id
+        self.mask_prob = mask_prob
+
+    def forward(self, coarse_token_ids, fine_token_ids, *, return_loss: bool = False,
+                train: bool = False, generator: "torch.Generator | None" = None):
+        """(coarse logits, fine logits), or with return_loss the loss: each
+        head's cross entropy weighted by its count of logits (the JAX
+        wrapper's loss weight at its default, 1). With train, the
+        forgetful causal mask (drawn from `generator`) is applied."""
+        b = coarse_token_ids.shape[0]
+        coarse = coarse_token_ids.reshape(b, -1)
+        fine = fine_token_ids.reshape(b, -1)
+        coarse_labels, fine_labels = coarse, fine
+        if return_loss:
+            fine = fine[:, :-1]
+        mask = None
+        if train and self.mask_prob > 0:
+            mask = generate_mask_with_prob((b, coarse.shape[-1] + fine.shape[-1] + 2),
+                                           self.mask_prob, generator=generator,
+                                           device=coarse.device)
+        coarse_logits, fine_logits = self.transformer(coarse, fine, self_attn_mask=mask)
+        if not return_loss:
+            return coarse_logits, fine_logits
+        num_fine = fine_logits.shape[1]
+        coarse_loss, num_coarse = 0.0, 0
+        if coarse_logits is not None:
+            num_coarse = coarse_logits.shape[1]
+            coarse_loss = masked_cross_entropy(coarse_logits, coarse_labels, self.pad_id)
+        fine_loss = masked_cross_entropy(fine_logits, fine_labels, self.pad_id)
+        return (coarse_loss * num_coarse + fine_loss * num_fine) / (num_coarse + num_fine)
+
+    @torch.no_grad()
+    def generate(self, *, coarse_token_ids, prime_fine_token_ids=None,
+                 filter_thres: float = 0.9, temperature: float = 1.0,
+                 mask_out_generated_fine_tokens: bool = False,
+                 generator: "torch.Generator | None" = None, return_logits: bool = False):
+        """Sample the fine codes of coarse codes (B, T, Qc) or (B, T * Qc),
+        after the prompt `prime_fine_token_ids` (B, Pf). One prefill of
+        [start, coarse, start, prompt] under a bias of the whole fine budget
+        and the key mask that drops coarse pad and EOS codes, then one cached
+        step per code, T * Qf in all. Returns the (B, T, Qf) grid; with
+        mask_out_generated_fine_tokens, the time steps whose coarse codes are
+        all pad become pad; with return_logits also the (B, T * Qf, cb)
+        logits each code was sampled from (zeros for the prompt)."""
+        tr = self.transformer
+        device = tr.coarse_start_token.device
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        b = coarse_token_ids.shape[0]
+        coarse = coarse_token_ids.to(device).reshape(b, -1)
+        nc, qc, qf = coarse.shape[1], self.num_coarse_quantizers, self.num_fine_quantizers
+        steps = nc // qc
+        n_total = steps * qf
+        prime = prime_fine_token_ids.to(device).reshape(b, -1) \
+            if prime_fine_token_ids is not None else coarse.new_zeros(b, 0)
+        pf = prime.shape[1]
+        t = tr.transformer
+        dtype = tr.coarse_start_token.dtype
+        bias = tr.build_attn_bias(nc, n_total)
+        cache = KVCache.create(t.depth, b, 2 + nc + n_total, t.dim_head, dtype=dtype,
+                               device=device)
+        key_mask, coarse_safe = tr.coarse_key_mask(coarse, n_total)
+        tokens = torch.cat([tr.coarse_start_token.expand(b, 1, -1), tr.embed_coarse(coarse_safe),
+                            tr.fine_start_token.expand(b, 1, -1), tr.embed_fine(prime)], 1)
+        last_out = t(tokens.to(dtype), self_attn_mask=key_mask, attn_bias=bias,
+                     kv_cache=cache)[:, -1]
+        buf = torch.zeros(b, n_total, dtype=torch.long, device=device)
+        buf[:, :pf] = prime
+        logits_buf = buf.new_zeros(b, n_total, tr.codebook_size, dtype=dtype) \
+            if return_logits else None
+
+        def embed_code(code, q):
+            return tr.fine_embedding[code + q * tr.codebook_size] + tr.fine_quantize_embedding[q]
+
+        # the fine heads have no EOS class: no early exit, and no EOS to mask out after
+        _decode_codes(lambda x: t(x, self_attn_mask=key_mask, attn_bias=bias, kv_cache=cache),
+                      tr.fine_logit_weights, embed_code, last_out, buf, pf, eos_id=None,
+                      filter_thres=filter_thres, temperature=temperature, generator=generator,
+                      logits_buf=logits_buf)
+        grid = buf.reshape(b, steps, qf)
+        if mask_out_generated_fine_tokens:
+            all_pad = (coarse.reshape(b, steps, qc) == self.pad_id).all(-1, keepdim=True)
+            grid = grid.masked_fill(all_pad, self.pad_id)
+        return (grid, logits_buf) if return_logits else grid

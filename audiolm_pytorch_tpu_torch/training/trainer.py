@@ -22,7 +22,7 @@ __all__ = ["TransformerTrainStep"]
 
 
 class TransformerTrainStep:
-    """Trains `wrapper` (e.g. a SemanticTransformerWrapper) on `device`.
+    """Trains `wrapper` (a Semantic, Coarse or Fine wrapper) on `device`.
     The forgetful masks are drawn from a generator seeded with `seed`."""
 
     def __init__(self, wrapper, *, lr: float = 3e-4, wd: float = 0.0,
@@ -40,19 +40,23 @@ class TransformerTrainStep:
         self.grad_accum_every = grad_accum_every
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
-    def step(self, semantic_token_ids) -> float:
-        """One update from (grad_accum_every * B, N) token ids; returns the
-        mean loss of the micro-batches."""
+    def step(self, *token_ids) -> float:
+        """One update from the wrapper's batch: one or more id tensors, each
+        (grad_accum_every * B, ...) (the Semantic wrapper's ids; the Coarse
+        wrapper's semantic ids and coarse codes; the Fine wrapper's coarse
+        and fine codes). Each is split into grad_accum_every micro-batches
+        along its first axis. Returns the mean loss of the micro-batches."""
         accum = self.grad_accum_every
-        ids = semantic_token_ids.to(self.device)
-        if ids.shape[0] % accum:
-            raise ValueError(f"batch {ids.shape[0]} is not a multiple of "
-                             f"grad_accum_every {accum}")
+        batches = [ids.to(self.device) for ids in token_ids]
+        for ids in batches:
+            if ids.shape[0] % accum:
+                raise ValueError(f"batch {ids.shape[0]} is not a multiple of "
+                                 f"grad_accum_every {accum}")
         for p in self.params:
             p.grad = torch.zeros_like(p)
         losses = []
-        for micro in ids.view(accum, -1, *ids.shape[1:]):
-            loss = self.wrapper(micro, return_loss=True, train=True, generator=self.generator)
+        for micro in zip(*(ids.reshape(accum, -1, *ids.shape[1:]) for ids in batches)):
+            loss = self.wrapper(*micro, return_loss=True, train=True, generator=self.generator)
             (loss / accum).backward()
             losses.append(loss.detach())
         if self.max_grad_norm is not None:

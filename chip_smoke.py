@@ -32,9 +32,29 @@ Phases, each printing its name and seconds:
                    same weights and mask, leaf by leaf by relative norm, and
                    the same comparison is shown to reject the card's gradients
                    with dq zeroed in one layer; one step under torch.profiler.
-Each path, scoring, generation and training, sets the kernel launch counts
-to 0 just before its own calls and reads them just after, before any check
-(CPU comparison, profile, uncached scoring of the generated ids) runs.
+  7-12. the Coarse and the Fine LM at the width bench.py gives them (dim 512,
+                   depth 6, 8 heads of 64, 4 residual streams, codebook 1024,
+                   3 coarse and 5 fine quantizers, 500 semantic tokens; random
+                   weights from --seed), whose attention takes a materialised
+                   (H, L, L) bias: K1-K3 read it tile by tile and K5 gives its
+                   gradient. For each: scoring of 4 x 3-s clips (50 Hz: 150
+                   semantic ids and 450 coarse codes; 450 coarse and 750 fine
+                   codes), with the card's logits held against the CPU port's
+                   on a 1-s clip; KV-cached greedy generation of a 1-s clip
+                   (150 coarse codes from 50 semantic ids, then the 250 fine
+                   codes of those), each code's logits held against an
+                   uncached scoring; training on the 4 x 3-s batch as in 6,
+                   the card's gradients held against the CPU port's on a
+                   short clip and the check shown to reject them with K5's
+                   dbias zeroed in one layer; one step under torch.profiler.
+The kernels phase also holds the (H, N, M)-bias form of K1-K3 and K5 to the
+plain versions at the Coarse and Fine training shapes (N = 1 + 151 + 1 + 450
+= 603 and 1 + 450 + 1 + 749 = 1201: EOS appended, the last code dropped for
+the loss) and at a ragged shape with a key mask.
+Each path, scoring, generation and training of each LM, sets the kernel
+launch counts to 0 just before its own calls and reads them just after,
+before any check (CPU comparison, profile, uncached scoring of the generated
+ids) runs.
 
 Ends with a JSON line of per-kernel numbers, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}. Any failed phase raises
@@ -46,6 +66,7 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import re
 import subprocess
 import sys
 import time
@@ -55,7 +76,9 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from audiolm_pytorch_tpu_torch import (SemanticTransformer, SemanticTransformerWrapper,
+from audiolm_pytorch_tpu_torch import (CoarseTransformer, CoarseTransformerWrapper,
+                                       FineTransformer, FineTransformerWrapper,
+                                       SemanticTransformer, SemanticTransformerWrapper,
                                        TransformerTrainStep)
 from audiolm_pytorch_tpu_torch.ops.kernels import _build
 from audiolm_pytorch_tpu_torch.ops.kernels import flash_attention as fa
@@ -86,7 +109,17 @@ TRAIN_N = TRAIN_IDS[1] + 1
 LOGITS_TOL = 2e-3  # float32 card vs CPU: summation order differs, nothing else
 DEV = torch.device("cuda")
 SOURCES = (fa.SOURCE, fa.SOURCE_BWD)
-COUNTERS = ("launches", "launches_dq", "launches_dkv", "launches_dtab")
+COUNTERS = ("launches", "launches_dq", "launches_dkv", "launches_dtab", "launches_dbias")
+# the Coarse and Fine LMs at bench.py's width (bench.py:333-338)
+ACOUSTIC = dict(dim=512, depth=6, heads=8, dim_head=64, num_residual_streams=4,
+                codebook_size=1024, num_coarse_quantizers=3)
+COARSE = dict(ACOUSTIC, num_semantic_tokens=500)
+FINE = dict(ACOUSTIC, num_fine_quantizers=5)
+HZ = 50  # frames per second of audio, semantic and acoustic alike
+CLIP_S, CLIP_B = 3, 4  # the scoring and training batch: 4 clips of 3 s
+# the attention length of a train step: start, ids + EOS, start, codes + EOS - 1
+COARSE_N = 1 + (CLIP_S * HZ + 1) + 1 + CLIP_S * HZ * 3
+FINE_N = 1 + CLIP_S * HZ * 3 + 1 + CLIP_S * HZ * 5 - 1
 
 
 def phase(name):
@@ -146,8 +179,13 @@ def build_phase():
     for src, sec in zip(SOURCES, secs):
         print(f"  {src}: {sec:.2f} s")
         for line in _build.build_log.get(src, "").splitlines():
-            if "registers" in line or "spill" in line:
-                print("    ptxas:", line.strip())
+            # the kernel's name in the mangled entry: its length, the name, its template args
+            entry = re.search(r"\d(flash_[a-z_]+_kernel)I", line) if "Compiling entry" in line \
+                else None
+            if entry:
+                print(f"    {entry.group(1)}<{'bf16' if 'bfloat16' in line else 'fp32'}>:")
+            elif "registers" in line or "spill" in line:
+                print("      ptxas:", line.strip())
 
 
 def counts():
@@ -179,14 +217,19 @@ def flash_inputs(rng, b, h, n, d, dtype, key_mask_from=None, forget_p=None):
     return q, k, v, tab, mask
 
 
-def flash_bound_ms(q, k, v, tab, mask, *, products=2, adds=0, extra_bytes=0):
-    """Least time for the function on these inputs: q, k, v, the table and
-    the mask read once, out and lse written once (plus `extra_bytes`), and
-    `products` matrix products (plus `adds` additions) over the attended
-    (q, k) pairs."""
+def dense_bias(rng, h, n):
+    """An (h, n, n) float32 bias on the card, as the Coarse and Fine LMs build."""
+    return torch.from_numpy(0.5 * rng.standard_normal((h, n, n), dtype=np.float32)).to(DEV)
+
+
+def flash_bound_ms(q, k, v, bias, mask, *, products=2, adds=0, extra_bytes=0):
+    """Least time for the function on these inputs: q, k, v, the bias (the
+    table or the (H, N, N) tensor, float32) and the mask read once, out and
+    lse written once (plus `extra_bytes`), and `products` matrix products
+    (plus `adds` additions) over the attended (q, k) pairs."""
     b, h, n, d = q.shape
     es = q.element_size()
-    nbytes = (q.numel() + k.numel() + v.numel() + q.numel()) * es + tab.numel() * 4 \
+    nbytes = (q.numel() + k.numel() + v.numel() + q.numel()) * es + bias.numel() * 4 \
         + b * h * n * 4 + (mask.numel() if mask is not None else 0) + extra_bytes
     keys = torch.ones(b, n, dtype=torch.bool, device=q.device) if mask is None else mask
     # causal: query i attends the valid keys j <= i
@@ -196,13 +239,13 @@ def flash_bound_ms(q, k, v, tab, mask, *, products=2, adds=0, extra_bytes=0):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def sdpa_mask(q, tab, mask):
-    """The float mask SDPA needs for the same function: the expanded bias,
-    -inf above the diagonal and on masked keys. Its rows lie 16 elements
-    apart (a view of a padded buffer), as SDPA's fused kernels need for an
-    odd N. Yardstick only."""
+def sdpa_mask(q, tab, mask, bias=None):
+    """The float mask SDPA needs for the same function: the expanded table
+    (or the (H, N, N) bias), -inf above the diagonal and on masked keys. Its
+    rows lie 16 elements apart (a view of a padded buffer), as SDPA's fused
+    kernels need for an odd N. Yardstick only."""
     n = q.shape[2]
-    fmask = toeplitz_expand(tab, n, n)[None].to(q.dtype)
+    fmask = (toeplitz_expand(tab, n, n) if bias is None else bias)[None].to(q.dtype)
     causal = torch.ones(n, n, dtype=torch.bool, device=q.device).tril()
     keep = causal[None, None] if mask is None else causal[None, None] & mask[:, None, None, :]
     fmask = fmask.masked_fill(~keep, float("-inf"))
@@ -219,8 +262,8 @@ def sdpa_kv(k, v, h):
     return (a.expand(-1, h, -1, -1).contiguous() for a in (k, v))
 
 
-def check_flash(q, k, v, tab, mask, label):
-    kw = dict(bias_tab=tab, key_mask=mask, causal=True)
+def check_flash(q, k, v, tab, mask, label, bias=None):
+    kw = dict(bias_tab=tab, bias=bias, key_mask=mask, causal=True)
     out = fa.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     ref = fa.flash_attention_ref(q, k, v, **kw)
@@ -232,11 +275,11 @@ def check_flash(q, k, v, tab, mask, label):
     plain_ms = cuda_ms(lambda: fa.flash_attention_ref(q, k, v, **kw), iters=3, warmup=1)
     # yardstick only, never called by the port: one SDPA call with the same float mask
     h = q.shape[1]
-    fmask = sdpa_mask(q, tab, mask)
+    fmask = sdpa_mask(q, tab, mask, bias)
     ke, ve = sdpa_kv(k, v, h)
     library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q, ke, ve, attn_mask=fmask))
-    bound_ms, bound_by = flash_bound_ms(q, k, v, tab, mask)
+    bound_ms, bound_by = flash_bound_ms(q, k, v, tab if bias is None else bias, mask)
     print(f"flash [{label}]: max_abs_err {err:.3e} (tol {tol}) | kernel {ms:.4f} ms | "
           f"plain {plain_ms:.4f} ms | sdpa {library_ms:.4f} ms | bound {bound_ms:.4f} ms "
           f"({bound_by})")
@@ -320,6 +363,87 @@ def check_flash_bwd(q, k, v, tab, mask, label, seed):
     return result
 
 
+def check_flash_bias_bwd(q, k, v, bias, mask, label, seed):
+    """The backward with an (H, N, N) bias through the autograd.Function (K1,
+    then K2, K3 and K5) against the plain backward on the same out, lse and
+    dO; then each launch alone on prepared arguments. plain_ms and
+    library_ms time the whole backward (dq, dk, dv and dbias), as for the
+    table form."""
+    b, h, n, d = q.shape
+    scale = d ** -0.5
+    kw = dict(causal=True, scale=scale)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    g = torch.randn(q.shape, generator=gen, device=DEV).to(q.dtype)
+    leaves = [a.detach().requires_grad_() for a in (q, k, v, bias)]
+    out, lse = fa.flash_attention(*leaves[:3], bias=leaves[3], key_mask=mask, causal=True,
+                                  return_lse=True)
+    grads = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    out, lse = out.detach(), lse.detach()
+    ref = fa.flash_attention_bwd_ref(q, k, v, None, mask, out, lse, g, bias=bias, **kw)
+    tol = GRAD_TOL[q.dtype]
+    errs = {}
+    for name, a, r in zip(("dq", "dk", "dv", "dbias"), grads, ref):
+        errs[name] = (a.float() - r.float()).abs().max().item()
+        if not torch.allclose(a.float(), r.float(), **tol):
+            raise AssertionError(f"flash bias backward vs plain [{label}] {name}: max abs err "
+                                 f"{errs[name]} over {tol}")
+    if not grads[3].abs().max().item() > 0:
+        raise AssertionError(f"flash bias backward [{label}]: dbias is zero")
+
+    delta = (g.float() * out.float()).sum(-1)
+    kmask = mask.to(torch.int8).contiguous() if mask is not None else None
+    args = (q, k, v, g, lse, delta, None, kmask)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, None, mask, out, lse, g,
+                                                          bias=bias, **kw), iters=3, warmup=1)
+    # yardstick only, never called by the port: SDPA forward + backward with the
+    # float bias (its gradient included) minus SDPA forward (dk, dv per query head)
+    fmask = sdpa_mask(q, None, mask, bias).requires_grad_()
+    qs, ks, vs = (a.detach().requires_grad_() for a in (q, *sdpa_kv(k, v, h)))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, attn_mask=fmask)
+
+    fwd_bwd_ms = cuda_ms(lambda: torch.autograd.grad(sdpa(), (qs, ks, vs, fmask), g), iters=5)
+    with torch.no_grad():
+        fwd_ms = cuda_ms(sdpa, iters=5)
+    library_ms = fwd_bwd_ms - fwd_ms
+    es, rows = q.element_size(), b * h * n * 4
+    timed = (
+        ("dq", lambda: fa.bwd_dq(*args, bias=bias, **kw), errs["dq"],
+         flash_bound_ms(q, k, v, bias, mask, products=3, extra_bytes=q.numel() * es + rows)),
+        ("dkv", lambda: fa.bwd_dkv(*args, bias=bias, **kw), max(errs["dk"], errs["dv"]),
+         flash_bound_ms(q, k, v, bias, mask, products=4,
+                        extra_bytes=2 * k.numel() * es + rows)),
+        # S and dP recomputed, dS summed over the batch, dbias written once
+        ("dbias", lambda: fa.bwd_dbias(q, k, v, g, lse, delta, bias, kmask, **kw),
+         errs["dbias"], flash_bound_ms(q, k, v, bias, mask, products=2, adds=1,
+                                       extra_bytes=rows + bias.numel() * 4)))
+    result = {}
+    for name, fn, err, (bound_ms, bound_by) in timed:
+        ms = cuda_ms(fn)
+        result[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, library_ms=library_ms, at=label)
+        print(f"flash bias bwd {name} [{label}]: max_abs_err {err:.3e} | kernel {ms:.4f} ms | "
+              f"bound {bound_ms:.4f} ms ({bound_by})")
+    print(f"flash bias bwd [{label}]: plain backward {plain_ms:.4f} ms | sdpa fwd+bwd - fwd "
+          f"{library_ms:.4f} ms ({fwd_bwd_ms:.4f} - {fwd_ms:.4f}) | tol {tol}")
+    return result
+
+
+def check_bias_form(rng, b, h, n, d, label, seed, **mask_kw):
+    """K1-K3 and K5 with an (h, n, n) bias, fp32 and bf16; the fp32 rows."""
+    rows = None
+    for dtype, name in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        q, k, v, _, mask = flash_inputs(rng, b, h, n, d, dtype, **mask_kw)
+        bias = dense_bias(rng, h, n)
+        at = f"{name} {b}x{h}x{n}x{d} {label}, (H, N, N) bias"
+        fwd = check_flash(q, k, v, None, mask, at, bias=bias)
+        bwd = check_flash_bias_bwd(q, k, v, bias, mask, at, seed)
+        rows = rows or {"fwd": fwd, **bwd}
+    return rows
+
+
 @phase("kernels")
 def kernel_phase(seed):
     rng = np.random.default_rng(seed)
@@ -345,7 +469,14 @@ def kernel_phase(seed):
                     "fp32 ragged 2x8x1000x64, keys >= 700 masked in row 1", seed)
     check_flash_bwd(*flash_inputs(rng, 2, h, 1000, d, torch.bfloat16, key_mask_from=700),
                     "bf16 ragged 2x8x1000x64, keys >= 700 masked in row 1", seed)
-    return {"fwd": main, **bwd}
+    # the (H, N, N)-bias form: the Coarse and Fine training shapes, and a ragged one
+    check_bias_form(rng, CLIP_B, h, COARSE_N, d, "(Coarse training), 15% of keys forgotten",
+                    seed, forget_p=0.15)
+    bias = check_bias_form(rng, CLIP_B, h, FINE_N, d, "(Fine training), 15% of keys forgotten",
+                           seed, forget_p=0.15)
+    check_bias_form(rng, 2, h, 1000, d, "ragged, keys >= 700 masked in row 1", seed,
+                    key_mask_from=700)
+    return {"fwd": main, **bwd, "bias": bias}
 
 
 def flagship(seed):
@@ -489,8 +620,9 @@ def training_phase(seed, cpu_model):
     launched = counts()
     peak = torch.cuda.max_memory_allocated()
     for name, n in launched.items():
-        if n != depth * steps:
-            raise AssertionError(f"training: {name} {n} != depth {depth} x steps {steps}")
+        want = 0 if name == "launches_dbias" else depth * steps  # the table form: no K5
+        if n != want:
+            raise AssertionError(f"training: {name} {n} != {want}")
     if not all(np.isfinite([first, *losses])):
         raise AssertionError(f"non-finite training loss: {[first, *losses]}")
     if not losses[-1] < first:
@@ -501,51 +633,70 @@ def training_phase(seed, cpu_model):
           f"max_memory_allocated {peak / 2**30:.3f} GiB | launches {launched}")
 
     # card vs CPU gradients at 1 x 256, same weights, same forgetful mask
-    small = ids[:1, :256]
-    card = small_grads(model, small, seed)
-    cpu = small_grads(copy.deepcopy(model).cpu(), small.cpu(), seed)
-    errs = leaf_errors(card, cpu)
-    worst = max(errs, key=errs.get)
-    top = max(cpu, key=lambda n: cpu[n].abs().max())
-    print(f"training 1x256 card (kernels) vs CPU (plain) gradients: worst of {len(errs)} of "
-          f"{len(cpu)} leaves {errs[worst]:.3e} in {worst} (limit {LEAF_TOL}); largest "
-          f"|g| {cpu[top].abs().max().item():.3e} in {top}")
-    if errs[worst] > LEAF_TOL:
-        raise AssertionError(f"card vs CPU gradient of {worst}: {errs[worst]:.3e} > {LEAF_TOL}")
-    # the comparison must see a wrong layer: dq zeroed in one layer's backward
-    layer = FLAGSHIP["depth"] // 2
-    faulty = leaf_errors(small_grads(model, small, seed, zero_dq_call=layer), cpu)
-    bad = max(faulty, key=faulty.get)
-    print(f"training 1x256 with dq zeroed in backward call {layer} of {FLAGSHIP['depth']}: "
-          f"worst leaf {faulty[bad]:.3e} in {bad}, {sum(e > LEAF_TOL for e in faulty.values())} "
-          f"leaves over the limit: rejected")
-    if faulty[bad] <= LEAF_TOL:
-        raise AssertionError("the card vs CPU gradient check let a zeroed dq through")
+    check_card_grads("training 1x256", SemanticTransformerWrapper, model, (ids[:1, :256],), seed,
+                     ("bwd_dq", "dq"), FLAGSHIP["depth"])
     profile("training (one 4x2048 step)", lambda: trainer.step(ids), top=12)
     return launched
 
 
-def small_grads(model, ids, seed, zero_dq_call=None):
-    """{name: gradient on the CPU} of the train loss of `ids` under the
-    forgetful mask drawn from `seed`; with zero_dq_call, K2's dq output of
+def check_card_grads(label, wrapper, model, batch, seed, fault, depth):
+    """The card's parameter gradients of the train loss on `batch` against
+    the CPU port's on the same weights and forgetful mask, worst leaf by
+    relative norm within LEAF_TOL; then the same comparison must reject the
+    card's gradients with `fault` = (wrapper function of the flash module,
+    its output) zeroed in one layer's backward."""
+    card = small_grads(wrapper, model, batch, seed)
+    cpu = small_grads(wrapper, copy.deepcopy(model).cpu(), tuple(a.cpu() for a in batch), seed)
+    errs = leaf_errors(card, cpu)
+    worst = max(errs, key=errs.get)
+    top = max(cpu, key=lambda n: cpu[n].abs().max())
+    print(f"{label} card (kernels) vs CPU (plain) gradients: worst of {len(errs)} of "
+          f"{len(cpu)} leaves {errs[worst]:.3e} in {worst} (limit {LEAF_TOL}); largest "
+          f"|g| {cpu[top].abs().max().item():.3e} in {top}")
+    if errs[worst] > LEAF_TOL:
+        raise AssertionError(f"{label}: card vs CPU gradient of {worst}: {errs[worst]:.3e} > "
+                             f"{LEAF_TOL}")
+    # the comparison must see a wrong layer
+    layer = depth // 2
+    faulty = leaf_errors(small_grads(wrapper, model, batch, seed, zero=(fault[0], layer)), cpu)
+    bad = max(faulty, key=faulty.get)
+    print(f"{label} with {fault[1]} zeroed in backward call {layer} of {depth}: worst leaf "
+          f"{faulty[bad]:.3e} in {bad}, {sum(e > LEAF_TOL for e in faulty.values())} leaves "
+          f"over the limit: rejected")
+    if faulty[bad] <= LEAF_TOL:
+        raise AssertionError(f"{label}: the card vs CPU gradient check let a zeroed "
+                             f"{fault[1]} through")
+
+
+def small_grads(wrapper, model, batch, seed, zero=None):
+    """{name: gradient on the CPU} of the train loss of `batch` under the
+    forgetful mask drawn from `seed`; with zero = (name, call), the first
+    output of the flash module's function `name` (bwd_dq or bwd_dbias) in
     that backward call (1 = the last layer) is zeroed."""
-    real, calls = fa.bwd_dq, [0]
+    calls = [0]
+    if zero is not None:
+        name, call = zero
+        real = getattr(fa, name)
 
-    def faulty(*args, **kw):
-        dq, dtab = real(*args, **kw)
-        calls[0] += 1
-        return (torch.zeros_like(dq) if calls[0] == zero_dq_call else dq), dtab
+        def faulty(*args, **kw):
+            out = real(*args, **kw)
+            calls[0] += 1
+            if calls[0] != call:
+                return out
+            if isinstance(out, tuple):
+                return (torch.zeros_like(out[0]), *out[1:])
+            return torch.zeros_like(out)
 
-    fa.bwd_dq = faulty if zero_dq_call is not None else real
+        setattr(fa, name, faulty)
     try:
         model.zero_grad(set_to_none=True)
-        SemanticTransformerWrapper(transformer=model)(
-            ids, return_loss=True, train=True,
-            generator=torch.Generator().manual_seed(seed)).backward()
+        wrapper(transformer=model)(*batch, return_loss=True, train=True,
+                                   generator=torch.Generator().manual_seed(seed)).backward()
     finally:
-        fa.bwd_dq = real
-    if zero_dq_call is not None and calls[0] < zero_dq_call:
-        raise AssertionError(f"backward made {calls[0]} dq launches, not {zero_dq_call}")
+        if zero is not None:
+            setattr(fa, name, real)
+    if zero is not None and calls[0] < call:
+        raise AssertionError(f"backward made {calls[0]} {name} launches, not {call}")
     # every parameter, zero where the loss does not reach it
     return {n: (p.grad if p.grad is not None else torch.zeros_like(p)).cpu()
             for n, p in model.named_parameters()}
@@ -559,6 +710,179 @@ def leaf_errors(got, ref):
             if r.norm().item() > 1e-6 * top}
 
 
+LMS = {"coarse": (CoarseTransformer, COARSE, CoarseTransformerWrapper),
+       "fine": (FineTransformer, FINE, FineTransformerWrapper)}
+
+
+def acoustic_model(kind, seed):
+    """The Coarse or Fine LM on the CPU, weights from `seed`, with the
+    dynamic hyper-connection weights and the Coarse LM's cross_attn_bias
+    (zero at init) made to count."""
+    cls, cfg, _ = LMS[kind]
+    model = cls(**cfg, seed=seed, device="cpu").eval()
+    rng = np.random.default_rng(seed + 5)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(("dyn_alpha_w", "dyn_beta_w", "cross_attn_bias")):
+                p.copy_(torch.from_numpy(0.1 * rng.standard_normal(p.shape, dtype=np.float32)))
+    return model
+
+
+def acoustic_batch(kind, rng, b, seconds, device=DEV):
+    """The wrapper's batch of b clips: the Coarse LM's semantic ids (without
+    consecutive repeats, so unique-consecutive keeps them all) and coarse
+    codes, or the Fine LM's coarse and fine codes, at 50 Hz."""
+    frames = seconds * HZ
+    if kind == "coarse":
+        vocab = COARSE["num_semantic_tokens"]
+        sem = np.cumsum(rng.integers(1, vocab, (b, frames)), axis=1) % vocab
+        ids = (sem, rng.integers(0, 1024, (b, frames * 3)))
+    else:
+        ids = (rng.integers(0, 1024, (b, frames * 3)), rng.integers(0, 1024, (b, frames * 5)))
+    return tuple(torch.from_numpy(a).to(device) for a in ids)
+
+
+def acoustic_scoring(kind, seed, model, cpu_model):
+    """The eval loss of 4 x 3-s clips: ms per call and tokens/s; the card's
+    logits against the CPU port's on a 1-s clip."""
+    wrapper = LMS[kind][2](transformer=model)
+    batch = acoustic_batch(kind, np.random.default_rng(seed + 6), CLIP_B, CLIP_S)
+    depth = ACOUSTIC["depth"]
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    with torch.no_grad():
+        loss = wrapper(*batch, return_loss=True)
+        torch.cuda.synchronize()
+        iters = 3
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            wrapper(*batch, return_loss=True)
+        torch.cuda.synchronize()
+        score_ms = (time.perf_counter() - t0) / iters * 1e3
+    launched = counts()
+    calls = 1 + iters
+    if launched["launches"] != depth * calls or launched["launches_dbias"]:
+        raise AssertionError(f"{kind} scoring launches {launched} != depth {depth} x {calls}")
+    if not torch.isfinite(loss):
+        raise AssertionError(f"{kind} scoring: non-finite loss {loss.item()}")
+    tokens = sum(a.numel() for a in batch)
+    print(f"{kind} scoring {CLIP_B}x{CLIP_S}s ({tokens} ids): loss {loss.item():.4f} | "
+          f"{score_ms:.2f} ms per call ({tokens / score_ms * 1e3:.0f} tokens/s) | "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | "
+          f"flash launches {launched['launches']} = {depth} x {calls}")
+    small = acoustic_batch(kind, np.random.default_rng(seed + 7), 1, 1)
+    with torch.no_grad():
+        card = [x.cpu() for x in wrapper(*small) if x is not None]
+        cpu = [x for x in LMS[kind][2](transformer=cpu_model)(*(a.cpu() for a in small))
+               if x is not None]
+    err = max((a - r).abs().max().item() for a, r in zip(card, cpu))
+    if not all(torch.allclose(a, r, rtol=LOGITS_TOL, atol=LOGITS_TOL) for a, r in zip(card, cpu)):
+        raise AssertionError(f"{kind} card vs CPU logits on a 1-s clip: max abs err {err}")
+    print(f"{kind} scoring 1x1s card (flash kernels) vs CPU (plain): max abs err {err:.3e} "
+          f"(tol {LOGITS_TOL})")
+    return launched
+
+
+def check_cached_logits(label, logits, full, n):
+    err = (logits[:, :n] - full[:, :n]).abs().max().item()
+    if not torch.allclose(logits[:, :n], full[:, :n], rtol=LOGITS_TOL, atol=LOGITS_TOL):
+        raise AssertionError(f"{label}: cached vs uncached logits max abs err {err}")
+    return err
+
+
+def coarse_generation(seed, model):
+    """Greedy coarse codes of a 1-s clip, batch 1: 50 semantic ids -> 150
+    codes (fewer if EOS comes first); each code's logits against an uncached
+    scoring. Returns the launch counts and the (1, 50, 3) grid."""
+    wrapper = CoarseTransformerWrapper(transformer=model)
+    rng = np.random.default_rng(seed + 8)
+    vocab = COARSE["num_semantic_tokens"]
+    sem = torch.from_numpy(np.cumsum(rng.integers(1, vocab, (1, HZ)), axis=1) % vocab).to(DEV)
+    kw = dict(semantic_token_ids=sem, max_time_steps=HZ, temperature=1e-10,
+              generator=torch.Generator(device=DEV).manual_seed(seed))
+    zero_counts()
+    grid, logits = wrapper.generate(**kw, return_logits=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wrapper.generate(**kw)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launched = counts()  # the cached prefill and decode steps take `attend`
+    codes = grid.reshape(1, -1)
+    n = int((codes >= 0).sum())
+    with torch.no_grad():
+        _, full = model(sem, codes.clamp(min=0))
+    # up to the first EOS, whose logits were sampled too
+    err = check_cached_logits("coarse generation", logits, full, min(n + 1, codes.shape[1]))
+    print(f"coarse generation b1 {HZ} semantic ids -> {n} codes: {gen_s * 1e3:.1f} ms, "
+          f"{n / gen_s:.1f} codes/s | cached vs uncached logits max abs err {err:.3e} "
+          f"(tol {LOGITS_TOL}) | kernel launches {launched}")
+    return launched, grid
+
+
+def fine_generation(seed, model, coarse_grid):
+    """Greedy fine codes of the coarse grid, batch 1: 50 x 5 = 250 codes;
+    each code's logits against an uncached scoring."""
+    wrapper = FineTransformerWrapper(transformer=model)
+    kw = dict(coarse_token_ids=coarse_grid, temperature=1e-10,
+              generator=torch.Generator(device=DEV).manual_seed(seed))
+    zero_counts()
+    grid, logits = wrapper.generate(**kw, return_logits=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wrapper.generate(**kw)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launched = counts()
+    codes = grid.reshape(1, -1)
+    with torch.no_grad():
+        _, full = model(coarse_grid, codes[:, :-1])
+    err = check_cached_logits("fine generation", logits, full, codes.shape[1])
+    print(f"fine generation b1 {coarse_grid.shape[1]} time steps -> {codes.shape[1]} codes: "
+          f"{gen_s * 1e3:.1f} ms, {codes.shape[1] / gen_s:.1f} codes/s | cached vs uncached "
+          f"logits max abs err {err:.3e} (tol {LOGITS_TOL}) | kernel launches {launched}")
+    return launched
+
+
+def acoustic_training(kind, seed, cpu_model):
+    """The train step on 4 x 3-s clips: warm step, five timed steps, then
+    the card's gradients against the CPU port's on a 1-s clip and the check
+    shown to reject K5's dbias zeroed in one layer, then one profiled step."""
+    wrapper = LMS[kind][2]
+    model = copy.deepcopy(cpu_model).train()
+    trainer = TransformerTrainStep(wrapper(transformer=model), device=DEV)
+    batch = acoustic_batch(kind, np.random.default_rng(seed + 9), CLIP_B, CLIP_S)
+    first = trainer.step(*batch)  # warm step
+    depth, steps = ACOUSTIC["depth"], 5
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    losses = [trainer.step(*batch) for _ in range(steps)]  # .item() in each step syncs
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    launched = counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = dict(launches=depth * steps, launches_dq=depth * steps, launches_dkv=depth * steps,
+                launches_dtab=0, launches_dbias=depth * steps)
+    if launched != want:
+        raise AssertionError(f"{kind} training launches {launched} != {want}")
+    if not all(np.isfinite([first, *losses])):
+        raise AssertionError(f"{kind}: non-finite training loss: {[first, *losses]}")
+    if not losses[-1] < first:
+        raise AssertionError(f"{kind}: training loss did not fall: {[first, *losses]}")
+    tokens = sum(a.numel() for a in batch)
+    print(f"{kind} training {CLIP_B}x{CLIP_S}s, lr 3e-4, clip 0.5: losses {first:.4f} (warm) "
+          + " ".join(f"{x:.4f}" for x in losses)
+          + f" | {step_ms:.2f} ms per step ({tokens / step_ms * 1e3:.0f} tokens/s) | "
+          f"max_memory_allocated {peak / 2**30:.3f} GiB | launches {launched}")
+    small = acoustic_batch(kind, np.random.default_rng(seed + 10), 1, 1)
+    check_card_grads(f"{kind} training 1x1s", wrapper, model, small, seed, ("bwd_dbias", "dbias"),
+                     depth)
+    profile(f"{kind} training (one {CLIP_B}x{CLIP_S}s step)", lambda: trainer.step(*batch),
+            top=12)
+    return launched
+
+
 # the TPU kernel each port replaces, by line in the JAX package
 KERNELS = [
     ("fwd", "flash_fwd", fa.SOURCE, "ops/pallas/flash_attention.py:34", "launches"),
@@ -568,6 +892,8 @@ KERNELS = [
     # K4 is fused into K2's launch; its row carries that launch's numbers
     ("dtab", "flash_bwd_dq:dtab", fa.SOURCE_BWD, "ops/pallas/flash_attention.py:344",
      "launches_dtab"),
+    ("dbias", "flash_bwd_dbias", fa.SOURCE_BWD, "ops/pallas/flash_attention.py:293",
+     "launches_dbias"),
 ]
 
 
@@ -584,14 +910,35 @@ def main():
     paths = {"scoring": scoring_phase(args.seed, model, cpu_model),
              "generation": generation_phase(args.seed, model)}
     paths["training"] = training_phase(args.seed, cpu_model)
+    del model, cpu_model
+    coarse_grid = None
+    for kind in ("coarse", "fine"):
+        cpu_lm = acoustic_model(kind, args.seed)
+        lm = copy.deepcopy(cpu_lm).to(DEV)
+        paths[f"{kind}_scoring"] = phase(f"{kind} scoring")(acoustic_scoring)(
+            kind, args.seed, lm, cpu_lm)
+        if kind == "coarse":
+            paths["coarse_generation"], coarse_grid = phase("coarse generation")(
+                coarse_generation)(args.seed, lm)
+        else:
+            paths["fine_generation"] = phase("fine generation")(fine_generation)(
+                args.seed, lm, coarse_grid)
+        paths[f"{kind}_training"] = phase(f"{kind} training")(acoustic_training)(
+            kind, args.seed, cpu_lm)
+        del lm, cpu_lm
+        torch.cuda.empty_cache()
     rows = []
     for key, name, source, replaces, counter in KERNELS:
         per_path = {f"launches_{p}": launched[counter] for p, launched in paths.items()}
         if sum(per_path.values()) == 0:
             raise AssertionError(f"the main path launched no {name} kernel")
+        # K1-K3 also carry their (H, N, N)-bias form's numbers at the Fine training shape
+        numbers = timings["bias"][key] if key == "dbias" else dict(timings[key])
+        if key in ("fwd", "dq", "dkv"):
+            numbers["bias_form"] = timings["bias"][key]
         rows.append(dict(name=name, route="cuda", source=f"audiolm_pytorch_tpu_torch/csrc/{source}",
                          replaces=replaces,  # in the JAX package
-                         launches=sum(per_path.values()), **per_path, **timings[key]))
+                         launches=sum(per_path.values()), **per_path, **numbers))
     print(f"total: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -1,7 +1,8 @@
 """Tests of the port that need an NVIDIA GPU: the CUDA kernels (flash
-forward K1, backward K2-K4) against their plain PyTorch versions, and the
-Semantic LM on the card against the same weights on the CPU, in scoring and
-in a train step. They skip where there is no card.
+forward K1, backward K2-K4, and with an (H, N, M) bias K1-K3 and the bias
+gradient K5) against their plain PyTorch versions, and the Semantic, Coarse
+and Fine LMs on the card against the same weights on the CPU, in scoring and
+in train steps. They skip where there is no card.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine without them:
@@ -14,7 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from audiolm_pytorch_tpu_torch import (SemanticTransformer, SemanticTransformerWrapper,
+from audiolm_pytorch_tpu_torch import (CoarseTransformer, CoarseTransformerWrapper,
+                                       FineTransformer, FineTransformerWrapper,
+                                       SemanticTransformer, SemanticTransformerWrapper,
                                        TransformerTrainStep)
 from audiolm_pytorch_tpu_torch.models import wrappers
 from audiolm_pytorch_tpu_torch.ops.kernels import flash_attention as fa
@@ -171,7 +174,18 @@ def _leaf_errors(got, ref, ref_grads):
             for n, g in ref_grads.items() if float(g.norm()) > 1e-6 * top}
 
 
-def test_train_step_card_matches_cpu(cuda, monkeypatch):
+def _randomize_dynamic(model):
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(("dyn_alpha_w", "dyn_beta_w", "cross_attn_bias")):
+                p.normal_(0, 0.5, generator=torch.Generator().manual_seed(9))
+    return model
+
+
+def _card_vs_cpu_train_steps(monkeypatch, cpu, wrapper, batch, launches_per_step):
+    """Two train steps of `cpu` and of its copy on the card on the same
+    batch and forgetful masks: the losses, and each step's clipped gradient
+    and update leaf by leaf by relative norm."""
     # the forgetful masks come from one CPU generator for both devices
     masks = torch.Generator().manual_seed(11)
     draw = wrappers.generate_mask_with_prob
@@ -180,33 +194,26 @@ def test_train_step_card_matches_cpu(cuda, monkeypatch):
         return draw(shape, mask_prob, generator=masks).to(device)
 
     monkeypatch.setattr(wrappers, "generate_mask_with_prob", cpu_drawn)
-    cpu = SemanticTransformer(dim=128, depth=2, heads=2, dim_head=64, num_semantic_tokens=32,
-                              seed=8, device="cpu")
-    with torch.no_grad():
-        for name, p in cpu.named_parameters():
-            if name.endswith(("dyn_alpha_w", "dyn_beta_w")):
-                p.normal_(0, 0.5, generator=torch.Generator().manual_seed(9))
     gpu = copy.deepcopy(cpu)
-    ids = torch.from_numpy(np.random.default_rng(10).integers(0, 32, size=(2, 90)))
     runs = {}
     for dev, model in (("cpu", cpu), ("cuda", gpu)):
         masks.manual_seed(11)
-        before = _counts()
+        before = _counts() + (fa.launches_dbias,)
         # lr 1e-5 keeps the two trajectories within rounding of each other (see
         # tests/test_torch_train.py); the relative measures below do not shrink with lr
-        step = TransformerTrainStep(SemanticTransformerWrapper(transformer=model), lr=1e-5,
-                                    device=dev)
+        step = TransformerTrainStep(wrapper(transformer=model), lr=1e-5, device=dev)
         runs[dev] = []
         for _ in range(2):
             start = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
-            loss = step.step(ids)
+            loss = step.step(*batch)
             # the clipped gradient the step applied, and the update it made
             runs[dev].append((loss, {n: p.grad.cpu() for n, p in model.named_parameters()},
                               {n: p.detach().cpu() - start[n]
                                for n, p in model.named_parameters()}))
         if dev == "cuda":
             torch.cuda.synchronize()
-            assert _counts() == tuple(c + 2 * 2 for c in before)  # 2 layers x 2 steps
+            after = _counts() + (fa.launches_dbias,)
+            assert tuple(a - c for a, c in zip(after, before)) == launches_per_step(2)
     for i, ((loss, grads, upd), (ref_loss, ref_grads, ref_upd)) in enumerate(
             zip(runs["cuda"], runs["cpu"])):
         np.testing.assert_allclose(loss, ref_loss, rtol=2e-3, atol=2e-3)
@@ -214,3 +221,99 @@ def test_train_step_card_matches_cpu(cuda, monkeypatch):
                                   ("update", _leaf_errors(upd, ref_upd, ref_grads), 5e-2)):
             worst = max(errs, key=errs.get)
             assert errs[worst] <= limit, f"step {i} {what}: {worst} off by {errs[worst]:.3e}"
+
+
+def test_train_step_card_matches_cpu(cuda, monkeypatch):
+    cpu = _randomize_dynamic(SemanticTransformer(dim=128, depth=2, heads=2, dim_head=64,
+                                                 num_semantic_tokens=32, seed=8, device="cpu"))
+    ids = torch.from_numpy(np.random.default_rng(10).integers(0, 32, size=(2, 90)))
+    # 2 layers x 2 steps of K2 with K4 and K3; no K5
+    _card_vs_cpu_train_steps(monkeypatch, cpu, SemanticTransformerWrapper, (ids,),
+                             lambda steps: (2 * steps,) * 3 + (0,))
+
+
+ACOUSTIC = dict(dim=128, depth=2, heads=2, dim_head=64, codebook_size=32,
+                num_coarse_quantizers=3)
+
+
+def _acoustic(kind, seed=8):
+    if kind == "coarse":
+        model = CoarseTransformer(**ACOUSTIC, num_semantic_tokens=40, seed=seed, device="cpu")
+        rng = np.random.default_rng(10)
+        batch = (torch.from_numpy(rng.integers(0, 40, size=(2, 30))),
+                 torch.from_numpy(rng.integers(0, 32, size=(2, 45))))
+        return model, CoarseTransformerWrapper, batch
+    model = FineTransformer(**ACOUSTIC, num_fine_quantizers=5, seed=seed, device="cpu")
+    rng = np.random.default_rng(10)
+    batch = (torch.from_numpy(rng.integers(0, 32, size=(2, 45))),
+             torch.from_numpy(rng.integers(0, 32, size=(2, 75))))
+    return model, FineTransformerWrapper, batch
+
+
+@pytest.mark.parametrize("kind", ["coarse", "fine"])
+def test_acoustic_train_step_card_matches_cpu(cuda, monkeypatch, kind):
+    model, wrapper, batch = _acoustic(kind)
+    # 2 layers x 2 steps of each of K2, K3 and K5; no K4 (no table)
+    _card_vs_cpu_train_steps(monkeypatch, _randomize_dynamic(model), wrapper, batch,
+                             lambda steps: (2 * steps, 2 * steps, 0, 2 * steps))
+
+
+@pytest.mark.parametrize("dtype,tol,rtol,atol", [(torch.float32, 2e-3, 1e-2, 1e-3),
+                                                 (torch.bfloat16, 3e-2, 3e-2, 3e-2)])
+@pytest.mark.parametrize("n,causal,mqa,masked", CASES)
+def test_flash_bias_kernels_match_plain_version(cuda, n, causal, mqa, masked, dtype, tol,
+                                                rtol, atol):
+    q, k, v, _, mask = _inputs(n, mqa, masked, seed=12)
+    q, k, v = (a.to(cuda, dtype) for a in (q, k, v))
+    bias = torch.from_numpy(np.random.default_rng(13).normal(size=(8, n, n)).astype(np.float32))
+    bias = 0.5 * bias.to(cuda)
+    mask = None if mask is None else mask.to(cuda)
+    kw = dict(bias=bias, key_mask=mask, causal=causal)
+    before = fa.launches
+    out, lse = fa.flash_attention(q, k, v, **kw, return_lse=True)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    ref, ref_lse = fa.flash_attention_ref(q, k, v, **kw, return_lse=True)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, ref_lse, rtol=2e-3, atol=2e-3)
+    g = torch.from_numpy(np.random.default_rng(14).normal(size=q.shape).astype(np.float32))
+    g = g.to(cuda, dtype)
+    before = _counts() + (fa.launches_dbias,)
+    grads = fa.flash_attention_bwd(q, k, v, None, mask, out, lse, g, bias=bias, causal=causal,
+                                   scale=64 ** -0.5)
+    torch.cuda.synchronize()
+    # K2, K3 and K5 once each, no K4
+    assert _counts() + (fa.launches_dbias,) == (before[0] + 1, before[1] + 1, before[2],
+                                                before[3] + 1)
+    ref = fa.flash_attention_bwd_ref(q, k, v, None, mask, out, lse, g, bias=bias,
+                                     causal=causal, scale=64 ** -0.5)
+    for name, a, r in zip(("dq", "dk", "dv", "dbias"), grads, ref):
+        assert a.dtype == r.dtype and a.shape == r.shape, name
+        torch.testing.assert_close(a.float(), r.float(), rtol=rtol, atol=atol, msg=name)
+
+
+def test_per_batch_bias_raises_on_a_cuda_tensor(cuda):
+    q = torch.zeros(2, 2, 16, 64, device=cuda)
+    kv = q[:, :1].contiguous()
+    with pytest.raises(ValueError, match="per-batch"):
+        fa.flash_attention(q, kv, kv, bias=torch.zeros(2, 2, 16, 16, device=cuda), causal=True)
+
+
+@pytest.mark.parametrize("kind", ["coarse", "fine"])
+def test_bias_gradient_reaches_the_learned_bias_on_the_card(cuda, kind):
+    # K5's dbias flows through torch.where (and the Fine LM's gather) into the
+    # learned parts of the bias, as on the CPU
+    model, wrapper, batch = _acoustic(kind, seed=15)
+    model = _randomize_dynamic(model)
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        m = copy.deepcopy(model).to(dev)
+        wrapper(transformer=m)(*(a.to(dev) for a in batch), return_loss=True).backward()
+        grads[dev] = {n: p.grad.cpu() for n, p in m.named_parameters() if p.grad is not None}
+    leaves = (["cross_attn_bias", "transformer.rel_pos_bias.in_layer.weight",
+               "transformer.rel_pos_bias.out_layer.weight"] if kind == "coarse" else
+              ["null_pos_bias", "pos_bias_l1.weight", "pos_bias_l2.weight", "pos_bias_l3.weight"])
+    for name in leaves:
+        card, cpu = grads["cuda"][name], grads["cpu"][name]
+        assert float(card.abs().max()) > 0, name
+        assert float((card - cpu).norm() / cpu.norm()) < 1e-3, name

@@ -257,7 +257,11 @@ def test_port_imports_without_jax():
     # the card's machine has no JAX: the port and its training modules must not need it
     code = ("import sys; sys.modules['jax'] = None; sys.modules['audiolm_pytorch_tpu'] = None; "
             "import audiolm_pytorch_tpu_torch, audiolm_pytorch_tpu_torch.training.trainer, "
-            "audiolm_pytorch_tpu_torch.training.optimizer; print('ok')")
+            "audiolm_pytorch_tpu_torch.training.optimizer, audiolm_pytorch_tpu_torch.models.lm, "
+            "audiolm_pytorch_tpu_torch.models.wrappers, "
+            "audiolm_pytorch_tpu_torch.ops.kernels.flash_attention; "
+            "from audiolm_pytorch_tpu_torch import CoarseTransformerWrapper, "
+            "FineTransformerWrapper, load_coarse_transformer, load_fine_transformer; print('ok')")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120, check=False)
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
