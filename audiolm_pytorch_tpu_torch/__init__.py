@@ -5,17 +5,23 @@ on the card unless the caller passes device="cpu"; on the CPU every kernel
 wrapper takes its plain PyTorch version.
 """
 from .device import resolve_device
+from .models.audiolm import AudioLM
+from .models.soundstream import AudioLMSoundStream, SoundStream, load_soundstream
 from .models.lm import (CoarseTransformer, FineTransformer, SemanticTransformer,
                         load_coarse_transformer, load_fine_transformer,
                         load_semantic_transformer)
 from .models.transformer import KVCache, Transformer
 from .models.wrappers import (CoarseTransformerWrapper, FineTransformerWrapper,
-                              SemanticTransformerWrapper, masked_cross_entropy)
+                              SemanticTransformerWrapper, decode_acoustic_tokens,
+                              masked_cross_entropy)
 from .ops.kernels.flash_attention import (flash_attention, flash_attention_bwd_ref,
                                           flash_attention_ref)
+from .ops.kernels.local_attention import local_attention, local_attention_ref
+from .ops.kernels.vq import vq_nearest_code, vq_nearest_code_ref
 from .training.optimizer import get_optimizer, separate_weight_decayable_params
 from .training.trainer import TransformerTrainStep
-from .weights import read_npz, state_dict_from_jax
+from .utils.metrics import si_snr
+from .weights import codec_state_dict_from_jax, read_npz, state_dict_from_jax
 
 __all__ = ["SemanticTransformer", "SemanticTransformerWrapper", "CoarseTransformer",
            "CoarseTransformerWrapper", "FineTransformer", "FineTransformerWrapper",
@@ -23,4 +29,7 @@ __all__ = ["SemanticTransformer", "SemanticTransformerWrapper", "CoarseTransform
            "load_fine_transformer", "masked_cross_entropy", "flash_attention",
            "flash_attention_ref", "flash_attention_bwd_ref", "TransformerTrainStep",
            "get_optimizer", "separate_weight_decayable_params", "read_npz",
-           "state_dict_from_jax", "resolve_device"]
+           "state_dict_from_jax", "resolve_device", "SoundStream", "AudioLMSoundStream",
+           "load_soundstream", "AudioLM", "decode_acoustic_tokens", "local_attention",
+           "local_attention_ref", "vq_nearest_code", "vq_nearest_code_ref", "si_snr",
+           "codec_state_dict_from_jax"]

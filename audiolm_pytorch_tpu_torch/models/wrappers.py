@@ -1,8 +1,11 @@
 """Scoring, the training loss and KV-cached generation for the three LMs,
 held against the JAX package's `models/wrappers.py` (`masked_cross_entropy`,
 `_sample_from_logits`, `_semantic_generate_jit`, `_coarse_generate_jit`,
-`_fine_generate_jit` on their sequential paths, and the three wrappers'
-`__call__`), from token ids: no codec, wav2vec, text conditioning or CFG."""
+`_fine_generate_jit` on their sequential paths, the three wrappers'
+`__call__`, and `decode_acoustic_tokens`). With a codec, the Coarse and Fine
+wrappers also take audio (the codes of `raw_wave_for_codec`, the Fine
+prompt `prime_wave`) and give it back (`reconstruct_wave`). No wav2vec,
+text conditioning or CFG."""
 from __future__ import annotations
 
 import torch
@@ -15,7 +18,7 @@ from .lm import CoarseTransformer, FineTransformer, SemanticTransformer
 from .transformer import KVCache
 
 __all__ = ["SemanticTransformerWrapper", "CoarseTransformerWrapper", "FineTransformerWrapper",
-           "masked_cross_entropy", "sample_from_logits"]
+           "masked_cross_entropy", "sample_from_logits", "decode_acoustic_tokens"]
 
 
 def masked_cross_entropy(logits, labels, ignore_index: int = -1):
@@ -136,30 +139,46 @@ def _decode_codes(step, head_weights, embed_code, last_out, buf, start: int, *,
         last_out = step(embed_code(sampled, q)[:, None])[:, -1]
 
 
+def _codec_codes(codec, wave):
+    """The (B, N, G * Q) codes of a waveform, from the codec in eval mode."""
+    if codec is None:
+        raise ValueError("audio in needs the wrapper's codec")
+    with torch.no_grad():
+        return codec(wave, return_encoded=True)[1]
+
+
 class CoarseTransformerWrapper(nn.Module):
     """Scores (semantic ids, coarse codes) pairs, gives the training loss and
-    samples coarse codes for given semantic ids."""
+    samples coarse codes for given semantic ids. With a codec, the coarse
+    codes may come from audio and the samples go back to audio."""
 
-    def __init__(self, *, transformer: CoarseTransformer, pad_id: int = -1,
+    def __init__(self, *, transformer: CoarseTransformer, codec=None, pad_id: int = -1,
                  unique_consecutive: bool = True, mask_prob: float = 0.15):
         super().__init__()
         self.transformer = transformer
+        self.codec = codec
         self.pad_id = pad_id
         self.unique_consecutive = unique_consecutive
         self.mask_prob = mask_prob
-        self.num_coarse_quantizers = transformer.num_coarse_quantizers
+        self.num_coarse_quantizers = transformer.num_coarse_quantizers * \
+            (codec.rq_groups if codec is not None else 1)
         self.semantic_eos_id = transformer.semantic_eos_id
         self.coarse_eos_id = transformer.coarse_eos_id
 
-    def forward(self, semantic_token_ids, coarse_token_ids, *, return_loss: bool = False,
-                train: bool = False, generator: "torch.Generator | None" = None):
+    def forward(self, semantic_token_ids, coarse_token_ids=None, *, raw_wave_for_codec=None,
+                return_loss: bool = False, train: bool = False,
+                generator: "torch.Generator | None" = None):
         """(semantic logits, coarse logits), or with return_loss the loss:
         each head's cross entropy weighted by its count of labels (the JAX
-        wrapper's loss weights at their default, 1). With
-        train, EOS is appended to both streams and the forgetful causal mask
-        (drawn from `generator`) joins the key mask, which always drops the
-        semantic pad and EOS ids."""
+        wrapper's loss weights at their default, 1). Without
+        coarse_token_ids, the codec's first coarse codes of
+        `raw_wave_for_codec`. With train, EOS is appended to both streams and
+        the forgetful causal mask (drawn from `generator`) joins the key
+        mask, which always drops the semantic pad and EOS ids."""
         b = semantic_token_ids.shape[0]
+        if coarse_token_ids is None:
+            coarse_token_ids = _codec_codes(self.codec, raw_wave_for_codec)[
+                ..., :self.num_coarse_quantizers]
         sem = semantic_token_ids.reshape(b, -1)
         coarse = coarse_token_ids.reshape(b, -1)
         if train:
@@ -193,15 +212,17 @@ class CoarseTransformerWrapper(nn.Module):
     @torch.no_grad()
     def generate(self, *, semantic_token_ids, prime_coarse_token_ids=None,
                  max_time_steps: int = 512, filter_thres: float = 0.9, temperature: float = 1.0,
-                 generator: "torch.Generator | None" = None, return_logits: bool = False):
+                 reconstruct_wave: bool = False, generator: "torch.Generator | None" = None,
+                 return_logits: bool = False):
         """Sample max_time_steps x Q coarse codes after the prompt
         `prime_coarse_token_ids` (B, Pc), for semantic ids (B, S) (-1 pads
         embed to 0). One prefill of [start, semantic, start, prompt], then
         one cached step per code; stops once every row holds EOS, and EOS and
         what follows become -1. Returns the (B, T, Q) grid of the prompt and
-        the samples, T = Pc / Q + max_time_steps; with return_logits also the
-        (B, T * Q, cb + 1) logits each code was sampled from (zeros for the
-        prompt and past the last step)."""
+        the samples, T = Pc / Q + max_time_steps, or with reconstruct_wave
+        the codec's decode of it (`decode_acoustic_tokens`); with
+        return_logits also the (B, T * Q, cb + 1) logits each code was
+        sampled from (zeros for the prompt and past the last step)."""
         tr = self.transformer
         device = tr.coarse_start_token.device
         if generator is None:
@@ -237,29 +258,44 @@ class CoarseTransformerWrapper(nn.Module):
                       filter_thres=filter_thres, temperature=temperature, generator=generator,
                       logits_buf=logits_buf)
         buf = mask_out_after_eos_id(buf, self.coarse_eos_id, mask_value=-1, keep_eos=False)
-        grid = buf.reshape(b, -1, num_q)
-        return (grid, logits_buf) if return_logits else grid
+        out = buf.reshape(b, -1, num_q)
+        if reconstruct_wave:
+            out = decode_acoustic_tokens(self.codec, out, pad_id=-1)
+        return (out, logits_buf) if return_logits else out
 
 
 class FineTransformerWrapper(nn.Module):
     """Scores (coarse codes, fine codes) pairs, gives the training loss and
-    samples the fine codes of given coarse codes."""
+    samples the fine codes of given coarse codes. With a codec, the codes
+    and the prompt may come from audio and the samples go back to audio."""
 
-    def __init__(self, *, transformer: FineTransformer, pad_id: int = -1,
+    def __init__(self, *, transformer: FineTransformer, codec=None, pad_id: int = -1,
                  mask_prob: float = 0.15):
         super().__init__()
         self.transformer = transformer
-        self.num_coarse_quantizers = transformer.num_coarse_quantizers
-        self.num_fine_quantizers = transformer.num_fine_quantizers
+        self.codec = codec
+        groups = codec.rq_groups if codec is not None else 1
+        self.num_coarse_quantizers = transformer.num_coarse_quantizers * groups
+        self.num_fine_quantizers = transformer.num_fine_quantizers * groups
+        if codec is not None and self.num_coarse_quantizers + self.num_fine_quantizers != \
+                codec.num_quantizers * codec.rq_groups:
+            raise ValueError("coarse + fine quantizers must equal the codec's")
         self.pad_id = pad_id
         self.mask_prob = mask_prob
 
-    def forward(self, coarse_token_ids, fine_token_ids, *, return_loss: bool = False,
-                train: bool = False, generator: "torch.Generator | None" = None):
+    def forward(self, coarse_token_ids=None, fine_token_ids=None, *, raw_wave_for_codec=None,
+                return_loss: bool = False, train: bool = False,
+                generator: "torch.Generator | None" = None):
         """(coarse logits, fine logits), or with return_loss the loss: each
         head's cross entropy weighted by its count of logits (the JAX
-        wrapper's loss weight at its default, 1). With train, the
-        forgetful causal mask (drawn from `generator`) is applied."""
+        wrapper's loss weight at its default, 1). With `raw_wave_for_codec`
+        (the JAX wrapper's `raw_wave`), both come from the codec's codes of
+        it. With train, the forgetful causal mask (drawn from `generator`)
+        is applied."""
+        if raw_wave_for_codec is not None:
+            codes = _codec_codes(self.codec, raw_wave_for_codec)
+            coarse_token_ids = codes[..., :self.num_coarse_quantizers]
+            fine_token_ids = codes[..., self.num_coarse_quantizers:]
         b = coarse_token_ids.shape[0]
         coarse = coarse_token_ids.reshape(b, -1)
         fine = fine_token_ids.reshape(b, -1)
@@ -283,18 +319,21 @@ class FineTransformerWrapper(nn.Module):
         return (coarse_loss * num_coarse + fine_loss * num_fine) / (num_coarse + num_fine)
 
     @torch.no_grad()
-    def generate(self, *, coarse_token_ids, prime_fine_token_ids=None,
+    def generate(self, *, coarse_token_ids, prime_wave=None, prime_fine_token_ids=None,
                  filter_thres: float = 0.9, temperature: float = 1.0,
-                 mask_out_generated_fine_tokens: bool = False,
+                 reconstruct_wave: bool = False, mask_out_generated_fine_tokens: bool = False,
                  generator: "torch.Generator | None" = None, return_logits: bool = False):
         """Sample the fine codes of coarse codes (B, T, Qc) or (B, T * Qc),
-        after the prompt `prime_fine_token_ids` (B, Pf). One prefill of
-        [start, coarse, start, prompt] under a bias of the whole fine budget
-        and the key mask that drops coarse pad and EOS codes, then one cached
-        step per code, T * Qf in all. Returns the (B, T, Qf) grid; with
-        mask_out_generated_fine_tokens, the time steps whose coarse codes are
-        all pad become pad; with return_logits also the (B, T * Qf, cb)
-        logits each code was sampled from (zeros for the prompt)."""
+        after the prompt `prime_fine_token_ids` (B, Pf), or the codec's fine
+        codes of `prime_wave`. One prefill of [start, coarse, start, prompt]
+        under a bias of the whole fine budget and the key mask that drops
+        coarse pad and EOS codes, then one cached step per code, T * Qf in
+        all. Returns the (B, T, Qf) grid, or with reconstruct_wave the
+        codec's decode of the coarse and fine grids together
+        (`decode_acoustic_tokens`); with mask_out_generated_fine_tokens, the
+        time steps whose coarse codes are all pad become pad; with
+        return_logits also the (B, T * Qf, cb) logits each code was sampled
+        from (zeros for the prompt)."""
         tr = self.transformer
         device = tr.coarse_start_token.device
         if generator is None:
@@ -304,6 +343,10 @@ class FineTransformerWrapper(nn.Module):
         nc, qc, qf = coarse.shape[1], self.num_coarse_quantizers, self.num_fine_quantizers
         steps = nc // qc
         n_total = steps * qf
+        if prime_wave is not None and prime_fine_token_ids is not None:
+            raise ValueError("pass prime_wave or prime_fine_token_ids, not both")
+        if prime_wave is not None:
+            prime_fine_token_ids = _codec_codes(self.codec, prime_wave)[..., qc:]
         prime = prime_fine_token_ids.to(device).reshape(b, -1) \
             if prime_fine_token_ids is not None else coarse.new_zeros(b, 0)
         pf = prime.shape[1]
@@ -331,7 +374,40 @@ class FineTransformerWrapper(nn.Module):
                       filter_thres=filter_thres, temperature=temperature, generator=generator,
                       logits_buf=logits_buf)
         grid = buf.reshape(b, steps, qf)
+        coarse_grid = coarse.reshape(b, steps, qc)
         if mask_out_generated_fine_tokens:
-            all_pad = (coarse.reshape(b, steps, qc) == self.pad_id).all(-1, keepdim=True)
+            all_pad = (coarse_grid == self.pad_id).all(-1, keepdim=True)
             grid = grid.masked_fill(all_pad, self.pad_id)
+        if reconstruct_wave:
+            grid = decode_acoustic_tokens(self.codec, torch.cat([coarse_grid, grid], -1),
+                                          pad_id=self.pad_id)
         return (grid, logits_buf) if return_logits else grid
+
+
+def decode_acoustic_tokens(codec, token_grid, pad_id: int = -1, length_bucket: int = 64):
+    """The waveform of codes (B, N, Q), Q at most the codec's quantizers: one
+    batched decode when no code is pad, else one decode per row of its
+    frames without pad (None for a row with none), padded up to a multiple
+    of `length_bucket` frames by repeating the last frame and trimmed back
+    to its true length, as the JAX package does. Decoding fewer frames than
+    the causal convolutions' pad takes the reflect pad past the input's
+    length (`ops/conv.py::reflect_pad_left`)."""
+    if codec is None:
+        raise ValueError("reconstruct_wave needs the wrapper's codec")
+    if not bool((token_grid == pad_id).any()):
+        return codec.decode_from_codebook_indices(token_grid)
+    wavs = []
+    ds = codec.downsample_factor
+    for row in token_grid:
+        keep = ~(row == pad_id).any(-1)
+        n_true = int(keep.sum())
+        if n_true == 0:
+            wavs.append(None)
+            continue
+        ids = row[keep]
+        n_pad = min((-n_true) % length_bucket, token_grid.shape[1] - n_true)
+        if n_pad:
+            # the last frame repeated, as the JAX package pads a row
+            ids = torch.cat([ids, ids[-1:].expand(n_pad, -1)])
+        wavs.append(codec.decode_from_codebook_indices(ids[None])[0, : n_true * ds])
+    return wavs

@@ -1,0 +1,89 @@
+"""Causal 1-D convolutions of the codec, held against the JAX package's
+`ops/conv.py`.
+
+The public functions take JAX's channels-last layout, x (B, T, C), and
+PyTorch's weight layouts: (out, in, K) for a convolution and (in, out, K)
+for a transposed one; they transpose to (B, C, T) inside. The left padding
+of a causal convolution, dilation * (K - 1) + 1 - stride samples, reflects
+as numpy's `pad(mode="reflect")` does, again and again when the pad is as
+long as the input or longer, where `F.pad` refuses; so a decode of fewer
+frames than the pad matches the JAX package. Reflection is the only padding
+the JAX codec's configurations use (`pad_mode="reflect"`). The convolutions
+are cuDNN's, as the JAX package leaves them to XLA.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..nn.layers import init_uniform
+
+__all__ = ["causal_conv1d", "causal_conv_transpose1d", "CausalConv1d", "CausalConvTranspose1d",
+           "reflect_pad_left"]
+
+
+def reflect_pad_left(x, pad: int):
+    """x (B, T, C) with `pad` samples in front, mirrored about the first
+    sample again and again, as numpy's `pad(mode="reflect")` gives them."""
+    n = x.shape[1]
+    pos = torch.arange(-pad, n, device=x.device)
+    if n == 1:
+        idx = torch.zeros_like(pos)
+    else:
+        period = 2 * (n - 1)
+        idx = pos.abs() % period
+        idx = torch.where(idx > n - 1, period - idx, idx)
+    return x.index_select(1, idx)
+
+
+def causal_conv1d(x, weight, bias=None, *, stride: int = 1, dilation: int = 1):
+    """x: (B, T, Cin); weight: (Cout, Cin, K). Returns (B, T', Cout)."""
+    k = weight.shape[-1]
+    pad = dilation * (k - 1) + (1 - stride)
+    if pad > 0:
+        x = reflect_pad_left(x, pad)
+    elif pad < 0:
+        x = x[:, -pad:]
+    y = F.conv1d(x.transpose(1, 2), weight.to(x.dtype), None, stride=stride, dilation=dilation)
+    y = y.transpose(1, 2)
+    return y + bias.to(y.dtype) if bias is not None else y
+
+
+def causal_conv_transpose1d(x, weight, bias=None, *, stride: int):
+    """x: (B, T, Cin); weight: (Cin, Cout, K). Returns (B, T * stride, Cout):
+    the transposed convolution, cropped to T * stride (the JAX package's
+    input-dilated convolution with the kernel flipped)."""
+    n = x.shape[1]
+    y = F.conv_transpose1d(x.transpose(1, 2), weight.to(x.dtype), None, stride=stride)
+    y = y[..., : n * stride].transpose(1, 2)
+    return y + bias.to(y.dtype) if bias is not None else y
+
+
+class CausalConv1d(nn.Module):
+    def __init__(self, chan_in: int, chan_out: int, kernel_size: int, *, stride: int = 1,
+                 dilation: int = 1, generator: "torch.Generator | None" = None):
+        super().__init__()
+        lim = 1.0 / math.sqrt(chan_in * kernel_size)
+        self.weight = nn.Parameter(init_uniform((chan_out, chan_in, kernel_size), lim, generator))
+        self.bias = nn.Parameter(torch.zeros(chan_out))
+        self.stride, self.dilation = stride, dilation
+
+    def forward(self, x):
+        return causal_conv1d(x, self.weight, self.bias, stride=self.stride,
+                             dilation=self.dilation)
+
+
+class CausalConvTranspose1d(nn.Module):
+    def __init__(self, chan_in: int, chan_out: int, kernel_size: int, *, stride: int,
+                 generator: "torch.Generator | None" = None):
+        super().__init__()
+        lim = 1.0 / math.sqrt(chan_in * kernel_size)
+        self.weight = nn.Parameter(init_uniform((chan_in, chan_out, kernel_size), lim, generator))
+        self.bias = nn.Parameter(torch.zeros(chan_out))
+        self.stride = stride
+
+    def forward(self, x):
+        return causal_conv_transpose1d(x, self.weight, self.bias, stride=self.stride)

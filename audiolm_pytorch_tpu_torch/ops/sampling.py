@@ -1,4 +1,4 @@
-"""Sampling and token-stream helpers the Semantic LM needs, held against the
+"""Sampling and token-stream helpers of the LMs and the codec, held against the
 JAX package's `ops/sampling.py`. Randomness comes from an explicit
 `torch.Generator`."""
 from __future__ import annotations
@@ -7,7 +7,7 @@ import torch
 
 __all__ = ["gumbel_noise", "gumbel_sample", "top_k", "mask_out_after_eos_id",
            "append_eos_id", "batch_unique_consecutive", "generate_mask_with_prob",
-           "grad_shrink", "get_embeds"]
+           "grad_shrink", "get_embeds", "curtail_to_multiple"]
 
 
 def gumbel_noise(shape, *, generator: "torch.Generator | None" = None,
@@ -84,3 +84,8 @@ def get_embeds(table, codes, pad_id: int = -1, mask_pad_pos_to: float = 0.0):
     pad = codes == pad_id
     embeds = table[codes.masked_fill(pad, 0)]
     return embeds.masked_fill(pad[..., None], mask_pad_pos_to)
+
+
+def curtail_to_multiple(t, mult: int):
+    """Trim the last (time) axis to its first multiple of `mult` samples."""
+    return t[..., : (t.shape[-1] // mult) * mult]

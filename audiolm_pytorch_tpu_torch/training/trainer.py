@@ -22,8 +22,9 @@ __all__ = ["TransformerTrainStep"]
 
 
 class TransformerTrainStep:
-    """Trains `wrapper` (a Semantic, Coarse or Fine wrapper) on `device`.
-    The forgetful masks are drawn from a generator seeded with `seed`."""
+    """Trains the transformer of `wrapper` (a Semantic, Coarse or Fine
+    wrapper) on `device`; a codec the wrapper holds stays as it is. The
+    forgetful masks are drawn from a generator seeded with `seed`."""
 
     def __init__(self, wrapper, *, lr: float = 3e-4, wd: float = 0.0,
                  max_grad_norm: "float | None" = 0.5, grad_accum_every: int = 1,
@@ -32,7 +33,7 @@ class TransformerTrainStep:
                  device: "str | torch.device" = "cuda"):
         self.device = resolve_device(device)
         self.wrapper = wrapper.to(self.device)
-        self.params = [p for p in wrapper.parameters() if p.requires_grad]
+        self.params = [p for p in wrapper.transformer.parameters() if p.requires_grad]
         self.optimizer, self.scheduler = get_optimizer(
             self.params, lr, wd, warmup_steps=warmup_steps, total_steps=num_train_steps,
             cosine_decay=cosine_decay)

@@ -4,8 +4,8 @@
 
 Phases, each printing its name and seconds:
   1. device      - requires CUDA; prints the card and its power limit.
-  2. build       - builds every kernel source of the Semantic LM path with
-                   nvcc (build/kernels/), one nvcc per source, all started
+  2. build       - builds every kernel source of the port with nvcc
+                   (build/kernels/), one nvcc per source, all started
                    together, and prints ptxas' register/spill lines.
   3. kernels     - each kernel against its plain PyTorch version at the shapes
                    of the main path (and a ragged, key-masked one), with its
@@ -47,14 +47,37 @@ Phases, each printing its name and seconds:
                    the card's gradients held against the CPU port's on a
                    short clip and the check shown to reject them with K5's
                    dbias zeroed in one layer; one step under torch.profiler.
+  13. codec       - the SoundStream codec at bench.py's width
+                   (AudioLMSoundStream(codebook_size=1024): channels 32,
+                   codebook dim 512, 12 quantizers, local attention window
+                   128, 8 heads of 64; random weights from --seed, float32,
+                   cuDNN and matmul TF32 off), its codebooks filled from the
+                   residuals of a calibration batch (random codebooks are
+                   zeros, every search a tie): one tokenize ->
+                   decode_from_codebook_indices round trip of 8 x 2-s clips
+                   (K6 12 times, K7 twice), then timed, profiled, and held
+                   against the CPU port on a 1-s clip (codes identical but
+                   for near ties the encoders' deviation explains; the
+                   waveform from the same codes).
+  14. audiolm      - AudioLM at bench.py's _build_gen widths (the codec with 8
+                   quantizers, the Semantic LM at the flagship width, the
+                   Coarse and Fine LMs as in 7-12), greedy, batch 1: 50
+                   semantic ids -> 150 coarse -> 250 fine codes -> 1 s of
+                   audio; the card's decode of the grid against the CPU's.
 The kernels phase also holds the (H, N, M)-bias form of K1-K3 and K5 to the
 plain versions at the Coarse and Fine training shapes (N = 1 + 151 + 1 + 450
 = 603 and 1 + 450 + 1 + 749 = 1201: EOS appended, the last code dropped for
-the loss) and at a ragged shape with a key mask.
-Each path, scoring, generation and training of each LM, sets the kernel
-launch counts to 0 just before its own calls and reads them just after,
-before any check (CPU comparison, profile, uncached scoring of the generated
-ids) runs.
+the loss) and at a ragged shape with a key mask; a second kernels phase
+holds the codec's kernels to theirs: K6, the nearest-code search, at the
+codec's shape (800 rows of 512 against 1024 codes) and at 1, 7 and 1300
+rows, with tied codes; K7, blocked local attention, at the codec's shape (8
+x 8 x 100 x 64, window 128), at 10 s (8 x 8 x 500 x 64) and a ragged,
+key-masked, biased 2 x 8 x 300 x 64 at window 64, fp32 and bf16, with its
+backward.
+Each path, scoring, generation and training of each LM, the codec's round
+trip and AudioLM's generation, sets the kernel launch counts to 0 just
+before its own calls and reads them just after, before any check (CPU
+comparison, profile, uncached scoring of the generated ids) runs.
 
 Ends with a JSON line of per-kernel numbers, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}. Any failed phase raises
@@ -76,12 +99,15 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from audiolm_pytorch_tpu_torch import (CoarseTransformer, CoarseTransformerWrapper,
-                                       FineTransformer, FineTransformerWrapper,
-                                       SemanticTransformer, SemanticTransformerWrapper,
-                                       TransformerTrainStep)
+from audiolm_pytorch_tpu_torch import (AudioLM, AudioLMSoundStream, CoarseTransformer,
+                                       CoarseTransformerWrapper, FineTransformer,
+                                       FineTransformerWrapper, SemanticTransformer,
+                                       SemanticTransformerWrapper, TransformerTrainStep,
+                                       decode_acoustic_tokens)
 from audiolm_pytorch_tpu_torch.ops.kernels import _build
 from audiolm_pytorch_tpu_torch.ops.kernels import flash_attention as fa
+from audiolm_pytorch_tpu_torch.ops.kernels import local_attention as la
+from audiolm_pytorch_tpu_torch.ops.kernels import vq
 from audiolm_pytorch_tpu_torch.ops.relpos import toeplitz_expand
 from audiolm_pytorch_tpu_torch.ops.sampling import generate_mask_with_prob
 
@@ -108,8 +134,12 @@ TRAIN_IDS = (4, 2048)
 TRAIN_N = TRAIN_IDS[1] + 1
 LOGITS_TOL = 2e-3  # float32 card vs CPU: summation order differs, nothing else
 DEV = torch.device("cuda")
-SOURCES = (fa.SOURCE, fa.SOURCE_BWD)
-COUNTERS = ("launches", "launches_dq", "launches_dkv", "launches_dtab", "launches_dbias")
+SOURCES = (fa.SOURCE, fa.SOURCE_BWD, vq.SOURCE, la.SOURCE)
+# each kernel's launch counter: (its module, the counter's name there)
+COUNTERS = {"launches": (fa, "launches"), "launches_dq": (fa, "launches_dq"),
+            "launches_dkv": (fa, "launches_dkv"), "launches_dtab": (fa, "launches_dtab"),
+            "launches_dbias": (fa, "launches_dbias"), "launches_vq": (vq, "launches"),
+            "launches_local": (la, "launches")}
 # the Coarse and Fine LMs at bench.py's width (bench.py:333-338)
 ACOUSTIC = dict(dim=512, depth=6, heads=8, dim_head=64, num_residual_streams=4,
                 codebook_size=1024, num_coarse_quantizers=3)
@@ -180,21 +210,22 @@ def build_phase():
         print(f"  {src}: {sec:.2f} s")
         for line in _build.build_log.get(src, "").splitlines():
             # the kernel's name in the mangled entry: its length, the name, its template args
-            entry = re.search(r"\d(flash_[a-z_]+_kernel)I", line) if "Compiling entry" in line \
-                else None
+            entry = re.search(r"\d([a-z][a-z_]*_kernel)(I?)", line) \
+                if "Compiling entry" in line else None
             if entry:
-                print(f"    {entry.group(1)}<{'bf16' if 'bfloat16' in line else 'fp32'}>:")
+                types = f"<{'bf16' if 'bfloat16' in line else 'fp32'}>" if entry.group(2) else ""
+                print(f"    {entry.group(1)}{types}:")
             elif "registers" in line or "spill" in line:
                 print("      ptxas:", line.strip())
 
 
 def counts():
-    return {name: getattr(fa, name) for name in COUNTERS}
+    return {name: getattr(mod, attr) for name, (mod, attr) in COUNTERS.items()}
 
 
 def zero_counts():
-    for name in COUNTERS:
-        setattr(fa, name, 0)
+    for mod, attr in COUNTERS.values():
+        setattr(mod, attr, 0)
 
 
 def flash_inputs(rng, b, h, n, d, dtype, key_mask_from=None, forget_p=None):
@@ -620,7 +651,9 @@ def training_phase(seed, cpu_model):
     launched = counts()
     peak = torch.cuda.max_memory_allocated()
     for name, n in launched.items():
-        want = 0 if name == "launches_dbias" else depth * steps  # the table form: no K5
+        # the table form: K1-K4, no K5; no codec kernel
+        want = depth * steps if name in ("launches", "launches_dq", "launches_dkv",
+                                         "launches_dtab") else 0
         if n != want:
             raise AssertionError(f"training: {name} {n} != {want}")
     if not all(np.isfinite([first, *losses])):
@@ -863,7 +896,7 @@ def acoustic_training(kind, seed, cpu_model):
     launched = counts()
     peak = torch.cuda.max_memory_allocated()
     want = dict(launches=depth * steps, launches_dq=depth * steps, launches_dkv=depth * steps,
-                launches_dtab=0, launches_dbias=depth * steps)
+                launches_dtab=0, launches_dbias=depth * steps, launches_vq=0, launches_local=0)
     if launched != want:
         raise AssertionError(f"{kind} training launches {launched} != {want}")
     if not all(np.isfinite([first, *losses])):
@@ -883,6 +916,412 @@ def acoustic_training(kind, seed, cpu_model):
     return launched
 
 
+# the codec at bench.py's width (bench.py:134, `bench_codec`): AudioLMSoundStream(
+# codebook_size=1024), channels 32, codebook dim 512, 12 quantizers, window 128, 8
+# heads of 64, on 8 clips of 2 s at 16 kHz (50 frames a second)
+SR = 16000
+CODEC_B, CODEC_S = 8, 2
+# K6 against its plain version: indices identical but where the two codes'
+# float64 scores differ by under this share of the score's terms
+# (|e|^2 + 2 |x| |e|): there the kernel's summation order may pick the other
+NEAR_TIE = 1e-5
+# card vs CPU waveforms, max |card - cpu| over the CPU waveform's peak. The
+# codec phase prints the CPU's own spread beside it (the same decode with 1
+# thread and with all): about 1e-6 of the peak at this width, so the limit
+# leaves cuDNN's other algorithms and summation orders two decades
+WAVE_REL_TOL = 1e-4
+
+
+def vq_inputs(rng, n, c=1024, d=512, dup=False):
+    """x (n, d) and a codebook (c, d) on the card: rows near random codes (a
+    residual near its code), 30% far from any; with dup, codebook rows 1,
+    c // 2 and c - 1 copies of row 0 and x[0] near row c // 2 (a tie)."""
+    cb = rng.standard_normal((c, d), dtype=np.float32)
+    if dup:
+        cb[[1, c // 2, c - 1]] = cb[0]
+    near = rng.integers(0, c, n)
+    near[0] = c // 2
+    x = cb[near] + 0.3 * rng.standard_normal((n, d), dtype=np.float32)
+    far = rng.random(n) < 0.3
+    far[0] = False
+    x[far] = rng.standard_normal((int(far.sum()), d), dtype=np.float32)
+    return torch.from_numpy(x).to(DEV), torch.from_numpy(cb).to(DEV)
+
+
+def vq_scores(x, cb, idx):
+    """float64 -2 x.e + |e|^2 of code idx[i] for row i, and the terms' size."""
+    xd, ed = x.double(), cb.double()[idx.long()]
+    e2 = ed.square().sum(-1)
+    return e2 - 2 * (xd * ed).sum(-1), e2 + 2 * xd.norm(dim=-1) * ed.norm(dim=-1)
+
+
+def check_vq(x, cb, label, want_first=None):
+    """K6 against its plain version: identical indices but near ties
+    (counted); its time, the plain version's, the library call's and the
+    bound. max_abs_err is the largest float64 score gap between the two
+    picks (0 when identical)."""
+    got = vq.vq_nearest_code(x, cb)
+    torch.cuda.synchronize()
+    ref = vq.vq_nearest_code_ref(x, cb)
+    if got.dtype != torch.int32 or got.shape != ref.shape:
+        raise AssertionError(f"K6 [{label}]: {got.dtype} {tuple(got.shape)}")
+    diff = (got != ref).nonzero().flatten()
+    gap = 0.0
+    if len(diff):
+        sa, mag = vq_scores(x[diff], cb, got[diff])
+        sb, _ = vq_scores(x[diff], cb, ref[diff])
+        rel = ((sa - sb).abs() / mag).max().item()
+        gap = (sa - sb).abs().max().item()
+        if rel >= NEAR_TIE:
+            raise AssertionError(f"K6 vs plain [{label}]: {len(diff)} rows differ, relative "
+                                 f"score gap up to {rel:.3e} (near-tie limit {NEAR_TIE})")
+    if want_first is not None and not (got[: len(want_first)].cpu() == want_first).all():
+        raise AssertionError(f"K6 [{label}]: ties did not go to the first index: "
+                             f"{got[: len(want_first)].tolist()}")
+    n, d = x.shape
+    c = cb.shape[0]
+    e2 = cb.square().sum(-1)
+    ms = cuda_ms(lambda: vq.vq_nearest_code(x, cb), iters=20)
+    plain_ms = cuda_ms(lambda: vq.vq_nearest_code_ref(x, cb), iters=20)
+    # yardstick only, never called by the port: addmm + argmin, |e|^2 given
+    library_ms = cuda_ms(lambda: torch.argmin(torch.addmm(e2, x, cb.t(), alpha=-2), -1),
+                         iters=20)
+    t_ops = 2 * n * c * d / PEAK_FLOPS[torch.float32] * 1e3
+    t_bytes = 4 * (n * d + c * d + c + n) / HBM_BPS * 1e3
+    bound_ms, bound_by = max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    print(f"vq [{label}]: {len(diff)} near-tie rows differ (score gap {gap:.3e}) | kernel "
+          f"{ms:.4f} ms | plain {plain_ms:.4f} ms | addmm+argmin {library_ms:.4f} ms | bound "
+          f"{bound_ms:.4f} ms ({bound_by})")
+    return dict(max_abs_err=gap, near_ties=len(diff), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms, at=label)
+
+
+def local_inputs(rng, b, h, t, d, dtype, w, masked=False, biased=False):
+    """q, k, v (b, h, t, d) on the card; with masked, row 0's keys from 2t/3
+    on and 20% of row 1's masked (key 0 kept); with biased, an (h, w, 2w)
+    float32 bias."""
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, h, t, d), dtype=np.float32)).to(DEV, dtype)
+               for _ in range(3))
+    mask = bias = None
+    if masked:
+        m = np.ones((b, t), bool)
+        m[0, (2 * t) // 3:] = False
+        m[-1, rng.random(t) < 0.2] = False
+        m[:, 0] = True
+        mask = torch.from_numpy(m).to(DEV)
+    if biased:
+        bias = torch.from_numpy(0.3 * rng.standard_normal((h, w, 2 * w), dtype=np.float32)).to(DEV)
+    return q, k, v, mask, bias
+
+
+def local_pairs(b, h, t, w, mask):
+    """The (query, key) pairs local attention attends: keys at or before the
+    query, in its window or the one before, not masked."""
+    pos = torch.arange(t, device=DEV)
+    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] >= (pos[:, None] // w - 1) * w)
+    if mask is None:
+        return int(band.sum()) * b * h
+    return int((band[None] & mask[:, None, :]).sum()) * h
+
+
+def sdpa_blocks(q, k, v, w, mask, bias):
+    """(B*H*nw, 1, w, D) query blocks, (B*H*nw, 1, 2w, D) key and value
+    blocks (the window before and the window) and the float mask with the
+    band, the first window's look-back, the key mask and the bias, for one
+    SDPA call that computes the same function. Yardstick only."""
+    b, h, t, d = q.shape
+    pad = (-t) % w
+    nw = (t + pad) // w
+    qp, kp, vp = (torch.nn.functional.pad(a, (0, 0, 0, pad)) for a in (q, k, v))
+    kw, vw = (a.reshape(b, h, nw, w, d) for a in (kp, vp))
+    k2, v2 = (torch.cat([torch.nn.functional.pad(a, (0, 0, 0, 0, 1, 0))[:, :, :-1], a], 3)
+              for a in (kw, vw))
+    valid = torch.ones(b, t, dtype=torch.bool, device=DEV) if mask is None else mask
+    mw = torch.nn.functional.pad(valid, (0, pad), value=False).reshape(b, nw, w)
+    key_valid = torch.cat([torch.nn.functional.pad(mw, (0, 0, 1, 0), value=False)[:, :-1], mw], 2)
+    qpos = torch.arange(w, device=DEV)[:, None]
+    kpos = torch.arange(2 * w, device=DEV)[None, :]
+    allowed = (kpos <= qpos + w)[None, None, None] & key_valid[:, None, :, None, :]
+    fmask = torch.zeros(b, h, nw, w, 2 * w, device=DEV)
+    if bias is not None:
+        fmask = fmask + bias[None, :, None]
+    fmask = fmask.masked_fill(~allowed, -1e9).to(q.dtype)
+    return (qp.reshape(b * h * nw, 1, w, d), k2.reshape(b * h * nw, 1, 2 * w, d),
+            v2.reshape(b * h * nw, 1, 2 * w, d), fmask.reshape(b * h * nw, 1, w, 2 * w))
+
+
+def check_local(q, k, v, w, mask, bias, label, seed, scale=8.0 / 64):
+    """K7 against its plain version (2e-3 fp32, 3e-2 bf16), then the
+    backward through its autograd.Function against the plain version's;
+    its time, the plain version's, one SDPA call's over pre-built blocks
+    (block building not timed) and the bound (the attended pairs' two
+    products, or q, k, v, out, the bias and the mask moved once)."""
+    kw = dict(window_size=w, mask=mask, attn_bias=bias, scale=scale)
+    before = la.launches
+    out = la.local_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    if la.launches != before + 1:
+        raise AssertionError(f"K7 [{label}]: the wrapper did not launch its kernel")
+    ref = la.local_attention_ref(q, k, v, **kw)
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = TOL[q.dtype]
+    if not torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol):
+        raise AssertionError(f"K7 vs plain [{label}]: max abs err {err} over {tol}")
+    # the backward: the plain version's, recomputed under autograd
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    g = torch.randn(q.shape, generator=gen, device=DEV).to(q.dtype)
+    diff = [q, k, v] + ([bias] if bias is not None else [])
+    leaves = [a.detach().requires_grad_() for a in diff]
+    lkw = dict(window_size=w, mask=mask, scale=scale)
+    grads = torch.autograd.grad(
+        la.local_attention(*leaves[:3], attn_bias=leaves[3] if bias is not None else None, **lkw),
+        leaves, g)
+    leaves = [a.detach().requires_grad_() for a in diff]
+    refs = torch.autograd.grad(
+        la.local_attention_ref(*leaves[:3], attn_bias=leaves[3] if bias is not None else None,
+                               **lkw), leaves, g)
+    gtol = GRAD_TOL[q.dtype]
+    grad_err = max((a.float() - r.float()).abs().max().item() for a, r in zip(grads, refs))
+    if not all(torch.allclose(a.float(), r.float(), **gtol) for a, r in zip(grads, refs)):
+        raise AssertionError(f"K7 backward vs plain [{label}]: max abs err {grad_err} over {gtol}")
+    ms = cuda_ms(lambda: la.local_attention(q, k, v, **kw), iters=20)
+    plain_ms = cuda_ms(lambda: la.local_attention_ref(q, k, v, **kw), iters=20)
+    qb, kb, vb, fmask = sdpa_blocks(q, k, v, w, mask, bias)
+    library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qb, kb, vb, attn_mask=fmask, scale=scale), iters=20)
+    b, h, t, d = q.shape
+    pairs = local_pairs(b, h, t, w, mask)
+    nbytes = 4 * q.numel() * q.element_size() + (bias.numel() * 4 if bias is not None else 0) \
+        + (mask.numel() if mask is not None else 0)
+    t_ops = 4 * d * pairs / PEAK_FLOPS[q.dtype] * 1e3
+    t_bytes = nbytes / HBM_BPS * 1e3
+    bound_ms, bound_by = max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    print(f"local [{label}]: max_abs_err {err:.3e} (tol {tol}) | backward {grad_err:.3e} | "
+          f"kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | sdpa on blocks {library_ms:.4f} ms | "
+          f"bound {bound_ms:.4f} ms ({bound_by}, {pairs} pairs)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms, at=label)
+
+
+@phase("kernels (codec)")
+def codec_kernel_phase(seed):
+    """K6 at the codec's shape (one quantizer of 8 x 2 s: N = 800, D = 512,
+    C = 1024) and at N in {1, 7, 1300}, with duplicated codebook rows and an
+    all-zero codebook (every score a tie); K7 at the codec's shape (8 x 8 x
+    100 x 64, w 128), at 10 s (8 x 8 x 500 x 64: 4 windows) and a ragged
+    2 x 8 x 300 x 64 at w 64 with a key mask and an (H, w, 2w) bias, fp32
+    and bf16."""
+    rng = np.random.default_rng(seed + 20)
+    n_codec = CODEC_B * CODEC_S * HZ
+    main = check_vq(*vq_inputs(rng, n_codec), f"{n_codec}x512 vs 1024x512 (codec)")
+    for n in (1, 7, 1300):
+        check_vq(*vq_inputs(rng, n, dup=True), f"{n}x512 vs 1024x512, 4 equal codes",
+                 want_first=torch.tensor([0], dtype=torch.int32))
+    zeros = torch.zeros(1024, 512, device=DEV)
+    check_vq(vq_inputs(rng, 7)[0], zeros, "7x512 vs zeros (all ties)",
+             want_first=torch.zeros(7, dtype=torch.int32))
+    local = None
+    for dtype, name in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        row = check_local(*local_inputs(rng, 8, 8, 100, 64, dtype, 128)[:3], 128, None, None,
+                          f"{name} 8x8x100x64 w128 (codec)", seed)
+        local = local or row
+        check_local(*local_inputs(rng, 8, 8, 500, 64, dtype, 128)[:3], 128, None, None,
+                    f"{name} 8x8x500x64 w128 (10 s)", seed)
+        q, k, v, mask, bias = local_inputs(rng, 2, 8, 300, 64, dtype, 64, masked=True,
+                                           biased=True)
+        check_local(q, k, v, 64, mask, bias, f"{name} ragged 2x8x300x64 w64, key mask, bias",
+                    seed)
+    return {"vq": main, "local": local}
+
+
+def fill_codebooks(codec, wave, seed):
+    """Each quantizer's codebook filled with rows drawn (seeded, with
+    replacement) from its residuals on `wave`, as kmeans init draws its
+    candidates: a random-weight codec's codebooks are zeros, every search a
+    tie at index 0."""
+    gen = torch.Generator(device=wave.device).manual_seed(seed)
+    with torch.no_grad():
+        h = codec.encode_frames(codec.process_input(wave))
+        for rvq, chunk in zip(codec.rq.rvqs, h.chunk(codec.rq_groups, dim=-1)):
+            residual = chunk.reshape(-1, chunk.shape[-1])
+            for layer in rvq.layers:
+                rows = torch.randint(0, residual.shape[0], (layer.codebook_size,),
+                                     generator=gen, device=wave.device)
+                layer.codebook.copy_(residual[rows])
+                residual = residual - layer(residual)[0]
+
+
+def calibrated_codec(seed, rng, **kw):
+    codec = AudioLMSoundStream(codebook_size=1024, seed=seed, device=DEV, **kw).eval()
+    calib = torch.from_numpy(0.1 * rng.standard_normal((2 * CODEC_B, CODEC_S * SR),
+                                                       dtype=np.float32)).to(DEV)
+    fill_codebooks(codec, calib, seed)
+    return codec
+
+
+def wave_error(card, cpu, label):
+    """max |card - cpu| over the CPU waveform's peak, within WAVE_REL_TOL."""
+    rel = ((card.cpu() - cpu).abs().max() / cpu.abs().max()).item()
+    if not rel <= WAVE_REL_TOL:
+        raise AssertionError(f"{label}: card vs CPU waveform {rel:.3e} of the peak > "
+                             f"{WAVE_REL_TOL}")
+    return rel
+
+
+def compare_codes(cpu_codec, card_h, cpu_h, card_codes, cpu_codes):
+    """Card codes against the CPU port's: a frame may differ only where its
+    first differing quantizer is a near tie, one the deviation of the two
+    encoders' output explains: the CPU's float64 scores of the two codes
+    differ by at most 4 |h_card - h_cpu| |e_a - e_b| (a residual moved by
+    delta moves a score gap by at most 2 delta |e_a - e_b|); and at most 1%
+    of the frames. Returns (frames differing, largest gap)."""
+    residuals = []
+    with torch.no_grad():
+        r = cpu_h
+        for layer in cpu_codec.rq.rvqs[0].layers:
+            residuals.append(r)
+            r = r - layer(r)[0]
+    card_codes, cpu_codes = card_codes[0], cpu_codes[0]  # one group: (B, N, Q)
+    frames = (card_codes != cpu_codes).any(-1).nonzero().tolist()
+    delta = (card_h - cpu_h).norm(dim=-1)
+    gaps = []
+    for b, n in frames:
+        q = int((card_codes[b, n] != cpu_codes[b, n]).nonzero()[0])
+        cb = cpu_codec.rq.rvqs[0].layers[q].codebook.double()
+        x = residuals[q][b, n].double()
+        a, c = int(card_codes[b, n, q]), int(cpu_codes[b, n, q])
+        gap = ((cb[a].square().sum() - 2 * x @ cb[a]) - (cb[c].square().sum() - 2 * x @ cb[c]))
+        limit = 4 * delta[b, n].double() * (cb[a] - cb[c]).norm()
+        print(f"  frame ({b}, {n}): first differs at quantizer {q}, codes {a} vs {c}, score "
+              f"gap {gap.item():.3e} (explained up to {limit.item():.3e})")
+        if abs(gap.item()) > limit.item():
+            raise AssertionError(f"card vs CPU codes at frame ({b}, {n}) quantizer {q}: not a "
+                                 f"near tie")
+        gaps.append(abs(gap.item()))
+    total = cpu_codes.shape[0] * cpu_codes.shape[1]
+    if len(frames) > 0.01 * total:
+        raise AssertionError(f"card vs CPU codes: {len(frames)} of {total} frames differ (> 1%)")
+    return len(frames), max(gaps, default=0.0)
+
+
+@phase("codec")
+def codec_phase(seed):
+    """The codec at bench.py's width: codebooks filled from a calibration
+    batch, then the tokenize -> decode_from_codebook_indices round trip on
+    8 x 2 s (launches zeroed just before one round trip and read just
+    after), timed; then the card against the CPU port on a 1-s clip."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"codec: cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}, "
+          f"cuda.matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32}")
+    rng = np.random.default_rng(seed + 21)
+    codec = calibrated_codec(seed, rng)
+    x = torch.from_numpy(0.1 * rng.standard_normal((CODEC_B, CODEC_S * SR),
+                                                   dtype=np.float32)).to(DEV)
+    with torch.no_grad():
+        zero_counts()
+        codes = codec.tokenize(x)
+        y = codec.decode_from_codebook_indices(codes)
+        torch.cuda.synchronize()
+        launched = counts()
+        want = {name: 0 for name in COUNTERS}
+        want.update(launches_vq=12, launches_local=2)
+        if launched != want:
+            raise AssertionError(f"codec round trip launches {launched} != {want}")
+        frames = CODEC_S * HZ
+        if codes.shape != (1, CODEC_B, frames, 12) or y.shape != x.shape \
+                or not torch.isfinite(y).all():
+            raise AssertionError(f"codec round trip: codes {tuple(codes.shape)}, wave "
+                                 f"{tuple(y.shape)}, finite {bool(torch.isfinite(y).all())}")
+        distinct = codes[0, :, :, 0].unique().numel()
+        if distinct < 100:
+            raise AssertionError(f"codec: quantizer 0 uses {distinct} codes (< 100)")
+        torch.cuda.reset_peak_memory_stats()
+        iters = 10
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            codec.decode_from_codebook_indices(codec.tokenize(x))
+        torch.cuda.synchronize()
+        call_ms = (time.perf_counter() - t0) / iters * 1e3
+        peak = torch.cuda.max_memory_allocated()
+    audio_s = CODEC_B * CODEC_S
+    print(f"codec round trip {CODEC_B}x{CODEC_S}s: {call_ms:.2f} ms per call "
+          f"({audio_s / call_ms * 1e3:.1f} s of audio per s) | max_memory_allocated "
+          f"{peak / 2**30:.3f} GiB | quantizer 0 uses {distinct} of 1024 codes | launches "
+          f"{launched}")
+    with torch.no_grad():
+        profile(f"codec round trip ({CODEC_B}x{CODEC_S}s)",
+                lambda: codec.decode_from_codebook_indices(codec.tokenize(x)), top=10)
+        cpu = copy.deepcopy(codec).cpu()
+        clip = x[:1, :SR]
+        card_h, cpu_h = codec.encode_frames(clip).cpu(), cpu.encode_frames(clip.cpu())
+        card_codes, cpu_codes = codec.tokenize(clip).cpu(), cpu.tokenize(clip.cpu())
+        differ, gap = compare_codes(cpu, card_h, cpu_h, card_codes, cpu_codes)
+        ref = cpu.decode_from_codebook_indices(cpu_codes)
+        rel = wave_error(codec.decode_from_codebook_indices(cpu_codes.to(DEV)), ref, "codec 1x1s")
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        spread = ((cpu.decode_from_codebook_indices(cpu_codes) - ref).abs().max()
+                  / ref.abs().max()).item()
+        torch.set_num_threads(threads)
+    print(f"codec 1x1s card vs CPU: encoder outputs max abs diff "
+          f"{(card_h - cpu_h).abs().max().item():.3e}; {differ} of {HZ} frames' codes differ "
+          f"(near ties, largest gap {gap:.3e}); waveform from the same codes {rel:.3e} of the "
+          f"peak (limit {WAVE_REL_TOL}; CPU 1 vs {threads} threads {spread:.3e})")
+    return launched
+
+
+@phase("audiolm")
+def audiolm_phase(seed):
+    """AudioLM on the card at _build_gen's widths (bench.py:316): the codec
+    with 8 quantizers (codebooks filled as in the codec phase), the Semantic
+    LM at the flagship width and the Coarse and Fine LMs at bench.py's,
+    random weights from `seed`, float32, greedy, batch 1: 50 semantic ids ->
+    150 coarse -> 250 fine codes -> 1 s of audio. One warm run, then one run
+    with the launch counts zeroed just before and read just after; the card's
+    decode of the generated grid (the three wrappers in turn with the same
+    generator) against the CPU port's."""
+    rng = np.random.default_rng(seed + 22)
+    codec = calibrated_codec(seed, rng, rq_num_quantizers=8)
+    semantic = SemanticTransformer(**FLAGSHIP, seed=seed, device=DEV).eval()
+    coarse = CoarseTransformer(**COARSE, seed=seed, device=DEV).eval()
+    fine = FineTransformer(**FINE, seed=seed, device=DEV).eval()
+    audiolm = AudioLM(codec=codec, semantic_transformer=semantic, coarse_transformer=coarse,
+                      fine_transformer=fine)
+    kw = dict(batch_size=1, max_length=HZ, max_coarse_time_steps=HZ, temperature=1e-10)
+    audiolm(**kw, generator=torch.Generator(device=DEV).manual_seed(seed))  # warm
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    wave = audiolm(**kw, generator=torch.Generator(device=DEV).manual_seed(seed))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launched = counts()
+    if isinstance(wave, list) or wave.shape != (1, SR) or not torch.isfinite(wave).all():
+        shape = [None if w is None else tuple(w.shape) for w in wave] \
+            if isinstance(wave, list) else tuple(wave.shape)
+        raise AssertionError(f"audiolm: waveform {shape}, want (1, {SR}) and finite")
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    sem = audiolm.semantic.generate(batch_size=1, max_length=HZ, temperature=1e-10, generator=gen)
+    co = audiolm.coarse.generate(semantic_token_ids=sem, max_time_steps=HZ, temperature=1e-10,
+                                 generator=gen)
+    fi = audiolm.fine.generate(coarse_token_ids=co, temperature=1e-10, generator=gen)
+    grid = torch.cat([co, fi], -1)
+    with torch.no_grad():
+        card = decode_acoustic_tokens(codec, grid)
+        if not torch.equal(card, wave):
+            raise AssertionError("audiolm: the chain's waveform is not the decode of its "
+                                 "wrappers' grid")
+        rel = wave_error(card, copy.deepcopy(codec).cpu().decode_from_codebook_indices(
+            grid.cpu()), "audiolm 1 s")
+    print(f"audiolm b1 {HZ} semantic ids -> {co.shape[1] * co.shape[2]} coarse -> "
+          f"{fi.shape[1] * fi.shape[2]} fine codes -> {wave.shape[-1]} samples: {wall_s:.2f} s "
+          f"wall ({wave.shape[-1] / SR / wall_s:.3f} s of audio per s) | card vs CPU decode of "
+          f"the grid {rel:.3e} of the peak | launches K1 {launched['launches']}, K6 "
+          f"{launched['launches_vq']}, K7 {launched['launches_local']}")
+    return launched
+
+
 # the TPU kernel each port replaces, by line in the JAX package
 KERNELS = [
     ("fwd", "flash_fwd", fa.SOURCE, "ops/pallas/flash_attention.py:34", "launches"),
@@ -894,6 +1333,8 @@ KERNELS = [
      "launches_dtab"),
     ("dbias", "flash_bwd_dbias", fa.SOURCE_BWD, "ops/pallas/flash_attention.py:293",
      "launches_dbias"),
+    ("vq", "vq_nearest", vq.SOURCE, "ops/pallas/vq.py:21", "launches_vq"),
+    ("local", "local_attn_fwd", la.SOURCE, "ops/pallas/local_attention.py:26", "launches_local"),
 ]
 
 
@@ -905,6 +1346,7 @@ def main():
     smi = device_phase()
     build_phase()
     timings = kernel_phase(args.seed)
+    timings.update(codec_kernel_phase(args.seed))
     cpu_model = flagship(args.seed)
     model = copy.deepcopy(cpu_model).to(DEV)
     paths = {"scoring": scoring_phase(args.seed, model, cpu_model),
@@ -927,6 +1369,8 @@ def main():
             kind, args.seed, cpu_lm)
         del lm, cpu_lm
         torch.cuda.empty_cache()
+    paths["codec"] = codec_phase(args.seed)
+    paths["audiolm"] = audiolm_phase(args.seed)
     rows = []
     for key, name, source, replaces, counter in KERNELS:
         per_path = {f"launches_{p}": launched[counter] for p, launched in paths.items()}

@@ -1,8 +1,10 @@
 """Tests of the port that need an NVIDIA GPU: the CUDA kernels (flash
 forward K1, backward K2-K4, and with an (H, N, M) bias K1-K3 and the bias
-gradient K5) against their plain PyTorch versions, and the Semantic, Coarse
-and Fine LMs on the card against the same weights on the CPU, in scoring and
-in train steps. They skip where there is no card.
+gradient K5; the codec's nearest-code search K6 and local attention K7)
+against their plain PyTorch versions, the Semantic, Coarse and Fine LMs on
+the card against the same weights on the CPU, in scoring and in train
+steps, and a small codec's round trip on the card against the CPU. They
+skip where there is no card.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine without them:
@@ -18,9 +20,11 @@ import torch
 from audiolm_pytorch_tpu_torch import (CoarseTransformer, CoarseTransformerWrapper,
                                        FineTransformer, FineTransformerWrapper,
                                        SemanticTransformer, SemanticTransformerWrapper,
-                                       TransformerTrainStep)
+                                       SoundStream, TransformerTrainStep)
 from audiolm_pytorch_tpu_torch.models import wrappers
 from audiolm_pytorch_tpu_torch.ops.kernels import flash_attention as fa
+from audiolm_pytorch_tpu_torch.ops.kernels import local_attention as la
+from audiolm_pytorch_tpu_torch.ops.kernels import vq
 
 pytestmark = pytest.mark.cuda
 
@@ -317,3 +321,127 @@ def test_bias_gradient_reaches_the_learned_bias_on_the_card(cuda, kind):
         card, cpu = grads["cuda"][name], grads["cpu"][name]
         assert float(card.abs().max()) > 0, name
         assert float((card - cpu).norm() / cpu.norm()) < 1e-3, name
+
+
+def _vq_inputs(n, c, d, seed=0):
+    """Rows near random codes (30% far from any) and a codebook whose rows
+    1, c // 2 and c - 1 copy row 0, x[0] near row c // 2: a four-way tie."""
+    rng = np.random.default_rng(seed)
+    cb = rng.normal(size=(c, d)).astype(np.float32)
+    cb[[1, c // 2, c - 1]] = cb[0]
+    near = rng.integers(0, c, size=n)
+    near[0] = c // 2
+    x = cb[near] + 0.3 * rng.normal(size=(n, d)).astype(np.float32)
+    far = rng.random(n) < 0.3
+    far[0] = False
+    x[far] = rng.normal(size=(int(far.sum()), d)).astype(np.float32)
+    return torch.from_numpy(x), torch.from_numpy(cb)
+
+
+@pytest.mark.parametrize("n,c,d", [(1, 1024, 512), (7, 1024, 512), (800, 1024, 512),
+                                   (1300, 1024, 512), (37, 100, 33), (130, 64, 16)])
+def test_vq_kernel_matches_plain_version(cuda, n, c, d):
+    x, cb = (a.to(cuda) for a in _vq_inputs(n, c, d))
+    before = vq.launches
+    got = vq.vq_nearest_code(x, cb)
+    torch.cuda.synchronize()
+    assert vq.launches == before + 1 and got.dtype == torch.int32
+    ref = vq.vq_nearest_code_ref(x, cb)
+    assert got[0].item() == 0  # the first of the four equal codes
+    # identical, but where the float64 scores of the two picks differ by
+    # under 1e-5 of the score's terms (the kernel sums in another order)
+    rows = (got != ref).nonzero().flatten()
+    if len(rows):
+        xd = x[rows].double()
+
+        def score(pick):
+            e = cb.double()[pick[rows].long()]
+            e2 = e.square().sum(-1)
+            return e2 - 2 * (xd * e).sum(-1), e2 + 2 * xd.norm(dim=-1) * e.norm(dim=-1)
+
+        (s_got, size), (s_ref, _) = score(got), score(ref)
+        assert ((s_got - s_ref).abs() / size).max() < 1e-5
+
+
+def test_vq_kernel_gives_ties_the_first_index(cuda):
+    x = torch.randn(9, 64, device=cuda)
+    for cb in (torch.zeros(300, 64, device=cuda), torch.ones(300, 64, device=cuda)):
+        assert (vq.vq_nearest_code(x, cb) == vq.vq_nearest_code_ref(x, cb)).all()
+    assert (vq.vq_nearest_code(x, torch.zeros(300, 64, device=cuda)) == 0).all()
+
+
+def _local_inputs(b, h, t, w, masked, biased, seed=0):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, h, t, 64)).astype(np.float32))
+               for _ in range(3))
+    mask = bias = None
+    if masked:
+        mask = torch.ones(b, t, dtype=torch.bool)
+        mask[0, :4] = False  # queries 0-3 of window 0 without a key
+        mask[-1, (2 * t) // 3:] = False
+    if biased:
+        bias = torch.from_numpy((0.3 * rng.normal(size=(h, w, 2 * w))).astype(np.float32))
+    return q, k, v, mask, bias
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-3), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("b,t,w,masked,biased", [(8, 100, 128, False, False),
+                                                 (8, 500, 128, False, False),
+                                                 (2, 300, 64, True, True),
+                                                 (2, 64, 64, True, False),
+                                                 (1, 129, 128, False, True)])
+def test_local_attention_kernel_matches_plain_version(cuda, b, t, w, masked, biased, dtype, tol):
+    q, k, v, mask, bias = _local_inputs(b, 8, t, w, masked, biased)
+    q, k, v = (a.to(cuda, dtype) for a in (q, k, v))
+    kw = dict(window_size=w, mask=None if mask is None else mask.to(cuda),
+              attn_bias=None if bias is None else bias.to(cuda), scale=8 / 64)
+    before = la.launches
+    out = la.local_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert la.launches == before + 1 and out.dtype == dtype
+    torch.testing.assert_close(out.float(), la.local_attention_ref(q, k, v, **kw).float(),
+                               rtol=tol, atol=tol)
+
+
+def test_local_attention_on_a_card_is_differentiable(cuda):
+    q, k, v, mask, bias = _local_inputs(2, 8, 300, 64, True, True, seed=3)
+    leaves = [a.to(cuda).requires_grad_() for a in (q, k, v, bias)]
+    out = la.local_attention(*leaves[:3], window_size=64, mask=mask.to(cuda),
+                             attn_bias=leaves[3])
+    assert out.grad_fn is not None
+    g = torch.randn_like(out)
+    grads = torch.autograd.grad(out, leaves, g)
+    cpu = [a.detach().cpu().requires_grad_() for a in leaves]
+    ref = la.local_attention_ref(*cpu[:3], window_size=64, mask=mask, attn_bias=cpu[3])
+    for a, r in zip(grads, torch.autograd.grad(ref, cpu, g.cpu())):
+        torch.testing.assert_close(a.cpu(), r, rtol=1e-2, atol=1e-3)
+
+
+@pytest.mark.parametrize("w,d", [(32, 64), (256, 64), (128, 32), (64, 128)])
+def test_local_attention_raises_on_a_cuda_tensor_it_cannot_take(cuda, w, d):
+    q = torch.zeros(1, 2, 100, d, device=cuda)
+    with pytest.raises(ValueError):
+        la.local_attention(q, q, q, window_size=w)
+
+
+def test_codec_round_trip_card_matches_cpu(cuda):
+    kw = dict(channels=8, strides=(2, 4, 5), channel_mults=(2, 4, 8), codebook_dim=128,
+              codebook_size=256, rq_num_quantizers=4, attn_window_size=64, attn_heads=2,
+              attn_dim_head=64, seed=4)
+    cpu = SoundStream(**kw, device="cpu").eval()
+    x = torch.from_numpy(0.1 * np.random.default_rng(4).normal(size=(2, 8000)).astype(np.float32))
+    with torch.no_grad():
+        h = cpu.encode_frames(x).reshape(-1, 128)  # 400 frames
+        gen = torch.Generator().manual_seed(4)
+        for i, layer in enumerate(cpu.rq.rvqs[0].layers):  # codebooks drawn from the frames
+            layer.codebook.copy_(h[torch.randperm(h.shape[0], generator=gen)[:256]] * 0.5 ** i)
+        card = copy.deepcopy(cpu).to(cuda)
+        before = vq.launches, la.launches
+        codes = card.tokenize(x.to(cuda))
+        wave = card.decode_from_codebook_indices(codes)
+        torch.cuda.synchronize()
+        assert (vq.launches, la.launches) == (before[0] + 4, before[1] + 2)
+        cpu_codes = cpu.tokenize(x)
+        assert (codes.cpu() != cpu_codes).any(-1).float().mean() <= 0.02
+        ref = cpu.decode_from_codebook_indices(codes.cpu())
+        assert float((wave.cpu() - ref).abs().max() / ref.abs().max()) < 1e-4
