@@ -24,13 +24,14 @@
 // 2*D*B*H*N*(N+1)/2 = 8.6 GFLOP against ~17 MB of float32 q and dO and 2 MB
 // of k and v, so both kernels are compute-bound: K2 does 3 products (25.8
 // GFLOP, 0.385 ms at the 67 TFLOP/s float32 peak without tensor cores), K3
-// does 4 (34.4 GFLOP, 0.513 ms); worked out from the shapes, not measured.
+// does 4 (34.4 GFLOP: 0.21 ms as 3xTF32 at 495 TFLOP/s, 35 us in bf16 at
+// 989); worked out from the shapes, not measured.
 // K4 is fused into K2, since it needs K2's dS tile and nothing else: it adds
 // one add per attended pair (B*H*N*(N+1)/2) and the (2N-1, H) float32
 // table's read-modify-write to K2's work, where alone it would redo 2 of
 // K2's 3 products (17.2 GFLOP) to rebuild dS.
 //
-// Design. Right and simple first, as the forward: float32 FMAs on the CUDA
+// Design. K2 and K5, right and simple first: float32 FMAs on the CUDA
 // cores, 256 threads as a 16x16 grid, each owning a 4x4 patch of a 64x64
 // tile; tiles in shared memory transposed and padded against bank conflicts.
 //   K2: one block per (b*h, 64-row query tile), heaviest tiles first; it loops
@@ -40,16 +41,12 @@
 //       then added with one atomicAdd per diagonal per tile into a float32
 //       (2N-1, H) buffer the wrapper zeroes (the batch sum among them, in an
 //       order that changes from run to run).
-//   K3: one block per (b*hk, 64-key tile); it loops over the query heads of
-//       its kv head and the query tiles from the diagonal on, with dk and dv
-//       in registers, so the MQA sum needs no atomics. This replaces the
-//       TPU's sequential (head, q-block) grid axis.
 // With the table, the (H, N, N) bias and its gradient never exist in device
 // memory: a tile loads the 127 table entries its deltas cover. With an
-// (H, N, M) bias (the Coarse and Fine LMs'), K2 and K3 load each tile's
-// 64x64 float32 block of bias[h] into the dS (K2) or P (K3) tile's shared
-// memory, where each thread reads its own elements before it overwrites
-// them (no extra shared memory, so no occupancy lost), and
+// (H, N, M) bias (the Coarse and Fine LMs'), K2 loads each tile's 64x64
+// float32 block of bias[h] into the dS tile's shared memory, where each
+// thread reads its own elements before it overwrites them (no extra shared
+// memory, so no occupancy lost), K3 into a block of its own, and
 //   K5: one block per (key tile, query tile, head), as the TPU grid
 //       (H, nq, nk, B) with the batch innermost: the block loops over the
 //       batch rows (and so over the kv head each query head reads, MQA),
@@ -61,11 +58,34 @@
 //       are 5.9 GFLOP, 88 us at the float32 peak, against 46 MB of dbias
 //       written and 46 MB of bias read, 28 us at 3.35 TB/s: compute-bound
 //       (worked out from the shapes, not measured).
-// Tensor cores, TMA and wgmma are later work. Instantiated for D=64.
+//   K3, on the tensor cores through csrc/mma.cuh (mma.sync, cp.async): one
+//       block of 4 warps per (query head, b*hk, 64-key tile), key tile 0
+//       (the longest causal loop) first; the blocks of one (b*hk, key
+//       tile), min(group, 8) of them, form a thread-block cluster, each
+//       block taking group / cluster of the kv head's query heads. A block
+//       loops over its heads' query tiles from the diagonal on, Q and dO
+//       double-buffered by cp.async, with 4 products per tile in FA2's
+//       backward order: S^T = K Q^T, dP^T = V dO^T, dV += P^T dO, dK +=
+//       dS^T Q, P^T and dS^T going from the accumulators to the A operand
+//       in registers, dO and Q the B operands (ldmatrix.trans in bf16). Its
+//       partial dk and dv stay in registers; then the head sum runs over
+//       distributed shared memory: each block stores its partials in its
+//       own shared memory, cluster.sync(), and rank 0 adds them in rank
+//       order through map_shared_rank and writes dk and dv once: no
+//       atomics, no scratch in device memory, the same bits every run. Its
+//       grid is group times the (b*hk, key tile) pairs, 1056 blocks at the
+//       Semantic LM's training shape on 132 SMs, where one block per pair
+//       looping all 8 heads left one wave waiting on its key-tile-0 blocks.
+// K2, K5: tensor cores, TMA and wgmma are later work. Instantiated for D=64.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "mma.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -74,7 +94,7 @@ constexpr int BK = 64;          // keys per tile
 constexpr int NT = 256;         // threads: a 16x16 grid of (ty, tx)
 constexpr int PITCH = BQ + 1;   // transposed tiles, padded against bank conflicts
 constexpr int ND = BQ + BK - 1; // deltas a tile covers
-constexpr float NEG = -1e30f;   // the TPU kernel's mask value
+using tc::NEG;
 static_assert(BQ == BK, "square tiles: the causal loops start at the diagonal tile");
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -99,10 +119,8 @@ __device__ __forceinline__ void load_t(float* dst, const T* src, int r0, int row
 // (q0 + r) - (k0 + c) is Bs[r - c + BK - 1]
 __device__ __forceinline__ void load_bias(float* Bs, const float* tab, int q0, int k0, int n,
                                           int h, int heads) {
-  for (int i = threadIdx.x; i < ND; i += NT) {
-    const int idx = q0 - k0 - (BK - 1) + i + n - 1;
-    Bs[i] = idx >= 0 && idx < 2 * n - 1 ? tab[(size_t)idx * heads + h] : 0.f;
-  }
+  for (int i = threadIdx.x; i < ND; i += NT)
+    Bs[i] = tc::tab_entry(tab, q0, k0, BK, i, n, heads, h);
 }
 
 // Ts[r * qs + c * ks] = bias_h[q0 + r, k0 + c] (r query, c key) of an (n, m)
@@ -118,10 +136,7 @@ __device__ __forceinline__ void load_bias_tile(float* Ts, const float* bias_h, i
 
 // key flags: 0 attend, NEG masked, -inf past m
 __device__ __forceinline__ void load_flags(float* Fs, const int8_t* kmask, int b, int k0, int m) {
-  for (int i = threadIdx.x; i < BK; i += NT) {
-    const int kp = k0 + i;
-    Fs[i] = kp >= m ? -INFINITY : (kmask != nullptr && kmask[(size_t)b * m + kp] == 0) ? NEG : 0.f;
-  }
+  for (int i = threadIdx.x; i < BK; i += NT) Fs[i] = tc::key_flag(kmask, b, m, k0 + i);
 }
 
 // lse (+inf on padded rows, so p = 0 there) and Delta of query rows q0..
@@ -138,9 +153,7 @@ __device__ __forceinline__ void load_rows(float* Ls, float* Dl, const float* lse
 // dp = dO.v, as the forward formed the logit
 __device__ __forceinline__ void p_ds(float s, float dp, float bias, float flag, bool above,
                                      float lse, float delta, float& p, float& ds) {
-  float x = s + bias;
-  if (flag != 0.f) x = flag;
-  else if (above) x = NEG;
+  const float x = tc::score(s + bias, flag, above);
   p = lse > 0.5f * NEG ? expf(x - lse) : 0.f;
   ds = p * (dp - delta);
 }
@@ -283,140 +296,173 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
 }
 
-template <int D>
-constexpr size_t smem_dkv() {
-  // Ks, Vs, Qs, Gs [D][PITCH]; P, dS [BQ][PITCH]; bias [ND]; flags [BK]; lse, Delta [BQ]
-  return sizeof(float) * (4 * D * PITCH + 2 * BQ * PITCH + ND + BK + 2 * BQ);
-}
+// K3: one block of 4 warps per (query head of the group, b*hk, 64-key tile),
+// the blocks of one (b*hk, key tile) a thread-block cluster (see the note at
+// the top). Each warp owns 16 keys: its rows of S^T, dP^T, dK and dV.
+constexpr int NT3 = 128;          // K3's threads
+constexpr int TP3 = BQ + 4;       // K3's bias tile pitch: rows are queries, read down the keys
+constexpr int MAX_CLUSTER = 8;    // the portable cluster size
 
-// K3. One block per (b*hk, key tile); rows r of a thread are keys, columns c queries.
+// Shared memory: the K and V tiles; two stages of (Q tile, dO tile, lse
+// [BQ], Delta [BQ], table slice [BQ + BK - 1]); the key flags; with an
+// (H, N, M) bias two of its 64x64 blocks. After the loop the dK and dV
+// partials of the cluster's head sum take the stages' place.
 template <typename T, int D>
-__global__ void __launch_bounds__(NT)
+struct DkvSmem {
+  static constexpr int P = tc::pitch<T, D>();
+  static constexpr size_t tile = (size_t)BK * P * sizeof(T);  // BQ == BK rows
+  static constexpr size_t stages = 2 * tile;
+  static constexpr size_t stage = 2 * tile + (2 * BQ + BQ + BK) * sizeof(float);
+  static constexpr size_t flags = stages + 2 * stage;
+  static constexpr size_t base = flags + BK * sizeof(float);
+  static constexpr size_t dense = 2 * (size_t)BQ * TP3 * sizeof(float);
+  static constexpr int RP = D + 4;  // the partials' pitch in floats
+  static constexpr size_t red = 2 * (size_t)BK * RP * sizeof(float);
+  static_assert(red <= 2 * stage, "the partials fit in the stages");
+  static_assert(tile % 16 == 0 && stage % 16 == 0, "16-byte aligned regions");
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NT3)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ g, const float* __restrict__ lse,
                      const float* __restrict__ delta, const float* __restrict__ tab,
                      const float* __restrict__ bias, const int8_t* __restrict__ kmask,
                      T* __restrict__ dk, T* __restrict__ dv,
                      int heads, int hk, int n, int m, float scale, int causal) {
-  constexpr int DC = D / 16;
-  extern __shared__ float smem[];
-  float* Ks = smem;              // k^T
-  float* Vs = Ks + D * PITCH;    // v^T
-  float* Qs = Vs + D * PITCH;    // (scale q)^T
-  float* Gs = Qs + D * PITCH;    // dO^T
-  float* Ps = Gs + D * PITCH;    // P: Ps[c * PITCH + r], c query, r key; before P, the bias tile
-  float* Ss = Ps + BQ * PITCH;   // dS, the same layout
-  float* Bs = Ss + BQ * PITCH;
-  float* Fs = Bs + ND;
-  float* Ls = Fs + BK;
-  float* Dl = Ls + BQ;
+  using S = DkvSmem<T, D>;
+  constexpr int P = S::P;
+  // its own name: K2's and K5's dynamic shared memory is declared float
+  extern __shared__ __align__(16) unsigned char dkv_smem[];
+  unsigned char* smem = dkv_smem;
+  T* Ks = reinterpret_cast<T*>(smem);
+  T* Vs = Ks + BK * P;
+  auto Qs = [&](int s) { return reinterpret_cast<T*>(smem + S::stages + s * S::stage); };
+  auto Gs = [&](int s) { return reinterpret_cast<T*>(smem + S::stages + s * S::stage + S::tile); };
+  // lse (+inf where p = 0: padded or fully masked rows), then Delta,
+  // then the table slice: the bias of (q0 + c, k0 + r) is at [2 * BQ + c - r + BK - 1]
+  auto Ls = [&](int s) {
+    return reinterpret_cast<float*>(smem + S::stages + s * S::stage + 2 * S::tile);
+  };
+  float* Fs = reinterpret_cast<float*>(smem + S::flags);
+  auto Ts = [&](int s) { return reinterpret_cast<float*>(smem + S::base) + s * BQ * TP3; };
 
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), csize = (int)cluster.num_blocks();
   const int kvh = blockIdx.y;  // b * hk + kv head
   const int b = kvh / hk, kh = kvh % hk, group = heads / hk;
-  const int k0 = blockIdx.x * BK;  // the longest causal loops first
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int k0 = blockIdx.z * BK;  // key tile 0, the longest causal loop, first
+  const int tid = threadIdx.x, warp = tid / 32, gq = (tid % 32) / 4, t = tid % 4;
 
-  load_t<T, D>(Ks, k + (size_t)kvh * m * D, k0, m, 1.f);
-  load_t<T, D>(Vs, v + (size_t)kvh * m * D, k0, m, 1.f);
-  load_flags(Fs, kmask, b, k0, m);
-
-  float ak[4][DC], av[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) ak[i][c] = av[i][c] = 0.f;
-
+  // this block sums the heads kh * group + rank + csize * i of its kv head
   const int q_start = causal ? k0 : 0;
-  for (int hh = 0; hh < group; ++hh) {
-    const int h = kh * group + hh;
-    const int bh = b * heads + h;
-    for (int q0 = q_start; q0 < n; q0 += BQ) {
-      __syncthreads();  // the previous tile is consumed
-      load_t<T, D>(Qs, q + (size_t)bh * n * D, q0, n, scale);
-      load_t<T, D>(Gs, g + (size_t)bh * n * D, q0, n, 1.f);
-      load_rows(Ls, Dl, lse + (size_t)bh * n, delta + (size_t)bh * n, q0, n);
-      if (tab != nullptr) load_bias(Bs, tab, q0, k0, n, h, heads);
-      if (bias != nullptr) load_bias_tile(Ps, bias + (size_t)h * n * m, q0, k0, n, m, PITCH, 1);
-      __syncthreads();
+  const int nqt = q_start < n ? (n - q_start + BQ - 1) / BQ : 0;
+  const int total = (group / csize) * nqt;
 
-      float s[4][4], dp[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        float a[4], av_[4], bq[4], bg[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          a[i] = Ks[d * PITCH + ty + 16 * i];
-          av_[i] = Vs[d * PITCH + ty + 16 * i];
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          bq[j] = Qs[d * PITCH + tx + 16 * j];
-          bg[j] = Gs[d * PITCH + tx + 16 * j];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            s[i][j] = fmaf(a[i], bq[j], s[i][j]);
-            dp[i][j] = fmaf(av_[i], bg[j], dp[i][j]);
-          }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ty + 16 * i;  // key
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = tx + 16 * j;  // query
-          float p, ds;
-          const float bias_rc = tab != nullptr ? Bs[c - r + BK - 1]
-                                : bias != nullptr ? Ps[c * PITCH + r] : 0.f;
-          p_ds(s[i][j], dp[i][j], bias_rc, Fs[r], causal && k0 + r > q0 + c, Ls[c], Dl[c], p,
-               ds);
-          Ps[c * PITCH + r] = p;
-          Ss[c * PITCH + r] = ds;
-        }
-      }
-      __syncthreads();
+  float pre_row = 0.f, pre_tab = 0.f;  // this thread's lse or Delta, table entry, of the next stage
+  auto issue = [&](int it) {
+    const int h = kh * group + rank + csize * (it / nqt);
+    const int q0 = q_start + (it % nqt) * BQ, s = it & 1;
+    const size_t bh = (size_t)b * heads + h;
+    tc::cp_tile<T, D, BQ, NT3>(Qs(s), P, q + bh * n * D, q0, n);
+    tc::cp_tile<T, D, BQ, NT3>(Gs(s), P, g + bh * n * D, q0, n);
+    if (bias != nullptr)
+      tc::cp_block_f32<BQ, BK, NT3>(Ts(s), TP3, bias + (size_t)h * n * m, q0, k0, n, m);
+    tc::cp_async_commit();
+    const int qp = q0 + tid % BQ;
+    if (tid < BQ) pre_row = qp < n ? lse[bh * n + qp] : INFINITY;
+    else pre_row = qp < n ? delta[bh * n + qp] : 0.f;
+    if (tab != nullptr && tid < BQ + BK - 1)
+      pre_tab = tc::tab_entry(tab, q0, k0, BK, tid, n, heads, h);
+  };
+  auto stash = [&](int it) {
+    float* ls = Ls(it & 1);
+    ls[tid] = tid >= BQ || pre_row > 0.5f * NEG ? pre_row : INFINITY;
+    if (tab != nullptr && tid < BQ + BK - 1) ls[2 * BQ + tid] = pre_tab;
+  };
 
-      // dv[r][col] += sum_c P[c][r] dO[c][col]; dk[r][col] += sum_c dS[c][r] (scale q)[c][col]
-#pragma unroll 2
-      for (int c = 0; c < BQ; ++c) {
-        float pr[4], sr[4];
+  tc::cp_tile<T, D, BK, NT3>(Ks, P, k + (size_t)kvh * m * D, k0, m);
+  tc::cp_tile<T, D, BK, NT3>(Vs, P, v + (size_t)kvh * m * D, k0, m);
+  if (total > 0) {
+    issue(0);  // K and V join its group
+    stash(0);
+  }
+  if (tid < BK) Fs[tid] = tc::key_flag(kmask, b, m, k0 + tid);
+  tc::cp_async_wait_all();
+  __syncthreads();
+
+  const int kl[2] = {warp * 16 + gq, warp * 16 + gq + 8};  // this thread's keys in the tile
+  const float fk[2] = {Fs[kl[0]], Fs[kl[1]]};
+  const tc::ASmem<T> ka{Ks + warp * 16 * P, P}, va{Vs + warp * 16 * P, P};
+  float dka[D / 8][4], dva[D / 8][4];
+  tc::zero(dka);
+  tc::zero(dva);
+
+  for (int it = 0; it < total; ++it) {
+    const int s = it & 1, q0 = q_start + (it % nqt) * BQ;
+    if (it + 1 < total) issue(it + 1);
+
+    float st[BQ / 8][4], dpt[BQ / 8][4];  // S^T and dP^T: rows keys, columns queries
+    tc::zero(st);
+    tc::zero(dpt);
+    tc::gemm_nk<T, D, BQ / 8>(st, ka, Qs(s), P);
+    tc::gemm_nk<T, D, BQ / 8>(dpt, va, Gs(s), P);
+
+    const float* ls = Ls(s);
+    const float* ts = Ts(s);
+    // keys above the diagonal: only in the diagonal tile, and only for some warps
+    const bool diag = causal && k0 + warp * 16 + 15 > q0;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pr[i] = Ps[c * PITCH + ty + 16 * i];
-          sr[i] = Ss[c * PITCH + ty + 16 * i];
-        }
+    for (int j = 0; j < BQ / 8; ++j)
 #pragma unroll
-        for (int cc = 0; cc < DC; ++cc) {
-          const float gg = Gs[(tx + 16 * cc) * PITCH + c];
-          const float qq = Qs[(tx + 16 * cc) * PITCH + c];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            av[i][cc] = fmaf(pr[i], gg, av[i][cc]);
-            ak[i][cc] = fmaf(sr[i], qq, ak[i][cc]);
-          }
-        }
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + 2 * t + (e & 1), ri = e / 2, kr = kl[ri];
+        const float bc = tab != nullptr ? ls[2 * BQ + c - kr + BK - 1]
+                         : bias != nullptr ? ts[c * TP3 + kr] : 0.f;
+        const float x = tc::score(fmaf(st[j][e], scale, bc), fk[ri], diag && k0 + kr > q0 + c);
+        const float p = tc::exp_rel(x, ls[c]);
+        st[j][e] = p;
+        dpt[j][e] = p * (dpt[j][e] - ls[BQ + c]);
       }
+    const float one[2] = {1.f, 1.f};
+    tc::add_tile<T, D, BQ / 8>(dva, st, Gs(s), P, one);   // dV += P^T dO
+    tc::add_tile<T, D, BQ / 8>(dka, dpt, Qs(s), P, one);  // dK += dS^T Q
+
+    if (it + 1 < total) {
+      stash(it + 1);
+      tc::cp_async_wait_all();
     }
+    __syncthreads();  // this stage is consumed and the next one has landed
   }
 
+  // the head sum over the cluster: each block's partials into its own
+  // shared memory, then rank 0 adds them in rank order and writes dk, dv once
+  float* red = reinterpret_cast<float*>(smem + S::stages);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kp = k0 + ty + 16 * i;
-    if (kp >= m) continue;
-    T* ok = dk + ((size_t)kvh * m + kp) * D;
-    T* ov = dv + ((size_t)kvh * m + kp) * D;
+  for (int j = 0; j < D / 8; ++j)
 #pragma unroll
-    for (int cc = 0; cc < DC; ++cc) {
-      ok[tx + 16 * cc] = from_f<T>(ak[i][cc]);
-      ov[tx + 16 * cc] = from_f<T>(av[i][cc]);
+    for (int ri = 0; ri < 2; ++ri) {
+      float* row = red + kl[ri] * S::RP + 8 * j + 2 * t;
+      tc::store2(row, dka[j][2 * ri], dka[j][2 * ri + 1]);
+      tc::store2(row + BK * S::RP, dva[j][2 * ri], dva[j][2 * ri + 1]);
+    }
+  cluster.sync();
+  if (rank == 0) {
+    for (int i = tid; i < BK * D; i += NT3) {
+      const int r = i / D, c = i % D;
+      if (k0 + r >= m) continue;
+      float sk = 0.f, sv = 0.f;
+      for (int src = 0; src < csize; ++src) {
+        const float* part = cluster.map_shared_rank(red, src);
+        sk += part[r * S::RP + c];
+        sv += part[(BK + r) * S::RP + c];
+      }
+      const size_t o = ((size_t)kvh * m + k0 + r) * D + c;
+      dk[o] = from_f<T>(sk * scale);
+      dv[o] = from_f<T>(sv);
     }
   }
+  cluster.sync();  // every block's partials stay until rank 0 has read them
 }
 
 template <int D>
@@ -554,19 +600,33 @@ cudaError_t launch_dq(const Args& a, void* dq, void* dtab) {
 
 template <typename T, int D>
 cudaError_t launch_dkv(const Args& a, void* dk, void* dv) {
-  constexpr size_t smem = smem_dkv<D>();
+  using S = DkvSmem<T, D>;
   auto kernel = flash_bwd_dkv_kernel<T, D>;
-  cudaError_t err = set_smem(kernel, smem);
+  cudaError_t err = set_smem(kernel, S::base + S::dense);
   if (err != cudaSuccess) return err;
-  dim3 grid((a.m + BK - 1) / BK, a.b * a.hk);
-  kernel<<<grid, NT, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.g), static_cast<const float*>(a.lse),
+  // the cluster: the query heads of one kv head, at most MAX_CLUSTER of them
+  // (with more, each block loops over group / cluster heads)
+  const int group = a.heads / a.hk;
+  int cluster = MAX_CLUSTER;
+  while (group % cluster) --cluster;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, a.b * a.hk, (a.m + BK - 1) / BK);
+  cfg.blockDim = dim3(NT3);
+  cfg.dynamicSmemBytes = S::base + (a.bias != nullptr ? S::dense : 0);
+  cfg.stream = a.stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.g), static_cast<const float*>(a.lse),
       static_cast<const float*>(a.delta), static_cast<const float*>(a.tab),
       static_cast<const float*>(a.bias), static_cast<const int8_t*>(a.kmask),
-      static_cast<T*>(dk), static_cast<T*>(dv),
-      a.heads, a.hk, a.n, a.m, a.scale, a.causal);
-  return cudaGetLastError();
+      static_cast<T*>(dk), static_cast<T*>(dv), a.heads, a.hk, a.n, a.m, a.scale, a.causal);
 }
 
 template <typename T, int D>

@@ -12,51 +12,58 @@
 // What bounds it. At the flagship shape (B=4, H=8, N=2048, D=64, causal) the
 // work is 4*B*H*N*N*D/2 = 17.2 GFLOP over ~38 MB of float32 inputs and
 // outputs, so it is compute-bound: ~17 us at the 989 TFLOP/s bf16 tensor-core
-// peak, ~0.26 ms at the 67 TFLOP/s float32 peak without tensor cores (worked
-// out from the shapes, not measured).
+// peak, ~0.10 ms for float32 as 3xTF32 (three TF32 products at 495 TFLOP/s);
+// worked out from the shapes, not measured. With an (H, N, M) bias (the
+// Coarse and Fine LMs') the bias adds 46 MB at the Fine LM's training shape
+// (B=4, H=8, N=M=1201), 14 us at 3.35 TB/s, read again by each batch row,
+// mostly from the 50 MB L2.
 //
-// Design. Right and simple first: one block of 256 threads per (b*h, 64-row
-// query tile) loops over 64-key tiles held in shared memory as float32; the
-// products run as float32 FMAs on the CUDA cores (no tensor cores yet), each
-// thread owning a 4x4 patch of the 64x64 score tile and a 4x(D/16) patch of
-// the output. The bias never exists as (H, N, N): each key tile loads the
-// 127 table entries its deltas q-k cover. With an (H, N, M) bias (the Coarse
-// and Fine LMs' materialised bias), each key tile loads its 64x64 float32
-// block of bias[h] into the P tile's shared memory instead (each thread
-// reads its own elements there before it overwrites them with p, so the
-// tile costs no shared memory and no occupancy), one coalesced pass. At the
-// Fine LM's training shape (B=4, H=8, N=M=1201) the bias is 46 MB, 14 us at
-// 3.35 TB/s, against 88 us for the causal products at the float32 peak, so
-// the kernel stays compute-bound; each batch row reads it again, mostly from
-// the 50 MB L2 (worked out from the shapes, not measured).
-// wgmma/TMA come later. Instantiated for D=64, the head dim of every model
-// on the port's path.
-#include <cuda_bf16.h>
+// Design (FA2's shape, on the tensor cores through csrc/mma.cuh). One block
+// of 4 warps per (b*h, 64-query tile), the heaviest (last) query tiles
+// launched first; each warp owns 16 query rows, whose Q fragments stay in
+// registers for the whole loop (bf16, or split into tf32 big/small pairs).
+// The 64-key K and V tiles are double-buffered in shared memory by cp.async,
+// so the next tile loads while this one computes; so is the (H, N, M) bias's
+// 64x64 float32 block. S = Q K^T is an mma product; each thread adds the
+// bias, the key flags and the causal mask to its own accumulator elements
+// (rows lane/4 and lane/4 + 8, columns 2*(lane%4) + {0, 1} of each 8-wide
+// block), by the masking rule at the end of mma.cuh: the table's bias from
+// the tile's 127-entry slice (the deltas q - k it covers), read ahead into
+// registers while the previous tile computes; the causal test runs only on
+// tiles that reach above a warp's rows. The online softmax works on those
+// fragments, each p one SFU op (2^((x - m) log2 e), exactly 1 where x = m,
+// so a row whose keys so far are all masked stays finite), with the row max
+// and sum taken across the 4 lanes of a quad. P goes to the P V product as
+// the A operand straight from the accumulators (rounded to bf16, or split to
+// tf32), never through shared memory; V is the B operand through
+// ldmatrix.trans (bf16) or 32-bit loads (float32). Instantiated for D=64, the head dim of every model on the
+// port's path.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "mma.cuh"
 
 namespace {
 
 constexpr int BQ = 64;          // query rows per block
 constexpr int BK = 64;          // keys per tile
-constexpr int NT = 256;         // threads: a 16x16 grid of (ty, tx)
-constexpr int PITCH = BQ + 1;   // transposed tiles, padded against bank conflicts
-constexpr float NEG = -1e30f;   // the TPU kernel's mask value
+constexpr int NT = 128;         // 4 warps of 16 query rows
+constexpr int TPITCH = BK + 8;  // the (H, N, M) bias tile's pitch: float2 reads without conflicts
+using tc::NEG;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-template <int D>
-constexpr size_t smem_bytes() {
-  // Qs [D][PITCH], Ks [D][PITCH], Vs [BK][D], Ps [BK][PITCH], bias [BQ+BK-1], key flags [BK]
-  return sizeof(float) * (2 * D * PITCH + BK * D + BK * PITCH + BQ + BK - 1 + BK);
-}
+// Shared memory: two stages of (K tile, V tile, table slice [BQ + BK - 1],
+// key flags [BK]), then with an (H, N, M) bias two of its 64x64 blocks.
+// Q is staged, before the loop, in stage 1's K tile.
+template <typename T, int D>
+struct Smem {
+  static constexpr int P = tc::pitch<T, D>();
+  static constexpr size_t tile = (size_t)BK * P * sizeof(T);
+  static constexpr size_t stage = 2 * tile + (BQ + 2 * BK) * sizeof(float);
+  static constexpr size_t base = 2 * stage;
+  static constexpr size_t dense = 2 * (size_t)BQ * TPITCH * sizeof(float);
+  static_assert(tile % 16 == 0 && stage % 16 == 0, "16-byte aligned regions");
+};
 
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
@@ -65,149 +72,140 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
                  const int8_t* __restrict__ kmask,
                  T* __restrict__ out, float* __restrict__ lse, int heads, int group,
                  int n, int m, float scale, int causal) {
-  static_assert(D % 16 == 0, "D must be a multiple of 16");
-  constexpr int DC = D / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;                 // q^T * scale
-  float* Ks = Qs + D * PITCH;       // k^T
-  float* Vs = Ks + D * PITCH;       // v, row-major
-  float* Ps = Vs + BK * D;          // p^T; before p, the (H, N, M) bias tile
-  float* Bs = Ps + BK * PITCH;      // bias for deltas q0-k0-(BK-1) .. q0-k0+BQ-1
-  float* Fs = Bs + BQ + BK - 1;     // key flags: 0 in range, NEG masked, -inf past m
+  using S = Smem<T, D>;
+  constexpr int P = S::P;
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto Ks = [&](int s) { return reinterpret_cast<T*>(smem + s * S::stage); };
+  auto Vs = [&](int s) { return reinterpret_cast<T*>(smem + s * S::stage + S::tile); };
+  // table slice: Bs[i] = tab[q0 - k0 - (BK - 1) + i + n - 1, h], so
+  // the bias of (q0 + r, k0 + c) is Bs[r - c + BK - 1]; then the key flags
+  auto Bs = [&](int s) { return reinterpret_cast<float*>(smem + s * S::stage + 2 * S::tile); };
+  auto Fs = [&](int s) { return Bs(s) + BQ + BK; };
+  auto Ts = [&](int s) { return reinterpret_cast<float*>(smem + S::base) + s * BQ * TPITCH; };
 
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const int h = bh % heads;
-  const int b = bh / heads;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // the longest causal rows first
+  const int h = bh % heads, b = bh / heads;
+  const int tid = threadIdx.x, warp = tid / 32, g = (tid % 32) / 4, t = tid % 4;
   const T* qb = q + (size_t)bh * n * D;
   const T* kb = k + (size_t)(bh / group) * m * D;
   const T* vb = v + (size_t)(bh / group) * m * D;
   const float* biash = bias != nullptr ? bias + (size_t)h * n * m : nullptr;
 
-  for (int i = tid; i < BQ * D; i += NT) {
-    const int r = i / D, c = i % D;
-    Qs[c * PITCH + r] = q0 + r < n ? to_f(qb[(size_t)(q0 + r) * D + c]) * scale : 0.f;
-  }
-
-  float m_i[4], l_i[4], acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_i[i] = NEG;
-    l_i[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  }
-
   // causal (n == m): key k is seen by query q iff k <= q
   const int kv_end = causal ? min(m, q0 + BQ) : m;
-  for (int k0 = 0; k0 < kv_end; k0 += BK) {
-    __syncthreads();  // the previous tile's Ks/Vs/Ps/Bs/Fs are consumed
-    for (int i = tid; i < BK * D; i += NT) {
-      const int r = i / D, c = i % D;
-      const bool in = k0 + r < m;
-      Ks[c * PITCH + r] = in ? to_f(kb[(size_t)(k0 + r) * D + c]) : 0.f;
-      Vs[r * D + c] = in ? to_f(vb[(size_t)(k0 + r) * D + c]) : 0.f;
-    }
-    if (tab != nullptr) {
-      for (int i = tid; i < BQ + BK - 1; i += NT) {
-        const int idx = q0 - k0 - (BK - 1) + i + n - 1;
-        Bs[i] = idx >= 0 && idx < 2 * n - 1 ? tab[(size_t)idx * heads + h] : 0.f;
-      }
-    }
-    if (biash != nullptr) {
-      for (int i = tid; i < BQ * BK; i += NT) {
-        const int r = i / BK, c = i % BK;
-        Ps[c * PITCH + r] = q0 + r < n && k0 + c < m ? biash[(size_t)(q0 + r) * m + k0 + c] : 0.f;
-      }
-    }
-    for (int i = tid; i < BK; i += NT) {
-      const int kp = k0 + i;
-      Fs[i] = kp >= m ? -INFINITY
-              : (kmask != nullptr && kmask[(size_t)b * m + kp] == 0) ? NEG : 0.f;
-    }
-    __syncthreads();
+  const int ntiles = (kv_end + BK - 1) / BK;
 
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float a[4], bk[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Qs[d * PITCH + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bk[j] = Ks[d * PITCH + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bk[j], s[i][j]);
-    }
+  // Tile `it` into stage it & 1: K, V and the bias block by cp.async (one
+  // group); the table entry and key flag of this thread into registers,
+  // which `stash` stores once this tile's compute has hidden their latency.
+  float tab_r = 0.f, flag_r = 0.f;
+  auto issue = [&](int it) {
+    const int k0 = it * BK, s = it & 1;
+    tc::cp_tile<T, D, BK, NT>(Ks(s), P, kb, k0, m);
+    tc::cp_tile<T, D, BK, NT>(Vs(s), P, vb, k0, m);
+    if (biash != nullptr) tc::cp_block_f32<BQ, BK, NT>(Ts(s), TPITCH, biash, q0, k0, n, m);
+    tc::cp_async_commit();
+    if (tab != nullptr && tid < BQ + BK - 1)
+      tab_r = tc::tab_entry(tab, q0, k0, BK, tid, n, heads, h);
+    if (tid < BK) flag_r = tc::key_flag(kmask, b, m, k0 + tid);
+  };
+  auto stash = [&](int it) {
+    const int s = it & 1;
+    if (tab != nullptr && tid < BQ + BK - 1) Bs(s)[tid] = tab_r;
+    if (tid < BK) Fs(s)[tid] = flag_r;
+  };
 
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        float x = s[i][j];
-        if (tab != nullptr) x += Bs[r - c + BK - 1];
-        else if (biash != nullptr) x += Ps[c * PITCH + r];  // this thread's own element
-        const float f = Fs[c];
-        if (f != 0.f) x = f;
-        if (causal && k0 + c > q0 + r && f == 0.f) x = NEG;
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_i[i], mx);
-      const float alpha = expf(m_i[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        s[i][j] = p;
-        rs += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l_i[i] = l_i[i] * alpha + rs;
-      m_i[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) Ps[(tx + 16 * j) * PITCH + r] = s[i][j];
-    }
-    __syncthreads();
+  // Q (in stage 1's K tile) with tile 0, then Q's fragments into registers
+  tc::cp_tile<T, D, BQ, NT>(Ks(1), P, qb, q0, n);
+  issue(0);
+  stash(0);
+  tc::cp_async_wait_all();
+  __syncthreads();
+  tc::ARegs<T, D> qf;
+  qf.load(Ks(1) + warp * 16 * P, P);
+  __syncthreads();  // stage 1 is free for tile 1
 
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      float p[4];
+  const int rl[2] = {warp * 16 + g, warp * 16 + g + 8};  // this thread's rows in the tile
+  float m_i[2] = {NEG, NEG}, l_i[2] = {0.f, 0.f};
+  float o[D / 8][4];
+  tc::zero(o);
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it & 1, k0 = it * BK;
+    if (it + 1 < ntiles) issue(it + 1);
+
+    float sc[BK / 8][4];
+    tc::zero(sc);
+    tc::gemm_nk<T, D, BK / 8>(sc, qf, Ks(s), P);
+
+    const float* bs = Bs(s);
+    const float* fs = Fs(s);
+    const float* ts = Ts(s);
+    // keys above the diagonal meet this warp's rows only near the diagonal
+    const bool diag = causal && k0 + BK - 1 > q0 + warp * 16;
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ps[j * PITCH + ty + 16 * i];
+    for (int j = 0; j < BK / 8; ++j) {
+      const int c = 8 * j + 2 * t;
+      const float2 f = *reinterpret_cast<const float2*>(fs + c);
 #pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const float vv = Vs[j * D + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(p[i], vv, acc[i][c]);
+      for (int ri = 0; ri < 2; ++ri) {
+        float2 bb = make_float2(0.f, 0.f);
+        if (tab != nullptr) bb = make_float2(bs[rl[ri] - c + BK - 1], bs[rl[ri] - c + BK - 2]);
+        else if (biash != nullptr) bb = *reinterpret_cast<const float2*>(ts + rl[ri] * TPITCH + c);
+        const int qp = q0 + rl[ri];
+        const float x0 = tc::score(fmaf(sc[j][2 * ri], scale, bb.x), f.x, diag && k0 + c > qp);
+        const float x1 = tc::score(fmaf(sc[j][2 * ri + 1], scale, bb.y), f.y,
+                                   diag && k0 + c + 1 > qp);
+        sc[j][2 * ri] = x0;
+        sc[j][2 * ri + 1] = x1;
+        mx[ri] = fmaxf(mx[ri], fmaxf(x0, x1));
       }
     }
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri) {
+      mx[ri] = fmaxf(mx[ri], __shfl_xor_sync(0xffffffffu, mx[ri], 1));
+      mx[ri] = fmaxf(mx[ri], __shfl_xor_sync(0xffffffffu, mx[ri], 2));
+      const float m_new = fmaxf(m_i[ri], mx[ri]);
+      alpha[ri] = tc::exp_rel(m_i[ri], m_new);
+      m_i[ri] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = tc::exp_rel(sc[j][e], m_i[e / 2]);
+        sc[j][e] = p;
+        rs[e / 2] += p;
+      }
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri) {
+      rs[ri] += __shfl_xor_sync(0xffffffffu, rs[ri], 1);
+      rs[ri] += __shfl_xor_sync(0xffffffffu, rs[ri], 2);
+      l_i[ri] = l_i[ri] * alpha[ri] + rs[ri];
+    }
+    tc::add_tile<T, D, BK / 8>(o, sc, Vs(s), P, alpha);  // O = O * alpha + P V
+
+    if (it + 1 < ntiles) {
+      stash(it + 1);
+      tc::cp_async_wait_all();
+    }
+    __syncthreads();  // this stage is consumed and the next one has landed
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qp = q0 + ty + 16 * i;
+  for (int ri = 0; ri < 2; ++ri) {
+    const int qp = q0 + rl[ri];
     if (qp >= n) continue;
-    const float l = l_i[i] == 0.f ? 1.f : l_i[i];
+    const float l = l_i[ri] == 0.f ? 1.f : l_i[ri];
     const float inv = 1.f / l;
-    T* o = out + ((size_t)bh * n + qp) * D;
+    T* orow = out + ((size_t)bh * n + qp) * D;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) o[tx + 16 * c] = from_f<T>(acc[i][c] * inv);
-    if (tx == 0) lse[(size_t)bh * n + qp] = m_i[i] + logf(l);
+    for (int j = 0; j < D / 8; ++j)
+      tc::store2(orow + 8 * j + 2 * t, o[j][2 * ri] * inv, o[j][2 * ri + 1] * inv);
+    if (t == 0) lse[(size_t)bh * n + qp] = m_i[ri] + logf(l);
   }
 }
 
@@ -215,11 +213,13 @@ template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* tab,
                    const void* bias, const void* kmask, void* out, void* lse, int bh, int heads, int group,
                    int n, int m, float scale, int causal, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+  using S = Smem<T, D>;
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)(S::base + S::dense));
   if (err != cudaSuccess) return err;
-  dim3 grid((n + BQ - 1) / BQ, bh);
+  const size_t smem = S::base + (bias != nullptr ? S::dense : 0);
+  dim3 grid(bh, (n + BQ - 1) / BQ);
   flash_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(tab), static_cast<const float*>(bias),
@@ -245,7 +245,8 @@ cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v, const
 // q (bh, n, d); k, v (bh / group, m, d); tab (2n-1, heads) float32 or null;
 // bias (heads, n, m) float32 or null, at most one of the two; kmask
 // (bh / heads, m) int8 or null; out (bh, n, d) in q's type; lse (bh, n)
-// float32. dtype 0 = float32, 1 = bfloat16. Returns a cudaError_t.
+// float32. q, k, v 16-byte aligned. dtype 0 = float32, 1 = bfloat16.
+// Returns a cudaError_t.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void* tab,
                          const void* bias, const void* kmask, void* out, void* lse, int bh,
                          int heads, int group, int n, int m, int d, float scale, int causal,

@@ -2,19 +2,22 @@
 (an `extern "C"` launcher each) and loads them with ctypes.
 
 A library is built at first use into `build/kernels/` at the repository
-root, named by a hash of its source and flags, so an edited source is rebuilt
-and an unchanged one is loaded as it is.
+root, named by a digest of its source, every header in `csrc/` (`*.cuh`,
+which any source may include) and the flags, so an edited source or header
+is rebuilt and an unchanged one is loaded as it is.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["load", "BUILD_DIR", "CSRC", "NVCC_FLAGS"]
+__all__ = ["load", "library_path", "source_digest", "sass_counts", "BUILD_DIR", "CSRC",
+           "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -23,34 +26,78 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 NVCC_TIMEOUT_S = 600
 
-_loaded: "dict[str, ctypes.CDLL]" = {}
+_loaded: "dict[tuple[str, tuple[str, ...]], ctypes.CDLL]" = {}
 build_log: "dict[str, str]" = {}  # source name -> nvcc's output (ptxas register and spill lines)
 
 
-def _nvcc() -> str:
+def _tool(name: str) -> str:
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    nvcc = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
-    if not os.path.exists(nvcc):
-        raise RuntimeError(f"nvcc not found (looked on PATH and in {cuda_home}/bin)")
-    return nvcc
+    path = shutil.which(name) or os.path.join(cuda_home, "bin", name)
+    if not os.path.exists(path):
+        raise RuntimeError(f"{name} not found (looked on PATH and in {cuda_home}/bin)")
+    return path
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library built from csrc/`name`, building it if needed."""
-    if name in _loaded:
-        return _loaded[name]
+def source_digest(src: Path, flags, csrc: Path = CSRC) -> str:
+    """16 hex digits over the source's bytes, each header's name and bytes in
+    `csrc` (sorted by name) and the flags."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(flags).encode())
+    return h.hexdigest()[:16]
+
+
+def _flags(defines) -> "list[str]":
+    return [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+
+
+def library_path(name: str, defines=()) -> Path:
+    """Where csrc/`name` built with `defines` (macro names) lives."""
     src = CSRC / name
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"{src.stem}-{digest}.so"
+    suffix = "".join(f"-{d}" for d in defines)
+    return BUILD_DIR / f"{src.stem}{suffix}-{source_digest(src, _flags(defines))}.so"
+
+
+def load(name: str, defines=()) -> ctypes.CDLL:
+    """The loaded library built from csrc/`name`, building it if needed;
+    `defines` are extra macros (-D) of a variant, such as a test's."""
+    key = (name, tuple(defines))
+    if key in _loaded:
+        return _loaded[key]
+    src = CSRC / name
+    so = library_path(name, defines)
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        proc = subprocess.run([_tool("nvcc"), *_flags(defines), "-I", str(CSRC), "-o", str(tmp),
+                               str(src)],
                               capture_output=True, text=True, timeout=NVCC_TIMEOUT_S,
                               check=False)
-        build_log[name] = proc.stdout + proc.stderr
+        log_key = name if not defines else f"{name} {' '.join(defines)}"
+        build_log[log_key] = proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{build_log[name]}")
+            raise RuntimeError(f"nvcc failed for {log_key}:\n{build_log[log_key]}")
         os.replace(tmp, so)
-    _loaded[name] = ctypes.CDLL(str(so))
-    return _loaded[name]
+    _loaded[key] = ctypes.CDLL(str(so))
+    return _loaded[key]
+
+
+def sass_counts(name: str) -> "dict[str, dict[str, int]]":
+    """{kernel's mangled name: {"HMMA": n, "FFMA": n}} in the SASS of the
+    built library of csrc/`name` (built first if need be), by `cuobjdump
+    -sass`: HMMA is a tensor-core product, FFMA a float32 FMA."""
+    load(name)
+    proc = subprocess.run([_tool("cuobjdump"), "-sass", str(library_path(name))],
+                          capture_output=True, text=True, timeout=300, check=True)
+    counts: "dict[str, dict[str, int]]" = {}
+    current = None
+    for line in proc.stdout.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            current = counts.setdefault(fn.group(1), {"HMMA": 0, "FFMA": 0})
+        elif current is not None:
+            op = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", line)
+            if op and op.group(1) in current:
+                current[op.group(1)] += 1
+    return counts

@@ -17,6 +17,7 @@ launch the kernels or raise; only a CPU tensor takes the plain versions.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -25,7 +26,7 @@ from ..relpos import toeplitz_expand
 from ._build import load
 
 __all__ = ["flash_attention", "flash_attention_ref", "flash_attention_bwd",
-           "flash_attention_bwd_ref", "bwd_dq", "bwd_dkv", "bwd_dbias", "SOURCE",
+           "flash_attention_bwd_ref", "bwd_dq", "bwd_dkv", "bwd_dbias", "built_with", "SOURCE",
            "SOURCE_BWD", "HEAD_DIMS", "launches", "launches_dq", "launches_dkv",
            "launches_dtab", "launches_dbias"]
 
@@ -51,6 +52,19 @@ def _fn(source, name, argtypes):
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
+
+
+@contextlib.contextmanager
+def built_with(defines):
+    """Within the block the wrappers launch the kernels built with the extra
+    macros `defines`, a variant of `_build.load` (such as a test's)."""
+    global load
+    real = load
+    load = lambda name: real(name, defines)  # noqa: E731
+    try:
+        yield
+    finally:
+        load = real
 
 
 def _fwd_fn():
@@ -99,6 +113,9 @@ def _check_cuda(q, k, v, bias=None):
         raise ValueError("B * H exceeds the grid's y limit of 65535")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k, v must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k, v must start 16-byte aligned: the kernels copy rows 16 bytes "
+                         "at a time")
 
 
 def _kernel_args(bias_tab, key_mask, bias=None):
@@ -184,26 +201,27 @@ def flash_attention(q, k, v, *, bias_tab=None, bias=None, key_mask=None,
 def flash_attention_ref(q, k, v, *, bias_tab=None, bias=None, key_mask=None,
                         causal: bool = False, scale: "float | None" = None,
                         return_lse: bool = False):
-    """Plain PyTorch version of the forward kernel, in float32 (the
-    counterpart of the JAX package's `_math_reference`): same arguments, same
-    results."""
+    """Plain PyTorch version of the forward kernel, in float32, or in float64
+    for float64 inputs (the counterpart of the JAX package's
+    `_math_reference`): same arguments, same results."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     sim = _scores(q, k, bias_tab, key_mask, causal, scale, bias)
-    vf = v.float().repeat_interleave(q.shape[1] // k.shape[1], dim=1)
+    vf = v.to(sim.dtype).repeat_interleave(q.shape[1] // k.shape[1], dim=1)
     out = torch.matmul(sim.softmax(-1), vf).to(q.dtype)
     return (out, sim.logsumexp(-1)) if return_lse else out
 
 
 def _scores(q, k, bias_tab, key_mask, causal, scale, bias=None):
-    """(B, H, N, M) float32 logits with the bias added and masked entries at
-    -1e30, as the kernels form them."""
+    """(B, H, N, M) logits, float32 (float64 for float64 q), with the bias
+    added and masked entries at -1e30, as the kernels form them."""
     n, m = q.shape[2], k.shape[2]
-    kf = k.float().repeat_interleave(q.shape[1] // k.shape[1], dim=1)
-    sim = torch.matmul(q.float() * scale, kf.transpose(-1, -2))
+    ct = torch.promote_types(q.dtype, torch.float32)
+    kf = k.to(ct).repeat_interleave(q.shape[1] // k.shape[1], dim=1)
+    sim = torch.matmul(q.to(ct) * scale, kf.transpose(-1, -2))
     if bias_tab is not None:
-        sim = sim + toeplitz_expand(bias_tab.float(), n, m)
+        sim = sim + toeplitz_expand(bias_tab.to(ct), n, m)
     if bias is not None:
-        sim = sim + bias.float()
+        sim = sim + bias.to(ct)
     if key_mask is not None:
         sim = sim.masked_fill(~key_mask[:, None, None, :], _NEG_INF)
     if causal:
@@ -214,33 +232,34 @@ def _scores(q, k, bias_tab, key_mask, causal, scale, bias=None):
 
 def flash_attention_bwd_ref(q, k, v, bias_tab, key_mask, out, lse, g, *,
                             causal: bool, scale: float, bias=None):
-    """Plain PyTorch version of the backward kernels, in float32: P is
-    recomputed from the forward's `lse` (rows with lse <= -5e29, the fully
-    masked ones, get p = 0), Delta = rowsum(dO * O), dS = P * (dP - Delta).
-    Returns dq, dk, dv in their inputs' dtypes and the float32 gradient of
-    the bias given: dtab (2N-1, H) for a table, dbias = sum over the batch of
+    """Plain PyTorch version of the backward kernels, in float32 (float64 for
+    float64 inputs): P is recomputed from the forward's `lse` (rows with
+    lse <= -5e29, the fully masked ones, get p = 0), Delta = rowsum(dO * O),
+    dS = P * (dP - Delta). Returns dq, dk, dv in their inputs' dtypes and the
+    float32 (or float64) gradient of the bias given: dtab (2N-1, H) for a table, dbias = sum over the batch of
     dS (H, N, M) for a shared bias, dS itself (B, H, N, M) for a per-batch
     one; None without a bias."""
     b, h, n, d = q.shape
     hk, m = k.shape[1], k.shape[2]
     group = h // hk
-    kf = k.float().repeat_interleave(group, dim=1)
-    vf = v.float().repeat_interleave(group, dim=1)
-    gf = g.float()
+    ct = torch.promote_types(q.dtype, torch.float32)
+    kf = k.to(ct).repeat_interleave(group, dim=1)
+    vf = v.to(ct).repeat_interleave(group, dim=1)
+    gf = g.to(ct)
     p = torch.exp(_scores(q, k, bias_tab, key_mask, causal, scale, bias) - lse[..., None])
     p = p.masked_fill(~(lse > _NEG_INF / 2)[..., None], 0.0)
     dp = torch.matmul(gf, vf.transpose(-1, -2))
-    delta = (gf * out.float()).sum(-1, keepdim=True)
+    delta = (gf * out.to(ct)).sum(-1, keepdim=True)
     ds = p * (dp - delta)
     dq = scale * torch.matmul(ds, kf)
     # the query heads of one kv head sum into it (MQA)
-    dk = (scale * torch.matmul(ds.transpose(-1, -2), q.float())).view(b, hk, group, m, d).sum(2)
+    dk = (scale * torch.matmul(ds.transpose(-1, -2), q.to(ct))).view(b, hk, group, m, d).sum(2)
     dv = torch.matmul(p.transpose(-1, -2), gf).view(b, hk, group, m, d).sum(2)
     dbias = None
     if bias_tab is not None:
         delta_idx = (torch.arange(n, device=q.device)[:, None]
                      - torch.arange(m, device=q.device)[None, :] + (m - 1))
-        dbias = torch.zeros(2 * n - 1, h, dtype=torch.float32, device=q.device)
+        dbias = torch.zeros(2 * n - 1, h, dtype=ct, device=q.device)
         dbias.index_add_(0, delta_idx.reshape(-1), ds.sum(0).permute(1, 2, 0).reshape(n * m, h))
     elif bias is not None:
         dbias = ds if bias.ndim == 4 else ds.sum(0)
@@ -308,6 +327,8 @@ def flash_attention_bwd(q, k, v, bias_tab, key_mask, out, lse, g, *, causal: boo
                                        causal=causal, scale=scale, bias=bias)
     _check_cuda(q, k, v, bias)
     g = g.to(q.dtype).contiguous()
+    if g.data_ptr() % 16:  # a view into a larger buffer: K3 copies its rows 16 bytes at a time
+        g = g.clone()
     # Delta = rowsum(dO * O) is a torch reduction, as the JAX package leaves it to XLA
     delta = (g.float() * out.float()).sum(-1)
     tab, kmask, dense = _kernel_args(bias_tab, key_mask, bias)

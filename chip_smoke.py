@@ -5,12 +5,15 @@
 Phases, each printing its name and seconds:
   1. device      - requires CUDA; prints the card and its power limit.
   2. build       - builds every kernel source of the port with nvcc
-                   (build/kernels/), one nvcc per source, all started
+                   (build/kernels/), and the test-only plain-TF32 variants of
+                   the two flash sources, one nvcc per library, all started
                    together, and prints ptxas' register/spill lines.
   3. kernels     - each kernel against its plain PyTorch version at the shapes
                    of the main path (and a ragged, key-masked one), with its
                    time, the plain version's, one PyTorch library call's and
-                   the least time the card could take (bound): the forward K1,
+                   the least time the card could take (bound; for the flash
+                   kernels in float32 at the 3xTF32 tensor-core rate, with
+                   the float32 FMA rate's bound beside it): the forward K1,
                    and the backward K2 (dq) with K4 (the rel-pos table's
                    gradient) fused into its launch, and K3 (dk, dv), as a
                    whole backward through the autograd.Function against the
@@ -18,6 +21,13 @@ Phases, each printing its name and seconds:
                    EOS appended, the last id dropped for the loss, the start
                    token prepended; a forgetful key mask padded True for the
                    start token) and the aligned N = 2048.
+     sass        - HMMA (tensor-core) and FFMA instructions of each flash
+                   kernel in the built SASS (cuobjdump); K1 and K3 must issue
+                   HMMA in float32 and bf16.
+     tf32        - K1's output and K3's dk, dv in float32 (3xTF32) within
+                   1e-5 of a float64 evaluation at the Semantic and Fine
+                   training shapes, the plain-TF32 build shown to fail the
+                   same check; K3's dk, dv the same bits over three runs.
   4. scoring     - the flagship SemanticTransformer (dim 1024, depth 6, heads
                    8, vocab 500, 4 residual streams; random weights from
                    --seed) scores a 4 x 2048 batch: logits and loss; then the
@@ -116,6 +126,14 @@ FLAGSHIP = dict(dim=1024, depth=6, heads=8, dim_head=64, num_semantic_tokens=500
 # H100 SXM published peaks (dense): HBM bytes/s; FLOP/s by input type
 HBM_BPS = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# the flash kernels' float32 products run as 3xTF32 on the tensor cores: three
+# TF32 products (495 TFLOP/s) for each, so their float32 bound is taken at a
+# third of that rate; the FMA rate above is K6's and K7's, and the flash
+# rows' earlier bound, printed beside the new one as bound_fma_ms
+TF32X3_FLOPS = 495e12 / 3
+# 3xTF32 (K1, K3) against a float64 evaluation: max |kernel - ref| over max
+# |ref|; plain TF32 (the small terms dropped) reads ~5e-4
+F64_TOL = 1e-5
 TOL = {torch.float32: 2e-3, torch.bfloat16: 3e-2}
 # gradients: the JAX package's tolerance in float32 (dtab also sums by atomics
 # in an order that changes from run to run); bf16 rounding of dq, dk, dv
@@ -135,6 +153,10 @@ TRAIN_N = TRAIN_IDS[1] + 1
 LOGITS_TOL = 2e-3  # float32 card vs CPU: summation order differs, nothing else
 DEV = torch.device("cuda")
 SOURCES = (fa.SOURCE, fa.SOURCE_BWD, vq.SOURCE, la.SOURCE)
+# a test-only build of K1 and K3 with plain TF32 (the 3xTF32 small terms
+# dropped), which the float64 check must reject
+ONE_PASS = ("MMA_TF32_ONE_PASS",)
+BUILDS = [(src, ()) for src in SOURCES] + [(fa.SOURCE, ONE_PASS), (fa.SOURCE_BWD, ONE_PASS)]
 # each kernel's launch counter: (its module, the counter's name there)
 COUNTERS = {"launches": (fa, "launches"), "launches_dq": (fa, "launches_dq"),
             "launches_dkv": (fa, "launches_dkv"), "launches_dtab": (fa, "launches_dtab"),
@@ -197,26 +219,33 @@ def device_phase():
 
 @phase("build")
 def build_phase():
-    def build(src):
+    def build(job):
         t0 = time.perf_counter()
-        _build.load(src)
+        _build.load(*job)
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
-        secs = list(pool.map(build, SOURCES))
-    print(f"build: {len(SOURCES)} sources in {time.perf_counter() - t0:.2f} s")
-    for src, sec in zip(SOURCES, secs):
-        print(f"  {src}: {sec:.2f} s")
+    with ThreadPoolExecutor(len(BUILDS)) as pool:
+        secs = list(pool.map(build, BUILDS))
+    print(f"build: {len(SOURCES)} sources and the 1xTF32 variants of {fa.SOURCE} and "
+          f"{fa.SOURCE_BWD}, {len(BUILDS)} libraries in {time.perf_counter() - t0:.2f} s")
+    for (src, defines), sec in zip(BUILDS, secs):
+        print(f"  {src}{''.join(' -D' + x for x in defines)}: {sec:.2f} s")
+        if defines:
+            continue
         for line in _build.build_log.get(src, "").splitlines():
-            # the kernel's name in the mangled entry: its length, the name, its template args
-            entry = re.search(r"\d([a-z][a-z_]*_kernel)(I?)", line) \
-                if "Compiling entry" in line else None
-            if entry:
-                types = f"<{'bf16' if 'bfloat16' in line else 'fp32'}>" if entry.group(2) else ""
-                print(f"    {entry.group(1)}{types}:")
+            if "Compiling entry" in line:
+                print(f"    {kernel_label(line)}:")
             elif "registers" in line or "spill" in line:
                 print("      ptxas:", line.strip())
+
+
+def kernel_label(mangled):
+    """flash_fwd_kernel<bf16> (or vq_nearest_kernel, not a template) from a
+    kernel's mangled name: its length, the name, I and its template args."""
+    entry = re.search(r"\d([a-z][a-z_]*_kernel)(I?)", mangled)
+    types = f"<{'bf16' if 'bfloat16' in mangled else 'fp32'}>" if entry.group(2) else ""
+    return entry.group(1) + types
 
 
 def counts():
@@ -257,7 +286,9 @@ def flash_bound_ms(q, k, v, bias, mask, *, products=2, adds=0, extra_bytes=0):
     """Least time for the function on these inputs: q, k, v, the bias (the
     table or the (H, N, N) tensor, float32) and the mask read once, out and
     lse written once (plus `extra_bytes`), and `products` matrix products
-    (plus `adds` additions) over the attended (q, k) pairs."""
+    (plus `adds` additions) over the attended (q, k) pairs, at the
+    tensor-core rate of the input type (3xTF32 for float32). Returns
+    (ms, what bounds it, the float32 bound at the FMA rate or None)."""
     b, h, n, d = q.shape
     es = q.element_size()
     nbytes = (q.numel() + k.numel() + v.numel() + q.numel()) * es + bias.numel() * 4 \
@@ -266,8 +297,15 @@ def flash_bound_ms(q, k, v, bias, mask, *, products=2, adds=0, extra_bytes=0):
     # causal: query i attends the valid keys j <= i
     pairs = int(keys.long().cumsum(1).sum()) * h
     flops = (2 * d * products + adds) * pairs
-    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / PEAK_FLOPS[q.dtype] * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    fp32 = q.dtype == torch.float32
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = flops / (TF32X3_FLOPS if fp32 else PEAK_FLOPS[q.dtype]) * 1e3
+    fma_ms = max(t_bytes, flops / PEAK_FLOPS[q.dtype] * 1e3) if fp32 else None
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", fma_ms
+
+
+def fma_note(fma_ms):
+    return f" | FMA-rate bound {fma_ms:.4f} ms" if fma_ms is not None else ""
 
 
 def sdpa_mask(q, tab, mask, bias=None):
@@ -310,12 +348,12 @@ def check_flash(q, k, v, tab, mask, label, bias=None):
     ke, ve = sdpa_kv(k, v, h)
     library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q, ke, ve, attn_mask=fmask))
-    bound_ms, bound_by = flash_bound_ms(q, k, v, tab if bias is None else bias, mask)
+    bound_ms, bound_by, fma_ms = flash_bound_ms(q, k, v, tab if bias is None else bias, mask)
     print(f"flash [{label}]: max_abs_err {err:.3e} (tol {tol}) | kernel {ms:.4f} ms | "
           f"plain {plain_ms:.4f} ms | sdpa {library_ms:.4f} ms | bound {bound_ms:.4f} ms "
-          f"({bound_by})")
+          f"({bound_by}){fma_note(fma_ms)}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms, at=label)
+                bound_by=bound_by, bound_fma_ms=fma_ms, library_ms=library_ms, at=label)
 
 
 def check_flash_bwd(q, k, v, tab, mask, label, seed):
@@ -378,14 +416,15 @@ def check_flash_bwd(q, k, v, tab, mask, label, seed):
     dq_only_ms = cuda_ms(lambda: fa._bwd_launch("flash_bwd_dq", (dq_out, None), *args,
                                                  causal=True, scale=scale))
     result = {}
-    for name, ms, (bound_ms, bound_by), err in (
+    for name, ms, (bound_ms, bound_by, fma_ms), err in (
             ("dq", dq_ms, dq_bound, errs["dq"]),
             ("dkv", dkv_ms, dkv_bound, max(errs["dk"], errs["dv"])),
             ("dtab", dq_ms, dq_bound, errs["dtab"])):
         result[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                            bound_by=bound_by, library_ms=library_ms, at=label)
+                            bound_by=bound_by, bound_fma_ms=fma_ms, library_ms=library_ms,
+                            at=label)
         print(f"flash bwd {name} [{label}]: max_abs_err {err:.3e} | kernel {ms:.4f} ms | "
-              f"bound {bound_ms:.4f} ms ({bound_by})")
+              f"bound {bound_ms:.4f} ms ({bound_by}){fma_note(fma_ms)}")
     result["dtab"].update(fused_into="flash_bwd_dq", share_ms=dq_ms - dq_only_ms)
     print(f"flash bwd dtab [{label}]: in dq's launch, which takes {dq_only_ms:.4f} ms without "
           f"it: K4's share {dq_ms - dq_only_ms:.4f} ms")
@@ -451,27 +490,73 @@ def check_flash_bias_bwd(q, k, v, bias, mask, label, seed):
          errs["dbias"], flash_bound_ms(q, k, v, bias, mask, products=2, adds=1,
                                        extra_bytes=rows + bias.numel() * 4)))
     result = {}
-    for name, fn, err, (bound_ms, bound_by) in timed:
+    for name, fn, err, (bound_ms, bound_by, fma_ms) in timed:
         ms = cuda_ms(fn)
         result[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                            bound_by=bound_by, library_ms=library_ms, at=label)
+                            bound_by=bound_by, bound_fma_ms=fma_ms, library_ms=library_ms,
+                            at=label)
         print(f"flash bias bwd {name} [{label}]: max_abs_err {err:.3e} | kernel {ms:.4f} ms | "
-              f"bound {bound_ms:.4f} ms ({bound_by})")
+              f"bound {bound_ms:.4f} ms ({bound_by}){fma_note(fma_ms)}")
     print(f"flash bias bwd [{label}]: plain backward {plain_ms:.4f} ms | sdpa fwd+bwd - fwd "
           f"{library_ms:.4f} ms ({fwd_bwd_ms:.4f} - {fwd_ms:.4f}) | tol {tol}")
     return result
 
 
+def check_masked_tiles(rng, h, d, n=1000):
+    """K1-K4 where the key mask reaches the first key tile: batch row 0 with
+    keys 0-69 masked (left padding over a whole 64-key tile), row 1 with
+    every key masked; causal and not, fp32 and bf16, against the plain
+    versions. out and lse must be finite; out is compared on the rows that
+    have a key (a causal row with none spreads its weight over the key tiles
+    it visits, the plain version over every key; its lse, -1e30, says it is
+    empty), lse and dq, dk, dv everywhere."""
+    mask = torch.ones(2, n, dtype=torch.bool, device=DEV)
+    mask[0, :70] = False
+    mask[1] = False
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, tab, _ = flash_inputs(rng, 2, h, n, d, dtype)
+        g = torch.from_numpy(rng.standard_normal(q.shape, dtype=np.float32)).to(DEV, dtype)
+        for causal in (False, True):
+            at = (f"{str(dtype)[6:]} 2x{h}x{n}x{d}, keys < 70 masked in row 0, all in row 1, "
+                  f"{'causal' if causal else 'not causal'}")
+            kw = dict(bias_tab=tab, key_mask=mask, causal=causal)
+            out, lse = fa.flash_attention(q, k, v, **kw, return_lse=True)
+            ref, ref_lse = fa.flash_attention_ref(q, k, v, **kw, return_lse=True)
+            if not (torch.isfinite(out.float()).all() and torch.isfinite(lse).all()):
+                raise AssertionError(f"flash kernel [{at}]: out or lse not finite")
+            rows = torch.ones(2, n, dtype=torch.bool, device=DEV)
+            if causal:
+                rows[0, :70] = False
+                rows[1] = False
+            got, want = (a.float().transpose(1, 2)[rows] for a in (out, ref))
+            errs = {"out": (got - want).abs().max().item(),
+                    "lse": (lse - ref_lse).abs().max().item()}
+            if not (torch.allclose(got, want, rtol=TOL[dtype], atol=TOL[dtype])
+                    and torch.allclose(lse, ref_lse, rtol=2e-3, atol=2e-3)):
+                raise AssertionError(f"flash kernel vs plain [{at}]: {errs}")
+            bkw = dict(causal=causal, scale=d ** -0.5)
+            grads = fa.flash_attention_bwd(q, k, v, tab, mask, out, lse, g, **bkw)
+            ref = fa.flash_attention_bwd_ref(q, k, v, tab, mask, out, lse, g, **bkw)
+            for name, a, r in zip(("dq", "dk", "dv", "dtab"), grads, ref):
+                errs[name] = (a.float() - r.float()).abs().max().item()
+                if not torch.allclose(a.float(), r.float(), **GRAD_TOL[dtype]):
+                    raise AssertionError(f"flash backward vs plain [{at}] {name}: max abs err "
+                                         f"{errs[name]} over {GRAD_TOL[dtype]}")
+            print(f"masked tiles [{at}]: finite, max abs err "
+                  + " ".join(f"{x} {e:.3e}" for x, e in errs.items()))
+
+
 def check_bias_form(rng, b, h, n, d, label, seed, **mask_kw):
-    """K1-K3 and K5 with an (h, n, n) bias, fp32 and bf16; the fp32 rows."""
-    rows = None
+    """K1-K3 and K5 with an (h, n, n) bias, fp32 and bf16: {"fp32": rows,
+    "bf16": rows}."""
+    rows = {}
     for dtype, name in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
         q, k, v, _, mask = flash_inputs(rng, b, h, n, d, dtype, **mask_kw)
         bias = dense_bias(rng, h, n)
         at = f"{name} {b}x{h}x{n}x{d} {label}, (H, N, N) bias"
         fwd = check_flash(q, k, v, None, mask, at, bias=bias)
         bwd = check_flash_bias_bwd(q, k, v, bias, mask, at, seed)
-        rows = rows or {"fwd": fwd, **bwd}
+        rows[name] = {"fwd": fwd, **bwd}
     return rows
 
 
@@ -480,7 +565,8 @@ def kernel_phase(seed):
     rng = np.random.default_rng(seed)
     h, d = FLAGSHIP["heads"], FLAGSHIP["dim_head"]
     main = check_flash(*flash_inputs(rng, 4, h, 2048, d, torch.float32), "fp32 4x8x2048x64")
-    check_flash(*flash_inputs(rng, 4, h, 2048, d, torch.bfloat16), "bf16 4x8x2048x64")
+    main_bf16 = check_flash(*flash_inputs(rng, 4, h, 2048, d, torch.bfloat16),
+                            "bf16 4x8x2048x64")
     train = f"{TRAIN_IDS[0]}x{h}x{TRAIN_N}x{d} (training), 15% of keys forgotten"
     check_flash(*flash_inputs(rng, TRAIN_IDS[0], h, TRAIN_N, d, torch.float32, forget_p=0.15),
                 f"fp32 {train}")
@@ -490,8 +576,8 @@ def kernel_phase(seed):
                 "bf16 ragged 2x8x1000x64, keys >= 700 masked in row 1")
     bwd = check_flash_bwd(*flash_inputs(rng, TRAIN_IDS[0], h, TRAIN_N, d, torch.float32,
                                         forget_p=0.15), f"fp32 {train}", seed)
-    check_flash_bwd(*flash_inputs(rng, TRAIN_IDS[0], h, TRAIN_N, d, torch.bfloat16,
-                                  forget_p=0.15), f"bf16 {train}", seed)
+    bwd_bf16 = check_flash_bwd(*flash_inputs(rng, TRAIN_IDS[0], h, TRAIN_N, d, torch.bfloat16,
+                                             forget_p=0.15), f"bf16 {train}", seed)
     check_flash_bwd(*flash_inputs(rng, 4, h, 2048, d, torch.float32, forget_p=0.15),
                     "fp32 4x8x2048x64, 15% of keys forgotten", seed)
     check_flash_bwd(*flash_inputs(rng, 4, h, 2048, d, torch.bfloat16, forget_p=0.15),
@@ -500,14 +586,115 @@ def kernel_phase(seed):
                     "fp32 ragged 2x8x1000x64, keys >= 700 masked in row 1", seed)
     check_flash_bwd(*flash_inputs(rng, 2, h, 1000, d, torch.bfloat16, key_mask_from=700),
                     "bf16 ragged 2x8x1000x64, keys >= 700 masked in row 1", seed)
+    check_masked_tiles(rng, h, d)
     # the (H, N, N)-bias form: the Coarse and Fine training shapes, and a ragged one
-    check_bias_form(rng, CLIP_B, h, COARSE_N, d, "(Coarse training), 15% of keys forgotten",
-                    seed, forget_p=0.15)
+    coarse = check_bias_form(rng, CLIP_B, h, COARSE_N, d,
+                             "(Coarse training), 15% of keys forgotten", seed, forget_p=0.15)
     bias = check_bias_form(rng, CLIP_B, h, FINE_N, d, "(Fine training), 15% of keys forgotten",
                            seed, forget_p=0.15)
     check_bias_form(rng, 2, h, 1000, d, "ragged, keys >= 700 masked in row 1", seed,
                     key_mask_from=700)
-    return {"fwd": main, **bwd, "bias": bias}
+    # fp32 rows, with bf16 and the Coarse shape's beside them
+    return {"fwd": main, **bwd, "bias": bias["fp32"],
+            "bf16": {"fwd": main_bf16, **bwd_bf16, "bias": bias["bf16"]},
+            "coarse": coarse}
+
+
+@phase("sass")
+def sass_phase():
+    """HMMA (tensor-core) and FFMA instructions of each flash kernel in the
+    built libraries' SASS (cuobjdump -sass). K1 and K3 must issue HMMA in
+    both dtypes. Returns {"fwd": {dtype: HMMA}, "dkv": {...}}."""
+    result = {"fwd": {}, "dkv": {}}
+    for src in (fa.SOURCE, fa.SOURCE_BWD):
+        for mangled, ops in sorted(_build.sass_counts(src).items(), key=lambda x: x[0]):
+            label = kernel_label(mangled)
+            print(f"sass {label}: HMMA {ops['HMMA']} FFMA {ops['FFMA']}")
+            for key, kernel in (("fwd", "flash_fwd_kernel"), ("dkv", "flash_bwd_dkv_kernel")):
+                if label.startswith(kernel + "<"):
+                    result[key][label[len(kernel) + 1:-1]] = ops["HMMA"]
+    for key, by_dtype in result.items():
+        if sorted(by_dtype) != ["bf16", "fp32"] or not all(by_dtype.values()):
+            raise AssertionError(f"{key}: tensor-core instructions by dtype {by_dtype}")
+    return result
+
+
+def attention_f64(q, k, v, tab, bias, mask, g, scale):
+    """Causal attention in float64, by the plain versions on float64 inputs:
+    out, lse, Delta and the dk, dv of dO = g (the query heads of each kv head
+    summed)."""
+    q, k, v, g = (a.double() for a in (q, k, v, g))
+    tab, bias = (None if a is None else a.double() for a in (tab, bias))
+    out, lse = fa.flash_attention_ref(q, k, v, bias_tab=tab, bias=bias, key_mask=mask,
+                                      causal=True, scale=scale, return_lse=True)
+    _, dk, dv, _ = fa.flash_attention_bwd_ref(q, k, v, tab, mask, out, lse, g, causal=True,
+                                              scale=scale, bias=bias)
+    return out, lse, (g * out).sum(-1), dk, dv
+
+
+def rel_err(a, ref):
+    return ((a.double() - ref).abs().max() / ref.abs().max()).item()
+
+
+def f64_errors(q, k, v, tab, bias, mask, g, ref, scale):
+    """K1's out, and K3's dk and dv fed the float64 lse and Delta, against the
+    float64 reference: max |kernel - ref| / max |ref| of each."""
+    out64, lse64, delta64, dk64, dv64 = ref
+    out = fa.flash_attention(q, k, v, bias_tab=tab, bias=bias, key_mask=mask, causal=True)
+    kmask = mask.to(torch.int8).contiguous() if mask is not None else None
+    dk, dv = fa.bwd_dkv(q, k, v, g, lse64.float(), delta64.float(), tab, kmask, causal=True,
+                        scale=scale, bias=bias)
+    return {"out": rel_err(out, out64), "dk": rel_err(dk, dk64), "dv": rel_err(dv, dv64)}
+
+
+@phase("tf32")
+def accuracy_phase(seed):
+    """float32 on the tensor cores: K1's output and K3's dk, dv within
+    F64_TOL of a float64 evaluation at the Semantic training shape (the
+    table) and the Fine one (an (H, N, N) bias), with 15% of the keys
+    forgotten; the same check must reject the 1xTF32 build. Then K3's dk and
+    dv must be the same bits over three runs (fp32 and bf16)."""
+    rng = np.random.default_rng(seed + 7)
+    h, d = FLAGSHIP["heads"], FLAGSHIP["dim_head"]
+    scale = d ** -0.5
+    result = {}
+    for label, n, dense in (("table", TRAIN_N, False), ("bias", FINE_N, True)):
+        b = TRAIN_IDS[0] if not dense else CLIP_B
+        q, k, v, tab, mask = flash_inputs(rng, b, h, n, d, torch.float32, forget_p=0.15)
+        bias = dense_bias(rng, h, n) if dense else None
+        tab = None if dense else tab
+        g = torch.from_numpy(rng.standard_normal(q.shape, dtype=np.float32)).to(DEV)
+        ref = attention_f64(q, k, v, tab, bias, mask, g, scale)
+        args = (q, k, v, tab, bias, mask, g, ref, scale)
+        three = f64_errors(*args)
+        with fa.built_with(ONE_PASS):
+            one = f64_errors(*args)
+        at = f"fp32 {b}x{h}x{n}x{d} {label}"
+        print(f"tf32 [{at}]: 3xTF32 vs float64 "
+              + " ".join(f"{x} {e:.2e}" for x, e in three.items())
+              + f" (limit {F64_TOL}) | 1xTF32 " + " ".join(f"{x} {e:.2e}" for x, e in one.items()))
+        if max(three.values()) > F64_TOL:
+            raise AssertionError(f"3xTF32 vs float64 [{at}]: {three} over {F64_TOL}")
+        if min(one.values()) <= F64_TOL:
+            raise AssertionError(f"the float64 check let the 1xTF32 build through [{at}]: {one}")
+        print(f"tf32 [{at}]: the 1xTF32 build is rejected")
+        result[label] = {"3xtf32": three, "1xtf32": one}
+        del ref, args
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, tab, mask = flash_inputs(rng, TRAIN_IDS[0], h, TRAIN_N, d, dtype, forget_p=0.15)
+        g = torch.from_numpy(rng.standard_normal(q.shape, dtype=np.float32)).to(DEV, dtype)
+        out, lse = fa.flash_attention(q, k, v, bias_tab=tab, key_mask=mask, causal=True,
+                                      return_lse=True)
+        bargs = (q, k, v, g, lse, (g.float() * out.float()).sum(-1), tab,
+                 mask.to(torch.int8).contiguous())
+        first = fa.bwd_dkv(*bargs, causal=True, scale=scale)
+        for _ in range(2):
+            again = fa.bwd_dkv(*bargs, causal=True, scale=scale)
+            if not all(torch.equal(a, b) for a, b in zip(first, again)):
+                raise AssertionError(f"K3 dk/dv differ between runs ({dtype})")
+        print(f"tf32: K3 dk, dv bitwise equal over 3 runs ({str(dtype)[6:]}, "
+              f"{TRAIN_IDS[0]}x{h}x{TRAIN_N}x{d})")
+    return result
 
 
 def flagship(seed):
@@ -1346,6 +1533,8 @@ def main():
     smi = device_phase()
     build_phase()
     timings = kernel_phase(args.seed)
+    timings["sass"] = sass_phase()
+    timings["tf32"] = accuracy_phase(args.seed)
     timings.update(codec_kernel_phase(args.seed))
     cpu_model = flagship(args.seed)
     model = copy.deepcopy(cpu_model).to(DEV)
@@ -1376,10 +1565,24 @@ def main():
         per_path = {f"launches_{p}": launched[counter] for p, launched in paths.items()}
         if sum(per_path.values()) == 0:
             raise AssertionError(f"the main path launched no {name} kernel")
-        # K1-K3 also carry their (H, N, N)-bias form's numbers at the Fine training shape
+        # K1-K3 also carry their (H, N, N)-bias form's numbers at the Fine training
+        # shape (and the Coarse shape's); every flash row its bf16 numbers
         numbers = timings["bias"][key] if key == "dbias" else dict(timings[key])
         if key in ("fwd", "dq", "dkv"):
             numbers["bias_form"] = timings["bias"][key]
+            numbers["bias_form_coarse"] = timings["coarse"]["fp32"][key]
+        if key in ("fwd", "dq", "dkv", "dtab", "dbias"):
+            bf16 = timings["bf16"]
+            numbers["bf16"] = bf16["bias"][key] if key == "dbias" else bf16[key]
+            if key in ("fwd", "dq", "dkv"):
+                numbers["bf16"] = dict(numbers["bf16"], bias_form=bf16["bias"][key],
+                                       bias_form_coarse=timings["coarse"]["bf16"][key])
+        if key in ("fwd", "dkv"):
+            numbers["hmma"] = timings["sass"][key]
+            numbers["f64_rel_err"] = {label: {kind: {x: e for x, e in errs.items()
+                                                     if (x == "out") == (key == "fwd")}
+                                              for kind, errs in by_kind.items()}
+                                      for label, by_kind in timings["tf32"].items()}
         rows.append(dict(name=name, route="cuda", source=f"audiolm_pytorch_tpu_torch/csrc/{source}",
                          replaces=replaces,  # in the JAX package
                          launches=sum(per_path.values()), **per_path, **numbers))

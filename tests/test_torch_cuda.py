@@ -1,10 +1,13 @@
 """Tests of the port that need an NVIDIA GPU: the CUDA kernels (flash
 forward K1, backward K2-K4, and with an (H, N, M) bias K1-K3 and the bias
 gradient K5; the codec's nearest-code search K6 and local attention K7)
-against their plain PyTorch versions, the Semantic, Coarse and Fine LMs on
-the card against the same weights on the CPU, in scoring and in train
-steps, and a small codec's round trip on the card against the CPU. They
-skip where there is no card.
+against their plain PyTorch versions; K1 and K3 on the tensor cores (over
+MQA groups of 1 to 16, float32 within 1e-5 of float64 where a plain-TF32
+build fails, rows whose first key tile or every key is masked, K3's bits
+the same every run, HMMA in their SASS); the
+Semantic, Coarse and Fine LMs on the card against the same weights on the
+CPU, in scoring and in train steps, and a small codec's round trip on the
+card against the CPU. They skip where there is no card.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine without them:
@@ -22,6 +25,7 @@ from audiolm_pytorch_tpu_torch import (CoarseTransformer, CoarseTransformerWrapp
                                        SemanticTransformer, SemanticTransformerWrapper,
                                        SoundStream, TransformerTrainStep)
 from audiolm_pytorch_tpu_torch.models import wrappers
+from audiolm_pytorch_tpu_torch.ops.kernels import _build
 from audiolm_pytorch_tpu_torch.ops.kernels import flash_attention as fa
 from audiolm_pytorch_tpu_torch.ops.kernels import local_attention as la
 from audiolm_pytorch_tpu_torch.ops.kernels import vq
@@ -445,3 +449,169 @@ def test_codec_round_trip_card_matches_cpu(cuda):
         assert (codes.cpu() != cpu_codes).any(-1).float().mean() <= 0.02
         ref = cpu.decode_from_codebook_indices(codes.cpu())
         assert float((wave.cpu() - ref).abs().max() / ref.abs().max()) < 1e-4
+
+
+# K1 and K3 on the tensor cores (bf16 mma, float32 as 3xTF32), K3's MQA head
+# sum over a thread-block cluster of min(group, 8) blocks: (h, hk) covers
+# group 8, 4 and 1, and 16 and 12 (clusters of 8 and 6 blocks, each looping
+# over 2 heads); (n, m, causal, masked) the JAX tests' unaligned lengths,
+# N != M without causality, a key mask.
+GROUPS = [(8, 1), (8, 2), (8, 8), (16, 1), (12, 1)]
+LENGTHS = [(48, 48, True, True), (50, 50, True, False), (37, 70, False, True)]
+FORMS = ["table", "bias", "none"]
+K13_CASES = [(h, hk, n, m, causal, masked, form)
+             for h, hk in GROUPS for n, m, causal, masked in LENGTHS for form in FORMS
+             if form != "table" or n == m]
+
+
+def _k13_inputs(h, hk, n, m, masked, form, *, b=2, seed=20):
+    rng = np.random.default_rng(seed)
+    q, k, v, g = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                  for s in [(b, h, n, 64), (b, hk, m, 64), (b, hk, m, 64), (b, h, n, 64)])
+    tab = bias = mask = None
+    if form == "table":
+        tab = torch.from_numpy((0.5 * rng.normal(size=(2 * n - 1, h))).astype(np.float32))
+    if form == "bias":
+        bias = torch.from_numpy((0.5 * rng.normal(size=(h, n, m))).astype(np.float32))
+    if masked:
+        mask = torch.ones(b, m, dtype=torch.bool)
+        mask[1, (2 * m) // 3:] = False
+        mask[0, 3:7] = False
+    return q, k, v, g, tab, bias, mask
+
+
+def _to(cuda, dtype, q, k, v, g, tab, bias, mask):
+    return ([a.to(cuda, dtype) for a in (q, k, v, g)]
+            + [None if a is None else a.to(cuda) for a in (tab, bias, mask)])
+
+
+@pytest.mark.parametrize("dtype,tol,rtol,atol", [(torch.float32, 2e-3, 1e-2, 1e-3),
+                                                 (torch.bfloat16, 3e-2, 3e-2, 3e-2)])
+@pytest.mark.parametrize("h,hk,n,m,causal,masked,form", K13_CASES)
+def test_k1_and_k3_match_plain_version(cuda, h, hk, n, m, causal, masked, form, dtype, tol,
+                                       rtol, atol):
+    q, k, v, g, tab, bias, mask = _to(cuda, dtype, *_k13_inputs(h, hk, n, m, masked, form))
+    kw = dict(bias_tab=tab, bias=bias, key_mask=mask, causal=causal)
+    before = fa.launches, fa.launches_dkv
+    out, lse = fa.flash_attention(q, k, v, **kw, return_lse=True)
+    ref, ref_lse = fa.flash_attention_ref(q, k, v, **kw, return_lse=True)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, ref_lse, rtol=2e-3, atol=2e-3)
+    grads = fa.flash_attention_bwd(q, k, v, tab, mask, out, lse, g, bias=bias, causal=causal,
+                                   scale=64 ** -0.5)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.launches_dkv) == (before[0] + 1, before[1] + 1)
+    ref = fa.flash_attention_bwd_ref(q, k, v, tab, mask, out, lse, g, bias=bias, causal=causal,
+                                     scale=64 ** -0.5)
+    for name, a, r in zip(("dq", "dk", "dv"), grads, ref):
+        assert a.dtype == r.dtype and a.shape == r.shape, name
+        torch.testing.assert_close(a.float(), r.float(), rtol=rtol, atol=atol, msg=name)
+
+
+def _f64_errors(case, cuda):
+    """max |kernel - float64| / max |float64| of K1's out and K3's dk and dv
+    (fed the float64 lse and Delta), in float32; the float64 evaluation is
+    the plain versions' on float64 inputs."""
+    h, hk, n, m, causal, masked, form = case
+    q, k, v, g, tab, bias, mask = _to(cuda, torch.float32,
+                                      *_k13_inputs(h, hk, n, m, masked, form, seed=21))
+    q64, k64, v64, g64 = (a.double() for a in (q, k, v, g))
+    tab64, bias64 = (None if a is None else a.double() for a in (tab, bias))
+    out64, lse64 = fa.flash_attention_ref(q64, k64, v64, bias_tab=tab64, bias=bias64,
+                                          key_mask=mask, causal=causal, scale=0.125,
+                                          return_lse=True)
+    _, dk64, dv64, _ = fa.flash_attention_bwd_ref(q64, k64, v64, tab64, mask, out64, lse64, g64,
+                                                  causal=causal, scale=0.125, bias=bias64)
+    delta64 = (g64 * out64).sum(-1)
+    out = fa.flash_attention(q, k, v, bias_tab=tab, bias=bias, key_mask=mask, causal=causal)
+    kmask = None if mask is None else mask.to(torch.int8)
+    dk, dv = fa.bwd_dkv(q, k, v, g, lse64.float(), delta64.float(), tab, kmask, causal=causal,
+                        scale=0.125, bias=bias)
+    return {name: float((a.double() - r).abs().max() / r.abs().max())
+            for name, a, r in (("out", out, out64), ("dk", dk, dk64), ("dv", dv, dv64))}
+
+
+F64_CASES = [(8, 1, 48, 48, True, True, "table"), (8, 2, 50, 50, True, False, "bias"),
+             (8, 8, 37, 70, False, True, "none"), (16, 1, 200, 200, True, True, "table")]
+
+
+@pytest.mark.parametrize("case", F64_CASES)
+def test_fp32_k1_and_k3_hold_float64_to_1e5(cuda, case):
+    # 3xTF32 keeps the float32 products near float32 accuracy
+    errs = _f64_errors(case, cuda)
+    assert max(errs.values()) <= 1e-5, errs
+
+
+@pytest.mark.parametrize("case", F64_CASES[:2])
+def test_plain_tf32_build_fails_the_float64_check(cuda, case):
+    # the same kernels built with the small terms dropped (plain TF32, ~5e-4)
+    with fa.built_with(("MMA_TF32_ONE_PASS",)):
+        errs = _f64_errors(case, cuda)
+    assert min(errs.values()) > 1e-5, errs
+
+
+@pytest.mark.parametrize("dtype,tol,rtol,atol", [(torch.float32, 2e-3, 1e-2, 1e-3),
+                                                 (torch.bfloat16, 3e-2, 3e-2, 3e-2)])
+@pytest.mark.parametrize("h,hk,form", [(8, 1, "table"), (8, 8, "bias"), (8, 2, "none")])
+@pytest.mark.parametrize("causal", [False, True])
+def test_k1_and_k3_with_whole_key_tiles_masked(cuda, causal, h, hk, form, dtype, tol, rtol,
+                                               atol):
+    # keys 0-69 masked in batch row 0 (left padding over a whole 64-key tile),
+    # every key in row 1: rows whose first tile, or every tile, has no key
+    n = 160
+    q, k, v, g, tab, bias, _ = _to(cuda, dtype, *_k13_inputs(h, hk, n, n, False, form))
+    mask = torch.ones(2, n, dtype=torch.bool, device=cuda)
+    mask[0, :70] = False
+    mask[1] = False
+    kw = dict(bias_tab=tab, bias=bias, key_mask=mask, causal=causal)
+    out, lse = fa.flash_attention(q, k, v, **kw, return_lse=True)
+    ref, ref_lse = fa.flash_attention_ref(q, k, v, **kw, return_lse=True)
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    torch.testing.assert_close(lse, ref_lse, rtol=2e-3, atol=2e-3)
+    # a causal row with no key spreads its weight over the key tiles it
+    # visits, the plain version over every key: only lse (-1e30) says it is
+    # empty, and the backward gives it no gradient
+    rows = torch.ones(2, n, dtype=torch.bool, device=cuda)
+    if causal:
+        rows[0, :70] = False
+        rows[1] = False
+    torch.testing.assert_close(out.float().transpose(1, 2)[rows], ref.float().transpose(1, 2)[rows],
+                               rtol=tol, atol=tol)
+    grads = fa.flash_attention_bwd(q, k, v, tab, mask, out, lse, g, bias=bias, causal=causal,
+                                   scale=64 ** -0.5)
+    ref = fa.flash_attention_bwd_ref(q, k, v, tab, mask, out, lse, g, bias=bias, causal=causal,
+                                     scale=64 ** -0.5)
+    for name, a, r in zip(("dq", "dk", "dv"), grads, ref):
+        torch.testing.assert_close(a.float(), r.float(), rtol=rtol, atol=atol, msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,hk,form", [(8, 1, "table"), (8, 2, "bias"), (12, 1, "none")])
+def test_k3_gives_the_same_bits_every_run(cuda, h, hk, form, dtype):
+    # the cluster's head sum runs in a fixed rank order, with no atomics
+    q, k, v, g, tab, bias, mask = _to(cuda, dtype, *_k13_inputs(h, hk, 300, 300, True, form))
+    out, lse = fa.flash_attention(q, k, v, bias_tab=tab, bias=bias, key_mask=mask, causal=True,
+                                  return_lse=True)
+    args = (q, k, v, g, lse, (g.float() * out.float()).sum(-1), tab, mask.to(torch.int8))
+    first = fa.bwd_dkv(*args, causal=True, scale=0.125, bias=bias)
+    for _ in range(3):
+        again = fa.bwd_dkv(*args, causal=True, scale=0.125, bias=bias)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_k1_and_k3_issue_tensor_core_instructions(cuda):
+    found = {}
+    for src in (fa.SOURCE, fa.SOURCE_BWD):
+        for mangled, ops in _build.sass_counts(src).items():
+            for kernel in ("flash_fwd_kernel", "flash_bwd_dkv_kernel"):
+                if kernel in mangled:
+                    found[kernel, "bf16" if "bfloat16" in mangled else "fp32"] = ops["HMMA"]
+    assert len(found) == 4 and all(found.values()), found
+
+
+def test_wrapper_raises_on_a_misaligned_cuda_tensor(cuda):
+    buf = torch.zeros(1 * 2 * 16 * 64 + 1, device=cuda)
+    q = buf[1:].view(1, 2, 16, 64)  # contiguous, 4 bytes past an alignment
+    kv = torch.zeros(1, 1, 16, 64, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention(q, kv, kv, causal=True)

@@ -83,6 +83,47 @@ def test_ref_bf16_matches_pallas_kernel():
                                rtol=3e-2, atol=3e-2)
 
 
+@pytest.mark.parametrize("mqa", [True, False])
+def test_ref_matches_pallas_kernel_with_whole_key_tiles_masked(mqa):
+    # keys 0-39 masked in row 0 (a whole 32-key tile: left padding), every
+    # key in row 1. A row with no key weighs every key alike in
+    # `_math_reference`; the Pallas kernel also weighs its padding keys (its
+    # output there is finite, but not that mean), so row 1 is held to the
+    # former only.
+    n = 70
+    q, k, v, tab, _ = _inputs(n, mqa, False, seed=5)
+    mask = np.ones((2, n), bool)
+    mask[0, :40] = False
+    mask[1] = False
+    ref = np.asarray(j_flash(_j(q), _j(k), _j(v), bias_tab=_j(tab), key_mask=_j(mask),
+                             causal=False, block_q=32, block_k=32, interpret=True))
+    math = _math_reference(_j(q), _j(k), _j(v), j_toeplitz(_j(tab), n, n), _j(mask), False,
+                           q.shape[-1] ** -0.5)
+    out = fa.flash_attention(t(q), t(k), t(v), bias_tab=t(tab), key_mask=t(mask)).numpy()
+    assert np.isfinite(ref).all()
+    np.testing.assert_allclose(out[0], ref[0], **TOL)
+    np.testing.assert_allclose(out, np.asarray(math), **TOL)
+
+
+def test_ref_computes_float64_inputs_in_float64():
+    # the float64 evaluation the kernels' float32 accuracy is measured against
+    q, k, v, tab, mask = _inputs(40, True, True, seed=6)
+    g = np.random.default_rng(7).normal(size=q.shape)
+    kw = dict(causal=True, scale=0.125)
+    f32 = (t(q), t(k), t(v), t(tab), t(mask))
+    f64 = tuple(torch.from_numpy(a.astype(np.float64)) for a in (q, k, v, tab)) + (t(mask),)
+    results = []
+    for qq, kk, vv, tb, mk in (f32, f64):
+        out, lse = fa.flash_attention_ref(qq, kk, vv, bias_tab=tb, key_mask=mk, **kw,
+                                          return_lse=True)
+        grads = fa.flash_attention_bwd_ref(qq, kk, vv, tb, mk, out, lse,
+                                           torch.from_numpy(g).to(qq.dtype), **kw)
+        results.append((out, lse, *grads))
+    for a, b in zip(*results):
+        assert a.dtype == torch.float32 and b.dtype == torch.float64
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4, atol=1e-5)
+
+
 def test_cpu_tensors_take_the_plain_version_without_counting():
     q, k, v, tab, mask = _inputs(20, True, True, seed=3)
     before = fa.launches
