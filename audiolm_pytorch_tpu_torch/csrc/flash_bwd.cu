@@ -1,8 +1,9 @@
-// Flash-attention backward for Hopper (sm_90a): dq (K2), dk/dv (K3), the
-// gradient of the (2N-1, H) rel-pos distance table (K4) and the gradient of
-// an (H, N, M) bias shared over the batch (K5). Each recomputes
-// P = exp(S - lse) tile by tile from the forward's row logsumexp, so the
-// (N, M) attention matrix never exists in device memory.
+// Flash-attention backward for Hopper (sm_90a): dq (K2) with, in the same
+// launch, the gradient of the bias given: that of the (2N-1, H) rel-pos
+// distance table (K4) or that of an (H, N, M) bias shared over the batch
+// (K5); and dk/dv (K3). Each recomputes P = exp(S - lse) tile by tile from
+// the forward's row logsumexp, so the (N, M) attention matrix never exists
+// in device memory.
 //
 // Replaces the TPU kernels of the JAX package, ops/pallas/flash_attention.py:
 //   K2 `_dq_kernel`      dq = scale * sum_k dS K, dS = P * (dP - Delta)
@@ -11,9 +12,9 @@
 //   K4 `_dblocks_kernel` the bias gradient sum_b dS in per-delta-block form,
 //                        folded into the table by AD of
 //                        ops/relpos.py::delta_bias_blocks; here straight into
-//                        dtab[q - k + N - 1, h]
+//                        dtab[q - k + N - 1, h], inside K2's launch
 //   K5 `_dbias_kernel`   dbias = sum_b dS for a batch-shared (H, N, M) bias,
-//                        each tile written once
+//                        inside K2's launch
 // with the same semantics: masked keys at -1e30, keys past M at -inf, a row
 // whose lse is <= -5e29 (every key masked) gets p = 0, padded query rows get
 // no gradient. Delta = rowsum(dO * O) comes in precomputed (a torch
@@ -23,43 +24,56 @@
 // causal, MQA) one causal product over the attended (q, k) pairs is
 // 2*D*B*H*N*(N+1)/2 = 8.6 GFLOP against ~17 MB of float32 q and dO and 2 MB
 // of k and v, so both kernels are compute-bound: K2 does 3 products (25.8
-// GFLOP, 0.385 ms at the 67 TFLOP/s float32 peak without tensor cores), K3
-// does 4 (34.4 GFLOP: 0.21 ms as 3xTF32 at 495 TFLOP/s, 35 us in bf16 at
-// 989); worked out from the shapes, not measured.
-// K4 is fused into K2, since it needs K2's dS tile and nothing else: it adds
-// one add per attended pair (B*H*N*(N+1)/2) and the (2N-1, H) float32
-// table's read-modify-write to K2's work, where alone it would redo 2 of
-// K2's 3 products (17.2 GFLOP) to rebuild dS.
+// GFLOP: 0.156 ms as 3xTF32 at 495 TFLOP/s, 26 us in bf16 at 989), K3 does 4
+// (34.4 GFLOP: 0.21 ms as 3xTF32, 35 us in bf16); worked out from the
+// shapes, not measured. K4 and K5 need K2's dS tile and nothing else, so
+// they live in its launch: each adds one add per attended pair, K4 the
+// (2N-1, H) table's read-modify-write, K5 the (H, N, M) float32 dbias
+// written once (46 MB at the Fine LM's N = 1201, 14 us at 3.35 TB/s), where
+// alone each would redo 2 of K2's 3 products to rebuild dS.
 //
-// Design. K2 and K5, right and simple first: float32 FMAs on the CUDA
-// cores, 256 threads as a 16x16 grid, each owning a 4x4 patch of a 64x64
-// tile; tiles in shared memory transposed and padded against bank conflicts.
-//   K2: one block per (b*h, 64-row query tile), heaviest tiles first; it loops
-//       over the key tiles up to the diagonal and keeps dq in registers.
-//   K4, inside K2 when the table's gradient is asked for: each key tile's dS,
-//       already in shared memory for dq, is summed along its 127 diagonals,
-//       then added with one atomicAdd per diagonal per tile into a float32
-//       (2N-1, H) buffer the wrapper zeroes (the batch sum among them, in an
-//       order that changes from run to run).
-// With the table, the (H, N, N) bias and its gradient never exist in device
-// memory: a tile loads the 127 table entries its deltas cover. With an
-// (H, N, M) bias (the Coarse and Fine LMs'), K2 loads each tile's 64x64
-// float32 block of bias[h] into the dS tile's shared memory, where each
-// thread reads its own elements before it overwrites them (no extra shared
-// memory, so no occupancy lost), K3 into a block of its own, and
-//   K5: one block per (key tile, query tile, head), as the TPU grid
-//       (H, nq, nk, B) with the batch innermost: the block loops over the
-//       batch rows (and so over the kv head each query head reads, MQA),
-//       recomputes S, P and dP (2 products) and sums dS in registers, then
-//       writes its tile once; tiles above the causal diagonal are written as
-//       zeros. No atomics, so the sum's order is fixed. It redoes 2 of K2's 3
-//       products; fusing it into K2 with atomics, as K4 was, is later work.
-//       At the Fine LM's training shape (B=4, H=8, N=M=1201, causal) those
-//       are 5.9 GFLOP, 88 us at the float32 peak, against 46 MB of dbias
-//       written and 46 MB of bias read, 28 us at 3.35 TB/s: compute-bound
-//       (worked out from the shapes, not measured).
-//   K3, on the tensor cores through csrc/mma.cuh (mma.sync, cp.async): one
-//       block of 4 warps per (query head, b*hk, 64-key tile), key tile 0
+// Design, all on the tensor cores through csrc/mma.cuh (mma.sync, cp.async).
+//   K2: one block per (batch row, head, 64-row query tile), the longest
+//       causal rows first, as four strips of 16 query rows: a warp a strip
+//       in bf16; in float32 two, each taking half of every key tile, whose
+//       partial dq add at the end in a fixed order (8 warps: float32 holds
+//       one block an SM, and 4 warps left the tensor cores waiting). Q and
+//       dO are the block's fixed A operands: in bf16 their fragments stay in
+//       registers; in float32 they are split into tf32 pairs once, into
+//       shared memory in fragment order (registers for both would not fit).
+//       The key tiles up to the diagonal stream through two stages of K and
+//       V by cp.async, with the (H, N, M) bias's 64x64 float32 block, the
+//       table slice and the key flags. Per tile S = Q K^T and dP = dO V^T;
+//       the epilogue forms dS = P (dP - Delta) on the accumulators by the
+//       masking rule at the end of mma.cuh; dq += dS K takes dS as the A
+//       operand straight from the accumulators, each tile's product from
+//       zero in float32 (tc::add_tile: dq sums over up to 2049 keys).
+//   K4, inside K2 when dtab is given: each strip stores its 16 rows of the
+//       tile's dS skewed in shared memory (element (r, c) at column c - r +
+//       15), so that each of its 79 diagonals is a column; a lane sums a
+//       column, and it is added with one atomicAdd per diagonal per strip per
+//       tile into the zeroed float32 (2N-1, H) buffer (the batch sum among
+//       them, in an order that changes from run to run). Only the strip's
+//       warps meet (a named barrier): no block barrier inside the loop.
+//   K5, inside K2 when dbias is given (an instantiation of its own, SUM):
+//       the blocks of one (head, query tile), one per batch row, form a
+//       thread-block cluster of the largest divisor of B up to 8. Each key
+//       tile, every block stores its dS tile over the bias block it has just
+//       read and arrives at the cluster's barrier; at the next tile, after
+//       its two products, it waits there, and each rank sums its share of
+//       the last tile's rows over the ranks in rank order through
+//       map_shared_rank and writes them (one barrier a tile, its wait behind
+//       a tile's products; four bias buffers, so the next two tiles' blocks
+//       load while the cluster reads one tile's dS). With B <= 8 one cluster
+//       holds the batch, so each dbias element is written once, in a fixed
+//       order, with no atomics: the same bits every run. Only with B > 8
+//       (B / cluster clusters per tile) do the clusters' partial tiles meet
+//       by atomicAdd, in a buffer the wrapper zeroes. The tiles above the
+//       causal diagonal, which no block visits, are written as zeros by the
+//       cluster of their query tile (with atomics the zeroed buffer holds
+//       them). Each block reads the bias block itself (the cluster's reads
+//       meet in L2); it is not passed through distributed shared memory.
+//   K3: one block of 4 warps per (query head, b*hk, 64-key tile), key tile 0
 //       (the longest causal loop) first; the blocks of one (b*hk, key
 //       tile), min(group, 8) of them, form a thread-block cluster, each
 //       block taking group / cluster of the kv head's query heads. A block
@@ -76,7 +90,7 @@
 //       grid is group times the (b*hk, key tile) pairs, 1056 blocks at the
 //       Semantic LM's training shape on 132 SMs, where one block per pair
 //       looping all 8 heads left one wave waiting on its key-tile-0 blocks.
-// K2, K5: tensor cores, TMA and wgmma are later work. Instantiated for D=64.
+// wgmma and TMA are later work. Instantiated for D=64.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -91,208 +105,322 @@ namespace {
 
 constexpr int BQ = 64;          // query rows per tile
 constexpr int BK = 64;          // keys per tile
-constexpr int NT = 256;         // threads: a 16x16 grid of (ty, tx)
-constexpr int PITCH = BQ + 1;   // transposed tiles, padded against bank conflicts
 constexpr int ND = BQ + BK - 1; // deltas a tile covers
+constexpr int MAX_CLUSTER = 8;  // the portable cluster size
 using tc::NEG;
 static_assert(BQ == BK, "square tiles: the causal loops start at the diagonal tile");
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// rows r0.. of a (rows, D) matrix into a transposed tile dst[c * PITCH + r],
-// times `mul`; rows past `rows` are zero
+// K2: one block per (batch row, head, 64-row query tile), the blocks of one
+// (head, query tile) a cluster when K5 runs (see the note at the top). Four
+// strips of 16 query rows; a strip's rows of S, dP, dS and its partial dq
+// belong to one warp in bf16 and to two in float32, each taking half the
+// keys of a tile (float32 holds one block an SM, so it takes its 8 warps
+// in one block). K5's sum is instantiated apart (SUM): its registers would
+// slow the others.
+template <typename T> struct K2Warps {
+  static constexpr int per_strip = sizeof(T) == 4 ? 2 : 1;
+  static constexpr int threads = 128 * per_strip;
+};
+// the warps of one strip: a named barrier (1 + strip), or __syncwarp for one warp
+template <int WN>
+__device__ __forceinline__ void strip_sync(int strip) {
+  if constexpr (WN == 1) __syncwarp();
+  else tc::bar_sync(1 + strip, 32 * WN);
+}
+constexpr int TPD = BK + 8;    // K2's float32 tiles' pitch (bias block, dS): 8 mod 32 banks
+constexpr int SKP = BK + 16;   // K4's skewed dS rows: a strip's diagonals take BK + 15 columns
+static_assert(TPD % 4 == 0, "16-byte rows");
+
+// Shared memory: two stages of (K tile, V tile, table slice [BQ + BK - 1],
+// key flags [BK]); in float32 the tf32 pairs of Q and dO; then, with an
+// (H, N, M) bias, its 64x64 blocks, two of them, or four with K5 (dS is
+// written over the block just read and stays there while the cluster sums
+// it), or with the table's gradient K4's skewed dS rows. Q and dO are
+// staged, before the loop, in stage 1's K and V tiles; after it the second
+// warps' partial dq meets the first's in stage 0.
 template <typename T, int D>
-__device__ __forceinline__ void load_t(float* dst, const T* src, int r0, int rows, float mul) {
-  for (int i = threadIdx.x; i < BQ * D; i += NT) {
-    const int r = i / D, c = i % D;
-    dst[c * PITCH + r] = r0 + r < rows ? to_f(src[(size_t)(r0 + r) * D + c]) * mul : 0.f;
+struct DqSmem {
+  static constexpr int P = tc::pitch<T, D>();
+  static constexpr size_t tile = (size_t)BK * P * sizeof(T);  // BQ == BK rows
+  static constexpr size_t stage = 2 * tile + (BQ + 2 * BK) * sizeof(float);
+  static constexpr size_t fixed = 2 * (BQ / 16) * tc::AFixed<T, D>::bytes;  // Q, dO by strip
+  static constexpr size_t base = 2 * stage + fixed;
+  static constexpr size_t ftile = (size_t)BQ * TPD * sizeof(float);
+  static constexpr size_t skew = (size_t)BQ * SKP * sizeof(float);
+  static_assert(skew <= 2 * ftile, "K4's skewed rows fit where a bias's blocks go");
+  static_assert((size_t)BQ * TPD * sizeof(float) <= stage, "the partial dq fits in a stage");
+  static_assert(tile % 16 == 0 && stage % 16 == 0 && fixed % 16 == 0, "16-byte aligned regions");
+};
+
+// K5's sum of one key tile: the blocks of a cluster of csize add their dS
+// tiles (at dsm, pitch TPD, each in its own shared memory) in rank order,
+// each block over its share of the rows, 16 bytes a read, and write them to
+// out = dbias[h] (or add them, where other clusters share the tile)
+template <int NT>
+__device__ __forceinline__ void batch_sum_rows(const cg::cluster_group& cluster, float* dsm,
+                                               float* out, int q0, int k0, int n, int m,
+                                               bool atomic) {
+  constexpr int V = BK / 4;  // float4s a row
+  const int rank = (int)cluster.block_rank(), csize = (int)cluster.num_blocks();
+  const int r_lo = rank * BQ / csize, count = ((rank + 1) * BQ / csize - r_lo) * V;
+  for (int i = threadIdx.x; i < count; i += NT) {
+    const int at = (r_lo + i / V) * (TPD / 4) + i % V;
+    float4 sum = reinterpret_cast<const float4*>(cluster.map_shared_rank(dsm, 0))[at];
+#pragma unroll
+    for (int src = 1; src < MAX_CLUSTER; ++src)
+      if (src < csize) {
+        const float4 x = reinterpret_cast<const float4*>(cluster.map_shared_rank(dsm, src))[at];
+        sum.x += x.x;
+        sum.y += x.y;
+        sum.z += x.z;
+        sum.w += x.w;
+      }
+    const int r = q0 + r_lo + i / V, c = k0 + 4 * (i % V);
+    if (r >= n) continue;
+    const float v[4] = {sum.x, sum.y, sum.z, sum.w};
+    float* o = out + (size_t)r * m + c;
+#pragma unroll
+    for (int l = 0; l < 4; ++l) {
+      if (c + l >= m) break;
+      if (atomic) atomicAdd(o + l, v[l]);
+      else o[l] = v[l];
+    }
   }
 }
 
-// Bs[i] = tab[q0 - k0 - (BK - 1) + i + n - 1, h]: the bias of delta
-// (q0 + r) - (k0 + c) is Bs[r - c + BK - 1]
-__device__ __forceinline__ void load_bias(float* Bs, const float* tab, int q0, int k0, int n,
-                                          int h, int heads) {
-  for (int i = threadIdx.x; i < ND; i += NT)
-    Bs[i] = tc::tab_entry(tab, q0, k0, BK, i, n, heads, h);
-}
-
-// Ts[r * qs + c * ks] = bias_h[q0 + r, k0 + c] (r query, c key) of an (n, m)
-// float32 bias plane, zero outside it; read coalesced along the keys. One of
-// qs, ks is 1 and the other PITCH: query-major (K3, K5) or key-major (K2).
-__device__ __forceinline__ void load_bias_tile(float* Ts, const float* bias_h, int q0, int k0,
-                                               int n, int m, int qs, int ks) {
-  for (int i = threadIdx.x; i < BQ * BK; i += NT) {
-    const int r = i / BK, c = i % BK;
-    Ts[r * qs + c * ks] = q0 + r < n && k0 + c < m ? bias_h[(size_t)(q0 + r) * m + k0 + c] : 0.f;
-  }
-}
-
-// key flags: 0 attend, NEG masked, -inf past m
-__device__ __forceinline__ void load_flags(float* Fs, const int8_t* kmask, int b, int k0, int m) {
-  for (int i = threadIdx.x; i < BK; i += NT) Fs[i] = tc::key_flag(kmask, b, m, k0 + i);
-}
-
-// lse (+inf on padded rows, so p = 0 there) and Delta of query rows q0..
-__device__ __forceinline__ void load_rows(float* Ls, float* Dl, const float* lse,
-                                          const float* delta, int q0, int n) {
-  for (int i = threadIdx.x; i < BQ; i += NT) {
-    const bool in = q0 + i < n;
-    Ls[i] = in ? lse[q0 + i] : INFINITY;
-    Dl[i] = in ? delta[q0 + i] : 0.f;
-  }
-}
-
-// p and dS of one (query row, key) pair from the raw product s = scale q.k,
-// dp = dO.v, as the forward formed the logit
-__device__ __forceinline__ void p_ds(float s, float dp, float bias, float flag, bool above,
-                                     float lse, float delta, float& p, float& ds) {
-  const float x = tc::score(s + bias, flag, above);
-  p = lse > 0.5f * NEG ? expf(x - lse) : 0.f;
-  ds = p * (dp - delta);
-}
-
-template <int D>
-constexpr size_t smem_rows() {
-  // Qs, Gs, Ks, Vs [D][PITCH]; dS^T [BK][PITCH]; bias [ND]; flags [BK]; lse, Delta [BQ]
-  return sizeof(float) * (4 * D * PITCH + BK * PITCH + ND + BK + 2 * BQ);
-}
-
-// K2 (dq) with K4 (dtab, when not null) fused in. One block per (b*h, query tile).
-template <typename T, int D>
-__global__ void __launch_bounds__(NT)
+template <typename T, int D, bool SUM>
+__global__ void __launch_bounds__(K2Warps<T>::threads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                      const T* __restrict__ g, const float* __restrict__ lse,
-                      const float* __restrict__ delta, const float* __restrict__ tab,
-                      const float* __restrict__ bias, const int8_t* __restrict__ kmask,
-                      T* __restrict__ dq,
-                      float* __restrict__ dtab, int heads, int group, int n, int m,
-                      float scale, int causal) {
-  constexpr int DC = D / 16;  // dq columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;              // (scale q)^T
-  float* Gs = Qs + D * PITCH;    // dO^T
-  float* Ks = Gs + D * PITCH;    // k^T
-  float* Vs = Ks + D * PITCH;    // v^T
-  float* Ss = Vs + D * PITCH;    // dS^T: Ss[c * PITCH + r]; before dS, the (H, N, M) bias tile
-  float* Bs = Ss + BK * PITCH;
-  float* Fs = Bs + ND;
-  float* Ls = Fs + BK;
-  float* Dl = Ls + BQ;
+                    const T* __restrict__ g, const float* __restrict__ lse,
+                    const float* __restrict__ delta, const float* __restrict__ tab,
+                    const float* __restrict__ bias, const int8_t* __restrict__ kmask,
+                    T* __restrict__ dq, float* __restrict__ dtab, float* __restrict__ dbias,
+                    int heads, int group, int n, int m, float scale, int causal) {
+  using S = DqSmem<T, D>;
+  constexpr int P = S::P;
+  constexpr int NT = K2Warps<T>::threads, WN = K2Warps<T>::per_strip;
+  constexpr int KW = BK / WN;  // a warp's keys of a tile
+  extern __shared__ __align__(16) unsigned char dq_smem[];
+  unsigned char* smem = dq_smem;
+  auto Ks = [&](int s) { return reinterpret_cast<T*>(smem + s * S::stage); };
+  auto Vs = [&](int s) { return reinterpret_cast<T*>(smem + s * S::stage + S::tile); };
+  // table slice: Bs[i] = tab[q0 - k0 - (BK - 1) + i + n - 1, h], so
+  // the bias of (q0 + r, k0 + c) is Bs[r - c + BK - 1]; then the key flags
+  auto Bs = [&](int s) { return reinterpret_cast<float*>(smem + s * S::stage + 2 * S::tile); };
+  auto Fs = [&](int s) { return Bs(s) + BQ + BK; };
+  // the bias block of tile `it`, then its dS; with K5 four of them, so
+  // the cluster reads a tile's dS while the next two tiles' blocks load
+  constexpr int NBUF = SUM ? 4 : 2;
+  float* dense = reinterpret_cast<float*>(smem + S::base);
+  auto Tb = [&](int it) { return dense + (it % NBUF) * BQ * TPD; };
 
-  const int bh = blockIdx.y;
-  const int h = bh % heads, b = bh / heads;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // the longest causal rows first
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), csize = (int)cluster.num_blocks();
+  const int b = blockIdx.x, h = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;  // the longest causal rows first
+  const size_t bh = (size_t)b * heads + h;
+  const int tid = threadIdx.x, warp = tid / 32, gq = (tid % 32) / 4, t = tid % 4;
+  const int strip = warp % 4, kh = warp / 4, kc0 = kh * KW;  // this warp's rows and keys
+  const T* kb = k + (bh / group) * m * D;
+  const T* vb = v + (bh / group) * m * D;
   const float* biash = bias != nullptr ? bias + (size_t)h * n * m : nullptr;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const T* kb = k + (size_t)(bh / group) * m * D;
-  const T* vb = v + (size_t)(bh / group) * m * D;
+  // K4: a strip's dS, skewed so that a diagonal is a column. Element (r, c)
+  // of the strip's 16 rows lies on the diagonal of (r - 8, c - 8), and a
+  // thread holds both (rows gq and gq + 8), so it adds them first: their
+  // sum goes to row gq of its warp's 8 rows, column c - gq + 15. The cells
+  // off the band are zeros, written once.
+  float* sk = dense + strip * 8 * WN * SKP;
 
-  load_t<T, D>(Qs, q + (size_t)bh * n * D, q0, n, scale);
-  load_t<T, D>(Gs, g + (size_t)bh * n * D, q0, n, 1.f);
-  load_rows(Ls, Dl, lse + (size_t)bh * n, delta + (size_t)bh * n, q0, n);
-
-  float acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-
+  // causal (n == m): key k is seen by query q iff k <= q
   const int kv_end = causal ? min(m, q0 + BQ) : m;
-  for (int k0 = 0; k0 < kv_end; k0 += BK) {
-    __syncthreads();  // the previous tile is consumed
-    load_t<T, D>(Ks, kb, k0, m, 1.f);
-    load_t<T, D>(Vs, vb, k0, m, 1.f);
-    if (tab != nullptr) load_bias(Bs, tab, q0, k0, n, h, heads);
-    if (biash != nullptr) load_bias_tile(Ss, biash, q0, k0, n, m, 1, PITCH);
-    load_flags(Fs, kmask, b, k0, m);
-    __syncthreads();
+  const int ntiles = (kv_end + BK - 1) / BK;
 
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float a[4], ga[4], bk[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = Qs[d * PITCH + ty + 16 * i];
-        ga[i] = Gs[d * PITCH + ty + 16 * i];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        bk[j] = Ks[d * PITCH + tx + 16 * j];
-        bv[j] = Vs[d * PITCH + tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i], bk[j], s[i][j]);
-          dp[i][j] = fmaf(ga[i], bv[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        float p, ds;
-        // the bias tile's element is this thread's own, read before dS overwrites it
-        const float bias_rc = tab != nullptr ? Bs[r - c + BK - 1]
-                              : biash != nullptr ? Ss[c * PITCH + r] : 0.f;
-        p_ds(s[i][j], dp[i][j], bias_rc, Fs[c], causal && k0 + c > q0 + r, Ls[r], Dl[r], p,
-             ds);
-        Ss[c * PITCH + r] = ds;
-      }
-    }
-    __syncthreads();
+  // Tile `it`: K and V into stage it & 1 and the bias block into Tb(it) by
+  // cp.async (one group); the table entry and key flag of this thread into
+  // registers, which `stash` stores once this tile's compute has hidden
+  // their latency.
+  float tab_r = 0.f, flag_r = 0.f;
+  auto issue = [&](int it) {
+    const int k0 = it * BK, s = it & 1;
+    tc::cp_tile<T, D, BK, NT>(Ks(s), P, kb, k0, m);
+    tc::cp_tile<T, D, BK, NT>(Vs(s), P, vb, k0, m);
+    if (biash != nullptr) tc::cp_block_f32<BQ, BK, NT>(Tb(it), TPD, biash, q0, k0, n, m);
+    tc::cp_async_commit();
+    if (tab != nullptr && tid < ND) tab_r = tc::tab_entry(tab, q0, k0, BK, tid, n, heads, h);
+    if (tid < BK) flag_r = tc::key_flag(kmask, b, m, k0 + tid);
+  };
+  auto stash = [&](int it) {
+    const int s = it & 1;
+    if (tab != nullptr && tid < ND) Bs(s)[tid] = tab_r;
+    if (tid < BK) Fs(s)[tid] = flag_r;
+  };
 
-    // dq[r][col] += sum_c dS[r][c] k[c][col]
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float dsr[4];
+  // Q and dO (in stage 1's K and V tiles) with tile 0; lse (+inf where p =
+  // 0: padded or fully masked rows) and Delta of this thread's two rows
+  tc::cp_tile<T, D, BQ, NT>(Ks(1), P, q + bh * n * D, q0, n);
+  tc::cp_tile<T, D, BQ, NT>(Vs(1), P, g + bh * n * D, q0, n);
+  issue(0);
+  stash(0);
+  const int rl[2] = {strip * 16 + gq, strip * 16 + gq + 8};  // this thread's rows in the tile
+  float lse_r[2], dl_r[2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dsr[i] = Ss[c * PITCH + ty + 16 * i];
+  for (int ri = 0; ri < 2; ++ri) {
+    const int qp = q0 + rl[ri];
+    const float l = qp < n ? lse[bh * n + qp] : INFINITY;
+    lse_r[ri] = l > 0.5f * NEG ? l : INFINITY;
+    dl_r[ri] = qp < n ? delta[bh * n + qp] : 0.f;
+  }
+  if (dtab != nullptr)
+    for (int i = tid; i < BQ * SKP; i += NT) dense[i] = 0.f;
+  tc::cp_async_wait_all();
+  __syncthreads();
+  typename tc::AFixed<T, D>::type qa, ga;
+  if constexpr (sizeof(T) == 4) {
+    // a strip's pairs, split by its first warp, read by both after the barrier
+    uint4* fixed = reinterpret_cast<uint4*>(smem + 2 * S::stage);
+    qa.s = fixed + strip * (tc::AFixed<T, D>::bytes / sizeof(uint4));
+    ga.s = qa.s + (BQ / 16) * (tc::AFixed<T, D>::bytes / sizeof(uint4));
+    if (kh == 0) {
+      qa.load(Ks(1) + strip * 16 * P, P);
+      ga.load(Vs(1) + strip * 16 * P, P);
+    }
+  } else {
+    qa.load(Ks(1) + strip * 16 * P, P);
+    ga.load(Vs(1) + strip * 16 * P, P);
+  }
+  __syncthreads();  // stage 1 is free for tile 1
+
+  // K5 (SUM, with dbias): with several clusters per tile (B > 8) their
+  // partial sums meet by atomics
+  constexpr bool batch_sum = SUM;
+  const bool atomic = batch_sum && csize < (int)gridDim.x;
+  float* out = batch_sum ? dbias + (size_t)h * n * m : nullptr;  // dbias[h]
+  float dqa[D / 8][4];
+  tc::zero(dqa);
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it & 1, k0 = it * BK;
+    const bool next = it + 1 < ntiles;
+    // with K5 the bias block's buffer last held tile it - 3's dS, which the
+    // cluster read before the barrier of tile it - 2 (waited for at tile it - 1)
+    if (next) issue(it + 1);
+
+    float sc[KW / 8][4], ds[KW / 8][4];  // S, then dP and dS: rows queries, columns keys
+    tc::zero(sc);
+    tc::zero(ds);
+    tc::gemm_nk<T, D, KW / 8>(sc, qa, Ks(s) + kc0 * P, P);
+    tc::gemm_nk<T, D, KW / 8>(ds, ga, Vs(s) + kc0 * P, P);
+    if (batch_sum && it > 0) {
+      // K5 of the last tile: every block's dS is in (and the cluster is done
+      // with the tile before), so its sum runs in rank order
+      tc::cluster_wait();
+      batch_sum_rows<NT>(cluster, Tb(it - 1), out, q0, k0 - BK, n, m, atomic);
+    }
+
+    const float* bs = Bs(s);
+    const float* fs = Fs(s);
+    const float* ts = Tb(it);
+    // keys above the diagonal meet this warp's rows only near the diagonal
+    const bool diag = causal && k0 + kc0 + KW - 1 > q0 + strip * 16;
 #pragma unroll
-      for (int cc = 0; cc < DC; ++cc) {
-        const float kk = Ks[(tx + 16 * cc) * PITCH + c];
+    for (int j = 0; j < KW / 8; ++j) {
+      const int c = kc0 + 8 * j + 2 * t;
+      const float2 f = *reinterpret_cast<const float2*>(fs + c);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][cc] = fmaf(dsr[i], kk, acc[i][cc]);
+      for (int ri = 0; ri < 2; ++ri) {
+        float2 bb = make_float2(0.f, 0.f);
+        if (tab != nullptr) bb = make_float2(bs[rl[ri] - c + BK - 1], bs[rl[ri] - c + BK - 2]);
+        else if (biash != nullptr) bb = *reinterpret_cast<const float2*>(ts + rl[ri] * TPD + c);
+        const int qp = q0 + rl[ri];
+        const float x0 = tc::score(fmaf(sc[j][2 * ri], scale, bb.x), f.x, diag && k0 + c > qp);
+        const float x1 = tc::score(fmaf(sc[j][2 * ri + 1], scale, bb.y), f.y,
+                                   diag && k0 + c + 1 > qp);
+        ds[j][2 * ri] = tc::exp_rel(x0, lse_r[ri]) * (ds[j][2 * ri] - dl_r[ri]);
+        ds[j][2 * ri + 1] = tc::exp_rel(x1, lse_r[ri]) * (ds[j][2 * ri + 1] - dl_r[ri]);
       }
     }
     if (dtab != nullptr) {
-      // K4: diagonal t holds the pairs r - c = t - (BK - 1), delta
-      // q0 - k0 + t - (BK - 1); two threads per diagonal, each summing every other row
-      const int t = tid >> 1, half = tid & 1;
-      float sum = 0.f;
-      if (t < ND) {
-        const int r_lo = max(0, t - (BK - 1)), r_hi = min(BQ - 1, t);
-        for (int r = r_lo + half; r <= r_hi; r += 2) sum += Ss[(r - t + BK - 1) * PITCH + r];
+      // K4: the strip's diagonals, a lane per column of its skewed rows:
+      // column x holds delta q0 - k0 + 16 strip + 15 - x; one atomicAdd per
+      // diagonal per strip per tile. Barriers: the strip's warps only.
+      float* row = sk + (kh * 8 + gq) * SKP + kc0 + 2 * t - gq + 15;
+#pragma unroll
+      for (int j = -1; j < KW / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          row[8 * j + e] = (j >= 0 ? ds[j][e] : 0.f) + (j + 1 < KW / 8 ? ds[j + 1][2 + e] : 0.f);
+      strip_sync<WN>(strip);
+      for (int x = tid % 32 + 32 * kh; x < BK + 15; x += 32 * WN) {
+        float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+        for (int r = 0; r < 8 * WN; r += 2) {
+          sum0 += sk[r * SKP + x];
+          sum1 += sk[(r + 1) * SKP + x];
+        }
+        const float sum = sum0 + sum1;
+        const int idx = q0 - k0 + strip * 16 + 15 - x + n - 1;
+        if (sum != 0.f && idx >= 0 && idx < 2 * n - 1)
+          atomicAdd(dtab + (size_t)idx * heads + h, sum);
       }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      const int idx = q0 - k0 - (BK - 1) + t + n - 1;
-      if (t < ND && half == 0 && sum != 0.f && idx >= 0 && idx < 2 * n - 1)
-        atomicAdd(dtab + (size_t)idx * heads + h, sum);
     }
+    if (batch_sum) {
+      // K5: dS over the bias block just read (each thread's own elements),
+      // for the cluster to sum at the next tile
+      tc::store_acc(Tb(it) + strip * 16 * TPD + kc0, TPD, ds);
+      tc::cluster_arrive();
+    }
+    const float one[2] = {1.f, 1.f};
+    tc::add_tile<T, D, KW / 8>(dqa, ds, Ks(s) + kc0 * P, P, one);  // dq += dS K
+
+    if (next) {
+      stash(it + 1);
+      tc::cp_async_wait_all();
+    }
+    __syncthreads();  // this stage is consumed and the next one has landed
+  }
+  if (batch_sum && ntiles > 0) {
+    // K5 of the last tile; no block leaves while the cluster still reads its dS
+    tc::cluster_wait();
+    batch_sum_rows<NT>(cluster, Tb(ntiles - 1), out, q0, (ntiles - 1) * BK, n, m, atomic);
+    tc::cluster_arrive_relaxed();
+    tc::cluster_wait();
   }
 
+  if constexpr (WN == 2) {
+    // the second warp's partial dq (its half of the keys) onto the first's,
+    // in that order, through stage 0
+    float* part = reinterpret_cast<float*>(Ks(0)) + strip * 16 * TPD;
+    if (kh == 1) tc::store_acc(part, TPD, dqa);
+    __syncthreads();
+    if (kh == 1) return;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qp = q0 + ty + 16 * i;
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dqa[j][e] += part[(gq + 8 * (e >> 1)) * TPD + 8 * j + 2 * t + (e & 1)];
+  }
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    const int qp = q0 + rl[ri];
     if (qp >= n) continue;
-    T* o = dq + ((size_t)bh * n + qp) * D;
+    T* o = dq + (bh * n + qp) * D;
 #pragma unroll
-    for (int cc = 0; cc < DC; ++cc) o[tx + 16 * cc] = from_f<T>(acc[i][cc] * scale);
+    for (int j = 0; j < D / 8; ++j)
+      tc::store2(o + 8 * j + 2 * t, dqa[j][2 * ri] * scale, dqa[j][2 * ri + 1] * scale);
+  }
+  // K5: the keys past the causal diagonal have dS = 0; no block visits them
+  if (batch_sum && !atomic && kv_end < m) {
+    const int r_lo = rank * BQ / csize, r_hi = (rank + 1) * BQ / csize, cols = m - kv_end;
+    for (int i = tid; i < (r_hi - r_lo) * cols; i += NT / WN) {
+      const int r = r_lo + i / cols;
+      if (q0 + r < n) out[(size_t)(q0 + r) * m + kv_end + i % cols] = 0.f;
+    }
   }
 }
 
@@ -301,7 +429,6 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 // the top). Each warp owns 16 keys: its rows of S^T, dP^T, dK and dV.
 constexpr int NT3 = 128;          // K3's threads
 constexpr int TP3 = BQ + 4;       // K3's bias tile pitch: rows are queries, read down the keys
-constexpr int MAX_CLUSTER = 8;    // the portable cluster size
 
 // Shared memory: the K and V tiles; two stages of (Q tile, dO tile, lse
 // [BQ], Delta [BQ], table slice [BQ + BK - 1]); the key flags; with an
@@ -332,7 +459,6 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
                      int heads, int hk, int n, int m, float scale, int causal) {
   using S = DkvSmem<T, D>;
   constexpr int P = S::P;
-  // its own name: K2's and K5's dynamic shared memory is declared float
   extern __shared__ __align__(16) unsigned char dkv_smem[];
   unsigned char* smem = dkv_smem;
   T* Ks = reinterpret_cast<T*>(smem);
@@ -465,109 +591,6 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   cluster.sync();  // every block's partials stay until rank 0 has read them
 }
 
-template <int D>
-constexpr size_t smem_dbias() {
-  // Qs, Gs, Ks, Vs [D][PITCH]; bias tile [BQ][PITCH]; flags [BK]; lse, Delta [BQ]
-  return sizeof(float) * (4 * D * PITCH + BQ * PITCH + BK + 2 * BQ);
-}
-
-// K5. One block per (key tile, query tile, head); loops over the batch.
-template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dbias_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                       const T* __restrict__ g, const float* __restrict__ lse,
-                       const float* __restrict__ delta, const float* __restrict__ bias,
-                       const int8_t* __restrict__ kmask, float* __restrict__ dbias,
-                       int batch, int heads, int hk, int n, int m, float scale, int causal) {
-  extern __shared__ float smem[];
-  float* Qs = smem;              // (scale q)^T
-  float* Gs = Qs + D * PITCH;    // dO^T
-  float* Ks = Gs + D * PITCH;    // k^T
-  float* Vs = Ks + D * PITCH;    // v^T
-  float* Ts = Vs + D * PITCH;    // bias tile: Ts[r * PITCH + c]
-  float* Fs = Ts + BQ * PITCH;
-  float* Ls = Fs + BK;
-  float* Dl = Ls + BQ;
-
-  const int k0 = blockIdx.x * BK, q0 = blockIdx.y * BQ, h = blockIdx.z;
-  const int group = heads / hk;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const float* biash = bias + (size_t)h * n * m;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  // causal: a tile wholly above the diagonal has p = 0, so dbias = 0 there
-  if (!(causal && k0 > q0 + BQ - 1)) {
-    load_bias_tile(Ts, biash, q0, k0, n, m, PITCH, 1);
-    for (int b = 0; b < batch; ++b) {
-      const int bh = b * heads + h;
-      const int kvh = b * hk + h / group;
-      __syncthreads();  // the previous batch row's tiles are consumed
-      load_t<T, D>(Qs, q + (size_t)bh * n * D, q0, n, scale);
-      load_t<T, D>(Gs, g + (size_t)bh * n * D, q0, n, 1.f);
-      load_t<T, D>(Ks, k + (size_t)kvh * m * D, k0, m, 1.f);
-      load_t<T, D>(Vs, v + (size_t)kvh * m * D, k0, m, 1.f);
-      load_rows(Ls, Dl, lse + (size_t)bh * n, delta + (size_t)bh * n, q0, n);
-      load_flags(Fs, kmask, b, k0, m);
-      __syncthreads();
-
-      float s[4][4], dp[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        float a[4], ga[4], bk[4], bv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          a[i] = Qs[d * PITCH + ty + 16 * i];
-          ga[i] = Gs[d * PITCH + ty + 16 * i];
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          bk[j] = Ks[d * PITCH + tx + 16 * j];
-          bv[j] = Vs[d * PITCH + tx + 16 * j];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            s[i][j] = fmaf(a[i], bk[j], s[i][j]);
-            dp[i][j] = fmaf(ga[i], bv[j], dp[i][j]);
-          }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ty + 16 * i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = tx + 16 * j;
-          float p, ds;
-          p_ds(s[i][j], dp[i][j], Ts[r * PITCH + c], Fs[c], causal && k0 + c > q0 + r, Ls[r],
-               Dl[r], p, ds);
-          acc[i][j] += ds;
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qp = q0 + ty + 16 * i;
-    if (qp >= n) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int kp = k0 + tx + 16 * j;
-      if (kp < m) dbias[((size_t)h * n + qp) * m + kp] = acc[i][j];
-    }
-  }
-}
-
 template <typename K>
 cudaError_t set_smem(K kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -581,21 +604,47 @@ struct Args {
   cudaStream_t stream;
 };
 
+cudaLaunchAttribute cluster_attr(int size) {
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = size;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  return attr;
+}
+
+// the largest divisor of x up to MAX_CLUSTER
+int cluster_size(int x) {
+  int c = MAX_CLUSTER;
+  while (x % c) --c;
+  return c;
+}
+
+// K2; o2 the gradient of the bias given, dtab (K4) or dbias (K5), or null
 template <typename T, int D>
-cudaError_t launch_dq(const Args& a, void* dq, void* dtab) {
-  constexpr size_t smem = smem_rows<D>();
-  auto kernel = flash_bwd_dq_kernel<T, D>;
-  cudaError_t err = set_smem(kernel, smem);
+cudaError_t launch_dq(const Args& a, void* dq, void* o2) {
+  using S = DqSmem<T, D>;
+  const bool dense = a.bias != nullptr, sum = dense && o2 != nullptr;
+  auto kernel = sum ? flash_bwd_dq_kernel<T, D, true> : flash_bwd_dq_kernel<T, D, false>;
+  cudaError_t err = set_smem(kernel, S::base + 4 * S::ftile);
   if (err != cudaSuccess) return err;
-  dim3 grid((a.n + BQ - 1) / BQ, a.b * a.heads);
-  kernel<<<grid, NT, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.g), static_cast<const float*>(a.lse),
+  // K5's cluster: the batch rows of one (head, query tile), at most MAX_CLUSTER
+  cudaLaunchAttribute attr[1] = {cluster_attr(sum ? cluster_size(a.b) : 1)};
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.b, a.heads, (a.n + BQ - 1) / BQ);
+  cfg.blockDim = dim3(K2Warps<T>::threads);
+  cfg.dynamicSmemBytes = S::base + (sum ? 4 * S::ftile : dense ? 2 * S::ftile
+                                    : o2 != nullptr ? S::skew : 0);
+  cfg.stream = a.stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.g), static_cast<const float*>(a.lse),
       static_cast<const float*>(a.delta), static_cast<const float*>(a.tab),
-      static_cast<const float*>(a.bias), static_cast<const int8_t*>(a.kmask),
-      static_cast<T*>(dq), static_cast<float*>(dtab),
+      static_cast<const float*>(a.bias), static_cast<const int8_t*>(a.kmask), static_cast<T*>(dq),
+      static_cast<float*>(dense ? nullptr : o2), static_cast<float*>(dense ? o2 : nullptr),
       a.heads, a.heads / a.hk, a.n, a.m, a.scale, a.causal);
-  return cudaGetLastError();
 }
 
 template <typename T, int D>
@@ -606,14 +655,8 @@ cudaError_t launch_dkv(const Args& a, void* dk, void* dv) {
   if (err != cudaSuccess) return err;
   // the cluster: the query heads of one kv head, at most MAX_CLUSTER of them
   // (with more, each block loops over group / cluster heads)
-  const int group = a.heads / a.hk;
-  int cluster = MAX_CLUSTER;
-  while (group % cluster) --cluster;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
+  const int cluster = cluster_size(a.heads / a.hk);
+  cudaLaunchAttribute attr[1] = {cluster_attr(cluster)};
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cluster, a.b * a.hk, (a.m + BK - 1) / BK);
   cfg.blockDim = dim3(NT3);
@@ -629,30 +672,14 @@ cudaError_t launch_dkv(const Args& a, void* dk, void* dv) {
       static_cast<T*>(dk), static_cast<T*>(dv), a.heads, a.hk, a.n, a.m, a.scale, a.causal);
 }
 
-template <typename T, int D>
-cudaError_t launch_dbias(const Args& a, void* dbias) {
-  constexpr size_t smem = smem_dbias<D>();
-  auto kernel = flash_bwd_dbias_kernel<T, D>;
-  cudaError_t err = set_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((a.m + BK - 1) / BK, (a.n + BQ - 1) / BQ, a.heads);
-  kernel<<<grid, NT, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.g), static_cast<const float*>(a.lse),
-      static_cast<const float*>(a.delta), static_cast<const float*>(a.bias),
-      static_cast<const int8_t*>(a.kmask), static_cast<float*>(dbias),
-      a.b, a.heads, a.hk, a.n, a.m, a.scale, a.causal);
-  return cudaGetLastError();
-}
-
-// which: 0 dq (and dtab in o2 when not null), 1 dk/dv, 2 dbias
+// which: 0 dq (and the bias's gradient in o2 when not null), 1 dk/dv
 template <typename T>
 cudaError_t dispatch(int which, int d, const Args& a, void* o1, void* o2) {
   if (d != 64) return cudaErrorInvalidValue;
   if (a.tab != nullptr && a.bias != nullptr) return cudaErrorInvalidValue;
   if (which == 1) return launch_dkv<T, 64>(a, o1, o2);
-  if (which == 2) return a.bias == nullptr ? cudaErrorInvalidValue : launch_dbias<T, 64>(a, o1);
-  if (o2 != nullptr && (a.tab == nullptr || a.n != a.m)) return cudaErrorInvalidValue;
+  if (o2 != nullptr && (a.tab == nullptr ? a.bias == nullptr : a.n != a.m))
+    return cudaErrorInvalidValue;
   return launch_dq<T, 64>(a, o1, o2);
 }
 
@@ -674,14 +701,17 @@ int run(int which, const void* q, const void* k, const void* v, const void* g,
 // null; bias (heads, n, m) float32 or null, at most one of tab and bias;
 // kmask (b, m) int8 or null. Each returns a cudaError_t.
 
-// dq (b*heads, n, d) in q's dtype; with dtab not null also the table's
-// gradient, dtab (2n-1, heads) float32, zeroed by the caller (needs tab and n == m)
+// dq (b*heads, n, d) in q's dtype; with dgrad not null also the gradient of
+// the bias given, summed over the batch: with tab, dtab (2n-1, heads)
+// float32, zeroed by the caller (needs n == m); with bias, dbias (heads, n,
+// m) float32, every element written, zeroed by the caller when b > 8
+// (several clusters per tile meet by atomics there)
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* g,
                             const void* lse, const void* delta, const void* tab,
-                            const void* bias, const void* kmask, void* dq, void* dtab, int b,
+                            const void* bias, const void* kmask, void* dq, void* dgrad, int b,
                             int heads, int hk, int n, int m, int d, float scale, int causal,
                             int dtype, void* stream) {
-  return run(0, q, k, v, g, lse, delta, tab, bias, kmask, dq, dtab, b, heads, hk, n, m, d,
+  return run(0, q, k, v, g, lse, delta, tab, bias, kmask, dq, dgrad, b, heads, hk, n, m, d,
              scale, causal, dtype, stream);
 }
 
@@ -692,16 +722,5 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
                              int heads, int hk, int n, int m, int d, float scale, int causal,
                              int dtype, void* stream) {
   return run(1, q, k, v, g, lse, delta, tab, bias, kmask, dk, dv, b, heads, hk, n, m, d,
-             scale, causal, dtype, stream);
-}
-
-// dbias (heads, n, m) float32, every element written (needs bias; tab and
-// the second output are unused and null)
-extern "C" int flash_bwd_dbias(const void* q, const void* k, const void* v, const void* g,
-                               const void* lse, const void* delta, const void* tab,
-                               const void* bias, const void* kmask, void* dbias, void* unused,
-                               int b, int heads, int hk, int n, int m, int d, float scale,
-                               int causal, int dtype, void* stream) {
-  return run(2, q, k, v, g, lse, delta, tab, bias, kmask, dbias, unused, b, heads, hk, n, m, d,
              scale, causal, dtype, stream);
 }

@@ -1,12 +1,13 @@
 // Warp-level tensor-core building blocks for Hopper (sm_90a), shared by the
-// flash-attention forward (flash_fwd.cu, K1) and its dk/dv kernel
-// (flash_bwd.cu, K3).
+// flash-attention forward (flash_fwd.cu, K1) and its dq and dk/dv kernels
+// (flash_bwd.cu, K2 and K3).
 //
 // One template over the operand type serves both of the port's dtypes:
 //   bf16:    mma.sync m16n8k16, bf16 inputs, float32 accumulators;
 //   float32: mma.sync m16n8k8 on TF32 in the 3xTF32 form. Each operand x is
 //            split as big = tf32(x) and small = tf32(x - big), both rounded to
-//            nearest (cvt.rna), and a*b is taken as a_big*b_small +
+//            nearest, ties away from zero (cvt.rna's rounding, done by integer
+//            ops: see to_tf32), and a*b is taken as a_big*b_small +
 //            a_small*b_big + a_big*b_big, the two cross terms first. Only
 //            a_small*b_small (~2^-22 of the product) is dropped, so the result
 //            keeps close to float32 accuracy at a tensor-core rate.
@@ -23,11 +24,16 @@
 //
 // Products (A from registers or shared memory, B from shared memory):
 //   gemm_nk: acc (16 x 8NB) += A (16 x D) * B^T, B an n-major tile (8NB rows
-//            of D): S = Q K^T in K1; S^T = K Q^T and dP^T = V dO^T in K3.
+//            of D): S = Q K^T in K1; S = Q K^T and dP = dO V^T in K2;
+//            S^T = K Q^T and dP^T = V dO^T in K3.
 //   gemm_pk: acc (16 x D) += P (16 x 8NB, straight from the accumulators of
 //            a gemm_nk) * B, B a k-major tile (8NB rows of D): O += P V in K1;
-//            dV += P^T dO and dK += dS^T Q in K3, through add_tile, which
-//            keeps float32's long sums accurate (see there).
+//            dq += dS K in K2; dV += P^T dO and dK += dS^T Q in K3, through
+//            add_tile, which keeps float32's long sums accurate (see there).
+// An A operand fixed for a whole loop sits in registers (K1's Q, K2's bf16
+// Q and dO: ARegs), is split into tf32 pairs once into shared memory (K2's
+// float32 Q and dO: ASplit), or is read from shared memory at each use (K3's
+// K and V: ASmem).
 // bf16 B operands of gemm_pk come through ldmatrix.trans. ldmatrix moves
 // 16-bit elements, so for float32 the fragments are read as 32-bit words
 // instead, with the k index of each 8-wide step permuted (kk = t <-> column
@@ -37,7 +43,7 @@
 //
 // The masking rule of the attention kernels' score epilogue (the key flags,
 // the table slice, the causal mask and exp(x - m)) sits at the end, so K1,
-// K3 and the FMA kernels K2 and K5 form their scores alike.
+// K2 and K3 form their scores alike.
 //
 // Why mma.sync and cp.async, not wgmma and TMA: this is the kernels' first
 // tensor-core design, and mma.sync's per-warp fragments let the bias, mask
@@ -86,13 +92,6 @@ __device__ __forceinline__ float ex2(float x) {
   return r;
 }
 
-// x rounded to the nearest tf32 (ties away from zero), as a 32-bit pattern
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
 // four 8x8 16-bit matrices; lane l gives the address of row l % 8 of matrix l / 8
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* row) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -128,6 +127,29 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// the named barrier `id` (1 to 15; 0 is __syncthreads') of `count` threads,
+// whole warps
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
+// the two halves of a thread-block cluster's barrier (every thread of every
+// block of the cluster arrives, then waits; a thread alternates the two).
+// The release arrive and the acquire wait make each block's shared-memory
+// stores before it visible to the cluster after it; a relaxed arrive orders
+// nothing, for a barrier that only says the reads before it are done.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 // ---- Fragments and products, built from the primitives above. ----
 
 __device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
@@ -149,6 +171,23 @@ template <> struct Frag<float> {
   struct A { uint32_t hi[4], lo[4]; };  // big and small tf32 parts
   struct B { uint32_t hi[2], lo[2]; };
 };
+
+// x rounded to the nearest tf32, ties away from zero, as a 32-bit pattern:
+// half a tf32 ulp (bit 12) added to the magnitude's bits, the 13 low bits
+// cleared. For finite x these are the bits of cvt.rna.tf32.f32, by two
+// integer ops at the full ALU rate, where a conversion issues at a quarter
+// of it (float32 K1, K2 and K3 split every operand they read; PERF.md says
+// what this saved). Built with -DMMA_TF32_CVT (for tests and timing only)
+// it is the conversion instruction.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+#ifdef MMA_TF32_CVT
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+#else
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+#endif
+}
 
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   hi = to_tf32(x);
@@ -274,6 +313,44 @@ struct ARegs {
   __device__ __forceinline__ void get(typename Frag<T>::A& a, int ks) const { a = f[ks]; }
 };
 
+// A operand split into tf32 pairs once and kept in shared memory, in
+// fragment order (K2's float32 Q and dO: registers for both would not fit).
+// Each k-step holds 32 lanes x 16 bytes of big parts, then of small parts,
+// so a lane reads its fragment by two conflict-free 16-byte loads. One warp
+// loads it; the warps that share it read it after a barrier.
+template <int D>
+struct ASplit {
+  static constexpr size_t bytes = (size_t)D / 8 * 64 * sizeof(uint4);  // one warp's
+  uint4* s;  // this warp's region
+  __device__ __forceinline__ void load(const float* src, int pitch) {
+    const int l = lane_id();
+#pragma unroll
+    for (int ks = 0; ks < D / 8; ++ks) {
+      Frag<float>::A a;
+      load_a(a, src, pitch, ks);
+      s[ks * 64 + l] = make_uint4(a.hi[0], a.hi[1], a.hi[2], a.hi[3]);
+      s[ks * 64 + 32 + l] = make_uint4(a.lo[0], a.lo[1], a.lo[2], a.lo[3]);
+    }
+  }
+  __device__ __forceinline__ void get(Frag<float>::A& a, int ks) const {
+    const int l = lane_id();
+    const uint4 hi = s[ks * 64 + l], lo = s[ks * 64 + 32 + l];
+    a.hi[0] = hi.x, a.hi[1] = hi.y, a.hi[2] = hi.z, a.hi[3] = hi.w;
+    a.lo[0] = lo.x, a.lo[1] = lo.y, a.lo[2] = lo.z, a.lo[3] = lo.w;
+  }
+};
+
+// the A operand a warp keeps for a whole loop: registers in bf16, split
+// pairs in `bytes` of shared memory per warp in float32
+template <typename T, int D> struct AFixed {
+  using type = ARegs<T, D>;
+  static constexpr size_t bytes = 0;
+};
+template <int D> struct AFixed<float, D> {
+  using type = ASplit<D>;
+  static constexpr size_t bytes = ASplit<D>::bytes;
+};
+
 // A operand read from shared memory at each use (K3's K and V)
 template <typename T>
 struct ASmem {
@@ -397,6 +474,19 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// accumulators (16 x 8NB in the C layout) into rows 0..15 of a row-major
+// float32 tile at s (pitch floats; with a pitch of 8 mod 32 the float2
+// stores meet no bank conflict)
+template <int NB>
+__device__ __forceinline__ void store_acc(float* s, int pitch, const float (&acc)[NB][4]) {
+  const int l = lane_id(), g = l >> 2, t = l & 3;
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    store2(s + g * pitch + 8 * j + 2 * t, acc[j][0], acc[j][1]);
+    store2(s + (g + 8) * pitch + 8 * j + 2 * t, acc[j][2], acc[j][3]);
+  }
 }
 
 // ---- The score epilogue's masking rule, as the TPU kernel's. ----

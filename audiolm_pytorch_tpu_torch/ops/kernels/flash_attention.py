@@ -4,16 +4,18 @@ Hopper kernels `csrc/flash_fwd.cu` and `csrc/flash_bwd.cu`, the
 
 Replaces the JAX package's Pallas kernels in `ops/pallas/flash_attention.py`:
 the forward `_kernel`, and the backward `_dq_kernel`, `_dkv_kernel`,
-`_dblocks_kernel` and `_dbias_kernel` behind its `jax.custom_vjp`. The bias
-comes in one of two forms. The Semantic LM's rel-pos bias is its (2N-1, H)
-distance table, read inside the kernels' tiles as bias[h, q, k] =
-tab[q - k + N - 1, h]; its gradient is reduced along the diagonals straight
-into a (2N-1, H) table, and the (H, N, N) bias is never built. The Coarse
-and Fine LMs' bias is a materialised (H, N, M) float tensor shared over the
-batch: each tile reads its (64, 64) block of bias[h], and K5 gives its
-gradient, the batch sum of dS, writing each tile once. A per-batch
-(B, H, N, M) bias has the plain versions only. On a CUDA tensor the wrappers
-launch the kernels or raise; only a CPU tensor takes the plain versions.
+`_dblocks_kernel` and `_dbias_kernel` behind its `jax.custom_vjp`: the
+backward is two launches, dq (K2, which also gives the bias's gradient, K4
+or K5) and dk/dv (K3). The bias comes in one of two forms. The Semantic
+LM's rel-pos bias is its (2N-1, H) distance table, read inside the kernels'
+tiles as bias[h, q, k] = tab[q - k + N - 1, h]; its gradient is reduced
+along the diagonals straight into a (2N-1, H) table, and the (H, N, N) bias
+is never built. The Coarse and Fine LMs' bias is a materialised (H, N, M)
+float tensor shared over the batch: each tile reads its (64, 64) block of
+bias[h], and K2's launch gives its gradient, the batch sum of dS over a
+thread-block cluster of the batch rows. A per-batch (B, H, N, M) bias has
+the plain versions only. On a CUDA tensor the wrappers launch the kernels
+or raise; only a CPU tensor takes the plain versions.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ from ..relpos import toeplitz_expand
 from ._build import load
 
 __all__ = ["flash_attention", "flash_attention_ref", "flash_attention_bwd",
-           "flash_attention_bwd_ref", "bwd_dq", "bwd_dkv", "bwd_dbias", "built_with", "SOURCE",
+           "flash_attention_bwd_ref", "bwd_dq", "bwd_dkv", "built_with", "SOURCE",
            "SOURCE_BWD", "HEAD_DIMS", "launches", "launches_dq", "launches_dkv",
            "launches_dtab", "launches_dbias"]
 
@@ -41,7 +43,10 @@ launches = 0       # forward (K1)
 launches_dq = 0    # dq (K2)
 launches_dkv = 0   # dk, dv (K3)
 launches_dtab = 0  # bias-table gradient (K4, fused into K2's launch)
-launches_dbias = 0  # (H, N, M) bias gradient (K5)
+launches_dbias = 0  # (H, N, M) bias gradient (K5, fused into K2's launch)
+# K5's cluster holds at most this many batch rows; beyond it the clusters of
+# one tile add their partial sums by atomics into a zeroed dbias
+_MAX_CLUSTER = 8
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -157,8 +162,8 @@ def _forward(q, k, v, bias_tab, bias, key_mask, causal, scale):
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Forward K1; backward K2 (dq) with K4 (the table's gradient) in the
-    same launch, K3 (dk, dv) and, for an (H, N, M) bias, K5 (its gradient),
+    """Forward K1; backward K2 (dq) with the bias's gradient in the same
+    launch (K4 for the table, K5 for an (H, N, M) bias) and K3 (dk, dv),
     recomputing P from the forward's logsumexp (the port's counterpart of
     the JAX package's custom VJP)."""
 
@@ -281,18 +286,27 @@ def _bwd_launch(name, outs, q, k, v, g, lse, delta, tab, kmask, *, causal, scale
 
 def bwd_dq(q, k, v, g, lse, delta, tab, kmask, *, causal: bool, scale: float, bias=None):
     """K2 on prepared arguments (contiguous; tab and bias float32 and kmask
-    int8 or None; lse and delta (B, H, N) float32): dq in q's dtype, and with
-    a table K4 in the same launch, the (2N-1, H) float32 gradient of the
-    table summed over the batch by atomics into a zeroed buffer; else None."""
+    int8 or None; lse and delta (B, H, N) float32): dq in q's dtype, and in
+    the same launch the float32 gradient of the bias given, summed over the
+    batch: with a table K4, the (2N-1, H) gradient, by atomics into a zeroed
+    buffer; with an (H, N, M) bias K5, its (H, N, M) gradient, summed over a
+    cluster of the batch rows in a fixed order (by atomics between clusters,
+    into a zeroed buffer, only for B > 8); else None."""
     dq = torch.empty_like(q)
-    dtab = torch.zeros_like(tab) if tab is not None else None
-    _bwd_launch("flash_bwd_dq", (dq, dtab), q, k, v, g, lse, delta, tab, kmask,
+    dgrad = None
+    if tab is not None:
+        dgrad = torch.zeros_like(tab)
+    elif bias is not None:
+        dgrad = torch.zeros_like(bias) if q.shape[0] > _MAX_CLUSTER else torch.empty_like(bias)
+    _bwd_launch("flash_bwd_dq", (dq, dgrad), q, k, v, g, lse, delta, tab, kmask,
                 causal=causal, scale=scale, bias=bias)
-    global launches_dq, launches_dtab
+    global launches_dq, launches_dtab, launches_dbias
     launches_dq += 1
-    if dtab is not None:
+    if tab is not None:
         launches_dtab += 1
-    return dq, dtab
+    elif bias is not None:
+        launches_dbias += 1
+    return dq, dgrad
 
 
 def bwd_dkv(q, k, v, g, lse, delta, tab, kmask, *, causal: bool, scale: float, bias=None):
@@ -306,22 +320,11 @@ def bwd_dkv(q, k, v, g, lse, delta, tab, kmask, *, causal: bool, scale: float, b
     return dk, dv
 
 
-def bwd_dbias(q, k, v, g, lse, delta, bias, kmask, *, causal: bool, scale: float):
-    """K5 on prepared arguments (bias (H, N, M) float32): the float32 (H, N, M)
-    gradient of the bias, the batch sum of dS, each tile written once."""
-    dbias = torch.empty_like(bias)
-    _bwd_launch("flash_bwd_dbias", (dbias, None), q, k, v, g, lse, delta, None, kmask,
-                causal=causal, scale=scale, bias=bias)
-    global launches_dbias
-    launches_dbias += 1
-    return dbias
-
-
 def flash_attention_bwd(q, k, v, bias_tab, key_mask, out, lse, g, *, causal: bool,
                         scale: float, bias=None):
     """dq, dk, dv and the bias's gradient (dtab with a table, dbias with an
-    (H, N, M) bias, else None): K2 with K4, K3, and K5 for a bias, on a CUDA
-    tensor; `flash_attention_bwd_ref` on the CPU."""
+    (H, N, M) bias, else None): two launches on a CUDA tensor, K2 with K4 or
+    K5 and K3; `flash_attention_bwd_ref` on the CPU."""
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, bias_tab, key_mask, out, lse, g,
                                        causal=causal, scale=scale, bias=bias)
@@ -334,9 +337,6 @@ def flash_attention_bwd(q, k, v, bias_tab, key_mask, out, lse, g, *, causal: boo
     tab, kmask, dense = _kernel_args(bias_tab, key_mask, bias)
     args = (q, k, v, g, lse, delta, tab, kmask)
     kw = dict(causal=causal, scale=scale, bias=dense)
-    dq, dtab = bwd_dq(*args, **kw)
+    dq, dgrad = bwd_dq(*args, **kw)
     dk, dv = bwd_dkv(*args, **kw)
-    if dense is None:
-        return dq, dk, dv, dtab
-    return dq, dk, dv, bwd_dbias(q, k, v, g, lse, delta, dense, kmask, causal=causal,
-                                 scale=scale)
+    return dq, dk, dv, dgrad

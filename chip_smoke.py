@@ -12,22 +12,23 @@ Phases, each printing its name and seconds:
                    of the main path (and a ragged, key-masked one), with its
                    time, the plain version's, one PyTorch library call's and
                    the least time the card could take (bound; for the flash
-                   kernels in float32 at the 3xTF32 tensor-core rate, with
-                   the float32 FMA rate's bound beside it): the forward K1,
-                   and the backward K2 (dq) with K4 (the rel-pos table's
-                   gradient) fused into its launch, and K3 (dk, dv), as a
-                   whole backward through the autograd.Function against the
-                   plain backward. The training shape (N = 2049: 2048 ids,
-                   EOS appended, the last id dropped for the loss, the start
-                   token prepended; a forgetful key mask padded True for the
-                   start token) and the aligned N = 2048.
+                   kernels in float32 at the 3xTF32 tensor-core rate): the
+                   forward K1, and the backward K2 (dq) with K4 (the rel-pos
+                   table's gradient) fused into its launch, and K3 (dk, dv),
+                   as a whole backward through the autograd.Function against
+                   the plain backward, and K2 + K3 beside SDPA's backward.
+                   The training shape (N = 2049: 2048 ids, EOS appended, the
+                   last id dropped for the loss, the start token prepended; a
+                   forgetful key mask padded True for the start token) and
+                   the aligned N = 2048.
      sass        - HMMA (tensor-core) and FFMA instructions of each flash
-                   kernel in the built SASS (cuobjdump); K1 and K3 must issue
-                   HMMA in float32 and bf16.
-     tf32        - K1's output and K3's dk, dv in float32 (3xTF32) within
-                   1e-5 of a float64 evaluation at the Semantic and Fine
-                   training shapes, the plain-TF32 build shown to fail the
-                   same check; K3's dk, dv the same bits over three runs.
+                   kernel in the built SASS (cuobjdump); K1, K2 and K3 must
+                   issue HMMA in float32 and bf16.
+     tf32        - K1's output, K2's dq (and with the bias its dbias) and
+                   K3's dk, dv in float32 (3xTF32) within 1e-5 of a float64
+                   evaluation at the Semantic and Fine training shapes, the
+                   plain-TF32 build shown to fail the same check; K2's dq and
+                   dbias and K3's dk, dv the same bits over three runs.
   4. scoring     - the flagship SemanticTransformer (dim 1024, depth 6, heads
                    8, vocab 500, 4 residual streams; random weights from
                    --seed) scores a 4 x 2048 batch: logits and loss; then the
@@ -46,8 +47,8 @@ Phases, each printing its name and seconds:
                    depth 6, 8 heads of 64, 4 residual streams, codebook 1024,
                    3 coarse and 5 fine quantizers, 500 semantic tokens; random
                    weights from --seed), whose attention takes a materialised
-                   (H, L, L) bias: K1-K3 read it tile by tile and K5 gives its
-                   gradient. For each: scoring of 4 x 3-s clips (50 Hz: 150
+                   (H, L, L) bias: K1-K3 read it tile by tile and K2's launch
+                   gives its gradient (K5). For each: scoring of 4 x 3-s clips (50 Hz: 150
                    semantic ids and 450 coarse codes; 450 coarse and 750 fine
                    codes), with the card's logits held against the CPU port's
                    on a 1-s clip; KV-cached greedy generation of a 1-s clip
@@ -55,7 +56,7 @@ Phases, each printing its name and seconds:
                    codes of those), each code's logits held against an
                    uncached scoring; training on the 4 x 3-s batch as in 6,
                    the card's gradients held against the CPU port's on a
-                   short clip and the check shown to reject them with K5's
+                   short clip and the check shown to reject them with K2's
                    dbias zeroed in one layer; one step under torch.profiler.
   13. codec       - the SoundStream codec at bench.py's width
                    (AudioLMSoundStream(codebook_size=1024): channels 32,
@@ -74,8 +75,8 @@ Phases, each printing its name and seconds:
                    Coarse and Fine LMs as in 7-12), greedy, batch 1: 50
                    semantic ids -> 150 coarse -> 250 fine codes -> 1 s of
                    audio; the card's decode of the grid against the CPU's.
-The kernels phase also holds the (H, N, M)-bias form of K1-K3 and K5 to the
-plain versions at the Coarse and Fine training shapes (N = 1 + 151 + 1 + 450
+The kernels phase also holds the (H, N, M)-bias form of K1-K3, with K5 in
+K2's launch, to the plain versions at the Coarse and Fine training shapes (N = 1 + 151 + 1 + 450
 = 603 and 1 + 450 + 1 + 749 = 1201: EOS appended, the last code dropped for
 the loss) and at a ragged shape with a key mask; a second kernels phase
 holds the codec's kernels to theirs: K6, the nearest-code search, at the
@@ -128,11 +129,10 @@ HBM_BPS = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # the flash kernels' float32 products run as 3xTF32 on the tensor cores: three
 # TF32 products (495 TFLOP/s) for each, so their float32 bound is taken at a
-# third of that rate; the FMA rate above is K6's and K7's, and the flash
-# rows' earlier bound, printed beside the new one as bound_fma_ms
+# third of that rate; the FMA rate above is K6's and K7's
 TF32X3_FLOPS = 495e12 / 3
-# 3xTF32 (K1, K3) against a float64 evaluation: max |kernel - ref| over max
-# |ref|; plain TF32 (the small terms dropped) reads ~5e-4
+# 3xTF32 (K1, K2, K3) against a float64 evaluation: max |kernel - ref| over
+# max |ref|; plain TF32 (the small terms dropped) reads ~5e-4
 F64_TOL = 1e-5
 TOL = {torch.float32: 2e-3, torch.bfloat16: 3e-2}
 # gradients: the JAX package's tolerance in float32 (dtab also sums by atomics
@@ -153,7 +153,7 @@ TRAIN_N = TRAIN_IDS[1] + 1
 LOGITS_TOL = 2e-3  # float32 card vs CPU: summation order differs, nothing else
 DEV = torch.device("cuda")
 SOURCES = (fa.SOURCE, fa.SOURCE_BWD, vq.SOURCE, la.SOURCE)
-# a test-only build of K1 and K3 with plain TF32 (the 3xTF32 small terms
+# a test-only build of K1-K3 with plain TF32 (the 3xTF32 small terms
 # dropped), which the float64 check must reject
 ONE_PASS = ("MMA_TF32_ONE_PASS",)
 BUILDS = [(src, ()) for src in SOURCES] + [(fa.SOURCE, ONE_PASS), (fa.SOURCE_BWD, ONE_PASS)]
@@ -242,10 +242,14 @@ def build_phase():
 
 def kernel_label(mangled):
     """flash_fwd_kernel<bf16> (or vq_nearest_kernel, not a template) from a
-    kernel's mangled name: its length, the name, I and its template args."""
+    kernel's mangled name: its length, the name, I and its template args;
+    K2's instantiation with K5's cluster sum (a bool argument, true) is
+    flash_bwd_dq_kernel<bf16, sum>."""
     entry = re.search(r"\d([a-z][a-z_]*_kernel)(I?)", mangled)
-    types = f"<{'bf16' if 'bfloat16' in mangled else 'fp32'}>" if entry.group(2) else ""
-    return entry.group(1) + types
+    if not entry.group(2):
+        return entry.group(1)
+    dtype = "bf16" if "bfloat16" in mangled else "fp32"
+    return f"{entry.group(1)}<{dtype}{', sum' if 'Lb1E' in mangled else ''}>"
 
 
 def counts():
@@ -288,7 +292,7 @@ def flash_bound_ms(q, k, v, bias, mask, *, products=2, adds=0, extra_bytes=0):
     lse written once (plus `extra_bytes`), and `products` matrix products
     (plus `adds` additions) over the attended (q, k) pairs, at the
     tensor-core rate of the input type (3xTF32 for float32). Returns
-    (ms, what bounds it, the float32 bound at the FMA rate or None)."""
+    (ms, what bounds it)."""
     b, h, n, d = q.shape
     es = q.element_size()
     nbytes = (q.numel() + k.numel() + v.numel() + q.numel()) * es + bias.numel() * 4 \
@@ -297,15 +301,9 @@ def flash_bound_ms(q, k, v, bias, mask, *, products=2, adds=0, extra_bytes=0):
     # causal: query i attends the valid keys j <= i
     pairs = int(keys.long().cumsum(1).sum()) * h
     flops = (2 * d * products + adds) * pairs
-    fp32 = q.dtype == torch.float32
     t_bytes = nbytes / HBM_BPS * 1e3
-    t_ops = flops / (TF32X3_FLOPS if fp32 else PEAK_FLOPS[q.dtype]) * 1e3
-    fma_ms = max(t_bytes, flops / PEAK_FLOPS[q.dtype] * 1e3) if fp32 else None
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", fma_ms
-
-
-def fma_note(fma_ms):
-    return f" | FMA-rate bound {fma_ms:.4f} ms" if fma_ms is not None else ""
+    t_ops = flops / (TF32X3_FLOPS if q.dtype == torch.float32 else PEAK_FLOPS[q.dtype]) * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def sdpa_mask(q, tab, mask, bias=None):
@@ -348,12 +346,12 @@ def check_flash(q, k, v, tab, mask, label, bias=None):
     ke, ve = sdpa_kv(k, v, h)
     library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q, ke, ve, attn_mask=fmask))
-    bound_ms, bound_by, fma_ms = flash_bound_ms(q, k, v, tab if bias is None else bias, mask)
+    bound_ms, bound_by = flash_bound_ms(q, k, v, tab if bias is None else bias, mask)
     print(f"flash [{label}]: max_abs_err {err:.3e} (tol {tol}) | kernel {ms:.4f} ms | "
           f"plain {plain_ms:.4f} ms | sdpa {library_ms:.4f} ms | bound {bound_ms:.4f} ms "
-          f"({bound_by}){fma_note(fma_ms)}")
+          f"({bound_by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, bound_fma_ms=fma_ms, library_ms=library_ms, at=label)
+                bound_by=bound_by, library_ms=library_ms, at=label)
 
 
 def check_flash_bwd(q, k, v, tab, mask, label, seed):
@@ -416,29 +414,39 @@ def check_flash_bwd(q, k, v, tab, mask, label, seed):
     dq_only_ms = cuda_ms(lambda: fa._bwd_launch("flash_bwd_dq", (dq_out, None), *args,
                                                  causal=True, scale=scale))
     result = {}
-    for name, ms, (bound_ms, bound_by, fma_ms), err in (
+    for name, ms, (bound_ms, bound_by), err in (
             ("dq", dq_ms, dq_bound, errs["dq"]),
             ("dkv", dkv_ms, dkv_bound, max(errs["dk"], errs["dv"])),
             ("dtab", dq_ms, dq_bound, errs["dtab"])):
         result[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                            bound_by=bound_by, bound_fma_ms=fma_ms, library_ms=library_ms,
-                            at=label)
+                            bound_by=bound_by, library_ms=library_ms, at=label)
         print(f"flash bwd {name} [{label}]: max_abs_err {err:.3e} | kernel {ms:.4f} ms | "
-              f"bound {bound_ms:.4f} ms ({bound_by}){fma_note(fma_ms)}")
+              f"bound {bound_ms:.4f} ms ({bound_by})")
     result["dtab"].update(fused_into="flash_bwd_dq", share_ms=dq_ms - dq_only_ms)
     print(f"flash bwd dtab [{label}]: in dq's launch, which takes {dq_only_ms:.4f} ms without "
           f"it: K4's share {dq_ms - dq_only_ms:.4f} ms")
     print(f"flash bwd [{label}]: plain backward {plain_ms:.4f} ms | sdpa fwd+bwd - fwd "
           f"{library_ms:.4f} ms ({fwd_bwd_ms:.4f} - {fwd_ms:.4f}) | tol {tol}")
+    whole_backward(label, dq_ms, dkv_ms, library_ms)
     return result
+
+
+def whole_backward(label, dq_ms, dkv_ms, library_ms):
+    """The port's backward, K2 (with the bias's gradient) + K3, beside SDPA's
+    (which computes dq, dk, dv and the float mask's gradient in one call)."""
+    ms = dq_ms + dkv_ms
+    print(f"flash bwd whole [{label}]: K2 + K3 {dq_ms:.4f} + {dkv_ms:.4f} = {ms:.4f} ms | "
+          f"sdpa backward {library_ms:.4f} ms | {library_ms / ms:.2f}x sdpa's speed")
 
 
 def check_flash_bias_bwd(q, k, v, bias, mask, label, seed):
     """The backward with an (H, N, N) bias through the autograd.Function (K1,
-    then K2, K3 and K5) against the plain backward on the same out, lse and
-    dO; then each launch alone on prepared arguments. plain_ms and
-    library_ms time the whole backward (dq, dk, dv and dbias), as for the
-    table form."""
+    then K2 with K5 in its launch, and K3) against the plain backward on the
+    same out, lse and dO; then each launch alone on prepared arguments.
+    plain_ms and library_ms time the whole backward (dq, dk, dv and dbias),
+    as for the table form. K5 runs in K2's launch: its row carries that
+    launch's time and bound, and the launch is timed once more without
+    dbias for K5's share."""
     b, h, n, d = q.shape
     scale = d ** -0.5
     kw = dict(causal=True, scale=scale)
@@ -479,26 +487,33 @@ def check_flash_bias_bwd(q, k, v, bias, mask, label, seed):
         fwd_ms = cuda_ms(sdpa, iters=5)
     library_ms = fwd_bwd_ms - fwd_ms
     es, rows = q.element_size(), b * h * n * 4
-    timed = (
-        ("dq", lambda: fa.bwd_dq(*args, bias=bias, **kw), errs["dq"],
-         flash_bound_ms(q, k, v, bias, mask, products=3, extra_bytes=q.numel() * es + rows)),
-        ("dkv", lambda: fa.bwd_dkv(*args, bias=bias, **kw), max(errs["dk"], errs["dv"]),
-         flash_bound_ms(q, k, v, bias, mask, products=4,
-                        extra_bytes=2 * k.numel() * es + rows)),
-        # S and dP recomputed, dS summed over the batch, dbias written once
-        ("dbias", lambda: fa.bwd_dbias(q, k, v, g, lse, delta, bias, kmask, **kw),
-         errs["dbias"], flash_bound_ms(q, k, v, bias, mask, products=2, adds=1,
-                                       extra_bytes=rows + bias.numel() * 4)))
+    # dq with dbias in one launch: 3 products, one add per pair for the batch
+    # sum, dq and dbias written
+    dq_ms = cuda_ms(lambda: fa.bwd_dq(*args, bias=bias, **kw))
+    dq_bound = flash_bound_ms(q, k, v, bias, mask, products=3, adds=1,
+                              extra_bytes=q.numel() * es + rows + bias.numel() * 4)
+    dkv_ms = cuda_ms(lambda: fa.bwd_dkv(*args, bias=bias, **kw))
+    dkv_bound = flash_bound_ms(q, k, v, bias, mask, products=4,
+                               extra_bytes=2 * k.numel() * es + rows)
+    # the same launch with the bias read but no dbias output: K2 alone
+    dq_out = torch.empty_like(q)
+    dq_only_ms = cuda_ms(lambda: fa._bwd_launch("flash_bwd_dq", (dq_out, None), *args,
+                                                 bias=bias, **kw))
     result = {}
-    for name, fn, err, (bound_ms, bound_by, fma_ms) in timed:
-        ms = cuda_ms(fn)
+    for name, ms, (bound_ms, bound_by), err in (
+            ("dq", dq_ms, dq_bound, errs["dq"]),
+            ("dkv", dkv_ms, dkv_bound, max(errs["dk"], errs["dv"])),
+            ("dbias", dq_ms, dq_bound, errs["dbias"])):
         result[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                            bound_by=bound_by, bound_fma_ms=fma_ms, library_ms=library_ms,
-                            at=label)
+                            bound_by=bound_by, library_ms=library_ms, at=label)
         print(f"flash bias bwd {name} [{label}]: max_abs_err {err:.3e} | kernel {ms:.4f} ms | "
-              f"bound {bound_ms:.4f} ms ({bound_by}){fma_note(fma_ms)}")
+              f"bound {bound_ms:.4f} ms ({bound_by})")
+    result["dbias"].update(fused_into="flash_bwd_dq", share_ms=dq_ms - dq_only_ms)
+    print(f"flash bias bwd dbias [{label}]: in dq's launch, which takes {dq_only_ms:.4f} ms "
+          f"without it: K5's share {dq_ms - dq_only_ms:.4f} ms")
     print(f"flash bias bwd [{label}]: plain backward {plain_ms:.4f} ms | sdpa fwd+bwd - fwd "
           f"{library_ms:.4f} ms ({fwd_bwd_ms:.4f} - {fwd_ms:.4f}) | tol {tol}")
+    whole_backward(label, dq_ms, dkv_ms, library_ms)
     return result
 
 
@@ -547,8 +562,8 @@ def check_masked_tiles(rng, h, d, n=1000):
 
 
 def check_bias_form(rng, b, h, n, d, label, seed, **mask_kw):
-    """K1-K3 and K5 with an (h, n, n) bias, fp32 and bf16: {"fp32": rows,
-    "bf16": rows}."""
+    """K1-K3, K5 in K2's launch, with an (h, n, n) bias, fp32 and bf16:
+    {"fp32": rows, "bf16": rows}."""
     rows = {}
     for dtype, name in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
         q, k, v, _, mask = flash_inputs(rng, b, h, n, d, dtype, **mask_kw)
@@ -603,33 +618,38 @@ def kernel_phase(seed):
 @phase("sass")
 def sass_phase():
     """HMMA (tensor-core) and FFMA instructions of each flash kernel in the
-    built libraries' SASS (cuobjdump -sass). K1 and K3 must issue HMMA in
-    both dtypes. Returns {"fwd": {dtype: HMMA}, "dkv": {...}}."""
-    result = {"fwd": {}, "dkv": {}}
+    built libraries' SASS (cuobjdump -sass). K1, K2 (both instantiations:
+    with K5's sum and without) and K3 must issue HMMA in both dtypes.
+    Returns {"fwd": {dtype: HMMA}, "dq": {...}, "dkv": {...}}."""
+    kernels = (("fwd", "flash_fwd_kernel"), ("dq", "flash_bwd_dq_kernel"),
+               ("dkv", "flash_bwd_dkv_kernel"))
+    want = {"fwd": ["bf16", "fp32"], "dq": ["bf16", "bf16, sum", "fp32", "fp32, sum"],
+            "dkv": ["bf16", "fp32"]}
+    result = {key: {} for key, _ in kernels}
     for src in (fa.SOURCE, fa.SOURCE_BWD):
         for mangled, ops in sorted(_build.sass_counts(src).items(), key=lambda x: x[0]):
             label = kernel_label(mangled)
             print(f"sass {label}: HMMA {ops['HMMA']} FFMA {ops['FFMA']}")
-            for key, kernel in (("fwd", "flash_fwd_kernel"), ("dkv", "flash_bwd_dkv_kernel")):
+            for key, kernel in kernels:
                 if label.startswith(kernel + "<"):
                     result[key][label[len(kernel) + 1:-1]] = ops["HMMA"]
     for key, by_dtype in result.items():
-        if sorted(by_dtype) != ["bf16", "fp32"] or not all(by_dtype.values()):
+        if sorted(by_dtype) != want[key] or not all(by_dtype.values()):
             raise AssertionError(f"{key}: tensor-core instructions by dtype {by_dtype}")
     return result
 
 
 def attention_f64(q, k, v, tab, bias, mask, g, scale):
     """Causal attention in float64, by the plain versions on float64 inputs:
-    out, lse, Delta and the dk, dv of dO = g (the query heads of each kv head
-    summed)."""
+    out, lse, Delta and the dq, dk, dv and the bias's gradient of dO = g (the
+    query heads of each kv head summed)."""
     q, k, v, g = (a.double() for a in (q, k, v, g))
     tab, bias = (None if a is None else a.double() for a in (tab, bias))
     out, lse = fa.flash_attention_ref(q, k, v, bias_tab=tab, bias=bias, key_mask=mask,
                                       causal=True, scale=scale, return_lse=True)
-    _, dk, dv, _ = fa.flash_attention_bwd_ref(q, k, v, tab, mask, out, lse, g, causal=True,
-                                              scale=scale, bias=bias)
-    return out, lse, (g * out).sum(-1), dk, dv
+    dq, dk, dv, dgrad = fa.flash_attention_bwd_ref(q, k, v, tab, mask, out, lse, g, causal=True,
+                                                   scale=scale, bias=bias)
+    return out, lse, (g * out).sum(-1), dq, dk, dv, dgrad
 
 
 def rel_err(a, ref):
@@ -637,23 +657,32 @@ def rel_err(a, ref):
 
 
 def f64_errors(q, k, v, tab, bias, mask, g, ref, scale):
-    """K1's out, and K3's dk and dv fed the float64 lse and Delta, against the
-    float64 reference: max |kernel - ref| / max |ref| of each."""
-    out64, lse64, delta64, dk64, dv64 = ref
+    """K1's out, and K2's dq (with a bias its dbias) and K3's dk and dv fed
+    the float64 lse and Delta, against the float64 reference: max |kernel -
+    ref| / max |ref| of each (the table's gradient, summed by atomics, is
+    left out)."""
+    out64, lse64, delta64, dq64, dk64, dv64, dgrad64 = ref
     out = fa.flash_attention(q, k, v, bias_tab=tab, bias=bias, key_mask=mask, causal=True)
     kmask = mask.to(torch.int8).contiguous() if mask is not None else None
-    dk, dv = fa.bwd_dkv(q, k, v, g, lse64.float(), delta64.float(), tab, kmask, causal=True,
-                        scale=scale, bias=bias)
-    return {"out": rel_err(out, out64), "dk": rel_err(dk, dk64), "dv": rel_err(dv, dv64)}
+    bargs = (q, k, v, g, lse64.float(), delta64.float(), tab, kmask)
+    dq, dgrad = fa.bwd_dq(*bargs, causal=True, scale=scale, bias=bias)
+    dk, dv = fa.bwd_dkv(*bargs, causal=True, scale=scale, bias=bias)
+    errs = {"out": rel_err(out, out64), "dq": rel_err(dq, dq64), "dk": rel_err(dk, dk64),
+            "dv": rel_err(dv, dv64)}
+    if bias is not None:
+        errs["dbias"] = rel_err(dgrad, dgrad64)
+    return errs
 
 
 @phase("tf32")
 def accuracy_phase(seed):
-    """float32 on the tensor cores: K1's output and K3's dk, dv within
-    F64_TOL of a float64 evaluation at the Semantic training shape (the
-    table) and the Fine one (an (H, N, N) bias), with 15% of the keys
-    forgotten; the same check must reject the 1xTF32 build. Then K3's dk and
-    dv must be the same bits over three runs (fp32 and bf16)."""
+    """float32 on the tensor cores: K1's output, K2's dq (and with the bias
+    its dbias) and K3's dk, dv within F64_TOL of a float64 evaluation at the
+    Semantic training shape (the table) and the Fine one (an (H, N, N) bias,
+    B = 4), with 15% of the keys forgotten; the same check must reject the
+    1xTF32 build. Then K3's dk and dv at the Semantic shape, and K2's dq and
+    dbias at the Fine one, must be the same bits over three runs (fp32 and
+    bf16)."""
     rng = np.random.default_rng(seed + 7)
     h, d = FLAGSHIP["heads"], FLAGSHIP["dim_head"]
     scale = d ** -0.5
@@ -694,6 +723,21 @@ def accuracy_phase(seed):
                 raise AssertionError(f"K3 dk/dv differ between runs ({dtype})")
         print(f"tf32: K3 dk, dv bitwise equal over 3 runs ({str(dtype)[6:]}, "
               f"{TRAIN_IDS[0]}x{h}x{TRAIN_N}x{d})")
+        # K2 with K5: B = 4 is one cluster, so dbias is summed in rank order
+        q, k, v, _, mask = flash_inputs(rng, CLIP_B, h, FINE_N, d, dtype, forget_p=0.15)
+        bias = dense_bias(rng, h, FINE_N)
+        g = torch.from_numpy(rng.standard_normal(q.shape, dtype=np.float32)).to(DEV, dtype)
+        out, lse = fa.flash_attention(q, k, v, bias=bias, key_mask=mask, causal=True,
+                                      return_lse=True)
+        bargs = (q, k, v, g, lse, (g.float() * out.float()).sum(-1), None,
+                 mask.to(torch.int8).contiguous())
+        first = fa.bwd_dq(*bargs, causal=True, scale=scale, bias=bias)
+        for _ in range(2):
+            again = fa.bwd_dq(*bargs, causal=True, scale=scale, bias=bias)
+            if not all(torch.equal(a, b) for a, b in zip(first, again)):
+                raise AssertionError(f"K2 dq/dbias differ between runs ({dtype})")
+        print(f"tf32: K2 dq, dbias bitwise equal over 3 runs ({str(dtype)[6:]}, "
+              f"{CLIP_B}x{h}x{FINE_N}x{d}, (H, N, N) bias)")
     return result
 
 
@@ -854,7 +898,7 @@ def training_phase(seed, cpu_model):
 
     # card vs CPU gradients at 1 x 256, same weights, same forgetful mask
     check_card_grads("training 1x256", SemanticTransformerWrapper, model, (ids[:1, :256],), seed,
-                     ("bwd_dq", "dq"), FLAGSHIP["depth"])
+                     ("bwd_dq", 0, "dq"), FLAGSHIP["depth"])
     profile("training (one 4x2048 step)", lambda: trainer.step(ids), top=12)
     return launched
 
@@ -864,7 +908,8 @@ def check_card_grads(label, wrapper, model, batch, seed, fault, depth):
     the CPU port's on the same weights and forgetful mask, worst leaf by
     relative norm within LEAF_TOL; then the same comparison must reject the
     card's gradients with `fault` = (wrapper function of the flash module,
-    its output) zeroed in one layer's backward."""
+    the index of its output, the output's name) zeroed in one layer's
+    backward."""
     card = small_grads(wrapper, model, batch, seed)
     cpu = small_grads(wrapper, copy.deepcopy(model).cpu(), tuple(a.cpu() for a in batch), seed)
     errs = leaf_errors(card, cpu)
@@ -878,24 +923,24 @@ def check_card_grads(label, wrapper, model, batch, seed, fault, depth):
                              f"{LEAF_TOL}")
     # the comparison must see a wrong layer
     layer = depth // 2
-    faulty = leaf_errors(small_grads(wrapper, model, batch, seed, zero=(fault[0], layer)), cpu)
+    faulty = leaf_errors(small_grads(wrapper, model, batch, seed, zero=(*fault[:2], layer)), cpu)
     bad = max(faulty, key=faulty.get)
-    print(f"{label} with {fault[1]} zeroed in backward call {layer} of {depth}: worst leaf "
+    print(f"{label} with {fault[2]} zeroed in backward call {layer} of {depth}: worst leaf "
           f"{faulty[bad]:.3e} in {bad}, {sum(e > LEAF_TOL for e in faulty.values())} leaves "
           f"over the limit: rejected")
     if faulty[bad] <= LEAF_TOL:
         raise AssertionError(f"{label}: the card vs CPU gradient check let a zeroed "
-                             f"{fault[1]} through")
+                             f"{fault[2]} through")
 
 
 def small_grads(wrapper, model, batch, seed, zero=None):
     """{name: gradient on the CPU} of the train loss of `batch` under the
-    forgetful mask drawn from `seed`; with zero = (name, call), the first
-    output of the flash module's function `name` (bwd_dq or bwd_dbias) in
-    that backward call (1 = the last layer) is zeroed."""
+    forgetful mask drawn from `seed`; with zero = (name, index, call), output
+    `index` of the flash module's function `name` (bwd_dq: 0 dq, 1 the bias's
+    gradient) in that backward call (1 = the last layer) is zeroed."""
     calls = [0]
     if zero is not None:
-        name, call = zero
+        name, index, call = zero
         real = getattr(fa, name)
 
         def faulty(*args, **kw):
@@ -903,9 +948,7 @@ def small_grads(wrapper, model, batch, seed, zero=None):
             calls[0] += 1
             if calls[0] != call:
                 return out
-            if isinstance(out, tuple):
-                return (torch.zeros_like(out[0]), *out[1:])
-            return torch.zeros_like(out)
+            return tuple(torch.zeros_like(o) if i == index else o for i, o in enumerate(out))
 
         setattr(fa, name, faulty)
     try:
@@ -1067,7 +1110,8 @@ def fine_generation(seed, model, coarse_grid):
 def acoustic_training(kind, seed, cpu_model):
     """The train step on 4 x 3-s clips: warm step, five timed steps, then
     the card's gradients against the CPU port's on a 1-s clip and the check
-    shown to reject K5's dbias zeroed in one layer, then one profiled step."""
+    shown to reject K2's dbias (K5) zeroed in one layer, then one profiled
+    step."""
     wrapper = LMS[kind][2]
     model = copy.deepcopy(cpu_model).train()
     trainer = TransformerTrainStep(wrapper(transformer=model), device=DEV)
@@ -1082,6 +1126,7 @@ def acoustic_training(kind, seed, cpu_model):
     step_ms = (time.perf_counter() - t0) / steps * 1e3
     launched = counts()
     peak = torch.cuda.max_memory_allocated()
+    # K5 runs inside each K2 launch: the backward is K2 and K3, depth times each
     want = dict(launches=depth * steps, launches_dq=depth * steps, launches_dkv=depth * steps,
                 launches_dtab=0, launches_dbias=depth * steps, launches_vq=0, launches_local=0)
     if launched != want:
@@ -1096,7 +1141,7 @@ def acoustic_training(kind, seed, cpu_model):
           + f" | {step_ms:.2f} ms per step ({tokens / step_ms * 1e3:.0f} tokens/s) | "
           f"max_memory_allocated {peak / 2**30:.3f} GiB | launches {launched}")
     small = acoustic_batch(kind, np.random.default_rng(seed + 10), 1, 1)
-    check_card_grads(f"{kind} training 1x1s", wrapper, model, small, seed, ("bwd_dbias", "dbias"),
+    check_card_grads(f"{kind} training 1x1s", wrapper, model, small, seed, ("bwd_dq", 1, "dbias"),
                      depth)
     profile(f"{kind} training (one {CLIP_B}x{CLIP_S}s step)", lambda: trainer.step(*batch),
             top=12)
@@ -1509,16 +1554,18 @@ def audiolm_phase(seed):
     return launched
 
 
+# the outputs of each row's kernel in the tf32 phase's float64 check
+F64_OUTPUTS = {"fwd": ("out",), "dq": ("dq",), "dkv": ("dk", "dv"), "dbias": ("dbias",)}
 # the TPU kernel each port replaces, by line in the JAX package
 KERNELS = [
     ("fwd", "flash_fwd", fa.SOURCE, "ops/pallas/flash_attention.py:34", "launches"),
     ("dq", "flash_bwd_dq", fa.SOURCE_BWD, "ops/pallas/flash_attention.py:179", "launches_dq"),
     ("dkv", "flash_bwd_dkv", fa.SOURCE_BWD, "ops/pallas/flash_attention.py:233",
      "launches_dkv"),
-    # K4 is fused into K2's launch; its row carries that launch's numbers
+    # K4 and K5 are fused into K2's launch; their rows carry that launch's numbers
     ("dtab", "flash_bwd_dq:dtab", fa.SOURCE_BWD, "ops/pallas/flash_attention.py:344",
      "launches_dtab"),
-    ("dbias", "flash_bwd_dbias", fa.SOURCE_BWD, "ops/pallas/flash_attention.py:293",
+    ("dbias", "flash_bwd_dq:dbias", fa.SOURCE_BWD, "ops/pallas/flash_attention.py:293",
      "launches_dbias"),
     ("vq", "vq_nearest", vq.SOURCE, "ops/pallas/vq.py:21", "launches_vq"),
     ("local", "local_attn_fwd", la.SOURCE, "ops/pallas/local_attention.py:26", "launches_local"),
@@ -1577,10 +1624,11 @@ def main():
             if key in ("fwd", "dq", "dkv"):
                 numbers["bf16"] = dict(numbers["bf16"], bias_form=bf16["bias"][key],
                                        bias_form_coarse=timings["coarse"]["bf16"][key])
-        if key in ("fwd", "dkv"):
+        if key in ("fwd", "dq", "dkv"):
             numbers["hmma"] = timings["sass"][key]
-            numbers["f64_rel_err"] = {label: {kind: {x: e for x, e in errs.items()
-                                                     if (x == "out") == (key == "fwd")}
+        if key in ("fwd", "dq", "dkv", "dbias"):
+            outputs = F64_OUTPUTS[key]
+            numbers["f64_rel_err"] = {label: {kind: {x: e for x, e in errs.items() if x in outputs}
                                               for kind, errs in by_kind.items()}
                                       for label, by_kind in timings["tf32"].items()}
         rows.append(dict(name=name, route="cuda", source=f"audiolm_pytorch_tpu_torch/csrc/{source}",

@@ -1,10 +1,11 @@
 """Tests of the port that need an NVIDIA GPU: the CUDA kernels (flash
-forward K1, backward K2-K4, and with an (H, N, M) bias K1-K3 and the bias
-gradient K5; the codec's nearest-code search K6 and local attention K7)
-against their plain PyTorch versions; K1 and K3 on the tensor cores (over
-MQA groups of 1 to 16, float32 within 1e-5 of float64 where a plain-TF32
-build fails, rows whose first key tile or every key is masked, K3's bits
-the same every run, HMMA in their SASS); the
+forward K1, backward K2 (with the table's gradient K4, or an (H, N, M)
+bias's K5, in its launch) and K3; the codec's nearest-code search K6 and
+local attention K7) against their plain PyTorch versions; K1, K2 and K3 on
+the tensor cores (over MQA groups of 1 to 16 and K2 over batch sizes 1 to
+9, float32 within 1e-5 of float64 where a plain-TF32 build fails, rows
+whose first key tile or every key is masked, K3's dk, dv and K2's dq and
+dbias the same bits every run, HMMA in their SASS); the
 Semantic, Coarse and Fine LMs on the card against the same weights on the
 CPU, in scoring and in train steps, and a small codec's round trip on the
 card against the CPU. They skip where there is no card.
@@ -261,7 +262,7 @@ def _acoustic(kind, seed=8):
 @pytest.mark.parametrize("kind", ["coarse", "fine"])
 def test_acoustic_train_step_card_matches_cpu(cuda, monkeypatch, kind):
     model, wrapper, batch = _acoustic(kind)
-    # 2 layers x 2 steps of each of K2, K3 and K5; no K4 (no table)
+    # 2 layers x 2 steps of K2 (each carrying K5) and K3; no K4 (no table)
     _card_vs_cpu_train_steps(monkeypatch, _randomize_dynamic(model), wrapper, batch,
                              lambda steps: (2 * steps, 2 * steps, 0, 2 * steps))
 
@@ -290,7 +291,7 @@ def test_flash_bias_kernels_match_plain_version(cuda, n, causal, mqa, masked, dt
     grads = fa.flash_attention_bwd(q, k, v, None, mask, out, lse, g, bias=bias, causal=causal,
                                    scale=64 ** -0.5)
     torch.cuda.synchronize()
-    # K2, K3 and K5 once each, no K4
+    # K2 and K3 once each, K2 carrying K5; no K4
     assert _counts() + (fa.launches_dbias,) == (before[0] + 1, before[1] + 1, before[2],
                                                 before[3] + 1)
     ref = fa.flash_attention_bwd_ref(q, k, v, None, mask, out, lse, g, bias=bias,
@@ -309,7 +310,7 @@ def test_per_batch_bias_raises_on_a_cuda_tensor(cuda):
 
 @pytest.mark.parametrize("kind", ["coarse", "fine"])
 def test_bias_gradient_reaches_the_learned_bias_on_the_card(cuda, kind):
-    # K5's dbias flows through torch.where (and the Fine LM's gather) into the
+    # K2's dbias (K5) flows through torch.where (and the Fine LM's gather) into the
     # learned parts of the bias, as on the CPU
     model, wrapper, batch = _acoustic(kind, seed=15)
     model = _randomize_dynamic(model)
@@ -581,7 +582,11 @@ def test_k1_and_k3_with_whole_key_tiles_masked(cuda, causal, h, hk, form, dtype,
                                    scale=64 ** -0.5)
     ref = fa.flash_attention_bwd_ref(q, k, v, tab, mask, out, lse, g, bias=bias, causal=causal,
                                      scale=64 ** -0.5)
-    for name, a, r in zip(("dq", "dk", "dv"), grads, ref):
+    # and the bias's gradient from K2's launch (K4 or K5); a row with no key has dS = 0
+    for name, a, r in zip(("dq", "dk", "dv", "dbias"), grads, ref):
+        if r is None:
+            assert a is None
+            continue
         torch.testing.assert_close(a.float(), r.float(), rtol=rtol, atol=atol, msg=name)
 
 
@@ -615,3 +620,149 @@ def test_wrapper_raises_on_a_misaligned_cuda_tensor(cuda):
     kv = torch.zeros(1, 1, 16, 64, device=cuda)
     with pytest.raises(ValueError, match="aligned"):
         fa.flash_attention(q, kv, kv, causal=True)
+
+
+# K2 on the tensor cores, with K4 (table) or K5 (bias) in its launch: MQA
+# groups 1 to 16 (GROUPS); batch sizes 1, 3, 4 and 9, which make K5's
+# cluster of batch rows 1, 3 and 4 blocks, and at 9 three clusters of 3 whose
+# partial tiles meet by atomics; N != M without causality; a key mask.
+K2_CASES = ([(h, hk, b, n, m, causal, True, "bias") for h, hk in GROUPS for b in (1, 3, 4, 9)
+             for n, m, causal in ((130, 130, True), (37, 70, False))]
+            + [(h, hk, b, 48, 48, True, True, "table") for h, hk in GROUPS for b in (1, 4)]
+            + [(h, hk, 3, 37, 70, False, True, "none") for h, hk in GROUPS])
+
+
+def _k2_inputs(h, hk, b, n, m, masked, form, *, seed=30):
+    rng = np.random.default_rng(seed)
+    q, k, v, g = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                  for s in [(b, h, n, 64), (b, hk, m, 64), (b, hk, m, 64), (b, h, n, 64)])
+    tab = bias = mask = None
+    if form == "table":
+        tab = torch.from_numpy((0.5 * rng.normal(size=(2 * n - 1, h))).astype(np.float32))
+    if form == "bias":
+        bias = torch.from_numpy((0.5 * rng.normal(size=(h, n, m))).astype(np.float32))
+    if masked:
+        mask = torch.ones(b, m, dtype=torch.bool)
+        mask[-1, (2 * m) // 3:] = False
+        mask[0, 3:7] = False
+    return q, k, v, g, tab, bias, mask
+
+
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 1e-2, 1e-3),
+                                             (torch.bfloat16, 3e-2, 3e-2)])
+@pytest.mark.parametrize("h,hk,b,n,m,causal,masked,form", K2_CASES)
+def test_k2_matches_plain_version(cuda, h, hk, b, n, m, causal, masked, form, dtype, rtol, atol):
+    q, k, v, g, tab, bias, mask = _to(cuda, dtype, *_k2_inputs(h, hk, b, n, m, masked, form))
+    out, lse = fa.flash_attention(q, k, v, bias_tab=tab, bias=bias, key_mask=mask, causal=causal,
+                                  return_lse=True)
+    before = _counts() + (fa.launches_dbias,)
+    grads = fa.flash_attention_bwd(q, k, v, tab, mask, out, lse, g, bias=bias, causal=causal,
+                                   scale=64 ** -0.5)
+    torch.cuda.synchronize()
+    # two launches, K2 (carrying K4 or K5) and K3
+    assert _counts() + (fa.launches_dbias,) == (before[0] + 1, before[1] + 1,
+                                                before[2] + (form == "table"),
+                                                before[3] + (form == "bias"))
+    ref = fa.flash_attention_bwd_ref(q, k, v, tab, mask, out, lse, g, bias=bias, causal=causal,
+                                     scale=64 ** -0.5)
+    for name, a, r in zip(("dq", "dk", "dv", "dbias"), grads, ref):
+        if r is None:
+            assert a is None
+            continue
+        assert a.dtype == r.dtype and a.shape == r.shape, name
+        torch.testing.assert_close(a.float(), r.float(), rtol=rtol, atol=atol, msg=name)
+
+
+def _k2_f64_errors(case, cuda):
+    """max |kernel - float64| / max |float64| of K2's dq and, with a bias,
+    its dbias (fed the float64 lse and Delta), in float32."""
+    h, hk, b, n, m, causal, masked, form = case
+    q, k, v, g, tab, bias, mask = _to(cuda, torch.float32,
+                                      *_k2_inputs(h, hk, b, n, m, masked, form, seed=31))
+    q64, k64, v64, g64 = (a.double() for a in (q, k, v, g))
+    tab64, bias64 = (None if a is None else a.double() for a in (tab, bias))
+    out64, lse64 = fa.flash_attention_ref(q64, k64, v64, bias_tab=tab64, bias=bias64,
+                                          key_mask=mask, causal=causal, scale=0.125,
+                                          return_lse=True)
+    dq64, _, _, dgrad64 = fa.flash_attention_bwd_ref(q64, k64, v64, tab64, mask, out64, lse64,
+                                                     g64, causal=causal, scale=0.125,
+                                                     bias=bias64)
+    delta64 = (g64 * out64).sum(-1)
+    kmask = None if mask is None else mask.to(torch.int8)
+    dq, dgrad = fa.bwd_dq(q, k, v, g, lse64.float(), delta64.float(), tab, kmask, causal=causal,
+                          scale=0.125, bias=bias)
+    errs = {"dq": float((dq.double() - dq64).abs().max() / dq64.abs().max())}
+    if bias is not None:
+        errs["dbias"] = float((dgrad.double() - dgrad64).abs().max() / dgrad64.abs().max())
+    return errs
+
+
+K2_F64_CASES = [(8, 1, 4, 130, 130, True, True, "bias"), (8, 2, 2, 200, 200, True, True, "table"),
+                (8, 8, 3, 37, 70, False, True, "bias"), (16, 1, 9, 100, 100, True, True, "bias")]
+
+
+@pytest.mark.parametrize("case", K2_F64_CASES)
+def test_fp32_k2_holds_float64_to_1e5(cuda, case):
+    # 3xTF32 keeps dq and dbias near float32 accuracy
+    errs = _k2_f64_errors(case, cuda)
+    assert max(errs.values()) <= 1e-5, errs
+
+
+@pytest.mark.parametrize("case", K2_F64_CASES[:2])
+def test_plain_tf32_build_fails_the_k2_float64_check(cuda, case):
+    # the same kernel built with the small terms dropped (plain TF32)
+    with fa.built_with(("MMA_TF32_ONE_PASS",)):
+        errs = _k2_f64_errors(case, cuda)
+    assert min(errs.values()) > 1e-5, errs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["bias", "table", "none"])
+def test_k2_gives_the_same_bits_every_run(cuda, form, dtype):
+    # dq in a fixed order; with B = 4 K5's cluster holds the batch, so dbias
+    # is summed in rank order with no atomics (K4's dtab adds by atomics)
+    q, k, v, g, tab, bias, mask = _to(cuda, dtype, *_k2_inputs(8, 1, 4, 300, 300, True, form))
+    out, lse = fa.flash_attention(q, k, v, bias_tab=tab, bias=bias, key_mask=mask, causal=True,
+                                  return_lse=True)
+    args = (q, k, v, g, lse, (g.float() * out.float()).sum(-1), tab, mask.to(torch.int8))
+    dq, dgrad = fa.bwd_dq(*args, causal=True, scale=0.125, bias=bias)
+    for _ in range(3):
+        again, again_grad = fa.bwd_dq(*args, causal=True, scale=0.125, bias=bias)
+        assert torch.equal(dq, again)
+        if bias is not None:
+            assert torch.equal(dgrad, again_grad)
+
+
+def test_k2_issues_tensor_core_instructions(cuda):
+    found = {}
+    for mangled, ops in _build.sass_counts(fa.SOURCE_BWD).items():
+        if "flash_bwd_dq_kernel" in mangled:
+            # two instantiations a dtype: with K5's cluster sum and without
+            key = ("bf16" if "bfloat16" in mangled else "fp32", "Lb1E" in mangled)
+            found[key] = ops["HMMA"]
+    assert len(found) == 4 and all(found.values()), found
+
+
+def _all_outputs(q, k, v, g, tab, bias, mask):
+    """K1's out and lse, K2's dq and bias gradient, K3's dk and dv."""
+    out, lse = fa.flash_attention(q, k, v, bias_tab=tab, bias=bias, key_mask=mask, causal=True,
+                                  return_lse=True)
+    grads = fa.flash_attention_bwd(q, k, v, tab, mask, out, lse, g, bias=bias, causal=True,
+                                   scale=0.125)
+    return (out, lse, *grads)
+
+
+@pytest.mark.parametrize("form", ["bias", "table"])
+def test_integer_tf32_rounding_gives_the_conversions_bits(cuda, form):
+    # tc::to_tf32 rounds by integer ops; the build with the conversion
+    # instruction (cvt.rna.tf32.f32) must give the same float32 bits
+    inputs = _to(cuda, torch.float32, *_k2_inputs(8, 1, 4, 300, 300, True, form))
+    ours = _all_outputs(*inputs)
+    with fa.built_with(("MMA_TF32_CVT",)):
+        theirs = _all_outputs(*inputs)
+    # dtab adds by atomics in no fixed order: compare it to the plain version's tolerance
+    for name, a, r in zip(("out", "lse", "dq", "dk", "dv", "dgrad"), ours, theirs):
+        if name == "dgrad" and form == "table":
+            torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-6, msg=name)
+        else:
+            assert torch.equal(a, r), name
