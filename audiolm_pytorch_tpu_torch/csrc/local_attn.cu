@@ -6,10 +6,11 @@
 // Replaces the TPU kernel of the JAX package, ops/pallas/local_attention.py
 // `_kernel` (launched by `_forward`, entry `local_attention_pallas`), and
 // computes the function of the model's path, ops/attention.py
-// `local_attention`: a disallowed (query, key) pair scores -1e9 before one
-// softmax over all 2w key slots, window 0 looks back on zero keys and
-// values that are always disallowed, and the keys past T (the padding to a
-// multiple of w) are zero and disallowed. So a query whose every key is
+// `local_attention`: a disallowed (query, key) pair scores -1e9 (the bias is
+// added before the mask, so a disallowed pair scores -1e9 whatever its bias)
+// before one softmax over all 2w key slots, window 0 looks back on zero keys
+// and values that are always disallowed, and the keys past T (the padding to
+// a multiple of w) are zero and disallowed. So a query whose every key is
 // masked gets the mean of the 2w value slots, as there; the Pallas kernel
 // instead looks back on window 0 itself in window 0 (`idx_prev`), which
 // differs in that case only.
@@ -17,223 +18,275 @@
 // What bounds it. At the codec's shape (8 clips of 2 s: B = 8, H = 8,
 // T = 100 at 50 Hz, D = 64, w = 128, so one window) the attended pairs are
 // B*H*T*(T+1)/2 = 323,200, and the two products 4*D operations each: 83
-// MFLOP, 1.2 us at the 67 TFLOP/s float32 peak, against 3.3 MB of q, k, v
-// and out, 1.0 us at 3.35 TB/s (worked out from the shapes, not measured).
-// Either way a few microseconds: the launch and the grid's single wave set
-// the time at this size.
+// MFLOP, 0.5 us as 3xTF32 (three TF32 products at 495 TFLOP/s), 0.08 us in
+// bf16, against 3.3 MB of q, k, v and out in float32, 1.0 us at 3.35 TB/s:
+// bound by the bytes, and at this size the launch and the grid's single wave
+// set the time (worked out from the shapes). At 10 s (T = 500, 4 windows)
+// the pairs are 16x as many. The earlier design took the products as float32
+// FMAs on the CUDA cores (bf16 too), over all 2w slots in every block, and
+// its wrapper copied q, k and v to contiguous memory on every call.
 //
-// Design. Right and simple first, in the form of the flash forward of this
-// package (csrc/flash_fwd.cu): one block of 256 threads per (b*h, 64-query
-// tile), the tile's queries in shared memory as float32, scaled; the 2w key
-// slots of its window (w in {64, 128}: 2 or 4 tiles of 64) loaded tile by
-// tile with an online softmax in float32, each thread a 4x4 patch of the
-// 64x64 score tile and a 4x(D/16) patch of the output; float32 FMAs on the
-// CUDA cores (no tensor cores yet). Every tile takes all 2w slots, the
-// causally disallowed ones included, so the fully masked rows come out as
-// the model's path gives them; that costs 4/3 of the causal band's work.
-// The bias tile is read into the P tile's shared memory, each thread
-// reading its own elements before it overwrites them with p.
+// Design: the flash forward of this package (csrc/flash_fwd.cu, K1) with
+// K7's masking rule, on the tensor cores through csrc/mma.cuh (bf16
+// m16n8k16; float32 as 3xTF32 on m16n8k8). One block of 4 warps per (b*h,
+// 64-query tile), each warp 16 query rows whose Q fragments stay in
+// registers; the 64-slot key tiles of the window's 2w slots double-buffered
+// by cp.async (K, V and the bias's 64x64 block), S = Q K^T and O += P V as
+// mma products with the online softmax on the accumulators (each tile's
+// P V from zero and added in float32, exp as 2^((x - m) log2 e), exactly 1
+// at x = m). Only the live key tiles are visited: a tile of slots in which
+// no pair of the query tile is allowed (window 0's look-back, slots past
+// j0 + 63 + w, keys at or past T) contributes exp(-1e9 - m) = 0 in float32
+// to every row that has an allowed key, so skipping it is exact; at the
+// codec's 2 s shape that skips 5 of every 8 (block, tile) steps, at 10 s 8
+// of 32. A row with no allowed key at all (its running maximum is -1e9) gets
+// the model path's answer explicitly: the mean of the 2w value slots, zeros
+// for window -1 and the padding, computed only in a block that holds such a
+// row. q, k, v and out are read and written through their (batch, head,
+// time) strides, so the codec's transposed (B, N, H, D) views need no copy.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "mma.cuh"
+
 namespace {
 
 constexpr int BQ = 64;             // queries per block
 constexpr int BK = 64;             // key slots per tile
-constexpr int NT = 256;            // threads: a 16x16 grid of (ty, tx)
-constexpr int PITCH = BQ + 1;      // transposed tiles, padded against bank conflicts
+constexpr int NT = 128;            // 4 warps of 16 query rows
+constexpr int TPITCH = BK + 8;     // the bias block's pitch: float2 reads without conflicts
 constexpr float MASKED = -1e9f;    // the model path's score of a disallowed pair
+
+// element strides of a (B, H, T, D) tensor whose last dimension is contiguous
+struct Strides {
+  long long b, h, t;
+};
+
+// Shared memory: two stages of (K tile, V tile, key flags [BK]), then with a
+// bias two of its 64x64 blocks. Q is staged, before the loop, in stage 1's K
+// tile; after the loop stage 0 holds the mean of the value slots.
+template <typename T, int D>
+struct Smem {
+  static constexpr int P = tc::pitch<T, D>();
+  static constexpr size_t tile = (size_t)BK * P * sizeof(T);
+  static constexpr size_t stage = 2 * tile + BK * sizeof(float);
+  static constexpr size_t base = 2 * stage;
+  static constexpr size_t dense = 2 * (size_t)BQ * TPITCH * sizeof(float);
+  static_assert(tile % 16 == 0 && stage % 16 == 0, "16-byte aligned regions");
+  static_assert(2 * D * sizeof(float) <= stage, "the value means fit in a stage");
+};
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-template <int D>
-constexpr size_t smem_bytes() {
-  // Qs [D][PITCH], Ks [D][PITCH], Vs [BK][D], Ps [BK][PITCH], key flags [BK]
-  return sizeof(float) * (2 * D * PITCH + BK * D + BK * PITCH + BK);
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
 local_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                   const float* __restrict__ bias, const int8_t* __restrict__ kmask,
-                  T* __restrict__ out, int heads, int t, int w, float scale) {
-  static_assert(D % 16 == 0, "D must be a multiple of 16");
-  constexpr int DC = D / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;            // q^T * scale
-  float* Ks = Qs + D * PITCH;  // k^T
-  float* Vs = Ks + D * PITCH;  // v, row-major
-  float* Ps = Vs + BK * D;     // p^T; before p, the bias tile
-  float* Fs = Ps + BK * PITCH; // 1 where the key slot is a real, unmasked key
+                  T* __restrict__ out, Strides sq, Strides sk, Strides sv, Strides so,
+                  int heads, int t, int w, float scale) {
+  using S = Smem<T, D>;
+  constexpr int P = S::P;
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto Ks = [&](int s) { return reinterpret_cast<T*>(smem + s * S::stage); };
+  auto Vs = [&](int s) { return reinterpret_cast<T*>(smem + s * S::stage + S::tile); };
+  auto Fs = [&](int s) {  // 0 where the slot holds a real, unmasked key
+    return reinterpret_cast<float*>(smem + s * S::stage + 2 * S::tile);
+  };
+  auto Ts = [&](int s) { return reinterpret_cast<float*>(smem + S::base) + s * BQ * TPITCH; };
 
-  const int bh = blockIdx.y;
-  const int h = bh % heads, b = bh / heads;
-  const int q0 = blockIdx.x * BQ;   // first query of the tile
+  const int bh = blockIdx.x, h = bh % heads, b = bh / heads;
+  const int q0 = blockIdx.y * BQ;   // first query of the tile
   const int win = q0 / w;           // its window (w is a multiple of BQ)
   const int j0 = q0 - win * w;      // the tile's first query within the window
   const int kbase = win * w - w;    // position of key slot 0: window win - 1
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const T* qb = q + (size_t)bh * t * D;
-  const T* kb = k + (size_t)bh * t * D;
-  const T* vb = v + (size_t)bh * t * D;
+  const int tid = threadIdx.x, warp = tid / 32, g = (tid % 32) / 4, t4 = tid % 4;
+  const T* qb = q + b * sq.b + h * sq.h;
+  const T* kb = k + b * sk.b + h * sk.h;
+  const T* vb = v + b * sv.b + h * sv.h;
   const float* biash = bias != nullptr ? bias + (size_t)h * w * 2 * w : nullptr;
 
-  for (int i = tid; i < BQ * D; i += NT) {
-    const int r = i / D, c = i % D;
-    Qs[c * PITCH + r] = q0 + r < t ? to_f(qb[(size_t)(q0 + r) * D + c]) * scale : 0.f;
-  }
+  // the live slots: none of window 0's look-back, none past the tile's last
+  // allowed slot j0 + BQ - 1 + w, none at or past key T
+  const int s_lo = win == 0 ? w : 0;
+  const int s_hi = min(j0 + BQ - 1 + w, t - 1 - kbase);
+  const int ntiles = s_hi >= s_lo ? (s_hi - s_lo) / BK + 1 : 0;
 
-  float m_i[4], l_i[4], acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_i[i] = -INFINITY;
-    l_i[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int s0 = 0; s0 < 2 * w; s0 += BK) {
-    __syncthreads();  // the previous tile's Ks/Vs/Ps/Fs are consumed
-    for (int i = tid; i < BK * D; i += NT) {
-      const int r = i / D, c = i % D;
-      const int kp = kbase + s0 + r;
-      const bool in = kp >= 0 && kp < t;
-      Ks[c * PITCH + r] = in ? to_f(kb[(size_t)kp * D + c]) : 0.f;
-      Vs[r * D + c] = in ? to_f(vb[(size_t)kp * D + c]) : 0.f;
+  // tile `it` (slots s_lo + BK it ...) into stage it & 1: K, V and the bias
+  // block by cp.async (one group); this thread's key flag into a register,
+  // which `stash` stores once this tile's compute has hidden its latency
+  float flag_r = 0.f;
+  auto issue = [&](int it) {
+    const int s0 = s_lo + it * BK, s = it & 1, kp0 = kbase + s0;  // kp0 >= 0
+    tc::cp_tile<T, D, BK, NT>(Ks(s), P, kb, kp0, t, sk.t);
+    tc::cp_tile<T, D, BK, NT>(Vs(s), P, vb, kp0, t, sv.t);
+    if (biash != nullptr) tc::cp_block_f32<BQ, BK, NT>(Ts(s), TPITCH, biash, j0, s0, w, 2 * w);
+    tc::cp_async_commit();
+    if (tid < BK) {
+      const int kp = kp0 + tid;
+      flag_r = kp < t && (kmask == nullptr || kmask[(size_t)b * t + kp] != 0) ? 0.f : 1.f;
     }
-    if (biash != nullptr) {
-      for (int i = tid; i < BQ * BK; i += NT) {
-        const int r = i / BK, c = i % BK;
-        Ps[c * PITCH + r] = biash[(size_t)(j0 + r) * 2 * w + s0 + c];
+  };
+  auto stash = [&](int it) {
+    if (tid < BK) Fs(it & 1)[tid] = flag_r;
+  };
+
+  // Q (in stage 1's K tile) with tile 0, then Q's fragments into registers
+  tc::cp_tile<T, D, BQ, NT>(Ks(1), P, qb, q0, t, sq.t);
+  if (ntiles > 0) {
+    issue(0);
+    stash(0);
+  } else {
+    tc::cp_async_commit();
+  }
+  tc::cp_async_wait_all();
+  __syncthreads();
+  tc::ARegs<T, D> qf;
+  qf.load(Ks(1) + warp * 16 * P, P);
+  __syncthreads();  // stage 1 is free for tile 1
+
+  const int rl[2] = {warp * 16 + g, warp * 16 + g + 8};  // this thread's rows in the tile
+  float m_i[2] = {tc::NEG, tc::NEG}, l_i[2] = {0.f, 0.f};
+  float o[D / 8][4];
+  tc::zero(o);
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it & 1, s0 = s_lo + it * BK;
+    if (it + 1 < ntiles) issue(it + 1);
+
+    float sc[BK / 8][4];
+    tc::zero(sc);
+    tc::gemm_nk<T, D, BK / 8>(sc, qf, Ks(s), P);
+
+    const float* fs = Fs(s);
+    const float* ts = Ts(s);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const int c = 8 * j + 2 * t4;
+      const float2 f = *reinterpret_cast<const float2*>(fs + c);
+#pragma unroll
+      for (int ri = 0; ri < 2; ++ri) {
+        float2 bb = make_float2(0.f, 0.f);
+        if (biash != nullptr) bb = *reinterpret_cast<const float2*>(ts + rl[ri] * TPITCH + c);
+        // slot s0 + c is allowed for query j0 + r of the window iff s0 + c <= j0 + r + w
+        const int last = j0 + rl[ri] + w - s0;
+        const float x0 = f.x == 0.f && c <= last ? fmaf(sc[j][2 * ri], scale, bb.x) : MASKED;
+        const float x1 = f.y == 0.f && c + 1 <= last ? fmaf(sc[j][2 * ri + 1], scale, bb.y)
+                                                     : MASKED;
+        sc[j][2 * ri] = x0;
+        sc[j][2 * ri + 1] = x1;
+        mx[ri] = fmaxf(mx[ri], fmaxf(x0, x1));
       }
     }
-    for (int i = tid; i < BK; i += NT) {
-      const int kp = kbase + s0 + i;
-      Fs[i] = kp >= 0 && kp < t && (kmask == nullptr || kmask[(size_t)b * t + kp] != 0)
-                  ? 1.f : 0.f;
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri) {
+      mx[ri] = fmaxf(mx[ri], __shfl_xor_sync(0xffffffffu, mx[ri], 1));
+      mx[ri] = fmaxf(mx[ri], __shfl_xor_sync(0xffffffffu, mx[ri], 2));
+      const float m_new = fmaxf(m_i[ri], mx[ri]);
+      alpha[ri] = tc::exp_rel(m_i[ri], m_new);
+      m_i[ri] = m_new;
     }
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = tc::exp_rel(sc[j][e], m_i[e / 2]);
+        sc[j][e] = p;
+        rs[e / 2] += p;
+      }
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri) {
+      rs[ri] += __shfl_xor_sync(0xffffffffu, rs[ri], 1);
+      rs[ri] += __shfl_xor_sync(0xffffffffu, rs[ri], 2);
+      l_i[ri] = l_i[ri] * alpha[ri] + rs[ri];
+    }
+    tc::add_tile<T, D, BK / 8>(o, sc, Vs(s), P, alpha);  // O = O * alpha + P V
+
+    if (it + 1 < ntiles) {
+      stash(it + 1);
+      tc::cp_async_wait_all();
+    }
+    __syncthreads();  // this stage is consumed and the next one has landed
+  }
+
+  // rows with no allowed key (every score they saw was -1e9) take the mean
+  // of the 2w value slots, as the model path's softmax over -1e9 everywhere
+  bool empty[2];
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) empty[ri] = q0 + rl[ri] < t && !(m_i[ri] > MASKED);
+  float* vmean = reinterpret_cast<float*>(smem);  // stage 0: [2][D] partial sums, then [D]
+  if (__syncthreads_or(empty[0] || empty[1])) {
+    const int col = tid % D, part = tid / D;  // NT = 2 D: two halves of the slots
+    float sum = 0.f;
+    for (int sl = part * w; sl < part * w + w; ++sl) {
+      const int kp = kbase + sl;
+      if (kp >= 0 && kp < t) sum += to_f(vb[kp * sv.t + col]);
+    }
+    vmean[part * D + col] = sum;
     __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float a[4], bk[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Qs[d * PITCH + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bk[j] = Ks[d * PITCH + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bk[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        float x = s[i][j];
-        if (biash != nullptr) x += Ps[c * PITCH + r];  // this thread's own element
-        // slot s0 + c is window win - 1 + (s0 + c) / w; causal in the band
-        const bool allowed = Fs[c] != 0.f && s0 + c <= j0 + r + w;
-        x = allowed ? x : MASKED;
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_i[i], mx);
-      const float alpha = expf(m_i[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        s[i][j] = p;
-        rs += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l_i[i] = l_i[i] * alpha + rs;
-      m_i[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();  // every thread has read its bias elements
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) Ps[(tx + 16 * j) * PITCH + ty + 16 * i] = s[i][j];
+    if (tid < D) vmean[tid] = (vmean[tid] + vmean[D + tid]) / (2 * w);
     __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ps[j * PITCH + ty + 16 * i];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const float vv = Vs[j * D + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(p[i], vv, acc[i][c]);
-      }
-    }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qp = q0 + ty + 16 * i;
+  for (int ri = 0; ri < 2; ++ri) {
+    const int qp = q0 + rl[ri];
     if (qp >= t) continue;
-    const float inv = 1.f / l_i[i];  // l >= 1: the row's largest score gives exp(0)
-    T* o = out + ((size_t)bh * t + qp) * D;
+    const float inv = 1.f / l_i[ri];  // l >= 1: the row's largest score gives exp(0)
+    T* orow = out + b * so.b + h * so.h + qp * so.t;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) o[tx + 16 * c] = from_f<T>(acc[i][c] * inv);
+    for (int j = 0; j < D / 8; ++j) {
+      const int c = 8 * j + 2 * t4;
+      if (empty[ri]) tc::store2(orow + c, vmean[c], vmean[c + 1]);
+      else tc::store2(orow + c, o[j][2 * ri] * inv, o[j][2 * ri + 1] * inv);
+    }
   }
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* bias,
-                   const void* kmask, void* out, int bh, int heads, int t, int w, float scale,
-                   cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+                   const void* kmask, void* out, const Strides (&st)[4], int bh, int heads,
+                   int t, int w, float scale, cudaStream_t stream) {
+  static_assert(NT == 2 * D, "the value means take two threads a column");
+  using S = Smem<T, D>;
   cudaError_t err = cudaFuncSetAttribute(local_attn_kernel<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)(S::base + S::dense));
   if (err != cudaSuccess) return err;
-  dim3 grid((t + BQ - 1) / BQ, bh);
+  const size_t smem = S::base + (bias != nullptr ? S::dense : 0);
+  dim3 grid(bh, (t + BQ - 1) / BQ);
   local_attn_kernel<T, D><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(bias), static_cast<const int8_t*>(kmask), static_cast<T*>(out),
-      heads, t, w, scale);
+      st[0], st[1], st[2], st[3], heads, t, w, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v, out (bh, t, d) in one type; bias (heads, w, 2w) float32 or null;
-// kmask (bh / heads, t) int8 or null. w in {64, 128}, d = 64. dtype 0 =
-// float32, 1 = bfloat16. Returns a cudaError_t.
+// q, k, v, out (bh / heads, heads, t, d) in one type, each with element
+// strides (batch, head, time) in `strides` (q's three, then k's, v's and
+// out's), the last dimension contiguous, rows 16-byte aligned; bias (heads,
+// w, 2w) float32 or null; kmask (bh / heads, t) int8 or null. w in {64,
+// 128}, d = 64. dtype 0 = float32, 1 = bfloat16. Returns a cudaError_t.
 extern "C" int local_attn_fwd(const void* q, const void* k, const void* v, const void* bias,
-                              const void* kmask, void* out, int bh, int heads, int t, int d,
-                              int w, float scale, int dtype, void* stream) {
+                              const void* kmask, void* out, const long long* strides, int bh,
+                              int heads, int t, int d, int w, float scale, int dtype,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d != 64 || (w != 64 && w != 128) || t <= 0 || bh <= 0 || bh > 65535)
+  if (d != 64 || (w != 64 && w != 128) || t <= 0 || bh <= 0 || heads <= 0 || bh % heads
+      || (t + BQ - 1) / BQ > 65535)
     return cudaErrorInvalidValue;
-  if (dtype == 0) return launch<float, 64>(q, k, v, bias, kmask, out, bh, heads, t, w, scale, s);
+  Strides st[4];
+  for (int i = 0; i < 4; ++i)
+    st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  if (dtype == 0)
+    return launch<float, 64>(q, k, v, bias, kmask, out, st, bh, heads, t, w, scale, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16, 64>(q, k, v, bias, kmask, out, bh, heads, t, w, scale, s);
+    return launch<__nv_bfloat16, 64>(q, k, v, bias, kmask, out, st, bh, heads, t, w, scale, s);
   return cudaErrorInvalidValue;
 }

@@ -1,6 +1,7 @@
 // Warp-level tensor-core building blocks for Hopper (sm_90a), shared by the
 // flash-attention forward (flash_fwd.cu, K1) and its dq and dk/dv kernels
-// (flash_bwd.cu, K2 and K3).
+// (flash_bwd.cu, K2 and K3), the nearest-code search (vq.cu, K6) and
+// blocked local attention (local_attn.cu, K7).
 //
 // One template over the operand type serves both of the port's dtypes:
 //   bf16:    mma.sync m16n8k16, bf16 inputs, float32 accumulators;
@@ -41,9 +42,10 @@
 // that makes an accumulator pair (2t, 2t + 1) an A fragment as it stands and
 // the Q and K reads float2 loads.
 //
-// The masking rule of the attention kernels' score epilogue (the key flags,
-// the table slice, the causal mask and exp(x - m)) sits at the end, so K1,
-// K2 and K3 form their scores alike.
+// The masking rule of the flash kernels' score epilogue (the key flags, the
+// table slice, the causal mask and exp(x - m)) sits at the end, so K1, K2
+// and K3 form their scores alike; K7 keeps its own rule (a disallowed pair
+// scores -1e9) and takes exp_rel from there.
 //
 // Why mma.sync and cp.async, not wgmma and TMA: this is the kernels' first
 // tensor-core design, and mma.sync's per-warp fragments let the bias, mask
@@ -125,6 +127,12 @@ __device__ __forceinline__ void cp_async_commit() {
 // waits for every copy this thread issued; a __syncthreads() then shows them to the block
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// waits until at most N of the groups this thread committed are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // the named barrier `id` (1 to 15; 0 is __syncthreads') of `count` threads,
@@ -432,17 +440,19 @@ __device__ __forceinline__ void add_tile(float (&sum)[D / 8][4], const float (&p
   }
 }
 
-// rows r0 .. r0 + R - 1 of a (rows, D) row-major matrix into a tile at dst
-// (pitch elements), by cp.async of 16 bytes; rows past `rows` are zeros.
-// Every thread of the block (NT of them) takes a share.
+// rows r0 .. r0 + R - 1 of a (rows, D) matrix whose rows lie `stride`
+// elements apart (D: row-major; a multiple of 16 bytes, 16-byte aligned) into
+// a tile at dst (pitch elements), by cp.async of 16 bytes; rows past `rows`
+// are zeros. Every thread of the block (NT of them) takes a share.
 template <typename T, int D, int R, int NT>
-__device__ __forceinline__ void cp_tile(T* dst, int pitch, const T* src, int r0, int rows) {
+__device__ __forceinline__ void cp_tile(T* dst, int pitch, const T* src, int r0, int rows,
+                                        long long stride = D) {
   constexpr int E = 16 / (int)sizeof(T);  // elements per copy
   constexpr int CH = D / E;               // copies per row
   for (int i = threadIdx.x; i < R * CH; i += NT) {
     const int r = i / CH, c = (i % CH) * E;
     const bool in = r0 + r < rows;
-    cp_async16(dst + r * pitch + c, src + (size_t)(in ? r0 + r : 0) * D + c, in);
+    cp_async16(dst + r * pitch + c, src + (in ? r0 + r : 0) * stride + c, in);
   }
 }
 

@@ -8,6 +8,7 @@ is rebuilt and an unchanged one is loaded as it is.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -16,8 +17,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["load", "library_path", "source_digest", "sass_counts", "BUILD_DIR", "CSRC",
-           "NVCC_FLAGS"]
+__all__ = ["load", "built_with", "library_path", "source_digest", "sass_counts", "BUILD_DIR",
+           "CSRC", "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -59,10 +60,27 @@ def library_path(name: str, defines=()) -> Path:
     return BUILD_DIR / f"{src.stem}{suffix}-{source_digest(src, _flags(defines))}.so"
 
 
-def load(name: str, defines=()) -> ctypes.CDLL:
+_variant: "tuple[str, ...]" = ()  # the macros `load` takes by default; see built_with
+
+
+@contextlib.contextmanager
+def built_with(defines):
+    """Within the block every wrapper launches its kernel from the build with
+    the extra macros `defines` (a test's variant, such as plain TF32)."""
+    global _variant
+    saved, _variant = _variant, tuple(defines)
+    try:
+        yield
+    finally:
+        _variant = saved
+
+
+def load(name: str, defines=None) -> ctypes.CDLL:
     """The loaded library built from csrc/`name`, building it if needed;
-    `defines` are extra macros (-D) of a variant, such as a test's."""
-    key = (name, tuple(defines))
+    `defines` are extra macros (-D) of a variant, such as a test's (by
+    default those of the enclosing `built_with`, none outside one)."""
+    defines = _variant if defines is None else tuple(defines)
+    key = (name, defines)
     if key in _loaded:
         return _loaded[key]
     src = CSRC / name

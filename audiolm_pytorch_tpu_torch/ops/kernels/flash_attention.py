@@ -19,13 +19,12 @@ or raise; only a CPU tensor takes the plain versions.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 
 import torch
 
 from ..relpos import toeplitz_expand
-from ._build import load
+from ._build import built_with, load
 
 __all__ = ["flash_attention", "flash_attention_ref", "flash_attention_bwd",
            "flash_attention_bwd_ref", "bwd_dq", "bwd_dkv", "built_with", "SOURCE",
@@ -57,19 +56,6 @@ def _fn(source, name, argtypes):
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
-
-
-@contextlib.contextmanager
-def built_with(defines):
-    """Within the block the wrappers launch the kernels built with the extra
-    macros `defines`, a variant of `_build.load` (such as a test's)."""
-    global load
-    real = load
-    load = lambda name: real(name, defines)  # noqa: E731
-    try:
-        yield
-    finally:
-        load = real
 
 
 def _fwd_fn():

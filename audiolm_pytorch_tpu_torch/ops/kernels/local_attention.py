@@ -12,10 +12,12 @@ and window 0 looks back on zero keys and values. The two JAX versions differ
 only for a query of window 0 whose every key is masked (the Pallas kernel
 looks back on window 0 itself); the port follows the model's path.
 
-The backward recomputes through the plain version under autograd, as the
-JAX package's custom VJP goes to its XLA version. On a CUDA tensor the
-forward launches the kernel or raises; only a CPU tensor takes the plain
-version.
+The kernel reads q, k and v through their (batch, head, time) strides, so
+`LocalMHA`'s transposed views of (B, T, H, D) projections reach it without a
+copy, and writes its output in q's layout. The backward recomputes through
+the plain version under autograd, as the JAX package's custom VJP goes to
+its XLA version. On a CUDA tensor the forward launches the kernel or raises;
+only a CPU tensor takes the plain version.
 """
 from __future__ import annotations
 
@@ -42,9 +44,20 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 def _fn():
     fn = load(SOURCE).local_attn_fwd
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 6 + [_I] * 5 + [_F, _I, _P]
+        fn.argtypes = [_P] * 7 + [_I] * 5 + [_F, _I, _P]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _readable(x):
+    """x itself where the kernel can read it through its strides (the last
+    dimension contiguous; the (batch, head, time) strides and the address
+    multiples of 16 bytes, as its 16-byte copies need), else a contiguous
+    copy."""
+    step, st = 16 // x.element_size(), x.stride()
+    if st[3] != 1 or st[0] % step or st[1] % step or st[2] % step or x.data_ptr() % 16:
+        return x.clone(memory_format=torch.contiguous_format)
+    return x
 
 
 def _check(q, k, v, window_size, mask, attn_bias):
@@ -65,10 +78,10 @@ def _check(q, k, v, window_size, mask, attn_bias):
 
 def local_attention_ref(q, k, v, *, window_size: int, mask=None, attn_bias=None,
                         scale: "float | None" = None):
-    """Plain PyTorch version of the kernel, in float32: the JAX model path's
-    `local_attention`, with q scaled and the probabilities kept in float32
-    (the JAX version rounds both to a bf16 input's type). Returns
-    (B, H, T, D) in q's dtype."""
+    """Plain PyTorch version of the kernel, in float32 (float64 for float64
+    inputs): the JAX model path's `local_attention`, with q scaled and the
+    probabilities kept in float32 (the JAX version rounds both to a bf16
+    input's type). Returns (B, H, T, D) in q's dtype."""
     b, h, n, d = q.shape
     w = window_size
     scale = scale if scale is not None else d ** -0.5
@@ -80,15 +93,16 @@ def local_attention_ref(q, k, v, *, window_size: int, mask=None, attn_bias=None,
         mask = F.pad(valid, (0, pad), value=False)
     nt = n + pad
     nw = nt // w
-    qw = (q.float() * scale).reshape(b, h, nw, w, d)
-    kw = k.float().reshape(b, h, nw, w, d)
-    vw = v.float().reshape(b, h, nw, w, d)
+    ct = torch.promote_types(q.dtype, torch.float32)
+    qw = (q.to(ct) * scale).reshape(b, h, nw, w, d)
+    kw = k.to(ct).reshape(b, h, nw, w, d)
+    vw = v.to(ct).reshape(b, h, nw, w, d)
     # keys and values of window i: windows i-1 (zeros before window 0) and i
     k2 = torch.cat([F.pad(kw, (0, 0, 0, 0, 1, 0))[:, :, :-1], kw], dim=3)
     v2 = torch.cat([F.pad(vw, (0, 0, 0, 0, 1, 0))[:, :, :-1], vw], dim=3)
     sim = torch.matmul(qw, k2.transpose(-1, -2))  # (B, H, nw, w, 2w)
     if attn_bias is not None:
-        sim = sim + attn_bias[None, :, None].float()
+        sim = sim + attn_bias[None, :, None].to(ct)
     qpos = torch.arange(w, device=q.device)[:, None]
     kpos = torch.arange(2 * w, device=q.device)[None, :]
     win = torch.arange(nw, device=q.device)[:, None, None]
@@ -114,15 +128,17 @@ def _forward(q, k, v, window_size, mask, attn_bias, scale):
                          f"not window {window_size} and head dim {d}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share a dtype in {list(_DTYPES)}")
-    if b * h > 65535:
-        raise ValueError("B * H exceeds the grid's y limit of 65535")
-    q, k, v = (x.contiguous() for x in (q, k, v))
+    if -(-t // 64) > 65535:
+        raise ValueError("T / 64 exceeds the grid's y limit of 65535")
+    q, k, v = (_readable(x) for x in (q, k, v))
     bias = attn_bias.float().contiguous() if attn_bias is not None else None
     kmask = mask.to(torch.int8).contiguous() if mask is not None else None
-    out = torch.empty_like(q)
+    out = torch.empty_like(q)  # q's layout where q is dense, else contiguous
+    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                                       *out.stride()[:3])
     err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 bias.data_ptr() if bias is not None else None,
-                kmask.data_ptr() if kmask is not None else None, out.data_ptr(),
+                kmask.data_ptr() if kmask is not None else None, out.data_ptr(), strides,
                 b * h, h, t, d, window_size, scale, _DTYPES[q.dtype],
                 torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:

@@ -4,10 +4,11 @@ hand-written Hopper kernel `csrc/vq.cu` and its plain PyTorch version.
 Replaces the JAX package's Pallas kernel `ops/pallas/vq.py::_kernel`
 (`vq_nearest_code`), which `VectorQuantizeEMA.encode` takes on the TPU:
 argmin over the codes of -2 x.e + |e|^2 in float32, the first index on
-ties, without writing the (N, C) scores. |e|^2 is summed here, as the JAX
-wrapper does, and handed to the kernel. The JAX package gates its kernel to
-at least 8 rows and a codebook of at most 8 MiB (the TPU's VMEM); this one
-tiles over the codes and takes every shape. On a CUDA tensor the wrapper
+ties, without writing the (N, C) scores. A search is one launch: the kernel
+sums |e|^2 itself from the code tiles it streams, and its blocks meet in a
+thread-block cluster, with no scratch and no second kernel. The JAX package
+gates its kernel to at least 8 rows and a codebook of at most 8 MiB (the
+TPU's VMEM); this one tiles over the codes and takes every shape. On a CUDA tensor the wrapper
 launches the kernel or raises; only a CPU tensor takes the plain version.
 """
 from __future__ import annotations
@@ -29,7 +30,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 def _fn():
     fn = load(SOURCE).vq_nearest
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 5 + [_I] * 3 + [_P]
+        fn.argtypes = [_P] * 3 + [_I] * 3 + [_P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -66,11 +67,9 @@ def vq_nearest_code(x, codebook):
         return torch.empty(0, dtype=torch.int32, device=x.device)
     xf = x.float().contiguous()
     e = codebook.float().contiguous()
-    e2 = e.square().sum(-1)
-    best = torch.empty(n, dtype=torch.int64, device=x.device)  # packed (score, index)
     out = torch.empty(n, dtype=torch.int32, device=x.device)
-    err = _fn()(xf.data_ptr(), e.data_ptr(), e2.data_ptr(), best.data_ptr(), out.data_ptr(),
-                n, c, d, torch.cuda.current_stream(x.device).cuda_stream)
+    err = _fn()(xf.data_ptr(), e.data_ptr(), out.data_ptr(), n, c, d,
+                torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"vq_nearest launch failed with CUDA error {err}")
     global launches

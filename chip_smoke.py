@@ -5,9 +5,9 @@
 Phases, each printing its name and seconds:
   1. device      - requires CUDA; prints the card and its power limit.
   2. build       - builds every kernel source of the port with nvcc
-                   (build/kernels/), and the test-only plain-TF32 variants of
-                   the two flash sources, one nvcc per library, all started
-                   together, and prints ptxas' register/spill lines.
+                   (build/kernels/), and the test-only plain-TF32 variant of
+                   each, one nvcc per library, all started together, and
+                   prints ptxas' register/spill lines.
   3. kernels     - each kernel against its plain PyTorch version at the shapes
                    of the main path (and a ragged, key-masked one), with its
                    time, the plain version's, one PyTorch library call's and
@@ -21,14 +21,18 @@ Phases, each printing its name and seconds:
                    last id dropped for the loss, the start token prepended; a
                    forgetful key mask padded True for the start token) and
                    the aligned N = 2048.
-     sass        - HMMA (tensor-core) and FFMA instructions of each flash
-                   kernel in the built SASS (cuobjdump); K1, K2 and K3 must
-                   issue HMMA in float32 and bf16.
+     sass        - HMMA (tensor-core) and FFMA instructions of each kernel in
+                   the built SASS (cuobjdump); K1, K2, K3 and K7 must issue
+                   HMMA in float32 and bf16, K6 in float32.
      tf32        - K1's output, K2's dq (and with the bias its dbias) and
                    K3's dk, dv in float32 (3xTF32) within 1e-5 of a float64
                    evaluation at the Semantic and Fine training shapes, the
                    plain-TF32 build shown to fail the same check; K2's dq and
-                   dbias and K3's dk, dv the same bits over three runs.
+                   dbias and K3's dk, dv the same bits over three runs; K7's
+                   output the same at the codec's shapes; K6 on near ties at
+                   the codec's shape within the near-tie gate, which rejects
+                   its plain-TF32 build; K6's indices the same bits over
+                   three runs.
   4. scoring     - the flagship SemanticTransformer (dim 1024, depth 6, heads
                    8, vocab 500, 4 residual streams; random weights from
                    --seed) scores a 4 x 2048 batch: logits and loss; then the
@@ -81,10 +85,13 @@ K2's launch, to the plain versions at the Coarse and Fine training shapes (N = 1
 the loss) and at a ragged shape with a key mask; a second kernels phase
 holds the codec's kernels to theirs: K6, the nearest-code search, at the
 codec's shape (800 rows of 512 against 1024 codes) and at 1, 7 and 1300
-rows, with tied codes; K7, blocked local attention, at the codec's shape (8
-x 8 x 100 x 64, window 128), at 10 s (8 x 8 x 500 x 64) and a ragged,
-key-masked, biased 2 x 8 x 300 x 64 at window 64, fp32 and bf16, with its
-backward.
+rows, with tied codes, each search one device launch (torch.profiler); K7,
+blocked local attention, at the codec's shape (8 x 8 x 100 x 64, window
+128), at 10 s (8 x 8 x 500 x 64), a ragged, key-masked, biased 2 x 8 x 300 x
+64 at window 64, on LocalMHA's strided views of one projection, and strided
+with whole key tiles masked and rows without a key, fp32 and bf16, with its
+backward. Each kernel row gives its time by CUDA events and on the device
+(torch.profiler), and so does its library call.
 Each path, scoring, generation and training of each LM, the codec's round
 trip and AudioLM's generation, sets the kernel launch counts to 0 just
 before its own calls and reads them just after, before any check (CPU
@@ -93,7 +100,8 @@ comparison, profile, uncached scoring of the generated ids) runs.
 Ends with a JSON line of per-kernel numbers, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}. Any failed phase raises
 and the script exits non-zero without that line. Imports torch, numpy, the
-standard library and the port only; spawns only nvcc and nvidia-smi.
+standard library, the port and the timers of tools/cuda_timing.py only;
+spawns only nvcc and nvidia-smi.
 """
 from __future__ import annotations
 
@@ -121,15 +129,17 @@ from audiolm_pytorch_tpu_torch.ops.kernels import local_attention as la
 from audiolm_pytorch_tpu_torch.ops.kernels import vq
 from audiolm_pytorch_tpu_torch.ops.relpos import toeplitz_expand
 from audiolm_pytorch_tpu_torch.ops.sampling import generate_mask_with_prob
+from tools.cuda_timing import cuda_ms, device_per_call, kernel_events
 
 FLAGSHIP = dict(dim=1024, depth=6, heads=8, dim_head=64, num_semantic_tokens=500,
                 num_residual_streams=4)
 # H100 SXM published peaks (dense): HBM bytes/s; FLOP/s by input type
 HBM_BPS = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
-# the flash kernels' float32 products run as 3xTF32 on the tensor cores: three
-# TF32 products (495 TFLOP/s) for each, so their float32 bound is taken at a
-# third of that rate; the FMA rate above is K6's and K7's
+# every kernel's float32 products run as 3xTF32 on the tensor cores: three
+# TF32 products (495 TFLOP/s) for each, so the float32 bound is taken at a
+# third of that rate; K6's and K7's printed lines also give the bound at the
+# FMA rate above (67 TFLOP/s), the rate of their earlier CUDA-core design
 TF32X3_FLOPS = 495e12 / 3
 # 3xTF32 (K1, K2, K3) against a float64 evaluation: max |kernel - ref| over
 # max |ref|; plain TF32 (the small terms dropped) reads ~5e-4
@@ -153,10 +163,11 @@ TRAIN_N = TRAIN_IDS[1] + 1
 LOGITS_TOL = 2e-3  # float32 card vs CPU: summation order differs, nothing else
 DEV = torch.device("cuda")
 SOURCES = (fa.SOURCE, fa.SOURCE_BWD, vq.SOURCE, la.SOURCE)
-# a test-only build of K1-K3 with plain TF32 (the 3xTF32 small terms
-# dropped), which the float64 check must reject
+# a test-only build of every kernel with plain TF32 (the 3xTF32 small terms
+# dropped), which the float64 checks (K1, K2, K3, K7) and the near-tie gate
+# (K6) must reject
 ONE_PASS = ("MMA_TF32_ONE_PASS",)
-BUILDS = [(src, ()) for src in SOURCES] + [(fa.SOURCE, ONE_PASS), (fa.SOURCE_BWD, ONE_PASS)]
+BUILDS = [(src, ()) for src in SOURCES] + [(src, ONE_PASS) for src in SOURCES]
 # each kernel's launch counter: (its module, the counter's name there)
 COUNTERS = {"launches": (fa, "launches"), "launches_dq": (fa, "launches_dq"),
             "launches_dkv": (fa, "launches_dkv"), "launches_dtab": (fa, "launches_dtab"),
@@ -183,20 +194,6 @@ def phase(name):
             return out
         return run
     return wrap
-
-
-def cuda_ms(fn, iters=10, warmup=2):
-    """Mean device time of fn() in ms, by CUDA events over `iters` calls."""
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def nvidia_smi():
@@ -227,8 +224,8 @@ def build_phase():
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(BUILDS)) as pool:
         secs = list(pool.map(build, BUILDS))
-    print(f"build: {len(SOURCES)} sources and the 1xTF32 variants of {fa.SOURCE} and "
-          f"{fa.SOURCE_BWD}, {len(BUILDS)} libraries in {time.perf_counter() - t0:.2f} s")
+    print(f"build: {len(SOURCES)} sources and their 1xTF32 variants, {len(BUILDS)} libraries in "
+          f"{time.perf_counter() - t0:.2f} s")
     for (src, defines), sec in zip(BUILDS, secs):
         print(f"  {src}{''.join(' -D' + x for x in defines)}: {sec:.2f} s")
         if defines:
@@ -617,21 +614,24 @@ def kernel_phase(seed):
 
 @phase("sass")
 def sass_phase():
-    """HMMA (tensor-core) and FFMA instructions of each flash kernel in the
-    built libraries' SASS (cuobjdump -sass). K1, K2 (both instantiations:
-    with K5's sum and without) and K3 must issue HMMA in both dtypes.
-    Returns {"fwd": {dtype: HMMA}, "dq": {...}, "dkv": {...}}."""
+    """HMMA (tensor-core) and FFMA instructions of each kernel in the built
+    libraries' SASS (cuobjdump -sass). K1, K2 (both instantiations: with
+    K5's sum and without), K3 and K7 must issue HMMA in both dtypes, K6 (in
+    float32 only) too. Returns {"fwd": {dtype: HMMA}, "dq": {...}, ...}."""
     kernels = (("fwd", "flash_fwd_kernel"), ("dq", "flash_bwd_dq_kernel"),
-               ("dkv", "flash_bwd_dkv_kernel"))
+               ("dkv", "flash_bwd_dkv_kernel"), ("vq", "vq_nearest_kernel"),
+               ("local", "local_attn_kernel"))
     want = {"fwd": ["bf16", "fp32"], "dq": ["bf16", "bf16, sum", "fp32", "fp32, sum"],
-            "dkv": ["bf16", "fp32"]}
+            "dkv": ["bf16", "fp32"], "vq": ["fp32"], "local": ["bf16", "fp32"]}
     result = {key: {} for key, _ in kernels}
-    for src in (fa.SOURCE, fa.SOURCE_BWD):
+    for src in SOURCES:
         for mangled, ops in sorted(_build.sass_counts(src).items(), key=lambda x: x[0]):
             label = kernel_label(mangled)
             print(f"sass {label}: HMMA {ops['HMMA']} FFMA {ops['FFMA']}")
             for key, kernel in kernels:
-                if label.startswith(kernel + "<"):
+                if label == kernel:  # not a template: float32 only
+                    result[key]["fp32"] = ops["HMMA"]
+                elif label.startswith(kernel + "<"):
                     result[key][label[len(kernel) + 1:-1]] = ops["HMMA"]
     for key, by_dtype in result.items():
         if sorted(by_dtype) != want[key] or not all(by_dtype.values()):
@@ -738,6 +738,62 @@ def accuracy_phase(seed):
                 raise AssertionError(f"K2 dq/dbias differ between runs ({dtype})")
         print(f"tf32: K2 dq, dbias bitwise equal over 3 runs ({str(dtype)[6:]}, "
               f"{CLIP_B}x{h}x{FINE_N}x{d}, (H, N, N) bias)")
+    result.update(codec_accuracy(rng))
+    return result
+
+
+def local_f64_error(q, k, v, w, mask, bias, scale=8.0 / 64):
+    """max |K7 - float64| / max |float64| for float32 q, k, v; the float64
+    evaluation is the plain version's on float64 inputs."""
+    ref = la.local_attention_ref(q.double(), k.double(), v.double(), window_size=w, mask=mask,
+                                 attn_bias=None if bias is None else bias.double(), scale=scale)
+    return rel_err(la.local_attention(q, k, v, window_size=w, mask=mask, attn_bias=bias,
+                                      scale=scale), ref)
+
+
+def codec_accuracy(rng):
+    """The codec's kernels in float32 on the tensor cores: K7's output within
+    F64_TOL of a float64 evaluation at the codec's shape, at 10 s and a
+    ragged, key-masked, biased shape, the plain-TF32 build shown to fail the
+    same check; K6 on near ties at the codec's shape (every row's two best
+    codes 1.5e-5 to 4e-5 of the score's terms apart) within the near-tie
+    gate, the plain-TF32 build shown to fail it; K6's indices the same bits
+    over three runs."""
+    result = {"local": {}}
+    cases = (("8x8x100x64 w128 (codec)", (8, 8, 100, 64, torch.float32, 128)),
+             ("8x8x500x64 w128 (10 s)", (8, 8, 500, 64, torch.float32, 128)),
+             ("ragged 2x8x300x64 w64, key mask, bias", (2, 8, 300, 64, torch.float32, 64)))
+    for label, shape in cases:
+        ragged = shape[-1] == 64
+        q, k, v, mask, bias = local_inputs(rng, *shape, masked=ragged, biased=ragged)
+        three = local_f64_error(q, k, v, shape[-1], mask, bias)
+        with _build.built_with(ONE_PASS):
+            one = local_f64_error(q, k, v, shape[-1], mask, bias)
+        print(f"tf32 [K7 fp32 {label}]: 3xTF32 vs float64 {three:.2e} (limit {F64_TOL}) | "
+              f"1xTF32 {one:.2e}")
+        if three > F64_TOL:
+            raise AssertionError(f"K7 3xTF32 vs float64 [{label}]: {three} over {F64_TOL}")
+        if one <= F64_TOL:
+            raise AssertionError(f"the float64 check let K7's 1xTF32 build through [{label}]")
+        result["local"][label] = {"3xtf32": three, "1xtf32": one}
+    x, cb = vq_near_ties(rng)
+    label = f"{x.shape[0]}x512 vs 1024x512 (codec), every row a near tie"
+    _, differ, _, rel = vq_gate(x, cb, label)
+    with _build.built_with(ONE_PASS):
+        _, differ1, _, rel1 = vq_gate(x, cb, label)
+    print(f"tf32 [K6 {label}]: 3xTF32 {differ} rows differ from the plain version, relative gap "
+          f"up to {rel:.2e} (near-tie limit {NEAR_TIE}) | 1xTF32 {differ1} rows, up to {rel1:.2e}")
+    if rel >= NEAR_TIE:
+        raise AssertionError(f"K6 3xTF32 [{label}]: relative gap {rel} over {NEAR_TIE}")
+    if rel1 < NEAR_TIE:
+        raise AssertionError(f"the near-tie gate let K6's 1xTF32 build through [{label}]")
+    result["vq"] = {"3xtf32": {"rows": differ, "rel_gap": rel},
+                    "1xtf32": {"rows": differ1, "rel_gap": rel1}}
+    x, cb = vq_inputs(rng, CODEC_B * CODEC_S * HZ)
+    first = vq.vq_nearest_code(x, cb)
+    if not all(torch.equal(vq.vq_nearest_code(x, cb), first) for _ in range(2)):
+        raise AssertionError("K6's indices differ between runs")
+    print("tf32: K6 indices bitwise equal over 3 runs (800x512 vs 1024x512)")
     return result
 
 
@@ -762,11 +818,7 @@ def profile(label, fn, top=8):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # kernels only: a user annotation (such as the optimizer's step range) is
-    # a span on the device's timeline, not work of its own
-    rows = [(e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-            and not getattr(e, "is_user_annotation", False)]
+    rows = [(e.self_device_time_total / 1e3, e.count, e.key) for e in kernel_events(prof)]
     busy = sum(r[0] for r in rows)
     print(f"{label} profile: device busy {busy:.2f} ms of {wall_ms:.2f} ms "
           f"wall under the profiler ({100 * (1 - busy / wall_ms):.1f}% idle)")
@@ -1187,26 +1239,53 @@ def vq_scores(x, cb, idx):
     return e2 - 2 * (xd * ed).sum(-1), e2 + 2 * xd.norm(dim=-1) * ed.norm(dim=-1)
 
 
-def check_vq(x, cb, label, want_first=None):
-    """K6 against its plain version: identical indices but near ties
-    (counted); its time, the plain version's, the library call's and the
-    bound. max_abs_err is the largest float64 score gap between the two
-    picks (0 when identical)."""
+def vq_near_ties(rng, n=CODEC_B * CODEC_S * HZ, c=1024, d=512):
+    """x (n, d) and a codebook (c, d) on the card, at the codec's shape, with
+    every row a near tie: near the midpoint of two random codes a and b,
+    moved along a - b until their float64 scores differ by 1.5e-5 to 4e-5 of
+    the score's terms (either one lower); every other code far. The plain
+    version's float32 picks the lower; plain TF32 errs by ~1e-5 of the terms."""
+    cb = rng.standard_normal((c, d), dtype=np.float32)
+    a = rng.integers(0, c, n)
+    b = (a + rng.integers(1, c, n)) % c
+    ea, eb = cb[a].astype(np.float64), cb[b].astype(np.float64)
+    x0 = (ea + eb) / 2 + 0.3 * rng.standard_normal((n, d))
+    diff = ea - eb
+    size = (ea * ea).sum(-1) + 2 * np.linalg.norm(x0, axis=-1) * np.linalg.norm(ea, axis=-1)
+    gap = rng.uniform(1.5e-5, 4e-5, n) * size * rng.choice([-1.0, 1.0], n)
+    shift = ((ea * ea).sum(-1) - (eb * eb).sum(-1) - 2 * (x0 * diff).sum(-1) - gap) \
+        / (2 * (diff * diff).sum(-1))
+    x = (x0 + shift[:, None] * diff).astype(np.float32)
+    return torch.from_numpy(x).to(DEV), torch.from_numpy(cb).to(DEV)
+
+
+def vq_gate(x, cb, label):
+    """K6's picks against its plain version's: (rows that differ, largest
+    float64 score gap between the two picks, the same over the score's
+    terms; both 0 when identical)."""
     got = vq.vq_nearest_code(x, cb)
     torch.cuda.synchronize()
     ref = vq.vq_nearest_code_ref(x, cb)
     if got.dtype != torch.int32 or got.shape != ref.shape:
         raise AssertionError(f"K6 [{label}]: {got.dtype} {tuple(got.shape)}")
     diff = (got != ref).nonzero().flatten()
-    gap = 0.0
-    if len(diff):
-        sa, mag = vq_scores(x[diff], cb, got[diff])
-        sb, _ = vq_scores(x[diff], cb, ref[diff])
-        rel = ((sa - sb).abs() / mag).max().item()
-        gap = (sa - sb).abs().max().item()
-        if rel >= NEAR_TIE:
-            raise AssertionError(f"K6 vs plain [{label}]: {len(diff)} rows differ, relative "
-                                 f"score gap up to {rel:.3e} (near-tie limit {NEAR_TIE})")
+    if not len(diff):
+        return got, 0, 0.0, 0.0
+    sa, mag = vq_scores(x[diff], cb, got[diff])
+    sb, _ = vq_scores(x[diff], cb, ref[diff])
+    return got, len(diff), (sa - sb).abs().max().item(), ((sa - sb).abs() / mag).max().item()
+
+
+def check_vq(x, cb, label, want_first=None):
+    """K6 against its plain version: identical indices but near ties
+    (counted); one device launch a call; its time (by CUDA events and on the
+    device), the plain version's, the library call's (with |e|^2 summed in
+    the call and given) and the bound. max_abs_err is the largest float64
+    score gap between the two picks (0 when identical)."""
+    got, differ, gap, rel = vq_gate(x, cb, label)
+    if rel >= NEAR_TIE:
+        raise AssertionError(f"K6 vs plain [{label}]: {differ} rows differ, relative "
+                             f"score gap up to {rel:.3e} (near-tie limit {NEAR_TIE})")
     if want_first is not None and not (got[: len(want_first)].cpu() == want_first).all():
         raise AssertionError(f"K6 [{label}]: ties did not go to the first index: "
                              f"{got[: len(want_first)].tolist()}")
@@ -1214,18 +1293,40 @@ def check_vq(x, cb, label, want_first=None):
     c = cb.shape[0]
     e2 = cb.square().sum(-1)
     ms = cuda_ms(lambda: vq.vq_nearest_code(x, cb), iters=20)
+    dev_ms, dev_launches, dev_names = device_per_call(lambda: vq.vq_nearest_code(x, cb))
+    if dev_launches != 1 or not all("vq_nearest_kernel" in k for k in dev_names):
+        raise AssertionError(f"K6 [{label}]: not one device launch a call: {dev_names}")
     plain_ms = cuda_ms(lambda: vq.vq_nearest_code_ref(x, cb), iters=20)
-    # yardstick only, never called by the port: addmm + argmin, |e|^2 given
-    library_ms = cuda_ms(lambda: torch.argmin(torch.addmm(e2, x, cb.t(), alpha=-2), -1),
-                         iters=20)
-    t_ops = 2 * n * c * d / PEAK_FLOPS[torch.float32] * 1e3
-    t_bytes = 4 * (n * d + c * d + c + n) / HBM_BPS * 1e3
+
+    # yardsticks only, never called by the port: addmm + argmin with |e|^2
+    # summed inside the timed call (the function the wrapper computes) and
+    # with |e|^2 given
+    def library():
+        return torch.argmin(torch.addmm(cb.square().sum(-1), x, cb.t(), alpha=-2), -1)
+
+    def library_e2_given():
+        return torch.argmin(torch.addmm(e2, x, cb.t(), alpha=-2), -1)
+
+    library_ms = cuda_ms(library, iters=20)
+    library_e2_given_ms = cuda_ms(library_e2_given, iters=20)
+    library_dev_ms = device_per_call(library)[0]
+    library_e2_given_dev_ms = device_per_call(library_e2_given)[0]
+    # the products at the 3xTF32 rate (the kernel's), and at the FMA rate
+    t_ops = 2 * n * c * d / TF32X3_FLOPS * 1e3
+    t_bytes = 4 * (n * d + c * d + n) / HBM_BPS * 1e3
     bound_ms, bound_by = max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
-    print(f"vq [{label}]: {len(diff)} near-tie rows differ (score gap {gap:.3e}) | kernel "
-          f"{ms:.4f} ms | plain {plain_ms:.4f} ms | addmm+argmin {library_ms:.4f} ms | bound "
-          f"{bound_ms:.4f} ms ({bound_by})")
-    return dict(max_abs_err=gap, near_ties=len(diff), ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms, at=label)
+    bound_fma_ms = max(2 * n * c * d / PEAK_FLOPS[torch.float32] * 1e3, t_bytes)
+    print(f"vq [{label}]: {differ} near-tie rows differ (score gap {gap:.3e}) | kernel "
+          f"{ms:.4f} ms, on the device {dev_ms:.4f} ms in {dev_launches:g} launch per call | "
+          f"plain {plain_ms:.4f} ms | addmm+argmin {library_ms:.4f} ms (device "
+          f"{library_dev_ms:.4f}), |e|^2 given {library_e2_given_ms:.4f} ms (device "
+          f"{library_e2_given_dev_ms:.4f}) | bound {bound_ms:.4f} ms ({bound_by}; at the FMA "
+          f"rate {bound_fma_ms:.4f} ms)")
+    return dict(max_abs_err=gap, near_ties=differ, ms=ms, device_ms=dev_ms,
+                device_launches=dev_launches, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms,
+                library_device_ms=library_dev_ms, library_e2_given_ms=library_e2_given_ms,
+                library_e2_given_device_ms=library_e2_given_dev_ms, at=label)
 
 
 def local_inputs(rng, b, h, t, d, dtype, w, masked=False, biased=False):
@@ -1244,6 +1345,49 @@ def local_inputs(rng, b, h, t, d, dtype, w, masked=False, biased=False):
     if biased:
         bias = torch.from_numpy(0.3 * rng.standard_normal((h, w, 2 * w), dtype=np.float32)).to(DEV)
     return q, k, v, mask, bias
+
+
+def local_views(rng, b, h, t, d, dtype):
+    """q, k, v as LocalMHA hands them to K7: (b, h, t, d) views of the three
+    chunks of one (b, t, 3 h d) projection; the kernel must read them in
+    place."""
+    qkv = torch.from_numpy(rng.standard_normal((b, t, 3 * h * d), dtype=np.float32))
+    views = [a.reshape(b, t, h, d).transpose(1, 2) for a in qkv.to(DEV, dtype).chunk(3, dim=-1)]
+    if any(la._readable(a) is not a for a in views):
+        raise AssertionError("K7 would copy LocalMHA's strided q, k, v")
+    return views
+
+
+def keyless_mask(b, t, w):
+    """Whole key tiles masked and rows without a key: keys 0-69 of row 0
+    (window 0's queries 0-69 have none) and keys 64-191 of the other rows
+    (at w 64, window 2's queries have none)."""
+    mask = torch.ones(b, t, dtype=torch.bool, device=DEV)
+    mask[0, :70] = False
+    mask[1:, 64:192] = False
+    return mask
+
+
+def check_keyless_rows(q, k, v, w, mask, label):
+    """K7's rows without an allowed key: the model path's mean of the
+    window's 2w value slots (zeros for window -1 and padding)."""
+    out = la.local_attention(q, k, v, window_size=w, mask=mask, scale=8.0 / 64)
+    b, h, t, d = q.shape
+    pos = torch.arange(t, device=DEV)
+    win = pos // w
+    # a query has a key if a valid key lies at or before it, in its window or the one before
+    kp = torch.arange(t, device=DEV)
+    allowed = (kp[None, :] <= pos[:, None]) & (kp[None, :] >= (win[:, None] - 1) * w)
+    keyless = ~(allowed[None] & mask[:, None, :]).any(-1)  # (b, t)
+    vw = torch.nn.functional.pad(v.float(), (0, 0, 0, (-t) % w)).reshape(b, h, -1, w, d).sum(3)
+    prev = torch.nn.functional.pad(vw, (0, 0, 1, 0))[:, :, :-1]
+    mean = ((vw + prev) / (2 * w))[:, :, win]  # (b, h, t, d)
+    rows = keyless[:, None, :, None].expand_as(out)
+    err = (out.float() - mean)[rows].abs().max().item()
+    if int(keyless.sum()) == 0 or err > TOL[q.dtype]:
+        raise AssertionError(f"K7 [{label}]: {int(keyless.sum())} keyless rows, max err {err}")
+    print(f"local [{label}]: {int(keyless.sum())} rows without a key take the mean of their "
+          f"2w value slots (max abs err {err:.3e})")
 
 
 def local_pairs(b, h, t, w, mask):
@@ -1317,53 +1461,79 @@ def check_local(q, k, v, w, mask, bias, label, seed, scale=8.0 / 64):
     if not all(torch.allclose(a.float(), r.float(), **gtol) for a, r in zip(grads, refs)):
         raise AssertionError(f"K7 backward vs plain [{label}]: max abs err {grad_err} over {gtol}")
     ms = cuda_ms(lambda: la.local_attention(q, k, v, **kw), iters=20)
+    dev_ms, dev_launches, _ = device_per_call(lambda: la.local_attention(q, k, v, **kw))
     plain_ms = cuda_ms(lambda: la.local_attention_ref(q, k, v, **kw), iters=20)
     qb, kb, vb, fmask = sdpa_blocks(q, k, v, w, mask, bias)
-    library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qb, kb, vb, attn_mask=fmask, scale=scale), iters=20)
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(qb, kb, vb, attn_mask=fmask,
+                                                                scale=scale)
+
+    library_ms = cuda_ms(library, iters=20)
+    library_dev_ms = device_per_call(library)[0]
     b, h, t, d = q.shape
     pairs = local_pairs(b, h, t, w, mask)
     nbytes = 4 * q.numel() * q.element_size() + (bias.numel() * 4 if bias is not None else 0) \
         + (mask.numel() if mask is not None else 0)
-    t_ops = 4 * d * pairs / PEAK_FLOPS[q.dtype] * 1e3
+    flops = 4 * d * pairs
+    t_ops = flops / (TF32X3_FLOPS if q.dtype == torch.float32 else PEAK_FLOPS[q.dtype]) * 1e3
     t_bytes = nbytes / HBM_BPS * 1e3
     bound_ms, bound_by = max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    bound_fma_ms = max(flops / PEAK_FLOPS[torch.float32] * 1e3, t_bytes)
     print(f"local [{label}]: max_abs_err {err:.3e} (tol {tol}) | backward {grad_err:.3e} | "
-          f"kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | sdpa on blocks {library_ms:.4f} ms | "
-          f"bound {bound_ms:.4f} ms ({bound_by}, {pairs} pairs)")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=library_ms, at=label)
+          f"kernel {ms:.4f} ms, on the device {dev_ms:.4f} ms in {dev_launches:g} launches per "
+          f"call | plain {plain_ms:.4f} ms | sdpa on blocks {library_ms:.4f} ms (device "
+          f"{library_dev_ms:.4f}) | bound {bound_ms:.4f} ms ({bound_by}, {pairs} pairs; at the "
+          f"FMA rate {bound_fma_ms:.4f} ms)")
+    return dict(max_abs_err=err, ms=ms, device_ms=dev_ms, device_launches=dev_launches,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                library_device_ms=library_dev_ms, at=label)
 
 
 @phase("kernels (codec)")
 def codec_kernel_phase(seed):
     """K6 at the codec's shape (one quantizer of 8 x 2 s: N = 800, D = 512,
     C = 1024) and at N in {1, 7, 1300}, with duplicated codebook rows and an
-    all-zero codebook (every score a tie); K7 at the codec's shape (8 x 8 x
-    100 x 64, w 128), at 10 s (8 x 8 x 500 x 64: 4 windows) and a ragged
-    2 x 8 x 300 x 64 at w 64 with a key mask and an (H, w, 2w) bias, fp32
-    and bf16."""
+    all-zero codebook (every score a tie), one device launch a search; K7
+    at the codec's shape (8 x 8 x 100 x 64, w 128), at 10 s (8 x 8 x 500 x
+    64: 4 windows), a ragged 2 x 8 x 300 x 64 at w 64 with a key mask and an
+    (H, w, 2w) bias, on LocalMHA's strided views at the codec's shape, and
+    strided with whole key tiles masked and rows without a key (their
+    output the mean of the window's value slots), fp32 and bf16."""
     rng = np.random.default_rng(seed + 20)
     n_codec = CODEC_B * CODEC_S * HZ
     main = check_vq(*vq_inputs(rng, n_codec), f"{n_codec}x512 vs 1024x512 (codec)")
+    vq_more = {}
     for n in (1, 7, 1300):
-        check_vq(*vq_inputs(rng, n, dup=True), f"{n}x512 vs 1024x512, 4 equal codes",
-                 want_first=torch.tensor([0], dtype=torch.int32))
+        vq_more[f"{n} rows"] = check_vq(*vq_inputs(rng, n, dup=True),
+                                        f"{n}x512 vs 1024x512, 4 equal codes",
+                                        want_first=torch.tensor([0], dtype=torch.int32))
     zeros = torch.zeros(1024, 512, device=DEV)
     check_vq(vq_inputs(rng, 7)[0], zeros, "7x512 vs zeros (all ties)",
              want_first=torch.zeros(7, dtype=torch.int32))
-    local = None
+    local = {}
     for dtype, name in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
-        row = check_local(*local_inputs(rng, 8, 8, 100, 64, dtype, 128)[:3], 128, None, None,
-                          f"{name} 8x8x100x64 w128 (codec)", seed)
-        local = local or row
-        check_local(*local_inputs(rng, 8, 8, 500, 64, dtype, 128)[:3], 128, None, None,
-                    f"{name} 8x8x500x64 w128 (10 s)", seed)
+        local[name] = check_local(*local_inputs(rng, 8, 8, 100, 64, dtype, 128)[:3], 128, None,
+                                  None, f"{name} 8x8x100x64 w128 (codec)", seed)
+        local[f"{name} 10 s"] = check_local(*local_inputs(rng, 8, 8, 500, 64, dtype, 128)[:3],
+                                            128, None, None, f"{name} 8x8x500x64 w128 (10 s)",
+                                            seed)
         q, k, v, mask, bias = local_inputs(rng, 2, 8, 300, 64, dtype, 64, masked=True,
                                            biased=True)
         check_local(q, k, v, 64, mask, bias, f"{name} ragged 2x8x300x64 w64, key mask, bias",
                     seed)
-    return {"vq": main, "local": local}
+        # LocalMHA's layout: transposed views of one projection, read in place
+        check_local(*local_views(rng, 8, 8, 100, 64, dtype), 128, None, None,
+                    f"{name} 8x8x100x64 w128, LocalMHA's strided q, k, v", seed)
+        q, k, v = local_views(rng, 2, 8, 300, 64, dtype)
+        mask = keyless_mask(2, 300, 64)
+        bias = torch.from_numpy(0.3 * rng.standard_normal((8, 64, 128), dtype=np.float32)).to(DEV)
+        check_local(q, k, v, 64, mask, bias,
+                    f"{name} 2x8x300x64 w64, strided, whole key tiles masked, keyless rows",
+                    seed)
+        check_keyless_rows(q, k, v, 64, mask, f"{name} 2x8x300x64 w64")
+    return {"vq": main, "vq_more": {"1300 rows": vq_more["1300 rows"]}, "local": local["fp32"],
+            "local_more": {k: v for k, v in local.items() if k != "fp32"}}
 
 
 def fill_codebooks(codec, wave, seed):
@@ -1624,13 +1794,16 @@ def main():
             if key in ("fwd", "dq", "dkv"):
                 numbers["bf16"] = dict(numbers["bf16"], bias_form=bf16["bias"][key],
                                        bias_form_coarse=timings["coarse"]["bf16"][key])
-        if key in ("fwd", "dq", "dkv"):
+        if key in ("fwd", "dq", "dkv", "vq", "local"):
             numbers["hmma"] = timings["sass"][key]
+        if key in ("vq", "local"):
+            # K6 at 1300 rows; K7 in bf16 and at 10 s, with the float64 check
+            numbers.update(more=timings[f"{key}_more"], tf32=timings["tf32"][key])
         if key in ("fwd", "dq", "dkv", "dbias"):
             outputs = F64_OUTPUTS[key]
             numbers["f64_rel_err"] = {label: {kind: {x: e for x, e in errs.items() if x in outputs}
-                                              for kind, errs in by_kind.items()}
-                                      for label, by_kind in timings["tf32"].items()}
+                                              for kind, errs in timings["tf32"][label].items()}
+                                      for label in ("table", "bias")}
         rows.append(dict(name=name, route="cuda", source=f"audiolm_pytorch_tpu_torch/csrc/{source}",
                          replaces=replaces,  # in the JAX package
                          launches=sum(per_path.values()), **per_path, **numbers))

@@ -113,3 +113,16 @@ def test_sass_counts_reads_opcodes_per_kernel(monkeypatch):
     assert "flash_fwd_kernel" in fwd and "flash_bwd_dq_kernel" in dq
     assert counts[fwd] == {"HMMA": 2, "FFMA": 1}
     assert counts[dq] == {"HMMA": 0, "FFMA": 1}
+
+
+def test_built_with_makes_every_wrapper_load_the_variant(monkeypatch):
+    # a test's variant (such as plain TF32) for every kernel within the block,
+    # the default build outside it and wherever a caller names its macros
+    base, variant = object(), object()
+    monkeypatch.setitem(_build._loaded, ("vq.cu", ()), base)
+    monkeypatch.setitem(_build._loaded, ("vq.cu", ("MMA_TF32_ONE_PASS",)), variant)
+    assert _build.load("vq.cu") is base
+    with _build.built_with(("MMA_TF32_ONE_PASS",)):
+        assert _build.load("vq.cu") is variant
+        assert _build.load("vq.cu", ()) is base
+    assert _build.load("vq.cu") is base

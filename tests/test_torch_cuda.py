@@ -5,7 +5,11 @@ local attention K7) against their plain PyTorch versions; K1, K2 and K3 on
 the tensor cores (over MQA groups of 1 to 16 and K2 over batch sizes 1 to
 9, float32 within 1e-5 of float64 where a plain-TF32 build fails, rows
 whose first key tile or every key is masked, K3's dk, dv and K2's dq and
-dbias the same bits every run, HMMA in their SASS); the
+dbias the same bits every run, HMMA in their SASS); K6 and K7 on the tensor
+cores (K6 one launch a search, the same bits every run, its plain-TF32
+build caught by the near-tie gate; K7 on strided views, with masked key
+tiles and rows without a key, within 1e-5 of float64 where plain TF32
+fails; HMMA in both); the
 Semantic, Coarse and Fine LMs on the card against the same weights on the
 CPU, in scoring and in train steps, and a small codec's round trip on the
 card against the CPU. They skip where there is no card.
@@ -343,8 +347,11 @@ def _vq_inputs(n, c, d, seed=0):
     return torch.from_numpy(x), torch.from_numpy(cb)
 
 
+# C under one tile of 128 codes (100, 64: a cluster of one), 3 tiles (a
+# cluster of 3), 9 tiles (rank 0 takes two); D not a multiple of 8 or 32
 @pytest.mark.parametrize("n,c,d", [(1, 1024, 512), (7, 1024, 512), (800, 1024, 512),
-                                   (1300, 1024, 512), (37, 100, 33), (130, 64, 16)])
+                                   (1300, 1024, 512), (37, 100, 33), (130, 64, 16),
+                                   (50, 300, 64), (20, 1100, 40), (65, 1024, 30)])
 def test_vq_kernel_matches_plain_version(cuda, n, c, d):
     x, cb = (a.to(cuda) for a in _vq_inputs(n, c, d))
     before = vq.launches
@@ -373,6 +380,75 @@ def test_vq_kernel_gives_ties_the_first_index(cuda):
     for cb in (torch.zeros(300, 64, device=cuda), torch.ones(300, 64, device=cuda)):
         assert (vq.vq_nearest_code(x, cb) == vq.vq_nearest_code_ref(x, cb)).all()
     assert (vq.vq_nearest_code(x, torch.zeros(300, 64, device=cuda)) == 0).all()
+
+
+def test_vq_kernel_gives_the_same_bits_every_run(cuda):
+    x, cb = (a.to(cuda) for a in _vq_inputs(800, 1024, 512, seed=4))
+    first = vq.vq_nearest_code(x, cb)
+    for _ in range(2):
+        assert torch.equal(vq.vq_nearest_code(x, cb), first)
+
+
+def test_vq_search_is_one_device_launch(cuda):
+    # no |e|^2 op, init or unpack kernel around the search
+    x, cb = (a.to(cuda) for a in _vq_inputs(800, 1024, 512))
+    vq.vq_nearest_code(x, cb)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            vq.vq_nearest_code(x, cb)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0}
+    assert len(kernels) == 1 and "vq_nearest_kernel" in next(iter(kernels)), kernels
+    assert next(iter(kernels.values())) == 3, kernels
+
+
+def _near_ties(n, c, d, seed=0):
+    """Each row near the midpoint of two random codes a and b, moved along
+    a - b until their float64 scores differ by 1.5e-5 to 4e-5 of the score's
+    terms (either one lower); every other code far."""
+    rng = np.random.default_rng(seed)
+    cb = rng.normal(size=(c, d)).astype(np.float32)
+    a = rng.integers(0, c, size=n)
+    b = (a + rng.integers(1, c, size=n)) % c
+    ea, eb = cb[a].astype(np.float64), cb[b].astype(np.float64)
+    x0 = (ea + eb) / 2 + 0.3 * rng.normal(size=(n, d))
+    diff = ea - eb
+    size = (ea * ea).sum(-1) + 2 * np.linalg.norm(x0, axis=-1) * np.linalg.norm(ea, axis=-1)
+    gap = rng.uniform(1.5e-5, 4e-5, size=n) * size * rng.choice([-1.0, 1.0], size=n)
+    shift = ((ea * ea).sum(-1) - (eb * eb).sum(-1) - 2 * (x0 * diff).sum(-1) - gap) \
+        / (2 * (diff * diff).sum(-1))
+    return torch.from_numpy((x0 + shift[:, None] * diff).astype(np.float32)), torch.from_numpy(cb)
+
+
+def _far_picks(cuda):
+    """Rows where K6 picks another code than its plain version, and how far
+    apart the float64 scores of the two picks are (share of the terms), at
+    the codec's shape with every row a near tie."""
+    x, cb = (a.to(cuda) for a in _near_ties(800, 1024, 512))
+    got, ref = vq.vq_nearest_code(x, cb), vq.vq_nearest_code_ref(x, cb)
+    rows = (got != ref).nonzero().flatten()
+    xd = x[rows].double()
+
+    def score(pick):
+        e = cb.double()[pick[rows].long()]
+        return (e.square().sum(-1) - 2 * (xd * e).sum(-1),
+                e.square().sum(-1) + 2 * xd.norm(dim=-1) * e.norm(dim=-1))
+
+    (s_got, size), (s_ref, _) = score(got), score(ref)
+    return ((s_got - s_ref).abs() / size).tolist()
+
+
+def test_vq_kernel_picks_the_plain_versions_codes_at_near_ties(cuda):
+    assert all(gap < 1e-5 for gap in _far_picks(cuda))
+
+
+def test_plain_tf32_build_of_k6_fails_the_near_tie_gate(cuda):
+    # the products without the small terms (plain TF32) err by ~1e-5 of the terms
+    with _build.built_with(("MMA_TF32_ONE_PASS",)):
+        gaps = _far_picks(cuda)
+    assert max(gaps, default=0.0) >= 1e-5, gaps
 
 
 def _local_inputs(b, h, t, w, masked, biased, seed=0):
@@ -406,6 +482,75 @@ def test_local_attention_kernel_matches_plain_version(cuda, b, t, w, masked, bia
     assert la.launches == before + 1 and out.dtype == dtype
     torch.testing.assert_close(out.float(), la.local_attention_ref(q, k, v, **kw).float(),
                                rtol=tol, atol=tol)
+
+
+def _strided_local(b, h, t, dtype, cuda, seed=1):
+    """q, k, v as LocalMHA hands them over: (B, H, T, D) views of chunks of
+    one (B, T, 3 H D) projection."""
+    rng = np.random.default_rng(seed)
+    qkv = torch.from_numpy(rng.normal(size=(b, t, 3 * h * 64)).astype(np.float32))
+    return [a.reshape(b, t, h, 64).transpose(1, 2)
+            for a in qkv.to(cuda, dtype).chunk(3, dim=-1)]
+
+
+# whole key tiles masked: keys 0-69 of row 0 (window 0's first tile, so its
+# queries 0-69 have no key), and in row 1 keys 64-191 at w 64 (windows 1 and
+# 2: window 2's queries have no key) or 0-255 at w 128 (windows 0 and 1: no
+# query of theirs has a key)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-3), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("t,w", [(300, 64), (200, 64), (300, 128), (129, 128), (256, 128)])
+def test_local_attention_kernel_on_strided_views_and_masked_tiles(cuda, t, w, dtype, tol):
+    q, k, v = _strided_local(2, 8, t, dtype, cuda)
+    assert all(la._readable(a) is a for a in (q, k, v))  # no copy on the way in
+    mask = torch.ones(2, t, dtype=torch.bool, device=cuda)
+    mask[0, :70] = False
+    mask[1, 64:192] = False
+    if w == 128:
+        mask[1, :256] = False
+    bias = torch.from_numpy((0.3 * np.random.default_rng(2).normal(size=(8, w, 2 * w)))
+                            .astype(np.float32)).to(cuda)
+    for kw in (dict(mask=mask), dict(mask=mask, attn_bias=bias), {}):
+        out = la.local_attention(q, k, v, window_size=w, scale=8 / 64, **kw)
+        ref = la.local_attention_ref(q, k, v, window_size=w, scale=8 / 64, **kw)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    # a row without a key: the mean of the window's 2w value slots
+    out = la.local_attention(q, k, v, window_size=w, mask=mask)
+    torch.testing.assert_close(out[0, :, 0].float(), v[0, :, :w].float().sum(1) / (2 * w),
+                               rtol=tol, atol=tol)
+
+
+def _k7_f64_error(cuda, t, w, masked):
+    q, k, v, mask, bias = _local_inputs(2, 8, t, w, masked, True, seed=6)
+    q, k, v, bias = (a.to(cuda) for a in (q, k, v, bias))
+    kw = dict(window_size=w, mask=None if mask is None else mask.to(cuda), scale=8 / 64)
+    ref = la.local_attention_ref(q.double(), k.double(), v.double(), attn_bias=bias.double(),
+                                 **kw)
+    out = la.local_attention(q, k, v, attn_bias=bias, **kw)
+    return float((out.double() - ref).abs().max() / ref.abs().max())
+
+
+K7_F64_CASES = [(300, 64, True), (500, 128, False)]
+
+
+@pytest.mark.parametrize("t,w,masked", K7_F64_CASES)
+def test_fp32_k7_holds_float64_to_1e5(cuda, t, w, masked):
+    assert _k7_f64_error(cuda, t, w, masked) <= 1e-5
+
+
+@pytest.mark.parametrize("t,w,masked", K7_F64_CASES)
+def test_plain_tf32_build_fails_the_k7_float64_check(cuda, t, w, masked):
+    with _build.built_with(("MMA_TF32_ONE_PASS",)):
+        assert _k7_f64_error(cuda, t, w, masked) > 1e-5
+
+
+def test_k6_and_k7_issue_tensor_core_instructions(cuda):
+    found = {}
+    for src, kernel in ((vq.SOURCE, "vq_nearest_kernel"), (la.SOURCE, "local_attn_kernel")):
+        for mangled, ops in _build.sass_counts(src).items():
+            if kernel in mangled:
+                found[kernel, "bf16" if "bfloat16" in mangled else "fp32"] = ops["HMMA"]
+    assert sorted(found) == [("local_attn_kernel", "bf16"), ("local_attn_kernel", "fp32"),
+                             ("vq_nearest_kernel", "fp32")] and all(found.values()), found
 
 
 def test_local_attention_on_a_card_is_differentiable(cuda):

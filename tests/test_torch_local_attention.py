@@ -4,9 +4,11 @@ model path's XLA `local_attention` and the Pallas kernel
 `local_attention_pallas` in interpret mode, with and without a key mask and
 an (H, w, 2w) bias, at T that is and is not a multiple of the window; the
 case where the two JAX versions part (a query of window 0 whose every key is
-masked), where the port follows the model path; gradients through the
-port's autograd.Function against `jax.vjp` of the Pallas kernel (whose
-backward is XLA's); and `rotary_xpos`, `DynamicPositionBias`, `LocalMHA`
+masked), where the port follows the model path; q, k, v handed over as
+LocalMHA's strided views of one projection, and which layouts the kernel
+reads in place; the float64 evaluation the card's float32 kernel is held
+to; gradients through the port's autograd.Function against `jax.vjp` of
+the Pallas kernel (whose backward is XLA's); and `rotary_xpos`, `DynamicPositionBias`, `LocalMHA`
 and `LocalTransformer` with weights copied across. Both sides get the same
 numpy inputs.
 
@@ -90,6 +92,56 @@ def test_window_zero_fully_masked_follows_the_model_path():
                                + np.zeros((1, 2, 4, 16), np.float32), **TOL)
     assert np.abs(pallas[:, :, :4] - xla[:, :, :4]).max() > 0.05
     np.testing.assert_allclose(pallas[:, :, 4:], xla[:, :, 4:], **TOL)
+
+
+def _projection_views(rng, b, h, n, d):
+    """q, k, v as LocalMHA hands them to K7: (B, H, T, D) views of the three
+    chunks of one (B, T, 3 H D) projection, none of them contiguous."""
+    qkv = t(rng.normal(size=(b, n, 3 * h * d)).astype(np.float32))
+    return [a.reshape(b, n, h, d).transpose(1, 2) for a in qkv.chunk(3, dim=-1)]
+
+
+@pytest.mark.parametrize("n,w", [(100, 64), (300, 16)])
+def test_plain_k7_takes_strided_views_and_matches_xla(n, w):
+    rng = np.random.default_rng(11 + n)
+    views = _projection_views(rng, 2, 2, n, 16)
+    assert not any(a.is_contiguous() for a in views)
+    q, k, v = (np.ascontiguousarray(a.numpy()) for a in views)
+    _, _, _, mask, bias = _inputs(rng, 2, 2, n, 16, w, True, True)
+    got = pk.local_attention(*views, window_size=w, mask=t(mask), attn_bias=t(bias), scale=0.3)
+    np.testing.assert_allclose(got.numpy(), _jax(ja.local_attention, q, k, v, mask, bias, w,
+                                                 scale=0.3), **TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_reads_projection_views_in_place_and_copies_other_layouts(dtype):
+    # the kernel's 16-byte copies need a contiguous last dimension, and
+    # (batch, head, time) strides and an address that are multiples of 16 bytes
+    b, h, n, d = 2, 3, 10, 64
+    views = [a.reshape(b, n, h, d).transpose(1, 2)
+             for a in torch.zeros(b, n, 3 * h * d, dtype=dtype).chunk(3, dim=-1)]
+    assert all(pk._readable(a) is a for a in views)
+    others = (torch.arange(b * h * n * d + 1, dtype=dtype)[1:].view(b, h, n, d),  # misaligned
+              torch.randn(b, h, n, 2 * d).to(dtype)[..., ::2],  # strided last dimension
+              torch.randn(b, h, n, d + 2).to(dtype)[..., :d])  # rows 2 elements apart too many
+    for a in others:
+        got = pk._readable(a)
+        assert got is not a and got.is_contiguous() and got.data_ptr() % 16 == 0
+        assert torch.equal(got, a)
+
+
+def test_plain_k7_evaluates_float64_inputs_in_float64():
+    # the float64 evaluation a float32 kernel is held to on the card
+    rng = np.random.default_rng(12)
+    q, k, v, mask, bias = _inputs(rng, 2, 2, 100, 16, 64, True, True)
+    kw = dict(window_size=64, mask=t(mask), scale=0.3)
+    got64 = pk.local_attention_ref(t(q).double(), t(k).double(), t(v).double(),
+                                   attn_bias=t(bias).double(), **kw)
+    got32 = pk.local_attention_ref(t(q), t(k), t(v), attn_bias=t(bias), **kw)
+    assert got64.dtype == torch.float64
+    np.testing.assert_allclose(got64.numpy(), _jax(ja.local_attention, q, k, v, mask, bias, 64,
+                                                   scale=0.3), **TOL)
+    assert 0 < (got64 - got32.double()).abs().max() < 1e-5
 
 
 @pytest.mark.parametrize("masked,biased", [(False, False), (True, True)])

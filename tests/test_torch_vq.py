@@ -1,10 +1,11 @@
 """The port's nearest-code search (K6) and eval-mode quantizers against the
 JAX package on the CPU: the plain version of K6 against the Pallas kernel
 `ops/pallas/vq.py::vq_nearest_code` in interpret mode, at ragged N, with
-duplicated codebook rows that force ties; then `VectorQuantizeEMA`,
-`ResidualVQ` and `GroupedResidualVQ` with JAX's quantizer taking that
-kernel, as on the TPU (the test patches `on_tpu` and the kernel's interpret
-flag; the JAX package is unchanged). Both sides get the same numpy inputs.
+duplicated codebook rows that force ties, and on a strided x; then
+`VectorQuantizeEMA`, `ResidualVQ` and `GroupedResidualVQ` with JAX's
+quantizer taking that kernel, as on the TPU (the test patches `on_tpu` and
+the kernel's interpret flag; the JAX package is unchanged). Both sides get
+the same numpy inputs.
 
 Tolerances: indices identical; quantized outputs within 1e-5 (float32,
 summation order only)."""
@@ -71,6 +72,14 @@ def test_plain_k6_ties_go_to_the_first_index():
         want = np.asarray(jvq.vq_nearest_code(jnp.asarray(x), jnp.asarray(cb), interpret=True))
         np.testing.assert_array_equal(vq_nearest_code_ref(t(x), t(cb)).numpy(), want)
         assert (want == 0).all()
+
+
+def test_plain_k6_takes_a_strided_x_and_matches_pallas_kernel():
+    x, cb = _codes_and_rows(np.random.default_rng(3), 37, 64, 32)
+    xt = t(np.ascontiguousarray(x.T)).t()  # the (N, D) transpose of a (D, N) array
+    assert not xt.is_contiguous()
+    want = np.asarray(jvq.vq_nearest_code(jnp.asarray(x), jnp.asarray(cb), interpret=True))
+    np.testing.assert_array_equal(vq_nearest_code(xt, t(cb)).numpy(), want)
 
 
 def _jax_with_codebooks(jm, rng, scale):

@@ -9,11 +9,13 @@ the builds interleaved (default, cvt, cvt, default) in one process.
 
     python tools/torch_flash_ab.py [--seed N]
 
-Needs a CUDA card; imports torch, numpy, the standard library and the port.
+Needs a CUDA card; imports torch, numpy, the standard library, the port and
+tools/cuda_timing.py.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import subprocess
 import sys
 from pathlib import Path
@@ -23,23 +25,13 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from audiolm_pytorch_tpu_torch.ops.kernels import flash_attention as fa  # noqa: E402
+from tools import cuda_timing  # noqa: E402
+
+cuda_ms = functools.partial(cuda_timing.cuda_ms, iters=20, warmup=3)
 
 CVT = ("MMA_TF32_CVT",)
 # (label, n, bias form): the Semantic (table), Fine and Coarse training shapes
 SHAPES = (("table", 2049, "table"), ("bias", 1201, "bias"), ("bias", 603, "bias"))
-
-
-def cuda_ms(fn, iters=20, warmup=3):
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def inputs(rng, n, form, b=4, h=8):
