@@ -6,6 +6,7 @@ wrapper takes its plain PyTorch version.
 """
 from .device import resolve_device
 from .models.audiolm import AudioLM
+from .data.dataset import SoundDataset, get_dataloader
 from .models.soundstream import AudioLMSoundStream, SoundStream, load_soundstream
 from .models.lm import (CoarseTransformer, FineTransformer, SemanticTransformer,
                         load_coarse_transformer, load_fine_transformer,
@@ -19,9 +20,11 @@ from .ops.kernels.flash_attention import (flash_attention, flash_attention_bwd_r
 from .ops.kernels.local_attention import local_attention, local_attention_ref
 from .ops.kernels.vq import vq_nearest_code, vq_nearest_code_ref
 from .training.optimizer import get_optimizer, separate_weight_decayable_params
-from .training.trainer import TransformerTrainStep
+from .training.ema import EMA
+from .training.trainer import SoundStreamTrainer, TransformerTrainStep
 from .utils.metrics import si_snr
-from .weights import codec_state_dict_from_jax, read_npz, state_dict_from_jax
+from .weights import (codec_state_dict_from_jax, codec_state_dict_to_jax, read_npz,
+                      state_dict_from_jax)
 
 __all__ = ["SemanticTransformer", "SemanticTransformerWrapper", "CoarseTransformer",
            "CoarseTransformerWrapper", "FineTransformer", "FineTransformerWrapper",
@@ -32,4 +35,5 @@ __all__ = ["SemanticTransformer", "SemanticTransformerWrapper", "CoarseTransform
            "state_dict_from_jax", "resolve_device", "SoundStream", "AudioLMSoundStream",
            "load_soundstream", "AudioLM", "decode_acoustic_tokens", "local_attention",
            "local_attention_ref", "vq_nearest_code", "vq_nearest_code_ref", "si_snr",
-           "codec_state_dict_from_jax"]
+           "codec_state_dict_from_jax", "codec_state_dict_to_jax", "SoundStreamTrainer", "EMA",
+           "SoundDataset", "get_dataloader"]

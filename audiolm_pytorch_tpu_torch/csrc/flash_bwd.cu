@@ -12,7 +12,8 @@
 //   K4 `_dblocks_kernel` the bias gradient sum_b dS in per-delta-block form,
 //                        folded into the table by AD of
 //                        ops/relpos.py::delta_bias_blocks; here straight into
-//                        dtab[q - k + N - 1, h], inside K2's launch
+//                        dtab[q - k + N - 1, h]: partial sums inside K2's
+//                        launch, added in a fixed order by a second pass
 //   K5 `_dbias_kernel`   dbias = sum_b dS for a batch-shared (H, N, M) bias,
 //                        inside K2's launch
 // with the same semantics: masked keys at -1e30, keys past M at -inf, a row
@@ -27,8 +28,9 @@
 // GFLOP: 0.156 ms as 3xTF32 at 495 TFLOP/s, 26 us in bf16 at 989), K3 does 4
 // (34.4 GFLOP: 0.21 ms as 3xTF32, 35 us in bf16); worked out from the
 // shapes, not measured. K4 and K5 need K2's dS tile and nothing else, so
-// they live in its launch: each adds one add per attended pair, K4 the
-// (2N-1, H) table's read-modify-write, K5 the (H, N, M) float32 dbias
+// they live in its launch: each adds one add per attended pair, K4 its
+// partial sums (9.2 MB of float32 at the flagship's training shape, written
+// once and read once by its second pass), K5 the (H, N, M) float32 dbias
 // written once (46 MB at the Fine LM's N = 1201, 14 us at 3.35 TB/s), where
 // alone each would redo 2 of K2's 3 products to rebuild dS.
 //
@@ -48,13 +50,23 @@
 //       masking rule at the end of mma.cuh; dq += dS K takes dS as the A
 //       operand straight from the accumulators, each tile's product from
 //       zero in float32 (tc::add_tile: dq sums over up to 2049 keys).
-//   K4, inside K2 when dtab is given: each strip stores its 16 rows of the
-//       tile's dS skewed in shared memory (element (r, c) at column c - r +
-//       15), so that each of its 79 diagonals is a column; a lane sums a
-//       column, and it is added with one atomicAdd per diagonal per strip per
-//       tile into the zeroed float32 (2N-1, H) buffer (the batch sum among
-//       them, in an order that changes from run to run). Only the strip's
-//       warps meet (a named barrier): no block barrier inside the loop.
+//   K4, inside K2 when dtab is given, then a second small pass: each strip
+//       stores its 16 rows of the tile's dS skewed in shared memory
+//       (element (r, c) at column c - r + 15), so that each of its 79
+//       diagonals is a column; a lane sums a column into the strip's row of
+//       the tile's 128 delta slots (two buffers, one a tile). After the
+//       tile's block barrier, thread i < 128 adds the four strips' slots of
+//       the delta it owns there (the block's local delta index = i mod 128),
+//       in strip order, to a register, and writes each delta's sum once,
+//       when the key tiles have passed it, to the block's row of a scratch
+//       buffer (B, H, query tiles, 64 (key tiles + 1)). The second pass,
+//       dtab_sum_kernel, adds those rows over the batch rows and then the
+//       query tiles, in that order, into dtab. Every sum has a fixed order,
+//       so dtab has the same bits every run, as the JAX package's
+//       `_dblocks_kernel` sums in a fixed order (atomics had added the
+//       partials in an order that changed from run to run). Inside the loop
+//       only the strip's warps meet (a named barrier), besides the block
+//       barrier a tile that was there already.
 //   K5, inside K2 when dbias is given (an instantiation of its own, SUM):
 //       the blocks of one (head, query tile), one per batch row, form a
 //       thread-block cluster of the largest divisor of B up to 8. Each key
@@ -135,6 +147,7 @@ __device__ __forceinline__ void strip_sync(int strip) {
 }
 constexpr int TPD = BK + 8;    // K2's float32 tiles' pitch (bias block, dS): 8 mod 32 banks
 constexpr int SKP = BK + 16;   // K4's skewed dS rows: a strip's diagonals take BK + 15 columns
+constexpr int DSL = 2 * BK;    // K4's delta slots a tile: a key tile meets BQ + BK - 1 deltas
 static_assert(TPD % 4 == 0, "16-byte rows");
 
 // Shared memory: two stages of (K tile, V tile, table slice [BQ + BK - 1],
@@ -152,7 +165,8 @@ struct DqSmem {
   static constexpr size_t fixed = 2 * (BQ / 16) * tc::AFixed<T, D>::bytes;  // Q, dO by strip
   static constexpr size_t base = 2 * stage + fixed;
   static constexpr size_t ftile = (size_t)BQ * TPD * sizeof(float);
-  static constexpr size_t skew = (size_t)BQ * SKP * sizeof(float);
+  // K4's skewed rows, then its delta slots: two buffers of four strips
+  static constexpr size_t skew = ((size_t)BQ * SKP + 2 * 4 * DSL) * sizeof(float);
   static_assert(skew <= 2 * ftile, "K4's skewed rows fit where a bias's blocks go");
   static_assert((size_t)BQ * TPD * sizeof(float) <= stage, "the partial dq fits in a stage");
   static_assert(tile % 16 == 0 && stage % 16 == 0 && fixed % 16 == 0, "16-byte aligned regions");
@@ -194,13 +208,37 @@ __device__ __forceinline__ void batch_sum_rows(const cg::cluster_group& cluster,
   }
 }
 
+// K4's second pass: dtab[idx, h] = the sum over the batch rows, then the
+// query tiles, of the K2 blocks' partial sums of the delta idx - (n - 1)
+// (part: (b, heads, query tiles, 64 (key tiles + 1)); a block writes its
+// local deltas a = q0 + BQ - 1 - delta < 64 (its key tiles + 1)); every
+// element of dtab written.
+constexpr int NT_DTAB = 256;
+__global__ void __launch_bounds__(NT_DTAB)
+dtab_sum_kernel(const float* __restrict__ part, float* __restrict__ dtab, int b, int heads,
+                int n, int m, int causal) {
+  const int idx = blockIdx.x * NT_DTAB + threadIdx.x, h = blockIdx.y;
+  if (idx >= 2 * n - 1) return;
+  const int nqt = (n + BQ - 1) / BQ, arow = BK * ((m + BK - 1) / BK + 1);
+  const int delta = idx - (n - 1);
+  float sum = 0.f;
+  for (int bi = 0; bi < b; ++bi)
+    for (int qt = 0; qt < nqt; ++qt) {
+      const int q0 = qt * BQ, a = q0 + BQ - 1 - delta;
+      const int kv_end = causal ? min(m, q0 + BQ) : m;
+      if (a >= 0 && a < BK * ((kv_end + BK - 1) / BK + 1))
+        sum += part[((size_t)(bi * heads + h) * nqt + qt) * arow + a];
+    }
+  dtab[(size_t)idx * heads + h] = sum;
+}
+
 template <typename T, int D, bool SUM>
 __global__ void __launch_bounds__(K2Warps<T>::threads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ g, const float* __restrict__ lse,
                     const float* __restrict__ delta, const float* __restrict__ tab,
                     const float* __restrict__ bias, const int8_t* __restrict__ kmask,
-                    T* __restrict__ dq, float* __restrict__ dtab, float* __restrict__ dbias,
+                    T* __restrict__ dq, float* __restrict__ dpart, float* __restrict__ dbias,
                     int heads, int group, int n, int m, float scale, int causal) {
   using S = DqSmem<T, D>;
   constexpr int P = S::P;
@@ -236,6 +274,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   // sum goes to row gq of its warp's 8 rows, column c - gq + 15. The cells
   // off the band are zeros, written once.
   float* sk = dense + strip * 8 * WN * SKP;
+  // K4's delta slots of tile it: dsl(it)[strip * DSL + a - k0] holds the
+  // strip's sum of the delta q0 + BQ - 1 - a (a: the block's local index)
+  auto dsl = [&](int it) { return dense + BQ * SKP + (it & 1) * 4 * DSL; };
+  const int nkt = (m + BK - 1) / BK;
+  float* prow = dpart != nullptr
+                    ? dpart + (bh * gridDim.z + q0 / BQ) * (size_t)(BK * (nkt + 1)) : nullptr;
+  int a_cur = -1;  // the local delta this thread sums now (thread i < DSL owns a = i mod DSL)
+  float a_sum = 0.f;
 
   // causal (n == m): key k is seen by query q iff k <= q
   const int kv_end = causal ? min(m, q0 + BQ) : m;
@@ -276,8 +322,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     lse_r[ri] = l > 0.5f * NEG ? l : INFINITY;
     dl_r[ri] = qp < n ? delta[bh * n + qp] : 0.f;
   }
-  if (dtab != nullptr)
-    for (int i = tid; i < BQ * SKP; i += NT) dense[i] = 0.f;
+  if (dpart != nullptr)
+    for (int i = tid; i < BQ * SKP + 2 * 4 * DSL; i += NT) dense[i] = 0.f;
   tc::cp_async_wait_all();
   __syncthreads();
   typename tc::AFixed<T, D>::type qa, ga;
@@ -345,10 +391,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         ds[j][2 * ri + 1] = tc::exp_rel(x1, lse_r[ri]) * (ds[j][2 * ri + 1] - dl_r[ri]);
       }
     }
-    if (dtab != nullptr) {
+    if (dpart != nullptr) {
       // K4: the strip's diagonals, a lane per column of its skewed rows:
-      // column x holds delta q0 - k0 + 16 strip + 15 - x; one atomicAdd per
-      // diagonal per strip per tile. Barriers: the strip's warps only.
+      // column x holds delta q0 - k0 + 16 strip + 15 - x, local index a =
+      // k0 + 48 - 16 strip + x. Barriers: the strip's warps only.
       float* row = sk + (kh * 8 + gq) * SKP + kc0 + 2 * t - gq + 15;
 #pragma unroll
       for (int j = -1; j < KW / 8; ++j)
@@ -363,10 +409,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
           sum0 += sk[r * SKP + x];
           sum1 += sk[(r + 1) * SKP + x];
         }
-        const float sum = sum0 + sum1;
-        const int idx = q0 - k0 + strip * 16 + 15 - x + n - 1;
-        if (sum != 0.f && idx >= 0 && idx < 2 * n - 1)
-          atomicAdd(dtab + (size_t)idx * heads + h, sum);
+        dsl(it)[strip * DSL + 48 - 16 * strip + x] = sum0 + sum1;
       }
     }
     if (batch_sum) {
@@ -383,7 +426,20 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       tc::cp_async_wait_all();
     }
     __syncthreads();  // this stage is consumed and the next one has landed
+    if (dpart != nullptr && tid < DSL) {
+      // K4: the tile's four strips, in order, onto the delta this thread
+      // owns in it; a delta the key tiles have passed is written once
+      const int a = k0 + ((tid - k0) & (DSL - 1));
+      if (a != a_cur) {
+        if (a_cur >= 0) prow[a_cur] = a_sum;
+        a_cur = a;
+        a_sum = 0.f;
+      }
+      const float* d = dsl(it) + (a - k0);
+      a_sum += ((d[0] + d[DSL]) + d[2 * DSL]) + d[3 * DSL];
+    }
   }
+  if (dpart != nullptr && tid < DSL && a_cur >= 0) prow[a_cur] = a_sum;
   if (batch_sum && ntiles > 0) {
     // K5 of the last tile; no block leaves while the cluster still reads its dS
     tc::cluster_wait();
@@ -620,9 +676,10 @@ int cluster_size(int x) {
   return c;
 }
 
-// K2; o2 the gradient of the bias given, dtab (K4) or dbias (K5), or null
+// K2; o2 the gradient of the bias given, dtab (K4, then its second pass,
+// with its partial sums in part) or dbias (K5), or null
 template <typename T, int D>
-cudaError_t launch_dq(const Args& a, void* dq, void* o2) {
+cudaError_t launch_dq(const Args& a, void* dq, void* o2, void* part) {
   using S = DqSmem<T, D>;
   const bool dense = a.bias != nullptr, sum = dense && o2 != nullptr;
   auto kernel = sum ? flash_bwd_dq_kernel<T, D, true> : flash_bwd_dq_kernel<T, D, false>;
@@ -638,13 +695,20 @@ cudaError_t launch_dq(const Args& a, void* dq, void* o2) {
   cfg.stream = a.stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(
+  const bool dtab = !dense && o2 != nullptr;
+  err = cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.g), static_cast<const float*>(a.lse),
       static_cast<const float*>(a.delta), static_cast<const float*>(a.tab),
       static_cast<const float*>(a.bias), static_cast<const int8_t*>(a.kmask), static_cast<T*>(dq),
-      static_cast<float*>(dense ? nullptr : o2), static_cast<float*>(dense ? o2 : nullptr),
+      static_cast<float*>(dtab ? part : nullptr), static_cast<float*>(dense ? o2 : nullptr),
       a.heads, a.heads / a.hk, a.n, a.m, a.scale, a.causal);
+  if (err != cudaSuccess || !dtab) return err;
+  const dim3 grid((2 * a.n - 1 + NT_DTAB - 1) / NT_DTAB, a.heads);
+  dtab_sum_kernel<<<grid, NT_DTAB, 0, a.stream>>>(static_cast<const float*>(part),
+                                                  static_cast<float*>(o2), a.b, a.heads, a.n,
+                                                  a.m, a.causal);
+  return cudaGetLastError();
 }
 
 template <typename T, int D>
@@ -674,23 +738,23 @@ cudaError_t launch_dkv(const Args& a, void* dk, void* dv) {
 
 // which: 0 dq (and the bias's gradient in o2 when not null), 1 dk/dv
 template <typename T>
-cudaError_t dispatch(int which, int d, const Args& a, void* o1, void* o2) {
+cudaError_t dispatch(int which, int d, const Args& a, void* o1, void* o2, void* part) {
   if (d != 64) return cudaErrorInvalidValue;
   if (a.tab != nullptr && a.bias != nullptr) return cudaErrorInvalidValue;
   if (which == 1) return launch_dkv<T, 64>(a, o1, o2);
-  if (o2 != nullptr && (a.tab == nullptr ? a.bias == nullptr : a.n != a.m))
+  if (o2 != nullptr && (a.tab == nullptr ? a.bias == nullptr : a.n != a.m || part == nullptr))
     return cudaErrorInvalidValue;
-  return launch_dq<T, 64>(a, o1, o2);
+  return launch_dq<T, 64>(a, o1, o2, part);
 }
 
 int run(int which, const void* q, const void* k, const void* v, const void* g,
         const void* lse, const void* delta, const void* tab, const void* bias,
-        const void* kmask, void* o1, void* o2, int b, int heads, int hk, int n, int m, int d,
-        float scale, int causal, int dtype, void* stream) {
+        const void* kmask, void* o1, void* o2, void* part, int b, int heads, int hk, int n,
+        int m, int d, float scale, int causal, int dtype, void* stream) {
   const Args a{q, k, v, g, lse, delta, tab, bias, kmask, b, heads, hk, n, m, scale, causal,
                static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) return dispatch<float>(which, d, a, o1, o2);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(which, d, a, o1, o2);
+  if (dtype == 0) return dispatch<float>(which, d, a, o1, o2, part);
+  if (dtype == 1) return dispatch<__nv_bfloat16>(which, d, a, o1, o2, part);
   return cudaErrorInvalidValue;
 }
 
@@ -703,16 +767,18 @@ int run(int which, const void* q, const void* k, const void* v, const void* g,
 
 // dq (b*heads, n, d) in q's dtype; with dgrad not null also the gradient of
 // the bias given, summed over the batch: with tab, dtab (2n-1, heads)
-// float32, zeroed by the caller (needs n == m); with bias, dbias (heads, n,
-// m) float32, every element written, zeroed by the caller when b > 8
-// (several clusters per tile meet by atomics there)
+// float32, every element written (needs n == m, and part: float32 scratch
+// of b * heads * ceil(n / 64) * 64 (ceil(m / 64) + 1) elements for K4's
+// partial sums; K4's second pass is a launch of its own after K2's); with
+// bias, dbias (heads, n, m) float32, every element written, zeroed by the
+// caller when b > 8 (several clusters per tile meet by atomics there)
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* g,
                             const void* lse, const void* delta, const void* tab,
-                            const void* bias, const void* kmask, void* dq, void* dgrad, int b,
-                            int heads, int hk, int n, int m, int d, float scale, int causal,
-                            int dtype, void* stream) {
-  return run(0, q, k, v, g, lse, delta, tab, bias, kmask, dq, dgrad, b, heads, hk, n, m, d,
-             scale, causal, dtype, stream);
+                            const void* bias, const void* kmask, void* dq, void* dgrad,
+                            void* part, int b, int heads, int hk, int n, int m, int d,
+                            float scale, int causal, int dtype, void* stream) {
+  return run(0, q, k, v, g, lse, delta, tab, bias, kmask, dq, dgrad, part, b, heads, hk, n, m,
+             d, scale, causal, dtype, stream);
 }
 
 // dk, dv (b*hk, m, d) in k's dtype
@@ -721,6 +787,6 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
                              const void* bias, const void* kmask, void* dk, void* dv, int b,
                              int heads, int hk, int n, int m, int d, float scale, int causal,
                              int dtype, void* stream) {
-  return run(1, q, k, v, g, lse, delta, tab, bias, kmask, dk, dv, b, heads, hk, n, m, d,
-             scale, causal, dtype, stream);
+  return run(1, q, k, v, g, lse, delta, tab, bias, kmask, dk, dv, nullptr, b, heads, hk, n, m,
+             d, scale, causal, dtype, stream);
 }

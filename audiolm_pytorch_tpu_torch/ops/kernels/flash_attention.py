@@ -41,7 +41,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0       # forward (K1)
 launches_dq = 0    # dq (K2)
 launches_dkv = 0   # dk, dv (K3)
-launches_dtab = 0  # bias-table gradient (K4, fused into K2's launch)
+launches_dtab = 0  # bias-table gradient (K4: partial sums in K2's launch, then its second pass)
 launches_dbias = 0  # (H, N, M) bias gradient (K5, fused into K2's launch)
 # K5's cluster holds at most this many batch rows; beyond it the clusters of
 # one tile add their partial sums by atomics into a zeroed dbias
@@ -258,11 +258,13 @@ def flash_attention_bwd_ref(q, k, v, bias_tab, key_mask, out, lse, g, *,
 
 
 def _bwd_launch(name, outs, q, k, v, g, lse, delta, tab, kmask, *, causal, scale, bias=None):
+    """outs: K2's (dq, the bias's gradient, K4's scratch) or K3's (dk, dv),
+    each a tensor or None."""
     b, h, n, d = q.shape
     hk, m = k.shape[1], k.shape[2]
-    # q k v g lse delta tab bias kmask, the two outputs, b heads hk n m d, scale, causal
+    # q k v g lse delta tab bias kmask, the outputs, b heads hk n m d, scale, causal
     # dtype stream
-    fn = _fn(SOURCE_BWD, name, [_P] * 11 + [_I] * 6 + [_F, _I, _I, _P])
+    fn = _fn(SOURCE_BWD, name, [_P] * (9 + len(outs)) + [_I] * 6 + [_F, _I, _I, _P])
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
              delta.data_ptr(), _ptr(tab), _ptr(bias), _ptr(kmask), *(_ptr(o) for o in outs),
              b, h, hk, n, m, d, scale, int(causal), _DTYPES[q.dtype], _stream(q))
@@ -274,17 +276,21 @@ def bwd_dq(q, k, v, g, lse, delta, tab, kmask, *, causal: bool, scale: float, bi
     """K2 on prepared arguments (contiguous; tab and bias float32 and kmask
     int8 or None; lse and delta (B, H, N) float32): dq in q's dtype, and in
     the same launch the float32 gradient of the bias given, summed over the
-    batch: with a table K4, the (2N-1, H) gradient, by atomics into a zeroed
-    buffer; with an (H, N, M) bias K5, its (H, N, M) gradient, summed over a
+    batch: with a table K4, the (2N-1, H) gradient, its partial sums in K2's
+    launch and added in a fixed order by a second launch (the same bits every
+    run); with an (H, N, M) bias K5, its (H, N, M) gradient, summed over a
     cluster of the batch rows in a fixed order (by atomics between clusters,
     into a zeroed buffer, only for B > 8); else None."""
     dq = torch.empty_like(q)
-    dgrad = None
+    dgrad = part = None
     if tab is not None:
-        dgrad = torch.zeros_like(tab)
+        dgrad = torch.empty_like(tab)
+        b, h, n, _ = q.shape
+        tiles = -(-n // 64), -(-k.shape[2] // 64)  # 64-row query and key tiles
+        part = torch.empty(b * h * tiles[0] * 64 * (tiles[1] + 1), device=q.device)
     elif bias is not None:
         dgrad = torch.zeros_like(bias) if q.shape[0] > _MAX_CLUSTER else torch.empty_like(bias)
-    _bwd_launch("flash_bwd_dq", (dq, dgrad), q, k, v, g, lse, delta, tab, kmask,
+    _bwd_launch("flash_bwd_dq", (dq, dgrad, part), q, k, v, g, lse, delta, tab, kmask,
                 causal=causal, scale=scale, bias=bias)
     global launches_dq, launches_dtab, launches_dbias
     launches_dq += 1

@@ -8,7 +8,9 @@ The format (written by the JAX package's `training/checkpoint.py`): one
 then `leaf_0 ... leaf_{n-1}` in `leaf_names` order. Only numpy is needed to
 read it: bfloat16 leaves are reinterpreted as `torch.bfloat16` directly.
 Buffer leaves (the codec's codebooks and EMA statistics) carry a literal
-`[<flat index 0>]` at the end of their path, which the map drops.
+`[<flat index 0>]` at the end of their path, which the map drops. The
+codec's map also runs the other way (`codec_state_dict_to_jax`), so the
+port writes checkpoints the JAX package reads.
 """
 from __future__ import annotations
 
@@ -18,15 +20,17 @@ import re
 import numpy as np
 import torch
 
-__all__ = ["read_npz", "state_dict_from_jax", "codec_state_dict_from_jax", "CODEC_UNUSED"]
+__all__ = ["read_npz", "state_dict_from_jax", "codec_state_dict_from_jax",
+           "codec_state_dict_to_jax", "DISCRIMINATORS"]
 
 # slots of one JAX Transformer layer tuple
 # (hc_attn, attn, hc_cross, cross, hc_ff, ff); cross attention is not ported
 _LAYER_SLOTS = {0: "hc_attn", 1: "attn", 4: "hc_ff", 5: "ff"}
 _INDEX = re.compile(r"\[(\d+)\]")
 _FLAT_INDEX = re.compile(r"\[<flat index \d+>\]")
-# the codec's modules that serving does not use (the GAN discriminators)
-CODEC_UNUSED = ("discriminators.", "stft_discriminator.")
+_BUFFER_LEAF = "[<flat index 0>]"
+# the codec's GAN discriminators (their state_dict keys' prefixes)
+DISCRIMINATORS = ("discriminators.", "stft_discriminator.")
 
 
 def read_npz(path) -> "tuple[dict, dict[str, torch.Tensor]]":
@@ -40,7 +44,7 @@ def read_npz(path) -> "tuple[dict, dict[str, torch.Tensor]]":
             if name in bf16:
                 t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
             else:
-                t = torch.from_numpy(np.ascontiguousarray(a))
+                t = torch.from_numpy(np.array(a))  # 0-d leaves stay 0-d
             arrays[name] = t
     return meta, arrays
 
@@ -75,24 +79,50 @@ def state_dict_from_jax(named_arrays) -> "dict[str, torch.Tensor]":
     return out
 
 
+def _codec_layout(key: str, ndim: int):
+    """The permutation from the JAX layout of a codec leaf to the port's:
+    Linear weights (in, out) -> (out, in); convolution weights (K, in, out)
+    -> (out, in, K), the decoder blocks' transposed ones (`up`) -> (in, out,
+    K); the complex convolutions' weights `wr`, `wi` (kh, kw, in, out) ->
+    (out, in, kh, kw); None for a leaf kept as it is."""
+    leaf = key.rsplit(".", 1)[-1]
+    if leaf == "weight" and ndim == 2:
+        return (1, 0)
+    if leaf == "weight" and ndim == 3:
+        return (1, 2, 0) if key.endswith(".up.weight") else (2, 1, 0)
+    if leaf in ("wr", "wi") and ndim == 4:
+        return (3, 2, 0, 1)
+    return None
+
+
 def codec_state_dict_from_jax(named_arrays) -> "dict[str, torch.Tensor]":
-    """Map {JAX key path: array} of a SoundStream to the port's state_dict:
-    bfloat16 leaves become float32 (the model's type), Linear weights (in,
-    out) become (out, in), convolution weights (K, in, out) become
-    (out, in, K), and the decoder blocks' transposed convolutions (`up`)
-    (in, out, K). The discriminators (`CODEC_UNUSED`) are dropped."""
+    """Map {JAX key path: array} of a SoundStream, its discriminators and
+    its quantizers' training state included, to the port's state_dict:
+    bfloat16 leaves become float32 (the model's type) and each weight takes
+    the port's layout (`_codec_layout`)."""
     out = {}
     for path, a in named_arrays.items():
         t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a))
         key = _port_key(path, lm_layers=False)
-        if key.startswith(CODEC_UNUSED):
-            continue
         if t.dtype == torch.bfloat16:
             t = t.float()
-        if key.rsplit(".", 1)[-1] == "weight":
-            if t.ndim == 2:
-                t = t.t()
-            elif t.ndim == 3:
-                t = t.permute(1, 2, 0) if key.endswith(".up.weight") else t.permute(2, 1, 0)
-        out[key] = t.contiguous()
+        perm = _codec_layout(key, t.ndim)
+        out[key] = (t.permute(*perm) if perm else t).contiguous()
+    return out
+
+
+def codec_state_dict_to_jax(state_dict, buffers=()) -> "dict[str, np.ndarray]":
+    """The inverse of `codec_state_dict_from_jax`: {JAX key path: numpy
+    array} of a port SoundStream's state_dict, each leaf in the JAX layout;
+    the names in `buffers` (the module's buffers) get JAX's buffer suffix.
+    The arrays are copies."""
+    buffers = set(buffers)
+    out = {}
+    for key, t in state_dict.items():
+        perm = _codec_layout(key, t.ndim)
+        if perm:
+            t = t.permute(*sorted(range(t.ndim), key=perm.__getitem__))
+        path = "." + re.sub(r"\.(\d+)(?=\.|$)", r"[\1]", key)
+        out[path + (_BUFFER_LEAF if key in buffers else "")] = \
+            t.detach().to("cpu", copy=True).contiguous().numpy()
     return out

@@ -74,7 +74,28 @@ Phases, each printing its name and seconds:
                    against the CPU port on a 1-s clip (codes identical but
                    for near ties the encoders' deviation explains; the
                    waveform from the same codes).
-  14. audiolm      - AudioLM at bench.py's _build_gen widths (the codec with 8
+  14. codec training - SoundStreamTrainer.train_step at the width of the
+                   repository's trained codec (persist/soundstream_r5_73k.npz's
+                   config: channels 48, codebook 1024 x 512, 8 quantizers,
+                   window 64, 8 heads of 64, the small discriminators, its
+                   loss weights; random weights from --seed) on 64 clips of 2 s
+                   written as WAV from --seed, batch 8 x 1 s: the GAN (one warm
+                   step with kmeans init, 8 timed: each G and D step by CUDA
+                   events, the step by the host clock, the penalty at steps 0,
+                   4 and 8; one step profiled) and the reconstruction phase (3
+                   steps, the discriminators untouched). Gates: finite loss
+                   terms; launch counts of one step (K6 once a kept quantizer in
+                   the G forward, 8 in the D forward; K7 2 a forward); the
+                   quantizers' buffers moved by the G step, not by the D step;
+                   the EMA apart from the model after its warm copy; the card
+                   against the CPU port on one G step and one D step with the
+                   penalty from the same weights, batch and draws (loss terms,
+                   the worst gradient leaf, the quantizers' state, the codes),
+                   shown to reject the card with the encoder's K7 output
+                   gradient zeroed; a saved and loaded trainer's next loss
+                   bit-equal to the uninterrupted trainer's. K6 and K7 at the
+                   training shapes against their plain versions.
+  15. audiolm      - AudioLM at bench.py's _build_gen widths (the codec with 8
                    quantizers, the Semantic LM at the flagship width, the
                    Coarse and Fine LMs as in 7-12), greedy, batch 1: 50
                    semantic ids -> 150 coarse -> 250 fine codes -> 1 s of
@@ -93,7 +114,7 @@ with whole key tiles masked and rows without a key, fp32 and bf16, with its
 backward. Each kernel row gives its time by CUDA events and on the device
 (torch.profiler), and so does its library call.
 Each path, scoring, generation and training of each LM, the codec's round
-trip and AudioLM's generation, sets the kernel launch counts to 0 just
+trip, a codec train step and AudioLM's generation, sets the kernel launch counts to 0 just
 before its own calls and reads them just after, before any check (CPU
 comparison, profile, uncached scoring of the generated ids) runs.
 
@@ -145,8 +166,7 @@ TF32X3_FLOPS = 495e12 / 3
 # max |ref|; plain TF32 (the small terms dropped) reads ~5e-4
 F64_TOL = 1e-5
 TOL = {torch.float32: 2e-3, torch.bfloat16: 3e-2}
-# gradients: the JAX package's tolerance in float32 (dtab also sums by atomics
-# in an order that changes from run to run); bf16 rounding of dq, dk, dv
+# gradients: the JAX package's tolerance in float32; bf16 rounding of dq, dk, dv
 GRAD_TOL = {torch.float32: dict(rtol=1e-2, atol=1e-3),
             torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
 # card vs CPU parameter gradients of the flagship, worst leaf by relative norm
@@ -408,7 +428,7 @@ def check_flash_bwd(q, k, v, tab, mask, label, seed):
                                extra_bytes=2 * k.numel() * es + rows)
     # the same launch with the table read but no dtab output: K2 alone
     dq_out = torch.empty_like(q)
-    dq_only_ms = cuda_ms(lambda: fa._bwd_launch("flash_bwd_dq", (dq_out, None), *args,
+    dq_only_ms = cuda_ms(lambda: fa._bwd_launch("flash_bwd_dq", (dq_out, None, None), *args,
                                                  causal=True, scale=scale))
     result = {}
     for name, ms, (bound_ms, bound_by), err in (
@@ -494,7 +514,7 @@ def check_flash_bias_bwd(q, k, v, bias, mask, label, seed):
                                extra_bytes=2 * k.numel() * es + rows)
     # the same launch with the bias read but no dbias output: K2 alone
     dq_out = torch.empty_like(q)
-    dq_only_ms = cuda_ms(lambda: fa._bwd_launch("flash_bwd_dq", (dq_out, None), *args,
+    dq_only_ms = cuda_ms(lambda: fa._bwd_launch("flash_bwd_dq", (dq_out, None, None), *args,
                                                  bias=bias, **kw))
     result = {}
     for name, ms, (bound_ms, bound_by), err in (
@@ -659,8 +679,8 @@ def rel_err(a, ref):
 def f64_errors(q, k, v, tab, bias, mask, g, ref, scale):
     """K1's out, and K2's dq (with a bias its dbias) and K3's dk and dv fed
     the float64 lse and Delta, against the float64 reference: max |kernel -
-    ref| / max |ref| of each (the table's gradient, summed by atomics, is
-    left out)."""
+    ref| / max |ref| of each (the table's gradient is held to the plain
+    version in the kernels phase)."""
     out64, lse64, delta64, dq64, dk64, dv64, dgrad64 = ref
     out = fa.flash_attention(q, k, v, bias_tab=tab, bias=bias, key_mask=mask, causal=True)
     kmask = mask.to(torch.int8).contiguous() if mask is not None else None
@@ -680,9 +700,9 @@ def accuracy_phase(seed):
     its dbias) and K3's dk, dv within F64_TOL of a float64 evaluation at the
     Semantic training shape (the table) and the Fine one (an (H, N, N) bias,
     B = 4), with 15% of the keys forgotten; the same check must reject the
-    1xTF32 build. Then K3's dk and dv at the Semantic shape, and K2's dq and
-    dbias at the Fine one, must be the same bits over three runs (fp32 and
-    bf16)."""
+    1xTF32 build. Then K3's dk and dv and K2's dq and K4's dtab at the
+    Semantic shape, and K2's dq and dbias at the Fine one, must be the same
+    bits over three runs (fp32 and bf16)."""
     rng = np.random.default_rng(seed + 7)
     h, d = FLAGSHIP["heads"], FLAGSHIP["dim_head"]
     scale = d ** -0.5
@@ -716,13 +736,14 @@ def accuracy_phase(seed):
                                       return_lse=True)
         bargs = (q, k, v, g, lse, (g.float() * out.float()).sum(-1), tab,
                  mask.to(torch.int8).contiguous())
-        first = fa.bwd_dkv(*bargs, causal=True, scale=scale)
-        for _ in range(2):
-            again = fa.bwd_dkv(*bargs, causal=True, scale=scale)
-            if not all(torch.equal(a, b) for a, b in zip(first, again)):
-                raise AssertionError(f"K3 dk/dv differ between runs ({dtype})")
-        print(f"tf32: K3 dk, dv bitwise equal over 3 runs ({str(dtype)[6:]}, "
-              f"{TRAIN_IDS[0]}x{h}x{TRAIN_N}x{d})")
+        for name, fn in (("K3 dk, dv", fa.bwd_dkv), ("K2 dq, K4 dtab", fa.bwd_dq)):
+            first = fn(*bargs, causal=True, scale=scale)
+            for _ in range(2):
+                again = fn(*bargs, causal=True, scale=scale)
+                if not all(torch.equal(a, b) for a, b in zip(first, again)):
+                    raise AssertionError(f"{name} differ between runs ({dtype})")
+            print(f"tf32: {name} bitwise equal over 3 runs ({str(dtype)[6:]}, "
+                  f"{TRAIN_IDS[0]}x{h}x{TRAIN_N}x{d})")
         # K2 with K5: B = 4 is one cluster, so dbias is summed in rank order
         q, k, v, _, mask = flash_inputs(rng, CLIP_B, h, FINE_N, d, dtype, forget_p=0.15)
         bias = dense_bias(rng, h, FINE_N)
@@ -811,7 +832,8 @@ def flagship(seed):
 
 def profile(label, fn, top=8):
     """Device time of one call of fn by kernel, from torch.profiler, and the
-    share of the call's wall time the device was busy."""
+    share of the call's wall time the device was busy: (busy ms, wall ms,
+    [(ms, launches, kernel name)])."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -824,6 +846,7 @@ def profile(label, fn, top=8):
           f"wall under the profiler ({100 * (1 - busy / wall_ms):.1f}% idle)")
     for ms, count, name in sorted(rows, reverse=True)[:top]:
         print(f"  {ms:8.3f} ms {100 * ms / busy:5.1f}%  x{count:<4d} {name[:90]}")
+    return busy, wall_ms, rows
 
 
 @phase("scoring")
@@ -1499,7 +1522,9 @@ def codec_kernel_phase(seed):
     64: 4 windows), a ragged 2 x 8 x 300 x 64 at w 64 with a key mask and an
     (H, w, 2w) bias, on LocalMHA's strided views at the codec's shape, and
     strided with whole key tiles masked and rows without a key (their
-    output the mean of the window's value slots), fp32 and bf16."""
+    output the mean of the window's value slots), fp32 and bf16; then both
+    at the codec training's shapes: K6 at 400 rows, K7 in float32 on
+    LocalMHA's strided 8 x 8 x 50 x 64 at w 64."""
     rng = np.random.default_rng(seed + 20)
     n_codec = CODEC_B * CODEC_S * HZ
     main = check_vq(*vq_inputs(rng, n_codec), f"{n_codec}x512 vs 1024x512 (codec)")
@@ -1532,8 +1557,15 @@ def codec_kernel_phase(seed):
                     f"{name} 2x8x300x64 w64, strided, whole key tiles masked, keyless rows",
                     seed)
         check_keyless_rows(q, k, v, 64, mask, f"{name} 2x8x300x64 w64")
+    rows = TRAIN_B * TRAIN_SAMPLES // 320  # one quantizer's rows in a codec train step
+    vq_training = check_vq(*vq_inputs(rng, rows), f"{rows}x512 vs 1024x512 (codec training)")
+    local_training = check_local(
+        *local_views(rng, TRAIN_B, 8, rows // TRAIN_B, 64, torch.float32), 64, None, None,
+        f"fp32 {TRAIN_B}x8x{rows // TRAIN_B}x64 w64, LocalMHA's strided q, k, v (codec training)",
+        seed)
     return {"vq": main, "vq_more": {"1300 rows": vq_more["1300 rows"]}, "local": local["fp32"],
-            "local_more": {k: v for k, v in local.items() if k != "fp32"}}
+            "local_more": {k: v for k, v in local.items() if k != "fp32"},
+            "vq_training": vq_training, "local_training": local_training}
 
 
 def fill_codebooks(codec, wave, seed):
@@ -1673,6 +1705,451 @@ def codec_phase(seed):
     return launched
 
 
+# the codec's training at the width of the repository's trained codec, the
+# config in persist/soundstream_r5_73k.npz's __meta__ (73k steps of
+# examples/train_codec_corpus.py): channels 48, codebook 1024 x 512, 8
+# quantizers, window 64, 8 heads of 64, the small discriminators, its loss
+# weights; the trainer's arguments of examples/train_codec_corpus.py:111-135,
+# 199-208 (batch 8 x 1 s, lr 2e-4, warmup 50, the penalty every 4 steps, EMA)
+CODEC_TRAIN = dict(channels=48, strides=(2, 4, 5, 8), channel_mults=(2, 4, 8, 16),
+                   codebook_size=1024, codebook_dim=512, rq_num_quantizers=8, rq_groups=1,
+                   rq_kwargs=dict(threshold_ema_dead_code=0.25), rq_rotation_trick=True,
+                   attn_window_size=64, attn_heads=8, attn_dim_head=64, attn_depth=1,
+                   multi_scale_discr_kwargs=dict(channels=8, layers=3, groups=(1, 2, 4),
+                                                 chan_max=64),
+                   complex_stft_discr_kwargs=dict(channels=8), recon_loss_weight=10.0,
+                   si_snr_loss_weight=1.0, multi_spectral_recon_loss_weight=1e-5)
+GAN = dict(adversarial_loss_weight=1.0, feature_loss_weight=10.0)  # the script's defaults
+RECON = dict(adversarial_loss_weight=0.0, feature_loss_weight=0.0)  # the 73k run's phase
+TRAIN_B, TRAIN_SAMPLES, CLIPS, CLIP_SAMPLES = 8, SR, 64, 2 * SR
+# the EMA's warm copy ends at step 4 and it updates every other step, so the
+# timed steps see it move (the script's 500 and 10 would not show in 9 steps)
+TRAINER_KW = dict(batch_size=TRAIN_B, data_max_length=TRAIN_SAMPLES, grad_accum_every=1,
+                  lr=2e-4, warmup_steps=50, apply_grad_penalty_every=4, use_ema=True,
+                  ema_update_after_step=4, ema_update_every=2, num_train_steps=100,
+                  save_results_every=10 ** 9, save_model_every=10 ** 9)
+TIMED_STEPS = 8
+# card vs CPU on one G step and one D step with the penalty, from the same
+# weights, batch and draws: each loss term within LOSS_REL of the CPU's; the
+# worst gradient leaf by relative norm within LEAF_TOL (as the LMs'), or 4x
+# the CPU's own spread where that is larger (card_vs_cpu); the
+# quantizers' buffers within STATE_REL of the CPU's largest, on the codes no
+# differing frame touched; codes identical but for near ties, at most 1% of
+# the frames
+LOSS_REL, STATE_REL = 2e-3, 1e-4
+CPU_CHECK_B = 4
+
+
+def write_clips(folder, seed):
+    """CLIPS clips of 2 s at 16 kHz in folder: a sine of 100-1000 Hz (and
+    its octave) with noise, from `seed`, written by the port's WAV writer."""
+    from audiolm_pytorch_tpu_torch.utils.audio_io import save_audio
+    rng = np.random.default_rng(seed)
+    t_ = np.arange(CLIP_SAMPLES) / SR
+    for i in range(CLIPS):
+        f = rng.uniform(100, 1000)
+        x = 0.4 * np.sin(2 * np.pi * f * t_) + 0.2 * np.sin(4 * np.pi * f * t_ + rng.uniform(0, 6))
+        save_audio(folder / f"clip_{i:03d}.wav", x + 0.05 * rng.standard_normal(CLIP_SAMPLES), SR)
+
+
+def codec_trainer(folder, results, seed, weights, **kw):
+    from audiolm_pytorch_tpu_torch import SoundStream, SoundStreamTrainer
+    model = SoundStream(**CODEC_TRAIN, **weights, seed=seed, device=DEV)
+    return SoundStreamTrainer(model, folder=folder, results_folder=results, seed=seed,
+                              device=DEV, **TRAINER_KW, **kw)
+
+
+class StepProbe:
+    """Wraps a trainer's g_step and d_step: CUDA events around each, the
+    quantizers' buffers before and after each, and each residual quantizer's
+    last kept index (from its dropout draw) in the G step."""
+
+    def __init__(self, trainer):
+        self.trainer, self.records = trainer, []
+        g_step, d_step = trainer.g_step, trainer.d_step
+        self.kept = []
+        for rvq in trainer.model.rq.rvqs:
+            last_kept = rvq._last_kept
+
+            def record(train, generator, last_kept=last_kept):
+                out = last_kept(train, generator)
+                if train:
+                    self.kept.append(out)
+                return out
+
+            rvq._last_kept = record
+
+        def timed(name, fn):
+            def run(*args):
+                before = self.rq_state()
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                out = fn(*args)
+                end.record()
+                torch.cuda.synchronize()
+                self.records.append(dict(name=name, gp=bool(args[1:] and args[1]),
+                                         ms=start.elapsed_time(end), before=before,
+                                         after=self.rq_state()))
+                return out
+            return run
+
+        trainer.g_step, trainer.d_step = timed("g", g_step), timed("d", d_step)
+
+    def rq_state(self):
+        return {k: v.clone() for k, v in self.trainer.model.rq.state_dict().items()}
+
+
+def check_vq_buffers(probe, steps):
+    """The G step changes the kept quantizers' buffers, the D step none."""
+    for rec in probe.records[-2 * steps:]:
+        changed = [k for k in rec["before"] if not torch.equal(rec["before"][k], rec["after"][k])]
+        if rec["name"] == "d" and changed:
+            raise AssertionError(f"codec training: the D step changed the quantizers: {changed}")
+        if rec["name"] == "g" and not any(k.endswith("codebook") for k in changed):
+            raise AssertionError("codec training: the G step left every codebook as it was")
+
+
+def train_launches(trainer, probe, label):
+    """One train_step with the launch counts zeroed just before and read
+    just after: K6 once a kept quantizer in the G forward (its dropout keeps
+    quantizers 0..k) and once a quantizer in the D forward (eval: all 8); K7
+    once in the encoder and once in the decoder of each forward; nothing
+    else."""
+    probe.kept.clear()
+    torch.cuda.synchronize()
+    zero_counts()
+    logs = trainer.train_step()
+    torch.cuda.synchronize()
+    launched = counts()
+    forwards = 1 + trainer.train_discriminators
+    want = {name: 0 for name in COUNTERS}
+    want.update(launches_vq=sum(k + 1 for k in probe.kept)
+                + (trainer.train_discriminators * CODEC_TRAIN["rq_num_quantizers"]),
+                launches_local=2 * forwards)
+    print(f"codec training [{label}] launches: {launched} (kept quantizers 0..{probe.kept}; "
+          f"want K6 {want['launches_vq']}, K7 {want['launches_local']})")
+    if launched != want:
+        raise AssertionError(f"codec training [{label}] launches {launched} != {want}")
+    return logs, launched
+
+
+def check_loss_terms(logs, label):
+    if not all(np.isfinite(v) for v in logs.values()):
+        raise AssertionError(f"codec training [{label}]: a loss term is not finite: {logs}")
+
+
+class CodeProbe:
+    """Forward hooks on each quantizer: its input (the residual), its
+    codebook as the search saw it and the codes it picked."""
+
+    def __init__(self, model):
+        self.calls = []
+        self.handles = []
+        for q, layer in enumerate(model.rq.rvqs[0].layers):
+            self.handles.append(layer.register_forward_pre_hook(
+                lambda m, args, q=q: self.calls.append(
+                    dict(q=q, x=args[0].detach().cpu(), codebook=m.codebook.detach().cpu()))))
+            self.handles.append(layer.register_forward_hook(
+                lambda m, args, out: self.calls[-1].update(codes=out[1].cpu())))
+
+    def remove(self):
+        for h in self.handles:
+            h.remove()
+
+
+def g_and_d_grads(model, wave, seed, fault=None):
+    """One G step's loss terms and gradients (the quantizers train, drawing
+    from a generator seeded with `seed`) and one D step's loss and gradients
+    with the penalty, on `model` as it is; the quantizers' state after the G
+    step; the codes. With fault (the card only), the gradient into the
+    encoder's K7 output is zeroed."""
+    from audiolm_pytorch_tpu_torch.ops import attention as attn_mod
+    named = dict(model.named_parameters())
+    gen_names = [n for n in named if not n.startswith(("discriminators", "stft_discriminator"))]
+    dis_names = [n for n in named if n not in gen_names]
+    probe = CodeProbe(model)
+    local_attention = attn_mod.local_attention
+    if fault:
+        calls = []
+
+        def zeroed(*args, **kw):
+            out = local_attention(*args, **kw)
+            if not calls:  # the encoder's, the first in the forward
+                out.register_hook(torch.zeros_like)
+            calls.append(1)
+            return out
+
+        attn_mod.local_attention = zeroed
+    try:
+        total, terms = model(wave, train=True, generator=torch.Generator().manual_seed(seed),
+                             return_loss_breakdown=True)
+        g = torch.autograd.grad(total, [named[n] for n in gen_names], allow_unused=True)
+    finally:
+        attn_mod.local_attention = local_attention
+        probe.remove()
+    grads = {n: (torch.zeros_like(named[n]) if x is None else x).cpu()
+             for n, x in zip(gen_names, g)}
+    rq = {k: v.cpu().clone() for k, v in model.rq.state_dict().items()}
+    d_loss = model(wave, return_discr_loss=True, apply_grad_penalty=True)
+    grads.update({n: x.cpu() for n, x in zip(
+        dis_names, torch.autograd.grad(d_loss, [named[n] for n in dis_names]))})
+    losses = [v.detach().item() for v in terms] + [d_loss.detach().item()]
+    return losses, grads, rq, probe.calls
+
+
+def codes_near_ties(card_calls, cpu_calls):
+    """Card codes against the CPU port's, quantizer by quantizer: where they
+    differ, the CPU's float64 scores of the two picks must be a near tie
+    that the deviation of the two inputs explains (4 |x_card - x_cpu|
+    |e_a - e_b|, as compare_codes) or within NEAR_TIE of the terms. Returns
+    (frames that differ, the codes they touch per quantizer)."""
+    frames, touched = set(), {}
+    for card, cpu in zip(card_calls, cpu_calls):
+        diff = (card["codes"] != cpu["codes"]).reshape(-1).nonzero().flatten()
+        x, xc = cpu["x"].reshape(-1, cpu["x"].shape[-1]), card["x"].reshape(-1, cpu["x"].shape[-1])
+        cb = cpu["codebook"].double()
+        for r in diff.tolist():
+            a = int(card["codes"].reshape(-1)[r])
+            b = int(cpu["codes"].reshape(-1)[r])
+            xd = x[r].double()
+            gap = abs(((cb[a].square().sum() - 2 * xd @ cb[a])
+                       - (cb[b].square().sum() - 2 * xd @ cb[b])).item())
+            terms = (cb[a].square().sum() + 2 * xd.norm() * cb[a].norm()).item()
+            limit = max(4 * (xc[r] - x[r]).double().norm().item() * (cb[a] - cb[b]).norm().item(),
+                        NEAR_TIE * terms)
+            if gap > limit:
+                raise AssertionError(f"codec training card vs CPU: quantizer {card['q']} row {r} "
+                                     f"codes {a} vs {b}, score gap {gap:.3e} > {limit:.3e}")
+            frames.add(r)
+            touched.setdefault(card["q"], set()).update((a, b))
+    return frames, touched
+
+
+def leaf_gaps(got, ref):
+    """{leaf: relative-norm gap} over the leaves whose reference norm is
+    over 1e-6 of the largest."""
+    largest = max(v.norm().item() for v in ref.values())
+    return {n: ((got[n] - v).norm() / v.norm()).item() for n, v in ref.items()
+            if v.norm().item() > 1e-6 * largest}
+
+
+def worst_leaf(got, ref, limits):
+    """(gap, limit, leaf) of the leaf furthest over its limit."""
+    gaps = leaf_gaps(got, ref)
+    name = max(gaps, key=lambda n: gaps[n] / limits[n])
+    return gaps[name], limits[name], name
+
+
+def card_vs_cpu(trainer, wave, seed):
+    """The card against the CPU port from the trainer's model as it is (its
+    codebooks initialised), on the same batch and draws; then the same check
+    must reject the card's gradients with the encoder's K7 output gradient
+    zeroed."""
+    from audiolm_pytorch_tpu_torch import SoundStream
+    state = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    cpu = SoundStream(**CODEC_TRAIN, **GAN, device="cpu")
+    cpu.load_state_dict(state)
+    card = trainer.model
+    c_losses, c_grads, c_rq, c_calls = g_and_d_grads(cpu, wave.cpu(), seed)
+    # the CPU's own spread: the same pass with one thread (another summation
+    # order). A leaf whose gradient cancels to float32 noise (the decoder's
+    # last bias under the SI-SNR loss, which ignores an offset) cannot be
+    # held to LEAF_TOL; it is held to 4x its spread
+    cpu.load_state_dict(state)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        spread = leaf_gaps(g_and_d_grads(cpu, wave.cpu(), seed)[1], c_grads)
+    finally:
+        torch.set_num_threads(threads)
+    limits = {n: max(LEAF_TOL, 4 * x) for n, x in spread.items()}
+    noisy = {n: x for n, x in spread.items() if limits[n] > LEAF_TOL}
+    g_losses, g_grads, g_rq, g_calls = g_and_d_grads(card, wave, seed)
+    names = ("recon", "mel", "stft", "si_snr", "adversarial", "feature", "commit", "discr")
+    for name, a, b in zip(names, g_losses, c_losses):
+        if not np.isfinite(a) or abs(a - b) > LOSS_REL * max(abs(b), 1e-6):
+            raise AssertionError(f"codec training card vs CPU: {name} loss {a} vs {b}")
+    gap, limit, leaf = worst_leaf(g_grads, c_grads, limits)
+    if gap > limit:
+        raise AssertionError(f"codec training card vs CPU: gradient leaf {leaf} {gap:.3e} > "
+                             f"{limit:.3e}")
+    frames, touched = codes_near_ties(g_calls, c_calls)
+    n_frames = wave.shape[0] * wave.shape[1] // 320
+    if len(frames) > 0.01 * n_frames:
+        raise AssertionError(f"codec training card vs CPU: {len(frames)} of {n_frames} frames "
+                             f"differ (> 1%)")
+    state_gap = 0.0
+    for k, ref in c_rq.items():
+        if not ref.is_floating_point():
+            if not torch.equal(g_rq[k], ref):
+                raise AssertionError(f"codec training card vs CPU: {k} differs")
+            continue
+        q = int(k.split(".")[3])
+        keep = torch.ones(ref.shape[0], dtype=torch.bool)
+        keep[list(touched.get(q, ()))] = False
+        rel = ((g_rq[k][keep] - ref[keep]).abs().max() / ref.abs().max().clamp(min=1e-30)).item()
+        state_gap = max(state_gap, rel)
+    if state_gap > STATE_REL:
+        raise AssertionError(f"codec training card vs CPU: quantizer state {state_gap:.3e}")
+    card.load_state_dict(state)
+    _, f_grads, _, _ = g_and_d_grads(card, wave, seed, fault=True)
+    fault_gap, fault_limit, fault_leaf = worst_leaf(f_grads, c_grads, limits)
+    if fault_gap <= fault_limit:
+        raise AssertionError(f"codec training: the gradient check let the card through with the "
+                             f"encoder's K7 output gradient zeroed ({fault_gap:.3e})")
+    card.load_state_dict(state)
+    print(f"codec training card vs CPU ({wave.shape[0]}x{wave.shape[1] / SR:g}s, one G step and "
+          f"one D step with the penalty): losses "
+          + " ".join(f"{n} {a:.5g}/{b:.5g}" for n, a, b in zip(names, g_losses, c_losses))
+          + f" | worst gradient leaf {gap:.3e} ({leaf}; limit {limit:.3e}; leaves held to 4x "
+          f"the CPU's own spread: {', '.join(f'{n} {x:.2e}' for n, x in noisy.items())})"
+          f" | quantizer state "
+          f"{state_gap:.3e} where the codes agree (limit {STATE_REL}) | {len(frames)} of "
+          f"{n_frames} frames' codes differ (near ties) | the encoder's K7 output gradient "
+          f"zeroed: {fault_gap:.3e} ({fault_leaf}), rejected")
+    return dict(worst_leaf=gap, worst_leaf_limit=limit, noisy_leaves=noisy,
+                state_gap=state_gap, frames_differ=len(frames), fault_gap=fault_gap)
+
+
+def k7_backward_ms(rng):
+    """K7's backward at the training shape (LocalMHA's strided views of
+    8 x 8 x 50 x 64, window 64): the plain version recomputed under
+    autograd, timed as forward + backward less the forward."""
+    q, k, v = local_views(rng, TRAIN_B, 8, TRAIN_SAMPLES // 320, 64, torch.float32)
+    leaves = [a.detach().requires_grad_() for a in (q, k, v)]
+    g = torch.randn_like(q)
+    kw = dict(window_size=64, scale=8.0 / 64)
+    both = cuda_ms(lambda: torch.autograd.grad(la.local_attention(*leaves, **kw), leaves, g),
+                   iters=20)
+    with torch.no_grad():
+        fwd = cuda_ms(lambda: la.local_attention(*leaves, **kw), iters=20)
+    return both - fwd
+
+
+@phase("codec training")
+def codec_training_phase(seed):
+    """SoundStreamTrainer.train_step on the card at the trained codec's
+    width, on 64 clips of 2 s written from `seed` (random weights from
+    `seed`; 1-s crops, batch 8): (a) the GAN, one warm step then 8 timed
+    (the penalty at steps 0, 4 and 8), each G and D step by CUDA events and
+    the step by the host clock, one step profiled; (b) reconstruction only,
+    3 steps, the discriminators untouched. Gates: finite loss terms, launch
+    counts per step, the quantizers' buffers moved by the G step and not by
+    the D step, the EMA apart from the model after its warm copy, the card
+    against the CPU port (and the check shown to reject a fault), and a
+    saved and loaded trainer's next loss bit-equal to the uninterrupted
+    trainer's. K6 and K7 at the training shapes: the codec kernels phase."""
+    import tempfile
+    from pathlib import Path
+    build = Path(__file__).resolve().parent / "build"  # git-ignored, in the checkout
+    build.mkdir(exist_ok=True)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    k7_bwd_ms = k7_backward_ms(np.random.default_rng(seed + 30))
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        tmp = Path(tmp)
+        write_clips(tmp / "clips", seed)
+        # (a) the GAN
+        trainer = codec_trainer(tmp / "clips", tmp / "gan", seed, GAN)
+        try:
+            probe = StepProbe(trainer)
+            t0 = time.perf_counter()
+            check_loss_terms(trainer.train_step(), "gan, warm step")  # kmeans init, penalty
+            warm_s = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+            step_ms = []
+            for _ in range(TIMED_STEPS):
+                t0 = time.perf_counter()
+                logs = trainer.train_step()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                check_loss_terms(logs, f"gan, step {trainer.steps - 1}")
+            peak = torch.cuda.max_memory_allocated()
+            check_vq_buffers(probe, TIMED_STEPS)
+            recs = probe.records[2:]
+            g_ms = [r["ms"] for r in recs if r["name"] == "g"]
+            d_ms = [r["ms"] for r in recs if r["name"] == "d" and not r["gp"]]
+            dgp_ms = [r["ms"] for r in recs if r["name"] == "d" and r["gp"]]
+            if len(dgp_ms) != 2:
+                raise AssertionError(f"codec training: {len(dgp_ms)} timed steps had the penalty")
+            audio_s = TRAIN_B * TRAIN_SAMPLES / SR
+            mean_step = float(np.mean(step_ms))
+            print(f"codec training [gan] {TRAIN_B}x{TRAIN_SAMPLES / SR:g}s: warm step "
+                  f"{warm_s:.2f} s | {TIMED_STEPS} steps {mean_step:.2f} ms each by the host "
+                  f"clock ({min(step_ms):.2f}-{max(step_ms):.2f}) | G step {np.mean(g_ms):.2f} "
+                  f"ms, D step {np.mean(d_ms):.2f} ms, D step with the penalty "
+                  f"{np.mean(dgp_ms):.2f} ms (CUDA events) | {audio_s / mean_step * 1e3:.1f} s "
+                  f"of audio trained per s | max_memory_allocated {peak / 2**30:.3f} GiB | "
+                  f"last losses {logs}")
+            shadow = dict(trainer.ema.shadow.named_parameters())
+            moved = sum(not torch.equal(p, shadow[n]) for n, p in trainer.model.named_parameters())
+            if trainer.ema.step <= TRAINER_KW["ema_update_after_step"] or not moved:
+                raise AssertionError(f"codec training: the EMA shadow equals the model after "
+                                     f"{trainer.ema.step} updates")
+            logs, launched = train_launches(trainer, probe, "gan")
+            check_loss_terms(logs, "gan, counted step")
+            busy, wall, prof_rows = profile("codec training [gan] (one step)", trainer.train_step,
+                                            top=12)
+            share = {name: sum(ms for ms, _, key in prof_rows if pat in key) / busy
+                     for name, pat in (("K6", "vq_nearest_kernel"),
+                                       ("K7", "local_attn_kernel"))}
+            recompute = 2 * k7_bwd_ms / np.mean(g_ms)
+            print(f"codec training [gan] shares of the device's busy time: K6 "
+                  f"{100 * share['K6']:.2f}%, K7 forward {100 * share['K7']:.2f}%; K7's "
+                  f"backward (the plain version recomputed, {k7_bwd_ms:.4f} ms a call, 2 a G "
+                  f"step) {100 * recompute:.2f}% of the G step; "
+                  f"{100 * (1 - busy / wall):.1f}% idle")
+            # the first second of the first clips (the loader's crops are drawn
+            # by its threads in no fixed order)
+            from audiolm_pytorch_tpu_torch.utils.audio_io import load_audio
+            wave = torch.from_numpy(np.stack([
+                load_audio(f)[0][0, :TRAIN_SAMPLES]
+                for f in sorted((tmp / "clips").glob("*.wav"))[:CPU_CHECK_B]])).to(DEV)
+            cpu_check = card_vs_cpu(trainer, wave, seed)
+            # saved and loaded: the next step's loss bit-equal
+            batch = torch.from_numpy(trainer._stack_accum(trainer.dl_iter)).to(DEV)
+            trainer.save(tmp / "gan" / "soundstream.resume.ckpt.npz")
+            resumed = codec_trainer(tmp / "clips", tmp / "resumed", seed, GAN)
+            try:
+                resumed.load(tmp / "gan" / "soundstream.resume.ckpt.npz")
+                ours, theirs = trainer.g_step(batch)[0], resumed.g_step(batch)[0]
+                if not torch.equal(ours, theirs):
+                    raise AssertionError(f"codec training: the resumed trainer's loss {theirs} "
+                                         f"is not the uninterrupted trainer's {ours}")
+            finally:
+                resumed.close()
+            print(f"codec training: saved and loaded into a fresh trainer, the next G loss "
+                  f"{float(ours)!r} bit-equal to the uninterrupted trainer's")
+        finally:
+            trainer.close()
+        del trainer, resumed
+        torch.cuda.empty_cache()
+        # (b) reconstruction only: the discriminators neither run nor move
+        trainer = codec_trainer(tmp / "clips", tmp / "recon", seed, RECON,
+                                train_discriminators=False)
+        try:
+            probe = StepProbe(trainer)
+            discr = {n: p.clone() for n, p in trainer.model.named_parameters()
+                     if n.startswith(("discriminators", "stft_discriminator"))}
+            check_loss_terms(trainer.train_step(), "recon")
+            recon_logs, recon_launched = train_launches(trainer, probe, "recon")
+            check_loss_terms(recon_logs, "recon")
+            check_loss_terms(trainer.train_step(), "recon")
+            moved = [n for n, p in trainer.model.named_parameters()
+                     if n in discr and not torch.equal(p, discr[n])]
+            if moved or recon_logs["adversarial"] or recon_logs["feature_loss"]:
+                raise AssertionError(f"codec training [recon]: the discriminators moved {moved} "
+                                     f"or ran ({recon_logs})")
+            print(f"codec training [recon] 3 steps: losses {recon_logs} | the discriminators' "
+                  f"{len(discr)} parameters bit-equal before and after")
+        finally:
+            trainer.close()
+    return launched, dict(step_ms=mean_step, g_ms=float(np.mean(g_ms)),
+                          d_ms=float(np.mean(d_ms)), d_penalty_ms=float(np.mean(dgp_ms)),
+                          peak_bytes=peak, k7_backward_recompute_ms=k7_bwd_ms,
+                          k6_share=share["K6"], k7_share=share["K7"], idle=1 - busy / wall,
+                          recon_launches=recon_launched, **cpu_check)
+
+
 @phase("audiolm")
 def audiolm_phase(seed):
     """AudioLM on the card at _build_gen's widths (bench.py:316): the codec
@@ -1776,6 +2253,7 @@ def main():
         del lm, cpu_lm
         torch.cuda.empty_cache()
     paths["codec"] = codec_phase(args.seed)
+    paths["codec_training"], timings["codec_training"] = codec_training_phase(args.seed)
     paths["audiolm"] = audiolm_phase(args.seed)
     rows = []
     for key, name, source, replaces, counter in KERNELS:
@@ -1797,8 +2275,10 @@ def main():
         if key in ("fwd", "dq", "dkv", "vq", "local"):
             numbers["hmma"] = timings["sass"][key]
         if key in ("vq", "local"):
-            # K6 at 1300 rows; K7 in bf16 and at 10 s, with the float64 check
-            numbers.update(more=timings[f"{key}_more"], tf32=timings["tf32"][key])
+            # K6 at 1300 rows; K7 in bf16 and at 10 s, with the float64 check;
+            # both at the codec training's shapes
+            numbers.update(more=timings[f"{key}_more"], tf32=timings["tf32"][key],
+                           training_shape=timings[f"{key}_training"])
         if key in ("fwd", "dq", "dkv", "dbias"):
             outputs = F64_OUTPUTS[key]
             numbers["f64_rel_err"] = {label: {kind: {x: e for x, e in errs.items() if x in outputs}

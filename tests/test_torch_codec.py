@@ -48,10 +48,16 @@ from torch_port_util import jax_replace, t
 
 ROOT = Path(__file__).resolve().parents[1]
 CKPT = ROOT / "persist" / "soundstream_r5_73k.npz"
-# the tiny codec's sizes (tests/test_soundstream.py), the port's arguments
+# the tiny codec's sizes (tests/test_soundstream.py), the port's arguments,
+# its discriminators and spectral losses included
 TINY = dict(channels=8, strides=(2, 4), channel_mults=(2, 4), codebook_dim=32,
             codebook_size=64, rq_num_quantizers=4, attn_window_size=16, attn_heads=2,
-            attn_dim_head=16)
+            attn_dim_head=16, multi_spectral_window_powers_of_two=(6, 7),
+            multi_spectral_n_ffts=128, multi_spectral_n_mels=32,
+            multi_scale_discr_kwargs=dict(channels=4, layers=2, groups=(1, 2), chan_max=32),
+            complex_stft_discr_kwargs=dict(channels=4, n_fft=128, hop_length=32,
+                                           win_length=128, strides=((1, 2), (2, 2)),
+                                           chan_mults=(1, 2)))
 
 
 @pytest.fixture
@@ -195,8 +201,10 @@ def test_tiny_codec_matches_jax(pallas_vq, groups):
             want_n = np.asarray(jdecode(jm, jnp.asarray(flat.numpy()[:1, :n])))
             assert got.shape == (1, n * 8)
             np.testing.assert_allclose(got, want_n, **TINY_TOL)
-    with pytest.raises(NotImplementedError):
-        pm(t(x))  # the training losses
+    # no mode: the generator's training loss (held to JAX's in
+    # tests/test_torch_codec_train.py)
+    with torch.no_grad():
+        assert torch.isfinite(pm(t(x))).item()
 
 
 def _held_out_clips(count=4, max_len=16000):

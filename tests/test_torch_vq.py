@@ -106,8 +106,8 @@ def test_vector_quantize_eval_matches_jax(pallas_vq, rotation_trick):
     np.testing.assert_array_equal(pidx.numpy(), np.asarray(jidx))
     np.testing.assert_allclose(pq.numpy(), np.asarray(jq), **TOL)
     np.testing.assert_allclose(ploss.item(), float(jloss), **TOL)
-    with pytest.raises(NotImplementedError):
-        pm(t(x), train=True)
+    with pytest.raises(ValueError, match="Generator"):
+        pm(t(x), train=True)  # training draws from a generator (tests/test_torch_codec_train.py)
 
 
 def _residual_input(rng, b, n, d):

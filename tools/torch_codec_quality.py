@@ -39,7 +39,7 @@ def held_out_clips(n_clips=1300, valid_frac=0.02, max_len=16000):
 
 
 def port_si_snr(ckpt, x, device):
-    model = load_soundstream(ckpt, device=device).eval()
+    model = load_soundstream(ckpt, device=device, discriminators=False).eval()  # serving
     out = []
     with torch.no_grad():
         for i in range(0, len(x), 8):

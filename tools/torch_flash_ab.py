@@ -55,8 +55,8 @@ def kernel_times(q, k, v, g, tab, bias):
     with torch.no_grad():
         fwd = cuda_ms(lambda: fa.flash_attention(q, k, v, bias_tab=tab, bias=bias, causal=True))
     return {"K1": fwd,
-            "K2": cuda_ms(lambda: fa._bwd_launch("flash_bwd_dq", (dq, None), *args, bias=bias,
-                                                 **kw)),
+            "K2": cuda_ms(lambda: fa._bwd_launch("flash_bwd_dq", (dq, None, None), *args,
+                                                 bias=bias, **kw)),
             "K2+grad": cuda_ms(lambda: fa.bwd_dq(*args, bias=bias, **kw)),
             "K3": cuda_ms(lambda: fa.bwd_dkv(*args, bias=bias, **kw))}
 
