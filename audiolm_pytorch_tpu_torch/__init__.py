@@ -6,6 +6,7 @@ wrapper takes its plain PyTorch version.
 """
 from .device import resolve_device
 from .models.audiolm import AudioLM
+from .models.hubert import HubertWithKmeans
 from .data.dataset import SoundDataset, get_dataloader
 from .models.soundstream import AudioLMSoundStream, SoundStream, load_soundstream
 from .models.lm import (CoarseTransformer, FineTransformer, SemanticTransformer,
@@ -21,9 +22,12 @@ from .ops.kernels.local_attention import local_attention, local_attention_ref
 from .ops.kernels.vq import vq_nearest_code, vq_nearest_code_ref
 from .training.optimizer import get_optimizer, separate_weight_decayable_params
 from .training.ema import EMA
-from .training.trainer import SoundStreamTrainer, TransformerTrainStep
+from .training.trainer import (CoarseTransformerTrainer, FineTransformerTrainer,
+                               SemanticTransformerTrainer, SoundStreamTrainer,
+                               TransformerTrainStep)
 from .utils.metrics import si_snr
-from .weights import (codec_state_dict_from_jax, codec_state_dict_to_jax, read_npz,
+from .weights import (codec_state_dict_from_jax, codec_state_dict_to_jax,
+                      hubert_state_dict_from_jax, lm_state_dict_to_jax, read_npz,
                       state_dict_from_jax)
 
 __all__ = ["SemanticTransformer", "SemanticTransformerWrapper", "CoarseTransformer",
@@ -36,4 +40,6 @@ __all__ = ["SemanticTransformer", "SemanticTransformerWrapper", "CoarseTransform
            "load_soundstream", "AudioLM", "decode_acoustic_tokens", "local_attention",
            "local_attention_ref", "vq_nearest_code", "vq_nearest_code_ref", "si_snr",
            "codec_state_dict_from_jax", "codec_state_dict_to_jax", "SoundStreamTrainer", "EMA",
-           "SoundDataset", "get_dataloader"]
+           "SoundDataset", "get_dataloader", "HubertWithKmeans", "SemanticTransformerTrainer",
+           "CoarseTransformerTrainer", "FineTransformerTrainer", "hubert_state_dict_from_jax",
+           "lm_state_dict_to_jax"]

@@ -1,8 +1,8 @@
 """AudioLM end to end, held against the JAX package's `models/audiolm.py`:
 semantic ids -> coarse codes -> fine codes -> waveform, each stage a
-wrapper's KV-cached `generate`. Without wav2vec, so without a prompt, and
-without text conditioning: a `prime_wave` or text raises until the
-adapters and the conditioning are ported."""
+wrapper's KV-cached `generate`. Unprompted and without text conditioning:
+a wav2vec, a `prime_wave` or text raises until the prompt path and the
+conditioning are ported (the wrappers' training takes a wav2vec)."""
 from __future__ import annotations
 
 import torch
@@ -20,7 +20,7 @@ class AudioLM(nn.Module):
                  unique_consecutive: bool = True):
         super().__init__()
         if wav2vec is not None:
-            raise NotImplementedError("wav2vec (HuBERT with k-means) is not ported")
+            raise NotImplementedError("AudioLM's prompt path (wav2vec) is not ported")
         if semantic_transformer.num_semantic_tokens != coarse_transformer.num_semantic_tokens:
             raise ValueError("the semantic and coarse LMs disagree on the semantic vocabulary")
         if coarse_transformer.codebook_size != fine_transformer.codebook_size:
@@ -51,7 +51,7 @@ class AudioLM(nn.Module):
         if text is not None or text_embeds is not None:
             raise NotImplementedError("text conditioning is not ported")
         if prime_wave is not None:
-            raise NotImplementedError("a prompt needs wav2vec, which is not ported")
+            raise NotImplementedError("AudioLM's prompt path (prime_wave) is not ported")
         if generator is None:
             generator = torch.Generator(device=self.semantic.transformer.start_token.device)
             generator.manual_seed(0)

@@ -34,9 +34,22 @@ _T5_DIMS = {"google/t5-v1_1-small": 512, "google/t5-v1_1-base": 768,
             "google/t5-v1_1-large": 1024}
 
 
+def _jax_config(args: dict) -> dict:
+    """The JAX package's `configs` of an LM from the port's constructor
+    arguments: the unported conditioning keys at their only values, the
+    attention dispatch at JAX's default; `add_value_residual` only when
+    off (JAX's transformer has it on)."""
+    cfg = {k: v for k, v in args.items() if k not in ("self", "__class__", "seed", "device")}
+    if cfg.get("add_value_residual", True):
+        cfg.pop("add_value_residual", None)
+    cfg.update(_UNPORTED, flash_attn="auto", cond_drop_prob=0.5)
+    return dict(sorted(cfg.items()))
+
+
 class SemanticTransformer(nn.Module):
     """LM over semantic token ids plus EOS (= num_semantic_tokens). Weights
-    are drawn from `seed` on the CPU and then moved to `device`."""
+    are drawn from `seed` on the CPU and then moved to `device`; `config`
+    holds the arguments as the JAX package's checkpoints store them."""
 
     def __init__(self, *, dim: int, depth: int, num_semantic_tokens: int,
                  heads: int = 8, dim_head: int = 64, num_residual_streams: int = 4,
@@ -45,7 +58,9 @@ class SemanticTransformer(nn.Module):
                  add_value_residual: bool = True,
                  t5_name: str = "google/t5-v1_1-base", cond_dim: "int | None" = None,
                  seed: int = 0, device: "str | torch.device" = "cuda"):
+        config = _jax_config(locals())
         super().__init__()
+        self.config = config
         _refuse_dropout(attn_dropout, ff_dropout)
         device = resolve_device(device)
         g = torch.Generator().manual_seed(seed)
@@ -139,7 +154,9 @@ class CoarseTransformer(nn.Module):
                  project_semantic_logits: bool = True, t5_name: str = "google/t5-v1_1-base",
                  cond_dim: "int | None" = None, seed: int = 0,
                  device: "str | torch.device" = "cuda"):
+        config = _jax_config(locals())
         super().__init__()
+        self.config = config
         _refuse_dropout(attn_dropout, ff_dropout)
         device = resolve_device(device)
         g = torch.Generator().manual_seed(seed)
@@ -260,7 +277,9 @@ class FineTransformer(nn.Module):
                  project_coarse_logits: bool = True, pad_id: int = -1,
                  t5_name: str = "google/t5-v1_1-base", cond_dim: "int | None" = None,
                  seed: int = 0, device: "str | torch.device" = "cuda"):
+        config = _jax_config(locals())
         super().__init__()
+        self.config = config
         _refuse_dropout(attn_dropout, ff_dropout)
         device = resolve_device(device)
         g = torch.Generator().manual_seed(seed)

@@ -7,11 +7,15 @@ the quantizers' commitment losses, in JAX's order) and the discriminators'
 hinge loss with its gradient penalty, over a multi-scale waveform
 discriminator and a complex STFT discriminator.
 
-Activations are channels-last (B, T, C) as in JAX, in float32; the
-discriminators run channels-first inside. The bottleneck's local attention
-is K7 and the quantizer's nearest-code search K6, in training as in
-serving. Not ported: the lookup-free and finite-scalar quantizers,
-squeeze-excite, GateLoop layers, resampling and a bfloat16 compute type;
+Activations are channels-last (B, T, C) as in JAX, in `compute_dtype`
+(float32, or bfloat16 for the encoder and decoder stacks, the local
+attention included); the discriminators run channels-first inside, in their
+input's dtype. Weights are cast to their input's dtype where they are used,
+so a bfloat16 copy of the parameters (the trainer's bf16_compute) runs as in
+JAX; the quantizers' distances and every loss term are float32. The
+bottleneck's local attention is K7 and the quantizer's nearest-code search
+K6, in training as in serving. Not ported: the lookup-free and
+finite-scalar quantizers, squeeze-excite, GateLoop layers and resampling;
 each raises where it would be asked for.
 """
 from __future__ import annotations
@@ -27,7 +31,7 @@ from torch import nn
 from ..device import resolve_device
 from ..nn.layers import Linear, init_uniform
 from ..ops.attention import LocalTransformer
-from ..ops.conv import CausalConv1d, CausalConvTranspose1d
+from ..ops.conv import CausalConv1d, CausalConvTranspose1d, conv
 from ..ops.quantize import GroupedResidualVQ
 from ..ops.sampling import curtail_to_multiple
 from ..ops.stft import melspectrogram, stft
@@ -116,8 +120,8 @@ class _Conv1dLayer(nn.Module):
         self.stride, self.padding, self.groups = stride, padding, groups
 
     def forward(self, x):
-        return F.conv1d(x, self.weight, self.bias, stride=self.stride, padding=self.padding,
-                        groups=self.groups)
+        return conv(F.conv1d, x, self.weight, self.bias, stride=self.stride,
+                    padding=self.padding, groups=self.groups)
 
 
 class MultiScaleDiscriminator(nn.Module):
@@ -168,11 +172,13 @@ class ComplexConv2d(nn.Module):
         self.padding = (padding, padding) if isinstance(padding, int) else tuple(padding)
 
     def forward(self, xr, xi):
-        conv = functools.partial(F.conv2d, stride=self.stride, padding=self.padding)
-        from_re = conv(xr, torch.cat([self.wr, self.wi]))
-        from_im = conv(xi, torch.cat([-self.wi, self.wr]))
+        conv2d = functools.partial(conv, F.conv2d, stride=self.stride, padding=self.padding)
+        wr, wi = self.wr.to(xr.dtype), self.wi.to(xr.dtype)
+        from_re = conv2d(xr, torch.cat([wr, wi]))
+        from_im = conv2d(xi, torch.cat([-wi, wr]))
         yr, yi = (from_re + from_im).chunk(2, dim=1)
-        return yr + self.br[:, None, None], yi + self.bi[:, None, None]
+        return ((yr + self.br[:, None, None]).to(xr.dtype),
+                (yi + self.bi[:, None, None]).to(xr.dtype))
 
 
 class ModReLU(nn.Module):
@@ -284,15 +290,20 @@ class SoundStream(nn.Module):
                  attn_dynamic_pos_bias: bool = False,
                  complex_stft_discr_logits_abs: bool = True,
                  complex_stft_discr_kwargs: "dict | None" = None,
-                 multi_scale_discr_kwargs: "dict | None" = None, discriminators: bool = True,
-                 seed: int = 0, device: "str | torch.device" = "cuda"):
+                 multi_scale_discr_kwargs: "dict | None" = None, compute_dtype: str = "float32",
+                 discriminators: bool = True, seed: int = 0,
+                 device: "str | torch.device" = "cuda"):
         super().__init__()
         device = resolve_device(device)
+        if compute_dtype not in _COMPUTE_DTYPES:
+            raise NotImplementedError(f"compute_dtype={compute_dtype!r} is not ported: "
+                                      f"one of {sorted(_COMPUTE_DTYPES)}")
         args = {k: v for k, v in locals().items()
                 if k not in ("self", "__class__", "seed", "device", "discriminators")}
         self.config = _jax_config(args)
         g = torch.Generator().manual_seed(seed)
         self.target_sample_hz = target_sample_hz
+        self.compute_dtype = _COMPUTE_DTYPES[compute_dtype]
         self.strides = tuple(strides)
         self.channels = channels
         self.codebook_dim = codebook_dim
@@ -386,15 +397,16 @@ class SoundStream(nn.Module):
 
     def encode_frames(self, x):
         """waveform (B, T) -> pre-quantization embeddings (B, T / DS, D)."""
-        h = self.encoder_init(x.float()[..., None])
+        h = self.encoder_init(x.to(self.compute_dtype)[..., None])
         for block in self.encoder_blocks:
             h = block(h)
         h = self.encoder_final(h)
         return self.encoder_attn(h) if self.encoder_attn is not None else h
 
     def decode(self, x):
-        """quantized embeddings (B, N, D) -> waveform (B, N * DS)."""
-        x = x.float()
+        """quantized embeddings (B, N, D) -> waveform (B, N * DS), in
+        compute_dtype."""
+        x = x.to(self.compute_dtype)
         if self.decoder_attn is not None:
             x = self.decoder_attn(x)
         h = self.decoder_init(x)
@@ -593,8 +605,8 @@ def AudioLMSoundStream(strides=(2, 4, 5, 8), target_sample_hz=16000, rq_num_quan
 # value each may take here
 _UNPORTED = {"use_lookup_free_quantizer": False, "use_finite_scalar_quantizer": False,
              "finite_scalar_quantizer_levels": None, "squeeze_excite": False,
-             "use_gate_loop_layers": False, "input_channels": 1, "compute_dtype": "float32",
-             "pad_mode": "reflect"}
+             "use_gate_loop_layers": False, "input_channels": 1, "pad_mode": "reflect"}
+_COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # rq_kwargs the port's quantizers take
 _RQ_KWARGS = ("kmeans_init", "threshold_ema_dead_code", "quantize_dropout")
 
@@ -618,10 +630,12 @@ def _jax_config(args: dict) -> dict:
 
 
 def load_soundstream(path, *, device: "str | torch.device" = "cuda",
-                     discriminators: bool = True):
+                     discriminators: bool = True, compute_dtype: "str | None" = None):
     """A SoundStream from a JAX `.npz` checkpoint (`SoundStream.save`, a
     persisted trainer checkpoint with its config, or a trainer checkpoint
-    of the port's), in float32, with its quantizers' training state. Every
+    of the port's), with float32 weights and its quantizers' training
+    state, computing in the config's compute_dtype or the one given (the
+    JAX stage recipe tokenises with "bfloat16"). Every
     config key is a constructor argument or an unported feature at its only
     value (`_UNPORTED`; `rq_kwargs` may hold only `_RQ_KWARGS`); anything
     else raises. For serving, discriminators=False neither builds the
@@ -633,6 +647,8 @@ def load_soundstream(path, *, device: "str | torch.device" = "cuda",
         arrays = {name[len("['model']"):]: a for name, a in arrays.items()
                   if name.startswith("['model']")}
     cfg = dict(meta["config"])
+    if compute_dtype is not None:
+        cfg["compute_dtype"] = compute_dtype
     for key, value in _UNPORTED.items():
         if cfg.pop(key, value) != value:
             raise NotImplementedError(f"{path}: {key}={meta['config'][key]!r} is not ported")

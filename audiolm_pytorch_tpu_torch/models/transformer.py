@@ -137,9 +137,12 @@ class HyperConnection(nn.Module):
         # rmsnorm factors out of the projection: tanh(x @ W * rsqrt(mean(x^2)))
         inv = torch.rsqrt(streams.float().square().mean(-1, keepdim=True) + 1e-6)
         w = torch.cat([self.dyn_alpha_w, self.dyn_beta_w[:, None]], dim=1).to(dt)
-        proj = torch.tanh(torch.matmul(streams, w).float() * inv)  # (S, B, N, S+2)
-        dyn_a = (proj[..., : s + 1] * self.dyn_alpha_scale).to(dt)
-        dyn_b = (proj[..., s + 1] * self.dyn_beta_scale).to(dt)
+        # the projection accumulates into float32, unrounded (JAX's
+        # preferred_element_type=float32): a product of two bfloat16 values
+        # is exact in float32
+        proj = torch.tanh(torch.matmul(streams.float(), w.float()) * inv)  # (S, B, N, S+2)
+        dyn_a = (proj[..., : s + 1] * self.dyn_alpha_scale.float()).to(dt)
+        dyn_b = (proj[..., s + 1] * self.dyn_beta_scale.float()).to(dt)
         coef = torch.cat([
             (self.alpha_in.to(dt)[:, None, None] + dyn_a[..., 0])[..., None],
             self.alpha_mix.to(dt)[:, None, None, :] + dyn_a[..., 1:]], dim=-1)

@@ -4,8 +4,10 @@ held against the JAX package's `models/wrappers.py` (`masked_cross_entropy`,
 `_fine_generate_jit` on their sequential paths, the three wrappers'
 `__call__`, and `decode_acoustic_tokens`). With a codec, the Coarse and Fine
 wrappers also take audio (the codes of `raw_wave_for_codec`, the Fine
-prompt `prime_wave`) and give it back (`reconstruct_wave`). No wav2vec,
-text conditioning or CFG."""
+prompt `prime_wave`) and give it back (`reconstruct_wave`); with a wav2vec
+(`HubertWithKmeans`), the Semantic and Coarse wrappers take the semantic
+ids of `raw_wave`. The wav2vec and the codec are frozen: they tokenise
+under no_grad, in their own dtype. No text conditioning or CFG."""
 from __future__ import annotations
 
 import torch
@@ -29,6 +31,20 @@ def masked_cross_entropy(logits, labels, ignore_index: int = -1):
     return (nll * mask).sum() / mask.sum().clamp(min=1)
 
 
+def _wav2vec_ids(wav2vec, wave):
+    """The semantic ids (B, frames) of a waveform, from the frozen wav2vec."""
+    if wav2vec is None:
+        raise ValueError("raw_wave needs the wrapper's wav2vec")
+    with torch.no_grad():
+        return wav2vec(wave, flatten=False)
+
+
+def _check_wav2vec(wav2vec, num_semantic_tokens):
+    if wav2vec is not None and wav2vec.codebook_size != num_semantic_tokens:
+        raise ValueError(f"num_semantic_tokens must equal the wav2vec's codebook size "
+                         f"{wav2vec.codebook_size}")
+
+
 def sample_from_logits(logits, filter_thres: float, temperature: float, *,
                        generator: "torch.Generator | None" = None):
     return gumbel_sample(top_k(logits, thres=filter_thres), temperature,
@@ -39,22 +55,26 @@ class SemanticTransformerWrapper(nn.Module):
     """Scores semantic token sequences, gives the training loss and samples
     continuations."""
 
-    def __init__(self, *, transformer: SemanticTransformer, pad_id: int = -1,
+    def __init__(self, *, transformer: SemanticTransformer, wav2vec=None, pad_id: int = -1,
                  unique_consecutive: bool = True, mask_prob: float = 0.15):
         super().__init__()
+        _check_wav2vec(wav2vec, transformer.num_semantic_tokens)
         self.transformer = transformer
+        self.wav2vec = wav2vec
         self.pad_id = pad_id
         self.eos_id = transformer.eos_id
         self.unique_consecutive = unique_consecutive
         self.mask_prob = mask_prob
 
-    def forward(self, semantic_token_ids, *, return_loss: bool = False, train: bool = False,
-                generator: "torch.Generator | None" = None):
-        """Logits (B, N, V) of the ids, or with return_loss the mean next-token
-        cross entropy. With train, EOS is appended first and the forgetful
-        causal mask (mask_prob of the keys dropped per row, drawn from
-        `generator`) is applied. Consecutive repeats are dropped after EOS is
-        appended."""
+    def forward(self, semantic_token_ids=None, *, raw_wave=None, return_loss: bool = False,
+                train: bool = False, generator: "torch.Generator | None" = None):
+        """Logits (B, N, V) of the ids (or of the wav2vec's ids of
+        `raw_wave`), or with return_loss the mean next-token cross entropy.
+        With train, EOS is appended first and the forgetful causal mask
+        (mask_prob of the keys dropped per row, drawn from `generator`) is
+        applied. Consecutive repeats are dropped after EOS is appended."""
+        if semantic_token_ids is None:
+            semantic_token_ids = _wav2vec_ids(self.wav2vec, raw_wave)
         ids = semantic_token_ids.reshape(semantic_token_ids.shape[0], -1)
         if train:
             ids = append_eos_id(ids, self.eos_id)
@@ -152,11 +172,13 @@ class CoarseTransformerWrapper(nn.Module):
     samples coarse codes for given semantic ids. With a codec, the coarse
     codes may come from audio and the samples go back to audio."""
 
-    def __init__(self, *, transformer: CoarseTransformer, codec=None, pad_id: int = -1,
-                 unique_consecutive: bool = True, mask_prob: float = 0.15):
+    def __init__(self, *, transformer: CoarseTransformer, codec=None, wav2vec=None,
+                 pad_id: int = -1, unique_consecutive: bool = True, mask_prob: float = 0.15):
         super().__init__()
+        _check_wav2vec(wav2vec, transformer.num_semantic_tokens)
         self.transformer = transformer
         self.codec = codec
+        self.wav2vec = wav2vec
         self.pad_id = pad_id
         self.unique_consecutive = unique_consecutive
         self.mask_prob = mask_prob
@@ -165,16 +187,21 @@ class CoarseTransformerWrapper(nn.Module):
         self.semantic_eos_id = transformer.semantic_eos_id
         self.coarse_eos_id = transformer.coarse_eos_id
 
-    def forward(self, semantic_token_ids, coarse_token_ids=None, *, raw_wave_for_codec=None,
-                return_loss: bool = False, train: bool = False,
+    def forward(self, semantic_token_ids=None, coarse_token_ids=None, *, raw_wave=None,
+                raw_wave_for_codec=None, return_loss: bool = False, train: bool = False,
                 generator: "torch.Generator | None" = None):
         """(semantic logits, coarse logits), or with return_loss the loss:
         each head's cross entropy weighted by its count of labels (the JAX
         wrapper's loss weights at their default, 1). Without
+        semantic_token_ids, the wav2vec's ids of `raw_wave`; without
         coarse_token_ids, the codec's first coarse codes of
-        `raw_wave_for_codec`. With train, EOS is appended to both streams and
+        `raw_wave_for_codec`, which defaults to raw_wave. With train, EOS is appended to both streams and
         the forgetful causal mask (drawn from `generator`) joins the key
         mask, which always drops the semantic pad and EOS ids."""
+        if semantic_token_ids is None:
+            semantic_token_ids = _wav2vec_ids(self.wav2vec, raw_wave)
+        if raw_wave_for_codec is None:
+            raw_wave_for_codec = raw_wave
         b = semantic_token_ids.shape[0]
         if coarse_token_ids is None:
             coarse_token_ids = _codec_codes(self.codec, raw_wave_for_codec)[
@@ -283,15 +310,19 @@ class FineTransformerWrapper(nn.Module):
         self.pad_id = pad_id
         self.mask_prob = mask_prob
 
-    def forward(self, coarse_token_ids=None, fine_token_ids=None, *, raw_wave_for_codec=None,
-                return_loss: bool = False, train: bool = False,
+    def forward(self, coarse_token_ids=None, fine_token_ids=None, *, raw_wave=None,
+                raw_wave_for_codec=None, return_loss: bool = False, train: bool = False,
                 generator: "torch.Generator | None" = None):
         """(coarse logits, fine logits), or with return_loss the loss: each
         head's cross entropy weighted by its count of logits (the JAX
-        wrapper's loss weight at its default, 1). With `raw_wave_for_codec`
-        (the JAX wrapper's `raw_wave`), both come from the codec's codes of
-        it. With train, the forgetful causal mask (drawn from `generator`)
-        is applied."""
+        wrapper's loss weight at its default, 1). With `raw_wave` (the JAX
+        wrapper's name) or `raw_wave_for_codec`, both come from the codec's
+        codes of it. With train, the forgetful causal mask (drawn from
+        `generator`) is applied."""
+        if raw_wave is not None:
+            if raw_wave_for_codec is not None:
+                raise ValueError("pass raw_wave or raw_wave_for_codec, not both")
+            raw_wave_for_codec = raw_wave
         if raw_wave_for_codec is not None:
             codes = _codec_codes(self.codec, raw_wave_for_codec)
             coarse_token_ids = codes[..., :self.num_coarse_quantizers]

@@ -2,7 +2,9 @@
 Linear, gamma-only LayerNorm (eps 1e-5), RMSNorm, exact-erf GEGLU and the
 GEGLU FeedForward.
 
-Parameters are float32. Initialisation follows the JAX package's
+Parameters are float32; under bf16 compute the train step hands the layers
+bfloat16 copies of them, and the norms still compute in float32 (on the
+bfloat16-rounded scales), as the JAX package's do. Initialisation follows the JAX package's
 distributions from an explicit `torch.Generator`; the numbers differ from
 JAX's, so parity tests copy weights across instead.
 """
@@ -47,7 +49,7 @@ class LayerNorm(nn.Module):
         self.gamma = nn.Parameter(torch.ones(dim))
 
     def forward(self, x):
-        out = F.layer_norm(x.float(), x.shape[-1:], self.gamma, None, 1e-5)
+        out = F.layer_norm(x.float(), x.shape[-1:], self.gamma.float(), None, 1e-5)
         return out.to(x.dtype)
 
 
@@ -58,7 +60,7 @@ class RMSNorm(nn.Module):
 
     def forward(self, x):
         x32 = x.float()
-        out = x32 * torch.rsqrt(x32.square().mean(-1, keepdim=True) + 1e-8) * self.gamma
+        out = x32 * torch.rsqrt(x32.square().mean(-1, keepdim=True) + 1e-8) * self.gamma.float()
         return out.to(x.dtype)
 
 

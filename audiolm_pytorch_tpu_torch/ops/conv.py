@@ -9,7 +9,12 @@ as numpy's `pad(mode="reflect")` does, again and again when the pad is as
 long as the input or longer, where `F.pad` refuses; so a decode of fewer
 frames than the pad matches the JAX package. Reflection is the only padding
 the JAX codec's configurations use (`pad_mode="reflect"`). The convolutions
-are cuDNN's, as the JAX package leaves them to XLA.
+are cuDNN's, as the JAX package leaves them to XLA. Weights are cast to
+the input's dtype (`conv`): a bfloat16 input convolves in bfloat16, on the
+card; on the CPU in float32, its output rounded to bfloat16 (XLA's CPU
+does the same), because PyTorch's CPU bfloat16 convolution gives wrong
+values for some strided shapes (kernel 8, stride 4: errors of the size of
+the output).
 """
 from __future__ import annotations
 
@@ -21,8 +26,20 @@ from torch import nn
 
 from ..nn.layers import init_uniform
 
-__all__ = ["causal_conv1d", "causal_conv_transpose1d", "CausalConv1d", "CausalConvTranspose1d",
-           "reflect_pad_left"]
+__all__ = ["conv", "causal_conv1d", "causal_conv_transpose1d", "CausalConv1d",
+           "CausalConvTranspose1d", "reflect_pad_left"]
+
+
+def conv(fn, x, weight, bias=None, **kwargs):
+    """fn (F.conv1d, F.conv_transpose1d, F.conv2d) of x, with weight and
+    bias cast to x's dtype; a bfloat16 x on the CPU convolves in float32
+    and the output is rounded to bfloat16."""
+    weight = weight.to(x.dtype)
+    bias = bias.to(x.dtype) if bias is not None else None
+    if x.dtype == torch.bfloat16 and x.device.type == "cpu":
+        return fn(x.float(), weight.float(), None if bias is None else bias.float(),
+                  **kwargs).to(torch.bfloat16)
+    return fn(x, weight, bias, **kwargs)
 
 
 def reflect_pad_left(x, pad: int):
@@ -47,7 +64,7 @@ def causal_conv1d(x, weight, bias=None, *, stride: int = 1, dilation: int = 1):
         x = reflect_pad_left(x, pad)
     elif pad < 0:
         x = x[:, -pad:]
-    y = F.conv1d(x.transpose(1, 2), weight.to(x.dtype), None, stride=stride, dilation=dilation)
+    y = conv(F.conv1d, x.transpose(1, 2), weight, stride=stride, dilation=dilation)
     y = y.transpose(1, 2)
     return y + bias.to(y.dtype) if bias is not None else y
 
@@ -57,7 +74,7 @@ def causal_conv_transpose1d(x, weight, bias=None, *, stride: int):
     the transposed convolution, cropped to T * stride (the JAX package's
     input-dilated convolution with the kernel flipped)."""
     n = x.shape[1]
-    y = F.conv_transpose1d(x.transpose(1, 2), weight.to(x.dtype), None, stride=stride)
+    y = conv(F.conv_transpose1d, x.transpose(1, 2), weight, stride=stride)
     y = y[..., : n * stride].transpose(1, 2)
     return y + bias.to(y.dtype) if bias is not None else y
 

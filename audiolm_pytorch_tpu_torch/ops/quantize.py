@@ -136,7 +136,8 @@ class VectorQuantizeEMA(nn.Module):
         self.stochastic_sample_codes = stochastic_sample_codes
 
     def encode(self, x, *, generator=None):
-        """x (..., D) -> int64 indices (...): K6 on a CUDA tensor; with
+        """x (..., D) -> int64 indices (...): K6 on a CUDA tensor, in float32
+        whatever x's dtype (as the JAX package's distances are); with
         stochastic codes and a generator, Gumbel-max over -distance."""
         flat = x.detach().reshape(-1, self.dim)
         if self.stochastic_sample_codes and generator is not None:
@@ -144,7 +145,7 @@ class VectorQuantizeEMA(nn.Module):
             gumbel = -torch.log(-torch.log(draw_uniform(generator, dist.shape).to(dist.device)))
             idx = (gumbel - dist).argmax(-1)
         else:
-            idx = vq_nearest_code(flat, self.codebook).long()
+            idx = vq_nearest_code(flat.float(), self.codebook).long()
         return idx.reshape(x.shape[:-1])
 
     def decode(self, indices):

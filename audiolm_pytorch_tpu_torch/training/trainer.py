@@ -1,13 +1,14 @@
 """Training runtime, held against the JAX package's `training/trainer.py`:
-the LM train step (`_TransformerTrainerBase`'s `_build_step` and the update
-part of its `train_step`) and the SoundStream codec's GAN trainer
-(`SoundStreamTrainer`), with what they share (`_TrainerBase`: the results
-folder, the metrics log, checkpoint cadence and resumption, the
-micro-batch stack), and the JAX trainers' defaults.
+the LM train step (`TransformerTrainStep`: `_TransformerTrainerBase`'s
+`_build_step`, in float32 or bf16 compute), the three LM trainers
+(`SemanticTransformerTrainer`, `CoarseTransformerTrainer`,
+`FineTransformerTrainer`: data, validation, best-valid and numbered
+checkpoints), the SoundStream codec's GAN trainer (`SoundStreamTrainer`),
+what they share (`_TrainerBase`: the results folder, the metrics log,
+checkpoint cadence and resumption, the micro-batch stack), and the JAX
+trainers' defaults.
 
-One card: `data_parallel` is accepted and has no effect. The LM trainers'
-dataset, wav2vec tokenisation, validation and checkpoints are not ported
-yet.
+One card: `data_parallel` is accepted and has no effect.
 """
 from __future__ import annotations
 
@@ -22,20 +23,33 @@ import torch
 
 from ..data.dataset import SoundDataset, get_dataloader
 from ..device import resolve_device
+from ..models.wrappers import (CoarseTransformerWrapper, FineTransformerWrapper,
+                               SemanticTransformerWrapper)
 from ..utils.audio_io import save_audio
-from ..weights import DISCRIMINATORS, codec_state_dict_from_jax, codec_state_dict_to_jax
+from ..weights import (DISCRIMINATORS, codec_state_dict_from_jax, codec_state_dict_to_jax,
+                       lm_state_dict_to_jax, state_dict_from_jax)
 from .checkpoint import read_pytree, save_pytree
 from .ema import EMA
 from .optimizer import clip_by_global_norm_, get_optimizer
 
-__all__ = ["TransformerTrainStep", "SoundStreamTrainer", "checkpoint_num_steps",
+__all__ = ["TransformerTrainStep", "SoundStreamTrainer", "SemanticTransformerTrainer",
+           "CoarseTransformerTrainer", "FineTransformerTrainer", "checkpoint_num_steps",
            "split_dataset"]
+
+
+def _bf16_copies(named_params):
+    """{name: a bfloat16 copy} of the float32 parameters among (name, p),
+    made inside autograd, so the gradient reaches each float32 master
+    through its cast (the JAX package's `cast_floats` of the trainable
+    parameters). Others pass as they are."""
+    return {n: p.to(torch.bfloat16) if p.dtype == torch.float32 else p
+            for n, p in named_params}
 
 
 class TransformerTrainStep:
     """Trains the transformer of `wrapper` (a Semantic, Coarse or Fine
-    wrapper) on `device`; a codec the wrapper holds stays as it is. The
-    forgetful masks are drawn from a generator seeded with `seed`.
+    wrapper) on `device`; a wav2vec or codec the wrapper holds stays as it
+    is. The forgetful masks are drawn from a generator seeded with `seed`.
 
     One step takes grad_accum_every micro-batches: each gives its loss
     through the wrapper's train path (EOS appended, unique-consecutive, the
@@ -43,40 +57,64 @@ class TransformerTrainStep:
     and summed; then the global-norm clip and one optimizer update. Every
     parameter gets a gradient, zero where the loss does not reach it (the
     text projection of an unconditioned model), as `jax.value_and_grad`
-    gives one, so weight decay touches the same parameters as in JAX."""
+    gives one, so weight decay touches the same parameters as in JAX.
+
+    With bf16_compute each micro-batch's forward runs on bfloat16 copies of
+    the transformer's float32 parameters (`torch.func.functional_call`);
+    the masters, their gradients and the optimizer state stay float32. The
+    norms, the hyper-connections' projection, the rel-pos and position-bias
+    MLPs (float32 inputs, so float32 tables from the rounded weights) and
+    the loss's log-softmax compute in float32, as in JAX."""
 
     def __init__(self, wrapper, *, lr: float = 3e-4, wd: float = 0.0,
                  max_grad_norm: "float | None" = 0.5, grad_accum_every: int = 1,
                  warmup_steps: int = 0, cosine_decay: bool = False,
                  num_train_steps: "int | None" = None, seed: int = 42,
-                 device: "str | torch.device" = "cuda"):
+                 bf16_compute: bool = False, device: "str | torch.device" = "cuda"):
         self.device = resolve_device(device)
         self.wrapper = wrapper.to(self.device)
-        self.params = [p for p in wrapper.transformer.parameters() if p.requires_grad]
+        named = [(n, p) for n, p in wrapper.transformer.named_parameters() if p.requires_grad]
+        self.names = [n for n, _ in named]
+        self.params = [p for _, p in named]
         self.optimizer, self.scheduler = get_optimizer(
             self.params, lr, wd, warmup_steps=warmup_steps, total_steps=num_train_steps,
             cosine_decay=cosine_decay)
+        self.wd = wd
         self.max_grad_norm = max_grad_norm
+        self.warmup_steps = warmup_steps
         self.grad_accum_every = grad_accum_every
+        self.bf16_compute = bf16_compute
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
-    def step(self, *token_ids) -> float:
-        """One update from the wrapper's batch: one or more id tensors, each
-        (grad_accum_every * B, ...) (the Semantic wrapper's ids; the Coarse
-        wrapper's semantic ids and coarse codes; the Fine wrapper's coarse
-        and fine codes). Each is split into grad_accum_every micro-batches
+    def loss(self, *inputs, **named_inputs):
+        """The wrapper's training loss of one micro-batch, in the step's
+        compute type."""
+        kwargs = dict(named_inputs, return_loss=True, train=True, generator=self.generator)
+        if not self.bf16_compute:
+            return self.wrapper(*inputs, **kwargs)
+        cast = _bf16_copies((f"transformer.{n}", p) for n, p in zip(self.names, self.params))
+        return torch.func.functional_call(self.wrapper, cast, inputs, kwargs)
+
+    def step(self, *inputs, **named_inputs) -> float:
+        """One update from the wrapper's batch: tensors, each
+        (grad_accum_every * B, ...), positional (the Semantic wrapper's ids;
+        the Coarse wrapper's semantic ids and coarse codes; the Fine
+        wrapper's coarse and fine codes) or named (raw_wave,
+        raw_wave_for_codec). Each is split into grad_accum_every micro-batches
         along its first axis. Returns the mean loss of the micro-batches."""
         accum = self.grad_accum_every
-        batches = [ids.to(self.device) for ids in token_ids]
-        for ids in batches:
-            if ids.shape[0] % accum:
-                raise ValueError(f"batch {ids.shape[0]} is not a multiple of "
+        names = list(named_inputs)
+        batches = [x.to(self.device) for x in (*inputs, *named_inputs.values())]
+        for x in batches:
+            if x.shape[0] % accum:
+                raise ValueError(f"batch {x.shape[0]} is not a multiple of "
                                  f"grad_accum_every {accum}")
         for p in self.params:
             p.grad = torch.zeros_like(p)
         losses = []
-        for micro in zip(*(ids.reshape(accum, -1, *ids.shape[1:]) for ids in batches)):
-            loss = self.wrapper(*micro, return_loss=True, train=True, generator=self.generator)
+        for micro in zip(*(x.reshape(accum, -1, *x.shape[1:]) for x in batches)):
+            npos = len(micro) - len(names)
+            loss = self.loss(*micro[:npos], **dict(zip(names, micro[npos:])))
             (loss / accum).backward()
             losses.append(loss.detach())
         if self.max_grad_norm is not None:
@@ -118,6 +156,65 @@ def split_dataset(ds, valid_frac: float, seed: int = 0):
     if n_valid == 0 or n_valid >= n:
         return ds, ds
     return _Subset(ds, idx[n_valid:]), _Subset(ds, idx[:n_valid])
+
+
+def _opt_paths(wd: float, max_grad_norm, warmup: int):
+    """The indices of Adam's and the schedule's states in the JAX trainers'
+    optax chain: [clip], Adam, [decayed weights], the learning rate (its
+    state a count only with a warmup schedule)."""
+    adam = 1 if max_grad_norm is not None else 0
+    sched = adam + (2 if wd > 0 else 1)
+    return adam, (sched if warmup > 0 else None)
+
+
+def _opt_leaves(prefix, opt, sched, names, params, *, wd, max_grad_norm, warmup, to_jax,
+                tree=""):
+    """The JAX checkpoint leaves of a torch AdamW and its schedule: Adam's
+    count, mu and nu (exp_avg, exp_avg_sq; zeros before the first step) by
+    the parameters' JAX paths (`to_jax` of {name: tensor}, under `tree`),
+    and the schedule's count."""
+    adam_i, sched_i = _opt_paths(wd, max_grad_norm, warmup)
+    state = [opt.state.get(p, {}) for p in params]
+    count = int(state[0]["step"]) if state and "step" in state[0] else 0
+    leaves = {f"{prefix}[{adam_i}].count": np.asarray(count, np.int32)}
+    for moment, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+        tensors = {n: s[key] if key in s else torch.zeros_like(p)
+                   for n, p, s in zip(names, params, state)}
+        leaves.update({f"{prefix}[{adam_i}].{moment}{tree}{path}": a
+                       for path, a in to_jax(tensors).items()})
+    if sched_i is not None:
+        leaves[f"{prefix}[{sched_i}].count"] = np.asarray(sched.last_epoch, np.int32)
+    return leaves
+
+
+def _load_opt(arrays, prefix, opt, sched, names, params, *, wd, max_grad_norm, warmup,
+              from_jax, tree=""):
+    """The inverse of `_opt_leaves`: the optimizer's per-parameter state and
+    the schedule's count (and learning rate) from a checkpoint's leaves."""
+    adam_i, sched_i = _opt_paths(wd, max_grad_norm, warmup)
+    count = int(arrays[f"{prefix}[{adam_i}].count"])
+    moments = {}
+    for moment in ("mu", "nu"):
+        head = f"{prefix}[{adam_i}].{moment}{tree}"
+        moments[moment] = from_jax(
+            {k[len(head):]: a for k, a in arrays.items() if k.startswith(head)})
+    for n, p in zip(names, params):
+        opt.state[p] = {"step": torch.tensor(float(count)),
+                        "exp_avg": moments["mu"][n].to(p.device, p.dtype),
+                        "exp_avg_sq": moments["nu"][n].to(p.device, p.dtype)}
+    if sched_i is not None:
+        sched.last_epoch = int(arrays[f"{prefix}[{sched_i}].count"])
+        for group, base, fn in zip(opt.param_groups, sched.base_lrs, sched.lr_lambdas):
+            group["lr"] = base * fn(sched.last_epoch)
+        sched._last_lr = [group["lr"] for group in opt.param_groups]
+
+
+def _generator_state(generator) -> str:
+    return generator.get_state().cpu().numpy().tobytes().hex()
+
+
+def _set_generator_state(generator, hexstate: str):
+    generator.set_state(torch.frombuffer(bytearray.fromhex(hexstate), dtype=torch.uint8))
 
 
 class _MetricWriter:
@@ -167,10 +264,25 @@ class _TrainerBase:
 
     def _stack_accum(self, dl_iter):
         """grad_accum_every batches from dl_iter, right-padded to the longest
-        and stacked: (accum, B, T) numpy."""
+        and stacked: (accum, B, T) numpy, or a tuple of those (a list of
+        strings for a text field, flattened) when the dataset gives
+        tuples."""
         batches = [next(dl_iter) for _ in range(self.grad_accum_every)]
-        width = max(b.shape[-1] for b in batches)
-        return np.stack([np.pad(b, ((0, 0), (0, width - b.shape[-1]))) for b in batches])
+
+        def stack(col):
+            if isinstance(col[0], list):
+                return [x for c in col for x in c]
+            width = max(c.shape[-1] for c in col)
+            return np.stack([np.pad(c, ((0, 0), (0, width - c.shape[-1]))) for c in col])
+
+        if isinstance(batches[0], tuple):
+            return tuple(stack([b[i] for b in batches]) for i in range(len(batches[0])))
+        return stack(batches)
+
+    def close(self):
+        """Stop the data loaders' worker threads."""
+        self.dl_iter.stop()
+        self.valid_dl_iter.stop()
 
     def train(self):
         while self.steps < self.num_train_steps:
@@ -194,9 +306,17 @@ class SoundStreamTrainer(_TrainerBase):
     dead-code candidates, quantizer dropout) come from one CPU
     torch.Generator seeded with `seed`, which checkpoints keep.
 
+    With bf16_compute the G step and the D step without the penalty run on
+    bfloat16 copies of their float32 parameters and a bfloat16 batch, as
+    JAX's do; the masters, the optimizer and EMA state and the quantizers'
+    buffers stay float32 (the EMA statistics are summed in float32 from the
+    detached input and written into the float32 buffers), the loss terms
+    are float32, and the D step with the gradient penalty (a second
+    derivative) runs in float32.
+
     Checkpoints hold the JAX trainer's leaves by its names (the model under
     `['model']`, the two Adam states, the EMA), so each package loads the
-    other's. bf16_compute is not ported yet."""
+    other's."""
 
     def __init__(self, soundstream, *, num_train_steps: int, batch_size: int, folder=None,
                  dataset=None, val_dataset=None, data_max_length: "int | None" = None,
@@ -211,15 +331,13 @@ class SoundStreamTrainer(_TrainerBase):
                  use_wandb_tracking: bool = False, data_parallel: bool = True, seed: int = 42,
                  valid_frac: float = 0.05, bf16_compute: bool = False,
                  train_discriminators: bool = True, device="cuda"):
-        if bf16_compute:
-            raise NotImplementedError("bf16_compute is not ported yet (ROADMAP.md, Queue 1: "
-                                      "bf16 compute); train in float32")
         super().__init__(results_folder=results_folder, num_train_steps=num_train_steps,
                          batch_size=batch_size, grad_accum_every=grad_accum_every,
                          save_results_every=save_results_every,
                          save_model_every=save_model_every,
                          use_wandb_tracking=use_wandb_tracking, device=device)
         self.model = soundstream.to(self.device)
+        self.bf16_compute = bf16_compute
         self.apply_grad_penalty_every = apply_grad_penalty_every
         self.train_discriminators = train_discriminators
         if data_max_length_seconds is not None:
@@ -264,6 +382,14 @@ class SoundStreamTrainer(_TrainerBase):
         self.generator = torch.Generator().manual_seed(seed)
 
     # -- the two steps --------------------------------------------------------
+    def _call(self, names, params, bf16: bool, wave, **kwargs):
+        """The model on wave; with bf16, on bfloat16 copies of `params` and
+        of wave."""
+        if not bf16:
+            return self.model(wave, **kwargs)
+        return torch.func.functional_call(self.model, _bf16_copies(zip(names, params)),
+                                          (wave.to(torch.bfloat16),), kwargs)
+
     def _accumulate(self, params, losses_of_micro, waves):
         """Sum 1 / N of each micro-batch's gradient of `params` (zero where
         the loss does not reach one) into their .grad; returns the outputs
@@ -285,7 +411,8 @@ class SoundStreamTrainer(_TrainerBase):
         """The generator's step on waves (accum, B, T) on the card: returns
         (mean loss, mean breakdown), both tensors."""
         def micro(wave):
-            total, breakdown = self.model(wave, train=True, generator=self.generator,
+            total, breakdown = self._call(self.gen_names, self.gen_params, self.bf16_compute,
+                                          wave, train=True, generator=self.generator,
                                           return_loss_breakdown=True)
             return total, torch.stack(breakdown).detach()
 
@@ -300,9 +427,14 @@ class SoundStreamTrainer(_TrainerBase):
                 torch.stack([o[1] for o in outs]).mean(0))
 
     def d_step(self, waves, apply_grad_penalty: bool):
-        """The discriminators' step on waves (accum, B, T): the mean loss."""
+        """The discriminators' step on waves (accum, B, T): the mean loss.
+        With bf16_compute it runs in bfloat16 unless it applies the
+        penalty."""
+        bf16 = self.bf16_compute and not apply_grad_penalty
+
         def micro(wave):
-            return self.model(wave, return_discr_loss=True,
+            return self._call(self.discr_names, self.discr_params, bf16, wave,
+                              return_discr_loss=True,
                               apply_grad_penalty=apply_grad_penalty), None
 
         outs = self._accumulate(self.discr_params, micro, waves)
@@ -344,56 +476,18 @@ class SoundStreamTrainer(_TrainerBase):
                        recon[0].float().cpu().numpy(), m.target_sample_hz)
 
     # -- checkpoints ---------------------------------------------------------
-    def _opt_paths(self, wd: float, max_grad_norm, warmup: int):
-        """The indices of Adam's and the schedule's states in the JAX
-        trainer's optax chain: [clip], Adam, [decayed weights], the
-        learning rate (its state a count only with a warmup schedule)."""
-        adam = 1 if max_grad_norm is not None else 0
-        sched = adam + (2 if wd > 0 else 1)
-        return adam, (sched if warmup > 0 else None)
-
-    def _opt_leaves(self, prefix, opt, sched, names, params, max_grad_norm, warmup):
-        adam_i, sched_i = self._opt_paths(self.wd, max_grad_norm, warmup)
-        state = [opt.state.get(p, {}) for p in params]
-        count = int(state[0]["step"]) if state and "step" in state[0] else 0
-        leaves = {f"{prefix}[{adam_i}].count": np.asarray(count, np.int32)}
-        for moment, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
-            tensors = {n: s[key] if key in s else torch.zeros_like(p)
-                       for n, p, s in zip(names, params, state)}
-            leaves.update({f"{prefix}[{adam_i}].{moment}{path}": a
-                           for path, a in codec_state_dict_to_jax(tensors).items()})
-        if sched_i is not None:
-            leaves[f"{prefix}[{sched_i}].count"] = np.asarray(sched.last_epoch, np.int32)
-        return leaves
-
-    def _load_opt(self, arrays, prefix, opt, sched, names, params, max_grad_norm, warmup):
-        adam_i, sched_i = self._opt_paths(self.wd, max_grad_norm, warmup)
-        count = int(arrays[f"{prefix}[{adam_i}].count"])
-        moments = {}
-        for moment in ("mu", "nu"):
-            head = f"{prefix}[{adam_i}].{moment}"
-            moments[moment] = codec_state_dict_from_jax(
-                {k[len(head):]: a for k, a in arrays.items() if k.startswith(head)})
-        for n, p in zip(names, params):
-            opt.state[p] = {"step": torch.tensor(float(count)),
-                            "exp_avg": moments["mu"][n].to(p.device, p.dtype),
-                            "exp_avg_sq": moments["nu"][n].to(p.device, p.dtype)}
-        if sched_i is not None:
-            sched.last_epoch = int(arrays[f"{prefix}[{sched_i}].count"])
-            for group, base, fn in zip(opt.param_groups, sched.base_lrs, sched.lr_lambdas):
-                group["lr"] = base * fn(sched.last_epoch)
-            sched._last_lr = [group["lr"] for group in opt.param_groups]
-
     def _state_leaves(self):
         buffers = [n for n, _ in self.model.named_buffers()]
         leaves = {f"['model']{k}": a for k, a in
                   codec_state_dict_to_jax(self.model.state_dict(), buffers).items()}
-        leaves.update(self._opt_leaves("['gen_opt']", self.gen_opt, self.gen_sched,
-                                       self.gen_names, self.gen_params, self.max_grad_norm,
-                                       self.warmup_steps))
-        leaves.update(self._opt_leaves("['discr_opt']", self.discr_opt, self.discr_sched,
-                                       self.discr_names, self.discr_params,
-                                       self.discr_max_grad_norm, self.discr_warmup_steps))
+        kw = dict(wd=self.wd, to_jax=codec_state_dict_to_jax)
+        leaves.update(_opt_leaves("['gen_opt']", self.gen_opt, self.gen_sched, self.gen_names,
+                                  self.gen_params, max_grad_norm=self.max_grad_norm,
+                                  warmup=self.warmup_steps, **kw))
+        leaves.update(_opt_leaves("['discr_opt']", self.discr_opt, self.discr_sched,
+                                  self.discr_names, self.discr_params,
+                                  max_grad_norm=self.discr_max_grad_norm,
+                                  warmup=self.discr_warmup_steps, **kw))
         if self.ema is not None:
             leaves.update({f"['ema'].shadow{k}": a for k, a in codec_state_dict_to_jax(
                 self.ema.shadow.state_dict(), buffers).items()})
@@ -405,7 +499,7 @@ class SoundStreamTrainer(_TrainerBase):
         the model's config, the step count and the generator's state."""
         save_pytree(path, self._state_leaves(), extra_meta={
             "steps": self.steps, "kind": "SoundStreamTrainer", "config": self.model.config,
-            "torch_generator_state": self.generator.get_state().numpy().tobytes().hex()})
+            "torch_generator_state": _generator_state(self.generator)})
         print(f"saved checkpoint to {path}")
 
     def load(self, path):
@@ -422,20 +516,224 @@ class SoundStreamTrainer(_TrainerBase):
             return {k[len(prefix):]: a for k, a in arrays.items() if k.startswith(prefix)}
 
         self.model.load_state_dict(codec_state_dict_from_jax(under("['model']")))
-        self._load_opt(arrays, "['gen_opt']", self.gen_opt, self.gen_sched, self.gen_names,
-                       self.gen_params, self.max_grad_norm, self.warmup_steps)
-        self._load_opt(arrays, "['discr_opt']", self.discr_opt, self.discr_sched,
-                       self.discr_names, self.discr_params, self.discr_max_grad_norm,
-                       self.discr_warmup_steps)
+        kw = dict(wd=self.wd, from_jax=codec_state_dict_from_jax)
+        _load_opt(arrays, "['gen_opt']", self.gen_opt, self.gen_sched, self.gen_names,
+                  self.gen_params, max_grad_norm=self.max_grad_norm, warmup=self.warmup_steps,
+                  **kw)
+        _load_opt(arrays, "['discr_opt']", self.discr_opt, self.discr_sched, self.discr_names,
+                  self.discr_params, max_grad_norm=self.discr_max_grad_norm,
+                  warmup=self.discr_warmup_steps, **kw)
         if self.ema is not None:
             self.ema.shadow.load_state_dict(codec_state_dict_from_jax(under("['ema'].shadow")))
             self.ema.step = int(arrays["['ema'].step"])
         if "torch_generator_state" in meta:
-            self.generator.set_state(torch.frombuffer(
-                bytearray.fromhex(meta["torch_generator_state"]), dtype=torch.uint8))
+            _set_generator_state(self.generator, meta["torch_generator_state"])
         self.steps = checkpoint_num_steps(path) + 1
 
-    def close(self):
-        """Stop the data loaders' worker threads."""
-        self.dl_iter.stop()
-        self.valid_dl_iter.stop()
+
+class _TransformerTrainerBase(_TrainerBase):
+    """The LM trainers' skeleton, held against the JAX package's
+    `_TransformerTrainerBase`: a dataset from `folder` (or `dataset`),
+    split by valid_frac; each step grad_accum_every batches through
+    `TransformerTrainStep` (the dataset's fields become the wrapper's
+    `wrapper_field_order` keywords); every save_results_every steps the
+    valid loss (the mean of grad_accum_every held-out batches, in float32,
+    without the forgetful mask) and, when it improves,
+    `<name>.transformer.best.ckpt.npz`; every save_model_every steps
+    `<name>.transformer.<steps>.ckpt.npz`. Checkpoints hold the JAX
+    trainer's leaves by its names (`['model']` the transformer, `['opt']`
+    the optax chain's Adam and schedule states) with `steps`, `kind`,
+    `best_valid` and the transformer's `config` in the meta, so each package
+    resumes the other's. One card: data_parallel has no effect. Text
+    conditioning is not ported: a string field raises."""
+
+    wrapper_field_order = ("raw_wave",)
+
+    def __init__(self, wrapper, *, num_train_steps: int, batch_size: int, dataset=None,
+                 folder=None, lr: float = 3e-4, wd: float = 0.0,
+                 max_grad_norm: "float | None" = 0.5, grad_accum_every: int = 1,
+                 warmup_steps: int = 0, cosine_decay: bool = False,
+                 save_results_every: int = 100, save_model_every: int = 1000,
+                 results_folder="./results", use_wandb_tracking: bool = False,
+                 data_parallel: bool = True, seed: int = 42, valid_frac: float = 0.05,
+                 bf16_compute: bool = False, dataset_kwargs: "dict | None" = None,
+                 name: str = "lm", device="cuda"):
+        super().__init__(results_folder=results_folder, num_train_steps=num_train_steps,
+                         batch_size=batch_size, grad_accum_every=grad_accum_every,
+                         save_results_every=save_results_every,
+                         save_model_every=save_model_every,
+                         use_wandb_tracking=use_wandb_tracking, device=device)
+        self.name = name
+        self.best_valid = float("inf")
+        self.step_fn = TransformerTrainStep(
+            wrapper, lr=lr, wd=wd, max_grad_norm=max_grad_norm,
+            grad_accum_every=grad_accum_every, warmup_steps=warmup_steps,
+            cosine_decay=cosine_decay, num_train_steps=num_train_steps, seed=seed,
+            bf16_compute=bf16_compute, device=self.device)
+        self.wrapper = self.step_fn.wrapper
+        if dataset is None:
+            if folder is None:
+                raise ValueError("pass folder= or dataset=")
+            dataset = self._build_dataset(folder, **(dataset_kwargs or {}))
+        self.ds, self.valid_ds = split_dataset(dataset, valid_frac, seed)
+        self.dl_iter = get_dataloader(self.ds, batch_size=batch_size)
+        self.valid_dl_iter = get_dataloader(self.valid_ds, batch_size=batch_size)
+
+    def _build_dataset(self, folder, **kwargs):
+        raise NotImplementedError
+
+    def _batch_to_kwargs(self, batch):
+        """The dataset's fields as the wrapper's keywords, in
+        wrapper_field_order: {name: tensor}."""
+        fields = batch if isinstance(batch, tuple) else (batch,)
+        if any(isinstance(f, list) for f in fields):
+            raise NotImplementedError("text conditioning is not ported: the dataset gives a "
+                                      "string field")
+        return {k: torch.as_tensor(f) for k, f in zip(self.wrapper_field_order, fields)}
+
+    def train_step(self):
+        """One update on the next grad_accum_every batches: the logs."""
+        stacked = self._stack_accum(self.dl_iter)
+        kwargs = {k: v.reshape(-1, *v.shape[2:])
+                  for k, v in self._batch_to_kwargs(stacked).items()}
+        logs = {"loss": self.step_fn.step(**kwargs)}
+        self.metrics.log(self.steps, **logs)
+        self.steps += 1
+        if self.steps % self.save_results_every == 0:
+            vloss = self.valid_loss()
+            logs["valid_loss"] = vloss
+            self.metrics.log(self.steps, valid_loss=vloss)
+            print(f"{self.steps}: valid loss {vloss:.4f}")
+            if vloss < self.best_valid:
+                self.best_valid = vloss
+                self.save(self.results_folder / f"{self.name}.transformer.best.ckpt.npz")
+        if self.steps % self.save_model_every == 0:
+            self.save(self.results_folder / f"{self.name}.transformer.{self.steps}.ckpt.npz")
+        return logs
+
+    @torch.no_grad()
+    def valid_loss(self) -> float:
+        """The mean loss of grad_accum_every held-out batches, float32
+        weights, no forgetful mask (train=False)."""
+        losses = []
+        for _ in range(self.grad_accum_every):
+            kwargs = {k: v.to(self.device)
+                      for k, v in self._batch_to_kwargs(next(self.valid_dl_iter)).items()}
+            losses.append(float(self.wrapper(**kwargs, return_loss=True, train=False)))
+        return float(np.mean(losses))
+
+    # -- checkpoints ---------------------------------------------------------
+    def _state_leaves(self):
+        transformer = self.wrapper.transformer
+        leaves = {f"['model']{k}": a
+                  for k, a in lm_state_dict_to_jax(transformer.state_dict()).items()}
+        st = self.step_fn
+        leaves.update(_opt_leaves("['opt']", st.optimizer, st.scheduler, st.names, st.params,
+                                  wd=st.wd, max_grad_norm=st.max_grad_norm,
+                                  warmup=st.warmup_steps, to_jax=lm_state_dict_to_jax,
+                                  tree=".transformer"))
+        return leaves
+
+    def save(self, path):
+        """The trainer's state in the JAX trainer's checkpoint format, with
+        the step count, the best valid loss, the transformer's config and
+        the mask generator's state."""
+        save_pytree(path, self._state_leaves(), extra_meta={
+            "steps": self.steps, "kind": self.name, "best_valid": self.best_valid,
+            "config": self.wrapper.transformer.config,
+            "torch_generator_state": _generator_state(self.step_fn.generator)})
+        print(f"saved checkpoint to {path}")
+
+    def load(self, path):
+        """Load a checkpoint of either package's trainer: the step count is
+        the file name's plus one (a `.best.` file's from its meta), and the
+        best valid loss comes from the meta, as in JAX."""
+        meta, arrays = read_pytree(path)
+        want = set(self._state_leaves())
+        if set(arrays) != want:
+            raise ValueError(f"checkpoint structure mismatch: missing "
+                             f"{sorted(want - set(arrays))[:5]} extra "
+                             f"{sorted(set(arrays) - want)[:5]}")
+        head = "['model']"
+        self.wrapper.transformer.load_state_dict(state_dict_from_jax(
+            {k[len(head):]: a for k, a in arrays.items() if k.startswith(head)}))
+        st = self.step_fn
+        _load_opt(arrays, "['opt']", st.optimizer, st.scheduler, st.names, st.params,
+                  wd=st.wd, max_grad_norm=st.max_grad_norm, warmup=st.warmup_steps,
+                  from_jax=state_dict_from_jax, tree=".transformer")
+        if "torch_generator_state" in meta:
+            _set_generator_state(st.generator, meta["torch_generator_state"])
+        self.steps = checkpoint_num_steps(path) + 1
+        self.best_valid = float(meta.get("best_valid", float("inf")))
+        if ".best." in Path(path).name and "steps" in meta:
+            self.steps = int(meta["steps"]) + 1  # no step count in the name
+
+    def generate(self, *args, **kwargs):
+        return self.wrapper.generate(*args, **kwargs)
+
+
+class SemanticTransformerTrainer(_TransformerTrainerBase):
+    """Trains a SemanticTransformer on the wav2vec's ids of audio from
+    `folder`, at the wav2vec's rate and multiple."""
+
+    def __init__(self, transformer, wav2vec=None, *, data_max_length=None,
+                 data_max_length_seconds=None, folder=None, dataset=None, **kwargs):
+        wrapper = SemanticTransformerWrapper(transformer=transformer, wav2vec=wav2vec)
+        self._wav2vec = wav2vec
+        if data_max_length_seconds is not None:
+            data_max_length = int(data_max_length_seconds * wav2vec.target_sample_hz)
+        self._data_max_length = data_max_length
+        super().__init__(wrapper, folder=folder, dataset=dataset, name="semantic", **kwargs)
+
+    def _build_dataset(self, folder, **kwargs):
+        return SoundDataset(folder, target_sample_hz=self._wav2vec.target_sample_hz,
+                            max_length=self._data_max_length,
+                            seq_len_multiple_of=self._wav2vec.seq_len_multiple_of, **kwargs)
+
+
+class CoarseTransformerTrainer(_TransformerTrainerBase):
+    """Trains a CoarseTransformer: each clip is read at the wav2vec's rate
+    (its semantic ids) and at the codec's (its coarse codes)."""
+
+    wrapper_field_order = ("raw_wave", "raw_wave_for_codec")
+
+    def __init__(self, transformer, codec=None, wav2vec=None, *, data_max_length=None,
+                 data_max_length_seconds=None, folder=None, dataset=None, **kwargs):
+        wrapper = CoarseTransformerWrapper(transformer=transformer, codec=codec,
+                                           wav2vec=wav2vec)
+        self._wav2vec, self._codec = wav2vec, codec
+        if data_max_length_seconds is not None:
+            data_max_length = tuple(int(data_max_length_seconds * hz) for hz in
+                                    (wav2vec.target_sample_hz, codec.target_sample_hz))
+        self._data_max_length = data_max_length
+        super().__init__(wrapper, folder=folder, dataset=dataset, name="coarse", **kwargs)
+
+    def _build_dataset(self, folder, **kwargs):
+        max_len = self._data_max_length
+        if isinstance(max_len, tuple):
+            max_len = max(max_len)
+        return SoundDataset(
+            folder, target_sample_hz=(self._wav2vec.target_sample_hz,
+                                      self._codec.target_sample_hz),
+            max_length=max_len, seq_len_multiple_of=(self._wav2vec.seq_len_multiple_of,
+                                                     self._codec.seq_len_multiple_of),
+            **kwargs)
+
+
+class FineTransformerTrainer(_TransformerTrainerBase):
+    """Trains a FineTransformer on the codec's codes of audio from
+    `folder`, at the codec's rate and multiple."""
+
+    def __init__(self, transformer, codec=None, *, data_max_length=None,
+                 data_max_length_seconds=None, folder=None, dataset=None, **kwargs):
+        wrapper = FineTransformerWrapper(transformer=transformer, codec=codec)
+        self._codec = codec
+        if data_max_length_seconds is not None:
+            data_max_length = int(data_max_length_seconds * codec.target_sample_hz)
+        self._data_max_length = data_max_length
+        super().__init__(wrapper, folder=folder, dataset=dataset, name="fine", **kwargs)
+
+    def _build_dataset(self, folder, **kwargs):
+        return SoundDataset(folder, target_sample_hz=self._codec.target_sample_hz,
+                            max_length=self._data_max_length,
+                            seq_len_multiple_of=self._codec.seq_len_multiple_of, **kwargs)

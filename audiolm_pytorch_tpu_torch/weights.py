@@ -10,7 +10,9 @@ read it: bfloat16 leaves are reinterpreted as `torch.bfloat16` directly.
 Buffer leaves (the codec's codebooks and EMA statistics) carry a literal
 `[<flat index 0>]` at the end of their path, which the map drops. The
 codec's map also runs the other way (`codec_state_dict_to_jax`), so the
-port writes checkpoints the JAX package reads.
+port writes checkpoints the JAX package reads; so does the LMs' map
+(`lm_state_dict_to_jax`). `hubert_state_dict_from_jax` carries a JAX
+HubertWithKmeans's weights and centres into the port's.
 """
 from __future__ import annotations
 
@@ -20,12 +22,14 @@ import re
 import numpy as np
 import torch
 
-__all__ = ["read_npz", "state_dict_from_jax", "codec_state_dict_from_jax",
-           "codec_state_dict_to_jax", "DISCRIMINATORS"]
+__all__ = ["read_npz", "state_dict_from_jax", "lm_state_dict_to_jax",
+           "codec_state_dict_from_jax", "codec_state_dict_to_jax",
+           "hubert_state_dict_from_jax", "DISCRIMINATORS"]
 
 # slots of one JAX Transformer layer tuple
 # (hc_attn, attn, hc_cross, cross, hc_ff, ff); cross attention is not ported
 _LAYER_SLOTS = {0: "hc_attn", 1: "attn", 4: "hc_ff", 5: "ff"}
+_SLOT_INDEX = {name: slot for slot, name in _LAYER_SLOTS.items()}
 _INDEX = re.compile(r"\[(\d+)\]")
 _FLAT_INDEX = re.compile(r"\[<flat index \d+>\]")
 _BUFFER_LEAF = "[<flat index 0>]"
@@ -79,6 +83,44 @@ def state_dict_from_jax(named_arrays) -> "dict[str, torch.Tensor]":
     return out
 
 
+def _jax_path(key: str) -> str:
+    """`a.b.0.c` -> `.a.b[0].c`, the JAX key path of a state_dict key."""
+    return "." + re.sub(r"\.(\d+)(?=\.|$)", r"[\1]", key)
+
+
+def lm_state_dict_to_jax(state_dict) -> "dict[str, np.ndarray]":
+    """The inverse of `state_dict_from_jax`: {JAX key path: numpy array} of
+    an LM's state_dict (`transformer.layers.0.attn.to_q.weight` ->
+    `.transformer.layers[0][1].to_q.weight`, Linear weights back to (in,
+    out)), float32 copies."""
+    out = {}
+    for key, t in state_dict.items():
+        if key.rsplit(".", 1)[-1] == "weight" and t.ndim == 2:
+            t = t.t()
+        key = re.sub(r"\.layers\.(\d+)\.(hc_attn|attn|hc_ff|ff)(?=\.)",
+                     lambda m: f".layers.{m.group(1)}.{_SLOT_INDEX[m.group(2)]}", key)
+        out[_jax_path(key)] = t.detach().to("cpu", torch.float32, copy=True).contiguous().numpy()
+    return out
+
+
+def hubert_state_dict_from_jax(named_arrays) -> "dict[str, torch.Tensor]":
+    """Map {JAX key path: array} of a HubertWithKmeans to the port's
+    state_dict: Linear weights (in, out) -> (out, in); the convolutions'
+    weights, the positional one included, (K, in, out) -> (out, in, K);
+    the centres as they are."""
+    out = {}
+    for path, a in named_arrays.items():
+        t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a))
+        key = _port_key(path, lm_layers=False)
+        leaf = key.rsplit(".", 1)[-1]
+        if leaf == "weight" and t.ndim == 2:
+            t = t.t()
+        elif leaf in ("weight", "pos_conv_weight") and t.ndim == 3:
+            t = t.permute(2, 1, 0)
+        out[key] = t.float().contiguous()
+    return out
+
+
 def _codec_layout(key: str, ndim: int):
     """The permutation from the JAX layout of a codec leaf to the port's:
     Linear weights (in, out) -> (out, in); convolution weights (K, in, out)
@@ -122,7 +164,6 @@ def codec_state_dict_to_jax(state_dict, buffers=()) -> "dict[str, np.ndarray]":
         perm = _codec_layout(key, t.ndim)
         if perm:
             t = t.permute(*sorted(range(t.ndim), key=perm.__getitem__))
-        path = "." + re.sub(r"\.(\d+)(?=\.|$)", r"[\1]", key)
-        out[path + (_BUFFER_LEAF if key in buffers else "")] = \
+        out[_jax_path(key) + (_BUFFER_LEAF if key in buffers else "")] = \
             t.detach().to("cpu", copy=True).contiguous().numpy()
     return out

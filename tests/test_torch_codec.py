@@ -262,7 +262,7 @@ def test_loader_refuses_a_config_key_it_does_not_honour(tmp_path):
     with np.load(CKPT) as data:
         config = json.loads(bytes(data["__meta__"].tobytes()).decode())["config"]
     for key, value, match in (("squeeze_excite", True, "squeeze_excite"),
-                              ("compute_dtype", "bfloat16", "compute_dtype"),
+                              ("compute_dtype", "float16", "compute_dtype"),
                               ("rq_kwargs", {"kmeans_iters": 3}, "kmeans_iters"),
                               ("something_new", 1, "something_new")):
         meta = {"config": dict(config, **{key: value}), "leaf_names": []}

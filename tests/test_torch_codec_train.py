@@ -760,8 +760,18 @@ def test_unported_trainer_options_raise(tmp_path):
     clips = _Clips(list(_waves(np.random.default_rng(17), 4, 1024)))
     kw = dict(dataset=clips, num_train_steps=1, batch_size=2, results_folder=tmp_path,
               device="cpu")
-    with pytest.raises(NotImplementedError, match="bf16_compute"):
-        SoundStreamTrainer(SoundStream(**TINY, device="cpu"), bf16_compute=True, **kw)
+    trainer = SoundStreamTrainer(SoundStream(**TINY, device="cpu"), bf16_compute=True,
+                                 apply_grad_penalty_every=2, grad_accum_every=1, **kw)
+    try:
+        for _ in range(2):  # a step with the penalty (float32), then one without (bfloat16)
+            logs = trainer.train_step()
+            assert all(np.isfinite(v) for v in logs.values()), logs
+        assert all(p.dtype == torch.float32 for p in trainer.model.parameters())
+        assert all(b.dtype in (torch.float32, torch.bool) for b in trainer.model.buffers())
+        assert all(v.dtype == torch.float32 for opt in (trainer.gen_opt, trainer.discr_opt)
+                   for st in opt.state.values() for k, v in st.items() if k != "step")
+    finally:
+        trainer.close()
     with pytest.raises(NotImplementedError, match="wandb"):
         SoundStreamTrainer(SoundStream(**TINY, device="cpu"), use_wandb_tracking=True, **kw)
 

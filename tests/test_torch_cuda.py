@@ -12,7 +12,10 @@ tiles and rows without a key, within 1e-5 of float64 where plain TF32
 fails; HMMA in both); the
 Semantic, Coarse and Fine LMs on the card against the same weights on the
 CPU, in scoring and in train steps, and a small codec's round trip on the
-card against the CPU. They skip where there is no card.
+card against the CPU; K1-K5 in bf16 at the stage trainers' shapes (the
+table at N = 150, the (H, N, N) bias at N = 602 and 1201), K6 at their 600
+tokenisation rows, and a bf16 train step whose masters stay float32. They
+skip where there is no card.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine without them:
@@ -350,7 +353,8 @@ def _vq_inputs(n, c, d, seed=0):
 # C under one tile of 128 codes (100, 64: a cluster of one), 3 tiles (a
 # cluster of 3), 9 tiles (rank 0 takes two); D not a multiple of 8 or 32
 @pytest.mark.parametrize("n,c,d", [(1, 1024, 512), (7, 1024, 512), (800, 1024, 512),
-                                   (1300, 1024, 512), (37, 100, 33), (130, 64, 16),
+                                   (1300, 1024, 512), (600, 1024, 512), (37, 100, 33),
+                                   (130, 64, 16),
                                    (50, 300, 64), (20, 1100, 40), (65, 1024, 30)])
 def test_vq_kernel_matches_plain_version(cuda, n, c, d):
     x, cb = (a.to(cuda) for a in _vq_inputs(n, c, d))
@@ -996,3 +1000,50 @@ def test_codec_train_step_card_matches_cpu(cuda):
             assert (got[2][key][keep] - ref[keep]).abs().max() <= 1e-4 * ref.abs().max(), key
         else:
             assert torch.equal(got[2][key], ref), key
+
+
+# the stage recipe's trainers in bf16 (batch 4, 4 heads of 64): the Semantic
+# LM's table at N = 150, the Coarse and Fine LMs' (H, N, N) bias at N = 602
+# and 1201, 15% of the keys forgotten
+@pytest.mark.parametrize("n,form", [(150, "table"), (602, "bias"), (1201, "bias")])
+def test_bf16_kernels_at_the_stage_trainers_shapes(cuda, n, form):
+    rng = np.random.default_rng(n)
+    b, h, d = 4, 4, 64
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda, torch.bfloat16)
+               for s in [(b, h, n, d), (b, 1, n, d), (b, 1, n, d)])
+    mask = torch.from_numpy(rng.random((b, n)) > 0.15).to(cuda)
+    mask[:, 0] = True
+    if form == "table":
+        bias = dict(bias_tab=torch.from_numpy(0.5 * rng.normal(size=(2 * n - 1, h)).astype(
+            np.float32)).to(cuda))
+    else:
+        bias = dict(bias=torch.from_numpy(0.5 * rng.normal(size=(h, n, n)).astype(
+            np.float32)).to(cuda))
+    kw = dict(bias, key_mask=mask, causal=True)
+    out, lse = fa.flash_attention(q, k, v, **kw, return_lse=True)
+    ref, ref_lse = fa.flash_attention_ref(q, k, v, **kw, return_lse=True)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=3e-2, atol=3e-2)
+    torch.testing.assert_close(lse, ref_lse, rtol=2e-3, atol=2e-3)
+    g = torch.from_numpy(rng.normal(size=q.shape).astype(np.float32)).to(cuda, torch.bfloat16)
+    bkw = dict(causal=True, scale=d ** -0.5, bias=bias.get("bias"))
+    tab = bias.get("bias_tab")
+    grads = fa.flash_attention_bwd(q, k, v, tab, mask, out, lse, g, **bkw)
+    ref = fa.flash_attention_bwd_ref(q, k, v, tab, mask, out, lse, g, **bkw)
+    for name, a, r in zip(("dq", "dk", "dv", "dbias"), grads, ref):
+        torch.testing.assert_close(a.float(), r.float(), rtol=3e-2, atol=3e-2, msg=name)
+
+
+def test_bf16_train_step_keeps_float32_masters(cuda):
+    model, wrapper, batch = _acoustic("coarse")
+    step = TransformerTrainStep(wrapper(transformer=model), bf16_compute=True, lr=1e-3,
+                                device=cuda)
+    before = _counts() + (fa.launches_dbias,)
+    losses = [step.step(*batch) for _ in range(2)]
+    torch.cuda.synchronize()
+    # 2 layers x 2 steps of K2 (with K5) and K3; no K4
+    assert _counts() + (fa.launches_dbias,) == (before[0] + 4, before[1] + 4, before[2],
+                                                before[3] + 4)
+    assert np.isfinite(losses).all()
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    assert all(v.dtype == torch.float32 for st in step.optimizer.state.values()
+               for key, v in st.items() if key != "step")
