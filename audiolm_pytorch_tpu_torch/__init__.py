@@ -12,6 +12,7 @@ from .models.soundstream import AudioLMSoundStream, SoundStream, load_soundstrea
 from .models.lm import (CoarseTransformer, FineTransformer, SemanticTransformer,
                         load_coarse_transformer, load_fine_transformer,
                         load_semantic_transformer)
+from .models.t5 import T5Encoder, get_encoded_dim, t5_encode_text
 from .models.transformer import KVCache, Transformer
 from .models.wrappers import (CoarseTransformerWrapper, FineTransformerWrapper,
                               SemanticTransformerWrapper, decode_acoustic_tokens,
@@ -20,6 +21,7 @@ from .ops.kernels.flash_attention import (flash_attention, flash_attention_bwd_r
                                           flash_attention_ref)
 from .ops.kernels.local_attention import local_attention, local_attention_ref
 from .ops.kernels.vq import vq_nearest_code, vq_nearest_code_ref
+from .ops.resample import resample
 from .training.optimizer import get_optimizer, separate_weight_decayable_params
 from .training.ema import EMA
 from .training.trainer import (CoarseTransformerTrainer, FineTransformerTrainer,
@@ -28,7 +30,7 @@ from .training.trainer import (CoarseTransformerTrainer, FineTransformerTrainer,
 from .utils.metrics import si_snr
 from .weights import (codec_state_dict_from_jax, codec_state_dict_to_jax,
                       hubert_state_dict_from_jax, lm_state_dict_to_jax, read_npz,
-                      state_dict_from_jax)
+                      state_dict_from_jax, t5_state_dict_from_jax)
 
 __all__ = ["SemanticTransformer", "SemanticTransformerWrapper", "CoarseTransformer",
            "CoarseTransformerWrapper", "FineTransformer", "FineTransformerWrapper",
@@ -42,4 +44,5 @@ __all__ = ["SemanticTransformer", "SemanticTransformerWrapper", "CoarseTransform
            "codec_state_dict_from_jax", "codec_state_dict_to_jax", "SoundStreamTrainer", "EMA",
            "SoundDataset", "get_dataloader", "HubertWithKmeans", "SemanticTransformerTrainer",
            "CoarseTransformerTrainer", "FineTransformerTrainer", "hubert_state_dict_from_jax",
-           "lm_state_dict_to_jax"]
+           "lm_state_dict_to_jax", "T5Encoder", "t5_encode_text", "get_encoded_dim",
+           "resample", "t5_state_dict_from_jax"]

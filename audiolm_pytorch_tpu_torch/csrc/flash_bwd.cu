@@ -283,8 +283,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   int a_cur = -1;  // the local delta this thread sums now (thread i < DSL owns a = i mod DSL)
   float a_sum = 0.f;
 
-  // causal (n == m): key k is seen by query q iff k <= q
-  const int kv_end = causal ? min(m, q0 + BQ) : m;
+  // causal: key k is seen by query q iff k <= q + off (bottom-right aligned, m >= n)
+  const int off = m - n;
+  const int kv_end = tc::causal_end(causal, q0 + BQ, off, m);
   const int ntiles = (kv_end + BK - 1) / BK;
 
   // Tile `it`: K and V into stage it & 1 and the bias block into Tb(it) by
@@ -373,7 +374,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     const float* fs = Fs(s);
     const float* ts = Tb(it);
     // keys above the diagonal meet this warp's rows only near the diagonal
-    const bool diag = causal && k0 + kc0 + KW - 1 > q0 + strip * 16;
+    const bool diag = causal && tc::above(k0 + kc0 + KW - 1, q0 + strip * 16, off);
 #pragma unroll
     for (int j = 0; j < KW / 8; ++j) {
       const int c = kc0 + 8 * j + 2 * t;
@@ -384,9 +385,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         if (tab != nullptr) bb = make_float2(bs[rl[ri] - c + BK - 1], bs[rl[ri] - c + BK - 2]);
         else if (biash != nullptr) bb = *reinterpret_cast<const float2*>(ts + rl[ri] * TPD + c);
         const int qp = q0 + rl[ri];
-        const float x0 = tc::score(fmaf(sc[j][2 * ri], scale, bb.x), f.x, diag && k0 + c > qp);
+        const float x0 = tc::score(fmaf(sc[j][2 * ri], scale, bb.x), f.x,
+                                   diag && tc::above(k0 + c, qp, off));
         const float x1 = tc::score(fmaf(sc[j][2 * ri + 1], scale, bb.y), f.y,
-                                   diag && k0 + c + 1 > qp);
+                                   diag && tc::above(k0 + c + 1, qp, off));
         ds[j][2 * ri] = tc::exp_rel(x0, lse_r[ri]) * (ds[j][2 * ri] - dl_r[ri]);
         ds[j][2 * ri + 1] = tc::exp_rel(x1, lse_r[ri]) * (ds[j][2 * ri + 1] - dl_r[ri]);
       }
@@ -536,8 +538,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const int k0 = blockIdx.z * BK;  // key tile 0, the longest causal loop, first
   const int tid = threadIdx.x, warp = tid / 32, gq = (tid % 32) / 4, t = tid % 4;
 
-  // this block sums the heads kh * group + rank + csize * i of its kv head
-  const int q_start = causal ? k0 : 0;
+  // this block sums the heads kh * group + rank + csize * i of its kv head;
+  // causal: the first query that sees key k0 is k0 - off (off = m - n >= 0)
+  const int off = m - n;
+  const int q_start = causal ? max(0, k0 - off) : 0;
   const int nqt = q_start < n ? (n - q_start + BQ - 1) / BQ : 0;
   const int total = (group / csize) * nqt;
 
@@ -593,7 +597,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     const float* ls = Ls(s);
     const float* ts = Ts(s);
     // keys above the diagonal: only in the diagonal tile, and only for some warps
-    const bool diag = causal && k0 + warp * 16 + 15 > q0;
+    const bool diag = causal && tc::above(k0 + warp * 16 + 15, q0, off);
 #pragma unroll
     for (int j = 0; j < BQ / 8; ++j)
 #pragma unroll
@@ -601,7 +605,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
         const int c = 8 * j + 2 * t + (e & 1), ri = e / 2, kr = kl[ri];
         const float bc = tab != nullptr ? ls[2 * BQ + c - kr + BK - 1]
                          : bias != nullptr ? ts[c * TP3 + kr] : 0.f;
-        const float x = tc::score(fmaf(st[j][e], scale, bc), fk[ri], diag && k0 + kr > q0 + c);
+        const float x = tc::score(fmaf(st[j][e], scale, bc), fk[ri], diag && tc::above(k0 + kr, q0 + c, off));
         const float p = tc::exp_rel(x, ls[c]);
         st[j][e] = p;
         dpt[j][e] = p * (dpt[j][e] - ls[BQ + c]);

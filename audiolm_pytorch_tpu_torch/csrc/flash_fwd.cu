@@ -92,8 +92,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const T* vb = v + (size_t)(bh / group) * m * D;
   const float* biash = bias != nullptr ? bias + (size_t)h * n * m : nullptr;
 
-  // causal (n == m): key k is seen by query q iff k <= q
-  const int kv_end = causal ? min(m, q0 + BQ) : m;
+  // causal: key k is seen by query q iff k <= q + off (bottom-right aligned, m >= n)
+  const int off = m - n;
+  const int kv_end = tc::causal_end(causal, q0 + BQ, off, m);
   const int ntiles = (kv_end + BK - 1) / BK;
 
   // Tile `it` into stage it & 1: K, V and the bias block by cp.async (one
@@ -143,7 +144,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const float* fs = Fs(s);
     const float* ts = Ts(s);
     // keys above the diagonal meet this warp's rows only near the diagonal
-    const bool diag = causal && k0 + BK - 1 > q0 + warp * 16;
+    const bool diag = causal && tc::above(k0 + BK - 1, q0 + warp * 16, off);
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j) {
@@ -155,9 +156,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
         if (tab != nullptr) bb = make_float2(bs[rl[ri] - c + BK - 1], bs[rl[ri] - c + BK - 2]);
         else if (biash != nullptr) bb = *reinterpret_cast<const float2*>(ts + rl[ri] * TPITCH + c);
         const int qp = q0 + rl[ri];
-        const float x0 = tc::score(fmaf(sc[j][2 * ri], scale, bb.x), f.x, diag && k0 + c > qp);
+        const float x0 = tc::score(fmaf(sc[j][2 * ri], scale, bb.x), f.x,
+                                   diag && tc::above(k0 + c, qp, off));
         const float x1 = tc::score(fmaf(sc[j][2 * ri + 1], scale, bb.y), f.y,
-                                   diag && k0 + c + 1 > qp);
+                                   diag && tc::above(k0 + c + 1, qp, off));
         sc[j][2 * ri] = x0;
         sc[j][2 * ri + 1] = x1;
         mx[ri] = fmaxf(mx[ri], fmaxf(x0, x1));

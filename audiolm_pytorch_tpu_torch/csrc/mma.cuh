@@ -523,6 +523,18 @@ __device__ __forceinline__ float score(float x, float flag, bool above) {
   return flag != 0.f ? flag : above ? NEG : x;
 }
 
+// Causal attention of n queries over m >= n keys is aligned to the bottom
+// right, as the plain versions' tril(m - n): key kp is seen by query qp iff
+// kp <= qp + off, off = m - n (0 for self-attention; P for a prefix of P
+// keys). The offset need not be a multiple of a tile, so the diagonal
+// tile's test is per element.
+__device__ __forceinline__ bool above(int kp, int qp, int off) { return kp > qp + off; }
+
+// the keys [0, end) that queries [0, q_end) see: all m without causal masking
+__device__ __forceinline__ int causal_end(int causal, int q_end, int off, int m) {
+  return causal ? min(m, q_end + off) : m;
+}
+
 // exp(x - m) as 2^((x - m) log2 e), exactly 1 where x == m. A row whose keys
 // so far are all masked has x == m == NEG, and exp(s - m) weighs those keys
 // alike (then a later real key rescales them away, or lse says the row is

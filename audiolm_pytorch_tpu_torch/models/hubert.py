@@ -25,9 +25,11 @@ from torch import nn
 
 from ..device import resolve_device
 from ..nn.layers import Linear, init_normal, init_uniform
+from ..ops.resample import resample
 from ..ops.sampling import curtail_to_multiple
+from ..weights import hubert_state_dict_from_jax, read_npz
 
-__all__ = ["HubertWithKmeans", "HubertEncoder"]
+__all__ = ["HubertWithKmeans", "HubertEncoder", "load_hubert_with_kmeans"]
 
 # fairseq hubert-base conv feature extractor: (dim, kernel, stride)
 _CONV_SPEC = ((512, 10, 5), (512, 3, 2), (512, 3, 2), (512, 3, 2),
@@ -253,10 +255,10 @@ class HubertWithKmeans(nn.Module):
 
     @torch.no_grad()
     def forward(self, wav_input, flatten: bool = True, input_sample_hz=None):
-        """wav_input (B, T) -> ids (B, frames), int64."""
-        if input_sample_hz is not None and input_sample_hz != self.target_sample_hz:
-            raise NotImplementedError(f"resampling {input_sample_hz} Hz to "
-                                      f"{self.target_sample_hz} Hz is not ported")
+        """wav_input (B, T) -> ids (B, frames), int64; resampled from
+        input_sample_hz to target_sample_hz first when given."""
+        if input_sample_hz is not None:
+            wav_input = resample(wav_input, input_sample_hz, self.target_sample_hz)
         if self.seq_len_multiple_of is not None:
             wav_input = curtail_to_multiple(wav_input, self.seq_len_multiple_of)
         f = self.encoder.extract_features(wav_input, self.output_layer).float()
@@ -264,3 +266,12 @@ class HubertWithKmeans(nn.Module):
         dist = f.square().sum(-1, keepdim=True) - 2 * f @ c.t() + c.square().sum(-1)
         ids = dist.argmin(-1)
         return ids.reshape(ids.shape[0], -1) if flatten else ids
+
+
+def load_hubert_with_kmeans(path, *, device: "str | torch.device" = "cuda"):
+    """A HubertWithKmeans from a JAX `.npz` checkpoint of one (its config
+    and weights, centres included)."""
+    meta, arrays = read_npz(path)
+    model = HubertWithKmeans(**meta["config"], device="cpu")
+    model.load_state_dict(hubert_state_dict_from_jax(arrays))
+    return model.to(resolve_device(device))

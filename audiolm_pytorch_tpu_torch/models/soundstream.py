@@ -33,6 +33,7 @@ from ..nn.layers import Linear, init_uniform
 from ..ops.attention import LocalTransformer
 from ..ops.conv import CausalConv1d, CausalConvTranspose1d, conv
 from ..ops.quantize import GroupedResidualVQ
+from ..ops.resample import resample
 from ..ops.sampling import curtail_to_multiple
 from ..ops.stft import melspectrogram, stft
 from ..utils.metrics import si_snr
@@ -383,16 +384,15 @@ class SoundStream(nn.Module):
         return self.seq_len_multiple_of
 
     def process_input(self, x, input_sample_hz=None):
-        """(T,), (B, T) or (B, 1, T) -> (B, T') curtailed to a multiple of
-        the downsample factor. Resampling is not ported: an input_sample_hz
-        other than target_sample_hz raises."""
-        if input_sample_hz is not None and input_sample_hz != self.target_sample_hz:
-            raise NotImplementedError(f"resampling {input_sample_hz} Hz to "
-                                      f"{self.target_sample_hz} Hz is not ported")
+        """(T,), (B, T) or (B, 1, T) -> (B, T'), resampled from
+        input_sample_hz to target_sample_hz when given, and curtailed to a
+        multiple of the downsample factor."""
         if x.ndim == 1:
             x = x[None]
         if x.ndim == 3:
             x = x[:, 0]
+        if input_sample_hz is not None:
+            x = resample(x, input_sample_hz, self.target_sample_hz)
         return curtail_to_multiple(x, self.seq_len_multiple_of)
 
     def encode_frames(self, x):

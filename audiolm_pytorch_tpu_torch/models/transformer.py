@@ -9,8 +9,11 @@ causal mask in training) and either the rel-pos bias as its (2N-1, H) table
 (the Semantic LM) or a caller's materialised (H, N, N) bias that replaces it
 (`attn_bias`, the Coarse and Fine LMs); either bias's gradient flows back
 through autograd. The KV-cached prefill and decode steps take the plain
-`attend`, as the JAX package does. Cross attention, prefix conditioning and
-dropout are not part of this port: dropout > 0 raises.
+`attend`, as the JAX package does. Text conditioning: cross attention over
+the context with one null key/value (flash attention, not causal, with the
+context's key mask), or the context as a prefix of the self-attention's
+keys (flash attention, causal with M = P + N keys aligned to the bottom
+right, the bias materialised as (H, N, P + N)). Dropout > 0 raises.
 """
 from __future__ import annotations
 
@@ -21,10 +24,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
-from ..nn.layers import FeedForward, LayerNorm, Linear
+from ..nn.layers import FeedForward, LayerNorm, Linear, init_normal
 from ..ops.attention import attend
 from ..ops.kernels.flash_attention import flash_attention
-from ..ops.relpos import table_rows
+from ..ops.relpos import table_rows, toeplitz_expand
 from ..ops.sampling import grad_shrink
 
 __all__ = ["RelativePositionBias", "KVCache", "Attention", "HyperConnection",
@@ -70,38 +73,75 @@ class KVCache:
 
 
 class Attention(nn.Module):
-    """Causal multi-query attention: per-head q, one shared k/v head, prenorm
-    on the queries only, value residual."""
+    """Multi-query attention: per-head q, one shared k/v head, prenorm on the
+    queries only, value residual. Self-attention is causal; with
+    `dim_context` it attends over a context instead (cross attention, not
+    causal), optionally layer-normed (`norm_context`), with `num_null_kv`
+    learned null keys/values in front (classifier-free guidance: a row with
+    its whole context masked still attends to them)."""
 
     def __init__(self, dim: int, *, heads: int = 8, dim_head: int = 64,
+                 dim_context: "int | None" = None, norm_context: bool = False,
+                 num_null_kv: int = 0, causal: bool = True,
                  generator: "torch.Generator | None" = None):
         super().__init__()
-        self.heads, self.dim_head = heads, dim_head
+        dim_context = dim_context if dim_context is not None else dim
+        self.heads, self.dim_head, self.causal = heads, dim_head, causal
         self.norm = LayerNorm(dim)
         self.to_q = Linear(dim, heads * dim_head, bias=False, generator=generator)
-        self.to_kv = Linear(dim, dim_head * 2, bias=False, generator=generator)
+        self.to_kv = Linear(dim_context, dim_head * 2, bias=False, generator=generator)
         self.to_out = Linear(heads * dim_head, dim, bias=False, generator=generator)
+        self.context_norm = LayerNorm(dim_context) if norm_context else None
+        self.num_null_kv = num_null_kv
+        self.null_kv = nn.Parameter(init_normal((2, num_null_kv, dim_head), 0.02, generator)) \
+            if num_null_kv > 0 else None
 
-    def forward(self, x, *, mask=None, bias_tab=None, bias=None, cache_bias=None,
-                value_residual=None, cache_kv=None, cache_pos: int = 0):
-        """x: (B, N, D). Without a cache: causal self-attention with
-        bias_tab (2N-1, H) or bias (H, N, N), and key mask (B, N). With
-        cache_kv (k, v views of
-        (B, max_len, dh)): the new k/v are written at cache_pos and the
-        queries attend over the whole buffer, cache_bias (H, N, max_len) and
-        mask (B, max_len) applied. Returns (out, values before the residual)."""
+    def forward(self, x, *, context=None, mask=None, bias_tab=None, bias=None,
+                cache_bias=None, value_residual=None, cache_kv=None, cache_pos: int = 0,
+                prefix_context=None, prefix_context_mask=None):
+        """x: (B, N, D). Without a cache: attention over the keys of x (causal,
+        with bias_tab (2N-1, H) or bias (H, N, N), and key mask (B, N)), or of
+        `context` (B, L, Dc) with its key mask (B, L). With prefix_context
+        (B, P, D), its keys come first (key mask prefix_context_mask (B, P)),
+        causal attention is aligned to the bottom right (every query sees the
+        whole prefix) and `bias` is zero-padded over the prefix's keys. With
+        cache_kv (k, v views of (B, max_len, dh)): the new k/v are written at
+        cache_pos and the queries attend over the whole buffer, cache_bias
+        (H, N, max_len) and mask (B, max_len) applied. Returns (out, values
+        before the residual)."""
         b, n, _ = x.shape
+        if context is not None and self.context_norm is not None:
+            context = self.context_norm(context)
+        kv_input = context if context is not None else x
+        if prefix_context is not None:
+            p = prefix_context.shape[1]
+            kv_input = torch.cat([prefix_context.to(x.dtype), x], dim=1)
+            base = mask if mask is not None else x.new_ones(b, n, dtype=torch.bool)
+            pmask = prefix_context_mask if prefix_context_mask is not None \
+                else x.new_ones(b, p, dtype=torch.bool)
+            mask = torch.cat([pmask, base], dim=-1)
+            if bias is not None:
+                bias = F.pad(bias, (p, 0))
         q = self.to_q(self.norm(x)).view(b, n, self.heads, self.dim_head).transpose(1, 2)
-        k, v = self.to_kv(x).chunk(2, dim=-1)  # (B, N, dh): from the raw input
+        k, v = self.to_kv(kv_input).chunk(2, dim=-1)  # (B, M, dh): from the raw input
         orig_v = v
         if value_residual is not None:
             v = 0.5 * (v + value_residual)
 
         if cache_kv is None:
+            if self.null_kv is not None:
+                nk, nv = (t.to(k.dtype).expand(b, -1, -1) for t in self.null_kv)
+                k, v = torch.cat([nk, k], dim=1), torch.cat([nv, v], dim=1)
+                if mask is not None:
+                    mask = F.pad(mask, (self.num_null_kv, 0), value=True)
+                if bias is not None:
+                    bias = F.pad(bias, (self.num_null_kv, 0))
             out = flash_attention(q.contiguous(), k[:, None].contiguous(),
                                   v[:, None].contiguous(), bias_tab=bias_tab, bias=bias,
-                                  key_mask=mask, causal=True)
+                                  key_mask=mask, causal=self.causal)
         else:
+            if self.null_kv is not None or context is not None or prefix_context is not None:
+                raise ValueError("the KV cache is for causal self-attention only")
             ck, cv = cache_kv
             ck[:, cache_pos:cache_pos + n] = k.to(ck.dtype)
             cv[:, cache_pos:cache_pos + n] = v.to(cv.dtype)
@@ -155,18 +195,28 @@ class HyperConnection(nn.Module):
 
 
 class TransformerLayer(nn.Module):
+    """Causal self-attention, then (with cross_attend) cross attention over
+    the context with one null key/value and a normed context, then the
+    feed-forward, each in a hyper-connection over the residual streams."""
+
     def __init__(self, dim: int, *, heads: int, dim_head: int, num_streams: int,
-                 index: int, generator: "torch.Generator | None" = None):
+                 index: int, cross_attend: bool = False, dim_context: "int | None" = None,
+                 generator: "torch.Generator | None" = None):
         super().__init__()
         self.attn = Attention(dim, heads=heads, dim_head=dim_head, generator=generator)
         self.ff = FeedForward(dim, generator=generator)
+        self.cross = Attention(dim, heads=heads, dim_head=dim_head, dim_context=dim_context,
+                               norm_context=True, num_null_kv=1, causal=False,
+                               generator=generator) if cross_attend else None
         if num_streams > 1:
             self.hc_attn = HyperConnection(dim=dim, num_streams=num_streams,
                                            layer_index=3 * index)
+            self.hc_cross = HyperConnection(dim=dim, num_streams=num_streams,
+                                            layer_index=3 * index + 1) if cross_attend else None
             self.hc_ff = HyperConnection(dim=dim, num_streams=num_streams,
                                          layer_index=3 * index + 2)
         else:
-            self.hc_attn = self.hc_ff = None
+            self.hc_attn = self.hc_cross = self.hc_ff = None
 
     @staticmethod
     def _residual(hc, h, branch_fn):
@@ -175,20 +225,32 @@ class TransformerLayer(nn.Module):
         out, *rest = branch_fn(h)
         return (out + h, *rest)
 
-    def forward(self, h, attn_kwargs):
+    def forward(self, h, attn_kwargs, cross_kwargs=None):
+        """Returns (h, the self-attention's values, the cross attention's
+        values or None)."""
         h, values = self._residual(self.hc_attn, h, lambda x: self.attn(x, **attn_kwargs))
+        cross_values = None
+        if self.cross is not None:
+            h, cross_values = self._residual(self.hc_cross, h,
+                                             lambda x: self.cross(x, **cross_kwargs))
         h, = self._residual(self.hc_ff, h, lambda x: (self.ff(x),))
-        return h, values
+        return h, values, cross_values
 
 
 class Transformer(nn.Module):
     """The layer stack. Weights are drawn from `generator` on the CPU and then
-    moved to `device`."""
+    moved to `device`. Conditioning, as the JAX package's: `cross_attend`
+    adds a cross-attention branch over a context (B, L, dim_context) to
+    every layer; `cond_as_self_attn_prefix` puts the context's keys in
+    front of the self-attention's instead (the rel-pos bias then comes
+    materialised, zero over the prefix, and there is no KV cache)."""
 
     def __init__(self, *, dim: int, depth: int, heads: int, dim_head: int = 64,
                  num_residual_streams: int = 4, rel_pos_bias: bool = True,
                  grad_shrink_alpha: float = 0.1, attn_dropout: float = 0.0,
                  ff_dropout: float = 0.0, add_value_residual: bool = True,
+                 cross_attend: bool = False, cond_as_self_attn_prefix: bool = False,
+                 dim_context: "int | None" = None,
                  generator: "torch.Generator | None" = None,
                  device: "str | torch.device" = "cuda"):
         super().__init__()
@@ -196,14 +258,20 @@ class Transformer(nn.Module):
             # the JAX package sends dropout > 0 to the math path
             # (models/transformer.py:236-240); neither is ported yet
             raise NotImplementedError("attn_dropout / ff_dropout > 0 is not ported")
+        if cross_attend and cond_as_self_attn_prefix:
+            raise ValueError("cross_attend and cond_as_self_attn_prefix exclude each other")
         device = resolve_device(device)
         self.depth, self.heads, self.dim_head = depth, heads, dim_head
         self.num_residual_streams = num_residual_streams
         self.grad_shrink_alpha = grad_shrink_alpha
         self.add_value_residual = add_value_residual
+        self.cross_attend = cross_attend
+        self.cond_as_self_attn_prefix = cond_as_self_attn_prefix
         self.layers = nn.ModuleList([
             TransformerLayer(dim, heads=heads, dim_head=dim_head,
-                             num_streams=num_residual_streams, index=d, generator=generator)
+                             num_streams=num_residual_streams, index=d,
+                             cross_attend=cross_attend, dim_context=dim_context,
+                             generator=generator)
             for d in range(depth)])
         self.final_norm = LayerNorm(dim)
         self.rel_pos_bias = RelativePositionBias(dim=dim // 2, heads=heads, generator=generator) \
@@ -211,15 +279,26 @@ class Transformer(nn.Module):
         self.to(device)
 
     def forward(self, x, *, self_attn_mask=None, attn_bias=None,
-                kv_cache: "KVCache | None" = None):
+                kv_cache: "KVCache | None" = None, context=None, context_mask=None):
         """x: (B, N, D); with kv_cache, only the new tokens after kv_cache.pos,
         whose k/v are written into the cache in place (pos advances by N).
         attn_bias: an additive (H, L, L) bias that replaces the rel-pos bias,
         L = N uncached; with a cache, L = the cache's length and the rows of
-        the new positions are taken from it."""
+        the new positions are taken from it. context (B, L, Dc) with its
+        key mask context_mask (B, L): the cross attention's context, or the
+        self-attention's prefix."""
         n = x.shape[1]
         x = grad_shrink(x, self.grad_shrink_alpha)
         kw = dict(mask=self_attn_mask)
+        if (self.cross_attend or self.cond_as_self_attn_prefix) and context is None:
+            raise ValueError("a conditioned transformer needs its context")
+        if self.cond_as_self_attn_prefix:
+            if kv_cache is not None:
+                raise ValueError("prefix conditioning runs without a KV cache (the JAX "
+                                 "package turns its cache off there too)")
+            kw.update(prefix_context=context, prefix_context_mask=context_mask)
+            if attn_bias is None and self.rel_pos_bias is not None:
+                attn_bias = toeplitz_expand(self.rel_pos_bias.table(n), n, n)
         if kv_cache is not None:
             kw["cache_pos"] = kv_cache.pos
             if attn_bias is not None:
@@ -235,16 +314,21 @@ class Transformer(nn.Module):
             kw["bias"] = attn_bias
         elif self.rel_pos_bias is not None:
             kw["bias_tab"] = self.rel_pos_bias.table(n)
+        cross_kw = dict(context=context, mask=context_mask) if self.cross_attend else None
 
         s = self.num_residual_streams
         h = x.expand(s, *x.shape) if s > 1 else x
-        value_residual = None
+        value_residual = cross_residual = None
         for li, layer in enumerate(self.layers):
             if kv_cache is not None:
                 kw["cache_kv"] = (kv_cache.k[li], kv_cache.v[li])
-            h, values = layer(h, dict(kw, value_residual=value_residual))
+            h, values, cross_values = layer(
+                h, dict(kw, value_residual=value_residual),
+                None if cross_kw is None else dict(cross_kw, value_residual=cross_residual))
             if self.add_value_residual and value_residual is None:
                 value_residual = values  # the first layer's values feed every later layer
+            if self.add_value_residual and cross_residual is None:
+                cross_residual = cross_values  # so do its cross attention's
         if kv_cache is not None:
             kv_cache.pos += n
         return self.final_norm(h.sum(0) if s > 1 else h)

@@ -3,11 +3,20 @@ held against the JAX package's `models/wrappers.py` (`masked_cross_entropy`,
 `_sample_from_logits`, `_semantic_generate_jit`, `_coarse_generate_jit`,
 `_fine_generate_jit` on their sequential paths, the three wrappers'
 `__call__`, and `decode_acoustic_tokens`). With a codec, the Coarse and Fine
-wrappers also take audio (the codes of `raw_wave_for_codec`, the Fine
-prompt `prime_wave`) and give it back (`reconstruct_wave`); with a wav2vec
-(`HubertWithKmeans`), the Semantic and Coarse wrappers take the semantic
-ids of `raw_wave`. The wav2vec and the codec are frozen: they tokenise
-under no_grad, in their own dtype. No text conditioning or CFG."""
+wrappers also take audio (the codes of `raw_wave_for_codec`, the Coarse and
+Fine prompt `prime_wave`) and give it back (`reconstruct_wave`); with a
+wav2vec (`HubertWithKmeans`), the Semantic and Coarse wrappers take the
+semantic ids of `raw_wave`, and the Semantic prompt `prime_wave`; a prompt
+at another rate is resampled (`prime_wave_input_sample_hz`). The wav2vec
+and the codec are frozen: they tokenise under no_grad, in their own dtype.
+
+A conditioned LM takes `text` (T5-encoded once) or `text_embeds`; each
+`generate` runs classifier-free guidance (`cond_scale` != 1) as one batch
+of [cond | uncond] rows through one KV cache (`_cfg_tile`, `_cfg_combine`).
+Under prefix conditioning there is no KV cache, as in the JAX package: each
+step runs the whole sequence so far (`_Runner`). The JAX package's jitted
+samplers feed only the new token there, so they lose the sequence's
+history; the port does what a model without a cache must do."""
 from __future__ import annotations
 
 import torch
@@ -31,12 +40,12 @@ def masked_cross_entropy(logits, labels, ignore_index: int = -1):
     return (nll * mask).sum() / mask.sum().clamp(min=1)
 
 
-def _wav2vec_ids(wav2vec, wave):
+def _wav2vec_ids(wav2vec, wave, input_sample_hz=None):
     """The semantic ids (B, frames) of a waveform, from the frozen wav2vec."""
     if wav2vec is None:
         raise ValueError("raw_wave needs the wrapper's wav2vec")
     with torch.no_grad():
-        return wav2vec(wave, flatten=False)
+        return wav2vec(wave, flatten=False, input_sample_hz=input_sample_hz)
 
 
 def _check_wav2vec(wav2vec, num_semantic_tokens):
@@ -49,6 +58,75 @@ def sample_from_logits(logits, filter_thres: float, temperature: float, *,
                        generator: "torch.Generator | None" = None):
     return gumbel_sample(top_k(logits, thres=filter_thres), temperature,
                          generator=generator)
+
+
+def _cfg_tile(x, use_cfg: bool):
+    return torch.cat([x, x]) if use_cfg and x is not None else x
+
+
+def _cfg_combine(logits, cond_scale: float, use_cfg: bool):
+    if not use_cfg:
+        return logits
+    cond, null = logits.chunk(2)
+    return null + (cond - null) * cond_scale
+
+
+def _generation_condition(lm, text, text_embeds, cond_scale, device):
+    """(context, its key mask, use_cfg) of a generate call: the text's T5
+    embeddings (or text_embeds), their mask any(embeds != 0), both doubled
+    for classifier-free guidance ([cond | uncond], the uncond half's mask
+    cleared) and the embeddings projected; (None, None, False) for an
+    unconditioned LM."""
+    has_text = text is not None or text_embeds is not None
+    if lm.has_condition != has_text:
+        raise ValueError("has_condition and the presence of text / text_embeds must agree")
+    if not has_text:
+        return None, None, False
+    if text_embeds is None:
+        text_embeds = lm.embed_text(text)
+    text_embeds = text_embeds.to(device)
+    mask = (text_embeds != 0).any(-1)
+    use_cfg = cond_scale != 1
+    if use_cfg:
+        mask = torch.cat([mask, torch.zeros_like(mask)])
+    return lm._proj_text(_cfg_tile(text_embeds, use_cfg)), mask, use_cfg
+
+
+class _Runner:
+    """The transformer calls of one generation: the prompt, then each new
+    token, every row doubled for classifier-free guidance. With a KV cache
+    (length `total`) only the new tokens run. Under prefix conditioning,
+    which has no cache, the whole sequence so far runs at each call, with
+    the key mask and the bias cut to its length, and the outputs of the new
+    positions are returned."""
+
+    def __init__(self, t, batch: int, total: int, dtype, device, *, use_cfg: bool,
+                 context=None, context_mask=None, self_attn_mask=None, attn_bias=None):
+        self.t, self.use_cfg = t, use_cfg
+        self.kw = dict(context=context, context_mask=context_mask)
+        self.mask, self.bias = _cfg_tile(self_attn_mask, use_cfg), attn_bias
+        self.cache = None if t.cond_as_self_attn_prefix else KVCache.create(
+            t.depth, batch * (2 if use_cfg else 1), total, t.dim_head, dtype=dtype,
+            device=device)
+        self.seq = None
+
+    def __call__(self, x):
+        x = _cfg_tile(x, self.use_cfg)
+        if self.cache is not None:
+            return self.t(x, self_attn_mask=self.mask, attn_bias=self.bias,
+                          kv_cache=self.cache, **self.kw)
+        self.seq = x if self.seq is None else torch.cat([self.seq, x], dim=1)
+        n = self.seq.shape[1]
+        mask = None if self.mask is None else self.mask[:, :n]
+        bias = None if self.bias is None else self.bias[:, :n, :n]
+        return self.t(self.seq, self_attn_mask=mask, attn_bias=bias, **self.kw)[:, n - x.shape[1]:]
+
+
+def _scoring_condition(lm, text, text_embeds):
+    """text_embeds of a wrapper's forward: the T5 embeddings of `text`."""
+    if text is not None and text_embeds is None:
+        return lm.embed_text(text)
+    return text_embeds
 
 
 class SemanticTransformerWrapper(nn.Module):
@@ -66,13 +144,18 @@ class SemanticTransformerWrapper(nn.Module):
         self.unique_consecutive = unique_consecutive
         self.mask_prob = mask_prob
 
-    def forward(self, semantic_token_ids=None, *, raw_wave=None, return_loss: bool = False,
+    def forward(self, semantic_token_ids=None, *, raw_wave=None, text=None, text_embeds=None,
+                cond_scale: "float | None" = None, return_loss: bool = False,
                 train: bool = False, generator: "torch.Generator | None" = None):
         """Logits (B, N, V) of the ids (or of the wav2vec's ids of
         `raw_wave`), or with return_loss the mean next-token cross entropy.
         With train, EOS is appended first and the forgetful causal mask
         (mask_prob of the keys dropped per row, drawn from `generator`) is
-        applied. Consecutive repeats are dropped after EOS is appended."""
+        applied. Consecutive repeats are dropped after EOS is appended. A
+        conditioned LM takes text or text_embeds; in training each row's
+        condition is dropped with the LM's cond_drop_prob (drawn from
+        `generator`), else never; with cond_scale, the logits of
+        classifier-free guidance."""
         if semantic_token_ids is None:
             semantic_token_ids = _wav2vec_ids(self.wav2vec, raw_wave)
         ids = semantic_token_ids.reshape(semantic_token_ids.shape[0], -1)
@@ -85,35 +168,57 @@ class SemanticTransformerWrapper(nn.Module):
         if train and self.mask_prob > 0:
             mask = generate_mask_with_prob(input_ids.shape, self.mask_prob,
                                            generator=generator, device=input_ids.device)
-        logits = self.transformer(input_ids, self_attn_mask=mask)
+        cond = dict(text_embeds=_scoring_condition(self.transformer, text, text_embeds),
+                    self_attn_mask=mask)
+        if cond_scale is not None:
+            logits = self.transformer.forward_with_cond_scale(input_ids, cond_scale=cond_scale,
+                                                              **cond)
+        else:
+            logits = self.transformer(input_ids, cond_drop_prob=None if train else 0.0,
+                                      generator=generator, **cond)
         if not return_loss:
             return logits
         return masked_cross_entropy(logits, ids, self.pad_id)
 
     @torch.no_grad()
-    def generate(self, *, max_length: int, prime_ids=None, batch_size: int = 1,
-                 filter_thres: float = 0.9, temperature: float = 1.0,
-                 generator: "torch.Generator | None" = None, return_logits: bool = False):
-        """Sample up to max_length ids after the prompt `prime_ids` (B, P),
-        stopping once every row holds EOS; the EOS and what follows become
-        pad. One prefill of [start] + prompt, then one cached step per token.
-        With return_logits, also the (B, max_length + 1, V) logits each
-        position was sampled from (zeros past the last step)."""
+    def generate(self, *, max_length: int, prime_ids=None, prime_wave=None,
+                 prime_wave_input_sample_hz=None, text=None, text_embeds=None,
+                 cond_scale: float = 3.0, batch_size: int = 1, filter_thres: float = 0.9,
+                 temperature: float = 1.0, generator: "torch.Generator | None" = None,
+                 return_logits: bool = False):
+        """Sample up to max_length ids after the prompt `prime_ids` (B, P) or
+        the wav2vec's ids of `prime_wave`, stopping once every row holds EOS;
+        the EOS and what follows become pad. One prefill of [start] +
+        prompt, then one cached step per token (under prefix conditioning
+        the whole sequence each step). A conditioned LM takes text or
+        text_embeds, with guidance at cond_scale. With return_logits, also
+        the (B, max_length + 1, V) logits each position was sampled from
+        (zeros past the last step)."""
         tr = self.transformer
         device = tr.start_token.device
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
-        ids = prime_ids.to(device) if prime_ids is not None else \
-            torch.zeros((batch_size, 0), dtype=torch.long, device=device)
+        if prime_wave is not None:
+            if prime_ids is not None:
+                raise ValueError("pass prime_wave or prime_ids, not both")
+            ids = _wav2vec_ids(self.wav2vec, prime_wave.to(device), prime_wave_input_sample_hz)
+        elif prime_ids is not None:
+            ids = prime_ids.to(device)
+        else:
+            ids = torch.zeros((batch_size, 0), dtype=torch.long, device=device)
         if self.unique_consecutive and ids.shape[-1] > 0:
             ids = batch_unique_consecutive(ids, pad_value=self.pad_id)
         b, p = ids.shape
         vocab = tr.num_semantic_tokens + 1
-        t = tr.transformer
-        cache = KVCache.create(t.depth, b, max_length + 1, t.dim_head,
-                               dtype=tr.start_token.dtype, device=device)
+        context, context_mask, use_cfg = _generation_condition(tr, text, text_embeds,
+                                                               cond_scale, device)
+        run = _Runner(tr.transformer, b, max_length + 1, tr.start_token.dtype, device,
+                      use_cfg=use_cfg, context=context, context_mask=context_mask)
 
-        logits = tr.to_logits(t(tr.embed_ids(ids), kv_cache=cache))  # (B, P+1, V)
+        def logits_of(out):
+            return _cfg_combine(tr.to_logits(out), cond_scale, use_cfg)
+
+        logits = logits_of(run(tr.embed_ids(ids)))  # (B, P+1, V)
         ids_buf = torch.full((b, max_length), self.pad_id, dtype=torch.long, device=device)
         ids_buf[:, :p] = ids
         logits_buf = torch.zeros((b, max_length + 1, vocab), dtype=logits.dtype, device=device)
@@ -126,8 +231,8 @@ class SemanticTransformerWrapper(nn.Module):
             sampled = sample_from_logits(logits_buf[rows, last_idx], filter_thres,
                                          temperature, generator=generator)
             ids_buf[:, pos] = sampled
-            out = t(get_embeds(tr.semantic_embedding, sampled[:, None]), kv_cache=cache)
-            logits_buf[:, pos + 1] = tr.to_logits(out)[:, 0]
+            logits_buf[:, pos + 1] = logits_of(run(get_embeds(tr.semantic_embedding,
+                                                              sampled[:, None])))[:, 0]
             last_idx += 1
         ids_out = mask_out_after_eos_id(ids_buf, self.eos_id, mask_value=self.pad_id,
                                         keep_eos=False)
@@ -135,20 +240,23 @@ class SemanticTransformerWrapper(nn.Module):
 
 
 def _decode_codes(step, head_weights, embed_code, last_out, buf, start: int, *,
-                  eos_id: "int | None", filter_thres, temperature, generator, logits_buf):
+                  eos_id: "int | None", filter_thres, temperature, generator, logits_buf,
+                  combine=lambda h: h):
     """The sequential sampler of the Coarse and Fine wrappers: for each code
-    i from `start` on, the logits of position i through head i % Q (the last
-    class, EOS for the coarse heads, only at a time-step boundary after the
-    first step), one sample, and `step` (one cached transformer step) on its
-    embedding. With eos_id, stops once every row holds EOS. Fills buf (B, n)
-    in place and, when given, logits_buf (B, n, C) with the logits before the
-    EOS masking."""
+    i from `start` on, the logits of position i through head i % Q of the
+    hidden state `combine` gives (guidance's mix of the [cond | uncond]
+    rows) (the last class, EOS for the coarse heads, only at a time-step
+    boundary after the first step), one sample, and `step` (one transformer
+    step) on its embedding. With eos_id, stops once every row holds EOS.
+    Fills buf (B, n) in place and, when given, logits_buf (B, n, C) with the
+    logits before the EOS masking."""
     num_q = head_weights.shape[0]
     for i in range(start, buf.shape[1]):
         if eos_id is not None and bool((buf == eos_id).any(-1).all()):
             break
         q = i % num_q
-        logits = last_out @ head_weights[q].t().to(last_out.dtype)
+        hidden = combine(last_out)
+        logits = hidden @ head_weights[q].t().to(hidden.dtype)
         if logits_buf is not None:
             logits_buf[:, i] = logits
         if not (q == 0 and i > 0):
@@ -159,12 +267,12 @@ def _decode_codes(step, head_weights, embed_code, last_out, buf, start: int, *,
         last_out = step(embed_code(sampled, q)[:, None])[:, -1]
 
 
-def _codec_codes(codec, wave):
+def _codec_codes(codec, wave, input_sample_hz=None):
     """The (B, N, G * Q) codes of a waveform, from the codec in eval mode."""
     if codec is None:
         raise ValueError("audio in needs the wrapper's codec")
     with torch.no_grad():
-        return codec(wave, return_encoded=True)[1]
+        return codec(wave, return_encoded=True, input_sample_hz=input_sample_hz)[1]
 
 
 class CoarseTransformerWrapper(nn.Module):
@@ -188,8 +296,9 @@ class CoarseTransformerWrapper(nn.Module):
         self.coarse_eos_id = transformer.coarse_eos_id
 
     def forward(self, semantic_token_ids=None, coarse_token_ids=None, *, raw_wave=None,
-                raw_wave_for_codec=None, return_loss: bool = False, train: bool = False,
-                generator: "torch.Generator | None" = None):
+                raw_wave_for_codec=None, text=None, text_embeds=None,
+                cond_scale: "float | None" = None, return_loss: bool = False,
+                train: bool = False, generator: "torch.Generator | None" = None):
         """(semantic logits, coarse logits), or with return_loss the loss:
         each head's cross entropy weighted by its count of labels (the JAX
         wrapper's loss weights at their default, 1). Without
@@ -197,7 +306,8 @@ class CoarseTransformerWrapper(nn.Module):
         coarse_token_ids, the codec's first coarse codes of
         `raw_wave_for_codec`, which defaults to raw_wave. With train, EOS is appended to both streams and
         the forgetful causal mask (drawn from `generator`) joins the key
-        mask, which always drops the semantic pad and EOS ids."""
+        mask, which always drops the semantic pad and EOS ids. The
+        condition as the Semantic wrapper's."""
         if semantic_token_ids is None:
             semantic_token_ids = _wav2vec_ids(self.wav2vec, raw_wave)
         if raw_wave_for_codec is None:
@@ -222,7 +332,14 @@ class CoarseTransformerWrapper(nn.Module):
         if train and self.mask_prob > 0:
             mask = mask & generate_mask_with_prob(mask.shape, self.mask_prob,
                                                   generator=generator, device=mask.device)
-        semantic_logits, coarse_logits = self.transformer(sem, coarse, self_attn_mask=mask)
+        cond = dict(text_embeds=_scoring_condition(self.transformer, text, text_embeds),
+                    self_attn_mask=mask)
+        if cond_scale is not None:
+            semantic_logits, coarse_logits = self.transformer.forward_with_cond_scale(
+                sem, coarse, cond_scale=cond_scale, **cond)
+        else:
+            semantic_logits, coarse_logits = self.transformer(
+                sem, coarse, cond_drop_prob=None if train else 0.0, generator=generator, **cond)
         if not return_loss:
             return semantic_logits, coarse_logits
         # the counts as the JAX wrapper takes them: all labels, or all logits
@@ -237,40 +354,53 @@ class CoarseTransformerWrapper(nn.Module):
                                                                              + num_coarse)
 
     @torch.no_grad()
-    def generate(self, *, semantic_token_ids, prime_coarse_token_ids=None,
-                 max_time_steps: int = 512, filter_thres: float = 0.9, temperature: float = 1.0,
-                 reconstruct_wave: bool = False, generator: "torch.Generator | None" = None,
-                 return_logits: bool = False):
+    def generate(self, *, semantic_token_ids, prime_coarse_token_ids=None, prime_wave=None,
+                 prime_wave_input_sample_hz=None, text=None, text_embeds=None,
+                 cond_scale: float = 3.0, max_time_steps: int = 512, filter_thres: float = 0.9,
+                 temperature: float = 1.0, reconstruct_wave: bool = False,
+                 generator: "torch.Generator | None" = None, return_logits: bool = False):
         """Sample max_time_steps x Q coarse codes after the prompt
-        `prime_coarse_token_ids` (B, Pc), for semantic ids (B, S) (-1 pads
-        embed to 0). One prefill of [start, semantic, start, prompt], then
-        one cached step per code; stops once every row holds EOS, and EOS and
-        what follows become -1. Returns the (B, T, Q) grid of the prompt and
-        the samples, T = Pc / Q + max_time_steps, or with reconstruct_wave
-        the codec's decode of it (`decode_acoustic_tokens`); with
-        return_logits also the (B, T * Q, cb + 1) logits each code was
-        sampled from (zeros for the prompt and past the last step)."""
+        `prime_coarse_token_ids` (B, Pc), or the codec's first Q codes of
+        `prime_wave`, for semantic ids (B, S) (-1 pads embed to 0). One
+        prefill of [start, semantic, start, prompt], then one cached step per
+        code (under prefix conditioning the whole sequence each step); stops
+        once every row holds EOS, and EOS and what follows become -1. A
+        conditioned LM takes text or text_embeds, with guidance at
+        cond_scale. Returns the (B, T, Q) grid of the prompt and the
+        samples, T = Pc / Q + max_time_steps, or with reconstruct_wave the
+        codec's decode of it (`decode_acoustic_tokens`); with return_logits
+        also the (B, T * Q, cb + 1) logits each code was sampled from (zeros
+        for the prompt and past the last step)."""
         tr = self.transformer
         device = tr.coarse_start_token.device
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
+        b = semantic_token_ids.shape[0]
+        if prime_wave is not None:
+            if prime_coarse_token_ids is not None:
+                raise ValueError("pass prime_wave or prime_coarse_token_ids, not both")
+            prime_coarse_token_ids = _codec_codes(self.codec, prime_wave.to(device),
+                                                  prime_wave_input_sample_hz)[
+                ..., :self.num_coarse_quantizers]
         sem = semantic_token_ids.to(device)
         if self.unique_consecutive:
             sem = batch_unique_consecutive(sem, pad_value=self.pad_id)
-        b, s = sem.shape
+        s = sem.shape[1]
         prime = prime_coarse_token_ids.to(device).reshape(b, -1) \
             if prime_coarse_token_ids is not None else sem.new_zeros(b, 0)
         pc, num_q = prime.shape[1], self.num_coarse_quantizers
         n_total = pc + max_time_steps * num_q
-        t = tr.transformer
         dtype = tr.coarse_start_token.dtype
         total = 1 + s + 1 + n_total  # semantic start, semantic, coarse start, coarse
         bias = tr.build_attn_bias(s, total)
-        cache = KVCache.create(t.depth, b, total, t.dim_head, dtype=dtype, device=device)
+        context, context_mask, use_cfg = _generation_condition(tr, text, text_embeds,
+                                                               cond_scale, device)
+        run = _Runner(tr.transformer, b, total, dtype, device, use_cfg=use_cfg,
+                      context=context, context_mask=context_mask, attn_bias=bias)
         tokens = torch.cat([tr.semantic_start_token.expand(b, 1, -1),
                             get_embeds(tr.semantic_embedding, sem),
                             tr.coarse_start_token.expand(b, 1, -1), tr.embed_coarse(prime)], 1)
-        last_out = t(tokens.to(dtype), attn_bias=bias, kv_cache=cache)[:, -1]
+        last_out = run(tokens.to(dtype))[:, -1]
         buf = torch.zeros(b, n_total, dtype=torch.long, device=device)
         buf[:, :pc] = prime
         logits_buf = buf.new_zeros(b, n_total, tr.codebook_size + 1, dtype=dtype) \
@@ -280,10 +410,10 @@ class CoarseTransformerWrapper(nn.Module):
         def embed_code(code, q):
             return tr.coarse_embedding[code + q * stride] + tr.coarse_quantize_embedding[q]
 
-        _decode_codes(lambda x: t(x, attn_bias=bias, kv_cache=cache), tr.coarse_logit_weights,
-                      embed_code, last_out, buf, pc, eos_id=self.coarse_eos_id,
-                      filter_thres=filter_thres, temperature=temperature, generator=generator,
-                      logits_buf=logits_buf)
+        _decode_codes(run, tr.coarse_logit_weights, embed_code, last_out, buf, pc,
+                      eos_id=self.coarse_eos_id, filter_thres=filter_thres,
+                      temperature=temperature, generator=generator, logits_buf=logits_buf,
+                      combine=lambda h: _cfg_combine(h, cond_scale, use_cfg))
         buf = mask_out_after_eos_id(buf, self.coarse_eos_id, mask_value=-1, keep_eos=False)
         out = buf.reshape(b, -1, num_q)
         if reconstruct_wave:
@@ -311,14 +441,15 @@ class FineTransformerWrapper(nn.Module):
         self.mask_prob = mask_prob
 
     def forward(self, coarse_token_ids=None, fine_token_ids=None, *, raw_wave=None,
-                raw_wave_for_codec=None, return_loss: bool = False, train: bool = False,
-                generator: "torch.Generator | None" = None):
+                raw_wave_for_codec=None, text=None, text_embeds=None,
+                cond_scale: "float | None" = None, return_loss: bool = False,
+                train: bool = False, generator: "torch.Generator | None" = None):
         """(coarse logits, fine logits), or with return_loss the loss: each
         head's cross entropy weighted by its count of logits (the JAX
         wrapper's loss weight at its default, 1). With `raw_wave` (the JAX
         wrapper's name) or `raw_wave_for_codec`, both come from the codec's
         codes of it. With train, the forgetful causal mask (drawn from
-        `generator`) is applied."""
+        `generator`) is applied. The condition as the Semantic wrapper's."""
         if raw_wave is not None:
             if raw_wave_for_codec is not None:
                 raise ValueError("pass raw_wave or raw_wave_for_codec, not both")
@@ -338,7 +469,14 @@ class FineTransformerWrapper(nn.Module):
             mask = generate_mask_with_prob((b, coarse.shape[-1] + fine.shape[-1] + 2),
                                            self.mask_prob, generator=generator,
                                            device=coarse.device)
-        coarse_logits, fine_logits = self.transformer(coarse, fine, self_attn_mask=mask)
+        cond = dict(text_embeds=_scoring_condition(self.transformer, text, text_embeds),
+                    self_attn_mask=mask)
+        if cond_scale is not None:
+            coarse_logits, fine_logits = self.transformer.forward_with_cond_scale(
+                coarse, fine, cond_scale=cond_scale, **cond)
+        else:
+            coarse_logits, fine_logits = self.transformer(
+                coarse, fine, cond_drop_prob=None if train else 0.0, generator=generator, **cond)
         if not return_loss:
             return coarse_logits, fine_logits
         num_fine = fine_logits.shape[1]
@@ -350,8 +488,9 @@ class FineTransformerWrapper(nn.Module):
         return (coarse_loss * num_coarse + fine_loss * num_fine) / (num_coarse + num_fine)
 
     @torch.no_grad()
-    def generate(self, *, coarse_token_ids, prime_wave=None, prime_fine_token_ids=None,
-                 filter_thres: float = 0.9, temperature: float = 1.0,
+    def generate(self, *, coarse_token_ids, prime_wave=None, prime_wave_input_sample_hz=None,
+                 prime_fine_token_ids=None, text=None, text_embeds=None,
+                 cond_scale: float = 3.0, filter_thres: float = 0.9, temperature: float = 1.0,
                  reconstruct_wave: bool = False, mask_out_generated_fine_tokens: bool = False,
                  generator: "torch.Generator | None" = None, return_logits: bool = False):
         """Sample the fine codes of coarse codes (B, T, Qc) or (B, T * Qc),
@@ -359,7 +498,9 @@ class FineTransformerWrapper(nn.Module):
         codes of `prime_wave`. One prefill of [start, coarse, start, prompt]
         under a bias of the whole fine budget and the key mask that drops
         coarse pad and EOS codes, then one cached step per code, T * Qf in
-        all. Returns the (B, T, Qf) grid, or with reconstruct_wave the
+        all (under prefix conditioning the whole sequence each step). A
+        conditioned LM takes text or text_embeds, with guidance at
+        cond_scale. Returns the (B, T, Qf) grid, or with reconstruct_wave the
         codec's decode of the coarse and fine grids together
         (`decode_acoustic_tokens`); with mask_out_generated_fine_tokens, the
         time steps whose coarse codes are all pad become pad; with
@@ -377,20 +518,22 @@ class FineTransformerWrapper(nn.Module):
         if prime_wave is not None and prime_fine_token_ids is not None:
             raise ValueError("pass prime_wave or prime_fine_token_ids, not both")
         if prime_wave is not None:
-            prime_fine_token_ids = _codec_codes(self.codec, prime_wave)[..., qc:]
+            prime_fine_token_ids = _codec_codes(self.codec, prime_wave.to(device),
+                                                prime_wave_input_sample_hz)[..., qc:]
         prime = prime_fine_token_ids.to(device).reshape(b, -1) \
             if prime_fine_token_ids is not None else coarse.new_zeros(b, 0)
         pf = prime.shape[1]
-        t = tr.transformer
         dtype = tr.coarse_start_token.dtype
         bias = tr.build_attn_bias(nc, n_total)
-        cache = KVCache.create(t.depth, b, 2 + nc + n_total, t.dim_head, dtype=dtype,
-                               device=device)
         key_mask, coarse_safe = tr.coarse_key_mask(coarse, n_total)
+        context, context_mask, use_cfg = _generation_condition(tr, text, text_embeds,
+                                                               cond_scale, device)
+        run = _Runner(tr.transformer, b, 2 + nc + n_total, dtype, device, use_cfg=use_cfg,
+                      context=context, context_mask=context_mask, self_attn_mask=key_mask,
+                      attn_bias=bias)
         tokens = torch.cat([tr.coarse_start_token.expand(b, 1, -1), tr.embed_coarse(coarse_safe),
                             tr.fine_start_token.expand(b, 1, -1), tr.embed_fine(prime)], 1)
-        last_out = t(tokens.to(dtype), self_attn_mask=key_mask, attn_bias=bias,
-                     kv_cache=cache)[:, -1]
+        last_out = run(tokens.to(dtype))[:, -1]
         buf = torch.zeros(b, n_total, dtype=torch.long, device=device)
         buf[:, :pf] = prime
         logits_buf = buf.new_zeros(b, n_total, tr.codebook_size, dtype=dtype) \
@@ -400,10 +543,10 @@ class FineTransformerWrapper(nn.Module):
             return tr.fine_embedding[code + q * tr.codebook_size] + tr.fine_quantize_embedding[q]
 
         # the fine heads have no EOS class: no early exit, and no EOS to mask out after
-        _decode_codes(lambda x: t(x, self_attn_mask=key_mask, attn_bias=bias, kv_cache=cache),
-                      tr.fine_logit_weights, embed_code, last_out, buf, pf, eos_id=None,
+        _decode_codes(run, tr.fine_logit_weights, embed_code, last_out, buf, pf, eos_id=None,
                       filter_thres=filter_thres, temperature=temperature, generator=generator,
-                      logits_buf=logits_buf)
+                      logits_buf=logits_buf,
+                      combine=lambda h: _cfg_combine(h, cond_scale, use_cfg))
         grid = buf.reshape(b, steps, qf)
         coarse_grid = coarse.reshape(b, steps, qc)
         if mask_out_generated_fine_tokens:

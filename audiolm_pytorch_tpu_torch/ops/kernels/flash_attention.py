@@ -74,8 +74,10 @@ def _check(q, k, v, bias_tab, key_mask, causal, bias=None):
         raise TypeError(f"q, k, v must share a dtype in {list(_DTYPES)}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must lie on one device")
-    if (causal or bias_tab is not None) and n != m:
-        raise ValueError("causal attention and the bias table need N == M")
+    if bias_tab is not None and n != m:
+        raise ValueError("the bias table needs N == M")
+    if causal and m < n:
+        raise ValueError("causal attention needs M >= N keys (aligned to the bottom right)")
     if bias_tab is not None and (bias_tab.shape != (2 * n - 1, h)
                                  or bias_tab.device != q.device):
         raise ValueError(f"bias_tab must be (2N-1, H) = {(2 * n - 1, h)} on q's device")
@@ -181,7 +183,9 @@ def flash_attention(q, k, v, *, bias_tab=None, bias=None, key_mask=None,
     head of query head h is h // (H // Hk)). bias_tab: (2N-1, H) rel-pos
     distance table, or bias: additive (H, N, M) float bias shared over the
     batch ((B, H, N, M) on the CPU only), or neither. key_mask: (B, M) bool,
-    True = attend. Returns out (B, H, N, D) in q's dtype [and lse (B, H, N)
+    True = attend. Causal attention with M >= N is aligned to the bottom
+    right: key k is seen by query q iff k <= q + M - N (`attend`'s
+    tril(M - N)), so a prefix of M - N keys is seen by every query. Returns out (B, H, N, D) in q's dtype [and lse (B, H, N)
     float32], differentiable in q, k, v and the bias."""
     _check(q, k, v, bias_tab, key_mask, causal, bias)
     scale = float(scale if scale is not None else q.shape[-1] ** -0.5)

@@ -100,7 +100,7 @@ class TransformerTrainStep:
         (grad_accum_every * B, ...), positional (the Semantic wrapper's ids;
         the Coarse wrapper's semantic ids and coarse codes; the Fine
         wrapper's coarse and fine codes) or named (raw_wave,
-        raw_wave_for_codec). Each is split into grad_accum_every micro-batches
+        raw_wave_for_codec, text_embeds). Each is split into grad_accum_every micro-batches
         along its first axis. Returns the mean loss of the micro-batches."""
         accum = self.grad_accum_every
         names = list(named_inputs)
@@ -583,19 +583,26 @@ class _TransformerTrainerBase(_TrainerBase):
         raise NotImplementedError
 
     def _batch_to_kwargs(self, batch):
-        """The dataset's fields as the wrapper's keywords, in
-        wrapper_field_order: {name: tensor}."""
+        """The dataset's fields as the wrapper's keywords: a field of strings
+        as `text_embeds`, the T5 embeddings of the whole list at once (the
+        frozen encoder, on the card), the others in wrapper_field_order as
+        tensors."""
         fields = batch if isinstance(batch, tuple) else (batch,)
-        if any(isinstance(f, list) for f in fields):
-            raise NotImplementedError("text conditioning is not ported: the dataset gives a "
-                                      "string field")
-        return {k: torch.as_tensor(f) for k, f in zip(self.wrapper_field_order, fields)}
+        kwargs = {}
+        waves = iter(self.wrapper_field_order)
+        for f in fields:
+            if isinstance(f, list) and f and isinstance(f[0], str):
+                kwargs["text_embeds"] = self.wrapper.transformer.embed_text(f)
+            else:
+                kwargs[next(waves)] = torch.as_tensor(f)
+        return kwargs
 
     def train_step(self):
         """One update on the next grad_accum_every batches: the logs."""
         stacked = self._stack_accum(self.dl_iter)
-        kwargs = {k: v.reshape(-1, *v.shape[2:])
-                  for k, v in self._batch_to_kwargs(stacked).items()}
+        kwargs = self._batch_to_kwargs(stacked)
+        kwargs = {k: v if k == "text_embeds" else v.reshape(-1, *v.shape[2:])
+                  for k, v in kwargs.items()}
         logs = {"loss": self.step_fn.step(**kwargs)}
         self.metrics.log(self.steps, **logs)
         self.steps += 1

@@ -12,7 +12,8 @@ Buffer leaves (the codec's codebooks and EMA statistics) carry a literal
 codec's map also runs the other way (`codec_state_dict_to_jax`), so the
 port writes checkpoints the JAX package reads; so does the LMs' map
 (`lm_state_dict_to_jax`). `hubert_state_dict_from_jax` carries a JAX
-HubertWithKmeans's weights and centres into the port's.
+HubertWithKmeans's weights and centres into the port's, and
+`t5_state_dict_from_jax` a T5Encoder's.
 """
 from __future__ import annotations
 
@@ -24,11 +25,10 @@ import torch
 
 __all__ = ["read_npz", "state_dict_from_jax", "lm_state_dict_to_jax",
            "codec_state_dict_from_jax", "codec_state_dict_to_jax",
-           "hubert_state_dict_from_jax", "DISCRIMINATORS"]
+           "hubert_state_dict_from_jax", "t5_state_dict_from_jax", "DISCRIMINATORS"]
 
-# slots of one JAX Transformer layer tuple
-# (hc_attn, attn, hc_cross, cross, hc_ff, ff); cross attention is not ported
-_LAYER_SLOTS = {0: "hc_attn", 1: "attn", 4: "hc_ff", 5: "ff"}
+# slots of one JAX Transformer layer tuple (hc_attn, attn, hc_cross, cross, hc_ff, ff)
+_LAYER_SLOTS = {0: "hc_attn", 1: "attn", 2: "hc_cross", 3: "cross", 4: "hc_ff", 5: "ff"}
 _SLOT_INDEX = {name: slot for slot, name in _LAYER_SLOTS.items()}
 _INDEX = re.compile(r"\[(\d+)\]")
 _FLAT_INDEX = re.compile(r"\[<flat index \d+>\]")
@@ -62,7 +62,7 @@ def _port_key(path: str, lm_layers: bool = True) -> str:
     def layer_slot(m):
         slot = int(m.group(2))
         if slot not in _LAYER_SLOTS:
-            raise KeyError(f"{path}: layer slot {slot} (cross attention) is not ported")
+            raise KeyError(f"{path}: no layer slot {slot}")
         return f".layers.{m.group(1)}.{_LAYER_SLOTS[slot]}"
 
     key = re.sub(r"\.layers\[(\d+)\]\[(\d+)\]", layer_slot, path) if lm_layers else path
@@ -97,9 +97,23 @@ def lm_state_dict_to_jax(state_dict) -> "dict[str, np.ndarray]":
     for key, t in state_dict.items():
         if key.rsplit(".", 1)[-1] == "weight" and t.ndim == 2:
             t = t.t()
-        key = re.sub(r"\.layers\.(\d+)\.(hc_attn|attn|hc_ff|ff)(?=\.)",
+        key = re.sub(r"\.layers\.(\d+)\.(hc_attn|attn|hc_cross|cross|hc_ff|ff)(?=\.)",
                      lambda m: f".layers.{m.group(1)}.{_SLOT_INDEX[m.group(2)]}", key)
         out[_jax_path(key)] = t.detach().to("cpu", torch.float32, copy=True).contiguous().numpy()
+    return out
+
+
+def t5_state_dict_from_jax(named_arrays) -> "dict[str, torch.Tensor]":
+    """Map {JAX key path: array} of a T5Encoder to the port's state_dict
+    (`.blocks[0].q.weight` -> `blocks.0.q.weight`; Linear weights (in, out)
+    -> (out, in)), float32."""
+    out = {}
+    for path, a in named_arrays.items():
+        t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a))
+        key = _port_key(path, lm_layers=False)
+        if key.rsplit(".", 1)[-1] == "weight" and t.ndim == 2 and not key.startswith("token"):
+            t = t.t()
+        out[key] = t.float().contiguous()
     return out
 
 

@@ -130,6 +130,39 @@ Phases, each printing its name and seconds:
                    persist/{semantic,coarse,fine}_r5.npz and the codec they
                    are token-paired to, persist/soundstream_r5.npz, its
                    tokens identical to the CPU port's.
+  18. conditioned kernels - K1-K3 in text conditioning's two forms against
+                   their plain versions, fp32 and bf16: causal attention over M
+                   = P + N keys aligned to the bottom right (key k seen by
+                   query q iff k <= q + M - N) with the (H, N, M) bias (K5 in
+                   K2's launch) at 4 x 8 x 2049 over 16 + 2049 and 603 over
+                   40 + 603, ragged (37 over 33 + 37) and with the first key
+                   tile of a row masked; cross attention over a null key and
+                   16 text tokens, 4 x 8 x 2049 over 17 and the decode step's
+                   1 over 17. float32 within F64_TOL of float64 in both forms
+                   (the plain-TF32 build rejected), K2 and K3 the same bits
+                   over three runs; each shape timed against its bound, the
+                   plain version and SDPA with the same float mask.
+  19. conditioned  - T5 at google/t5-v1_1-base's width (dim 768, 12 layers;
+                   weights seeded from the name, the hash tokenizer) on 4
+                   prompts of at most 15 words; the flagship conditioned by
+                   cross attention and by prefix: scoring of 4 x 2048 ids, a
+                   float32 train step with cond_drop_prob 0.5 (card vs CPU
+                   gradients at 1 x 256, a zeroed dq rejected), guided
+                   generation (cond_scale 3, batch 2 as 4 rows), prompt 128:
+                   64 new ids by cross attention, identical to the CPU port's;
+                   32 by prefix and recompute, equal to a greedy recompute.
+  20. conditioned acoustic - the Coarse and Fine LMs at bench.py's width
+                   conditioned by cross attention: guided greedy generation,
+                   50 semantic ids -> 150 coarse -> 250 fine codes, identical
+                   to the CPU port's.
+  21. audiolm text - AudioLM at _build_gen's widths, all three stages
+                   conditioned, text=['dog barking'], 1 s greedy; the tokens
+                   identical to the CPU port's.
+  22. audiolm continuation - the banked chain with the stage recipe's HuBERT
+                   (persist/hubert_r5_stage.npz) continuing
+                   results_quality/heldout_ref.wav through prime_wave_path,
+                   then the prompt resampled to 24 kHz through prime_wave; the
+                   tokens identical to the CPU port's.
 The training phases (6, and the Coarse step in 7-12) also train in bf16
 compute beside float32: ms per step of both, and on one batch with the
 same weights and mask the bf16 loss and gradients held to float32's
@@ -151,9 +184,10 @@ tokenisation shapes. K1-K5 also run in bf16 at the stage trainers' shapes
 (batch 4, 4 heads: the table at N = 150, the bias at N = 602 and 1201).
 Each kernel row gives its time by CUDA events and on the device
 (torch.profiler), and so does its library call.
-Each path, scoring, generation and training of each LM, the codec's round
-trip, a codec train step (float32 and bf16), a stage trainer's step and
-AudioLM's generation (random and banked weights), sets the kernel launch counts to 0 just
+Each path, scoring, generation and training of each LM (and of the
+conditioned LMs), the codec's round trip, a codec train step (float32 and
+bf16), a stage trainer's step and AudioLM's generation (random and banked
+weights, with text and with a prompt), sets the kernel launch counts to 0 just
 before its own calls and reads them just after, before any check (CPU
 comparison, profile, uncached scoring of the generated ids) runs.
 
@@ -183,7 +217,7 @@ from audiolm_pytorch_tpu_torch import (AudioLM, AudioLMSoundStream, CoarseTransf
                                        CoarseTransformerWrapper, FineTransformer,
                                        FineTransformerWrapper, SemanticTransformer,
                                        SemanticTransformerWrapper, TransformerTrainStep,
-                                       decode_acoustic_tokens)
+                                       decode_acoustic_tokens, t5_encode_text)
 from audiolm_pytorch_tpu_torch.ops.kernels import _build
 from audiolm_pytorch_tpu_torch.ops.kernels import flash_attention as fa
 from audiolm_pytorch_tpu_torch.ops.kernels import local_attention as la
@@ -360,40 +394,54 @@ def dense_bias(rng, h, n):
     return torch.from_numpy(0.5 * rng.standard_normal((h, n, n), dtype=np.float32)).to(DEV)
 
 
-def flash_bound_ms(q, k, v, bias, mask, *, products=2, adds=0, extra_bytes=0):
+def pairs_attended(mask, b, n, m, causal):
+    """(query, key) pairs a head attends over the batch: the unmasked keys,
+    with causal masking only keys k <= q + m - n (aligned to the bottom
+    right)."""
+    keys = torch.ones(b, m, dtype=torch.bool, device=DEV) if mask is None else mask
+    if not causal:
+        return n * int(keys.sum())
+    return int(keys.long().cumsum(1)[:, m - n:].sum())
+
+
+def flash_bound_ms(q, k, v, bias, mask, *, causal=True, products=2, adds=0, extra_bytes=0):
     """Least time for the function on these inputs: q, k, v, the bias (the
-    table or the (H, N, N) tensor, float32) and the mask read once, out and
-    lse written once (plus `extra_bytes`), and `products` matrix products
-    (plus `adds` additions) over the attended (q, k) pairs, at the
-    tensor-core rate of the input type (3xTF32 for float32). Returns
-    (ms, what bounds it)."""
+    table or the (H, N, M) tensor, float32, or None) and the mask read once,
+    out and lse written once (plus `extra_bytes`), and `products` matrix
+    products (plus `adds` additions) over the attended (q, k) pairs, at the
+    tensor-core rate of the input type (3xTF32 for float32). Returns (ms,
+    what bounds it)."""
     b, h, n, d = q.shape
     es = q.element_size()
-    nbytes = (q.numel() + k.numel() + v.numel() + q.numel()) * es + bias.numel() * 4 \
-        + b * h * n * 4 + (mask.numel() if mask is not None else 0) + extra_bytes
-    keys = torch.ones(b, n, dtype=torch.bool, device=q.device) if mask is None else mask
-    # causal: query i attends the valid keys j <= i
-    pairs = int(keys.long().cumsum(1).sum()) * h
-    flops = (2 * d * products + adds) * pairs
+    nbytes = (q.numel() + k.numel() + v.numel() + q.numel()) * es + b * h * n * 4 \
+        + (bias.numel() * 4 if bias is not None else 0) \
+        + (mask.numel() if mask is not None else 0) + extra_bytes
+    flops = (2 * d * products + adds) * pairs_attended(mask, b, n, k.shape[2], causal) * h
     t_bytes = nbytes / HBM_BPS * 1e3
     t_ops = flops / (TF32X3_FLOPS if q.dtype == torch.float32 else PEAK_FLOPS[q.dtype]) * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def sdpa_mask(q, tab, mask, bias=None):
+def sdpa_mask(q, tab, mask, bias=None, *, m=None, causal=True):
     """The float mask SDPA needs for the same function: the expanded table
-    (or the (H, N, N) bias), -inf above the diagonal and on masked keys. Its
-    rows lie 16 elements apart (a view of a padded buffer), as SDPA's fused
-    kernels need for an odd N. Yardstick only."""
+    (or the (H, N, M) bias, or zeros), -inf on masked keys and, causal,
+    above the diagonal aligned to the bottom right. Its rows lie 16 elements
+    apart (a view of a padded buffer), as SDPA's fused kernels need for an
+    odd length. Yardstick only."""
     n = q.shape[2]
-    fmask = (toeplitz_expand(tab, n, n) if bias is None else bias)[None].to(q.dtype)
-    causal = torch.ones(n, n, dtype=torch.bool, device=q.device).tril()
-    keep = causal[None, None] if mask is None else causal[None, None] & mask[:, None, None, :]
-    fmask = fmask.masked_fill(~keep, float("-inf"))
-    padded = torch.empty(*fmask.shape[:-1], -(-n // 16) * 16, dtype=fmask.dtype,
+    m = n if m is None else m
+    base = toeplitz_expand(tab, n, n) if tab is not None else bias if bias is not None \
+        else torch.zeros(1, n, m, device=q.device)
+    keep = torch.ones(n, m, dtype=torch.bool, device=q.device)
+    keep = (keep.tril(m - n) if causal else keep)[None, None]
+    if mask is not None:
+        keep = keep & mask[:, None, None, :]
+    fmask = torch.where(keep, base[None].to(q.dtype),
+                        torch.tensor(float("-inf"), dtype=q.dtype, device=q.device))
+    padded = torch.empty(*fmask.shape[:-1], -(-m // 16) * 16, dtype=fmask.dtype,
                          device=fmask.device)
-    padded[..., :n] = fmask
-    return padded[..., :n]
+    padded[..., :m] = fmask
+    return padded[..., :m]
 
 
 def sdpa_kv(k, v, h):
@@ -735,16 +783,16 @@ def sass_phase():
     return result
 
 
-def attention_f64(q, k, v, tab, bias, mask, g, scale):
-    """Causal attention in float64, by the plain versions on float64 inputs:
-    out, lse, Delta and the dq, dk, dv and the bias's gradient of dO = g (the
-    query heads of each kv head summed)."""
+def attention_f64(q, k, v, tab, bias, mask, g, scale, causal=True):
+    """Attention (causal by default) in float64, by the plain versions on
+    float64 inputs: out, lse, Delta and the dq, dk, dv and the bias's
+    gradient of dO = g (the query heads of each kv head summed)."""
     q, k, v, g = (a.double() for a in (q, k, v, g))
     tab, bias = (None if a is None else a.double() for a in (tab, bias))
     out, lse = fa.flash_attention_ref(q, k, v, bias_tab=tab, bias=bias, key_mask=mask,
-                                      causal=True, scale=scale, return_lse=True)
-    dq, dk, dv, dgrad = fa.flash_attention_bwd_ref(q, k, v, tab, mask, out, lse, g, causal=True,
-                                                   scale=scale, bias=bias)
+                                      causal=causal, scale=scale, return_lse=True)
+    dq, dk, dv, dgrad = fa.flash_attention_bwd_ref(q, k, v, tab, mask, out, lse, g,
+                                                   causal=causal, scale=scale, bias=bias)
     return out, lse, (g * out).sum(-1), dq, dk, dv, dgrad
 
 
@@ -752,17 +800,17 @@ def rel_err(a, ref):
     return ((a.double() - ref).abs().max() / ref.abs().max()).item()
 
 
-def f64_errors(q, k, v, tab, bias, mask, g, ref, scale):
+def f64_errors(q, k, v, tab, bias, mask, g, ref, scale, causal=True):
     """K1's out, and K2's dq (with a bias its dbias) and K3's dk and dv fed
     the float64 lse and Delta, against the float64 reference: max |kernel -
     ref| / max |ref| of each (the table's gradient is held to the plain
     version in the kernels phase)."""
     out64, lse64, delta64, dq64, dk64, dv64, dgrad64 = ref
-    out = fa.flash_attention(q, k, v, bias_tab=tab, bias=bias, key_mask=mask, causal=True)
+    out = fa.flash_attention(q, k, v, bias_tab=tab, bias=bias, key_mask=mask, causal=causal)
     kmask = mask.to(torch.int8).contiguous() if mask is not None else None
     bargs = (q, k, v, g, lse64.float(), delta64.float(), tab, kmask)
-    dq, dgrad = fa.bwd_dq(*bargs, causal=True, scale=scale, bias=bias)
-    dk, dv = fa.bwd_dkv(*bargs, causal=True, scale=scale, bias=bias)
+    dq, dgrad = fa.bwd_dq(*bargs, causal=causal, scale=scale, bias=bias)
+    dk, dv = fa.bwd_dkv(*bargs, causal=causal, scale=scale, bias=bias)
     errs = {"out": rel_err(out, out64), "dq": rel_err(dq, dq64), "dk": rel_err(dk, dk64),
             "dv": rel_err(dv, dv64)}
     if bias is not None:
@@ -1096,15 +1144,17 @@ def bf16_training(label, wrapper, cpu_model, batch, seed, fp32_ms, depth, table)
                           idle=1 - busy / wall, **gate)
 
 
-def check_card_grads(label, wrapper, model, batch, seed, fault, depth):
+def check_card_grads(label, wrapper, model, batch, seed, fault, depth, named=None):
     """The card's parameter gradients of the train loss on `batch` against
     the CPU port's on the same weights and forgetful mask, worst leaf by
     relative norm within LEAF_TOL; then the same comparison must reject the
     card's gradients with `fault` = (wrapper function of the flash module,
     the index of its output, the output's name) zeroed in one layer's
-    backward."""
-    card = small_grads(wrapper, model, batch, seed)
-    cpu = small_grads(wrapper, copy.deepcopy(model).cpu(), tuple(a.cpu() for a in batch), seed)
+    backward. `named`: the wrapper's keyword inputs (text_embeds)."""
+    named = named or {}
+    card = small_grads(wrapper, model, batch, seed, named=named)
+    cpu = small_grads(wrapper, copy.deepcopy(model).cpu(), tuple(a.cpu() for a in batch), seed,
+                      named={k: a.cpu() for k, a in named.items()})
     errs = leaf_errors(card, cpu)
     worst = max(errs, key=errs.get)
     top = max(cpu, key=lambda n: cpu[n].abs().max())
@@ -1116,7 +1166,8 @@ def check_card_grads(label, wrapper, model, batch, seed, fault, depth):
                              f"{LEAF_TOL}")
     # the comparison must see a wrong layer
     layer = depth // 2
-    faulty = leaf_errors(small_grads(wrapper, model, batch, seed, zero=(*fault[:2], layer)), cpu)
+    faulty = leaf_errors(small_grads(wrapper, model, batch, seed, zero=(*fault[:2], layer),
+                                     named=named), cpu)
     bad = max(faulty, key=faulty.get)
     print(f"{label} with {fault[2]} zeroed in backward call {layer} of {depth}: worst leaf "
           f"{faulty[bad]:.3e} in {bad}, {sum(e > LEAF_TOL for e in faulty.values())} leaves "
@@ -1126,14 +1177,16 @@ def check_card_grads(label, wrapper, model, batch, seed, fault, depth):
                              f"{fault[2]} through")
 
 
-def small_grads(wrapper, model, batch, seed, zero=None):
-    """{name: gradient on the CPU} of the train loss of `batch` under the
-    forgetful mask drawn from `seed`; with zero = (name, index, call), output
-    `index` of the flash module's function `name` (bwd_dq: 0 dq, 1 the bias's
-    gradient) in that backward call (1 = the last layer) is zeroed."""
+def small_grads(wrapper, model, batch, seed, zero=None, named=None):
+    """{name: gradient on the CPU} of the train loss of `batch` (and the
+    keyword inputs `named`) under the forgetful mask (and a conditioned
+    model's condition dropout) drawn from `seed`; with zero = (name, index,
+    call), output `index` of the flash module's function `name` (bwd_dq: 0
+    dq, 1 the bias's gradient) in that backward call (1 = the last layer)
+    is zeroed."""
     with zeroed_output(zero):
         model.zero_grad(set_to_none=True)
-        wrapper(transformer=model)(*batch, return_loss=True, train=True,
+        wrapper(transformer=model)(*batch, **(named or {}), return_loss=True, train=True,
                                    generator=torch.Generator().manual_seed(seed)).backward()
     return param_grads(model)
 
@@ -2737,6 +2790,568 @@ def banked_chain(seed):
     return launched, dict(wall_s=wall_s, semantic_ids=n_sem, coarse_steps=n_coarse)
 
 
+# ---- Text conditioning and prompts: K1-K3 with M != N, the conditioned LMs,
+# ---- AudioLM with text and with a prompt
+
+T5_BASE = "google/t5-v1_1-base"
+# four prompts of at most 15 words: with the hash tokenizer (a token a word,
+# then EOS) the longest is 16 tokens, the prefix of P = 16 keys and, with
+# the null key, cross attention over M = 17
+PROMPTS = ["a dog barking in the distance",
+           "a man speaking softly while light rain falls on a tin roof",
+           "birds singing at dawn near a slow river",
+           "a crowd cheering as the band starts to play loud music on a summer night"]
+TEXT_LENGTHS = [7, 13, 9, 16]  # the prompts' tokens, EOS included
+HELDOUT = ROOT / "results_quality" / "heldout_ref.wav"
+HUBERT_STAGE = PERSIST / "hubert_r5_stage.npz"
+
+
+def check_general(q, k, v, bias, mask, causal, label, seed, backward=True):
+    """K1 (and with `backward` K2, with K5 when there is a bias, and K3) on N
+    queries over M keys against the plain versions, forward and backward
+    through the autograd.Function; each launch timed against its bound, the
+    plain version and SDPA with the same float mask. Every row must see a
+    key. Returns the kernels' rows."""
+    b, h, n, d = q.shape
+    m = k.shape[2]
+    scale = d ** -0.5
+    if pairs_attended(mask, b, n, m, causal) == 0 or (
+            causal and mask is not None and not mask.long().cumsum(1)[:, m - n].all()):
+        raise AssertionError(f"[{label}]: a row without a key")
+    tol = TOL[q.dtype]
+    kw = dict(bias=bias, key_mask=mask, causal=causal)
+    leaves = [a.detach().requires_grad_(backward) for a in (q, k, v)]
+    if bias is not None:
+        leaves.append(bias.detach().requires_grad_(backward))
+    out, lse = fa.flash_attention(*leaves[:3], bias=leaves[3] if bias is not None else None,
+                                  key_mask=mask, causal=causal, return_lse=True)
+    ref, ref_lse = fa.flash_attention_ref(q, k, v, **kw, return_lse=True)
+    errs = {"out": (out.float() - ref.float()).abs().max().item(),
+            "lse": (lse - ref_lse).abs().max().item()}
+    if not (torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol)
+            and torch.allclose(lse, ref_lse, rtol=2e-3, atol=2e-3)):
+        raise AssertionError(f"flash kernel vs plain [{label}]: {errs} over {tol}")
+    ms = cuda_ms(lambda: fa.flash_attention(q, k, v, **kw))
+    plain_ms = cuda_ms(lambda: fa.flash_attention_ref(q, k, v, **kw), iters=3, warmup=1)
+    fmask = sdpa_mask(q, None, mask, bias, m=m, causal=causal)
+    ke, ve = sdpa_kv(k, v, h)
+    library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, ke, ve, attn_mask=fmask))
+    bound_ms, bound_by = flash_bound_ms(q, k, v, bias, mask, causal=causal)
+    rows = {"fwd": dict(max_abs_err=errs["out"], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=bound_by, library_ms=library_ms, at=label)}
+    print(f"flash [{label}]: max_abs_err {errs['out']:.3e} lse {errs['lse']:.3e} (tol {tol}) | "
+          f"kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | sdpa {library_ms:.4f} ms | bound "
+          f"{bound_ms:.4f} ms ({bound_by})")
+    if not backward:
+        return rows
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    g = torch.randn(q.shape, generator=gen, device=DEV).to(q.dtype)
+    grads = torch.autograd.grad(out, leaves, g)
+    out, lse = out.detach(), lse.detach()
+    bkw = dict(causal=causal, scale=scale)
+    bref = fa.flash_attention_bwd_ref(q, k, v, None, mask, out, lse, g, bias=bias, **bkw)
+    # float32 element by element; bf16 by the largest error over the largest
+    # value: with 17 keys every p is large and dk, dv sum 2049 queries'
+    # bf16-rounded terms, so an element that cancels keeps their rounding
+    names = ("dq", "dk", "dv", "dbias")
+    for name, a, r in zip(names, grads, bref):
+        errs[name] = (a.float() - r.float()).abs().max().item()
+        rel = errs[name] / max(r.float().abs().max().item(), 1e-30)
+        if not (torch.allclose(a.float(), r.float(), **GRAD_TOL[q.dtype])
+                if q.dtype == torch.float32 else rel <= TOL[q.dtype]):
+            raise AssertionError(f"flash backward vs plain [{label}] {name}: max abs err "
+                                 f"{errs[name]} ({rel:.2e} of the largest)")
+    delta = (g.float() * out.float()).sum(-1)
+    kmask = mask.to(torch.int8).contiguous() if mask is not None else None
+    dense = bias.float().contiguous() if bias is not None else None
+    args = (q, k, v, g, lse, delta, None, kmask)
+    plain_bwd = cuda_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, None, mask, out, lse, g,
+                                                           bias=bias, **bkw), iters=3, warmup=1)
+    fm = fmask.detach().clone().requires_grad_(bias is not None)
+    qs, ks, vs = (a.detach().requires_grad_() for a in (q, ke, ve))
+    wrt = (qs, ks, vs, fm) if bias is not None else (qs, ks, vs)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, attn_mask=fm)
+
+    fwd_bwd = cuda_ms(lambda: torch.autograd.grad(sdpa(), wrt, g), iters=5)
+    with torch.no_grad():
+        library_bwd = fwd_bwd - cuda_ms(sdpa, iters=5)
+    es, lrows = q.element_size(), b * h * n * 4
+    dq_ms = cuda_ms(lambda: fa.bwd_dq(*args, bias=dense, **bkw))
+    dq_bound = flash_bound_ms(q, k, v, bias, mask, causal=causal, products=3,
+                              adds=1 if bias is not None else 0,
+                              extra_bytes=q.numel() * es + lrows
+                              + (bias.numel() * 4 if bias is not None else 0))
+    dkv_ms = cuda_ms(lambda: fa.bwd_dkv(*args, bias=dense, **bkw))
+    dkv_bound = flash_bound_ms(q, k, v, bias, mask, causal=causal, products=4,
+                               extra_bytes=2 * k.numel() * es + lrows)
+    for name, t, (bms, bby), err in (("dq", dq_ms, dq_bound, errs["dq"]),
+                                     ("dkv", dkv_ms, dkv_bound, max(errs["dk"], errs["dv"])),
+                                     ("dbias", dq_ms, dq_bound, errs.get("dbias"))):
+        if name == "dbias" and bias is None:
+            continue
+        rows[name] = dict(max_abs_err=err, ms=t, plain_ms=plain_bwd, bound_ms=bms, bound_by=bby,
+                          library_ms=library_bwd, at=label)
+        print(f"flash bwd {name} [{label}]: max_abs_err {err:.3e} | kernel {t:.4f} ms | bound "
+              f"{bms:.4f} ms ({bby})")
+    if bias is not None:
+        rows["dbias"].update(fused_into="flash_bwd_dq")
+    print(f"flash bwd [{label}]: plain backward {plain_bwd:.4f} ms | sdpa fwd+bwd - fwd "
+          f"{library_bwd:.4f} ms")
+    whole_backward(label, dq_ms, dkv_ms, library_bwd)
+    return rows
+
+
+def text_key_mask(b, lengths, width=None):
+    """(b, width) key mask of b texts of the given token lengths (cycled),
+    width max(lengths) by default."""
+    width, device = max(lengths) if width is None else width, DEV
+    return torch.arange(width, device=device)[None] < torch.tensor(
+        [lengths[i % len(lengths)] for i in range(b)], device=device)[:, None]
+
+
+def offset_inputs(rng, b, h, n, p, d, dtype, forget=True):
+    """q over N, k, v over P + N keys (a text prefix, then the sequence), the
+    (H, N, P + N) bias zero over the prefix, and the key mask: each row's
+    text tokens, then the sequence with 15% of its keys forgotten (the first
+    kept), as the prefix-conditioned train step has them."""
+    m = p + n
+    q, k, v, _, mask = flash_inputs(rng, b, h, m, d, dtype, forget_p=0.15 if forget else None)
+    q = q[:, :, :n].contiguous()
+    seq = mask[:, :n] if mask is not None else torch.ones(b, n, dtype=torch.bool, device=DEV)
+    mask = torch.cat([text_key_mask(b, TEXT_LENGTHS, p), seq], dim=1)
+    bias = torch.nn.functional.pad(dense_bias(rng, h, n), (p, 0))
+    return q, k, v, bias, mask
+
+
+def cross_inputs(rng, b, h, n, d, dtype):
+    """q over N, k, v over the null key and the texts' 16 tokens, the key
+    mask (the null key always kept), no bias: cross attention."""
+    q = torch.from_numpy(rng.standard_normal((b, h, n, d), dtype=np.float32)).to(DEV, dtype)
+    m = 1 + max(TEXT_LENGTHS)
+    k, v = (torch.from_numpy(rng.standard_normal((b, 1, m, d), dtype=np.float32)).to(DEV, dtype)
+            for _ in range(2))
+    mask = torch.nn.functional.pad(text_key_mask(b, TEXT_LENGTHS), (1, 0), value=True)
+    return q, k, v, None, mask
+
+
+@phase("conditioned kernels")
+def conditioned_kernel_phase(seed):
+    """K1-K3 in the two forms text conditioning gives them, against the plain
+    versions, fp32 and bf16: causal attention over M = P + N keys aligned to
+    the bottom right with an (H, N, M) bias (K5 in K2's launch) at the
+    prefix-conditioned flagship's training shape (4 x 8 x 2049 over 16 + 2049)
+    and the Coarse LM's (603 over 40 + 603), ragged (37 over 70) and with the
+    first key tile masked in one row; cross attention over the null key and
+    16 text tokens at the training shape (2049 over 17) and the decode step
+    (1 over 17). float32 against float64 within F64_TOL at both training
+    shapes, the plain-TF32 build rejected; K2's dq and dbias and K3's dk, dv
+    the same bits over three runs."""
+    rng = np.random.default_rng(seed + 40)
+    h, d = FLAGSHIP["heads"], FLAGSHIP["dim_head"]
+    b = TRAIN_IDS[0]
+    rows = {}
+    for dtype, name in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        at = f"{name} {b}x{h}x{TRAIN_N} over 16 + {TRAIN_N}, prefix, (H, N, M) bias"
+        rows[f"offset_{name}"] = check_general(*offset_inputs(rng, b, h, TRAIN_N, 16, d, dtype),
+                                               True, at, seed)
+        at = f"{name} {b}x{h}x{COARSE_N} over 40 + {COARSE_N}, prefix, (H, N, M) bias"
+        rows[f"offset_coarse_{name}"] = check_general(
+            *offset_inputs(rng, b, h, COARSE_N, 40, d, dtype), True, at, seed)
+        q, k, v, bias, mask = offset_inputs(rng, 2, h, 37, 33, d, dtype)
+        check_general(q, k, v, bias, mask, True, f"{name} 2x{h}x37 over 33 + 37, ragged", seed)
+        q, k, v, bias, mask = offset_inputs(rng, 2, h, 200, 80, d, dtype, forget=False)
+        mask[0, :70] = False  # the first key tile of row 0 wholly masked
+        check_general(q, k, v, bias, mask, True,
+                      f"{name} 2x{h}x200 over 80 + 200, keys < 70 masked in row 0", seed)
+        at = f"{name} {b}x{h}x{TRAIN_N} over 17, cross attention"
+        rows[f"cross_{name}"] = check_general(*cross_inputs(rng, b, h, TRAIN_N, d, dtype), False,
+                                              at, seed)
+        at = f"{name} {b}x{h}x1 over 17, cross attention decode step"
+        rows[f"decode_{name}"] = check_general(*cross_inputs(rng, b, h, 1, d, dtype), False, at,
+                                               seed, backward=False)
+    # float32 against float64, and the plain-TF32 build rejected
+    scale = d ** -0.5
+    f64 = {}
+    for label, (q, k, v, bias, mask), causal in (
+            ("prefix", offset_inputs(rng, b, h, TRAIN_N, 16, d, torch.float32), True),
+            ("cross", cross_inputs(rng, b, h, TRAIN_N, d, torch.float32), False)):
+        g = torch.from_numpy(rng.standard_normal(q.shape, dtype=np.float32)).to(DEV)
+        ref = attention_f64(q, k, v, None, bias, mask, g, scale, causal=causal)
+        args = (q, k, v, None, bias, mask, g, ref, scale)
+        three = f64_errors(*args, causal=causal)
+        with fa.built_with(ONE_PASS):
+            one = f64_errors(*args, causal=causal)
+        print(f"tf32 [{label} {b}x{h}x{TRAIN_N}]: 3xTF32 vs float64 "
+              + " ".join(f"{x} {e:.2e}" for x, e in three.items())
+              + f" (limit {F64_TOL}) | 1xTF32 " + " ".join(f"{x} {e:.2e}" for x, e in one.items()))
+        if max(three.values()) > F64_TOL:
+            raise AssertionError(f"3xTF32 vs float64 [{label}]: {three} over {F64_TOL}")
+        if min(one.values()) <= F64_TOL:
+            raise AssertionError(f"the float64 check let the 1xTF32 build through [{label}]")
+        f64[label] = {"3xtf32": three, "1xtf32": one}
+        del ref, args
+        # the same bits over three runs (B = 4: K5's cluster holds the batch)
+        for dtype in (torch.float32, torch.bfloat16):
+            qd, kd, vd = (a.to(dtype) for a in (q, k, v))
+            gd = g.to(dtype)
+            out, lse = fa.flash_attention(qd, kd, vd, bias=bias, key_mask=mask, causal=causal,
+                                          return_lse=True)
+            bargs = (qd, kd, vd, gd, lse, (gd.float() * out.float()).sum(-1), None,
+                     mask.to(torch.int8).contiguous())
+            for fname, fn in (("K2 dq, dbias", fa.bwd_dq), ("K3 dk, dv", fa.bwd_dkv)):
+                first = fn(*bargs, causal=causal, scale=scale, bias=bias)
+                for _ in range(2):
+                    again = fn(*bargs, causal=causal, scale=scale, bias=bias)
+                    if not all(x is None or torch.equal(x, y) for x, y in zip(first, again)):
+                        raise AssertionError(f"{fname} differ between runs [{label}, {dtype}]")
+            print(f"tf32: K2 and K3 bitwise equal over 3 runs ({str(dtype)[6:]}, {label})")
+    rows["f64"] = f64
+    return rows
+
+
+def cond_model(cls, cfg, seed, **cond):
+    """A text-conditioned LM on the CPU, weights from `seed`, its dynamic
+    hyper-connection weights (and the Coarse LM's cross_attn_bias) made to
+    count, as acoustic_model does."""
+    model = cls(**cfg, **cond, seed=seed, device="cpu").eval()
+    rng = np.random.default_rng(seed + 41)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(("dyn_alpha_w", "dyn_beta_w", "cross_attn_bias")):
+                p.copy_(torch.from_numpy(0.1 * rng.standard_normal(p.shape, dtype=np.float32)))
+    return model
+
+
+FORM_KW = {"cross": dict(has_condition=True),
+           "prefix": dict(has_condition=True, cond_as_self_attn_prefix=True)}
+
+
+def text_embeddings(texts):
+    """T5 at t5-v1_1-base's width on the card, weights seeded from its name
+    (as t5_encode_text builds it), the hash tokenizer: the embeddings and the
+    ms of one encode."""
+    te = t5_encode_text(texts, T5_BASE, device=DEV)  # builds the encoder once
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    te = t5_encode_text(texts, T5_BASE, device=DEV)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if not torch.isfinite(te).all() or te.shape[-1] != 768:
+        raise AssertionError(f"T5 embeddings {tuple(te.shape)}, finite {torch.isfinite(te).all()}")
+    return te, ms
+
+
+def greedy_recompute_check(label, model, ids, text_embeds, cond_scale, start, eos_id):
+    """Each generated id (from position `start` up to a row's first EOS) is
+    the argmax of one uncached forward pass over [start] + the ids before it,
+    with guidance at cond_scale (temperature -> 0)."""
+    with torch.no_grad():
+        logits = model.forward_with_cond_scale(ids.clamp(min=0), text_embeds=text_embeds,
+                                               cond_scale=cond_scale)
+    for row in range(ids.shape[0]):
+        n = int((ids[row] >= 0).sum())
+        want = logits[row, start:n].argmax(-1)
+        if not torch.equal(ids[row, start:n], want):
+            raise AssertionError(f"{label}: row {row} is not the greedy recompute")
+        if n < ids.shape[1] and int(logits[row, n].argmax()) != eos_id:
+            raise AssertionError(f"{label}: row {row} ends without EOS")
+
+
+@phase("conditioned")
+def conditioned_phase(seed):
+    """The flagship Semantic LM conditioned on T5 base's embeddings of
+    PROMPTS, by cross attention and by prefix: scoring of 4 x 2048 ids, one
+    float32 train step with cond_drop_prob 0.5 (the card's gradients against
+    the CPU port's at 1 x 256, a zeroed dq rejected); with cross attention,
+    guided generation (cond_scale 3), batch 2 (4 rows stacked), prompt 128,
+    64 new ids, token-identical to the CPU port's; with the prefix,
+    generation by recompute, prompt 128, 32 new ids, equal to a greedy
+    recompute. Launch counts per path."""
+    rng = np.random.default_rng(seed + 42)
+    vocab, depth = FLAGSHIP["num_semantic_tokens"], FLAGSHIP["depth"]
+    te, t5_ms = text_embeddings(PROMPTS)
+    lengths = (te != 0).any(-1).sum(-1).tolist()
+    if lengths != TEXT_LENGTHS:
+        raise AssertionError(f"T5 text lengths {lengths} != {TEXT_LENGTHS}")
+    cpu_te = t5_encode_text(PROMPTS[:1], T5_BASE, device="cpu")  # the batch's padding masked
+    t5_err = (te[:1, :cpu_te.shape[1]].cpu() - cpu_te).abs().max().item()
+    if t5_err > LOGITS_TOL:
+        raise AssertionError(f"T5 card vs CPU: {t5_err}")
+    print(f"T5 ({T5_BASE} width, seeded, hash tokenizer) 4 prompts -> {tuple(te.shape)} in "
+          f"{t5_ms:.2f} ms | card vs CPU {t5_err:.3e}")
+    ids = torch.from_numpy(rng.integers(0, vocab, TRAIN_IDS)).to(DEV)
+    steps = rng.integers(1, vocab, (2, 128))
+    prompt = torch.from_numpy(np.cumsum(steps, axis=1) % vocab).to(DEV)
+    paths, timings = {}, {"t5_ms": t5_ms}
+    for form, cond in FORM_KW.items():
+        cpu_model = cond_model(SemanticTransformer, FLAGSHIP, seed, **cond)
+        model = copy.deepcopy(cpu_model).to(DEV)
+        wrapper = SemanticTransformerWrapper(transformer=model)
+        per_layer = 2 if form == "cross" else 1  # self and cross attention
+        zero_counts()
+        with torch.no_grad():
+            loss = wrapper(ids, text_embeds=te, return_loss=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                wrapper(ids, text_embeds=te, return_loss=True)
+            torch.cuda.synchronize()
+        score_ms = (time.perf_counter() - t0) / 3 * 1e3
+        launched = counts()
+        if launched["launches"] != 4 * depth * per_layer or not torch.isfinite(loss):
+            raise AssertionError(f"conditioned scoring [{form}]: loss {loss.item()}, {launched}")
+        paths[f"conditioned_scoring_{form}"] = launched
+        with torch.no_grad():
+            card = model(ids[:1, :256], text_embeds=te[:1], cond_drop_prob=0.0).cpu()
+            cpu = cpu_model(ids[:1, :256].cpu(), text_embeds=te[:1].cpu(), cond_drop_prob=0.0)
+        err = (card - cpu).abs().max().item()
+        if not torch.allclose(card, cpu, rtol=LOGITS_TOL, atol=LOGITS_TOL):
+            raise AssertionError(f"conditioned [{form}] card vs CPU logits: {err}")
+        print(f"conditioned scoring [{form}] 4x2048 ids, text 4x{te.shape[1]}: loss "
+              f"{loss.item():.4f} | {score_ms:.2f} ms per call | card vs CPU logits 1x256 "
+              f"{err:.3e} | launches {launched}")
+
+        train_model = copy.deepcopy(cpu_model).train()
+        trainer = TransformerTrainStep(SemanticTransformerWrapper(transformer=train_model),
+                                       device=DEV)
+        first = trainer.step(ids, text_embeds=te)  # warm; cond_drop_prob 0.5, the model's
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        losses = [trainer.step(ids, text_embeds=te) for _ in range(3)]
+        step_ms = (time.perf_counter() - t0) / 3 * 1e3
+        launched = counts()
+        want = {"launches": per_layer, "launches_dq": per_layer, "launches_dkv": per_layer,
+                "launches_dtab": 1 if form == "cross" else 0,
+                "launches_dbias": 1 if form == "prefix" else 0}
+        for name, n in launched.items():
+            if n != 3 * depth * want.get(name, 0):
+                raise AssertionError(f"conditioned training [{form}]: {name} {n}")
+        if not all(np.isfinite([first, *losses])):
+            raise AssertionError(f"conditioned training [{form}]: losses {[first, *losses]}")
+        paths[f"conditioned_training_{form}"] = launched
+        print(f"conditioned training [{form}] 4x2048, cond_drop_prob 0.5: losses {first:.4f} "
+              + " ".join(f"{x:.4f}" for x in losses) + f" | {step_ms:.2f} ms per step | "
+              f"launches {launched}")
+        check_card_grads(f"conditioned training [{form}] 1x256", SemanticTransformerWrapper,
+                         train_model, (ids[:1, :256],), seed, ("bwd_dq", 0, "dq"), depth,
+                         named={"text_embeds": te[:1]})
+        del trainer, train_model
+
+        kw = dict(prime_ids=prompt, text_embeds=te[:2], cond_scale=3.0, temperature=1e-10)
+        new = 64 if form == "cross" else 32
+        gen = dict(kw, max_length=128 + new)
+        zero_counts()
+        got = wrapper.generate(**gen, generator=torch.Generator(device=DEV).manual_seed(seed))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wrapper.generate(**gen, generator=torch.Generator(device=DEV).manual_seed(seed))
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        launched = counts()
+        if launched["launches"] == 0 or not torch.equal(got[:, :128], prompt):
+            raise AssertionError(f"conditioned generation [{form}]: {launched}")
+        paths[f"conditioned_generation_{form}"] = launched
+        n_new = int((got[:, 128:] >= 0).sum())
+        if form == "cross":
+            cpu_ids = SemanticTransformerWrapper(transformer=cpu_model).generate(
+                **dict(gen, prime_ids=prompt.cpu(), text_embeds=te[:2].cpu()),
+                generator=torch.Generator().manual_seed(seed))
+            if not torch.equal(got.cpu(), cpu_ids):
+                raise AssertionError("conditioned generation [cross]: the card's ids differ "
+                                     "from the CPU port's")
+            check = "ids identical to the CPU port's"
+        else:
+            greedy_recompute_check("prefix generation", model, got, te[:2], 3.0, 128,
+                                   model.eos_id)
+            check = "ids the greedy recompute's"
+        rate = n_new / gen_s
+        timings[f"generation_{form}"] = dict(ids_per_s=rate, ids=n_new, s=gen_s)
+        timings[f"scoring_{form}_ms"], timings[f"training_{form}_ms"] = score_ms, step_ms
+        print(f"conditioned generation [{form}] b2 (4 rows with guidance), prompt 128 + {new}: "
+              f"{n_new} ids in {gen_s * 1e3:.1f} ms, {rate:.1f} ids/s | {check} | launches "
+              f"{launched}")
+        del model, cpu_model, wrapper
+        torch.cuda.empty_cache()
+    return paths, timings
+
+
+@phase("conditioned acoustic")
+def conditioned_acoustic_phase(seed):
+    """The Coarse and Fine LMs at bench.py's width conditioned by cross
+    attention on T5 base's embedding of one prompt: guided generation
+    (cond_scale 3, greedy), 50 semantic ids -> 150 coarse codes -> 250 fine
+    codes, each stage's codes identical to the CPU port's."""
+    rng = np.random.default_rng(seed + 43)
+    te, _ = text_embeddings(PROMPTS[:1])
+    vocab = COARSE["num_semantic_tokens"]
+    sem = torch.from_numpy(np.cumsum(rng.integers(1, vocab, (1, HZ)), axis=1) % vocab).to(DEV)
+    paths, timings = {}, {}
+    grid = None
+    for kind in ("coarse", "fine"):
+        cls, cfg, wcls = LMS[kind]
+        cpu_model = cond_model(cls, cfg, seed, has_condition=True)
+        card, cpu = (wcls(transformer=m) for m in (copy.deepcopy(cpu_model).to(DEV), cpu_model))
+        kw = dict(text_embeds=te, cond_scale=3.0, temperature=1e-10)
+        if kind == "coarse":
+            kw.update(semantic_token_ids=sem, max_time_steps=HZ)
+        else:
+            kw.update(coarse_token_ids=grid)
+        card.generate(**kw)  # warm
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        out = card.generate(**kw)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        launched = counts()
+        want = cpu.generate(**{k: a.cpu() if isinstance(a, torch.Tensor) else a
+                               for k, a in kw.items()})
+        if not torch.equal(out.cpu(), want):
+            raise AssertionError(f"conditioned {kind} generation: the card's codes differ from "
+                                 f"the CPU port's")
+        n = int((out >= 0).sum())
+        paths[f"conditioned_{kind}_generation"] = launched
+        timings[kind] = dict(codes_per_s=n / gen_s, codes=n, s=gen_s)
+        print(f"conditioned {kind} generation b1 (2 rows with guidance): {n} codes in "
+              f"{gen_s * 1e3:.1f} ms, {n / gen_s:.1f} codes/s | identical to the CPU port's | "
+              f"launches {launched}")
+        grid = out
+    return paths, timings
+
+
+def chain_tokens(lm, device, seed, *, text_embeds=None, prime_wave=None, hz=None,
+                 max_length=HZ, steps=HZ):
+    """The semantic ids, coarse and fine codes of AudioLM's three stages in
+    turn on `device` (as AudioLM routes text and the prompt), greedy."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    kw = dict(temperature=1e-10, generator=gen, prime_wave=prime_wave,
+              prime_wave_input_sample_hz=hz)
+
+    def text(w):
+        return text_embeds if w.transformer.has_condition else None
+
+    sem = lm.semantic.generate(text_embeds=text(lm.semantic), max_length=max_length, **kw)
+    co = lm.coarse.generate(text_embeds=text(lm.coarse), semantic_token_ids=sem,
+                            max_time_steps=steps, **kw)
+    fi = lm.fine.generate(text_embeds=text(lm.fine), coarse_token_ids=co, **kw)
+    return [a.cpu() for a in (sem, co, fi)]
+
+
+def compare_chains(label, got, want):
+    for name, a, b in zip(("semantic ids", "coarse codes", "fine codes"), got, want):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label}: the card's {name} differ from the CPU port's")
+
+
+def timed_audiolm(lm, seed, **kw):
+    """One warm AudioLM call, then one with the counts zeroed before and read
+    after: (waveform, wall s, launches)."""
+    lm(**kw, temperature=1e-10, generator=torch.Generator(device=DEV).manual_seed(seed))
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    wave = lm(**kw, temperature=1e-10, generator=torch.Generator(device=DEV).manual_seed(seed))
+    torch.cuda.synchronize()
+    return wave, time.perf_counter() - t0, counts()
+
+
+@phase("audiolm text")
+def audiolm_text_phase(seed):
+    """AudioLM at _build_gen's widths with all three stages conditioned by
+    cross attention, text=['dog barking'], 1 s greedy (guidance at 3 in
+    each stage): s per second of audio, the three stages' tokens identical
+    to the CPU port's on the same T5 embedding."""
+    rng = np.random.default_rng(seed + 44)
+    codec = calibrated_codec(seed, rng, rq_num_quantizers=8)
+    models = dict(semantic_transformer=cond_model(SemanticTransformer, FLAGSHIP, seed,
+                                                  has_condition=True),
+                  coarse_transformer=cond_model(CoarseTransformer, COARSE, seed,
+                                                has_condition=True),
+                  fine_transformer=cond_model(FineTransformer, FINE, seed, has_condition=True))
+    cpu = AudioLM(codec=copy.deepcopy(codec).cpu(), **models)
+    card = AudioLM(codec=codec, **{k: copy.deepcopy(m).to(DEV) for k, m in models.items()})
+    text = ["dog barking"]
+    wave, wall_s, launched = timed_audiolm(card, seed, text=text, max_length=HZ,
+                                           max_coarse_time_steps=HZ)
+    if isinstance(wave, list) or wave.shape != (1, SR) or not torch.isfinite(wave).all():
+        raise AssertionError(f"audiolm text: waveform {getattr(wave, 'shape', wave)}")
+    te = card.semantic.transformer.embed_text(text)
+    got = chain_tokens(card, DEV, seed, text_embeds=te)
+    want = chain_tokens(cpu, "cpu", seed, text_embeds=te.cpu())
+    compare_chains("audiolm text", got, want)
+    with torch.no_grad():
+        if not torch.equal(decode_acoustic_tokens(codec, torch.cat(
+                [got[1], got[2]], -1).to(DEV)), wave):
+            raise AssertionError("audiolm text: the waveform is not the decode of its tokens")
+    print(f"audiolm text {text}: 1 s of audio in {wall_s:.2f} s ({wall_s:.2f} s per second of "
+          f"audio) | tokens identical to the CPU port's | launches {launched}")
+    return launched, dict(s_per_audio_s=wall_s)
+
+
+@phase("audiolm continuation")
+def continuation_phase(seed):
+    """The banked chain (persist/*_r5.npz, persist/soundstream_r5.npz, the
+    stage recipe's HuBERT persist/hubert_r5_stage.npz) continuing
+    results_quality/heldout_ref.wav (16 kHz, 1 s), greedy, through
+    prime_wave_path: up to 150 semantic ids in all (the chain's 3-s clips)
+    and 50 coarse steps after the prompt's, which the coarse LM may end
+    early with EOS; then the same prompt resampled to 24 kHz through
+    prime_wave, prime_wave_input_sample_hz=24000. The tokens of both
+    identical to the CPU port's, and coarse codes past the prompt."""
+    from audiolm_pytorch_tpu_torch import (load_coarse_transformer, load_fine_transformer,
+                                           load_semantic_transformer, load_soundstream, resample)
+    from audiolm_pytorch_tpu_torch.models.hubert import load_hubert_with_kmeans
+    from audiolm_pytorch_tpu_torch.utils.audio_io import load_audio
+    models = dict(wav2vec=load_hubert_with_kmeans(HUBERT_STAGE, device="cpu"),
+                  codec=load_soundstream(PERSIST / "soundstream_r5.npz", device="cpu",
+                                         discriminators=False),
+                  semantic_transformer=load_semantic_transformer(PERSIST / "semantic_r5.npz",
+                                                                 device="cpu"),
+                  coarse_transformer=load_coarse_transformer(PERSIST / "coarse_r5.npz",
+                                                             device="cpu"),
+                  fine_transformer=load_fine_transformer(PERSIST / "fine_r5.npz", device="cpu"))
+    cpu = AudioLM(**models)
+    card = AudioLM(**{k: copy.deepcopy(m).to(DEV) for k, m in models.items()})
+    kw = dict(max_length=3 * HZ, max_coarse_time_steps=HZ)
+    wave, wall_s, launched = timed_audiolm(card, seed, prime_wave_path=HELDOUT, **kw)
+    wav, sr = load_audio(HELDOUT)
+    prompt = torch.from_numpy(wav.mean(axis=0))[None]
+    prompt_ids = card.semantic.wav2vec(prompt.to(DEV), flatten=False)
+    got = chain_tokens(card, DEV, seed, prime_wave=prompt.to(DEV), hz=sr, max_length=3 * HZ)
+    want = chain_tokens(cpu, "cpu", seed, prime_wave=prompt, hz=sr, max_length=3 * HZ)
+    compare_chains("continuation", got, want)
+    prompt_frames = prompt.shape[1] // card.coarse.codec.downsample_factor
+    frames = int((got[1] >= 0).all(-1).sum())
+    samples = sum(w.shape[-1] for w in wave if w is not None) if isinstance(wave, list) \
+        else wave.shape[-1]
+    n_sem = int((got[0] >= 0).sum())
+    if frames <= prompt_frames or n_sem <= prompt_ids.shape[1]:
+        raise AssertionError(f"continuation: {frames} coarse frames for a prompt of "
+                             f"{prompt_frames}, {n_sem} semantic ids")
+    print(f"audiolm continuation of {HELDOUT.name} ({sr} Hz, {prompt.shape[1] / sr:.2f} s; "
+          f"{prompt_ids.shape[1]} HuBERT frames, {prompt_frames} codec frames): {n_sem} "
+          f"semantic ids, {frames} coarse frames ({frames - prompt_frames} new before EOS), "
+          f"{got[2].shape[1]} x 5 fine codes, {samples} samples in {wall_s:.2f} s | tokens "
+          f"identical to the CPU port's | launches {launched}")
+    prompt24 = resample(prompt, sr, 24000)
+    wave24, wall24, launched24 = timed_audiolm(card, seed, prime_wave=prompt24.to(DEV),
+                                               prime_wave_input_sample_hz=24000, **kw)
+    got = chain_tokens(card, DEV, seed, prime_wave=prompt24.to(DEV), hz=24000,
+                       max_length=3 * HZ)
+    want = chain_tokens(cpu, "cpu", seed, prime_wave=prompt24, hz=24000, max_length=3 * HZ)
+    compare_chains("continuation at 24 kHz", got, want)
+    print(f"audiolm continuation, the prompt at 24 kHz ({prompt24.shape[1]} samples, "
+          f"resampled to 16 kHz by the wav2vec and the codec): {wall24:.2f} s | tokens "
+          f"identical to the CPU port's | launches {launched24}")
+    return ({"continuation": launched, "continuation_24k": launched24},
+            dict(wall_s=wall_s, wall_s_24k=wall24, coarse_frames=frames,
+                 prompt_frames=prompt_frames, samples=samples))
+
+
 # the outputs of each row's kernel in the tf32 phase's float64 check
 F64_OUTPUTS = {"fwd": ("out",), "dq": ("dq",), "dkv": ("dk", "dv"), "dbias": ("dbias",)}
 # the TPU kernel each port replaces, by line in the JAX package
@@ -2766,6 +3381,7 @@ def main():
     timings["sass"] = sass_phase()
     timings["tf32"] = accuracy_phase(args.seed)
     timings.update(codec_kernel_phase(args.seed))
+    timings["conditioned"] = conditioned_kernel_phase(args.seed)
     cpu_model = flagship(args.seed)
     model = copy.deepcopy(cpu_model).to(DEV)
     bf16_runs = {}
@@ -2799,6 +3415,13 @@ def main():
     stage_paths, timings["lm_trainers"] = lm_trainers_phase(args.seed)
     paths.update(stage_paths)
     paths["audiolm"], paths["banked_chain"], timings["banked_chain"] = audiolm_phase(args.seed)
+    cond_paths, timings["conditioned_paths"] = conditioned_phase(args.seed)
+    paths.update(cond_paths)
+    cond_paths, timings["conditioned_acoustic"] = conditioned_acoustic_phase(args.seed)
+    paths.update(cond_paths)
+    paths["audiolm_text"], timings["audiolm_text"] = audiolm_text_phase(args.seed)
+    cond_paths, timings["continuation"] = continuation_phase(args.seed)
+    paths.update(cond_paths)
     rows = []
     for key, name, source, replaces, counter in KERNELS:
         per_path = {f"launches_{p}": launched[counter] for p, launched in paths.items()}
@@ -2835,16 +3458,30 @@ def main():
                 numbers["training_shape_bf16"] = timings["local_training_bf16"]
         if key in ("fwd", "dq", "dkv", "dbias"):
             outputs = F64_OUTPUTS[key]
+            f64 = dict(timings["tf32"], **timings["conditioned"]["f64"])
             numbers["f64_rel_err"] = {label: {kind: {x: e for x, e in errs.items() if x in outputs}
-                                              for kind, errs in timings["tf32"][label].items()}
-                                      for label in ("table", "bias")}
+                                              for kind, errs in f64[label].items()}
+                                      for label in ("table", "bias", "prefix", "cross")
+                                      if any(x in outputs for x in f64[label]["3xtf32"])}
+            # text conditioning's forms: causal over P + N keys with the (H, N, M)
+            # bias (the prefix), and cross attention over the null key and the text
+            cond = timings["conditioned"]
+            numbers["conditioned"] = {
+                form: cond[form][key] for form in (
+                    "offset_fp32", "offset_bf16", "offset_coarse_fp32", "offset_coarse_bf16",
+                    "cross_fp32", "cross_bf16", "decode_fp32", "decode_bf16")
+                if key in cond[form]}
         rows.append(dict(name=name, route="cuda", source=f"audiolm_pytorch_tpu_torch/csrc/{source}",
                          replaces=replaces,  # in the JAX package
                          launches=sum(per_path.values()), **per_path, **numbers))
     print(f"total: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"bf16_training": bf16_runs, "lm_trainers": timings["lm_trainers"],
                       "codec_training_bf16": timings["codec_training_bf16"],
-                      "banked_chain": timings["banked_chain"]}))
+                      "banked_chain": timings["banked_chain"],
+                      "conditioned": timings["conditioned_paths"],
+                      "conditioned_acoustic": timings["conditioned_acoustic"],
+                      "audiolm_text": timings["audiolm_text"],
+                      "continuation": timings["continuation"]}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -196,9 +196,12 @@ def test_audiolm_chain_matches_its_wrappers():
         assert torch.equal(wave, want)
         waves = [wave]
     assert all(torch.isfinite(w).all() for w in waves)
-    with pytest.raises(NotImplementedError):
+    # a prompt needs its rate, and this chain's wav2vec; text needs a conditioned stage
+    with pytest.raises(ValueError, match="sample_hz"):
         audiolm(prime_wave=torch.zeros(1, 64))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="wav2vec"):
+        audiolm(prime_wave=torch.zeros(1, 64), prime_wave_input_sample_hz=16000)
+    with pytest.raises(ValueError, match="text"):
         audiolm(text=["a sentence"])
 
 

@@ -14,8 +14,12 @@ Semantic, Coarse and Fine LMs on the card against the same weights on the
 CPU, in scoring and in train steps, and a small codec's round trip on the
 card against the CPU; K1-K5 in bf16 at the stage trainers' shapes (the
 table at N = 150, the (H, N, N) bias at N = 602 and 1201), K6 at their 600
-tokenisation rows, and a bf16 train step whose masters stay float32. They
-skip where there is no card.
+tokenisation rows, and a bf16 train step whose masters stay float32; K1-K3
+in text conditioning's forms (causal over M = P + N keys aligned to the
+bottom right, cross attention over 17 keys and its decode step) against
+the plain versions, within 1e-5 of float64 where plain TF32 fails, the
+same bits every run, and a conditioned LM's logits and gradients card vs
+CPU. They skip where there is no card.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine without them:
@@ -1047,3 +1051,158 @@ def test_bf16_train_step_keeps_float32_masters(cuda):
     assert all(p.dtype == torch.float32 for p in model.parameters())
     assert all(v.dtype == torch.float32 for st in step.optimizer.state.values()
                for key, v in st.items() if key != "step")
+
+
+# Text conditioning's forms of K1-K3: causal attention over M = P + N keys
+# (a prefix of P keys every query sees), aligned to the bottom right (key k
+# seen by query q iff k <= q + M - N) with an (H, N, M) bias or none, over
+# MQA groups, offsets that are and are not a multiple of the 64-key tile,
+# and the first key tile of a row wholly masked; and cross attention over a
+# null key and a text (N queries over 17 keys, not causal), at training's
+# N and at the decode step's N = 1.
+OFFSET_CASES = [(8, 1, 37, 70, True, "bias"), (8, 8, 37, 70, True, "none"),
+                (8, 2, 130, 146, True, "bias"), (8, 1, 130, 194, True, "bias"),
+                (8, 1, 200, 280, True, "first_tile"), (16, 1, 603, 643, True, "bias"),
+                (8, 1, 300, 17, False, "none"), (8, 8, 1, 17, False, "none")]
+
+
+def _offset_inputs(h, hk, n, m, form, *, b=2, seed=40):
+    rng = np.random.default_rng(seed)
+    q, k, v, g = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                  for s in [(b, h, n, 64), (b, hk, m, 64), (b, hk, m, 64), (b, h, n, 64)])
+    bias = None
+    if form in ("bias", "first_tile"):
+        bias = torch.from_numpy((0.5 * rng.normal(size=(h, n, m))).astype(np.float32))
+    mask = torch.ones(b, m, dtype=torch.bool)
+    mask[1, 3:(m - n) // 2 + 3] = False  # a shorter text in the prefix
+    mask[0, m - 5:] = False
+    if form == "first_tile":
+        mask[0, :70] = False  # query 0 still sees key m - n > 70
+    return q, k, v, g, bias, mask
+
+
+@pytest.mark.parametrize("dtype,tol,rtol,atol", [(torch.float32, 2e-3, 1e-2, 1e-3),
+                                                 (torch.bfloat16, 3e-2, 3e-2, 3e-2)])
+@pytest.mark.parametrize("h,hk,n,m,causal,form", OFFSET_CASES)
+def test_causal_offset_and_cross_kernels_match_plain_version(cuda, h, hk, n, m, causal, form,
+                                                             dtype, tol, rtol, atol):
+    q, k, v, g, bias, mask = _offset_inputs(h, hk, n, m, form)
+    q, k, v, g = (a.to(cuda, dtype) for a in (q, k, v, g))
+    bias, mask = (None if a is None else a.to(cuda) for a in (bias, mask))
+    kw = dict(bias=bias, key_mask=mask, causal=causal)
+    out, lse = fa.flash_attention(q, k, v, **kw, return_lse=True)
+    ref, ref_lse = fa.flash_attention_ref(q, k, v, **kw, return_lse=True)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, ref_lse, rtol=2e-3, atol=2e-3)
+    before = _counts() + (fa.launches_dbias,)
+    grads = fa.flash_attention_bwd(q, k, v, None, mask, out, lse, g, bias=bias, causal=causal,
+                                   scale=0.125)
+    torch.cuda.synchronize()
+    assert _counts() + (fa.launches_dbias,) == (before[0] + 1, before[1] + 1, before[2],
+                                                before[3] + (bias is not None))
+    ref = fa.flash_attention_bwd_ref(q, k, v, None, mask, out, lse, g, bias=bias, causal=causal,
+                                     scale=0.125)
+    for name, a, r in zip(("dq", "dk", "dv", "dbias"), grads, ref):
+        if r is None:
+            assert a is None
+            continue
+        if dtype == torch.float32:
+            torch.testing.assert_close(a.float(), r.float(), rtol=rtol, atol=atol, msg=name)
+        else:
+            # over 17 keys every p is large and dk, dv sum many queries' bf16
+            # terms: held by the largest error over the largest value
+            err = float((a.float() - r.float()).abs().max() / r.float().abs().max())
+            assert err <= tol, (name, err)
+
+
+def test_causal_offset_needs_m_at_least_n(cuda):
+    q = torch.zeros(1, 2, 70, 64, device=cuda)
+    kv = torch.zeros(1, 1, 37, 64, device=cuda)
+    with pytest.raises(ValueError, match="M >= N"):
+        fa.flash_attention(q, kv, kv, causal=True)
+
+
+OFFSET_F64_CASES = [(8, 1, 130, 194, True, "bias"), (8, 2, 300, 17, False, "none")]
+
+
+def _offset_f64_errors(case, cuda):
+    """max |kernel - float64| / max |float64| of K1's out, K2's dq (and
+    dbias) and K3's dk, dv (fed the float64 lse and Delta), in float32."""
+    h, hk, n, m, causal, form = case
+    q, k, v, g, bias, mask = _offset_inputs(h, hk, n, m, form, b=4, seed=41)
+    q, k, v, g = (a.to(cuda) for a in (q, k, v, g))
+    bias, mask = (None if a is None else a.to(cuda) for a in (bias, mask))
+    q64, k64, v64, g64 = (a.double() for a in (q, k, v, g))
+    bias64 = None if bias is None else bias.double()
+    out64, lse64 = fa.flash_attention_ref(q64, k64, v64, bias=bias64, key_mask=mask,
+                                          causal=causal, scale=0.125, return_lse=True)
+    dq64, dk64, dv64, dgrad64 = fa.flash_attention_bwd_ref(
+        q64, k64, v64, None, mask, out64, lse64, g64, causal=causal, scale=0.125, bias=bias64)
+    delta64 = (g64 * out64).sum(-1)
+    out = fa.flash_attention(q, k, v, bias=bias, key_mask=mask, causal=causal)
+    args = (q, k, v, g, lse64.float(), delta64.float(), None, mask.to(torch.int8))
+    dq, dgrad = fa.bwd_dq(*args, causal=causal, scale=0.125, bias=bias)
+    dk, dv = fa.bwd_dkv(*args, causal=causal, scale=0.125, bias=bias)
+    pairs = [("out", out, out64), ("dq", dq, dq64), ("dk", dk, dk64), ("dv", dv, dv64)]
+    if bias is not None:
+        pairs.append(("dbias", dgrad, dgrad64))
+    return {name: float((a.double() - r).abs().max() / r.abs().max()) for name, a, r in pairs}
+
+
+@pytest.mark.parametrize("case", OFFSET_F64_CASES)
+def test_fp32_offset_and_cross_kernels_hold_float64_to_1e5(cuda, case):
+    errs = _offset_f64_errors(case, cuda)
+    assert max(errs.values()) <= 1e-5, errs
+
+
+@pytest.mark.parametrize("case", OFFSET_F64_CASES)
+def test_plain_tf32_build_fails_the_offset_float64_check(cuda, case):
+    with fa.built_with(("MMA_TF32_ONE_PASS",)):
+        errs = _offset_f64_errors(case, cuda)
+    assert min(errs.values()) > 1e-5, errs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", OFFSET_F64_CASES)
+def test_offset_and_cross_backward_gives_the_same_bits_every_run(cuda, case, dtype):
+    h, hk, n, m, causal, form = case
+    q, k, v, g, bias, mask = _offset_inputs(h, hk, n, m, form, b=4, seed=42)
+    q, k, v, g = (a.to(cuda, dtype) for a in (q, k, v, g))
+    bias, mask = (None if a is None else a.to(cuda) for a in (bias, mask))
+    out, lse = fa.flash_attention(q, k, v, bias=bias, key_mask=mask, causal=causal,
+                                  return_lse=True)
+    args = (q, k, v, g, lse, (g.float() * out.float()).sum(-1), None, mask.to(torch.int8))
+    for fn in (fa.bwd_dq, fa.bwd_dkv):
+        first = fn(*args, causal=causal, scale=0.125, bias=bias)
+        for _ in range(2):
+            again = fn(*args, causal=causal, scale=0.125, bias=bias)
+            assert all(a is None or torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("form", ["cross", "prefix"])
+def test_conditioned_semantic_lm_card_matches_cpu(cuda, form):
+    """Logits and a train step's gradients of a conditioned LM, card vs CPU."""
+    cfg = dict(dim=128, depth=2, heads=2, dim_head=64, num_semantic_tokens=40,
+               num_residual_streams=4, cond_dim=96, has_condition=True,
+               cond_as_self_attn_prefix=form == "prefix")
+    cpu = SemanticTransformer(**cfg, seed=3, device="cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    rng = np.random.default_rng(43)
+    ids = torch.from_numpy(rng.integers(0, 40, (2, 150)))
+    te = torch.from_numpy(rng.normal(size=(2, 9, 96)).astype(np.float32))
+    te[1, 5:] = 0
+    with torch.no_grad():
+        got = card(ids.to(cuda), text_embeds=te.to(cuda), cond_drop_prob=0.0)
+        want = cpu(ids, text_embeds=te, cond_drop_prob=0.0)
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-3, atol=2e-3)
+    grads = {}
+    for model, dev in ((card, cuda), (cpu, "cpu")):
+        loss = SemanticTransformerWrapper(transformer=model)(
+            ids.to(dev), text_embeds=te.to(dev), return_loss=True, train=True,
+            generator=torch.Generator().manual_seed(5))
+        loss.backward()
+        grads[dev == "cpu"] = {n: p.grad.cpu() for n, p in model.named_parameters()
+                               if p.grad is not None}
+    assert set(grads[True]) == set(grads[False])
+    for name, g in grads[True].items():
+        torch.testing.assert_close(grads[False][name], g, rtol=1e-2, atol=1e-3, msg=name)

@@ -234,8 +234,18 @@ def test_text_fields_raise_and_generate_runs(tmp_path):
     ptr = SemanticTransformerTrainer(model, dataset=_Waves(), batch_size=2, num_train_steps=1,
                                      results_folder=tmp_path, device="cpu")
     try:
-        with pytest.raises(NotImplementedError, match="text"):
-            ptr._batch_to_kwargs((np.zeros((2, CLIP), np.float32), ["a", "b"]))
+        # a field of strings becomes the T5 embeddings of the whole list
+        cond = SemanticTransformerTrainer(
+            SemanticTransformer(**LM, num_semantic_tokens=20, has_condition=True,
+                                t5_name="google/t5-v1_1-small", device="cpu"),
+            dataset=_Waves(), batch_size=2, num_train_steps=1, results_folder=tmp_path,
+            device="cpu")
+        try:
+            kwargs = cond._batch_to_kwargs((np.zeros((2, CLIP), np.float32), ["a", "b c"]))
+        finally:
+            cond.close()
+        assert set(kwargs) == {"raw_wave", "text_embeds"}
+        assert kwargs["text_embeds"].shape == (2, 3, 512)
         ids = ptr.generate(max_length=8, batch_size=2)
         assert ids.shape == (2, 8)
     finally:

@@ -84,8 +84,14 @@ def test_loaded_model_holds_the_checkpoint():
 
 
 def test_cross_attention_slots_are_refused():
-    with pytest.raises(KeyError, match="cross attention"):
-        state_dict_from_jax({".transformer.layers[0][3].to_q.weight": np.zeros((2, 2))})
+    """The cross-attention slots map to the port's names (the port has them
+    since it conditions on text); a slot a JAX layer tuple does not have is
+    refused."""
+    mapped = state_dict_from_jax({".transformer.layers[0][3].null_kv": np.zeros((2, 1, 4)),
+                                  ".transformer.layers[1][2].beta": np.zeros(4)})
+    assert set(mapped) == {"transformer.layers.0.cross.null_kv", "transformer.layers.1.hc_cross.beta"}
+    with pytest.raises(KeyError, match="slot 6"):
+        state_dict_from_jax({".transformer.layers[0][6].to_q.weight": np.zeros((2, 2))})
 
 
 def _small_jax(kind, **kw):
@@ -124,12 +130,11 @@ def test_checkpoint_without_value_residual_loads_and_matches_jax(kind, tmp_path)
         np.testing.assert_allclose(a, r, rtol=2e-3, atol=2e-3)
 
 
-# config keys the port does not honour: dropout it refuses, conditioning it
-# does not have, and a key it does not know
+# config keys the port does not honour: dropout it refuses, a context width
+# other than the model's, and a key it does not know (a checkpoint of a
+# conditioned LM loads: tests/test_torch_conditioning.py)
 @pytest.mark.parametrize("key,value", [("attn_dropout", 0.1), ("ff_dropout", 0.1),
-                                       ("has_condition", True),
-                                       ("cond_as_self_attn_prefix", True),
-                                       ("dim_context", 32)])
+                                       ("dim_context", 32), ("something_new", 1)])
 @pytest.mark.parametrize("kind", ["semantic", "coarse", "fine"])
 def test_unhonoured_config_key_raises(kind, key, value, tmp_path):
     jm = _small_jax(kind)
