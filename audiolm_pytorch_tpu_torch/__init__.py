@@ -22,12 +22,14 @@ from .ops.kernels.flash_attention import (flash_attention, flash_attention_bwd_r
 from .ops.kernels.local_attention import local_attention, local_attention_ref
 from .ops.kernels.vq import vq_nearest_code, vq_nearest_code_ref
 from .ops.resample import resample
+from .serving import (StreamingCodecDecoder, StreamingCodecEncoder, decode_lookback_frames,
+                      encode_lookback)
 from .training.optimizer import get_optimizer, separate_weight_decayable_params
 from .training.ema import EMA
 from .training.trainer import (CoarseTransformerTrainer, FineTransformerTrainer,
                                SemanticTransformerTrainer, SoundStreamTrainer,
                                TransformerTrainStep)
-from .utils.metrics import si_snr
+from .utils.metrics import mel_distance, si_snr, stoi
 from .weights import (codec_state_dict_from_jax, codec_state_dict_to_jax,
                       hubert_state_dict_from_jax, lm_state_dict_to_jax, read_npz,
                       state_dict_from_jax, t5_state_dict_from_jax)
@@ -45,4 +47,6 @@ __all__ = ["SemanticTransformer", "SemanticTransformerWrapper", "CoarseTransform
            "SoundDataset", "get_dataloader", "HubertWithKmeans", "SemanticTransformerTrainer",
            "CoarseTransformerTrainer", "FineTransformerTrainer", "hubert_state_dict_from_jax",
            "lm_state_dict_to_jax", "T5Encoder", "t5_encode_text", "get_encoded_dim",
-           "resample", "t5_state_dict_from_jax"]
+           "resample", "t5_state_dict_from_jax", "StreamingCodecEncoder",
+           "StreamingCodecDecoder", "decode_lookback_frames", "encode_lookback", "mel_distance",
+           "stoi"]

@@ -9,8 +9,8 @@ same folder and seeds it gives the same batches as the JAX package's.
 
 The loader is the JAX package's: worker threads, batches released in
 ticket order, a seeded shuffle. Batches are numpy arrays; the trainer moves
-each to the card once. WAV files decode in-process; a FLAC file is globbed
-as in JAX but raises when it is read (`utils/audio_io.py`).
+each to the card once. WAV files decode in-process, FLAC and the FFmpeg
+formats through the native decoders (`utils/audio_io.py`).
 """
 from __future__ import annotations
 
@@ -46,12 +46,16 @@ def _curtail_to_multiple(x: np.ndarray, mult: Optional[int]) -> np.ndarray:
 
 
 class SoundDataset:
-    """Audio files under `folder` (`exts`, default FLAC and WAV, sorted by
-    path), each a float32 array at `target_sample_hz` (or a tuple, one per
-    rate). `seed` seeds the crops."""
+    """Audio files under `folder` (`exts`; by default FLAC and WAV, and MP3
+    and WebM where the FFmpeg decoder built, as in JAX; sorted by path),
+    each a float32 array at `target_sample_hz` (or a tuple, one per rate).
+    `seed` seeds the crops."""
 
     def __init__(self, folder, *, target_sample_hz, max_length: Optional[int] = None,
-                 seq_len_multiple_of=None, exts=("flac", "wav"), seed: int = 0):
+                 seq_len_multiple_of=None, exts=None, seed: int = 0):
+        if exts is None:
+            from . import native_loader
+            exts = ("flac", "wav") + (("mp3", "webm") if native_loader.ff_available() else ())
         folder = Path(folder)
         if not folder.exists():
             raise FileNotFoundError(f"folder {folder} does not exist")

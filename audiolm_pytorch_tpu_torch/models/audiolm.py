@@ -53,14 +53,16 @@ class AudioLM(nn.Module):
                 prime_wave_input_sample_hz=None, prime_wave_path=None, max_length: int = 2048,
                 max_coarse_time_steps: int = 512, return_coarse_generated_wave: bool = False,
                 mask_out_generated_fine_tokens: bool = False, temperature: float = 1.0,
-                generator: "torch.Generator | None" = None):
+                generator: "torch.Generator | None" = None, has_padding: "bool | None" = None):
         """The waveform (B, T) generated from nothing or from the prompt, or a
         list of one per row (None for an empty row) when EOS cut rows short;
         with return_coarse_generated_wave, the decode of the coarse codes
         alone. One generator draws the three stages' samples in turn, at
         `temperature` (the JAX package samples at its default, 1; towards 0
         the stages are greedy); each conditioned stage guides at the
-        wrappers' default cond_scale, 3."""
+        wrappers' default cond_scale, 3. `has_padding` goes to the decodes
+        (`decode_acoustic_tokens`): None looks for pad on the host, False
+        decodes the batch at once, True row by row."""
         if self.needs_text and text is None and text_embeds is None:
             raise ValueError("text must be given when a transformer is text-conditioned")
         if not self.needs_text and (text is not None or text_embeds is not None):
@@ -94,10 +96,12 @@ class AudioLM(nn.Module):
         coarse = self.coarse.generate(text_embeds=cond(self.coarse), semantic_token_ids=semantic,
                                       max_time_steps=max_coarse_time_steps,
                                       reconstruct_wave=return_coarse_generated_wave,
-                                      temperature=temperature, generator=generator, **prompt)
+                                      temperature=temperature, generator=generator,
+                                      has_padding=has_padding, **prompt)
         if return_coarse_generated_wave:
             return coarse
         return self.fine.generate(text_embeds=cond(self.fine), coarse_token_ids=coarse,
                                   reconstruct_wave=True,
                                   mask_out_generated_fine_tokens=mask_out_generated_fine_tokens,
-                                  temperature=temperature, generator=generator, **prompt)
+                                  temperature=temperature, generator=generator,
+                                  has_padding=has_padding, **prompt)

@@ -358,7 +358,8 @@ class CoarseTransformerWrapper(nn.Module):
                  prime_wave_input_sample_hz=None, text=None, text_embeds=None,
                  cond_scale: float = 3.0, max_time_steps: int = 512, filter_thres: float = 0.9,
                  temperature: float = 1.0, reconstruct_wave: bool = False,
-                 generator: "torch.Generator | None" = None, return_logits: bool = False):
+                 generator: "torch.Generator | None" = None, return_logits: bool = False,
+                 has_padding: "bool | None" = None):
         """Sample max_time_steps x Q coarse codes after the prompt
         `prime_coarse_token_ids` (B, Pc), or the codec's first Q codes of
         `prime_wave`, for semantic ids (B, S) (-1 pads embed to 0). One
@@ -368,9 +369,9 @@ class CoarseTransformerWrapper(nn.Module):
         conditioned LM takes text or text_embeds, with guidance at
         cond_scale. Returns the (B, T, Q) grid of the prompt and the
         samples, T = Pc / Q + max_time_steps, or with reconstruct_wave the
-        codec's decode of it (`decode_acoustic_tokens`); with return_logits
-        also the (B, T * Q, cb + 1) logits each code was sampled from (zeros
-        for the prompt and past the last step)."""
+        codec's decode of it (`decode_acoustic_tokens`, with `has_padding`);
+        with return_logits also the (B, T * Q, cb + 1) logits each code was
+        sampled from (zeros for the prompt and past the last step)."""
         tr = self.transformer
         device = tr.coarse_start_token.device
         if generator is None:
@@ -417,7 +418,7 @@ class CoarseTransformerWrapper(nn.Module):
         buf = mask_out_after_eos_id(buf, self.coarse_eos_id, mask_value=-1, keep_eos=False)
         out = buf.reshape(b, -1, num_q)
         if reconstruct_wave:
-            out = decode_acoustic_tokens(self.codec, out, pad_id=-1)
+            out = decode_acoustic_tokens(self.codec, out, pad_id=-1, has_padding=has_padding)
         return (out, logits_buf) if return_logits else out
 
 
@@ -492,7 +493,8 @@ class FineTransformerWrapper(nn.Module):
                  prime_fine_token_ids=None, text=None, text_embeds=None,
                  cond_scale: float = 3.0, filter_thres: float = 0.9, temperature: float = 1.0,
                  reconstruct_wave: bool = False, mask_out_generated_fine_tokens: bool = False,
-                 generator: "torch.Generator | None" = None, return_logits: bool = False):
+                 generator: "torch.Generator | None" = None, return_logits: bool = False,
+                 has_padding: "bool | None" = None):
         """Sample the fine codes of coarse codes (B, T, Qc) or (B, T * Qc),
         after the prompt `prime_fine_token_ids` (B, Pf), or the codec's fine
         codes of `prime_wave`. One prefill of [start, coarse, start, prompt]
@@ -502,10 +504,10 @@ class FineTransformerWrapper(nn.Module):
         conditioned LM takes text or text_embeds, with guidance at
         cond_scale. Returns the (B, T, Qf) grid, or with reconstruct_wave the
         codec's decode of the coarse and fine grids together
-        (`decode_acoustic_tokens`); with mask_out_generated_fine_tokens, the
-        time steps whose coarse codes are all pad become pad; with
-        return_logits also the (B, T * Qf, cb) logits each code was sampled
-        from (zeros for the prompt)."""
+        (`decode_acoustic_tokens`, with `has_padding`); with
+        mask_out_generated_fine_tokens, the time steps whose coarse codes are
+        all pad become pad; with return_logits also the (B, T * Qf, cb)
+        logits each code was sampled from (zeros for the prompt)."""
         tr = self.transformer
         device = tr.coarse_start_token.device
         if generator is None:
@@ -554,21 +556,26 @@ class FineTransformerWrapper(nn.Module):
             grid = grid.masked_fill(all_pad, self.pad_id)
         if reconstruct_wave:
             grid = decode_acoustic_tokens(self.codec, torch.cat([coarse_grid, grid], -1),
-                                          pad_id=self.pad_id)
+                                          pad_id=self.pad_id, has_padding=has_padding)
         return (grid, logits_buf) if return_logits else grid
 
 
-def decode_acoustic_tokens(codec, token_grid, pad_id: int = -1, length_bucket: int = 64):
+def decode_acoustic_tokens(codec, token_grid, pad_id: int = -1, length_bucket: int = 64,
+                           has_padding: "bool | None" = None):
     """The waveform of codes (B, N, Q), Q at most the codec's quantizers: one
     batched decode when no code is pad, else one decode per row of its
     frames without pad (None for a row with none), padded up to a multiple
     of `length_bucket` frames by repeating the last frame and trimmed back
     to its true length, as the JAX package does. Decoding fewer frames than
     the causal convolutions' pad takes the reflect pad past the input's
-    length (`ops/conv.py::reflect_pad_left`)."""
+    length (`ops/conv.py::reflect_pad_left`). `has_padding`, as in JAX:
+    None looks for pad on the host (a device sync), False trusts the caller
+    and takes the batched decode with no sync, True takes the per-row
+    path."""
     if codec is None:
         raise ValueError("reconstruct_wave needs the wrapper's codec")
-    if not bool((token_grid == pad_id).any()):
+    has_pad = bool((token_grid == pad_id).any()) if has_padding is None else bool(has_padding)
+    if not has_pad:
         return codec.decode_from_codebook_indices(token_grid)
     wavs = []
     ds = codec.downsample_factor

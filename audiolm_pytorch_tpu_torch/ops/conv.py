@@ -86,7 +86,7 @@ class CausalConv1d(nn.Module):
         lim = 1.0 / math.sqrt(chan_in * kernel_size)
         self.weight = nn.Parameter(init_uniform((chan_out, chan_in, kernel_size), lim, generator))
         self.bias = nn.Parameter(torch.zeros(chan_out))
-        self.stride, self.dilation = stride, dilation
+        self.kernel_size, self.stride, self.dilation = kernel_size, stride, dilation
 
     def forward(self, x):
         return causal_conv1d(x, self.weight, self.bias, stride=self.stride,
@@ -100,7 +100,7 @@ class CausalConvTranspose1d(nn.Module):
         lim = 1.0 / math.sqrt(chan_in * kernel_size)
         self.weight = nn.Parameter(init_uniform((chan_in, chan_out, kernel_size), lim, generator))
         self.bias = nn.Parameter(torch.zeros(chan_out))
-        self.stride = stride
+        self.kernel_size, self.stride = kernel_size, stride
 
     def forward(self, x):
         return causal_conv_transpose1d(x, self.weight, self.bias, stride=self.stride)

@@ -1,8 +1,10 @@
 """Host-side audio file I/O, the port's copy of the JAX package's
 `utils/audio_io.py`: WAV is read and written in-process (8-, 16-, 24- and
-32-bit PCM in, 16-bit PCM out). FLAC and the FFmpeg formats go through the
-JAX package's native C++ loader (`native/*.cpp`), which the port has not
-ported yet: asking for one raises."""
+32-bit PCM in, 16-bit PCM out); FLAC goes through the port's native decoder
+(`csrc/audioload.cpp`) and the FFmpeg formats through its FFmpeg-backed one
+(`csrc/ffdecode.cpp`), each built with g++ at first use
+(`data/native_loader.py`). Both return a mono downmix. Where a build failed,
+asking for its formats raises; nothing falls back."""
 from __future__ import annotations
 
 import wave
@@ -10,24 +12,31 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["load_audio", "save_audio", "SUPPORTED_EXTENSIONS", "NATIVE_EXTENSIONS"]
+__all__ = ["load_audio", "save_audio", "SUPPORTED_EXTENSIONS", "FFMPEG_EXTENSIONS"]
 
-SUPPORTED_EXTENSIONS = (".wav",)
-# decoded by the native loader in the JAX package, not ported yet
-NATIVE_EXTENSIONS = (".flac", ".mp3", ".webm", ".ogg", ".opus", ".m4a", ".mp4", ".aac")
+SUPPORTED_EXTENSIONS = (".wav", ".flac")
+# lossy container formats decoded through the FFmpeg-backed native library
+FFMPEG_EXTENSIONS = (".mp3", ".webm", ".ogg", ".opus", ".m4a", ".mp4", ".aac")
 
 
 def load_audio(path):
-    """Returns (waveform float32 (channels, T) in [-1, 1], sample_rate)."""
+    """Returns (waveform float32 (channels, T) in [-1, 1], sample_rate); FLAC
+    and the FFmpeg formats as one channel, the mono downmix."""
     path = Path(path)
     suffix = path.suffix.lower()
     if suffix == ".wav":
         return _load_wav(path)
-    if suffix in NATIVE_EXTENSIONS:
-        raise NotImplementedError(
-            f"{path}: {suffix} needs the native audio loader (native/*.cpp), which the port "
-            f"has not ported yet; convert the file to WAV")
-    raise ValueError(f"unsupported audio format {suffix} (supported: {SUPPORTED_EXTENSIONS})")
+    if suffix == ".flac":
+        from ..data import native_loader
+        length, rate, _ = native_loader.probe(path)
+        out, _, _ = native_loader.load_batch([path], length)
+        return out[:1], rate
+    if suffix in FFMPEG_EXTENSIONS:
+        from ..data import native_loader
+        mono, rate = native_loader.ff_decode(path)
+        return mono[None], rate
+    raise ValueError(f"unsupported audio format {suffix} "
+                     f"(supported: {SUPPORTED_EXTENSIONS + FFMPEG_EXTENSIONS})")
 
 
 def _load_wav(path):

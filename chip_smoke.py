@@ -7,7 +7,9 @@ Phases, each printing its name and seconds:
   2. build       - builds every kernel source of the port with nvcc
                    (build/kernels/), and the test-only plain-TF32 variant of
                    each, one nvcc per library, all started together, and
-                   prints ptxas' register/spill lines.
+                   prints ptxas' register/spill lines; beside them the
+                   native audio loader (csrc/audioload.cpp) with g++
+                   (build/native/), which must build.
   3. kernels     - each kernel against its plain PyTorch version at the shapes
                    of the main path (and a ragged, key-masked one), with its
                    time, the plain version's, one PyTorch library call's and
@@ -163,6 +165,31 @@ Phases, each printing its name and seconds:
                    results_quality/heldout_ref.wav through prime_wave_path,
                    then the prompt resampled to 24 kHz through prime_wave; the
                    tokens identical to the CPU port's.
+  23. streaming    - the repository's trained codec
+                   (persist/soundstream_r5_73k.npz, float32) serving a
+                   10-s signal (results_quality/heldout_ref.wav tiled 10
+                   times, 500 frames) through StreamingCodecEncoder (64-frame
+                   chunks, pushes of 1000-7000 samples drawn from --seed)
+                   and StreamingCodecDecoder (16-frame chunks). Gates: the
+                   streamed codes equal the card's offline tokenize and the
+                   CPU port's streamed codes on a 2-s prefix, but for near
+                   ties (codes_near_ties, counted), and the encoder's
+                   output at every emitted frame within 1e-5 of its largest
+                   value of the offline pass's on the card; the streamed waveform
+                   within rtol 1e-4 / atol 1e-5 of the card's offline decode
+                   (JAX's tests/test_streaming.py); the buffers bounded; K6 8
+                   and K7 1 launches an encoder chunk, K7 1 a decoder chunk.
+                   Prints ms a chunk each way, the first chunk's latency and
+                   the real-time factor; K6 at the encoder's 192 rows and K7
+                   at the decoder's 1 x 8 x 208 x 64 window beside their
+                   library calls.
+  24. cli          - the command line in process (cli.main): info on the
+                   trained codec; tokenize of heldout_ref.wav and of the
+                   same clip as FLAC (tests/flac_writer.py), both the card's
+                   tokenize; decode of those codes within one 16-bit step
+                   of the card's decode; generate on the banked chain
+                   (--max-length 50), a finite, non-silent 16 kHz WAV; the
+                   wall seconds and launches of each subcommand.
 The training phases (6, and the Coarse step in 7-12) also train in bf16
 compute beside float32: ms per step of both, and on one batch with the
 same weights and mask the bf16 loss and gradients held to float32's
@@ -186,16 +213,18 @@ Each kernel row gives its time by CUDA events and on the device
 (torch.profiler), and so does its library call.
 Each path, scoring, generation and training of each LM (and of the
 conditioned LMs), the codec's round trip, a codec train step (float32 and
-bf16), a stage trainer's step and AudioLM's generation (random and banked
-weights, with text and with a prompt), sets the kernel launch counts to 0 just
+bf16), a stage trainer's step, AudioLM's generation (random and banked
+weights, with text and with a prompt), streaming encode and decode and each
+command-line subcommand, sets the kernel launch counts to 0 just
 before its own calls and reads them just after, before any check (CPU
 comparison, profile, uncached scoring of the generated ids) runs.
 
 Ends with a JSON line of per-kernel numbers, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}. Any failed phase raises
 and the script exits non-zero without that line. Imports torch, numpy, the
-standard library, the port and the timers of tools/cuda_timing.py only;
-spawns only nvcc and nvidia-smi.
+standard library, the port, the timers of tools/cuda_timing.py and the
+FLAC writer of tests/flac_writer.py (numpy) only; spawns only nvcc, g++
+and nvidia-smi.
 """
 from __future__ import annotations
 
@@ -332,11 +361,22 @@ def build_phase():
         _build.load(*job)
         return time.perf_counter() - t0
 
+    def build_native():
+        from audiolm_pytorch_tpu_torch.data import native_loader
+        t0 = time.perf_counter()
+        if not native_loader.native_available():
+            raise RuntimeError(f"g++ failed for csrc/audioload.cpp: "
+                               f"{native_loader.build_error('audioload')}")
+        return time.perf_counter() - t0, native_loader.library_path("audioload")
+
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(BUILDS)) as pool:
+    with ThreadPoolExecutor(len(BUILDS) + 1) as pool:
+        native = pool.submit(build_native)
         secs = list(pool.map(build, BUILDS))
-    print(f"build: {len(SOURCES)} sources and their 1xTF32 variants, {len(BUILDS)} libraries in "
-          f"{time.perf_counter() - t0:.2f} s")
+        native_s, native_so = native.result()
+    print(f"build: {len(SOURCES)} sources and their 1xTF32 variants, {len(BUILDS)} libraries, "
+          f"and the native audio loader in {time.perf_counter() - t0:.2f} s")
+    print(f"  audioload.cpp (g++): {native_s:.2f} s -> {native_so.relative_to(ROOT)}")
     for (src, defines), sec in zip(BUILDS, secs):
         print(f"  {src}{''.join(' -D' + x for x in defines)}: {sec:.2f} s")
         if defines:
@@ -1583,13 +1623,7 @@ def check_vq(x, cb, label, want_first=None):
     c = cb.shape[0]
     e2 = cb.square().sum(-1)
     ms = cuda_ms(lambda: vq.vq_nearest_code(x, cb), iters=20)
-    # the profiler has been seen to miss one of 20 launches (0.95 a call); a
-    # second kernel would show in every window, so a short count is measured
-    # again, up to three windows
-    for _ in range(3):
-        dev_ms, dev_launches, dev_names = device_per_call(lambda: vq.vq_nearest_code(x, cb))
-        if dev_launches >= 1:
-            break
+    dev_ms, dev_launches, dev_names = profiled(lambda: vq.vq_nearest_code(x, cb))
     if dev_launches != 1 or not all("vq_nearest_kernel" in k for k in dev_names):
         raise AssertionError(f"K6 [{label}]: not one device launch a call: {dev_names}")
     plain_ms = cuda_ms(lambda: vq.vq_nearest_code_ref(x, cb), iters=20)
@@ -1605,8 +1639,8 @@ def check_vq(x, cb, label, want_first=None):
 
     library_ms = cuda_ms(library, iters=20)
     library_e2_given_ms = cuda_ms(library_e2_given, iters=20)
-    library_dev_ms = device_per_call(library)[0]
-    library_e2_given_dev_ms = device_per_call(library_e2_given)[0]
+    library_dev_ms = profiled(library)[0]
+    library_e2_given_dev_ms = profiled(library_e2_given)[0]
     # the products at the 3xTF32 rate (the kernel's), and at the FMA rate
     t_ops = 2 * n * c * d / TF32X3_FLOPS * 1e3
     t_bytes = 4 * (n * d + c * d + n) / HBM_BPS * 1e3
@@ -1615,8 +1649,8 @@ def check_vq(x, cb, label, want_first=None):
     print(f"vq [{label}]: {differ} near-tie rows differ (score gap {gap:.3e}) | kernel "
           f"{ms:.4f} ms, on the device {dev_ms:.4f} ms in {dev_launches:g} launch per call | "
           f"plain {plain_ms:.4f} ms | addmm+argmin {library_ms:.4f} ms (device "
-          f"{library_dev_ms:.4f}), |e|^2 given {library_e2_given_ms:.4f} ms (device "
-          f"{library_e2_given_dev_ms:.4f}) | bound {bound_ms:.4f} ms ({bound_by}; at the FMA "
+          f"{fmt_ms(library_dev_ms)}), |e|^2 given {library_e2_given_ms:.4f} ms (device "
+          f"{fmt_ms(library_e2_given_dev_ms)}) | bound {bound_ms:.4f} ms ({bound_by}; at the FMA "
           f"rate {bound_fma_ms:.4f} ms)")
     return dict(max_abs_err=gap, near_ties=differ, ms=ms, device_ms=dev_ms,
                 device_launches=dev_launches, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -1722,6 +1756,25 @@ def sdpa_blocks(q, k, v, w, mask, bias):
             v2.reshape(b * h * nw, 1, 2 * w, d), fmask.reshape(b * h * nw, 1, w, 2 * w))
 
 
+def profiled(fn):
+    """(device ms, device launches, {kernel name: launches}) per call of fn
+    from torch.profiler, up to three windows: the profiler has been seen to
+    record no device event in a whole window (a K7 call read 0.0 ms in 0
+    launches) and to miss one of 20 launches (K6 read 0.95 a call). A second
+    kernel would show in every window, so the first window with one launch
+    a call or more is kept. None where no window saw a launch: not
+    measured."""
+    for _ in range(3):
+        dev_ms, dev_launches, names = device_per_call(fn)
+        if dev_launches >= 1:
+            return dev_ms, dev_launches, names
+    return None, 0, {}
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
 def check_local(q, k, v, w, mask, bias, label, seed, scale=8.0 / 64):
     """K7 against its plain version (2e-3 fp32, 3e-2 bf16), then the
     backward through its autograd.Function against the plain version's;
@@ -1757,7 +1810,7 @@ def check_local(q, k, v, w, mask, bias, label, seed, scale=8.0 / 64):
     if not all(torch.allclose(a.float(), r.float(), **gtol) for a, r in zip(grads, refs)):
         raise AssertionError(f"K7 backward vs plain [{label}]: max abs err {grad_err} over {gtol}")
     ms = cuda_ms(lambda: la.local_attention(q, k, v, **kw), iters=20)
-    dev_ms, dev_launches, _ = device_per_call(lambda: la.local_attention(q, k, v, **kw))
+    dev_ms, dev_launches, _ = profiled(lambda: la.local_attention(q, k, v, **kw))
     plain_ms = cuda_ms(lambda: la.local_attention_ref(q, k, v, **kw), iters=20)
     qb, kb, vb, fmask = sdpa_blocks(q, k, v, w, mask, bias)
 
@@ -1766,7 +1819,7 @@ def check_local(q, k, v, w, mask, bias, label, seed, scale=8.0 / 64):
                                                                 scale=scale)
 
     library_ms = cuda_ms(library, iters=20)
-    library_dev_ms = device_per_call(library)[0]
+    library_dev_ms = profiled(library)[0]
     b, h, t, d = q.shape
     pairs = local_pairs(b, h, t, w, mask)
     nbytes = 4 * q.numel() * q.element_size() + (bias.numel() * 4 if bias is not None else 0) \
@@ -1777,9 +1830,9 @@ def check_local(q, k, v, w, mask, bias, label, seed, scale=8.0 / 64):
     bound_ms, bound_by = max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
     bound_fma_ms = max(flops / PEAK_FLOPS[torch.float32] * 1e3, t_bytes)
     print(f"local [{label}]: max_abs_err {err:.3e} (tol {tol}) | backward {grad_err:.3e} | "
-          f"kernel {ms:.4f} ms, on the device {dev_ms:.4f} ms in {dev_launches:g} launches per "
-          f"call | plain {plain_ms:.4f} ms | sdpa on blocks {library_ms:.4f} ms (device "
-          f"{library_dev_ms:.4f}) | bound {bound_ms:.4f} ms ({bound_by}, {pairs} pairs; at the "
+          f"kernel {ms:.4f} ms, on the device {fmt_ms(dev_ms)} in {dev_launches:g} launches "
+          f"per call | plain {plain_ms:.4f} ms | sdpa on blocks {library_ms:.4f} ms (device "
+          f"{fmt_ms(library_dev_ms)}) | bound {bound_ms:.4f} ms ({bound_by}, {pairs} pairs; at the "
           f"FMA rate {bound_fma_ms:.4f} ms)")
     return dict(max_abs_err=err, ms=ms, device_ms=dev_ms, device_launches=dev_launches,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
@@ -3352,6 +3405,345 @@ def continuation_phase(seed):
                  prompt_frames=prompt_frames, samples=samples))
 
 
+# streaming serving on the repository's trained codec: a 10-s signal, the
+# encoder's 64-frame chunks (its attention window; 17 pad + 128 context +
+# 64 frames a window, 192 after the trim: K6's rows) and the decoder's
+# 16-frame chunks (192 context + 16 = 208 frames a window)
+STREAM_CODEC = PERSIST / "soundstream_r5_73k.npz"
+STREAM_S, STREAM_CPU_S = 10, 2
+ENC_CHUNK, DEC_CHUNK = 64, 16
+PUSH_SAMPLES = (1000, 7000)
+# JAX's tests/test_streaming.py: the streamed waveform against the offline decode
+STREAM_WAVE_TOL = dict(rtol=1e-4, atol=1e-5)
+# the encoder's output at each emitted frame, streamed against offline on the
+# same card, as the largest deviation over the largest value: only rounding
+# (cuDNN's algorithms for the two lengths) may part them. The near-tie rule
+# alone cannot hold the stream: it allows any flip that the two inputs'
+# deviation explains, and a wrong lookback or trim is such a deviation
+STREAM_EMBED_TOL = 1e-5
+
+
+class StreamProbe:
+    """Per quantizer, the residuals and codes of every frame a streaming
+    encoder emits, by absolute frame, in the layout of a CodeProbe's calls
+    (codes_near_ties): the probe notes each chunk's first frame and keeps
+    the rows the chunk emits."""
+
+    def __init__(self, enc):
+        self.enc, self.probe = enc, CodeProbe(enc.codec)
+        self.rows = {}  # quantizer -> [(x rows, codes rows)]
+        emit_one = enc._emit_one
+
+        def noted(upto):
+            emitted = enc._emitted
+            start = (max(0, emitted - enc.context) // enc.align) * enc.align
+            self.probe.calls.clear()
+            out = emit_one(upto)
+            for call in self.probe.calls:
+                keep = slice(emitted - start, upto - start)
+                self.rows.setdefault(call["q"], []).append(
+                    (call["x"][:, keep], call["codes"][:, keep]))
+            return out
+
+        enc._emit_one = noted
+
+    def calls(self, frames=None):
+        self.probe.remove()
+        return [dict(q=q, x=torch.cat([x for x, _ in rows], 1)[:, :frames],
+                     codes=torch.cat([c for _, c in rows], 1)[:, :frames],
+                     codebook=self.enc.codec.rq.rvqs[0].layers[q].codebook.detach().cpu())
+                for q, rows in sorted(self.rows.items())]
+
+
+def embed_err(calls, ref_calls):
+    """The first quantizer's input of every frame (the encoder's output)
+    against the reference's: max |x - x_ref| / max |x_ref|."""
+    x, ref = (next(c["x"] for c in cs if c["q"] == 0) for cs in (calls, ref_calls))
+    if x.shape != ref.shape:
+        raise AssertionError(f"encoder output {tuple(x.shape)} vs {tuple(ref.shape)}")
+    return ((x - ref).abs().max() / ref.abs().max()).item()
+
+
+def offline_calls(codec, x, frames=None):
+    """CodeProbe calls of one offline tokenize of x."""
+    probe = CodeProbe(codec)
+    with torch.no_grad():
+        codes = codec.tokenize(x)
+    probe.remove()
+    return codes.cpu(), [dict(c, x=c["x"][:, :frames], codes=c["codes"][:, :frames])
+                         for c in probe.calls]
+
+
+def stream_pieces(x, seed):
+    """x cut into pushes of PUSH_SAMPLES samples, drawn from seed."""
+    rng = np.random.default_rng(seed)
+    pieces, i = [], 0
+    while i < x.shape[-1]:
+        n = int(rng.integers(PUSH_SAMPLES[0], PUSH_SAMPLES[1] + 1))
+        pieces.append(x[..., i:i + n])
+        i += n
+    return pieces
+
+
+def timed_stream(obj, pieces, device):
+    """Push every piece, then flush, each synchronised: (outputs, host ms
+    of each call, host ms of each call that emitted, the largest buffer in
+    frames)."""
+    outs, ms, emitting, held = [], [], [], 0
+    for piece in list(pieces) + [None]:
+        t0 = time.perf_counter()
+        out = obj.flush() if piece is None else obj.push(piece)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if out.shape[-1 if out.ndim == 2 else 2] > 0:
+            emitting.append(ms[-1])
+        outs.append(out)
+        buf = obj._wave.shape[1] // obj.ds if hasattr(obj, "_wave") else obj._codes.shape[2]
+        held = max(held, buf)
+    return outs, ms, emitting, held
+
+
+def stream_times(cold, warm, chunks, audio_s):
+    """The numbers of a cold stream (a fresh process's first: cuDNN meets
+    each window length for the first time) and a warm one: ms a chunk,
+    first-chunk ms, median and largest emitting call, real-time factor."""
+    out = {}
+    for name, (ms, emitting) in (("cold", cold), ("warm", warm)):
+        out[name] = dict(ms_per_chunk=sum(ms) / chunks, first_chunk_ms=emitting[0],
+                         median_emit_ms=float(np.median(emitting)), max_emit_ms=max(emitting),
+                         rtf=sum(ms) / 1e3 / audio_s)
+    return out
+
+
+def fmt_times(t):
+    return " | ".join(f"{k}: {v['ms_per_chunk']:.2f} ms a chunk, first {v['first_chunk_ms']:.2f} "
+                      f"ms, median {v['median_emit_ms']:.2f}, max {v['max_emit_ms']:.2f}, "
+                      f"real-time factor {v['rtf']:.5f}" for k, v in t.items())
+
+
+@phase("streaming")
+def streaming_phase(seed):
+    """StreamingCodecEncoder and StreamingCodecDecoder on the trained codec
+    (float32, cuDNN TF32 off): the launch counts of one streamed encode and
+    one streamed decode of the 10-s signal, each zeroed just before and read
+    just after; codes against the offline tokenize on the card and against
+    the CPU port's stream of a 2-s prefix; the waveform against the offline
+    decode; the buffers; chunk times; K6 and K7 at the stream's shapes."""
+    from audiolm_pytorch_tpu_torch import (StreamingCodecDecoder, StreamingCodecEncoder,
+                                           decode_lookback_frames, encode_lookback,
+                                           load_soundstream)
+    from audiolm_pytorch_tpu_torch.utils.audio_io import load_audio
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = load_soundstream(STREAM_CODEC, device="cpu", discriminators=False).eval()
+    codec = copy.deepcopy(cpu).to(DEV)
+    wav, sr = load_audio(HELDOUT)
+    x = np.tile(wav.mean(0), STREAM_S).astype(np.float32)[None]  # (1, 160000)
+    ds = codec.seq_len_multiple_of
+    frames = x.shape[1] // ds
+    dec_lb, (conv_lb, attn_lb) = decode_lookback_frames(codec), encode_lookback(codec)
+    pieces = stream_pieces(x, seed + 50)
+
+    audio_s = x.shape[1] / SR
+    cold = timed_stream(StreamingCodecEncoder(codec, chunk_frames=ENC_CHUNK), pieces, DEV)
+    enc = StreamingCodecEncoder(codec, chunk_frames=ENC_CHUNK)
+    enc_chunks = -(-frames // enc.chunk)
+    zero_counts()
+    outs, enc_ms, enc_emit, enc_held = timed_stream(enc, pieces, DEV)
+    launched_enc = counts()
+    enc_times = stream_times(cold[1:3], (enc_ms, enc_emit), enc_chunks, audio_s)
+    want = {name: 0 for name in COUNTERS}
+    want.update(launches_vq=codec.num_quantizers * enc_chunks, launches_local=enc_chunks)
+    if launched_enc != want:
+        raise AssertionError(f"streaming encode launches {launched_enc} != {want} "
+                             f"({enc_chunks} chunks)")
+    codes = torch.from_numpy(np.concatenate(outs, 2))
+    # the same stream again under the probe (its copies off the card would
+    # have slowed the timed run): the residuals of every emitted frame
+    probed = StreamingCodecEncoder(codec, chunk_frames=ENC_CHUNK)
+    probe = StreamProbe(probed)
+    again = np.concatenate([probed.push(p) for p in pieces] + [probed.flush()], 2)
+    stream_calls = probe.calls()
+    if not np.array_equal(again, codes.numpy()):
+        raise AssertionError("streaming encode: two streams of one signal differ")
+    offline, off_calls = offline_calls(codec, torch.from_numpy(x).to(DEV))
+    if codes.dtype != torch.int32 or codes.shape != offline.shape \
+            or offline.shape != (1, 1, frames, codec.num_quantizers):
+        raise AssertionError(f"streamed codes {codes.dtype} {tuple(codes.shape)} vs offline "
+                             f"{tuple(offline.shape)}")
+    differ, _ = codes_near_ties(stream_calls, off_calls)
+    n_codes = int((codes != offline).sum())
+    stream_embed_err = embed_err(stream_calls, off_calls)
+    if stream_embed_err > STREAM_EMBED_TOL:
+        raise AssertionError(f"streaming encode: the encoder's output departs from the offline "
+                             f"pass's by {stream_embed_err:.3e} > {STREAM_EMBED_TOL}")
+    # the window's reach and one push, in frames
+    enc_bound = enc.pad_frames + enc.context + enc.align + enc.chunk \
+        + -(-PUSH_SAMPLES[1] // ds)
+    if enc_held > enc_bound:
+        raise AssertionError(f"streaming encoder held {enc_held} frames > {enc_bound}")
+
+    # the CPU port's stream of the first 2 s, against the card's frames
+    prefix = x[:, :STREAM_CPU_S * SR]
+    cpu_enc = StreamingCodecEncoder(cpu, chunk_frames=ENC_CHUNK)
+    cpu_probe = StreamProbe(cpu_enc)
+    cut = [p[:, :max(0, prefix.shape[1] - sum(q.shape[1] for q in pieces[:i]))]
+           for i, p in enumerate(pieces)]
+    cpu_codes = torch.from_numpy(np.concatenate(
+        [cpu_enc.push(p) for p in cut if p.shape[1]] + [cpu_enc.flush()], 2))
+    n_prefix = STREAM_CPU_S * HZ
+    card_prefix = [dict(c, x=c["x"][:, :n_prefix], codes=c["codes"][:, :n_prefix])
+                   for c in stream_calls]
+    cpu_calls = cpu_probe.calls(n_prefix)
+    cpu_differ, _ = codes_near_ties(card_prefix, cpu_calls)
+    cpu_embed_err = embed_err(card_prefix, cpu_calls)
+    n_cpu = int((codes[:, :, :n_prefix] != cpu_codes).sum())
+
+    # the decoder, fed the offline codes 16 frames at a time as they would arrive
+    with torch.no_grad():
+        ref = codec.decode_from_codebook_indices(offline.to(DEV).long()).cpu().numpy()
+    bites = [offline[:, :, i:i + DEC_CHUNK].numpy() for i in range(0, frames, DEC_CHUNK)]
+    cold = timed_stream(StreamingCodecDecoder(codec, chunk_frames=DEC_CHUNK), bites, DEV)
+    dec = StreamingCodecDecoder(codec, chunk_frames=DEC_CHUNK)
+    dec_chunks = -(-frames // DEC_CHUNK)
+    zero_counts()
+    outs, dec_ms, dec_emit, dec_held = timed_stream(dec, bites, DEV)
+    launched_dec = counts()
+    dec_times = stream_times(cold[1:3], (dec_ms, dec_emit), dec_chunks, audio_s)
+    want = {name: 0 for name in COUNTERS}
+    want.update(launches_local=dec_chunks)
+    if launched_dec != want:
+        raise AssertionError(f"streaming decode launches {launched_dec} != {want}")
+    y = np.concatenate(outs, -1)
+    if y.shape != ref.shape or not np.isfinite(y).all():
+        raise AssertionError(f"streamed waveform {y.shape} vs offline {ref.shape}")
+    np.testing.assert_allclose(y, ref, **STREAM_WAVE_TOL)
+    wave_err = float(np.abs(y - ref).max())
+    dec_bound = dec.context + dec.align + dec.chunk + DEC_CHUNK  # JAX's test_streaming.py
+    if dec_held > dec_bound:
+        raise AssertionError(f"streaming decoder held {dec_held} frames > {dec_bound}")
+
+    print(f"streaming {STREAM_CODEC.name}: lookback decode {dec_lb} frames, encode "
+          f"({conv_lb} samples, {attn_lb} frames); encoder window {enc.pad_frames} pad + "
+          f"{enc.context} context + {enc.chunk} chunk frames, decoder {dec.context} + "
+          f"{dec.chunk}")
+    print(f"streaming encode {audio_s:.0f} s in {len(pieces)} pushes, {enc_chunks} chunks: "
+          f"{fmt_times(enc_times)}")
+    print(f"streaming encode: codes vs "
+          f"offline tokenize: {n_codes} codes in {len(differ)} frames differ (near ties), "
+          f"encoder output {stream_embed_err:.3e} of its largest (limit {STREAM_EMBED_TOL}) | vs "
+          f"the CPU port's {STREAM_CPU_S}-s stream: {n_cpu} codes in {len(cpu_differ)} frames "
+          f"(near ties), encoder output {cpu_embed_err:.3e} | held at most {enc_held} frames (bound {enc_bound}) | launches "
+          f"{launched_enc}")
+    print(f"streaming decode {frames} frames in {len(bites)} pushes, {dec_chunks} chunks: "
+          f"{fmt_times(dec_times)}")
+    print(f"streaming decode: vs offline "
+          f"decode max abs {wave_err:.3e} | held at most {dec_held} frames (bound {dec_bound}) | "
+          f"launches "
+          f"{launched_dec}")
+    rng = np.random.default_rng(seed + 51)
+    rows = enc.context + enc.chunk  # the rows of each residual search after the trim
+    vq_stream = check_vq(*vq_inputs(rng, rows),
+                         f"{rows}x512 vs 1024x512 (streaming encoder chunk)")
+    t = dec.context + dec.chunk
+    local_stream = check_local(*local_views(rng, 1, 8, t, 64, torch.float32), 64, None, None,
+                               f"fp32 1x8x{t}x64 w64, LocalMHA's strided q, k, v (streaming "
+                               f"decoder window)", seed)
+    return ({"streaming_encode": launched_enc, "streaming_decode": launched_dec},
+            {"vq_streaming": vq_stream, "local_streaming": local_stream},
+            dict(encode=enc_times, decode=dec_times, encode_chunks=enc_chunks,
+                 decode_chunks=dec_chunks,
+                 codes_differing=n_codes, codes_differing_cpu=n_cpu,
+                 encoder_output_err=stream_embed_err, encoder_output_err_cpu=cpu_embed_err,
+                 wave_max_abs_err=wave_err, encoder_held=enc_held, decoder_held=dec_held))
+
+
+def _flac_writer():
+    """tests/flac_writer.py (numpy only), loaded by path."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("flac_writer",
+                                                  ROOT / "tests" / "flac_writer.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.write_flac
+
+
+@phase("cli")
+def cli_phase(seed):
+    """Each subcommand of the command line in process, the launch counts
+    zeroed before and read after each: info, tokenize (WAV and FLAC),
+    decode, generate on the banked chain."""
+    import contextlib
+    import io
+    import shutil
+    import wave as wavfile
+
+    from audiolm_pytorch_tpu_torch import cli, load_soundstream
+    folder = ROOT / "build" / "cli_phase"
+    shutil.rmtree(folder, ignore_errors=True)
+    folder.mkdir(parents=True)
+    with wavfile.open(str(HELDOUT), "rb") as f:
+        pcm = np.frombuffer(f.readframes(f.getnframes()), "<i2")
+    _flac_writer()(folder / "heldout_ref.flac", pcm.astype(np.int64), SR)
+    codec_path = str(STREAM_CODEC)
+    runs = {}
+
+    def run(name, *argv):
+        out = io.StringIO()
+        zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            cli.main(["--device", "cuda", *argv])
+        torch.cuda.synchronize()
+        runs[name] = dict(wall_s=time.perf_counter() - t0, launches=counts())
+        print(f"cli {name}: {runs[name]['wall_s']:.2f} s | launches {runs[name]['launches']} | "
+              f"{' '.join(out.getvalue().split())[:120]}")
+        return out.getvalue()
+
+    info = json.loads(run("info", "info", codec_path))
+    if info["config"]["strides"] != "(2, 4, 5, 8)":
+        raise AssertionError(f"cli info: {info['config']['strides']}")
+    run("tokenize", "tokenize", "--codec", codec_path, "--audio", str(HELDOUT), "--output",
+        str(folder / "codes_wav.npz"))
+    run("tokenize_flac", "tokenize", "--codec", codec_path, "--audio",
+        str(folder / "heldout_ref.flac"), "--output", str(folder / "codes_flac.npz"))
+    run("decode", "decode", "--codec", codec_path, "--codes", str(folder / "codes_wav.npz"),
+        "--output", str(folder / "decoded.wav"))
+    codes = [np.load(folder / f"codes_{k}.npz")["codes"] for k in ("wav", "flac")]
+    codec = load_soundstream(STREAM_CODEC, device=DEV, discriminators=False).eval()
+    with torch.no_grad():
+        want = codec.tokenize(torch.from_numpy(pcm / 32768.0).float()[None].to(DEV))
+        ref = codec.decode_from_codebook_indices(want)[0].cpu().numpy()
+    want = want.cpu().numpy()
+    if not (codes[0].dtype == np.int32 and codes[0].shape == want.shape == (1, 1, HZ, 8)
+            and (codes[0] == want).all() and (codes[1] == want).all()):
+        raise AssertionError("cli tokenize: the WAV's and the FLAC's codes are not the card's "
+                             "tokenize")
+    with wavfile.open(str(folder / "decoded.wav"), "rb") as f:
+        got = np.frombuffer(f.readframes(f.getnframes()), "<i2").astype(np.int32)
+    ref16 = np.clip(ref * 32767.0, -32768, 32767).astype(np.int32)
+    step = int(np.abs(got - ref16).max()) if got.shape == ref16.shape else None
+    if step is None or step > 1:
+        raise AssertionError(f"cli decode: {got.shape} vs {ref16.shape}, {step} steps apart")
+    out = folder / "generated.wav"
+    run("generate", "generate", "--codec", str(PERSIST / "soundstream_r5.npz"),
+        "--semantic", str(PERSIST / "semantic_r5.npz"), "--coarse",
+        str(PERSIST / "coarse_r5.npz"), "--fine", str(PERSIST / "fine_r5.npz"),
+        "--hubert-kmeans", str(KMEANS), "--max-length", "50", "--seed", str(seed),
+        "--output", str(out))
+    with wavfile.open(str(out), "rb") as f:
+        rate, n = f.getframerate(), f.getnframes()
+        gen = np.frombuffer(f.readframes(n), "<i2")
+    if rate != SR or n == 0 or not np.abs(gen).max() > 0:
+        raise AssertionError(f"cli generate: {rate} Hz, {n} samples, peak "
+                             f"{np.abs(gen).max() if n else None}")
+    print(f"cli: tokenize of WAV and FLAC the card's codes, decode within {step} 16-bit step of "
+          f"the card's, generate {n} samples at {rate} Hz (peak {np.abs(gen).max()})")
+    return ({f"cli_{k}": v["launches"] for k, v in runs.items()},
+            {k: v["wall_s"] for k, v in runs.items()})
+
+
 # the outputs of each row's kernel in the tf32 phase's float64 check
 F64_OUTPUTS = {"fwd": ("out",), "dq": ("dq",), "dkv": ("dk", "dv"), "dbias": ("dbias",)}
 # the TPU kernel each port replaces, by line in the JAX package
@@ -3422,6 +3814,11 @@ def main():
     paths["audiolm_text"], timings["audiolm_text"] = audiolm_text_phase(args.seed)
     cond_paths, timings["continuation"] = continuation_phase(args.seed)
     paths.update(cond_paths)
+    stream_paths, stream_kernels, timings["streaming"] = streaming_phase(args.seed)
+    paths.update(stream_paths)
+    timings.update(stream_kernels)
+    cli_paths, timings["cli"] = cli_phase(args.seed)
+    paths.update(cli_paths)
     rows = []
     for key, name, source, replaces, counter in KERNELS:
         per_path = {f"launches_{p}": launched[counter] for p, launched in paths.items()}
@@ -3456,6 +3853,8 @@ def main():
                            stage_trainers=timings[f"{key}_stage"])
             if key == "local":
                 numbers["training_shape_bf16"] = timings["local_training_bf16"]
+            # the streaming encoder's residual searches, the decoder's window
+            numbers["streaming"] = timings[f"{key}_streaming"]
         if key in ("fwd", "dq", "dkv", "dbias"):
             outputs = F64_OUTPUTS[key]
             f64 = dict(timings["tf32"], **timings["conditioned"]["f64"])
@@ -3481,7 +3880,8 @@ def main():
                       "conditioned": timings["conditioned_paths"],
                       "conditioned_acoustic": timings["conditioned_acoustic"],
                       "audiolm_text": timings["audiolm_text"],
-                      "continuation": timings["continuation"]}))
+                      "continuation": timings["continuation"],
+                      "streaming": timings["streaming"], "cli": timings["cli"]}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

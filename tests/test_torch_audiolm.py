@@ -3,7 +3,8 @@ to end, against the JAX package on the CPU, on a tiny stack (the sizes of
 tests/test_audiolm_e2e.py: the tiny codec with 4 quantizers and random
 codebooks, LMs of dim 32 and depth 1): `decode_acoustic_tokens` on a
 uniform grid and on ragged rows (one decode per row, padded to a length
-bucket); the Coarse `generate` with `reconstruct_wave`, the Fine `generate`
+bucket), and its `has_padding` modes (None, False, True) through the
+Coarse wrapper and AudioLM; the Coarse `generate` with `reconstruct_wave`, the Fine `generate`
 with `prime_wave` and `reconstruct_wave`, both at temperature -> 0; the
 eval forward of both wrappers from `raw_wave_for_codec`; and the port's
 `AudioLM` chain against its three wrappers called in turn with one
@@ -110,6 +111,38 @@ def test_decode_acoustic_tokens_matches_jax(stack):
         # coarse codes only: fewer quantizers than the codec has
         _assert_waves(decode_acoustic_tokens(stack["pcodec"], t(grid[..., :3])),
                       jw.decode_acoustic_tokens(stack["jcodec"], jnp.asarray(grid[..., :3])))
+
+
+@pytest.mark.parametrize("has_padding", [None, False, True])
+def test_has_padding_follows_jax(stack, has_padding):
+    """None looks for pad on the host, False takes the batched decode (pad
+    codes dropped from the sum, no host sync), True the per-row path, in the
+    decode and through the Coarse wrapper's and AudioLM's generate."""
+    grid = np.random.default_rng(5).integers(0, 64, size=(2, 8, 4))
+    ragged = grid.copy()
+    ragged[1, 5:] = -1
+    with torch.no_grad():
+        for g in (grid, ragged):
+            got = decode_acoustic_tokens(stack["pcodec"], t(g), has_padding=has_padding)
+            want = jw.decode_acoustic_tokens(stack["jcodec"], jnp.asarray(g),
+                                             has_padding=has_padding)
+            assert isinstance(got, list) == isinstance(want, list) == (
+                has_padding is True or (has_padding is None and g is ragged))
+            _assert_waves(got, want)
+    sem = np.random.default_rng(1).integers(0, 20, size=(2, 8))
+    kw = dict(max_time_steps=5, temperature=1e-10, reconstruct_wave=True,
+              has_padding=has_padding)
+    want = jw.CoarseTransformerWrapper(transformer=stack["jc"], codec=stack["jcodec"]).generate(
+        semantic_token_ids=jnp.asarray(sem), **kw)
+    got = CoarseTransformerWrapper(transformer=stack["pc"], codec=stack["pcodec"]).generate(
+        semantic_token_ids=t(sem), **kw)
+    _assert_waves(got, want)
+    audiolm = AudioLM(codec=stack["pcodec"], coarse_transformer=stack["pc"],
+                      fine_transformer=stack["pf"],
+                      semantic_transformer=SemanticTransformer(**SEMANTIC, seed=1, device="cpu"))
+    wave = audiolm(batch_size=2, max_length=6, max_coarse_time_steps=3, has_padding=has_padding,
+                   generator=torch.Generator().manual_seed(3))
+    assert isinstance(wave, list) == (has_padding is True) or has_padding is None
 
 
 def test_coarse_generate_reconstruct_wave_matches_jax(stack):

@@ -234,7 +234,9 @@ def test_wav_round_trip_both_ways(tmp_path):
         want, jsr = jaudio.load_audio(tmp_path / f"w{width}.wav")
         assert sr == jsr == 8000 and got.shape == (2, 40)
         np.testing.assert_array_equal(got, want)
-    with pytest.raises(NotImplementedError, match="native audio loader"):
+    # FLAC goes through the native decoder (tests/test_torch_audio_io.py); a
+    # missing file raises there, as in JAX
+    with pytest.raises(IOError, match="failed to probe"):
         paudio.load_audio(tmp_path / "clip.flac")
 
 

@@ -19,7 +19,12 @@ in text conditioning's forms (causal over M = P + N keys aligned to the
 bottom right, cross attention over 17 keys and its decode step) against
 the plain versions, within 1e-5 of float64 where plain TF32 fails, the
 same bits every run, and a conditioned LM's logits and gradients card vs
-CPU. They skip where there is no card.
+CPU; streaming serving on the card (a small codec's streamed codes against
+its `tokenize`, K6 and K7 launched once a search and once a chunk, and its
+streamed waveform against its decode), the command line's tokenize ->
+decode round trip with `--device cuda` from WAV and FLAC, and the native
+audio loader built with g++ into build/native. They skip where there is no
+card.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine without them:
@@ -1206,3 +1211,127 @@ def test_conditioned_semantic_lm_card_matches_cpu(cuda, form):
     assert set(grads[True]) == set(grads[False])
     for name, g in grads[True].items():
         torch.testing.assert_close(grads[False][name], g, rtol=1e-2, atol=1e-3, msg=name)
+
+
+# streaming serving, the command line and the native loader on the card
+STREAM_CODEC = dict(channels=8, strides=(2, 4, 5), channel_mults=(2, 4, 8), codebook_dim=128,
+                    codebook_size=256, rq_num_quantizers=4, attn_window_size=64, attn_heads=2,
+                    attn_dim_head=64, seed=6, discriminators=False)
+
+
+def _stream_codec(device):
+    """A small codec (window 64, 8 heads of 64: K7's shapes) with codebooks
+    drawn from its encoder's frames."""
+    codec = SoundStream(**STREAM_CODEC, device="cpu").eval()
+    x = torch.from_numpy(0.1 * np.random.default_rng(6).normal(size=(2, 8000)).astype(np.float32))
+    with torch.no_grad():
+        h = codec.encode_frames(x).reshape(-1, 128)
+        gen = torch.Generator().manual_seed(6)
+        for i, layer in enumerate(codec.rq.rvqs[0].layers):
+            layer.codebook.copy_(h[torch.randperm(h.shape[0], generator=gen)[:256]] * 0.5 ** i)
+    return codec.to(device)
+
+
+def test_streamed_codes_on_the_card_equal_its_tokenize(cuda):
+    from audiolm_pytorch_tpu_torch import StreamingCodecEncoder
+    codec = _stream_codec(cuda)
+    x = (0.1 * np.random.default_rng(7).normal(size=(1, 40 * 300 + 17))).astype(np.float32)
+    # the quantizers' input (the encoder's output) of each call
+    hs = []
+    hook = codec.rq.register_forward_pre_hook(lambda m, args: hs.append(args[0].detach()))
+    with torch.no_grad():
+        offline = codec.tokenize(torch.from_numpy(x).to(cuda)).cpu().numpy()
+    enc = StreamingCodecEncoder(codec, chunk_frames=64)
+    emit_one, emitted = enc._emit_one, []
+
+    def noted(upto):
+        emitted.append(upto - enc._emitted)  # the frames this window emits, its last
+        return emit_one(upto)
+
+    enc._emit_one = noted
+    before = vq.launches, la.launches
+    rng, outs, i = np.random.default_rng(8), [], 0
+    while i < x.shape[1]:
+        n = int(rng.integers(1000, 7001))
+        outs.append(enc.push(x[:, i:i + n]))
+        i += n
+    outs.append(enc.flush())
+    hook.remove()
+    got = np.concatenate(outs, 2)
+    chunks = -(-300 // 64)  # 4 whole chunks and the flush's
+    assert (vq.launches - before[0], la.launches - before[1]) == (4 * chunks, chunks)
+    assert got.dtype == np.int32 and got.shape == offline.shape == (1, 1, 300, 4)
+    # the encoder's output of every emitted frame is the offline pass's but
+    # for rounding, so a differing code can only be a near tie
+    streamed = torch.cat([h[:, -n:] for h, n in zip(hs[1:], emitted)], 1)
+    assert streamed.shape == hs[0].shape
+    assert ((streamed - hs[0]).abs().max() / hs[0].abs().max()).item() <= 1e-5
+    assert (got != offline).any(-1).mean() <= 0.01  # near ties only
+    assert enc._wave.shape[1] // 40 <= enc.pad_frames + enc.context + enc.chunk + 7000 // 40 + 1
+
+
+def test_streamed_decode_on_the_card_equals_its_decode(cuda):
+    from audiolm_pytorch_tpu_torch import StreamingCodecDecoder
+    codec = _stream_codec(cuda)
+    codes = np.random.default_rng(9).integers(0, 256, size=(1, 1, 300, 4))
+    with torch.no_grad():
+        offline = codec.decode_from_codebook_indices(torch.from_numpy(codes).to(cuda))
+    dec = StreamingCodecDecoder(codec, chunk_frames=16)
+    before = la.launches
+    outs = [dec.push(codes[:, :, i:i + 7]) for i in range(0, 300, 7)]
+    outs.append(dec.flush())
+    assert la.launches - before == -(-300 // 16)  # one K7 launch a chunk
+    np.testing.assert_allclose(np.concatenate(outs, -1), offline.cpu().numpy(),
+                               rtol=1e-4, atol=1e-5)
+    assert dec._codes.shape[2] <= dec.context + dec.chunk + 7 + dec.align
+
+
+def test_cli_round_trip_on_the_card(cuda, tmp_path, capsys):
+    import wave as wavfile
+
+    from audiolm_pytorch_tpu_torch import cli
+    from audiolm_pytorch_tpu_torch.training.checkpoint import save_pytree
+    from audiolm_pytorch_tpu_torch.weights import codec_state_dict_to_jax
+    from flac_writer import write_flac
+    codec = _stream_codec("cpu")
+    buffers = [n for n, _ in codec.named_buffers()]
+    save_pytree(tmp_path / "codec.npz", codec_state_dict_to_jax(codec.state_dict(), buffers),
+                extra_meta={"config": codec.config, "kind": "SoundStream"})
+    pcm = np.round(8000 * np.random.default_rng(10).normal(size=4000)).astype(np.int16)
+    with wavfile.open(str(tmp_path / "clip.wav"), "wb") as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(16000)
+        f.writeframes(pcm.tobytes())
+    write_flac(tmp_path / "clip.flac", pcm.astype(np.int64), 16000)
+    codes = []
+    for name in ("clip.wav", "clip.flac"):
+        cli.main(["--device", "cuda", "tokenize", "--codec", str(tmp_path / "codec.npz"),
+                  "--audio", str(tmp_path / name), "--output", str(tmp_path / f"{name}.npz")])
+        codes.append(np.load(tmp_path / f"{name}.npz")["codes"])
+    assert codes[0].dtype == np.int32 and codes[0].shape == (1, 1, 100, 4)
+    np.testing.assert_array_equal(codes[0], codes[1])
+    cli.main(["--device", "cuda", "decode", "--codec", str(tmp_path / "codec.npz"), "--codes",
+              str(tmp_path / "clip.wav.npz"), "--output", str(tmp_path / "out.wav")])
+    with wavfile.open(str(tmp_path / "out.wav"), "rb") as f:
+        assert f.getframerate() == 16000 and f.getnframes() == 4000
+        out = np.frombuffer(f.readframes(4000), "<i2").astype(np.int32)
+    with torch.no_grad():
+        ref = codec.decode_from_codebook_indices(torch.from_numpy(codes[0]).long())[0].numpy()
+    want = np.clip(ref * 32767.0, -32768, 32767).astype(np.int32)
+    assert np.abs(out - want).max() <= 1 and np.abs(out).max() > 0
+    assert "wrote" in capsys.readouterr().out
+
+
+def test_native_loader_builds_into_build(cuda, tmp_path):
+    from audiolm_pytorch_tpu_torch.data import native_loader
+    from audiolm_pytorch_tpu_torch.utils.audio_io import load_audio
+    from flac_writer import write_flac
+    assert native_loader.native_available(), native_loader.build_error("audioload")
+    so = native_loader.library_path("audioload")
+    assert so.exists() and so.parent.parts[-2:] == ("build", "native")
+    x = np.round(3000 * np.sin(np.arange(3000) / 7.0)).astype(np.int64)
+    write_flac(tmp_path / "x.flac", x, 16000)
+    wav, sr = load_audio(tmp_path / "x.flac")
+    assert sr == 16000 and wav.shape == (1, 3000)
+    np.testing.assert_array_equal(wav[0], (x / 32768.0).astype(np.float32))
