@@ -6,9 +6,12 @@ wrapper takes its plain PyTorch version.
 """
 from .device import resolve_device
 from .models.audiolm import AudioLM
+from .models.encodec import EncodecWrapper
 from .models.hubert import HubertWithKmeans
+from .models.vq_wav2vec import FairseqVQWav2Vec
 from .data.dataset import SoundDataset, get_dataloader
-from .models.soundstream import AudioLMSoundStream, SoundStream, load_soundstream
+from .models.soundstream import (AudioLMSoundStream, MusicLMSoundStream, SoundStream,
+                                 load_soundstream)
 from .models.lm import (CoarseTransformer, FineTransformer, SemanticTransformer,
                         load_coarse_transformer, load_fine_transformer,
                         load_semantic_transformer)
@@ -21,6 +24,8 @@ from .ops.kernels.flash_attention import (flash_attention, flash_attention_bwd_r
                                           flash_attention_ref)
 from .ops.kernels.local_attention import local_attention, local_attention_ref
 from .ops.kernels.vq import vq_nearest_code, vq_nearest_code_ref
+from .ops.quantize import (FSQ, LFQ, GroupedResidualFSQ, GroupedResidualLFQ, GroupedResidualVQ,
+                           ResidualFSQ, ResidualLFQ, ResidualVQ)
 from .ops.resample import resample
 from .serving import (StreamingCodecDecoder, StreamingCodecEncoder, decode_lookback_frames,
                       encode_lookback)
@@ -31,8 +36,9 @@ from .training.trainer import (CoarseTransformerTrainer, FineTransformerTrainer,
                                TransformerTrainStep)
 from .utils.metrics import mel_distance, si_snr, stoi
 from .weights import (codec_state_dict_from_jax, codec_state_dict_to_jax,
-                      hubert_state_dict_from_jax, lm_state_dict_to_jax, read_npz,
-                      state_dict_from_jax, t5_state_dict_from_jax)
+                      encodec_state_dict_from_jax, hubert_state_dict_from_jax,
+                      lm_state_dict_to_jax, read_npz, state_dict_from_jax,
+                      t5_state_dict_from_jax, vq_wav2vec_state_dict_from_jax)
 
 __all__ = ["SemanticTransformer", "SemanticTransformerWrapper", "CoarseTransformer",
            "CoarseTransformerWrapper", "FineTransformer", "FineTransformerWrapper",
@@ -49,4 +55,6 @@ __all__ = ["SemanticTransformer", "SemanticTransformerWrapper", "CoarseTransform
            "lm_state_dict_to_jax", "T5Encoder", "t5_encode_text", "get_encoded_dim",
            "resample", "t5_state_dict_from_jax", "StreamingCodecEncoder",
            "StreamingCodecDecoder", "decode_lookback_frames", "encode_lookback", "mel_distance",
-           "stoi"]
+           "stoi", "MusicLMSoundStream", "EncodecWrapper", "FairseqVQWav2Vec", "LFQ", "FSQ",
+           "ResidualVQ", "ResidualLFQ", "ResidualFSQ", "GroupedResidualVQ", "GroupedResidualLFQ",
+           "GroupedResidualFSQ", "encodec_state_dict_from_jax", "vq_wav2vec_state_dict_from_jax"]

@@ -13,10 +13,23 @@ attention included); the discriminators run channels-first inside, in their
 input's dtype. Weights are cast to their input's dtype where they are used,
 so a bfloat16 copy of the parameters (the trainer's bf16_compute) runs as in
 JAX; the quantizers' distances and every loss term are float32. The
-bottleneck's local attention is K7 and the quantizer's nearest-code search
-K6, in training as in serving. Not ported: the lookup-free and
-finite-scalar quantizers, squeeze-excite, GateLoop layers and resampling;
-each raises where it would be asked for.
+bottleneck's local attention is K7 and the residual VQ's nearest-code
+search K6, in training as in serving.
+
+The JAX package's options are all here: the residual VQ, the lookup-free
+(`use_lookup_free_quantizer`) and the finite-scalar
+(`use_finite_scalar_quantizer`, `finite_scalar_quantizer_levels`)
+quantizers, each grouped by `rq_groups`; squeeze-excite in every residual
+unit (`squeeze_excite`: a gate from the causal running mean over time);
+a GateLoop layer after each encoder and decoder block
+(`use_gate_loop_layers`: the linear recurrence h_t = a_t h_{t-1} + (1 -
+a_t) v_t, as ceil(log2 T) passes of JAX's associative-scan combine over
+shifted tensors); the causal convolutions' `pad_mode`; and `input_channels`.
+LFQ, FSQ, squeeze-excite and GateLoop compute in float32 inside, as JAX's
+do. A codec of more than one input channel takes and gives (B, C, T), as
+the reference does; the JAX package's forward cannot encode one, and the
+port serves one but does not train it (its losses and discriminators are
+mono).
 """
 from __future__ import annotations
 
@@ -31,16 +44,17 @@ from torch import nn
 from ..device import resolve_device
 from ..nn.layers import Linear, init_uniform
 from ..ops.attention import LocalTransformer
-from ..ops.conv import CausalConv1d, CausalConvTranspose1d, conv
-from ..ops.quantize import GroupedResidualVQ
+from ..ops.conv import CausalConv1d, CausalConvTranspose1d, check_pad_mode, conv
+from ..ops.quantize import GroupedResidualFSQ, GroupedResidualLFQ, GroupedResidualVQ
 from ..ops.resample import resample
 from ..ops.sampling import curtail_to_multiple
 from ..ops.stft import melspectrogram, stft
 from ..utils.metrics import si_snr
 from ..weights import DISCRIMINATORS, codec_state_dict_from_jax, read_npz
 
-__all__ = ["SoundStream", "AudioLMSoundStream", "load_soundstream", "MultiScaleDiscriminator",
-           "ComplexSTFTDiscriminator", "hinge_discr_loss", "hinge_gen_loss", "avg_pool1d"]
+__all__ = ["SoundStream", "AudioLMSoundStream", "MusicLMSoundStream", "load_soundstream",
+           "MultiScaleDiscriminator", "ComplexSTFTDiscriminator", "SqueezeExcite", "GateLoop",
+           "gate_loop_scan", "hinge_discr_loss", "hinge_gen_loss", "avg_pool1d"]
 
 
 def hinge_discr_loss(fake, real):
@@ -67,26 +81,87 @@ class FiLM(nn.Module):
         return x * gamma + beta
 
 
-class ResidualUnit(nn.Module):
-    """conv(7, dilated) -> ELU -> conv(1) -> ELU, residual."""
+class SqueezeExcite(nn.Module):
+    """Autoregressive squeeze-excitation of x (B, T, C): x times
+    sigmoid(fc2(silu(fc1(m)))), m the causal running mean over time,
+    summed in float32 and divided by arange(1, T + 1)."""
 
-    def __init__(self, chan_in: int, chan_out: int, dilation: int, *, generator=None):
+    def __init__(self, dim: int, *, reduction_factor: int = 4, dim_minimum: int = 8,
+                 generator=None):
         super().__init__()
-        self.conv1 = CausalConv1d(chan_in, chan_out, 7, dilation=dilation, generator=generator)
-        self.conv2 = CausalConv1d(chan_out, chan_out, 1, generator=generator)
+        dim_inner = max(dim_minimum, dim // reduction_factor)
+        self.fc1 = Linear(dim, dim_inner, generator=generator)
+        self.fc2 = Linear(dim_inner, dim, generator=generator)
 
     def forward(self, x):
-        return F.elu(self.conv2(F.elu(self.conv1(x)))) + x
+        steps = torch.arange(1, x.shape[1] + 1, device=x.device, dtype=torch.float32)
+        # summed along the last dim: along dim 1 of (B, T, C) the card's scan
+        # gives each (batch, channel) pair one thread (PERF.md §6)
+        total = x.float().transpose(1, 2).cumsum(-1).transpose(1, 2)
+        mean = (total / steps[:, None]).to(x.dtype)
+        return x * torch.sigmoid(self.fc2(F.silu(self.fc1(mean))))
+
+
+def gate_loop_scan(a, b):
+    """h_t = a_t h_{t-1} + b_t (h_{-1} = 0) over dim 1 of a, b (B, T, C):
+    ceil(log2 T) Hillis-Steele passes of the JAX package's combine
+    ((a_l, b_l), (a_r, b_r)) -> (a_l a_r, b_r + a_r b_l), each over the
+    tensors shifted by 1, 2, 4, ... steps. Every element is one associative
+    product of its prefix, in another order than JAX's tree, so the two
+    agree to rounding. No log: a near 0 underflows nothing."""
+    shift, t = 1, a.shape[1]
+    while shift < t:
+        a_r, b_r = a[:, shift:], b[:, shift:]
+        b = torch.cat([b[:, :shift], b_r + a_r * b[:, :-shift]], dim=1)
+        if 2 * shift < t:
+            a = torch.cat([a[:, :shift], a_r * a[:, :-shift]], dim=1)
+        shift *= 2
+    return b
+
+
+class GateLoop(nn.Module):
+    """The data-controlled linear recurrence after a codec block (JAX's
+    GateLoop): q, v, a from one projection of x (B, T, C); a = sigmoid(a),
+    h_t = a_t h_{t-1} + (1 - a_t) v_t in float32 (`gate_loop_scan`); out
+    to_out(silu(q) h). The codec adds it to its input."""
+
+    def __init__(self, dim: int, *, generator=None):
+        super().__init__()
+        self.to_qva = Linear(dim, dim * 3, bias=False, generator=generator)
+        self.to_out = Linear(dim, dim, bias=False, generator=generator)
+
+    def forward(self, x):
+        q, v, a = self.to_qva(x).chunk(3, dim=-1)
+        a = torch.sigmoid(a.float())
+        h = gate_loop_scan(a, (1 - a) * v.float())
+        return self.to_out((F.silu(q.float()) * h).to(x.dtype))
+
+
+class ResidualUnit(nn.Module):
+    """conv(7, dilated) -> ELU -> conv(1) -> ELU [-> squeeze-excite], residual."""
+
+    def __init__(self, chan_in: int, chan_out: int, dilation: int, *,
+                 squeeze_excite: bool = False, pad_mode: str = "reflect", generator=None):
+        super().__init__()
+        self.conv1 = CausalConv1d(chan_in, chan_out, 7, dilation=dilation, pad_mode=pad_mode,
+                                  generator=generator)
+        self.conv2 = CausalConv1d(chan_out, chan_out, 1, pad_mode=pad_mode, generator=generator)
+        self.se = SqueezeExcite(chan_out, generator=generator) if squeeze_excite else None
+
+    def forward(self, x):
+        h = F.elu(self.conv2(F.elu(self.conv1(x))))
+        return (self.se(h) if self.se is not None else h) + x
 
 
 class EncoderBlock(nn.Module):
-    def __init__(self, chan_in: int, chan_out: int, stride: int, cycle_dilations=(1, 3, 9), *,
-                 generator=None):
+    def __init__(self, chan_in: int, chan_out: int, stride: int, cycle_dilations=(1, 3, 9),
+                 squeeze_excite: bool = False, pad_mode: str = "reflect", *, generator=None):
         super().__init__()
         d = list(cycle_dilations)
         self.res1, self.res2, self.res3 = (
-            ResidualUnit(chan_in, chan_in, d[i % len(d)], generator=generator) for i in range(3))
-        self.down = CausalConv1d(chan_in, chan_out, 2 * stride, stride=stride,
+            ResidualUnit(chan_in, chan_in, d[i % len(d)], squeeze_excite=squeeze_excite,
+                         pad_mode=pad_mode, generator=generator) for i in range(3))
+        self.down = CausalConv1d(chan_in, chan_out, 2 * stride, stride=stride, pad_mode=pad_mode,
                                  generator=generator)
 
     def forward(self, x):
@@ -94,15 +169,15 @@ class EncoderBlock(nn.Module):
 
 
 class DecoderBlock(nn.Module):
-    def __init__(self, chan_in: int, chan_out: int, stride: int, cycle_dilations=(1, 3, 9), *,
-                 generator=None):
+    def __init__(self, chan_in: int, chan_out: int, stride: int, cycle_dilations=(1, 3, 9),
+                 squeeze_excite: bool = False, pad_mode: str = "reflect", *, generator=None):
         super().__init__()
         d = list(cycle_dilations)
         self.up = CausalConvTranspose1d(chan_in, chan_out, 2 * stride, stride=stride,
                                         generator=generator)
         self.res1, self.res2, self.res3 = (
-            ResidualUnit(chan_out, chan_out, d[i % len(d)], generator=generator)
-            for i in range(3))
+            ResidualUnit(chan_out, chan_out, d[i % len(d)], squeeze_excite=squeeze_excite,
+                         pad_mode=pad_mode, generator=generator) for i in range(3))
 
     def forward(self, x):
         return self.res3(self.res2(self.res1(self.up(x))))
@@ -256,23 +331,27 @@ def avg_pool1d(x, kernel: int, stride: int, padding: int):
 
 class SoundStream(nn.Module):
     """Encoder (causal conv blocks, then local attention) -> grouped residual
-    VQ -> decoder (local attention, then causal transposed-conv blocks), at
-    `target_sample_hz`, with the GAN discriminators and the loss weights of
-    training. Weights are drawn from `seed` on the CPU and moved to
-    `device`; the codebooks start at zeros, uninitialised, as the JAX
-    package's do under kmeans init, until training, a checkpoint or the
-    caller fills them. The constructor's arguments are the JAX package's,
-    less the unported ones; `config` holds them all, the unported at their
-    only value, as the JAX package's checkpoints store them. With
-    discriminators=False (serving) the discriminators are not built."""
+    quantizer (VQ, LFQ or FSQ) -> decoder (local attention, then causal
+    transposed-conv blocks), at `target_sample_hz`, with the GAN
+    discriminators and the loss weights of training. Weights are drawn from
+    `seed` on the CPU and moved to `device`; a VQ's codebooks start at
+    zeros, uninitialised, as the JAX package's do under kmeans init, until
+    training, a checkpoint or the caller fills them. The constructor's
+    arguments are the JAX package's (codebook_size None means 1024 for VQ
+    and LFQ; FSQ's is the product of its levels); `config` holds them as
+    the JAX package's checkpoints store them. With discriminators=False
+    (serving) the discriminators are not built."""
 
     def __init__(self, *, channels: int = 32, strides=(2, 4, 5, 8),
                  channel_mults=(2, 4, 8, 16), codebook_dim: int = 512,
-                 codebook_size: int = 1024, rq_num_quantizers: int = 8,
+                 codebook_size: "int | None" = None, finite_scalar_quantizer_levels=None,
+                 rq_num_quantizers: int = 8,
                  rq_commitment_weight: float = 1.0, rq_ema_decay: float = 0.95,
                  rq_quantize_dropout_multiple_of: int = 1, rq_groups: int = 1,
                  rq_stochastic_sample_codes: bool = False, rq_rotation_trick: bool = True,
-                 rq_kwargs: "dict | None" = None, discr_multi_scales=(1, 0.5, 0.25),
+                 rq_kwargs: "dict | None" = None, use_lookup_free_quantizer: bool = False,
+                 use_finite_scalar_quantizer: bool = False, input_channels: int = 1,
+                 discr_multi_scales=(1, 0.5, 0.25),
                  stft_normalized: bool = False, enc_cycle_dilations=(1, 3, 9),
                  dec_cycle_dilations=(1, 3, 9),
                  multi_spectral_window_powers_of_two=tuple(range(6, 12)),
@@ -288,9 +367,9 @@ class SoundStream(nn.Module):
                  use_local_attn: bool = True, attn_window_size: int = 128,
                  attn_dim_head: int = 64, attn_heads: int = 8, attn_depth: int = 1,
                  attn_xpos_scale_base: "float | None" = None,
-                 attn_dynamic_pos_bias: bool = False,
-                 complex_stft_discr_logits_abs: bool = True,
-                 complex_stft_discr_kwargs: "dict | None" = None,
+                 attn_dynamic_pos_bias: bool = False, use_gate_loop_layers: bool = False,
+                 squeeze_excite: bool = False, complex_stft_discr_logits_abs: bool = True,
+                 pad_mode: str = "reflect", complex_stft_discr_kwargs: "dict | None" = None,
                  multi_scale_discr_kwargs: "dict | None" = None, compute_dtype: str = "float32",
                  discriminators: bool = True, seed: int = 0,
                  device: "str | torch.device" = "cuda"):
@@ -299,6 +378,17 @@ class SoundStream(nn.Module):
         if compute_dtype not in _COMPUTE_DTYPES:
             raise NotImplementedError(f"compute_dtype={compute_dtype!r} is not ported: "
                                       f"one of {sorted(_COMPUTE_DTYPES)}")
+        check_pad_mode(pad_mode)
+        if use_lookup_free_quantizer and use_finite_scalar_quantizer:
+            raise ValueError("use_lookup_free_quantizer or use_finite_scalar_quantizer, not both")
+        if use_finite_scalar_quantizer:
+            if codebook_size is not None or finite_scalar_quantizer_levels is None:
+                raise ValueError("FSQ takes finite_scalar_quantizer_levels, not codebook_size")
+        else:
+            if finite_scalar_quantizer_levels is not None:
+                raise ValueError("finite_scalar_quantizer_levels needs "
+                                 "use_finite_scalar_quantizer")
+            codebook_size = 1024 if codebook_size is None else codebook_size
         args = {k: v for k, v in locals().items()
                 if k not in ("self", "__class__", "seed", "device", "discriminators")}
         self.config = _jax_config(args)
@@ -307,41 +397,61 @@ class SoundStream(nn.Module):
         self.compute_dtype = _COMPUTE_DTYPES[compute_dtype]
         self.strides = tuple(strides)
         self.channels = channels
+        self.input_channels = input_channels
         self.codebook_dim = codebook_dim
-        self.codebook_size = codebook_size
         self.rq_groups = rq_groups
         self.num_quantizers = rq_num_quantizers
+        self.use_lookup_free_quantizer = use_lookup_free_quantizer
+        self.use_finite_scalar_quantizer = use_finite_scalar_quantizer
 
         layer_channels = (channels, *(m * channels for m in channel_mults))
         pairs = tuple(zip(layer_channels[:-1], layer_channels[1:]))
-        self.encoder_init = CausalConv1d(1, channels, 7, generator=g)
-        self.encoder_blocks = nn.ModuleList(
-            EncoderBlock(ci, co, s, enc_cycle_dilations, generator=g)
-            for (ci, co), s in zip(pairs, self.strides))
-        self.encoder_final = CausalConv1d(layer_channels[-1], codebook_dim, 3, generator=g)
+        block_kw = dict(squeeze_excite=squeeze_excite, pad_mode=pad_mode, generator=g)
+        self.encoder_init = CausalConv1d(input_channels, channels, 7, pad_mode=pad_mode,
+                                         generator=g)
+        # a GateLoop after each block, at its output's width (the JAX list's layout)
+        self.encoder_blocks = nn.ModuleList()
+        for (ci, co), s in zip(pairs, self.strides):
+            self.encoder_blocks.append(EncoderBlock(ci, co, s, enc_cycle_dilations, **block_kw))
+            if use_gate_loop_layers:
+                self.encoder_blocks.append(GateLoop(co, generator=g))
+        self.encoder_final = CausalConv1d(layer_channels[-1], codebook_dim, 3, pad_mode=pad_mode,
+                                          generator=g)
         attn_kw = dict(dim=codebook_dim, dim_head=attn_dim_head, heads=attn_heads,
                        depth=attn_depth, window_size=attn_window_size,
                        xpos_scale_base=attn_xpos_scale_base,
                        dynamic_pos_bias=attn_dynamic_pos_bias)
         self.encoder_attn = LocalTransformer(**attn_kw, generator=g) if use_local_attn else None
         self.encoder_film = FiLM(codebook_dim, 2, generator=g)
-        rq_kw = dict(kmeans_init=True, threshold_ema_dead_code=2.0, quantize_dropout=True)
-        rq_kw.update(rq_kwargs or {})
-        self.rq = GroupedResidualVQ(dim=codebook_dim, groups=rq_groups,
-                                    num_quantizers=rq_num_quantizers,
-                                    codebook_size=codebook_size, decay=rq_ema_decay,
-                                    commitment_weight=rq_commitment_weight,
-                                    quantize_dropout_multiple_of=rq_quantize_dropout_multiple_of,
-                                    quantize_dropout_cutoff_index=quantize_dropout_cutoff_index,
-                                    stochastic_sample_codes=rq_stochastic_sample_codes,
-                                    rotation_trick=rq_rotation_trick, generator=g, **rq_kw)
+        rq_common = dict(dim=codebook_dim, groups=rq_groups, num_quantizers=rq_num_quantizers,
+                         quantize_dropout_cutoff_index=quantize_dropout_cutoff_index, generator=g)
+        if use_lookup_free_quantizer:
+            self.rq = GroupedResidualLFQ(codebook_size=codebook_size, quantize_dropout=True,
+                                         **rq_common, **(rq_kwargs or {}))
+        elif use_finite_scalar_quantizer:
+            self.rq = GroupedResidualFSQ(levels=tuple(finite_scalar_quantizer_levels),
+                                         quantize_dropout=True, **rq_common, **(rq_kwargs or {}))
+        else:
+            rq_kw = dict(kmeans_init=True, threshold_ema_dead_code=2.0, quantize_dropout=True)
+            rq_kw.update(rq_kwargs or {})
+            self.rq = GroupedResidualVQ(
+                codebook_size=codebook_size, decay=rq_ema_decay,
+                commitment_weight=rq_commitment_weight,
+                quantize_dropout_multiple_of=rq_quantize_dropout_multiple_of,
+                stochastic_sample_codes=rq_stochastic_sample_codes,
+                rotation_trick=rq_rotation_trick, **rq_common, **rq_kw)
+        self.codebook_size = self.rq.codebook_size
         self.decoder_film = FiLM(codebook_dim, 2, generator=g)
         self.decoder_attn = LocalTransformer(**attn_kw, generator=g) if use_local_attn else None
-        self.decoder_init = CausalConv1d(codebook_dim, layer_channels[-1], 7, generator=g)
-        self.decoder_blocks = nn.ModuleList(
-            DecoderBlock(co, ci, s, dec_cycle_dilations, generator=g)
-            for (ci, co), s in zip(reversed(pairs), reversed(self.strides)))
-        self.decoder_final = CausalConv1d(channels, 1, 7, generator=g)
+        self.decoder_init = CausalConv1d(codebook_dim, layer_channels[-1], 7, pad_mode=pad_mode,
+                                         generator=g)
+        self.decoder_blocks = nn.ModuleList()
+        for (ci, co), s in zip(reversed(pairs), reversed(self.strides)):
+            self.decoder_blocks.append(DecoderBlock(co, ci, s, dec_cycle_dilations, **block_kw))
+            if use_gate_loop_layers:
+                self.decoder_blocks.append(GateLoop(ci, generator=g))
+        self.decoder_final = CausalConv1d(channels, input_channels, 7, pad_mode=pad_mode,
+                                          generator=g)
 
         self.discr_multi_scales = tuple(discr_multi_scales)
         # the avg-pool factor before discriminator i + 1
@@ -384,35 +494,46 @@ class SoundStream(nn.Module):
         return self.seq_len_multiple_of
 
     def process_input(self, x, input_sample_hz=None):
-        """(T,), (B, T) or (B, 1, T) -> (B, T'), resampled from
+        """(T,), (B, T) or (B, 1, T) -> (B, T') for one input channel; (C,
+        T) or (B, C, T) -> (B, C, T') for more; resampled from
         input_sample_hz to target_sample_hz when given, and curtailed to a
         multiple of the downsample factor."""
-        if x.ndim == 1:
-            x = x[None]
-        if x.ndim == 3:
-            x = x[:, 0]
+        if self.input_channels == 1:
+            if x.ndim == 1:
+                x = x[None]
+            if x.ndim == 3:
+                x = x[:, 0]
+        else:
+            if x.ndim == 2:
+                x = x[None]
+            if x.ndim != 3 or x.shape[1] != self.input_channels:
+                raise ValueError(f"a codec of {self.input_channels} input channels takes "
+                                 f"(B, {self.input_channels}, T), not {tuple(x.shape)}")
         if input_sample_hz is not None:
             x = resample(x, input_sample_hz, self.target_sample_hz)
         return curtail_to_multiple(x, self.seq_len_multiple_of)
 
     def encode_frames(self, x):
-        """waveform (B, T) -> pre-quantization embeddings (B, T / DS, D)."""
-        h = self.encoder_init(x.to(self.compute_dtype)[..., None])
+        """waveform (B, T) or (B, C, T) -> pre-quantization embeddings
+        (B, T / DS, D)."""
+        x = x.to(self.compute_dtype)
+        h = self.encoder_init(x[..., None] if x.ndim == 2 else x.transpose(1, 2))
         for block in self.encoder_blocks:
-            h = block(h)
+            h = h + block(h) if isinstance(block, GateLoop) else block(h)
         h = self.encoder_final(h)
         return self.encoder_attn(h) if self.encoder_attn is not None else h
 
     def decode(self, x):
-        """quantized embeddings (B, N, D) -> waveform (B, N * DS), in
-        compute_dtype."""
+        """quantized embeddings (B, N, D) -> waveform (B, N * DS), or (B, C,
+        N * DS) for more than one channel, in compute_dtype."""
         x = x.to(self.compute_dtype)
         if self.decoder_attn is not None:
             x = self.decoder_attn(x)
         h = self.decoder_init(x)
         for block in self.decoder_blocks:
-            h = block(h)
-        return self.decoder_final(h)[..., 0]
+            h = h + block(h) if isinstance(block, GateLoop) else block(h)
+        h = self.decoder_final(h)
+        return h[..., 0] if self.input_channels == 1 else h.transpose(1, 2)
 
     def tokenize(self, audio, input_sample_hz=None):
         """waveform -> codes (G, B, N, Q)."""
@@ -554,6 +675,9 @@ class SoundStream(nn.Module):
             recon = self.decode(hq)
         if return_recons_only:
             return recon
+        if self.input_channels != 1:
+            raise NotImplementedError("training a codec of more than one input channel is not "
+                                      "ported: its losses and discriminators are mono")
         if return_discr_loss:
             return self._discr_loss(x, recon.detach(), apply_grad_penalty,
                                     return_discr_losses_separately)
@@ -601,20 +725,31 @@ def AudioLMSoundStream(strides=(2, 4, 5, 8), target_sample_hz=16000, rq_num_quan
                        rq_num_quantizers=rq_num_quantizers, **kwargs)
 
 
-# what the port does not have: the JAX package's config keys and the only
-# value each may take here
-_UNPORTED = {"use_lookup_free_quantizer": False, "use_finite_scalar_quantizer": False,
-             "finite_scalar_quantizer_levels": None, "squeeze_excite": False,
-             "use_gate_loop_layers": False, "input_channels": 1, "pad_mode": "reflect"}
+def MusicLMSoundStream(strides=(3, 4, 5, 8), target_sample_hz=24000, rq_num_quantizers=12,
+                       **kwargs):
+    """The MusicLM preset of the JAX package: 24 kHz, 50 frames a second,
+    12 quantizers."""
+    return SoundStream(strides=strides, target_sample_hz=target_sample_hz,
+                       rq_num_quantizers=rq_num_quantizers, **kwargs)
+
+
 _COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-# rq_kwargs the port's quantizers take
-_RQ_KWARGS = ("kmeans_init", "threshold_ema_dead_code", "quantize_dropout")
+# rq_kwargs each quantizer kind takes (the VQ's as the port honours them)
+_RQ_KWARGS = {"vq": ("kmeans_init", "threshold_ema_dead_code", "quantize_dropout"),
+              "lfq": ("entropy_loss_weight", "commitment_weight", "diversity_gamma"),
+              "fsq": ("scale_factor",)}
+
+
+def _quantizer_kind(cfg: dict) -> str:
+    if cfg.get("use_lookup_free_quantizer"):
+        return "lfq"
+    return "fsq" if cfg.get("use_finite_scalar_quantizer") else "vq"
 
 
 def _jax_config(args: dict) -> dict:
     """The JAX package's config dict (`SoundStream.configs`) of the port's
     constructor arguments: tuples as lists (JSON), the kwargs dicts never
-    None, the unported keys at their values."""
+    None."""
     def plain(v):
         if isinstance(v, (list, tuple)):
             return [plain(x) for x in v]
@@ -625,7 +760,6 @@ def _jax_config(args: dict) -> dict:
     cfg = {k: plain(v) for k, v in args.items()}
     for key in ("rq_kwargs", "complex_stft_discr_kwargs", "multi_scale_discr_kwargs"):
         cfg[key] = cfg[key] or {}
-    cfg.update(_UNPORTED)
     return dict(sorted(cfg.items()))
 
 
@@ -636,9 +770,9 @@ def load_soundstream(path, *, device: "str | torch.device" = "cuda",
     of the port's), with float32 weights and its quantizers' training
     state, computing in the config's compute_dtype or the one given (the
     JAX stage recipe tokenises with "bfloat16"). Every
-    config key is a constructor argument or an unported feature at its only
-    value (`_UNPORTED`; `rq_kwargs` may hold only `_RQ_KWARGS`); anything
-    else raises. For serving, discriminators=False neither builds the
+    config key is a constructor argument (`rq_kwargs` may hold only the
+    `_RQ_KWARGS` of its quantizer kind); anything else raises, as does a
+    pad_mode the port does not pad with. For serving, discriminators=False neither builds the
     discriminators nor reads their weights. A trainer checkpoint's model is
     the leaves under `['model']`."""
     device = resolve_device(device)
@@ -649,10 +783,7 @@ def load_soundstream(path, *, device: "str | torch.device" = "cuda",
     cfg = dict(meta["config"])
     if compute_dtype is not None:
         cfg["compute_dtype"] = compute_dtype
-    for key, value in _UNPORTED.items():
-        if cfg.pop(key, value) != value:
-            raise NotImplementedError(f"{path}: {key}={meta['config'][key]!r} is not ported")
-    extra = sorted(set(cfg.get("rq_kwargs") or {}) - set(_RQ_KWARGS))
+    extra = sorted(set(cfg.get("rq_kwargs") or {}) - set(_RQ_KWARGS[_quantizer_kind(cfg)]))
     if extra:
         raise NotImplementedError(f"{path}: rq_kwargs {extra} are not honoured by the port")
     unknown = sorted(set(cfg) - set(inspect.signature(SoundStream).parameters)

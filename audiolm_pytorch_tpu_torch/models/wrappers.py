@@ -5,8 +5,9 @@ held against the JAX package's `models/wrappers.py` (`masked_cross_entropy`,
 `__call__`, and `decode_acoustic_tokens`). With a codec, the Coarse and Fine
 wrappers also take audio (the codes of `raw_wave_for_codec`, the Coarse and
 Fine prompt `prime_wave`) and give it back (`reconstruct_wave`); with a
-wav2vec (`HubertWithKmeans`), the Semantic and Coarse wrappers take the
-semantic ids of `raw_wave`, and the Semantic prompt `prime_wave`; a prompt
+wav2vec (`HubertWithKmeans` or `FairseqVQWav2Vec`, whose grouped ids are
+flattened), the Semantic and Coarse wrappers take the semantic ids of
+`raw_wave`, and the Semantic prompt `prime_wave`; a prompt
 at another rate is resampled (`prime_wave_input_sample_hz`). The wav2vec
 and the codec are frozen: they tokenise under no_grad, in their own dtype.
 
@@ -41,11 +42,14 @@ def masked_cross_entropy(logits, labels, ignore_index: int = -1):
 
 
 def _wav2vec_ids(wav2vec, wave, input_sample_hz=None):
-    """The semantic ids (B, frames) of a waveform, from the frozen wav2vec."""
+    """The semantic ids (B, frames * groups) of a waveform, from the frozen
+    wav2vec: a grouped one (vq-wav2vec, (B, frames, groups)) flattened with
+    each frame's groups side by side, as the JAX wrappers' forward does."""
     if wav2vec is None:
         raise ValueError("raw_wave needs the wrapper's wav2vec")
     with torch.no_grad():
-        return wav2vec(wave, flatten=False, input_sample_hz=input_sample_hz)
+        ids = wav2vec(wave, flatten=False, input_sample_hz=input_sample_hz)
+    return ids.reshape(ids.shape[0], -1)
 
 
 def _check_wav2vec(wav2vec, num_semantic_tokens):

@@ -4,11 +4,13 @@
 The public functions take JAX's channels-last layout, x (B, T, C), and
 PyTorch's weight layouts: (out, in, K) for a convolution and (in, out, K)
 for a transposed one; they transpose to (B, C, T) inside. The left padding
-of a causal convolution, dilation * (K - 1) + 1 - stride samples, reflects
-as numpy's `pad(mode="reflect")` does, again and again when the pad is as
-long as the input or longer, where `F.pad` refuses; so a decode of fewer
-frames than the pad matches the JAX package. Reflection is the only padding
-the JAX codec's configurations use (`pad_mode="reflect"`). The convolutions
+of a causal convolution, dilation * (K - 1) + 1 - stride samples, takes
+`pad_mode` as the JAX package gives it to `jnp.pad`: "reflect" (the
+default) as numpy's `pad(mode="reflect")` does, again and again when the
+pad is as long as the input or longer, where `F.pad` refuses, so a decode
+of fewer frames than the pad matches the JAX package; "constant" (zeros);
+"edge" (the first sample repeated, `F.pad`'s "replicate"). Any other mode
+raises where the convolution is built. The convolutions
 are cuDNN's, as the JAX package leaves them to XLA. Weights are cast to
 the input's dtype (`conv`): a bfloat16 input convolves in bfloat16, on the
 card; on the CPU in float32, its output rounded to bfloat16 (XLA's CPU
@@ -27,7 +29,11 @@ from torch import nn
 from ..nn.layers import init_uniform
 
 __all__ = ["conv", "causal_conv1d", "causal_conv_transpose1d", "CausalConv1d",
-           "CausalConvTranspose1d", "reflect_pad_left"]
+           "CausalConvTranspose1d", "reflect_pad_left", "pad_left", "check_pad_mode",
+           "PAD_MODES"]
+
+# the modes of the JAX package's `jnp.pad` that the port pads with
+PAD_MODES = ("reflect", "constant", "edge")
 
 
 def conv(fn, x, weight, bias=None, **kwargs):
@@ -56,12 +62,29 @@ def reflect_pad_left(x, pad: int):
     return x.index_select(1, idx)
 
 
-def causal_conv1d(x, weight, bias=None, *, stride: int = 1, dilation: int = 1):
+def check_pad_mode(pad_mode: str) -> str:
+    if pad_mode not in PAD_MODES:
+        raise NotImplementedError(f"pad_mode={pad_mode!r} is not ported: one of {PAD_MODES}")
+    return pad_mode
+
+
+def pad_left(x, pad: int, pad_mode: str = "reflect"):
+    """x (B, T, C) with `pad` samples in front, as `jnp.pad(mode=pad_mode)`
+    gives them."""
+    if check_pad_mode(pad_mode) == "reflect":
+        return reflect_pad_left(x, pad)
+    if pad_mode == "constant":
+        return torch.cat([x.new_zeros(x.shape[0], pad, *x.shape[2:]), x], dim=1)
+    return torch.cat([x[:, :1].expand(-1, pad, *x.shape[2:]), x], dim=1)
+
+
+def causal_conv1d(x, weight, bias=None, *, stride: int = 1, dilation: int = 1,
+                  pad_mode: str = "reflect"):
     """x: (B, T, Cin); weight: (Cout, Cin, K). Returns (B, T', Cout)."""
     k = weight.shape[-1]
     pad = dilation * (k - 1) + (1 - stride)
     if pad > 0:
-        x = reflect_pad_left(x, pad)
+        x = pad_left(x, pad, pad_mode)
     elif pad < 0:
         x = x[:, -pad:]
     y = conv(F.conv1d, x.transpose(1, 2), weight, stride=stride, dilation=dilation)
@@ -81,16 +104,18 @@ def causal_conv_transpose1d(x, weight, bias=None, *, stride: int):
 
 class CausalConv1d(nn.Module):
     def __init__(self, chan_in: int, chan_out: int, kernel_size: int, *, stride: int = 1,
-                 dilation: int = 1, generator: "torch.Generator | None" = None):
+                 dilation: int = 1, pad_mode: str = "reflect",
+                 generator: "torch.Generator | None" = None):
         super().__init__()
         lim = 1.0 / math.sqrt(chan_in * kernel_size)
         self.weight = nn.Parameter(init_uniform((chan_out, chan_in, kernel_size), lim, generator))
         self.bias = nn.Parameter(torch.zeros(chan_out))
         self.kernel_size, self.stride, self.dilation = kernel_size, stride, dilation
+        self.pad_mode = check_pad_mode(pad_mode)
 
     def forward(self, x):
         return causal_conv1d(x, self.weight, self.bias, stride=self.stride,
-                             dilation=self.dilation)
+                             dilation=self.dilation, pad_mode=self.pad_mode)
 
 
 class CausalConvTranspose1d(nn.Module):

@@ -1,6 +1,10 @@
-"""Residual vector quantization of the codec, held against the JAX
-package's `ops/quantize.py` (`VectorQuantizeEMA`, `ResidualVQ`,
-`GroupedResidualVQ`), in eval and in training.
+"""The codec's quantizers, held against the JAX package's
+`ops/quantize.py` in eval and in training: residual vector quantization
+(`VectorQuantizeEMA`, `ResidualVQ`), lookup-free quantization (`LFQ`,
+`ResidualLFQ`) and finite scalar quantization (`FSQ`, `ResidualFSQ`), each
+also grouped (`GroupedResidualVQ`, `GroupedResidualLFQ`,
+`GroupedResidualFSQ`: the feature dim split, one residual quantizer a
+group).
 
 The nearest-code search is K6 (`ops/kernels/vq.py`) in both. The codebooks
 and the EMA statistics are buffers, so a JAX checkpoint loads whole. In
@@ -17,16 +21,27 @@ Every random draw (kmeans' candidates and starting permutation, dead-code
 candidates, the dropout index, Gumbel noise) is made by one of the small
 `draw_*` functions below from the caller's generator (on the CPU, so the
 card and the CPU draw the same numbers from one seed).
+
+LFQ and FSQ have no codebook to search: a code is a pattern of sign bits
+(LFQ) or of values rounded onto a grid (FSQ), in plain PyTorch on the card
+as on the CPU, in float32 whatever the input's dtype. Their projections
+in and out of the code's width are Linear layers; FSQ's `levels_arr` is a
+parameter, because the JAX package trains it (a float array outside a
+Buffer).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..nn.layers import Linear, init_uniform
 from .kernels.vq import vq_nearest_code
 
-__all__ = ["VectorQuantizeEMA", "ResidualVQ", "GroupedResidualVQ", "draw_randint",
+__all__ = ["VectorQuantizeEMA", "ResidualVQ", "GroupedResidualVQ", "LFQ", "ResidualLFQ",
+           "GroupedResidualLFQ", "FSQ", "ResidualFSQ", "GroupedResidualFSQ", "draw_randint",
            "draw_permutation", "draw_dropout_index", "draw_uniform"]
 
 
@@ -210,6 +225,12 @@ class VectorQuantizeEMA(nn.Module):
         return out, idx, commit
 
 
+def _dropped(x):
+    """A dropped quantizer's codes (-1) and loss (0) for input x (B, N, D)."""
+    return (torch.full(x.shape[:-1], -1, dtype=torch.long, device=x.device),
+            torch.zeros((), device=x.device))
+
+
 class ResidualVQ(nn.Module):
     """`num_quantizers` codebooks, each quantizing what the ones before it
     left. With quantize_dropout, training keeps the quantizers up to one
@@ -260,8 +281,9 @@ class ResidualVQ(nn.Module):
         all_idx, all_loss = [], []
         for qi, layer in enumerate(self.layers):
             if qi > last:
-                all_idx.append(torch.full(x.shape[:-1], -1, dtype=torch.long, device=x.device))
-                all_loss.append(torch.zeros((), device=x.device))
+                idx, loss = _dropped(x)
+                all_idx.append(idx)
+                all_loss.append(loss)
                 continue
             quantized, idx, loss = layer(residual, train=train, generator=generator)
             residual = residual - quantized.detach()
@@ -282,14 +304,18 @@ class ResidualVQ(nn.Module):
         return out
 
 
-class GroupedResidualVQ(nn.Module):
-    """The feature dim split into `groups`, one ResidualVQ each."""
+class _GroupedResidual(nn.Module):
+    """The feature dim split into `groups`, one residual quantizer of
+    `inner_cls` each, built with the remaining arguments."""
+
+    inner_cls = None
 
     def __init__(self, *, dim: int, groups: int = 1, **kwargs):
         super().__init__()
         if dim % groups:
             raise ValueError(f"dim {dim} is not a multiple of groups {groups}")
-        self.rvqs = nn.ModuleList(ResidualVQ(dim=dim // groups, **kwargs) for _ in range(groups))
+        self.rvqs = nn.ModuleList(self.inner_cls(dim=dim // groups, **kwargs)
+                                  for _ in range(groups))
         self.dim = dim
         self.groups = groups
 
@@ -311,3 +337,219 @@ class GroupedResidualVQ(nn.Module):
         """indices (G, B, N, Q') -> (B, N, D)."""
         return torch.cat([rvq.get_output_from_indices(indices[g])
                           for g, rvq in enumerate(self.rvqs)], dim=-1)
+
+
+class GroupedResidualVQ(_GroupedResidual):
+    inner_cls = ResidualVQ
+
+
+def _projection(dim_in: int, dim_out: int, lim: float, generator):
+    """A bias-free Linear (dim_in -> dim_out) uniform in +-lim, as the JAX
+    package draws LFQ's and FSQ's projections (lim 1 / sqrt(dim) both
+    ways)."""
+    layer = Linear(dim_in, dim_out, bias=False, generator=generator)
+    layer.weight.data = init_uniform((dim_out, dim_in), lim, generator)
+    return layer
+
+
+class _ResidualScalar(nn.Module):
+    """The residual loop of LFQ and FSQ layers: layer q quantizes what the
+    ones before it left, at scale `scales[q]`. With quantize_dropout,
+    training keeps the layers up to one index drawn each call from
+    [quantize_dropout_cutoff_index, Q) and drops the rest (code -1, no
+    output, no loss)."""
+
+    def __init__(self, layers, *, dim: int, quantize_dropout: bool,
+                 quantize_dropout_cutoff_index: int, scales):
+        super().__init__()
+        self.layers = nn.ModuleList(layers)
+        self.dim = dim
+        self.num_quantizers = len(layers)
+        self.codebook_size = layers[0].codebook_size
+        self.quantize_dropout = quantize_dropout and self.num_quantizers > 1
+        self.quantize_dropout_cutoff_index = quantize_dropout_cutoff_index
+        self.scales = tuple(scales)
+
+    def forward(self, x, *, train: bool = False, generator=None):
+        """x (B, N, D) -> (quantized, indices (B, N, Q) int64 with -1 for a
+        dropped layer, losses (Q,))."""
+        last = self.num_quantizers - 1
+        if train and self.quantize_dropout:
+            if generator is None:
+                raise ValueError("quantizer dropout needs a torch.Generator")
+            last = draw_dropout_index(generator, self.quantize_dropout_cutoff_index,
+                                      self.num_quantizers)
+        residual = x
+        out = torch.zeros_like(x)
+        all_idx, all_loss = [], []
+        for qi, (layer, scale) in enumerate(zip(self.layers, self.scales)):
+            if qi > last:
+                idx, loss = _dropped(x)
+            else:
+                quantized, idx, loss = layer(residual / scale, train=train)
+                quantized = quantized * scale
+                residual = residual - quantized.detach()
+                out = out + quantized
+            all_idx.append(idx)
+            all_loss.append(loss)
+        return out, torch.stack(all_idx, -1), torch.stack(all_loss)
+
+    def get_output_from_indices(self, indices):
+        """indices (B, N, Q') with -1 for dropped or padded codes -> (B, N, D)."""
+        out = torch.zeros(*indices.shape[:-1], self.dim, device=indices.device)
+        for qi, (layer, scale) in enumerate(zip(self.layers[: indices.shape[-1]], self.scales)):
+            idx = indices[..., qi]
+            emb = layer.decode(idx.clamp(min=0)) * scale
+            out = out + torch.where((idx >= 0)[..., None], emb, 0.0)
+        return out
+
+
+class LFQ(nn.Module):
+    """Lookup-free quantization: each of log2(codebook_size) dims is a sign
+    bit, the code the bit pattern weighted by 2 ** arange(bits), with
+    projections in and out when dim differs. The loss: the commitment
+    loss, and in training entropy_loss_weight times the entropy term (the
+    mean per-sample bit entropy of p = sigmoid(4 z) less diversity_gamma
+    times the entropy of the batch's mean p, 1e-9 inside each log)."""
+
+    def __init__(self, *, dim: int, codebook_size: int, entropy_loss_weight: float = 0.1,
+                 commitment_weight: float = 0.25, diversity_gamma: float = 1.0, generator=None):
+        super().__init__()
+        bits = math.log2(codebook_size)
+        if not bits.is_integer():
+            raise ValueError(f"LFQ codebook_size must be a power of 2, not {codebook_size}")
+        self.codebook_bits = int(bits)
+        self.dim = dim
+        self.codebook_size = codebook_size
+        self.entropy_loss_weight = entropy_loss_weight
+        self.commitment_weight = commitment_weight
+        self.diversity_gamma = diversity_gamma
+        if dim != self.codebook_bits:
+            lim = 1.0 / math.sqrt(dim)
+            self.project_in = _projection(dim, self.codebook_bits, lim, generator)
+            self.project_out = _projection(self.codebook_bits, dim, lim, generator)
+        else:
+            self.project_in = self.project_out = None
+        self.register_buffer("bit_weights",
+                             2 ** torch.arange(self.codebook_bits, dtype=torch.int32))
+
+    def decode(self, indices):
+        bits = ((indices[..., None] & self.bit_weights) > 0).float()
+        z = bits * 2.0 - 1.0
+        return self.project_out(z) if self.project_out is not None else z
+
+    def forward(self, x, *, train: bool = False):
+        """(quantized, indices, loss) of x (..., dim)."""
+        z = self.project_in(x) if self.project_in is not None else x
+        zf = z.float()
+        quantized = torch.where(zf > 0, 1.0, -1.0)
+        idx = ((zf > 0).to(torch.int32) * self.bit_weights).sum(-1).long()
+        loss = self.commitment_weight * (zf - quantized.detach()).square().mean()
+        if train and self.entropy_loss_weight > 0:
+            p = torch.sigmoid(4.0 * zf)
+            per_sample = (-p * torch.log(p + 1e-9) - (1 - p) * torch.log(1 - p + 1e-9)).mean()
+            mean_p = p.reshape(-1, p.shape[-1]).mean(0)
+            batch = (-mean_p * torch.log(mean_p + 1e-9)
+                     - (1 - mean_p) * torch.log(1 - mean_p + 1e-9)).mean()
+            loss = loss + self.entropy_loss_weight * (per_sample - self.diversity_gamma * batch)
+        out = zf + (quantized - zf).detach()
+        if self.project_out is not None:
+            out = self.project_out(out)
+        return out.to(x.dtype), idx, loss
+
+
+class ResidualLFQ(_ResidualScalar):
+    def __init__(self, *, dim: int, num_quantizers: int, codebook_size: int,
+                 quantize_dropout: bool = False, quantize_dropout_cutoff_index: int = 0,
+                 generator=None, **lfq_kwargs):
+        super().__init__([LFQ(dim=dim, codebook_size=codebook_size, generator=generator,
+                              **lfq_kwargs) for _ in range(num_quantizers)],
+                         dim=dim, quantize_dropout=quantize_dropout,
+                         quantize_dropout_cutoff_index=quantize_dropout_cutoff_index,
+                         scales=[1] * num_quantizers)
+
+
+class FSQ(nn.Module):
+    """Finite scalar quantization: each of len(levels) dims bounded by tanh
+    (shifted by arctanh(0.5 / half) for even levels, eps 1e-3) and rounded,
+    half to even, onto `levels[i]` values (straight-through), then scaled
+    into [-1, 1]; the code is the mixed-radix number of the rounded values
+    offset by ceil(half). Projections in and out when dim differs. No loss."""
+
+    def __init__(self, *, dim: int, levels, generator=None):
+        super().__init__()
+        self.levels = tuple(int(level) for level in levels)
+        self.codebook_size = math.prod(self.levels)
+        self.num_dims = len(self.levels)
+        self.dim = dim
+        if dim != self.num_dims:
+            lim = 1.0 / math.sqrt(dim)
+            self.project_in = _projection(dim, self.num_dims, lim, generator)
+            self.project_out = _projection(self.num_dims, dim, lim, generator)
+        else:
+            self.project_in = self.project_out = None
+        basis = [1]
+        for level in self.levels[:-1]:
+            basis.append(basis[-1] * level)
+        self.register_buffer("basis", torch.tensor(basis, dtype=torch.int32))
+        self.register_buffer("offset", torch.tensor([0.5 if level % 2 == 0 else 0.0
+                                                     for level in self.levels]),
+                             persistent=False)
+        self.register_buffer("levels_int", torch.tensor(self.levels, dtype=torch.int32),
+                             persistent=False)
+        self.levels_arr = nn.Parameter(torch.tensor(self.levels, dtype=torch.float32))
+
+    def _half(self):
+        return (self.levels_arr.float() - 1.0) / 2.0
+
+    def _quantize(self, z, eps: float = 1e-3):
+        half = (self.levels_arr.float() - 1.0) * (1.0 - eps) / 2.0
+        shift = torch.atanh(self.offset / half.clamp(min=1e-9))
+        bounded = torch.tanh(z + shift) * half - self.offset
+        return bounded + (torch.round(bounded) - bounded).detach()
+
+    def _codes_to_indices(self, codes):
+        levels = self.levels_arr.float()
+        shifted = codes + torch.ceil(self._half())
+        shifted = torch.minimum(shifted.clamp(min=0), levels - 1)
+        return (shifted.to(torch.int32) * self.basis).sum(-1).long()
+
+    def decode(self, indices):
+        codes = (indices[..., None] // self.basis) % self.levels_int
+        half = self._half()
+        z = (codes.float() - torch.ceil(half)) / half.clamp(min=1e-9)
+        return self.project_out(z) if self.project_out is not None else z
+
+    def forward(self, x, *, train: bool = False):
+        """(quantized, indices, loss 0) of x (..., dim)."""
+        z = self.project_in(x) if self.project_in is not None else x
+        q = self._quantize(z.float())
+        idx = self._codes_to_indices(q.detach())
+        out = q / self._half().clamp(min=1e-9)
+        if self.project_out is not None:
+            out = self.project_out(out)
+        return out.to(x.dtype), idx, torch.zeros((), device=x.device)
+
+
+class ResidualFSQ(_ResidualScalar):
+    """FSQ layers, layer q at scale scale_factor ** q (2 / min(levels) by
+    default), so the codes refine as an RVQ's do."""
+
+    def __init__(self, *, dim: int, levels, num_quantizers: int, quantize_dropout: bool = False,
+                 quantize_dropout_cutoff_index: int = 0, scale_factor: "float | None" = None,
+                 generator=None):
+        factor = scale_factor if scale_factor is not None else 2.0 / min(levels)
+        super().__init__([FSQ(dim=dim, levels=levels, generator=generator)
+                          for _ in range(num_quantizers)],
+                         dim=dim, quantize_dropout=quantize_dropout,
+                         quantize_dropout_cutoff_index=quantize_dropout_cutoff_index,
+                         scales=[factor ** qi for qi in range(num_quantizers)])
+        self.scale_factor = factor
+
+
+class GroupedResidualLFQ(_GroupedResidual):
+    inner_cls = ResidualLFQ
+
+
+class GroupedResidualFSQ(_GroupedResidual):
+    inner_cls = ResidualFSQ

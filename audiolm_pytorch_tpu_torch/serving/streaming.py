@@ -14,8 +14,13 @@ from a weight's shape, whose layout differs from JAX's. A window's start is
 aligned to the attention window, so the local attention buckets frames as
 the offline pass does.
 
+A codec with squeeze-excite or GateLoop layers reaches back to the start
+of the signal: both lookbacks are -1 there and both classes raise, as
+JAX's do. The quantizer is whichever the codec has (VQ, LFQ or FSQ): each
+codes a frame from that frame's embedding alone.
+
 Each chunk runs eagerly on the codec's device: the encoder's conv stack,
-K7 in `encoder_attn` and K6 in each residual search; the decoder's
+K7 in `encoder_attn` and K6 in each residual search (a VQ codec's); the decoder's
 `decode_from_codebook_indices`, with K7 in `decoder_attn`. Input and output
 cross the boundary as numpy arrays, as in JAX: codes as int32 (G, B, m, Q),
 waveforms as float32 (B, m * DS).
@@ -34,9 +39,16 @@ __all__ = ["StreamingCodecDecoder", "StreamingCodecEncoder", "decode_lookback_fr
 
 
 def _unbounded_unit(res) -> bool:
-    """A residual unit whose reach is the whole past (squeeze-excite's
-    cumulative mean). The port has none yet (`soundstream._UNPORTED`)."""
-    return getattr(res, "se", None) is not None
+    """A residual unit whose reach is the whole past: one with
+    squeeze-excite, whose gate reads the causal mean of every frame so
+    far."""
+    return res.se is not None
+
+
+def _check_mono(codec: SoundStream):
+    if codec.input_channels != 1:
+        raise ValueError("streaming a codec of more than one input channel is not ported: "
+                         "tokenize or decode the whole signal")
 
 
 def decode_lookback_frames(codec: SoundStream) -> int:
@@ -109,6 +121,7 @@ class StreamingCodecEncoder:
     """
 
     def __init__(self, codec: SoundStream, *, chunk_frames: int = 16):
+        _check_mono(codec)
         self.codec = codec
         self.device = _device(codec)
         self.ds = codec.seq_len_multiple_of
@@ -203,6 +216,7 @@ class StreamingCodecDecoder:
     """
 
     def __init__(self, codec: SoundStream, *, chunk_frames: int = 16):
+        _check_mono(codec)
         self.codec = codec
         self.device = _device(codec)
         self.ds = codec.seq_len_multiple_of

@@ -12,8 +12,9 @@ Buffer leaves (the codec's codebooks and EMA statistics) carry a literal
 codec's map also runs the other way (`codec_state_dict_to_jax`), so the
 port writes checkpoints the JAX package reads; so does the LMs' map
 (`lm_state_dict_to_jax`). `hubert_state_dict_from_jax` carries a JAX
-HubertWithKmeans's weights and centres into the port's, and
-`t5_state_dict_from_jax` a T5Encoder's.
+HubertWithKmeans's weights and centres into the port's,
+`t5_state_dict_from_jax` a T5Encoder's, `encodec_state_dict_from_jax` an
+EncodecWrapper's and `vq_wav2vec_state_dict_from_jax` a FairseqVQWav2Vec's.
 """
 from __future__ import annotations
 
@@ -25,7 +26,8 @@ import torch
 
 __all__ = ["read_npz", "state_dict_from_jax", "lm_state_dict_to_jax",
            "codec_state_dict_from_jax", "codec_state_dict_to_jax",
-           "hubert_state_dict_from_jax", "t5_state_dict_from_jax", "DISCRIMINATORS"]
+           "hubert_state_dict_from_jax", "t5_state_dict_from_jax", "encodec_state_dict_from_jax",
+           "vq_wav2vec_state_dict_from_jax", "DISCRIMINATORS"]
 
 # slots of one JAX Transformer layer tuple (hc_attn, attn, hc_cross, cross, hc_ff, ff)
 _LAYER_SLOTS = {0: "hc_attn", 1: "attn", 2: "hc_cross", 3: "cross", 4: "hc_ff", 5: "ff"}
@@ -151,15 +153,26 @@ def _codec_layout(key: str, ndim: int):
     return None
 
 
+# LFQ's and FSQ's projections: a bare (in, out) matrix in JAX, a Linear's
+# (out, in) weight in the port
+_PROJECTIONS = ("project_in", "project_out")
+# integer arrays of LFQ and FSQ that JAX keeps as plain leaves, not Buffers
+_PLAIN_INT_LEAVES = ("bit_weights", "basis")
+
+
 def codec_state_dict_from_jax(named_arrays) -> "dict[str, torch.Tensor]":
     """Map {JAX key path: array} of a SoundStream, its discriminators and
     its quantizers' training state included, to the port's state_dict:
     bfloat16 leaves become float32 (the model's type) and each weight takes
-    the port's layout (`_codec_layout`)."""
+    the port's layout (`_codec_layout`); LFQ's and FSQ's projections
+    become Linear weights (`project_in` -> `project_in.weight`,
+    transposed)."""
     out = {}
     for path, a in named_arrays.items():
         t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a))
         key = _port_key(path, lm_layers=False)
+        if key.rsplit(".", 1)[-1] in _PROJECTIONS:
+            key += ".weight"
         if t.dtype == torch.bfloat16:
             t = t.float()
         perm = _codec_layout(key, t.ndim)
@@ -170,14 +183,61 @@ def codec_state_dict_from_jax(named_arrays) -> "dict[str, torch.Tensor]":
 def codec_state_dict_to_jax(state_dict, buffers=()) -> "dict[str, np.ndarray]":
     """The inverse of `codec_state_dict_from_jax`: {JAX key path: numpy
     array} of a port SoundStream's state_dict, each leaf in the JAX layout;
-    the names in `buffers` (the module's buffers) get JAX's buffer suffix.
-    The arrays are copies."""
+    the names in `buffers` (the module's buffers) get JAX's buffer suffix,
+    but for LFQ's and FSQ's integer arrays, plain leaves in JAX. The
+    arrays are copies."""
     buffers = set(buffers)
     out = {}
     for key, t in state_dict.items():
         perm = _codec_layout(key, t.ndim)
         if perm:
             t = t.permute(*sorted(range(t.ndim), key=perm.__getitem__))
-        out[_jax_path(key) + (_BUFFER_LEAF if key in buffers else "")] = \
+        path = _jax_path(key)
+        if path.endswith(tuple(f".{p}.weight" for p in _PROJECTIONS)):
+            path = path[: -len(".weight")]
+        buffer = key in buffers and key.rsplit(".", 1)[-1] not in _PLAIN_INT_LEAVES
+        out[path + (_BUFFER_LEAF if buffer else "")] = \
             t.detach().to("cpu", copy=True).contiguous().numpy()
+    return out
+
+
+_LSTM_CELL = re.compile(r"(enc|dec)_lstm\.cells\.(\d+)\.(\d)$")
+_LSTM_LEAVES = ("weight_ih", "weight_hh", "bias_ih", "bias_hh")
+
+
+def encodec_state_dict_from_jax(named_arrays) -> "dict[str, torch.Tensor]":
+    """Map {JAX key path: array} of an EncodecWrapper to the port's
+    state_dict: convolution weights (K, in, out) -> (out, in, K), the
+    decoder's transposed ones (`dec_blocks[i][0]`) -> (in, out, K); each
+    LSTM cell's (W_ih, W_hh, b_ih, b_hh), W (in, 4 out) -> (4 out, in), to
+    `torch.nn.LSTM`'s `weight_ih_l{j}` ...; the quantizers' state as it
+    is."""
+    out = {}
+    for path, a in named_arrays.items():
+        t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a))
+        key = _port_key(path, lm_layers=False)
+        cell = _LSTM_CELL.match(key)
+        if cell:
+            side, layer, slot = cell.groups()
+            key = f"{side}_lstm.{_LSTM_LEAVES[int(slot)]}_l{layer}"
+            t = t.t() if t.ndim == 2 else t
+        elif key.endswith(".weight") and t.ndim == 3:
+            t = t.permute(1, 2, 0) if re.fullmatch(r"dec_blocks\.\d+\.0\.weight", key) \
+                else t.permute(2, 1, 0)
+        out[key] = t.float().contiguous() if t.is_floating_point() else t
+    return out
+
+
+def vq_wav2vec_state_dict_from_jax(named_arrays) -> "dict[str, torch.Tensor]":
+    """Map {JAX key path: array} of a FairseqVQWav2Vec to the port's
+    state_dict: the convolutions' weights (K, in, out) -> (out, in, K); the
+    norms, the codewords and the grouped projection (G, in, out) as they
+    are."""
+    out = {}
+    for path, a in named_arrays.items():
+        t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a))
+        key = _port_key(path, lm_layers=False)
+        if key.startswith("encoder.") and key.endswith(".weight"):
+            t = t.permute(2, 1, 0)
+        out[key] = t.float().contiguous()
     return out

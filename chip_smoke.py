@@ -190,6 +190,30 @@ Phases, each printing its name and seconds:
                    of the card's decode; generate on the banked chain
                    (--max-length 50), a finite, non-silent 16 kHz WAV; the
                    wall seconds and launches of each subcommand.
+  25. encodec      - EncodecWrapper at its default width (24 kHz, channels
+                   32, 8 quantizers of 1024 x 128): the 8 x 2-s round trip
+                   (K6 8 launches of 1200 rows of 128), timed, card vs CPU on
+                   1 s; K6 at that shape on the encoder's residuals against
+                   its plain version, addmm + argmin and its bound, and on
+                   planted near ties (the plain-TF32 build rejected).
+  26. audiolm encodec - AudioLM on FairseqVQWav2Vec (the released spec,
+                   320 codes in 2 groups) and EnCodec, the three LMs at the
+                   flagship width with 3 coarse + 5 fine quantizers: the
+                   Semantic and Coarse wrappers' losses from raw_wave (4 x
+                   2 s; K1, K6), card vs CPU on 1 s; a 1-s prompt continued
+                   greedily (50 new semantic ids, 25 coarse frames and their
+                   fine codes), its wall seconds and launches.
+  27. codec variants - at the trained codec's width (persist/
+                   soundstream_r5_73k.npz's __meta__ config) with window 128
+                   and 8 heads of 64: the residual VQ, LFQ (1024 codes), FSQ
+                   (levels 8, 5, 5, 5) and squeeze-excite + GateLoop codecs,
+                   the 8 x 2-s round trip (K6 8 and K7 2 launches for a VQ,
+                   K7 2 for LFQ and FSQ), timed (the VQ's and the
+                   squeeze-excite + GateLoop codec's profiled), card vs CPU
+                   on 1 s; one trainer G step and D step at 8 x 1 s for VQ,
+                   LFQ and FSQ, counted and timed, LFQ's and FSQ's losses
+                   card vs CPU. Run last: after its profiles torch.profiler
+                   was seen to miss launches in later windows.
 The training phases (6, and the Coarse step in 7-12) also train in bf16
 compute beside float32: ms per step of both, and on one batch with the
 same weights and mask the bf16 loss and gradients held to float32's
@@ -1943,8 +1967,9 @@ def wave_error(card, cpu, label):
     return rel
 
 
-def compare_codes(cpu_codec, card_h, cpu_h, card_codes, cpu_codes):
-    """Card codes against the CPU port's: a frame may differ only where its
+def compare_codes(layers, card_h, cpu_h, card_codes, cpu_codes):
+    """Card codes (B, N, Q) against the CPU port's, the CPU's quantizer
+    `layers` in order: a frame may differ only where its
     first differing quantizer is a near tie, one the deviation of the two
     encoders' output explains: the CPU's float64 scores of the two codes
     differ by at most 4 |h_card - h_cpu| |e_a - e_b| (a residual moved by
@@ -1953,16 +1978,15 @@ def compare_codes(cpu_codec, card_h, cpu_h, card_codes, cpu_codes):
     residuals = []
     with torch.no_grad():
         r = cpu_h
-        for layer in cpu_codec.rq.rvqs[0].layers:
+        for layer in layers:
             residuals.append(r)
             r = r - layer(r)[0]
-    card_codes, cpu_codes = card_codes[0], cpu_codes[0]  # one group: (B, N, Q)
     frames = (card_codes != cpu_codes).any(-1).nonzero().tolist()
     delta = (card_h - cpu_h).norm(dim=-1)
     gaps = []
     for b, n in frames:
         q = int((card_codes[b, n] != cpu_codes[b, n]).nonzero()[0])
-        cb = cpu_codec.rq.rvqs[0].layers[q].codebook.double()
+        cb = layers[q].codebook.double()
         x = residuals[q][b, n].double()
         a, c = int(card_codes[b, n, q]), int(cpu_codes[b, n, q])
         gap = ((cb[a].square().sum() - 2 * x @ cb[a]) - (cb[c].square().sum() - 2 * x @ cb[c]))
@@ -2031,7 +2055,8 @@ def codec_phase(seed):
         clip = x[:1, :SR]
         card_h, cpu_h = codec.encode_frames(clip).cpu(), cpu.encode_frames(clip.cpu())
         card_codes, cpu_codes = codec.tokenize(clip).cpu(), cpu.tokenize(clip.cpu())
-        differ, gap = compare_codes(cpu, card_h, cpu_h, card_codes, cpu_codes)
+        differ, gap = compare_codes(cpu.rq.rvqs[0].layers, card_h, cpu_h, card_codes[0],
+                                    cpu_codes[0])
         ref = cpu.decode_from_codebook_indices(cpu_codes)
         rel = wave_error(codec.decode_from_codebook_indices(cpu_codes.to(DEV)), ref, "codec 1x1s")
         threads = torch.get_num_threads()
@@ -3744,6 +3769,398 @@ def cli_phase(seed):
             {k: v["wall_s"] for k, v in runs.items()})
 
 
+# the codec variants at the width of the repository's trained codec
+# (persist/soundstream_r5_73k.npz's config, read from its __meta__: channels
+# 48, strides (2, 4, 5, 8), codebook dim 512, 8 quantizers, the small
+# discriminators) with the AudioLM preset's attention (window 128, 8 heads of
+# 64) and the GAN's loss weights; the residual VQ beside them
+CODEC_VARIANTS = {"rvq": {},
+                  "lfq": dict(use_lookup_free_quantizer=True, codebook_size=1024, rq_kwargs={}),
+                  "fsq": dict(use_finite_scalar_quantizer=True, codebook_size=None,
+                              finite_scalar_quantizer_levels=(8, 5, 5, 5), rq_kwargs={}),
+                  "se_gateloop": dict(squeeze_excite=True, use_gate_loop_layers=True)}
+# a G step and a D step of the trainer at batch 8 x 1 s, timed over this many
+# steps after two warm ones
+VARIANT_STEPS = 3
+
+
+def variant_config(name):
+    with np.load(STREAM_CODEC) as data:
+        cfg = json.loads(bytes(data["__meta__"].tobytes()).decode())["config"]
+    cfg.update(attn_window_size=128, attn_heads=8, attn_dim_head=64, **GAN)
+    cfg.update(CODEC_VARIANTS[name])
+    return cfg
+
+
+def variant_codec(name, seed, rng, discriminators=False):
+    """A variant at the trained codec's width, random weights from `seed`; a
+    VQ's codebooks filled from a calibration batch's residuals."""
+    from audiolm_pytorch_tpu_torch import SoundStream
+    codec = SoundStream(**variant_config(name), seed=seed, discriminators=discriminators,
+                        device=DEV).eval()
+    if not (codec.use_lookup_free_quantizer or codec.use_finite_scalar_quantizer):
+        calib = torch.from_numpy(0.1 * rng.standard_normal((2 * CODEC_B, CODEC_S * SR),
+                                                           dtype=np.float32)).to(DEV)
+        fill_codebooks(codec, calib, seed)
+    return codec
+
+
+def scalar_codes_gate(label, card_h, cpu_h, card_codes, cpu_codes):
+    """LFQ's or FSQ's card codes against the CPU port's: the encoders'
+    outputs within 1e-4 of their peak, so a code can move only where a
+    value sits on a sign or rounding boundary; at most 1% of the frames."""
+    h_rel = ((card_h - cpu_h).abs().max() / cpu_h.abs().max()).item()
+    differ = int((card_codes != cpu_codes).any(-1).sum())
+    total = cpu_codes[..., 0].numel()
+    if h_rel > 1e-4 or differ > 0.01 * total:
+        raise AssertionError(f"{label}: encoder outputs {h_rel:.3e} of the peak apart, "
+                             f"{differ} of {total} frames' codes differ")
+    return differ, h_rel
+
+
+def variant_trainer(name, seed, clips):
+    from audiolm_pytorch_tpu_torch import SoundStream, SoundStreamTrainer
+    kw = {k: v for k, v in TRAINER_KW.items() if k != "data_max_length"}
+    return SoundStreamTrainer(SoundStream(**variant_config(name), seed=seed, device=DEV),
+                              dataset=clips, val_dataset=clips[:2], seed=seed, device=DEV,
+                              results_folder=ROOT / "build" / f"variant_{name}", **kw)
+
+
+@phase("codec variants")
+def codec_variants_phase(seed):
+    """The residual VQ codec, an LFQ codec (1024 codes), an FSQ codec
+    (levels 8, 5, 5, 5) and a squeeze-excite + GateLoop codec at the
+    trained codec's width: the tokenize -> decode round trip of 8 x 2 s
+    (launches zeroed just before one round trip and read just after:
+    K6 8 times for a VQ, none for LFQ and FSQ, K7 twice), timed, and held
+    against the CPU port on a 1-s clip (codes equal but for near ties, the
+    waveform from the same codes within WAVE_REL_TOL); then one
+    SoundStreamTrainer G step and D step (batch 8 x 1 s, GAN weights) for
+    the VQ, LFQ and FSQ codecs, counted, timed, and for LFQ and FSQ held
+    against the CPU port from the same weights, batch and draws on 4 clips
+    (each G loss term and the D loss within LOSS_REL)."""
+    from audiolm_pytorch_tpu_torch import SoundStream
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(seed + 61)
+    x = torch.from_numpy(0.1 * rng.standard_normal((CODEC_B, CODEC_S * SR),
+                                                   dtype=np.float32)).to(DEV)
+    paths, results = {}, {}
+    for name in CODEC_VARIANTS:
+        codec = variant_codec(name, seed, rng)
+        vq_codec = not (codec.use_lookup_free_quantizer or codec.use_finite_scalar_quantizer)
+        with torch.no_grad():
+            codec.decode_from_codebook_indices(codec.tokenize(x))  # warm
+            torch.cuda.synchronize()
+            zero_counts()
+            codes = codec.tokenize(x)
+            y = codec.decode_from_codebook_indices(codes)
+            torch.cuda.synchronize()
+            launched = counts()
+            want = {n: 0 for n in COUNTERS}
+            want.update(launches_vq=8 if vq_codec else 0, launches_local=2)
+            if launched != want:
+                raise AssertionError(f"codec variants [{name}] round trip launches {launched} "
+                                     f"!= {want}")
+            distinct = codes[0, :, :, 0].unique().numel()
+            if codes.shape != (1, CODEC_B, CODEC_S * HZ, 8) or y.shape != x.shape \
+                    or not torch.isfinite(y).all() or distinct < min(50, codes[0].numel() // 32):
+                raise AssertionError(f"codec variants [{name}]: codes {tuple(codes.shape)} "
+                                     f"({distinct} distinct), wave {tuple(y.shape)}")
+            ms = cuda_ms(lambda: codec.decode_from_codebook_indices(codec.tokenize(x)), iters=5)
+            if name in ("rvq", "se_gateloop"):
+                busy, wall, _ = profile(f"codec variants [{name}] round trip",
+                                        lambda: codec.decode_from_codebook_indices(
+                                            codec.tokenize(x)), top=10)
+                results[f"{name}_idle"] = 1 - busy / wall
+            cpu = copy.deepcopy(codec).cpu()
+            clip = x[:1, :SR]
+            card_h, cpu_h = codec.encode_frames(clip).cpu(), cpu.encode_frames(clip.cpu())
+            card_codes, cpu_codes = codec.tokenize(clip).cpu(), cpu.tokenize(clip.cpu())
+            if vq_codec:
+                differ, _ = compare_codes(cpu.rq.rvqs[0].layers, card_h, cpu_h, card_codes[0],
+                                          cpu_codes[0])
+            else:
+                differ, _ = scalar_codes_gate(f"codec variants [{name}]", card_h, cpu_h,
+                                              card_codes, cpu_codes)
+            rel = wave_error(codec.decode_from_codebook_indices(cpu_codes.to(DEV)),
+                             cpu.decode_from_codebook_indices(cpu_codes), f"codec variants "
+                             f"[{name}]")
+        audio_s = CODEC_B * CODEC_S
+        print(f"codec variants [{name}] round trip {CODEC_B}x{CODEC_S}s: {ms:.2f} ms "
+              f"({audio_s / ms * 1e3:.1f} s of audio per s) | quantizer 0 uses {distinct} of "
+              f"{codec.codebook_size} codes | launches K6 {launched['launches_vq']}, K7 "
+              f"{launched['launches_local']} | card vs CPU (1 s): {differ} of {HZ} frames' "
+              f"codes differ (near ties), waveform from the same codes {rel:.3e} of the peak")
+        paths[f"variant_{name}"] = launched
+        results[name] = dict(round_trip_ms=ms, codes_differ=differ, wave_rel=rel)
+        del codec, cpu
+        torch.cuda.empty_cache()
+
+    t_ = np.arange(TRAIN_SAMPLES) / SR
+    clips = [(0.4 * np.sin(2 * np.pi * f * t_) + 0.05 * rng.standard_normal(TRAIN_SAMPLES))
+             .astype(np.float32) for f in rng.uniform(100, 1000, TRAIN_B)]
+    waves = torch.from_numpy(np.stack(clips))[None].to(DEV)  # (accum 1, 8, 1 s)
+    for name in ("rvq", "lfq", "fsq"):
+        trainer = variant_trainer(name, seed, clips)
+        try:
+            for _ in range(2):  # warm (the VQ's kmeans init)
+                trainer.g_step(waves)
+                trainer.d_step(waves, False)
+            state = {k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()}
+            gen_state = trainer.generator.get_state()
+            torch.cuda.synchronize()
+            zero_counts()
+            g_loss, breakdown = trainer.g_step(waves)
+            d_loss = trainer.d_step(waves, False)
+            torch.cuda.synchronize()
+            launched = counts()
+            if launched["launches_local"] == 0 or (launched["launches_vq"] > 0) != (name == "rvq") \
+                    or not all(torch.isfinite(v).all() for v in (g_loss, breakdown, d_loss)):
+                raise AssertionError(f"codec variants [{name}] train step: launches {launched}, "
+                                     f"losses {g_loss} {breakdown} {d_loss}")
+            g_ms = cuda_ms(lambda: trainer.g_step(waves), iters=VARIANT_STEPS, warmup=0)
+            d_ms = cuda_ms(lambda: trainer.d_step(waves, False), iters=VARIANT_STEPS, warmup=0)
+            check = ""
+            if name != "rvq":
+                # card vs CPU from the same weights, batch and dropout draws
+                small = waves[:, :CPU_CHECK_B]
+                losses = []
+                for device in (DEV, "cpu"):
+                    model = trainer.model if device == DEV else SoundStream(
+                        **variant_config(name), device="cpu")
+                    model.load_state_dict(state)
+                    gen = torch.Generator()
+                    gen.set_state(gen_state)
+                    with torch.no_grad():
+                        total, terms = model(small[0].to(device), train=True, generator=gen,
+                                             return_loss_breakdown=True)
+                        d = model(small[0].to(device), return_discr_loss=True)
+                    losses.append([float(v) for v in (total, *terms, d)])
+                for i, (a, b) in enumerate(zip(*losses)):
+                    if not abs(a - b) <= LOSS_REL * max(abs(b), 1e-6):
+                        raise AssertionError(f"codec variants [{name}] card vs CPU: loss {i} "
+                                             f"{a} vs {b}")
+                if name == "lfq" and losses[1][-2] == 0.0:
+                    raise AssertionError("codec variants [lfq]: no commitment + entropy term")
+                check = (f" | card vs CPU ({CPU_CHECK_B}x1s, the same weights and draws): G "
+                         f"total {losses[0][0]:.6g}/{losses[1][0]:.6g}, commit "
+                         f"{losses[0][-2]:.6g}/{losses[1][-2]:.6g}, D {losses[0][-1]:.6g}/"
+                         f"{losses[1][-1]:.6g} (within {LOSS_REL})")
+        finally:
+            trainer.close()
+        print(f"codec variants [{name}] trainer {TRAIN_B}x1s: G step {g_ms:.2f} ms, D step "
+              f"{d_ms:.2f} ms (CUDA events, {VARIANT_STEPS} steps) | one G + D step launches "
+              f"K6 {launched['launches_vq']}, K7 {launched['launches_local']}{check}")
+        paths[f"variant_{name}_train"] = launched
+        results[f"{name}_train"] = dict(g_ms=g_ms, d_ms=d_ms)
+        del trainer
+        torch.cuda.empty_cache()
+    return paths, results
+
+
+ENCODEC_SR = 24000
+
+
+def encodec_codec(seed, rng):
+    """EnCodec at its default width (24 kHz, channels 32, 8 quantizers of
+    1024 x 128), random weights from `seed`, each codebook filled with rows
+    drawn from its residuals on a calibration batch."""
+    from audiolm_pytorch_tpu_torch import EncodecWrapper
+    codec = EncodecWrapper(seed=seed, device=DEV).eval()
+    calib = torch.from_numpy(0.1 * rng.standard_normal((2 * CODEC_B, CODEC_S * ENCODEC_SR),
+                                                       dtype=np.float32)).to(DEV)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    with torch.no_grad():
+        residual = codec.encode_frames(calib).reshape(-1, codec.codebook_dim)
+        for layer in codec.rq.layers:
+            rows = torch.randint(0, residual.shape[0], (layer.codebook_size,), generator=gen,
+                                 device=DEV)
+            layer.codebook.copy_(residual[rows])
+            residual = residual - layer(residual)[0]
+    return codec
+
+
+@phase("encodec")
+def encodec_phase(seed):
+    """EncodecWrapper at its default width: the tokenize -> decode round
+    trip of 8 x 2 s at 24 kHz (launches zeroed just before and read just
+    after: K6 8 times, 1200 rows of 128 against 1024 codes each), timed,
+    held against the CPU port on a 1-s clip; K6 at that shape on the
+    encoder's own residuals against its plain version and addmm + argmin
+    (with |e|^2 summed in the call and given) and its bound, and on planted
+    near ties (every row's two best codes 1.5e-5 to 4e-5 of the score's
+    terms apart) within the near-tie gate, the plain-TF32 build shown to
+    fail it."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(seed + 71)
+    codec = encodec_codec(seed, rng)
+    x = torch.from_numpy(0.1 * rng.standard_normal((CODEC_B, CODEC_S * ENCODEC_SR),
+                                                   dtype=np.float32)).to(DEV)
+    frames = CODEC_S * ENCODEC_SR // codec.downsample_factor
+    with torch.no_grad():
+        codec.decode_from_codebook_indices(codec.tokenize(x))  # warm
+        torch.cuda.synchronize()
+        zero_counts()
+        codes = codec.tokenize(x)
+        y = codec.decode_from_codebook_indices(codes)
+        torch.cuda.synchronize()
+        launched = counts()
+        want = {n: 0 for n in COUNTERS}
+        want.update(launches_vq=8)
+        if launched != want:
+            raise AssertionError(f"encodec round trip launches {launched} != {want}")
+        distinct = codes[:, :, 0].unique().numel()
+        if codes.shape != (CODEC_B, frames, 8) or y.shape != x.shape \
+                or not torch.isfinite(y).all() or distinct < min(50, codes.numel() // 32):
+            raise AssertionError(f"encodec: codes {tuple(codes.shape)} ({distinct} distinct), "
+                                 f"wave {tuple(y.shape)}")
+        ms = cuda_ms(lambda: codec.decode_from_codebook_indices(codec.tokenize(x)), iters=5)
+        tok_ms = cuda_ms(lambda: codec.tokenize(x), iters=5)
+        cpu = copy.deepcopy(codec).cpu()
+        clip = x[:1, :ENCODEC_SR]
+        card_h, cpu_h = codec.encode_frames(clip).cpu(), cpu.encode_frames(clip.cpu())
+        card_codes, cpu_codes = codec.tokenize(clip).cpu(), cpu.tokenize(clip.cpu())
+        differ, gap = compare_codes(cpu.rq.layers, card_h, cpu_h, card_codes, cpu_codes)
+        rel = wave_error(codec.decode_from_codebook_indices(cpu_codes.to(DEV)),
+                         cpu.decode_from_codebook_indices(cpu_codes), "encodec 1x1s")
+        h = codec.encode_frames(x).reshape(-1, codec.codebook_dim)
+    audio_s = CODEC_B * CODEC_S
+    print(f"encodec round trip {CODEC_B}x{CODEC_S}s at 24 kHz: {ms:.2f} ms ({audio_s / ms * 1e3:.1f}"
+          f" s of audio per s; tokenize alone {tok_ms:.2f} ms) | quantizer 0 uses {distinct} "
+          f"of 1024 codes | launches K6 {launched['launches_vq']}, K7 "
+          f"{launched['launches_local']} | card vs CPU (1 s): {differ} of "
+          f"{ENCODEC_SR // codec.downsample_factor} frames' codes differ (near ties, largest gap "
+          f"{gap:.3e}), waveform from the same codes {rel:.3e} of the peak")
+    label = f"{h.shape[0]}x128 vs 1024x128 (EnCodec's first search of 8 x 2 s)"
+    vq_encodec = check_vq(h.contiguous(), codec.rq.layers[0].codebook, label)
+    nx, ncb = vq_near_ties(rng, n=h.shape[0], c=1024, d=128)
+    tie_label = f"{nx.shape[0]}x128 vs 1024x128, every row a near tie"
+    _, ties, _, tie_rel = vq_gate(nx, ncb, tie_label)
+    with _build.built_with(ONE_PASS):
+        _, ties1, _, tie_rel1 = vq_gate(nx, ncb, tie_label)
+    print(f"encodec [K6 {tie_label}]: 3xTF32 {ties} rows differ from the plain version, "
+          f"relative gap up to {tie_rel:.2e} (near-tie limit {NEAR_TIE}) | 1xTF32 {ties1} rows, "
+          f"up to {tie_rel1:.2e}")
+    if tie_rel >= NEAR_TIE:
+        raise AssertionError(f"K6 3xTF32 [{tie_label}]: relative gap {tie_rel} over {NEAR_TIE}")
+    if tie_rel1 < NEAR_TIE:
+        raise AssertionError(f"the near-tie gate let K6's 1xTF32 build through [{tie_label}]")
+    del codec, cpu
+    torch.cuda.empty_cache()
+    return launched, dict(vq_encodec, near_ties={"3xtf32": {"rows": ties, "rel_gap": tie_rel},
+                                                 "1xtf32": {"rows": ties1, "rel_gap": tie_rel1}}), \
+        dict(round_trip_ms=ms, tokenize_ms=tok_ms, codes_differ=differ, wave_rel=rel)
+
+
+# AudioLM on vq-wav2vec (the released spec: 320 codes in 2 groups, 150 frames a
+# second at 24 kHz) and EnCodec (75 frames a second), the three LMs at the
+# flagship width, 3 coarse + 5 fine quantizers; the generation capped at 50
+# semantic ids, 25 coarse frames after the prompt's and their fine codes
+ENCODEC_LM = {k: v for k, v in FLAGSHIP.items() if k != "num_semantic_tokens"}
+ENC_NEW_IDS, ENC_NEW_FRAMES = 50, 25
+
+
+@phase("audiolm encodec")
+def audiolm_encodec_phase(seed):
+    """AudioLM with FairseqVQWav2Vec and EncodecWrapper, random weights from
+    `seed`: the Semantic and Coarse wrappers' losses from raw_wave (4 x 2 s
+    at 24 kHz; K1 in the LMs' uncached passes, K6 in EnCodec's tokenize),
+    counted, and held against the CPU port on a 1-s clip (the ids and codes
+    equal but for near ties; the losses from the same ids within
+    LOSS_REL); then a 1-s prompt continued greedily through prime_wave,
+    counted and timed."""
+    from audiolm_pytorch_tpu_torch import FairseqVQWav2Vec
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(seed + 81)
+    wav2vec = FairseqVQWav2Vec(seed=seed, device=DEV)
+    codec = encodec_codec(seed, rng)
+    semantic = SemanticTransformer(**ENCODEC_LM, num_semantic_tokens=320, seed=seed,
+                                   device=DEV).eval()
+    coarse = CoarseTransformer(**ENCODEC_LM, num_semantic_tokens=320, codebook_size=1024,
+                               num_coarse_quantizers=3, seed=seed, device=DEV).eval()
+    fine = FineTransformer(**ENCODEC_LM, codebook_size=1024, num_coarse_quantizers=3,
+                           num_fine_quantizers=5, seed=seed, device=DEV).eval()
+    lm = AudioLM(wav2vec=wav2vec, codec=codec, semantic_transformer=semantic,
+                 coarse_transformer=coarse, fine_transformer=fine)
+    wave = torch.from_numpy(0.1 * rng.standard_normal((4, CODEC_S * ENCODEC_SR),
+                                                      dtype=np.float32)).to(DEV)
+    scoring = {}
+    with torch.no_grad():
+        for name, wrapper in (("semantic", lm.semantic), ("coarse", lm.coarse)):
+            wrapper(raw_wave=wave, return_loss=True)  # warm
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            loss = wrapper(raw_wave=wave, return_loss=True)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            launched = counts()
+            want_vq = 8 if name == "coarse" else 0
+            if launched["launches"] == 0 or launched["launches_vq"] != want_vq \
+                    or not torch.isfinite(loss):
+                raise AssertionError(f"audiolm encodec {name} scoring: launches {launched}, "
+                                     f"loss {loss}")
+            scoring[name] = dict(launches=launched, wall_ms=wall_ms, loss=float(loss))
+        # card vs CPU on a 1-s clip, the LMs on the card's ids and codes
+        clip = wave[:1, :ENCODEC_SR]
+        cpu_lm = copy.deepcopy(lm).cpu()
+        ids = wav2vec(clip, flatten=False)
+        cpu_ids = cpu_lm.semantic.wav2vec(clip.cpu(), flatten=False)
+        ids_differ = int((ids.cpu() != cpu_ids).any(-1).sum())
+        codes = codec.tokenize(clip)
+        card_h, cpu_h = codec.encode_frames(clip).cpu(), cpu_lm.coarse.codec.encode_frames(
+            clip.cpu())
+        codes_differ, _ = compare_codes(cpu_lm.coarse.codec.rq.layers, card_h, cpu_h,
+                                        codes.cpu(), cpu_lm.coarse.codec.tokenize(clip.cpu()))
+        if ids_differ > 0.01 * ids.shape[1]:
+            raise AssertionError(f"audiolm encodec: {ids_differ} of {ids.shape[1]} vq-wav2vec "
+                                 f"frames differ card vs CPU")
+        flat = ids.reshape(1, -1)
+        pairs = [(lm.semantic(flat, return_loss=True),
+                  cpu_lm.semantic(flat.cpu(), return_loss=True)),
+                 (lm.coarse(flat, codes[..., :3], return_loss=True),
+                  cpu_lm.coarse(flat.cpu(), codes[..., :3].cpu(), return_loss=True))]
+        for (a, b), name in zip(pairs, ("semantic", "coarse")):
+            if not abs(float(a) - float(b)) <= LOSS_REL * abs(float(b)):
+                raise AssertionError(f"audiolm encodec {name} loss card {float(a)} vs CPU "
+                                     f"{float(b)}")
+    for name, r in scoring.items():
+        print(f"audiolm encodec [{name} scoring] 4x2s from raw_wave: loss {r['loss']:.5g} in "
+              f"{r['wall_ms']:.2f} ms | launches K1 {r['launches']['launches']}, K6 "
+              f"{r['launches']['launches_vq']}, K7 {r['launches']['launches_local']}")
+    print(f"audiolm encodec card vs CPU (1 s): {ids_differ} of {ids.shape[1]} vq-wav2vec frames "
+          f"and {codes_differ} of {codes.shape[1]} EnCodec frames differ (near ties); losses "
+          f"from the same ids semantic {float(pairs[0][0]):.6g}/{float(pairs[0][1]):.6g}, coarse "
+          f"{float(pairs[1][0]):.6g}/{float(pairs[1][1]):.6g} (within {LOSS_REL})")
+    del cpu_lm
+    prompt = wave[:1, :ENCODEC_SR]
+    with torch.no_grad():
+        prompt_ids = lm.semantic.wav2vec(prompt, flatten=True).shape[1]
+    kw = dict(prime_wave=prompt, prime_wave_input_sample_hz=ENCODEC_SR,
+              max_length=prompt_ids + ENC_NEW_IDS, max_coarse_time_steps=ENC_NEW_FRAMES)
+    out, wall_s, launched = timed_audiolm(lm, seed, **kw)
+    outs = out if isinstance(out, list) else [out]
+    if not all(w is not None and torch.isfinite(w).all() and w.shape[-1] > 0 for w in outs):
+        raise AssertionError(f"audiolm encodec: generated {[None if w is None else w.shape for w in outs]}")
+    samples = sum(w.shape[-1] for w in outs)
+    print(f"audiolm encodec continuation of a 1-s prompt ({prompt_ids} semantic ids, "
+          f"{ENCODEC_SR // codec.downsample_factor} codec frames): caps max_length "
+          f"{kw['max_length']} ({ENC_NEW_IDS} new ids), {ENC_NEW_FRAMES} coarse frames after "
+          f"the prompt's, their fine codes -> {samples} samples in {wall_s:.2f} s wall | launches "
+          f"K1 {launched['launches']}, K6 {launched['launches_vq']}, K7 "
+          f"{launched['launches_local']}")
+    del lm, wav2vec, codec, semantic, coarse, fine
+    torch.cuda.empty_cache()
+    return ({"encodec_semantic_scoring": scoring["semantic"]["launches"],
+             "encodec_coarse_scoring": scoring["coarse"]["launches"],
+             "encodec_continuation": launched},
+            dict(scoring_ms={k: v["wall_ms"] for k, v in scoring.items()}, wall_s=wall_s,
+                 samples=samples, ids_differ=ids_differ, codes_differ=codes_differ))
+
+
 # the outputs of each row's kernel in the tf32 phase's float64 check
 F64_OUTPUTS = {"fwd": ("out",), "dq": ("dq",), "dkv": ("dk", "dv"), "dbias": ("dbias",)}
 # the TPU kernel each port replaces, by line in the JAX package
@@ -3819,6 +4236,13 @@ def main():
     timings.update(stream_kernels)
     cli_paths, timings["cli"] = cli_phase(args.seed)
     paths.update(cli_paths)
+    paths["encodec"], timings["vq_encodec"], timings["encodec"] = encodec_phase(args.seed)
+    encodec_paths, timings["audiolm_encodec"] = audiolm_encodec_phase(args.seed)
+    paths.update(encodec_paths)
+    # last: after its profiles of the codecs' round trips, torch.profiler was
+    # seen to miss K6's launches in later windows (check_vq's one-launch gate)
+    variant_paths, timings["codec_variants"] = codec_variants_phase(args.seed)
+    paths.update(variant_paths)
     rows = []
     for key, name, source, replaces, counter in KERNELS:
         per_path = {f"launches_{p}": launched[counter] for p, launched in paths.items()}
@@ -3855,6 +4279,8 @@ def main():
                 numbers["training_shape_bf16"] = timings["local_training_bf16"]
             # the streaming encoder's residual searches, the decoder's window
             numbers["streaming"] = timings[f"{key}_streaming"]
+        if key == "vq":
+            numbers["encodec"] = timings["vq_encodec"]  # 1200 rows of 128, 1024 codes
         if key in ("fwd", "dq", "dkv", "dbias"):
             outputs = F64_OUTPUTS[key]
             f64 = dict(timings["tf32"], **timings["conditioned"]["f64"])
@@ -3881,7 +4307,9 @@ def main():
                       "conditioned_acoustic": timings["conditioned_acoustic"],
                       "audiolm_text": timings["audiolm_text"],
                       "continuation": timings["continuation"],
-                      "streaming": timings["streaming"], "cli": timings["cli"]}))
+                      "streaming": timings["streaming"], "cli": timings["cli"],
+                      "codec_variants": timings["codec_variants"], "encodec": timings["encodec"],
+                      "audiolm_encodec": timings["audiolm_encodec"]}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -261,7 +261,7 @@ def test_loader_refuses_a_config_key_it_does_not_honour(tmp_path):
     the config before any weight, so the file holds the config alone)."""
     with np.load(CKPT) as data:
         config = json.loads(bytes(data["__meta__"].tobytes()).decode())["config"]
-    for key, value, match in (("squeeze_excite", True, "squeeze_excite"),
+    for key, value, match in (("pad_mode", "symmetric", "pad_mode"),
                               ("compute_dtype", "float16", "compute_dtype"),
                               ("rq_kwargs", {"kmeans_iters": 3}, "kmeans_iters"),
                               ("something_new", 1, "something_new")):

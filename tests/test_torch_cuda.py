@@ -23,8 +23,10 @@ CPU; streaming serving on the card (a small codec's streamed codes against
 its `tokenize`, K6 and K7 launched once a search and once a chunk, and its
 streamed waveform against its decode), the command line's tokenize ->
 decode round trip with `--device cuda` from WAV and FLAC, and the native
-audio loader built with g++ into build/native. They skip where there is no
-card.
+audio loader built with g++ into build/native; the rest of the codec
+family on the card against the CPU (GateLoop's scan and squeeze-excite at
+16000 frames, EnCodec's and an LFQ codec's codes, K6 at EnCodec's 1200 rows
+of 128). They skip where there is no card.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine without them:
@@ -360,10 +362,11 @@ def _vq_inputs(n, c, d, seed=0):
 
 
 # C under one tile of 128 codes (100, 64: a cluster of one), 3 tiles (a
-# cluster of 3), 9 tiles (rank 0 takes two); D not a multiple of 8 or 32
+# cluster of 3), 9 tiles (rank 0 takes two); D not a multiple of 8 or 32;
+# EnCodec's search (8 x 2 s at 75 Hz against 1024 codes of 128)
 @pytest.mark.parametrize("n,c,d", [(1, 1024, 512), (7, 1024, 512), (800, 1024, 512),
                                    (1300, 1024, 512), (600, 1024, 512), (37, 100, 33),
-                                   (130, 64, 16),
+                                   (130, 64, 16), (1200, 1024, 128),
                                    (50, 300, 64), (20, 1100, 40), (65, 1024, 30)])
 def test_vq_kernel_matches_plain_version(cuda, n, c, d):
     x, cb = (a.to(cuda) for a in _vq_inputs(n, c, d))
@@ -1335,3 +1338,45 @@ def test_native_loader_builds_into_build(cuda, tmp_path):
     wav, sr = load_audio(tmp_path / "x.flac")
     assert sr == 16000 and wav.shape == (1, 3000)
     np.testing.assert_array_equal(wav[0], (x / 32768.0).astype(np.float32))
+
+
+def test_gate_loop_and_squeeze_excite_card_match_cpu(cuda):
+    """At the first encoder block's rate of 1 s at 16 kHz (16000 frames of
+    64 channels): the scan's 14 passes and the causal mean on the card."""
+    from audiolm_pytorch_tpu_torch.models.soundstream import GateLoop, SqueezeExcite
+    x = torch.from_numpy(np.random.default_rng(21).normal(size=(2, 16000, 64)).astype(np.float32))
+    for module in (GateLoop(64), SqueezeExcite(64)):
+        with torch.no_grad():
+            want = module(x)
+            got = copy.deepcopy(module).to(cuda)(x.to(cuda)).cpu()
+        assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5, type(module)
+
+
+def test_encodec_and_lfq_codec_tokenize_on_the_card_as_on_the_cpu(cuda):
+    """EnCodec at its default width (8 quantizers of 1024 x 128: K6 8 times a
+    tokenize) and a small LFQ codec (K7 in its encoder): codes equal the
+    CPU port's in at least 99% of the frames (the encoders' float32 sums
+    differ in order, which moves a near tie either way); EnCodec's decode
+    of the same codes within 1e-4 of the peak."""
+    from audiolm_pytorch_tpu_torch import EncodecWrapper
+    rng = np.random.default_rng(22)
+    enc = EncodecWrapper(device="cpu").eval()
+    x = torch.from_numpy((0.1 * rng.normal(size=(2, 24000))).astype(np.float32))
+    card = copy.deepcopy(enc).to(cuda)
+    before = vq.launches
+    with torch.no_grad():
+        got = card.tokenize(x.to(cuda)).cpu()
+        assert vq.launches - before == 8
+        want = enc.tokenize(x)
+        assert (got != want).any(-1).float().mean().item() <= 0.01
+        ref = enc.decode_from_codebook_indices(want)
+        wave = card.decode_from_codebook_indices(want.to(cuda)).cpu()
+    assert ((wave - ref).abs().max() / ref.abs().max()).item() <= 1e-4
+    lfq = SoundStream(**dict(STREAM_CODEC, use_lookup_free_quantizer=True), device="cpu").eval()
+    x = torch.from_numpy((0.1 * rng.normal(size=(2, 16000))).astype(np.float32))
+    card = copy.deepcopy(lfq).to(cuda)
+    before = la.launches
+    with torch.no_grad():
+        got = card.tokenize(x.to(cuda)).cpu()
+        assert la.launches - before == 1
+        assert (got != lfq.tokenize(x)).any(-1).float().mean().item() <= 0.01
