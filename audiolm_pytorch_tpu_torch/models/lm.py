@@ -15,7 +15,8 @@ embeddings of the model's own width): T5 embeddings (or a caller's
 model's width, and attended by cross attention in every layer, or, with
 `cond_as_self_attn_prefix`, put in front of the self-attention's keys. In
 training a row's condition is dropped with probability `cond_drop_prob`
-(`draw_cond_keep`, from an explicit generator); `forward_with_cond_scale`
+(`draw_cond_keep`, from an explicit generator, which draws the dropout
+masks too); `forward_with_cond_scale`
 runs classifier-free guidance as one stacked [cond | uncond] batch.
 """
 from __future__ import annotations
@@ -30,6 +31,7 @@ from torch import nn
 from ..device import resolve_device
 from ..nn.layers import Linear, init_normal
 from ..ops.relpos import toeplitz_expand
+from ..parallel.mesh import local_rows
 from ..ops.sampling import get_embeds
 from ..weights import read_npz, state_dict_from_jax
 from .t5 import DEFAULT_T5_NAME, get_encoded_dim, t5_encode_text
@@ -54,9 +56,12 @@ def _jax_config(args: dict) -> dict:
 def draw_cond_keep(batch: int, keep_prob: float, generator, device):
     """(batch,) bool: True where a row keeps its condition, each with
     probability keep_prob, drawn from `generator` (the JAX package's
-    prob_mask_like: uniform < keep_prob)."""
+    prob_mask_like: uniform < keep_prob); under data parallelism this
+    rank's rows of the whole batch's draw (`parallel.mesh.local_rows`)."""
     gen_device = generator.device if generator is not None else "cpu"
-    return (torch.rand(batch, generator=generator, device=gen_device) < keep_prob).to(device)
+    keep = local_rows(lambda s: torch.rand(s, generator=generator, device=gen_device)
+                      < keep_prob, (batch,))
+    return keep.to(device)
 
 
 class _Conditioned:
@@ -154,7 +159,6 @@ class SemanticTransformer(_Conditioned, nn.Module):
         config = _jax_config(locals())
         super().__init__()
         self.config = config
-        _refuse_dropout(attn_dropout, ff_dropout)
         device = resolve_device(device)
         g = torch.Generator().manual_seed(seed)
         self.num_semantic_tokens = num_semantic_tokens
@@ -168,7 +172,8 @@ class SemanticTransformer(_Conditioned, nn.Module):
         self.transformer = Transformer(
             dim=dim, depth=depth, heads=heads, dim_head=dim_head,
             num_residual_streams=num_residual_streams, rel_pos_bias=rel_pos_bias,
-            grad_shrink_alpha=grad_shrink_alpha, add_value_residual=add_value_residual,
+            grad_shrink_alpha=grad_shrink_alpha, attn_dropout=attn_dropout,
+            ff_dropout=ff_dropout, add_value_residual=add_value_residual,
             **cond, generator=g, device="cpu")
         self.to_logits = Linear(dim, num_semantic_tokens + 1, generator=g)
         self.to(device)
@@ -187,7 +192,8 @@ class SemanticTransformer(_Conditioned, nn.Module):
         start token is always attended. A conditioned model takes `text` or
         `text_embeds` (B, L, cond dim) with its mask (B, L), the condition
         dropped per row with cond_drop_prob (default the model's), drawn
-        from `generator`."""
+        from `generator`, which also draws the dropout masks (attn_dropout,
+        ff_dropout: none without a generator)."""
         context, context_mask = self._condition(text, text_embeds, text_mask, cond_drop_prob,
                                                 generator, ids.shape[0])
         if return_loss:
@@ -195,7 +201,8 @@ class SemanticTransformer(_Conditioned, nn.Module):
         if self_attn_mask is not None:
             self_attn_mask = torch.nn.functional.pad(self_attn_mask, (1, 0), value=True)
         return self.to_logits(self.transformer(self.embed_ids(ids), self_attn_mask=self_attn_mask,
-                                               context=context, context_mask=context_mask))
+                                               context=context, context_mask=context_mask,
+                                               generator=generator))
 
     def forward_with_cond_scale(self, ids, *, cond_scale: float = 3.0, text_embeds=None,
                                 text_mask=None, **kwargs):
@@ -223,11 +230,6 @@ def _per_quantizer_logits(tokens, logit_weights, num_q: int):
         return logits
     rest = torch.einsum("qcd,bqd->bqc", w[:n - nq], tokens[:, nq:])
     return torch.cat([logits, rest], dim=1)
-
-
-def _refuse_dropout(attn_dropout, ff_dropout):
-    if attn_dropout > 0 or ff_dropout > 0:
-        raise NotImplementedError("attn_dropout / ff_dropout > 0 is not ported")
 
 
 def _start(token, b, dtype):
@@ -263,7 +265,6 @@ class CoarseTransformer(_Conditioned, nn.Module):
         config = _jax_config(locals())
         super().__init__()
         self.config = config
-        _refuse_dropout(attn_dropout, ff_dropout)
         device = resolve_device(device)
         g = torch.Generator().manual_seed(seed)
         self.num_semantic_tokens = num_semantic_tokens
@@ -287,7 +288,8 @@ class CoarseTransformer(_Conditioned, nn.Module):
         self.transformer = Transformer(
             dim=dim, depth=depth, heads=heads, dim_head=dim_head,
             num_residual_streams=num_residual_streams, rel_pos_bias=rel_pos_bias,
-            grad_shrink_alpha=grad_shrink_alpha, add_value_residual=add_value_residual,
+            grad_shrink_alpha=grad_shrink_alpha, attn_dropout=attn_dropout,
+            ff_dropout=ff_dropout, add_value_residual=add_value_residual,
             **cond, generator=g, device="cpu")
         self.to_semantic_logits = Linear(dim, num_semantic_tokens + 1, generator=g) \
             if project_semantic_logits else None
@@ -341,7 +343,8 @@ class CoarseTransformer(_Conditioned, nn.Module):
         bias_len = kv_cache.k.shape[2] if kv_cache is not None else tokens.shape[1]
         out = self.transformer(tokens[:, pos:], self_attn_mask=self_attn_mask,
                                attn_bias=self.build_attn_bias(sem_len, bias_len),
-                               kv_cache=kv_cache, context=context, context_mask=context_mask)
+                               kv_cache=kv_cache, context=context, context_mask=context_mask,
+                               generator=generator)
         out = _pad_cached(out, pos)
         semantic_logits = None
         if not return_only_coarse_logits and self.to_semantic_logits is not None:
@@ -401,7 +404,6 @@ class FineTransformer(_Conditioned, nn.Module):
         config = _jax_config(locals())
         super().__init__()
         self.config = config
-        _refuse_dropout(attn_dropout, ff_dropout)
         device = resolve_device(device)
         g = torch.Generator().manual_seed(seed)
         self.num_coarse_quantizers = num_coarse_quantizers
@@ -426,7 +428,8 @@ class FineTransformer(_Conditioned, nn.Module):
         self.transformer = Transformer(
             dim=dim, depth=depth, heads=heads, dim_head=dim_head,
             num_residual_streams=num_residual_streams, rel_pos_bias=False,
-            grad_shrink_alpha=grad_shrink_alpha, add_value_residual=add_value_residual,
+            grad_shrink_alpha=grad_shrink_alpha, attn_dropout=attn_dropout,
+            ff_dropout=ff_dropout, add_value_residual=add_value_residual,
             **cond, generator=g, device="cpu")
         if rel_pos_bias:
             self.null_pos_bias = nn.Parameter(init_normal((heads, 1, 1), 1.0, g))
@@ -512,7 +515,8 @@ class FineTransformer(_Conditioned, nn.Module):
         fine_budget = kv_cache.k.shape[2] - n_coarse - 2 if kv_cache is not None else n_fine
         out = self.transformer(tokens[:, pos:], self_attn_mask=self_attn_mask,
                                attn_bias=self.build_attn_bias(n_coarse, fine_budget),
-                               kv_cache=kv_cache, context=context, context_mask=context_mask)
+                               kv_cache=kv_cache, context=context, context_mask=context_mask,
+                               generator=generator)
         out = _pad_cached(out, pos)
         coarse_logits = None
         if not return_only_fine_logits and self.coarse_logit_weights is not None:

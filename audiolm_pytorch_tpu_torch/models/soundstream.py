@@ -49,6 +49,7 @@ from ..ops.quantize import GroupedResidualFSQ, GroupedResidualLFQ, GroupedResidu
 from ..ops.resample import resample
 from ..ops.sampling import curtail_to_multiple
 from ..ops.stft import melspectrogram, stft
+from ..parallel import mesh as dp
 from ..utils.metrics import si_snr
 from ..weights import DISCRIMINATORS, codec_state_dict_from_jax, read_npz
 
@@ -598,10 +599,16 @@ class SoundStream(nn.Module):
         E|d loss / d fake|^2), the squared norms as sums of squares (a clean
         second derivative), by autograd with create_graph. The total: the
         mean of the scales' losses, plus the STFT loss, plus the penalties;
-        with separately the [(name, loss)] list instead."""
+        with separately the [(name, loss)] list instead. Under data
+        parallelism the penalty takes the gradient of the whole batch's mean
+        loss, which for this rank's rows is 1 / world of its own mean's, so
+        the ranks' mean penalty is one process's (JAX's ranks take their own
+        mean's: world^2 times one process's penalty)."""
+        scope = dp.current()
+        share = 1.0 if scope is None else 1.0 / scope.world
 
         def penalty(loss, r, f):
-            gr, gf = torch.autograd.grad(loss, (r, f), create_graph=True)
+            gr, gf = torch.autograd.grad(loss * share, (r, f), create_graph=True)
             b = gr.shape[0]
             return 10.0 * (gr.reshape(b, -1).square().sum(1).mean()
                            + gf.reshape(b, -1).square().sum(1).mean())

@@ -8,12 +8,23 @@ goes through the flash-attention kernels with the key mask (the forgetful
 causal mask in training) and either the rel-pos bias as its (2N-1, H) table
 (the Semantic LM) or a caller's materialised (H, N, N) bias that replaces it
 (`attn_bias`, the Coarse and Fine LMs); either bias's gradient flows back
-through autograd. The KV-cached prefill and decode steps take the plain
-`attend`, as the JAX package does. Text conditioning: cross attention over
+through autograd. A KV-cached prefill (from cache position 0) attends over
+its own keys alone, through the flash kernel with the bias's first N
+columns; the decode steps take the plain `attend` over the cache, as the
+JAX package does. Text conditioning: cross attention over
 the context with one null key/value (flash attention, not causal, with the
 context's key mask), or the context as a prefix of the self-attention's
 keys (flash attention, causal with M = P + N keys aligned to the bottom
-right, the bias materialised as (H, N, P + N)). Dropout > 0 raises.
+right, the bias materialised as (H, N, P + N)).
+
+Dropout, as the JAX package's: attention dropout drops the attention weights
+after the softmax, so a train step with attn_dropout > 0 (a generator
+given) takes the plain `attend`, each layer expanding the rel-pos table to
+its (H, N, N) bias, as JAX sends a keyed dropout step to its math path;
+without a generator (eval, scoring, generation) nothing is dropped and the
+flash kernels run as they do without dropout. ff_dropout drops the
+feed-forward's output. The self-attention, cross attention and feed-forward
+of a layer draw their masks in that order (`ops/attention.py::draw_keep`).
 """
 from __future__ import annotations
 
@@ -25,13 +36,24 @@ from torch import nn
 
 from ..device import resolve_device
 from ..nn.layers import FeedForward, LayerNorm, Linear, init_normal
+from ..ops import attention as attention_ops
 from ..ops.attention import attend
 from ..ops.kernels.flash_attention import flash_attention
 from ..ops.relpos import table_rows, toeplitz_expand
 from ..ops.sampling import grad_shrink
 
 __all__ = ["RelativePositionBias", "KVCache", "Attention", "HyperConnection",
-           "TransformerLayer", "Transformer"]
+           "TransformerLayer", "Transformer", "maybe_dropout"]
+
+
+def maybe_dropout(x, p: float, generator):
+    """x with each element kept with probability 1 - p and scaled by
+    1 / (1 - p) (`draw_keep`), or x itself when p is 0 or there is no
+    generator."""
+    if p <= 0 or generator is None:
+        return x
+    keep = attention_ops.draw_keep(generator, x.shape, p, x.device)
+    return torch.where(keep, x / (1 - p), 0.0)
 
 
 class RelativePositionBias(nn.Module):
@@ -78,15 +100,17 @@ class Attention(nn.Module):
     `dim_context` it attends over a context instead (cross attention, not
     causal), optionally layer-normed (`norm_context`), with `num_null_kv`
     learned null keys/values in front (classifier-free guidance: a row with
-    its whole context masked still attends to them)."""
+    its whole context masked still attends to them). With dropout > 0 and a
+    generator in the call, the weights are dropped on the plain path."""
 
     def __init__(self, dim: int, *, heads: int = 8, dim_head: int = 64,
                  dim_context: "int | None" = None, norm_context: bool = False,
-                 num_null_kv: int = 0, causal: bool = True,
+                 num_null_kv: int = 0, causal: bool = True, dropout: float = 0.0,
                  generator: "torch.Generator | None" = None):
         super().__init__()
         dim_context = dim_context if dim_context is not None else dim
         self.heads, self.dim_head, self.causal = heads, dim_head, causal
+        self.dropout = dropout
         self.norm = LayerNorm(dim)
         self.to_q = Linear(dim, heads * dim_head, bias=False, generator=generator)
         self.to_kv = Linear(dim_context, dim_head * 2, bias=False, generator=generator)
@@ -98,7 +122,7 @@ class Attention(nn.Module):
 
     def forward(self, x, *, context=None, mask=None, bias_tab=None, bias=None,
                 cache_bias=None, value_residual=None, cache_kv=None, cache_pos: int = 0,
-                prefix_context=None, prefix_context_mask=None):
+                prefix_context=None, prefix_context_mask=None, generator=None):
         """x: (B, N, D). Without a cache: attention over the keys of x (causal,
         with bias_tab (2N-1, H) or bias (H, N, N), and key mask (B, N)), or of
         `context` (B, L, Dc) with its key mask (B, L). With prefix_context
@@ -107,8 +131,10 @@ class Attention(nn.Module):
         whole prefix) and `bias` is zero-padded over the prefix's keys. With
         cache_kv (k, v views of (B, max_len, dh)): the new k/v are written at
         cache_pos and the queries attend over the whole buffer, cache_bias
-        (H, N, max_len) and mask (B, max_len) applied. Returns (out, values
-        before the residual)."""
+        (H, N, max_len) and mask (B, max_len) applied. With `generator` and
+        dropout > 0 (a train step), the uncached attention runs on the plain
+        path with its weights dropped, bias_tab expanded to (H, N, N) there.
+        Returns (out, values before the residual)."""
         b, n, _ = x.shape
         if context is not None and self.context_norm is not None:
             context = self.context_norm(context)
@@ -136,9 +162,17 @@ class Attention(nn.Module):
                     mask = F.pad(mask, (self.num_null_kv, 0), value=True)
                 if bias is not None:
                     bias = F.pad(bias, (self.num_null_kv, 0))
-            out = flash_attention(q.contiguous(), k[:, None].contiguous(),
-                                  v[:, None].contiguous(), bias_tab=bias_tab, bias=bias,
-                                  key_mask=mask, causal=self.causal)
+            if self.dropout > 0 and generator is not None:
+                if bias_tab is not None:
+                    bias = toeplitz_expand(bias_tab, n, n)
+                out = attend(q, k[:, None], v[:, None],
+                             mask=None if mask is None else mask[:, None, None, :],
+                             attn_bias=bias, causal=self.causal, dropout=self.dropout,
+                             generator=generator)
+            else:
+                out = flash_attention(q.contiguous(), k[:, None].contiguous(),
+                                      v[:, None].contiguous(), bias_tab=bias_tab, bias=bias,
+                                      key_mask=mask, causal=self.causal)
         else:
             if self.null_kv is not None or context is not None or prefix_context is not None:
                 raise ValueError("the KV cache is for causal self-attention only")
@@ -148,8 +182,15 @@ class Attention(nn.Module):
             max_len = ck.shape[1]
             q_pos = cache_pos + torch.arange(n, device=x.device)
             valid = torch.arange(max_len, device=x.device)[None, :] <= q_pos[:, None]
-            full_mask = valid[None, None] if mask is None else valid & mask[:, None, None, :]
-            out = attend(q, ck[:, None], cv[:, None], mask=full_mask, attn_bias=cache_bias)
+            if cache_pos == 0:
+                # the prefill sees its own n keys alone: causal flash attention (K1)
+                out = flash_attention(
+                    q.contiguous(), ck[:, None, :n].contiguous(), cv[:, None, :n].contiguous(),
+                    bias=None if cache_bias is None else cache_bias[..., :n].contiguous(),
+                    key_mask=None if mask is None else mask[:, :n].contiguous(), causal=True)
+            else:
+                full_mask = valid[None, None] if mask is None else valid & mask[:, None, None, :]
+                out = attend(q, ck[:, None], cv[:, None], mask=full_mask, attn_bias=cache_bias)
         out = out.transpose(1, 2).reshape(b, n, -1)
         return self.to_out(out), orig_v
 
@@ -197,17 +238,22 @@ class HyperConnection(nn.Module):
 class TransformerLayer(nn.Module):
     """Causal self-attention, then (with cross_attend) cross attention over
     the context with one null key/value and a normed context, then the
-    feed-forward, each in a hyper-connection over the residual streams."""
+    feed-forward (its output dropped with ff_dropout), each in a
+    hyper-connection over the residual streams."""
 
     def __init__(self, dim: int, *, heads: int, dim_head: int, num_streams: int,
                  index: int, cross_attend: bool = False, dim_context: "int | None" = None,
+                 attn_dropout: float = 0.0, ff_dropout: float = 0.0,
                  generator: "torch.Generator | None" = None):
         super().__init__()
-        self.attn = Attention(dim, heads=heads, dim_head=dim_head, generator=generator)
+        self.attn = Attention(dim, heads=heads, dim_head=dim_head, dropout=attn_dropout,
+                              generator=generator)
         self.ff = FeedForward(dim, generator=generator)
+        self.ff_dropout = ff_dropout
         self.cross = Attention(dim, heads=heads, dim_head=dim_head, dim_context=dim_context,
                                norm_context=True, num_null_kv=1, causal=False,
-                               generator=generator) if cross_attend else None
+                               dropout=attn_dropout, generator=generator) \
+            if cross_attend else None
         if num_streams > 1:
             self.hc_attn = HyperConnection(dim=dim, num_streams=num_streams,
                                            layer_index=3 * index)
@@ -225,15 +271,18 @@ class TransformerLayer(nn.Module):
         out, *rest = branch_fn(h)
         return (out + h, *rest)
 
-    def forward(self, h, attn_kwargs, cross_kwargs=None):
+    def forward(self, h, attn_kwargs, cross_kwargs=None, generator=None):
         """Returns (h, the self-attention's values, the cross attention's
-        values or None)."""
-        h, values = self._residual(self.hc_attn, h, lambda x: self.attn(x, **attn_kwargs))
+        values or None). `generator` draws the dropout masks of a train
+        step."""
+        h, values = self._residual(self.hc_attn, h,
+                                   lambda x: self.attn(x, **attn_kwargs, generator=generator))
         cross_values = None
         if self.cross is not None:
-            h, cross_values = self._residual(self.hc_cross, h,
-                                             lambda x: self.cross(x, **cross_kwargs))
-        h, = self._residual(self.hc_ff, h, lambda x: (self.ff(x),))
+            h, cross_values = self._residual(
+                self.hc_cross, h, lambda x: self.cross(x, **cross_kwargs, generator=generator))
+        h, = self._residual(self.hc_ff, h, lambda x: (
+            maybe_dropout(self.ff(x), self.ff_dropout, generator),))
         return h, values, cross_values
 
 
@@ -243,7 +292,8 @@ class Transformer(nn.Module):
     adds a cross-attention branch over a context (B, L, dim_context) to
     every layer; `cond_as_self_attn_prefix` puts the context's keys in
     front of the self-attention's instead (the rel-pos bias then comes
-    materialised, zero over the prefix, and there is no KV cache)."""
+    materialised, zero over the prefix, and there is no KV cache).
+    attn_dropout and ff_dropout act in a call given a generator."""
 
     def __init__(self, *, dim: int, depth: int, heads: int, dim_head: int = 64,
                  num_residual_streams: int = 4, rel_pos_bias: bool = True,
@@ -254,10 +304,6 @@ class Transformer(nn.Module):
                  generator: "torch.Generator | None" = None,
                  device: "str | torch.device" = "cuda"):
         super().__init__()
-        if attn_dropout > 0 or ff_dropout > 0:
-            # the JAX package sends dropout > 0 to the math path
-            # (models/transformer.py:236-240); neither is ported yet
-            raise NotImplementedError("attn_dropout / ff_dropout > 0 is not ported")
         if cross_attend and cond_as_self_attn_prefix:
             raise ValueError("cross_attend and cond_as_self_attn_prefix exclude each other")
         device = resolve_device(device)
@@ -271,6 +317,7 @@ class Transformer(nn.Module):
             TransformerLayer(dim, heads=heads, dim_head=dim_head,
                              num_streams=num_residual_streams, index=d,
                              cross_attend=cross_attend, dim_context=dim_context,
+                             attn_dropout=attn_dropout, ff_dropout=ff_dropout,
                              generator=generator)
             for d in range(depth)])
         self.final_norm = LayerNorm(dim)
@@ -279,14 +326,16 @@ class Transformer(nn.Module):
         self.to(device)
 
     def forward(self, x, *, self_attn_mask=None, attn_bias=None,
-                kv_cache: "KVCache | None" = None, context=None, context_mask=None):
+                kv_cache: "KVCache | None" = None, context=None, context_mask=None,
+                generator: "torch.Generator | None" = None):
         """x: (B, N, D); with kv_cache, only the new tokens after kv_cache.pos,
         whose k/v are written into the cache in place (pos advances by N).
         attn_bias: an additive (H, L, L) bias that replaces the rel-pos bias,
         L = N uncached; with a cache, L = the cache's length and the rows of
         the new positions are taken from it. context (B, L, Dc) with its
         key mask context_mask (B, L): the cross attention's context, or the
-        self-attention's prefix."""
+        self-attention's prefix. `generator` draws the dropout masks of a
+        train step (none without one)."""
         n = x.shape[1]
         x = grad_shrink(x, self.grad_shrink_alpha)
         kw = dict(mask=self_attn_mask)
@@ -324,7 +373,8 @@ class Transformer(nn.Module):
                 kw["cache_kv"] = (kv_cache.k[li], kv_cache.v[li])
             h, values, cross_values = layer(
                 h, dict(kw, value_residual=value_residual),
-                None if cross_kw is None else dict(cross_kw, value_residual=cross_residual))
+                None if cross_kw is None else dict(cross_kw, value_residual=cross_residual),
+                generator=generator)
             if self.add_value_residual and value_residual is None:
                 value_residual = values  # the first layer's values feed every later layer
             if self.add_value_residual and cross_residual is None:

@@ -17,15 +17,30 @@ of [cond | uncond] rows through one KV cache (`_cfg_tile`, `_cfg_combine`).
 Under prefix conditioning there is no KV cache, as in the JAX package: each
 step runs the whole sequence so far (`_Runner`). The JAX package's jitted
 samplers feed only the new token there, so they lose the sequence's
-history; the port does what a model without a cache must do."""
+history; the port does what a model without a cache must do.
+
+An `audio_conditioner` (a callable `(wavs=, namespace=)` -> embeddings (B,
+L, cond dim), such as a MuLaN-style audio encoder; `utils.AudioConditionerBase`)
+conditions a wrapper's LM on its own audio: its forward takes `raw_wave` and
+no text, and conditions on the conditioner's embeddings of it (namespace
+"semantic", "coarse" or "fine"); the Semantic `generate` does the same with
+`prime_wave`.
+
+The Coarse and Fine `generate(speculative=True)` run the JAX package's
+speculative decode (`_spec_decode_codes`): the Q codes of a time step are
+drafted from the hidden state before it, checked in one length-Q cached
+pass, and from the first code whose check disagrees the step is redone one
+code at a time, each code sampled with its draft's Gumbel noise, so at
+temperature -> 0 the codes are the sequential sampler's."""
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from ..ops.sampling import (append_eos_id, batch_unique_consecutive,
-                            generate_mask_with_prob, get_embeds, gumbel_sample,
-                            mask_out_after_eos_id, top_k)
+from ..ops.sampling import (all_rows_have_eos_id, append_eos_id, batch_unique_consecutive,
+                            generate_mask_with_prob, get_embeds, gumbel_noise,
+                            gumbel_sample, mask_out_after_eos_id, top_k)
+from ..parallel import mesh as dp
 from .lm import CoarseTransformer, FineTransformer, SemanticTransformer
 from .transformer import KVCache
 
@@ -59,9 +74,35 @@ def _check_wav2vec(wav2vec, num_semantic_tokens):
 
 
 def sample_from_logits(logits, filter_thres: float, temperature: float, *,
-                       generator: "torch.Generator | None" = None):
-    return gumbel_sample(top_k(logits, thres=filter_thres), temperature,
-                         generator=generator)
+                       generator: "torch.Generator | None" = None, noise=None):
+    """Gumbel-max over the top (1 - filter_thres) of logits at temperature,
+    with the Gumbel `noise` given (logits' shape) or drawn from generator."""
+    return gumbel_sample(top_k(logits, thres=filter_thres), temperature, generator=generator,
+                         noise=noise)
+
+
+def _audio_condition(conditioner, wave, text, text_embeds, namespace):
+    """text_embeds of a wrapper with an audio conditioner: its embeddings of
+    `wave` (which must be given, with no text); without a conditioner,
+    text_embeds as given."""
+    if conditioner is None:
+        return text_embeds
+    if wave is None or text is not None or text_embeds is not None:
+        raise ValueError("with an audio_conditioner, pass the audio and no text or text_embeds")
+    return conditioner(wavs=wave, namespace=namespace)
+
+
+def _check_conditioner(conditioner, lm):
+    if conditioner is not None and not lm.has_condition:
+        raise ValueError("an audio_conditioner needs a transformer with has_condition")
+
+
+def _returns(out, logits_buf, return_logits, spec_stats, return_spec_stats):
+    """generate's result: out, with the logits and the speculative stats
+    after it when asked for."""
+    extra = ((logits_buf,) if return_logits else ()) + \
+        ((spec_stats,) if return_spec_stats else ())
+    return (out, *extra) if extra else out
 
 
 def _cfg_tile(x, use_cfg: bool):
@@ -137,12 +178,14 @@ class SemanticTransformerWrapper(nn.Module):
     """Scores semantic token sequences, gives the training loss and samples
     continuations."""
 
-    def __init__(self, *, transformer: SemanticTransformer, wav2vec=None, pad_id: int = -1,
-                 unique_consecutive: bool = True, mask_prob: float = 0.15):
+    def __init__(self, *, transformer: SemanticTransformer, wav2vec=None, audio_conditioner=None,
+                 pad_id: int = -1, unique_consecutive: bool = True, mask_prob: float = 0.15):
         super().__init__()
         _check_wav2vec(wav2vec, transformer.num_semantic_tokens)
+        _check_conditioner(audio_conditioner, transformer)
         self.transformer = transformer
         self.wav2vec = wav2vec
+        self.audio_conditioner = audio_conditioner
         self.pad_id = pad_id
         self.eos_id = transformer.eos_id
         self.unique_consecutive = unique_consecutive
@@ -159,7 +202,10 @@ class SemanticTransformerWrapper(nn.Module):
         conditioned LM takes text or text_embeds; in training each row's
         condition is dropped with the LM's cond_drop_prob (drawn from
         `generator`), else never; with cond_scale, the logits of
-        classifier-free guidance."""
+        classifier-free guidance. With an audio_conditioner, the condition
+        is its embeddings of raw_wave."""
+        text_embeds = _audio_condition(self.audio_conditioner, raw_wave, text, text_embeds,
+                                       "semantic")
         if semantic_token_ids is None:
             semantic_token_ids = _wav2vec_ids(self.wav2vec, raw_wave)
         ids = semantic_token_ids.reshape(semantic_token_ids.shape[0], -1)
@@ -189,19 +235,45 @@ class SemanticTransformerWrapper(nn.Module):
                  prime_wave_input_sample_hz=None, text=None, text_embeds=None,
                  cond_scale: float = 3.0, batch_size: int = 1, filter_thres: float = 0.9,
                  temperature: float = 1.0, generator: "torch.Generator | None" = None,
-                 return_logits: bool = False):
+                 return_logits: bool = False, mesh=None):
         """Sample up to max_length ids after the prompt `prime_ids` (B, P) or
         the wav2vec's ids of `prime_wave`, stopping once every row holds EOS;
         the EOS and what follows become pad. One prefill of [start] +
         prompt, then one cached step per token (under prefix conditioning
         the whole sequence each step). A conditioned LM takes text or
-        text_embeds, with guidance at cond_scale. With return_logits, also
-        the (B, max_length + 1, V) logits each position was sampled from
-        (zeros past the last step)."""
+        text_embeds, with guidance at cond_scale; with an audio_conditioner
+        and prime_wave, the condition is its embeddings of prime_wave. With
+        return_logits, also the (B, max_length + 1, V) logits each position
+        was sampled from (zeros past the last step). With a data-parallel
+        `mesh` (`parallel.mesh.make_mesh`) the batch is split over its
+        ranks: each generates its rows (the prompt's, the condition's, its
+        share of batch_size), with its rows of the whole batch's noise, and
+        every rank returns the whole batch, the ids of the unsharded run."""
+        if mesh is not None:
+            with dp.data_parallel(mesh) as scope:
+                def cut(x):
+                    n = len(x) // scope.world
+                    if len(x) % scope.world:
+                        raise ValueError(f"batch {len(x)} does not split over {scope.world} ranks")
+                    return x[scope.rank * n:(scope.rank + 1) * n]
+
+                out = self.generate(
+                    max_length=max_length, prime_wave_input_sample_hz=prime_wave_input_sample_hz,
+                    **{k: None if v is None else cut(v) for k, v in dict(
+                        prime_ids=prime_ids, prime_wave=prime_wave, text=text,
+                        text_embeds=text_embeds).items()},
+                    cond_scale=cond_scale, batch_size=len(cut(range(batch_size)))
+                    if prime_ids is None and prime_wave is None else 1,
+                    filter_thres=filter_thres, temperature=temperature, generator=generator,
+                    return_logits=return_logits)
+                return tuple(map(dp.gather_rows, out)) if return_logits else dp.gather_rows(out)
         tr = self.transformer
         device = tr.start_token.device
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
+        if self.audio_conditioner is not None and prime_wave is not None:
+            text_embeds = _audio_condition(self.audio_conditioner, prime_wave, text, text_embeds,
+                                           "semantic")
         if prime_wave is not None:
             if prime_ids is not None:
                 raise ValueError("pass prime_wave or prime_ids, not both")
@@ -256,19 +328,102 @@ def _decode_codes(step, head_weights, embed_code, last_out, buf, start: int, *,
     logits before the EOS masking."""
     num_q = head_weights.shape[0]
     for i in range(start, buf.shape[1]):
-        if eos_id is not None and bool((buf == eos_id).any(-1).all()):
+        if eos_id is not None and all_rows_have_eos_id(buf, eos_id):
             break
         q = i % num_q
-        hidden = combine(last_out)
-        logits = hidden @ head_weights[q].t().to(hidden.dtype)
+        logits = _head_logits(combine(last_out), head_weights, q, None)
         if logits_buf is not None:
             logits_buf[:, i] = logits
-        if not (q == 0 and i > 0):
-            logits = logits.clone()
-            logits[:, -1] = float("-inf")
-        sampled = sample_from_logits(logits, filter_thres, temperature, generator=generator)
+        sampled = sample_from_logits(_mask_last(logits, q == 0 and i > 0), filter_thres,
+                                     temperature, generator=generator)
         buf[:, i] = sampled
         last_out = step(embed_code(sampled, q)[:, None])[:, -1]
+
+
+def _head_logits(hidden, head_weights, q, allow_last):
+    """The logits of head q; with allow_last False or True, the last class
+    (EOS for the coarse heads) masked or kept (None: the raw logits)."""
+    logits = hidden @ head_weights[q].t().to(hidden.dtype)
+    return logits if allow_last is None else _mask_last(logits, allow_last)
+
+
+def _mask_last(logits, allow_last: bool):
+    if allow_last:
+        return logits
+    logits = logits.clone()
+    logits[:, -1] = float("-inf")
+    return logits
+
+
+def _spec_decode_codes(run, head_weights, embed_code, last_out, buf, start: int, *,
+                       eos_id: "int | None", filter_thres, temperature, generator,
+                       combine=lambda h: h):
+    """The speculative sampler of the Coarse and Fine wrappers (the JAX
+    package's `_spec_decode_loop`), over whole time steps of Q codes from
+    `start` (a multiple of Q) on. For each: the step's Gumbel noise for its Q
+    codes drawn at once; code 0 sampled from the hidden state before the
+    step (its last class allowed after the first step), codes 1..Q-1
+    drafted from that same state; the Q drafts run in one cached pass; each
+    draft j >= 1 checked against the code sampled, with its noise, from the
+    pass's output at j - 1. From the first code A that disagrees in any row,
+    the cache is rewound to A (its keys and values before A depend only on
+    the accepted codes) and codes A..Q-1 are sampled and run one at a time,
+    each with its own noise. With eos_id, stops before a step once every
+    row holds EOS. Fills buf (B, n) in place; returns (accepted, steps): the
+    codes taken from the one-pass check (A a step) and the steps run."""
+    cache = run.cache
+    num_q = head_weights.shape[0]
+    b = buf.shape[0]
+    accepted = steps = 0
+    for i0 in range(start, buf.shape[1] - num_q + 1, num_q):
+        if eos_id is not None and all_rows_have_eos_id(buf, eos_id):
+            break
+        hidden0 = combine(last_out)
+        noise = gumbel_noise((b, num_q, head_weights.shape[1]), generator=generator,
+                             device=buf.device)
+
+        def sample(hidden, j):
+            logits = _head_logits(hidden, head_weights, j, j == 0 and i0 > 0)
+            return sample_from_logits(logits, filter_thres, temperature, noise=noise[:, j])
+
+        draft = [sample(hidden0, j) for j in range(num_q)]
+        pos = cache.pos
+        outs = run(torch.stack([embed_code(draft[j], j) for j in range(num_q)], 1)
+                   .to(last_out.dtype))
+        codes, agree = draft[:1], num_q
+        for j in range(1, num_q):
+            codes.append(sample(combine(outs[:, j - 1]), j))
+            if agree == num_q and bool((codes[j] != draft[j]).any()):
+                agree = j
+        last_out = outs[:, agree - 1]
+        if agree < num_q:
+            cache.pos = pos + agree
+            for j in range(agree, num_q):
+                codes[j] = sample(combine(last_out), j)
+                last_out = run(embed_code(codes[j], j)[:, None].to(last_out.dtype))[:, -1]
+        buf[:, i0:i0 + num_q] = torch.stack(codes, 1)
+        accepted += agree
+        steps += 1
+    return accepted, steps
+
+
+def _spec_or_sequential(speculative, aligned, run, head_weights, embed_code, last_out, buf,
+                        start, logits_buf, kw):
+    """The speculative sampler when `speculative` and `aligned` (where the
+    JAX package takes it), else the sequential one; dict(accepted=, steps=)
+    of the drafts (0 and 0 from the sequential sampler)."""
+    if speculative and run.cache is None:
+        raise ValueError("speculative decode rewinds the KV cache, and prefix conditioning "
+                         "(cond_as_self_attn_prefix) runs without one: use speculative=False")
+    if not (speculative and aligned):
+        _decode_codes(run, head_weights, embed_code, last_out, buf, start,
+                      logits_buf=logits_buf, **kw)
+        return dict(accepted=0, steps=0)
+    if logits_buf is not None:
+        raise ValueError("return_logits is for the sequential sampler: pass speculative=False")
+    accepted, steps = _spec_decode_codes(run, head_weights, embed_code, last_out, buf, start,
+                                         **kw)
+    return dict(accepted=accepted, steps=steps)
 
 
 def _codec_codes(codec, wave, input_sample_hz=None):
@@ -285,12 +440,15 @@ class CoarseTransformerWrapper(nn.Module):
     codes may come from audio and the samples go back to audio."""
 
     def __init__(self, *, transformer: CoarseTransformer, codec=None, wav2vec=None,
-                 pad_id: int = -1, unique_consecutive: bool = True, mask_prob: float = 0.15):
+                 audio_conditioner=None, pad_id: int = -1, unique_consecutive: bool = True,
+                 mask_prob: float = 0.15):
         super().__init__()
         _check_wav2vec(wav2vec, transformer.num_semantic_tokens)
+        _check_conditioner(audio_conditioner, transformer)
         self.transformer = transformer
         self.codec = codec
         self.wav2vec = wav2vec
+        self.audio_conditioner = audio_conditioner
         self.pad_id = pad_id
         self.unique_consecutive = unique_consecutive
         self.mask_prob = mask_prob
@@ -311,7 +469,10 @@ class CoarseTransformerWrapper(nn.Module):
         `raw_wave_for_codec`, which defaults to raw_wave. With train, EOS is appended to both streams and
         the forgetful causal mask (drawn from `generator`) joins the key
         mask, which always drops the semantic pad and EOS ids. The
-        condition as the Semantic wrapper's."""
+        condition as the Semantic wrapper's (the audio conditioner's
+        namespace "coarse")."""
+        text_embeds = _audio_condition(self.audio_conditioner, raw_wave, text, text_embeds,
+                                       "coarse")
         if semantic_token_ids is None:
             semantic_token_ids = _wav2vec_ids(self.wav2vec, raw_wave)
         if raw_wave_for_codec is None:
@@ -363,7 +524,8 @@ class CoarseTransformerWrapper(nn.Module):
                  cond_scale: float = 3.0, max_time_steps: int = 512, filter_thres: float = 0.9,
                  temperature: float = 1.0, reconstruct_wave: bool = False,
                  generator: "torch.Generator | None" = None, return_logits: bool = False,
-                 has_padding: "bool | None" = None):
+                 has_padding: "bool | None" = None, speculative: bool = False,
+                 return_spec_stats: bool = False):
         """Sample max_time_steps x Q coarse codes after the prompt
         `prime_coarse_token_ids` (B, Pc), or the codec's first Q codes of
         `prime_wave`, for semantic ids (B, S) (-1 pads embed to 0). One
@@ -375,7 +537,12 @@ class CoarseTransformerWrapper(nn.Module):
         samples, T = Pc / Q + max_time_steps, or with reconstruct_wave the
         codec's decode of it (`decode_acoustic_tokens`, with `has_padding`);
         with return_logits also the (B, T * Q, cb + 1) logits each code was
-        sampled from (zeros for the prompt and past the last step)."""
+        sampled from (zeros for the prompt and past the last step). With
+        speculative and a prompt of whole time steps, the speculative
+        sampler (`_spec_decode_codes`), else the sequential one; with
+        return_spec_stats also dict(accepted=, steps=, num_q=) (0 and 0 from
+        the sequential sampler; None without speculative), as JAX returns
+        them."""
         tr = self.transformer
         device = tr.coarse_start_token.device
         if generator is None:
@@ -415,15 +582,18 @@ class CoarseTransformerWrapper(nn.Module):
         def embed_code(code, q):
             return tr.coarse_embedding[code + q * stride] + tr.coarse_quantize_embedding[q]
 
-        _decode_codes(run, tr.coarse_logit_weights, embed_code, last_out, buf, pc,
-                      eos_id=self.coarse_eos_id, filter_thres=filter_thres,
-                      temperature=temperature, generator=generator, logits_buf=logits_buf,
-                      combine=lambda h: _cfg_combine(h, cond_scale, use_cfg))
+        kw = dict(eos_id=self.coarse_eos_id, filter_thres=filter_thres, temperature=temperature,
+                  generator=generator, combine=lambda h: _cfg_combine(h, cond_scale, use_cfg))
+        spec_stats = _spec_or_sequential(
+            speculative, pc % num_q == 0, run, tr.coarse_logit_weights, embed_code,
+            last_out, buf, pc, logits_buf, kw)
         buf = mask_out_after_eos_id(buf, self.coarse_eos_id, mask_value=-1, keep_eos=False)
         out = buf.reshape(b, -1, num_q)
         if reconstruct_wave:
             out = decode_acoustic_tokens(self.codec, out, pad_id=-1, has_padding=has_padding)
-        return (out, logits_buf) if return_logits else out
+        return _returns(out, logits_buf, return_logits,
+                        dict(spec_stats, num_q=num_q) if speculative else None,
+                        return_spec_stats)
 
 
 class FineTransformerWrapper(nn.Module):
@@ -431,11 +601,13 @@ class FineTransformerWrapper(nn.Module):
     samples the fine codes of given coarse codes. With a codec, the codes
     and the prompt may come from audio and the samples go back to audio."""
 
-    def __init__(self, *, transformer: FineTransformer, codec=None, pad_id: int = -1,
-                 mask_prob: float = 0.15):
+    def __init__(self, *, transformer: FineTransformer, codec=None, audio_conditioner=None,
+                 pad_id: int = -1, mask_prob: float = 0.15):
         super().__init__()
+        _check_conditioner(audio_conditioner, transformer)
         self.transformer = transformer
         self.codec = codec
+        self.audio_conditioner = audio_conditioner
         groups = codec.rq_groups if codec is not None else 1
         self.num_coarse_quantizers = transformer.num_coarse_quantizers * groups
         self.num_fine_quantizers = transformer.num_fine_quantizers * groups
@@ -454,7 +626,10 @@ class FineTransformerWrapper(nn.Module):
         wrapper's loss weight at its default, 1). With `raw_wave` (the JAX
         wrapper's name) or `raw_wave_for_codec`, both come from the codec's
         codes of it. With train, the forgetful causal mask (drawn from
-        `generator`) is applied. The condition as the Semantic wrapper's."""
+        `generator`) is applied. The condition as the Semantic wrapper's
+        (the audio conditioner's namespace "fine", of raw_wave)."""
+        text_embeds = _audio_condition(self.audio_conditioner, raw_wave, text, text_embeds,
+                                       "fine")
         if raw_wave is not None:
             if raw_wave_for_codec is not None:
                 raise ValueError("pass raw_wave or raw_wave_for_codec, not both")
@@ -498,7 +673,8 @@ class FineTransformerWrapper(nn.Module):
                  cond_scale: float = 3.0, filter_thres: float = 0.9, temperature: float = 1.0,
                  reconstruct_wave: bool = False, mask_out_generated_fine_tokens: bool = False,
                  generator: "torch.Generator | None" = None, return_logits: bool = False,
-                 has_padding: "bool | None" = None):
+                 has_padding: "bool | None" = None, speculative: bool = False,
+                 return_spec_stats: bool = False):
         """Sample the fine codes of coarse codes (B, T, Qc) or (B, T * Qc),
         after the prompt `prime_fine_token_ids` (B, Pf), or the codec's fine
         codes of `prime_wave`. One prefill of [start, coarse, start, prompt]
@@ -511,7 +687,10 @@ class FineTransformerWrapper(nn.Module):
         (`decode_acoustic_tokens`, with `has_padding`); with
         mask_out_generated_fine_tokens, the time steps whose coarse codes are
         all pad become pad; with return_logits also the (B, T * Qf, cb)
-        logits each code was sampled from (zeros for the prompt)."""
+        logits each code was sampled from (zeros for the prompt).
+        speculative and return_spec_stats as the Coarse wrapper's (the
+        speculative sampler needs a prompt of whole time steps and at least
+        one step)."""
         tr = self.transformer
         device = tr.coarse_start_token.device
         if generator is None:
@@ -549,10 +728,11 @@ class FineTransformerWrapper(nn.Module):
             return tr.fine_embedding[code + q * tr.codebook_size] + tr.fine_quantize_embedding[q]
 
         # the fine heads have no EOS class: no early exit, and no EOS to mask out after
-        _decode_codes(run, tr.fine_logit_weights, embed_code, last_out, buf, pf, eos_id=None,
-                      filter_thres=filter_thres, temperature=temperature, generator=generator,
-                      logits_buf=logits_buf,
-                      combine=lambda h: _cfg_combine(h, cond_scale, use_cfg))
+        kw = dict(eos_id=None, filter_thres=filter_thres, temperature=temperature,
+                  generator=generator, combine=lambda h: _cfg_combine(h, cond_scale, use_cfg))
+        spec_stats = _spec_or_sequential(
+            speculative, pf % qf == 0 and n_total > 0, run, tr.fine_logit_weights,
+            embed_code, last_out, buf, pf, logits_buf, kw)
         grid = buf.reshape(b, steps, qf)
         coarse_grid = coarse.reshape(b, steps, qc)
         if mask_out_generated_fine_tokens:
@@ -561,7 +741,8 @@ class FineTransformerWrapper(nn.Module):
         if reconstruct_wave:
             grid = decode_acoustic_tokens(self.codec, torch.cat([coarse_grid, grid], -1),
                                           pad_id=self.pad_id, has_padding=has_padding)
-        return (grid, logits_buf) if return_logits else grid
+        return _returns(grid, logits_buf, return_logits,
+                        dict(spec_stats, num_q=qf) if speculative else None, return_spec_stats)
 
 
 def decode_acoustic_tokens(codec, token_grid, pad_id: int = -1, length_bucket: int = 64,

@@ -1,6 +1,7 @@
 """Attention ops held against the JAX package's `ops/attention.py`: masked
 scaled-dot-product attention in plain PyTorch (the math path of `attend`,
-which KV-cached prefill and decode take, as they do in JAX), and the codec's
+which KV-cached prefill and decode take, as they do in JAX, and a train step
+with attention dropout, which needs the weights), and the codec's
 windowed attention: `rotary_xpos`, `DynamicPositionBias`, `LocalMHA` and
 `LocalTransformer`, whose blocked local attention is K7
 (`ops/kernels/local_attention.py`)."""
@@ -11,19 +12,37 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..nn.layers import FeedForward, LayerNorm, Linear
+from ..parallel.mesh import local_rows
 from .kernels.local_attention import local_attention
 
-__all__ = ["attend", "rotary_xpos", "DynamicPositionBias", "LocalMHA", "LocalTransformer"]
+__all__ = ["attend", "draw_keep", "rotary_xpos", "DynamicPositionBias", "LocalMHA",
+           "LocalTransformer"]
 
 _NEG_INF = -1e9  # finite mask value: fully masked rows stay NaN-free
 
 
+def draw_keep(generator, shape, p: float, device):
+    """Dropout's keep mask: bool `shape` on `device`, each True with
+    probability 1 - p (the JAX package's bernoulli(1 - p)), drawn from
+    `generator` on its own device. Under data parallelism the mask is drawn
+    for the whole batch and cut to this rank's rows (`parallel.mesh.local_rows`),
+    so the ranks together draw what one process would."""
+    gen_device = generator.device if generator is not None else "cpu"
+    keep = local_rows(lambda s: torch.rand(s, generator=generator, device=gen_device) < 1 - p,
+                      shape)
+    return keep.to(device)
+
+
 def attend(q, k, v, *, mask=None, attn_bias=None, causal: bool = False,
-           scale: "float | None" = None):
+           scale: "float | None" = None, dropout: float = 0.0,
+           generator: "torch.Generator | None" = None):
     """q: (B, H, N, D); k, v: (B, Hk, M, D) with Hk in {1, H}. mask broadcasts
     to (B, H, N, M), True = attend; attn_bias is additive (H, N, M) or
     (B, H, N, M). Products accumulate in float32 and the softmax runs in
-    float32, as the JAX path does. Returns (B, H, N, D) in q's dtype."""
+    float32, as the JAX path does. With dropout > 0 and a generator, the
+    weights after the softmax are kept with probability 1 - dropout
+    (`draw_keep`) and scaled by 1 / (1 - dropout); autograd saves the mask
+    for the backward. Returns (B, H, N, D) in q's dtype."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     sim = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if attn_bias is not None:
@@ -34,8 +53,11 @@ def attend(q, k, v, *, mask=None, attn_bias=None, causal: bool = False,
         sim = sim.masked_fill(~keep, _NEG_INF)
     if mask is not None:
         sim = sim.masked_fill(~mask, _NEG_INF)
-    attn = sim.softmax(-1).to(v.dtype)
-    return torch.matmul(attn.float(), v.float()).to(q.dtype)
+    attn = sim.softmax(-1)
+    if dropout > 0 and generator is not None:
+        keep = draw_keep(generator, attn.shape, dropout, attn.device)
+        attn = torch.where(keep, attn / (1 - dropout), 0.0)
+    return torch.matmul(attn.to(v.dtype).float(), v.float()).to(q.dtype)
 
 
 def rotary_xpos(t, *, scale_base: float, invert_scale: bool = False):

@@ -22,6 +22,15 @@ candidates, the dropout index, Gumbel noise) is made by one of the small
 `draw_*` functions below from the caller's generator (on the CPU, so the
 card and the CPU draw the same numbers from one seed).
 
+Under data parallelism (`parallel.mesh.data_parallel`) the EMA's code
+counts and code sums are summed over the ranks before the decay (the JAX
+package's `_maybe_psum`), kmeans and dead-code candidates are drawn from
+every rank's rows (`gather_rows`, in rank order: the whole batch's rows),
+and the Gumbel noise of stochastic codes is this rank's rows of the whole
+batch's draw, so the ranks keep one codebook, the one a single process
+would learn from the whole batch; LFQ's batch entropy takes the mean bit
+probabilities of every rank (a differentiable all-reduce).
+
 LFQ and FSQ have no codebook to search: a code is a pattern of sign bits
 (LFQ) or of values rounded onto a grid (FSQ), in plain PyTorch on the card
 as on the CPU, in float32 whatever the input's dtype. Their projections
@@ -38,6 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..nn.layers import Linear, init_uniform
+from ..parallel.mesh import all_reduce_sum, gather_rows, local_rows, mean_over_ranks
 from .kernels.vq import vq_nearest_code
 
 __all__ = ["VectorQuantizeEMA", "ResidualVQ", "GroupedResidualVQ", "LFQ", "ResidualLFQ",
@@ -82,8 +92,9 @@ def _sample_vectors(generator, x, num: int):
 
 def _gather_candidates(generator, x, num: int):
     """`num` candidate rows of x: rows drawn from x, then drawn again from
-    those (JAX's two draws, there so that data-parallel replicas share one
-    pool; with one card the second draw is over one replica's rows)."""
+    those (JAX's two draws); under data parallelism x is first every rank's
+    rows, so each rank draws the same pool, one process's."""
+    x = gather_rows(x)
     return _sample_vectors(generator, _sample_vectors(generator, x, num), num)
 
 
@@ -157,7 +168,8 @@ class VectorQuantizeEMA(nn.Module):
         flat = x.detach().reshape(-1, self.dim)
         if self.stochastic_sample_codes and generator is not None:
             dist = _sq_dist(flat, self.codebook)
-            gumbel = -torch.log(-torch.log(draw_uniform(generator, dist.shape).to(dist.device)))
+            u = local_rows(lambda shape: draw_uniform(generator, shape), dist.shape)
+            gumbel = -torch.log(-torch.log(u.to(dist.device)))
             idx = (gumbel - dist).argmax(-1)
         else:
             idx = vq_nearest_code(flat.float(), self.codebook).long()
@@ -179,12 +191,15 @@ class VectorQuantizeEMA(nn.Module):
     @torch.no_grad()
     def _ema_update(self, flat, idx, generator):
         """The EMA of the codes' counts and sums (one-hot products, as in
-        JAX, in a fixed order), the codebook from them, and dead codes (EMA
-        count under the threshold) replaced by candidate rows of flat."""
+        JAX, in a fixed order; summed over the data-parallel ranks), the
+        codebook from them, and dead codes (EMA count under the threshold)
+        replaced by candidate rows of flat."""
         onehot = F.one_hot(idx, self.codebook_size).float()
         d = self.decay
-        cluster_size = self.cluster_size * d + onehot.sum(0) * (1 - d)
-        embed_avg = self.embed_avg * d + (onehot.t() @ flat) * (1 - d)
+        counts = all_reduce_sum(onehot.sum(0))
+        sums = all_reduce_sum(onehot.t() @ flat)
+        cluster_size = self.cluster_size * d + counts * (1 - d)
+        embed_avg = self.embed_avg * d + sums * (1 - d)
         n = cluster_size.sum()
         smoothed = (cluster_size + self.eps) / (n + self.codebook_size * self.eps) * n
         codebook = embed_avg / smoothed[:, None].clamp(min=1e-12)
@@ -448,7 +463,8 @@ class LFQ(nn.Module):
         if train and self.entropy_loss_weight > 0:
             p = torch.sigmoid(4.0 * zf)
             per_sample = (-p * torch.log(p + 1e-9) - (1 - p) * torch.log(1 - p + 1e-9)).mean()
-            mean_p = p.reshape(-1, p.shape[-1]).mean(0)
+            # the batch's mean over every data-parallel rank (JAX's psum / n)
+            mean_p = mean_over_ranks(p.reshape(-1, p.shape[-1]).mean(0))
             batch = (-mean_p * torch.log(mean_p + 1e-9)
                      - (1 - mean_p) * torch.log(1 - mean_p + 1e-9)).mean()
             loss = loss + self.entropy_loss_weight * (per_sample - self.diversity_gamma * batch)

@@ -5,21 +5,27 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.mesh import local_rows
+
 __all__ = ["gumbel_noise", "gumbel_sample", "top_k", "mask_out_after_eos_id",
            "append_eos_id", "batch_unique_consecutive", "generate_mask_with_prob",
-           "grad_shrink", "get_embeds", "curtail_to_multiple"]
+           "grad_shrink", "get_embeds", "curtail_to_multiple", "all_rows_have_eos_id"]
 
 
 def gumbel_noise(shape, *, generator: "torch.Generator | None" = None,
                  device=None) -> torch.Tensor:
-    u = torch.rand(shape, generator=generator, device=device).clamp_(min=1e-20)
-    return -torch.log(-torch.log(u))
+    """Gumbel noise of `shape` (batch first) from generator; under data
+    parallelism this rank's rows of the whole batch's draw."""
+    u = local_rows(lambda s: torch.rand(s, generator=generator, device=device), shape)
+    return -torch.log(-torch.log(u.clamp_(min=1e-20)))
 
 
 def gumbel_sample(logits, temperature: float = 1.0, *,
-                  generator: "torch.Generator | None" = None):
-    """Temperature-scaled gumbel-max sampling over the last axis."""
-    noise = gumbel_noise(logits.shape, generator=generator, device=logits.device)
+                  generator: "torch.Generator | None" = None, noise=None):
+    """Temperature-scaled gumbel-max sampling over the last axis, with the
+    Gumbel `noise` given (logits' shape) or drawn from generator."""
+    if noise is None:
+        noise = gumbel_noise(logits.shape, generator=generator, device=logits.device)
     return (logits / max(temperature, 1e-10) + noise).argmax(-1)
 
 
@@ -36,6 +42,11 @@ def mask_out_after_eos_id(t, eos_id: int, mask_value: int = -1, keep_eos: bool =
     if keep_eos:
         eos = torch.nn.functional.pad(eos, (1, 0))[..., :-1]
     return t.masked_fill(eos.cumsum(-1) > 0, mask_value)
+
+
+def all_rows_have_eos_id(t, eos_id: int) -> bool:
+    """True when every row of t holds eos_id (a host sync)."""
+    return bool((t == eos_id).any(-1).all())
 
 
 def append_eos_id(ids, eos_id: int):
@@ -61,13 +72,14 @@ def generate_mask_with_prob(shape, mask_prob: float, *,
     min(int(n * mask_prob), n - 1) positions are dropped, never position 0.
     The draws come from `generator`, on the generator's device, so one
     generator gives the same mask on every device; they are not the bits JAX
-    draws."""
+    draws. Under data parallelism, this rank's rows of the whole batch's
+    draw (`parallel.mesh.local_rows`)."""
     n = shape[-1]
     num_mask = min(int(n * mask_prob), n - 1)
     if num_mask <= 0:
         return torch.ones(shape, dtype=torch.bool, device=device)
-    rand = torch.randn(shape, generator=generator,
-                       device=generator.device if generator is not None else device)
+    gen_device = generator.device if generator is not None else device
+    rand = local_rows(lambda s: torch.randn(s, generator=generator, device=gen_device), shape)
     rand[..., 0] = float("-inf")
     kth = rand.topk(num_mask, dim=-1).values[..., -1:]
     return (rand < kth).to(device)

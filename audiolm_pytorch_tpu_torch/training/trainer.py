@@ -8,7 +8,25 @@ what they share (`_TrainerBase`: the results folder, the metrics log,
 checkpoint cadence and resumption, the micro-batch stack), and the JAX
 trainers' defaults.
 
-One card: `data_parallel` is accepted and has no effect.
+Data parallelism (`data_parallel=True` in a process that has joined a
+process group, `parallel.mesh.init_process_group`): every rank reads the same
+whole batch and trains on its rows (`batch_size` must split over the ranks,
+as JAX asserts); the random draws over the batch are the whole batch's, cut
+to the rank's rows, the quantizers' EMA statistics are summed over the
+ranks, and the gradients (the discriminators' too) and the logged losses
+are averaged over them before the clip and the update, as JAX's pmean does.
+The gradient of a mean over equal shards is the mean of the shards', so
+the ranks take the step one process takes on the whole batch wherever each
+rank's loss is a mean over the same count (a loss whose count differs per
+rank, such as the LM's with `unique_consecutive` dropping repeats, is
+weighted per rank, as in JAX). Rank 0 alone writes checkpoints, samples and
+the metrics log; every rank waits at a barrier before and after a save and
+before a resume. Two limits: every rank loads and decodes the whole batch and
+draws each random mask for the whole batch (dropout's is (world * B, H, N, N)
+a layer), so those costs grow with the number of ranks; and the ranks equal
+one process only on clips that need no random crop (no longer than the
+crop), since the dataset's crop generator is shared by the loader's worker
+threads, whose order differs between processes.
 """
 from __future__ import annotations
 
@@ -25,6 +43,7 @@ from ..data.dataset import SoundDataset, get_dataloader
 from ..device import resolve_device
 from ..models.wrappers import (CoarseTransformerWrapper, FineTransformerWrapper,
                                SemanticTransformerWrapper)
+from ..parallel import mesh as dp
 from ..utils.audio_io import save_audio
 from ..weights import (DISCRIMINATORS, codec_state_dict_from_jax, codec_state_dict_to_jax,
                        lm_state_dict_to_jax, state_dict_from_jax)
@@ -64,14 +83,20 @@ class TransformerTrainStep:
     the masters, their gradients and the optimizer state stay float32. The
     norms, the hyper-connections' projection, the rel-pos and position-bias
     MLPs (float32 inputs, so float32 tables from the rounded weights) and
-    the loss's log-softmax compute in float32, as in JAX."""
+    the loss's log-softmax compute in float32, as in JAX.
+
+    The same generator draws the dropout masks of an LM built with
+    attn_dropout or ff_dropout. With a `mesh` (`parallel.mesh.make_mesh`),
+    each micro-batch is split over its ranks, and the gradients and the loss
+    are averaged over them before the clip (see the module's docstring)."""
 
     def __init__(self, wrapper, *, lr: float = 3e-4, wd: float = 0.0,
                  max_grad_norm: "float | None" = 0.5, grad_accum_every: int = 1,
                  warmup_steps: int = 0, cosine_decay: bool = False,
                  num_train_steps: "int | None" = None, seed: int = 42,
-                 bf16_compute: bool = False, device: "str | torch.device" = "cuda"):
+                 bf16_compute: bool = False, mesh=None, device: "str | torch.device" = "cuda"):
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.wrapper = wrapper.to(self.device)
         named = [(n, p) for n, p in wrapper.transformer.named_parameters() if p.requires_grad]
         self.names = [n for n, _ in named]
@@ -112,16 +137,22 @@ class TransformerTrainStep:
         for p in self.params:
             p.grad = torch.zeros_like(p)
         losses = []
-        for micro in zip(*(x.reshape(accum, -1, *x.shape[1:]) for x in batches)):
-            npos = len(micro) - len(names)
-            loss = self.loss(*micro[:npos], **dict(zip(names, micro[npos:])))
-            (loss / accum).backward()
-            losses.append(loss.detach())
+        micros = [x.reshape(accum, -1, *x.shape[1:]) for x in batches]
+        if self.mesh is not None:
+            micros = dp.shard_batch(self.mesh, micros, axis=1)
+        with dp.data_parallel(self.mesh):
+            for micro in zip(*micros):
+                npos = len(micro) - len(names)
+                loss = self.loss(*micro[:npos], **dict(zip(names, micro[npos:])))
+                (loss / accum).backward()
+                losses.append(loss.detach())
+            loss = torch.stack(losses).mean()
+            dp.all_reduce_mean([p.grad for p in self.params] + [loss])
         if self.max_grad_norm is not None:
             clip_by_global_norm_([p.grad for p in self.params], self.max_grad_norm)
         self.optimizer.step()
         self.scheduler.step()
-        return torch.stack(losses).mean().item()
+        return loss.item()
 
 
 def checkpoint_num_steps(path) -> int:
@@ -239,8 +270,13 @@ class _TrainerBase:
     def __init__(self, *, results_folder, num_train_steps: int, batch_size: int,
                  grad_accum_every: int = 1, save_results_every: int = 100,
                  save_model_every: int = 1000, use_wandb_tracking: bool = False,
-                 device="cuda"):
+                 data_parallel: bool = True, device="cuda"):
         self.device = resolve_device(device)
+        self.mesh = dp.make_mesh() if data_parallel and torch.distributed.is_initialized() \
+            else None
+        if self.mesh is not None and batch_size % self.mesh.size():
+            raise ValueError(f"batch_size {batch_size} does not split over the "
+                             f"{self.mesh.size()} data-parallel ranks")
         self.results_folder = Path(results_folder)
         self.results_folder.mkdir(parents=True, exist_ok=True)
         self.num_train_steps = num_train_steps
@@ -251,15 +287,33 @@ class _TrainerBase:
         self.steps = 0
         self.metrics = _MetricWriter(self.results_folder, use_wandb_tracking)
 
+    @property
+    def is_main(self) -> bool:
+        return dp.is_main()
+
+    def _log(self, **metrics):
+        if self.is_main:
+            self.metrics.log(self.steps, **metrics)
+
+    def _save_numbered(self, path):
+        """Save on rank 0, every rank waiting before and after."""
+        dp.barrier()
+        if self.is_main:
+            self.save(path)
+        dp.barrier()
+
     def resume_latest(self, pattern: str = "*.ckpt.npz") -> bool:
         """Load the checkpoint in results_folder with the most steps (not a
-        `.best.` one); False if there is none."""
+        `.best.` one); False if there is none. Every rank waits for the
+        others first, so what rank 0 saved is there."""
+        dp.barrier()
         ckpts = sorted((p for p in self.results_folder.glob(pattern) if ".best." not in p.name),
                        key=checkpoint_num_steps)
         if not ckpts:
             return False
         self.load(ckpts[-1])
-        print(f"resumed from {ckpts[-1]} at step {self.steps}")
+        if self.is_main:
+            print(f"resumed from {ckpts[-1]} at step {self.steps}")
         return True
 
     def _stack_accum(self, dl_iter):
@@ -289,8 +343,10 @@ class _TrainerBase:
             t0 = time.perf_counter()
             logs = self.train_step()
             logs["step_s"] = time.perf_counter() - t0
-            print(f"{self.steps}: " + " | ".join(f"{k} {v:.4f}" for k, v in logs.items()))
-        print("training complete")
+            if self.is_main:
+                print(f"{self.steps}: " + " | ".join(f"{k} {v:.4f}" for k, v in logs.items()))
+        if self.is_main:
+            print("training complete")
 
 
 class SoundStreamTrainer(_TrainerBase):
@@ -335,7 +391,8 @@ class SoundStreamTrainer(_TrainerBase):
                          batch_size=batch_size, grad_accum_every=grad_accum_every,
                          save_results_every=save_results_every,
                          save_model_every=save_model_every,
-                         use_wandb_tracking=use_wandb_tracking, device=device)
+                         use_wandb_tracking=use_wandb_tracking, data_parallel=data_parallel,
+                         device=device)
         self.model = soundstream.to(self.device)
         self.bf16_compute = bf16_compute
         self.apply_grad_penalty_every = apply_grad_penalty_every
@@ -392,8 +449,10 @@ class SoundStreamTrainer(_TrainerBase):
 
     def _accumulate(self, params, losses_of_micro, waves):
         """Sum 1 / N of each micro-batch's gradient of `params` (zero where
-        the loss does not reach one) into their .grad; returns the outputs
-        of losses_of_micro(wave) = (loss, extra)."""
+        the loss does not reach one) into their .grad, averaged over the
+        data-parallel ranks; returns the mean (loss, extra) of
+        losses_of_micro(wave) = (loss, extra tensor or None), averaged over
+        the ranks too. Call inside the step's `data_parallel` scope."""
         accum = waves.shape[0]
         grads = [torch.zeros_like(p) for p in params]
         outs = []
@@ -403,28 +462,36 @@ class SoundStreamTrainer(_TrainerBase):
                 if g is not None:
                     acc.add_(g * (1.0 / accum))
             outs.append((loss.detach(), extra))
+        loss = torch.stack([o[0] for o in outs]).mean()
+        extra = None if outs[0][1] is None else torch.stack([o[1] for o in outs]).mean(0)
+        dp.all_reduce_mean(grads + [loss] + ([] if extra is None else [extra]))
         for p, g in zip(params, grads):
             p.grad = g
-        return outs
+        return loss, extra
+
+    def _shard(self, waves):
+        """This rank's rows of waves (accum, B, T)."""
+        return waves if self.mesh is None else dp.shard_batch(self.mesh, waves, axis=1)
 
     def g_step(self, waves):
         """The generator's step on waves (accum, B, T) on the card: returns
-        (mean loss, mean breakdown), both tensors."""
+        (mean loss, mean breakdown), both tensors. Under data parallelism
+        waves is the whole batch and this rank trains on its rows."""
         def micro(wave):
             total, breakdown = self._call(self.gen_names, self.gen_params, self.bf16_compute,
                                           wave, train=True, generator=self.generator,
                                           return_loss_breakdown=True)
             return total, torch.stack(breakdown).detach()
 
-        outs = self._accumulate(self.gen_params, micro, waves)
+        with dp.data_parallel(self.mesh):
+            loss, breakdown = self._accumulate(self.gen_params, micro, self._shard(waves))
         if self.max_grad_norm is not None:
             clip_by_global_norm_([p.grad for p in self.gen_params], self.max_grad_norm)
         self.gen_opt.step()
         self.gen_sched.step()
         if self.ema is not None:
             self.ema.update(self.model)
-        return (torch.stack([o[0] for o in outs]).mean(),
-                torch.stack([o[1] for o in outs]).mean(0))
+        return loss, breakdown
 
     def d_step(self, waves, apply_grad_penalty: bool):
         """The discriminators' step on waves (accum, B, T): the mean loss.
@@ -437,12 +504,13 @@ class SoundStreamTrainer(_TrainerBase):
                               return_discr_loss=True,
                               apply_grad_penalty=apply_grad_penalty), None
 
-        outs = self._accumulate(self.discr_params, micro, waves)
+        with dp.data_parallel(self.mesh):
+            loss, _ = self._accumulate(self.discr_params, micro, self._shard(waves))
         if self.discr_max_grad_norm is not None:
             clip_by_global_norm_([p.grad for p in self.discr_params], self.discr_max_grad_norm)
         self.discr_opt.step()
         self.discr_sched.step()
-        return torch.stack([o[0] for o in outs]).mean()
+        return loss
 
     def train_step(self):
         """One step on the next grad_accum_every batches: the logs."""
@@ -456,12 +524,12 @@ class SoundStreamTrainer(_TrainerBase):
         logs = dict(loss=float(g_loss), recon_loss=recon, multi_spectral=mel, multi_stft=mstft,
                     si_snr_loss=sisnr, adversarial=adv, feature_loss=feat, commit=commit,
                     discr_loss=d_loss)
-        self.metrics.log(self.steps, **logs)
+        self._log(**logs)
         self.steps += 1
-        if self.steps % self.save_results_every == 0:
+        if self.is_main and self.steps % self.save_results_every == 0:
             self._dump_samples()
         if self.steps % self.save_model_every == 0:
-            self.save(self.results_folder / f"soundstream.{self.steps}.ckpt.npz")
+            self._save_numbered(self.results_folder / f"soundstream.{self.steps}.ckpt.npz")
         return logs
 
     @torch.no_grad()
@@ -544,8 +612,9 @@ class _TransformerTrainerBase(_TrainerBase):
     trainer's leaves by its names (`['model']` the transformer, `['opt']`
     the optax chain's Adam and schedule states) with `steps`, `kind`,
     `best_valid` and the transformer's `config` in the meta, so each package
-    resumes the other's. One card: data_parallel has no effect. Text
-    conditioning is not ported: a string field raises."""
+    resumes the other's. With data_parallel in a process group, the step
+    is split over the ranks (`TransformerTrainStep`'s mesh); rank 0 alone
+    writes the checkpoints and the log."""
 
     wrapper_field_order = ("raw_wave",)
 
@@ -562,14 +631,15 @@ class _TransformerTrainerBase(_TrainerBase):
                          batch_size=batch_size, grad_accum_every=grad_accum_every,
                          save_results_every=save_results_every,
                          save_model_every=save_model_every,
-                         use_wandb_tracking=use_wandb_tracking, device=device)
+                         use_wandb_tracking=use_wandb_tracking, data_parallel=data_parallel,
+                         device=device)
         self.name = name
         self.best_valid = float("inf")
         self.step_fn = TransformerTrainStep(
             wrapper, lr=lr, wd=wd, max_grad_norm=max_grad_norm,
             grad_accum_every=grad_accum_every, warmup_steps=warmup_steps,
             cosine_decay=cosine_decay, num_train_steps=num_train_steps, seed=seed,
-            bf16_compute=bf16_compute, device=self.device)
+            bf16_compute=bf16_compute, mesh=self.mesh, device=self.device)
         self.wrapper = self.step_fn.wrapper
         if dataset is None:
             if folder is None:
@@ -604,18 +674,19 @@ class _TransformerTrainerBase(_TrainerBase):
         kwargs = {k: v if k == "text_embeds" else v.reshape(-1, *v.shape[2:])
                   for k, v in kwargs.items()}
         logs = {"loss": self.step_fn.step(**kwargs)}
-        self.metrics.log(self.steps, **logs)
+        self._log(**logs)
         self.steps += 1
-        if self.steps % self.save_results_every == 0:
+        if self.is_main and self.steps % self.save_results_every == 0:
             vloss = self.valid_loss()
             logs["valid_loss"] = vloss
-            self.metrics.log(self.steps, valid_loss=vloss)
+            self._log(valid_loss=vloss)
             print(f"{self.steps}: valid loss {vloss:.4f}")
             if vloss < self.best_valid:
                 self.best_valid = vloss
                 self.save(self.results_folder / f"{self.name}.transformer.best.ckpt.npz")
         if self.steps % self.save_model_every == 0:
-            self.save(self.results_folder / f"{self.name}.transformer.{self.steps}.ckpt.npz")
+            self._save_numbered(
+                self.results_folder / f"{self.name}.transformer.{self.steps}.ckpt.npz")
         return logs
 
     @torch.no_grad()

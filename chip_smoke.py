@@ -214,6 +214,26 @@ Phases, each printing its name and seconds:
                    LFQ and FSQ, counted and timed, LFQ's and FSQ's losses
                    card vs CPU. Run last: after its profiles torch.profiler
                    was seen to miss launches in later windows.
+  Before it:
+     dropout     - the flagship train step with attn_dropout = ff_dropout =
+                   0.1 on 4 x 2048 ids: the plain attention path (no flash
+                   launch), ms per step, peak memory, the masks' keep share
+                   within 4 sigma of 0.9, K1 in an eval pass of the model,
+                   card vs CPU gradients at 1 x 256 on the same masks.
+     speculative - the Coarse and Fine speculative samplers at the ACOUSTIC
+                   width, batch 1 and 2, greedy: codes identical to the
+                   sequential sampler's, acceptance, codes/s of both.
+     audio conditioner - AudioLM with a fixed mel conditioner, the three LMs
+                   cross-attending to it: the wrappers' losses from raw_wave
+                   (card vs CPU), a 1-s prompt continued greedily with no
+                   text, tokens identical to the CPU port's.
+     data parallel - two ranks of this script (--data-parallel-rank) in a
+                   gloo group on the one card against this process on the
+                   whole batch: flagship Semantic and CODEC_TRAIN codec
+                   steps with VQ-EMA (no warmup), losses and state after
+                   the first codec step within 1e-5; the ranks again with
+                   the gradient all-reduce skipped, whose parameters must
+                   then fall outside 1e-5.
 The training phases (6, and the Coarse step in 7-12) also train in bf16
 compute beside float32: ms per step of both, and on one batch with the
 same weights and mask the bf16 loss and gradients held to float32's
@@ -247,12 +267,13 @@ Ends with a JSON line of per-kernel numbers, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}. Any failed phase raises
 and the script exits non-zero without that line. Imports torch, numpy, the
 standard library, the port, the timers of tools/cuda_timing.py and the
-FLAC writer of tests/flac_writer.py (numpy) only; spawns only nvcc, g++
-and nvidia-smi.
+FLAC writer of tests/flac_writer.py (numpy) only; spawns only nvcc, g++,
+nvidia-smi and, in the data parallel phase, two ranks of itself.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import re
@@ -1006,9 +1027,10 @@ def codec_accuracy(rng):
     return result
 
 
-def flagship(seed):
-    """The flagship model on the CPU, weights from `seed`."""
-    model = SemanticTransformer(**FLAGSHIP, seed=seed, device="cpu").eval()
+def flagship(seed, **kw):
+    """The flagship model on the CPU, weights from `seed` (with the LM's
+    options `kw`)."""
+    model = SemanticTransformer(**FLAGSHIP, **kw, seed=seed, device="cpu").eval()
     # the dynamic hyper-connection weights are zero at init: make them count
     rng = np.random.default_rng(seed + 1)
     with torch.no_grad():
@@ -2106,16 +2128,17 @@ LOSS_REL, STATE_REL = 2e-3, 1e-4
 CPU_CHECK_B = 4
 
 
-def write_clips(folder, seed):
-    """CLIPS clips of 2 s at 16 kHz in folder: a sine of 100-1000 Hz (and
-    its octave) with noise, from `seed`, written by the port's WAV writer."""
+def write_clips(folder, seed, samples=CLIP_SAMPLES):
+    """CLIPS clips of `samples` (2 s) at 16 kHz in folder: a sine of
+    100-1000 Hz (and its octave) with noise, from `seed`, written by the
+    port's WAV writer."""
     from audiolm_pytorch_tpu_torch.utils.audio_io import save_audio
     rng = np.random.default_rng(seed)
-    t_ = np.arange(CLIP_SAMPLES) / SR
+    t_ = np.arange(samples) / SR
     for i in range(CLIPS):
         f = rng.uniform(100, 1000)
         x = 0.4 * np.sin(2 * np.pi * f * t_) + 0.2 * np.sin(4 * np.pi * f * t_ + rng.uniform(0, 6))
-        save_audio(folder / f"clip_{i:03d}.wav", x + 0.05 * rng.standard_normal(CLIP_SAMPLES), SR)
+        save_audio(folder / f"clip_{i:03d}.wav", x + 0.05 * rng.standard_normal(samples), SR)
 
 
 def codec_trainer(folder, results, seed, weights, **kw):
@@ -3699,7 +3722,6 @@ def cli_phase(seed):
     """Each subcommand of the command line in process, the launch counts
     zeroed before and read after each: info, tokenize (WAV and FLAC),
     decode, generate on the banked chain."""
-    import contextlib
     import io
     import shutil
     import wave as wavfile
@@ -4161,6 +4183,574 @@ def audiolm_encodec_phase(seed):
                  samples=samples, ids_differ=ids_differ, codes_differ=codes_differ))
 
 
+# -- dropout, speculative decode, the audio conditioner, data parallelism ------
+
+DROPOUT = 0.1
+# the dropout keep share over the timed steps' masks must be within this many
+# standard deviations of 1 - DROPOUT (each element kept independently)
+KEEP_SIGMAS = 4.0
+
+
+def counted_draws(module, record):
+    """Wrap `module.draw_keep` so that each mask it draws is passed to
+    record(mask); returns the function to restore."""
+    draw = module.draw_keep
+
+    def counting(generator, shape, p, device):
+        keep = draw(generator, shape, p, device)
+        record(keep)
+        return keep
+
+    module.draw_keep = counting
+    return lambda: setattr(module, "draw_keep", draw)
+
+
+@phase("dropout")
+def dropout_phase(seed):
+    """The flagship Semantic train step with attn_dropout = ff_dropout = 0.1
+    on the 4 x 2048 batch: the plain attention path (no flash launch in the
+    step), a warm step and 3 timed, the keep share of every mask drawn in
+    them within KEEP_SIGMAS of 0.9, the peak memory; an eval pass of the same
+    model launches K1; the card's gradients at 1 x 256 against the CPU
+    port's given the same masks (drawn once on the CPU, replayed to the
+    card) by the training phase's rule."""
+    from audiolm_pytorch_tpu_torch.ops import attention as attention_ops
+    rng = np.random.default_rng(seed + 90)
+    cpu_model = flagship(seed, attn_dropout=DROPOUT, ff_dropout=DROPOUT).train()
+    model = copy.deepcopy(cpu_model).to(DEV)
+    trainer = TransformerTrainStep(SemanticTransformerWrapper(transformer=model), device=DEV)
+    ids = torch.from_numpy(rng.integers(0, FLAGSHIP["num_semantic_tokens"], TRAIN_IDS)).to(DEV)
+    kept = []
+    restore = counted_draws(attention_ops, lambda keep: kept.append(
+        (keep.sum(dtype=torch.int64), keep.numel())))
+    try:
+        first = trainer.step(ids)
+        kept.clear()
+        steps = 3
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        losses = [trainer.step(ids) for _ in range(steps)]
+        step_ms = (time.perf_counter() - t0) / steps * 1e3
+        launched = counts()
+    finally:
+        restore()
+    peak = torch.cuda.max_memory_allocated()
+    if any(launched.values()) or not all(np.isfinite([first, *losses])):
+        raise AssertionError(f"dropout step: launches {launched}, losses {[first, *losses]}")
+    depth = FLAGSHIP["depth"]
+    if len(kept) != 2 * depth * steps:  # per layer: the attention weights, the FF output
+        raise AssertionError(f"dropout step: {len(kept)} masks drawn in {steps} steps")
+    n = sum(numel for _, numel in kept)
+    share = float(sum(int(k) for k, _ in kept)) / n
+    sigma = float(np.sqrt(DROPOUT * (1 - DROPOUT) / n))
+    if abs(share - (1 - DROPOUT)) > KEEP_SIGMAS * sigma:
+        raise AssertionError(f"dropout keep share {share:.7f}, {KEEP_SIGMAS} sigma {sigma:.2e}")
+    zero_counts()
+    with torch.no_grad():
+        model(ids)
+    evaluated = counts()
+    if evaluated["launches"] != depth:
+        raise AssertionError(f"dropout model in eval: flash launches {evaluated}")
+    # card vs CPU gradients at 1 x 256, the trained weights, the masks the CPU drew
+    masks = []
+    restore = counted_draws(attention_ops, lambda keep: masks.append(keep.cpu()))
+    try:
+        cpu = small_grads(SemanticTransformerWrapper, copy.deepcopy(model).cpu(),
+                          (ids[:1, :256].cpu(),), seed)
+    finally:
+        restore()
+    queue = list(masks)
+    draw = attention_ops.draw_keep
+    attention_ops.draw_keep = lambda generator, shape, p, device: queue.pop(0).to(device)
+    try:
+        card = small_grads(SemanticTransformerWrapper, model, (ids[:1, :256],), seed)
+    finally:
+        attention_ops.draw_keep = draw
+    errs = leaf_errors(card, cpu)
+    worst = max(errs, key=errs.get)
+    if queue or errs[worst] > LEAF_TOL:
+        raise AssertionError(f"dropout card vs CPU gradient of {worst}: {errs[worst]:.3e}")
+    tokens = ids.numel()
+    print(f"dropout {DROPOUT} (attention and FF) flagship 4x2048: losses {first:.4f} (warm) "
+          + " ".join(f"{x:.4f}" for x in losses) + f" | {step_ms:.2f} ms per step "
+          f"({tokens / step_ms * 1e3:.0f} tokens/s) on the plain attention path | "
+          f"max_memory_allocated {peak / 2**30:.3f} GiB | launches {launched} | keep share "
+          f"{share:.6f} over {n} draws (0.9 +- {KEEP_SIGMAS} x {sigma:.1e}) | eval pass K1 "
+          f"{evaluated['launches']} | card vs CPU gradients at 1x256 with the same "
+          f"{len(masks)} masks: worst of {len(errs)} leaves {errs[worst]:.3e} in {worst} "
+          f"(limit {LEAF_TOL})")
+    del trainer, model, cpu_model
+    torch.cuda.empty_cache()
+    return ({"dropout_step": launched, "dropout_eval": evaluated},
+            dict(step_ms=step_ms, peak_bytes=peak, keep_share=share, keep_sigma=sigma,
+                 grad_leaf_err=errs[worst]))
+
+
+SPEC_STEPS = HZ // 2  # time steps generated in the speculative phase (0.5 s)
+
+
+@phase("speculative")
+def speculative_phase(seed):
+    """Coarse and Fine generation at the ACOUSTIC width, batch 1 and 2,
+    greedy, SPEC_STEPS time steps: the speculative sampler's codes identical
+    to the sequential sampler's on the card, each timed after one warm call
+    of each sampler a model (codes/s), the speculative one counted (K1 in
+    its prefill), its acceptance accepted / (steps x Q)."""
+    rng = np.random.default_rng(seed + 91)
+    paths, runs = {}, {}
+    for kind in ("coarse", "fine"):
+        model = acoustic_model(kind, seed).to(DEV)
+        wrapper = LMS[kind][2](transformer=model)
+        q = model.num_coarse_quantizers if kind == "coarse" else model.num_fine_quantizers
+        for b in (1, 2):
+            if kind == "coarse":
+                vocab = COARSE["num_semantic_tokens"]
+                sem = np.cumsum(rng.integers(1, vocab, (b, SPEC_STEPS)), axis=1) % vocab
+                kw = dict(semantic_token_ids=torch.from_numpy(sem).to(DEV),
+                          max_time_steps=SPEC_STEPS)
+            else:
+                kw = dict(coarse_token_ids=torch.from_numpy(
+                    rng.integers(0, 1024, (b, SPEC_STEPS, 3))).to(DEV))
+            out = {}
+            for spec in (False, True):
+                gen = dict(kw, temperature=1e-10, speculative=spec, return_spec_stats=True)
+                if b == 1:  # warm
+                    wrapper.generate(**gen,
+                                     generator=torch.Generator(device=DEV).manual_seed(seed))
+                torch.cuda.synchronize()
+                zero_counts()
+                t0 = time.perf_counter()
+                codes, stats = wrapper.generate(
+                    **gen, generator=torch.Generator(device=DEV).manual_seed(seed))
+                torch.cuda.synchronize()
+                out[spec] = (codes, stats, time.perf_counter() - t0, counts())
+            (seq, _, seq_s, _), (spec_codes, stats, spec_s, launched) = out[False], out[True]
+            if not torch.equal(spec_codes, seq) or stats["steps"] == 0:
+                raise AssertionError(f"speculative {kind} b{b}: codes differ from the "
+                                     f"sequential sampler's ({stats})")
+            if launched["launches"] != model.transformer.depth:
+                raise AssertionError(f"speculative {kind} b{b}: K1 launches {launched}")
+            n = int((seq >= 0).sum())
+            accept = stats["accepted"] / (stats["steps"] * q)
+            runs[f"{kind}_b{b}"] = dict(acceptance=accept, steps=stats["steps"], codes=n,
+                                        seq_codes_per_s=n / seq_s, spec_codes_per_s=n / spec_s)
+            paths[f"speculative_{kind}_b{b}"] = launched
+            print(f"speculative {kind} b{b} greedy, {SPEC_STEPS} time steps of {q}: codes "
+                  f"identical to the sequential sampler's | acceptance {stats['accepted']} / "
+                  f"({stats['steps']} x {q}) = {accept:.3f} | sequential {n / seq_s:.1f} "
+                  f"codes/s, speculative {n / spec_s:.1f} codes/s ({seq_s / spec_s:.2f}x) | "
+                  f"launches {launched}")
+        del model, wrapper
+        torch.cuda.empty_cache()
+    return paths, runs
+
+
+class MelConditioner:
+    """A fixed audio conditioner (`utils.AudioConditionerBase`'s interface):
+    the log-mel spectrogram of a 16-kHz wave (1024-point FFT, hop 256, 64
+    mels) mean-pooled over COND_SPANS equal spans of frames, through a fixed
+    (64, COND_DIM) projection of each namespace drawn from `seed`. Computed
+    on the CPU whatever the wave's device (the card's and the CPU's runs
+    get the same embeddings), returned on the wave's device."""
+
+    def __init__(self, seed):
+        g = torch.Generator().manual_seed(seed)
+        self.proj = {ns: torch.randn(64, COND_DIM, generator=g) / 8
+                     for ns in ("semantic", "coarse", "fine")}
+        self.calls = []
+
+    def __call__(self, *, wavs, namespace):
+        from audiolm_pytorch_tpu_torch.ops.stft import melspectrogram
+        self.calls.append(namespace)
+        x = wavs.detach().float().cpu()
+        mel = torch.log(melspectrogram(x, SR, 1024, 256, n_mels=64) + 1e-5).transpose(1, 2)
+        f = mel.shape[1] // COND_SPANS * COND_SPANS
+        pooled = mel[:, :f].reshape(x.shape[0], COND_SPANS, -1, 64).mean(2)
+        return (pooled @ self.proj[namespace]).to(wavs.device)
+
+
+COND_DIM, COND_SPANS = 128, 8
+COND_NEW_IDS, COND_NEW_FRAMES = 25, 25  # the continuation's new ids and coarse frames
+
+
+def stage_spy(generate, outputs, name):
+    """generate, keeping what it returns in outputs[name]."""
+    def spied(**kw):
+        outputs[name] = generate(**kw)
+        return outputs[name]
+    return spied
+
+
+@phase("audio conditioner")
+def audio_conditioner_phase(seed):
+    """AudioLM with an audio conditioner (`MelConditioner`), the three LMs
+    cross-attending to it at the widths of the audiolm phase (a random
+    HubertWithKmeans at the stage recipe's width with 500 centres; the
+    calibrated codec with 8 quantizers): the three wrappers' losses from
+    raw_wave (4 x 2 s; K1 in the LMs, K6 and K7 in the codec's codes) on
+    the card, the Semantic and Coarse ones against the CPU port's from the
+    same ids and codes within LOSS_REL; then a 1-s prompt continued greedily
+    with no text (COND_NEW_IDS ids, COND_NEW_FRAMES coarse frames), each
+    stage conditioned on the conditioner's embeddings of the prompt, in one
+    AudioLM call (counted; the wall time of a first call): its semantic ids
+    and coarse codes identical to the CPU port's and its waveform the
+    decode of the CPU port's coarse and fine codes."""
+    from audiolm_pytorch_tpu_torch import HubertWithKmeans
+    rng = np.random.default_rng(seed + 92)
+    codec = calibrated_codec(seed, rng, rq_num_quantizers=8)
+    cond = dict(has_condition=True, cond_dim=COND_DIM)
+    models = dict(
+        wav2vec=HubertWithKmeans(**STAGE_W2V, codebook_size=FLAGSHIP["num_semantic_tokens"],
+                                 seed=seed, device="cpu"),
+        semantic_transformer=cond_model(SemanticTransformer, FLAGSHIP, seed, **cond),
+        coarse_transformer=cond_model(CoarseTransformer, COARSE, seed, **cond),
+        fine_transformer=cond_model(FineTransformer, FINE, seed, **cond))
+    conditioner = MelConditioner(seed)
+    cpu = AudioLM(codec=copy.deepcopy(codec).cpu(), audio_conditioner=conditioner, **models)
+    card = AudioLM(codec=codec, audio_conditioner=conditioner,
+                   **{k: copy.deepcopy(m).to(DEV) for k, m in models.items()})
+    wave = torch.from_numpy(0.1 * rng.standard_normal((4, CODEC_S * SR), dtype=np.float32)
+                            ).to(DEV)
+    scoring = {}
+    with torch.no_grad():
+        for name in ("semantic", "coarse", "fine"):
+            wrapper = getattr(card, name)
+            wrapper(raw_wave=wave, return_loss=True)
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            loss = wrapper(raw_wave=wave, return_loss=True)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            launched = counts()
+            want_codec = name != "semantic"
+            if launched["launches"] == 0 or (launched["launches_vq"] > 0) != want_codec \
+                    or not torch.isfinite(loss):
+                raise AssertionError(f"audio conditioner {name} scoring: {launched}, {loss}")
+            scoring[name] = dict(launches=launched, wall_ms=wall_ms, loss=float(loss))
+        ids = card.semantic.wav2vec(wave, flatten=True)
+        codes = codec.tokenize(wave)[..., :3]
+        pairs = {"semantic": (card.semantic(ids, raw_wave=wave, return_loss=True),
+                              cpu.semantic(ids.cpu(), raw_wave=wave.cpu(), return_loss=True)),
+                 "coarse": (card.coarse(ids, codes, raw_wave=wave, return_loss=True),
+                            cpu.coarse(ids.cpu(), codes.cpu(), raw_wave=wave.cpu(),
+                                       return_loss=True))}
+    for name, (a, b) in pairs.items():
+        if not abs(float(a) - float(b)) <= LOSS_REL * abs(float(b)):
+            raise AssertionError(f"audio conditioner {name} loss card {float(a)} vs CPU "
+                                 f"{float(b)}")
+    prompt = wave[:1, :SR]
+    prompt_ids = card.semantic.wav2vec(prompt, flatten=True).shape[1]
+    max_length = prompt_ids + COND_NEW_IDS
+    kw = dict(prime_wave_input_sample_hz=SR, temperature=1e-10)
+    stages = {}
+    for name in ("semantic", "coarse"):  # their tokens, as AudioLM routes them
+        wrapper = getattr(card, name)
+        wrapper.generate = stage_spy(wrapper.generate, stages, name)
+    conditioner.calls.clear()
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = card(prime_wave=prompt, max_length=max_length, max_coarse_time_steps=COND_NEW_FRAMES,
+               **kw, generator=torch.Generator(device=DEV).manual_seed(seed))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launched = counts()
+    if conditioner.calls != ["semantic", "coarse", "fine"]:
+        raise AssertionError(f"audio conditioner calls {conditioner.calls}")
+    p = prompt.cpu()
+    g = torch.Generator().manual_seed(seed)
+    sem = cpu.semantic.generate(prime_wave=p, max_length=max_length, generator=g, **kw)
+    co = cpu.coarse.generate(semantic_token_ids=sem, max_time_steps=COND_NEW_FRAMES,
+                             prime_wave=p, generator=g,
+                             text_embeds=conditioner(wavs=p, namespace="coarse"), **kw)
+    fi = cpu.fine.generate(coarse_token_ids=co, prime_wave=p, generator=g,
+                           text_embeds=conditioner(wavs=p, namespace="fine"), **kw)
+    got = [stages[n].cpu() for n in ("semantic", "coarse")]
+    compare_chains("audio conditioner continuation", got, [sem, co])
+    with torch.no_grad():
+        ref = decode_acoustic_tokens(codec, torch.cat([co, fi], -1).to(DEV))
+    outs = out if isinstance(out, list) else [out]
+    refs = ref if isinstance(ref, list) else [ref]
+    if len(outs) != len(refs) or not all(
+            (a is None and b is None) or (a is not None and b is not None and torch.equal(a, b))
+            for a, b in zip(outs, refs)):
+        raise AssertionError("audio conditioner: the waveform is not the decode of the CPU "
+                             "port's tokens")
+    for name, r in scoring.items():
+        print(f"audio conditioner [{name} scoring] 4x2s from raw_wave: loss {r['loss']:.5g} in "
+              f"{r['wall_ms']:.2f} ms | launches K1 {r['launches']['launches']}, K6 "
+              f"{r['launches']['launches_vq']}, K7 {r['launches']['launches_local']}")
+    n_sem = int((got[0] >= 0).sum())
+    frames = int((got[1] >= 0).all(-1).sum())
+    print(f"audio conditioner losses card vs CPU from the same ids and codes: semantic "
+          f"{float(pairs['semantic'][0]):.6g}/{float(pairs['semantic'][1]):.6g}, coarse "
+          f"{float(pairs['coarse'][0]):.6g}/{float(pairs['coarse'][1]):.6g} (within {LOSS_REL})"
+          f" | continuation of a 1-s prompt with no text: {n_sem} semantic ids, {frames} "
+          f"coarse frames, in {wall_s:.2f} s, tokens identical to the CPU port's | launches "
+          f"{launched}")
+    del card, cpu, codec, models
+    torch.cuda.empty_cache()
+    return ({"conditioner_semantic_scoring": scoring["semantic"]["launches"],
+             "conditioner_coarse_scoring": scoring["coarse"]["launches"],
+             "conditioner_fine_scoring": scoring["fine"]["launches"],
+             "conditioner_continuation": launched},
+            dict(scoring_ms={k: v["wall_ms"] for k, v in scoring.items()}, wall_s=wall_s))
+
+
+# data parallelism: two ranks (this script with --data-parallel-rank, each a
+# process on the one card, joined in a gloo group) against this process on the
+# whole batch. The codec trains without a warmup (lr 2e-4 from the first
+# step), so that a wrong gradient moves its parameters as far as the check
+# can see. Gated within DP_REL (`dp_gaps`): every logged loss, the Semantic
+# parameters after two steps, and after the first codec G + D step its
+# parameters, EMA shadow and worst quantizer buffer. The second codec step's
+# gaps and the gradients are printed, not gated: on the card the codec step
+# does not repeat its own result to 1e-5 (cuDNN's and the atomics' sums; its
+# gradients 1.0e-5 apart, the quantizer buffers after two steps 3.1e-6,
+# tools/torch_dp_spread.py), and Adam turns that noise into ±lr updates. Each
+# rank then runs again with the gradient all-reduce skipped
+# (`gradient_all_reduce_skipped`), where the DP_FAULT gaps must exceed DP_REL.
+DP_REL = 1e-5
+DP_GATED = ("loss", "semantic_params", "codec1_params", "codec1_ema", "codec1_buffers")
+DP_FAULT = ("semantic_params", "codec1_params")
+DP_WORLD, DP_TIMEOUT_S = 2, 600
+DP_CODEC_B, DP_CALIB_S = TRAIN_B, 2
+
+
+def dp_codec(seed):
+    """The CODEC_TRAIN codec with GAN weights from `seed`, its quantizers'
+    codebooks filled on the CPU from a calibration wave (each process builds
+    the same one) and their EMA state set from them, as a trained codec's."""
+    from audiolm_pytorch_tpu_torch import SoundStream
+    codec = SoundStream(**CODEC_TRAIN, **GAN, seed=seed, device="cpu")
+    calib = torch.from_numpy(0.1 * np.random.default_rng(seed + 93).standard_normal(
+        (2, DP_CALIB_S * SR), dtype=np.float32))
+    fill_codebooks(codec, calib, seed)
+    with torch.no_grad():
+        for rvq in codec.rq.rvqs:
+            for layer in rvq.layers:
+                layer.cluster_size.fill_(1.0)
+                layer.embed_avg.copy_(layer.codebook)
+                layer.initted.fill_(True)
+    return codec
+
+
+def flat(tensors):
+    """The tensors as one float32 vector on the CPU."""
+    return torch.cat([t.detach().reshape(-1).float() for t in tensors]).cpu()
+
+
+def dp_run(mesh, seed, out_dir, results):
+    """The data-parallel checks' work on this process's rank (mesh) or on
+    the whole batch (mesh None): two flagship Semantic train steps on ids
+    without consecutive repeats (each rank's loss a mean over the same
+    count), then two SoundStreamTrainer steps (G and D, the penalty on the
+    first, no warmup) on the clips in out_dir/clips, its results in
+    out_dir/results; each second step counted and timed. Returns what
+    `dp_gaps` reads: the losses, the Semantic parameters and their update
+    (after less before), and after each codec step a snapshot of its
+    parameters, update, gradients, EMA shadow and quantizer buffers."""
+    from audiolm_pytorch_tpu_torch import SoundStreamTrainer
+    rng = np.random.default_rng(seed + 94)
+    vocab = FLAGSHIP["num_semantic_tokens"]
+    ids = torch.from_numpy(np.cumsum(rng.integers(1, vocab, TRAIN_IDS), axis=1) % vocab).to(DEV)
+    model = flagship(seed).train().to(DEV)
+    before = flat(model.parameters())
+    step = TransformerTrainStep(SemanticTransformerWrapper(transformer=model), mesh=mesh,
+                                device=DEV)
+    res = {"semantic_loss": [step.step(ids)]}
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    res["semantic_loss"].append(step.step(ids))
+    res["semantic_ms"] = (time.perf_counter() - t0) * 1e3
+    res["semantic_launches"] = counts()
+    res["semantic_params"] = flat(model.parameters())
+    res["semantic_update"] = res["semantic_params"] - before
+    del step, model
+    trainer = SoundStreamTrainer(
+        dp_codec(seed).to(DEV), folder=out_dir / "clips", results_folder=out_dir / results,
+        seed=seed, device=DEV, data_parallel=mesh is not None,
+        **dict(TRAINER_KW, batch_size=DP_CODEC_B, warmup_steps=0, apply_grad_penalty_every=2,
+               ema_update_after_step=0, ema_update_every=1))
+    before = flat(trainer.model.parameters())
+    ema_before = flat(trainer.ema.shadow.state_dict().values())
+
+    def snapshot():
+        params = flat(trainer.model.parameters())
+        ema = flat(trainer.ema.shadow.state_dict().values())
+        return dict(params=params, update=params - before, ema=ema, ema_update=ema - ema_before,
+                    grads=flat(p.grad for p in trainer.gen_params + trainer.discr_params),
+                    buffers={k: v.detach().to("cpu", copy=True)
+                             for k, v in trainer.model.state_dict().items()
+                             if k.startswith("rq.") and v.is_floating_point()})
+
+    try:
+        res["codec_logs"] = [trainer.train_step()]
+        res["codec"] = [snapshot()]
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        res["codec_logs"].append(trainer.train_step())
+        res["codec_ms"] = (time.perf_counter() - t0) * 1e3
+        res["codec_launches"] = counts()
+        res["codec"].append(snapshot())
+    finally:
+        trainer.close()
+    return res
+
+
+@contextlib.contextmanager
+def gradient_all_reduce_skipped():
+    """The data-parallel phase's planted fault: within the block the
+    trainers' `all_reduce_mean` averages only what follows the gradients in
+    its list (the loss, from the last 0-d tensor on), so each rank steps on
+    its own rows' gradients while its logged losses stay averaged."""
+    from audiolm_pytorch_tpu_torch.parallel import mesh as dp
+    real = dp.all_reduce_mean
+
+    def losses_only(tensors):
+        last = max(i for i, t in enumerate(tensors) if t.dim() == 0)
+        real(tensors[last:])
+        return tensors
+
+    dp.all_reduce_mean = losses_only
+    try:
+        yield
+    finally:
+        dp.all_reduce_mean = real
+
+
+def dp_rank_main(rank, port, out_dir, seed):
+    """One rank of the data-parallel phase: joins the gloo group, runs
+    dp_run on its rows, then again with the gradient all-reduce skipped;
+    saves what they gave to out_dir/rank<r>.pt and rank<r>_fault.pt."""
+    from audiolm_pytorch_tpu_torch.parallel import mesh as dp
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dp.init_process_group(rank, DP_WORLD, init_method=f"tcp://localhost:{port}", device=DEV,
+                          backend="gloo")
+    try:
+        mesh = dp.make_mesh()
+        torch.save(dp_run(mesh, seed, out_dir, "results_dp"), out_dir / f"rank{rank}.pt")
+        with gradient_all_reduce_skipped():
+            fault = dp_run(mesh, seed, out_dir, "results_dp_fault")
+        torch.save(fault, out_dir / f"rank{rank}_fault.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def rel_norm(a, b):
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+
+def dp_gaps(res, one):
+    """A rank's gaps to the one process: the worst loss by relative error;
+    by relative norm the Semantic parameters and their update (after less
+    before) after two steps, and after each codec step (codec1_*, codec2_*)
+    its parameters, update, gradients (G and D, as the optimizers took them),
+    EMA shadow and its update, and the worst quantizer buffer."""
+    losses = res["semantic_loss"] + [x for logs in res["codec_logs"] for x in logs.values()]
+    ref = one["semantic_loss"] + [x for logs in one["codec_logs"] for x in logs.values()]
+    gaps = dict(loss=max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(losses, ref) if b != 0),
+                semantic_params=rel_norm(res["semantic_params"], one["semantic_params"]),
+                semantic_update=rel_norm(res["semantic_update"], one["semantic_update"]))
+    for i, (got, want) in enumerate(zip(res["codec"], one["codec"]), 1):
+        for k in ("params", "update", "grads", "ema", "ema_update"):
+            gaps[f"codec{i}_{k}"] = rel_norm(got[k], want[k])
+        gaps[f"codec{i}_buffers"] = max(rel_norm(v, want["buffers"][k])
+                                        for k, v in got["buffers"].items())
+    return gaps
+
+
+def dp_results(seed):
+    """Starts the DP_WORLD ranks (each runs dp_run, then again with the
+    gradient all-reduce skipped) and runs dp_run on the whole batch here
+    meanwhile; returns (one process, the ranks, the faulted ranks)."""
+    import socket
+    out_dir = ROOT / "build" / "data_parallel"
+    (out_dir / "clips").mkdir(parents=True, exist_ok=True)
+    for old in out_dir.glob("rank*.pt"):
+        old.unlink()
+    # clips as long as a training crop: the dataset crops no clip, so no
+    # draw of its crop generator (shared by the loader's worker threads,
+    # whose order differs between processes) enters the batch
+    write_clips(out_dir / "clips", seed, samples=TRAIN_SAMPLES)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--seed", str(seed),
+                               "--data-parallel-rank", str(r), "--port", str(port)],
+                              cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(DP_WORLD)]
+    try:
+        one = dp_run(None, seed, out_dir, "results_one")  # beside the ranks: all share the card
+        logs = [p.communicate(timeout=DP_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"data parallel rank {r} failed:\n{log[-4000:]}")
+    load = lambda name: torch.load(out_dir / name, weights_only=False)  # noqa: E731
+    return (one, [load(f"rank{r}.pt") for r in range(DP_WORLD)],
+            [load(f"rank{r}_fault.pt") for r in range(DP_WORLD)])
+
+
+@phase("data parallel")
+def data_parallel_phase(seed):
+    """Two ranks in a gloo group on the one card (NCCL refuses two ranks on
+    one device), each a process of this script on half of every batch,
+    against this process on the whole batch: two flagship Semantic train
+    steps (K1-K4) and two SoundStreamTrainer steps at the CODEC_TRAIN width
+    with VQ-EMA (K6, K7), the quantizers' EMA statistics summed over the
+    ranks. The DP_GATED gaps (`dp_gaps`) within DP_REL; the ranks' second
+    run, with the gradient all-reduce skipped, must put the DP_FAULT gaps
+    outside DP_REL. Prints each rank's and the one process's ms per step
+    and every gap."""
+    one, ranks, faults = dp_results(seed)
+    gaps = {r: dp_gaps(res, one) for r, res in enumerate(ranks)}
+    fault_gaps = {r: dp_gaps(res, one) for r, res in enumerate(faults)}
+    for r, res in enumerate(ranks):
+        if max(gaps[r][k] for k in DP_GATED) > DP_REL:
+            raise AssertionError(f"data parallel rank {r} vs one process: {gaps[r]}")
+        if min(fault_gaps[r][k] for k in DP_FAULT) <= DP_REL:
+            raise AssertionError(f"data parallel rank {r}: the gate passes a rank that skipped "
+                                 f"the gradient all-reduce: {fault_gaps[r]}")
+        depth = FLAGSHIP["depth"]
+        semantic = dict(launches=depth, launches_dq=depth, launches_dkv=depth,
+                        launches_dtab=depth, launches_dbias=0, launches_vq=0, launches_local=0)
+        codec = res["codec_launches"]
+        if res["semantic_launches"] != semantic or codec["launches_vq"] == 0 \
+                or codec["launches_local"] == 0 or codec["launches"]:
+            raise AssertionError(f"data parallel rank {r}: launches {res['semantic_launches']}, "
+                                 f"{codec}")
+    print(f"data parallel {DP_WORLD} ranks (gloo, one card) vs one process on the whole batch: "
+          f"flagship Semantic step 4x2048 {ranks[0]['semantic_ms']:.2f} ms (rank 0) / "
+          f"{one['semantic_ms']:.2f} ms (one process), codec G+D step {DP_CODEC_B} x 1 s "
+          f"{ranks[0]['codec_ms']:.2f} / {one['codec_ms']:.2f} ms | worst gaps "
+          + worst(gaps) + f" (gated {', '.join(DP_GATED)}: limit {DP_REL})"
+          + " | gradient all-reduce skipped: " + worst(fault_gaps)
+          + f" ({', '.join(DP_FAULT)} must exceed the limit)"
+          + f" | rank 0 launches semantic {ranks[0]['semantic_launches']}, "
+          f"codec {ranks[0]['codec_launches']}")
+    return ({"data_parallel_semantic": ranks[0]["semantic_launches"],
+             "data_parallel_codec": ranks[0]["codec_launches"]},
+            dict(semantic_ms=[r["semantic_ms"] for r in ranks], codec_ms=[r["codec_ms"]
+                                                                          for r in ranks],
+                 one_process_ms=dict(semantic=one["semantic_ms"], codec=one["codec_ms"]),
+                 gaps=gaps, fault_gaps=fault_gaps))
+
+
+def worst(gaps):
+    """'name value' of each gap's largest over the ranks."""
+    return " ".join(f"{k} {max(g[k] for g in gaps.values()):.2e}" for k in gaps[0])
+
+
 # the outputs of each row's kernel in the tf32 phase's float64 check
 F64_OUTPUTS = {"fwd": ("out",), "dq": ("dq",), "dkv": ("dk", "dv"), "dbias": ("dbias",)}
 # the TPU kernel each port replaces, by line in the JAX package
@@ -4182,7 +4772,16 @@ KERNELS = [
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--data-parallel-rank", type=int, default=None,
+                        help="run one rank of the data parallel phase (the phase starts them)")
+    parser.add_argument("--port", type=int, default=None, help="the data parallel group's port")
     args = parser.parse_args()
+    if args.data_parallel_rank is not None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("torch.cuda.is_available() is false: this script needs a GPU")
+        dp_rank_main(args.data_parallel_rank, args.port, ROOT / "build" / "data_parallel",
+                     args.seed)
+        return
     t0 = time.perf_counter()
     smi = device_phase()
     build_phase()
@@ -4239,6 +4838,14 @@ def main():
     paths["encodec"], timings["vq_encodec"], timings["encodec"] = encodec_phase(args.seed)
     encodec_paths, timings["audiolm_encodec"] = audiolm_encodec_phase(args.seed)
     paths.update(encodec_paths)
+    dropout_paths, timings["dropout"] = dropout_phase(args.seed)
+    paths.update(dropout_paths)
+    spec_paths, timings["speculative"] = speculative_phase(args.seed)
+    paths.update(spec_paths)
+    cond_paths, timings["audio_conditioner"] = audio_conditioner_phase(args.seed)
+    paths.update(cond_paths)
+    dp_paths, timings["data_parallel"] = data_parallel_phase(args.seed)
+    paths.update(dp_paths)
     # last: after its profiles of the codecs' round trips, torch.profiler was
     # seen to miss K6's launches in later windows (check_vq's one-launch gate)
     variant_paths, timings["codec_variants"] = codec_variants_phase(args.seed)
@@ -4309,7 +4916,10 @@ def main():
                       "continuation": timings["continuation"],
                       "streaming": timings["streaming"], "cli": timings["cli"],
                       "codec_variants": timings["codec_variants"], "encodec": timings["encodec"],
-                      "audiolm_encodec": timings["audiolm_encodec"]}))
+                      "audiolm_encodec": timings["audiolm_encodec"],
+                      "dropout": timings["dropout"], "speculative": timings["speculative"],
+                      "audio_conditioner": timings["audio_conditioner"],
+                      "data_parallel": timings["data_parallel"]}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -23,6 +23,7 @@ from audiolm_pytorch_tpu_torch.data.dataset import SoundDataset
 from audiolm_pytorch_tpu_torch.utils import audio_io as paudio
 
 from flac_writer import write_flac
+import torch_port_util  # noqa: F401  (one torch thread a test worker)
 
 SR = 16000
 

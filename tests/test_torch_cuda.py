@@ -26,7 +26,10 @@ decode round trip with `--device cuda` from WAV and FLAC, and the native
 audio loader built with g++ into build/native; the rest of the codec
 family on the card against the CPU (GateLoop's scan and squeeze-excite at
 16000 frames, EnCodec's and an LFQ codec's codes, K6 at EnCodec's 1200 rows
-of 128). They skip where there is no card.
+of 128); dropout's backward reusing its forward's mask, a dropout train
+step on the plain path and its eval pass on K1, speculative decode equal
+to the sequential sampler, and the VQ EMA's all-reduce over a one-rank
+NCCL group the identity. They skip where there is no card.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine without them:
@@ -1380,3 +1383,103 @@ def test_encodec_and_lfq_codec_tokenize_on_the_card_as_on_the_cpu(cuda):
         got = card.tokenize(x.to(cuda)).cpu()
         assert la.launches - before == 1
         assert (got != lfq.tokenize(x)).any(-1).float().mean().item() <= 0.01
+
+
+def test_dropout_backward_reuses_the_forward_mask_on_the_card(cuda):
+    """Attention dropout on the card: the backward of the plain path uses the
+    mask of the forward (autograd saves it; nothing is drawn again): the
+    gradients equal the CPU's given the same mask, and a second backward of
+    the same graph gives the same bits."""
+    from audiolm_pytorch_tpu_torch.ops import attention
+    rng = np.random.default_rng(30)
+    q = torch.from_numpy(rng.normal(size=(2, 4, 257, 64)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.normal(size=(2, 1, 257, 64)).astype(np.float32))
+            for _ in range(2))
+    g = torch.from_numpy(rng.normal(size=(2, 4, 257, 64)).astype(np.float32))
+    keep = torch.from_numpy(rng.random((2, 4, 257, 257)) < 0.9)
+    draws = []
+
+    def draw_keep(generator, shape, p, device):
+        draws.append(tuple(shape))
+        return keep.to(device)
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(attention, "draw_keep", draw_keep)
+    try:
+        outs = []
+        for dev in ("cpu", cuda):
+            xs = [x.to(dev).requires_grad_() for x in (q, k, v)]
+            out = attention.attend(*xs, causal=True, dropout=0.1, generator=torch.Generator())
+            first = torch.autograd.grad(out, xs, g.to(dev), retain_graph=True)
+            second = torch.autograd.grad(out, xs, g.to(dev))
+            assert all(torch.equal(a, b) for a, b in zip(first, second))
+            outs.append([out.detach().cpu()] + [x.cpu() for x in first])
+    finally:
+        mp.undo()
+    assert draws == [(2, 4, 257, 257)] * 2  # one draw a forward, none in a backward
+    for got, want in zip(outs[1], outs[0]):
+        assert ((got - want).norm() / want.norm()).item() <= 1e-5
+
+
+def test_dropout_train_step_takes_the_plain_path_and_eval_takes_k1(cuda):
+    lm = SemanticTransformer(dim=128, depth=2, heads=2, dim_head=64, num_semantic_tokens=32,
+                             attn_dropout=0.1, ff_dropout=0.1, device=cuda)
+    wrapper = SemanticTransformerWrapper(transformer=lm)
+    ids = torch.randint(0, 32, (2, 100), device=cuda)
+    before = fa.launches
+    loss = TransformerTrainStep(wrapper, device=cuda).step(ids)
+    assert np.isfinite(loss) and fa.launches == before
+    with torch.no_grad():
+        lm(ids)
+    assert fa.launches - before == 2
+
+
+@pytest.mark.parametrize("kind", ["coarse", "fine"])
+def test_speculative_equals_sequential_on_the_card(cuda, kind):
+    common = dict(dim=128, depth=2, heads=4, dim_head=64, num_residual_streams=4,
+                  codebook_size=128, num_coarse_quantizers=3, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    if kind == "coarse":
+        wrapper = CoarseTransformerWrapper(transformer=CoarseTransformer(
+            **common, num_semantic_tokens=50))
+        kw = dict(semantic_token_ids=torch.randint(0, 50, (2, 30), device=cuda),
+                  max_time_steps=20)
+    else:
+        wrapper = FineTransformerWrapper(transformer=FineTransformer(
+            **common, num_fine_quantizers=5))
+        kw = dict(coarse_token_ids=torch.randint(0, 128, (2, 20, 3), device=cuda))
+    seq = wrapper.generate(**kw, temperature=0.0, generator=gen)
+    spec, stats = wrapper.generate(**kw, temperature=0.0, generator=gen, speculative=True,
+                                   return_spec_stats=True)
+    assert torch.equal(spec, seq) and stats["steps"] > 0
+
+
+def test_ema_all_reduce_on_a_one_rank_nccl_group_is_the_identity(cuda):
+    """VQ-EMA under a one-rank NCCL group: the counts and sums all-reduced
+    over one rank leave the update as it is without a group."""
+    import os
+    import socket
+    import torch.distributed as dist
+    from audiolm_pytorch_tpu_torch.ops.quantize import VectorQuantizeEMA
+    from audiolm_pytorch_tpu_torch.parallel import mesh as dp
+    if dist.is_initialized():
+        pytest.skip("a process group is already joined")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    os.environ.setdefault("TORCH_NCCL_ASYNC_ERROR_HANDLING", "1")
+    dp.init_process_group(0, 1, init_method=f"tcp://localhost:{port}", device=cuda)
+    try:
+        mesh = dp.make_mesh()
+        rng = np.random.default_rng(31)
+        x = torch.from_numpy(rng.normal(size=(2, 300, 32)).astype(np.float32)).to(cuda)
+        layers = [VectorQuantizeEMA(32, 64, kmeans_init=False,
+                                    generator=torch.Generator().manual_seed(1)).to(cuda)
+                  for _ in range(2)]
+        for i, layer in enumerate(layers):
+            with dp.data_parallel(mesh if i else None):
+                layer(x, train=True, generator=torch.Generator().manual_seed(2))
+        for name in ("codebook", "embed_avg", "cluster_size"):
+            assert torch.equal(getattr(layers[0], name), getattr(layers[1], name))
+    finally:
+        dist.destroy_process_group()

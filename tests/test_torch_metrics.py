@@ -20,6 +20,8 @@ from audiolm_pytorch_tpu.utils.profiling import StepTimer as JStepTimer
 from audiolm_pytorch_tpu_torch import mel_distance, stoi
 from audiolm_pytorch_tpu_torch.utils.profiling import StepTimer, annotate, trace
 
+import torch_port_util  # noqa: F401  (one torch thread a test worker)
+
 
 def signals(sr, seconds, b=None, seed=0):
     rng = np.random.default_rng(seed)

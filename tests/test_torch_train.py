@@ -246,11 +246,19 @@ def test_train_steps_with_accumulation_match_jax_loop(monkeypatch, max_grad_norm
 
 
 def test_dropout_is_refused_not_ignored():
+    """attn_dropout and ff_dropout act in a call with a generator (a train
+    step) and in no other; tests/test_torch_dropout.py holds them to JAX."""
+    ids = torch.randint(0, 32, (2, 12), generator=torch.Generator().manual_seed(0))
+    x = torch.randn(2, 12, 64, generator=torch.Generator().manual_seed(1))
     for kw in (dict(attn_dropout=0.1), dict(ff_dropout=0.1)):
-        with pytest.raises(NotImplementedError):
-            SemanticTransformer(**SMALL, device="cpu", **kw)
-        with pytest.raises(NotImplementedError):
-            Transformer(dim=64, depth=1, heads=2, device="cpu", **kw)
+        lm = SemanticTransformer(**SMALL, device="cpu", **kw)
+        tr = Transformer(dim=64, depth=1, heads=2, device="cpu", **kw)
+        with torch.no_grad():
+            for model, inp in ((lm, ids), (tr, x)):
+                plain = model(inp)
+                assert torch.equal(model(inp), plain)
+                dropped = model(inp, generator=torch.Generator().manual_seed(2))
+                assert torch.isfinite(dropped).all() and not torch.allclose(dropped, plain)
 
 
 def test_port_imports_without_jax():

@@ -1,11 +1,19 @@
 """Helpers shared by the tests that hold the PyTorch port against the JAX
-package: JAX pytrees by key path, and weights moved across by those paths."""
+package: JAX pytrees by key path, and weights moved across by those paths;
+importing it sets the worker's torch threads to one."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
 
 from audiolm_pytorch_tpu_torch.weights import state_dict_from_jax
+
+# Several test workers share the cores. At torch's default of one intra-op
+# thread a core each worker's threads spin while they wait and stall the
+# other workers (the SoundStream trainer's two-step loop took 95 s in a
+# 6-worker run on 8 cores, 2 s alone); every test module of the port
+# imports this one, so its worker computes on one thread.
+torch.set_num_threads(1)
 
 
 def jax_named(tree):
