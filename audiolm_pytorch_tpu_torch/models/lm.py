@@ -18,6 +18,15 @@ training a row's condition is dropped with probability `cond_drop_prob`
 (`draw_cond_keep`, from an explicit generator, which draws the dropout
 masks too); `forward_with_cond_scale`
 runs classifier-free guidance as one stacked [cond | uncond] batch.
+
+Under tensor parallelism (`parallel/tp.py::apply_tp_sharding`) an LM holds
+its rank's part of the cut parameters: its embeddings are looked up
+(`_lookup`) and its logits computed (`logits`, `quantizer_logits`,
+`head_logits`) through `parallel.tp.embedding` and `parallel.tp.project`,
+which give the full rows and logits on every rank, the logit bias added
+once after the sum; the per-head tensors computed from replicated
+parameters (`cross_attn_bias`, `null_pos_bias`, the position MLPs' tables)
+are cut to the rank's heads with `parallel.tp.cut`.
 """
 from __future__ import annotations
 
@@ -26,12 +35,14 @@ import inspect
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
 from ..nn.layers import Linear, init_normal
 from ..ops.relpos import toeplitz_expand
 from ..parallel.mesh import local_rows
+from ..parallel.tp import cut, embedding, project
 from ..ops.sampling import get_embeds
 from ..weights import read_npz, state_dict_from_jax
 from .t5 import DEFAULT_T5_NAME, get_encoded_dim, t5_encode_text
@@ -62,6 +73,51 @@ def draw_cond_keep(batch: int, keep_prob: float, generator, device):
     keep = local_rows(lambda s: torch.rand(s, generator=generator, device=gen_device)
                       < keep_prob, (batch,))
     return keep.to(device)
+
+
+class _TensorParallel:
+    """What the three LMs share under tensor parallelism: `tp` (the model
+    group; None when whole) and `tp_dims` ({state_dict key: the dim cut}),
+    both set by `parallel.tp.apply_tp_sharding` (the class defaults are
+    replaced, never changed)."""
+
+    tp = None
+    tp_dims: dict = {}
+
+    def _param(self, key):
+        return functools.reduce(getattr, key.split("."), self)
+
+    def _lookup(self, key, idx):
+        """Rows `idx` of the table parameter `key`, whole on every rank."""
+        return embedding(self._param(key), idx, self.tp_dims.get(key), self.tp)
+
+    def _project(self, key, x, product):
+        """product(x, w) of the weight parameter `key` (w the rank's part),
+        whole on every rank: its last dim is the inputs' (x's last)."""
+        w = self._param(key)
+        dim = self.tp_dims.get(key)
+        return project(x, lambda a: product(a, w), None if dim is None else dim == w.ndim - 1,
+                       self.tp)
+
+    def _heads_cut(self, t, dim):
+        """t's part of this rank's heads (along dim) when the attention is
+        tensor-parallel."""
+        return cut(t, dim, self.transformer.tp)
+
+    def embed_semantic(self, ids):
+        """(B, N) semantic ids -> (B, N, D), pad -1 embedding to 0 (the
+        Semantic and Coarse LMs)."""
+        return get_embeds(functools.partial(self._lookup, "semantic_embedding"), ids)
+
+    def quantizer_logits(self, key, tokens):
+        """(B, N, C) logits of tokens (B, N, D) through the (Q, C, D) heads
+        `key`, position i through head i % Q."""
+        return self._project(key, tokens,
+                             lambda x, w: _per_quantizer_logits(x, w, w.shape[0]))
+
+    def head_logits(self, key, hidden, q: int):
+        """(B, C) logits of hidden (B, D) through head q of `key`."""
+        return self._project(key, hidden, lambda x, w: x @ w[q].t().to(x.dtype))
 
 
 class _Conditioned:
@@ -142,7 +198,7 @@ class _Conditioned:
         return tuple(map(combine, out)) if isinstance(out, tuple) else combine(out)
 
 
-class SemanticTransformer(_Conditioned, nn.Module):
+class SemanticTransformer(_Conditioned, _TensorParallel, nn.Module):
     """LM over semantic token ids plus EOS (= num_semantic_tokens). Weights
     are drawn from `seed` on the CPU and then moved to `device`; `config`
     holds the arguments as the JAX package's checkpoints store them."""
@@ -180,9 +236,16 @@ class SemanticTransformer(_Conditioned, nn.Module):
 
     def embed_ids(self, ids):
         """[start] + ids (B, N), pad -1 embedding to 0 -> (B, N+1, D)."""
-        tokens = get_embeds(self.semantic_embedding, ids)
+        tokens = self.embed_semantic(ids)
         start = self.start_token.to(tokens.dtype).expand(ids.shape[0], 1, -1)
         return torch.cat([start, tokens], dim=1)
+
+    def logits(self, h):
+        """(B, N, V) logits of the transformer's output h (B, N, D)."""
+        if self.tp is None:
+            return self.to_logits(h)
+        out = self._project("to_logits.weight", h, lambda x, w: F.linear(x, w.to(x.dtype)))
+        return out + self.to_logits.bias.to(out.dtype)
 
     def forward(self, ids, *, self_attn_mask=None, return_loss: bool = False, text=None,
                 text_embeds=None, text_mask=None, cond_drop_prob=None, generator=None):
@@ -200,9 +263,9 @@ class SemanticTransformer(_Conditioned, nn.Module):
             ids = ids[:, :-1]
         if self_attn_mask is not None:
             self_attn_mask = torch.nn.functional.pad(self_attn_mask, (1, 0), value=True)
-        return self.to_logits(self.transformer(self.embed_ids(ids), self_attn_mask=self_attn_mask,
-                                               context=context, context_mask=context_mask,
-                                               generator=generator))
+        return self.logits(self.transformer(self.embed_ids(ids), self_attn_mask=self_attn_mask,
+                                            context=context, context_mask=context_mask,
+                                            generator=generator))
 
     def forward_with_cond_scale(self, ids, *, cond_scale: float = 3.0, text_embeds=None,
                                 text_mask=None, **kwargs):
@@ -246,7 +309,7 @@ def _pad_cached(out, kv_cache_pos: int):
     return torch.cat([pad, out], dim=1)
 
 
-class CoarseTransformer(_Conditioned, nn.Module):
+class CoarseTransformer(_Conditioned, _TensorParallel, nn.Module):
     """Joint LM over [semantic start, semantic ids, coarse start, coarse
     codes] with per-quantizer embeddings (offset stride codebook_size + 1,
     so each quantizer has its own EOS row) and heads. Weights are drawn from
@@ -304,9 +367,15 @@ class CoarseTransformer(_Conditioned, nn.Module):
         dev = coarse_token_ids.device
         qpos = torch.arange(n, device=dev) % self.num_coarse_quantizers
         pad = coarse_token_ids < 0
-        emb = self.coarse_embedding[coarse_token_ids.masked_fill(pad, 0)
-                                    + qpos * (self.codebook_size + 1)]
-        return emb.masked_fill(pad[..., None], 0.0) + self.coarse_quantize_embedding[qpos]
+        emb = self._lookup("coarse_embedding", coarse_token_ids.masked_fill(pad, 0)
+                           + qpos * (self.codebook_size + 1))
+        return emb.masked_fill(pad[..., None], 0.0) + \
+            self._lookup("coarse_quantize_embedding", qpos)
+
+    def embed_code(self, code, q: int):
+        """(B,) codes of quantizer q -> (B, D), with its quantizer embedding."""
+        return self._lookup("coarse_embedding", code + q * (self.codebook_size + 1)) + \
+            self._lookup("coarse_quantize_embedding", q)
 
     def build_attn_bias(self, semantic_seq_len: int, total_len: int):
         """(H, L, L) rel-pos bias with the learned `cross_attn_bias` scalar of
@@ -314,10 +383,10 @@ class CoarseTransformer(_Conditioned, nn.Module):
         rel = self.transformer.rel_pos_bias
         if rel is None:
             return None
-        bias = toeplitz_expand(rel.table(total_len), total_len, total_len)
+        bias = toeplitz_expand(self.transformer.rel_table(total_len), total_len, total_len)
         is_semantic = torch.arange(total_len, device=bias.device) < semantic_seq_len + 1
         is_cross = is_semantic[:, None] ^ is_semantic[None, :]
-        return torch.where(is_cross[None], self.cross_attn_bias, bias)
+        return torch.where(is_cross[None], self._heads_cut(self.cross_attn_bias, 0), bias)
 
     def forward(self, semantic_token_ids, coarse_token_ids, *, self_attn_mask=None,
                 return_only_coarse_logits: bool = False, kv_cache=None, text=None,
@@ -333,7 +402,7 @@ class CoarseTransformer(_Conditioned, nn.Module):
                                                 generator, b)
         sem = semantic_token_ids.reshape(b, -1)
         coarse = coarse_token_ids.reshape(b, -1)
-        sem_tokens = get_embeds(self.semantic_embedding, sem)
+        sem_tokens = self.embed_semantic(sem)
         coarse_tokens = self.embed_coarse(coarse)
         sem_len = sem.shape[1]
         tokens = torch.cat([_start(self.semantic_start_token, b, sem_tokens.dtype), sem_tokens,
@@ -349,8 +418,7 @@ class CoarseTransformer(_Conditioned, nn.Module):
         semantic_logits = None
         if not return_only_coarse_logits and self.to_semantic_logits is not None:
             semantic_logits = self.to_semantic_logits(out[:, :sem_len])
-        coarse_logits = _per_quantizer_logits(out[:, sem_len + 1:], self.coarse_logit_weights,
-                                              self.num_coarse_quantizers)
+        coarse_logits = self.quantizer_logits("coarse_logit_weights", out[:, sem_len + 1:])
         return semantic_logits, coarse_logits
 
     def forward_with_cond_scale(self, semantic_token_ids, coarse_token_ids, *,
@@ -384,7 +452,7 @@ def _fine_bias_layout(qc: int, qf: int, coarse_len: int, fine_len: int):
     return mlp_inputs, pos_inp, seq_positions == -1, (max_seq - 1, num_offsets - 1)
 
 
-class FineTransformer(_Conditioned, nn.Module):
+class FineTransformer(_Conditioned, _TensorParallel, nn.Module):
     """Joint LM over [coarse start, coarse codes, fine start, fine codes]
     with a 2-D (time step, quantizer) MLP position bias, `null_pos_bias` on
     the start tokens' rows and columns, and per-quantizer embeddings (offset
@@ -461,26 +529,32 @@ class FineTransformer(_Conditioned, nn.Module):
         mlp_inputs, pos, is_start, (seq_off, q_off) = _fine_bias_layout(
             self.num_coarse_quantizers, self.num_fine_quantizers, coarse_len, fine_len)
         dev = self.null_pos_bias.device
-        table = self._pos_bias_mlp(torch.from_numpy(mlp_inputs).to(dev))  # (R, H)
+        # (R, H), or this rank's heads of it
+        table = self._heads_cut(self._pos_bias_mlp(torch.from_numpy(mlp_inputs).to(dev)), 1)
         # the (L, L) pair index is formed on the device from the (L, 2) positions
         pos = torch.from_numpy(pos).to(dev)
         rel = pos[:, None, :] - pos[None, :, :]
         idx = (rel[..., 0] + seq_off) * (2 * q_off + 1) + rel[..., 1] + q_off
         bias = table[idx].permute(2, 0, 1)  # (H, L, L)
         start = torch.from_numpy(is_start).to(dev)
-        return torch.where((start[:, None] | start[None, :])[None], self.null_pos_bias, bias)
+        return torch.where((start[:, None] | start[None, :])[None],
+                           self._heads_cut(self.null_pos_bias, 0), bias)
 
-    def _embed(self, table, quantize_table, ids, num_q):
+    def _embed(self, kind, ids, num_q):
         qpos = torch.arange(ids.shape[-1], device=ids.device) % num_q
-        return table[ids + qpos * self.codebook_size] + quantize_table[qpos]
+        return self._lookup(f"{kind}_embedding", ids + qpos * self.codebook_size) + \
+            self._lookup(f"{kind}_quantize_embedding", qpos)
 
     def embed_coarse(self, coarse_token_ids):
-        return self._embed(self.coarse_embedding, self.coarse_quantize_embedding,
-                           coarse_token_ids, self.num_coarse_quantizers)
+        return self._embed("coarse", coarse_token_ids, self.num_coarse_quantizers)
 
     def embed_fine(self, fine_token_ids):
-        return self._embed(self.fine_embedding, self.fine_quantize_embedding, fine_token_ids,
-                           self.num_fine_quantizers)
+        return self._embed("fine", fine_token_ids, self.num_fine_quantizers)
+
+    def embed_code(self, code, q: int):
+        """(B,) fine codes of quantizer q -> (B, D), with its quantizer embedding."""
+        return self._lookup("fine_embedding", code + q * self.codebook_size) + \
+            self._lookup("fine_quantize_embedding", q)
 
     def coarse_key_mask(self, coarse_token_ids, n_fine: int):
         """(B, Nc + Nf + 2) key mask that drops the coarse pad and EOS codes,
@@ -520,10 +594,8 @@ class FineTransformer(_Conditioned, nn.Module):
         out = _pad_cached(out, pos)
         coarse_logits = None
         if not return_only_fine_logits and self.coarse_logit_weights is not None:
-            coarse_logits = _per_quantizer_logits(out[:, :n_coarse], self.coarse_logit_weights,
-                                                  self.num_coarse_quantizers)
-        fine_logits = _per_quantizer_logits(out[:, n_coarse + 1:], self.fine_logit_weights,
-                                            self.num_fine_quantizers)
+            coarse_logits = self.quantizer_logits("coarse_logit_weights", out[:, :n_coarse])
+        fine_logits = self.quantizer_logits("fine_logit_weights", out[:, n_coarse + 1:])
         return coarse_logits, fine_logits
 
     def forward_with_cond_scale(self, coarse_token_ids, fine_token_ids, *,

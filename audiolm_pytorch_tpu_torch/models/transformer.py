@@ -25,6 +25,17 @@ without a generator (eval, scoring, generation) nothing is dropped and the
 flash kernels run as they do without dropout. ff_dropout drops the
 feed-forward's output. The self-attention, cross attention and feed-forward
 of a layer draw their masks in that order (`ops/attention.py::draw_keep`).
+
+Tensor parallelism (`parallel/tp.py::apply_tp_sharding`): a sharded
+Attention holds its rank's heads of `to_q` and `to_out`; its queries' input
+and the replicated k and v (after the value residual and the null key)
+pass through `copy_in`, so the norm, `to_kv`, the null key and the first
+layer's values get the gradient of every rank's heads, and its output's
+partial products are summed (`reduce_out`). The Transformer cuts the
+rel-pos table to the rank's heads (`cut`, whose backward sums the ranks'
+parts, so every rank's MLP gets the whole gradient); an `attn_bias` given
+to it must be the rank's already (the LMs cut theirs). Dropout draws the
+mask of all the heads and keeps the rank's.
 """
 from __future__ import annotations
 
@@ -41,6 +52,7 @@ from ..ops.attention import attend
 from ..ops.kernels.flash_attention import flash_attention
 from ..ops.relpos import table_rows, toeplitz_expand
 from ..ops.sampling import grad_shrink
+from ..parallel.tp import copy_in, cut, reduce_out
 
 __all__ = ["RelativePositionBias", "KVCache", "Attention", "HyperConnection",
            "TransformerLayer", "Transformer", "maybe_dropout"]
@@ -101,7 +113,9 @@ class Attention(nn.Module):
     causal), optionally layer-normed (`norm_context`), with `num_null_kv`
     learned null keys/values in front (classifier-free guidance: a row with
     its whole context masked still attends to them). With dropout > 0 and a
-    generator in the call, the weights are dropped on the plain path."""
+    generator in the call, the weights are dropped on the plain path. `tp`
+    is the model group of a tensor-parallel one, which holds heads / world
+    of the heads (None: all)."""
 
     def __init__(self, dim: int, *, heads: int = 8, dim_head: int = 64,
                  dim_context: "int | None" = None, norm_context: bool = False,
@@ -119,6 +133,7 @@ class Attention(nn.Module):
         self.num_null_kv = num_null_kv
         self.null_kv = nn.Parameter(init_normal((2, num_null_kv, dim_head), 0.02, generator)) \
             if num_null_kv > 0 else None
+        self.tp = None
 
     def forward(self, x, *, context=None, mask=None, bias_tab=None, bias=None,
                 cache_bias=None, value_residual=None, cache_kv=None, cache_pos: int = 0,
@@ -148,7 +163,9 @@ class Attention(nn.Module):
             mask = torch.cat([pmask, base], dim=-1)
             if bias is not None:
                 bias = F.pad(bias, (p, 0))
-        q = self.to_q(self.norm(x)).view(b, n, self.heads, self.dim_head).transpose(1, 2)
+        tp = self.tp
+        heads = self.heads // tp.world if tp is not None else self.heads
+        q = self.to_q(copy_in(self.norm(x), tp)).view(b, n, heads, self.dim_head).transpose(1, 2)
         k, v = self.to_kv(kv_input).chunk(2, dim=-1)  # (B, M, dh): from the raw input
         orig_v = v
         if value_residual is not None:
@@ -162,13 +179,15 @@ class Attention(nn.Module):
                     mask = F.pad(mask, (self.num_null_kv, 0), value=True)
                 if bias is not None:
                     bias = F.pad(bias, (self.num_null_kv, 0))
+            k, v = copy_in(k, tp), copy_in(v, tp)
             if self.dropout > 0 and generator is not None:
                 if bias_tab is not None:
                     bias = toeplitz_expand(bias_tab, n, n)
                 out = attend(q, k[:, None], v[:, None],
                              mask=None if mask is None else mask[:, None, None, :],
                              attn_bias=bias, causal=self.causal, dropout=self.dropout,
-                             generator=generator)
+                             generator=generator,
+                             dropout_heads=None if tp is None else (tp.rank, tp.world))
             else:
                 out = flash_attention(q.contiguous(), k[:, None].contiguous(),
                                       v[:, None].contiguous(), bias_tab=bias_tab, bias=bias,
@@ -177,6 +196,7 @@ class Attention(nn.Module):
             if self.null_kv is not None or context is not None or prefix_context is not None:
                 raise ValueError("the KV cache is for causal self-attention only")
             ck, cv = cache_kv
+            k, v = copy_in(k, tp), copy_in(v, tp)
             ck[:, cache_pos:cache_pos + n] = k.to(ck.dtype)
             cv[:, cache_pos:cache_pos + n] = v.to(cv.dtype)
             max_len = ck.shape[1]
@@ -192,7 +212,7 @@ class Attention(nn.Module):
                 full_mask = valid[None, None] if mask is None else valid & mask[:, None, None, :]
                 out = attend(q, ck[:, None], cv[:, None], mask=full_mask, attn_bias=cache_bias)
         out = out.transpose(1, 2).reshape(b, n, -1)
-        return self.to_out(out), orig_v
+        return reduce_out(self.to_out(out), tp), orig_v
 
 
 class HyperConnection(nn.Module):
@@ -293,7 +313,9 @@ class Transformer(nn.Module):
     every layer; `cond_as_self_attn_prefix` puts the context's keys in
     front of the self-attention's instead (the rel-pos bias then comes
     materialised, zero over the prefix, and there is no KV cache).
-    attn_dropout and ff_dropout act in a call given a generator."""
+    attn_dropout and ff_dropout act in a call given a generator. `tp` is the
+    model group when its attention is tensor-parallel: its rel-pos tables
+    are then cut to the rank's heads (`rel_table`)."""
 
     def __init__(self, *, dim: int, depth: int, heads: int, dim_head: int = 64,
                  num_residual_streams: int = 4, rel_pos_bias: bool = True,
@@ -323,7 +345,13 @@ class Transformer(nn.Module):
         self.final_norm = LayerNorm(dim)
         self.rel_pos_bias = RelativePositionBias(dim=dim // 2, heads=heads, generator=generator) \
             if rel_pos_bias else None
+        self.tp = None
         self.to(device)
+
+    def rel_table(self, j: int):
+        """The rel-pos MLP's (2j-1, heads) table, cut to this rank's heads
+        under tensor parallelism."""
+        return cut(self.rel_pos_bias.table(j), 1, self.tp)
 
     def forward(self, x, *, self_attn_mask=None, attn_bias=None,
                 kv_cache: "KVCache | None" = None, context=None, context_mask=None,
@@ -347,7 +375,7 @@ class Transformer(nn.Module):
                                  "package turns its cache off there too)")
             kw.update(prefix_context=context, prefix_context_mask=context_mask)
             if attn_bias is None and self.rel_pos_bias is not None:
-                attn_bias = toeplitz_expand(self.rel_pos_bias.table(n), n, n)
+                attn_bias = toeplitz_expand(self.rel_table(n), n, n)
         if kv_cache is not None:
             kw["cache_pos"] = kv_cache.pos
             if attn_bias is not None:
@@ -358,11 +386,11 @@ class Transformer(nn.Module):
                 # O(L) decode bias: only the rows of the current positions
                 max_len = kv_cache.k.shape[2]
                 q_pos = kv_cache.pos + torch.arange(n, device=x.device)
-                kw["cache_bias"] = table_rows(self.rel_pos_bias.table(max_len), q_pos, max_len)
+                kw["cache_bias"] = table_rows(self.rel_table(max_len), q_pos, max_len)
         elif attn_bias is not None:
             kw["bias"] = attn_bias
         elif self.rel_pos_bias is not None:
-            kw["bias_tab"] = self.rel_pos_bias.table(n)
+            kw["bias_tab"] = self.rel_table(n)
         cross_kw = dict(context=context, mask=context_mask) if self.cross_attend else None
 
         s = self.num_residual_streams

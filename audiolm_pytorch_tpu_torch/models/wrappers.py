@@ -38,9 +38,10 @@ import torch
 from torch import nn
 
 from ..ops.sampling import (all_rows_have_eos_id, append_eos_id, batch_unique_consecutive,
-                            generate_mask_with_prob, get_embeds, gumbel_noise,
+                            generate_mask_with_prob, gumbel_noise,
                             gumbel_sample, mask_out_after_eos_id, top_k)
 from ..parallel import mesh as dp
+from ..parallel import tp
 from .lm import CoarseTransformer, FineTransformer, SemanticTransformer
 from .transformer import KVCache
 
@@ -246,10 +247,15 @@ class SemanticTransformerWrapper(nn.Module):
         return_logits, also the (B, max_length + 1, V) logits each position
         was sampled from (zeros past the last step). With a data-parallel
         `mesh` (`parallel.mesh.make_mesh`) the batch is split over its
-        ranks: each generates its rows (the prompt's, the condition's, its
-        share of batch_size), with its rows of the whole batch's noise, and
-        every rank returns the whole batch, the ids of the unsharded run."""
+        data ranks: each generates its rows (the prompt's, the condition's,
+        its share of batch_size), with its rows of the whole batch's noise,
+        and every rank returns the whole batch, the ids of the unsharded
+        run. A mesh with a model dimension also shards the LM over it, in
+        place (`parallel.tp.apply_tp_sharding`, nothing when it already
+        is): the ranks of a model group compute each step together and draw
+        the same noise."""
         if mesh is not None:
+            tp.apply_tp_sharding(self, mesh)
             with dp.data_parallel(mesh) as scope:
                 def cut(x):
                     n = len(x) // scope.world
@@ -292,7 +298,7 @@ class SemanticTransformerWrapper(nn.Module):
                       use_cfg=use_cfg, context=context, context_mask=context_mask)
 
         def logits_of(out):
-            return _cfg_combine(tr.to_logits(out), cond_scale, use_cfg)
+            return _cfg_combine(tr.logits(out), cond_scale, use_cfg)
 
         logits = logits_of(run(tr.embed_ids(ids)))  # (B, P+1, V)
         ids_buf = torch.full((b, max_length), self.pad_id, dtype=torch.long, device=device)
@@ -307,31 +313,30 @@ class SemanticTransformerWrapper(nn.Module):
             sampled = sample_from_logits(logits_buf[rows, last_idx], filter_thres,
                                          temperature, generator=generator)
             ids_buf[:, pos] = sampled
-            logits_buf[:, pos + 1] = logits_of(run(get_embeds(tr.semantic_embedding,
-                                                              sampled[:, None])))[:, 0]
+            logits_buf[:, pos + 1] = logits_of(run(tr.embed_semantic(sampled[:, None])))[:, 0]
             last_idx += 1
         ids_out = mask_out_after_eos_id(ids_buf, self.eos_id, mask_value=self.pad_id,
                                         keep_eos=False)
         return (ids_out, logits_buf) if return_logits else ids_out
 
 
-def _decode_codes(step, head_weights, embed_code, last_out, buf, start: int, *,
+def _decode_codes(step, heads, embed_code, last_out, buf, start: int, *,
                   eos_id: "int | None", filter_thres, temperature, generator, logits_buf,
                   combine=lambda h: h):
     """The sequential sampler of the Coarse and Fine wrappers: for each code
-    i from `start` on, the logits of position i through head i % Q of the
-    hidden state `combine` gives (guidance's mix of the [cond | uncond]
-    rows) (the last class, EOS for the coarse heads, only at a time-step
-    boundary after the first step), one sample, and `step` (one transformer
-    step) on its embedding. With eos_id, stops once every row holds EOS.
-    Fills buf (B, n) in place and, when given, logits_buf (B, n, C) with the
-    logits before the EOS masking."""
-    num_q = head_weights.shape[0]
+    i from `start` on, the logits of position i through head i % Q (`heads`,
+    `_Heads`) of the hidden state `combine` gives (guidance's mix of the
+    [cond | uncond] rows) (the last class, EOS for the coarse heads, only at
+    a time-step boundary after the first step), one sample, and `step` (one
+    transformer step) on its embedding. With eos_id, stops once every row
+    holds EOS. Fills buf (B, n) in place and, when given, logits_buf (B, n,
+    C) with the logits before the EOS masking."""
+    num_q = heads.num_q
     for i in range(start, buf.shape[1]):
         if eos_id is not None and all_rows_have_eos_id(buf, eos_id):
             break
         q = i % num_q
-        logits = _head_logits(combine(last_out), head_weights, q, None)
+        logits = _head_logits(combine(last_out), heads, q, None)
         if logits_buf is not None:
             logits_buf[:, i] = logits
         sampled = sample_from_logits(_mask_last(logits, q == 0 and i > 0), filter_thres,
@@ -340,10 +345,23 @@ def _decode_codes(step, head_weights, embed_code, last_out, buf, start: int, *,
         last_out = step(embed_code(sampled, q)[:, None])[:, -1]
 
 
-def _head_logits(hidden, head_weights, q, allow_last):
+class _Heads:
+    """An LM's per-quantizer logit heads as the samplers use them: `num_q`
+    heads over `vocab` classes, the whole logits of each on every rank
+    (`head_logits`, tensor-parallel or not)."""
+
+    def __init__(self, lm, key: str, vocab: int):
+        self.lm, self.key, self.vocab = lm, key, vocab
+        self.num_q = getattr(lm, key).shape[0]
+
+    def __call__(self, hidden, q: int):
+        return self.lm.head_logits(self.key, hidden, q)
+
+
+def _head_logits(hidden, heads, q, allow_last):
     """The logits of head q; with allow_last False or True, the last class
     (EOS for the coarse heads) masked or kept (None: the raw logits)."""
-    logits = hidden @ head_weights[q].t().to(hidden.dtype)
+    logits = heads(hidden, q)
     return logits if allow_last is None else _mask_last(logits, allow_last)
 
 
@@ -355,7 +373,7 @@ def _mask_last(logits, allow_last: bool):
     return logits
 
 
-def _spec_decode_codes(run, head_weights, embed_code, last_out, buf, start: int, *,
+def _spec_decode_codes(run, heads, embed_code, last_out, buf, start: int, *,
                        eos_id: "int | None", filter_thres, temperature, generator,
                        combine=lambda h: h):
     """The speculative sampler of the Coarse and Fine wrappers (the JAX
@@ -372,18 +390,17 @@ def _spec_decode_codes(run, head_weights, embed_code, last_out, buf, start: int,
     row holds EOS. Fills buf (B, n) in place; returns (accepted, steps): the
     codes taken from the one-pass check (A a step) and the steps run."""
     cache = run.cache
-    num_q = head_weights.shape[0]
+    num_q = heads.num_q
     b = buf.shape[0]
     accepted = steps = 0
     for i0 in range(start, buf.shape[1] - num_q + 1, num_q):
         if eos_id is not None and all_rows_have_eos_id(buf, eos_id):
             break
         hidden0 = combine(last_out)
-        noise = gumbel_noise((b, num_q, head_weights.shape[1]), generator=generator,
-                             device=buf.device)
+        noise = gumbel_noise((b, num_q, heads.vocab), generator=generator, device=buf.device)
 
         def sample(hidden, j):
-            logits = _head_logits(hidden, head_weights, j, j == 0 and i0 > 0)
+            logits = _head_logits(hidden, heads, j, j == 0 and i0 > 0)
             return sample_from_logits(logits, filter_thres, temperature, noise=noise[:, j])
 
         draft = [sample(hidden0, j) for j in range(num_q)]
@@ -407,7 +424,7 @@ def _spec_decode_codes(run, head_weights, embed_code, last_out, buf, start: int,
     return accepted, steps
 
 
-def _spec_or_sequential(speculative, aligned, run, head_weights, embed_code, last_out, buf,
+def _spec_or_sequential(speculative, aligned, run, heads, embed_code, last_out, buf,
                         start, logits_buf, kw):
     """The speculative sampler when `speculative` and `aligned` (where the
     JAX package takes it), else the sequential one; dict(accepted=, steps=)
@@ -416,13 +433,12 @@ def _spec_or_sequential(speculative, aligned, run, head_weights, embed_code, las
         raise ValueError("speculative decode rewinds the KV cache, and prefix conditioning "
                          "(cond_as_self_attn_prefix) runs without one: use speculative=False")
     if not (speculative and aligned):
-        _decode_codes(run, head_weights, embed_code, last_out, buf, start,
+        _decode_codes(run, heads, embed_code, last_out, buf, start,
                       logits_buf=logits_buf, **kw)
         return dict(accepted=0, steps=0)
     if logits_buf is not None:
         raise ValueError("return_logits is for the sequential sampler: pass speculative=False")
-    accepted, steps = _spec_decode_codes(run, head_weights, embed_code, last_out, buf, start,
-                                         **kw)
+    accepted, steps = _spec_decode_codes(run, heads, embed_code, last_out, buf, start, **kw)
     return dict(accepted=accepted, steps=steps)
 
 
@@ -569,23 +585,18 @@ class CoarseTransformerWrapper(nn.Module):
                                                                cond_scale, device)
         run = _Runner(tr.transformer, b, total, dtype, device, use_cfg=use_cfg,
                       context=context, context_mask=context_mask, attn_bias=bias)
-        tokens = torch.cat([tr.semantic_start_token.expand(b, 1, -1),
-                            get_embeds(tr.semantic_embedding, sem),
+        tokens = torch.cat([tr.semantic_start_token.expand(b, 1, -1), tr.embed_semantic(sem),
                             tr.coarse_start_token.expand(b, 1, -1), tr.embed_coarse(prime)], 1)
         last_out = run(tokens.to(dtype))[:, -1]
         buf = torch.zeros(b, n_total, dtype=torch.long, device=device)
         buf[:, :pc] = prime
         logits_buf = buf.new_zeros(b, n_total, tr.codebook_size + 1, dtype=dtype) \
             if return_logits else None
-        stride = tr.codebook_size + 1
-
-        def embed_code(code, q):
-            return tr.coarse_embedding[code + q * stride] + tr.coarse_quantize_embedding[q]
-
         kw = dict(eos_id=self.coarse_eos_id, filter_thres=filter_thres, temperature=temperature,
                   generator=generator, combine=lambda h: _cfg_combine(h, cond_scale, use_cfg))
         spec_stats = _spec_or_sequential(
-            speculative, pc % num_q == 0, run, tr.coarse_logit_weights, embed_code,
+            speculative, pc % num_q == 0, run,
+            _Heads(tr, "coarse_logit_weights", tr.codebook_size + 1), tr.embed_code,
             last_out, buf, pc, logits_buf, kw)
         buf = mask_out_after_eos_id(buf, self.coarse_eos_id, mask_value=-1, keep_eos=False)
         out = buf.reshape(b, -1, num_q)
@@ -724,15 +735,13 @@ class FineTransformerWrapper(nn.Module):
         logits_buf = buf.new_zeros(b, n_total, tr.codebook_size, dtype=dtype) \
             if return_logits else None
 
-        def embed_code(code, q):
-            return tr.fine_embedding[code + q * tr.codebook_size] + tr.fine_quantize_embedding[q]
-
         # the fine heads have no EOS class: no early exit, and no EOS to mask out after
         kw = dict(eos_id=None, filter_thres=filter_thres, temperature=temperature,
                   generator=generator, combine=lambda h: _cfg_combine(h, cond_scale, use_cfg))
         spec_stats = _spec_or_sequential(
-            speculative, pf % qf == 0 and n_total > 0, run, tr.fine_logit_weights,
-            embed_code, last_out, buf, pf, logits_buf, kw)
+            speculative, pf % qf == 0 and n_total > 0, run,
+            _Heads(tr, "fine_logit_weights", tr.codebook_size), tr.embed_code, last_out, buf,
+            pf, logits_buf, kw)
         grid = buf.reshape(b, steps, qf)
         coarse_grid = coarse.reshape(b, steps, qc)
         if mask_out_generated_fine_tokens:

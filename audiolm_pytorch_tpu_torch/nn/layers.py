@@ -7,6 +7,12 @@ bfloat16 copies of them, and the norms still compute in float32 (on the
 bfloat16-rounded scales), as the JAX package's do. Initialisation follows the JAX package's
 distributions from an explicit `torch.Generator`; the numbers differ from
 JAX's, so parity tests copy weights across instead.
+
+Under tensor parallelism (`parallel/tp.py::apply_tp_sharding`) a
+FeedForward holds its rank's part: a column-parallel `proj_in` whose rows
+hold matching parts of GEGLU's x and gate, the inner LayerNorm over the
+width cut over the ranks (statistics from all-reduced sums, its gamma
+cut), and a row-parallel `proj_out` whose partial products are summed.
 """
 from __future__ import annotations
 
@@ -15,6 +21,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.tp import copy_in, layer_norm, reduce_out
 
 __all__ = ["Linear", "LayerNorm", "RMSNorm", "GEGLU", "FeedForward", "init_uniform", "init_normal"]
 
@@ -72,7 +80,8 @@ class GEGLU(nn.Module):
 
 class FeedForward(nn.Module):
     """LayerNorm -> Linear(dim, 2*inner) -> GEGLU -> LayerNorm -> Linear(inner, dim),
-    inner = int(dim * 2 * mult / 3)."""
+    inner = int(dim * 2 * mult / 3). `tp` is the model group of a
+    tensor-parallel one (None: whole)."""
 
     def __init__(self, dim: int, mult: float = 4.0, *,
                  generator: "torch.Generator | None" = None):
@@ -83,6 +92,10 @@ class FeedForward(nn.Module):
         self.act = GEGLU()
         self.norm = LayerNorm(inner)
         self.proj_out = Linear(inner, dim, bias=False, generator=generator)
+        self.tp = None
 
     def forward(self, x):
-        return self.proj_out(self.norm(self.act(self.proj_in(self.pre_norm(x)))))
+        if self.tp is None:
+            return self.proj_out(self.norm(self.act(self.proj_in(self.pre_norm(x)))))
+        h = self.act(self.proj_in(copy_in(self.pre_norm(x), self.tp)))
+        return reduce_out(self.proj_out(layer_norm(h, self.norm.gamma, self.tp)), self.tp)

@@ -35,14 +35,17 @@ def draw_keep(generator, shape, p: float, device):
 
 def attend(q, k, v, *, mask=None, attn_bias=None, causal: bool = False,
            scale: "float | None" = None, dropout: float = 0.0,
-           generator: "torch.Generator | None" = None):
+           generator: "torch.Generator | None" = None, dropout_heads=None):
     """q: (B, H, N, D); k, v: (B, Hk, M, D) with Hk in {1, H}. mask broadcasts
     to (B, H, N, M), True = attend; attn_bias is additive (H, N, M) or
     (B, H, N, M). Products accumulate in float32 and the softmax runs in
     float32, as the JAX path does. With dropout > 0 and a generator, the
     weights after the softmax are kept with probability 1 - dropout
-    (`draw_keep`) and scaled by 1 / (1 - dropout); autograd saves the mask
-    for the backward. Returns (B, H, N, D) in q's dtype."""
+    (`draw_keep`; with `dropout_heads` (rank, world), q holding a
+    tensor-parallel rank's part of the heads, the mask is drawn for all the
+    heads and cut to its part, so the ranks drop what one process drops) and
+    scaled by 1 / (1 - dropout); autograd saves the mask for the backward.
+    Returns (B, H, N, D) in q's dtype."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     sim = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if attn_bias is not None:
@@ -55,7 +58,13 @@ def attend(q, k, v, *, mask=None, attn_bias=None, causal: bool = False,
         sim = sim.masked_fill(~mask, _NEG_INF)
     attn = sim.softmax(-1)
     if dropout > 0 and generator is not None:
-        keep = draw_keep(generator, attn.shape, dropout, attn.device)
+        if dropout_heads is None:
+            keep = draw_keep(generator, attn.shape, dropout, attn.device)
+        else:
+            rank, world = dropout_heads
+            b, h, *rest = attn.shape
+            keep = draw_keep(generator, (b, h * world, *rest), dropout,
+                             attn.device)[:, rank * h:(rank + 1) * h]
         attn = torch.where(keep, attn / (1 - dropout), 0.0)
     return torch.matmul(attn.to(v.dtype).float(), v.float()).to(q.dtype)
 

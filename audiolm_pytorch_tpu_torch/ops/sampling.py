@@ -91,10 +91,11 @@ def grad_shrink(t, alpha: float = 0.1):
 
 
 def get_embeds(table, codes, pad_id: int = -1, mask_pad_pos_to: float = 0.0):
-    """Rows of `table` (V, D) for `codes`; `pad_id` positions embed to
-    `mask_pad_pos_to`."""
+    """Rows of `table` (V, D), or of a function of the indices that gives
+    them, for `codes`; `pad_id` positions embed to `mask_pad_pos_to`."""
     pad = codes == pad_id
-    embeds = table[codes.masked_fill(pad, 0)]
+    idx = codes.masked_fill(pad, 0)
+    embeds = table(idx) if callable(table) else table[idx]
     return embeds.masked_fill(pad[..., None], mask_pad_pos_to)
 
 

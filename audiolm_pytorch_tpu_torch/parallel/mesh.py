@@ -6,8 +6,13 @@ One process a rank; the process group is given its address, world size and
 rank by the caller (`init_process_group`): NCCL on the card, gloo on the CPU
 (gloo also all-reduces CUDA tensors, which lets two ranks share one card).
 `make_mesh` lays the ranks on a 1-D `DeviceMesh` whose one dimension is
-`data_axis_name`. Every rank reads the same whole batch and keeps its rows
-(`shard_batch`, rank r the r-th of `world` equal slices).
+`data_axis_name`, or with `num_model` > 1 on a 2-D one over
+(`data_axis_name`, `model_axis_name`), the ranks of a model group
+consecutive, as the JAX package lays its devices; the model dimension is
+tensor parallelism's (`parallel/tp.py`). Every rank reads the same whole
+batch and keeps its rows (`shard_batch`, rank r of the data group the r-th
+of its `world` equal slices); everything here acts on the data group
+alone.
 
 Inside `data_parallel(mesh)` the model's collectives and draws see the
 group: the quantizers' EMA statistics are summed over it (`all_reduce_sum`,
@@ -30,12 +35,13 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 
-__all__ = ["data_axis_name", "init_process_group", "make_mesh", "shard_batch", "replicate",
+__all__ = ["data_axis_name", "model_axis_name", "model_coords", "init_process_group", "make_mesh", "shard_batch", "replicate",
            "data_parallel", "current", "all_reduce_sum", "all_reduce_mean", "mean_over_ranks",
            "gather_rows",
            "local_rows", "barrier", "is_main"]
 
 data_axis_name = "data"
+model_axis_name = "model"
 
 
 @dataclass(frozen=True)
@@ -63,23 +69,38 @@ def init_process_group(rank: int, world_size: int, *, init_method: str,
                             world_size=world_size)
 
 
-def make_mesh(num_data: "int | None" = None):
-    """A 1-D DeviceMesh over the first num_data ranks (all by default), its
-    one dimension named `data_axis_name`; the device type follows the
-    default group's backend (NCCL: cuda, else cpu)."""
+def make_mesh(num_data: "int | None" = None, num_model: int = 1):
+    """A DeviceMesh over num_data x num_model ranks (num_data: all the ranks
+    over num_model by default): 1-D, its one dimension named
+    `data_axis_name`, when num_model is 1; else 2-D over (`data_axis_name`,
+    `model_axis_name`), rank r at (r // num_model, r % num_model). The
+    device type follows the default group's backend (NCCL: cuda, else
+    cpu)."""
     from torch.distributed.device_mesh import init_device_mesh
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs a process group: call init_process_group first")
     world = dist.get_world_size()
-    num_data = world if num_data is None else num_data
-    if num_data > world:
-        raise ValueError(f"mesh of {num_data} exceeds the {world} ranks")
+    num_data = world // num_model if num_data is None else num_data
+    if num_data * num_model > world:
+        raise ValueError(f"mesh of {num_data} x {num_model} exceeds the {world} ranks")
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return init_device_mesh(device_type, (num_data,), mesh_dim_names=(data_axis_name,))
+    if num_model == 1:
+        return init_device_mesh(device_type, (num_data,), mesh_dim_names=(data_axis_name,))
+    return init_device_mesh(device_type, (num_data, num_model),
+                            mesh_dim_names=(data_axis_name, model_axis_name))
 
 
 def _coords(mesh):
     group = mesh.get_group(data_axis_name)
+    return group, dist.get_rank(group), dist.get_world_size(group)
+
+
+def model_coords(mesh):
+    """(group, rank in it, its size) of this rank's model group; (None, 0, 1)
+    for None or a mesh without a model dimension."""
+    if mesh is None or model_axis_name not in (mesh.mesh_dim_names or ()):
+        return None, 0, 1
+    group = mesh.get_group(model_axis_name)
     return group, dist.get_rank(group), dist.get_world_size(group)
 
 

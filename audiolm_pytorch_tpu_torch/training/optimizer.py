@@ -16,6 +16,8 @@ import math
 
 import torch
 
+from ..parallel.tp import sum_over
+
 __all__ = ["separate_weight_decayable_params", "get_optimizer", "lr_schedule",
            "clip_by_global_norm_"]
 
@@ -69,11 +71,22 @@ def get_optimizer(params, lr: float = 1e-4, wd: float = 0.0, betas=(0.9, 0.99),
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads, max_norm: float):
+def clip_by_global_norm_(grads, max_norm: float, *, sharded=None, tp=None):
     """Scale the tensors `grads` in place by max_norm / norm when their global
-    norm is >= max_norm (optax `clip_by_global_norm`). Returns the norm."""
+    norm is >= max_norm (optax `clip_by_global_norm`). Returns the norm.
+    Under tensor parallelism (`tp`, the model group, and `sharded`, a flag a
+    tensor: the rank's part of a cut parameter's gradient) the norm is the
+    whole model's: the squares of the cut gradients summed over the group,
+    each replicated one counted once."""
     grads = list(grads)
-    norm = torch.stack([g.float().square().sum() for g in grads]).sum().sqrt()
+    squares = [g.float().square().sum() for g in grads]
+    if tp is None:
+        norm = torch.stack(squares).sum().sqrt()
+    else:
+        zero = grads[0].new_zeros((), dtype=torch.float32)
+        cut = sum((sq for sq, s in zip(squares, sharded) if s), zero)
+        whole = sum((sq for sq, s in zip(squares, sharded) if not s), zero)
+        norm = (sum_over(cut, tp) + whole).sqrt()
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * max_norm))

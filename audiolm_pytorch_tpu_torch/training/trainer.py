@@ -27,6 +27,13 @@ a layer), so those costs grow with the number of ranks; and the ranks equal
 one process only on clips that need no random crop (no longer than the
 crop), since the dataset's crop generator is shared by the loader's worker
 threads, whose order differs between processes.
+
+Tensor parallelism: `TransformerTrainStep(mesh=)` with a mesh that has a
+model dimension (`make_mesh(num_data, num_model)`) shards the wrapper's LM
+over it (`parallel.tp.apply_tp_sharding`) before its optimizer is built;
+each rank then steps on its part, the gradients and the loss averaged over
+the data group only and the clip's norm the whole model's. The LM trainers
+and the codec's keep data parallelism alone, as the JAX trainers do.
 """
 from __future__ import annotations
 
@@ -44,6 +51,7 @@ from ..device import resolve_device
 from ..models.wrappers import (CoarseTransformerWrapper, FineTransformerWrapper,
                                SemanticTransformerWrapper)
 from ..parallel import mesh as dp
+from ..parallel import tp
 from ..utils.audio_io import save_audio
 from ..weights import (DISCRIMINATORS, codec_state_dict_from_jax, codec_state_dict_to_jax,
                        lm_state_dict_to_jax, state_dict_from_jax)
@@ -87,8 +95,11 @@ class TransformerTrainStep:
 
     The same generator draws the dropout masks of an LM built with
     attn_dropout or ff_dropout. With a `mesh` (`parallel.mesh.make_mesh`),
-    each micro-batch is split over its ranks, and the gradients and the loss
-    are averaged over them before the clip (see the module's docstring)."""
+    each micro-batch is split over its data ranks, and the gradients and
+    the loss are averaged over them before the clip (see the module's
+    docstring); a mesh with a model dimension also shards the LM over it,
+    in place, the clip summing the cut gradients' squares over the model
+    group."""
 
     def __init__(self, wrapper, *, lr: float = 3e-4, wd: float = 0.0,
                  max_grad_norm: "float | None" = 0.5, grad_accum_every: int = 1,
@@ -98,9 +109,12 @@ class TransformerTrainStep:
         self.device = resolve_device(device)
         self.mesh = mesh
         self.wrapper = wrapper.to(self.device)
+        cut = tp.apply_tp_sharding(wrapper, mesh) if mesh is not None else {}
         named = [(n, p) for n, p in wrapper.transformer.named_parameters() if p.requires_grad]
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
+        self.tp = wrapper.transformer.tp
+        self.sharded = [cut.get(f"transformer.{n}") is not None for n in self.names]
         self.optimizer, self.scheduler = get_optimizer(
             self.params, lr, wd, warmup_steps=warmup_steps, total_steps=num_train_steps,
             cosine_decay=cosine_decay)
@@ -149,7 +163,8 @@ class TransformerTrainStep:
             loss = torch.stack(losses).mean()
             dp.all_reduce_mean([p.grad for p in self.params] + [loss])
         if self.max_grad_norm is not None:
-            clip_by_global_norm_([p.grad for p in self.params], self.max_grad_norm)
+            clip_by_global_norm_([p.grad for p in self.params], self.max_grad_norm,
+                                 sharded=self.sharded, tp=self.tp)
         self.optimizer.step()
         self.scheduler.step()
         return loss.item()

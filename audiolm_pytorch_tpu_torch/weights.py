@@ -24,7 +24,7 @@ import re
 import numpy as np
 import torch
 
-__all__ = ["read_npz", "state_dict_from_jax", "lm_state_dict_to_jax",
+__all__ = ["read_npz", "state_dict_from_jax", "lm_state_dict_to_jax", "lm_jax_path",
            "codec_state_dict_from_jax", "codec_state_dict_to_jax",
            "hubert_state_dict_from_jax", "t5_state_dict_from_jax", "encodec_state_dict_from_jax",
            "vq_wav2vec_state_dict_from_jax", "DISCRIMINATORS"]
@@ -99,10 +99,16 @@ def lm_state_dict_to_jax(state_dict) -> "dict[str, np.ndarray]":
     for key, t in state_dict.items():
         if key.rsplit(".", 1)[-1] == "weight" and t.ndim == 2:
             t = t.t()
-        key = re.sub(r"\.layers\.(\d+)\.(hc_attn|attn|hc_cross|cross|hc_ff|ff)(?=\.)",
-                     lambda m: f".layers.{m.group(1)}.{_SLOT_INDEX[m.group(2)]}", key)
-        out[_jax_path(key)] = t.detach().to("cpu", torch.float32, copy=True).contiguous().numpy()
+        out[lm_jax_path(key)] = t.detach().to("cpu", torch.float32, copy=True).contiguous().numpy()
     return out
+
+
+def lm_jax_path(key: str) -> str:
+    """The JAX key path of an LM's state_dict key (the layers' named slots
+    back to their tuple indices)."""
+    key = re.sub(r"\.layers\.(\d+)\.(hc_attn|attn|hc_cross|cross|hc_ff|ff)(?=\.)",
+                 lambda m: f".layers.{m.group(1)}.{_SLOT_INDEX[m.group(2)]}", key)
+    return _jax_path(key)
 
 
 def t5_state_dict_from_jax(named_arrays) -> "dict[str, torch.Tensor]":
