@@ -34,7 +34,7 @@
 // written once (46 MB at the Fine LM's N = 1201, 14 us at 3.35 TB/s), where
 // alone each would redo 2 of K2's 3 products to rebuild dS.
 //
-// Design, all on the tensor cores through csrc/mma.cuh (mma.sync, cp.async).
+// Design, all on the tensor cores (K2 through csrc/mma.cuh: mma.sync, cp.async).
 //   K2: one block per (batch row, head, 64-row query tile), the longest
 //       causal rows first, as four strips of 16 query rows: a warp a strip
 //       in bf16; in float32 two, each taking half of every key tile, whose
@@ -85,24 +85,41 @@
 //       cluster of their query tile (with atomics the zeroed buffer holds
 //       them). Each block reads the bias block itself (the cluster's reads
 //       meet in L2); it is not passed through distributed shared memory.
-//   K3: one block of 4 warps per (query head, b*hk, 64-key tile), key tile 0
-//       (the longest causal loop) first; the blocks of one (b*hk, key
-//       tile), min(group, 8) of them, form a thread-block cluster, each
-//       block taking group / cluster of the kv head's query heads. A block
-//       loops over its heads' query tiles from the diagonal on, Q and dO
-//       double-buffered by cp.async, with 4 products per tile in FA2's
-//       backward order: S^T = K Q^T, dP^T = V dO^T, dV += P^T dO, dK +=
-//       dS^T Q, P^T and dS^T going from the accumulators to the A operand
-//       in registers, dO and Q the B operands (ldmatrix.trans in bf16). Its
-//       partial dk and dv stay in registers; then the head sum runs over
-//       distributed shared memory: each block stores its partials in its
-//       own shared memory, cluster.sync(), and rank 0 adds them in rank
-//       order through map_shared_rank and writes dk and dv once: no
-//       atomics, no scratch in device memory, the same bits every run. Its
-//       grid is group times the (b*hk, key tile) pairs, 1056 blocks at the
-//       Semantic LM's training shape on 132 SMs, where one block per pair
-//       looping all 8 heads left one wave waiting on its key-tile-0 blocks.
-// wgmma and TMA are later work. Instantiated for D=64.
+//   K3 (warp-specialised, on wgmma and TMA through csrc/wgmma.cuh): one
+//       block per (query head set, b*hk, 64-key tile, query chunk) of a
+//       producer warpgroup and two consumer warpgroups; the blocks of one
+//       (b*hk, key tile, chunk), min(group, 8) of them, form a thread-block
+//       cluster, each taking group / cluster of the kv head's query heads.
+//       K and V are loaded once by TMA (in float32 split once into tf32
+//       big/small pairs in place, by tc::to_tf32's integer rounding); Q and
+//       dO stream through a ring of stages by TMA, lse, Delta and the table
+//       slice from registers loaded an item ahead (the (H, N, M) bias is
+//       read by the consumers from device memory, as K1 reads it),
+//       with full and empty mbarriers. The two consumers take the (head,
+//       query tile) items in turn, from the diagonal on, each with its
+//       partial dk and dv in registers: S^T = K Q^T and dP^T = V dO^T are
+//       wgmma products (K-major A and B from shared memory; float32 as three
+//       tf32 products a k-step); the epilogue forms P and dS = P (dP -
+//       Delta) on the accumulators in base-2 units (lse pre-scaled), the
+//       key flags added only when the tile has one; dV += P^T dO and dK +=
+//       dS^T Q take P^T and dS^T from registers: in bf16 as wgmma with dO's
+//       and Q's tiles as transposed B, in float32 on mma.sync from their
+//       split tiles (wgmma's tf32 takes K-major B only, and transposed
+//       copies of the two pairs would take 64 KB a stage, where K, V and two
+//       stages already fill 226 KB of 227), each tile's product from zero in
+//       float32 (tc::add_tile's reason). At the end the second consumer's
+//       partials join the first's, then the head sum runs over distributed
+//       shared memory: rank 0 adds the blocks' sums in rank order through
+//       map_shared_rank and writes dk and dv once. Where that grid is under
+//       one block per SM (the cross form: 4 x 8 x 2049 over 17 keys is one
+//       key tile, 32 blocks), the query range is split into chunks of at
+//       least 4 query tiles over more blocks, each cluster's rank 0 writes
+//       its chunk's partial into scratch (allocated on the stream by the
+//       launcher), and a second pass, dkv_sum_kernel, adds the chunks in
+//       order (launches_dkv counts one call). No atomics anywhere: the same
+//       bits every run. The plan (cluster, chunks) is dkv_plan, which
+//       ops/kernels/flash_attention.py::dkv_plan states for the tests.
+// Instantiated for D=64.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -110,6 +127,7 @@
 #include <stdint.h>
 
 #include "mma.cuh"
+#include "wgmma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -482,173 +500,363 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
 }
 
-// K3: one block of 4 warps per (query head of the group, b*hk, 64-key tile),
-// the blocks of one (b*hk, key tile) a thread-block cluster (see the note at
-// the top). Each warp owns 16 keys: its rows of S^T, dP^T, dK and dV.
-constexpr int NT3 = 128;          // K3's threads
-constexpr int TP3 = BQ + 4;       // K3's bias tile pitch: rows are queries, read down the keys
+// K3: one block per (query head set, b*hk, 64-key tile, query chunk) of a
+// producer warpgroup and consumers (see the note at the top). The blocks
+// of one (b*hk, key tile, query chunk) form a thread-block cluster over the
+// kv head's query heads.
+constexpr int PLAN_SMS = 132;  // the H100's SMs, which the launch plan fills
 
-// Shared memory: the K and V tiles; two stages of (Q tile, dO tile, lse
-// [BQ], Delta [BQ], table slice [BQ + BK - 1]); the key flags; with an
-// (H, N, M) bias two of its 64x64 blocks. After the loop the dK and dV
-// partials of the cluster's head sum take the stages' place.
-template <typename T, int D>
-struct DkvSmem {
-  static constexpr int P = tc::pitch<T, D>();
-  static constexpr size_t tile = (size_t)BK * P * sizeof(T);  // BQ == BK rows
-  static constexpr size_t stages = 2 * tile;
-  static constexpr size_t stage = 2 * tile + (2 * BQ + BQ + BK) * sizeof(float);
-  static constexpr size_t flags = stages + 2 * stage;
-  static constexpr size_t base = flags + BK * sizeof(float);
-  static constexpr size_t dense = 2 * (size_t)BQ * TP3 * sizeof(float);
-  static constexpr int RP = D + 4;  // the partials' pitch in floats
-  static constexpr size_t red = 2 * (size_t)BK * RP * sizeof(float);
-  static_assert(red <= 2 * stage, "the partials fit in the stages");
-  static_assert(tile % 16 == 0 && stage % 16 == 0, "16-byte aligned regions");
+// Shared memory (offsets from a 1024-byte aligned base): K and V, each an
+// operand tile (with its small parts in float32), fixed for the block; the
+// ring's stages of (Q, dO); per stage lse [64], Delta [64] and the table
+// slice [128]; the key flags [64] and two words that say whether any is
+// set; the barriers. After the loop the dK and dV partials of the block's
+// sums take the stages' place. One consumer warpgroup (bf16, ~85 KB and
+// 128 registers a thread at launch: two blocks an SM), or two that take
+// the items in turn (float32, 199 KB, one block an SM; and bf16 where
+// fewer than two blocks an SM would run), chosen by dkv_plan.
+template <typename T, bool TWO>
+struct Dkv {
+  static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr int NC = TWO ? 2 : 1;  // consumer warpgroups
+  static constexpr int NT = 128 * (1 + NC);
+  static constexpr int MIN_BLOCKS = TWO ? 1 : 2;
+  static constexpr int PRODUCER_REGS = TWO ? 56 : 24;  // as Fwd's
+  static constexpr int CONSUMER_REGS = TWO ? 224 : 232;
+  static constexpr int ST = F32 ? 2 : 4;  // stages
+  static constexpr int TILE = wg::tile_bytes<T>();
+  static constexpr int OPER = F32 ? 2 * TILE : TILE;
+  static constexpr int STAGE0 = 2 * OPER;
+  static constexpr int STAGE = 2 * OPER;
+  static constexpr int MISC = STAGE0 + ST * STAGE;
+  static constexpr int MISC_STAGE = (64 + 64 + 128) * 4;
+  static constexpr int FLAGS = MISC + ST * MISC_STAGE;
+  static constexpr int BARS = FLAGS + (64 + 4) * 4;
+  static constexpr int RP = 64 + 4;  // the partials' pitch in floats
+  static constexpr size_t bytes = BARS + 128;
+  static_assert(ST * STAGE >= 2 * BK * RP * 4, "the partials fit in the stages");
+  static_assert((2 + 3 * ST) * 8 <= 128, "the barriers fit");
+  static_assert(bytes <= 232448, "a block's shared memory");
+  static_assert(((65536 / (NT * MIN_BLOCKS)) & ~7) * (1 + NC)
+                    == PRODUCER_REGS + NC * CONSUMER_REGS,
+                "setmaxnreg hands over exactly the launch's registers");
 };
 
-template <typename T, int D>
-__global__ void __launch_bounds__(NT3)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ g, const float* __restrict__ lse,
+template <typename T, bool TWO>
+__global__ void __launch_bounds__(Dkv<T, TWO>::NT, Dkv<T, TWO>::MIN_BLOCKS)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap,
+                     const __grid_constant__ CUtensorMap gmap, const float* __restrict__ lse,
                      const float* __restrict__ delta, const float* __restrict__ tab,
                      const float* __restrict__ bias, const int8_t* __restrict__ kmask,
-                     T* __restrict__ dk, T* __restrict__ dv,
-                     int heads, int hk, int n, int m, float scale, int causal) {
-  using S = DkvSmem<T, D>;
-  constexpr int P = S::P;
-  extern __shared__ __align__(16) unsigned char dkv_smem[];
-  unsigned char* smem = dkv_smem;
-  T* Ks = reinterpret_cast<T*>(smem);
-  T* Vs = Ks + BK * P;
-  auto Qs = [&](int s) { return reinterpret_cast<T*>(smem + S::stages + s * S::stage); };
-  auto Gs = [&](int s) { return reinterpret_cast<T*>(smem + S::stages + s * S::stage + S::tile); };
-  // lse (+inf where p = 0: padded or fully masked rows), then Delta,
-  // then the table slice: the bias of (q0 + c, k0 + r) is at [2 * BQ + c - r + BK - 1]
-  auto Ls = [&](int s) {
-    return reinterpret_cast<float*>(smem + S::stages + s * S::stage + 2 * S::tile);
+                     T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ part,
+                     int heads, int hk, int n, int m, float scale, int causal, int qsplit) {
+  using L = Dkv<T, TWO>;
+  constexpr int ST = L::ST;
+  extern __shared__ __align__(1024) unsigned char dkv_smem[];
+  unsigned char* sm = dkv_smem;
+  if (threadIdx.x == 0 && (tc::smem_u32(sm) & 1023) != 0) __trap();  // the tiles' swizzle
+  T* Ks = reinterpret_cast<T*>(sm);
+  T* Kl = reinterpret_cast<T*>(sm + L::TILE);
+  T* Vs = reinterpret_cast<T*>(sm + L::OPER);
+  T* Vl = reinterpret_cast<T*>(sm + L::OPER + L::TILE);
+  auto Qs = [&](int s) { return reinterpret_cast<T*>(sm + L::STAGE0 + s * L::STAGE); };
+  auto Ql = [&](int s) { return reinterpret_cast<T*>(sm + L::STAGE0 + s * L::STAGE + L::TILE); };
+  auto Gs = [&](int s) { return reinterpret_cast<T*>(sm + L::STAGE0 + s * L::STAGE + L::OPER); };
+  auto Gl = [&](int s) {
+    return reinterpret_cast<T*>(sm + L::STAGE0 + s * L::STAGE + L::OPER + L::TILE);
   };
-  float* Fs = reinterpret_cast<float*>(smem + S::flags);
-  auto Ts = [&](int s) { return reinterpret_cast<float*>(smem + S::base) + s * BQ * TP3; };
+  // log2(e) lse (+inf where p = 0: padded or fully masked rows), then
+  // Delta, then log2(e) times the table slice: the bias of (q0 + c, k0 + r)
+  // is at [128 + c - r + BK - 1]
+  auto Ls = [&](int s) { return reinterpret_cast<float*>(sm + L::MISC + s * L::MISC_STAGE); };
+  float* Fs = reinterpret_cast<float*>(sm + L::FLAGS);
+  int* Fany = reinterpret_cast<int*>(Fs + 64);  // nonzero where a flag of keys 0-31 (32-63) is
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  uint64_t *kvload = bars, *kvfull = bars + 1, *loaded = bars + 2, *full = loaded + ST,
+           *empty = full + ST;
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank(), csize = (int)cluster.num_blocks();
   const int kvh = blockIdx.y;  // b * hk + kv head
   const int b = kvh / hk, kh = kvh % hk, group = heads / hk;
-  const int k0 = blockIdx.z * BK;  // key tile 0, the longest causal loop, first
-  const int tid = threadIdx.x, warp = tid / 32, gq = (tid % 32) / 4, t = tid % 4;
-
-  // this block sums the heads kh * group + rank + csize * i of its kv head;
-  // causal: the first query that sees key k0 is k0 - off (off = m - n >= 0)
+  const int k0 = (blockIdx.z / qsplit) * BK, z = blockIdx.z % qsplit;
+  // this block sums the heads kh * group + rank + csize * i of its kv head
+  // over chunk z of the query tiles that see its keys; causal: the first
+  // query that sees key k0 is k0 - off (off = m - n >= 0)
   const int off = m - n;
   const int q_start = causal ? max(0, k0 - off) : 0;
   const int nqt = q_start < n ? (n - q_start + BQ - 1) / BQ : 0;
-  const int total = (group / csize) * nqt;
+  const int per = (nqt + qsplit - 1) / qsplit;
+  const int qa = min(nqt, z * per), nq = min(nqt, qa + per) - qa;
+  const int total = (group / csize) * nq;
+  auto head = [&](int it) { return kh * group + rank + csize * (it / nq); };
+  auto qtile = [&](int it) { return q_start + (qa + it % nq) * BQ; };
+  const int tid = threadIdx.x;
 
-  float pre_row = 0.f, pre_tab = 0.f;  // this thread's lse or Delta, table entry, of the next stage
-  auto issue = [&](int it) {
-    const int h = kh * group + rank + csize * (it / nqt);
-    const int q0 = q_start + (it % nqt) * BQ, s = it & 1;
-    const size_t bh = (size_t)b * heads + h;
-    tc::cp_tile<T, D, BQ, NT3>(Qs(s), P, q + bh * n * D, q0, n);
-    tc::cp_tile<T, D, BQ, NT3>(Gs(s), P, g + bh * n * D, q0, n);
-    if (bias != nullptr)
-      tc::cp_block_f32<BQ, BK, NT3>(Ts(s), TP3, bias + (size_t)h * n * m, q0, k0, n, m);
-    tc::cp_async_commit();
-    const int qp = q0 + tid % BQ;
-    if (tid < BQ) pre_row = qp < n ? lse[bh * n + qp] : INFINITY;
-    else pre_row = qp < n ? delta[bh * n + qp] : 0.f;
-    if (tab != nullptr && tid < BQ + BK - 1)
-      pre_tab = tc::tab_entry(tab, q0, k0, BK, tid, n, heads, h);
-  };
-  auto stash = [&](int it) {
-    float* ls = Ls(it & 1);
-    ls[tid] = tid >= BQ || pre_row > 0.5f * NEG ? pre_row : INFINITY;
-    if (tab != nullptr && tid < BQ + BK - 1) ls[2 * BQ + tid] = pre_tab;
-  };
-
-  tc::cp_tile<T, D, BK, NT3>(Ks, P, k + (size_t)kvh * m * D, k0, m);
-  tc::cp_tile<T, D, BK, NT3>(Vs, P, v + (size_t)kvh * m * D, k0, m);
-  if (total > 0) {
-    issue(0);  // K and V join its group
-    stash(0);
+  if (tid == 0) {
+    wg::mbar_init(kvload, 1);
+    wg::mbar_init(kvfull, 128);
+    for (int s = 0; s < ST; ++s) {
+      wg::mbar_init(&loaded[s], 1);
+      wg::mbar_init(&full[s], 128);
+      wg::mbar_init(&empty[s], 128);
+    }
+    wg::fence_barrier_init();
   }
-  if (tid < BK) Fs[tid] = tc::key_flag(kmask, b, m, k0 + tid);
-  tc::cp_async_wait_all();
   __syncthreads();
 
+  if (tid < 128) {
+    // ---- the producer ----
+    wg::setmaxnreg_dec<L::PRODUCER_REGS>();
+    if (tid == 0) {
+      wg::mbar_arrive_tx(kvload, 2 * L::TILE);
+      wg::load_tile(Ks, &kmap, kvload, k0, kvh);
+      wg::load_tile(Vs, &vmap, kvload, k0, kvh);
+    }
+    if (tid < BK) {
+      const float f = tc::key_flag(kmask, b, m, k0 + tid);
+      Fs[tid] = f;
+      const unsigned any = __ballot_sync(0xffffffffu, f != 0.f);
+      if (tid % 32 == 0) Fany[tid / 32] = any != 0u;
+    }
+    // Item it into stage it % ST: Q and dO by TMA, lse, Delta and the table
+    // slice from registers loaded an item ahead (a load's latency, not the
+    // copies', would otherwise pace the ring).
+    float row_r = 0.f, tab_r = 0.f;
+    auto fetch = [&](int it) {
+      const int h = head(it), q0 = qtile(it);
+      const size_t bh = (size_t)b * heads + h;
+      const int qp = q0 + tid % BQ;
+      if (tid < BQ) {
+        const float x = qp < n ? lse[bh * n + qp] : INFINITY;
+        row_r = x > 0.5f * NEG ? tc::LOG2E * x : INFINITY;
+      } else {
+        row_r = qp < n ? delta[bh * n + qp] : 0.f;
+      }
+      if (tab != nullptr && tid < BQ + BK - 1)
+        tab_r = tc::LOG2E * tc::tab_entry(tab, q0, k0, BK, tid, n, heads, h);
+    };
+    auto issue = [&](int it) {
+      const int s = it % ST, h = head(it), q0 = qtile(it);
+      const size_t bh = (size_t)b * heads + h;
+      const float row_it = row_r, tab_it = tab_r;
+      if (it + 1 < total) fetch(it + 1);
+      wg::mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
+      if (tid == 0) {
+        if constexpr (L::F32) wg::mbar_arrive_tx(&loaded[s], 2 * L::TILE);
+        else wg::mbar_expect_tx(&full[s], 2 * L::TILE);
+        uint64_t* bar = L::F32 ? &loaded[s] : &full[s];
+        wg::load_tile(Qs(s), &qmap, bar, q0, (int)bh);
+        wg::load_tile(Gs(s), &gmap, bar, q0, (int)bh);
+      }
+      float* ls = Ls(s);
+      ls[tid] = row_it;
+      if (tab != nullptr && tid < BQ + BK - 1) ls[2 * BQ + tid] = tab_it;
+      if constexpr (!L::F32) wg::mbar_arrive(&full[s]);
+    };
+    // float32: item it's copies landed; split them, then hand the stage over
+    auto finish = [&](int it) {
+      const int s = it % ST;
+      wg::mbar_wait(&loaded[s], (it / ST) & 1);
+      wg::split_tile(reinterpret_cast<float*>(Qs(s)), reinterpret_cast<float*>(Ql(s)), tid, 128);
+      wg::split_tile(reinterpret_cast<float*>(Gs(s)), reinterpret_cast<float*>(Gl(s)), tid, 128);
+      wg::fence_proxy_async();
+      wg::mbar_arrive(&full[s]);
+    };
+    if (total > 0) {
+      fetch(0);
+      issue(0);
+    }
+    wg::mbar_wait(kvload, 0);
+    if constexpr (L::F32) {
+      wg::split_tile(reinterpret_cast<float*>(Ks), reinterpret_cast<float*>(Kl), tid, 128);
+      wg::split_tile(reinterpret_cast<float*>(Vs), reinterpret_cast<float*>(Vl), tid, 128);
+      wg::fence_proxy_async();
+    }
+    wg::mbar_arrive(kvfull);
+    for (int it = 1; it < total; ++it) {
+      issue(it);
+      if constexpr (L::F32) finish(it - 1);
+    }
+    if constexpr (L::F32)
+      if (total > 0) finish(total - 1);
+    // the cluster's two barriers of the head sum below
+    tc::cluster_arrive();
+    tc::cluster_wait();
+    tc::cluster_arrive_relaxed();
+    tc::cluster_wait();
+    return;
+  }
+
+  // ---- the consumers: warpgroup c takes the items c, c + NC, ... ----
+  wg::setmaxnreg_inc<L::CONSUMER_REGS>();
+  const int c = tid / 128 - 1, ctid = tid % 128, warp = ctid / 32, gq = (ctid % 32) / 4,
+            t = ctid % 4;
   const int kl[2] = {warp * 16 + gq, warp * 16 + gq + 8};  // this thread's keys in the tile
+  wg::mbar_wait(kvfull, 0);
   const float fk[2] = {Fs[kl[0]], Fs[kl[1]]};
-  const tc::ASmem<T> ka{Ks + warp * 16 * P, P}, va{Vs + warp * 16 * P, P};
-  float dka[D / 8][4], dva[D / 8][4];
-  tc::zero(dka);
-  tc::zero(dva);
+  const bool flagged = Fany[0] || Fany[1];
+  const float sl = scale * tc::LOG2E;
+  float dka[32], dva[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dka[i] = dva[i] = 0.f;
 
-  for (int it = 0; it < total; ++it) {
-    const int s = it & 1, q0 = q_start + (it % nqt) * BQ;
-    if (it + 1 < total) issue(it + 1);
+  for (int it = c; it < total; it += L::NC) {
+    const int s = it % ST, q0 = qtile(it);
+    wg::mbar_wait(&full[s], (it / ST) & 1);
+    float st[32], dpt[32];  // S^T and dP^T: rows keys, columns queries
+#pragma unroll
+    for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+    wg::fence_acc(st);
+    wg::fence_acc(dpt);
+    wg::wgmma_fence();
+    wg::gemm_nk<T>(st, Ks, Kl, Qs(s), Ql(s));
+    wg::gemm_nk<T>(dpt, Vs, Vl, Gs(s), Gl(s));
+    // The (H, N, M) bias: this thread's 32 elements straight from device
+    // memory, loaded while the products run (see flash_fwd.cu for why not
+    // by TMA or through shared memory); rows past n and keys past m: none.
+    float bv[32];
+    if (bias != nullptr) {
+      const float* bh_bias = bias + ((size_t)head(it) * n + q0) * m + k0;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int cq = 8 * (i / 4) + 2 * t + (i & 1), kr = kl[(i / 2) & 1];
+        bv[i] = q0 + cq < n && k0 + kr < m ? __ldg(bh_bias + (size_t)cq * m + kr) : 0.f;
+      }
+    }
+    wg::wgmma_wait<0>();
+    wg::fence_acc(st);
+    wg::fence_acc(dpt);
 
-    float st[BQ / 8][4], dpt[BQ / 8][4];  // S^T and dP^T: rows keys, columns queries
-    tc::zero(st);
-    tc::zero(dpt);
-    tc::gemm_nk<T, D, BQ / 8>(st, ka, Qs(s), P);
-    tc::gemm_nk<T, D, BQ / 8>(dpt, va, Gs(s), P);
-
+    // p = 2^(y - log2(e) lse) with y = log2(e) (scale q.k + bias) (the table
+    // and lse pre-scaled by the producer); the mask only where a key of the
+    // tile is flagged or some lie above this warp's rows
     const float* ls = Ls(s);
-    const float* ts = Ts(s);
     // keys above the diagonal: only in the diagonal tile, and only for some warps
     const bool diag = causal && tc::above(k0 + warp * 16 + 15, q0, off);
 #pragma unroll
-    for (int j = 0; j < BQ / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = 8 * j + 2 * t + (e & 1), ri = e / 2, kr = kl[ri];
-        const float bc = tab != nullptr ? ls[2 * BQ + c - kr + BK - 1]
-                         : bias != nullptr ? ts[c * TP3 + kr] : 0.f;
-        const float x = tc::score(fmaf(st[j][e], scale, bc), fk[ri], diag && tc::above(k0 + kr, q0 + c, off));
-        const float p = tc::exp_rel(x, ls[c]);
-        st[j][e] = p;
-        dpt[j][e] = p * (dpt[j][e] - ls[BQ + c]);
-      }
-    const float one[2] = {1.f, 1.f};
-    tc::add_tile<T, D, BQ / 8>(dva, st, Gs(s), P, one);   // dV += P^T dO
-    tc::add_tile<T, D, BQ / 8>(dka, dpt, Qs(s), P, one);  // dK += dS^T Q
-
-    if (it + 1 < total) {
-      stash(it + 1);
-      tc::cp_async_wait_all();
+    for (int i = 0; i < 32; ++i) {
+      const int cq = 8 * (i / 4) + 2 * t + (i & 1), ri = (i / 2) & 1, kr = kl[ri];
+      float bc = 0.f;
+      if (tab != nullptr) bc = ls[2 * BQ + cq - kr + BK - 1];
+      else if (bias != nullptr) bc = tc::LOG2E * bv[i];
+      // the masking rule of mma.cuh (tc::score): the key's flag added (y +
+      // NEG rounds to NEG), NEG above the diagonal unless the flag is -inf
+      float y = fmaf(st[i], sl, bc);
+      if (diag) y = tc::above(k0 + kr, q0 + cq, off) ? fminf(NEG, fk[ri]) : y + fk[ri];
+      else if (flagged) y += fk[ri];
+      const float p = tc::ex2(y - ls[cq]);
+      st[i] = p;
+      dpt[i] = p * (dpt[i] - ls[BQ + cq]);
     }
-    __syncthreads();  // this stage is consumed and the next one has landed
+    // dV += P^T dO; dK += dS^T Q
+    if constexpr (L::F32) {
+      float pa[8][4];
+      wg::gemm_pk_split(pa, st, reinterpret_cast<const float*>(Gs(s)),
+                        reinterpret_cast<const float*>(Gl(s)));
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dva[4 * j + e] += pa[j][e];
+      wg::gemm_pk_split(pa, dpt, reinterpret_cast<const float*>(Qs(s)),
+                        reinterpret_cast<const float*>(Ql(s)));
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dka[4 * j + e] += pa[j][e];
+    } else {
+      wg::fence_acc(dva);
+      wg::fence_acc(dka);
+      wg::wgmma_fence();
+      uint32_t pa[4][4], da[4][4];
+      wg::gemm_pk(dva, st, pa, reinterpret_cast<const __nv_bfloat16*>(Gs(s)));
+      wg::gemm_pk(dka, dpt, da, reinterpret_cast<const __nv_bfloat16*>(Qs(s)));
+      wg::wgmma_wait<0>();
+      wg::fence_acc(dva);
+      wg::fence_acc(dka);
+    }
+    wg::mbar_arrive(&empty[s]);
   }
 
-  // the head sum over the cluster: each block's partials into its own
-  // shared memory, then rank 0 adds them in rank order and writes dk, dv once
-  float* red = reinterpret_cast<float*>(smem + S::stages);
+  // The block's sum, second consumer into the first, into the first
+  // stages; then the head sum over the cluster: rank 0 adds the blocks'
+  // sums in rank order through map_shared_rank and writes dk and dv (or,
+  // with the query range split, this chunk's partial): no atomics.
+  float* red = reinterpret_cast<float*>(sm + L::STAGE0);
+  if constexpr (L::NC == 2) {
+    tc::bar_sync(1, 256);
+    if (c == 1) {
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-    for (int ri = 0; ri < 2; ++ri) {
-      float* row = red + kl[ri] * S::RP + 8 * j + 2 * t;
-      tc::store2(row, dka[j][2 * ri], dka[j][2 * ri + 1]);
-      tc::store2(row + BK * S::RP, dva[j][2 * ri], dva[j][2 * ri + 1]);
+        for (int ri = 0; ri < 2; ++ri) {
+          float* row = red + kl[ri] * L::RP + 8 * j + 2 * t;
+          tc::store2(row, dka[4 * j + 2 * ri], dka[4 * j + 2 * ri + 1]);
+          tc::store2(row + BK * L::RP, dva[4 * j + 2 * ri], dva[4 * j + 2 * ri + 1]);
+        }
     }
-  cluster.sync();
+    tc::bar_sync(1, 256);
+  }
+  if (c == 0) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int ri = 0; ri < 2; ++ri) {
+        float* row = red + kl[ri] * L::RP + 8 * j + 2 * t;
+        float2 k1 = make_float2(0.f, 0.f), v1 = make_float2(0.f, 0.f);
+        if constexpr (L::NC == 2) {
+          k1 = *reinterpret_cast<float2*>(row);
+          v1 = *reinterpret_cast<float2*>(row + BK * L::RP);
+        }
+        tc::store2(row, dka[4 * j + 2 * ri] + k1.x, dka[4 * j + 2 * ri + 1] + k1.y);
+        tc::store2(row + BK * L::RP, dva[4 * j + 2 * ri] + v1.x, dva[4 * j + 2 * ri + 1] + v1.y);
+      }
+  }
+  tc::cluster_arrive();
+  tc::cluster_wait();
   if (rank == 0) {
-    for (int i = tid; i < BK * D; i += NT3) {
-      const int r = i / D, c = i % D;
+    const size_t plane = (size_t)gridDim.y * m * 64;  // one chunk's dk or dv partial
+    for (int i = tid - 128; i < BK * 64; i += 128 * L::NC) {
+      const int r = i / 64, cc = i % 64;
       if (k0 + r >= m) continue;
       float sk = 0.f, sv = 0.f;
       for (int src = 0; src < csize; ++src) {
-        const float* part = cluster.map_shared_rank(red, src);
-        sk += part[r * S::RP + c];
-        sv += part[(BK + r) * S::RP + c];
+        const float* p = cluster.map_shared_rank(red, src);
+        sk += p[r * L::RP + cc];
+        sv += p[(BK + r) * L::RP + cc];
       }
-      const size_t o = ((size_t)kvh * m + k0 + r) * D + c;
-      dk[o] = from_f<T>(sk * scale);
-      dv[o] = from_f<T>(sv);
+      const size_t o = ((size_t)kvh * m + k0 + r) * 64 + cc;
+      if (part == nullptr) {
+        dk[o] = from_f<T>(sk * scale);
+        dv[o] = from_f<T>(sv);
+      } else {
+        part[z * plane + o] = sk;
+        part[(qsplit + z) * plane + o] = sv;
+      }
     }
   }
-  cluster.sync();  // every block's partials stay until rank 0 has read them
+  // every block's partials stay until rank 0 has read them
+  tc::cluster_arrive_relaxed();
+  tc::cluster_wait();
+}
+
+// K3's second pass with the query range split over `qsplit` chunks: dk =
+// scale * sum_z part_k[z], dv = sum_z part_v[z], in chunk order
+template <typename T>
+__global__ void dkv_sum_kernel(const float* __restrict__ part, T* __restrict__ dk,
+                               T* __restrict__ dv, size_t plane, int qsplit, float scale) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < plane;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float sk = 0.f, sv = 0.f;
+    for (int z = 0; z < qsplit; ++z) {
+      sk += part[z * plane + i];
+      sv += part[(qsplit + z) * plane + i];
+    }
+    dk[i] = from_f<T>(sk * scale);
+    dv[i] = from_f<T>(sv);
+  }
 }
 
 template <typename K>
@@ -715,29 +923,84 @@ cudaError_t launch_dq(const Args& a, void* dq, void* o2, void* part) {
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_dkv(const Args& a, void* dk, void* dv) {
-  using S = DkvSmem<T, D>;
-  auto kernel = flash_bwd_dkv_kernel<T, D>;
-  cudaError_t err = set_smem(kernel, S::base + S::dense);
+// K3's launch plan, as ops/kernels/flash_attention.py::dkv_plan gives it:
+// the cluster (the largest divisor of the group up to MAX_CLUSTER), the
+// number of chunks the query range is split into, so that a grid below one
+// block per SM fills the card (while each chunk keeps 4 query tiles), and
+// two consumer warpgroups a block for float32, and for bf16 where fewer
+// than two blocks an SM would run.
+struct DkvPlan {
+  int cluster, qsplit;
+  bool two;
+};
+
+DkvPlan dkv_plan(bool f32, int b, int heads, int hk, int n, int m) {
+  const int cluster = cluster_size(heads / hk);
+  const long long base = (long long)cluster * b * hk * ((m + BK - 1) / BK);
+  int qsplit = 1;
+  if (base < PLAN_SMS) qsplit = max(1, min((int)(PLAN_SMS / base), (n + BQ - 1) / BQ / 4));
+  return {cluster, qsplit, f32 || base * qsplit < 2 * PLAN_SMS};
+}
+
+template <typename T, bool TWO>
+cudaError_t launch_dkv(const Args& a, const DkvPlan& plan, void* dk, void* dv) {
+  using L = Dkv<T, TWO>;
+  CUtensorMap qm, km, vm, gm;
+  cudaError_t err = wg::tile_map(&qm, a.q, sizeof(T), a.n, a.b * a.heads);
+  if (err == cudaSuccess) err = wg::tile_map(&gm, a.g, sizeof(T), a.n, a.b * a.heads);
+  if (err == cudaSuccess) err = wg::tile_map(&km, a.k, sizeof(T), a.m, a.b * a.hk);
+  if (err == cudaSuccess) err = wg::tile_map(&vm, a.v, sizeof(T), a.m, a.b * a.hk);
+  auto kernel = flash_bwd_dkv_kernel<T, TWO>;
+  static unsigned sized = 0;  // the devices whose attribute is set, once per instantiation
+  int dev = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && (dev >= 32 || !(sized >> dev & 1))) {
+    err = set_smem(kernel, L::bytes);
+    if (err == cudaSuccess) sized |= 1u << dev;
+  }
   if (err != cudaSuccess) return err;
-  // the cluster: the query heads of one kv head, at most MAX_CLUSTER of them
-  // (with more, each block loops over group / cluster heads)
-  const int cluster = cluster_size(a.heads / a.hk);
-  cudaLaunchAttribute attr[1] = {cluster_attr(cluster)};
+  // the query range split over chunks: their partials in scratch, summed
+  // in chunk order by a second pass (one K3 call, two launches)
+  const size_t plane = (size_t)a.b * a.hk * a.m * 64;
+  float* part = nullptr;
+  if (plan.qsplit > 1) {
+    // the device's default pool keeps up to 64 MB it was given back, so
+    // that the next call's allocation is served from the pool
+    static unsigned kept = 0;
+    if (dev < 32 && !(kept >> dev & 1)) {
+      cudaMemPool_t pool;
+      uint64_t keep = 64ull << 20;
+      if (cudaDeviceGetDefaultMemPool(&pool, dev) == cudaSuccess &&
+          cudaMemPoolSetAttribute(pool, cudaMemPoolAttrReleaseThreshold, &keep) == cudaSuccess)
+        kept |= 1u << dev;
+    }
+    err = cudaMallocAsync(reinterpret_cast<void**>(&part),
+                          2 * plan.qsplit * plane * sizeof(float), a.stream);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchAttribute attr[1] = {cluster_attr(plan.cluster)};
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, a.b * a.hk, (a.m + BK - 1) / BK);
-  cfg.blockDim = dim3(NT3);
-  cfg.dynamicSmemBytes = S::base + (a.bias != nullptr ? S::dense : 0);
+  cfg.gridDim = dim3(plan.cluster, a.b * a.hk, (a.m + BK - 1) / BK * plan.qsplit);
+  cfg.blockDim = dim3(L::NT);
+  cfg.dynamicSmemBytes = L::bytes;
   cfg.stream = a.stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(
-      &cfg, kernel, static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.g), static_cast<const float*>(a.lse),
+  err = cudaLaunchKernelEx(
+      &cfg, kernel, qm, km, vm, gm, static_cast<const float*>(a.lse),
       static_cast<const float*>(a.delta), static_cast<const float*>(a.tab),
       static_cast<const float*>(a.bias), static_cast<const int8_t*>(a.kmask),
-      static_cast<T*>(dk), static_cast<T*>(dv), a.heads, a.hk, a.n, a.m, a.scale, a.causal);
+      static_cast<T*>(dk), static_cast<T*>(dv), part, a.heads, a.hk, a.n, a.m, a.scale,
+      a.causal, plan.qsplit);
+  if (part == nullptr) return err;
+  if (err == cudaSuccess) {
+    dkv_sum_kernel<T><<<(unsigned)((plane + 255) / 256 < 1024 ? (plane + 255) / 256 : 1024), 256,
+                        0, a.stream>>>(part, static_cast<T*>(dk), static_cast<T*>(dv), plane,
+                                       plan.qsplit, a.scale);
+    err = cudaGetLastError();
+  }
+  const cudaError_t freed = cudaFreeAsync(part, a.stream);
+  return err != cudaSuccess ? err : freed;
 }
 
 // which: 0 dq (and the bias's gradient in o2 when not null), 1 dk/dv
@@ -745,7 +1008,13 @@ template <typename T>
 cudaError_t dispatch(int which, int d, const Args& a, void* o1, void* o2, void* part) {
   if (d != 64) return cudaErrorInvalidValue;
   if (a.tab != nullptr && a.bias != nullptr) return cudaErrorInvalidValue;
-  if (which == 1) return launch_dkv<T, 64>(a, o1, o2);
+  if (which == 1) {
+    const DkvPlan plan = dkv_plan(sizeof(T) == 4, a.b, a.heads, a.hk, a.n, a.m);
+    if constexpr (sizeof(T) == 4) return launch_dkv<T, true>(a, plan, o1, o2);
+    else
+      return plan.two ? launch_dkv<T, true>(a, plan, o1, o2)
+                      : launch_dkv<T, false>(a, plan, o1, o2);
+  }
   if (o2 != nullptr && (a.tab == nullptr ? a.bias == nullptr : a.n != a.m || part == nullptr))
     return cudaErrorInvalidValue;
   return launch_dq<T, 64>(a, o1, o2, part);
@@ -793,4 +1062,16 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
                              int dtype, void* stream) {
   return run(1, q, k, v, g, lse, delta, tab, bias, kmask, dk, dv, nullptr, b, heads, hk, n, m,
              d, scale, causal, dtype, stream);
+}
+
+// K3's launch plan for these sizes and dtype (0 float32, 1 bfloat16): out[0]
+// the cluster, out[1] the query chunks, out[2] the consumer warpgroups a
+// block (ops/kernels/flash_attention.py::dkv_plan mirrors it)
+extern "C" int flash_dkv_plan(int b, int heads, int hk, int n, int m, int dtype, int* out) {
+  if (hk <= 0 || heads % hk || (dtype != 0 && dtype != 1)) return cudaErrorInvalidValue;
+  const DkvPlan plan = dkv_plan(dtype == 0, b, heads, hk, n, m);
+  out[0] = plan.cluster;
+  out[1] = plan.qsplit;
+  out[2] = plan.two ? 2 : 1;
+  return cudaSuccess;
 }

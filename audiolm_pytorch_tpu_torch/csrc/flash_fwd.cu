@@ -18,151 +18,304 @@
 // (B=4, H=8, N=M=1201), 14 us at 3.35 TB/s, read again by each batch row,
 // mostly from the 50 MB L2.
 //
-// Design (FA2's shape, on the tensor cores through csrc/mma.cuh). One block
-// of 4 warps per (b*h, 64-query tile), the heaviest (last) query tiles
-// launched first; each warp owns 16 query rows, whose Q fragments stay in
-// registers for the whole loop (bf16, or split into tf32 big/small pairs).
-// The 64-key K and V tiles are double-buffered in shared memory by cp.async,
-// so the next tile loads while this one computes; so is the (H, N, M) bias's
-// 64x64 float32 block. S = Q K^T is an mma product; each thread adds the
-// bias, the key flags and the causal mask to its own accumulator elements
-// (rows lane/4 and lane/4 + 8, columns 2*(lane%4) + {0, 1} of each 8-wide
-// block), by the masking rule at the end of mma.cuh: the table's bias from
-// the tile's 127-entry slice (the deltas q - k it covers), read ahead into
-// registers while the previous tile computes; the causal test runs only on
-// tiles that reach above a warp's rows. The online softmax works on those
-// fragments, each p one SFU op (2^((x - m) log2 e), exactly 1 where x = m,
-// so a row whose keys so far are all masked stays finite), with the row max
-// and sum taken across the 4 lanes of a quad. P goes to the P V product as
-// the A operand straight from the accumulators (rounded to bf16, or split to
-// tf32), never through shared memory; V is the B operand through
-// ldmatrix.trans (bf16) or 32-bit loads (float32). Instantiated for D=64, the head dim of every model on the
-// port's path.
+// Design (warp-specialised, on wgmma and TMA through csrc/wgmma.cuh). One
+// block per (b*h, 64-query tile), the heaviest (last) query tiles launched
+// first, of a producer warpgroup and one (bf16) or two (float32) consumer
+// warpgroups; setmaxnreg gives the producer's registers to the consumers.
+//   - The producer: one thread loads Q once and streams the 64-key K and V
+//     tiles into a ring of stages by TMA (3-D maps (64, rows, planes), so a
+//     head's ragged last tile reads zeros, never the next head), with full
+//     and empty mbarriers. All its threads write each stage's table slice
+//     and key flags (loaded a tile ahead into registers). In float32 they
+//     also split Q, K and V into tf32 big/small pairs in place, a tile
+//     behind the loads so the copy of the next one is in flight.
+//   - The (H, N, M) bias is read by the consumers themselves, each thread
+//     its 32 elements of a tile straight from device memory while the
+//     score product runs: its rows (M floats: 602, 603, 1201 in the Coarse
+//     and Fine LMs) are not 16-byte multiples, which TMA needs; padding it
+//     would copy it each call; and staging it in shared memory by the
+//     producer's cp.async cost a third to a half of the kernel's time.
+//   - The overlap of one tile's softmax with another's products comes from
+//     two or more warpgroups on an SM: in bf16 (one consumer, ~58 KB and 80
+//     registers a thread at launch) three blocks share an SM; in float32
+//     (226 KB, one block an SM) the block's two consumers share its 64
+//     query rows and take the key tiles in turn, each keeping its own (m,
+//     l, O), and the second hands its state to the first through shared
+//     memory at the end, which merges them in that fixed order: the same
+//     bits every run. (A consumer that issued the next tile's S before its
+//     softmax was slower: ptxas serialised its products; see PERF.md.)
+// A consumer's tile: S = Q K^T is a wgmma (m64n64, Q and K from shared
+// memory; float32 as three tf32 products a k-step). The epilogue works on
+// the accumulators, whose per-warp layout is mma.sync's C layout, by the
+// masking rule at the end of mma.cuh, in base-2 units (y = log2(e) (scale
+// q.k + bias), p = 2^(y - m)): a key's flag is added (NEG + y rounds to
+// NEG) only on tiles with a flagged key, and the causal test runs only on
+// tiles that reach above a warp's rows; the online softmax takes its row
+// max and sum across the 4 lanes of a quad. P V: in bf16 a wgmma with P
+// from registers and V's tile as a transposed B; in float32 on mma.sync from
+// V's split tiles (wgmma's tf32 takes K-major B only; a transposed copy of
+// V's pair would take 32 KB more a stage, and the two float32 stages, Q
+// and the bias blocks fill ~200 KB), each tile's product from zero and
+// added on the CUDA cores (tc::add_tile's reason). Instantiated for D = 64,
+// the head dim of every model on the port's path.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "mma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
 constexpr int BQ = 64;          // query rows per block
 constexpr int BK = 64;          // keys per tile
-constexpr int NT = 128;         // 4 warps of 16 query rows
-constexpr int TPITCH = BK + 8;  // the (H, N, M) bias tile's pitch: float2 reads without conflicts
+constexpr int TPITCH = BK + 8;  // the merge's pitch: float2 stores and reads without conflicts
+constexpr int PLAN_SMS = 132;   // the H100's SMs, which the launch's choice of block fills
 using tc::NEG;
+constexpr float LN2 = 0.6931471805599453f;
 
-// Shared memory: two stages of (K tile, V tile, table slice [BQ + BK - 1],
-// key flags [BK]), then with an (H, N, M) bias two of its 64x64 blocks.
-// Q is staged, before the loop, in stage 1's K tile.
-template <typename T, int D>
-struct Smem {
-  static constexpr int P = tc::pitch<T, D>();
-  static constexpr size_t tile = (size_t)BK * P * sizeof(T);
-  static constexpr size_t stage = 2 * tile + (BQ + 2 * BK) * sizeof(float);
-  static constexpr size_t base = 2 * stage;
-  static constexpr size_t dense = 2 * (size_t)BQ * TPITCH * sizeof(float);
-  static_assert(tile % 16 == 0 && stage % 16 == 0, "16-byte aligned regions");
+// The block and its shared memory (offsets from its base, which the launch
+// leaves 1024-byte aligned: the tiles' swizzle is taken on address bits):
+// Q; the ring's stages of (K, V), each an operand tile (with its small
+// parts in float32); per stage the table slice [128], the key flags [64]
+// and two words that say whether any key of the tile is flagged; the
+// barriers. Two shapes of block, chosen by the launch from the sizes
+// (fwd_shape; ops/kernels/flash_attention.py::fwd_plan states the rule):
+//   - one consumer warpgroup: bf16 with three stages (~58 KB and 80
+//     registers a thread at launch: three blocks share an SM and one's
+//     softmax runs while another's products do), float32 where one key
+//     tile is all there is (the cross form) with one stage (~97 KB: two
+//     blocks an SM, where a second consumer would wait for nothing);
+//   - two consumer warpgroups that take the key tiles in turn, with three
+//     stages: float32 (226 KB, one block an SM), and bf16 where fewer than
+//     two blocks an SM would run (the stage trainers' 4 x 4 x 602: 160
+//     blocks), so each block's rows finish in half the time. After the loop
+//     the second consumer's (O, m, l) take the first stage's place and the
+//     first merges them.
+template <typename T, bool TWO>
+struct Fwd {
+  static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr int NC = TWO ? 2 : 1;  // consumer warpgroups
+  static constexpr int NT = 128 * (1 + NC);
+  static constexpr int MIN_BLOCKS = TWO ? 1 : F32 ? 2 : 3;
+  // registers a thread: the producer's and a consumer's, within the launch's
+  // (65536 / (NT * MIN_BLOCKS), rounded down to 8, each thread)
+  static constexpr int PRODUCER_REGS = TWO ? 56 : F32 ? 40 : 24;
+  static constexpr int CONSUMER_REGS = TWO ? 224 : F32 ? 216 : 136;
+  static constexpr int ST = F32 && !TWO ? 1 : 3;  // stages
+  static constexpr int TILE = wg::tile_bytes<T>();
+  static constexpr int OPER = F32 ? 2 * TILE : TILE;
+  static constexpr int STAGE0 = OPER;
+  static constexpr int STAGE = 2 * OPER;
+  static constexpr int MISC = STAGE0 + ST * STAGE;
+  static constexpr int MISC_STAGE = (128 + 64 + 4) * 4;
+  static constexpr int BARS = MISC + ST * MISC_STAGE;
+  static constexpr size_t bytes = BARS + 128;
+  static_assert(bytes <= 232448, "a block's shared memory");
+  static_assert(NC == 1 || ST * STAGE >= (BQ * TPITCH + 2 * BQ) * 4, "the merge fits");
+  static_assert((2 + 3 * ST) * 8 <= 128, "the barriers fit");
+  static_assert((PRODUCER_REGS + NC * CONSUMER_REGS) * MIN_BLOCKS * 128 <= 65536
+                && ((65536 / (NT * MIN_BLOCKS)) & ~7) * (1 + NC)
+                       == PRODUCER_REGS + NC * CONSUMER_REGS,
+                "setmaxnreg hands over exactly the launch's registers");
 };
 
-template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const float* __restrict__ tab, const float* __restrict__ bias,
-                 const int8_t* __restrict__ kmask,
-                 T* __restrict__ out, float* __restrict__ lse, int heads, int group,
-                 int n, int m, float scale, int causal) {
-  using S = Smem<T, D>;
-  constexpr int P = S::P;
-  extern __shared__ __align__(16) unsigned char smem[];
-  auto Ks = [&](int s) { return reinterpret_cast<T*>(smem + s * S::stage); };
-  auto Vs = [&](int s) { return reinterpret_cast<T*>(smem + s * S::stage + S::tile); };
-  // table slice: Bs[i] = tab[q0 - k0 - (BK - 1) + i + n - 1, h], so
-  // the bias of (q0 + r, k0 + c) is Bs[r - c + BK - 1]; then the key flags
-  auto Bs = [&](int s) { return reinterpret_cast<float*>(smem + s * S::stage + 2 * S::tile); };
-  auto Fs = [&](int s) { return Bs(s) + BQ + BK; };
-  auto Ts = [&](int s) { return reinterpret_cast<float*>(smem + S::base) + s * BQ * TPITCH; };
+template <typename T, bool TWO>
+__global__ void __launch_bounds__(Fwd<T, TWO>::NT, Fwd<T, TWO>::MIN_BLOCKS)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                 const __grid_constant__ CUtensorMap vmap, const float* __restrict__ tab,
+                 const float* __restrict__ bias, const int8_t* __restrict__ kmask,
+                 T* __restrict__ out, float* __restrict__ lse, int heads, int group, int n, int m,
+                 float scale, int causal) {
+  using L = Fwd<T, TWO>;
+  constexpr int ST = L::ST, NC = L::NC;
+  extern __shared__ __align__(1024) unsigned char fwd_smem[];
+  unsigned char* sm = fwd_smem;
+  if (threadIdx.x == 0 && (tc::smem_u32(sm) & 1023) != 0) __trap();  // the tiles' swizzle
+  T* Qs = reinterpret_cast<T*>(sm);
+  T* Ql = reinterpret_cast<T*>(sm + L::TILE);  // float32 only
+  auto Ks = [&](int s) { return reinterpret_cast<T*>(sm + L::STAGE0 + s * L::STAGE); };
+  auto Kl = [&](int s) { return reinterpret_cast<T*>(sm + L::STAGE0 + s * L::STAGE + L::TILE); };
+  auto Vs = [&](int s) { return reinterpret_cast<T*>(sm + L::STAGE0 + s * L::STAGE + L::OPER); };
+  auto Vl = [&](int s) {
+    return reinterpret_cast<T*>(sm + L::STAGE0 + s * L::STAGE + L::OPER + L::TILE);
+  };
+  // table slice: Bs[i] = log2(e) tab[q0 - k0 - (BK - 1) + i + n - 1, h],
+  // so the bias of (q0 + r, k0 + c) is Bs[r - c + BK - 1]; then the key
+  // flags; then two words, nonzero where a flag of keys 0-31 (32-63) is
+  auto Bs = [&](int s) { return reinterpret_cast<float*>(sm + L::MISC + s * L::MISC_STAGE); };
+  auto Fs = [&](int s) { return Bs(s) + 128; };
+  auto As = [&](int s) { return reinterpret_cast<int*>(Bs(s) + 128 + 64); };
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  uint64_t *qload = bars, *qfull = bars + 1, *loaded = bars + 2, *full = loaded + ST,
+           *empty = full + ST;
 
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // the longest causal rows first
   const int h = bh % heads, b = bh / heads;
-  const int tid = threadIdx.x, warp = tid / 32, g = (tid % 32) / 4, t = tid % 4;
-  const T* qb = q + (size_t)bh * n * D;
-  const T* kb = k + (size_t)(bh / group) * m * D;
-  const T* vb = v + (size_t)(bh / group) * m * D;
   const float* biash = bias != nullptr ? bias + (size_t)h * n * m : nullptr;
-
   // causal: key k is seen by query q iff k <= q + off (bottom-right aligned, m >= n)
   const int off = m - n;
   const int kv_end = tc::causal_end(causal, q0 + BQ, off, m);
   const int ntiles = (kv_end + BK - 1) / BK;
+  const int tid = threadIdx.x;
 
-  // Tile `it` into stage it & 1: K, V and the bias block by cp.async (one
-  // group); the table entry and key flag of this thread into registers,
-  // which `stash` stores once this tile's compute has hidden their latency.
-  float tab_r = 0.f, flag_r = 0.f;
-  auto issue = [&](int it) {
-    const int k0 = it * BK, s = it & 1;
-    tc::cp_tile<T, D, BK, NT>(Ks(s), P, kb, k0, m);
-    tc::cp_tile<T, D, BK, NT>(Vs(s), P, vb, k0, m);
-    if (biash != nullptr) tc::cp_block_f32<BQ, BK, NT>(Ts(s), TPITCH, biash, q0, k0, n, m);
-    tc::cp_async_commit();
-    if (tab != nullptr && tid < BQ + BK - 1)
-      tab_r = tc::tab_entry(tab, q0, k0, BK, tid, n, heads, h);
-    if (tid < BK) flag_r = tc::key_flag(kmask, b, m, k0 + tid);
-  };
-  auto stash = [&](int it) {
-    const int s = it & 1;
-    if (tab != nullptr && tid < BQ + BK - 1) Bs(s)[tid] = tab_r;
-    if (tid < BK) Fs(s)[tid] = flag_r;
-  };
-
-  // Q (in stage 1's K tile) with tile 0, then Q's fragments into registers
-  tc::cp_tile<T, D, BQ, NT>(Ks(1), P, qb, q0, n);
-  issue(0);
-  stash(0);
-  tc::cp_async_wait_all();
+  if (tid == 0) {
+    wg::mbar_init(qload, 1);
+    wg::mbar_init(qfull, 128);
+    for (int s = 0; s < ST; ++s) {
+      wg::mbar_init(&loaded[s], 1);
+      wg::mbar_init(&full[s], 128);
+      wg::mbar_init(&empty[s], 128);
+    }
+    wg::fence_barrier_init();
+  }
   __syncthreads();
-  tc::ARegs<T, D> qf;
-  qf.load(Ks(1) + warp * 16 * P, P);
-  __syncthreads();  // stage 1 is free for tile 1
 
+  if (tid < 128) {
+    // ---- the producer ----
+    wg::setmaxnreg_dec<L::PRODUCER_REGS>();
+    const int kvp = bh / group;
+    if (tid == 0) {
+      wg::mbar_arrive_tx(qload, L::TILE);
+      wg::load_tile(Qs, &qmap, qload, q0, bh);
+    }
+    // Tile it into stage it % ST: K and V by TMA, the table slice and key
+    // flags from registers loaded a tile ahead (a load's latency, not the
+    // copies', would otherwise pace the ring).
+    float tab_r = 0.f, flag_r = 0.f;
+    auto fetch = [&](int it) {
+      const int k0 = it * BK;
+      if (tab != nullptr && tid < BQ + BK - 1)
+        tab_r = tc::LOG2E * tc::tab_entry(tab, q0, k0, BK, tid, n, heads, h);
+      if (tid < BK) flag_r = tc::key_flag(kmask, b, m, k0 + tid);
+    };
+    auto issue = [&](int it) {
+      const int s = it % ST, k0 = it * BK;
+      const float tab_it = tab_r, flag_it = flag_r;
+      if (it + 1 < ntiles) fetch(it + 1);
+      wg::mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
+      if (tid == 0) {
+        if constexpr (L::F32) wg::mbar_arrive_tx(&loaded[s], 2 * L::TILE);
+        else wg::mbar_expect_tx(&full[s], 2 * L::TILE);
+        uint64_t* bar = L::F32 ? &loaded[s] : &full[s];
+        wg::load_tile(Ks(s), &kmap, bar, k0, kvp);
+        wg::load_tile(Vs(s), &vmap, bar, k0, kvp);
+      }
+      if (tab != nullptr && tid < BQ + BK - 1) Bs(s)[tid] = tab_it;
+      if (tid < BK) {
+        Fs(s)[tid] = flag_it;
+        const unsigned any = __ballot_sync(0xffffffffu, flag_it != 0.f);
+        if (tid % 32 == 0) As(s)[tid / 32] = any != 0u;
+      }
+      if constexpr (!L::F32) wg::mbar_arrive(&full[s]);
+    };
+    // float32: tile it's copies landed; split them, then hand the stage over
+    auto finish = [&](int it) {
+      const int s = it % ST;
+      wg::mbar_wait(&loaded[s], (it / ST) & 1);
+      wg::split_tile(reinterpret_cast<float*>(Ks(s)), reinterpret_cast<float*>(Kl(s)), tid, 128);
+      wg::split_tile(reinterpret_cast<float*>(Vs(s)), reinterpret_cast<float*>(Vl(s)), tid, 128);
+      wg::fence_proxy_async();
+      wg::mbar_arrive(&full[s]);
+    };
+    fetch(0);
+    if (ntiles > 0) issue(0);
+    wg::mbar_wait(qload, 0);
+    if constexpr (L::F32) {
+      wg::split_tile(reinterpret_cast<float*>(Qs), reinterpret_cast<float*>(Ql), tid, 128);
+      wg::fence_proxy_async();
+    }
+    wg::mbar_arrive(qfull);
+    for (int it = 1; it < ntiles; ++it) {
+      issue(it);
+      if constexpr (L::F32) finish(it - 1);
+    }
+    if constexpr (L::F32)
+      if (ntiles > 0) finish(ntiles - 1);
+    return;
+  }
+
+  // ---- the consumers: warpgroup c takes the key tiles c, c + NC, ... ----
+  wg::setmaxnreg_inc<L::CONSUMER_REGS>();
+  const int c = tid / 128 - 1, ctid = tid % 128, warp = ctid / 32, g = (ctid % 32) / 4,
+            t = ctid % 4;
   const int rl[2] = {warp * 16 + g, warp * 16 + g + 8};  // this thread's rows in the tile
+  // this thread's rows of the (H, N, M) bias (rows past n: none)
+  const float* brow[2] = {biash != nullptr && q0 + rl[0] < n ? biash + (size_t)(q0 + rl[0]) * m
+                                                             : nullptr,
+                          biash != nullptr && q0 + rl[1] < n ? biash + (size_t)(q0 + rl[1]) * m
+                                                             : nullptr};
   float m_i[2] = {NEG, NEG}, l_i[2] = {0.f, 0.f};
-  float o[D / 8][4];
-  tc::zero(o);
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  wg::mbar_wait(qfull, 0);
 
-  for (int it = 0; it < ntiles; ++it) {
-    const int s = it & 1, k0 = it * BK;
-    if (it + 1 < ntiles) issue(it + 1);
+  for (int it = c; it < ntiles; it += NC) {
+    const int s = it % ST, k0 = it * BK;
+    wg::mbar_wait(&full[s], (it / ST) & 1);
+    float sc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    wg::fence_acc(sc);
+    wg::wgmma_fence();
+    wg::gemm_nk<T>(sc, Qs, Ql, Ks(s), Kl(s));
+    // The (H, N, M) bias: this thread's 32 elements straight from device
+    // memory (mostly L2: the batch rows of a head run together), loaded
+    // while the product runs. Its rows (M floats) are not 16-byte multiples,
+    // which TMA needs; cp.async of 4 bytes by the producer, or of shifted
+    // 16-byte chunks read back by scalar loads, took a third to a half of
+    // the kernel's time at the Fine LM's shape (PERF.md).
+    float bv[32];
+    if (biash != nullptr) {
+      const bool whole = k0 + BK <= m;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const float* row = brow[(i / 2) & 1];
+        const int kc = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+        bv[i] = row != nullptr && (whole || kc < m) ? __ldg(row + kc) : 0.f;
+      }
+    }
+    wg::wgmma_wait<0>();
+    wg::fence_acc(sc);
 
-    float sc[BK / 8][4];
-    tc::zero(sc);
-    tc::gemm_nk<T, D, BK / 8>(sc, qf, Ks(s), P);
-
+    // The scores in base-2 units, y = log2(e) (scale q.k + bias) (the table
+    // pre-scaled by the producer), so each p is one subtraction and one SFU
+    // op: 2^(y - m), exactly 1 where y == m. By the masking rule of mma.cuh
+    // (tc::score), a key's flag (NEG or -inf) is added (y + NEG rounds to
+    // NEG, as |y| < 2^75), only on tiles with a flagged key, and the causal
+    // mask is tested only on tiles that reach above this warp's rows.
     const float* bs = Bs(s);
     const float* fs = Fs(s);
-    const float* ts = Ts(s);
-    // keys above the diagonal meet this warp's rows only near the diagonal
+    const float sl = scale * tc::LOG2E;
     const bool diag = causal && tc::above(k0 + BK - 1, q0 + warp * 16, off);
+    const bool flagged = As(s)[0] || As(s)[1];
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j) {
-      const int c = 8 * j + 2 * t;
-      const float2 f = *reinterpret_cast<const float2*>(fs + c);
+      const int cc = 8 * j + 2 * t;
+      const float2 f = flagged || diag ? *reinterpret_cast<const float2*>(fs + cc)
+                                       : make_float2(0.f, 0.f);
 #pragma unroll
       for (int ri = 0; ri < 2; ++ri) {
         float2 bb = make_float2(0.f, 0.f);
-        if (tab != nullptr) bb = make_float2(bs[rl[ri] - c + BK - 1], bs[rl[ri] - c + BK - 2]);
-        else if (biash != nullptr) bb = *reinterpret_cast<const float2*>(ts + rl[ri] * TPITCH + c);
-        const int qp = q0 + rl[ri];
-        const float x0 = tc::score(fmaf(sc[j][2 * ri], scale, bb.x), f.x,
-                                   diag && tc::above(k0 + c, qp, off));
-        const float x1 = tc::score(fmaf(sc[j][2 * ri + 1], scale, bb.y), f.y,
-                                   diag && tc::above(k0 + c + 1, qp, off));
-        sc[j][2 * ri] = x0;
-        sc[j][2 * ri + 1] = x1;
-        mx[ri] = fmaxf(mx[ri], fmaxf(x0, x1));
+        if (tab != nullptr) {
+          bb = make_float2(bs[rl[ri] - cc + BK - 1], bs[rl[ri] - cc + BK - 2]);
+        } else if (biash != nullptr) {
+          bb = make_float2(tc::LOG2E * bv[4 * j + 2 * ri], tc::LOG2E * bv[4 * j + 2 * ri + 1]);
+        }
+        float y0 = fmaf(sc[4 * j + 2 * ri], sl, bb.x), y1 = fmaf(sc[4 * j + 2 * ri + 1], sl, bb.y);
+        if (diag) {
+          const int qp = q0 + rl[ri];
+          y0 = tc::above(k0 + cc, qp, off) ? fminf(NEG, f.x) : y0 + f.x;
+          y1 = tc::above(k0 + cc + 1, qp, off) ? fminf(NEG, f.y) : y1 + f.y;
+        } else if (flagged) {
+          y0 += f.x;
+          y1 += f.y;
+        }
+        sc[4 * j + 2 * ri] = y0;
+        sc[4 * j + 2 * ri + 1] = y1;
+        mx[ri] = fmaxf(mx[ri], fmaxf(y0, y1));
       }
     }
     float alpha[2], rs[2] = {0.f, 0.f};
@@ -171,75 +324,131 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       mx[ri] = fmaxf(mx[ri], __shfl_xor_sync(0xffffffffu, mx[ri], 1));
       mx[ri] = fmaxf(mx[ri], __shfl_xor_sync(0xffffffffu, mx[ri], 2));
       const float m_new = fmaxf(m_i[ri], mx[ri]);
-      alpha[ri] = tc::exp_rel(m_i[ri], m_new);
+      alpha[ri] = tc::ex2(m_i[ri] - m_new);
       m_i[ri] = m_new;
     }
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = tc::exp_rel(sc[j][e], m_i[e / 2]);
-        sc[j][e] = p;
-        rs[e / 2] += p;
-      }
+    for (int i = 0; i < 32; ++i) {
+      const float p = tc::ex2(sc[i] - m_i[(i / 2) & 1]);
+      sc[i] = p;
+      rs[(i / 2) & 1] += p;
+    }
 #pragma unroll
     for (int ri = 0; ri < 2; ++ri) {
       rs[ri] += __shfl_xor_sync(0xffffffffu, rs[ri], 1);
       rs[ri] += __shfl_xor_sync(0xffffffffu, rs[ri], 2);
       l_i[ri] = l_i[ri] * alpha[ri] + rs[ri];
     }
-    tc::add_tile<T, D, BK / 8>(o, sc, Vs(s), P, alpha);  // O = O * alpha + P V
-
-    if (it + 1 < ntiles) {
-      stash(it + 1);
-      tc::cp_async_wait_all();
+    // O = O * alpha + P V
+    if constexpr (L::F32) {
+      float part[8][4];
+      wg::gemm_pk_split(part, sc, reinterpret_cast<const float*>(Vs(s)),
+                        reinterpret_cast<const float*>(Vl(s)));
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[4 * j + e] = o[4 * j + e] * alpha[e / 2] + part[j][e];
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[i] *= alpha[(i / 2) & 1];
+      wg::fence_acc(o);
+      uint32_t pa[4][4];
+      wg::gemm_pk(o, sc, pa, reinterpret_cast<const __nv_bfloat16*>(Vs(s)));
+      wg::wgmma_wait<0>();
+      wg::fence_acc(o);
     }
-    __syncthreads();  // this stage is consumed and the next one has landed
+    wg::mbar_arrive(&empty[s]);
   }
 
+  // two consumers: the second's (O, m, l) into the first stage; the first merges
+  float* mo = reinterpret_cast<float*>(sm + L::STAGE0);
+  float* mm = mo + BQ * TPITCH;
+  float* ml = mm + BQ;
+  if constexpr (NC == 2) {
+    tc::bar_sync(1, 256);
+    if (c == 1) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int ri = 0; ri < 2; ++ri)
+          tc::store2(mo + rl[ri] * TPITCH + 8 * j + 2 * t, o[4 * j + 2 * ri],
+                     o[4 * j + 2 * ri + 1]);
+      if (t == 0) {
+        mm[rl[0]] = m_i[0], mm[rl[1]] = m_i[1];
+        ml[rl[0]] = l_i[0], ml[rl[1]] = l_i[1];
+      }
+    }
+    tc::bar_sync(1, 256);
+    if (c == 1) return;
+  }
 #pragma unroll
   for (int ri = 0; ri < 2; ++ri) {
+    float mn = m_i[ri], a0 = 1.f, a1 = 0.f, l = l_i[ri];
+    if constexpr (NC == 2) {
+      const float m1 = mm[rl[ri]];
+      mn = fmaxf(m_i[ri], m1);
+      a0 = tc::ex2(m_i[ri] - mn), a1 = tc::ex2(m1 - mn);
+      l = l_i[ri] * a0 + ml[rl[ri]] * a1;
+    }
     const int qp = q0 + rl[ri];
     if (qp >= n) continue;
-    const float l = l_i[ri] == 0.f ? 1.f : l_i[ri];
-    const float inv = 1.f / l;
-    T* orow = out + ((size_t)bh * n + qp) * D;
+    const float inv = 1.f / (l == 0.f ? 1.f : l);
+    T* orow = out + ((size_t)bh * n + qp) * 64;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      tc::store2(orow + 8 * j + 2 * t, o[j][2 * ri] * inv, o[j][2 * ri + 1] * inv);
-    if (t == 0) lse[(size_t)bh * n + qp] = m_i[ri] + logf(l);
+    for (int j = 0; j < 8; ++j) {
+      float2 o1 = make_float2(0.f, 0.f);
+      if constexpr (NC == 2) o1 = *reinterpret_cast<const float2*>(mo + rl[ri] * TPITCH + 8 * j + 2 * t);
+      tc::store2(orow + 8 * j + 2 * t, (o[4 * j + 2 * ri] * a0 + o1.x * a1) * inv,
+                 (o[4 * j + 2 * ri + 1] * a0 + o1.y * a1) * inv);
+    }
+    // lse in natural units; a row whose keys are all masked keeps the masked
+    // score, NEG, as its max (as the plain version's logsumexp does)
+    if (t == 0)
+      lse[(size_t)bh * n + qp] = (mn == NEG ? NEG : mn * LN2) + logf(l == 0.f ? 1.f : l);
   }
 }
 
-template <typename T, int D>
+// two consumer warpgroups a block (fwd_plan in ops/kernels/flash_attention.py)
+bool fwd_two(bool f32, int bh, int n, int m) {
+  return f32 ? m > BK : (long long)bh * ((n + BQ - 1) / BQ) < 2 * PLAN_SMS;
+}
+
+template <typename T, bool TWO>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* tab,
-                   const void* bias, const void* kmask, void* out, void* lse, int bh, int heads, int group,
-                   int n, int m, float scale, int causal, cudaStream_t stream) {
-  using S = Smem<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)(S::base + S::dense));
+                   const void* bias, const void* kmask, void* out, void* lse, int bh, int heads,
+                   int group, int n, int m, float scale, int causal, cudaStream_t stream) {
+  using L = Fwd<T, TWO>;
+  if (L::ST == 1 && m > BK) return cudaErrorInvalidValue;  // one stage holds one key tile
+  CUtensorMap qm, km, vm;
+  cudaError_t err = wg::tile_map(&qm, q, sizeof(T), n, bh);
+  if (err == cudaSuccess) err = wg::tile_map(&km, k, sizeof(T), m, bh / group);
+  if (err == cudaSuccess) err = wg::tile_map(&vm, v, sizeof(T), m, bh / group);
+  static unsigned sized = 0;  // the devices whose attribute is set, once per instantiation
+  int dev = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && (dev >= 32 || !(sized >> dev & 1))) {
+    err = cudaFuncSetAttribute(flash_fwd_kernel<T, TWO>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
+    if (err == cudaSuccess) sized |= 1u << dev;
+  }
   if (err != cudaSuccess) return err;
-  const size_t smem = S::base + (bias != nullptr ? S::dense : 0);
   dim3 grid(bh, (n + BQ - 1) / BQ);
-  flash_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(tab), static_cast<const float*>(bias),
-      static_cast<const int8_t*>(kmask),
-      static_cast<T*>(out), static_cast<float*>(lse), heads, group, n, m, scale, causal);
+  flash_fwd_kernel<T, TWO><<<grid, L::NT, L::bytes, stream>>>(
+      qm, km, vm, static_cast<const float*>(tab), static_cast<const float*>(bias),
+      static_cast<const int8_t*>(kmask), static_cast<T*>(out), static_cast<float*>(lse), heads,
+      group, n, m, scale, causal);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v, const void* tab,
-                       const void* bias, const void* kmask, void* out, void* lse, int bh,
-                       int heads, int group, int n, int m, float scale, int causal,
-                       cudaStream_t stream) {
-  switch (d) {
-    case 64: return launch<T, 64>(q, k, v, tab, bias, kmask, out, lse, bh, heads, group, n, m,
-                                  scale, causal, stream);
-    default: return cudaErrorInvalidValue;
-  }
+cudaError_t launch_shape(bool two, const void* q, const void* k, const void* v, const void* tab,
+                         const void* bias, const void* kmask, void* out, void* lse, int bh,
+                         int heads, int group, int n, int m, float scale, int causal,
+                         cudaStream_t stream) {
+  return two ? launch<T, true>(q, k, v, tab, bias, kmask, out, lse, bh, heads, group, n, m,
+                               scale, causal, stream)
+             : launch<T, false>(q, k, v, tab, bias, kmask, out, lse, bh, heads, group, n, m,
+                                scale, causal, stream);
 }
 
 }  // namespace
@@ -247,7 +456,7 @@ cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v, const
 // q (bh, n, d); k, v (bh / group, m, d); tab (2n-1, heads) float32 or null;
 // bias (heads, n, m) float32 or null, at most one of the two; kmask
 // (bh / heads, m) int8 or null; out (bh, n, d) in q's type; lse (bh, n)
-// float32. q, k, v 16-byte aligned. dtype 0 = float32, 1 = bfloat16.
+// float32. q, k, v and bias 16-byte aligned. dtype 0 = float32, 1 = bfloat16.
 // Returns a cudaError_t.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void* tab,
                          const void* bias, const void* kmask, void* out, void* lse, int bh,
@@ -255,11 +464,19 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void
                          int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tab != nullptr && bias != nullptr) return cudaErrorInvalidValue;
+  if (d != 64) return cudaErrorInvalidValue;
   if (dtype == 0)
-    return dispatch_d<float>(d, q, k, v, tab, bias, kmask, out, lse, bh, heads, group, n, m,
-                             scale, causal, s);
+    return launch_shape<float>(fwd_two(true, bh, n, m), q, k, v, tab, bias, kmask, out, lse, bh,
+                               heads, group, n, m, scale, causal, s);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(d, q, k, v, tab, bias, kmask, out, lse, bh, heads, group,
-                                     n, m, scale, causal, s);
+    return launch_shape<__nv_bfloat16>(fwd_two(false, bh, n, m), q, k, v, tab, bias, kmask, out,
+                                       lse, bh, heads, group, n, m, scale, causal, s);
   return cudaErrorInvalidValue;
+}
+
+// K1's block for these sizes: 1 with two consumer warpgroups, 0 with one
+// (ops/kernels/flash_attention.py::fwd_plan mirrors it)
+extern "C" int flash_fwd_plan(int bh, int n, int m, int dtype) {
+  if (dtype != 0 && dtype != 1) return -1;
+  return fwd_two(dtype == 0, bh, n, m) ? 1 : 0;
 }

@@ -1,0 +1,363 @@
+// Hopper's warpgroup building blocks (sm_90a), shared by the flash-attention
+// forward (flash_fwd.cu, K1) and its dk/dv kernel (flash_bwd.cu, K3):
+// mbarriers, TMA tile loads, warpgroup matrix products (wgmma) from
+// swizzled shared memory, and register hand-over between warpgroups
+// (setmaxnreg). Written in inline PTX, like mma.cuh, whose masking rule,
+// tf32 rounding and mma.sync product these kernels keep using.
+//
+// Tiles. Every operand tile is 64 rows of 128 bytes laid out as TMA's
+// 128-byte swizzle writes it: the 16-byte chunk c of row r sits at chunk
+// c ^ (r % 8) of that row, in 1024-byte blocks of 8 rows (each tile starts
+// 1024-byte aligned, as the swizzle is taken on address bits). A bf16 tile
+// of 64 values a row is one such tile; a float32 tile of 64 values a row
+// is two, columns 0-31 and then 32-63 (TMA loads it as two 32-column
+// boxes). A wgmma descriptor names such a tile with the 128-byte swizzle
+// mode and a stride of 1024 bytes between 8-row blocks.
+//
+// Float32 is 3xTF32, as in mma.cuh: an operand x is split into big =
+// tf32(x) and small = tf32(x - big), by tc::to_tf32's integer rounding,
+// once, into a pair of tiles of one layout (big over x in place, small in a
+// second tile), and a*b is a_big*b_small + a_small*b_big + a_big*b_big.
+// Built with -DMMA_TF32_ONE_PASS (tests only) only a_big*b_big is kept.
+// wgmma takes tf32 operands K-major only, so a float32 product whose B
+// operand lies with its N index contiguous (P V, P^T dO, dS^T Q) runs on
+// mma.sync instead, reading the B fragments from the split tiles
+// (gemm_pk_split): registers for a transposed second copy of those tiles
+// would not fit beside the ring of stages (see flash_fwd.cu and
+// flash_bwd.cu for the budgets).
+//
+// Accumulators of a m64nN product are in mma.sync's C layout per warp: warp
+// w of the warpgroup holds rows 16w + g and 16w + g + 8 (g = lane / 4),
+// columns 8j + 2t and 8j + 2t + 1 (t = lane % 4) of n-block j, as
+// acc[4j + 0..1] and acc[4j + 2..3]. So the score epilogue of mma.cuh's
+// layout reads them as they stand, and an accumulator strip is the A
+// operand of a register-sourced product as it stands (tc::a_from_acc).
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "mma.cuh"
+
+namespace wg {
+
+// ---- PTX primitives ----
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(tc::smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// makes the barriers' initialisation visible to the async proxy (TMA) and the cluster
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(tc::smem_u32(bar))
+               : "memory");
+}
+
+// the barrier's current phase also waits for `bytes` of TMA transfers
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n"
+               :: "r"(tc::smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(tc::smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// waits until the phase of the given parity has completed (a fresh barrier
+// is in phase 0, so waiting for parity 1 returns at once). A wait that has
+// not completed after ~2^35 cycles (~20 s) traps: a fault in the ring's
+// protocol then ends the launch with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = tc::smem_u32(bar);
+  uint32_t done;
+  long long start = 0;
+  for (;;) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (done) return;
+    if (start == 0) start = clock64();
+    else if (clock64() - start > (1ll << 35)) __trap();
+  }
+}
+
+// a box of a 3-D tensor map at coordinates (c0 innermost, c1, c2) into
+// shared memory, reported to `bar` as bytes arrive (zeros outside the tensor)
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(tc::smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(tc::smem_u32(bar)),
+         "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// orders this thread's shared-memory stores before later reads by the
+// async proxy (wgmma's operand reads)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// keeps the compiler from moving reads or writes of an accumulator across
+// an asynchronous product's issue or wait
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(R));
+}
+
+// the descriptor of a 128-byte-swizzled operand starting at s: 8-row
+// blocks 1024 bytes apart. The leading byte offset is unused by a K-major
+// operand; for an operand whose N index is contiguous it is the stride
+// between 64-wide swizzle atoms along N, and these tiles have one, so it
+// is set to 1024 bytes as well and whichever of the two the hardware takes
+// for the 8-row stride is right.
+__device__ __forceinline__ uint64_t desc(const void* s) {
+  const uint64_t a = tc::smem_u32(s);
+  return ((a & 0x3ffff) >> 4) | ((uint64_t)(1024 >> 4) << 16) | ((uint64_t)(1024 >> 4) << 32)
+         | (1ull << 62);
+}
+
+#define WG_ACC32                                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "   \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define WG_ACC32_OUT(d)                                                                       \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),        \
+  "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),    \
+  "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),              \
+  "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),              \
+  "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+
+// d (64 x 64) = A (64 x 16) B^T (+ d if acc), A and B K-major bf16 in shared memory
+__device__ __forceinline__ void mma_bf16_ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_ACC32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_ACC32_OUT(d)
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d (64 x 64) += A (64 x 16, registers) B, B (16 x 64) bf16 in shared memory
+// with its N index contiguous (the transposed B)
+__device__ __forceinline__ void mma_bf16_rs_t(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_ACC32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_ACC32_OUT(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 64) = A (64 x 8) B^T (+ d if acc), A and B K-major tf32 in shared memory
+__device__ __forceinline__ void mma_tf32_ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " WG_ACC32
+      ", %32, %33, p, 1, 1;\n}\n"
+      : WG_ACC32_OUT(d)
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+#undef WG_ACC32
+#undef WG_ACC32_OUT
+
+// ---- Host side: tensor maps ----
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library needs no -lcuda
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q)
+            == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// the map of a (planes, rows, 64) row-major tensor of 2-byte (bf16) or
+// 4-byte (float32) elements, read as (64 or 32 columns) x 64-row boxes of
+// 128 bytes a row, 128-byte swizzled; rows past `rows` of a plane read as
+// zeros, never the next plane's
+inline cudaError_t tile_map(CUtensorMap* map, const void* base, int elem_bytes, int rows,
+                            int planes) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {64, (cuuint64_t)rows, (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {64ull * elem_bytes, 64ull * elem_bytes * rows};
+  const cuuint32_t box[3] = {(cuuint32_t)(128 / elem_bytes), 64, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  const CUresult r = encode(map, elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                                 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                            3, const_cast<void*>(base), dims, strides, box, estr,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// ---- Tiles and products, built from the primitives above. ----
+
+// bytes of one 64-row operand tile of T (the big parts, for float32)
+template <typename T>
+__host__ __device__ constexpr int tile_bytes() { return 64 * 64 * (int)sizeof(T); }
+
+// a 64 x 64 tile of T at s (a row r) from `map` at row r0 of plane p, on `bar`
+template <typename T>
+__device__ __forceinline__ void load_tile(T* s, const CUtensorMap* map, uint64_t* bar, int r0,
+                                          int p) {
+  tma_load_3d(s, map, bar, 0, r0, p);
+  if constexpr (sizeof(T) == 4)
+    tma_load_3d(reinterpret_cast<unsigned char*>(s) + 8192, map, bar, 32, r0, p);
+}
+
+// the float32 tile at s split in place into its tf32 big parts, the small
+// parts into lo (the same layout); `n` threads, this one `i` of them.
+// Elementwise, so the swizzle does not matter.
+__device__ __forceinline__ void split_tile(float* s, float* lo, int i, int n) {
+  uint4* hi4 = reinterpret_cast<uint4*>(s);
+  uint4* lo4 = reinterpret_cast<uint4*>(lo);
+  for (int c = i; c < 64 * 64 / 4; c += n) {
+    uint4 x = hi4[c], h, l;
+    tc::split(__uint_as_float(x.x), h.x, l.x);
+    tc::split(__uint_as_float(x.y), h.y, l.y);
+    tc::split(__uint_as_float(x.z), h.z, l.z);
+    tc::split(__uint_as_float(x.w), h.w, l.w);
+    hi4[c] = h;
+    lo4[c] = l;
+  }
+}
+
+// the byte offset of element (r, c) of a 64 x 64 float32 tile
+__device__ __forceinline__ int f32_offset(int r, int c) {
+  return (c >> 5) * 8192 + r * 128 + ((((c & 31) >> 2) ^ (r & 7)) << 4) + (c & 3) * 4;
+}
+
+// acc (64 x 64) = A B^T over a depth of 64, A and B K-major tiles in shared
+// memory (a, b; in float32 the big parts, the small ones in al, bl); the
+// products issued and committed, not waited for
+template <typename T>
+__device__ __forceinline__ void gemm_nk(float (&acc)[32], const T* a, const T* al, const T* b,
+                                        const T* bl) {
+  if constexpr (sizeof(T) == 2) {
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      mma_bf16_ss(acc, desc(a) + 2 * ks, desc(b) + 2 * ks, ks > 0);
+  } else {
+    const unsigned char *ah = reinterpret_cast<const unsigned char*>(a),
+                        *alo = reinterpret_cast<const unsigned char*>(al),
+                        *bh = reinterpret_cast<const unsigned char*>(b),
+                        *blo = reinterpret_cast<const unsigned char*>(bl);
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      const int o = (ks >> 2) * 8192;  // the 32-column half
+      const uint64_t k = 2 * (ks & 3);  // 32 bytes a k-step, in 16-byte units
+      const uint64_t dah = desc(ah + o) + k, dbh = desc(bh + o) + k;
+#ifndef MMA_TF32_ONE_PASS
+      mma_tf32_ss(acc, dah, desc(blo + o) + k, ks > 0);
+      mma_tf32_ss(acc, desc(alo + o) + k, dbh, 1);
+      mma_tf32_ss(acc, dah, dbh, 1);
+#else
+      mma_tf32_ss(acc, dah, dbh, ks > 0);
+#endif
+    }
+  }
+  wgmma_commit();
+}
+
+// acc (64 x 64) += P (64 x 64, this warpgroup's accumulators) B, B a 64 x 64
+// bf16 tile in shared memory with its N index contiguous; issued and
+// committed, not waited for. P is packed into `a`, every k-step's A first
+// so the products issue back to back; the caller keeps `a` untouched until
+// the product has completed.
+__device__ __forceinline__ void gemm_pk(float (&acc)[32], const float (&p)[32],
+                                        uint32_t (&a)[4][4], const __nv_bfloat16* b) {
+  const uint64_t db = desc(b);
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[ks][i] = tc::pack_bf16(p[8 * ks + 2 * i], p[8 * ks + 2 * i + 1]);
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) mma_bf16_rs_t(acc, a[ks], db + 128 * ks);  // 16 rows of 128 B
+  wgmma_commit();
+}
+
+// part (16 x 64, this warp's strip, mma.sync's C layout) = P (this warp's
+// 16 x 64 strip of accumulators) B, B a split float32 tile (hi, lo; K rows
+// of N = 64 columns, N contiguous) in shared memory, on mma.sync in
+// 3xTF32. The k index of each 8-wide step is permuted as in mma.cuh (kk = t
+// <-> row 2t, kk = t + 4 <-> row 2t + 1), so an accumulator pair is an A
+// fragment as it stands.
+__device__ __forceinline__ void gemm_pk_split(float (&part)[8][4], const float (&p)[32],
+                                              const float* hi, const float* lo) {
+  const int l = tc::lane_id(), g = l >> 2, t = l & 3;
+  const unsigned char* h8 = reinterpret_cast<const unsigned char*>(hi);
+  const unsigned char* l8 = reinterpret_cast<const unsigned char*>(lo);
+  tc::zero(part);
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks) {
+    tc::Frag<float>::A a;
+    tc::split(p[4 * ks + 0], a.hi[0], a.lo[0]);
+    tc::split(p[4 * ks + 2], a.hi[1], a.lo[1]);
+    tc::split(p[4 * ks + 1], a.hi[2], a.lo[2]);
+    tc::split(p[4 * ks + 3], a.hi[3], a.lo[3]);
+#pragma unroll
+    for (int n = 0; n < 8; n += 2) {
+      tc::Frag<float>::B b[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int o0 = f32_offset(8 * ks + 2 * t, 8 * (n + i) + g);
+        const int o1 = f32_offset(8 * ks + 2 * t + 1, 8 * (n + i) + g);
+        b[i].hi[0] = *reinterpret_cast<const uint32_t*>(h8 + o0);
+        b[i].hi[1] = *reinterpret_cast<const uint32_t*>(h8 + o1);
+        b[i].lo[0] = *reinterpret_cast<const uint32_t*>(l8 + o0);
+        b[i].lo[1] = *reinterpret_cast<const uint32_t*>(l8 + o1);
+      }
+      tc::mma2(part[n], part[n + 1], a, b);
+    }
+  }
+}
+
+}  // namespace wg

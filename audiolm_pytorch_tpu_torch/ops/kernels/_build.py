@@ -102,9 +102,11 @@ def load(name: str, defines=None) -> ctypes.CDLL:
 
 
 def sass_counts(name: str) -> "dict[str, dict[str, int]]":
-    """{kernel's mangled name: {"HMMA": n, "FFMA": n}} in the SASS of the
-    built library of csrc/`name` (built first if need be), by `cuobjdump
-    -sass`: HMMA is a tensor-core product, FFMA a float32 FMA."""
+    """{kernel's mangled name: {"HMMA": n, "HGMMA": n, "UTMALDG": n, "FFMA":
+    n}} in the SASS of the built library of csrc/`name` (built first if need
+    be), by `cuobjdump -sass`: HMMA is a warp's tensor-core product
+    (mma.sync), HGMMA a warpgroup's (wgmma), UTMALDG a TMA tile load, FFMA a
+    float32 FMA."""
     load(name)
     proc = subprocess.run([_tool("cuobjdump"), "-sass", str(library_path(name))],
                           capture_output=True, text=True, timeout=300, check=True)
@@ -113,7 +115,8 @@ def sass_counts(name: str) -> "dict[str, dict[str, int]]":
     for line in proc.stdout.splitlines():
         fn = re.search(r"Function : (\S+)", line)
         if fn:
-            current = counts.setdefault(fn.group(1), {"HMMA": 0, "FFMA": 0})
+            current = counts.setdefault(fn.group(1),
+                                        {"HMMA": 0, "HGMMA": 0, "UTMALDG": 0, "FFMA": 0})
         elif current is not None:
             op = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", line)
             if op and op.group(1) in current:

@@ -29,7 +29,8 @@ from ._build import built_with, load
 __all__ = ["flash_attention", "flash_attention_ref", "flash_attention_bwd",
            "flash_attention_bwd_ref", "bwd_dq", "bwd_dkv", "built_with", "SOURCE",
            "SOURCE_BWD", "HEAD_DIMS", "launches", "launches_dq", "launches_dkv",
-           "launches_dtab", "launches_dbias"]
+           "launches_dtab", "launches_dbias", "PLAN_SMS", "fwd_plan", "dkv_plan",
+           "dkv_items", "fwd_plan_built", "dkv_plan_built"]
 
 SOURCE = "flash_fwd.cu"
 SOURCE_BWD = "flash_bwd.cu"
@@ -40,7 +41,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # launches of each kernel, counted where it is launched
 launches = 0       # forward (K1)
 launches_dq = 0    # dq (K2)
-launches_dkv = 0   # dk, dv (K3)
+launches_dkv = 0   # dk, dv (K3; with its query range split, its second pass is the same call)
 launches_dtab = 0  # bias-table gradient (K4: partial sums in K2's launch, then its second pass)
 launches_dbias = 0  # (H, N, M) bias gradient (K5, fused into K2's launch)
 # K5's cluster holds at most this many batch rows; beyond it the clusters of
@@ -48,6 +49,71 @@ launches_dbias = 0  # (H, N, M) bias gradient (K5, fused into K2's launch)
 _MAX_CLUSTER = 8
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+# The launch plans of K1 and K3, as their C launchers compute them from the
+# sizes (csrc/flash_fwd.cu `launch`, csrc/flash_bwd.cu `dkv_plan`): pure
+# functions, so the CPU tests can check what the card runs.
+PLAN_SMS = 132  # the H100's SMs, which K3's plan fills
+_TILE = 64      # query rows and keys per tile of both kernels
+_MAX_DKV_CLUSTER = 8
+
+
+def _tiles(x):
+    return -(-x // _TILE)
+
+
+def fwd_plan(b, h, n, m, causal, dtype=torch.float32):
+    """K1's launch: grid (b*h, query tiles); its consumer warpgroups a block,
+    two (which take the key tiles in turn, the second's softmax state merged
+    into the first's at the end) for float32 over more than one key tile
+    and for bf16 grids under two blocks an SM, else one; and for each query
+    tile (by its index) the key tiles each consumer takes, in order."""
+    grid = (b * h, _tiles(n))
+    two = m > _TILE if dtype == torch.float32 else grid[0] * grid[1] < 2 * PLAN_SMS
+    tiles = {}
+    for i in range(_tiles(n)):
+        q0 = i * _TILE
+        kv_end = min(m, q0 + _TILE + m - n) if causal else m
+        keys = list(range(_tiles(kv_end)))
+        tiles[i] = (keys[0::2], keys[1::2]) if two else (keys, [])
+    return {"grid": grid, "consumers": 2 if two else 1, "tiles": tiles}
+
+
+def dkv_plan(b, h, hk, n, m, dtype=torch.float32):
+    """K3's launch: the cluster (the largest divisor of the MQA group up to
+    8: its blocks take the kv head's query heads in turn and their sums meet
+    in rank order), the number of chunks the query range is split into (only
+    when fewer blocks than PLAN_SMS would run, each chunk keeping 4 query
+    tiles; the chunks' partials add in chunk order in a second pass), the
+    consumer warpgroups a block (two, which take the items in turn, for
+    float32, and for bf16 grids under two blocks an SM; else one) and the
+    grid (cluster, b*hk, key tiles * chunks)."""
+    group = h // hk
+    cluster = max(c for c in range(1, _MAX_DKV_CLUSTER + 1) if group % c == 0)
+    base = cluster * b * hk * _tiles(m)
+    qsplit = 1 if base >= PLAN_SMS else max(1, min(PLAN_SMS // base, _tiles(n) // 4))
+    two = dtype == torch.float32 or base * qsplit < 2 * PLAN_SMS
+    return {"cluster": cluster, "qsplit": qsplit, "consumers": 2 if two else 1,
+            "grid": (cluster, b * hk, _tiles(m) * qsplit)}
+
+
+def dkv_items(plan, h, hk, n, m, causal, kv_head, key_tile, rank, chunk):
+    """The (query head, first query row) items of one K3 block, each 64 query
+    rows from the diagonal on (so not aligned to 64 where M - N is not), as
+    its consumer warpgroups take them, in order: ([first's], [second's], the
+    second empty with one consumer). The block's dk, dv is the first's sum
+    plus the second's; the cluster adds its blocks' in rank order, and the
+    chunks add in chunk order."""
+    group, cluster, qsplit = h // hk, plan["cluster"], plan["qsplit"]
+    k0 = key_tile * _TILE
+    q_start = max(0, k0 - (m - n)) if causal else 0
+    nqt = _tiles(n - q_start) if q_start < n else 0
+    per = -(-nqt // qsplit)
+    qa = min(nqt, chunk * per)
+    nq = min(nqt, qa + per) - qa
+    items = [(kv_head * group + rank + cluster * (it // nq), q_start + (qa + it % nq) * _TILE)
+             for it in range(group // cluster * nq)]
+    return (items[0::2], items[1::2]) if plan["consumers"] == 2 else (items, [])
 
 
 def _fn(source, name, argtypes):
@@ -113,10 +179,12 @@ def _check_cuda(q, k, v, bias=None):
 
 def _kernel_args(bias_tab, key_mask, bias=None):
     """The table and the bias as float32 and the key mask as int8, each
-    contiguous, or None."""
+    contiguous (the bias 16-byte aligned), or None."""
     tab = bias_tab.float().contiguous() if bias_tab is not None else None
     kmask = key_mask.to(torch.int8).contiguous() if key_mask is not None else None
     dense = bias.float().contiguous() if bias is not None else None
+    if dense is not None and dense.data_ptr() % 16:  # the kernels copy its rows in 16-byte chunks
+        dense = dense.clone()
     return tab, kmask, dense
 
 
@@ -307,13 +375,33 @@ def bwd_dq(q, k, v, g, lse, delta, tab, kmask, *, causal: bool, scale: float, bi
 
 def bwd_dkv(q, k, v, g, lse, delta, tab, kmask, *, causal: bool, scale: float, bias=None):
     """K3 on prepared arguments: dk, dv in k's dtype, the query heads of each
-    kv head summed in the kernel."""
+    kv head summed in the kernel (and, where `dkv_plan` splits the query
+    range, the chunks' partials by a second launch of the same call)."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _bwd_launch("flash_bwd_dkv", (dk, dv), q, k, v, g, lse, delta, tab, kmask,
                 causal=causal, scale=scale, bias=bias)
     global launches_dkv
     launches_dkv += 1
     return dk, dv
+
+
+def fwd_plan_built(b, h, n, m, dtype):
+    """K1's consumers a block as the built library chooses them."""
+    fn = _fn(SOURCE, "flash_fwd_plan", [_I] * 4)
+    two = fn(b * h, n, m, _DTYPES[dtype])
+    if two < 0:
+        raise ValueError(f"no K1 plan for dtype {dtype}")
+    return 2 if two else 1
+
+
+def dkv_plan_built(b, h, hk, n, m, dtype):
+    """K3's plan as the built library computes it: (cluster, query chunks,
+    consumers a block)."""
+    out = (ctypes.c_int * 3)()
+    fn = _fn(SOURCE_BWD, "flash_dkv_plan", [_I] * 6 + [_P])
+    if fn(b, h, hk, n, m, _DTYPES[dtype], out) != 0:
+        raise ValueError(f"no K3 plan for b={b} h={h} hk={hk} n={n} m={m} {dtype}")
+    return tuple(out)
 
 
 def flash_attention_bwd(q, k, v, bias_tab, key_mask, out, lse, g, *, causal: bool,

@@ -1,6 +1,6 @@
 """Drives the PyTorch/CUDA port on one NVIDIA GPU and checks it.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--parent DIR]
 
 Phases, each printing its name and seconds:
   1. device      - requires CUDA; prints the card and its power limit.
@@ -23,9 +23,19 @@ Phases, each printing its name and seconds:
                    last id dropped for the loss, the start token prepended; a
                    forgetful key mask padded True for the start token) and
                    the aligned N = 2048.
-     sass        - HMMA (tensor-core) and FFMA instructions of each kernel in
-                   the built SASS (cuobjdump); K1, K2, K3 and K7 must issue
-                   HMMA in float32 and bf16, K6 in float32.
+     sass        - tensor-core (HMMA, HGMMA), TMA (UTMALDG) and FFMA
+                   instructions of each kernel in the built SASS
+                   (cuobjdump); K2 and K7 must issue HMMA in float32 and
+                   bf16, K6 in float32; K1 and K3 (warp-specialised on
+                   wgmma and TMA) HGMMA and UTMALDG in both.
+     flash device times - K1's and K3's device time per call beside their
+                   event time, and SDPA's forward and backward device times,
+                   at every shape the kernels, stage-trainer and conditioned
+                   phases use, in a process of its own
+                   (tools/torch_flash_parent_ab.py); with --parent DIR (a
+                   checkout of the parent commit, e.g. unpacked by git
+                   archive) that checkout's K1 and K3 timed in turns beside
+                   this one's.
      tf32        - K1's output, K2's dq (and with the bias its dbias) and
                    K3's dk, dv in float32 (3xTF32) within 1e-5 of a float64
                    evaluation at the Semantic and Fine training shapes, the
@@ -458,14 +468,16 @@ def build_phase():
 
 def kernel_label(mangled):
     """flash_fwd_kernel<bf16> (or vq_nearest_kernel, not a template) from a
-    kernel's mangled name: its length, the name, I and its template args;
-    K2's instantiation with K5's cluster sum (a bool argument, true) is
-    flash_bwd_dq_kernel<bf16, sum>."""
+    kernel's mangled name: its length, the name, I and its template args; a
+    bool argument, true, is K2's instantiation with K5's cluster sum
+    (flash_bwd_dq_kernel<bf16, sum>) and K1's and K3's with two consumer
+    warpgroups a block (flash_fwd_kernel<bf16, two>)."""
     entry = re.search(r"\d([a-z][a-z_]*_kernel)(I?)", mangled)
     if not entry.group(2):
         return entry.group(1)
     dtype = "bf16" if "bfloat16" in mangled else "fp32"
-    return f"{entry.group(1)}<{dtype}{', sum' if 'Lb1E' in mangled else ''}>"
+    flag = "sum" if entry.group(1) == "flash_bwd_dq_kernel" else "two"
+    return f"{entry.group(1)}<{dtype}{', ' + flag if 'Lb1E' in mangled else ''}>"
 
 
 def counts():
@@ -805,8 +817,38 @@ def check_bias_form(rng, b, h, n, d, label, seed, **mask_kw):
     return rows
 
 
+# (b, h, hk, n, m): the shapes the main path gives K1 and K3 (training, stage
+# trainers, conditioning's prefix, cross and decode forms, a tensor-parallel rank)
+K3_PLAN_SHAPES = ((4, 8, 1, 2049, 2049), (4, 8, 1, 2048, 2048), (4, 8, 8, 603, 603),
+                  (4, 8, 8, 1201, 1201), (4, 4, 4, 150, 150), (4, 4, 4, 602, 602),
+                  (4, 4, 4, 1201, 1201), (4, 8, 1, 2049, 2065), (4, 8, 1, 2049, 17),
+                  (4, 8, 1, 1, 17), (2, 4, 1, 2049, 2049))
+
+
+def check_plans():
+    """K1's and K3's launch plans as the built libraries compute them (K1's
+    consumers a block; K3's cluster, query chunks and consumers) equal the ones
+    ops/kernels/flash_attention.py states, which the CPU tests check for
+    coverage and summation order."""
+    for b, h, hk, n, m in K3_PLAN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            want = fa.fwd_plan(b, h, n, m, True, dtype)["consumers"]
+            got = fa.fwd_plan_built(b, h, n, m, dtype)
+            if got != want:
+                raise AssertionError(f"K1's consumers at {(b, h, n, m)} {dtype}: the library's "
+                                     f"{got}, the wrapper's {want}")
+            want = fa.dkv_plan(b, h, hk, n, m, dtype)
+            got = fa.dkv_plan_built(b, h, hk, n, m, dtype)
+            if got != (want["cluster"], want["qsplit"], want["consumers"]):
+                raise AssertionError(f"K3's plan at {(b, h, hk, n, m)} {dtype}: the library's "
+                                     f"{got}, the wrapper's {want}")
+    print(f"plans: K1's and K3's launch plans as built equal fwd_plan's and dkv_plan's at "
+          f"{len(K3_PLAN_SHAPES)} shapes")
+
+
 @phase("kernels")
 def kernel_phase(seed):
+    check_plans()
     rng = np.random.default_rng(seed)
     h, d = FLAGSHIP["heads"], FLAGSHIP["dim_head"]
     main = check_flash(*flash_inputs(rng, 4, h, 2048, d, torch.float32), "fp32 4x8x2048x64")
@@ -866,29 +908,64 @@ def stage_kernels(rng, d, seed):
 
 @phase("sass")
 def sass_phase():
-    """HMMA (tensor-core) and FFMA instructions of each kernel in the built
-    libraries' SASS (cuobjdump -sass). K1, K2 (both instantiations: with
-    K5's sum and without), K3 and K7 must issue HMMA in both dtypes, K6 (in
-    float32 only) too. Returns {"fwd": {dtype: HMMA}, "dq": {...}, ...}."""
+    """Tensor-core instructions of each kernel in the built libraries' SASS
+    (cuobjdump -sass): HMMA (mma.sync), HGMMA (wgmma), UTMALDG (TMA loads)
+    and FFMA. K2 (both instantiations: with K5's sum and without) and K7
+    must issue HMMA in both dtypes, K6 (in float32 only) too; K1 and K3, the
+    Hopper design, HGMMA and UTMALDG in both dtypes and both block shapes
+    (one consumer warpgroup or two; K3's float32 has only two). Returns
+    {"fwd": {dtype: {opcode: n}}, "dq": {...}, ...}."""
     kernels = (("fwd", "flash_fwd_kernel"), ("dq", "flash_bwd_dq_kernel"),
                ("dkv", "flash_bwd_dkv_kernel"), ("vq", "vq_nearest_kernel"),
                ("local", "local_attn_kernel"))
-    want = {"fwd": ["bf16", "fp32"], "dq": ["bf16", "bf16, sum", "fp32", "fp32, sum"],
-            "dkv": ["bf16", "fp32"], "vq": ["fp32"], "local": ["bf16", "fp32"]}
+    want = {"fwd": ["bf16", "bf16, two", "fp32", "fp32, two"],
+            "dq": ["bf16", "bf16, sum", "fp32", "fp32, sum"],
+            "dkv": ["bf16", "bf16, two", "fp32, two"], "vq": ["fp32"], "local": ["bf16", "fp32"]}
+    need = {"fwd": ("HGMMA", "UTMALDG"), "dkv": ("HGMMA", "UTMALDG")}
     result = {key: {} for key, _ in kernels}
     for src in SOURCES:
         for mangled, ops in sorted(_build.sass_counts(src).items(), key=lambda x: x[0]):
             label = kernel_label(mangled)
-            print(f"sass {label}: HMMA {ops['HMMA']} FFMA {ops['FFMA']}")
+            print(f"sass {label}: HMMA {ops['HMMA']} HGMMA {ops['HGMMA']} "
+                  f"UTMALDG {ops['UTMALDG']} FFMA {ops['FFMA']}")
             for key, kernel in kernels:
                 if label == kernel:  # not a template: float32 only
-                    result[key]["fp32"] = ops["HMMA"]
+                    result[key]["fp32"] = ops
                 elif label.startswith(kernel + "<"):
-                    result[key][label[len(kernel) + 1:-1]] = ops["HMMA"]
+                    result[key][label[len(kernel) + 1:-1]] = ops
     for key, by_dtype in result.items():
-        if sorted(by_dtype) != want[key] or not all(by_dtype.values()):
-            raise AssertionError(f"{key}: tensor-core instructions by dtype {by_dtype}")
+        ok = sorted(by_dtype) == want[key] and all(
+            all(ops[op] for op in need.get(key, ("HMMA",))) for ops in by_dtype.values())
+        if not ok:
+            raise AssertionError(f"{key}: tensor-core instructions by dtype {by_dtype}, "
+                                 f"each needs {need.get(key, ('HMMA',))}")
     return result
+
+
+@phase("flash device times")
+def flash_device_phase(parent, seed):
+    """K1's and K3's own device time per call (torch.profiler) beside their
+    event time, SDPA's device time for the forward and its backward's (its
+    forward and backward less its forward), at every shape the kernels,
+    stage-trainer and conditioned phases hold K1 and K3 at (and a
+    tensor-parallel rank's), by tools/torch_flash_parent_ab.py in a process
+    of its own: after a few dozen profiler windows in one process
+    torch.profiler was seen to miss later windows' launches, which the K6
+    one-launch gate of the codec kernels phase reads. With --parent DIR the
+    same process times that checkout's K1 and K3 too, in turns (parent,
+    this, this, parent). Returns {shape: {...}}."""
+    cmd = [sys.executable, str(ROOT / "tools" / "torch_flash_parent_ab.py"), "--json",
+           "--seed", str(seed)]
+    if parent is not None:
+        cmd += ["--parent", str(parent)]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900, check=False)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(line)
+    if proc.returncode != 0 or not lines:
+        raise RuntimeError(f"flash device times failed (rc {proc.returncode}):\n"
+                           f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return json.loads(lines[-1])
 
 
 def attention_f64(q, k, v, tab, bias, mask, g, scale, causal=True):
@@ -5106,6 +5183,9 @@ def main():
                         help="run one rank of the tensor parallel phase (the phase starts them)")
     parser.add_argument("--port", type=int, default=None,
                         help="the data or tensor parallel group's port")
+    parser.add_argument("--parent", type=Path, default=None,
+                        help="a checkout of another commit (such as the parent's, unpacked by "
+                             "git archive): its K1 and K3 are timed beside this one's")
     args = parser.parse_args()
     if args.data_parallel_rank is not None or args.tensor_parallel_rank is not None:
         if not torch.cuda.is_available():
@@ -5122,6 +5202,7 @@ def main():
     build_phase()
     timings = kernel_phase(args.seed)
     timings["sass"] = sass_phase()
+    timings["flash_device"] = flash_device_phase(args.parent, args.seed)
     timings["tf32"] = accuracy_phase(args.seed)
     timings.update(codec_kernel_phase(args.seed))
     timings["conditioned"] = conditioned_kernel_phase(args.seed)
@@ -5216,7 +5297,7 @@ def main():
             tp_rows = timings["tensor_parallel"]["kernels"]
             numbers["tp_rank_shape"] = {name: tp_rows[name][key] for name in ("fp32", "bf16")}
         if key in ("fwd", "dq", "dkv", "vq", "local"):
-            numbers["hmma"] = timings["sass"][key]
+            numbers["sass"] = timings["sass"][key]
         if key in ("vq", "local"):
             # K6 at 1300 rows; K7 in bf16 and at 10 s, with the float64 check;
             # both at the codec training's shapes

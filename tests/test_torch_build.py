@@ -111,8 +111,35 @@ def test_sass_counts_reads_opcodes_per_kernel(monkeypatch):
     counts = _build.sass_counts("flash_fwd.cu")
     fwd, dq = sorted(counts, key=lambda name: "dq" in name)
     assert "flash_fwd_kernel" in fwd and "flash_bwd_dq_kernel" in dq
-    assert counts[fwd] == {"HMMA": 2, "FFMA": 1}
-    assert counts[dq] == {"HMMA": 0, "FFMA": 1}
+    assert counts[fwd] == {"HMMA": 2, "HGMMA": 0, "UTMALDG": 0, "FFMA": 1}
+    assert counts[dq] == {"HMMA": 0, "HGMMA": 0, "UTMALDG": 0, "FFMA": 1}
+
+
+# a warp-specialised kernel's SASS: TMA tile loads (one predicated on a
+# uniform predicate), warpgroup products and a warp's product
+SASS_WGMMA = """
+	code for sm_90a
+		Function : _ZN12_GLOBAL__N_116flash_fwd_kernelI13__nv_bfloat16EEv14CUtensorMap_stS2_S2_PKfS4_PKaPT_Pfiiiifi
+	.headerflags	@"EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0400*/                   UTMALDG.3D [UR8], [UR4], desc[UR6] ;
+        /*0410*/             @!UP0 UTMALDG.3D [UR16], [UR12], desc[UR6] ;
+        /*0a80*/                   WARPGROUP.ARRIVE ;
+        /*0a90*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR8], RZ, !UPT ;
+        /*0aa0*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR12], R24 ;
+        /*0ab0*/                   HGMMA.64x64x16.F32.BF16 R24, R88, gdesc[UR16], R24, gsb0 ;
+        /*0b50*/                   HMMA.1688.F32.TF32 R20, R4, R24, R20 ;
+        /*0b60*/                   FFMA R2, R3, R4, R5 ;
+"""
+
+
+def test_sass_counts_reads_warpgroup_products_and_tma_loads(monkeypatch):
+    monkeypatch.setattr(_build, "load", lambda name: None)
+    monkeypatch.setattr(_build, "_tool", lambda name: name)
+    monkeypatch.setattr(_build.subprocess, "run",
+                        lambda cmd, **kw: subprocess.CompletedProcess(cmd, 0, stdout=SASS_WGMMA))
+    (name, ops), = _build.sass_counts("flash_fwd.cu").items()
+    assert "flash_fwd_kernel" in name
+    assert ops == {"HMMA": 1, "HGMMA": 3, "UTMALDG": 2, "FFMA": 1}
 
 
 def test_built_with_makes_every_wrapper_load_the_variant(monkeypatch):

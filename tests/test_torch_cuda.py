@@ -5,7 +5,9 @@ local attention K7) against their plain PyTorch versions; K1, K2 and K3 on
 the tensor cores (over MQA groups of 1 to 16 and K2 over batch sizes 1 to
 9, float32 within 1e-5 of float64 where a plain-TF32 build fails, rows
 whose first key tile or every key is masked, K3's dk, dv and K2's dq and
-dbias the same bits every run, HMMA in their SASS); K6 and K7 on the tensor
+dbias the same bits every run, tensor-core instructions in their SASS:
+HMMA in K2, and in K1 and K3 the warpgroup products and TMA loads (HGMMA,
+UTMALDG) of their Hopper design); K6 and K7 on the tensor
 cores (K6 one launch a search, the same bits every run, its plain-TF32
 build caught by the near-tie gate; K7 on strided views, with masked key
 tiles and rows without a key, within 1e-5 of float64 where plain TF32
@@ -769,13 +771,18 @@ def test_k3_gives_the_same_bits_every_run(cuda, h, hk, form, dtype):
 
 
 def test_k1_and_k3_issue_tensor_core_instructions(cuda):
+    # both dtypes: warpgroup products (HGMMA: S = Q K^T in K1, S^T and dP^T in
+    # K3, and in bf16 the products with P as well) fed by TMA loads (UTMALDG)
+    # every instantiation: one or two consumer warpgroups a block
     found = {}
     for src in (fa.SOURCE, fa.SOURCE_BWD):
         for mangled, ops in _build.sass_counts(src).items():
             for kernel in ("flash_fwd_kernel", "flash_bwd_dkv_kernel"):
                 if kernel in mangled:
-                    found[kernel, "bf16" if "bfloat16" in mangled else "fp32"] = ops["HMMA"]
-    assert len(found) == 4 and all(found.values()), found
+                    found.setdefault((kernel, "bf16" if "bfloat16" in mangled else "fp32"),
+                                     []).append((ops["HGMMA"], ops["UTMALDG"]))
+    assert len(found) == 4, found
+    assert all(all(all(ops) for ops in each) for each in found.values()), found
 
 
 def test_wrapper_raises_on_a_misaligned_cuda_tensor(cuda):

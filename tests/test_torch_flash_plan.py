@@ -1,0 +1,193 @@
+"""The launch plans of the flash kernels K1 (forward) and K3 (dk, dv), as
+`ops/kernels/flash_attention.py` states them for the C launchers: every
+attended (b*h, query tile, key tile) pair is visited exactly once (K1 in
+both dtypes, with one or two consumer warpgroups a block), at the
+flagship, stage-trainer, prefix, cross and decode shapes; and a plain
+emulation of K3's blocks (each warpgroup's items, the two warpgroups' sum,
+the cluster's rank order, the query chunks' order) gives JAX's gradient of
+`attend`.
+
+Tolerances: rtol 1e-2 / atol 1e-3 against JAX, the JAX package's gradient
+tolerance (tests/test_flash_attention.py)."""
+import collections
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from audiolm_pytorch_tpu.ops.attention import attend
+
+from audiolm_pytorch_tpu_torch.ops.kernels import flash_attention as fa
+
+from torch_port_util import t
+
+GRAD_TOL = dict(rtol=1e-2, atol=1e-3)
+# (label, b, h, hk, n, m, causal): the shapes the main path gives K1 and K3
+SHAPES = [("flagship", 4, 8, 1, 2049, 2049, True),
+          ("aligned", 4, 8, 1, 2048, 2048, True),
+          ("coarse", 4, 8, 8, 603, 603, True),
+          ("stage coarse", 4, 4, 4, 602, 602, True),
+          ("fine", 4, 8, 8, 1201, 1201, True),
+          ("prefix", 4, 8, 1, 2049, 2049 + 16, True),
+          ("cross", 4, 8, 1, 2049, 17, False),
+          ("decode", 4, 8, 1, 1, 17, False),
+          ("tensor parallel rank", 2, 4, 1, 2049, 2049, True)]
+
+
+def attended_tiles(n, m, causal):
+    """{(query tile, key tile)} holding at least one attended pair."""
+    keep = np.ones((n, m), bool)
+    if causal:
+        keep = np.tril(keep, m - n)
+    tiles = set()
+    for qi in range(-(-n // 64)):
+        rows = keep[qi * 64:(qi + 1) * 64]
+        for ki in range(-(-m // 64)):
+            if rows[:, ki * 64:(ki + 1) * 64].any():
+                tiles.add((qi, ki))
+    return tiles
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("label,b,h,hk,n,m,causal", SHAPES, ids=[s[0] for s in SHAPES])
+def test_k1_plan_visits_each_attended_tile_once(label, b, h, hk, n, m, causal, dtype):
+    plan = fa.fwd_plan(b, h, n, m, causal, dtype)
+    assert plan["grid"] == (b * h, -(-n // 64))
+    if plan["consumers"] == 1:
+        assert all(not second for _, second in plan["tiles"].values())
+    seen = collections.Counter()
+    for qi, (first, second) in plan["tiles"].items():
+        assert set(first).isdisjoint(second)
+        seen.update((qi, ki) for ki in first + second)
+    assert max(seen.values()) == 1
+    # every attended tile, and above the diagonal none that a row could not use
+    assert set(seen) >= attended_tiles(n, m, causal)
+    assert all(ki * 64 < m for _, ki in seen)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("label,b,h,hk,n,m,causal", SHAPES, ids=[s[0] for s in SHAPES])
+def test_k3_plan_visits_each_attended_pair_once(label, b, h, hk, n, m, causal, dtype):
+    plan = fa.dkv_plan(b, h, hk, n, m, dtype)
+    cluster, qsplit = plan["cluster"], plan["qsplit"]
+    group = h // hk
+    assert group % cluster == 0 and cluster <= 8
+    assert plan["grid"] == (cluster, b * hk, -(-m // 64) * qsplit)
+    keep = np.tril(np.ones((n, m), bool), m - n) if causal else np.ones((n, m), bool)
+    for kv_head in range(hk):  # the batch rows repeat the same plan
+        for ki in range(-(-m // 64)):
+            # the query rows that see a key of this tile, per query head
+            sees = keep[:, ki * 64:(ki + 1) * 64].any(1)
+            rows = np.zeros((h, n), int)
+            for rank in range(cluster):
+                for z in range(qsplit):
+                    first, second = fa.dkv_items(plan, h, hk, n, m, causal, kv_head, ki, rank, z)
+                    for head, q0 in first + second:
+                        assert 0 <= q0 < n
+                        rows[head, q0:q0 + 64] += 1
+            heads = list(range(kv_head * group, (kv_head + 1) * group))
+            assert rows.max() == 1
+            assert (rows[heads][:, sees] == 1).all()
+            assert not rows[[hd for hd in range(h) if hd not in heads]].any()
+
+
+def test_k1_plan_gives_short_or_few_rows_the_other_block():
+    # float32: two consumers wherever there is more than one key tile
+    assert fa.fwd_plan(4, 8, 2049, 2049, True)["consumers"] == 2
+    assert fa.fwd_plan(4, 8, 2049, 17, False)["consumers"] == 1
+    # bf16: two consumers only where fewer than two blocks an SM would run
+    assert fa.fwd_plan(4, 4, 602, 602, True, torch.bfloat16)["consumers"] == 2
+    assert fa.fwd_plan(4, 8, 2049, 2049, True, torch.bfloat16)["consumers"] == 1
+
+
+def test_k3_plan_splits_the_cross_form_over_more_blocks():
+    plan = fa.dkv_plan(4, 8, 1, 2049, 17)
+    assert plan["qsplit"] > 1
+    blocks = plan["grid"][0] * plan["grid"][1] * plan["grid"][2]
+    assert 32 < blocks <= fa.PLAN_SMS
+    # a grid that fills the card already is not split
+    assert fa.dkv_plan(4, 8, 1, 2049, 2049)["qsplit"] == 1
+    # bf16 takes two consumers a block only under two blocks an SM
+    assert fa.dkv_plan(4, 8, 1, 2049, 2049, torch.bfloat16)["consumers"] == 1
+    assert fa.dkv_plan(4, 4, 1, 150, 150, torch.bfloat16)["consumers"] == 2
+
+
+def emulate_dkv(q, k, v, g, mask, causal, scale, plan):
+    """dk, dv summed as K3's blocks sum them, from a plain float32 forward's
+    lse: per warpgroup over its items in order, then the first warpgroup's
+    sum plus the second's, then the cluster's blocks in rank order, then the
+    query chunks in order, dk scaled at the end."""
+    b, h, n, _ = q.shape
+    hk, m = k.shape[1], k.shape[2]
+    out, lse = fa.flash_attention_ref(q, k, v, key_mask=mask, causal=causal, scale=scale,
+                                      return_lse=True)
+    delta = (g * out).sum(-1)
+    keep = torch.ones(n, m, dtype=torch.bool).tril(m - n) if causal else torch.ones(n, m,
+                                                                                    dtype=torch.bool)
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for bi in range(b):
+        for kv_head in range(hk):
+            for ki in range(-(-m // 64)):
+                ks = slice(ki * 64, min(m, ki * 64 + 64))
+                chunks_k, chunks_v = [], []
+                for z in range(plan["qsplit"]):
+                    ranks_k, ranks_v = [], []
+                    for rank in range(plan["cluster"]):
+                        wg_k, wg_v = [], []
+                        for items in fa.dkv_items(plan, h, hk, n, m, causal, kv_head, ki, rank, z):
+                            sk = torch.zeros(ks.stop - ks.start, q.shape[-1])
+                            sv = torch.zeros_like(sk)
+                            for head, q0 in items:
+                                qs = slice(q0, min(n, q0 + 64))
+                                s = scale * q[bi, head, qs] @ k[bi, kv_head, ks].T
+                                allowed = keep[qs, ks]
+                                if mask is not None:
+                                    allowed = allowed & mask[bi, ks][None, :]
+                                s = s.masked_fill(~allowed, -1e30)
+                                p = torch.exp(s - lse[bi, head, qs, None])
+                                dp = g[bi, head, qs] @ v[bi, kv_head, ks].T
+                                ds = p * (dp - delta[bi, head, qs, None])
+                                sv = sv + p.T @ g[bi, head, qs]
+                                sk = sk + ds.T @ q[bi, head, qs]
+                            wg_k.append(sk)
+                            wg_v.append(sv)
+                        ranks_k.append(wg_k[0] + wg_k[1] if plan["consumers"] == 2 else wg_k[0])
+                        ranks_v.append(wg_v[0] + wg_v[1] if plan["consumers"] == 2 else wg_v[0])
+                    chunks_k.append(sum(ranks_k[1:], ranks_k[0]))
+                    chunks_v.append(sum(ranks_v[1:], ranks_v[0]))
+                dk[bi, kv_head, ks] = scale * sum(chunks_k[1:], chunks_k[0])
+                dv[bi, kv_head, ks] = sum(chunks_v[1:], chunks_v[0])
+    return dk, dv
+
+
+@pytest.mark.parametrize("consumers", [1, 2])
+@pytest.mark.parametrize("causal", [False, True])
+def test_k3_split_and_fixed_order_sum_matches_jax(causal, consumers):
+    """A small cross shape (2 x 4 heads x 130 queries over 17 keys, one kv
+    head) with the plan's query split forced on, and with causal masking
+    (M >= N: 130 over 130 + 17, a prefix of 17 keys)."""
+    b, h, hk, n, d = 2, 4, 1, 130, 64
+    m = 17 if not causal else n + 17
+    rng = np.random.default_rng(0)
+    q = rng.normal(size=(b, h, n, d)).astype(np.float32)
+    k = rng.normal(size=(b, hk, m, d)).astype(np.float32)
+    v = rng.normal(size=(b, hk, m, d)).astype(np.float32)
+    g = rng.normal(size=(b, h, n, d)).astype(np.float32)
+    mask = np.ones((b, m), bool)
+    mask[1, m // 2:] = False
+    scale = d ** -0.5
+
+    plan = dict(fa.dkv_plan(b, h, hk, n, m), qsplit=2, consumers=consumers)
+    assert plan["cluster"] == 4
+    dk, dv = emulate_dkv(t(q), t(k), t(v), t(g), t(mask), causal, scale, plan)
+
+    def f(k_, v_):
+        return attend(jnp.asarray(q), k_, v_, mask=jnp.asarray(mask)[:, None, None, :],
+                      causal=causal, scale=scale)
+
+    _, vjp = jax.vjp(f, jnp.asarray(k), jnp.asarray(v))
+    jdk, jdv = vjp(jnp.asarray(g))
+    np.testing.assert_allclose(dk.numpy(), np.asarray(jdk), **GRAD_TOL)
+    np.testing.assert_allclose(dv.numpy(), np.asarray(jdv), **GRAD_TOL)

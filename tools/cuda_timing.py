@@ -46,3 +46,25 @@ def device_per_call(fn, iters=20):
     ms = sum(e.self_device_time_total for e in rows) / 1e3 / iters
     names = {e.key: e.count / iters for e in rows}
     return ms, sum(names.values()), names
+
+
+def named_device_ms(fn, names, iters=20, windows=3):
+    """Device time per call of fn() of the kernels whose names contain one of
+    `names` (substrings), from torch.profiler over `iters` warm calls; the
+    first of up to `windows` profiler windows that saw such a kernel is kept
+    (a window has been seen to record no device event). Returns (ms,
+    launches of those kernels per call), or (None, 0) where no window saw
+    one: not measured."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(windows):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in kernel_events(prof) if any(n in e.key for n in names)]
+        if rows:
+            return (sum(e.self_device_time_total for e in rows) / 1e3 / iters,
+                    sum(e.count for e in rows) / iters)
+    return None, 0

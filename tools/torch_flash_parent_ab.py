@@ -1,0 +1,240 @@
+"""Times the flash kernels K1 (forward) and K3 (dk, dv) at the shapes
+`chip_smoke.py` holds them at: each call by CUDA events (through its Python
+wrapper) and on the device (the kernel's own time from torch.profiler),
+beside SDPA's device time for the same forward and for its backward (its
+forward and backward less its forward). With --parent DIR it also times
+another checkout's K1 and K3 (the parent commit's
+`audiolm_pytorch_tpu_torch/csrc/flash_fwd.cu` and `flash_bwd.cu` with their
+headers), in one process, in turns: the parent's build, this one's, this
+one's again and the parent's again. The two builds share the C interface,
+so the parent's library is loaded in place of this one's behind the same
+wrappers.
+
+    git archive <parent> audiolm_pytorch_tpu_torch | tar -x -C build/parent
+    python tools/torch_flash_parent_ab.py [--parent build/parent] [--seed N] [--json]
+
+`chip_smoke.py` runs it in a process of its own (its `flash device times`
+phase; `--parent` passed on). With --json the last line is one JSON object
+of every number printed. Needs a CUDA card; imports torch, numpy, the
+standard library, the port and tools/cuda_timing.py.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import ctypes
+import functools
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from audiolm_pytorch_tpu_torch.ops.kernels import _build  # noqa: E402
+from audiolm_pytorch_tpu_torch.ops.kernels import flash_attention as fa  # noqa: E402
+from tools import cuda_timing  # noqa: E402
+
+cuda_ms = functools.partial(cuda_timing.cuda_ms, iters=20, warmup=3)
+# (label, b, h, n, m, form, causal, keys, forward only): chip_smoke.py's
+# shapes, each in float32 and bf16 (the stage trainers' in bf16 only), MQA
+# k and v (one head); keys: "forget" drops 15% of each row's keys (the
+# first kept), "ragged" masks keys >= 700 of row 1, "text" keeps each row's
+# text tokens (7, 13, 9, 16 of the first P) and forgets 15% of the rest,
+# "null" keeps the null key and each row's text tokens
+SHAPES = (("4x8x2048 table", 4, 8, 2048, 2048, "table", True, "forget", False),
+          ("4x8x2049 table (training)", 4, 8, 2049, 2049, "table", True, "forget", False),
+          ("2x8x1000 table, ragged", 2, 8, 1000, 1000, "table", True, "ragged", False),
+          ("4x8x603 bias (Coarse training)", 4, 8, 603, 603, "bias", True, "forget", False),
+          ("4x8x1201 bias (Fine training)", 4, 8, 1201, 1201, "bias", True, "forget", False),
+          ("2x8x1000 bias, ragged", 2, 8, 1000, 1000, "bias", True, "ragged", False),
+          ("4x4x150 table (Semantic trainer)", 4, 4, 150, 150, "table", True, "forget", False),
+          ("4x4x602 bias (Coarse trainer)", 4, 4, 602, 602, "bias", True, "forget", False),
+          ("4x4x1201 bias (Fine trainer)", 4, 4, 1201, 1201, "bias", True, "forget", False),
+          ("4x8x2049 over 16 + 2049, prefix", 4, 8, 2049, 2065, "bias", True, "text", False),
+          ("4x8x603 over 40 + 603, prefix", 4, 8, 603, 643, "bias", True, "text", False),
+          ("4x8x2049 over 17, cross", 4, 8, 2049, 17, "none", False, "null", False),
+          ("4x8x1 over 17, cross decode", 4, 8, 1, 17, "none", False, "null", True),
+          ("2x4x2049 table (tensor-parallel rank)", 2, 4, 2049, 2049, "table", True, "forget",
+           False))
+STAGE_ONLY_BF16 = ("trainer)",)
+TEXT_LENGTHS = (7, 13, 9, 16)
+
+
+def parent_library(parent: Path, name: str) -> ctypes.CDLL:
+    """The parent checkout's csrc/`name`, built with its own headers into
+    build/kernels/ (named by the digest of its sources and flags)."""
+    csrc = parent / "audiolm_pytorch_tpu_torch" / "csrc"
+    src = csrc / name
+    so = _build.BUILD_DIR / f"parent-{src.stem}-{_build.source_digest(src, _build.NVCC_FLAGS, csrc)}.so"
+    if not so.exists():
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        proc = subprocess.run([_build._tool("nvcc"), *_build.NVCC_FLAGS, "-I", str(csrc), "-o",
+                               str(so), str(src)], capture_output=True, text=True,
+                              timeout=_build.NVCC_TIMEOUT_S, check=False)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the parent's {name}:\n{proc.stderr[-4000:]}")
+    return ctypes.CDLL(str(so))
+
+
+@contextlib.contextmanager
+def parent_kernels(parent: Path):
+    """Within the block the flash wrappers launch the parent's K1 and K3."""
+    libs = {name: parent_library(parent, name) for name in (fa.SOURCE, fa.SOURCE_BWD)}
+    saved = fa.load
+    fa.load = lambda name, defines=None: libs[name] if name in libs else saved(name, defines)
+    try:
+        yield
+    finally:
+        fa.load = saved
+
+
+def inputs(rng, dtype, b, h, n, m, form, keys):
+    dev = torch.device("cuda")
+
+    def normal(*shape, s=1.0):
+        return torch.from_numpy(s * rng.standard_normal(shape, dtype=np.float32)).to(dev)
+
+    q, k, v, g = normal(b, h, n, 64), normal(b, 1, m, 64), normal(b, 1, m, 64), normal(b, h, n, 64)
+    q, k, v, g = (x.to(dtype) for x in (q, k, v, g))
+    tab = normal(2 * n - 1, h, s=0.5) if form == "table" else None
+    bias = normal(h, n, m, s=0.5) if form == "bias" else None
+    mask = torch.from_numpy(rng.random((b, m)) > 0.15).to(dev)
+    mask[:, 0] = True
+    if keys == "ragged":
+        mask[:] = True
+        mask[1:, 700:] = False
+    elif keys in ("text", "null"):
+        p = m - n if keys == "text" else m - 1
+        for i in range(b):
+            mask[i, :p] = False
+            mask[i, :TEXT_LENGTHS[i % len(TEXT_LENGTHS)]] = True
+        if keys == "null":
+            mask[:, 0] = True
+    return q, k, v, g, tab, bias, mask
+
+
+def times(q, k, v, g, tab, bias, mask, causal, fwd_only):
+    """{K1, K3: (event ms, device ms)} of the wrappers as they stand."""
+    kw = dict(causal=causal, scale=0.125)
+    with torch.no_grad():
+        out, lse = fa._forward(q, k, v, tab, bias, mask, causal, 0.125)
+    tabc, kmask, dense = fa._kernel_args(tab, mask, bias)
+    args = (q, k, v, g, lse, (g.float() * out.float()).sum(-1), tabc, kmask)
+
+    def k1():
+        return fa._forward(q, k, v, tab, bias, mask, causal, 0.125)
+
+    def k3():
+        return fa.bwd_dkv(*args, bias=dense, **kw)
+
+    got = {"K1": (cuda_ms(k1), cuda_timing.named_device_ms(k1, ["flash_fwd_kernel"])[0])}
+    if not fwd_only:
+        got["K3"] = (cuda_ms(k3), cuda_timing.named_device_ms(
+            k3, ["flash_bwd_dkv_kernel", "dkv_sum_kernel"])[0])
+    return got
+
+
+def sdpa_times(q, k, v, g, tab, bias, mask, causal, fwd_only):
+    """SDPA on the same function (k, v repeated over the heads, the bias or
+    the expanded table and the masks as one float mask): forward event and
+    device ms, and the backward's device ms (forward and backward less
+    forward; None for a forward-only shape)."""
+    from audiolm_pytorch_tpu_torch.ops.relpos import toeplitz_expand
+    b, h, n, _ = q.shape
+    m = k.shape[2]
+    base = toeplitz_expand(tab, n, n) if tab is not None else bias if bias is not None \
+        else torch.zeros(1, n, m, device=q.device)
+    keep = torch.ones(n, m, dtype=torch.bool, device=q.device)
+    keep = (keep.tril(m - n) if causal else keep)[None, None] & mask[:, None, None, :]
+    fmask = torch.where(keep, base[None].to(q.dtype),
+                        torch.tensor(float("-inf"), dtype=q.dtype, device=q.device))
+    padded = torch.empty(*fmask.shape[:-1], -(-m // 16) * 16, dtype=q.dtype, device=q.device)
+    padded[..., :m] = fmask
+    fmask = padded[..., :m]
+    ke, ve = (x.expand(-1, h, -1, -1).contiguous() for x in (k, v))
+
+    def call():  # inputs without gradients: the kernel inference takes
+        return torch.nn.functional.scaled_dot_product_attention(q, ke, ve, attn_mask=fmask)
+
+    fwd_ms, fwd_dev = cuda_ms(call), cuda_timing.device_per_call(call)[0]
+    bwd_dev = None
+    if not fwd_only:
+        fm = fmask.detach().requires_grad_(bias is not None)
+        qs, ks, vs = (a.detach().requires_grad_() for a in (q, ke, ve))
+        wrt = (qs, ks, vs, fm) if bias is not None else (qs, ks, vs)
+
+        def train():
+            return torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, attn_mask=fm)
+
+        with torch.no_grad():
+            train_fwd = cuda_timing.device_per_call(train)[0]
+        bwd_dev = cuda_timing.device_per_call(lambda: torch.autograd.grad(train(), wrt, g))[0] \
+            - train_fwd
+    return fwd_ms, fwd_dev, bwd_dev
+
+
+def fmt(ms):
+    return "-" if ms is None else f"{ms:.4f}"
+
+
+def compare(parent=None, seed=0, shapes=SHAPES):
+    """Prints, per shape and dtype, K1's and K3's event and device ms (with
+    a parent checkout: the parent's build and this one's, parent, this,
+    this, parent) and SDPA's; returns {label: {...}}."""
+    rows = {}
+    for label, b, h, n, m, form, causal, keys, fwd_only in shapes:
+        dtypes = ((torch.bfloat16,) if any(x in label for x in STAGE_ONLY_BF16)
+                  else (torch.float32, torch.bfloat16))
+        for dtype in dtypes:
+            tensors = inputs(np.random.default_rng(seed), dtype, b, h, n, m, form, keys)
+            runs = {"this": []}
+            if parent is not None:
+                runs["parent"] = []
+                for which in ("parent", "this", "this", "parent"):
+                    with parent_kernels(parent) if which == "parent" else contextlib.nullcontext():
+                        runs[which].append(times(*tensors, causal, fwd_only))
+            else:
+                runs["this"].append(times(*tensors, causal, fwd_only))
+            sdpa_ms, sdpa_dev, sdpa_bwd_dev = sdpa_times(*tensors, causal, fwd_only)
+            at = f"{str(dtype)[6:]} {label}"
+            row = {"sdpa_ms": sdpa_ms, "sdpa_device_ms": sdpa_dev,
+                   "sdpa_bwd_device_ms": sdpa_bwd_dev}
+            for kernel in ("K1", "K3"):
+                if kernel == "K3" and fwd_only:
+                    continue
+                got = {w: [r[kernel] for r in runs[w]] for w in runs}
+                row[kernel] = {w: {"ms": [e for e, _ in got[w]],
+                                   "device_ms": [d for _, d in got[w]]} for w in got}
+                line = f"flash device {kernel} [{at}]: this " + " ".join(
+                    f"{fmt(e)}/{fmt(d)}" for e, d in got["this"])
+                if parent is not None:
+                    line += " | parent " + " ".join(f"{fmt(e)}/{fmt(d)}" for e, d in got["parent"])
+                line += " ms (events/device) | sdpa " + (
+                    f"{fmt(sdpa_ms)}/{fmt(sdpa_dev)}" if kernel == "K1"
+                    else f"backward device {fmt(sdpa_bwd_dev)}")
+                print(line, flush=True)
+            rows[at] = row
+    return rows
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--parent", type=Path, default=None)
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--json", action="store_true", help="end with a JSON line of the numbers")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA card")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=30, check=True).stdout.strip()
+    print(f"device: {smi}", flush=True)
+    rows = compare(args.parent, args.seed)
+    if args.json:
+        print(json.dumps(rows))
+
+
+if __name__ == "__main__":
+    main()
