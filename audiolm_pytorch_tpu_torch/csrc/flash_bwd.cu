@@ -34,57 +34,73 @@
 // written once (46 MB at the Fine LM's N = 1201, 14 us at 3.35 TB/s), where
 // alone each would redo 2 of K2's 3 products to rebuild dS.
 //
-// Design, all on the tensor cores (K2 through csrc/mma.cuh: mma.sync, cp.async).
+// Design, all on the tensor cores, warp-specialised on wgmma and TMA through
+// csrc/wgmma.cuh.
 //   K2: one block per (batch row, head, 64-row query tile), the longest
-//       causal rows first, as four strips of 16 query rows: a warp a strip
-//       in bf16; in float32 two, each taking half of every key tile, whose
-//       partial dq add at the end in a fixed order (8 warps: float32 holds
-//       one block an SM, and 4 warps left the tensor cores waiting). Q and
-//       dO are the block's fixed A operands: in bf16 their fragments stay in
-//       registers; in float32 they are split into tf32 pairs once, into
-//       shared memory in fragment order (registers for both would not fit).
-//       The key tiles up to the diagonal stream through two stages of K and
-//       V by cp.async, with the (H, N, M) bias's 64x64 float32 block, the
-//       table slice and the key flags. Per tile S = Q K^T and dP = dO V^T;
-//       the epilogue forms dS = P (dP - Delta) on the accumulators by the
-//       masking rule at the end of mma.cuh; dq += dS K takes dS as the A
-//       operand straight from the accumulators, each tile's product from
-//       zero in float32 (tc::add_tile: dq sums over up to 2049 keys).
+//       causal rows first, of a producer warpgroup and a consumer
+//       warpgroup. The producer's first thread loads the block's Q and dO
+//       tiles once by TMA (3-D maps (64, rows, planes), so a head's ragged
+//       last tile reads zeros) and streams the K and V tiles up to the
+//       diagonal through a ring of stages (two in float32, three in bf16)
+//       with full and empty mbarriers; its threads write each stage's table
+//       slice (log2(e) scaled) and key flags, loaded a tile ahead into
+//       registers, and in float32 split Q, dO, K and V into tf32 big/small
+//       pairs in place (tc::to_tf32), a tile behind the loads. The
+//       consumer's warp w holds query rows 16w + g and + 8 (a strip): S = Q
+//       K^T and dP = dO V^T are wgmma products (K-major A and B from shared
+//       memory; float32 as three tf32 products a k-step); the (H, N, M)
+//       bias is read straight from device memory while they run; the
+//       epilogue forms P = 2^(y - log2(e) lse) in base-2 units and dS = P
+//       (dP - Delta) on the accumulators by the masking rule at the end of
+//       mma.cuh; dq += dS K takes dS from the accumulators as the A operand:
+//       in bf16 a wgmma with K's tile as a transposed B, in float32 on
+//       mma.sync from K's split tiles (wgmma's tf32 takes K-major B only),
+//       each tile's product from zero, added in float32 (tc::add_tile: dq
+//       sums over up to 2049 keys). One consumer warpgroup a block: the
+//       grids of the port's shapes are 160 blocks and more (dq_plan), and
+//       two blocks share an SM in bf16.
 //   K4, inside K2 when dtab is given, then a second small pass: each strip
 //       stores its 16 rows of the tile's dS skewed in shared memory
 //       (element (r, c) at column c - r + 15), so that each of its 79
 //       diagonals is a column; a lane sums a column into the strip's row of
 //       the tile's 128 delta slots (two buffers, one a tile). After the
-//       tile's block barrier, thread i < 128 adds the four strips' slots of
-//       the delta it owns there (the block's local delta index = i mod 128),
-//       in strip order, to a register, and writes each delta's sum once,
-//       when the key tiles have passed it, to the block's row of a scratch
-//       buffer (B, H, query tiles, 64 (key tiles + 1)). The second pass,
-//       dtab_sum_kernel, adds those rows over the batch rows and then the
-//       query tiles, in that order, into dtab. Every sum has a fixed order,
-//       so dtab has the same bits every run, as the JAX package's
-//       `_dblocks_kernel` sums in a fixed order (atomics had added the
-//       partials in an order that changed from run to run). Inside the loop
-//       only the strip's warps meet (a named barrier), besides the block
-//       barrier a tile that was there already.
+//       tile's barrier of the consumer warpgroup, thread i adds the four
+//       strips' slots of the delta it owns there (the block's local delta
+//       index = i mod 128), in strip order, to a register, and writes each
+//       delta's sum once, when the key tiles have passed it, to the block's
+//       row of a scratch buffer (B, H, query tiles, 64 (key tiles + 1)).
+//       The second pass, dtab_sum_kernel, adds those rows over the batch
+//       rows and then the query tiles, in that order, into dtab. Every sum
+//       has a fixed order, so dtab has the same bits every run, as the JAX
+//       package's `_dblocks_kernel` sums in a fixed order.
 //   K5, inside K2 when dbias is given (an instantiation of its own, SUM):
 //       the blocks of one (head, query tile), one per batch row, form a
 //       thread-block cluster of the largest divisor of B up to 8. Each key
-//       tile, every block stores its dS tile over the bias block it has just
-//       read and arrives at the cluster's barrier; at the next tile, after
-//       its two products, it waits there, and each rank sums its share of
-//       the last tile's rows over the ranks in rank order through
-//       map_shared_rank and writes them (one barrier a tile, its wait behind
-//       a tile's products; four bias buffers, so the next two tiles' blocks
-//       load while the cluster reads one tile's dS). With B <= 8 one cluster
-//       holds the batch, so each dbias element is written once, in a fixed
-//       order, with no atomics: the same bits every run. Only with B > 8
-//       (B / cluster clusters per tile) do the clusters' partial tiles meet
-//       by atomicAdd, in a buffer the wrapper zeroes. The tiles above the
-//       causal diagonal, which no block visits, are written as zeros by the
-//       cluster of their query tile (with atomics the zeroed buffer holds
-//       them). Each block reads the bias block itself (the cluster's reads
-//       meet in L2); it is not passed through distributed shared memory.
+//       tile, the consumer stores its dS tile into one of two buffers and
+//       tells every rank by a remote arrive on its cluster-scoped mbarrier.
+//       The producer, once it has issued tile it (so its own consumer is
+//       done with tile it - ST), waits there for tile it - ST, sums its
+//       rank's share of that tile's rows over the ranks in rank order
+//       through map_shared_rank, writes them and tells every rank the
+//       buffer is free (a second mbarrier, which a consumer waits on before
+//       it writes that buffer again; the producer waits on it before the
+//       block exits). So the consumer never waits on the other ranks but to
+//       reuse a buffer, no thread meets at barrier.cluster after the start,
+//       and every wait traps after ~20 s instead of hanging. With B <= 8
+//       one cluster holds the batch, so each dbias element is written once,
+//       in a fixed order, with no atomics: the same bits every run. Only
+//       with B > 8 (B / cluster clusters per tile) do the clusters' partial
+//       tiles meet by atomicAdd, in a buffer the wrapper zeroes. The tiles
+//       above the causal diagonal, which no block visits, are written as
+//       zeros by the producers of the cluster of their query tile, after
+//       their sums (with atomics the zeroed buffer holds them).
+//   What holds K2 back (measured by tools/torch_flash_parent_ab.py,
+//       PERF.md): one consumer warpgroup runs its two products, its
+//       epilogue and its dq product in sequence, and the epilogue (bias,
+//       masking rule, exponent, dS) paces bf16 at ~5x its bound; in float32
+//       dS K runs on mma.sync from K's split tiles, and one block fills an
+//       SM's shared memory. K4 adds the skewed stores and column sums a tile
+//       and its second pass; K5 the cluster launch and a buffer's wait.
 //   K3 (warp-specialised, on wgmma and TMA through csrc/wgmma.cuh): one
 //       block per (query head set, b*hk, 64-key tile, query chunk) of a
 //       producer warpgroup and two consumer warpgroups; the blocks of one
@@ -146,77 +162,86 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(x);
 }
 
-// K2: one block per (batch row, head, 64-row query tile), the blocks of one
-// (head, query tile) a cluster when K5 runs (see the note at the top). Four
-// strips of 16 query rows; a strip's rows of S, dP, dS and its partial dq
-// belong to one warp in bf16 and to two in float32, each taking half the
-// keys of a tile (float32 holds one block an SM, so it takes its 8 warps
-// in one block). K5's sum is instantiated apart (SUM): its registers would
-// slow the others.
-template <typename T> struct K2Warps {
-  static constexpr int per_strip = sizeof(T) == 4 ? 2 : 1;
-  static constexpr int threads = 128 * per_strip;
-};
-// the warps of one strip: a named barrier (1 + strip), or __syncwarp for one warp
-template <int WN>
-__device__ __forceinline__ void strip_sync(int strip) {
-  if constexpr (WN == 1) __syncwarp();
-  else tc::bar_sync(1 + strip, 32 * WN);
-}
-constexpr int TPD = BK + 8;    // K2's float32 tiles' pitch (bias block, dS): 8 mod 32 banks
 constexpr int SKP = BK + 16;   // K4's skewed dS rows: a strip's diagonals take BK + 15 columns
 constexpr int DSL = 2 * BK;    // K4's delta slots a tile: a key tile meets BQ + BK - 1 deltas
-static_assert(TPD % 4 == 0, "16-byte rows");
+constexpr int PLAN_SMS = 132;  // the H100's SMs, which the launch plans fill
 
-// Shared memory: two stages of (K tile, V tile, table slice [BQ + BK - 1],
-// key flags [BK]); in float32 the tf32 pairs of Q and dO; then, with an
-// (H, N, M) bias, its 64x64 blocks, two of them, or four with K5 (dS is
-// written over the block just read and stays there while the cluster sums
-// it), or with the table's gradient K4's skewed dS rows. Q and dO are
-// staged, before the loop, in stage 1's K and V tiles; after it the second
-// warps' partial dq meets the first's in stage 0.
-template <typename T, int D>
-struct DqSmem {
-  static constexpr int P = tc::pitch<T, D>();
-  static constexpr size_t tile = (size_t)BK * P * sizeof(T);  // BQ == BK rows
-  static constexpr size_t stage = 2 * tile + (BQ + 2 * BK) * sizeof(float);
-  static constexpr size_t fixed = 2 * (BQ / 16) * tc::AFixed<T, D>::bytes;  // Q, dO by strip
-  static constexpr size_t base = 2 * stage + fixed;
-  static constexpr size_t ftile = (size_t)BQ * TPD * sizeof(float);
-  // K4's skewed rows, then its delta slots: two buffers of four strips
-  static constexpr size_t skew = ((size_t)BQ * SKP + 2 * 4 * DSL) * sizeof(float);
-  static_assert(skew <= 2 * ftile, "K4's skewed rows fit where a bias's blocks go");
-  static_assert((size_t)BQ * TPD * sizeof(float) <= stage, "the partial dq fits in a stage");
-  static_assert(tile % 16 == 0 && stage % 16 == 0 && fixed % 16 == 0, "16-byte aligned regions");
+// K2: one block per (batch row, head, 64-row query tile), the longest causal
+// rows first, of a producer warpgroup and a consumer warpgroup (see the note
+// at the top); the blocks of one (head, query tile) a cluster when K5 runs.
+// The consumer's warp w holds query rows 16w + g and 16w + g + 8 of every
+// product (the strip K4 works on). K5's sum is instantiated apart (SUM).
+//
+// Shared memory (offsets from a 1024-byte aligned base): Q and dO, each an
+// operand tile (with its small parts in float32), fixed for the block; the
+// ring's stages of (K, V); per stage log2(e) times the table slice [128],
+// the key flags [64] and two words that say whether any key of the tile is
+// flagged; the barriers; then, for the bias's gradient, K4's skewed dS rows
+// and delta slots (24 KB) or K5's two dS buffers (2 x 16 KB, float32). The
+// budget: float32 with K5 64 + 2 x 64 + 32 KB and the rest, 231,072 of
+// 232,448 bytes (two stages; one block an SM); bf16 16 + 3 x 16 + 32 KB
+// (three stages; ~99 KB, two blocks an SM, setmaxnreg giving the
+// producer's registers to the consumer).
+template <typename T, bool SUM>
+struct Dq {
+  static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr int NT = 256;  // the producer warpgroup, then the consumer warpgroup
+  static constexpr int MIN_BLOCKS = F32 ? 1 : 2;
+  static constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 200;  // bf16 only
+  static constexpr int ST = F32 ? 2 : 3;  // stages
+  static constexpr int TILE = wg::tile_bytes<T>();
+  static constexpr int OPER = F32 ? 2 * TILE : TILE;
+  static constexpr int STAGE0 = 2 * OPER;
+  static constexpr int STAGE = 2 * OPER;
+  static constexpr int MISC = STAGE0 + ST * STAGE;
+  static constexpr int MISC_STAGE = (128 + 64 + 4) * 4;
+  static constexpr int BARS = MISC + ST * MISC_STAGE;
+  static constexpr int EXTRA = BARS + 256;
+  static constexpr int K4_BYTES = (BQ * SKP + 2 * 4 * DSL) * 4;
+  static constexpr int K5_BYTES = 2 * BQ * BK * 4;
+  static constexpr size_t most = EXTRA + (SUM ? K5_BYTES : K4_BYTES);
+  static_assert(most <= 232448, "a block's shared memory");
+  static_assert(F32 || 2 * (most + 1024) <= 233472, "two bf16 blocks an SM");
+  static_assert((2 + 3 * ST + 4) * 8 <= 256, "the barriers fit");
+  static_assert(F32 || ((65536 / (NT * MIN_BLOCKS)) & ~7) * 2 == PRODUCER_REGS + CONSUMER_REGS,
+                "setmaxnreg hands over exactly the launch's registers");
 };
 
+// K5's dS tile in shared memory: 64 x 64 float32, the 16-byte group c / 4 of
+// row r at group (c / 4) ^ (r % 8), so a warp's stores of its accumulators
+// and a row's 16-byte reads spread over the banks
+__device__ __forceinline__ int ds_at(int r, int c) {
+  return r * BK + ((((c >> 2) ^ (r & 7))) << 2) + (c & 3);
+}
+
 // K5's sum of one key tile: the blocks of a cluster of csize add their dS
-// tiles (at dsm, pitch TPD, each in its own shared memory) in rank order,
-// each block over its share of the rows, 16 bytes a read, and write them to
-// out = dbias[h] (or add them, where other clusters share the tile)
-template <int NT>
+// tiles (at dsm, each in its own shared memory) in rank order, each block
+// over its share of the rows, thread i of 128 a 16-byte group at a time,
+// and write them to out = dbias[h] (or add them, where other clusters share
+// the tile)
 __device__ __forceinline__ void batch_sum_rows(const cg::cluster_group& cluster, float* dsm,
                                                float* out, int q0, int k0, int n, int m,
-                                               bool atomic) {
-  constexpr int V = BK / 4;  // float4s a row
+                                               bool atomic, int i0) {
+  constexpr int V = BK / 4;  // 16-byte groups a row
   const int rank = (int)cluster.block_rank(), csize = (int)cluster.num_blocks();
   const int r_lo = rank * BQ / csize, count = ((rank + 1) * BQ / csize - r_lo) * V;
-  for (int i = threadIdx.x; i < count; i += NT) {
-    const int at = (r_lo + i / V) * (TPD / 4) + i % V;
-    float4 sum = reinterpret_cast<const float4*>(cluster.map_shared_rank(dsm, 0))[at];
+  for (int i = i0; i < count; i += 128) {
+    const int r = r_lo + i / V, c4 = i % V;
+    const int at = r * BK + ((c4 ^ (r & 7)) << 2);
+    float4 sum = *reinterpret_cast<const float4*>(cluster.map_shared_rank(dsm, 0) + at);
 #pragma unroll
     for (int src = 1; src < MAX_CLUSTER; ++src)
       if (src < csize) {
-        const float4 x = reinterpret_cast<const float4*>(cluster.map_shared_rank(dsm, src))[at];
+        const float4 x = *reinterpret_cast<const float4*>(cluster.map_shared_rank(dsm, src) + at);
         sum.x += x.x;
         sum.y += x.y;
         sum.z += x.z;
         sum.w += x.w;
       }
-    const int r = q0 + r_lo + i / V, c = k0 + 4 * (i % V);
-    if (r >= n) continue;
+    const int row = q0 + r, c = k0 + 4 * c4;
+    if (row >= n) continue;
     const float v[4] = {sum.x, sum.y, sum.z, sum.w};
-    float* o = out + (size_t)r * m + c;
+    float* o = out + (size_t)row * m + c;
 #pragma unroll
     for (int l = 0; l < 4; ++l) {
       if (c + l >= m) break;
@@ -240,216 +265,361 @@ dtab_sum_kernel(const float* __restrict__ part, float* __restrict__ dtab, int b,
   const int nqt = (n + BQ - 1) / BQ, arow = BK * ((m + BK - 1) / BK + 1);
   const int delta = idx - (n - 1);
   float sum = 0.f;
-  for (int bi = 0; bi < b; ++bi)
-    for (int qt = 0; qt < nqt; ++qt) {
-      const int q0 = qt * BQ, a = q0 + BQ - 1 - delta;
-      const int kv_end = causal ? min(m, q0 + BQ) : m;
-      if (a >= 0 && a < BK * ((kv_end + BK - 1) / BK + 1))
-        sum += part[((size_t)(bi * heads + h) * nqt + qt) * arow + a];
+  for (int bi = 0; bi < b; ++bi) {
+    const float* pb = part + (size_t)(bi * heads + h) * nqt * arow;
+    // eight query tiles' loads in flight, then their adds in order
+    for (int q8 = 0; q8 < nqt; q8 += 8) {
+      float v[8];
+      bool in[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int qt = q8 + j, q0 = qt * BQ, a = q0 + BQ - 1 - delta;
+        const int kv_end = causal ? min(m, q0 + BQ) : m;
+        in[j] = qt < nqt && a >= 0 && a < BK * ((kv_end + BK - 1) / BK + 1);
+        v[j] = in[j] ? pb[(size_t)qt * arow + a] : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (in[j]) sum += v[j];
     }
+  }
   dtab[(size_t)idx * heads + h] = sum;
 }
 
-template <typename T, int D, bool SUM>
-__global__ void __launch_bounds__(K2Warps<T>::threads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ g, const float* __restrict__ lse,
+template <typename T, bool SUM>
+__global__ void __launch_bounds__(Dq<T, SUM>::NT, Dq<T, SUM>::MIN_BLOCKS)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap,
+                    const __grid_constant__ CUtensorMap gmap, const float* __restrict__ lse,
                     const float* __restrict__ delta, const float* __restrict__ tab,
                     const float* __restrict__ bias, const int8_t* __restrict__ kmask,
                     T* __restrict__ dq, float* __restrict__ dpart, float* __restrict__ dbias,
                     int heads, int group, int n, int m, float scale, int causal) {
-  using S = DqSmem<T, D>;
-  constexpr int P = S::P;
-  constexpr int NT = K2Warps<T>::threads, WN = K2Warps<T>::per_strip;
-  constexpr int KW = BK / WN;  // a warp's keys of a tile
-  extern __shared__ __align__(16) unsigned char dq_smem[];
-  unsigned char* smem = dq_smem;
-  auto Ks = [&](int s) { return reinterpret_cast<T*>(smem + s * S::stage); };
-  auto Vs = [&](int s) { return reinterpret_cast<T*>(smem + s * S::stage + S::tile); };
-  // table slice: Bs[i] = tab[q0 - k0 - (BK - 1) + i + n - 1, h], so
-  // the bias of (q0 + r, k0 + c) is Bs[r - c + BK - 1]; then the key flags
-  auto Bs = [&](int s) { return reinterpret_cast<float*>(smem + s * S::stage + 2 * S::tile); };
-  auto Fs = [&](int s) { return Bs(s) + BQ + BK; };
-  // the bias block of tile `it`, then its dS; with K5 four of them, so
-  // the cluster reads a tile's dS while the next two tiles' blocks load
-  constexpr int NBUF = SUM ? 4 : 2;
-  float* dense = reinterpret_cast<float*>(smem + S::base);
-  auto Tb = [&](int it) { return dense + (it % NBUF) * BQ * TPD; };
+  using L = Dq<T, SUM>;
+  constexpr int ST = L::ST;
+  extern __shared__ __align__(1024) unsigned char dq_smem[];
+  unsigned char* sm = dq_smem;
+  if (threadIdx.x == 0 && (tc::smem_u32(sm) & 1023) != 0) __trap();  // the tiles' swizzle
+  T* Qs = reinterpret_cast<T*>(sm);
+  T* Ql = reinterpret_cast<T*>(sm + L::TILE);  // float32 only
+  T* Gs = reinterpret_cast<T*>(sm + L::OPER);
+  T* Gl = reinterpret_cast<T*>(sm + L::OPER + L::TILE);
+  auto Ks = [&](int s) { return reinterpret_cast<T*>(sm + L::STAGE0 + s * L::STAGE); };
+  auto Kl = [&](int s) { return reinterpret_cast<T*>(sm + L::STAGE0 + s * L::STAGE + L::TILE); };
+  auto Vs = [&](int s) { return reinterpret_cast<T*>(sm + L::STAGE0 + s * L::STAGE + L::OPER); };
+  auto Vl = [&](int s) {
+    return reinterpret_cast<T*>(sm + L::STAGE0 + s * L::STAGE + L::OPER + L::TILE);
+  };
+  // table slice: Bs[i] = log2(e) tab[q0 - k0 - (BK - 1) + i + n - 1, h],
+  // so the bias of (q0 + r, k0 + c) is Bs[r - c + BK - 1]; then the key
+  // flags; then two words, nonzero where a flag of keys 0-31 (32-63) is
+  auto Bs = [&](int s) { return reinterpret_cast<float*>(sm + L::MISC + s * L::MISC_STAGE); };
+  auto Fs = [&](int s) { return Bs(s) + 128; };
+  auto As = [&](int s) { return reinterpret_cast<int*>(Bs(s) + 128 + 64); };
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  uint64_t *qload = bars, *qfull = bars + 1, *loaded = bars + 2, *full = loaded + ST,
+           *empty = full + ST, *dsready = empty + ST, *dsfree = dsready + 2;
+  float* extra = reinterpret_cast<float*>(sm + L::EXTRA);
 
   cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank(), csize = (int)cluster.num_blocks();
+  const int csize = (int)cluster.num_blocks();
   const int b = blockIdx.x, h = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;  // the longest causal rows first
   const size_t bh = (size_t)b * heads + h;
-  const int tid = threadIdx.x, warp = tid / 32, gq = (tid % 32) / 4, t = tid % 4;
-  const int strip = warp % 4, kh = warp / 4, kc0 = kh * KW;  // this warp's rows and keys
-  const T* kb = k + (bh / group) * m * D;
-  const T* vb = v + (bh / group) * m * D;
-  const float* biash = bias != nullptr ? bias + (size_t)h * n * m : nullptr;
-  // K4: a strip's dS, skewed so that a diagonal is a column. Element (r, c)
-  // of the strip's 16 rows lies on the diagonal of (r - 8, c - 8), and a
-  // thread holds both (rows gq and gq + 8), so it adds them first: their
-  // sum goes to row gq of its warp's 8 rows, column c - gq + 15. The cells
-  // off the band are zeros, written once.
-  float* sk = dense + strip * 8 * WN * SKP;
-  // K4's delta slots of tile it: dsl(it)[strip * DSL + a - k0] holds the
-  // strip's sum of the delta q0 + BQ - 1 - a (a: the block's local index)
-  auto dsl = [&](int it) { return dense + BQ * SKP + (it & 1) * 4 * DSL; };
-  const int nkt = (m + BK - 1) / BK;
-  float* prow = dpart != nullptr
-                    ? dpart + (bh * gridDim.z + q0 / BQ) * (size_t)(BK * (nkt + 1)) : nullptr;
-  int a_cur = -1;  // the local delta this thread sums now (thread i < DSL owns a = i mod DSL)
-  float a_sum = 0.f;
-
   // causal: key k is seen by query q iff k <= q + off (bottom-right aligned, m >= n)
   const int off = m - n;
   const int kv_end = tc::causal_end(causal, q0 + BQ, off, m);
   const int ntiles = (kv_end + BK - 1) / BK;
+  const int tid = threadIdx.x;
 
-  // Tile `it`: K and V into stage it & 1 and the bias block into Tb(it) by
-  // cp.async (one group); the table entry and key flag of this thread into
-  // registers, which `stash` stores once this tile's compute has hidden
-  // their latency.
-  float tab_r = 0.f, flag_r = 0.f;
-  auto issue = [&](int it) {
-    const int k0 = it * BK, s = it & 1;
-    tc::cp_tile<T, D, BK, NT>(Ks(s), P, kb, k0, m);
-    tc::cp_tile<T, D, BK, NT>(Vs(s), P, vb, k0, m);
-    if (biash != nullptr) tc::cp_block_f32<BQ, BK, NT>(Tb(it), TPD, biash, q0, k0, n, m);
-    tc::cp_async_commit();
-    if (tab != nullptr && tid < ND) tab_r = tc::tab_entry(tab, q0, k0, BK, tid, n, heads, h);
-    if (tid < BK) flag_r = tc::key_flag(kmask, b, m, k0 + tid);
-  };
-  auto stash = [&](int it) {
-    const int s = it & 1;
-    if (tab != nullptr && tid < ND) Bs(s)[tid] = tab_r;
-    if (tid < BK) Fs(s)[tid] = flag_r;
-  };
+  if (tid == 0) {
+    wg::mbar_init(qload, 1);
+    wg::mbar_init(qfull, 128);
+    for (int s = 0; s < ST; ++s) {
+      wg::mbar_init(&loaded[s], 1);
+      wg::mbar_init(&full[s], 128);
+      wg::mbar_init(&empty[s], 128);
+    }
+    for (int i = 0; i < 2; ++i) {  // K5: one arrival from each rank of the cluster
+      wg::mbar_init(&dsready[i], csize);
+      wg::mbar_init(&dsfree[i], csize);
+    }
+    wg::fence_barrier_init();
+  }
+  __syncthreads();
+  if constexpr (SUM) {
+    // every rank's barriers are initialised before any rank arrives on them
+    tc::cluster_arrive();
+    tc::cluster_wait();
+  }
+  // K5: dS of tile it in buffer it % 2; with several clusters per tile (B >
+  // 8) their partial sums meet by atomics
+  const bool atomic = SUM && csize < (int)gridDim.x;
+  float* out = SUM ? dbias + (size_t)h * n * m : nullptr;  // dbias[h]
+  auto dsb = [&](int it) { return extra + (it & 1) * BQ * BK; };
 
-  // Q and dO (in stage 1's K and V tiles) with tile 0; lse (+inf where p =
-  // 0: padded or fully masked rows) and Delta of this thread's two rows
-  tc::cp_tile<T, D, BQ, NT>(Ks(1), P, q + bh * n * D, q0, n);
-  tc::cp_tile<T, D, BQ, NT>(Vs(1), P, g + bh * n * D, q0, n);
-  issue(0);
-  stash(0);
-  const int rl[2] = {strip * 16 + gq, strip * 16 + gq + 8};  // this thread's rows in the tile
+  if (tid < 128) {
+    // ---- the producer ----
+    if constexpr (!L::F32) wg::setmaxnreg_dec<L::PRODUCER_REGS>();
+    const int kvp = (int)(bh / group);
+    if (tid == 0) {
+      wg::mbar_arrive_tx(qload, 2 * L::TILE);
+      wg::load_tile(Qs, &qmap, qload, q0, (int)bh);
+      wg::load_tile(Gs, &gmap, qload, q0, (int)bh);
+    }
+    // Tile it into stage it % ST: K and V by TMA, the table slice and key
+    // flags from registers loaded a tile ahead (a load's latency, not the
+    // copies', would otherwise pace the ring).
+    float tab_r = 0.f, flag_r = 0.f;
+    auto fetch = [&](int it) {
+      const int k0 = it * BK;
+      if (tab != nullptr && tid < BQ + BK - 1)
+        tab_r = tc::LOG2E * tc::tab_entry(tab, q0, k0, BK, tid, n, heads, h);
+      if (tid < BK) flag_r = tc::key_flag(kmask, b, m, k0 + tid);
+    };
+    auto issue = [&](int it) {
+      const int s = it % ST, k0 = it * BK;
+      const float tab_it = tab_r, flag_it = flag_r;
+      if (it + 1 < ntiles) fetch(it + 1);
+      wg::mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
+      if (tid == 0) {
+        if constexpr (L::F32) wg::mbar_arrive_tx(&loaded[s], 2 * L::TILE);
+        else wg::mbar_expect_tx(&full[s], 2 * L::TILE);
+        uint64_t* bar = L::F32 ? &loaded[s] : &full[s];
+        wg::load_tile(Ks(s), &kmap, bar, k0, kvp);
+        wg::load_tile(Vs(s), &vmap, bar, k0, kvp);
+      }
+      if (tab != nullptr && tid < BQ + BK - 1) Bs(s)[tid] = tab_it;
+      if (tid < BK) {
+        Fs(s)[tid] = flag_it;
+        const unsigned any = __ballot_sync(0xffffffffu, flag_it != 0.f);
+        if (tid % 32 == 0) As(s)[tid / 32] = any != 0u;
+      }
+      if constexpr (!L::F32) wg::mbar_arrive(&full[s]);
+    };
+    // float32: tile it's copies landed; split them, then hand the stage over
+    auto finish = [&](int it) {
+      const int s = it % ST;
+      wg::mbar_wait(&loaded[s], (it / ST) & 1);
+      wg::split_tile(reinterpret_cast<float*>(Ks(s)), reinterpret_cast<float*>(Kl(s)), tid, 128);
+      wg::split_tile(reinterpret_cast<float*>(Vs(s)), reinterpret_cast<float*>(Vl(s)), tid, 128);
+      wg::fence_proxy_async();
+      wg::mbar_arrive(&full[s]);
+    };
+    fetch(0);
+    if (ntiles > 0) issue(0);
+    wg::mbar_wait(qload, 0);
+    if constexpr (L::F32) {
+      wg::split_tile(reinterpret_cast<float*>(Qs), reinterpret_cast<float*>(Ql), tid, 128);
+      wg::split_tile(reinterpret_cast<float*>(Gs), reinterpret_cast<float*>(Gl), tid, 128);
+      wg::fence_proxy_async();
+    }
+    // K5 of tile it (the producer's, so the consumer never waits on the
+    // other ranks but to reuse a buffer): once every rank's dS is in, this
+    // rank's share of its rows summed over the ranks in rank order; then
+    // every rank told. Tile it - ST's, after tile it is issued: this
+    // block's consumer is done with it by then.
+    auto batch_sum = [&](int it) {
+      wg::mbar_wait<true>(&dsready[it & 1], (it / 2) & 1);
+      batch_sum_rows(cluster, dsb(it), out, q0, it * BK, n, m, atomic, tid);
+      tc::bar_sync(2, 128);
+      if (tid < csize) wg::mbar_arrive_remote(&dsfree[it & 1], tid);
+    };
+    wg::mbar_arrive(qfull);
+    for (int it = 1; it < ntiles; ++it) {
+      issue(it);
+      if constexpr (L::F32) finish(it - 1);
+      if constexpr (SUM)
+        if (it >= ST) batch_sum(it - ST);
+    }
+    if constexpr (L::F32)
+      if (ntiles > 0) finish(ntiles - 1);
+    if constexpr (SUM) {
+      for (int it = max(0, ntiles - ST); it < ntiles; ++it) batch_sum(it);
+      // no block leaves while the cluster still reads its dS: each buffer's
+      // last use freed by every rank
+      wg::mbar_wait<true>(&dsfree[(ntiles - 1) & 1], ((ntiles - 1) / 2) & 1);
+      if (ntiles >= 2) wg::mbar_wait<true>(&dsfree[ntiles & 1], ((ntiles - 2) / 2) & 1);
+      // the keys past the causal diagonal have dS = 0; no block visits them
+      if (!atomic && kv_end < m) {
+        const int rank = (int)cluster.block_rank();
+        const int r_hi = min((rank + 1) * BQ / csize, n - q0);
+        for (int r = rank * BQ / csize; r < r_hi; ++r) {
+          float* o = out + (size_t)(q0 + r) * m;
+          for (int c = kv_end + tid; c < m; c += 128) o[c] = 0.f;
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- the consumer ----
+  if constexpr (!L::F32) wg::setmaxnreg_inc<L::CONSUMER_REGS>();
+  const int ctid = tid - 128, warp = ctid / 32, lane = ctid % 32, gq = lane / 4, t = lane % 4;
+  const int rl[2] = {warp * 16 + gq, warp * 16 + gq + 8};  // this thread's rows in the tile
+  const float* biash = bias != nullptr ? bias + (size_t)h * n * m : nullptr;
+  // this thread's rows of the (H, N, M) bias (rows past n: none)
+  const float* brow[2] = {biash != nullptr && q0 + rl[0] < n ? biash + (size_t)(q0 + rl[0]) * m
+                                                             : nullptr,
+                          biash != nullptr && q0 + rl[1] < n ? biash + (size_t)(q0 + rl[1]) * m
+                                                             : nullptr};
+  // log2(e) lse (+inf where p = 0: padded or fully masked rows) and Delta
   float lse_r[2], dl_r[2];
 #pragma unroll
   for (int ri = 0; ri < 2; ++ri) {
     const int qp = q0 + rl[ri];
     const float l = qp < n ? lse[bh * n + qp] : INFINITY;
-    lse_r[ri] = l > 0.5f * NEG ? l : INFINITY;
+    lse_r[ri] = l > 0.5f * NEG ? tc::LOG2E * l : INFINITY;
     dl_r[ri] = qp < n ? delta[bh * n + qp] : 0.f;
   }
-  if (dpart != nullptr)
-    for (int i = tid; i < BQ * SKP + 2 * 4 * DSL; i += NT) dense[i] = 0.f;
-  tc::cp_async_wait_all();
-  __syncthreads();
-  typename tc::AFixed<T, D>::type qa, ga;
-  if constexpr (sizeof(T) == 4) {
-    // a strip's pairs, split by its first warp, read by both after the barrier
-    uint4* fixed = reinterpret_cast<uint4*>(smem + 2 * S::stage);
-    qa.s = fixed + strip * (tc::AFixed<T, D>::bytes / sizeof(uint4));
-    ga.s = qa.s + (BQ / 16) * (tc::AFixed<T, D>::bytes / sizeof(uint4));
-    if (kh == 0) {
-      qa.load(Ks(1) + strip * 16 * P, P);
-      ga.load(Vs(1) + strip * 16 * P, P);
-    }
-  } else {
-    qa.load(Ks(1) + strip * 16 * P, P);
-    ga.load(Vs(1) + strip * 16 * P, P);
+  // K4: a strip's dS, skewed so that a diagonal is a column. Element (r, c)
+  // of the strip's 16 rows lies on the diagonal of (r - 8, c - 8), and a
+  // thread holds both (rows gq and gq + 8), so it adds them first: their
+  // sum goes to row gq of the strip's 8 rows, column c - gq + 15. The cells
+  // off the band are zeros, written once.
+  float* sk = extra + warp * 8 * SKP;
+  // K4's delta slots of tile it: dsl(it)[strip * DSL + a - k0] holds the
+  // strip's sum of the delta q0 + BQ - 1 - a (a: the block's local index)
+  auto dsl = [&](int it) { return extra + BQ * SKP + (it & 1) * 4 * DSL; };
+  const int nkt = (m + BK - 1) / BK;
+  float* prow = dpart != nullptr
+                    ? dpart + (bh * gridDim.z + q0 / BQ) * (size_t)(BK * (nkt + 1)) : nullptr;
+  int a_cur = -1;  // the local delta this thread sums now (thread i owns a = i mod DSL)
+  float a_sum = 0.f;
+  if (dpart != nullptr) {
+    for (int i = ctid; i < BQ * SKP + 2 * 4 * DSL; i += 128) extra[i] = 0.f;
+    tc::bar_sync(1, 128);
   }
-  __syncthreads();  // stage 1 is free for tile 1
-
-  // K5 (SUM, with dbias): with several clusters per tile (B > 8) their
-  // partial sums meet by atomics
-  constexpr bool batch_sum = SUM;
-  const bool atomic = batch_sum && csize < (int)gridDim.x;
-  float* out = batch_sum ? dbias + (size_t)h * n * m : nullptr;  // dbias[h]
-  float dqa[D / 8][4];
-  tc::zero(dqa);
+  const float sl = scale * tc::LOG2E;
+  float dqa[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dqa[i] = 0.f;
+  wg::mbar_wait(qfull, 0);
 
   for (int it = 0; it < ntiles; ++it) {
-    const int s = it & 1, k0 = it * BK;
-    const bool next = it + 1 < ntiles;
-    // with K5 the bias block's buffer last held tile it - 3's dS, which the
-    // cluster read before the barrier of tile it - 2 (waited for at tile it - 1)
-    if (next) issue(it + 1);
-
-    float sc[KW / 8][4], ds[KW / 8][4];  // S, then dP and dS: rows queries, columns keys
-    tc::zero(sc);
-    tc::zero(ds);
-    tc::gemm_nk<T, D, KW / 8>(sc, qa, Ks(s) + kc0 * P, P);
-    tc::gemm_nk<T, D, KW / 8>(ds, ga, Vs(s) + kc0 * P, P);
-    if (batch_sum && it > 0) {
-      // K5 of the last tile: every block's dS is in (and the cluster is done
-      // with the tile before), so its sum runs in rank order
-      tc::cluster_wait();
-      batch_sum_rows<NT>(cluster, Tb(it - 1), out, q0, k0 - BK, n, m, atomic);
+    const int s = it % ST, k0 = it * BK;
+    wg::mbar_wait(&full[s], (it / ST) & 1);
+    float sc[32], ds[32];  // S, then dP and dS: rows queries, columns keys
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = ds[i] = 0.f;
+    wg::fence_acc(sc);
+    wg::fence_acc(ds);
+    wg::wgmma_fence();
+    wg::gemm_nk<T>(sc, Qs, Ql, Ks(s), Kl(s));
+    wg::gemm_nk<T>(ds, Gs, Gl, Vs(s), Vl(s));
+    // The (H, N, M) bias: this thread's 32 elements straight from device
+    // memory, loaded while the products run (see flash_fwd.cu for why not
+    // by TMA or through shared memory); rows past n and keys past m: none.
+    float bv[32];
+    if (biash != nullptr) {
+      const bool whole = k0 + BK <= m;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const float* row = brow[(i / 2) & 1];
+        const int kc = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+        bv[i] = row != nullptr && (whole || kc < m) ? __ldg(row + kc) : 0.f;
+      }
     }
+    wg::wgmma_wait<0>();
+    wg::fence_acc(sc);
+    wg::fence_acc(ds);
 
+    // p = 2^(y - log2(e) lse) with y = log2(e) (scale q.k + bias) (the table
+    // pre-scaled by the producer), by the masking rule of mma.cuh
+    // (tc::score): a key's flag added (y + NEG rounds to NEG) only on tiles
+    // with a flagged key, NEG above the diagonal unless the flag is -inf,
+    // tested only on tiles that reach above this warp's rows; then dS = P
+    // (dP - Delta)
     const float* bs = Bs(s);
     const float* fs = Fs(s);
-    const float* ts = Tb(it);
-    // keys above the diagonal meet this warp's rows only near the diagonal
-    const bool diag = causal && tc::above(k0 + kc0 + KW - 1, q0 + strip * 16, off);
+    const bool diag = causal && tc::above(k0 + BK - 1, q0 + warp * 16, off);
+    const bool flagged = As(s)[0] || As(s)[1];
 #pragma unroll
-    for (int j = 0; j < KW / 8; ++j) {
-      const int c = kc0 + 8 * j + 2 * t;
-      const float2 f = *reinterpret_cast<const float2*>(fs + c);
+    for (int j = 0; j < BK / 8; ++j) {
+      const int cc = 8 * j + 2 * t;
+      const float2 f = flagged || diag ? *reinterpret_cast<const float2*>(fs + cc)
+                                       : make_float2(0.f, 0.f);
 #pragma unroll
       for (int ri = 0; ri < 2; ++ri) {
         float2 bb = make_float2(0.f, 0.f);
-        if (tab != nullptr) bb = make_float2(bs[rl[ri] - c + BK - 1], bs[rl[ri] - c + BK - 2]);
-        else if (biash != nullptr) bb = *reinterpret_cast<const float2*>(ts + rl[ri] * TPD + c);
-        const int qp = q0 + rl[ri];
-        const float x0 = tc::score(fmaf(sc[j][2 * ri], scale, bb.x), f.x,
-                                   diag && tc::above(k0 + c, qp, off));
-        const float x1 = tc::score(fmaf(sc[j][2 * ri + 1], scale, bb.y), f.y,
-                                   diag && tc::above(k0 + c + 1, qp, off));
-        ds[j][2 * ri] = tc::exp_rel(x0, lse_r[ri]) * (ds[j][2 * ri] - dl_r[ri]);
-        ds[j][2 * ri + 1] = tc::exp_rel(x1, lse_r[ri]) * (ds[j][2 * ri + 1] - dl_r[ri]);
+        if (tab != nullptr) {
+          bb = make_float2(bs[rl[ri] - cc + BK - 1], bs[rl[ri] - cc + BK - 2]);
+        } else if (biash != nullptr) {
+          bb = make_float2(tc::LOG2E * bv[4 * j + 2 * ri], tc::LOG2E * bv[4 * j + 2 * ri + 1]);
+        }
+        float y0 = fmaf(sc[4 * j + 2 * ri], sl, bb.x), y1 = fmaf(sc[4 * j + 2 * ri + 1], sl, bb.y);
+        if (diag) {
+          const int qp = q0 + rl[ri];
+          y0 = tc::above(k0 + cc, qp, off) ? fminf(NEG, f.x) : y0 + f.x;
+          y1 = tc::above(k0 + cc + 1, qp, off) ? fminf(NEG, f.y) : y1 + f.y;
+        } else if (flagged) {
+          y0 += f.x;
+          y1 += f.y;
+        }
+        const int e = 4 * j + 2 * ri;
+        ds[e] = tc::ex2(y0 - lse_r[ri]) * (ds[e] - dl_r[ri]);
+        ds[e + 1] = tc::ex2(y1 - lse_r[ri]) * (ds[e + 1] - dl_r[ri]);
       }
     }
     if (dpart != nullptr) {
       // K4: the strip's diagonals, a lane per column of its skewed rows:
       // column x holds delta q0 - k0 + 16 strip + 15 - x, local index a =
-      // k0 + 48 - 16 strip + x. Barriers: the strip's warps only.
-      float* row = sk + (kh * 8 + gq) * SKP + kc0 + 2 * t - gq + 15;
+      // k0 + 48 - 16 strip + x
+      float* row = sk + gq * SKP + 2 * t - gq + 15;
 #pragma unroll
-      for (int j = -1; j < KW / 8; ++j)
+      for (int j = -1; j < BK / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e)
-          row[8 * j + e] = (j >= 0 ? ds[j][e] : 0.f) + (j + 1 < KW / 8 ? ds[j + 1][2 + e] : 0.f);
-      strip_sync<WN>(strip);
-      for (int x = tid % 32 + 32 * kh; x < BK + 15; x += 32 * WN) {
+          row[8 * j + e] = (j >= 0 ? ds[4 * j + e] : 0.f) + (j + 1 < BK / 8 ? ds[4 * j + 6 + e] : 0.f);
+      __syncwarp();
+      for (int x = lane; x < BK + 15; x += 32) {
         float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-        for (int r = 0; r < 8 * WN; r += 2) {
+        for (int r = 0; r < 8; r += 2) {
           sum0 += sk[r * SKP + x];
           sum1 += sk[(r + 1) * SKP + x];
         }
-        dsl(it)[strip * DSL + 48 - 16 * strip + x] = sum0 + sum1;
+        dsl(it)[warp * DSL + 48 - 16 * warp + x] = sum0 + sum1;
       }
     }
-    if (batch_sum) {
-      // K5: dS over the bias block just read (each thread's own elements),
-      // for the cluster to sum at the next tile
-      tc::store_acc(Tb(it) + strip * 16 * TPD + kc0, TPD, ds);
-      tc::cluster_arrive();
+    if constexpr (SUM) {
+      // K5: dS into buffer it % 2 once every rank has summed tile it - 2
+      // from it, then every rank told
+      if (it >= 2) wg::mbar_wait<true>(&dsfree[it & 1], ((it / 2) - 1) & 1);
+      float* dst = dsb(it);
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int ri = 0; ri < 2; ++ri)
+          tc::store2(dst + ds_at(rl[ri], 8 * j + 2 * t), ds[4 * j + 2 * ri], ds[4 * j + 2 * ri + 1]);
+      tc::bar_sync(1, 128);
+      if (ctid < csize) wg::mbar_arrive_remote(&dsready[it & 1], ctid);
     }
-    const float one[2] = {1.f, 1.f};
-    tc::add_tile<T, D, KW / 8>(dqa, ds, Ks(s) + kc0 * P, P, one);  // dq += dS K
-
-    if (next) {
-      stash(it + 1);
-      tc::cp_async_wait_all();
+    // dq += dS K: in bf16 a wgmma with dS from the accumulators and K's tile
+    // as a transposed B; in float32 on mma.sync from K's split tiles, from
+    // zero, added in float32 (tc::add_tile's reason)
+    if constexpr (L::F32) {
+      float part[8][4];
+      wg::gemm_pk_split(part, ds, reinterpret_cast<const float*>(Ks(s)),
+                        reinterpret_cast<const float*>(Kl(s)));
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dqa[4 * j + e] += part[j][e];
+    } else {
+      wg::fence_acc(dqa);
+      wg::wgmma_fence();
+      uint32_t pa[4][4];
+      wg::gemm_pk(dqa, ds, pa, reinterpret_cast<const __nv_bfloat16*>(Ks(s)));
+      wg::wgmma_wait<0>();
+      wg::fence_acc(dqa);
     }
-    __syncthreads();  // this stage is consumed and the next one has landed
-    if (dpart != nullptr && tid < DSL) {
+    if (dpart != nullptr) {
+      tc::bar_sync(1, 128);  // every strip's slots of this tile are in
       // K4: the tile's four strips, in order, onto the delta this thread
       // owns in it; a delta the key tiles have passed is written once
-      const int a = k0 + ((tid - k0) & (DSL - 1));
+      const int a = k0 + ((ctid - k0) & (DSL - 1));
       if (a != a_cur) {
         if (a_cur >= 0) prow[a_cur] = a_sum;
         a_cur = a;
@@ -458,45 +628,18 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       const float* d = dsl(it) + (a - k0);
       a_sum += ((d[0] + d[DSL]) + d[2 * DSL]) + d[3 * DSL];
     }
+    wg::mbar_arrive(&empty[s]);
   }
-  if (dpart != nullptr && tid < DSL && a_cur >= 0) prow[a_cur] = a_sum;
-  if (batch_sum && ntiles > 0) {
-    // K5 of the last tile; no block leaves while the cluster still reads its dS
-    tc::cluster_wait();
-    batch_sum_rows<NT>(cluster, Tb(ntiles - 1), out, q0, (ntiles - 1) * BK, n, m, atomic);
-    tc::cluster_arrive_relaxed();
-    tc::cluster_wait();
-  }
+  if (dpart != nullptr && a_cur >= 0) prow[a_cur] = a_sum;
 
-  if constexpr (WN == 2) {
-    // the second warp's partial dq (its half of the keys) onto the first's,
-    // in that order, through stage 0
-    float* part = reinterpret_cast<float*>(Ks(0)) + strip * 16 * TPD;
-    if (kh == 1) tc::store_acc(part, TPD, dqa);
-    __syncthreads();
-    if (kh == 1) return;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        dqa[j][e] += part[(gq + 8 * (e >> 1)) * TPD + 8 * j + 2 * t + (e & 1)];
-  }
 #pragma unroll
   for (int ri = 0; ri < 2; ++ri) {
     const int qp = q0 + rl[ri];
     if (qp >= n) continue;
-    T* o = dq + (bh * n + qp) * D;
+    T* o = dq + (bh * n + qp) * 64;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      tc::store2(o + 8 * j + 2 * t, dqa[j][2 * ri] * scale, dqa[j][2 * ri + 1] * scale);
-  }
-  // K5: the keys past the causal diagonal have dS = 0; no block visits them
-  if (batch_sum && !atomic && kv_end < m) {
-    const int r_lo = rank * BQ / csize, r_hi = (rank + 1) * BQ / csize, cols = m - kv_end;
-    for (int i = tid; i < (r_hi - r_lo) * cols; i += NT / WN) {
-      const int r = r_lo + i / cols;
-      if (q0 + r < n) out[(size_t)(q0 + r) * m + kv_end + i % cols] = 0.f;
-    }
+    for (int j = 0; j < 8; ++j)
+      tc::store2(o + 8 * j + 2 * t, dqa[4 * j + 2 * ri] * scale, dqa[4 * j + 2 * ri + 1] * scale);
   }
 }
 
@@ -504,8 +647,6 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 // producer warpgroup and consumers (see the note at the top). The blocks
 // of one (b*hk, key tile, query chunk) form a thread-block cluster over the
 // kv head's query heads.
-constexpr int PLAN_SMS = 132;  // the H100's SMs, which the launch plan fills
-
 // Shared memory (offsets from a 1024-byte aligned base): K and V, each an
 // operand tile (with its small parts in float32), fixed for the block; the
 // ring's stages of (Q, dO); per stage lse [64], Delta [64] and the table
@@ -888,32 +1029,51 @@ int cluster_size(int x) {
   return c;
 }
 
+// K2's launch plan, as ops/kernels/flash_attention.py::dq_plan gives it:
+// the cluster (K5's: the largest divisor of the batch up to MAX_CLUSTER,
+// else 1) and the ring's stages
+struct DqPlan {
+  int cluster, stages;
+};
+
+DqPlan dq_plan(bool f32, int b, bool sum) {
+  return {sum ? cluster_size(b) : 1, f32 ? Dq<float, false>::ST : Dq<__nv_bfloat16, false>::ST};
+}
+
 // K2; o2 the gradient of the bias given, dtab (K4, then its second pass,
 // with its partial sums in part) or dbias (K5), or null
-template <typename T, int D>
+template <typename T, bool SUM>
 cudaError_t launch_dq(const Args& a, void* dq, void* o2, void* part) {
-  using S = DqSmem<T, D>;
-  const bool dense = a.bias != nullptr, sum = dense && o2 != nullptr;
-  auto kernel = sum ? flash_bwd_dq_kernel<T, D, true> : flash_bwd_dq_kernel<T, D, false>;
-  cudaError_t err = set_smem(kernel, S::base + 4 * S::ftile);
+  using L = Dq<T, SUM>;
+  const bool dtab = a.bias == nullptr && o2 != nullptr;
+  CUtensorMap qm, km, vm, gm;
+  cudaError_t err = wg::tile_map(&qm, a.q, sizeof(T), a.n, a.b * a.heads);
+  if (err == cudaSuccess) err = wg::tile_map(&gm, a.g, sizeof(T), a.n, a.b * a.heads);
+  if (err == cudaSuccess) err = wg::tile_map(&km, a.k, sizeof(T), a.m, a.b * a.hk);
+  if (err == cudaSuccess) err = wg::tile_map(&vm, a.v, sizeof(T), a.m, a.b * a.hk);
+  auto kernel = flash_bwd_dq_kernel<T, SUM>;
+  static unsigned sized = 0;  // the devices whose attribute is set, once per instantiation
+  int dev = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && (dev >= 32 || !(sized >> dev & 1))) {
+    err = set_smem(kernel, L::most);
+    if (err == cudaSuccess) sized |= 1u << dev;
+  }
   if (err != cudaSuccess) return err;
-  // K5's cluster: the batch rows of one (head, query tile), at most MAX_CLUSTER
-  cudaLaunchAttribute attr[1] = {cluster_attr(sum ? cluster_size(a.b) : 1)};
+  const DqPlan plan = dq_plan(L::F32, a.b, SUM);
+  cudaLaunchAttribute attr[1] = {cluster_attr(plan.cluster)};
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(a.b, a.heads, (a.n + BQ - 1) / BQ);
-  cfg.blockDim = dim3(K2Warps<T>::threads);
-  cfg.dynamicSmemBytes = S::base + (sum ? 4 * S::ftile : dense ? 2 * S::ftile
-                                    : o2 != nullptr ? S::skew : 0);
+  cfg.blockDim = dim3(L::NT);
+  cfg.dynamicSmemBytes = L::EXTRA + (SUM ? L::K5_BYTES : dtab ? L::K4_BYTES : 0);
   cfg.stream = a.stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const bool dtab = !dense && o2 != nullptr;
   err = cudaLaunchKernelEx(
-      &cfg, kernel, static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.g), static_cast<const float*>(a.lse),
+      &cfg, kernel, qm, km, vm, gm, static_cast<const float*>(a.lse),
       static_cast<const float*>(a.delta), static_cast<const float*>(a.tab),
       static_cast<const float*>(a.bias), static_cast<const int8_t*>(a.kmask), static_cast<T*>(dq),
-      static_cast<float*>(dtab ? part : nullptr), static_cast<float*>(dense ? o2 : nullptr),
+      static_cast<float*>(dtab ? part : nullptr), static_cast<float*>(SUM ? o2 : nullptr),
       a.heads, a.heads / a.hk, a.n, a.m, a.scale, a.causal);
   if (err != cudaSuccess || !dtab) return err;
   const dim3 grid((2 * a.n - 1 + NT_DTAB - 1) / NT_DTAB, a.heads);
@@ -1017,7 +1177,8 @@ cudaError_t dispatch(int which, int d, const Args& a, void* o1, void* o2, void* 
   }
   if (o2 != nullptr && (a.tab == nullptr ? a.bias == nullptr : a.n != a.m || part == nullptr))
     return cudaErrorInvalidValue;
-  return launch_dq<T, 64>(a, o1, o2, part);
+  return a.bias != nullptr && o2 != nullptr ? launch_dq<T, true>(a, o1, o2, part)
+                                            : launch_dq<T, false>(a, o1, o2, part);
 }
 
 int run(int which, const void* q, const void* k, const void* v, const void* g,
@@ -1062,6 +1223,20 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
                              int dtype, void* stream) {
   return run(1, q, k, v, g, lse, delta, tab, bias, kmask, dk, dv, nullptr, b, heads, hk, n, m,
              d, scale, causal, dtype, stream);
+}
+
+// K2's launch plan for these sizes, dtype (0 float32, 1 bfloat16) and form
+// (1 with K5's sum, the (H, N, M) bias's gradient; 0 otherwise): out[0] the
+// cluster, out[1] the ring's stages (ops/kernels/flash_attention.py::dq_plan
+// mirrors it)
+extern "C" int flash_dq_plan(int b, int heads, int hk, int n, int m, int dtype, int sum,
+                             int* out) {
+  if (hk <= 0 || heads % hk || b <= 0 || n <= 0 || m <= 0 || (dtype != 0 && dtype != 1))
+    return cudaErrorInvalidValue;
+  const DqPlan plan = dq_plan(dtype == 0, b, sum != 0);
+  out[0] = plan.cluster;
+  out[1] = plan.stages;
+  return cudaSuccess;
 }
 
 // K3's launch plan for these sizes and dtype (0 float32, 1 bfloat16): out[0]

@@ -1,9 +1,10 @@
 // Hopper's warpgroup building blocks (sm_90a), shared by the flash-attention
-// forward (flash_fwd.cu, K1) and its dk/dv kernel (flash_bwd.cu, K3):
-// mbarriers, TMA tile loads, warpgroup matrix products (wgmma) from
-// swizzled shared memory, and register hand-over between warpgroups
-// (setmaxnreg). Written in inline PTX, like mma.cuh, whose masking rule,
-// tf32 rounding and mma.sync product these kernels keep using.
+// forward (flash_fwd.cu, K1), its dq and dk/dv kernels (flash_bwd.cu, K2 and
+// K3) and the nearest-code search (vq.cu, K6): mbarriers (within a block and
+// across a thread-block cluster), TMA tile loads, warpgroup matrix products
+// (wgmma) from swizzled shared memory, and register hand-over between
+// warpgroups (setmaxnreg). Written in inline PTX, like mma.cuh, whose
+// masking rule, tf32 rounding and mma.sync product these kernels keep using.
 //
 // Tiles. Every operand tile is 64 rows of 128 bytes laid out as TMA's
 // 128-byte swizzle writes it: the 16-byte chunk c of row r sits at chunk
@@ -11,8 +12,9 @@
 // 1024-byte aligned, as the swizzle is taken on address bits). A bf16 tile
 // of 64 values a row is one such tile; a float32 tile of 64 values a row
 // is two, columns 0-31 and then 32-63 (TMA loads it as two 32-column
-// boxes). A wgmma descriptor names such a tile with the 128-byte swizzle
-// mode and a stride of 1024 bytes between 8-row blocks.
+// boxes); K6 streams float32 rows 32 columns (one such tile) at a time. A
+// wgmma descriptor names such a tile with the 128-byte swizzle mode and a
+// stride of 1024 bytes between 8-row blocks.
 //
 // Float32 is 3xTF32, as in mma.cuh: an operand x is split into big =
 // tf32(x) and small = tf32(x - big), by tc::to_tf32's integer rounding,
@@ -20,8 +22,8 @@
 // second tile), and a*b is a_big*b_small + a_small*b_big + a_big*b_big.
 // Built with -DMMA_TF32_ONE_PASS (tests only) only a_big*b_big is kept.
 // wgmma takes tf32 operands K-major only, so a float32 product whose B
-// operand lies with its N index contiguous (P V, P^T dO, dS^T Q) runs on
-// mma.sync instead, reading the B fragments from the split tiles
+// operand lies with its N index contiguous (P V, P^T dO, dS^T Q, dS K) runs
+// on mma.sync instead, reading the B fragments from the split tiles
 // (gemm_pk_split): registers for a transposed second copy of those tiles
 // would not fit beside the ring of stages (see flash_fwd.cu and
 // flash_bwd.cu for the budgets).
@@ -71,22 +73,55 @@ __device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
 }
 
 // waits until the phase of the given parity has completed (a fresh barrier
-// is in phase 0, so waiting for parity 1 returns at once). A wait that has
-// not completed after ~2^35 cycles (~20 s) traps: a fault in the ring's
-// protocol then ends the launch with an error instead of hanging the card.
+// is in phase 0, so waiting for parity 1 returns at once); at cluster scope
+// (CLUSTER) the phase's arrivals may come from other blocks of the cluster
+// (mbar_arrive_remote), and their shared-memory stores before them are
+// visible after it. A wait that has not completed after ~2^35 cycles (~20 s)
+// traps: a fault in a protocol of barriers then ends the launch with an
+// error instead of hanging the card.
+template <bool CLUSTER = false>
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = tc::smem_u32(bar);
   uint32_t done;
   long long start = 0;
   for (;;) {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if constexpr (CLUSTER)
+      asm volatile(
+          "{\n .reg .pred p;\n"
+          " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+          " selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    else
+      asm volatile(
+          "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          " selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done) : "r"(addr), "r"(parity) : "memory");
     if (done) return;
     if (start == 0) start = clock64();
     else if (clock64() - start > (1ll << 35)) __trap();
   }
+}
+
+// one arrival on the barrier at `bar`'s offset in the shared memory of
+// block `rank` of the cluster, releasing this thread's earlier stores (and,
+// after a barrier of this block, its other threads') at cluster scope
+__device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar, uint32_t rank) {
+  asm volatile(
+      "{\n .reg .b32 ra;\n mapa.shared::cluster.u32 ra, %0, %1;\n"
+      " mbarrier.arrive.release.cluster.shared::cluster.b64 _, [ra];\n}\n"
+      :: "r"(tc::smem_u32(bar)), "r"(rank) : "memory");
+}
+
+// a box of a 2-D tensor map at coordinates (c0 innermost, c1) into shared
+// memory, reported to `bar` as bytes arrive (zeros outside the tensor)
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(tc::smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(tc::smem_u32(bar)),
+         "r"(c0), "r"(c1)
+      : "memory");
 }
 
 // a box of a 3-D tensor map at coordinates (c0 innermost, c1, c2) into
@@ -233,6 +268,25 @@ inline cudaError_t tile_map(CUtensorMap* map, const void* base, int elem_bytes, 
                             3, const_cast<void*>(base), dims, strides, box, estr,
                             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// the map of a (rows, cols) row-major float32 matrix (cols a multiple of 4,
+// the base 16-byte aligned: TMA's rules), read as 32-column x `box_rows`-row
+// boxes of 128 bytes a row, 128-byte swizzled; reads outside the matrix
+// give zeros
+inline cudaError_t matrix_map(CUtensorMap* map, const void* base, int rows, int cols,
+                              int box_rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {4ull * cols};
+  const cuuint32_t box[2] = {32, (cuuint32_t)box_rows};
+  const cuuint32_t estr[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base),
+                            dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

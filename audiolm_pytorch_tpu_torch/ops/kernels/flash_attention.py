@@ -29,8 +29,8 @@ from ._build import built_with, load
 __all__ = ["flash_attention", "flash_attention_ref", "flash_attention_bwd",
            "flash_attention_bwd_ref", "bwd_dq", "bwd_dkv", "built_with", "SOURCE",
            "SOURCE_BWD", "HEAD_DIMS", "launches", "launches_dq", "launches_dkv",
-           "launches_dtab", "launches_dbias", "PLAN_SMS", "fwd_plan", "dkv_plan",
-           "dkv_items", "fwd_plan_built", "dkv_plan_built"]
+           "launches_dtab", "launches_dbias", "PLAN_SMS", "fwd_plan", "dq_plan", "dkv_plan",
+           "dkv_items", "fwd_plan_built", "dq_plan_built", "dkv_plan_built"]
 
 SOURCE = "flash_fwd.cu"
 SOURCE_BWD = "flash_bwd.cu"
@@ -50,10 +50,10 @@ _MAX_CLUSTER = 8
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
-# The launch plans of K1 and K3, as their C launchers compute them from the
-# sizes (csrc/flash_fwd.cu `launch`, csrc/flash_bwd.cu `dkv_plan`): pure
-# functions, so the CPU tests can check what the card runs.
-PLAN_SMS = 132  # the H100's SMs, which K3's plan fills
+# The launch plans of K1, K2 and K3, as their C launchers compute them from
+# the sizes (csrc/flash_fwd.cu `launch`, csrc/flash_bwd.cu `dq_plan` and
+# `dkv_plan`): pure functions, so the CPU tests can check what the card runs.
+PLAN_SMS = 132  # the H100's SMs, which the plans fill
 _TILE = 64      # query rows and keys per tile of both kernels
 _MAX_DKV_CLUSTER = 8
 
@@ -77,6 +77,26 @@ def fwd_plan(b, h, n, m, causal, dtype=torch.float32):
         keys = list(range(_tiles(kv_end)))
         tiles[i] = (keys[0::2], keys[1::2]) if two else (keys, [])
     return {"grid": grid, "consumers": 2 if two else 1, "tiles": tiles}
+
+
+def dq_plan(b, h, hk, n, m, causal, dtype=torch.float32, dbias=False):
+    """K2's launch: grid (b, h, query tiles), the last query tile first;
+    each block a producer warpgroup and one consumer warpgroup that takes
+    its query tile's key tiles up to the diagonal in order through a ring
+    of `stages` (two in float32, three in bf16); with the (H, N, M) bias's
+    gradient (K5, `dbias`) the blocks of one (head, query tile) form a
+    cluster of the largest divisor of b up to 8, which sums their dS tiles
+    in rank order (by atomics between clusters, b > 8 without such a
+    divisor, only where b / cluster > 1), else clusters of one; and for
+    each query tile (by its index) the key tiles, in order."""
+    cluster = max(c for c in range(1, _MAX_CLUSTER + 1) if b % c == 0) if dbias else 1
+    tiles = {}
+    for i in range(_tiles(n)):
+        kv_end = min(m, i * _TILE + _TILE + m - n) if causal else m
+        tiles[i] = list(range(_tiles(kv_end)))
+    return {"grid": (b, h, _tiles(n)), "cluster": cluster,
+            "stages": 2 if dtype == torch.float32 else 3, "atomic": dbias and cluster < b,
+            "tiles": tiles}
 
 
 def dkv_plan(b, h, hk, n, m, dtype=torch.float32):
@@ -392,6 +412,15 @@ def fwd_plan_built(b, h, n, m, dtype):
     if two < 0:
         raise ValueError(f"no K1 plan for dtype {dtype}")
     return 2 if two else 1
+
+
+def dq_plan_built(b, h, hk, n, m, dtype, dbias=False):
+    """K2's plan as the built library computes it: (cluster, stages)."""
+    out = (ctypes.c_int * 2)()
+    fn = _fn(SOURCE_BWD, "flash_dq_plan", [_I] * 7 + [_P])
+    if fn(b, h, hk, n, m, _DTYPES[dtype], int(dbias), out) != 0:
+        raise ValueError(f"no K2 plan for b={b} h={h} hk={hk} n={n} m={m} {dtype}")
+    return tuple(out)
 
 
 def dkv_plan_built(b, h, hk, n, m, dtype):

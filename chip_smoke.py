@@ -25,16 +25,18 @@ Phases, each printing its name and seconds:
                    the aligned N = 2048.
      sass        - tensor-core (HMMA, HGMMA), TMA (UTMALDG) and FFMA
                    instructions of each kernel in the built SASS
-                   (cuobjdump); K2 and K7 must issue HMMA in float32 and
-                   bf16, K6 in float32; K1 and K3 (warp-specialised on
-                   wgmma and TMA) HGMMA and UTMALDG in both.
-     flash device times - K1's and K3's device time per call beside their
-                   event time, and SDPA's forward and backward device times,
-                   at every shape the kernels, stage-trainer and conditioned
-                   phases use, in a process of its own
+                   (cuobjdump); K7 must issue HMMA in float32 and bf16; K1,
+                   K2 and K3 (warp-specialised on wgmma and TMA) HGMMA and
+                   UTMALDG in both, K6 in float32.
+     flash device times - K1's, K2's (alone, with K4 and with K5) and K3's
+                   device time per call beside their event time, and SDPA's
+                   forward and backward device times, at every shape the
+                   kernels, stage-trainer and conditioned phases use, and
+                   K6's at 1-1300 rows of 512 and 1200 of 128 beside addmm +
+                   argmin's, in a process of its own
                    (tools/torch_flash_parent_ab.py); with --parent DIR (a
                    checkout of the parent commit, e.g. unpacked by git
-                   archive) that checkout's K1 and K3 timed in turns beside
+                   archive) that checkout's K1-K6 timed in turns beside
                    this one's.
      tf32        - K1's output, K2's dq (and with the bias its dbias) and
                    K3's dk, dv in float32 (3xTF32) within 1e-5 of a float64
@@ -825,13 +827,31 @@ K3_PLAN_SHAPES = ((4, 8, 1, 2049, 2049), (4, 8, 1, 2048, 2048), (4, 8, 8, 603, 6
                   (4, 8, 1, 1, 17), (2, 4, 1, 2049, 2049))
 
 
+# (rows, codes, dim): the shapes the port's paths give K6
+VQ_PLAN_SHAPES = ((1, 1024, 512), (7, 1024, 512), (192, 1024, 512), (400, 1024, 512),
+                  (600, 1024, 512), (800, 1024, 512), (1300, 1024, 512), (1200, 1024, 128))
+
+
 def check_plans():
-    """K1's and K3's launch plans as the built libraries compute them (K1's
-    consumers a block; K3's cluster, query chunks and consumers) equal the ones
-    ops/kernels/flash_attention.py states, which the CPU tests check for
-    coverage and summation order."""
+    """K1's, K2's, K3's and K6's launch plans as the built libraries compute
+    them (K1's consumers a block; K2's cluster and stages; K3's
+    cluster, query chunks and consumers; K6's cluster and code groups) equal
+    the ones ops/kernels/flash_attention.py and ops/kernels/vq.py state,
+    which the CPU tests check for coverage and summation order."""
+    for n, c, d in VQ_PLAN_SHAPES:
+        want = vq.vq_plan(n, c, d)
+        got = vq.vq_plan_built(n, c, d)
+        if got != (want["ksplit"], want["groups"]):
+            raise AssertionError(f"K6's plan at {(n, c, d)}: the library's {got}, the "
+                                 f"wrapper's {want}")
     for b, h, hk, n, m in K3_PLAN_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
+            for dbias in (False, True):
+                want = fa.dq_plan(b, h, hk, n, m, True, dtype, dbias=dbias)
+                got = fa.dq_plan_built(b, h, hk, n, m, dtype, dbias=dbias)
+                if got != (want["cluster"], want["stages"]):
+                    raise AssertionError(f"K2's plan at {(b, h, hk, n, m)} {dtype} dbias "
+                                         f"{dbias}: the library's {got}, the wrapper's {want}")
             want = fa.fwd_plan(b, h, n, m, True, dtype)["consumers"]
             got = fa.fwd_plan_built(b, h, n, m, dtype)
             if got != want:
@@ -842,8 +862,9 @@ def check_plans():
             if got != (want["cluster"], want["qsplit"], want["consumers"]):
                 raise AssertionError(f"K3's plan at {(b, h, hk, n, m)} {dtype}: the library's "
                                      f"{got}, the wrapper's {want}")
-    print(f"plans: K1's and K3's launch plans as built equal fwd_plan's and dkv_plan's at "
-          f"{len(K3_PLAN_SHAPES)} shapes")
+    print(f"plans: K1's, K2's and K3's launch plans as built equal fwd_plan's, dq_plan's and "
+          f"dkv_plan's at {len(K3_PLAN_SHAPES)} shapes, K6's vq_plan's at "
+          f"{len(VQ_PLAN_SHAPES)}")
 
 
 @phase("kernels")
@@ -910,18 +931,18 @@ def stage_kernels(rng, d, seed):
 def sass_phase():
     """Tensor-core instructions of each kernel in the built libraries' SASS
     (cuobjdump -sass): HMMA (mma.sync), HGMMA (wgmma), UTMALDG (TMA loads)
-    and FFMA. K2 (both instantiations: with K5's sum and without) and K7
-    must issue HMMA in both dtypes, K6 (in float32 only) too; K1 and K3, the
-    Hopper design, HGMMA and UTMALDG in both dtypes and both block shapes
-    (one consumer warpgroup or two; K3's float32 has only two). Returns
-    {"fwd": {dtype: {opcode: n}}, "dq": {...}, ...}."""
+    and FFMA. K7 must issue HMMA in both dtypes; K1, K2 and K3, the Hopper
+    design, HGMMA and UTMALDG in both dtypes and every block shape (K1's and
+    K3's one consumer warpgroup or two, K3's float32 only two; K2 with K5's
+    sum and without), K6 (float32 only) too. Returns {"fwd": {dtype:
+    {opcode: n}}, "dq": {...}, ...}."""
     kernels = (("fwd", "flash_fwd_kernel"), ("dq", "flash_bwd_dq_kernel"),
                ("dkv", "flash_bwd_dkv_kernel"), ("vq", "vq_nearest_kernel"),
                ("local", "local_attn_kernel"))
     want = {"fwd": ["bf16", "bf16, two", "fp32", "fp32, two"],
             "dq": ["bf16", "bf16, sum", "fp32", "fp32, sum"],
             "dkv": ["bf16", "bf16, two", "fp32, two"], "vq": ["fp32"], "local": ["bf16", "fp32"]}
-    need = {"fwd": ("HGMMA", "UTMALDG"), "dkv": ("HGMMA", "UTMALDG")}
+    need = {key: ("HGMMA", "UTMALDG") for key in ("fwd", "dq", "dkv", "vq")}
     result = {key: {} for key, _ in kernels}
     for src in SOURCES:
         for mangled, ops in sorted(_build.sass_counts(src).items(), key=lambda x: x[0]):
@@ -944,16 +965,18 @@ def sass_phase():
 
 @phase("flash device times")
 def flash_device_phase(parent, seed):
-    """K1's and K3's own device time per call (torch.profiler) beside their
-    event time, SDPA's device time for the forward and its backward's (its
-    forward and backward less its forward), at every shape the kernels,
-    stage-trainer and conditioned phases hold K1 and K3 at (and a
-    tensor-parallel rank's), by tools/torch_flash_parent_ab.py in a process
-    of its own: after a few dozen profiler windows in one process
-    torch.profiler was seen to miss later windows' launches, which the K6
-    one-launch gate of the codec kernels phase reads. With --parent DIR the
-    same process times that checkout's K1 and K3 too, in turns (parent,
-    this, this, parent). Returns {shape: {...}}."""
+    """K1's, K2's (alone, with K4 and with K5) and K3's own device time per
+    call (torch.profiler) beside their event time, SDPA's device time for
+    the forward and its backward's (its forward and backward less its
+    forward), at every shape the kernels, stage-trainer and conditioned
+    phases hold them at (and a tensor-parallel rank's), and K6's at the row
+    counts of the port's paths beside addmm + argmin's, by
+    tools/torch_flash_parent_ab.py in a process of its own: after a few
+    dozen profiler windows in one process torch.profiler was seen to miss
+    later windows' launches, which the K6 one-launch gate of the codec
+    kernels phase reads. With --parent DIR the same process times that
+    checkout's K1-K6 too, in turns (parent, this, this, parent). Returns
+    {shape: {...}}."""
     cmd = [sys.executable, str(ROOT / "tools" / "torch_flash_parent_ab.py"), "--json",
            "--seed", str(seed)]
     if parent is not None:
@@ -5185,7 +5208,7 @@ def main():
                         help="the data or tensor parallel group's port")
     parser.add_argument("--parent", type=Path, default=None,
                         help="a checkout of another commit (such as the parent's, unpacked by "
-                             "git archive): its K1 and K3 are timed beside this one's")
+                             "git archive): its K1-K6 are timed beside this one's")
     args = parser.parse_args()
     if args.data_parallel_rank is not None or args.tensor_parallel_rank is not None:
         if not torch.cuda.is_available():

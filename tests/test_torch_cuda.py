@@ -5,13 +5,14 @@ local attention K7) against their plain PyTorch versions; K1, K2 and K3 on
 the tensor cores (over MQA groups of 1 to 16 and K2 over batch sizes 1 to
 9, float32 within 1e-5 of float64 where a plain-TF32 build fails, rows
 whose first key tile or every key is masked, K3's dk, dv and K2's dq and
-dbias the same bits every run, tensor-core instructions in their SASS:
-HMMA in K2, and in K1 and K3 the warpgroup products and TMA loads (HGMMA,
-UTMALDG) of their Hopper design); K6 and K7 on the tensor
-cores (K6 one launch a search, the same bits every run, its plain-TF32
-build caught by the near-tie gate; K7 on strided views, with masked key
-tiles and rows without a key, within 1e-5 of float64 where plain TF32
-fails; HMMA in both); the
+dbias the same bits every run, K5 across clusters at B = 12,
+tensor-core instructions in their SASS: in K1, K2 and K3 the warpgroup
+products and TMA loads (HGMMA, UTMALDG) of their Hopper design); K6 and K7
+on the tensor cores (K6 one launch a search, the same bits every run, its
+plain-TF32 build caught by the near-tie gate, at an unaligned base
+pointer, HGMMA and UTMALDG; K7 on strided views, with masked key tiles and
+rows without a key, within 1e-5 of float64 where plain TF32 fails, HMMA);
+K2's and K6's launch plans as the libraries compute them; the
 Semantic, Coarse and Fine LMs on the card against the same weights on the
 CPU, in scoring and in train steps, and a small codec's round trip on the
 card against the CPU; K1-K5 in bf16 at the stage trainers' shapes (the
@@ -565,13 +566,46 @@ def test_plain_tf32_build_fails_the_k7_float64_check(cuda, t, w, masked):
 
 
 def test_k6_and_k7_issue_tensor_core_instructions(cuda):
+    # K6: warpgroup products (HGMMA) fed by TMA loads (UTMALDG); K7: mma.sync (HMMA)
     found = {}
-    for src, kernel in ((vq.SOURCE, "vq_nearest_kernel"), (la.SOURCE, "local_attn_kernel")):
+    for src, kernel, ops_needed in ((vq.SOURCE, "vq_nearest_kernel", ("HGMMA", "UTMALDG")),
+                                    (la.SOURCE, "local_attn_kernel", ("HMMA",))):
         for mangled, ops in _build.sass_counts(src).items():
             if kernel in mangled:
-                found[kernel, "bf16" if "bfloat16" in mangled else "fp32"] = ops["HMMA"]
+                found[kernel, "bf16" if "bfloat16" in mangled else "fp32"] = [
+                    ops[op] for op in ops_needed]
     assert sorted(found) == [("local_attn_kernel", "bf16"), ("local_attn_kernel", "fp32"),
-                             ("vq_nearest_kernel", "fp32")] and all(found.values()), found
+                             ("vq_nearest_kernel", "fp32")], found
+    assert all(all(counts) for counts in found.values()), found
+
+
+def test_vq_kernel_at_an_unaligned_base_pointer(cuda):
+    # slices of larger buffers, 4 bytes past a 16-byte boundary: the wrapper
+    # hands the kernel 16-byte aligned copies (TMA's rule)
+    x, cb = _vq_inputs(300, 1024, 512, seed=5)
+    xb, cbb = torch.zeros(x.numel() + 1, device=cuda), torch.zeros(cb.numel() + 1, device=cuda)
+    xb[1:] = x.flatten().to(cuda)
+    cbb[1:] = cb.flatten().to(cuda)
+    xs, cbs = xb[1:].view(300, 512), cbb[1:].view(1024, 512)
+    assert xs.data_ptr() % 16 and cbs.data_ptr() % 16
+    got = vq.vq_nearest_code(xs, cbs)
+    assert torch.equal(got, vq.vq_nearest_code(xs.clone(), cbs.clone()))
+    assert (got == vq.vq_nearest_code_ref(xs, cbs)).float().mean() > 0.99
+    assert got[0].item() == 0
+
+
+def test_k2_and_k6_plans_match_the_librarys(cuda):
+    for n, c, d in ((1, 1024, 512), (7, 1024, 512), (192, 1024, 512), (800, 1024, 512),
+                    (1300, 1024, 512), (1200, 1024, 128), (37, 100, 36), (65, 1024, 32)):
+        plan = vq.vq_plan(n, c, d)
+        assert vq.vq_plan_built(n, c, d) == (plan["ksplit"], plan["groups"]), (n, c, d)
+    for b, h, hk, n, m in ((4, 8, 1, 2049, 2049), (4, 4, 4, 602, 602), (4, 8, 1, 2049, 17),
+                           (2, 4, 1, 2049, 2049), (9, 8, 8, 130, 130), (12, 8, 1, 100, 100)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for dbias in (False, True):
+                plan = fa.dq_plan(b, h, hk, n, m, True, dtype, dbias=dbias)
+                assert fa.dq_plan_built(b, h, hk, n, m, dtype, dbias=dbias) == (
+                    plan["cluster"], plan["stages"]), (b, h, n, m, dtype)
 
 
 def test_local_attention_on_a_card_is_differentiable(cuda):
@@ -906,13 +940,32 @@ def test_k2_gives_the_same_bits_every_run(cuda, form, dtype):
 
 
 def test_k2_issues_tensor_core_instructions(cuda):
+    # warpgroup products (HGMMA: S = Q K^T and dP = dO V^T, and in bf16 dS K)
+    # fed by TMA loads (UTMALDG)
     found = {}
     for mangled, ops in _build.sass_counts(fa.SOURCE_BWD).items():
         if "flash_bwd_dq_kernel" in mangled:
             # two instantiations a dtype: with K5's cluster sum and without
             key = ("bf16" if "bfloat16" in mangled else "fp32", "Lb1E" in mangled)
-            found[key] = ops["HMMA"]
-    assert len(found) == 4 and all(found.values()), found
+            found[key] = (ops["HGMMA"], ops["UTMALDG"])
+    assert len(found) == 4 and all(all(ops) for ops in found.values()), found
+
+
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 1e-2, 1e-3),
+                                             (torch.bfloat16, 3e-2, 3e-2)])
+def test_k2_with_k5_across_clusters(cuda, dtype, rtol, atol):
+    # B = 12: clusters of 6 batch rows (64 rows shared unevenly among the
+    # ranks), two a tile, whose partial dbias tiles meet by atomics
+    q, k, v, g, tab, bias, mask = _to(cuda, dtype, *_k2_inputs(8, 2, 12, 200, 200, True, "bias"))
+    assert fa.dq_plan(12, 8, 2, 200, 200, True, dtype, dbias=True)["cluster"] == 6
+    out, lse = fa.flash_attention(q, k, v, bias=bias, key_mask=mask, causal=True,
+                                  return_lse=True)
+    grads = fa.flash_attention_bwd(q, k, v, None, mask, out, lse, g, bias=bias, causal=True,
+                                   scale=64 ** -0.5)
+    ref = fa.flash_attention_bwd_ref(q, k, v, None, mask, out, lse, g, bias=bias, causal=True,
+                                     scale=64 ** -0.5)
+    for name, a, r in zip(("dq", "dk", "dv", "dbias"), grads, ref):
+        torch.testing.assert_close(a.float(), r.float(), rtol=rtol, atol=atol, msg=name)
 
 
 def _all_outputs(q, k, v, g, tab, bias, mask):

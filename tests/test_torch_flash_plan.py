@@ -1,10 +1,13 @@
-"""The launch plans of the flash kernels K1 (forward) and K3 (dk, dv), as
-`ops/kernels/flash_attention.py` states them for the C launchers: every
-attended (b*h, query tile, key tile) pair is visited exactly once (K1 in
-both dtypes, with one or two consumer warpgroups a block), at the
-flagship, stage-trainer, prefix, cross and decode shapes; and a plain
-emulation of K3's blocks (each warpgroup's items, the two warpgroups' sum,
-the cluster's rank order, the query chunks' order) gives JAX's gradient of
+"""The launch plans of the flash kernels K1 (forward), K2 (dq) and K3 (dk,
+dv), as `ops/kernels/flash_attention.py` states them for the C launchers:
+every attended (b*h, query tile, key tile) pair is visited exactly once (K1
+in both dtypes, with one or two consumer warpgroups a block; K2 with its
+key tiles in order), at the flagship, stage-trainer, prefix, cross and
+decode shapes; K2 fills the card at the stage trainers', cross and
+tensor-parallel shapes, and K5's cluster is the largest divisor of the
+batch up to 8; and plain emulations of K3's blocks (each warpgroup's items,
+the two warpgroups' sum, the cluster's rank order, the query chunks' order)
+and of K2's (each query tile's key tiles in order) give JAX's gradients of
 `attend`.
 
 Tolerances: rtol 1e-2 / atol 1e-3 against JAX, the JAX package's gradient
@@ -91,6 +94,99 @@ def test_k3_plan_visits_each_attended_pair_once(label, b, h, hk, n, m, causal, d
             assert rows.max() == 1
             assert (rows[heads][:, sees] == 1).all()
             assert not rows[[hd for hd in range(h) if hd not in heads]].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("label,b,h,hk,n,m,causal", SHAPES, ids=[s[0] for s in SHAPES])
+def test_k2_plan_visits_each_attended_tile_once(label, b, h, hk, n, m, causal, dtype):
+    plan = fa.dq_plan(b, h, hk, n, m, causal, dtype)
+    assert plan["grid"] == (b, h, -(-n // 64))
+    assert plan["stages"] == (2 if dtype == torch.float32 else 3)
+    seen = collections.Counter()
+    for qi, keys in plan["tiles"].items():
+        assert keys == sorted(keys)
+        seen.update((qi, ki) for ki in keys)
+    assert max(seen.values()) == 1
+    assert set(seen) >= attended_tiles(n, m, causal)
+    assert all(ki * 64 < m for _, ki in seen)
+
+
+@pytest.mark.parametrize("b,h,n,m,causal", [(4, 4, 602, 602, True), (4, 4, 1201, 1201, True),
+                                            (4, 8, 2049, 17, False), (2, 4, 2049, 2049, True)],
+                         ids=["Coarse trainer", "Fine trainer", "cross", "tensor parallel rank"])
+def test_k2_plan_fills_the_card(b, h, n, m, causal):
+    for dtype in (torch.float32, torch.bfloat16):
+        grid = fa.dq_plan(b, h, 1, n, m, causal, dtype)["grid"]
+        assert grid[0] * grid[1] * grid[2] >= fa.PLAN_SMS
+
+
+@pytest.mark.parametrize("b,cluster", [(1, 1), (2, 2), (3, 3), (4, 4), (8, 8), (9, 3),
+                                       (11, 1), (12, 6), (16, 8)])
+def test_k2_plan_gives_k5_the_batchs_cluster(b, cluster):
+    plan = fa.dq_plan(b, 8, 1, 130, 130, True, dbias=True)
+    assert plan["cluster"] == cluster and b % cluster == 0
+    # with one cluster a tile the sum is in rank order; past it, atomics
+    assert plan["atomic"] == (b > cluster)
+    assert fa.dq_plan(b, 8, 1, 130, 130, True)["cluster"] == 1
+
+
+def emulate_dq(q, k, v, g, mask, causal, scale, plan):
+    """dq summed as K2's blocks sum it, from a plain float32 forward's lse:
+    per query tile over its key tiles in the plan's order, each tile's dS K
+    from zero and added, scaled at the end."""
+    b, h, n, _ = q.shape
+    hk, m = k.shape[1], k.shape[2]
+    out, lse = fa.flash_attention_ref(q, k, v, key_mask=mask, causal=causal, scale=scale,
+                                      return_lse=True)
+    delta = (g * out).sum(-1)
+    keep = torch.ones(n, m, dtype=torch.bool)
+    keep = keep.tril(m - n) if causal else keep
+    dq = torch.zeros_like(q)
+    for bi in range(b):
+        for head in range(h):
+            kv = head // (h // hk)
+            for qi, keys in plan["tiles"].items():
+                qs = slice(qi * 64, min(n, qi * 64 + 64))
+                acc = torch.zeros(qs.stop - qs.start, q.shape[-1])
+                for ki in keys:
+                    ks = slice(ki * 64, min(m, ki * 64 + 64))
+                    s = scale * q[bi, head, qs] @ k[bi, kv, ks].T
+                    allowed = keep[qs, ks]
+                    if mask is not None:
+                        allowed = allowed & mask[bi, ks][None, :]
+                    p = torch.exp(s.masked_fill(~allowed, -1e30) - lse[bi, head, qs, None])
+                    ds = p * (g[bi, head, qs] @ v[bi, kv, ks].T - delta[bi, head, qs, None])
+                    acc = acc + ds @ k[bi, kv, ks]
+                dq[bi, head, qs] = scale * acc
+    return dq
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_k2_tile_order_sum_matches_jax(causal):
+    """2 x 4 heads x 130 queries (MQA, 2 kv heads) over 130 keys, or over a
+    prefix of 17 more with causal masking, one batch row's keys half
+    masked."""
+    b, h, hk, n, d = 2, 4, 2, 130, 64
+    m = n + 17 if causal else n
+    rng = np.random.default_rng(1)
+    q = rng.normal(size=(b, h, n, d)).astype(np.float32)
+    k = rng.normal(size=(b, hk, m, d)).astype(np.float32)
+    v = rng.normal(size=(b, hk, m, d)).astype(np.float32)
+    g = rng.normal(size=(b, h, n, d)).astype(np.float32)
+    mask = np.ones((b, m), bool)
+    mask[1, m // 2:] = False
+    scale = d ** -0.5
+    dq = emulate_dq(t(q), t(k), t(v), t(g), t(mask), causal, scale,
+                    fa.dq_plan(b, h, hk, n, m, causal))
+
+    def f(q_):
+        kr, vr = (jnp.repeat(jnp.asarray(a), h // hk, axis=1) for a in (k, v))
+        return attend(q_, kr, vr, mask=jnp.asarray(mask)[:, None, None, :], causal=causal,
+                      scale=scale)
+
+    _, vjp = jax.vjp(f, jnp.asarray(q))
+    (jdq,) = vjp(jnp.asarray(g))
+    np.testing.assert_allclose(dq.numpy(), np.asarray(jdq), **GRAD_TOL)
 
 
 def test_k1_plan_gives_short_or_few_rows_the_other_block():

@@ -1,14 +1,17 @@
-"""Times the flash kernels K1 (forward) and K3 (dk, dv) at the shapes
-`chip_smoke.py` holds them at: each call by CUDA events (through its Python
-wrapper) and on the device (the kernel's own time from torch.profiler),
-beside SDPA's device time for the same forward and for its backward (its
-forward and backward less its forward). With --parent DIR it also times
-another checkout's K1 and K3 (the parent commit's
-`audiolm_pytorch_tpu_torch/csrc/flash_fwd.cu` and `flash_bwd.cu` with their
-headers), in one process, in turns: the parent's build, this one's, this
-one's again and the parent's again. The two builds share the C interface,
-so the parent's library is loaded in place of this one's behind the same
-wrappers.
+"""Times the flash kernels K1 (forward), K2 (dq: alone, and with K4, the
+table's gradient, or K5, the (H, N, M) bias's, in its launch) and K3 (dk,
+dv) at the shapes `chip_smoke.py` holds them at, and the nearest-code
+search K6 at the row counts the port's paths give it: each call by CUDA
+events (through its Python wrapper) and on the device (the kernel's own
+time from torch.profiler), beside SDPA's device time for the same forward
+and for its backward (its forward and backward less its forward), and for
+K6 beside addmm + argmin with |e|^2 summed in the call and given. With
+--parent DIR it also times another checkout's kernels (the parent commit's
+`audiolm_pytorch_tpu_torch/csrc/flash_fwd.cu`, `flash_bwd.cu` and `vq.cu`
+with their headers), in one process, in turns: the parent's build, this
+one's, this one's again and the parent's again. The builds share the C
+interfaces, so the parent's libraries are loaded in place of this one's
+behind the same wrappers.
 
     git archive <parent> audiolm_pytorch_tpu_torch | tar -x -C build/parent
     python tools/torch_flash_parent_ab.py [--parent build/parent] [--seed N] [--json]
@@ -35,6 +38,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from audiolm_pytorch_tpu_torch.ops.kernels import _build  # noqa: E402
 from audiolm_pytorch_tpu_torch.ops.kernels import flash_attention as fa  # noqa: E402
+from audiolm_pytorch_tpu_torch.ops.kernels import vq  # noqa: E402
 from tools import cuda_timing  # noqa: E402
 
 cuda_ms = functools.partial(cuda_timing.cuda_ms, iters=20, warmup=3)
@@ -61,6 +65,12 @@ SHAPES = (("4x8x2048 table", 4, 8, 2048, 2048, "table", True, "forget", False),
            False))
 STAGE_ONLY_BF16 = ("trainer)",)
 TEXT_LENGTHS = (7, 13, 9, 16)
+# K6: (rows, codes, dim): a decode step's and a short prompt's rows, a
+# streaming encoder chunk (192), codec training (400), the LM trainers'
+# tokenisation (600), the codec's round trip (800), 1300, and EnCodec's
+# 1200 rows of 128
+VQ_SHAPES = ((1, 1024, 512), (7, 1024, 512), (192, 1024, 512), (400, 1024, 512),
+             (600, 1024, 512), (800, 1024, 512), (1300, 1024, 512), (1200, 1024, 128))
 
 
 def parent_library(parent: Path, name: str) -> ctypes.CDLL:
@@ -81,14 +91,16 @@ def parent_library(parent: Path, name: str) -> ctypes.CDLL:
 
 @contextlib.contextmanager
 def parent_kernels(parent: Path):
-    """Within the block the flash wrappers launch the parent's K1 and K3."""
-    libs = {name: parent_library(parent, name) for name in (fa.SOURCE, fa.SOURCE_BWD)}
-    saved = fa.load
-    fa.load = lambda name, defines=None: libs[name] if name in libs else saved(name, defines)
+    """Within the block the flash and nearest-code wrappers launch the
+    parent's K1-K6."""
+    libs = {name: parent_library(parent, name) for name in (fa.SOURCE, fa.SOURCE_BWD, vq.SOURCE)}
+    saved = fa.load, vq.load
+    fa.load = lambda name, defines=None: libs[name] if name in libs else saved[0](name, defines)
+    vq.load = lambda name, defines=None: libs[name] if name in libs else saved[1](name, defines)
     try:
         yield
     finally:
-        fa.load = saved
+        fa.load, vq.load = saved
 
 
 def inputs(rng, dtype, b, h, n, m, form, keys):
@@ -117,21 +129,34 @@ def inputs(rng, dtype, b, h, n, m, form, keys):
 
 
 def times(q, k, v, g, tab, bias, mask, causal, fwd_only):
-    """{K1, K3: (event ms, device ms)} of the wrappers as they stand."""
+    """{K1, K2, K2 with its bias gradient (K4 or K5), K3: (event ms, device
+    ms)} of the wrappers as they stand."""
     kw = dict(causal=causal, scale=0.125)
     with torch.no_grad():
         out, lse = fa._forward(q, k, v, tab, bias, mask, causal, 0.125)
     tabc, kmask, dense = fa._kernel_args(tab, mask, bias)
     args = (q, k, v, g, lse, (g.float() * out.float()).sum(-1), tabc, kmask)
+    dq_out = torch.empty_like(q)
 
     def k1():
         return fa._forward(q, k, v, tab, bias, mask, causal, 0.125)
+
+    def k2():  # the bias read, its gradient not asked for: K2 alone
+        return fa._bwd_launch("flash_bwd_dq", (dq_out, None, None), *args, bias=dense, **kw)
+
+    def k2_grad():  # K2 with K4 (its second pass included) or K5
+        return fa.bwd_dq(*args, bias=dense, **kw)
 
     def k3():
         return fa.bwd_dkv(*args, bias=dense, **kw)
 
     got = {"K1": (cuda_ms(k1), cuda_timing.named_device_ms(k1, ["flash_fwd_kernel"])[0])}
     if not fwd_only:
+        got["K2"] = (cuda_ms(k2), cuda_timing.named_device_ms(k2, ["flash_bwd_dq_kernel"])[0])
+        if tab is not None or bias is not None:
+            grad = "K2+K4" if tab is not None else "K2+K5"
+            got[grad] = (cuda_ms(k2_grad), cuda_timing.named_device_ms(
+                k2_grad, ["flash_bwd_dq_kernel", "dtab_sum_kernel"])[0])
         got["K3"] = (cuda_ms(k3), cuda_timing.named_device_ms(
             k3, ["flash_bwd_dkv_kernel", "dkv_sum_kernel"])[0])
     return got
@@ -180,10 +205,61 @@ def fmt(ms):
     return "-" if ms is None else f"{ms:.4f}"
 
 
+def vq_inputs(rng, n, c, d):
+    """x (n, d) near random codes of a (c, d) codebook (30% of the rows far
+    from any), on the card."""
+    cb = rng.standard_normal((c, d), dtype=np.float32)
+    x = cb[rng.integers(0, c, n)] + 0.3 * rng.standard_normal((n, d), dtype=np.float32)
+    far = rng.random(n) < 0.3
+    x[far] = rng.standard_normal((int(far.sum()), d), dtype=np.float32)
+    return torch.from_numpy(x).cuda(), torch.from_numpy(cb).cuda()
+
+
+def vq_times(x, cb):
+    """K6's (event ms, device ms) through its wrapper as it stands."""
+    def k6():
+        return vq.vq_nearest_code(x, cb)
+    return cuda_ms(k6), cuda_timing.named_device_ms(k6, ["vq_nearest_kernel"])[0]
+
+
+def compare_vq(parent=None, seed=0, shapes=VQ_SHAPES):
+    """Prints, per shape, K6's event and device ms (with a parent checkout:
+    parent, this, this, parent) and addmm + argmin's device ms, |e|^2 summed
+    in the call and given; returns {label: {...}}."""
+    rows = {}
+    for n, c, d in shapes:
+        x, cb = vq_inputs(np.random.default_rng(seed), n, c, d)
+        e2 = cb.square().sum(-1)
+        runs = {"this": []}
+        if parent is not None:
+            runs["parent"] = []
+            for which in ("parent", "this", "this", "parent"):
+                with parent_kernels(parent) if which == "parent" else contextlib.nullcontext():
+                    runs[which].append(vq_times(x, cb))
+        else:
+            runs["this"].append(vq_times(x, cb))
+        summed = cuda_timing.device_per_call(
+            lambda: torch.argmin(torch.addmm(cb.square().sum(-1), x, cb.t(), alpha=-2), -1))[0]
+        given = cuda_timing.device_per_call(
+            lambda: torch.argmin(torch.addmm(e2, x, cb.t(), alpha=-2), -1))[0]
+        at = f"vq {n}x{d} vs {c}x{d}"
+        rows[at] = {w: {"ms": [e for e, _ in r], "device_ms": [dv for _, dv in r]}
+                    for w, r in runs.items()}
+        rows[at].update(library_device_ms=summed, library_e2_given_device_ms=given)
+        line = f"device K6 [{at}]: this " + " ".join(f"{fmt(e)}/{fmt(dv)}"
+                                                     for e, dv in runs["this"])
+        if parent is not None:
+            line += " | parent " + " ".join(f"{fmt(e)}/{fmt(dv)}" for e, dv in runs["parent"])
+        print(line + f" ms (events/device) | addmm+argmin device {fmt(summed)}, "
+              f"|e|^2 given {fmt(given)}", flush=True)
+    return rows
+
+
 def compare(parent=None, seed=0, shapes=SHAPES):
-    """Prints, per shape and dtype, K1's and K3's event and device ms (with
-    a parent checkout: the parent's build and this one's, parent, this,
-    this, parent) and SDPA's; returns {label: {...}}."""
+    """Prints, per shape and dtype, K1's, K2's (alone and with its bias
+    gradient) and K3's event and device ms (with a parent checkout: the
+    parent's build and this one's, parent, this, this, parent) and SDPA's;
+    returns {label: {...}}."""
     rows = {}
     for label, b, h, n, m, form, causal, keys, fwd_only in shapes:
         dtypes = ((torch.bfloat16,) if any(x in label for x in STAGE_ONLY_BF16)
@@ -202,8 +278,8 @@ def compare(parent=None, seed=0, shapes=SHAPES):
             at = f"{str(dtype)[6:]} {label}"
             row = {"sdpa_ms": sdpa_ms, "sdpa_device_ms": sdpa_dev,
                    "sdpa_bwd_device_ms": sdpa_bwd_dev}
-            for kernel in ("K1", "K3"):
-                if kernel == "K3" and fwd_only:
+            for kernel in ("K1", "K2", "K2+K4", "K2+K5", "K3"):
+                if kernel not in runs["this"][0]:
                     continue
                 got = {w: [r[kernel] for r in runs[w]] for w in runs}
                 row[kernel] = {w: {"ms": [e for e, _ in got[w]],
@@ -232,6 +308,7 @@ def main():
                          capture_output=True, text=True, timeout=30, check=True).stdout.strip()
     print(f"device: {smi}", flush=True)
     rows = compare(args.parent, args.seed)
+    rows.update(compare_vq(args.parent, args.seed))
     if args.json:
         print(json.dumps(rows))
 
