@@ -135,7 +135,26 @@
 //       order (launches_dkv counts one call). No atomics anywhere: the same
 //       bits every run. The plan (cluster, chunks) is dkv_plan, which
 //       ops/kernels/flash_attention.py::dkv_plan states for the tests.
-// Instantiated for D=64.
+// Head dims. Instantiated for D = 32, 64 and 128 (the wrapper zero-pads any
+// other D up to 128 into the next of them), on csrc/wgmma.cuh's boxes: a
+// D-wide row is D * sizeof(T) / 128 boxes (a 32-wide bf16 row half of one,
+// read as zeros past the row's end), the products over D run D * sizeof(T)
+// / 32 k-steps, and those whose N index is D (dq += dS K, dV += P^T dO, dK
+// += dS^T Q) one product a 64-column box. At D = 32 every block shape is
+// that of D = 64 with smaller tiles. At D = 128 every tile doubles: in bf16
+// K2 keeps its three stages in one block an SM (160 KB with K5's buffers)
+// and no setmaxnreg, K3 takes two consumers (168 KB); in float32 an operand
+// with its small parts is 64 KB, so four of them (K2's Q, dO, K and V; K3's
+// K, V, Q and dO) fill 256 KB, over the 227 KB a block may have. There the
+// two streamed operands take turns in one slot (SEQ): K2 loads a key tile's
+// V, forms dP = dO V^T, then loads K into the same slot for S = Q K^T and
+// dq += dS K (Q, dO 128 KB + the slot 64 KB + K5's 32 KB = 225 KB); K3 loads
+// an item's Q for S^T = K Q^T and P, its dO for dP^T, dS and dV += P^T dO,
+// then Q again for dK += dS^T Q (K, V 128 KB + the slot 64 KB). One
+// consumer, one block an SM, the slot's split ordered before the next load,
+// no overlap: right, and simple, not yet fast (PERF.md). The products are
+// the same, in the same order, as at the other head dims, so the sums keep
+// their fixed order and bits.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -178,21 +197,27 @@ constexpr int PLAN_SMS = 132;  // the H100's SMs, which the launch plans fill
 // the key flags [64] and two words that say whether any key of the tile is
 // flagged; the barriers; then, for the bias's gradient, K4's skewed dS rows
 // and delta slots (24 KB) or K5's two dS buffers (2 x 16 KB, float32). The
-// budget: float32 with K5 64 + 2 x 64 + 32 KB and the rest, 231,072 of
-// 232,448 bytes (two stages; one block an SM); bf16 16 + 3 x 16 + 32 KB
-// (three stages; ~99 KB, two blocks an SM, setmaxnreg giving the
-// producer's registers to the consumer).
-template <typename T, bool SUM>
+// budget at D = 64: float32 with K5 64 + 2 x 64 + 32 KB and the rest,
+// 231,072 of 232,448 bytes (two stages; one block an SM); bf16 16 + 3 x 16
+// + 32 KB (three stages; ~99 KB, two blocks an SM, setmaxnreg giving the
+// producer's registers to the consumer). Float32 at D = 128 (SEQ): a stage
+// is one slot that K and V take in turn, two ring items a key tile.
+template <typename T, int D, bool SUM>
 struct Dq {
   static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr bool WIDE = D > 64;  // D = 128
+  static constexpr bool SEQ = F32 && WIDE;
+  static constexpr int PER = SEQ ? 2 : 1;  // ring items a key tile: V then K, or both
   static constexpr int NT = 256;  // the producer warpgroup, then the consumer warpgroup
-  static constexpr int MIN_BLOCKS = F32 ? 1 : 2;
-  static constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 200;  // bf16 only
-  static constexpr int ST = F32 ? 2 : 3;  // stages
-  static constexpr int TILE = wg::tile_bytes<T>();
+  static constexpr int MIN_BLOCKS = F32 || WIDE ? 1 : 2;
+  static constexpr bool NREG = MIN_BLOCKS == 2;  // setmaxnreg: bf16 at D <= 64
+  static constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 200;  // with NREG
+  static constexpr int ST = SEQ ? 1 : F32 ? 2 : 3;  // stages
+  static constexpr int TILE = wg::tile_bytes<T, D>();
+  static constexpr int NA = wg::acc_blocks<T, D>();  // the dq accumulator's n-blocks
   static constexpr int OPER = F32 ? 2 * TILE : TILE;
   static constexpr int STAGE0 = 2 * OPER;
-  static constexpr int STAGE = 2 * OPER;
+  static constexpr int STAGE = PER == 2 ? OPER : 2 * OPER;
   static constexpr int MISC = STAGE0 + ST * STAGE;
   static constexpr int MISC_STAGE = (128 + 64 + 4) * 4;
   static constexpr int BARS = MISC + ST * MISC_STAGE;
@@ -201,9 +226,9 @@ struct Dq {
   static constexpr int K5_BYTES = 2 * BQ * BK * 4;
   static constexpr size_t most = EXTRA + (SUM ? K5_BYTES : K4_BYTES);
   static_assert(most <= 232448, "a block's shared memory");
-  static_assert(F32 || 2 * (most + 1024) <= 233472, "two bf16 blocks an SM");
+  static_assert(MIN_BLOCKS == 1 || 2 * (most + 1024) <= 233472, "two bf16 blocks an SM");
   static_assert((2 + 3 * ST + 4) * 8 <= 256, "the barriers fit");
-  static_assert(F32 || ((65536 / (NT * MIN_BLOCKS)) & ~7) * 2 == PRODUCER_REGS + CONSUMER_REGS,
+  static_assert(!NREG || ((65536 / (NT * MIN_BLOCKS)) & ~7) * 2 == PRODUCER_REGS + CONSUMER_REGS,
                 "setmaxnreg hands over exactly the launch's registers");
 };
 
@@ -286,8 +311,8 @@ dtab_sum_kernel(const float* __restrict__ part, float* __restrict__ dtab, int b,
   dtab[(size_t)idx * heads + h] = sum;
 }
 
-template <typename T, bool SUM>
-__global__ void __launch_bounds__(Dq<T, SUM>::NT, Dq<T, SUM>::MIN_BLOCKS)
+template <typename T, int D, bool SUM>
+__global__ void __launch_bounds__(Dq<T, D, SUM>::NT, Dq<T, D, SUM>::MIN_BLOCKS)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
                     const __grid_constant__ CUtensorMap kmap,
                     const __grid_constant__ CUtensorMap vmap,
@@ -296,8 +321,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
                     const float* __restrict__ bias, const int8_t* __restrict__ kmask,
                     T* __restrict__ dq, float* __restrict__ dpart, float* __restrict__ dbias,
                     int heads, int group, int n, int m, float scale, int causal) {
-  using L = Dq<T, SUM>;
-  constexpr int ST = L::ST;
+  using L = Dq<T, D, SUM>;
+  constexpr int ST = L::ST, PER = L::PER;
   extern __shared__ __align__(1024) unsigned char dq_smem[];
   unsigned char* sm = dq_smem;
   if (threadIdx.x == 0 && (tc::smem_u32(sm) & 1023) != 0) __trap();  // the tiles' swizzle
@@ -313,7 +338,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
   };
   // table slice: Bs[i] = log2(e) tab[q0 - k0 - (BK - 1) + i + n - 1, h],
   // so the bias of (q0 + r, k0 + c) is Bs[r - c + BK - 1]; then the key
-  // flags; then two words, nonzero where a flag of keys 0-31 (32-63) is
+  // flags; then two words, nonzero where a flag of keys 0-31 (32-63) is.
+  // In the stage of the key tile's first ring item.
   auto Bs = [&](int s) { return reinterpret_cast<float*>(sm + L::MISC + s * L::MISC_STAGE); };
   auto Fs = [&](int s) { return Bs(s) + 128; };
   auto As = [&](int s) { return reinterpret_cast<int*>(Bs(s) + 128 + 64); };
@@ -361,16 +387,17 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
 
   if (tid < 128) {
     // ---- the producer ----
-    if constexpr (!L::F32) wg::setmaxnreg_dec<L::PRODUCER_REGS>();
+    if constexpr (L::NREG) wg::setmaxnreg_dec<L::PRODUCER_REGS>();
     const int kvp = (int)(bh / group);
     if (tid == 0) {
       wg::mbar_arrive_tx(qload, 2 * L::TILE);
-      wg::load_tile(Qs, &qmap, qload, q0, (int)bh);
-      wg::load_tile(Gs, &gmap, qload, q0, (int)bh);
+      wg::load_tile<T, D>(Qs, &qmap, qload, q0, (int)bh);
+      wg::load_tile<T, D>(Gs, &gmap, qload, q0, (int)bh);
     }
-    // Tile it into stage it % ST: K and V by TMA, the table slice and key
-    // flags from registers loaded a tile ahead (a load's latency, not the
-    // copies', would otherwise pace the ring).
+    // Ring item i into stage i % ST: tile i / PER's K and V by TMA (SEQ: V,
+    // then K, one an item), the table slice and key flags with the tile's
+    // first item, from registers loaded a tile ahead (a load's latency, not
+    // the copies', would otherwise pace the ring).
     float tab_r = 0.f, flag_r = 0.f;
     auto fetch = [&](int it) {
       const int k0 = it * BK;
@@ -378,65 +405,82 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
         tab_r = tc::LOG2E * tc::tab_entry(tab, q0, k0, BK, tid, n, heads, h);
       if (tid < BK) flag_r = tc::key_flag(kmask, b, m, k0 + tid);
     };
-    auto issue = [&](int it) {
-      const int s = it % ST, k0 = it * BK;
+    auto issue = [&](int i) {
+      const int s = i % ST, it = i / PER, k0 = it * BK;
+      const bool first = i % PER == 0;
       const float tab_it = tab_r, flag_it = flag_r;
-      if (it + 1 < ntiles) fetch(it + 1);
-      wg::mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
+      if (first && it + 1 < ntiles) fetch(it + 1);
+      wg::mbar_wait(&empty[s], ((i / ST) & 1) ^ 1);
       if (tid == 0) {
-        if constexpr (L::F32) wg::mbar_arrive_tx(&loaded[s], 2 * L::TILE);
+        if constexpr (L::F32) wg::mbar_arrive_tx(&loaded[s], (3 - PER) * L::TILE);
         else wg::mbar_expect_tx(&full[s], 2 * L::TILE);
         uint64_t* bar = L::F32 ? &loaded[s] : &full[s];
-        wg::load_tile(Ks(s), &kmap, bar, k0, kvp);
-        wg::load_tile(Vs(s), &vmap, bar, k0, kvp);
+        if constexpr (L::SEQ) {
+          wg::load_tile<T, D>(Ks(s), i % 2 ? &kmap : &vmap, bar, k0, kvp);
+        } else {
+          wg::load_tile<T, D>(Ks(s), &kmap, bar, k0, kvp);
+          wg::load_tile<T, D>(Vs(s), &vmap, bar, k0, kvp);
+        }
       }
-      if (tab != nullptr && tid < BQ + BK - 1) Bs(s)[tid] = tab_it;
-      if (tid < BK) {
-        Fs(s)[tid] = flag_it;
-        const unsigned any = __ballot_sync(0xffffffffu, flag_it != 0.f);
-        if (tid % 32 == 0) As(s)[tid / 32] = any != 0u;
+      if (first) {
+        if (tab != nullptr && tid < BQ + BK - 1) Bs(s)[tid] = tab_it;
+        if (tid < BK) {
+          Fs(s)[tid] = flag_it;
+          const unsigned any = __ballot_sync(0xffffffffu, flag_it != 0.f);
+          if (tid % 32 == 0) As(s)[tid / 32] = any != 0u;
+        }
       }
       if constexpr (!L::F32) wg::mbar_arrive(&full[s]);
     };
-    // float32: tile it's copies landed; split them, then hand the stage over
-    auto finish = [&](int it) {
-      const int s = it % ST;
-      wg::mbar_wait(&loaded[s], (it / ST) & 1);
-      wg::split_tile(reinterpret_cast<float*>(Ks(s)), reinterpret_cast<float*>(Kl(s)), tid, 128);
-      wg::split_tile(reinterpret_cast<float*>(Vs(s)), reinterpret_cast<float*>(Vl(s)), tid, 128);
+    // float32: item i's copies landed; split them, then hand the stage over
+    auto finish = [&](int i) {
+      const int s = i % ST;
+      wg::mbar_wait(&loaded[s], (i / ST) & 1);
+      wg::split_tile<L::TILE>(reinterpret_cast<float*>(Ks(s)), reinterpret_cast<float*>(Kl(s)),
+                              tid, 128);
+      if constexpr (!L::SEQ)
+        wg::split_tile<L::TILE>(reinterpret_cast<float*>(Vs(s)), reinterpret_cast<float*>(Vl(s)),
+                                tid, 128);
       wg::fence_proxy_async();
       wg::mbar_arrive(&full[s]);
     };
+    const int nitems = PER * ntiles;
     fetch(0);
-    if (ntiles > 0) issue(0);
+    if (nitems > 0) issue(0);
     wg::mbar_wait(qload, 0);
     if constexpr (L::F32) {
-      wg::split_tile(reinterpret_cast<float*>(Qs), reinterpret_cast<float*>(Ql), tid, 128);
-      wg::split_tile(reinterpret_cast<float*>(Gs), reinterpret_cast<float*>(Gl), tid, 128);
+      wg::split_tile<L::TILE>(reinterpret_cast<float*>(Qs), reinterpret_cast<float*>(Ql), tid,
+                              128);
+      wg::split_tile<L::TILE>(reinterpret_cast<float*>(Gs), reinterpret_cast<float*>(Gl), tid,
+                              128);
       wg::fence_proxy_async();
     }
     // K5 of tile it (the producer's, so the consumer never waits on the
     // other ranks but to reuse a buffer): once every rank's dS is in, this
     // rank's share of its rows summed over the ranks in rank order; then
-    // every rank told. Tile it - ST's, after tile it is issued: this
-    // block's consumer is done with it by then.
+    // every rank told. Tile it - TS's (TS the tiles the ring holds), after
+    // tile it's first item is issued: this block's consumer is done with it
+    // by then.
     auto batch_sum = [&](int it) {
       wg::mbar_wait<true>(&dsready[it & 1], (it / 2) & 1);
       batch_sum_rows(cluster, dsb(it), out, q0, it * BK, n, m, atomic, tid);
       tc::bar_sync(2, 128);
       if (tid < csize) wg::mbar_arrive_remote(&dsfree[it & 1], tid);
     };
+    constexpr int TS = ST > PER ? ST / PER : 1;
     wg::mbar_arrive(qfull);
-    for (int it = 1; it < ntiles; ++it) {
-      issue(it);
-      if constexpr (L::F32) finish(it - 1);
+    for (int i = 1; i < nitems; ++i) {
+      // one stage: item i - 1 handed over (and consumed) before item i loads
+      if constexpr (L::F32 && ST == 1) finish(i - 1);
+      issue(i);
+      if constexpr (L::F32 && ST > 1) finish(i - 1);
       if constexpr (SUM)
-        if (it >= ST) batch_sum(it - ST);
+        if (i % PER == 0 && i / PER >= TS) batch_sum(i / PER - TS);
     }
     if constexpr (L::F32)
-      if (ntiles > 0) finish(ntiles - 1);
+      if (nitems > 0) finish(nitems - 1);
     if constexpr (SUM) {
-      for (int it = max(0, ntiles - ST); it < ntiles; ++it) batch_sum(it);
+      for (int it = max(0, ntiles - TS); it < ntiles; ++it) batch_sum(it);
       // no block leaves while the cluster still reads its dS: each buffer's
       // last use freed by every rank
       wg::mbar_wait<true>(&dsfree[(ntiles - 1) & 1], ((ntiles - 1) / 2) & 1);
@@ -455,7 +499,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 
   // ---- the consumer ----
-  if constexpr (!L::F32) wg::setmaxnreg_inc<L::CONSUMER_REGS>();
+  if constexpr (L::NREG) wg::setmaxnreg_inc<L::CONSUMER_REGS>();
   const int ctid = tid - 128, warp = ctid / 32, lane = ctid % 32, gq = lane / 4, t = lane % 4;
   const int rl[2] = {warp * 16 + gq, warp * 16 + gq + 8};  // this thread's rows in the tile
   const float* biash = bias != nullptr ? bias + (size_t)h * n * m : nullptr;
@@ -492,22 +536,28 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
     tc::bar_sync(1, 128);
   }
   const float sl = scale * tc::LOG2E;
-  float dqa[32];
+  float dqa[4 * L::NA];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) dqa[i] = 0.f;
+  for (int i = 0; i < 4 * L::NA; ++i) dqa[i] = 0.f;
   wg::mbar_wait(qfull, 0);
 
   for (int it = 0; it < ntiles; ++it) {
-    const int s = it % ST, k0 = it * BK;
-    wg::mbar_wait(&full[s], (it / ST) & 1);
+    // s: the stage of the tile's first item (its table slice and flags, and
+    // V); ks: the one K lies in (SEQ: the next item's, in the same slot)
+    const int i0 = PER * it, s = i0 % ST, ks = (i0 + PER - 1) % ST, k0 = it * BK;
+    wg::mbar_wait(&full[s], (i0 / ST) & 1);
     float sc[32], ds[32];  // S, then dP and dS: rows queries, columns keys
 #pragma unroll
     for (int i = 0; i < 32; ++i) sc[i] = ds[i] = 0.f;
     wg::fence_acc(sc);
     wg::fence_acc(ds);
     wg::wgmma_fence();
-    wg::gemm_nk<T>(sc, Qs, Ql, Ks(s), Kl(s));
-    wg::gemm_nk<T>(ds, Gs, Gl, Vs(s), Vl(s));
+    if constexpr (L::SEQ) {
+      wg::gemm_nk<T, D>(ds, Gs, Gl, Ks(s), Kl(s));  // V in the slot
+    } else {
+      wg::gemm_nk<T, D>(sc, Qs, Ql, Ks(s), Kl(s));
+      wg::gemm_nk<T, D>(ds, Gs, Gl, Vs(s), Vl(s));
+    }
     // The (H, N, M) bias: this thread's 32 elements straight from device
     // memory, loaded while the products run (see flash_fwd.cu for why not
     // by TMA or through shared memory); rows past n and keys past m: none.
@@ -524,6 +574,15 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
     wg::wgmma_wait<0>();
     wg::fence_acc(sc);
     wg::fence_acc(ds);
+    if constexpr (L::SEQ) {
+      // V's item done with; K's into the slot for S = Q K^T
+      wg::mbar_arrive(&empty[s]);
+      wg::mbar_wait(&full[ks], ((i0 + 1) / ST) & 1);
+      wg::wgmma_fence();
+      wg::gemm_nk<T, D>(sc, Qs, Ql, Ks(ks), Kl(ks));
+      wg::wgmma_wait<0>();
+      wg::fence_acc(sc);
+    }
 
     // p = 2^(y - log2(e) lse) with y = log2(e) (scale q.k + bias) (the table
     // pre-scaled by the producer), by the masking rule of mma.cuh
@@ -600,18 +659,13 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
     // as a transposed B; in float32 on mma.sync from K's split tiles, from
     // zero, added in float32 (tc::add_tile's reason)
     if constexpr (L::F32) {
-      float part[8][4];
-      wg::gemm_pk_split(part, ds, reinterpret_cast<const float*>(Ks(s)),
-                        reinterpret_cast<const float*>(Kl(s)));
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dqa[4 * j + e] += part[j][e];
+      wg::add_pk_split<D>(dqa, ds, reinterpret_cast<const float*>(Ks(ks)),
+                          reinterpret_cast<const float*>(Kl(ks)));
     } else {
       wg::fence_acc(dqa);
       wg::wgmma_fence();
       uint32_t pa[4][4];
-      wg::gemm_pk(dqa, ds, pa, reinterpret_cast<const __nv_bfloat16*>(Ks(s)));
+      wg::gemm_pk<L::NA / 8>(dqa, ds, pa, reinterpret_cast<const __nv_bfloat16*>(Ks(ks)));
       wg::wgmma_wait<0>();
       wg::fence_acc(dqa);
     }
@@ -628,7 +682,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
       const float* d = dsl(it) + (a - k0);
       a_sum += ((d[0] + d[DSL]) + d[2 * DSL]) + d[3 * DSL];
     }
-    wg::mbar_arrive(&empty[s]);
+    wg::mbar_arrive(&empty[ks]);
   }
   if (dpart != nullptr && a_cur >= 0) prow[a_cur] = a_sum;
 
@@ -636,9 +690,9 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
   for (int ri = 0; ri < 2; ++ri) {
     const int qp = q0 + rl[ri];
     if (qp >= n) continue;
-    T* o = dq + (bh * n + qp) * 64;
+    T* o = dq + (bh * n + qp) * D;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < D / 8; ++j)
       tc::store2(o + 8 * j + 2 * t, dqa[4 * j + 2 * ri] * scale, dqa[4 * j + 2 * ri + 1] * scale);
   }
 }
@@ -655,36 +709,46 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
 // sums take the stages' place. One consumer warpgroup (bf16, ~85 KB and
 // 128 registers a thread at launch: two blocks an SM), or two that take
 // the items in turn (float32, 199 KB, one block an SM; and bf16 where
-// fewer than two blocks an SM would run), chosen by dkv_plan.
-template <typename T, bool TWO>
+// fewer than two blocks an SM would run), chosen by dkv_plan. At D = 128
+// bf16 takes two (168 KB), float32 one with a single slot that an item's
+// Q, dO and Q again take in turn (SEQ, three ring items an item; the
+// partials then take K's and V's place).
+template <typename T, int D, bool TWO>
 struct Dkv {
   static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr bool WIDE = D > 64;  // D = 128
+  static constexpr bool SEQ = F32 && WIDE;
+  static constexpr int PER = SEQ ? 3 : 1;  // ring items an item: Q, dO, Q; or Q and dO
   static constexpr int NC = TWO ? 2 : 1;  // consumer warpgroups
   static constexpr int NT = 128 * (1 + NC);
-  static constexpr int MIN_BLOCKS = TWO ? 1 : 2;
-  static constexpr int PRODUCER_REGS = TWO ? 56 : 24;  // as Fwd's
-  static constexpr int CONSUMER_REGS = TWO ? 224 : 232;
-  static constexpr int ST = F32 ? 2 : 4;  // stages
-  static constexpr int TILE = wg::tile_bytes<T>();
+  static constexpr int MIN_BLOCKS = TWO || SEQ ? 1 : 2;
+  static constexpr bool NREG = !SEQ;  // setmaxnreg; float32 at D = 128 keeps 255 each
+  static constexpr int PRODUCER_REGS = TWO && !WIDE ? 56 : 24;  // as Fwd's
+  static constexpr int CONSUMER_REGS = TWO ? (WIDE ? 240 : 224) : 232;
+  static constexpr int ST = SEQ ? 1 : F32 ? 2 : 4;  // stages
+  static constexpr int TILE = wg::tile_bytes<T, D>();
+  static constexpr int NA = wg::acc_blocks<T, D>();  // dk's and dv's n-blocks
   static constexpr int OPER = F32 ? 2 * TILE : TILE;
   static constexpr int STAGE0 = 2 * OPER;
-  static constexpr int STAGE = 2 * OPER;
+  static constexpr int STAGE = SEQ ? OPER : 2 * OPER;
   static constexpr int MISC = STAGE0 + ST * STAGE;
   static constexpr int MISC_STAGE = (64 + 64 + 128) * 4;
   static constexpr int FLAGS = MISC + ST * MISC_STAGE;
   static constexpr int BARS = FLAGS + (64 + 4) * 4;
-  static constexpr int RP = 64 + 4;  // the partials' pitch in floats
+  static constexpr int RP = D + 4;  // the partials' pitch in floats
+  static constexpr int RED = SEQ ? 0 : STAGE0;  // where the partials go after the loop
   static constexpr size_t bytes = BARS + 128;
-  static_assert(ST * STAGE >= 2 * BK * RP * 4, "the partials fit in the stages");
+  static_assert(MISC - RED >= 2 * BK * RP * 4, "the partials fit");
   static_assert((2 + 3 * ST) * 8 <= 128, "the barriers fit");
   static_assert(bytes <= 232448, "a block's shared memory");
-  static_assert(((65536 / (NT * MIN_BLOCKS)) & ~7) * (1 + NC)
-                    == PRODUCER_REGS + NC * CONSUMER_REGS,
+  static_assert(!NREG || ((65536 / (NT * MIN_BLOCKS)) & ~7) * (1 + NC)
+                             == PRODUCER_REGS + NC * CONSUMER_REGS,
                 "setmaxnreg hands over exactly the launch's registers");
+  static_assert(NC <= ST, "a consumer waits on no stage two phases ahead");
 };
 
-template <typename T, bool TWO>
-__global__ void __launch_bounds__(Dkv<T, TWO>::NT, Dkv<T, TWO>::MIN_BLOCKS)
+template <typename T, int D, bool TWO>
+__global__ void __launch_bounds__(Dkv<T, D, TWO>::NT, Dkv<T, D, TWO>::MIN_BLOCKS)
 flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
                      const __grid_constant__ CUtensorMap kmap,
                      const __grid_constant__ CUtensorMap vmap,
@@ -693,8 +757,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
                      const float* __restrict__ bias, const int8_t* __restrict__ kmask,
                      T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ part,
                      int heads, int hk, int n, int m, float scale, int causal, int qsplit) {
-  using L = Dkv<T, TWO>;
-  constexpr int ST = L::ST;
+  using L = Dkv<T, D, TWO>;
+  constexpr int ST = L::ST, PER = L::PER;
   extern __shared__ __align__(1024) unsigned char dkv_smem[];
   unsigned char* sm = dkv_smem;
   if (threadIdx.x == 0 && (tc::smem_u32(sm) & 1023) != 0) __trap();  // the tiles' swizzle
@@ -710,7 +774,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
   };
   // log2(e) lse (+inf where p = 0: padded or fully masked rows), then
   // Delta, then log2(e) times the table slice: the bias of (q0 + c, k0 + r)
-  // is at [128 + c - r + BK - 1]
+  // is at [128 + c - r + BK - 1]; in the stage of the item's first ring item
   auto Ls = [&](int s) { return reinterpret_cast<float*>(sm + L::MISC + s * L::MISC_STAGE); };
   float* Fs = reinterpret_cast<float*>(sm + L::FLAGS);
   int* Fany = reinterpret_cast<int*>(Fs + 64);  // nonzero where a flag of keys 0-31 (32-63) is
@@ -750,11 +814,11 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
 
   if (tid < 128) {
     // ---- the producer ----
-    wg::setmaxnreg_dec<L::PRODUCER_REGS>();
+    if constexpr (L::NREG) wg::setmaxnreg_dec<L::PRODUCER_REGS>();
     if (tid == 0) {
       wg::mbar_arrive_tx(kvload, 2 * L::TILE);
-      wg::load_tile(Ks, &kmap, kvload, k0, kvh);
-      wg::load_tile(Vs, &vmap, kvload, k0, kvh);
+      wg::load_tile<T, D>(Ks, &kmap, kvload, k0, kvh);
+      wg::load_tile<T, D>(Vs, &vmap, kvload, k0, kvh);
     }
     if (tid < BK) {
       const float f = tc::key_flag(kmask, b, m, k0 + tid);
@@ -762,9 +826,10 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
       const unsigned any = __ballot_sync(0xffffffffu, f != 0.f);
       if (tid % 32 == 0) Fany[tid / 32] = any != 0u;
     }
-    // Item it into stage it % ST: Q and dO by TMA, lse, Delta and the table
-    // slice from registers loaded an item ahead (a load's latency, not the
-    // copies', would otherwise pace the ring).
+    // Ring item i into stage i % ST: item i / PER's Q and dO by TMA (SEQ:
+    // its Q, dO and Q, one a ring item), lse, Delta and the table slice with
+    // the item's first, from registers loaded an item ahead (a load's
+    // latency, not the copies', would otherwise pace the ring).
     float row_r = 0.f, tab_r = 0.f;
     auto fetch = [&](int it) {
       const int h = head(it), q0 = qtile(it);
@@ -779,50 +844,65 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
       if (tab != nullptr && tid < BQ + BK - 1)
         tab_r = tc::LOG2E * tc::tab_entry(tab, q0, k0, BK, tid, n, heads, h);
     };
-    auto issue = [&](int it) {
-      const int s = it % ST, h = head(it), q0 = qtile(it);
+    auto issue = [&](int i) {
+      const int s = i % ST, it = i / PER, h = head(it), q0 = qtile(it);
+      const bool first = i % PER == 0;
       const size_t bh = (size_t)b * heads + h;
       const float row_it = row_r, tab_it = tab_r;
-      if (it + 1 < total) fetch(it + 1);
-      wg::mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
+      if (first && it + 1 < total) fetch(it + 1);
+      wg::mbar_wait(&empty[s], ((i / ST) & 1) ^ 1);
       if (tid == 0) {
-        if constexpr (L::F32) wg::mbar_arrive_tx(&loaded[s], 2 * L::TILE);
+        if constexpr (L::F32) wg::mbar_arrive_tx(&loaded[s], (L::SEQ ? 1 : 2) * L::TILE);
         else wg::mbar_expect_tx(&full[s], 2 * L::TILE);
         uint64_t* bar = L::F32 ? &loaded[s] : &full[s];
-        wg::load_tile(Qs(s), &qmap, bar, q0, (int)bh);
-        wg::load_tile(Gs(s), &gmap, bar, q0, (int)bh);
+        if constexpr (L::SEQ) {
+          wg::load_tile<T, D>(Qs(s), i % PER == 1 ? &gmap : &qmap, bar, q0, (int)bh);
+        } else {
+          wg::load_tile<T, D>(Qs(s), &qmap, bar, q0, (int)bh);
+          wg::load_tile<T, D>(Gs(s), &gmap, bar, q0, (int)bh);
+        }
       }
-      float* ls = Ls(s);
-      ls[tid] = row_it;
-      if (tab != nullptr && tid < BQ + BK - 1) ls[2 * BQ + tid] = tab_it;
+      if (first) {
+        float* ls = Ls(s);
+        ls[tid] = row_it;
+        if (tab != nullptr && tid < BQ + BK - 1) ls[2 * BQ + tid] = tab_it;
+      }
       if constexpr (!L::F32) wg::mbar_arrive(&full[s]);
     };
-    // float32: item it's copies landed; split them, then hand the stage over
-    auto finish = [&](int it) {
-      const int s = it % ST;
-      wg::mbar_wait(&loaded[s], (it / ST) & 1);
-      wg::split_tile(reinterpret_cast<float*>(Qs(s)), reinterpret_cast<float*>(Ql(s)), tid, 128);
-      wg::split_tile(reinterpret_cast<float*>(Gs(s)), reinterpret_cast<float*>(Gl(s)), tid, 128);
+    // float32: item i's copies landed; split them, then hand the stage over
+    auto finish = [&](int i) {
+      const int s = i % ST;
+      wg::mbar_wait(&loaded[s], (i / ST) & 1);
+      wg::split_tile<L::TILE>(reinterpret_cast<float*>(Qs(s)), reinterpret_cast<float*>(Ql(s)),
+                              tid, 128);
+      if constexpr (!L::SEQ)
+        wg::split_tile<L::TILE>(reinterpret_cast<float*>(Gs(s)), reinterpret_cast<float*>(Gl(s)),
+                                tid, 128);
       wg::fence_proxy_async();
       wg::mbar_arrive(&full[s]);
     };
-    if (total > 0) {
+    const int nitems = PER * total;
+    if (nitems > 0) {
       fetch(0);
       issue(0);
     }
     wg::mbar_wait(kvload, 0);
     if constexpr (L::F32) {
-      wg::split_tile(reinterpret_cast<float*>(Ks), reinterpret_cast<float*>(Kl), tid, 128);
-      wg::split_tile(reinterpret_cast<float*>(Vs), reinterpret_cast<float*>(Vl), tid, 128);
+      wg::split_tile<L::TILE>(reinterpret_cast<float*>(Ks), reinterpret_cast<float*>(Kl), tid,
+                              128);
+      wg::split_tile<L::TILE>(reinterpret_cast<float*>(Vs), reinterpret_cast<float*>(Vl), tid,
+                              128);
       wg::fence_proxy_async();
     }
     wg::mbar_arrive(kvfull);
-    for (int it = 1; it < total; ++it) {
-      issue(it);
-      if constexpr (L::F32) finish(it - 1);
+    for (int i = 1; i < nitems; ++i) {
+      // one stage: item i - 1 handed over (and consumed) before item i loads
+      if constexpr (L::F32 && ST == 1) finish(i - 1);
+      issue(i);
+      if constexpr (L::F32 && ST > 1) finish(i - 1);
     }
     if constexpr (L::F32)
-      if (total > 0) finish(total - 1);
+      if (nitems > 0) finish(nitems - 1);
     // the cluster's two barriers of the head sum below
     tc::cluster_arrive();
     tc::cluster_wait();
@@ -832,7 +912,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 
   // ---- the consumers: warpgroup c takes the items c, c + NC, ... ----
-  wg::setmaxnreg_inc<L::CONSUMER_REGS>();
+  if constexpr (L::NREG) wg::setmaxnreg_inc<L::CONSUMER_REGS>();
   const int c = tid / 128 - 1, ctid = tid % 128, warp = ctid / 32, gq = (ctid % 32) / 4,
             t = ctid % 4;
   const int kl[2] = {warp * 16 + gq, warp * 16 + gq + 8};  // this thread's keys in the tile
@@ -840,21 +920,21 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
   const float fk[2] = {Fs[kl[0]], Fs[kl[1]]};
   const bool flagged = Fany[0] || Fany[1];
   const float sl = scale * tc::LOG2E;
-  float dka[32], dva[32];
+  float dka[4 * L::NA], dva[4 * L::NA];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) dka[i] = dva[i] = 0.f;
+  for (int i = 0; i < 4 * L::NA; ++i) dka[i] = dva[i] = 0.f;
 
   for (int it = c; it < total; it += L::NC) {
-    const int s = it % ST, q0 = qtile(it);
-    wg::mbar_wait(&full[s], (it / ST) & 1);
+    const int i0 = PER * it, s = i0 % ST, q0 = qtile(it);
+    wg::mbar_wait(&full[s], (i0 / ST) & 1);
     float st[32], dpt[32];  // S^T and dP^T: rows keys, columns queries
 #pragma unroll
     for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
     wg::fence_acc(st);
     wg::fence_acc(dpt);
     wg::wgmma_fence();
-    wg::gemm_nk<T>(st, Ks, Kl, Qs(s), Ql(s));
-    wg::gemm_nk<T>(dpt, Vs, Vl, Gs(s), Gl(s));
+    wg::gemm_nk<T, D>(st, Ks, Kl, Qs(s), Ql(s));
+    if constexpr (!L::SEQ) wg::gemm_nk<T, D>(dpt, Vs, Vl, Gs(s), Gl(s));
     // The (H, N, M) bias: this thread's 32 elements straight from device
     // memory, loaded while the products run (see flash_fwd.cu for why not
     // by TMA or through shared memory); rows past n and keys past m: none.
@@ -890,30 +970,46 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
       else if (flagged) y += fk[ri];
       const float p = tc::ex2(y - ls[cq]);
       st[i] = p;
-      dpt[i] = p * (dpt[i] - ls[BQ + cq]);
+      if constexpr (!L::SEQ) dpt[i] = p * (dpt[i] - ls[BQ + cq]);
+    }
+    if constexpr (L::SEQ) {
+      // Q's item done with; dO's into the slot: dP^T = V dO^T, dS, dV += P^T
+      // dO; then Q's again: dK += dS^T Q
+      wg::mbar_arrive(&empty[s]);
+      const int s1 = (i0 + 1) % ST, s2 = (i0 + 2) % ST;
+      wg::mbar_wait(&full[s1], ((i0 + 1) / ST) & 1);
+      wg::fence_acc(dpt);
+      wg::wgmma_fence();
+      wg::gemm_nk<T, D>(dpt, Vs, Vl, Qs(s1), Ql(s1));
+      wg::wgmma_wait<0>();
+      wg::fence_acc(dpt);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int cq = 8 * (i / 4) + 2 * t + (i & 1);
+        dpt[i] = st[i] * (dpt[i] - ls[BQ + cq]);
+      }
+      wg::add_pk_split<D>(dva, st, reinterpret_cast<const float*>(Qs(s1)),
+                          reinterpret_cast<const float*>(Ql(s1)));
+      wg::mbar_arrive(&empty[s1]);
+      wg::mbar_wait(&full[s2], ((i0 + 2) / ST) & 1);
+      wg::add_pk_split<D>(dka, dpt, reinterpret_cast<const float*>(Qs(s2)),
+                          reinterpret_cast<const float*>(Ql(s2)));
+      wg::mbar_arrive(&empty[s2]);
+      continue;
     }
     // dV += P^T dO; dK += dS^T Q
     if constexpr (L::F32) {
-      float pa[8][4];
-      wg::gemm_pk_split(pa, st, reinterpret_cast<const float*>(Gs(s)),
-                        reinterpret_cast<const float*>(Gl(s)));
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dva[4 * j + e] += pa[j][e];
-      wg::gemm_pk_split(pa, dpt, reinterpret_cast<const float*>(Qs(s)),
-                        reinterpret_cast<const float*>(Ql(s)));
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dka[4 * j + e] += pa[j][e];
+      wg::add_pk_split<D>(dva, st, reinterpret_cast<const float*>(Gs(s)),
+                          reinterpret_cast<const float*>(Gl(s)));
+      wg::add_pk_split<D>(dka, dpt, reinterpret_cast<const float*>(Qs(s)),
+                          reinterpret_cast<const float*>(Ql(s)));
     } else {
       wg::fence_acc(dva);
       wg::fence_acc(dka);
       wg::wgmma_fence();
       uint32_t pa[4][4], da[4][4];
-      wg::gemm_pk(dva, st, pa, reinterpret_cast<const __nv_bfloat16*>(Gs(s)));
-      wg::gemm_pk(dka, dpt, da, reinterpret_cast<const __nv_bfloat16*>(Qs(s)));
+      wg::gemm_pk<L::NA / 8>(dva, st, pa, reinterpret_cast<const __nv_bfloat16*>(Gs(s)));
+      wg::gemm_pk<L::NA / 8>(dka, dpt, da, reinterpret_cast<const __nv_bfloat16*>(Qs(s)));
       wg::wgmma_wait<0>();
       wg::fence_acc(dva);
       wg::fence_acc(dka);
@@ -925,12 +1021,12 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
   // stages; then the head sum over the cluster: rank 0 adds the blocks'
   // sums in rank order through map_shared_rank and writes dk and dv (or,
   // with the query range split, this chunk's partial): no atomics.
-  float* red = reinterpret_cast<float*>(sm + L::STAGE0);
+  float* red = reinterpret_cast<float*>(sm + L::RED);
   if constexpr (L::NC == 2) {
     tc::bar_sync(1, 256);
     if (c == 1) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < D / 8; ++j)
 #pragma unroll
         for (int ri = 0; ri < 2; ++ri) {
           float* row = red + kl[ri] * L::RP + 8 * j + 2 * t;
@@ -942,7 +1038,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
   }
   if (c == 0) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < D / 8; ++j)
 #pragma unroll
       for (int ri = 0; ri < 2; ++ri) {
         float* row = red + kl[ri] * L::RP + 8 * j + 2 * t;
@@ -958,9 +1054,9 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
   tc::cluster_arrive();
   tc::cluster_wait();
   if (rank == 0) {
-    const size_t plane = (size_t)gridDim.y * m * 64;  // one chunk's dk or dv partial
-    for (int i = tid - 128; i < BK * 64; i += 128 * L::NC) {
-      const int r = i / 64, cc = i % 64;
+    const size_t plane = (size_t)gridDim.y * m * D;  // one chunk's dk or dv partial
+    for (int i = tid - 128; i < BK * D; i += 128 * L::NC) {
+      const int r = i / D, cc = i % D;
       if (k0 + r >= m) continue;
       float sk = 0.f, sv = 0.f;
       for (int src = 0; src < csize; ++src) {
@@ -968,7 +1064,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
         sk += p[r * L::RP + cc];
         sv += p[(BK + r) * L::RP + cc];
       }
-      const size_t o = ((size_t)kvh * m + k0 + r) * 64 + cc;
+      const size_t o = ((size_t)kvh * m + k0 + r) * D + cc;
       if (part == nullptr) {
         dk[o] = from_f<T>(sk * scale);
         dv[o] = from_f<T>(sv);
@@ -1031,27 +1127,35 @@ int cluster_size(int x) {
 
 // K2's launch plan, as ops/kernels/flash_attention.py::dq_plan gives it:
 // the cluster (K5's: the largest divisor of the batch up to MAX_CLUSTER,
-// else 1) and the ring's stages
+// else 1), the ring's stages, the block's shared memory with K5's buffers
+// (sum) or K4's (else) and the blocks an SM it is built for
 struct DqPlan {
-  int cluster, stages;
+  int cluster, stages, smem, blocks;
 };
 
-DqPlan dq_plan(bool f32, int b, bool sum) {
-  return {sum ? cluster_size(b) : 1, f32 ? Dq<float, false>::ST : Dq<__nv_bfloat16, false>::ST};
+template <typename T, int D, bool SUM>
+DqPlan dq_plan_of(int b) {
+  using L = Dq<T, D, SUM>;
+  return {SUM ? cluster_size(b) : 1, L::ST, (int)L::most, L::MIN_BLOCKS};
+}
+
+template <typename T, int D>
+DqPlan dq_plan(int b, bool sum) {
+  return sum ? dq_plan_of<T, D, true>(b) : dq_plan_of<T, D, false>(b);
 }
 
 // K2; o2 the gradient of the bias given, dtab (K4, then its second pass,
 // with its partial sums in part) or dbias (K5), or null
-template <typename T, bool SUM>
+template <typename T, int D, bool SUM>
 cudaError_t launch_dq(const Args& a, void* dq, void* o2, void* part) {
-  using L = Dq<T, SUM>;
+  using L = Dq<T, D, SUM>;
   const bool dtab = a.bias == nullptr && o2 != nullptr;
   CUtensorMap qm, km, vm, gm;
-  cudaError_t err = wg::tile_map(&qm, a.q, sizeof(T), a.n, a.b * a.heads);
-  if (err == cudaSuccess) err = wg::tile_map(&gm, a.g, sizeof(T), a.n, a.b * a.heads);
-  if (err == cudaSuccess) err = wg::tile_map(&km, a.k, sizeof(T), a.m, a.b * a.hk);
-  if (err == cudaSuccess) err = wg::tile_map(&vm, a.v, sizeof(T), a.m, a.b * a.hk);
-  auto kernel = flash_bwd_dq_kernel<T, SUM>;
+  cudaError_t err = wg::tile_map(&qm, a.q, sizeof(T), a.n, a.b * a.heads, D);
+  if (err == cudaSuccess) err = wg::tile_map(&gm, a.g, sizeof(T), a.n, a.b * a.heads, D);
+  if (err == cudaSuccess) err = wg::tile_map(&km, a.k, sizeof(T), a.m, a.b * a.hk, D);
+  if (err == cudaSuccess) err = wg::tile_map(&vm, a.v, sizeof(T), a.m, a.b * a.hk, D);
+  auto kernel = flash_bwd_dq_kernel<T, D, SUM>;
   static unsigned sized = 0;  // the devices whose attribute is set, once per instantiation
   int dev = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
@@ -1060,7 +1164,7 @@ cudaError_t launch_dq(const Args& a, void* dq, void* o2, void* part) {
     if (err == cudaSuccess) sized |= 1u << dev;
   }
   if (err != cudaSuccess) return err;
-  const DqPlan plan = dq_plan(L::F32, a.b, SUM);
+  const DqPlan plan = dq_plan_of<T, D, SUM>(a.b);
   cudaLaunchAttribute attr[1] = {cluster_attr(plan.cluster)};
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(a.b, a.heads, (a.n + BQ - 1) / BQ);
@@ -1088,29 +1192,46 @@ cudaError_t launch_dq(const Args& a, void* dq, void* o2, void* part) {
 // number of chunks the query range is split into, so that a grid below one
 // block per SM fills the card (while each chunk keeps 4 query tiles), and
 // two consumer warpgroups a block for float32, and for bf16 where fewer
-// than two blocks an SM would run.
+// than two blocks an SM would run; at D = 128 two in bf16 and one (the
+// SEQ slot) in float32.
 struct DkvPlan {
   int cluster, qsplit;
   bool two;
 };
 
-DkvPlan dkv_plan(bool f32, int b, int heads, int hk, int n, int m) {
+DkvPlan dkv_plan(bool f32, int b, int heads, int hk, int n, int m, int d) {
   const int cluster = cluster_size(heads / hk);
   const long long base = (long long)cluster * b * hk * ((m + BK - 1) / BK);
   int qsplit = 1;
   if (base < PLAN_SMS) qsplit = max(1, min((int)(PLAN_SMS / base), (n + BQ - 1) / BQ / 4));
-  return {cluster, qsplit, f32 || base * qsplit < 2 * PLAN_SMS};
+  return {cluster, qsplit, d > 64 ? !f32 : f32 || base * qsplit < 2 * PLAN_SMS};
 }
 
-template <typename T, bool TWO>
+// K3's block shape L: out[0] its stages, out[1] its shared memory, out[2]
+// the blocks an SM it is built for
+template <typename L>
+void dkv_shape_of(int* out) {
+  out[0] = L::ST;
+  out[1] = (int)L::bytes;
+  out[2] = L::MIN_BLOCKS;
+}
+
+template <typename T, int D>
+void dkv_shape(bool two, int* out) {
+  if constexpr (D > 64) dkv_shape_of<Dkv<T, D, sizeof(T) == 2>>(out);
+  else if (two) dkv_shape_of<Dkv<T, D, true>>(out);
+  else dkv_shape_of<Dkv<T, D, false>>(out);
+}
+
+template <typename T, int D, bool TWO>
 cudaError_t launch_dkv(const Args& a, const DkvPlan& plan, void* dk, void* dv) {
-  using L = Dkv<T, TWO>;
+  using L = Dkv<T, D, TWO>;
   CUtensorMap qm, km, vm, gm;
-  cudaError_t err = wg::tile_map(&qm, a.q, sizeof(T), a.n, a.b * a.heads);
-  if (err == cudaSuccess) err = wg::tile_map(&gm, a.g, sizeof(T), a.n, a.b * a.heads);
-  if (err == cudaSuccess) err = wg::tile_map(&km, a.k, sizeof(T), a.m, a.b * a.hk);
-  if (err == cudaSuccess) err = wg::tile_map(&vm, a.v, sizeof(T), a.m, a.b * a.hk);
-  auto kernel = flash_bwd_dkv_kernel<T, TWO>;
+  cudaError_t err = wg::tile_map(&qm, a.q, sizeof(T), a.n, a.b * a.heads, D);
+  if (err == cudaSuccess) err = wg::tile_map(&gm, a.g, sizeof(T), a.n, a.b * a.heads, D);
+  if (err == cudaSuccess) err = wg::tile_map(&km, a.k, sizeof(T), a.m, a.b * a.hk, D);
+  if (err == cudaSuccess) err = wg::tile_map(&vm, a.v, sizeof(T), a.m, a.b * a.hk, D);
+  auto kernel = flash_bwd_dkv_kernel<T, D, TWO>;
   static unsigned sized = 0;  // the devices whose attribute is set, once per instantiation
   int dev = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
@@ -1121,7 +1242,7 @@ cudaError_t launch_dkv(const Args& a, const DkvPlan& plan, void* dk, void* dv) {
   if (err != cudaSuccess) return err;
   // the query range split over chunks: their partials in scratch, summed
   // in chunk order by a second pass (one K3 call, two launches)
-  const size_t plane = (size_t)a.b * a.hk * a.m * 64;
+  const size_t plane = (size_t)a.b * a.hk * a.m * D;
   float* part = nullptr;
   if (plan.qsplit > 1) {
     // the device's default pool keeps up to 64 MB it was given back, so
@@ -1164,21 +1285,31 @@ cudaError_t launch_dkv(const Args& a, const DkvPlan& plan, void* dk, void* dv) {
 }
 
 // which: 0 dq (and the bias's gradient in o2 when not null), 1 dk/dv
-template <typename T>
-cudaError_t dispatch(int which, int d, const Args& a, void* o1, void* o2, void* part) {
-  if (d != 64) return cudaErrorInvalidValue;
+template <typename T, int D>
+cudaError_t dispatch(int which, const Args& a, void* o1, void* o2, void* part) {
   if (a.tab != nullptr && a.bias != nullptr) return cudaErrorInvalidValue;
   if (which == 1) {
-    const DkvPlan plan = dkv_plan(sizeof(T) == 4, a.b, a.heads, a.hk, a.n, a.m);
-    if constexpr (sizeof(T) == 4) return launch_dkv<T, true>(a, plan, o1, o2);
+    const DkvPlan plan = dkv_plan(sizeof(T) == 4, a.b, a.heads, a.hk, a.n, a.m, D);
+    if constexpr (D > 64) return launch_dkv<T, D, sizeof(T) == 2>(a, plan, o1, o2);
+    else if constexpr (sizeof(T) == 4) return launch_dkv<T, D, true>(a, plan, o1, o2);
     else
-      return plan.two ? launch_dkv<T, true>(a, plan, o1, o2)
-                      : launch_dkv<T, false>(a, plan, o1, o2);
+      return plan.two ? launch_dkv<T, D, true>(a, plan, o1, o2)
+                      : launch_dkv<T, D, false>(a, plan, o1, o2);
   }
   if (o2 != nullptr && (a.tab == nullptr ? a.bias == nullptr : a.n != a.m || part == nullptr))
     return cudaErrorInvalidValue;
-  return a.bias != nullptr && o2 != nullptr ? launch_dq<T, true>(a, o1, o2, part)
-                                            : launch_dq<T, false>(a, o1, o2, part);
+  return a.bias != nullptr && o2 != nullptr ? launch_dq<T, D, true>(a, o1, o2, part)
+                                            : launch_dq<T, D, false>(a, o1, o2, part);
+}
+
+template <typename T>
+cudaError_t dispatch_dim(int which, int d, const Args& a, void* o1, void* o2, void* part) {
+  switch (d) {
+    case 32: return dispatch<T, 32>(which, a, o1, o2, part);
+    case 64: return dispatch<T, 64>(which, a, o1, o2, part);
+    case 128: return dispatch<T, 128>(which, a, o1, o2, part);
+  }
+  return cudaErrorInvalidValue;
 }
 
 int run(int which, const void* q, const void* k, const void* v, const void* g,
@@ -1187,15 +1318,15 @@ int run(int which, const void* q, const void* k, const void* v, const void* g,
         int m, int d, float scale, int causal, int dtype, void* stream) {
   const Args a{q, k, v, g, lse, delta, tab, bias, kmask, b, heads, hk, n, m, scale, causal,
                static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) return dispatch<float>(which, d, a, o1, o2, part);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(which, d, a, o1, o2, part);
+  if (dtype == 0) return dispatch_dim<float>(which, d, a, o1, o2, part);
+  if (dtype == 1) return dispatch_dim<__nv_bfloat16>(which, d, a, o1, o2, part);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q, g (b*heads, n, d); k, v (b*hk, m, d), in one dtype (0 float32, 1
-// bfloat16); lse, delta (b*heads, n) float32; tab (2n-1, heads) float32 or
+// q, g (b*heads, n, d); k, v (b*hk, m, d), d in 32, 64, 128, in one dtype
+// (0 float32, 1 bfloat16); lse, delta (b*heads, n) float32; tab (2n-1, heads) float32 or
 // null; bias (heads, n, m) float32 or null, at most one of tab and bias;
 // kmask (b, m) int8 or null. Each returns a cudaError_t.
 
@@ -1225,26 +1356,50 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
              d, scale, causal, dtype, stream);
 }
 
-// K2's launch plan for these sizes, dtype (0 float32, 1 bfloat16) and form
-// (1 with K5's sum, the (H, N, M) bias's gradient; 0 otherwise): out[0] the
-// cluster, out[1] the ring's stages (ops/kernels/flash_attention.py::dq_plan
-// mirrors it)
-extern "C" int flash_dq_plan(int b, int heads, int hk, int n, int m, int dtype, int sum,
+// K2's launch plan for these sizes, head dim, dtype (0 float32, 1 bfloat16)
+// and form (1 with K5's sum, the (H, N, M) bias's gradient; 0 otherwise):
+// out[0] the cluster, out[1] the ring's stages, out[2] the block's shared
+// memory (with K5's buffers, or K4's), out[3] the blocks an SM it is built
+// for (ops/kernels/flash_attention.py::dq_plan mirrors it)
+extern "C" int flash_dq_plan(int b, int heads, int hk, int n, int m, int d, int dtype, int sum,
                              int* out) {
   if (hk <= 0 || heads % hk || b <= 0 || n <= 0 || m <= 0 || (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
-  const DqPlan plan = dq_plan(dtype == 0, b, sum != 0);
+  DqPlan plan;
+  switch (d * 2 + dtype) {
+    case 64: plan = dq_plan<float, 32>(b, sum != 0); break;
+    case 65: plan = dq_plan<__nv_bfloat16, 32>(b, sum != 0); break;
+    case 128: plan = dq_plan<float, 64>(b, sum != 0); break;
+    case 129: plan = dq_plan<__nv_bfloat16, 64>(b, sum != 0); break;
+    case 256: plan = dq_plan<float, 128>(b, sum != 0); break;
+    case 257: plan = dq_plan<__nv_bfloat16, 128>(b, sum != 0); break;
+    default: return cudaErrorInvalidValue;
+  }
   out[0] = plan.cluster;
   out[1] = plan.stages;
+  out[2] = plan.smem;
+  out[3] = plan.blocks;
   return cudaSuccess;
 }
 
-// K3's launch plan for these sizes and dtype (0 float32, 1 bfloat16): out[0]
-// the cluster, out[1] the query chunks, out[2] the consumer warpgroups a
-// block (ops/kernels/flash_attention.py::dkv_plan mirrors it)
-extern "C" int flash_dkv_plan(int b, int heads, int hk, int n, int m, int dtype, int* out) {
+// K3's launch plan for these sizes, head dim and dtype (0 float32, 1
+// bfloat16): out[0] the cluster, out[1] the query chunks, out[2] the
+// consumer warpgroups a block, out[3] the ring's stages, out[4] the block's
+// shared memory, out[5] the blocks an SM it is built for
+// (ops/kernels/flash_attention.py::dkv_plan mirrors it)
+extern "C" int flash_dkv_plan(int b, int heads, int hk, int n, int m, int d, int dtype,
+                              int* out) {
   if (hk <= 0 || heads % hk || (dtype != 0 && dtype != 1)) return cudaErrorInvalidValue;
-  const DkvPlan plan = dkv_plan(dtype == 0, b, heads, hk, n, m);
+  const DkvPlan plan = dkv_plan(dtype == 0, b, heads, hk, n, m, d);
+  switch (d * 2 + dtype) {
+    case 64: dkv_shape<float, 32>(plan.two, out + 3); break;
+    case 65: dkv_shape<__nv_bfloat16, 32>(plan.two, out + 3); break;
+    case 128: dkv_shape<float, 64>(plan.two, out + 3); break;
+    case 129: dkv_shape<__nv_bfloat16, 64>(plan.two, out + 3); break;
+    case 256: dkv_shape<float, 128>(plan.two, out + 3); break;
+    case 257: dkv_shape<__nv_bfloat16, 128>(plan.two, out + 3); break;
+    default: return cudaErrorInvalidValue;
+  }
   out[0] = plan.cluster;
   out[1] = plan.qsplit;
   out[2] = plan.two ? 2 : 1;

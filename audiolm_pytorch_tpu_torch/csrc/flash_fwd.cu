@@ -56,8 +56,20 @@
 // V's split tiles (wgmma's tf32 takes K-major B only; a transposed copy of
 // V's pair would take 32 KB more a stage, and the two float32 stages, Q
 // and the bias blocks fill ~200 KB), each tile's product from zero and
-// added on the CUDA cores (tc::add_tile's reason). Instantiated for D = 64,
-// the head dim of every model on the port's path.
+// added on the CUDA cores (tc::add_tile's reason).
+//
+// Head dims. Instantiated for D = 32, 64 and 128 (the wrapper zero-pads any
+// other D up to 128 into the next of them). A D-wide row is D * sizeof(T) /
+// 128 boxes of csrc/wgmma.cuh's 128-byte swizzle (a 32-wide bf16 row half
+// of one, its other half read as zeros past the row's end), S = Q K^T runs
+// over D * sizeof(T) / 32 k-steps, and P V one product a 64-column box. At
+// D = 32 the block shapes are those of D = 64 with smaller tiles. At D = 128
+// every tile doubles, so a block's three stages (112 KB) leave room for one
+// block an SM: bf16 always takes the two-consumer block; float32 (Q 64 KB
+// and a stage of K and V 128 KB with their small parts) one consumer and
+// one stage, and no setmaxnreg (255 registers each), its ring ordering a
+// tile's split before the next tile's load. Simple, not yet fast: see
+// PERF.md.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -68,7 +80,6 @@ namespace {
 
 constexpr int BQ = 64;          // query rows per block
 constexpr int BK = 64;          // keys per tile
-constexpr int TPITCH = BK + 8;  // the merge's pitch: float2 stores and reads without conflicts
 constexpr int PLAN_SMS = 132;   // the H100's SMs, which the launch's choice of block fills
 using tc::NEG;
 constexpr float LN2 = 0.6931471805599453f;
@@ -91,18 +102,24 @@ constexpr float LN2 = 0.6931471805599453f;
 //     blocks), so each block's rows finish in half the time. After the loop
 //     the second consumer's (O, m, l) take the first stage's place and the
 //     first merges them.
-template <typename T, bool TWO>
+template <typename T, int D, bool TWO>
 struct Fwd {
   static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr bool WIDE = D > 64;  // D = 128
   static constexpr int NC = TWO ? 2 : 1;  // consumer warpgroups
   static constexpr int NT = 128 * (1 + NC);
-  static constexpr int MIN_BLOCKS = TWO ? 1 : F32 ? 2 : 3;
+  static constexpr int MIN_BLOCKS = TWO || (F32 && WIDE) ? 1 : F32 ? 2 : 3;
   // registers a thread: the producer's and a consumer's, within the launch's
-  // (65536 / (NT * MIN_BLOCKS), rounded down to 8, each thread)
+  // (65536 / (NT * MIN_BLOCKS), rounded down to 8, each thread), handed over
+  // by setmaxnreg (NREG); float32 at D = 128 (one consumer, one block an
+  // SM) keeps 255 each
+  static constexpr bool NREG = !(F32 && WIDE);
   static constexpr int PRODUCER_REGS = TWO ? 56 : F32 ? 40 : 24;
   static constexpr int CONSUMER_REGS = TWO ? 224 : F32 ? 216 : 136;
   static constexpr int ST = F32 && !TWO ? 1 : 3;  // stages
-  static constexpr int TILE = wg::tile_bytes<T>();
+  static constexpr int TILE = wg::tile_bytes<T, D>();
+  static constexpr int NA = wg::acc_blocks<T, D>();  // the O accumulator's n-blocks
+  static constexpr int TP = D + 8;  // the merge's pitch: float2 stores and reads without conflicts
   static constexpr int OPER = F32 ? 2 * TILE : TILE;
   static constexpr int STAGE0 = OPER;
   static constexpr int STAGE = 2 * OPER;
@@ -111,22 +128,23 @@ struct Fwd {
   static constexpr int BARS = MISC + ST * MISC_STAGE;
   static constexpr size_t bytes = BARS + 128;
   static_assert(bytes <= 232448, "a block's shared memory");
-  static_assert(NC == 1 || ST * STAGE >= (BQ * TPITCH + 2 * BQ) * 4, "the merge fits");
+  static_assert(NC == 1 || ST * STAGE >= (BQ * TP + 2 * BQ) * 4, "the merge fits");
   static_assert((2 + 3 * ST) * 8 <= 128, "the barriers fit");
-  static_assert((PRODUCER_REGS + NC * CONSUMER_REGS) * MIN_BLOCKS * 128 <= 65536
-                && ((65536 / (NT * MIN_BLOCKS)) & ~7) * (1 + NC)
-                       == PRODUCER_REGS + NC * CONSUMER_REGS,
+  static_assert(!NREG || ((PRODUCER_REGS + NC * CONSUMER_REGS) * MIN_BLOCKS * 128 <= 65536
+                          && ((65536 / (NT * MIN_BLOCKS)) & ~7) * (1 + NC)
+                                 == PRODUCER_REGS + NC * CONSUMER_REGS),
                 "setmaxnreg hands over exactly the launch's registers");
+  static_assert(NC <= ST, "a consumer waits on no stage two phases ahead");
 };
 
-template <typename T, bool TWO>
-__global__ void __launch_bounds__(Fwd<T, TWO>::NT, Fwd<T, TWO>::MIN_BLOCKS)
+template <typename T, int D, bool TWO>
+__global__ void __launch_bounds__(Fwd<T, D, TWO>::NT, Fwd<T, D, TWO>::MIN_BLOCKS)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
                  const __grid_constant__ CUtensorMap vmap, const float* __restrict__ tab,
                  const float* __restrict__ bias, const int8_t* __restrict__ kmask,
                  T* __restrict__ out, float* __restrict__ lse, int heads, int group, int n, int m,
                  float scale, int causal) {
-  using L = Fwd<T, TWO>;
+  using L = Fwd<T, D, TWO>;
   constexpr int ST = L::ST, NC = L::NC;
   extern __shared__ __align__(1024) unsigned char fwd_smem[];
   unsigned char* sm = fwd_smem;
@@ -173,11 +191,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
 
   if (tid < 128) {
     // ---- the producer ----
-    wg::setmaxnreg_dec<L::PRODUCER_REGS>();
+    if constexpr (L::NREG) wg::setmaxnreg_dec<L::PRODUCER_REGS>();
     const int kvp = bh / group;
     if (tid == 0) {
       wg::mbar_arrive_tx(qload, L::TILE);
-      wg::load_tile(Qs, &qmap, qload, q0, bh);
+      wg::load_tile<T, D>(Qs, &qmap, qload, q0, bh);
     }
     // Tile it into stage it % ST: K and V by TMA, the table slice and key
     // flags from registers loaded a tile ahead (a load's latency, not the
@@ -198,8 +216,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
         if constexpr (L::F32) wg::mbar_arrive_tx(&loaded[s], 2 * L::TILE);
         else wg::mbar_expect_tx(&full[s], 2 * L::TILE);
         uint64_t* bar = L::F32 ? &loaded[s] : &full[s];
-        wg::load_tile(Ks(s), &kmap, bar, k0, kvp);
-        wg::load_tile(Vs(s), &vmap, bar, k0, kvp);
+        wg::load_tile<T, D>(Ks(s), &kmap, bar, k0, kvp);
+        wg::load_tile<T, D>(Vs(s), &vmap, bar, k0, kvp);
       }
       if (tab != nullptr && tid < BQ + BK - 1) Bs(s)[tid] = tab_it;
       if (tid < BK) {
@@ -213,8 +231,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
     auto finish = [&](int it) {
       const int s = it % ST;
       wg::mbar_wait(&loaded[s], (it / ST) & 1);
-      wg::split_tile(reinterpret_cast<float*>(Ks(s)), reinterpret_cast<float*>(Kl(s)), tid, 128);
-      wg::split_tile(reinterpret_cast<float*>(Vs(s)), reinterpret_cast<float*>(Vl(s)), tid, 128);
+      wg::split_tile<L::TILE>(reinterpret_cast<float*>(Ks(s)), reinterpret_cast<float*>(Kl(s)),
+                              tid, 128);
+      wg::split_tile<L::TILE>(reinterpret_cast<float*>(Vs(s)), reinterpret_cast<float*>(Vl(s)),
+                              tid, 128);
       wg::fence_proxy_async();
       wg::mbar_arrive(&full[s]);
     };
@@ -222,13 +242,16 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
     if (ntiles > 0) issue(0);
     wg::mbar_wait(qload, 0);
     if constexpr (L::F32) {
-      wg::split_tile(reinterpret_cast<float*>(Qs), reinterpret_cast<float*>(Ql), tid, 128);
+      wg::split_tile<L::TILE>(reinterpret_cast<float*>(Qs), reinterpret_cast<float*>(Ql), tid,
+                              128);
       wg::fence_proxy_async();
     }
     wg::mbar_arrive(qfull);
     for (int it = 1; it < ntiles; ++it) {
+      // one stage: tile it - 1 handed over (and consumed) before tile it loads
+      if constexpr (L::F32 && ST == 1) finish(it - 1);
       issue(it);
-      if constexpr (L::F32) finish(it - 1);
+      if constexpr (L::F32 && ST > 1) finish(it - 1);
     }
     if constexpr (L::F32)
       if (ntiles > 0) finish(ntiles - 1);
@@ -236,7 +259,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
   }
 
   // ---- the consumers: warpgroup c takes the key tiles c, c + NC, ... ----
-  wg::setmaxnreg_inc<L::CONSUMER_REGS>();
+  if constexpr (L::NREG) wg::setmaxnreg_inc<L::CONSUMER_REGS>();
   const int c = tid / 128 - 1, ctid = tid % 128, warp = ctid / 32, g = (ctid % 32) / 4,
             t = ctid % 4;
   const int rl[2] = {warp * 16 + g, warp * 16 + g + 8};  // this thread's rows in the tile
@@ -246,9 +269,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
                           biash != nullptr && q0 + rl[1] < n ? biash + (size_t)(q0 + rl[1]) * m
                                                              : nullptr};
   float m_i[2] = {NEG, NEG}, l_i[2] = {0.f, 0.f};
-  float o[32];
+  float o[4 * L::NA];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  for (int i = 0; i < 4 * L::NA; ++i) o[i] = 0.f;
   wg::mbar_wait(qfull, 0);
 
   for (int it = c; it < ntiles; it += NC) {
@@ -259,7 +282,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
     for (int i = 0; i < 32; ++i) sc[i] = 0.f;
     wg::fence_acc(sc);
     wg::wgmma_fence();
-    wg::gemm_nk<T>(sc, Qs, Ql, Ks(s), Kl(s));
+    wg::gemm_nk<T, D>(sc, Qs, Ql, Ks(s), Kl(s));
     // The (H, N, M) bias: this thread's 32 elements straight from device
     // memory (mostly L2: the batch rows of a head run together), loaded
     // while the product runs. Its rows (M floats) are not 16-byte multiples,
@@ -341,19 +364,14 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
     }
     // O = O * alpha + P V
     if constexpr (L::F32) {
-      float part[8][4];
-      wg::gemm_pk_split(part, sc, reinterpret_cast<const float*>(Vs(s)),
-                        reinterpret_cast<const float*>(Vl(s)));
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[4 * j + e] = o[4 * j + e] * alpha[e / 2] + part[j][e];
+      wg::add_pk_split<D, true>(o, sc, reinterpret_cast<const float*>(Vs(s)),
+                                reinterpret_cast<const float*>(Vl(s)), alpha);
     } else {
 #pragma unroll
-      for (int i = 0; i < 32; ++i) o[i] *= alpha[(i / 2) & 1];
+      for (int i = 0; i < 4 * L::NA; ++i) o[i] *= alpha[(i / 2) & 1];
       wg::fence_acc(o);
       uint32_t pa[4][4];
-      wg::gemm_pk(o, sc, pa, reinterpret_cast<const __nv_bfloat16*>(Vs(s)));
+      wg::gemm_pk<L::NA / 8>(o, sc, pa, reinterpret_cast<const __nv_bfloat16*>(Vs(s)));
       wg::wgmma_wait<0>();
       wg::fence_acc(o);
     }
@@ -362,16 +380,16 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
 
   // two consumers: the second's (O, m, l) into the first stage; the first merges
   float* mo = reinterpret_cast<float*>(sm + L::STAGE0);
-  float* mm = mo + BQ * TPITCH;
+  float* mm = mo + BQ * L::TP;
   float* ml = mm + BQ;
   if constexpr (NC == 2) {
     tc::bar_sync(1, 256);
     if (c == 1) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < D / 8; ++j)
 #pragma unroll
         for (int ri = 0; ri < 2; ++ri)
-          tc::store2(mo + rl[ri] * TPITCH + 8 * j + 2 * t, o[4 * j + 2 * ri],
+          tc::store2(mo + rl[ri] * L::TP + 8 * j + 2 * t, o[4 * j + 2 * ri],
                      o[4 * j + 2 * ri + 1]);
       if (t == 0) {
         mm[rl[0]] = m_i[0], mm[rl[1]] = m_i[1];
@@ -393,11 +411,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
     const int qp = q0 + rl[ri];
     if (qp >= n) continue;
     const float inv = 1.f / (l == 0.f ? 1.f : l);
-    T* orow = out + ((size_t)bh * n + qp) * 64;
+    T* orow = out + ((size_t)bh * n + qp) * D;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < D / 8; ++j) {
       float2 o1 = make_float2(0.f, 0.f);
-      if constexpr (NC == 2) o1 = *reinterpret_cast<const float2*>(mo + rl[ri] * TPITCH + 8 * j + 2 * t);
+      if constexpr (NC == 2) o1 = *reinterpret_cast<const float2*>(mo + rl[ri] * L::TP + 8 * j + 2 * t);
       tc::store2(orow + 8 * j + 2 * t, (o[4 * j + 2 * ri] * a0 + o1.x * a1) * inv,
                  (o[4 * j + 2 * ri + 1] * a0 + o1.y * a1) * inv);
     }
@@ -408,75 +426,127 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
   }
 }
 
-// two consumer warpgroups a block (fwd_plan in ops/kernels/flash_attention.py)
-bool fwd_two(bool f32, int bh, int n, int m) {
+// two consumer warpgroups a block (fwd_plan in ops/kernels/flash_attention.py);
+// at D = 128 one shape a dtype: two in bf16, one in float32
+bool fwd_two(bool f32, int bh, int n, int m, int d) {
+  if (d > 64) return !f32;
   return f32 ? m > BK : (long long)bh * ((n + BQ - 1) / BQ) < 2 * PLAN_SMS;
 }
 
-template <typename T, bool TWO>
+template <typename T, int D, bool TWO>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* tab,
                    const void* bias, const void* kmask, void* out, void* lse, int bh, int heads,
                    int group, int n, int m, float scale, int causal, cudaStream_t stream) {
-  using L = Fwd<T, TWO>;
-  if (L::ST == 1 && m > BK) return cudaErrorInvalidValue;  // one stage holds one key tile
+  using L = Fwd<T, D, TWO>;
   CUtensorMap qm, km, vm;
-  cudaError_t err = wg::tile_map(&qm, q, sizeof(T), n, bh);
-  if (err == cudaSuccess) err = wg::tile_map(&km, k, sizeof(T), m, bh / group);
-  if (err == cudaSuccess) err = wg::tile_map(&vm, v, sizeof(T), m, bh / group);
+  cudaError_t err = wg::tile_map(&qm, q, sizeof(T), n, bh, D);
+  if (err == cudaSuccess) err = wg::tile_map(&km, k, sizeof(T), m, bh / group, D);
+  if (err == cudaSuccess) err = wg::tile_map(&vm, v, sizeof(T), m, bh / group, D);
   static unsigned sized = 0;  // the devices whose attribute is set, once per instantiation
   int dev = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess && (dev >= 32 || !(sized >> dev & 1))) {
-    err = cudaFuncSetAttribute(flash_fwd_kernel<T, TWO>,
+    err = cudaFuncSetAttribute(flash_fwd_kernel<T, D, TWO>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
     if (err == cudaSuccess) sized |= 1u << dev;
   }
   if (err != cudaSuccess) return err;
   dim3 grid(bh, (n + BQ - 1) / BQ);
-  flash_fwd_kernel<T, TWO><<<grid, L::NT, L::bytes, stream>>>(
+  flash_fwd_kernel<T, D, TWO><<<grid, L::NT, L::bytes, stream>>>(
       qm, km, vm, static_cast<const float*>(tab), static_cast<const float*>(bias),
       static_cast<const int8_t*>(kmask), static_cast<T*>(out), static_cast<float*>(lse), heads,
       group, n, m, scale, causal);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int D>
 cudaError_t launch_shape(bool two, const void* q, const void* k, const void* v, const void* tab,
                          const void* bias, const void* kmask, void* out, void* lse, int bh,
                          int heads, int group, int n, int m, float scale, int causal,
                          cudaStream_t stream) {
-  return two ? launch<T, true>(q, k, v, tab, bias, kmask, out, lse, bh, heads, group, n, m,
-                               scale, causal, stream)
-             : launch<T, false>(q, k, v, tab, bias, kmask, out, lse, bh, heads, group, n, m,
-                                scale, causal, stream);
+  if constexpr (D > 64)  // one block shape a dtype (fwd_two)
+    return launch<T, D, sizeof(T) == 2>(q, k, v, tab, bias, kmask, out, lse, bh, heads, group,
+                                        n, m, scale, causal, stream);
+  else
+    return two ? launch<T, D, true>(q, k, v, tab, bias, kmask, out, lse, bh, heads, group, n, m,
+                                    scale, causal, stream)
+               : launch<T, D, false>(q, k, v, tab, bias, kmask, out, lse, bh, heads, group, n,
+                                     m, scale, causal, stream);
+}
+
+template <typename T>
+cudaError_t launch_dim(int d, const void* q, const void* k, const void* v, const void* tab,
+                       const void* bias, const void* kmask, void* out, void* lse, int bh,
+                       int heads, int group, int n, int m, float scale, int causal,
+                       cudaStream_t stream) {
+  const bool two = fwd_two(sizeof(T) == 4, bh, n, m, d);
+  switch (d) {
+    case 32:
+      return launch_shape<T, 32>(two, q, k, v, tab, bias, kmask, out, lse, bh, heads, group, n,
+                                 m, scale, causal, stream);
+    case 64:
+      return launch_shape<T, 64>(two, q, k, v, tab, bias, kmask, out, lse, bh, heads, group, n,
+                                 m, scale, causal, stream);
+    case 128:
+      return launch_shape<T, 128>(two, q, k, v, tab, bias, kmask, out, lse, bh, heads, group,
+                                  n, m, scale, causal, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// the plan of one block shape: consumers, stages, shared memory, blocks an SM
+template <typename L>
+void plan_of(int* out) {
+  out[0] = L::NC;
+  out[1] = L::ST;
+  out[2] = (int)L::bytes;
+  out[3] = L::MIN_BLOCKS;
+}
+
+template <typename T, int D>
+void fwd_plan_of(bool two, int* out) {
+  if constexpr (D > 64) plan_of<Fwd<T, D, sizeof(T) == 2>>(out);
+  else if (two) plan_of<Fwd<T, D, true>>(out);
+  else plan_of<Fwd<T, D, false>>(out);
 }
 
 }  // namespace
 
-// q (bh, n, d); k, v (bh / group, m, d); tab (2n-1, heads) float32 or null;
-// bias (heads, n, m) float32 or null, at most one of the two; kmask
-// (bh / heads, m) int8 or null; out (bh, n, d) in q's type; lse (bh, n)
-// float32. q, k, v and bias 16-byte aligned. dtype 0 = float32, 1 = bfloat16.
-// Returns a cudaError_t.
+// q (bh, n, d); k, v (bh / group, m, d), d in 32, 64, 128; tab (2n-1, heads)
+// float32 or null; bias (heads, n, m) float32 or null, at most one of the
+// two; kmask (bh / heads, m) int8 or null; out (bh, n, d) in q's type; lse
+// (bh, n) float32. q, k, v and bias 16-byte aligned. dtype 0 = float32, 1 =
+// bfloat16. Returns a cudaError_t.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void* tab,
                          const void* bias, const void* kmask, void* out, void* lse, int bh,
                          int heads, int group, int n, int m, int d, float scale, int causal,
                          int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tab != nullptr && bias != nullptr) return cudaErrorInvalidValue;
-  if (d != 64) return cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch_shape<float>(fwd_two(true, bh, n, m), q, k, v, tab, bias, kmask, out, lse, bh,
-                               heads, group, n, m, scale, causal, s);
+    return launch_dim<float>(d, q, k, v, tab, bias, kmask, out, lse, bh, heads, group, n, m,
+                             scale, causal, s);
   if (dtype == 1)
-    return launch_shape<__nv_bfloat16>(fwd_two(false, bh, n, m), q, k, v, tab, bias, kmask, out,
-                                       lse, bh, heads, group, n, m, scale, causal, s);
+    return launch_dim<__nv_bfloat16>(d, q, k, v, tab, bias, kmask, out, lse, bh, heads, group,
+                                     n, m, scale, causal, s);
   return cudaErrorInvalidValue;
 }
 
-// K1's block for these sizes: 1 with two consumer warpgroups, 0 with one
-// (ops/kernels/flash_attention.py::fwd_plan mirrors it)
-extern "C" int flash_fwd_plan(int bh, int n, int m, int dtype) {
-  if (dtype != 0 && dtype != 1) return -1;
-  return fwd_two(dtype == 0, bh, n, m) ? 1 : 0;
+// K1's block for these sizes, head dim and dtype: out[0] its consumer
+// warpgroups, out[1] the ring's stages, out[2] its shared memory in bytes,
+// out[3] the blocks an SM it is built for (ops/kernels/flash_attention.py::
+// fwd_plan mirrors it)
+extern "C" int flash_fwd_plan(int bh, int n, int m, int d, int dtype, int* out) {
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
+  const bool two = fwd_two(dtype == 0, bh, n, m, d);
+  switch (d * 2 + dtype) {
+    case 64: fwd_plan_of<float, 32>(two, out); break;
+    case 65: fwd_plan_of<__nv_bfloat16, 32>(two, out); break;
+    case 128: fwd_plan_of<float, 64>(two, out); break;
+    case 129: fwd_plan_of<__nv_bfloat16, 64>(two, out); break;
+    case 256: fwd_plan_of<float, 128>(two, out); break;
+    case 257: fwd_plan_of<__nv_bfloat16, 128>(two, out); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaSuccess;
 }

@@ -44,6 +44,11 @@
 // for window -1 and the padding, computed only in a block that holds such a
 // row. q, k, v and out are read and written through their (batch, head,
 // time) strides, so the codec's transposed (B, N, H, D) views need no copy.
+// Instantiated for D = 32, 64 and 128 (the wrapper zero-pads any other D up
+// to 128 into the next of them); in float32 at D = 128 Q's 3xTF32 fragments
+// (128 registers a thread) would not fit beside O's, so Q stays in a tile of
+// its own in shared memory and is read at each k-step, and O += P V runs 64
+// columns at a time.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -64,19 +69,27 @@ struct Strides {
   long long b, h, t;
 };
 
-// Shared memory: two stages of (K tile, V tile, key flags [BK]), then with a
-// bias two of its 64x64 blocks. Q is staged, before the loop, in stage 1's K
-// tile; after the loop stage 0 holds the mean of the value slots.
+// Shared memory: two stages of (K tile, V tile, key flags [BK]), Q's tile
+// where it stays in shared memory (QS), then with a bias two of its 64x64
+// blocks. Otherwise Q is staged, before the loop, in stage 1's K tile and
+// read into registers; after the loop stage 0 holds the mean of the value
+// slots.
 template <typename T, int D>
 struct Smem {
   static constexpr int P = tc::pitch<T, D>();
+  static constexpr bool QS = sizeof(T) == 4 && D > 64;
   static constexpr size_t tile = (size_t)BK * P * sizeof(T);
   static constexpr size_t stage = 2 * tile + BK * sizeof(float);
-  static constexpr size_t base = 2 * stage;
+  static constexpr size_t base = 2 * stage + (QS ? tile : 0);
   static constexpr size_t dense = 2 * (size_t)BQ * TPITCH * sizeof(float);
   static_assert(tile % 16 == 0 && stage % 16 == 0, "16-byte aligned regions");
   static_assert(2 * D * sizeof(float) <= stage, "the value means fit in a stage");
+  static_assert(base + dense <= 232448, "a block's shared memory");
 };
+
+// Q's A operand: fragments in registers, or its tile in shared memory
+template <typename T, int D, bool SMEM> struct QFrags { using type = tc::ARegs<T, D>; };
+template <typename T, int D> struct QFrags<T, D, true> { using type = tc::ASmem<T>; };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -133,8 +146,10 @@ local_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
     if (tid < BK) Fs(it & 1)[tid] = flag_r;
   };
 
-  // Q (in stage 1's K tile) with tile 0, then Q's fragments into registers
-  tc::cp_tile<T, D, BQ, NT>(Ks(1), P, qb, q0, t, sq.t);
+  // Q (in stage 1's K tile, or its own) with tile 0, then Q's fragments
+  // into registers
+  T* qt = S::QS ? reinterpret_cast<T*>(smem + 2 * S::stage) : Ks(1);
+  tc::cp_tile<T, D, BQ, NT>(qt, P, qb, q0, t, sq.t);
   if (ntiles > 0) {
     issue(0);
     stash(0);
@@ -143,8 +158,13 @@ local_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   }
   tc::cp_async_wait_all();
   __syncthreads();
-  tc::ARegs<T, D> qf;
-  qf.load(Ks(1) + warp * 16 * P, P);
+  typename QFrags<T, D, S::QS>::type qf;
+  if constexpr (S::QS) {
+    qf.s = qt + warp * 16 * P;
+    qf.pitch = P;
+  } else {
+    qf.load(qt + warp * 16 * P, P);
+  }
   __syncthreads();  // stage 1 is free for tile 1
 
   const int rl[2] = {warp * 16 + g, warp * 16 + g + 8};  // this thread's rows in the tile
@@ -220,15 +240,18 @@ local_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   for (int ri = 0; ri < 2; ++ri) empty[ri] = q0 + rl[ri] < t && !(m_i[ri] > MASKED);
   float* vmean = reinterpret_cast<float*>(smem);  // stage 0: [2][D] partial sums, then [D]
   if (__syncthreads_or(empty[0] || empty[1])) {
-    const int col = tid % D, part = tid / D;  // NT = 2 D: two halves of the slots
-    float sum = 0.f;
-    for (int sl = part * w; sl < part * w + w; ++sl) {
-      const int kp = kbase + sl;
-      if (kp >= 0 && kp < t) sum += to_f(vb[kp * sv.t + col]);
+    // (column, half of the slots) pairs, NT at a time
+    for (int i = tid; i < 2 * D; i += NT) {
+      const int col = i % D, part = i / D;
+      float sum = 0.f;
+      for (int sl = part * w; sl < part * w + w; ++sl) {
+        const int kp = kbase + sl;
+        if (kp >= 0 && kp < t) sum += to_f(vb[kp * sv.t + col]);
+      }
+      vmean[part * D + col] = sum;
     }
-    vmean[part * D + col] = sum;
     __syncthreads();
-    if (tid < D) vmean[tid] = (vmean[tid] + vmean[D + tid]) / (2 * w);
+    for (int i = tid; i < D; i += NT) vmean[i] = (vmean[i] + vmean[D + i]) / (2 * w);
     __syncthreads();
   }
 
@@ -251,7 +274,6 @@ template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* bias,
                    const void* kmask, void* out, const Strides (&st)[4], int bh, int heads,
                    int t, int w, float scale, cudaStream_t stream) {
-  static_assert(NT == 2 * D, "the value means take two threads a column");
   using S = Smem<T, D>;
   cudaError_t err = cudaFuncSetAttribute(local_attn_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -272,21 +294,31 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
 // strides (batch, head, time) in `strides` (q's three, then k's, v's and
 // out's), the last dimension contiguous, rows 16-byte aligned; bias (heads,
 // w, 2w) float32 or null; kmask (bh / heads, t) int8 or null. w in {64,
-// 128}, d = 64. dtype 0 = float32, 1 = bfloat16. Returns a cudaError_t.
+// 128}, d in {32, 64, 128}. dtype 0 = float32, 1 = bfloat16. Returns a
+// cudaError_t.
 extern "C" int local_attn_fwd(const void* q, const void* k, const void* v, const void* bias,
                               const void* kmask, void* out, const long long* strides, int bh,
                               int heads, int t, int d, int w, float scale, int dtype,
                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d != 64 || (w != 64 && w != 128) || t <= 0 || bh <= 0 || heads <= 0 || bh % heads
+  if ((w != 64 && w != 128) || t <= 0 || bh <= 0 || heads <= 0 || bh % heads
       || (t + BQ - 1) / BQ > 65535)
     return cudaErrorInvalidValue;
   Strides st[4];
   for (int i = 0; i < 4; ++i)
     st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
-  if (dtype == 0)
-    return launch<float, 64>(q, k, v, bias, kmask, out, st, bh, heads, t, w, scale, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16, 64>(q, k, v, bias, kmask, out, st, bh, heads, t, w, scale, s);
+  switch (d * 2 + dtype) {
+    case 64: return launch<float, 32>(q, k, v, bias, kmask, out, st, bh, heads, t, w, scale, s);
+    case 65:
+      return launch<__nv_bfloat16, 32>(q, k, v, bias, kmask, out, st, bh, heads, t, w, scale, s);
+    case 128: return launch<float, 64>(q, k, v, bias, kmask, out, st, bh, heads, t, w, scale, s);
+    case 129:
+      return launch<__nv_bfloat16, 64>(q, k, v, bias, kmask, out, st, bh, heads, t, w, scale, s);
+    case 256:
+      return launch<float, 128>(q, k, v, bias, kmask, out, st, bh, heads, t, w, scale, s);
+    case 257:
+      return launch<__nv_bfloat16, 128>(q, k, v, bias, kmask, out, st, bh, heads, t, w, scale,
+                                        s);
+  }
   return cudaErrorInvalidValue;
 }

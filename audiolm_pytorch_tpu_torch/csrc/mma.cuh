@@ -424,13 +424,20 @@ template <typename T, int D, int NB>
 __device__ __forceinline__ void add_tile(float (&sum)[D / 8][4], const float (&p)[NB][4],
                                          const T* s, int pitch, const float (&scale)[2]) {
   if constexpr (sizeof(T) == 4) {
-    float part[D / 8][4];
-    zero(part);
-    gemm_pk<T, D, NB>(part, p, s, pitch);
+    // 64 columns at a time (D = 128: the registers of a whole row's part
+    // would not fit beside the sum's)
+    constexpr int W = D < 64 ? D : 64;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int c0 = 0; c0 < D; c0 += W) {
+      float part[W / 8][4];
+      zero(part);
+      gemm_pk<T, W, NB>(part, p, s + c0, pitch);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) sum[j][e] = sum[j][e] * scale[e / 2] + part[j][e];
+      for (int j = 0; j < W / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sum[c0 / 8 + j][e] = sum[c0 / 8 + j][e] * scale[e / 2] + part[j][e];
+    }
   } else {
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)

@@ -6,15 +6,21 @@
 // warpgroups (setmaxnreg). Written in inline PTX, like mma.cuh, whose
 // masking rule, tf32 rounding and mma.sync product these kernels keep using.
 //
-// Tiles. Every operand tile is 64 rows of 128 bytes laid out as TMA's
-// 128-byte swizzle writes it: the 16-byte chunk c of row r sits at chunk
-// c ^ (r % 8) of that row, in 1024-byte blocks of 8 rows (each tile starts
-// 1024-byte aligned, as the swizzle is taken on address bits). A bf16 tile
-// of 64 values a row is one such tile; a float32 tile of 64 values a row
-// is two, columns 0-31 and then 32-63 (TMA loads it as two 32-column
-// boxes); K6 streams float32 rows 32 columns (one such tile) at a time. A
-// wgmma descriptor names such a tile with the 128-byte swizzle mode and a
-// stride of 1024 bytes between 8-row blocks.
+// Tiles. Every operand tile is made of boxes of 64 rows of 128 bytes laid
+// out as TMA's 128-byte swizzle writes them: the 16-byte chunk c of row r
+// sits at chunk c ^ (r % 8) of that row, in 1024-byte blocks of 8 rows (each
+// box starts 1024-byte aligned, as the swizzle is taken on address bits). A
+// D-wide row of the flash kernels spans D * sizeof(T) / 128 such boxes, one
+// after another (boxes<T, D>): a bf16 tile of 64 values a row is one box,
+// of 128 values two; a float32 tile of 32, 64 or 128 values a row one, two
+// or four (TMA loads each box as its own 128-byte-wide column range). A
+// 32-wide bf16 row is half a box: TMA reads the box 64 columns wide from a
+// tensor map whose rows end at 32, so columns 32-63 arrive as zeros, which
+// add nothing to a product. K6 streams float32 rows 32 columns (one box) at
+// a time. A wgmma descriptor names one box with the 128-byte swizzle mode
+// and a stride of 1024 bytes between 8-row blocks; a product whose N index
+// is contiguous (P V) runs once a box of 64 columns, so no descriptor ever
+// spans two boxes along N (see desc).
 //
 // Float32 is 3xTF32, as in mma.cuh: an operand x is split into big =
 // tf32(x) and small = tf32(x - big), by tc::to_tf32's integer rounding,
@@ -176,7 +182,8 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 // the descriptor of a 128-byte-swizzled operand starting at s: 8-row
 // blocks 1024 bytes apart. The leading byte offset is unused by a K-major
 // operand; for an operand whose N index is contiguous it is the stride
-// between 64-wide swizzle atoms along N, and these tiles have one, so it
+// between 64-wide swizzle atoms along N, and every such product here covers
+// one atom (a box: gemm_pk issues one product a box of a wider tile), so it
 // is set to 1024 bytes as well and whichever of the two the hardware takes
 // for the 8-row stride is right.
 __device__ __forceinline__ uint64_t desc(const void* s) {
@@ -251,16 +258,17 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// the map of a (planes, rows, 64) row-major tensor of 2-byte (bf16) or
-// 4-byte (float32) elements, read as (64 or 32 columns) x 64-row boxes of
-// 128 bytes a row, 128-byte swizzled; rows past `rows` of a plane read as
-// zeros, never the next plane's
+// the map of a (planes, rows, d) row-major tensor of 2-byte (bf16) or
+// 4-byte (float32) elements (d in 32, 64, 128), read as (64 or 32 columns)
+// x 64-row boxes of 128 bytes a row, 128-byte swizzled; rows past `rows` of
+// a plane read as zeros, never the next plane's, and so do columns past d
+// (a 32-wide bf16 row's box: columns 32-63)
 inline cudaError_t tile_map(CUtensorMap* map, const void* base, int elem_bytes, int rows,
-                            int planes) {
+                            int planes, int d = 64) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {64, (cuuint64_t)rows, (cuuint64_t)planes};
-  const cuuint64_t strides[2] = {64ull * elem_bytes, 64ull * elem_bytes * rows};
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows, (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * elem_bytes, (cuuint64_t)d * elem_bytes * rows};
   const cuuint32_t box[3] = {(cuuint32_t)(128 / elem_bytes), 64, 1};
   const cuuint32_t estr[3] = {1, 1, 1};
   const CUresult r = encode(map, elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
@@ -293,26 +301,45 @@ inline cudaError_t matrix_map(CUtensorMap* map, const void* base, int rows, int 
 
 // ---- Tiles and products, built from the primitives above. ----
 
-// bytes of one 64-row operand tile of T (the big parts, for float32)
-template <typename T>
-__host__ __device__ constexpr int tile_bytes() { return 64 * 64 * (int)sizeof(T); }
-
-// a 64 x 64 tile of T at s (a row r) from `map` at row r0 of plane p, on `bar`
-template <typename T>
-__device__ __forceinline__ void load_tile(T* s, const CUtensorMap* map, uint64_t* bar, int r0,
-                                          int p) {
-  tma_load_3d(s, map, bar, 0, r0, p);
-  if constexpr (sizeof(T) == 4)
-    tma_load_3d(reinterpret_cast<unsigned char*>(s) + 8192, map, bar, 32, r0, p);
+// the 128-byte boxes a D-wide row of T spans (a 32-wide bf16 row: one, half
+// of it zeros)
+template <typename T, int D>
+__host__ __device__ constexpr int boxes() {
+  return D * (int)sizeof(T) >= 128 ? D * (int)sizeof(T) / 128 : 1;
 }
 
-// the float32 tile at s split in place into its tf32 big parts, the small
-// parts into lo (the same layout); `n` threads, this one `i` of them.
-// Elementwise, so the swizzle does not matter.
+// bytes of one 64-row operand tile of D-wide rows of T (the big parts, for
+// float32)
+template <typename T, int D>
+__host__ __device__ constexpr int tile_bytes() { return 8192 * boxes<T, D>(); }
+
+// the 8-column n-blocks of a thread's 64 x D accumulator of a product whose
+// N index is D (P V): a bf16 product covers whole boxes (a 32-wide row's
+// padded half too, which stays zero), a float32 one D columns
+template <typename T, int D>
+__host__ __device__ constexpr int acc_blocks() {
+  return sizeof(T) == 2 ? 8 * boxes<T, D>() : D / 8;
+}
+
+// a 64 x D tile of T at s (a row r) from `map` at row r0 of plane p, on
+// `bar`: one TMA load a box
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(T* s, const CUtensorMap* map, uint64_t* bar, int r0,
+                                          int p) {
+#pragma unroll
+  for (int j = 0; j < boxes<T, D>(); ++j)
+    tma_load_3d(reinterpret_cast<unsigned char*>(s) + 8192 * j, map, bar,
+                j * (128 / (int)sizeof(T)), r0, p);
+}
+
+// the float32 tile of `BYTES` at s split in place into its tf32 big parts,
+// the small parts into lo (the same layout); `n` threads, this one `i` of
+// them. Elementwise, so the swizzle does not matter.
+template <int BYTES>
 __device__ __forceinline__ void split_tile(float* s, float* lo, int i, int n) {
   uint4* hi4 = reinterpret_cast<uint4*>(s);
   uint4* lo4 = reinterpret_cast<uint4*>(lo);
-  for (int c = i; c < 64 * 64 / 4; c += n) {
+  for (int c = i; c < BYTES / 16; c += n) {
     uint4 x = hi4[c], h, l;
     tc::split(__uint_as_float(x.x), h.x, l.x);
     tc::split(__uint_as_float(x.y), h.y, l.y);
@@ -323,29 +350,33 @@ __device__ __forceinline__ void split_tile(float* s, float* lo, int i, int n) {
   }
 }
 
-// the byte offset of element (r, c) of a 64 x 64 float32 tile
+// the byte offset of element (r, c) of a 64-row float32 tile (32 columns a box)
 __device__ __forceinline__ int f32_offset(int r, int c) {
   return (c >> 5) * 8192 + r * 128 + ((((c & 31) >> 2) ^ (r & 7)) << 4) + (c & 3) * 4;
 }
 
-// acc (64 x 64) = A B^T over a depth of 64, A and B K-major tiles in shared
-// memory (a, b; in float32 the big parts, the small ones in al, bl); the
-// products issued and committed, not waited for
-template <typename T>
+// acc (64 x 64) = A B^T over a depth of D, A and B K-major tiles in shared
+// memory (a, b; in float32 the big parts, the small ones in al, bl), one
+// 32-byte k-step at a time, four a box; the products issued and committed,
+// not waited for
+template <typename T, int D>
 __device__ __forceinline__ void gemm_nk(float (&acc)[32], const T* a, const T* al, const T* b,
                                         const T* bl) {
+  constexpr int KS = D * (int)sizeof(T) / 32;  // k-steps
+  const unsigned char *ah = reinterpret_cast<const unsigned char*>(a),
+                      *bh = reinterpret_cast<const unsigned char*>(b);
   if constexpr (sizeof(T) == 2) {
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
-      mma_bf16_ss(acc, desc(a) + 2 * ks, desc(b) + 2 * ks, ks > 0);
+    for (int ks = 0; ks < KS; ++ks) {
+      const int o = (ks >> 2) * 8192;  // the box
+      mma_bf16_ss(acc, desc(ah + o) + 2 * (ks & 3), desc(bh + o) + 2 * (ks & 3), ks > 0);
+    }
   } else {
-    const unsigned char *ah = reinterpret_cast<const unsigned char*>(a),
-                        *alo = reinterpret_cast<const unsigned char*>(al),
-                        *bh = reinterpret_cast<const unsigned char*>(b),
+    const unsigned char *alo = reinterpret_cast<const unsigned char*>(al),
                         *blo = reinterpret_cast<const unsigned char*>(bl);
 #pragma unroll
-    for (int ks = 0; ks < 8; ++ks) {
-      const int o = (ks >> 2) * 8192;  // the 32-column half
+    for (int ks = 0; ks < KS; ++ks) {
+      const int o = (ks >> 2) * 8192;  // the 32-column box
       const uint64_t k = 2 * (ks & 3);  // 32 bytes a k-step, in 16-byte units
       const uint64_t dah = desc(ah + o) + k, dbh = desc(bh + o) + k;
 #ifndef MMA_TF32_ONE_PASS
@@ -360,32 +391,40 @@ __device__ __forceinline__ void gemm_nk(float (&acc)[32], const T* a, const T* a
   wgmma_commit();
 }
 
-// acc (64 x 64) += P (64 x 64, this warpgroup's accumulators) B, B a 64 x 64
-// bf16 tile in shared memory with its N index contiguous; issued and
-// committed, not waited for. P is packed into `a`, every k-step's A first
-// so the products issue back to back; the caller keeps `a` untouched until
-// the product has completed.
-__device__ __forceinline__ void gemm_pk(float (&acc)[32], const float (&p)[32],
+// acc (64 x 64 NB) += P (64 x 64, this warpgroup's accumulators) B, B a
+// bf16 tile of NB boxes (64 columns each) in shared memory with its N index
+// contiguous, one product a box into acc's n-blocks 8j ..; issued and
+// committed, not waited for. P is packed into `a` once, every k-step's A
+// first so the products issue back to back; the caller keeps `a` untouched
+// until the products have completed.
+template <int NB>
+__device__ __forceinline__ void gemm_pk(float (&acc)[32 * NB], const float (&p)[32],
                                         uint32_t (&a)[4][4], const __nv_bfloat16* b) {
-  const uint64_t db = desc(b);
 #pragma unroll
   for (int ks = 0; ks < 4; ++ks)
 #pragma unroll
     for (int i = 0; i < 4; ++i) a[ks][i] = tc::pack_bf16(p[8 * ks + 2 * i], p[8 * ks + 2 * i + 1]);
   wgmma_fence();
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks) mma_bf16_rs_t(acc, a[ks], db + 128 * ks);  // 16 rows of 128 B
+  for (int j = 0; j < NB; ++j) {
+    const uint64_t db = desc(reinterpret_cast<const unsigned char*>(b) + 8192 * j);
+    float(&box)[32] = *reinterpret_cast<float(*)[32]>(acc + 32 * j);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) mma_bf16_rs_t(box, a[ks], db + 128 * ks);  // 16 rows of 128 B
+  }
   wgmma_commit();
 }
 
-// part (16 x 64, this warp's strip, mma.sync's C layout) = P (this warp's
-// 16 x 64 strip of accumulators) B, B a split float32 tile (hi, lo; K rows
-// of N = 64 columns, N contiguous) in shared memory, on mma.sync in
-// 3xTF32. The k index of each 8-wide step is permuted as in mma.cuh (kk = t
-// <-> row 2t, kk = t + 4 <-> row 2t + 1), so an accumulator pair is an A
-// fragment as it stands.
-__device__ __forceinline__ void gemm_pk_split(float (&part)[8][4], const float (&p)[32],
-                                              const float* hi, const float* lo) {
+// part (16 x 8 NB8, this warp's strip, mma.sync's C layout) = P (this
+// warp's 16 x 64 strip of accumulators) B[:, c0 .. c0 + 8 NB8), B a split
+// float32 tile (hi, lo; K rows of N columns, N contiguous) in shared memory,
+// on mma.sync in 3xTF32. The k index of each 8-wide step is permuted as in
+// mma.cuh (kk = t <-> row 2t, kk = t + 4 <-> row 2t + 1), so an accumulator
+// pair is an A fragment as it stands.
+template <int NB8>
+__device__ __forceinline__ void gemm_pk_split(float (&part)[NB8][4], const float (&p)[32],
+                                              const float* hi, const float* lo, int c0) {
+  static_assert(NB8 % 2 == 0, "n-blocks go in pairs");
   const int l = tc::lane_id(), g = l >> 2, t = l & 3;
   const unsigned char* h8 = reinterpret_cast<const unsigned char*>(hi);
   const unsigned char* l8 = reinterpret_cast<const unsigned char*>(lo);
@@ -398,12 +437,12 @@ __device__ __forceinline__ void gemm_pk_split(float (&part)[8][4], const float (
     tc::split(p[4 * ks + 1], a.hi[2], a.lo[2]);
     tc::split(p[4 * ks + 3], a.hi[3], a.lo[3]);
 #pragma unroll
-    for (int n = 0; n < 8; n += 2) {
+    for (int n = 0; n < NB8; n += 2) {
       tc::Frag<float>::B b[2];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        const int o0 = f32_offset(8 * ks + 2 * t, 8 * (n + i) + g);
-        const int o1 = f32_offset(8 * ks + 2 * t + 1, 8 * (n + i) + g);
+        const int o0 = f32_offset(8 * ks + 2 * t, c0 + 8 * (n + i) + g);
+        const int o1 = f32_offset(8 * ks + 2 * t + 1, c0 + 8 * (n + i) + g);
         b[i].hi[0] = *reinterpret_cast<const uint32_t*>(h8 + o0);
         b[i].hi[1] = *reinterpret_cast<const uint32_t*>(h8 + o1);
         b[i].lo[0] = *reinterpret_cast<const uint32_t*>(l8 + o0);
@@ -411,6 +450,30 @@ __device__ __forceinline__ void gemm_pk_split(float (&part)[8][4], const float (
       }
       tc::mma2(part[n], part[n + 1], a, b);
     }
+  }
+}
+
+// acc (this warp's 16 x D strip, acc_blocks<float, D>() n-blocks) += P B,
+// or with SCALED acc = acc * scale + P B, B a split float32 tile of D
+// columns: 64 columns at a time, each from zero, added in float32
+// (tc::add_tile's reason)
+template <int D, bool SCALED = false>
+__device__ __forceinline__ void add_pk_split(float (&acc)[D / 2], const float (&p)[32],
+                                             const float* hi, const float* lo,
+                                             const float* scale = nullptr) {
+  constexpr int W = D < 64 ? D : 64;
+#pragma unroll
+  for (int c0 = 0; c0 < D; c0 += W) {
+    float part[W / 8][4];
+    gemm_pk_split<W / 8>(part, p, hi, lo, c0);
+#pragma unroll
+    for (int j = 0; j < W / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float& a = acc[c0 / 2 + 4 * j + e];
+        if constexpr (SCALED) a = a * scale[e / 2] + part[j][e];
+        else a += part[j][e];
+      }
   }
 }
 

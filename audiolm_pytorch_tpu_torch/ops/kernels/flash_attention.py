@@ -16,12 +16,20 @@ bias[h], and K2's launch gives its gradient, the batch sum of dS over a
 thread-block cluster of the batch rows. A per-batch (B, H, N, M) bias has
 the plain versions only. On a CUDA tensor the wrappers launch the kernels
 or raise; only a CPU tensor takes the plain versions.
+
+Head dims. The kernels are built for D = 32, 64 and 128 (`HEAD_DIMS`). On a
+CUDA tensor any other D up to 128 goes through the next larger of them: q,
+k and v are zero-padded along D, the scale stays D ** -0.5 of the true D,
+and the output and the gradients are sliced back. That is exact (a zero
+column adds nothing to q.k and gives a zero output column) and it is the
+kernel that runs, counted as its launch. A D over 128 raises.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from ..relpos import toeplitz_expand
 from ._build import built_with, load
@@ -30,11 +38,12 @@ __all__ = ["flash_attention", "flash_attention_ref", "flash_attention_bwd",
            "flash_attention_bwd_ref", "bwd_dq", "bwd_dkv", "built_with", "SOURCE",
            "SOURCE_BWD", "HEAD_DIMS", "launches", "launches_dq", "launches_dkv",
            "launches_dtab", "launches_dbias", "PLAN_SMS", "fwd_plan", "dq_plan", "dkv_plan",
-           "dkv_items", "fwd_plan_built", "dq_plan_built", "dkv_plan_built"]
+           "dkv_items", "fwd_plan_built", "dq_plan_built", "dkv_plan_built", "native_head_dim",
+           "SMEM_LIMIT"]
 
 SOURCE = "flash_fwd.cu"
 SOURCE_BWD = "flash_bwd.cu"
-HEAD_DIMS = (64,)
+HEAD_DIMS = (32, 64, 128)  # the head dims the kernels are built for; others up to 128 padded
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -54,67 +63,123 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the sizes (csrc/flash_fwd.cu `launch`, csrc/flash_bwd.cu `dq_plan` and
 # `dkv_plan`): pure functions, so the CPU tests can check what the card runs.
 PLAN_SMS = 132  # the H100's SMs, which the plans fill
+SMEM_LIMIT = 232448  # the shared memory one block may have on the H100
 _TILE = 64      # query rows and keys per tile of both kernels
 _MAX_DKV_CLUSTER = 8
+_MISC_FWD = (128 + 64 + 4) * 4  # a stage's table slice, key flags and two words (K1, K2)
+_MISC_DKV = (64 + 64 + 128) * 4  # a stage's lse, Delta and table slice (K3)
+_K4_BYTES = (64 * 80 + 2 * 4 * 128) * 4  # K2's skewed dS rows and delta slots
+_K5_BYTES = 2 * 64 * 64 * 4  # K2's two dS buffers of K5's batch sum
 
 
 def _tiles(x):
     return -(-x // _TILE)
 
 
-def fwd_plan(b, h, n, m, causal, dtype=torch.float32):
+def native_head_dim(d):
+    """The head dim of the kernels that run a D-wide head: D where it is one
+    of HEAD_DIMS, else the next larger (q, k and v zero-padded to it)."""
+    for native in HEAD_DIMS:
+        if d <= native:
+            return native
+    raise ValueError(f"head dim {d} is over the kernels' largest, {HEAD_DIMS[-1]}: the card "
+                     f"takes head dims up to {HEAD_DIMS[-1]} (built for {HEAD_DIMS}, others "
+                     f"zero-padded to the next of them)")
+
+
+def _operand_bytes(d, dtype):
+    """One 64-row operand tile of D-wide rows in shared memory, with its
+    tf32 small parts in float32: 128-byte boxes, a 32-wide bf16 row taking
+    a whole one (csrc/wgmma.cuh)."""
+    f32 = dtype == torch.float32
+    tile = 8192 * max(1, d * (4 if f32 else 2) // 128)
+    return 2 * tile if f32 else tile
+
+
+def fwd_plan(b, h, n, m, causal, dtype=torch.float32, d=64):
     """K1's launch: grid (b*h, query tiles); its consumer warpgroups a block,
     two (which take the key tiles in turn, the second's softmax state merged
     into the first's at the end) for float32 over more than one key tile
-    and for bf16 grids under two blocks an SM, else one; and for each query
-    tile (by its index) the key tiles each consumer takes, in order."""
+    and for bf16 grids under two blocks an SM, else one (at D = 128 two in
+    bf16, one in float32); the ring's stages (one for float32 with one
+    consumer, else three), the block's shared memory (Q, the stages' K and
+    V, their table slices and flags, the barriers) and the blocks an SM it
+    is built for; and for each query tile (by its index) the key tiles each
+    consumer takes, in order."""
+    f32 = dtype == torch.float32
     grid = (b * h, _tiles(n))
-    two = m > _TILE if dtype == torch.float32 else grid[0] * grid[1] < 2 * PLAN_SMS
+    if d > 64:
+        two = not f32
+    else:
+        two = m > _TILE if f32 else grid[0] * grid[1] < 2 * PLAN_SMS
+    stages = 1 if f32 and not two else 3
+    oper = _operand_bytes(d, dtype)
+    smem = oper + stages * (2 * oper + _MISC_FWD) + 128
+    blocks = 1 if two or (f32 and d > 64) else 2 if f32 else 3
     tiles = {}
     for i in range(_tiles(n)):
         q0 = i * _TILE
         kv_end = min(m, q0 + _TILE + m - n) if causal else m
         keys = list(range(_tiles(kv_end)))
         tiles[i] = (keys[0::2], keys[1::2]) if two else (keys, [])
-    return {"grid": grid, "consumers": 2 if two else 1, "tiles": tiles}
+    return {"grid": grid, "consumers": 2 if two else 1, "stages": stages, "smem": smem,
+            "blocks": blocks, "tiles": tiles}
 
 
-def dq_plan(b, h, hk, n, m, causal, dtype=torch.float32, dbias=False):
+def dq_plan(b, h, hk, n, m, causal, dtype=torch.float32, dbias=False, d=64):
     """K2's launch: grid (b, h, query tiles), the last query tile first;
     each block a producer warpgroup and one consumer warpgroup that takes
     its query tile's key tiles up to the diagonal in order through a ring
-    of `stages` (two in float32, three in bf16); with the (H, N, M) bias's
-    gradient (K5, `dbias`) the blocks of one (head, query tile) form a
-    cluster of the largest divisor of b up to 8, which sums their dS tiles
-    in rank order (by atomics between clusters, b > 8 without such a
-    divisor, only where b / cluster > 1), else clusters of one; and for
-    each query tile (by its index) the key tiles, in order."""
+    of `stages` (two in float32, three in bf16; in float32 at D = 128 one
+    slot that each key tile's V and then K take in turn, `items` 2 a key
+    tile); with the (H, N, M) bias's gradient (K5, `dbias`) the blocks of
+    one (head, query tile) form a cluster of the largest divisor of b up to
+    8, which sums their dS tiles in rank order (by atomics between clusters,
+    b > 8 without such a divisor, only where b / cluster > 1), else clusters
+    of one; the block's shared memory (with K5's buffers, else K4's) and the
+    blocks an SM it is built for; and for each query tile (by its index) the
+    key tiles, in order."""
+    f32 = dtype == torch.float32
+    seq = f32 and d > 64
+    stages = 1 if seq else 2 if f32 else 3
+    oper = _operand_bytes(d, dtype)
+    smem = (2 * oper + stages * ((oper if seq else 2 * oper) + _MISC_FWD) + 256
+            + (_K5_BYTES if dbias else _K4_BYTES))
     cluster = max(c for c in range(1, _MAX_CLUSTER + 1) if b % c == 0) if dbias else 1
     tiles = {}
     for i in range(_tiles(n)):
         kv_end = min(m, i * _TILE + _TILE + m - n) if causal else m
         tiles[i] = list(range(_tiles(kv_end)))
-    return {"grid": (b, h, _tiles(n)), "cluster": cluster,
-            "stages": 2 if dtype == torch.float32 else 3, "atomic": dbias and cluster < b,
-            "tiles": tiles}
+    return {"grid": (b, h, _tiles(n)), "cluster": cluster, "stages": stages,
+            "items": 2 if seq else 1, "smem": smem, "blocks": 1 if f32 or d > 64 else 2,
+            "atomic": dbias and cluster < b, "tiles": tiles}
 
 
-def dkv_plan(b, h, hk, n, m, dtype=torch.float32):
+def dkv_plan(b, h, hk, n, m, dtype=torch.float32, d=64):
     """K3's launch: the cluster (the largest divisor of the MQA group up to
     8: its blocks take the kv head's query heads in turn and their sums meet
     in rank order), the number of chunks the query range is split into (only
     when fewer blocks than PLAN_SMS would run, each chunk keeping 4 query
     tiles; the chunks' partials add in chunk order in a second pass), the
     consumer warpgroups a block (two, which take the items in turn, for
-    float32, and for bf16 grids under two blocks an SM; else one) and the
-    grid (cluster, b*hk, key tiles * chunks)."""
+    float32, and for bf16 grids under two blocks an SM; else one; at D = 128
+    two in bf16, one in float32), the ring's stages (in float32 at D = 128
+    one slot that an item's Q, dO and Q again take in turn, `items` 3 an
+    item), the block's shared memory and the blocks an SM it is built for,
+    and the grid (cluster, b*hk, key tiles * chunks)."""
+    f32 = dtype == torch.float32
+    seq = f32 and d > 64
     group = h // hk
     cluster = max(c for c in range(1, _MAX_DKV_CLUSTER + 1) if group % c == 0)
     base = cluster * b * hk * _tiles(m)
     qsplit = 1 if base >= PLAN_SMS else max(1, min(PLAN_SMS // base, _tiles(n) // 4))
-    two = dtype == torch.float32 or base * qsplit < 2 * PLAN_SMS
+    two = (not f32) if d > 64 else f32 or base * qsplit < 2 * PLAN_SMS
+    stages = 1 if seq else 2 if f32 else 4
+    oper = _operand_bytes(d, dtype)
+    smem = 2 * oper + stages * ((oper if seq else 2 * oper) + _MISC_DKV) + (64 + 4) * 4 + 128
     return {"cluster": cluster, "qsplit": qsplit, "consumers": 2 if two else 1,
-            "grid": (cluster, b * hk, _tiles(m) * qsplit)}
+            "stages": stages, "items": 3 if seq else 1, "smem": smem,
+            "blocks": 1 if two or seq else 2, "grid": (cluster, b * hk, _tiles(m) * qsplit)}
 
 
 def dkv_items(plan, h, hk, n, m, causal, kv_head, key_tile, rank, chunk):
@@ -186,10 +251,19 @@ def _check_cuda(q, k, v, bias=None):
         raise ValueError("a per-batch (B, H, N, M) bias has no kernel: only the plain "
                          "version on the CPU takes it")
     b, h, n, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in the kernel's {HEAD_DIMS}")
+    native_head_dim(d)  # raises for a head dim over the kernels' largest
     if b * h > 65535:
         raise ValueError("B * H exceeds the grid's y limit of 65535")
+
+
+def _padded(*xs):
+    """xs zero-padded along their last dim to the kernels' head dim (the
+    tensors themselves where it is native)."""
+    dn = native_head_dim(xs[0].shape[-1])
+    return [x if x.shape[-1] == dn else F.pad(x, (0, dn - x.shape[-1])) for x in xs]
+
+
+def _check_layout(q, k, v):
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k, v must be contiguous")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
@@ -222,19 +296,22 @@ def _forward(q, k, v, bias_tab, bias, key_mask, causal, scale):
         return flash_attention_ref(q, k, v, bias_tab=bias_tab, bias=bias, key_mask=key_mask,
                                    causal=causal, scale=scale, return_lse=True)
     _check_cuda(q, k, v, bias)
-    b, h, n, d = q.shape
+    d = q.shape[-1]
+    q, k, v = _padded(q, k, v)
+    _check_layout(q, k, v)
+    b, h, n, dn = q.shape
     hk, m = k.shape[1], k.shape[2]
     tab, kmask, dense = _kernel_args(bias_tab, key_mask, bias)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     err = _fwd_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(tab), _ptr(dense),
-                    _ptr(kmask), out.data_ptr(), lse.data_ptr(), b * h, h, h // hk, n, m, d,
+                    _ptr(kmask), out.data_ptr(), lse.data_ptr(), b * h, h, h // hk, n, m, dn,
                     scale, int(causal), _DTYPES[q.dtype], _stream(q))
     if err != 0:
         raise RuntimeError(f"flash_fwd launch failed with CUDA error {err}")
     global launches
     launches += 1
-    return out, lse
+    return out[..., :d], lse
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -365,9 +442,9 @@ def _bwd_launch(name, outs, q, k, v, g, lse, delta, tab, kmask, *, causal, scale
 
 
 def bwd_dq(q, k, v, g, lse, delta, tab, kmask, *, causal: bool, scale: float, bias=None):
-    """K2 on prepared arguments (contiguous; tab and bias float32 and kmask
-    int8 or None; lse and delta (B, H, N) float32): dq in q's dtype, and in
-    the same launch the float32 gradient of the bias given, summed over the
+    """K2 on prepared arguments (contiguous, D in HEAD_DIMS; tab and bias
+    float32 and kmask int8 or None; lse and delta (B, H, N) float32): dq in
+    q's dtype, and in the same launch the float32 gradient of the bias given, summed over the
     batch: with a table K4, the (2N-1, H) gradient, its partial sums in K2's
     launch and added in a fixed order by a second launch (the same bits every
     run); with an (H, N, M) bias K5, its (H, N, M) gradient, summed over a
@@ -405,31 +482,33 @@ def bwd_dkv(q, k, v, g, lse, delta, tab, kmask, *, causal: bool, scale: float, b
     return dk, dv
 
 
-def fwd_plan_built(b, h, n, m, dtype):
-    """K1's consumers a block as the built library chooses them."""
-    fn = _fn(SOURCE, "flash_fwd_plan", [_I] * 4)
-    two = fn(b * h, n, m, _DTYPES[dtype])
-    if two < 0:
-        raise ValueError(f"no K1 plan for dtype {dtype}")
-    return 2 if two else 1
-
-
-def dq_plan_built(b, h, hk, n, m, dtype, dbias=False):
-    """K2's plan as the built library computes it: (cluster, stages)."""
-    out = (ctypes.c_int * 2)()
-    fn = _fn(SOURCE_BWD, "flash_dq_plan", [_I] * 7 + [_P])
-    if fn(b, h, hk, n, m, _DTYPES[dtype], int(dbias), out) != 0:
-        raise ValueError(f"no K2 plan for b={b} h={h} hk={hk} n={n} m={m} {dtype}")
+def fwd_plan_built(b, h, n, m, dtype, d=64):
+    """K1's block as the built library chooses it: (consumers, stages,
+    shared memory, blocks an SM)."""
+    out = (ctypes.c_int * 4)()
+    fn = _fn(SOURCE, "flash_fwd_plan", [_I] * 5 + [_P])
+    if fn(b * h, n, m, d, _DTYPES[dtype], out) != 0:
+        raise ValueError(f"no K1 plan for d={d} {dtype}")
     return tuple(out)
 
 
-def dkv_plan_built(b, h, hk, n, m, dtype):
+def dq_plan_built(b, h, hk, n, m, dtype, dbias=False, d=64):
+    """K2's plan as the built library computes it: (cluster, stages, shared
+    memory, blocks an SM)."""
+    out = (ctypes.c_int * 4)()
+    fn = _fn(SOURCE_BWD, "flash_dq_plan", [_I] * 8 + [_P])
+    if fn(b, h, hk, n, m, d, _DTYPES[dtype], int(dbias), out) != 0:
+        raise ValueError(f"no K2 plan for b={b} h={h} hk={hk} n={n} m={m} d={d} {dtype}")
+    return tuple(out)
+
+
+def dkv_plan_built(b, h, hk, n, m, dtype, d=64):
     """K3's plan as the built library computes it: (cluster, query chunks,
-    consumers a block)."""
-    out = (ctypes.c_int * 3)()
-    fn = _fn(SOURCE_BWD, "flash_dkv_plan", [_I] * 6 + [_P])
-    if fn(b, h, hk, n, m, _DTYPES[dtype], out) != 0:
-        raise ValueError(f"no K3 plan for b={b} h={h} hk={hk} n={n} m={m} {dtype}")
+    consumers a block, stages, shared memory, blocks an SM)."""
+    out = (ctypes.c_int * 6)()
+    fn = _fn(SOURCE_BWD, "flash_dkv_plan", [_I] * 7 + [_P])
+    if fn(b, h, hk, n, m, d, _DTYPES[dtype], out) != 0:
+        raise ValueError(f"no K3 plan for b={b} h={h} hk={hk} n={n} m={m} d={d} {dtype}")
     return tuple(out)
 
 
@@ -442,7 +521,11 @@ def flash_attention_bwd(q, k, v, bias_tab, key_mask, out, lse, g, *, causal: boo
         return flash_attention_bwd_ref(q, k, v, bias_tab, key_mask, out, lse, g,
                                        causal=causal, scale=scale, bias=bias)
     _check_cuda(q, k, v, bias)
-    g = g.to(q.dtype).contiguous()
+    d = q.shape[-1]
+    # padded: out's and dO's extra columns are zeros, so Delta is unchanged
+    q, k, v, g, out = _padded(q, k, v, g.to(q.dtype), out)
+    _check_layout(q, k, v)
+    g = g.contiguous()
     if g.data_ptr() % 16:  # a view into a larger buffer: K3 copies its rows 16 bytes at a time
         g = g.clone()
     # Delta = rowsum(dO * O) is a torch reduction, as the JAX package leaves it to XLA
@@ -452,4 +535,4 @@ def flash_attention_bwd(q, k, v, bias_tab, key_mask, out, lse, g, *, causal: boo
     kw = dict(causal=causal, scale=scale, bias=dense)
     dq, dgrad = bwd_dq(*args, **kw)
     dk, dv = bwd_dkv(*args, **kw)
-    return dq, dk, dv, dgrad
+    return dq[..., :d], dk[..., :d], dv[..., :d], dgrad

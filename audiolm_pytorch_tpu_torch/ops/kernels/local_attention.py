@@ -17,7 +17,10 @@ The kernel reads q, k and v through their (batch, head, time) strides, so
 copy, and writes its output in q's layout. The backward recomputes through
 the plain version under autograd, as the JAX package's custom VJP goes to
 its XLA version. On a CUDA tensor the forward launches the kernel or raises;
-only a CPU tensor takes the plain version.
+only a CPU tensor takes the plain version. The kernel is built for head dims
+32, 64 and 128; another D up to 128 is zero-padded into the next of them
+(with the scale of the true D) and the output sliced back, as the flash
+kernels' wrappers do.
 """
 from __future__ import annotations
 
@@ -27,13 +30,13 @@ import torch
 import torch.nn.functional as F
 
 from ._build import load
+from .flash_attention import HEAD_DIMS, native_head_dim
 
 __all__ = ["local_attention", "local_attention_ref", "SOURCE", "WINDOWS", "HEAD_DIMS",
            "launches"]
 
 SOURCE = "local_attn.cu"
 WINDOWS = (64, 128)
-HEAD_DIMS = (64,)
 _MASKED = -1e9  # the JAX model path's score of a disallowed pair
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0  # kernel launches, counted where the kernel is launched
@@ -123,13 +126,17 @@ def _forward(q, k, v, window_size, mask, attn_bias, scale):
     if q.device.type != "cuda":
         raise ValueError(f"no local-attention path for device {q.device}")
     b, h, t, d = q.shape
-    if window_size not in WINDOWS or d not in HEAD_DIMS:
-        raise ValueError(f"the kernel takes windows {WINDOWS} and head dims {HEAD_DIMS}, "
-                         f"not window {window_size} and head dim {d}")
+    if window_size not in WINDOWS or d > HEAD_DIMS[-1]:
+        raise ValueError(f"the kernel takes windows {WINDOWS} and head dims up to "
+                         f"{HEAD_DIMS[-1]} (built for {HEAD_DIMS}, others zero-padded), not "
+                         f"window {window_size} and head dim {d}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share a dtype in {list(_DTYPES)}")
     if -(-t // 64) > 65535:
         raise ValueError("T / 64 exceeds the grid's y limit of 65535")
+    dn = native_head_dim(d)
+    if dn != d:
+        q, k, v = (F.pad(x, (0, dn - d)) for x in (q, k, v))
     q, k, v = (_readable(x) for x in (q, k, v))
     bias = attn_bias.float().contiguous() if attn_bias is not None else None
     kmask = mask.to(torch.int8).contiguous() if mask is not None else None
@@ -139,13 +146,13 @@ def _forward(q, k, v, window_size, mask, attn_bias, scale):
     err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 bias.data_ptr() if bias is not None else None,
                 kmask.data_ptr() if kmask is not None else None, out.data_ptr(), strides,
-                b * h, h, t, d, window_size, scale, _DTYPES[q.dtype],
+                b * h, h, t, dn, window_size, scale, _DTYPES[q.dtype],
                 torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"local_attn_fwd launch failed with CUDA error {err}")
     global launches
     launches += 1
-    return out
+    return out[..., :d]
 
 
 class _LocalAttention(torch.autograd.Function):

@@ -27,13 +27,16 @@ Phases, each printing its name and seconds:
                    instructions of each kernel in the built SASS
                    (cuobjdump); K7 must issue HMMA in float32 and bf16; K1,
                    K2 and K3 (warp-specialised on wgmma and TMA) HGMMA and
-                   UTMALDG in both, K6 in float32.
+                   UTMALDG in both, at head dims 32, 64 and 128 and every
+                   block shape, K6 in float32.
      flash device times - K1's, K2's (alone, with K4 and with K5) and K3's
                    device time per call beside their event time, and SDPA's
                    forward and backward device times, at every shape the
                    kernels, stage-trainer and conditioned phases use, and
                    K6's at 1-1300 rows of 512 and 1200 of 128 beside addmm +
-                   argmin's, in a process of its own
+                   argmin's (and K1-K5 at head dims 128 and 32: 4 x 8 x 2049
+                   table, the Coarse LM's 4 x 4 x 603 x 128 and the Fine
+                   LM's 4 x 16 x 1201 x 32 bias), in a process of its own
                    (tools/torch_flash_parent_ab.py); with --parent DIR (a
                    checkout of the parent commit, e.g. unpacked by git
                    archive) that checkout's K1-K6 timed in turns beside
@@ -225,8 +228,9 @@ Phases, each printing its name and seconds:
                    squeeze-excite + GateLoop codec's profiled), card vs CPU
                    on 1 s; one trainer G step and D step at 8 x 1 s for VQ,
                    LFQ and FSQ, counted and timed, LFQ's and FSQ's losses
-                   card vs CPU. Run last: after its profiles torch.profiler
-                   was seen to miss launches in later windows.
+                   card vs CPU. After every phase with a K6 one-launch gate:
+                   after its profiles torch.profiler was seen to miss
+                   launches in later windows.
   Before it:
      dropout     - the flagship train step with attn_dropout = ff_dropout =
                    0.1 on 4 x 2048 ids: the plain attention path (no flash
@@ -268,6 +272,31 @@ Phases, each printing its name and seconds:
                    same bits on both ranks; K1-K5 on 4 heads a rank. Prints
                    each rank's launches, ms a step against one process,
                    all-reduces and MB a step, peak memory.
+  Last, the head dims 32 and 128 (their profiler windows, before the
+  encodec phase, once made it see no K6 launch there):
+     kernels (head dims 32 and 128) - K1-K5 at head dims 128 and 32,
+                   fp32 and bf16, against their plain versions and timed
+                   beside the plain version, SDPA and the bound: the table
+                   at the flagship's training shape (4 x 8 x 2049), the
+                   (H, N, N) bias at the Coarse LM's 4 heads of 128 (603)
+                   and the Fine LM's 16 heads of 32 (1201); K7 at the
+                   codec's 8 x 8 x 100 with heads of 128 and 32. float32
+                   within 1e-5 of float64 at those shapes (the plain-TF32
+                   build rejected), K2 (with K4 or K5) and K3 the same bits
+                   over three runs.
+     head dims   - the paths at the head dims 32 and 128, each with the
+                   launch counts zeroed just before its calls and read just
+                   after: the flagship at 128-wide heads (dim_head 128, the
+                   head width of JAX's own flash timing) as in 4-6: scoring
+                   4 x 2048, generation, training in float32 and bf16, card
+                   vs CPU at 1 x 256; the Coarse LM with 4 heads of 128 and
+                   the Fine LM with 16 heads of 32 (inner width 512, as at 8
+                   x 64) scored and trained on 4 x 3-s clips as in 7-12,
+                   card vs CPU on a 1-s clip; the multi-chip dry run's model
+                   (__graft_entry__.py: dim 64, depth 2, 4 heads of 16, a
+                   head dim the kernels take zero-padded to 32) in one train
+                   step on 8 x 256 ids, card vs CPU gradients; the codec as
+                   in 13 with attn_dim_head 128, then 32 (K7 at both).
 The training phases (6, and the Coarse step in 7-12) also train in bf16
 compute beside float32: ms per step of both, and on one batch with the
 same weights and mask the bf16 loss and gradients held to float32's
@@ -310,6 +339,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import itertools
 import json
 import re
 import subprocess
@@ -469,17 +499,20 @@ def build_phase():
 
 
 def kernel_label(mangled):
-    """flash_fwd_kernel<bf16> (or vq_nearest_kernel, not a template) from a
-    kernel's mangled name: its length, the name, I and its template args; a
+    """flash_fwd_kernel<bf16, d64> (or vq_nearest_kernel, not a template)
+    from a kernel's mangled name: its length, the name, I and its template
+    args; an int argument is the head dim the instantiation is built for; a
     bool argument, true, is K2's instantiation with K5's cluster sum
-    (flash_bwd_dq_kernel<bf16, sum>) and K1's and K3's with two consumer
-    warpgroups a block (flash_fwd_kernel<bf16, two>)."""
+    (flash_bwd_dq_kernel<bf16, d64, sum>) and K1's and K3's with two
+    consumer warpgroups a block (flash_fwd_kernel<bf16, d64, two>)."""
     entry = re.search(r"\d([a-z][a-z_]*_kernel)(I?)", mangled)
     if not entry.group(2):
         return entry.group(1)
     dtype = "bf16" if "bfloat16" in mangled else "fp32"
+    dim = re.search(r"Li(\d+)E", mangled)
     flag = "sum" if entry.group(1) == "flash_bwd_dq_kernel" else "two"
-    return f"{entry.group(1)}<{dtype}{', ' + flag if 'Lb1E' in mangled else ''}>"
+    return (f"{entry.group(1)}<{dtype}{', d' + dim.group(1) if dim else ''}"
+            f"{', ' + flag if 'Lb1E' in mangled else ''}>")
 
 
 def counts():
@@ -834,36 +867,38 @@ VQ_PLAN_SHAPES = ((1, 1024, 512), (7, 1024, 512), (192, 1024, 512), (400, 1024, 
 
 def check_plans():
     """K1's, K2's, K3's and K6's launch plans as the built libraries compute
-    them (K1's consumers a block; K2's cluster and stages; K3's
-    cluster, query chunks and consumers; K6's cluster and code groups) equal
-    the ones ops/kernels/flash_attention.py and ops/kernels/vq.py state,
-    which the CPU tests check for coverage and summation order."""
+    them (K1's consumers a block; K2's cluster; K3's cluster, query chunks
+    and consumers; each one's stages, shared memory and blocks an SM, at
+    every head dim; K6's cluster and code groups) equal the ones
+    ops/kernels/flash_attention.py and ops/kernels/vq.py state, which the CPU
+    tests check for coverage, summation order and fit."""
     for n, c, d in VQ_PLAN_SHAPES:
         want = vq.vq_plan(n, c, d)
         got = vq.vq_plan_built(n, c, d)
         if got != (want["ksplit"], want["groups"]):
             raise AssertionError(f"K6's plan at {(n, c, d)}: the library's {got}, the "
                                  f"wrapper's {want}")
-    for b, h, hk, n, m in K3_PLAN_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
-            for dbias in (False, True):
-                want = fa.dq_plan(b, h, hk, n, m, True, dtype, dbias=dbias)
-                got = fa.dq_plan_built(b, h, hk, n, m, dtype, dbias=dbias)
-                if got != (want["cluster"], want["stages"]):
-                    raise AssertionError(f"K2's plan at {(b, h, hk, n, m)} {dtype} dbias "
-                                         f"{dbias}: the library's {got}, the wrapper's {want}")
-            want = fa.fwd_plan(b, h, n, m, True, dtype)["consumers"]
-            got = fa.fwd_plan_built(b, h, n, m, dtype)
-            if got != want:
-                raise AssertionError(f"K1's consumers at {(b, h, n, m)} {dtype}: the library's "
-                                     f"{got}, the wrapper's {want}")
-            want = fa.dkv_plan(b, h, hk, n, m, dtype)
-            got = fa.dkv_plan_built(b, h, hk, n, m, dtype)
-            if got != (want["cluster"], want["qsplit"], want["consumers"]):
-                raise AssertionError(f"K3's plan at {(b, h, hk, n, m)} {dtype}: the library's "
-                                     f"{got}, the wrapper's {want}")
-    print(f"plans: K1's, K2's and K3's launch plans as built equal fwd_plan's, dq_plan's and "
-          f"dkv_plan's at {len(K3_PLAN_SHAPES)} shapes, K6's vq_plan's at "
+    for (b, h, hk, n, m), dtype, d in itertools.product(
+            K3_PLAN_SHAPES, (torch.float32, torch.bfloat16), fa.HEAD_DIMS):
+        at = f"{(b, h, hk, n, m)} d{d} {dtype}"
+        for dbias in (False, True):
+            want = fa.dq_plan(b, h, hk, n, m, True, dtype, dbias=dbias, d=d)
+            got = fa.dq_plan_built(b, h, hk, n, m, dtype, dbias=dbias, d=d)
+            if got != tuple(want[x] for x in ("cluster", "stages", "smem", "blocks")):
+                raise AssertionError(f"K2's plan at {at} dbias {dbias}: the library's {got}, "
+                                     f"the wrapper's {want}")
+        want = fa.fwd_plan(b, h, n, m, True, dtype, d)
+        got = fa.fwd_plan_built(b, h, n, m, dtype, d)
+        if got != tuple(want[x] for x in ("consumers", "stages", "smem", "blocks")):
+            raise AssertionError(f"K1's plan at {at}: the library's {got}, the wrapper's {want}")
+        want = fa.dkv_plan(b, h, hk, n, m, dtype, d)
+        got = fa.dkv_plan_built(b, h, hk, n, m, dtype, d)
+        if got != tuple(want[x] for x in ("cluster", "qsplit", "consumers", "stages", "smem",
+                                          "blocks")):
+            raise AssertionError(f"K3's plan at {at}: the library's {got}, the wrapper's {want}")
+    print(f"plans: K1's, K2's and K3's launch plans as built (consumers, cluster, chunks, "
+          f"stages, shared memory, blocks an SM) equal fwd_plan's, dq_plan's and dkv_plan's at "
+          f"{len(K3_PLAN_SHAPES)} shapes and head dims {fa.HEAD_DIMS}, K6's vq_plan's at "
           f"{len(VQ_PLAN_SHAPES)}")
 
 
@@ -931,17 +966,26 @@ def stage_kernels(rng, d, seed):
 def sass_phase():
     """Tensor-core instructions of each kernel in the built libraries' SASS
     (cuobjdump -sass): HMMA (mma.sync), HGMMA (wgmma), UTMALDG (TMA loads)
-    and FFMA. K7 must issue HMMA in both dtypes; K1, K2 and K3, the Hopper
-    design, HGMMA and UTMALDG in both dtypes and every block shape (K1's and
-    K3's one consumer warpgroup or two, K3's float32 only two; K2 with K5's
-    sum and without), K6 (float32 only) too. Returns {"fwd": {dtype:
-    {opcode: n}}, "dq": {...}, ...}."""
+    and FFMA. K7 must issue HMMA in both dtypes at head dims 32, 64 and 128;
+    K1, K2 and K3, the Hopper design, HGMMA and UTMALDG in both dtypes,
+    every head dim and every block shape (K1's and K3's one consumer
+    warpgroup or two, K3's float32 only two, at 128 one shape a dtype; K2
+    with K5's sum and without), K6 (float32 only) too. Returns {"fwd":
+    {"dtype, dD[, two]": {opcode: n}}, "dq": {...}, ...}."""
     kernels = (("fwd", "flash_fwd_kernel"), ("dq", "flash_bwd_dq_kernel"),
                ("dkv", "flash_bwd_dkv_kernel"), ("vq", "vq_nearest_kernel"),
                ("local", "local_attn_kernel"))
-    want = {"fwd": ["bf16", "bf16, two", "fp32", "fp32, two"],
-            "dq": ["bf16", "bf16, sum", "fp32", "fp32, sum"],
-            "dkv": ["bf16", "bf16, two", "fp32, two"], "vq": ["fp32"], "local": ["bf16", "fp32"]}
+    # every head dim: at 32 and 64 both block shapes, at 128 one a dtype
+    # (K1 and K3: two consumers in bf16, one in float32; fa.fwd_plan, dkv_plan)
+    want = {"fwd": sorted([f"{t}, d{d}{x}" for d in (32, 64) for t in ("bf16", "fp32")
+                           for x in ("", ", two")] + ["bf16, d128, two", "fp32, d128"]),
+            "dq": sorted(f"{t}, d{d}{x}" for d in fa.HEAD_DIMS for t in ("bf16", "fp32")
+                         for x in ("", ", sum")),
+            "dkv": sorted([f"{t}, d{d}" for d in (32, 64) for t in ("bf16",)]
+                          + [f"{t}, d{d}, two" for d in (32, 64) for t in ("bf16", "fp32")]
+                          + ["bf16, d128, two", "fp32, d128"]),
+            "vq": ["fp32"], "local": sorted(f"{t}, d{d}" for d in fa.HEAD_DIMS
+                                           for t in ("bf16", "fp32"))}
     need = {key: ("HGMMA", "UTMALDG") for key in ("fwd", "dq", "dkv", "vq")}
     result = {key: {} for key, _ in kernels}
     for src in SOURCES:
@@ -1095,6 +1139,194 @@ def accuracy_phase(seed):
     return result
 
 
+# Head dims 32 and 128 (every other head dim up to 128 runs zero-padded
+# in one of them): the flagship Semantic LM at 128-wide heads (JAX's own
+# flash timing's head width, flash_attention.py:852), the Coarse LM with 4
+# heads of 128 and the Fine LM with 16 heads of 32 (inner width 512, as at
+# 8 x 64), the multi-chip dry run's model (__graft_entry__.py:101-103: dim
+# 64, depth 2, 4 heads of 16, padded to 32) and the codec's attention with
+# attn_dim_head 128 and 32.
+FLAGSHIP_128 = dict(dim_head=128)
+ACOUSTIC_HEADS = {"coarse": dict(heads=4, dim_head=128), "fine": dict(heads=16, dim_head=32)}
+DRYRUN = dict(dim=64, depth=2, heads=4, dim_head=16, num_semantic_tokens=32,
+              num_residual_streams=1)
+DRYRUN_IDS = (8, 256)
+CODEC_HEAD_DIMS = (128, 32)
+
+
+@phase("kernels (head dims 32 and 128)")
+def head_dims_kernel_phase(seed):
+    """K1-K5 at head dims 128 and 32, fp32 and bf16, against their plain
+    versions, each timed beside the plain version, SDPA and its bound: the
+    table form at the flagship's training shape (4 x 8 x 2049, 15% of the
+    keys forgotten: K4 in K2's launch), the (H, N, N)-bias form at the
+    Coarse LM's 4 heads of 128 (N = 603) and the Fine LM's 16 heads of 32 (N
+    = 1201; K5 in K2's launch); K7 at the codec's shape with 128- and
+    32-wide heads on LocalMHA's strided views. Then float32 within F64_TOL
+    of float64 at those shapes (the 1xTF32 build rejected) and K2 and K3 the
+    same bits over three runs. Returns {"rows": {kernel: {label: row}},
+    "f64": {...}}."""
+    rng = np.random.default_rng(seed + 40)
+    rows = {key: {} for key in ("fwd", "dq", "dkv", "dtab", "dbias", "local")}
+    h = FLAGSHIP["heads"]
+    for d, dtype in itertools.product((128, 32), (torch.float32, torch.bfloat16)):
+        at = f"{str(dtype)[6:]} {TRAIN_IDS[0]}x{h}x{TRAIN_N}x{d} (training), 15% of keys forgotten"
+        args = flash_inputs(rng, TRAIN_IDS[0], h, TRAIN_N, d, dtype, forget_p=0.15)
+        rows["fwd"][at] = check_flash(*args, at)
+        for key, row in check_flash_bwd(*args, at, seed).items():
+            rows[key][at] = row
+    for kind, n in (("coarse", COARSE_N), ("fine", FINE_N)):
+        heads, d = ACOUSTIC_HEADS[kind]["heads"], ACOUSTIC_HEADS[kind]["dim_head"]
+        label = f"({kind.capitalize()} training, {heads} heads of {d}), 15% of keys forgotten"
+        for name, got in check_bias_form(rng, CLIP_B, heads, n, d, label, seed,
+                                         forget_p=0.15).items():
+            for key, row in got.items():
+                rows[key][row["at"]] = row
+    for d, dtype in itertools.product(CODEC_HEAD_DIMS, (torch.float32, torch.bfloat16)):
+        at = (f"{str(dtype)[6:]} {CODEC_B}x8x{CODEC_S * HZ}x{d} w128 (codec, attn_dim_head {d}), "
+              f"LocalMHA's strided q, k, v")
+        rows["local"][at] = check_local(*local_views(rng, CODEC_B, 8, CODEC_S * HZ, d, dtype),
+                                        128, None, None, at, seed, scale=d ** -0.5)
+    return {"rows": rows, "f64": head_dims_accuracy(rng)}
+
+
+def head_dims_accuracy(rng):
+    """float32 at head dims 128 and 32 within F64_TOL of float64, the
+    1xTF32 build rejected: K1's out, K2's dq (and dbias) and K3's dk, dv at
+    the flagship's training shape (the table) and at the Coarse and Fine
+    LMs' (H, N, N)-bias shapes; K7 at the codec's shape. K2's dq with K4's
+    dtab or K5's dbias and K3's dk, dv the same bits over three runs, fp32
+    and bf16."""
+    result = {}
+    h = FLAGSHIP["heads"]
+    cases = [(f"table d{d}", TRAIN_IDS[0], h, TRAIN_N, d, False) for d in (128, 32)]
+    cases += [(f"bias {kind} d{cfg['dim_head']}", CLIP_B, cfg["heads"], n, cfg["dim_head"], True)
+              for kind, cfg, n in (("coarse", ACOUSTIC_HEADS["coarse"], COARSE_N),
+                                   ("fine", ACOUSTIC_HEADS["fine"], FINE_N))]
+    for label, b, heads, n, d, dense in cases:
+        scale = d ** -0.5
+        q, k, v, tab, mask = flash_inputs(rng, b, heads, n, d, torch.float32, forget_p=0.15)
+        bias = dense_bias(rng, heads, n) if dense else None
+        tab = None if dense else tab
+        g = torch.from_numpy(rng.standard_normal(q.shape, dtype=np.float32)).to(DEV)
+        ref = attention_f64(q, k, v, tab, bias, mask, g, scale)
+        args = (q, k, v, tab, bias, mask, g, ref, scale)
+        three = f64_errors(*args)
+        with fa.built_with(ONE_PASS):
+            one = f64_errors(*args)
+        at = f"fp32 {b}x{heads}x{n}x{d} {label}"
+        print(f"tf32 [{at}]: 3xTF32 vs float64 "
+              + " ".join(f"{x} {e:.2e}" for x, e in three.items())
+              + f" (limit {F64_TOL}) | 1xTF32 " + " ".join(f"{x} {e:.2e}" for x, e in one.items()))
+        if max(three.values()) > F64_TOL:
+            raise AssertionError(f"3xTF32 vs float64 [{at}]: {three} over {F64_TOL}")
+        if min(one.values()) <= F64_TOL:
+            raise AssertionError(f"the float64 check let the 1xTF32 build through [{at}]: {one}")
+        result[label] = {"3xtf32": three, "1xtf32": one}
+        del ref, args
+        for dtype in (torch.float32, torch.bfloat16):
+            qd, kd, vd, gd = (a.to(dtype) for a in (q, k, v, g))
+            out, lse = fa.flash_attention(qd, kd, vd, bias_tab=tab, bias=bias, key_mask=mask,
+                                          causal=True, return_lse=True)
+            bargs = (qd, kd, vd, gd, lse, (gd.float() * out.float()).sum(-1), tab,
+                     mask.to(torch.int8).contiguous())
+            for name, fn in (("K3 dk, dv", fa.bwd_dkv), ("K2 dq and its bias gradient", fa.bwd_dq)):
+                first = fn(*bargs, causal=True, scale=scale, bias=bias)
+                for _ in range(2):
+                    again = fn(*bargs, causal=True, scale=scale, bias=bias)
+                    if not all(torch.equal(a, c) for a, c in zip(first, again)
+                               if a is not None):
+                        raise AssertionError(f"{name} differ between runs [{at}, {dtype}]")
+            print(f"tf32: K2 dq (with {'dbias' if dense else 'dtab'}) and K3 dk, dv bitwise "
+                  f"equal over 3 runs ({str(dtype)[6:]}, {b}x{heads}x{n}x{d})")
+    for d in CODEC_HEAD_DIMS:
+        q, k, v = local_views(rng, CODEC_B, 8, CODEC_S * HZ, d, torch.float32)
+        three = local_f64_error(q, k, v, 128, None, None, scale=d ** -0.5)
+        with _build.built_with(ONE_PASS):
+            one = local_f64_error(q, k, v, 128, None, None, scale=d ** -0.5)
+        label = f"K7 fp32 {CODEC_B}x8x{CODEC_S * HZ}x{d} w128"
+        print(f"tf32 [{label}]: 3xTF32 vs float64 {three:.2e} (limit {F64_TOL}) | 1xTF32 "
+              f"{one:.2e}")
+        if three > F64_TOL or one <= F64_TOL:
+            raise AssertionError(f"K7 float64 check [{label}]: 3xTF32 {three}, 1xTF32 {one}")
+        result[f"local d{d}"] = {"3xtf32": three, "1xtf32": one}
+    return result
+
+
+def head_dim_paths(seed):
+    """The paths at the head dims 32 and 128 (each phase zeroes the launch
+    counts just before its own calls and reads them just after): the
+    flagship at 128-wide heads scored, generated and trained (float32 and
+    bf16), card vs CPU; the Coarse LM with 4 heads of 128 and the Fine LM
+    with 16 heads of 32 scored and trained, card vs CPU; the multi-chip dry
+    run's model (4 heads of 16) in one train step, card vs CPU; the codec
+    with attn_dim_head 128 and 32 in a round trip, card vs CPU. Returns
+    ({path: launches}, {label: bf16 numbers})."""
+    paths, bf16_runs = {}, {}
+    cpu_model = flagship(seed, **FLAGSHIP_128)
+    model = copy.deepcopy(cpu_model).to(DEV)
+    paths["scoring_d128"] = phase("scoring (128-wide heads)")(scoring_phase)(seed, model,
+                                                                             cpu_model)
+    paths["generation_d128"] = phase("generation (128-wide heads)")(generation_phase)(seed, model)
+    del model
+    paths["training_d128"], paths["training_bf16_d128"], bf16_runs["training_d128"] = phase(
+        "training (128-wide heads)")(training_phase)(seed, cpu_model)
+    del cpu_model
+    torch.cuda.empty_cache()
+    for kind in ("coarse", "fine"):
+        cfg = ACOUSTIC_HEADS[kind]
+        tag = f"{cfg['heads']} heads of {cfg['dim_head']}"
+        cpu_lm = acoustic_model(kind, seed, **cfg)
+        lm = copy.deepcopy(cpu_lm).to(DEV)
+        key = f"{kind}_d{cfg['dim_head']}"
+        paths[f"{key}_scoring"] = phase(f"{kind} scoring ({tag})")(acoustic_scoring)(
+            kind, seed, lm, cpu_lm)
+        del lm
+        paths[f"{key}_training"], bf16 = phase(f"{kind} training ({tag})")(acoustic_training)(
+            kind, seed, cpu_lm)
+        if bf16 is not None:
+            paths[f"{key}_training_bf16"], bf16_runs[f"{key}_training"] = bf16
+        del cpu_lm
+        torch.cuda.empty_cache()
+    paths["dryrun_d16"] = dryrun_phase(seed)
+    for d in CODEC_HEAD_DIMS:
+        paths[f"codec_d{d}"] = phase(f"codec (attn_dim_head {d})")(codec_phase)(
+            seed, attn_dim_head=d)
+    return paths, bf16_runs
+
+
+@phase("dry-run model (4 heads of 16)")
+def dryrun_phase(seed):
+    """The multi-chip dry run's Semantic LM (dim 64, depth 2, 4 heads of 16,
+    vocab 32: a head dim the kernels take zero-padded to 32) in one train
+    step of TransformerTrainStep on 8 x 256 ids, K1-K4 launched once a
+    layer; its gradients against the CPU port's on the same batch, and the
+    check shown to reject dq zeroed in one layer."""
+    rng = np.random.default_rng(seed + 41)
+    cpu_model = SemanticTransformer(**DRYRUN, seed=seed, device="cpu")
+    model = copy.deepcopy(cpu_model).train()
+    trainer = TransformerTrainStep(SemanticTransformerWrapper(transformer=model), device=DEV)
+    ids = torch.from_numpy(rng.integers(0, DRYRUN["num_semantic_tokens"], DRYRUN_IDS)).to(DEV)
+    depth = DRYRUN["depth"]
+    zero_counts()
+    loss = trainer.step(ids)
+    torch.cuda.synchronize()
+    launched = counts()
+    for name, n in launched.items():
+        want = depth if name in ("launches", "launches_dq", "launches_dkv",
+                                 "launches_dtab") else 0
+        if n != want:
+            raise AssertionError(f"dry-run model step: {name} {n} != {want}")
+    if not np.isfinite(loss):
+        raise AssertionError(f"dry-run model step: non-finite loss {loss}")
+    print(f"dry-run model step {DRYRUN_IDS[0]}x{DRYRUN_IDS[1]} (head dim 16, padded to "
+          f"{fa.native_head_dim(DRYRUN['dim_head'])}): loss {loss:.4f} | launches {launched}")
+    check_card_grads(f"dry-run model {DRYRUN_IDS[0]}x{DRYRUN_IDS[1]}",
+                     SemanticTransformerWrapper, copy.deepcopy(cpu_model).to(DEV).train(),
+                     (ids,), seed, ("bwd_dq", 0, "dq"), depth)
+    return launched
+
+
 def local_f64_error(q, k, v, w, mask, bias, scale=8.0 / 64):
     """max |K7 - float64| / max |float64| for float32 q, k, v; the float64
     evaluation is the plain version's on float64 inputs."""
@@ -1153,7 +1385,7 @@ def codec_accuracy(rng):
 def flagship(seed, **kw):
     """The flagship model on the CPU, weights from `seed` (with the LM's
     options `kw`)."""
-    model = SemanticTransformer(**FLAGSHIP, **kw, seed=seed, device="cpu").eval()
+    model = SemanticTransformer(**dict(FLAGSHIP, **kw), seed=seed, device="cpu").eval()
     # the dynamic hyper-connection weights are zero at init: make them count
     rng = np.random.default_rng(seed + 1)
     with torch.no_grad():
@@ -1182,7 +1414,6 @@ def profile(label, fn, top=8):
     return busy, wall_ms, rows
 
 
-@phase("scoring")
 def scoring_phase(seed, model, cpu_model):
     rng = np.random.default_rng(seed + 2)
     dev = DEV
@@ -1232,7 +1463,6 @@ def scoring_phase(seed, model, cpu_model):
     return launched
 
 
-@phase("generation")
 def generation_phase(seed, model):
     dev = DEV
     rng = np.random.default_rng(seed + 3)
@@ -1270,7 +1500,6 @@ def generation_phase(seed, model):
     return launched
 
 
-@phase("training")
 def training_phase(seed, cpu_model):
     """The flagship's train step on the card: warm step, five timed steps,
     then the card's gradients against the CPU port's, then one profiled step."""
@@ -1523,12 +1752,13 @@ LMS = {"coarse": (CoarseTransformer, COARSE, CoarseTransformerWrapper),
        "fine": (FineTransformer, FINE, FineTransformerWrapper)}
 
 
-def acoustic_model(kind, seed):
-    """The Coarse or Fine LM on the CPU, weights from `seed`, with the
-    dynamic hyper-connection weights and the Coarse LM's cross_attn_bias
-    (zero at init) made to count."""
+def acoustic_model(kind, seed, **kw):
+    """The Coarse or Fine LM on the CPU (with the options `kw`, such as
+    heads and dim_head), weights from `seed`, with the dynamic
+    hyper-connection weights and the Coarse LM's cross_attn_bias (zero at
+    init) made to count."""
     cls, cfg, _ = LMS[kind]
-    model = cls(**cfg, seed=seed, device="cpu").eval()
+    model = cls(**dict(cfg, **kw), seed=seed, device="cpu").eval()
     rng = np.random.default_rng(seed + 5)
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -2152,18 +2382,18 @@ def compare_codes(layers, card_h, cpu_h, card_codes, cpu_codes):
     return len(frames), max(gaps, default=0.0)
 
 
-@phase("codec")
-def codec_phase(seed):
-    """The codec at bench.py's width: codebooks filled from a calibration
-    batch, then the tokenize -> decode_from_codebook_indices round trip on
-    8 x 2 s (launches zeroed just before one round trip and read just
-    after), timed; then the card against the CPU port on a 1-s clip."""
+def codec_phase(seed, **codec_kw):
+    """The codec at bench.py's width (with the options `codec_kw`, such as
+    attn_dim_head): codebooks filled from a calibration batch, then the
+    tokenize -> decode_from_codebook_indices round trip on 8 x 2 s
+    (launches zeroed just before one round trip and read just after),
+    timed; then the card against the CPU port on a 1-s clip."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"codec: cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}, "
           f"cuda.matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32}")
     rng = np.random.default_rng(seed + 21)
-    codec = calibrated_codec(seed, rng)
+    codec = calibrated_codec(seed, rng, **codec_kw)
     x = torch.from_numpy(0.1 * rng.standard_normal((CODEC_B, CODEC_S * SR),
                                                    dtype=np.float32)).to(DEV)
     with torch.no_grad():
@@ -2198,8 +2428,9 @@ def codec_phase(seed):
           f"{peak / 2**30:.3f} GiB | quantizer 0 uses {distinct} of 1024 codes | launches "
           f"{launched}")
     with torch.no_grad():
-        profile(f"codec round trip ({CODEC_B}x{CODEC_S}s)",
-                lambda: codec.decode_from_codebook_indices(codec.tokenize(x)), top=10)
+        if not codec_kw:
+            profile(f"codec round trip ({CODEC_B}x{CODEC_S}s)",
+                    lambda: codec.decode_from_codebook_indices(codec.tokenize(x)), top=10)
         cpu = copy.deepcopy(codec).cpu()
         clip = x[:1, :SR]
         card_h, cpu_h = codec.encode_frames(clip).cpu(), cpu.encode_frames(clip.cpu())
@@ -5232,10 +5463,10 @@ def main():
     cpu_model = flagship(args.seed)
     model = copy.deepcopy(cpu_model).to(DEV)
     bf16_runs = {}
-    paths = {"scoring": scoring_phase(args.seed, model, cpu_model),
-             "generation": generation_phase(args.seed, model)}
-    paths["training"], paths["training_bf16"], bf16_runs["training"] = training_phase(
-        args.seed, cpu_model)
+    paths = {"scoring": phase("scoring")(scoring_phase)(args.seed, model, cpu_model),
+             "generation": phase("generation")(generation_phase)(args.seed, model)}
+    paths["training"], paths["training_bf16"], bf16_runs["training"] = phase("training")(
+        training_phase)(args.seed, cpu_model)
     del model, cpu_model
     coarse_grid = None
     for kind in ("coarse", "fine"):
@@ -5255,7 +5486,7 @@ def main():
             paths[f"{kind}_training_bf16"], bf16_runs[f"{kind}_training"] = bf16
         del lm, cpu_lm
         torch.cuda.empty_cache()
-    paths["codec"] = codec_phase(args.seed)
+    paths["codec"] = phase("codec")(codec_phase)(args.seed)
     paths["codec_training"], timings["codec_training"] = codec_training_phase(args.seed)
     paths["codec_training_bf16"], timings["codec_training_bf16"] = \
         codec_training_bf16_phase(args.seed)
@@ -5291,6 +5522,13 @@ def main():
     # seen to miss K6's launches in later windows (check_vq's one-launch gate)
     variant_paths, timings["codec_variants"] = codec_variants_phase(args.seed)
     paths.update(variant_paths)
+    # after every phase that holds a launch count to torch.profiler (K6's
+    # one-launch gate): these phases' profiler windows, before the encodec
+    # phase, once made it see no K6 launch there
+    timings["head_dims"] = head_dims_kernel_phase(args.seed)
+    head_paths, head_bf16 = head_dim_paths(args.seed)
+    paths.update(head_paths)
+    bf16_runs.update(head_bf16)
     rows = []
     for key, name, source, replaces, counter in KERNELS:
         per_path = {f"launches_{p}": launched[counter] for p, launched in paths.items()}
@@ -5321,6 +5559,15 @@ def main():
             numbers["tp_rank_shape"] = {name: tp_rows[name][key] for name in ("fp32", "bf16")}
         if key in ("fwd", "dq", "dkv", "vq", "local"):
             numbers["sass"] = timings["sass"][key]
+        if key != "vq":
+            # head dims 128 and 32 at the flagship's, the Coarse and Fine LMs' and the
+            # codec's shapes, and the float64 check there
+            numbers["head_dims"] = timings["head_dims"]["rows"][key]
+            numbers["head_dims_f64"] = {
+                label: {kind: {x: e for x, e in errs.items() if x in F64_OUTPUTS.get(key, ())}
+                        if isinstance(errs, dict) else errs for kind, errs in got.items()}
+                for label, got in timings["head_dims"]["f64"].items()
+                if label.startswith("local") == (key == "local")}
         if key in ("vq", "local"):
             # K6 at 1300 rows; K7 in bf16 and at 10 s, with the float64 check;
             # both at the codec training's shapes

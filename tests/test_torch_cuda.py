@@ -136,10 +136,10 @@ def test_cached_generation_logits_match_scoring(cuda):
         torch.testing.assert_close(logits[row, :n], full[row, :n], rtol=2e-3, atol=2e-3)
 
 
-@pytest.mark.parametrize("d", [32, 48, 128])
+@pytest.mark.parametrize("d", [160, 256])
 def test_wrapper_raises_on_a_cuda_tensor_it_cannot_take(cuda, d):
-    q = torch.zeros(1, 2, 16, d, device=cuda)  # the kernel is built for head dim 64 only
-    with pytest.raises(ValueError):
+    q = torch.zeros(1, 2, 16, d, device=cuda)  # the kernels take head dims up to 128
+    with pytest.raises(ValueError, match="up to 128"):
         fa.flash_attention(q, q[:, :1].contiguous(), q[:, :1].contiguous(), causal=True)
 
 
@@ -189,7 +189,7 @@ def test_flash_attention_on_a_card_is_differentiable(cuda):
         torch.testing.assert_close(a.cpu(), r, rtol=1e-2, atol=1e-3)
 
 
-@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("d", [160, 256])
 def test_backward_raises_on_a_cuda_tensor_it_cannot_take(cuda, d):
     q = torch.zeros(1, 2, 16, d, device=cuda)
     kv = q[:, :1].contiguous()
@@ -602,10 +602,12 @@ def test_k2_and_k6_plans_match_the_librarys(cuda):
     for b, h, hk, n, m in ((4, 8, 1, 2049, 2049), (4, 4, 4, 602, 602), (4, 8, 1, 2049, 17),
                            (2, 4, 1, 2049, 2049), (9, 8, 8, 130, 130), (12, 8, 1, 100, 100)):
         for dtype in (torch.float32, torch.bfloat16):
-            for dbias in (False, True):
-                plan = fa.dq_plan(b, h, hk, n, m, True, dtype, dbias=dbias)
-                assert fa.dq_plan_built(b, h, hk, n, m, dtype, dbias=dbias) == (
-                    plan["cluster"], plan["stages"]), (b, h, n, m, dtype)
+            for d in fa.HEAD_DIMS:
+                for dbias in (False, True):
+                    plan = fa.dq_plan(b, h, hk, n, m, True, dtype, dbias=dbias, d=d)
+                    assert fa.dq_plan_built(b, h, hk, n, m, dtype, dbias=dbias, d=d) == (
+                        plan["cluster"], plan["stages"], plan["smem"], plan["blocks"]), (
+                        b, h, n, m, d, dtype)
 
 
 def test_local_attention_on_a_card_is_differentiable(cuda):
@@ -622,7 +624,7 @@ def test_local_attention_on_a_card_is_differentiable(cuda):
         torch.testing.assert_close(a.cpu(), r, rtol=1e-2, atol=1e-3)
 
 
-@pytest.mark.parametrize("w,d", [(32, 64), (256, 64), (128, 32), (64, 128)])
+@pytest.mark.parametrize("w,d", [(32, 64), (256, 64), (128, 160), (64, 256)])
 def test_local_attention_raises_on_a_cuda_tensor_it_cannot_take(cuda, w, d):
     q = torch.zeros(1, 2, 100, d, device=cuda)
     with pytest.raises(ValueError):
@@ -1543,3 +1545,99 @@ def test_ema_all_reduce_on_a_one_rank_nccl_group_is_the_identity(cuda):
             assert torch.equal(getattr(layers[0], name), getattr(layers[1], name))
     finally:
         dist.destroy_process_group()
+
+
+# head dims the kernels are built for (32, 128) and ones they take zero-padded
+# into the next of them (16 into 32, 96 into 128)
+HEAD_DIM_CASES = [16, 32, 96, 128]
+
+
+@pytest.mark.parametrize("dtype,tol,rtol,atol", [(torch.float32, 2e-3, 1e-2, 1e-3),
+                                                 (torch.bfloat16, 3e-2, 3e-2, 3e-2)])
+@pytest.mark.parametrize("form", ["table", "bias", "prefix", "cross"])
+@pytest.mark.parametrize("d", HEAD_DIM_CASES)
+def test_flash_kernels_at_head_dims(cuda, d, form, dtype, tol, rtol, atol):
+    # K1, and K2 with K4 (table) or K5 (bias) in its launch, and K3 against
+    # the plain versions, each launched once a call; MQA, a key mask
+    b, h, n = 2, 4, 300
+    m = {"prefix": n + 16, "cross": 17}.get(form, n)
+    causal = form != "cross"
+    rng = np.random.default_rng(d)
+    q = torch.from_numpy(rng.normal(size=(b, h, n, d)).astype(np.float32)).to(cuda, dtype)
+    k, v = (torch.from_numpy(rng.normal(size=(b, 1, m, d)).astype(np.float32)).to(cuda, dtype)
+            for _ in range(2))
+    g = torch.from_numpy(rng.normal(size=(b, h, n, d)).astype(np.float32)).to(cuda, dtype)
+    tab = bias = None
+    if form == "table":
+        tab = torch.from_numpy((0.5 * rng.normal(size=(2 * n - 1, h))).astype(np.float32)).to(cuda)
+    elif form in ("bias", "prefix"):
+        bias = torch.from_numpy((0.5 * rng.normal(size=(h, n, m))).astype(np.float32)).to(cuda)
+    mask = torch.ones(b, m, dtype=torch.bool, device=cuda)
+    mask[1, (2 * m) // 3:] = False
+    kw = dict(bias_tab=tab, bias=bias, key_mask=mask, causal=causal)
+    names = ("launches", "launches_dq", "launches_dkv", "launches_dtab", "launches_dbias")
+    before = [getattr(fa, x) for x in names]
+    out, lse = fa.flash_attention(q, k, v, **kw, return_lse=True)
+    grads = fa.flash_attention_bwd(q, k, v, tab, mask, out, lse, g, causal=causal,
+                                   scale=d ** -0.5, bias=bias)
+    torch.cuda.synchronize()
+    assert [getattr(fa, x) - c for x, c in zip(names, before)] == [
+        1, 1, 1, int(tab is not None), int(bias is not None)]
+    assert out.shape == q.shape and grads[0].shape == q.shape and grads[1].shape == k.shape
+    ref, ref_lse = fa.flash_attention_ref(q, k, v, **kw, return_lse=True)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, ref_lse, rtol=2e-3, atol=2e-3)
+    want = fa.flash_attention_bwd_ref(q, k, v, tab, mask, out, lse, g, causal=causal,
+                                      scale=d ** -0.5, bias=bias)
+    for name, a, r in zip(("dq", "dk", "dv", "dbias"), grads, want):
+        if r is not None:
+            torch.testing.assert_close(a.float(), r.float(), rtol=rtol, atol=atol, msg=name)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-3), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("d", HEAD_DIM_CASES)
+def test_local_attention_kernel_at_head_dims(cuda, d, dtype, tol):
+    # K7 on LocalMHA's strided views, masked and biased, launched once a call
+    rng = np.random.default_rng(d)
+    b, h, t, w = 2, 4, 300, 64
+    qkv = torch.from_numpy(rng.normal(size=(b, t, 3 * h * d)).astype(np.float32)).to(cuda, dtype)
+    q, k, v = (a.reshape(b, t, h, d).transpose(1, 2) for a in qkv.chunk(3, dim=-1))
+    mask = torch.ones(b, t, dtype=torch.bool, device=cuda)
+    mask[1, 200:] = False
+    bias = torch.from_numpy((0.3 * rng.normal(size=(h, w, 2 * w))).astype(np.float32)).to(cuda)
+    before = la.launches
+    out = la.local_attention(q, k, v, window_size=w, mask=mask, attn_bias=bias)
+    torch.cuda.synchronize()
+    assert la.launches == before + 1 and out.shape == q.shape
+    ref = la.local_attention_ref(q, k, v, window_size=w, mask=mask, attn_bias=bias)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("d", [32, 128])
+def test_float32_kernels_at_head_dims_within_1e5_of_float64(cuda, d):
+    # K1's out, K2's dq and K3's dk, dv (3xTF32) and K7's out within 1e-5 of
+    # a float64 evaluation; the plain-TF32 build fails the same check
+    rng = np.random.default_rng(d)
+    b, h, n = 2, 4, 700
+    q = torch.from_numpy(rng.normal(size=(b, h, n, d)).astype(np.float32)).to(cuda)
+    k, v = (torch.from_numpy(rng.normal(size=(b, 1, n, d)).astype(np.float32)).to(cuda)
+            for _ in range(2))
+    g = torch.from_numpy(rng.normal(size=(b, h, n, d)).astype(np.float32)).to(cuda)
+    tab = torch.from_numpy((0.5 * rng.normal(size=(2 * n - 1, h))).astype(np.float32)).to(cuda)
+    qd, kd, vd, gd, td = (a.double() for a in (q, k, v, g, tab))
+    ref, ref_lse = fa.flash_attention_ref(qd, kd, vd, bias_tab=td, causal=True, return_lse=True)
+    want = fa.flash_attention_bwd_ref(qd, kd, vd, td, None, ref, ref_lse, gd, causal=True,
+                                      scale=d ** -0.5)
+    lq, lk, lv = (a.expand(b, h, n, d)[:, :, :300].contiguous() for a in (q, k, v))
+    lref = la.local_attention_ref(*(a.double() for a in (lq, lk, lv)), window_size=64)
+    errors = {}
+    for name, defines in (("3xtf32", ()), ("tf32", ("MMA_TF32_ONE_PASS",))):
+        with _build.built_with(defines):
+            out, lse = fa.flash_attention(q, k, v, bias_tab=tab, causal=True, return_lse=True)
+            grads = fa.flash_attention_bwd(q, k, v, tab, None, out, lse, g, causal=True,
+                                           scale=d ** -0.5)
+            local = la.local_attention(lq, lk, lv, window_size=64)
+        errors[name] = [((a.double() - r).abs().max() / r.abs().max()).item()
+                        for a, r in zip((out, *grads[:3], local), (ref, *want[:3], lref))]
+    assert max(errors["3xtf32"]) < 1e-5, errors
+    assert min(errors["tf32"]) > 1e-5, errors

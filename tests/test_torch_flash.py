@@ -1,5 +1,8 @@
 """The port's flash-attention forward against the JAX package's Pallas kernel
-(interpret mode on the CPU) and its `_math_reference`.
+(interpret mode on the CPU) and its `_math_reference`; at head dims 16 and
+128 the forward and every gradient in the LMs' four forms against the
+Pallas kernels, and the padded route the CUDA wrappers take for a head dim
+the kernels are not built for.
 
 On the CPU the wrapper takes the plain version, `flash_attention_ref`; the
 CUDA kernel itself is held to that plain version on the card by
@@ -153,3 +156,97 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     with pytest.raises((TypeError, ValueError)):
         fa.flash_attention(q, k, v, **kw)
 
+
+
+# (n, m, causal) of the LMs' four forms of attention: the Semantic LM's
+# rel-pos table, the Coarse and Fine LMs' (H, N, M) bias, text conditioning's
+# prefix (causal over M = P + N keys) and cross attention
+FORMS = {"table": (50, 50, True), "bias": (50, 50, True), "prefix": (40, 56, True),
+         "cross": (40, 17, False)}
+
+
+@pytest.mark.parametrize("form", list(FORMS))
+@pytest.mark.parametrize("d", [16, 128])
+def test_plain_versions_match_pallas_at_head_dims(d, form):
+    """The forward and every gradient of the port's plain versions (the ones
+    the kernels are held to on the card, here through the autograd.Function
+    on CPU tensors) against JAX's Pallas kernels under `jax.vjp`, at a head
+    dim the kernels take by zero padding (16) and at their widest (128). JAX's
+    Pallas kernel aligns a causal mask with M > N to the top left (a recorded
+    divergence, tests/test_torch_conditioning.py), so the prefix's
+    bottom-right mask reaches it as a -1e30 bias, non-causal."""
+    n, m, causal = FORMS[form]
+    rng = np.random.default_rng(d + 10 * len(form))
+    b, h = 2, 4
+    q = rng.normal(size=(b, h, n, d)).astype(np.float32)
+    k, v = (rng.normal(size=(b, 1, m, d)).astype(np.float32) for _ in range(2))
+    g = rng.normal(size=(b, h, n, d)).astype(np.float32)
+    mask = np.ones((b, m), bool)
+    mask[1, (2 * m) // 3:] = False
+    extra, jextra, jcausal = None, None, causal
+    if form == "table":
+        extra = jextra = (0.5 * rng.normal(size=(2 * n - 1, h))).astype(np.float32)
+    elif form in ("bias", "prefix"):
+        extra = jextra = (0.5 * rng.normal(size=(h, n, m))).astype(np.float32)
+    if form == "prefix":
+        keep = np.tril(np.ones((n, m), bool), m - n)
+        jextra = np.where(keep, extra, np.float32(-1e30)).astype(np.float32)
+        jcausal = False
+    key = "bias_tab" if form == "table" else "bias"
+
+    def jf(*args):
+        kw = {key: args[3]} if len(args) > 3 else {}
+        return j_flash(*args[:3], key_mask=jnp.asarray(mask), causal=jcausal, block_q=16,
+                       block_k=16, interpret=True, **kw)
+
+    jargs = [jnp.asarray(a) for a in (q, k, v) + (() if extra is None else (jextra,))]
+    want, vjp = jax.vjp(jf, *jargs)
+    wgrads = vjp(jnp.asarray(g))
+    leaves = [t(a).requires_grad_() for a in (q, k, v) + (() if extra is None else (extra,))]
+    kw = {key: leaves[3]} if extra is not None else {}
+    out = fa.flash_attention(*leaves[:3], key_mask=t(mask), causal=causal, **kw)
+    grads = torch.autograd.grad(out, leaves, t(g))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), **TOL)
+    for name, a, r in zip(("dq", "dk", "dv", "dbias"), grads, wgrads):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), **TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("d", [8, 48, 96])
+def test_padded_route_equals_the_unpadded_plain_version(d):
+    """What the CUDA wrappers do with a head dim the kernels are not built
+    for, computed through the plain versions in float64: q, k, v (and, for
+    the backward, out and dO) zero-padded to the next built head dim, the
+    true D's scale, the results sliced back. The padded columns of the
+    output and of every gradient are zeros, the rest equal the unpadded
+    plain version's."""
+    assert fa.native_head_dim(d) == {8: 32, 48: 64, 96: 128}[d]
+    rng = np.random.default_rng(d)
+    q, k, v, tab, mask = _inputs(70, True, True, seed=d, d=d)
+    q, k, v, tab = (torch.from_numpy(a.astype(np.float64)) for a in (q, k, v, tab))
+    g = torch.from_numpy(rng.normal(size=q.shape))
+    mask = t(mask)
+    kw = dict(bias_tab=tab, key_mask=mask, causal=True, scale=d ** -0.5)
+    out, lse = fa.flash_attention_ref(q, k, v, **kw, return_lse=True)
+    grads = fa.flash_attention_bwd_ref(q, k, v, tab, mask, out, lse, g, causal=True,
+                                       scale=d ** -0.5)
+    qp, kp, vp, gp = fa._padded(q, k, v, g)
+    assert qp.shape[-1] == fa.native_head_dim(d)
+    out_p, lse_p = fa.flash_attention_ref(qp, kp, vp, **kw, return_lse=True)
+    grads_p = fa.flash_attention_bwd_ref(qp, kp, vp, tab, mask, out_p, lse_p, gp, causal=True,
+                                         scale=d ** -0.5)
+    tight = dict(rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(out_p[..., :d], out, **tight)
+    torch.testing.assert_close(lse_p, lse, **tight)
+    assert not out_p[..., d:].any()
+    for name, a, r in zip(("dq", "dk", "dv"), grads_p, grads):
+        torch.testing.assert_close(a[..., :d], r, **tight, msg=name)
+        assert not a[..., d:].any(), name
+    torch.testing.assert_close(grads_p[3], grads[3], **tight)
+
+
+def test_wrapper_names_the_head_dims_the_card_takes():
+    assert fa.HEAD_DIMS == (32, 64, 128)
+    assert [fa.native_head_dim(d) for d in (1, 16, 32, 33, 64, 80, 128)] == [32, 32, 32, 64, 64,
+                                                                           128, 128]
+    with pytest.raises(ValueError, match="up to 128"):
+        fa.native_head_dim(160)

@@ -287,3 +287,54 @@ def test_k3_split_and_fixed_order_sum_matches_jax(causal, consumers):
     jdk, jdv = vjp(jnp.asarray(g))
     np.testing.assert_allclose(dk.numpy(), np.asarray(jdk), **GRAD_TOL)
     np.testing.assert_allclose(dv.numpy(), np.asarray(jdv), **GRAD_TOL)
+
+
+# an H100 SM's shared memory for its blocks (228 KB), each block 1 KB of it besides its own
+SM_SMEM = 233472
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("label,b,h,hk,n,m,causal", SHAPES, ids=[s[0] for s in SHAPES])
+def test_plans_fit_the_card_at_each_head_dim(label, b, h, hk, n, m, causal, dtype, d):
+    """K1's, K2's (with K4's and with K5's buffers) and K3's blocks at head
+    dims 32, 64 and 128: each within a block's shared memory, and as many
+    blocks as each is built for within an SM's."""
+    plans = [fa.fwd_plan(b, h, n, m, causal, dtype, d),
+             fa.dq_plan(b, h, hk, n, m, causal, dtype, d=d),
+             fa.dq_plan(b, h, hk, n, m, causal, dtype, dbias=True, d=d),
+             fa.dkv_plan(b, h, hk, n, m, dtype, d)]
+    for plan in plans:
+        assert plan["smem"] <= fa.SMEM_LIMIT
+        assert plan["blocks"] * (plan["smem"] + 1024) <= SM_SMEM
+    # D = 32 takes D = 64's block shapes with smaller tiles
+    if d == 32:
+        wide = [fa.fwd_plan(b, h, n, m, causal, dtype),
+                fa.dq_plan(b, h, hk, n, m, causal, dtype),
+                fa.dq_plan(b, h, hk, n, m, causal, dtype, dbias=True),
+                fa.dkv_plan(b, h, hk, n, m, dtype)]
+        for plan, base in zip(plans, wide):
+            assert {x: plan[x] for x in plan if x != "smem"} == \
+                {x: base[x] for x in base if x != "smem"}
+            assert plan["smem"] <= base["smem"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plans_at_head_dim_128(dtype):
+    """At D = 128 every tile doubles: bf16 keeps K1's and K3's ring in one
+    two-consumer block an SM and K2's three stages in one block; float32
+    (an operand with its tf32 small parts is 64 KB) runs one consumer on a
+    single stage, K2's V and K preceding each other in its slot (two items a
+    key tile) and K3's Q, dO and Q again (three an item)."""
+    f32 = dtype == torch.float32
+    fwd = fa.fwd_plan(4, 8, 2049, 2049, True, dtype, 128)
+    dq = fa.dq_plan(4, 8, 1, 2049, 2049, True, dtype, dbias=True, d=128)
+    dkv = fa.dkv_plan(4, 8, 1, 2049, 2049, dtype, 128)
+    assert (fwd["consumers"], fwd["stages"], fwd["blocks"]) == ((1, 1, 1) if f32 else (2, 3, 1))
+    assert (dq["stages"], dq["items"], dq["blocks"]) == ((1, 2, 1) if f32 else (3, 1, 1))
+    assert (dkv["consumers"], dkv["stages"], dkv["items"], dkv["blocks"]) == (
+        (1, 1, 3, 1) if f32 else (2, 4, 1, 1))
+    # the tiles each consumer takes are those of the D = 64 plans of that shape
+    fwd64 = fa.fwd_plan(4, 8, 2049, 2049, True, dtype)
+    assert sorted(sum(fwd["tiles"][0], [])) == sorted(sum(fwd64["tiles"][0], []))
+    assert dq["tiles"] == fa.dq_plan(4, 8, 1, 2049, 2049, True, dtype, dbias=True)["tiles"]

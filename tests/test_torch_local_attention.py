@@ -219,3 +219,34 @@ def test_local_transformer_matches_jax(dynamic_pos_bias):
     x = rng.normal(size=(2, 40, 32)).astype(np.float32)
     want = jax.jit(lambda mod, a: mod(a))(jm, jnp.asarray(x))
     np.testing.assert_allclose(pm(t(x)).detach().numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("d", [16, 128])
+def test_plain_k7_matches_xla_and_pallas_at_head_dims(d):
+    """A head dim the kernel takes by zero padding (16) and its widest
+    (128), masked and biased, T past a window multiple."""
+    rng = np.random.default_rng(d)
+    q, k, v, mask, bias = _inputs(rng, 2, 2, 150, d, 64, True, True)
+    got = _port(q, k, v, mask, bias, 64).numpy()
+    np.testing.assert_allclose(got, _jax(ja.local_attention, q, k, v, mask, bias, 64), **TOL)
+    np.testing.assert_allclose(got, _jax(local_attention_pallas, q, k, v, mask, bias, 64,
+                                         interpret=True), **TOL)
+
+
+@pytest.mark.parametrize("d", [8, 48, 96])
+def test_k7_padded_route_equals_the_unpadded_plain_version(d):
+    """What the CUDA wrapper does with a head dim the kernel is not built
+    for, through the plain version in float64: q, k, v zero-padded to the
+    next built head dim, the true D's scale, the output sliced back; its
+    padded columns are zeros."""
+    rng = np.random.default_rng(d)
+    q, k, v, mask, bias = _inputs(rng, 2, 2, 150, d, 64, True, True)
+    q, k, v, bias = (torch.from_numpy(a.astype(np.float64)) for a in (q, k, v, bias))
+    dn = pk.native_head_dim(d)
+    assert dn == {8: 32, 48: 64, 96: 128}[d]
+    kw = dict(window_size=64, mask=t(mask), attn_bias=bias, scale=d ** -0.5)
+    want = pk.local_attention_ref(q, k, v, **kw)
+    pad = [torch.nn.functional.pad(a, (0, dn - d)) for a in (q, k, v)]
+    got = pk.local_attention_ref(*pad, **kw)
+    torch.testing.assert_close(got[..., :d], want, rtol=1e-12, atol=1e-12)
+    assert not got[..., d:].any()

@@ -42,12 +42,14 @@ from audiolm_pytorch_tpu_torch.ops.kernels import vq  # noqa: E402
 from tools import cuda_timing  # noqa: E402
 
 cuda_ms = functools.partial(cuda_timing.cuda_ms, iters=20, warmup=3)
-# (label, b, h, n, m, form, causal, keys, forward only): chip_smoke.py's
-# shapes, each in float32 and bf16 (the stage trainers' in bf16 only), MQA
-# k and v (one head); keys: "forget" drops 15% of each row's keys (the
-# first kept), "ragged" masks keys >= 700 of row 1, "text" keeps each row's
-# text tokens (7, 13, 9, 16 of the first P) and forgets 15% of the rest,
-# "null" keeps the null key and each row's text tokens
+# (label, b, h, n, m, form, causal, keys, forward only, head dim):
+# chip_smoke.py's shapes, each in float32 and bf16 (the stage trainers' in
+# bf16 only), MQA k and v (one head); keys: "forget" drops 15% of each row's
+# keys (the first kept), "ragged" masks keys >= 700 of row 1, "text" keeps
+# each row's text tokens (7, 13, 9, 16 of the first P) and forgets 15% of
+# the rest, "null" keeps the null key and each row's text tokens. The head
+# dims 32 and 128 are timed for this checkout alone (a parent's kernels may
+# take 64 only).
 SHAPES = (("4x8x2048 table", 4, 8, 2048, 2048, "table", True, "forget", False),
           ("4x8x2049 table (training)", 4, 8, 2049, 2049, "table", True, "forget", False),
           ("2x8x1000 table, ragged", 2, 8, 1000, 1000, "table", True, "ragged", False),
@@ -62,7 +64,14 @@ SHAPES = (("4x8x2048 table", 4, 8, 2048, 2048, "table", True, "forget", False),
           ("4x8x2049 over 17, cross", 4, 8, 2049, 17, "none", False, "null", False),
           ("4x8x1 over 17, cross decode", 4, 8, 1, 17, "none", False, "null", True),
           ("2x4x2049 table (tensor-parallel rank)", 2, 4, 2049, 2049, "table", True, "forget",
-           False))
+           False),
+          ("4x8x2049x128 table (flagship training, 128-wide heads)", 4, 8, 2049, 2049, "table",
+           True, "forget", False, 128),
+          ("4x8x2049x32 table", 4, 8, 2049, 2049, "table", True, "forget", False, 32),
+          ("4x4x603x128 bias (Coarse training, 4 heads of 128)", 4, 4, 603, 603, "bias", True,
+           "forget", False, 128),
+          ("4x16x1201x32 bias (Fine training, 16 heads of 32)", 4, 16, 1201, 1201, "bias", True,
+           "forget", False, 32))
 STAGE_ONLY_BF16 = ("trainer)",)
 TEXT_LENGTHS = (7, 13, 9, 16)
 # K6: (rows, codes, dim): a decode step's and a short prompt's rows, a
@@ -103,13 +112,13 @@ def parent_kernels(parent: Path):
         fa.load, vq.load = saved
 
 
-def inputs(rng, dtype, b, h, n, m, form, keys):
+def inputs(rng, dtype, b, h, n, m, form, keys, d=64):
     dev = torch.device("cuda")
 
     def normal(*shape, s=1.0):
         return torch.from_numpy(s * rng.standard_normal(shape, dtype=np.float32)).to(dev)
 
-    q, k, v, g = normal(b, h, n, 64), normal(b, 1, m, 64), normal(b, 1, m, 64), normal(b, h, n, 64)
+    q, k, v, g = normal(b, h, n, d), normal(b, 1, m, d), normal(b, 1, m, d), normal(b, h, n, d)
     q, k, v, g = (x.to(dtype) for x in (q, k, v, g))
     tab = normal(2 * n - 1, h, s=0.5) if form == "table" else None
     bias = normal(h, n, m, s=0.5) if form == "bias" else None
@@ -131,15 +140,16 @@ def inputs(rng, dtype, b, h, n, m, form, keys):
 def times(q, k, v, g, tab, bias, mask, causal, fwd_only):
     """{K1, K2, K2 with its bias gradient (K4 or K5), K3: (event ms, device
     ms)} of the wrappers as they stand."""
-    kw = dict(causal=causal, scale=0.125)
+    scale = q.shape[-1] ** -0.5
+    kw = dict(causal=causal, scale=scale)
     with torch.no_grad():
-        out, lse = fa._forward(q, k, v, tab, bias, mask, causal, 0.125)
+        out, lse = fa._forward(q, k, v, tab, bias, mask, causal, scale)
     tabc, kmask, dense = fa._kernel_args(tab, mask, bias)
     args = (q, k, v, g, lse, (g.float() * out.float()).sum(-1), tabc, kmask)
     dq_out = torch.empty_like(q)
 
     def k1():
-        return fa._forward(q, k, v, tab, bias, mask, causal, 0.125)
+        return fa._forward(q, k, v, tab, bias, mask, causal, scale)
 
     def k2():  # the bias read, its gradient not asked for: K2 alone
         return fa._bwd_launch("flash_bwd_dq", (dq_out, None, None), *args, bias=dense, **kw)
@@ -261,13 +271,14 @@ def compare(parent=None, seed=0, shapes=SHAPES):
     parent's build and this one's, parent, this, this, parent) and SDPA's;
     returns {label: {...}}."""
     rows = {}
-    for label, b, h, n, m, form, causal, keys, fwd_only in shapes:
+    for label, b, h, n, m, form, causal, keys, fwd_only, *dim in shapes:
+        d = dim[0] if dim else 64
         dtypes = ((torch.bfloat16,) if any(x in label for x in STAGE_ONLY_BF16)
                   else (torch.float32, torch.bfloat16))
         for dtype in dtypes:
-            tensors = inputs(np.random.default_rng(seed), dtype, b, h, n, m, form, keys)
+            tensors = inputs(np.random.default_rng(seed), dtype, b, h, n, m, form, keys, d)
             runs = {"this": []}
-            if parent is not None:
+            if parent is not None and d == 64:
                 runs["parent"] = []
                 for which in ("parent", "this", "this", "parent"):
                     with parent_kernels(parent) if which == "parent" else contextlib.nullcontext():
@@ -283,11 +294,12 @@ def compare(parent=None, seed=0, shapes=SHAPES):
                     continue
                 got = {w: [r[kernel] for r in runs[w]] for w in runs}
                 row[kernel] = {w: {"ms": [e for e, _ in got[w]],
-                                   "device_ms": [d for _, d in got[w]]} for w in got}
+                                   "device_ms": [dv for _, dv in got[w]]} for w in got}
                 line = f"flash device {kernel} [{at}]: this " + " ".join(
-                    f"{fmt(e)}/{fmt(d)}" for e, d in got["this"])
-                if parent is not None:
-                    line += " | parent " + " ".join(f"{fmt(e)}/{fmt(d)}" for e, d in got["parent"])
+                    f"{fmt(e)}/{fmt(dv)}" for e, dv in got["this"])
+                if "parent" in got:
+                    line += " | parent " + " ".join(f"{fmt(e)}/{fmt(dv)}"
+                                                    for e, dv in got["parent"])
                 line += " ms (events/device) | sdpa " + (
                     f"{fmt(sdpa_ms)}/{fmt(sdpa_dev)}" if kernel == "K1"
                     else f"backward device {fmt(sdpa_bwd_dev)}")
