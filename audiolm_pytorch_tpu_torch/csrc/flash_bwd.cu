@@ -1,7 +1,8 @@
 // Flash-attention backward for Hopper (sm_90a): dq (K2) with, in the same
 // launch, the gradient of the bias given: that of the (2N-1, H) rel-pos
-// distance table (K4) or that of an (H, N, M) bias shared over the batch
-// (K5); and dk/dv (K3). Each recomputes P = exp(S - lse) tile by tile from
+// distance table (K4), that of an (H, N, M) bias shared over the batch
+// (K5), or that of a (B, H, N, M) bias, a bias a batch row (dS itself);
+// and dk/dv (K3). Each recomputes P = exp(S - lse) tile by tile from
 // the forward's row logsumexp, so the (N, M) attention matrix never exists
 // in device memory.
 //
@@ -15,7 +16,10 @@
 //                        dtab[q - k + N - 1, h]: partial sums inside K2's
 //                        launch, added in a fixed order by a second pass
 //   K5 `_dbias_kernel`   dbias = sum_b dS for a batch-shared (H, N, M) bias,
-//                        inside K2's launch
+//                        inside K2's launch; for a per-batch (B, H, N, M)
+//                        bias (whose gradient the JAX package takes from a
+//                        chunked XLA recurrence) dbias = dS, written by K2's
+//                        consumer straight from its accumulators
 // with the same semantics: masked keys at -1e30, keys past M at -inf, a row
 // whose lse is <= -5e29 (every key masked) gets p = 0, padded query rows get
 // no gradient. Delta = rowsum(dO * O) comes in precomputed (a torch
@@ -36,9 +40,10 @@
 //
 // Design, all on the tensor cores, warp-specialised on wgmma and TMA through
 // csrc/wgmma.cuh.
-//   K2: one block per (batch row, head, 64-row query tile), the longest
-//       causal rows first, of a producer warpgroup and a consumer
-//       warpgroup. The producer's first thread loads the block's Q and dO
+//   K2: one block per (batch row, head, 64-row query tile), on a
+//       one-dimensional grid (batch rows fastest, so K5's clusters are
+//       consecutive blocks), the longest causal rows first, of a producer
+//       warpgroup and a consumer warpgroup. The producer's first thread loads the block's Q and dO
 //       tiles once by TMA (3-D maps (64, rows, planes), so a head's ragged
 //       last tile reads zeros) and streams the K and V tiles up to the
 //       diagonal through a ring of stages (two in float32, three in bf16)
@@ -94,6 +99,11 @@
 //       above the causal diagonal, which no block visits, are written as
 //       zeros by the producers of the cluster of their query tile, after
 //       their sums (with atomics the zeroed buffer holds them).
+//   The per-batch bias's gradient (an instantiation of its own, EACH): a
+//       (b, h) row's dS is its gradient, so each consumer thread writes its
+//       32 elements of the tile's dS to dbias[b, h] as soon as it has them,
+//       and the block's keys past its last tile as zeros: no cluster, no
+//       atomics, every element written once, the same bits every run.
 //   What holds K2 back (measured by tools/torch_flash_parent_ab.py,
 //       PERF.md): one consumer warpgroup runs its two products, its
 //       epilogue and its dq product in sequence, and the epilogue (bias,
@@ -102,7 +112,8 @@
 //       SM's shared memory. K4 adds the skewed stores and column sums a tile
 //       and its second pass; K5 the cluster launch and a buffer's wait.
 //   K3 (warp-specialised, on wgmma and TMA through csrc/wgmma.cuh): one
-//       block per (query head set, b*hk, 64-key tile, query chunk) of a
+//       block per (query head set, b*hk, 64-key tile, query chunk), on a
+//       one-dimensional grid in that order (a cluster's blocks consecutive), of a
 //       producer warpgroup and two consumer warpgroups; the blocks of one
 //       (b*hk, key tile, chunk), min(group, 8) of them, form a thread-block
 //       cluster, each taking group / cluster of the kv head's query heads.
@@ -172,6 +183,9 @@ constexpr int BQ = 64;          // query rows per tile
 constexpr int BK = 64;          // keys per tile
 constexpr int ND = BQ + BK - 1; // deltas a tile covers
 constexpr int MAX_CLUSTER = 8;  // the portable cluster size
+// K2's forms of the bias's gradient: none or K4's (the table's, by its
+// dpart pointer), K5's batch sum, or a per-batch bias's dS
+constexpr int DB_NONE = 0, DB_SUM = 1, DB_EACH = 2;
 using tc::NEG;
 static_assert(BQ == BK, "square tiles: the causal loops start at the diagonal tile");
 
@@ -285,7 +299,9 @@ constexpr int NT_DTAB = 256;
 __global__ void __launch_bounds__(NT_DTAB)
 dtab_sum_kernel(const float* __restrict__ part, float* __restrict__ dtab, int b, int heads,
                 int n, int m, int causal) {
-  const int idx = blockIdx.x * NT_DTAB + threadIdx.x, h = blockIdx.y;
+  // one-dimensional grid: each head's blocks in turn
+  const int per_head = (2 * n - 1 + NT_DTAB - 1) / NT_DTAB;
+  const int idx = blockIdx.x % per_head * NT_DTAB + threadIdx.x, h = blockIdx.x / per_head;
   if (idx >= 2 * n - 1) return;
   const int nqt = (n + BQ - 1) / BQ, arow = BK * ((m + BK - 1) / BK + 1);
   const int delta = idx - (n - 1);
@@ -311,8 +327,8 @@ dtab_sum_kernel(const float* __restrict__ part, float* __restrict__ dtab, int b,
   dtab[(size_t)idx * heads + h] = sum;
 }
 
-template <typename T, int D, bool SUM>
-__global__ void __launch_bounds__(Dq<T, D, SUM>::NT, Dq<T, D, SUM>::MIN_BLOCKS)
+template <typename T, int D, int DB>
+__global__ void __launch_bounds__(Dq<T, D, DB == DB_SUM>::NT, Dq<T, D, DB == DB_SUM>::MIN_BLOCKS)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
                     const __grid_constant__ CUtensorMap kmap,
                     const __grid_constant__ CUtensorMap vmap,
@@ -320,7 +336,9 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
                     const float* __restrict__ delta, const float* __restrict__ tab,
                     const float* __restrict__ bias, const int8_t* __restrict__ kmask,
                     T* __restrict__ dq, float* __restrict__ dpart, float* __restrict__ dbias,
-                    int heads, int group, int n, int m, float scale, int causal) {
+                    int bcount, int heads, int group, int n, int m, float scale, int causal,
+                    int bias_batched) {
+  constexpr bool SUM = DB == DB_SUM, EACH = DB == DB_EACH;
   using L = Dq<T, D, SUM>;
   constexpr int ST = L::ST, PER = L::PER;
   extern __shared__ __align__(1024) unsigned char dq_smem[];
@@ -350,8 +368,10 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
 
   cg::cluster_group cluster = cg::this_cluster();
   const int csize = (int)cluster.num_blocks();
-  const int b = blockIdx.x, h = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;  // the longest causal rows first
+  // one-dimensional grid: batch rows fastest, then heads, then query tiles
+  const int b = blockIdx.x % bcount, h = blockIdx.x / bcount % heads;
+  const int nqt = (n + BQ - 1) / BQ, qt = blockIdx.x / bcount / heads;
+  const int q0 = (nqt - 1 - qt) * BQ;  // the longest causal rows first
   const size_t bh = (size_t)b * heads + h;
   // causal: key k is seen by query q iff k <= q + off (bottom-right aligned, m >= n)
   const int off = m - n;
@@ -381,8 +401,9 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
   }
   // K5: dS of tile it in buffer it % 2; with several clusters per tile (B >
   // 8) their partial sums meet by atomics
-  const bool atomic = SUM && csize < (int)gridDim.x;
-  float* out = SUM ? dbias + (size_t)h * n * m : nullptr;  // dbias[h]
+  const bool atomic = SUM && csize < bcount;
+  // dbias[h] (K5), or dbias[b, h] (a per-batch bias)
+  float* out = SUM ? dbias + (size_t)h * n * m : EACH ? dbias + bh * n * m : nullptr;
   auto dsb = [&](int it) { return extra + (it & 1) * BQ * BK; };
 
   if (tid < 128) {
@@ -502,7 +523,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
   if constexpr (L::NREG) wg::setmaxnreg_inc<L::CONSUMER_REGS>();
   const int ctid = tid - 128, warp = ctid / 32, lane = ctid % 32, gq = lane / 4, t = lane % 4;
   const int rl[2] = {warp * 16 + gq, warp * 16 + gq + 8};  // this thread's rows in the tile
-  const float* biash = bias != nullptr ? bias + (size_t)h * n * m : nullptr;
+  // bias[h], or bias[b, h] of a per-batch bias
+  const float* biash = bias != nullptr ? bias + (bias_batched ? bh : h) * n * m : nullptr;
   // this thread's rows of the (H, N, M) bias (rows past n: none)
   const float* brow[2] = {biash != nullptr && q0 + rl[0] < n ? biash + (size_t)(q0 + rl[0]) * m
                                                              : nullptr,
@@ -528,7 +550,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
   auto dsl = [&](int it) { return extra + BQ * SKP + (it & 1) * 4 * DSL; };
   const int nkt = (m + BK - 1) / BK;
   float* prow = dpart != nullptr
-                    ? dpart + (bh * gridDim.z + q0 / BQ) * (size_t)(BK * (nkt + 1)) : nullptr;
+                    ? dpart + (bh * nqt + q0 / BQ) * (size_t)(BK * (nkt + 1)) : nullptr;
   int a_cur = -1;  // the local delta this thread sums now (thread i owns a = i mod DSL)
   float a_sum = 0.f;
   if (dpart != nullptr) {
@@ -642,6 +664,23 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
         dsl(it)[warp * DSL + 48 - 16 * warp + x] = sum0 + sum1;
       }
     }
+    if constexpr (EACH) {
+      // a per-batch bias: this thread's dS elements are their gradient
+      // (scalar stores: a row of m floats need not keep 8-byte alignment)
+#pragma unroll
+      for (int ri = 0; ri < 2; ++ri) {
+        const int qp = q0 + rl[ri];
+        if (qp >= n) continue;
+        float* o = out + (size_t)qp * m + k0;
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int cc = 8 * j + 2 * t + e;
+            if (k0 + cc < m) o[cc] = ds[4 * j + 2 * ri + e];
+          }
+      }
+    }
     if constexpr (SUM) {
       // K5: dS into buffer it % 2 once every rank has summed tile it - 2
       // from it, then every rank told
@@ -685,6 +724,11 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
     wg::mbar_arrive(&empty[ks]);
   }
   if (dpart != nullptr && a_cur >= 0) prow[a_cur] = a_sum;
+  if constexpr (EACH) {
+    // the keys past the last tile (above the causal diagonal): dS = 0
+    for (int r = 0; r < BQ && q0 + r < n; ++r)
+      for (int c = ntiles * BK + ctid; c < m; c += 128) out[(size_t)(q0 + r) * m + c] = 0.f;
+  }
 
 #pragma unroll
   for (int ri = 0; ri < 2; ++ri) {
@@ -756,7 +800,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
                      const float* __restrict__ delta, const float* __restrict__ tab,
                      const float* __restrict__ bias, const int8_t* __restrict__ kmask,
                      T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ part,
-                     int heads, int hk, int n, int m, float scale, int causal, int qsplit) {
+                     int bhk, int heads, int hk, int n, int m, float scale, int causal,
+                     int qsplit, int bias_batched) {
   using L = Dkv<T, D, TWO>;
   constexpr int ST = L::ST, PER = L::PER;
   extern __shared__ __align__(1024) unsigned char dkv_smem[];
@@ -784,9 +829,12 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank(), csize = (int)cluster.num_blocks();
-  const int kvh = blockIdx.y;  // b * hk + kv head
+  // one-dimensional grid: the cluster's ranks, then b * hk + kv head, then
+  // (key tile, query chunk)
+  const int kvh = blockIdx.x / csize % bhk;  // b * hk + kv head
   const int b = kvh / hk, kh = kvh % hk, group = heads / hk;
-  const int k0 = (blockIdx.z / qsplit) * BK, z = blockIdx.z % qsplit;
+  const int zz = blockIdx.x / csize / bhk;
+  const int k0 = (zz / qsplit) * BK, z = zz % qsplit;
   // this block sums the heads kh * group + rank + csize * i of its kv head
   // over chunk z of the query tiles that see its keys; causal: the first
   // query that sees key k0 is k0 - off (off = m - n >= 0)
@@ -940,7 +988,9 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
     // by TMA or through shared memory); rows past n and keys past m: none.
     float bv[32];
     if (bias != nullptr) {
-      const float* bh_bias = bias + ((size_t)head(it) * n + q0) * m + k0;
+      // bias[h], or bias[b, h] of a per-batch bias
+      const float* bh_bias =
+          bias + (((bias_batched ? (size_t)b * heads : 0) + head(it)) * n + q0) * m + k0;
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
         const int cq = 8 * (i / 4) + 2 * t + (i & 1), kr = kl[(i / 2) & 1];
@@ -1054,7 +1104,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
   tc::cluster_arrive();
   tc::cluster_wait();
   if (rank == 0) {
-    const size_t plane = (size_t)gridDim.y * m * D;  // one chunk's dk or dv partial
+    const size_t plane = (size_t)bhk * m * D;  // one chunk's dk or dv partial
     for (int i = tid - 128; i < BK * D; i += 128 * L::NC) {
       const int r = i / D, cc = i % D;
       if (k0 + r >= m) continue;
@@ -1107,7 +1157,15 @@ struct Args {
   float scale;
   int causal;
   cudaStream_t stream;
+  int bias_batched;  // the bias is (b, heads, n, m)
 };
+
+// a one-dimensional grid of `blocks`, or an error past its x limit of 2^31 - 1
+cudaError_t grid_1d(long long blocks, dim3* grid) {
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  *grid = dim3((unsigned)blocks);
+  return cudaSuccess;
+}
 
 cudaLaunchAttribute cluster_attr(int size) {
   cudaLaunchAttribute attr;
@@ -1145,9 +1203,11 @@ DqPlan dq_plan(int b, bool sum) {
 }
 
 // K2; o2 the gradient of the bias given, dtab (K4, then its second pass,
-// with its partial sums in part) or dbias (K5), or null
-template <typename T, int D, bool SUM>
+// with its partial sums in part) or dbias (K5, or a per-batch bias's), or
+// null
+template <typename T, int D, int DB>
 cudaError_t launch_dq(const Args& a, void* dq, void* o2, void* part) {
+  constexpr bool SUM = DB == DB_SUM;
   using L = Dq<T, D, SUM>;
   const bool dtab = a.bias == nullptr && o2 != nullptr;
   CUtensorMap qm, km, vm, gm;
@@ -1155,7 +1215,7 @@ cudaError_t launch_dq(const Args& a, void* dq, void* o2, void* part) {
   if (err == cudaSuccess) err = wg::tile_map(&gm, a.g, sizeof(T), a.n, a.b * a.heads, D);
   if (err == cudaSuccess) err = wg::tile_map(&km, a.k, sizeof(T), a.m, a.b * a.hk, D);
   if (err == cudaSuccess) err = wg::tile_map(&vm, a.v, sizeof(T), a.m, a.b * a.hk, D);
-  auto kernel = flash_bwd_dq_kernel<T, D, SUM>;
+  auto kernel = flash_bwd_dq_kernel<T, D, DB>;
   static unsigned sized = 0;  // the devices whose attribute is set, once per instantiation
   int dev = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
@@ -1167,7 +1227,8 @@ cudaError_t launch_dq(const Args& a, void* dq, void* o2, void* part) {
   const DqPlan plan = dq_plan_of<T, D, SUM>(a.b);
   cudaLaunchAttribute attr[1] = {cluster_attr(plan.cluster)};
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.b, a.heads, (a.n + BQ - 1) / BQ);
+  err = grid_1d((long long)a.b * a.heads * ((a.n + BQ - 1) / BQ), &cfg.gridDim);
+  if (err != cudaSuccess) return err;
   cfg.blockDim = dim3(L::NT);
   cfg.dynamicSmemBytes = L::EXTRA + (SUM ? L::K5_BYTES : dtab ? L::K4_BYTES : 0);
   cfg.stream = a.stream;
@@ -1177,10 +1238,13 @@ cudaError_t launch_dq(const Args& a, void* dq, void* o2, void* part) {
       &cfg, kernel, qm, km, vm, gm, static_cast<const float*>(a.lse),
       static_cast<const float*>(a.delta), static_cast<const float*>(a.tab),
       static_cast<const float*>(a.bias), static_cast<const int8_t*>(a.kmask), static_cast<T*>(dq),
-      static_cast<float*>(dtab ? part : nullptr), static_cast<float*>(SUM ? o2 : nullptr),
-      a.heads, a.heads / a.hk, a.n, a.m, a.scale, a.causal);
+      static_cast<float*>(dtab ? part : nullptr),
+      static_cast<float*>(DB != DB_NONE ? o2 : nullptr), a.b, a.heads, a.heads / a.hk, a.n, a.m,
+      a.scale, a.causal, a.bias_batched);
   if (err != cudaSuccess || !dtab) return err;
-  const dim3 grid((2 * a.n - 1 + NT_DTAB - 1) / NT_DTAB, a.heads);
+  dim3 grid;
+  err = grid_1d((long long)(2 * a.n - 1 + NT_DTAB - 1) / NT_DTAB * a.heads, &grid);
+  if (err != cudaSuccess) return err;
   dtab_sum_kernel<<<grid, NT_DTAB, 0, a.stream>>>(static_cast<const float*>(part),
                                                   static_cast<float*>(o2), a.b, a.heads, a.n,
                                                   a.m, a.causal);
@@ -1240,6 +1304,11 @@ cudaError_t launch_dkv(const Args& a, const DkvPlan& plan, void* dk, void* dv) {
     if (err == cudaSuccess) sized |= 1u << dev;
   }
   if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1] = {cluster_attr(plan.cluster)};
+  cudaLaunchConfig_t cfg = {};
+  err = grid_1d((long long)plan.cluster * a.b * a.hk * ((a.m + BK - 1) / BK) * plan.qsplit,
+                &cfg.gridDim);
+  if (err != cudaSuccess) return err;
   // the query range split over chunks: their partials in scratch, summed
   // in chunk order by a second pass (one K3 call, two launches)
   const size_t plane = (size_t)a.b * a.hk * a.m * D;
@@ -1259,9 +1328,6 @@ cudaError_t launch_dkv(const Args& a, const DkvPlan& plan, void* dk, void* dv) {
                           2 * plan.qsplit * plane * sizeof(float), a.stream);
     if (err != cudaSuccess) return err;
   }
-  cudaLaunchAttribute attr[1] = {cluster_attr(plan.cluster)};
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(plan.cluster, a.b * a.hk, (a.m + BK - 1) / BK * plan.qsplit);
   cfg.blockDim = dim3(L::NT);
   cfg.dynamicSmemBytes = L::bytes;
   cfg.stream = a.stream;
@@ -1271,8 +1337,8 @@ cudaError_t launch_dkv(const Args& a, const DkvPlan& plan, void* dk, void* dv) {
       &cfg, kernel, qm, km, vm, gm, static_cast<const float*>(a.lse),
       static_cast<const float*>(a.delta), static_cast<const float*>(a.tab),
       static_cast<const float*>(a.bias), static_cast<const int8_t*>(a.kmask),
-      static_cast<T*>(dk), static_cast<T*>(dv), part, a.heads, a.hk, a.n, a.m, a.scale,
-      a.causal, plan.qsplit);
+      static_cast<T*>(dk), static_cast<T*>(dv), part, a.b * a.hk, a.heads, a.hk, a.n, a.m,
+      a.scale, a.causal, plan.qsplit, a.bias_batched);
   if (part == nullptr) return err;
   if (err == cudaSuccess) {
     dkv_sum_kernel<T><<<(unsigned)((plane + 255) / 256 < 1024 ? (plane + 255) / 256 : 1024), 256,
@@ -1298,8 +1364,10 @@ cudaError_t dispatch(int which, const Args& a, void* o1, void* o2, void* part) {
   }
   if (o2 != nullptr && (a.tab == nullptr ? a.bias == nullptr : a.n != a.m || part == nullptr))
     return cudaErrorInvalidValue;
-  return a.bias != nullptr && o2 != nullptr ? launch_dq<T, D, true>(a, o1, o2, part)
-                                            : launch_dq<T, D, false>(a, o1, o2, part);
+  if (a.bias != nullptr && o2 != nullptr)
+    return a.bias_batched ? launch_dq<T, D, DB_EACH>(a, o1, o2, part)
+                          : launch_dq<T, D, DB_SUM>(a, o1, o2, part);
+  return launch_dq<T, D, DB_NONE>(a, o1, o2, part);
 }
 
 template <typename T>
@@ -1315,9 +1383,9 @@ cudaError_t dispatch_dim(int which, int d, const Args& a, void* o1, void* o2, vo
 int run(int which, const void* q, const void* k, const void* v, const void* g,
         const void* lse, const void* delta, const void* tab, const void* bias,
         const void* kmask, void* o1, void* o2, void* part, int b, int heads, int hk, int n,
-        int m, int d, float scale, int causal, int dtype, void* stream) {
+        int m, int d, float scale, int causal, int dtype, void* stream, int bias_batched) {
   const Args a{q, k, v, g, lse, delta, tab, bias, kmask, b, heads, hk, n, m, scale, causal,
-               static_cast<cudaStream_t>(stream)};
+               static_cast<cudaStream_t>(stream), bias_batched};
   if (dtype == 0) return dispatch_dim<float>(which, d, a, o1, o2, part);
   if (dtype == 1) return dispatch_dim<__nv_bfloat16>(which, d, a, o1, o2, part);
   return cudaErrorInvalidValue;
@@ -1327,8 +1395,12 @@ int run(int which, const void* q, const void* k, const void* v, const void* g,
 
 // q, g (b*heads, n, d); k, v (b*hk, m, d), d in 32, 64, 128, in one dtype
 // (0 float32, 1 bfloat16); lse, delta (b*heads, n) float32; tab (2n-1, heads) float32 or
-// null; bias (heads, n, m) float32 or null, at most one of tab and bias;
-// kmask (b, m) int8 or null. Each returns a cudaError_t.
+// null; bias float32 or null, at most one of tab and bias: (heads, n, m)
+// shared over the batch, or with bias_batched (b, heads, n, m); kmask (b,
+// m) int8 or null. Each returns a cudaError_t. (bias_batched comes last,
+// after the stream: a library built before it takes the same call and
+// ignores it, as tools/torch_flash_parent_ab.py loads an older checkout's
+// behind these wrappers.)
 
 // dq (b*heads, n, d) in q's dtype; with dgrad not null also the gradient of
 // the bias given, summed over the batch: with tab, dtab (2n-1, heads)
@@ -1336,14 +1408,17 @@ int run(int which, const void* q, const void* k, const void* v, const void* g,
 // of b * heads * ceil(n / 64) * 64 (ceil(m / 64) + 1) elements for K4's
 // partial sums; K4's second pass is a launch of its own after K2's); with
 // bias, dbias (heads, n, m) float32, every element written, zeroed by the
-// caller when b > 8 (several clusters per tile meet by atomics there)
+// caller when b > 8 (several clusters per tile meet by atomics there); with
+// a per-batch bias, dbias (b, heads, n, m) float32, dS itself, every element
+// written once
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* g,
                             const void* lse, const void* delta, const void* tab,
                             const void* bias, const void* kmask, void* dq, void* dgrad,
                             void* part, int b, int heads, int hk, int n, int m, int d,
-                            float scale, int causal, int dtype, void* stream) {
+                            float scale, int causal, int dtype, void* stream,
+                            int bias_batched) {
   return run(0, q, k, v, g, lse, delta, tab, bias, kmask, dq, dgrad, part, b, heads, hk, n, m,
-             d, scale, causal, dtype, stream);
+             d, scale, causal, dtype, stream, bias_batched);
 }
 
 // dk, dv (b*hk, m, d) in k's dtype
@@ -1351,9 +1426,9 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
                              const void* lse, const void* delta, const void* tab,
                              const void* bias, const void* kmask, void* dk, void* dv, int b,
                              int heads, int hk, int n, int m, int d, float scale, int causal,
-                             int dtype, void* stream) {
+                             int dtype, void* stream, int bias_batched) {
   return run(1, q, k, v, g, lse, delta, tab, bias, kmask, dk, dv, nullptr, b, heads, hk, n, m,
-             d, scale, causal, dtype, stream);
+             d, scale, causal, dtype, stream, bias_batched);
 }
 
 // K2's launch plan for these sizes, head dim, dtype (0 float32, 1 bfloat16)

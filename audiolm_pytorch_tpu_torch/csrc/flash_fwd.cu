@@ -1,6 +1,7 @@
 // Flash-attention forward for Hopper (sm_90a), with the rel-pos bias read
 // straight from its (2N-1, H) distance table, or an (H, N, M) float32 bias
-// shared over the batch read tile by tile.
+// shared over the batch (or a (B, H, N, M) one, a bias a batch row) read
+// tile by tile.
 //
 // Replaces the TPU kernel of the JAX package, ops/pallas/flash_attention.py
 // `_kernel` (launched by `_flash_bh`, entries `flash_attention` and
@@ -19,8 +20,9 @@
 // mostly from the 50 MB L2.
 //
 // Design (warp-specialised, on wgmma and TMA through csrc/wgmma.cuh). One
-// block per (b*h, 64-query tile), the heaviest (last) query tiles launched
-// first, of a producer warpgroup and one (bf16) or two (float32) consumer
+// block per (b*h, 64-query tile), on a one-dimensional grid (no limit on
+// B*H or N but the grid's 2^31 - 1 blocks), the heaviest (last) query tiles
+// launched first, of a producer warpgroup and one (bf16) or two (float32) consumer
 // warpgroups; setmaxnreg gives the producer's registers to the consumers.
 //   - The producer: one thread loads Q once and streams the 64-key K and V
 //     tiles into a ring of stages by TMA (3-D maps (64, rows, planes), so a
@@ -29,7 +31,8 @@
 //     and key flags (loaded a tile ahead into registers). In float32 they
 //     also split Q, K and V into tf32 big/small pairs in place, a tile
 //     behind the loads so the copy of the next one is in flight.
-//   - The (H, N, M) bias is read by the consumers themselves, each thread
+//   - The (H, N, M) bias (or a batch row's of a (B, H, N, M) one) is read
+//     by the consumers themselves, each thread
 //     its 32 elements of a tile straight from device memory while the
 //     score product runs: its rows (M floats: 602, 603, 1201 in the Coarse
 //     and Fine LMs) are not 16-byte multiples, which TMA needs; padding it
@@ -142,8 +145,8 @@ __global__ void __launch_bounds__(Fwd<T, D, TWO>::NT, Fwd<T, D, TWO>::MIN_BLOCKS
 flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
                  const __grid_constant__ CUtensorMap vmap, const float* __restrict__ tab,
                  const float* __restrict__ bias, const int8_t* __restrict__ kmask,
-                 T* __restrict__ out, float* __restrict__ lse, int heads, int group, int n, int m,
-                 float scale, int causal) {
+                 T* __restrict__ out, float* __restrict__ lse, int bh_count, int heads, int group,
+                 int n, int m, float scale, int causal, int bias_batched) {
   using L = Fwd<T, D, TWO>;
   constexpr int ST = L::ST, NC = L::NC;
   extern __shared__ __align__(1024) unsigned char fwd_smem[];
@@ -167,10 +170,12 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
   uint64_t *qload = bars, *qfull = bars + 1, *loaded = bars + 2, *full = loaded + ST,
            *empty = full + ST;
 
-  const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // the longest causal rows first
+  // one-dimensional grid: the (b*h)s of a query tile run together
+  const int bh = blockIdx.x % bh_count, qt = blockIdx.x / bh_count;
+  const int q0 = ((n + BQ - 1) / BQ - 1 - qt) * BQ;  // the longest causal rows first
   const int h = bh % heads, b = bh / heads;
-  const float* biash = bias != nullptr ? bias + (size_t)h * n * m : nullptr;
+  // bias[h], or bias[b, h] of a per-batch bias
+  const float* biash = bias != nullptr ? bias + (size_t)(bias_batched ? bh : h) * n * m : nullptr;
   // causal: key k is seen by query q iff k <= q + off (bottom-right aligned, m >= n)
   const int off = m - n;
   const int kv_end = tc::causal_end(causal, q0 + BQ, off, m);
@@ -436,7 +441,8 @@ bool fwd_two(bool f32, int bh, int n, int m, int d) {
 template <typename T, int D, bool TWO>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* tab,
                    const void* bias, const void* kmask, void* out, void* lse, int bh, int heads,
-                   int group, int n, int m, float scale, int causal, cudaStream_t stream) {
+                   int group, int n, int m, float scale, int causal, int bias_batched,
+                   cudaStream_t stream) {
   using L = Fwd<T, D, TWO>;
   CUtensorMap qm, km, vm;
   cudaError_t err = wg::tile_map(&qm, q, sizeof(T), n, bh, D);
@@ -451,11 +457,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* tab,
     if (err == cudaSuccess) sized |= 1u << dev;
   }
   if (err != cudaSuccess) return err;
-  dim3 grid(bh, (n + BQ - 1) / BQ);
-  flash_fwd_kernel<T, D, TWO><<<grid, L::NT, L::bytes, stream>>>(
+  const long long blocks = (long long)bh * ((n + BQ - 1) / BQ);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;  // the grid's x limit, 2^31 - 1
+  flash_fwd_kernel<T, D, TWO><<<(unsigned)blocks, L::NT, L::bytes, stream>>>(
       qm, km, vm, static_cast<const float*>(tab), static_cast<const float*>(bias),
-      static_cast<const int8_t*>(kmask), static_cast<T*>(out), static_cast<float*>(lse), heads,
-      group, n, m, scale, causal);
+      static_cast<const int8_t*>(kmask), static_cast<T*>(out), static_cast<float*>(lse), bh,
+      heads, group, n, m, scale, causal, bias_batched);
   return cudaGetLastError();
 }
 
@@ -463,33 +470,33 @@ template <typename T, int D>
 cudaError_t launch_shape(bool two, const void* q, const void* k, const void* v, const void* tab,
                          const void* bias, const void* kmask, void* out, void* lse, int bh,
                          int heads, int group, int n, int m, float scale, int causal,
-                         cudaStream_t stream) {
+                         int bias_batched, cudaStream_t stream) {
   if constexpr (D > 64)  // one block shape a dtype (fwd_two)
     return launch<T, D, sizeof(T) == 2>(q, k, v, tab, bias, kmask, out, lse, bh, heads, group,
-                                        n, m, scale, causal, stream);
+                                        n, m, scale, causal, bias_batched, stream);
   else
     return two ? launch<T, D, true>(q, k, v, tab, bias, kmask, out, lse, bh, heads, group, n, m,
-                                    scale, causal, stream)
+                                    scale, causal, bias_batched, stream)
                : launch<T, D, false>(q, k, v, tab, bias, kmask, out, lse, bh, heads, group, n,
-                                     m, scale, causal, stream);
+                                     m, scale, causal, bias_batched, stream);
 }
 
 template <typename T>
 cudaError_t launch_dim(int d, const void* q, const void* k, const void* v, const void* tab,
                        const void* bias, const void* kmask, void* out, void* lse, int bh,
                        int heads, int group, int n, int m, float scale, int causal,
-                       cudaStream_t stream) {
+                       int bias_batched, cudaStream_t stream) {
   const bool two = fwd_two(sizeof(T) == 4, bh, n, m, d);
   switch (d) {
     case 32:
       return launch_shape<T, 32>(two, q, k, v, tab, bias, kmask, out, lse, bh, heads, group, n,
-                                 m, scale, causal, stream);
+                                 m, scale, causal, bias_batched, stream);
     case 64:
       return launch_shape<T, 64>(two, q, k, v, tab, bias, kmask, out, lse, bh, heads, group, n,
-                                 m, scale, causal, stream);
+                                 m, scale, causal, bias_batched, stream);
     case 128:
       return launch_shape<T, 128>(two, q, k, v, tab, bias, kmask, out, lse, bh, heads, group,
-                                  n, m, scale, causal, stream);
+                                  n, m, scale, causal, bias_batched, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -513,22 +520,26 @@ void fwd_plan_of(bool two, int* out) {
 }  // namespace
 
 // q (bh, n, d); k, v (bh / group, m, d), d in 32, 64, 128; tab (2n-1, heads)
-// float32 or null; bias (heads, n, m) float32 or null, at most one of the
-// two; kmask (bh / heads, m) int8 or null; out (bh, n, d) in q's type; lse
+// float32 or null; bias float32 or null, at most one of the two: (heads,
+// n, m) shared over the batch, or with bias_batched (bh / heads, heads, n,
+// m); kmask (bh / heads, m) int8 or null; out (bh, n, d) in q's type; lse
 // (bh, n) float32. q, k, v and bias 16-byte aligned. dtype 0 = float32, 1 =
-// bfloat16. Returns a cudaError_t.
+// bfloat16. Returns a cudaError_t. (bias_batched comes last, after the
+// stream: a library built before it takes the same call and ignores it, as
+// tools/torch_flash_parent_ab.py loads an older checkout's behind these
+// wrappers.)
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void* tab,
                          const void* bias, const void* kmask, void* out, void* lse, int bh,
                          int heads, int group, int n, int m, int d, float scale, int causal,
-                         int dtype, void* stream) {
+                         int dtype, void* stream, int bias_batched) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tab != nullptr && bias != nullptr) return cudaErrorInvalidValue;
   if (dtype == 0)
     return launch_dim<float>(d, q, k, v, tab, bias, kmask, out, lse, bh, heads, group, n, m,
-                             scale, causal, s);
+                             scale, causal, bias_batched, s);
   if (dtype == 1)
     return launch_dim<__nv_bfloat16>(d, q, k, v, tab, bias, kmask, out, lse, bh, heads, group,
-                                     n, m, scale, causal, s);
+                                     n, m, scale, causal, bias_batched, s);
   return cudaErrorInvalidValue;
 }
 

@@ -1,7 +1,7 @@
 // Blocked causal local attention for Hopper (sm_90a): each query of window
-// i attends the keys of windows i-1 and i at or before it, with an optional
-// (H, w, 2w) float32 bias over (query in window, key in the two windows)
-// and an optional (B, T) int8 key mask.
+// i (of any width w >= 1) attends the keys of windows i-1 and i at or before
+// it, with an optional (H, w, 2w) float32 bias over (query in window, key in
+// the two windows) and an optional (B, T) int8 key mask.
 //
 // Replaces the TPU kernel of the JAX package, ops/pallas/local_attention.py
 // `_kernel` (launched by `_forward`, entry `local_attention_pallas`), and
@@ -29,21 +29,32 @@
 // Design: the flash forward of this package (csrc/flash_fwd.cu, K1) with
 // K7's masking rule, on the tensor cores through csrc/mma.cuh (bf16
 // m16n8k16; float32 as 3xTF32 on m16n8k8). One block of 4 warps per (b*h,
-// 64-query tile), each warp 16 query rows whose Q fragments stay in
-// registers; the 64-slot key tiles of the window's 2w slots double-buffered
-// by cp.async (K, V and the bias's 64x64 block), S = Q K^T and O += P V as
-// mma products with the online softmax on the accumulators (each tile's
-// P V from zero and added in float32, exp as 2^((x - m) log2 e), exactly 1
-// at x = m). Only the live key tiles are visited: a tile of slots in which
-// no pair of the query tile is allowed (window 0's look-back, slots past
-// j0 + 63 + w, keys at or past T) contributes exp(-1e9 - m) = 0 in float32
-// to every row that has an allowed key, so skipping it is exact; at the
-// codec's 2 s shape that skips 5 of every 8 (block, tile) steps, at 10 s 8
-// of 32. A row with no allowed key at all (its running maximum is -1e9) gets
-// the model path's answer explicitly: the mean of the 2w value slots, zeros
-// for window -1 and the padding, computed only in a block that holds such a
-// row. q, k, v and out are read and written through their (batch, head,
-// time) strides, so the codec's transposed (B, N, H, D) views need no copy.
+// 64-query tile), on a one-dimensional grid (any T and B*H), each warp 16
+// query rows whose Q fragments stay in registers; the 64-key tiles double-
+// buffered by cp.async (K, V and the bias's 64x64 block), S = Q K^T and O +=
+// P V as mma products with the online softmax on the accumulators (each
+// tile's P V from zero and added in float32, exp as 2^((x - m) log2 e),
+// exactly 1 at x = m). The tile walk is in absolute key positions: query
+// tile [q0, q0 + 63] visits the keys from max(0, (floor(q0 / w) - 1) w) up
+// to min(q0 + 63, T - 1), 64 at a time, and each row decides by its own
+// window which of them it may see. Only those live key tiles are visited:
+// the keys outside that range are no row's (window 0's look-back, keys past
+// the tile's last query or at or past T), and a disallowed slot contributes
+// exp(-1e9 - m) = 0 in float32 to every row that has an allowed key, so
+// skipping them is exact; at the codec's 2 s shape (w = 128) that skips 5
+// of every 8 (block, tile) steps, at 10 s 8 of 32. Two forms of the block
+// (ALIGNED): where w is a multiple of 64 a query tile lies in one window,
+// every visited key is at or past its look-back's first, and the bias
+// arrives as one 64 x 64 block of that window's (w, 2w) table; otherwise a
+// tile spans several windows (w < 64) or starts inside one, a row also
+// tests the first key of its own look-back, and each row of the bias block
+// is copied from its own window's row, 4 bytes at a time. A row with no
+// allowed key at all (its running maximum is -1e9) gets the model path's
+// answer explicitly: the mean of its own window's 2w value slots, zeros for
+// window -1 and the padding, from the sums of the w-key windows the tile's
+// rows meet, computed only in a block that holds such a row. q, k, v and out
+// are read and written through their (batch, head, time) strides, so the
+// codec's transposed (B, N, H, D) views need no copy.
 // Instantiated for D = 32, 64 and 128 (the wrapper zero-pads any other D up
 // to 128 into the next of them); in float32 at D = 128 Q's 3xTF32 fragments
 // (128 registers a thread) would not fit beside O's, so Q stays in a tile of
@@ -63,6 +74,7 @@ constexpr int BK = 64;             // key slots per tile
 constexpr int NT = 128;            // 4 warps of 16 query rows
 constexpr int TPITCH = BK + 8;     // the bias block's pitch: float2 reads without conflicts
 constexpr float MASKED = -1e9f;    // the model path's score of a disallowed pair
+constexpr int MAX_WINDOWS = BQ + 1;  // the w-key windows a tile's rows meet: at most 65 (w = 1)
 
 // element strides of a (B, H, T, D) tensor whose last dimension is contiguous
 struct Strides {
@@ -72,8 +84,8 @@ struct Strides {
 // Shared memory: two stages of (K tile, V tile, key flags [BK]), Q's tile
 // where it stays in shared memory (QS), then with a bias two of its 64x64
 // blocks. Otherwise Q is staged, before the loop, in stage 1's K tile and
-// read into registers; after the loop stage 0 holds the mean of the value
-// slots.
+// read into registers; after the loop the stages hold the sums of the
+// windows' values for the rows without a key.
 template <typename T, int D>
 struct Smem {
   static constexpr int P = tc::pitch<T, D>();
@@ -83,7 +95,7 @@ struct Smem {
   static constexpr size_t base = 2 * stage + (QS ? tile : 0);
   static constexpr size_t dense = 2 * (size_t)BQ * TPITCH * sizeof(float);
   static_assert(tile % 16 == 0 && stage % 16 == 0, "16-byte aligned regions");
-  static_assert(2 * D * sizeof(float) <= stage, "the value means fit in a stage");
+  static_assert(MAX_WINDOWS * D * sizeof(float) <= 2 * stage, "the windows' sums fit");
   static_assert(base + dense <= 232448, "a block's shared memory");
 };
 
@@ -94,12 +106,35 @@ template <typename T, int D> struct QFrags<T, D, true> { using type = tc::ASmem<
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-template <typename T, int D>
+// The bias block of the key tile at kp0 where the tile's rows may lie in
+// several windows: row r (query q0 + r of window i = (q0 + r) / w) takes
+// bias[h, q0 + r - i w, kp0 - (i - 1) w + c], c = 0..63, zeros outside the
+// row's 2w slots, by cp.async of 4 bytes. Thread x copies column x % 64 of
+// rows x / 64, + 2, ...; it walks its rows' windows by steps of 2 queries.
+__device__ __forceinline__ void cp_bias_rows(float* dst, const float* biash, int q0, int kp0,
+                                             int w) {
+  constexpr int STEP = NT / BK;  // rows apart
+  const int c = threadIdx.x % BK, r1 = threadIdx.x / BK;
+  int win = (q0 + r1) / w, j = q0 + r1 - win * w;  // the row's window and place in it
+  for (int r = r1; r < BQ; r += STEP) {
+    const int col = kp0 - (win - 1) * w + c;
+    const bool in = col >= 0 && col < 2 * w;
+    tc::cp_async4(dst + r * TPITCH + c, in ? biash + (size_t)j * 2 * w + col : biash, in);
+    j += STEP;
+    while (j >= w) {
+      j -= w;
+      ++win;
+    }
+  }
+}
+
+// ALIGNED: w is a multiple of BQ (see the note at the top)
+template <typename T, int D, bool ALIGNED>
 __global__ void __launch_bounds__(NT)
 local_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                   const float* __restrict__ bias, const int8_t* __restrict__ kmask,
                   T* __restrict__ out, Strides sq, Strides sk, Strides sv, Strides so,
-                  int heads, int t, int w, float scale) {
+                  int bh_count, int heads, int t, int w, float scale) {
   using S = Smem<T, D>;
   constexpr int P = S::P;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -110,32 +145,37 @@ local_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   };
   auto Ts = [&](int s) { return reinterpret_cast<float*>(smem + S::base) + s * BQ * TPITCH; };
 
-  const int bh = blockIdx.x, h = bh % heads, b = bh / heads;
-  const int q0 = blockIdx.y * BQ;   // first query of the tile
-  const int win = q0 / w;           // its window (w is a multiple of BQ)
-  const int j0 = q0 - win * w;      // the tile's first query within the window
-  const int kbase = win * w - w;    // position of key slot 0: window win - 1
+  // one-dimensional grid: the (b*h)s of a query tile run together
+  const int bh = blockIdx.x % bh_count, h = bh % heads, b = bh / heads;
+  const int q0 = blockIdx.x / bh_count * BQ;  // first query of the tile
+  const int win0 = q0 / w;                    // its first row's window
   const int tid = threadIdx.x, warp = tid / 32, g = (tid % 32) / 4, t4 = tid % 4;
   const T* qb = q + b * sq.b + h * sq.h;
   const T* kb = k + b * sk.b + h * sk.h;
   const T* vb = v + b * sv.b + h * sv.h;
   const float* biash = bias != nullptr ? bias + (size_t)h * w * 2 * w : nullptr;
 
-  // the live slots: none of window 0's look-back, none past the tile's last
-  // allowed slot j0 + BQ - 1 + w, none at or past key T
-  const int s_lo = win == 0 ? w : 0;
-  const int s_hi = min(j0 + BQ - 1 + w, t - 1 - kbase);
-  const int ntiles = s_hi >= s_lo ? (s_hi - s_lo) / BK + 1 : 0;
+  // the live keys: from the first row's look-back (none before key 0) to the
+  // tile's last query (none at or past key T)
+  const int k_lo = max(0, (win0 - 1) * w);
+  const int k_hi = min(q0 + BQ - 1, t - 1);
+  const int ntiles = (k_hi - k_lo) / BK + 1;  // k_hi >= k_lo: q0 < t
 
-  // tile `it` (slots s_lo + BK it ...) into stage it & 1: K, V and the bias
+  // tile `it` (keys k_lo + BK it ...) into stage it & 1: K, V and the bias
   // block by cp.async (one group); this thread's key flag into a register,
   // which `stash` stores once this tile's compute has hidden its latency
   float flag_r = 0.f;
   auto issue = [&](int it) {
-    const int s0 = s_lo + it * BK, s = it & 1, kp0 = kbase + s0;  // kp0 >= 0
+    const int kp0 = k_lo + it * BK, s = it & 1;
     tc::cp_tile<T, D, BK, NT>(Ks(s), P, kb, kp0, t, sk.t);
     tc::cp_tile<T, D, BK, NT>(Vs(s), P, vb, kp0, t, sv.t);
-    if (biash != nullptr) tc::cp_block_f32<BQ, BK, NT>(Ts(s), TPITCH, biash, j0, s0, w, 2 * w);
+    if (biash != nullptr) {
+      if constexpr (ALIGNED)  // one window: rows j0 .., slots kp0 - (win0 - 1) w ..
+        tc::cp_block_f32<BQ, BK, NT>(Ts(s), TPITCH, biash, q0 - win0 * w, kp0 - (win0 - 1) * w,
+                                     w, 2 * w);
+      else
+        cp_bias_rows(Ts(s), biash, q0, kp0, w);
+    }
     tc::cp_async_commit();
     if (tid < BK) {
       const int kp = kp0 + tid;
@@ -150,12 +190,8 @@ local_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   // into registers
   T* qt = S::QS ? reinterpret_cast<T*>(smem + 2 * S::stage) : Ks(1);
   tc::cp_tile<T, D, BQ, NT>(qt, P, qb, q0, t, sq.t);
-  if (ntiles > 0) {
-    issue(0);
-    stash(0);
-  } else {
-    tc::cp_async_commit();
-  }
+  issue(0);
+  stash(0);
   tc::cp_async_wait_all();
   __syncthreads();
   typename QFrags<T, D, S::QS>::type qf;
@@ -168,12 +204,20 @@ local_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   __syncthreads();  // stage 1 is free for tile 1
 
   const int rl[2] = {warp * 16 + g, warp * 16 + g + 8};  // this thread's rows in the tile
+  // each row's window, and the first key of its look-back (ALIGNED: at or
+  // before k_lo, so never tested)
+  int rwin[2], rfirst[2];
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    rwin[ri] = (q0 + rl[ri]) / w;
+    rfirst[ri] = (rwin[ri] - 1) * w;
+  }
   float m_i[2] = {tc::NEG, tc::NEG}, l_i[2] = {0.f, 0.f};
   float o[D / 8][4];
   tc::zero(o);
 
   for (int it = 0; it < ntiles; ++it) {
-    const int s = it & 1, s0 = s_lo + it * BK;
+    const int s = it & 1, kp0 = k_lo + it * BK;
     if (it + 1 < ntiles) issue(it + 1);
 
     float sc[BK / 8][4];
@@ -191,11 +235,16 @@ local_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
       for (int ri = 0; ri < 2; ++ri) {
         float2 bb = make_float2(0.f, 0.f);
         if (biash != nullptr) bb = *reinterpret_cast<const float2*>(ts + rl[ri] * TPITCH + c);
-        // slot s0 + c is allowed for query j0 + r of the window iff s0 + c <= j0 + r + w
-        const int last = j0 + rl[ri] + w - s0;
-        const float x0 = f.x == 0.f && c <= last ? fmaf(sc[j][2 * ri], scale, bb.x) : MASKED;
-        const float x1 = f.y == 0.f && c + 1 <= last ? fmaf(sc[j][2 * ri + 1], scale, bb.y)
-                                                     : MASKED;
+        // key kp0 + c is allowed for query q0 + r iff it is at or before the
+        // query and at or after its look-back's first key
+        const int last = q0 + rl[ri] - kp0, first = rfirst[ri] - kp0;
+        bool ok0 = f.x == 0.f && c <= last, ok1 = f.y == 0.f && c + 1 <= last;
+        if constexpr (!ALIGNED) {
+          ok0 = ok0 && c >= first;
+          ok1 = ok1 && c + 1 >= first;
+        }
+        const float x0 = ok0 ? fmaf(sc[j][2 * ri], scale, bb.x) : MASKED;
+        const float x1 = ok1 ? fmaf(sc[j][2 * ri + 1], scale, bb.y) : MASKED;
         sc[j][2 * ri] = x0;
         sc[j][2 * ri + 1] = x1;
         mx[ri] = fmaxf(mx[ri], fmaxf(x0, x1));
@@ -234,24 +283,23 @@ local_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   }
 
   // rows with no allowed key (every score they saw was -1e9) take the mean
-  // of the 2w value slots, as the model path's softmax over -1e9 everywhere
+  // of their window's 2w value slots, as the model path's softmax over -1e9
+  // everywhere: wsum[i] holds the sum of the values of window wl + i (keys
+  // (wl + i) w .. + w - 1 inside [0, T)), wl the first row's look-back
   bool empty[2];
 #pragma unroll
   for (int ri = 0; ri < 2; ++ri) empty[ri] = q0 + rl[ri] < t && !(m_i[ri] > MASKED);
-  float* vmean = reinterpret_cast<float*>(smem);  // stage 0: [2][D] partial sums, then [D]
+  float* wsum = reinterpret_cast<float*>(smem);  // the stages: [windows][D]
+  const int wl = win0 - 1;
   if (__syncthreads_or(empty[0] || empty[1])) {
-    // (column, half of the slots) pairs, NT at a time
-    for (int i = tid; i < 2 * D; i += NT) {
-      const int col = i % D, part = i / D;
+    const int nwin = k_hi / w - wl + 1;
+    for (int i = tid; i < nwin * D; i += NT) {
+      const int col = i % D, wi = i / D;
       float sum = 0.f;
-      for (int sl = part * w; sl < part * w + w; ++sl) {
-        const int kp = kbase + sl;
-        if (kp >= 0 && kp < t) sum += to_f(vb[kp * sv.t + col]);
-      }
-      vmean[part * D + col] = sum;
+      for (int kp = max(0, (wl + wi) * w); kp < min((wl + wi + 1) * w, t); ++kp)
+        sum += to_f(vb[kp * sv.t + col]);
+      wsum[wi * D + col] = sum;
     }
-    __syncthreads();
-    for (int i = tid; i < D; i += NT) vmean[i] = (vmean[i] + vmean[D + i]) / (2 * w);
     __syncthreads();
   }
 
@@ -261,31 +309,48 @@ local_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
     if (qp >= t) continue;
     const float inv = 1.f / l_i[ri];  // l >= 1: the row's largest score gives exp(0)
     T* orow = out + b * so.b + h * so.h + qp * so.t;
+    const float* prev = wsum + (rwin[ri] - 1 - wl) * D;  // its look-back's sums, then its own
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const int c = 8 * j + 2 * t4;
-      if (empty[ri]) tc::store2(orow + c, vmean[c], vmean[c + 1]);
+      if (empty[ri])
+        tc::store2(orow + c, (prev[c] + prev[D + c]) / (2 * w),
+                   (prev[c + 1] + prev[D + c + 1]) / (2 * w));
       else tc::store2(orow + c, o[j][2 * ri] * inv, o[j][2 * ri + 1] * inv);
     }
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool ALIGNED>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* bias,
                    const void* kmask, void* out, const Strides (&st)[4], int bh, int heads,
                    int t, int w, float scale, cudaStream_t stream) {
   using S = Smem<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(local_attn_kernel<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  auto kernel = local_attn_kernel<T, D, ALIGNED>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)(S::base + S::dense));
   if (err != cudaSuccess) return err;
   const size_t smem = S::base + (bias != nullptr ? S::dense : 0);
-  dim3 grid(bh, (t + BQ - 1) / BQ);
-  local_attn_kernel<T, D><<<grid, NT, smem, stream>>>(
+  const long long blocks = (long long)bh * ((t + BQ - 1) / BQ);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;  // the grid's x limit, 2^31 - 1
+  kernel<<<(unsigned)blocks, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(bias), static_cast<const int8_t*>(kmask), static_cast<T*>(out),
-      st[0], st[1], st[2], st[3], heads, t, w, scale);
+      st[0], st[1], st[2], st[3], bh, heads, t, w, scale);
   return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_form(const void* q, const void* k, const void* v, const void* bias,
+                        const void* kmask, void* out, const Strides (&st)[4], int bh, int heads,
+                        int t, int w, float scale, cudaStream_t stream) {
+#ifdef LOCAL_ATTN_ANY_WINDOW_BLOCK  // a timing variant: the any-window block at every window
+  return launch<T, D, false>(q, k, v, bias, kmask, out, st, bh, heads, t, w, scale, stream);
+#else
+  return w % BQ == 0
+             ? launch<T, D, true>(q, k, v, bias, kmask, out, st, bh, heads, t, w, scale, stream)
+             : launch<T, D, false>(q, k, v, bias, kmask, out, st, bh, heads, t, w, scale, stream);
+#endif
 }
 
 }  // namespace
@@ -293,32 +358,33 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
 // q, k, v, out (bh / heads, heads, t, d) in one type, each with element
 // strides (batch, head, time) in `strides` (q's three, then k's, v's and
 // out's), the last dimension contiguous, rows 16-byte aligned; bias (heads,
-// w, 2w) float32 or null; kmask (bh / heads, t) int8 or null. w in {64,
-// 128}, d in {32, 64, 128}. dtype 0 = float32, 1 = bfloat16. Returns a
-// cudaError_t.
+// w, 2w) float32 or null; kmask (bh / heads, t) int8 or null. Any window
+// w >= 1 and any t >= 1, d in {32, 64, 128}. dtype 0 = float32, 1 =
+// bfloat16. Returns a cudaError_t.
 extern "C" int local_attn_fwd(const void* q, const void* k, const void* v, const void* bias,
                               const void* kmask, void* out, const long long* strides, int bh,
                               int heads, int t, int d, int w, float scale, int dtype,
                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if ((w != 64 && w != 128) || t <= 0 || bh <= 0 || heads <= 0 || bh % heads
-      || (t + BQ - 1) / BQ > 65535)
-    return cudaErrorInvalidValue;
+  if (w <= 0 || t <= 0 || bh <= 0 || heads <= 0 || bh % heads) return cudaErrorInvalidValue;
   Strides st[4];
   for (int i = 0; i < 4; ++i)
     st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   switch (d * 2 + dtype) {
-    case 64: return launch<float, 32>(q, k, v, bias, kmask, out, st, bh, heads, t, w, scale, s);
+    case 64: return launch_form<float, 32>(q, k, v, bias, kmask, out, st, bh, heads, t, w, scale, s);
     case 65:
-      return launch<__nv_bfloat16, 32>(q, k, v, bias, kmask, out, st, bh, heads, t, w, scale, s);
-    case 128: return launch<float, 64>(q, k, v, bias, kmask, out, st, bh, heads, t, w, scale, s);
+      return launch_form<__nv_bfloat16, 32>(q, k, v, bias, kmask, out, st, bh, heads, t, w,
+                                            scale, s);
+    case 128:
+      return launch_form<float, 64>(q, k, v, bias, kmask, out, st, bh, heads, t, w, scale, s);
     case 129:
-      return launch<__nv_bfloat16, 64>(q, k, v, bias, kmask, out, st, bh, heads, t, w, scale, s);
+      return launch_form<__nv_bfloat16, 64>(q, k, v, bias, kmask, out, st, bh, heads, t, w,
+                                            scale, s);
     case 256:
-      return launch<float, 128>(q, k, v, bias, kmask, out, st, bh, heads, t, w, scale, s);
+      return launch_form<float, 128>(q, k, v, bias, kmask, out, st, bh, heads, t, w, scale, s);
     case 257:
-      return launch<__nv_bfloat16, 128>(q, k, v, bias, kmask, out, st, bh, heads, t, w, scale,
-                                        s);
+      return launch_form<__nv_bfloat16, 128>(q, k, v, bias, kmask, out, st, bh, heads, t, w,
+                                             scale, s);
   }
   return cudaErrorInvalidValue;
 }

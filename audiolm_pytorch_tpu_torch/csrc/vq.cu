@@ -154,11 +154,13 @@ __device__ __forceinline__ void chunk_product(float (&acc)[32], const float* ah,
   wg::wgmma_commit();
 }
 
-// Grid (ranks, groups, row tiles); the ranks of one (group, row tile) a
-// cluster, each taking a contiguous share of the chunks.
+// A one-dimensional grid of (ranks, groups, row tiles), ranks fastest (so
+// any number of rows: the grid's x limit is 2^31 - 1 blocks); the ranks of
+// one (group, row tile) a cluster, each taking a contiguous share of the
+// chunks.
 __global__ void __launch_bounds__(NT, 2)
 vq_nearest_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap emap,
-                  int32_t* __restrict__ out, int n, int c, int d4) {
+                  int32_t* __restrict__ out, int n, int c, int d4, int groups) {
   extern __shared__ __align__(1024) unsigned char vq_smem[];
   unsigned char* sm = vq_smem;
   if (threadIdx.x == 0 && (tc::smem_u32(sm) & 1023) != 0) __trap();  // the tiles' swizzle
@@ -173,7 +175,8 @@ vq_nearest_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constan
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank(), ksplit = (int)cluster.num_blocks();
-  const int groups = gridDim.y, grp = blockIdx.y, rt = blockIdx.z, r0 = rt * BN;
+  const int grp = blockIdx.x / ksplit % groups, rt = blockIdx.x / ksplit / groups;
+  const int r0 = rt * BN;
   const int code_tiles = (c + BC - 1) / BC, chunks = (d4 + KC - 1) / KC;
   const int my_tiles = (code_tiles - grp + groups - 1) / groups;  // tiles grp, grp + groups, ...
   const int c_lo = rank * chunks / ksplit, nch = (rank + 1) * chunks / ksplit - c_lo;
@@ -412,19 +415,19 @@ VqPlan vq_plan(int n, int c, int d) {
 
 // x (n, d) and cb (c, d) float32, row-major, d a multiple of 4 and both
 // 16-byte aligned (TMA's rules; ops/kernels/vq.py pads other shapes with
-// zero columns, which change no score); out (n,) int32. One launch.
-// Returns a cudaError_t.
+// zero columns, which change no score); out (n,) int32. Any n: the grid is
+// one-dimensional. One launch. Returns a cudaError_t.
 extern "C" int vq_nearest(const void* x, const void* cb, void* out, int n, int c, int d,
                           void* stream) {
   if (n <= 0 || c <= 0 || d <= 0 || d % 4) return cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(cb) % 16)
     return cudaErrorInvalidValue;
   const int row_tiles = (n + BN - 1) / BN;
-  if (row_tiles > 65535) return cudaErrorInvalidValue;
   const VqPlan plan = vq_plan(n, c, d);
-  if (plan.groups > 65535 || (plan.groups > 1 && (row_tiles > PLAN_SMS
-                                                  || row_tiles * plan.groups > MERGE_SLOTS)))
+  if (plan.groups > 1 && (row_tiles > PLAN_SMS || row_tiles * plan.groups > MERGE_SLOTS))
     return cudaErrorInvalidValue;  // the plan keeps merged tiles within the scratch
+  const long long blocks = (long long)plan.ksplit * plan.groups * row_tiles;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;  // the grid's x limit, 2^31 - 1
   CUtensorMap xm, em;
   cudaError_t err = wg::matrix_map(&xm, x, n, d, BN);
   if (err == cudaSuccess) err = wg::matrix_map(&em, cb, c, d, BC);
@@ -443,13 +446,14 @@ extern "C" int vq_nearest(const void* x, const void* cb, void* out, int n, int c
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(plan.ksplit, plan.groups, row_tiles);
+  cfg.gridDim = dim3((unsigned)blocks);
   cfg.blockDim = dim3(NT);
   cfg.dynamicSmemBytes = SMEM;
   cfg.stream = static_cast<cudaStream_t>(stream);
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, vq_nearest_kernel, xm, em, static_cast<int32_t*>(out), n, c, d);
+  return cudaLaunchKernelEx(&cfg, vq_nearest_kernel, xm, em, static_cast<int32_t*>(out), n, c, d,
+                            plan.groups);
 }
 
 // K6's launch plan for these sizes: out[0] the cluster (the ranks that split

@@ -7,8 +7,8 @@ Attention dispatch: uncached self-attention, in scoring and in training,
 goes through the flash-attention kernels with the key mask (the forgetful
 causal mask in training) and either the rel-pos bias as its (2N-1, H) table
 (the Semantic LM) or a caller's materialised (H, N, N) bias that replaces it
-(`attn_bias`, the Coarse and Fine LMs); either bias's gradient flows back
-through autograd. A KV-cached prefill (from cache position 0) attends over
+(`attn_bias`, the Coarse and Fine LMs; or a (B, H, N, N) one, a bias a
+batch row); either bias's gradient flows back through autograd. A KV-cached prefill (from cache position 0) attends over
 its own keys alone, through the flash kernel with the bias's first N
 columns; the decode steps take the plain `attend` over the cache, as the
 JAX package does. Text conditioning: cross attention over
@@ -359,8 +359,9 @@ class Transformer(nn.Module):
         """x: (B, N, D); with kv_cache, only the new tokens after kv_cache.pos,
         whose k/v are written into the cache in place (pos advances by N).
         attn_bias: an additive (H, L, L) bias that replaces the rel-pos bias,
-        L = N uncached; with a cache, L = the cache's length and the rows of
-        the new positions are taken from it. context (B, L, Dc) with its
+        L = N uncached (or uncached a (B, H, N, N) bias, one a batch row);
+        with a cache, L = the cache's length and the rows of the new
+        positions are taken from it. context (B, L, Dc) with its
         key mask context_mask (B, L): the cross attention's context, or the
         self-attention's prefix. `generator` draws the dropout masks of a
         train step (none without one)."""

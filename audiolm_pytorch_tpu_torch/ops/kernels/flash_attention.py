@@ -13,9 +13,13 @@ along the diagonals straight into a (2N-1, H) table, and the (H, N, N) bias
 is never built. The Coarse and Fine LMs' bias is a materialised (H, N, M)
 float tensor shared over the batch: each tile reads its (64, 64) block of
 bias[h], and K2's launch gives its gradient, the batch sum of dS over a
-thread-block cluster of the batch rows. A per-batch (B, H, N, M) bias has
-the plain versions only. On a CUDA tensor the wrappers launch the kernels
-or raise; only a CPU tensor takes the plain versions.
+thread-block cluster of the batch rows. A per-batch (B, H, N, M) bias is
+read the same way at bias[b, h], and K2's launch writes its gradient, dS
+itself, straight to dbias[b, h] (the JAX package takes that gradient from
+a chunked XLA recurrence). The grids are one-dimensional, so no extent of
+B, H, N or M is limited but by the grid's 2^31 - 1 blocks. On a CUDA tensor
+the wrappers launch the kernels or raise; only a CPU tensor takes the plain
+versions.
 
 Head dims. The kernels are built for D = 32, 64 and 128 (`HEAD_DIMS`). On a
 CUDA tensor any other D up to 128 goes through the next larger of them: q,
@@ -37,7 +41,7 @@ from ._build import built_with, load
 __all__ = ["flash_attention", "flash_attention_ref", "flash_attention_bwd",
            "flash_attention_bwd_ref", "bwd_dq", "bwd_dkv", "built_with", "SOURCE",
            "SOURCE_BWD", "HEAD_DIMS", "launches", "launches_dq", "launches_dkv",
-           "launches_dtab", "launches_dbias", "PLAN_SMS", "fwd_plan", "dq_plan", "dkv_plan",
+           "launches_dtab", "launches_dbias", "launches_dbias_per_batch", "PLAN_SMS", "fwd_plan", "dq_plan", "dkv_plan",
            "dkv_items", "fwd_plan_built", "dq_plan_built", "dkv_plan_built", "native_head_dim",
            "SMEM_LIMIT"]
 
@@ -53,6 +57,7 @@ launches_dq = 0    # dq (K2)
 launches_dkv = 0   # dk, dv (K3; with its query range split, its second pass is the same call)
 launches_dtab = 0  # bias-table gradient (K4: partial sums in K2's launch, then its second pass)
 launches_dbias = 0  # (H, N, M) bias gradient (K5, fused into K2's launch)
+launches_dbias_per_batch = 0  # (B, H, N, M) bias gradient (dS, written in K2's launch)
 # K5's cluster holds at most this many batch rows; beyond it the clusters of
 # one tile add their partial sums by atomics into a zeroed dbias
 _MAX_CLUSTER = 8
@@ -210,7 +215,7 @@ def _fn(source, name, argtypes):
 
 
 def _fwd_fn():
-    return _fn(SOURCE, "flash_fwd", [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P])
+    return _fn(SOURCE, "flash_fwd", [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P, _I])
 
 
 def _check(q, k, v, bias_tab, key_mask, causal, bias=None):
@@ -244,16 +249,10 @@ def _check(q, k, v, bias_tab, key_mask, causal, bias=None):
         raise ValueError(f"key_mask must be bool (B, M) = {(b, m)} on q's device")
 
 
-def _check_cuda(q, k, v, bias=None):
+def _check_cuda(q):
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention path for device {q.device}")
-    if bias is not None and bias.ndim == 4:
-        raise ValueError("a per-batch (B, H, N, M) bias has no kernel: only the plain "
-                         "version on the CPU takes it")
-    b, h, n, d = q.shape
-    native_head_dim(d)  # raises for a head dim over the kernels' largest
-    if b * h > 65535:
-        raise ValueError("B * H exceeds the grid's y limit of 65535")
+    native_head_dim(q.shape[-1])  # raises for a head dim over the kernels' largest
 
 
 def _padded(*xs):
@@ -286,6 +285,11 @@ def _ptr(t):
     return t.data_ptr() if t is not None else None
 
 
+def _batched(bias):
+    """1 for a per-batch (B, H, N, M) bias, the kernels' last argument."""
+    return int(bias is not None and bias.ndim == 4)
+
+
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -295,7 +299,7 @@ def _forward(q, k, v, bias_tab, bias, key_mask, causal, scale):
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, bias_tab=bias_tab, bias=bias, key_mask=key_mask,
                                    causal=causal, scale=scale, return_lse=True)
-    _check_cuda(q, k, v, bias)
+    _check_cuda(q)
     d = q.shape[-1]
     q, k, v = _padded(q, k, v)
     _check_layout(q, k, v)
@@ -306,7 +310,7 @@ def _forward(q, k, v, bias_tab, bias, key_mask, causal, scale):
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     err = _fwd_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(tab), _ptr(dense),
                     _ptr(kmask), out.data_ptr(), lse.data_ptr(), b * h, h, h // hk, n, m, dn,
-                    scale, int(causal), _DTYPES[q.dtype], _stream(q))
+                    scale, int(causal), _DTYPES[q.dtype], _stream(q), _batched(dense))
     if err != 0:
         raise RuntimeError(f"flash_fwd launch failed with CUDA error {err}")
     global launches
@@ -347,7 +351,7 @@ def flash_attention(q, k, v, *, bias_tab=None, bias=None, key_mask=None,
     """q: (B, H, N, D); k, v: (B, Hk, M, D) with Hk dividing H (MQA: the kv
     head of query head h is h // (H // Hk)). bias_tab: (2N-1, H) rel-pos
     distance table, or bias: additive (H, N, M) float bias shared over the
-    batch ((B, H, N, M) on the CPU only), or neither. key_mask: (B, M) bool,
+    batch, or a (B, H, N, M) one a batch row, or neither. key_mask: (B, M) bool,
     True = attend. Causal attention with M >= N is aligned to the bottom
     right: key k is seen by query q iff k <= q + M - N (`attend`'s
     tril(M - N)), so a prefix of M - N keys is seen by every query. Returns out (B, H, N, D) in q's dtype [and lse (B, H, N)
@@ -432,11 +436,12 @@ def _bwd_launch(name, outs, q, k, v, g, lse, delta, tab, kmask, *, causal, scale
     b, h, n, d = q.shape
     hk, m = k.shape[1], k.shape[2]
     # q k v g lse delta tab bias kmask, the outputs, b heads hk n m d, scale, causal
-    # dtype stream
-    fn = _fn(SOURCE_BWD, name, [_P] * (9 + len(outs)) + [_I] * 6 + [_F, _I, _I, _P])
+    # dtype stream, per-batch bias
+    fn = _fn(SOURCE_BWD, name, [_P] * (9 + len(outs)) + [_I] * 6 + [_F, _I, _I, _P, _I])
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
              delta.data_ptr(), _ptr(tab), _ptr(bias), _ptr(kmask), *(_ptr(o) for o in outs),
-             b, h, hk, n, m, d, scale, int(causal), _DTYPES[q.dtype], _stream(q))
+             b, h, hk, n, m, d, scale, int(causal), _DTYPES[q.dtype], _stream(q),
+             _batched(bias))
     if err != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
 
@@ -449,7 +454,8 @@ def bwd_dq(q, k, v, g, lse, delta, tab, kmask, *, causal: bool, scale: float, bi
     launch and added in a fixed order by a second launch (the same bits every
     run); with an (H, N, M) bias K5, its (H, N, M) gradient, summed over a
     cluster of the batch rows in a fixed order (by atomics between clusters,
-    into a zeroed buffer, only for B > 8); else None."""
+    into a zeroed buffer, only for B > 8); with a (B, H, N, M) bias its
+    gradient, dS, each element written once; else None."""
     dq = torch.empty_like(q)
     dgrad = part = None
     if tab is not None:
@@ -458,13 +464,16 @@ def bwd_dq(q, k, v, g, lse, delta, tab, kmask, *, causal: bool, scale: float, bi
         tiles = -(-n // 64), -(-k.shape[2] // 64)  # 64-row query and key tiles
         part = torch.empty(b * h * tiles[0] * 64 * (tiles[1] + 1), device=q.device)
     elif bias is not None:
-        dgrad = torch.zeros_like(bias) if q.shape[0] > _MAX_CLUSTER else torch.empty_like(bias)
+        shared_by_atomics = bias.ndim == 3 and q.shape[0] > _MAX_CLUSTER
+        dgrad = torch.zeros_like(bias) if shared_by_atomics else torch.empty_like(bias)
     _bwd_launch("flash_bwd_dq", (dq, dgrad, part), q, k, v, g, lse, delta, tab, kmask,
                 causal=causal, scale=scale, bias=bias)
-    global launches_dq, launches_dtab, launches_dbias
+    global launches_dq, launches_dtab, launches_dbias, launches_dbias_per_batch
     launches_dq += 1
     if tab is not None:
         launches_dtab += 1
+    elif bias is not None and bias.ndim == 4:
+        launches_dbias_per_batch += 1
     elif bias is not None:
         launches_dbias += 1
     return dq, dgrad
@@ -515,12 +524,13 @@ def dkv_plan_built(b, h, hk, n, m, dtype, d=64):
 def flash_attention_bwd(q, k, v, bias_tab, key_mask, out, lse, g, *, causal: bool,
                         scale: float, bias=None):
     """dq, dk, dv and the bias's gradient (dtab with a table, dbias with an
-    (H, N, M) bias, else None): two launches on a CUDA tensor, K2 with K4 or
-    K5 and K3; `flash_attention_bwd_ref` on the CPU."""
+    (H, N, M) or a (B, H, N, M) bias, else None): two launches on a CUDA
+    tensor, K2 with K4 or K5 (or the per-batch bias's dS) and K3;
+    `flash_attention_bwd_ref` on the CPU."""
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, bias_tab, key_mask, out, lse, g,
                                        causal=causal, scale=scale, bias=bias)
-    _check_cuda(q, k, v, bias)
+    _check_cuda(q)
     d = q.shape[-1]
     # padded: out's and dO's extra columns are zeros, so Delta is unchanged
     q, k, v, g, out = _padded(q, k, v, g.to(q.dtype), out)

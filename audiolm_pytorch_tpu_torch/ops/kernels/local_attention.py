@@ -17,10 +17,12 @@ The kernel reads q, k and v through their (batch, head, time) strides, so
 copy, and writes its output in q's layout. The backward recomputes through
 the plain version under autograd, as the JAX package's custom VJP goes to
 its XLA version. On a CUDA tensor the forward launches the kernel or raises;
-only a CPU tensor takes the plain version. The kernel is built for head dims
-32, 64 and 128; another D up to 128 is zero-padded into the next of them
-(with the scale of the true D) and the output sliced back, as the flash
-kernels' wrappers do.
+only a CPU tensor takes the plain version. The kernel takes any window w >=
+1 and any T (a one-dimensional grid); its blocks are 64-query tiles, each
+walking the keys from its first row's look-back to its last query. It is built for head dims 32, 64 and
+128; another D up to 128 is zero-padded into the next of them (with the
+scale of the true D) and the output sliced back, as the flash kernels'
+wrappers do; a D over 128 raises.
 """
 from __future__ import annotations
 
@@ -32,11 +34,9 @@ import torch.nn.functional as F
 from ._build import load
 from .flash_attention import HEAD_DIMS, native_head_dim
 
-__all__ = ["local_attention", "local_attention_ref", "SOURCE", "WINDOWS", "HEAD_DIMS",
-           "launches"]
+__all__ = ["local_attention", "local_attention_ref", "SOURCE", "HEAD_DIMS", "launches"]
 
 SOURCE = "local_attn.cu"
-WINDOWS = (64, 128)
 _MASKED = -1e9  # the JAX model path's score of a disallowed pair
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0  # kernel launches, counted where the kernel is launched
@@ -74,6 +74,8 @@ def _check(q, k, v, window_size, mask, attn_bias):
                              or mask.device != q.device):
         raise ValueError(f"mask must be bool (B, T) = {(b, t)} on q's device")
     w = window_size
+    if w < 1:
+        raise ValueError(f"the window must be at least 1, not {w}")
     if attn_bias is not None and (attn_bias.shape != (h, w, 2 * w)
                                   or attn_bias.device != q.device):
         raise ValueError(f"attn_bias must be (H, w, 2w) = {(h, w, 2 * w)} on q's device")
@@ -126,15 +128,9 @@ def _forward(q, k, v, window_size, mask, attn_bias, scale):
     if q.device.type != "cuda":
         raise ValueError(f"no local-attention path for device {q.device}")
     b, h, t, d = q.shape
-    if window_size not in WINDOWS or d > HEAD_DIMS[-1]:
-        raise ValueError(f"the kernel takes windows {WINDOWS} and head dims up to "
-                         f"{HEAD_DIMS[-1]} (built for {HEAD_DIMS}, others zero-padded), not "
-                         f"window {window_size} and head dim {d}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share a dtype in {list(_DTYPES)}")
-    if -(-t // 64) > 65535:
-        raise ValueError("T / 64 exceeds the grid's y limit of 65535")
-    dn = native_head_dim(d)
+    dn = native_head_dim(d)  # raises for a head dim over the kernel's largest
     if dn != d:
         q, k, v = (F.pad(x, (0, dn - d)) for x in (q, k, v))
     q, k, v = (_readable(x) for x in (q, k, v))

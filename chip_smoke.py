@@ -297,6 +297,41 @@ Phases, each printing its name and seconds:
                    head dim the kernels take zero-padded to 32) in one train
                    step on 8 x 256 ids, card vs CPU gradients; the codec as
                    in 13 with attn_dim_head 128, then 32 (K7 at both).
+  Then the rest of the kernels' domain and the demo's configuration, which
+  open no profiler window (their device times come from the flash device
+  times phase's process):
+     kernels (K7 at every window) - K7 at windows 8, 16, 32, 48, 96 and
+                   256 beside 64 and 128, fp32 and bf16, on LocalMHA's
+                   strided views of 8 x 8 x 500 x 64 (T a multiple of none
+                   of them) and of 2 x 8 x (3w + 37) x 64 with a key mask, a
+                   bias and rows without a key; the demo codec's 8 x 4 x 400
+                   x 16 and 2 x 4 x 128 x 16 at w 32 (D 16 padded to 32);
+                   against the plain version with its backward, timed beside
+                   SDPA on pre-built blocks and the bound; float32 within
+                   1e-5 of float64 at every window, the plain-TF32 build
+                   rejected.
+     kernels (per-batch bias) - K1, K2 (writing the bias's gradient, dS, per
+                   batch row in its launch) and K3 with a (B, H, N, N) bias
+                   at 4 x 8 x 1201 x 64 and 4 x 4 x 603 x 128, fp32 and
+                   bf16, against the plain versions (out, dq, dk, dv,
+                   dbias), a zeroed dbias rejected, the same bits over three
+                   runs, float32 within 1e-5 of float64 (plain TF32
+                   rejected), timed beside SDPA with the same float mask and
+                   the bound; the port's Transformer at the Coarse LM's
+                   width given a per-batch attn_bias over 4 x 603 (scoring
+                   and a gradient, K1-K3 once a layer), card vs CPU, dbias
+                   zeroed in one layer rejected.
+     grids past 65535 - K1-K3 at 1 x 65600 and 65600 x 1 heads (N = 64, D =
+                   32), K7 at T = 64 x 65536 + 64 (windows 32 and 64), K6 at
+                   64 x 65536 + 1 rows: each against its plain version.
+     demo        - examples/train_audiolm_demo.py's configuration at its own
+                   width: the codec (window 32, 4 heads of 16) round trip of
+                   8 x 2 s (K6 8 times, K7 twice) and card vs CPU; its
+                   trainer's G + D step at batch 2, grad_accum_every 2, and
+                   card vs CPU gradients; streaming both ways at chunks of 32
+                   frames; the Semantic, Coarse and Fine trainers' steps;
+                   AudioLM (batch 1, 32 semantic ids, 16 coarse steps,
+                   greedy) with its stages' tokens equal card vs CPU.
 The training phases (6, and the Coarse step in 7-12) also train in bf16
 compute beside float32: ms per step of both, and on one batch with the
 same weights and mask the bf16 loss and gradients held to float32's
@@ -364,6 +399,7 @@ from audiolm_pytorch_tpu_torch.ops.kernels import vq
 from audiolm_pytorch_tpu_torch.ops.relpos import toeplitz_expand
 from audiolm_pytorch_tpu_torch.ops.sampling import generate_mask_with_prob
 from tools.cuda_timing import cuda_ms, device_per_call, kernel_events
+from tools.torch_flash_parent_ab import sdpa_blocks
 
 FLAGSHIP = dict(dim=1024, depth=6, heads=8, dim_head=64, num_semantic_tokens=500,
                 num_residual_streams=4)
@@ -501,18 +537,26 @@ def build_phase():
 def kernel_label(mangled):
     """flash_fwd_kernel<bf16, d64> (or vq_nearest_kernel, not a template)
     from a kernel's mangled name: its length, the name, I and its template
-    args; an int argument is the head dim the instantiation is built for; a
-    bool argument, true, is K2's instantiation with K5's cluster sum
-    (flash_bwd_dq_kernel<bf16, d64, sum>) and K1's and K3's with two
-    consumer warpgroups a block (flash_fwd_kernel<bf16, d64, two>)."""
+    args; the first int argument is the head dim the instantiation is built
+    for; K2's second, its form of the bias's gradient: 1 K5's cluster sum
+    (flash_bwd_dq_kernel<bf16, d64, sum>), 2 a per-batch bias's dS
+    (<..., per-batch>); a bool argument, true, is K1's and K3's block with
+    two consumer warpgroups (flash_fwd_kernel<bf16, d64, two>) and K7's for
+    windows that are multiples of 64 (local_attn_kernel<bf16, d64,
+    aligned>)."""
     entry = re.search(r"\d([a-z][a-z_]*_kernel)(I?)", mangled)
     if not entry.group(2):
         return entry.group(1)
+    name = entry.group(1)
     dtype = "bf16" if "bfloat16" in mangled else "fp32"
-    dim = re.search(r"Li(\d+)E", mangled)
-    flag = "sum" if entry.group(1) == "flash_bwd_dq_kernel" else "two"
-    return (f"{entry.group(1)}<{dtype}{', d' + dim.group(1) if dim else ''}"
-            f"{', ' + flag if 'Lb1E' in mangled else ''}>")
+    ints = re.findall(r"Li(\d+)E", mangled)
+    if name == "flash_bwd_dq_kernel":
+        flag = {"1": "sum", "2": "per-batch"}.get(ints[1]) if len(ints) > 1 else None
+    else:
+        flag = ("aligned" if name == "local_attn_kernel" else "two") if "Lb1E" in mangled \
+            else None
+    return (f"{name}<{dtype}{', d' + ints[0] if ints else ''}"
+            f"{', ' + flag if flag else ''}>")
 
 
 def counts():
@@ -559,17 +603,33 @@ def pairs_attended(mask, b, n, m, causal):
     return int(keys.long().cumsum(1)[:, m - n:].sum())
 
 
+def bias_elements(bias, mask, b, n, m, causal):
+    """Elements of the bias (float32, or None) the function reads: all of
+    the table; of an (H, N, M) bias the (q, k) pairs some batch row attends,
+    of a (B, H, N, M) bias the pairs each row attends (with causal masking
+    about half of it; none above the diagonal or on a masked key)."""
+    if bias is None:
+        return 0
+    if bias.ndim == 4:
+        return bias.shape[1] * pairs_attended(mask, b, n, m, causal)
+    if bias.ndim == 3:
+        keys = None if mask is None else mask.any(0, keepdim=True)
+        return bias.shape[0] * pairs_attended(keys, 1, n, m, causal)
+    return bias.numel()
+
+
 def flash_bound_ms(q, k, v, bias, mask, *, causal=True, products=2, adds=0, extra_bytes=0):
-    """Least time for the function on these inputs: q, k, v, the bias (the
-    table or the (H, N, M) tensor, float32, or None) and the mask read once,
-    out and lse written once (plus `extra_bytes`), and `products` matrix
-    products (plus `adds` additions) over the attended (q, k) pairs, at the
+    """Least time for the function on these inputs: q, k, v, the bias's
+    elements it reads (`bias_elements`: the table, or the attended pairs of
+    the (H, N, M) or (B, H, N, M) tensor) and the mask read once, out and
+    lse written once (plus `extra_bytes`), and `products` matrix products
+    (plus `adds` additions) over the attended (q, k) pairs, at the
     tensor-core rate of the input type (3xTF32 for float32). Returns (ms,
     what bounds it)."""
     b, h, n, d = q.shape
     es = q.element_size()
     nbytes = (q.numel() + k.numel() + v.numel() + q.numel()) * es + b * h * n * 4 \
-        + (bias.numel() * 4 if bias is not None else 0) \
+        + bias_elements(bias, mask, b, n, k.shape[2], causal) * 4 \
         + (mask.numel() if mask is not None else 0) + extra_bytes
     flops = (2 * d * products + adds) * pairs_attended(mask, b, n, k.shape[2], causal) * h
     t_bytes = nbytes / HBM_BPS * 1e3
@@ -579,7 +639,7 @@ def flash_bound_ms(q, k, v, bias, mask, *, causal=True, products=2, adds=0, extr
 
 def sdpa_mask(q, tab, mask, bias=None, *, m=None, causal=True):
     """The float mask SDPA needs for the same function: the expanded table
-    (or the (H, N, M) bias, or zeros), -inf on masked keys and, causal,
+    (or the (H, N, M) or (B, H, N, M) bias, or zeros), -inf on masked keys and, causal,
     above the diagonal aligned to the bottom right. Its rows lie 16 elements
     apart (a view of a padded buffer), as SDPA's fused kernels need for an
     odd length. Yardstick only."""
@@ -591,7 +651,7 @@ def sdpa_mask(q, tab, mask, bias=None, *, m=None, causal=True):
     keep = (keep.tril(m - n) if causal else keep)[None, None]
     if mask is not None:
         keep = keep & mask[:, None, None, :]
-    fmask = torch.where(keep, base[None].to(q.dtype),
+    fmask = torch.where(keep, (base if base.ndim == 4 else base[None]).to(q.dtype),
                         torch.tensor(float("-inf"), dtype=q.dtype, device=q.device))
     padded = torch.empty(*fmask.shape[:-1], -(-m // 16) * 16, dtype=fmask.dtype,
                          device=fmask.device)
@@ -970,7 +1030,8 @@ def sass_phase():
     K1, K2 and K3, the Hopper design, HGMMA and UTMALDG in both dtypes,
     every head dim and every block shape (K1's and K3's one consumer
     warpgroup or two, K3's float32 only two, at 128 one shape a dtype; K2
-    with K5's sum and without), K6 (float32 only) too. Returns {"fwd":
+    with K5's sum, with a per-batch bias's dS and without; K7 for any window
+    and for multiples of 64), K6 (float32 only) too. Returns {"fwd":
     {"dtype, dD[, two]": {opcode: n}}, "dq": {...}, ...}."""
     kernels = (("fwd", "flash_fwd_kernel"), ("dq", "flash_bwd_dq_kernel"),
                ("dkv", "flash_bwd_dkv_kernel"), ("vq", "vq_nearest_kernel"),
@@ -980,12 +1041,12 @@ def sass_phase():
     want = {"fwd": sorted([f"{t}, d{d}{x}" for d in (32, 64) for t in ("bf16", "fp32")
                            for x in ("", ", two")] + ["bf16, d128, two", "fp32, d128"]),
             "dq": sorted(f"{t}, d{d}{x}" for d in fa.HEAD_DIMS for t in ("bf16", "fp32")
-                         for x in ("", ", sum")),
+                         for x in ("", ", sum", ", per-batch")),
             "dkv": sorted([f"{t}, d{d}" for d in (32, 64) for t in ("bf16",)]
                           + [f"{t}, d{d}, two" for d in (32, 64) for t in ("bf16", "fp32")]
                           + ["bf16, d128, two", "fp32, d128"]),
-            "vq": ["fp32"], "local": sorted(f"{t}, d{d}" for d in fa.HEAD_DIMS
-                                           for t in ("bf16", "fp32"))}
+            "vq": ["fp32"], "local": sorted(f"{t}, d{d}{x}" for d in fa.HEAD_DIMS
+                                           for t in ("bf16", "fp32") for x in ("", ", aligned"))}
     need = {key: ("HGMMA", "UTMALDG") for key in ("fwd", "dq", "dkv", "vq")}
     result = {key: {} for key, _ in kernels}
     for src in SOURCES:
@@ -2119,40 +2180,31 @@ def check_keyless_rows(q, k, v, w, mask, label):
           f"2w value slots (max abs err {err:.3e})")
 
 
-def local_pairs(b, h, t, w, mask):
-    """The (query, key) pairs local attention attends: keys at or before the
-    query, in its window or the one before, not masked."""
+def local_band(t, w):
+    """(t, t) bool: the keys at or before each query, in its window or the
+    one before."""
     pos = torch.arange(t, device=DEV)
-    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] >= (pos[:, None] // w - 1) * w)
+    return (pos[None, :] <= pos[:, None]) & (pos[None, :] >= (pos[:, None] // w - 1) * w)
+
+
+def local_pairs(b, h, t, w, mask):
+    """The (query, key) pairs local attention attends: the band's, not
+    masked."""
+    band = local_band(t, w)
     if mask is None:
         return int(band.sum()) * b * h
     return int((band[None] & mask[:, None, :]).sum()) * h
 
 
-def sdpa_blocks(q, k, v, w, mask, bias):
-    """(B*H*nw, 1, w, D) query blocks, (B*H*nw, 1, 2w, D) key and value
-    blocks (the window before and the window) and the float mask with the
-    band, the first window's look-back, the key mask and the bias, for one
-    SDPA call that computes the same function. Yardstick only."""
-    b, h, t, d = q.shape
-    pad = (-t) % w
-    nw = (t + pad) // w
-    qp, kp, vp = (torch.nn.functional.pad(a, (0, 0, 0, pad)) for a in (q, k, v))
-    kw, vw = (a.reshape(b, h, nw, w, d) for a in (kp, vp))
-    k2, v2 = (torch.cat([torch.nn.functional.pad(a, (0, 0, 0, 0, 1, 0))[:, :, :-1], a], 3)
-              for a in (kw, vw))
-    valid = torch.ones(b, t, dtype=torch.bool, device=DEV) if mask is None else mask
-    mw = torch.nn.functional.pad(valid, (0, pad), value=False).reshape(b, nw, w)
-    key_valid = torch.cat([torch.nn.functional.pad(mw, (0, 0, 1, 0), value=False)[:, :-1], mw], 2)
-    qpos = torch.arange(w, device=DEV)[:, None]
-    kpos = torch.arange(2 * w, device=DEV)[None, :]
-    allowed = (kpos <= qpos + w)[None, None, None] & key_valid[:, None, :, None, :]
-    fmask = torch.zeros(b, h, nw, w, 2 * w, device=DEV)
-    if bias is not None:
-        fmask = fmask + bias[None, :, None]
-    fmask = fmask.masked_fill(~allowed, -1e9).to(q.dtype)
-    return (qp.reshape(b * h * nw, 1, w, d), k2.reshape(b * h * nw, 1, 2 * w, d),
-            v2.reshape(b * h * nw, 1, 2 * w, d), fmask.reshape(b * h * nw, 1, w, 2 * w))
+def local_bias_elements(h, t, w, mask):
+    """Elements of the (H, w, 2w) bias local attention reads: the (row in
+    the window, key slot) places of the pairs some batch row attends (none
+    past a row's own query)."""
+    band = local_band(t, w)
+    if mask is not None:
+        band = band & mask.any(0)[None, :]
+    qi, ki = band.nonzero(as_tuple=True)
+    return int(torch.unique((qi % w) * 2 * w + ki - (qi // w - 1) * w).numel()) * h
 
 
 def profiled(fn):
@@ -2167,19 +2219,21 @@ def profiled(fn):
         dev_ms, dev_launches, names = device_per_call(fn)
         if dev_launches >= 1:
             return dev_ms, dev_launches, names
-    return None, 0, {}
+    return None, None, {}
 
 
 def fmt_ms(ms):
     return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
-def check_local(q, k, v, w, mask, bias, label, seed, scale=8.0 / 64):
+def check_local(q, k, v, w, mask, bias, label, seed, scale=8.0 / 64, profile=True):
     """K7 against its plain version (2e-3 fp32, 3e-2 bf16), then the
     backward through its autograd.Function against the plain version's;
     its time, the plain version's, one SDPA call's over pre-built blocks
     (block building not timed) and the bound (the attended pairs' two
-    products, or q, k, v, out, the bias and the mask moved once)."""
+    products, or q, k, v, out, the bias's elements it reads and the mask
+    moved once). With profile False no device time is taken here (a phase that opens no
+    profiler window: they come from the flash device times phase)."""
     kw = dict(window_size=w, mask=mask, attn_bias=bias, scale=scale)
     before = la.launches
     out = la.local_attention(q, k, v, **kw)
@@ -2209,7 +2263,8 @@ def check_local(q, k, v, w, mask, bias, label, seed, scale=8.0 / 64):
     if not all(torch.allclose(a.float(), r.float(), **gtol) for a, r in zip(grads, refs)):
         raise AssertionError(f"K7 backward vs plain [{label}]: max abs err {grad_err} over {gtol}")
     ms = cuda_ms(lambda: la.local_attention(q, k, v, **kw), iters=20)
-    dev_ms, dev_launches, _ = profiled(lambda: la.local_attention(q, k, v, **kw))
+    dev_ms, dev_launches, _ = profiled(lambda: la.local_attention(q, k, v, **kw)) if profile \
+        else (None, None, {})
     plain_ms = cuda_ms(lambda: la.local_attention_ref(q, k, v, **kw), iters=20)
     qb, kb, vb, fmask = sdpa_blocks(q, k, v, w, mask, bias)
 
@@ -2218,10 +2273,11 @@ def check_local(q, k, v, w, mask, bias, label, seed, scale=8.0 / 64):
                                                                 scale=scale)
 
     library_ms = cuda_ms(library, iters=20)
-    library_dev_ms = profiled(library)[0]
+    library_dev_ms = profiled(library)[0] if profile else None
     b, h, t, d = q.shape
     pairs = local_pairs(b, h, t, w, mask)
-    nbytes = 4 * q.numel() * q.element_size() + (bias.numel() * 4 if bias is not None else 0) \
+    nbytes = 4 * q.numel() * q.element_size() \
+        + (local_bias_elements(h, t, w, mask) * 4 if bias is not None else 0) \
         + (mask.numel() if mask is not None else 0)
     flops = 4 * d * pairs
     t_ops = flops / (TF32X3_FLOPS if q.dtype == torch.float32 else PEAK_FLOPS[q.dtype]) * 1e3
@@ -2229,8 +2285,9 @@ def check_local(q, k, v, w, mask, bias, label, seed, scale=8.0 / 64):
     bound_ms, bound_by = max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
     bound_fma_ms = max(flops / PEAK_FLOPS[torch.float32] * 1e3, t_bytes)
     print(f"local [{label}]: max_abs_err {err:.3e} (tol {tol}) | backward {grad_err:.3e} | "
-          f"kernel {ms:.4f} ms, on the device {fmt_ms(dev_ms)} in {dev_launches:g} launches "
-          f"per call | plain {plain_ms:.4f} ms | sdpa on blocks {library_ms:.4f} ms (device "
+          f"kernel {ms:.4f} ms, on the device {fmt_ms(dev_ms)}"
+          + (f" in {dev_launches:g} launches per call" if dev_launches is not None else "")
+          + f" | plain {plain_ms:.4f} ms | sdpa on blocks {library_ms:.4f} ms (device "
           f"{fmt_ms(library_dev_ms)}) | bound {bound_ms:.4f} ms ({bound_by}, {pairs} pairs; at the "
           f"FMA rate {bound_fma_ms:.4f} ms)")
     return dict(max_abs_err=err, ms=ms, device_ms=dev_ms, device_launches=dev_launches,
@@ -2560,19 +2617,19 @@ def train_launches(trainer, probe, label):
     """One train_step with the launch counts zeroed just before and read
     just after: K6 once a kept quantizer in the G forward (its dropout keeps
     quantizers 0..k) and once a quantizer in the D forward (eval: all 8); K7
-    once in the encoder and once in the decoder of each forward; nothing
-    else."""
+    once in the encoder and once in the decoder of each forward; each
+    forward once a batch of the step's grad_accum_every; nothing else."""
     probe.kept.clear()
     torch.cuda.synchronize()
     zero_counts()
     logs = trainer.train_step()
     torch.cuda.synchronize()
     launched = counts()
-    forwards = 1 + trainer.train_discriminators
+    forwards, accum = 1 + trainer.train_discriminators, trainer.grad_accum_every
     want = {name: 0 for name in COUNTERS}
     want.update(launches_vq=sum(k + 1 for k in probe.kept)
-                + (trainer.train_discriminators * CODEC_TRAIN["rq_num_quantizers"]),
-                launches_local=2 * forwards)
+                + accum * trainer.train_discriminators * trainer.model.num_quantizers,
+                launches_local=2 * forwards * accum)
     print(f"codec training [{label}] launches: {launched} (kept quantizers 0..{probe.kept}; "
           f"want K6 {want['launches_vq']}, K7 {want['launches_local']})")
     if launched != want:
@@ -2687,14 +2744,15 @@ def worst_leaf(got, ref, limits):
     return gaps[name], limits[name], name
 
 
-def card_vs_cpu(trainer, wave, seed):
+def card_vs_cpu(trainer, wave, seed, config=None):
     """The card against the CPU port from the trainer's model as it is (its
-    codebooks initialised), on the same batch and draws; then the same check
-    must reject the card's gradients with the encoder's K7 output gradient
-    zeroed."""
+    codebooks initialised; its SoundStream arguments `config`, by default
+    the trained codec's with the GAN's weights), on the same batch and
+    draws; then the same check must reject the card's gradients with the
+    encoder's K7 output gradient zeroed."""
     from audiolm_pytorch_tpu_torch import SoundStream
     state = {k: v.clone() for k, v in trainer.model.state_dict().items()}
-    cpu = SoundStream(**CODEC_TRAIN, **GAN, device="cpu")
+    cpu = SoundStream(**(config or dict(CODEC_TRAIN, **GAN)), device="cpu")
     cpu.load_state_dict(state)
     card = trainer.model
     c_losses, c_grads, c_rq, c_calls = g_and_d_grads(cpu, wave.cpu(), seed)
@@ -2727,7 +2785,7 @@ def card_vs_cpu(trainer, wave, seed):
         raise AssertionError(f"codec training card vs CPU: gradient leaf {leaf} {gap:.3e} > "
                              f"{limit:.3e}")
     frames, touched = codes_near_ties(g_calls, c_calls)
-    n_frames = wave.shape[0] * wave.shape[1] // 320
+    n_frames = wave.shape[0] * wave.shape[1] // card.seq_len_multiple_of
     if len(frames) > 0.01 * n_frames:
         raise AssertionError(f"codec training card vs CPU: {len(frames)} of {n_frames} frames "
                              f"differ (> 1%)")
@@ -2970,12 +3028,12 @@ def stage_clips(folder, seed, n=12):
         save_audio(folder / f"clip_{i:03d}.wav", x + 0.03 * rng.standard_normal(t_.size), SR)
 
 
-def stage_launches(kind):
+def stage_launches(kind, depth=STAGE_DEPTH):
     """Kernel launches of one stage train step: the LM's K1, K2 (with K4 for
     the Semantic LM's table, K5 for the others' bias) and K3 once a layer;
     the Coarse and Fine steps' tokenisation by the codec in eval, K6 once a
     quantizer and K7 once (the encoder's local attention); HuBERT none."""
-    n = STAGE_DEPTH
+    n = depth
     codec = kind != "semantic"
     return dict(launches=n, launches_dq=n, launches_dkv=n,
                 launches_dtab=0 if codec else n, launches_dbias=n if codec else 0,
@@ -5410,6 +5468,648 @@ def tensor_parallel_phase(seed):
     return paths, dict(report, kernels=rows)
 
 
+# ---- The rest of the kernels' domain: K7 at every window, a per-batch
+# (B, H, N, M) bias in K1-K3 with its gradient, grids past 65535 blocks in y
+# or z; and the repository's demo configuration (examples/train_audiolm_demo.py)
+# end to end. Their device times come from the flash device times phase's
+# process (tools/torch_flash_parent_ab.py): these phases open no profiler
+# window, so they may run after every phase that holds a launch to one.
+
+LOCAL_WINDOWS = (8, 16, 32, 48, 96, 256)  # beside the codec's 64 and 128
+LOCAL_WINDOW_T = 500  # the codec's 10 s at 50 Hz: a multiple of none of the windows
+# the demo's codec (examples/train_audiolm_demo.py:52-58): 200 frames a
+# second, 4 heads of 16 (K7 runs them zero-padded to 32), window 32
+DEMO_CODEC = dict(channels=16, strides=(4, 4, 5), channel_mults=(2, 4, 8), codebook_dim=64,
+                  codebook_size=256, rq_num_quantizers=8, attn_window_size=32, attn_heads=4,
+                  attn_dim_head=16, multi_spectral_window_powers_of_two=(6, 7),
+                  multi_scale_discr_kwargs=dict(channels=8, layers=3, groups=(1, 2, 4),
+                                                chan_max=64))
+DEMO_HZ = 200
+DEMO_B, DEMO_S = 8, 2  # the codec's round trip and K7 shape: 8 clips of 2 s
+DEMO_TRAIN = dict(batch_size=2, grad_accum_every=2, data_max_length=2560)  # :60-64
+DEMO_CHECK_SAMPLES = 8000  # card vs CPU gradients on 100 frames: 4 windows, the last padded
+DEMO_W2V = dict(dim=96, num_layers=2, heads=4, output_layer=2, codebook_size=64)  # :66-67
+DEMO_LM = dict(dim=64, depth=2, heads=4, dim_head=16)  # lm_kwargs, :69
+DEMO_LMS = {"semantic": dict(num_semantic_tokens=64),
+            "coarse": dict(num_semantic_tokens=64, codebook_size=256, num_coarse_quantizers=3),
+            "fine": dict(num_coarse_quantizers=3, num_fine_quantizers=5, codebook_size=256)}
+DEMO_GEN = dict(batch_size=1, max_length=32, max_coarse_time_steps=16)  # :104-105
+# K1-K3 with a per-batch bias: the Fine LM's training length with 8 heads of
+# 64, and the Coarse LM's with 4 heads of 128
+PER_BATCH_SHAPES = ((CLIP_B, 8, FINE_N, 64), (CLIP_B, 4, COARSE_N, 128))
+# one call of each kernel past the 65535 blocks a grid's y or z extent held
+GRID_HEADS = 65600  # K1-K3: B x H, N = 64, D = 32
+GRID_T = 64 * 65536 + 64  # K7: 65537 query tiles
+GRID_ROWS = 64 * 65536 + 1  # K6: 65537 row tiles
+
+
+def device_numbers(row, dev, kernel=None):
+    """row with the kernel's device time, its device launches per call and
+    its library call's device time from the flash device times phase's row
+    `dev` (this checkout's runs; None where that process saw no launch: not
+    measured)."""
+    if dev is None:
+        return dict(row, device_ms=None, device_launches=None, library_device_ms=None)
+    runs = dev[kernel] if kernel is not None else dev
+    seen = [(x, n) for x, n in zip(runs["this"]["device_ms"], runs["this"]["device_launches"])
+            if x is not None]
+    return dict(row, device_ms=float(np.mean([x for x, _ in seen])) if seen else None,
+                device_launches=float(np.mean([n for _, n in seen])) if seen else None,
+                library_device_ms=dev.get("sdpa_device_ms") if kernel in (None, "K1")
+                else dev.get("sdpa_bwd_device_ms"))
+
+
+def window_keyless_mask(rng, b, t, w):
+    """Row 0's keys 0 .. w + 4 masked (its queries 0 .. w + 4, in window 0
+    and at the start of window 1, have no key) and 20% of the others' keys
+    (key 0 kept)."""
+    mask = torch.from_numpy(rng.random((b, t)) >= 0.2).to(DEV)
+    mask[:, 0] = True
+    mask[0, :w + 5] = False
+    return mask
+
+
+@phase("kernels (K7 at every window)")
+def local_windows_phase(seed, device_rows):
+    """K7 at windows 8, 16, 32, 48, 96 and 256 beside 64 and 128, fp32 and
+    bf16, on LocalMHA's strided views: at the codec's 10 s of 8 x 8 x 500 x
+    64 (T a multiple of none of them), and at 2 x 8 x (3w + 37) with a key
+    mask, an (H, w, 2w) bias and rows without a key (their own window's mean);
+    the demo codec's 8 x 4 x 400 x 16 (2 s at 200 Hz, D 16 padded to 32) and
+    training batch 2 x 4 x 128 at w 32; each against its plain version with
+    its backward, timed by events beside the plain version, SDPA on
+    pre-built blocks and the bound, the device times from the flash device
+    times phase; float32 within F64_TOL of float64 at every window, the
+    1xTF32 build rejected."""
+    rng = np.random.default_rng(seed + 41)
+    rows, f64 = {}, {}
+    for w in (*LOCAL_WINDOWS, 64, 128):
+        t = 3 * w + 37
+        for dtype, name in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+            label = f"8x8x{LOCAL_WINDOW_T}x64 w{w}, strided"
+            row = check_local(*local_views(rng, 8, 8, LOCAL_WINDOW_T, 64, dtype), w, None, None,
+                              f"{name} {label}", seed, profile=False)
+            rows[f"{name} w{w}"] = device_numbers(row, device_rows.get(f"{str(dtype)[6:]} {label}"))
+            q, k, v = local_views(rng, 2, 8, t, 64, dtype)
+            mask = window_keyless_mask(rng, 2, t, w)
+            bias = torch.from_numpy(0.3 * rng.standard_normal((8, w, 2 * w),
+                                                              dtype=np.float32)).to(DEV)
+            rows[f"{name} w{w} masked"] = check_local(
+                q, k, v, w, mask, bias, f"{name} 2x8x{t}x64 w{w}, strided, key mask, bias, "
+                f"keyless rows", seed, profile=False)
+            check_keyless_rows(q, k, v, w, mask, f"{name} 2x8x{t}x64 w{w}")
+        q, k, v, _, bias = local_inputs(rng, 2, 8, t, 64, torch.float32, w, biased=True)
+        mask = window_keyless_mask(rng, 2, t, w)
+        three = local_f64_error(q, k, v, w, mask, bias)
+        with _build.built_with(ONE_PASS):
+            one = local_f64_error(q, k, v, w, mask, bias)
+        print(f"tf32 [K7 fp32 2x8x{t}x64 w{w}, key mask, bias]: 3xTF32 vs float64 {three:.2e} "
+              f"(limit {F64_TOL}) | 1xTF32 {one:.2e}")
+        if three > F64_TOL:
+            raise AssertionError(f"K7 3xTF32 vs float64 [w{w}]: {three} over {F64_TOL}")
+        if one <= F64_TOL:
+            raise AssertionError(f"the float64 check let K7's 1xTF32 build through [w{w}]")
+        f64[f"w{w}"] = {"3xtf32": three, "1xtf32": one}
+    for dtype, name in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        for b, t, what in ((DEMO_B, DEMO_S * DEMO_HZ, "demo codec, 8 x 2 s"),
+                           (2, 128, "demo codec training")):
+            label = f"{b}x4x{t}x16 w32, strided ({what})"
+            row = check_local(*local_views(rng, b, 4, t, 16, dtype), 32, None, None,
+                              f"{name} {label}", seed, scale=8.0 / 16, profile=False)
+            rows[f"{name} {what}"] = device_numbers(row,
+                                                    device_rows.get(f"{str(dtype)[6:]} {label}"))
+    return {"rows": rows, "f64": f64}
+
+
+def sdpa_time(q, k, v, fmask, g=None):
+    """One SDPA call's ms by events on the same function (k, v repeated over
+    the heads; the float mask's gradient too): the forward, or with g the
+    backward (forward and backward less forward). Yardstick only."""
+    ke, ve = sdpa_kv(k, v, q.shape[1])
+    if g is None:
+        return cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, ke, ve, attn_mask=fmask))
+    fm = fmask.detach().requires_grad_()
+    qs, ks, vs = (a.detach().requires_grad_() for a in (q, ke, ve))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, attn_mask=fm)
+
+    both = cuda_ms(lambda: torch.autograd.grad(sdpa(), (qs, ks, vs, fm), g), iters=5)
+    with torch.no_grad():
+        return both - cuda_ms(sdpa, iters=5)
+
+
+def check_per_batch(q, k, v, bias, mask, label, seed, dev):
+    """K1, K2 (writing the bias's gradient, dS, per batch row in its launch)
+    and K3 with a (B, H, N, N) bias, causal, through the autograd.Function
+    against the plain versions (each launched once); the gradient gate shown
+    to reject a zeroed dbias; dq and dbias, then dk and dv, the same bits
+    over three runs; each launch timed by events beside the plain version,
+    SDPA with the same float mask and the bound (the bias at the attended
+    pairs read by each, and the whole dbias written by K2)."""
+    b, h, n, d = q.shape
+    scale = d ** -0.5
+    kw = dict(causal=True, scale=scale)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    g = torch.randn(q.shape, generator=gen, device=DEV).to(q.dtype)
+    names = ("launches", "launches_dq", "launches_dkv", "launches_dbias_per_batch")
+    before = [getattr(fa, x) for x in names]
+    leaves = [a.detach().requires_grad_() for a in (q, k, v, bias)]
+    out, lse = fa.flash_attention(*leaves[:3], bias=leaves[3], key_mask=mask, causal=True,
+                                  return_lse=True)
+    grads = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    if [getattr(fa, x) - c for x, c in zip(names, before)] != [1, 1, 1, 1]:
+        raise AssertionError(f"per-batch bias [{label}]: K1, K2 (with dS) and K3 not launched "
+                             f"once each")
+    fkw = dict(bias=bias, key_mask=mask, causal=True)
+    ref_out = fa.flash_attention_ref(q, k, v, **fkw)
+    tol, gtol = TOL[q.dtype], GRAD_TOL[q.dtype]
+    errs = {"out": (out.float() - ref_out.float()).abs().max().item()}
+    if not torch.allclose(out.float(), ref_out.float(), rtol=tol, atol=tol):
+        raise AssertionError(f"per-batch bias K1 vs plain [{label}]: {errs['out']} over {tol}")
+    out, lse = out.detach(), lse.detach()
+    ref = fa.flash_attention_bwd_ref(q, k, v, None, mask, out, lse, g, bias=bias, **kw)
+    for name, a, r in zip(("dq", "dk", "dv", "dbias"), grads, ref):
+        errs[name] = (a.float() - r.float()).abs().max().item()
+        if a.shape != r.shape or not torch.allclose(a.float(), r.float(), **gtol):
+            raise AssertionError(f"per-batch bias backward vs plain [{label}] {name}: max abs "
+                                 f"err {errs[name]} over {gtol}")
+    if torch.allclose(torch.zeros_like(ref[3]), ref[3], **gtol):
+        raise AssertionError(f"per-batch bias [{label}]: the gate lets a zeroed dbias through")
+    delta = (g.float() * out.float()).sum(-1)
+    args = (q, k, v, g, lse, delta, None, mask.to(torch.int8).contiguous())
+    for what, fn in (("K2 dq, dbias", fa.bwd_dq), ("K3 dk, dv", fa.bwd_dkv)):
+        first = fn(*args, bias=bias, **kw)
+        for _ in range(2):
+            if not all(torch.equal(x, y) for x, y in zip(fn(*args, bias=bias, **kw), first)):
+                raise AssertionError(f"per-batch bias [{label}]: {what} differ between runs")
+    fmask = sdpa_mask(q, None, mask, bias)
+    es, rows = q.element_size(), b * h * n * 4
+    fwd_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, **fkw))
+    fwd_plain = cuda_ms(lambda: fa.flash_attention_ref(q, k, v, **fkw), iters=3, warmup=1)
+    bwd_plain = cuda_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, None, mask, out, lse, g,
+                                                           bias=bias, **kw), iters=3, warmup=1)
+    fwd_lib, bwd_lib = sdpa_time(q, k, v, fmask), sdpa_time(q, k, v, fmask, g)
+    dq_ms = cuda_ms(lambda: fa.bwd_dq(*args, bias=bias, **kw))
+    dkv_ms = cuda_ms(lambda: fa.bwd_dkv(*args, bias=bias, **kw))
+    result = {}
+    for key, ms, plain, lib, (bound_ms, bound_by), err, kernel in (
+            ("fwd", fwd_ms, fwd_plain, fwd_lib, flash_bound_ms(q, k, v, bias, mask),
+             errs["out"], "K1"),
+            ("dq", dq_ms, bwd_plain, bwd_lib, flash_bound_ms(
+                q, k, v, bias, mask, products=3,
+                extra_bytes=q.numel() * es + rows + bias.numel() * 4),
+             max(errs["dq"], errs["dbias"]), "K2+dS"),
+            ("dkv", dkv_ms, bwd_plain, bwd_lib, flash_bound_ms(
+                q, k, v, bias, mask, products=4, extra_bytes=2 * k.numel() * es + rows),
+             max(errs["dk"], errs["dv"]), "K3")):
+        result[key] = device_numbers(dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                          bound_ms=bound_ms, bound_by=bound_by, library_ms=lib,
+                                          at=label), dev, kernel)
+        print(f"per-batch bias {key} [{label}]: max_abs_err {err:.3e} | kernel {ms:.4f} ms "
+              f"(device {fmt_ms(result[key]['device_ms'])}) | plain {plain:.4f} ms | sdpa "
+              f"{lib:.4f} ms (device {fmt_ms(result[key]['library_device_ms'])}) | bound "
+              f"{bound_ms:.4f} ms ({bound_by})")
+    print(f"per-batch bias [{label}]: a zeroed dbias rejected; K2's dq, dbias and K3's dk, dv "
+          f"bitwise equal over 3 runs")
+    return result
+
+
+def per_batch_transformer(seed):
+    """The port's Transformer at the Coarse and Fine LMs' width (dim 512,
+    depth 6, 8 heads of 64, 4 residual streams; weights from `seed`) given
+    a per-batch (B, H, N, N) attn_bias over 4 x 603: scoring and the
+    gradient of a loss (out against a fixed random tensor) in the bias and
+    every weight, the launch counts
+    zeroed just before and read just after (K1, K2 writing dbias, K3 once a
+    layer); then card vs CPU at 2 x 150 (output within LOGITS_TOL, each
+    gradient leaf and the bias's within LEAF_TOL by relative norm), the
+    check shown to reject dbias zeroed in one layer."""
+    from audiolm_pytorch_tpu_torch.models.transformer import Transformer
+    cfg = dict(dim=ACOUSTIC["dim"], depth=ACOUSTIC["depth"], heads=ACOUSTIC["heads"],
+               dim_head=ACOUSTIC["dim_head"], num_residual_streams=4)
+    model = Transformer(**cfg, generator=torch.Generator().manual_seed(seed), device="cpu")
+    rng = np.random.default_rng(seed + 44)
+    with torch.no_grad():  # the dynamic hyper-connection weights are zero at init
+        for name, p in model.named_parameters():
+            if "dyn_" in name:
+                p.copy_(0.1 * torch.from_numpy(rng.standard_normal(p.shape, dtype=np.float32)))
+    card = copy.deepcopy(model).to(DEV)
+    depth = cfg["depth"]
+
+    def run(m, x, bias, zero=None):
+        # the loss <out, g> for a fixed random g (the final LayerNorm makes a
+        # loss of |out|^2 all but constant, its gradients rounding noise)
+        bias = bias.detach().requires_grad_()
+        g = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+            tuple(x.shape), dtype=np.float32)).to(x.device)
+        with zeroed_output(zero):
+            m.zero_grad(set_to_none=True)
+            out = m(x, attn_bias=bias)
+            (out * g).sum().backward()
+        return out.detach().cpu(), param_grads(m), bias.grad.cpu()
+
+    def gap(a, ref):
+        return ((a - ref).norm() / ref.norm()).item()
+
+    x = torch.from_numpy(rng.standard_normal((CLIP_B, COARSE_N, cfg["dim"]), dtype=np.float32))
+    bias = torch.from_numpy(0.5 * rng.standard_normal((CLIP_B, cfg["heads"], COARSE_N, COARSE_N),
+                                                      dtype=np.float32))
+    x, bias = x.to(DEV), bias.to(DEV)
+    run(card, x, bias)  # warm
+    torch.cuda.synchronize()
+    zero_counts()
+    per_batch = fa.launches_dbias_per_batch
+    t0 = time.perf_counter()
+    run(card, x, bias)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launched = dict(counts(), launches_dbias_per_batch=fa.launches_dbias_per_batch - per_batch)
+    want = {name: 0 for name in launched}
+    want.update(launches=depth, launches_dq=depth, launches_dkv=depth,
+                launches_dbias_per_batch=depth)
+    if launched != want:
+        raise AssertionError(f"per-batch bias Transformer launches {launched} != {want}")
+    xs = torch.from_numpy(rng.standard_normal((2, 150, cfg["dim"]), dtype=np.float32))
+    bs = torch.from_numpy(0.5 * rng.standard_normal((2, cfg["heads"], 150, 150),
+                                                    dtype=np.float32))
+    card_out, card_grads, card_dbias = run(card, xs.to(DEV), bs.to(DEV))
+    cpu_out, cpu_grads, cpu_dbias = run(model, xs, bs)
+    out_err = ((card_out - cpu_out).abs().max() / cpu_out.abs().max()).item()
+    errs = leaf_errors(card_grads, cpu_grads)
+    worst = max(errs, key=errs.get)
+    bias_err = gap(card_dbias, cpu_dbias)
+    if out_err > LOGITS_TOL or errs[worst] > LEAF_TOL or bias_err > LEAF_TOL:
+        raise AssertionError(f"per-batch bias Transformer card vs CPU: output {out_err:.3e}, "
+                             f"gradient {worst} {errs[worst]:.3e}, the bias's {bias_err:.3e}")
+    fault = gap(run(card, xs.to(DEV), bs.to(DEV), zero=("bwd_dq", 1, depth // 2))[2], cpu_dbias)
+    if fault <= LEAF_TOL:
+        raise AssertionError("per-batch bias Transformer: the gradient check let a zeroed dbias "
+                             "through")
+    print(f"per-batch bias Transformer {CLIP_B}x{COARSE_N} (dim 512, depth 6, 8 heads of 64): "
+          f"scoring and gradient {step_ms:.2f} ms by the host clock | launches {launched} | "
+          f"card vs CPU at 2x150: output {out_err:.3e} of its largest (limit {LOGITS_TOL}), worst "
+          f"of {len(errs)} gradient leaves {errs[worst]:.3e} in {worst}, the bias's "
+          f"{bias_err:.3e} (limit {LEAF_TOL}) | dbias zeroed in backward call "
+          f"{depth // 2}: the bias's gap {fault:.3e}, rejected")
+    return launched, dict(step_ms=step_ms, out_err=out_err, worst_leaf=errs[worst],
+                          bias_grad=bias_err, fault=fault)
+
+
+@phase("kernels (per-batch bias)")
+def per_batch_phase(seed, device_rows):
+    """K1-K3 with a per-batch (B, H, N, N) bias at PER_BATCH_SHAPES, fp32 and
+    bf16, 15% of the keys forgotten (check_per_batch); float32 within F64_TOL
+    of float64 at the first shape (out, dq, dk, dv, dbias), the 1xTF32 build
+    rejected; then the Transformer path (per_batch_transformer)."""
+    rng = np.random.default_rng(seed + 42)
+    rows, f64 = {}, {}
+    for b, h, n, d in PER_BATCH_SHAPES:
+        label = f"{b}x{h}x{n}" + ("" if d == 64 else f"x{d}") + " per-batch bias"
+        for dtype, name in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+            q, k, v, _, mask = flash_inputs(rng, b, h, n, d, dtype, forget_p=0.15)
+            bias = torch.from_numpy(0.5 * rng.standard_normal((b, h, n, n),
+                                                              dtype=np.float32)).to(DEV)
+            rows[f"{name} {label}"] = check_per_batch(
+                q, k, v, bias, mask, f"{name} {label}", seed,
+                device_rows.get(f"{str(dtype)[6:]} {label}"))
+            if dtype == torch.float32 and not f64:
+                g = torch.from_numpy(rng.standard_normal(q.shape, dtype=np.float32)).to(DEV)
+                ref = attention_f64(q, k, v, None, bias, mask, g, d ** -0.5)
+                args = (q, k, v, None, bias, mask, g, ref, d ** -0.5)
+                three = f64_errors(*args)
+                with fa.built_with(ONE_PASS):
+                    one = f64_errors(*args)
+                print(f"tf32 [{name} {label}]: 3xTF32 vs float64 "
+                      + " ".join(f"{x} {e:.2e}" for x, e in three.items())
+                      + f" (limit {F64_TOL}) | 1xTF32 "
+                      + " ".join(f"{x} {e:.2e}" for x, e in one.items()))
+                if max(three.values()) > F64_TOL:
+                    raise AssertionError(f"3xTF32 vs float64 [{label}]: {three}")
+                if min(one.values()) <= F64_TOL:
+                    raise AssertionError(f"the float64 check let the 1xTF32 build through "
+                                         f"[{label}]: {one}")
+                f64 = {"3xtf32": three, "1xtf32": one}
+                del ref, args
+    launched, transformer = per_batch_transformer(seed)
+    return {"rows": rows, "f64": f64, "transformer": transformer}, launched
+
+
+@phase("grids past 65535")
+def grid_phase(seed):
+    """One call of each kernel past the 65535 blocks that a grid's y and z
+    extents once held it to, against its plain version: K1-K3 at 1 x 65600
+    heads (K2's heads) and 65600 x 1 (K3's batch rows times kv heads), N =
+    64, D = 32, causal; K7 at T = 64 x 65536 + 64 (65537 query tiles), B = H
+    = 1, D = 32, windows 32 and 64; K6 at 64 x 65536 + 1 rows (65537 row
+    tiles) of 8 dimensions against 16 codes. Memory: the plain K1 holds a
+    (B H, 64, 64) float32 score tensor (1.1 GB), the plain K7 at w 64 its
+    (T / w, w, 2w) scores (2.1 GB)."""
+    rng = np.random.default_rng(seed + 45)
+    report = {}
+
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(DEV)
+
+    for b, h in ((1, GRID_HEADS), (GRID_HEADS, 1)):
+        q, k, v, g = normal(b, h, 64, 32), normal(b, 1, 64, 32), normal(b, 1, 64, 32), \
+            normal(b, h, 64, 32)
+        before = fa.launches, fa.launches_dq, fa.launches_dkv
+        out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+        grads = fa.flash_attention_bwd(q, k, v, None, None, out, lse, g, causal=True,
+                                       scale=32 ** -0.5)
+        torch.cuda.synchronize()
+        if (fa.launches, fa.launches_dq, fa.launches_dkv) != tuple(x + 1 for x in before):
+            raise AssertionError(f"grid {b}x{h}: K1-K3 not launched once each")
+        ref = fa.flash_attention_ref(q, k, v, causal=True)
+        want = fa.flash_attention_bwd_ref(q, k, v, None, None, out, lse, g, causal=True,
+                                          scale=32 ** -0.5)
+        errs = {"out": (out - ref).abs().max().item()}
+        errs.update({x: (a - r).abs().max().item()
+                     for x, a, r in zip(("dq", "dk", "dv"), grads, want)})
+        if not (torch.allclose(out, ref, rtol=2e-3, atol=2e-3) and all(
+                torch.allclose(a, r, **GRAD_TOL[torch.float32])
+            for a, r in zip(grads[:3], want[:3]))):
+            raise AssertionError(f"grid {b}x{h}x64x32: K1-K3 vs plain {errs}")
+        print(f"grid [K1-K3 {b}x{h}x64x32, causal]: max abs err "
+              + " ".join(f"{x} {e:.2e}" for x, e in errs.items()))
+        report[f"flash {b}x{h}"] = errs
+        del q, k, v, g, out, lse, grads, ref, want
+    t = GRID_T
+    q, k, v = normal(1, 1, t, 32), normal(1, 1, t, 32), normal(1, 1, t, 32)
+    for w in (32, 64):
+        before = la.launches
+        out = la.local_attention(q, k, v, window_size=w)
+        torch.cuda.synchronize()
+        ref = la.local_attention_ref(q, k, v, window_size=w)
+        err = (out - ref).abs().max().item()
+        if la.launches != before + 1 or not torch.allclose(out, ref, rtol=2e-3, atol=2e-3):
+            raise AssertionError(f"grid [K7 1x1x{t}x32 w{w}]: max abs err {err}")
+        print(f"grid [K7 1x1x{t}x32 w{w}]: max abs err {err:.2e}")
+        report[f"local w{w}"] = err
+        del out, ref
+    del q, k, v
+    n = GRID_ROWS
+    x = normal(n, 8)
+    cb = normal(16, 8)
+    before = vq.launches
+    got = vq.vq_nearest_code(x, cb)
+    torch.cuda.synchronize()
+    want = vq.vq_nearest_code_ref(x, cb)
+    bad = (got != want).nonzero()[:, 0]
+    xd, ed = x[bad].double(), cb.double()
+
+    def score(idx):
+        e = ed[idx.long()]
+        return -2 * (xd * e).sum(-1) + e.square().sum(-1)
+
+    terms = xd.square().sum(-1) + ed.square().sum(-1).max()
+    gap = ((score(got[bad]) - score(want[bad])).abs() / terms).max().item() if len(bad) else 0.0
+    if vq.launches != before + 1 or got.shape != (n,) or gap > NEAR_TIE:
+        raise AssertionError(f"grid [K6 {n} rows]: {len(bad)} rows differ, relative gap {gap}")
+    print(f"grid [K6 {n}x8 vs 16x8]: {len(bad)} rows differ from the plain version, at near "
+          f"ties (relative gap up to {gap:.2e}, limit {NEAR_TIE})")
+    report["vq"] = {"rows_differ": len(bad), "rel_gap": gap}
+    torch.cuda.empty_cache()
+    return report
+
+
+def demo_codec(seed):
+    from audiolm_pytorch_tpu_torch import SoundStream
+    return SoundStream(**DEMO_CODEC, seed=seed, device=DEV)
+
+
+def demo_lm(kind, seed):
+    cls = {"semantic": SemanticTransformer, "coarse": CoarseTransformer,
+           "fine": FineTransformer}[kind]
+    return cls(**DEMO_LM, **DEMO_LMS[kind], seed=seed, device=DEV)
+
+
+@phase("demo")
+def demo_phase(seed):
+    """examples/train_audiolm_demo.py's configuration at its own width on the
+    card (random weights from `seed`; the LMs on the port's flash kernels,
+    where the demo's JAX LMs take their math path), each path with the launch
+    counts zeroed just before its calls and read just after:
+      - the codec (DEMO_CODEC; codebooks filled from a calibration batch's
+        residuals): tokenize -> decode of 8 x 2 s (K6 8 times, K7 twice, at
+        w 32); card vs CPU on a 1-s clip (codes identical but for near ties,
+        the waveform from the same codes);
+      - its SoundStreamTrainer (batch 2, grad_accum_every 2, crops of 2560
+        samples, warmup 1) one warm step and one counted G + D step, then
+        card vs CPU gradients of one G and one D step (with the penalty) on
+        2 clips of 8000 samples (card_vs_cpu, shown to reject a zeroed K7
+        output gradient);
+      - streaming: a 2-s clip through StreamingCodecEncoder and its codes
+        through StreamingCodecDecoder (chunks of 32 frames: one K7 a chunk),
+        against the offline tokenize and decode;
+      - the Semantic, Coarse and Fine trainers (HuBERT as the demo's, the
+        LMs at lm_kwargs) a warm step and a counted step each on the clips;
+      - AudioLM (batch 1, max_length 32, max_coarse_time_steps 16, greedy)
+        on the trained LMs, and the three stages' greedy tokens on the card
+        equal to the CPU port's."""
+    import tempfile
+    from audiolm_pytorch_tpu_torch import (CoarseTransformerTrainer, FineTransformerTrainer,
+                                           HubertWithKmeans, SemanticTransformerTrainer,
+                                           SoundStreamTrainer, StreamingCodecDecoder,
+                                           StreamingCodecEncoder)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(seed + 43)
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    paths, report = {}, {}
+    ds = 80  # samples a frame: the strides' product
+    # the codec's round trip
+    codec = demo_codec(seed).eval()
+    calib = torch.from_numpy(0.1 * rng.standard_normal((2 * DEMO_B, DEMO_S * SR),
+                                                       dtype=np.float32)).to(DEV)
+    fill_codebooks(codec, calib, seed)
+    x = torch.from_numpy(0.1 * rng.standard_normal((DEMO_B, DEMO_S * SR),
+                                                   dtype=np.float32)).to(DEV)
+    with torch.no_grad():
+        zero_counts()
+        codes = codec.tokenize(x)
+        y = codec.decode_from_codebook_indices(codes)
+        torch.cuda.synchronize()
+        launched = counts()
+        want = {name: 0 for name in COUNTERS}
+        want.update(launches_vq=8, launches_local=2)
+        if launched != want:
+            raise AssertionError(f"demo codec round trip launches {launched} != {want}")
+        frames = DEMO_S * DEMO_HZ
+        distinct = codes[0, :, :, 0].unique().numel()
+        if codes.shape != (1, DEMO_B, frames, 8) or y.shape != x.shape \
+                or not torch.isfinite(y).all() or distinct < 32:
+            raise AssertionError(f"demo codec: codes {tuple(codes.shape)} ({distinct} codes in "
+                                 f"quantizer 0), wave {tuple(y.shape)}")
+        t0 = time.perf_counter()
+        for _ in range(5):
+            codec.decode_from_codebook_indices(codec.tokenize(x))
+        torch.cuda.synchronize()
+        call_ms = (time.perf_counter() - t0) / 5 * 1e3
+        cpu = copy.deepcopy(codec).cpu()
+        clip = x[:1, :SR]
+        card_h, cpu_h = codec.encode_frames(clip).cpu(), cpu.encode_frames(clip.cpu())
+        card_codes, cpu_codes = codec.tokenize(clip).cpu(), cpu.tokenize(clip.cpu())
+        differ, gap = compare_codes(cpu.rq.rvqs[0].layers, card_h, cpu_h, card_codes[0],
+                                    cpu_codes[0])
+        rel = wave_error(codec.decode_from_codebook_indices(cpu_codes.to(DEV)),
+                         cpu.decode_from_codebook_indices(cpu_codes), "demo codec 1x1s")
+    paths["demo_codec"] = launched
+    report["codec"] = dict(round_trip_ms=call_ms, frames_differ=differ, wave_rel=rel)
+    print(f"demo codec round trip {DEMO_B}x{DEMO_S}s (window 32, 4 heads of 16): {call_ms:.2f} "
+          f"ms per call | quantizer 0 uses {distinct} of 256 codes | launches {launched} | card "
+          f"vs CPU on 1 s: {differ} of {DEMO_HZ} frames' codes differ (near ties, largest gap "
+          f"{gap:.3e}), waveform from the same codes {rel:.3e} of the peak (limit "
+          f"{WAVE_REL_TOL})")
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        tmp = Path(tmp)
+        write_clips(tmp / "clips", seed)
+        # the codec's trainer
+        trainer = SoundStreamTrainer(demo_codec(seed), folder=tmp / "clips",
+                                     results_folder=tmp / "codec", num_train_steps=9,
+                                     warmup_steps=1, save_results_every=10 ** 9,
+                                     save_model_every=10 ** 9, seed=seed, device=DEV,
+                                     **DEMO_TRAIN)
+        try:
+            probe = StepProbe(trainer)
+            check_loss_terms(trainer.train_step(), "demo, warm step")  # kmeans init
+            logs, launched = train_launches(trainer, probe, "demo")
+            check_loss_terms(logs, "demo, counted step")
+            paths["demo_codec_training"] = launched
+            from audiolm_pytorch_tpu_torch.utils.audio_io import load_audio
+            wave = torch.from_numpy(np.stack([
+                load_audio(f)[0][0, :DEMO_CHECK_SAMPLES]
+                for f in sorted((tmp / "clips").glob("*.wav"))[:2]])).to(DEV)
+            report["codec_training"] = dict(card_vs_cpu(trainer, wave, seed, DEMO_CODEC),
+                                            logs=logs)
+        finally:
+            trainer.close()
+        # streaming: a 2-s clip each way
+        enc = StreamingCodecEncoder(codec, chunk_frames=32)
+        clip = x[:1].cpu().numpy()
+        pieces = stream_pieces(clip, seed + 51)
+        zero_counts()
+        streamed = np.concatenate([enc.push(p) for p in pieces] + [enc.flush()], 2)
+        launched_enc = counts()
+        chunks = -(-frames // enc.chunk)
+        want = {name: 0 for name in COUNTERS}
+        want.update(launches_vq=8 * chunks, launches_local=chunks)
+        if launched_enc != want:
+            raise AssertionError(f"demo streaming encode launches {launched_enc} != {want}")
+        with torch.no_grad():
+            offline = codec.tokenize(x[:1]).cpu().numpy()
+            ref = codec.decode_from_codebook_indices(torch.from_numpy(offline).to(DEV).long())
+        if streamed.shape != offline.shape or not np.array_equal(streamed, offline):
+            raise AssertionError(f"demo streaming: {int((streamed != offline).sum())} codes "
+                                 f"differ from the offline tokenize")
+        dec = StreamingCodecDecoder(codec, chunk_frames=32)
+        bites = [offline[:, :, i:i + 32] for i in range(0, frames, 32)]
+        zero_counts()
+        y = np.concatenate([dec.push(c) for c in bites] + [dec.flush()], -1)
+        launched_dec = counts()
+        want = {name: 0 for name in COUNTERS}
+        want.update(launches_local=-(-frames // dec.chunk))
+        if launched_dec != want:
+            raise AssertionError(f"demo streaming decode launches {launched_dec} != {want}")
+        np.testing.assert_allclose(y, ref.cpu().numpy(), **STREAM_WAVE_TOL)
+        paths["demo_streaming_encode"], paths["demo_streaming_decode"] = launched_enc, launched_dec
+        print(f"demo streaming 1x{DEMO_S}s, chunks of 32 frames: {chunks} encoder chunks, codes "
+              f"identical to the offline tokenize | {want['launches_local']} decoder chunks, the "
+              f"waveform within {STREAM_WAVE_TOL} of the offline decode | launches encode "
+              f"{launched_enc}, decode {launched_dec}")
+        # the LM trainers
+        w2v = HubertWithKmeans(**DEMO_W2V, seed=seed, device=DEV)
+        lms, losses = {}, {}
+        for kind, cls in (("semantic", SemanticTransformerTrainer),
+                          ("coarse", CoarseTransformerTrainer),
+                          ("fine", FineTransformerTrainer)):
+            lms[kind] = demo_lm(kind, seed)
+            frozen = {"semantic": dict(wav2vec=w2v), "coarse": dict(codec=codec, wav2vec=w2v),
+                      "fine": dict(codec=codec)}[kind]
+            lm_trainer = cls(lms[kind], **frozen, folder=tmp / "clips",
+                             results_folder=tmp / kind, batch_size=2,
+                             data_max_length=DEMO_TRAIN["data_max_length"], num_train_steps=9,
+                             save_results_every=10 ** 9, save_model_every=10 ** 9, seed=seed,
+                             device=DEV)
+            try:
+                losses[kind] = [lm_trainer.train_step()["loss"]]  # warm
+                torch.cuda.synchronize()
+                zero_counts()
+                losses[kind].append(lm_trainer.train_step()["loss"])
+                torch.cuda.synchronize()
+                launched = counts()
+            finally:
+                lm_trainer.close()
+            want = stage_launches(kind, depth=DEMO_LM["depth"])
+            if launched != want or not np.isfinite(losses[kind]).all():
+                raise AssertionError(f"demo {kind} trainer: launches {launched} != {want}, "
+                                     f"losses {losses[kind]}")
+            paths[f"demo_{kind}_trainer"] = launched
+            print(f"demo {kind} trainer (2 x 2560 samples): losses "
+                  + " ".join(f"{v:.4f}" for v in losses[kind]) + f" | launches {launched}")
+    report["lm_losses"] = losses
+    # AudioLM on the trained LMs, and its stages card vs CPU
+    for lm in lms.values():
+        lm.eval()
+    audiolm = AudioLM(wav2vec=w2v, codec=codec, semantic_transformer=lms["semantic"],
+                      coarse_transformer=lms["coarse"], fine_transformer=lms["fine"])
+    kw = dict(DEMO_GEN, temperature=1e-10)
+    zero_counts()
+    t0 = time.perf_counter()
+    wave = audiolm(**kw, generator=torch.Generator(device=DEV).manual_seed(seed))
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launched = counts()
+    samples = DEMO_GEN["max_coarse_time_steps"] * ds
+    if isinstance(wave, list) or wave.shape != (1, samples) or not torch.isfinite(wave).all() \
+            or launched["launches"] == 0 or launched["launches_local"] != 1:
+        raise AssertionError(f"demo AudioLM: waveform "
+                             f"{[None if w is None else tuple(w.shape) for w in wave] if isinstance(wave, list) else tuple(wave.shape)}"
+                             f" (want (1, {samples}), finite), launches {launched}")
+    paths["demo_audiolm"] = launched
+    tokens = {}
+    for where, dev in (("card", DEV), ("cpu", torch.device("cpu"))):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        models = {k: copy.deepcopy(m).to(dev) for k, m in lms.items()} if where == "cpu" \
+            else lms
+        chain = AudioLM(codec=codec if where == "card" else cpu,
+                        semantic_transformer=models["semantic"],
+                        coarse_transformer=models["coarse"], fine_transformer=models["fine"])
+        sem = chain.semantic.generate(batch_size=1, max_length=DEMO_GEN["max_length"],
+                                      temperature=1e-10, generator=gen)
+        co = chain.coarse.generate(semantic_token_ids=sem,
+                                   max_time_steps=DEMO_GEN["max_coarse_time_steps"],
+                                   temperature=1e-10, generator=gen)
+        fi = chain.fine.generate(coarse_token_ids=co, temperature=1e-10, generator=gen)
+        tokens[where] = [a.cpu() for a in (sem, co, fi)]
+    for name, a, b in zip(("semantic", "coarse", "fine"), tokens["card"], tokens["cpu"]):
+        if not torch.equal(a, b):
+            raise AssertionError(f"demo AudioLM: the card's greedy {name} tokens differ from the "
+                                 f"CPU port's")
+    with torch.no_grad():
+        grid = torch.cat(tokens["card"][1:], -1)
+        if not torch.equal(decode_acoustic_tokens(codec, grid.to(DEV)), wave):
+            raise AssertionError("demo AudioLM: the chain's waveform is not the decode of its "
+                                 "stages' tokens")
+    report["audiolm"] = dict(s=gen_s, tokens=[list(t.shape) for t in tokens["card"]])
+    print(f"demo AudioLM b1, {DEMO_GEN['max_length']} semantic ids max -> "
+          f"{DEMO_GEN['max_coarse_time_steps']} coarse time steps -> {wave.shape[-1]} samples: "
+          f"{gen_s:.2f} s wall | greedy tokens "
+          + ", ".join(f"{n} {tuple(t.shape)}" for n, t in zip(("semantic", "coarse", "fine"),
+                                                               tokens["card"]))
+          + f" identical card vs CPU | launches {launched}")
+    total = {name: sum(p[name] for p in paths.values()) for name in COUNTERS}
+    if not (total["launches"] > 0 and total["launches_vq"] > 0 and total["launches_local"] > 0):
+        raise AssertionError(f"demo: K1, K6 and K7 not all launched: {total}")
+    del audiolm, codec, lms, w2v
+    torch.cuda.empty_cache()
+    return paths, report
+
+
 # the outputs of each row's kernel in the tf32 phase's float64 check
 F64_OUTPUTS = {"fwd": ("out",), "dq": ("dq",), "dkv": ("dk", "dv"), "dbias": ("dbias",)}
 # the TPU kernel each port replaces, by line in the JAX package
@@ -5529,6 +6229,15 @@ def main():
     head_paths, head_bf16 = head_dim_paths(args.seed)
     paths.update(head_paths)
     bf16_runs.update(head_bf16)
+    # the rest of the kernels' domain and the demo's configuration (no
+    # profiler window: their device times are the flash device times phase's)
+    device_rows = timings["flash_device"]
+    timings["local_windows"] = local_windows_phase(args.seed, device_rows)
+    timings["per_batch"], paths["per_batch_transformer"] = per_batch_phase(args.seed,
+                                                                          device_rows)
+    timings["grid"] = grid_phase(args.seed)
+    demo_paths, timings["demo"] = demo_phase(args.seed)
+    paths.update(demo_paths)
     rows = []
     for key, name, source, replaces, counter in KERNELS:
         per_path = {f"launches_{p}": launched[counter] for p, launched in paths.items()}
@@ -5580,6 +6289,25 @@ def main():
             numbers["streaming"] = timings[f"{key}_streaming"]
         if key == "vq":
             numbers["encodec"] = timings["vq_encodec"]  # 1200 rows of 128, 1024 codes
+        if key in ("fwd", "dq", "dkv"):
+            # a per-batch (B, H, N, N) bias (dq: K2 writing its gradient, dS)
+            numbers["per_batch"] = {label: got[key] for label, got in
+                                    timings["per_batch"]["rows"].items()}
+            numbers["per_batch_f64"] = {kind: {x: e for x, e in errs.items()
+                                               if x in F64_OUTPUTS[key] + (("dbias",) if
+                                                                           key == "dq" else ())}
+                                        for kind, errs in timings["per_batch"]["f64"].items()}
+            numbers["grid_past_65535"] = {at: e for at, e in timings["grid"].items()
+                                          if at.startswith("flash")}
+        if key == "local":
+            # every window on 10 s of the codec's heads, keyed and masked forms,
+            # the demo codec's shapes; float64 at each window; past 65535 tiles
+            numbers.update(windows=timings["local_windows"]["rows"],
+                           windows_f64=timings["local_windows"]["f64"],
+                           grid_past_65535={at: e for at, e in timings["grid"].items()
+                                            if at.startswith("local")})
+        if key == "vq":
+            numbers["grid_past_65535"] = timings["grid"]["vq"]
         if key in ("fwd", "dq", "dkv", "dbias"):
             outputs = F64_OUTPUTS[key]
             f64 = dict(timings["tf32"], **timings["conditioned"]["f64"])
@@ -5613,7 +6341,9 @@ def main():
                       "audio_conditioner": timings["audio_conditioner"],
                       "data_parallel": timings["data_parallel"],
                       "tensor_parallel": {k: v for k, v in timings["tensor_parallel"].items()
-                                          if k != "kernels"}}))
+                                          if k != "kernels"},
+                      "per_batch_transformer": timings["per_batch"]["transformer"],
+                      "demo": timings["demo"]}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

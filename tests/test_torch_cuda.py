@@ -32,7 +32,11 @@ family on the card against the CPU (GateLoop's scan and squeeze-excite at
 of 128); dropout's backward reusing its forward's mask, a dropout train
 step on the plain path and its eval pass on K1, speculative decode equal
 to the sequential sampler, and the VQ EMA's all-reduce over a one-rank
-NCCL group the identity. They skip where there is no card.
+NCCL group the identity; K7 at windows 8, 32, 48 and 256 (and the demo
+codec's window 32 over heads of 16), K1-K3 with a per-batch (B, H, N, M)
+bias and its gradient (the same bits every run), and each kernel past the
+65535 blocks a grid's y or z extent once held it to. They skip where there
+is no card.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine without them:
@@ -40,6 +44,7 @@ machine without them:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 import copy
+import re
 
 import numpy as np
 import pytest
@@ -326,10 +331,24 @@ def test_flash_bias_kernels_match_plain_version(cuda, n, causal, mqa, masked, dt
 
 
 def test_per_batch_bias_raises_on_a_cuda_tensor(cuda):
-    q = torch.zeros(2, 2, 16, 64, device=cuda)
+    # a per-batch (B, H, N, M) bias was refused on the card; now K1-K3 take it,
+    # through autograd, as the plain version does (only a head dim over 128 raises)
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.normal(size=(2, 2, 16, 64)).astype(np.float32)).to(cuda)
     kv = q[:, :1].contiguous()
-    with pytest.raises(ValueError, match="per-batch"):
-        fa.flash_attention(q, kv, kv, bias=torch.zeros(2, 2, 16, 16, device=cuda), causal=True)
+    bias = torch.from_numpy(rng.normal(size=(2, 2, 16, 16)).astype(np.float32)).to(cuda)
+    leaves = [a.clone().requires_grad_() for a in (q, kv, kv, bias)]
+    out = fa.flash_attention(*leaves[:3], bias=leaves[3], causal=True)
+    grads = torch.autograd.grad(out.square().sum(), leaves)
+    cpu = [a.detach().cpu().requires_grad_() for a in leaves]
+    ref = fa.flash_attention_ref(*cpu[:3], bias=cpu[3], causal=True)
+    want = torch.autograd.grad(ref.square().sum(), cpu)
+    torch.testing.assert_close(out.cpu(), ref, rtol=2e-3, atol=2e-3)
+    for a, r in zip(grads, want):
+        torch.testing.assert_close(a.cpu(), r, rtol=1e-2, atol=1e-3)
+    wide = torch.zeros(2, 2, 16, 160, device=cuda)
+    with pytest.raises(ValueError, match="up to 128"):
+        fa.flash_attention(wide, wide[:, :1], wide[:, :1], bias=bias, causal=True)
 
 
 @pytest.mark.parametrize("kind", ["coarse", "fine"])
@@ -626,9 +645,16 @@ def test_local_attention_on_a_card_is_differentiable(cuda):
 
 @pytest.mark.parametrize("w,d", [(32, 64), (256, 64), (128, 160), (64, 256)])
 def test_local_attention_raises_on_a_cuda_tensor_it_cannot_take(cuda, w, d):
-    q = torch.zeros(1, 2, 100, d, device=cuda)
-    with pytest.raises(ValueError):
-        la.local_attention(q, q, q, window_size=w)
+    # windows 32 and 256 were refused on the card; now only a head dim over 128 is
+    q = torch.from_numpy(np.random.default_rng(w + d).normal(size=(1, 2, 100, d))
+                         .astype(np.float32)).to(cuda)
+    if d > 128:
+        with pytest.raises(ValueError, match="up to 128"):
+            la.local_attention(q, q, q, window_size=w)
+        return
+    out = la.local_attention(q, q, q, window_size=w)
+    torch.testing.assert_close(out, la.local_attention_ref(q, q, q, window_size=w),
+                               rtol=2e-3, atol=2e-3)
 
 
 def test_codec_round_trip_card_matches_cpu(cuda):
@@ -947,10 +973,12 @@ def test_k2_issues_tensor_core_instructions(cuda):
     found = {}
     for mangled, ops in _build.sass_counts(fa.SOURCE_BWD).items():
         if "flash_bwd_dq_kernel" in mangled:
-            # two instantiations a dtype: with K5's cluster sum and without
-            key = ("bf16" if "bfloat16" in mangled else "fp32", "Lb1E" in mangled)
-            found[key] = (ops["HGMMA"], ops["UTMALDG"])
-    assert len(found) == 4 and all(all(ops) for ops in found.values()), found
+            # three instantiations a dtype (its second int argument): with K5's
+            # cluster sum (1), with a per-batch bias's dS (2) and without (0)
+            form = re.findall(r"Li(\d+)E", mangled)[1]
+            key = ("bf16" if "bfloat16" in mangled else "fp32", form)
+            found[key] = found.get(key, ()) + ((ops["HGMMA"], ops["UTMALDG"]),)
+    assert len(found) == 6 and all(all(all(x) for x in ops) for ops in found.values()), found
 
 
 @pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 1e-2, 1e-3),
@@ -1641,3 +1669,208 @@ def test_float32_kernels_at_head_dims_within_1e5_of_float64(cuda, d):
                         for a, r in zip((out, *grads[:3], local), (ref, *want[:3], lref))]
     assert max(errors["3xtf32"]) < 1e-5, errors
     assert min(errors["tf32"]) > 1e-5, errors
+
+
+# ---- the kernels' whole domain: K7 at every window, a per-batch (B, H, N, M)
+# bias in K1-K3 with its gradient, grids past 65535 blocks in y or z
+
+K7_WINDOWS = [8, 32, 48, 256]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-3), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("w", K7_WINDOWS)
+def test_local_attention_kernel_at_any_window(cuda, w, dtype, tol):
+    # LocalMHA's strided views, T not a multiple of w, with and without a key
+    # mask and a bias; row 0's keys 0 .. w + 4 masked, so its queries 0 .. w + 4
+    # have no key and take the mean of their own window's 2w value slots
+    t = 3 * w + 37
+    q, k, v = _strided_local(2, 4, t, dtype, cuda, seed=w)
+    assert all(la._readable(a) is a for a in (q, k, v))
+    mask = torch.ones(2, t, dtype=torch.bool, device=cuda)
+    mask[0, :w + 5] = False
+    mask[1, torch.from_numpy(np.random.default_rng(w).random(t) < 0.2).to(cuda)] = False
+    mask[1, 0] = True
+    bias = torch.from_numpy((0.3 * np.random.default_rng(w + 1).normal(size=(4, w, 2 * w)))
+                            .astype(np.float32)).to(cuda)
+    for kw in (dict(mask=mask, attn_bias=bias), dict(mask=mask), dict(attn_bias=bias), {}):
+        before = la.launches
+        out = la.local_attention(q, k, v, window_size=w, scale=8 / 64, **kw)
+        torch.cuda.synchronize()
+        assert la.launches == before + 1
+        ref = la.local_attention_ref(q, k, v, window_size=w, scale=8 / 64, **kw)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    out = la.local_attention(q, k, v, window_size=w, mask=mask).float()
+    vf = v[0].float()
+    torch.testing.assert_close(out[0, :, :w], (vf[:, :w].sum(1, keepdim=True) / (2 * w))
+                               .expand(-1, w, -1), rtol=tol, atol=tol)
+    torch.testing.assert_close(out[0, :, w:w + 5], (vf[:, :2 * w].sum(1, keepdim=True)
+                                                   / (2 * w)).expand(-1, 5, -1),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-3), (torch.bfloat16, 3e-2)])
+def test_local_attention_kernel_at_the_demo_codecs_shape(cuda, dtype, tol):
+    # examples/train_audiolm_demo.py's codec: 4 heads of 16 (padded to 32),
+    # window 32, 2 s at 200 frames a second, 8 clips; and its training batch
+    for b, t in ((8, 400), (2, 128)):
+        rng = np.random.default_rng(t)
+        qkv = torch.from_numpy(rng.normal(size=(b, t, 3 * 4 * 16)).astype(np.float32))
+        q, k, v = (a.reshape(b, t, 4, 16).transpose(1, 2) for a in qkv.to(cuda, dtype).chunk(3, -1))
+        before = la.launches
+        out = la.local_attention(q, k, v, window_size=32, scale=8 / 16)
+        torch.cuda.synchronize()
+        assert la.launches == before + 1 and out.shape == (b, 4, t, 16)
+        ref = la.local_attention_ref(q, k, v, window_size=32, scale=8 / 16)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+K7_ANY_F64_CASES = [(61, 8), (130, 32), (203, 48), (805, 256)]
+
+
+@pytest.mark.parametrize("t,w", K7_ANY_F64_CASES)
+def test_fp32_k7_holds_float64_to_1e5_at_any_window(cuda, t, w):
+    assert _k7_f64_error(cuda, t, w, True) <= 1e-5
+
+
+@pytest.mark.parametrize("t,w", K7_ANY_F64_CASES[1::2])
+def test_plain_tf32_build_fails_the_k7_float64_check_at_any_window(cuda, t, w):
+    with _build.built_with(("MMA_TF32_ONE_PASS",)):
+        assert _k7_f64_error(cuda, t, w, True) > 1e-5
+
+
+def _per_batch_inputs(cuda, dtype, b, h, hk, n, m, d=64, seed=50):
+    rng = np.random.default_rng(seed)
+
+    def arr(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.normal(size=shape)).astype(np.float32)).to(cuda)
+
+    q, g = arr(b, h, n, d).to(dtype), arr(b, h, n, d).to(dtype)
+    k, v = arr(b, hk, m, d).to(dtype), arr(b, hk, m, d).to(dtype)
+    bias = arr(b, h, n, m, scale=0.5)
+    mask = torch.ones(b, m, dtype=torch.bool, device=cuda)
+    mask[-1, (2 * m) // 3:] = False
+    return q, k, v, g, bias, mask
+
+
+PER_BATCH_CASES = [(2, 8, 1, 130, 130, True), (3, 4, 4, 37, 37, False), (2, 8, 2, 37, 70, True),
+                   (9, 2, 1, 64, 64, True), (2, 4, 1, 50, 17, False)]
+
+
+@pytest.mark.parametrize("dtype,tol,rtol,atol", [(torch.float32, 2e-3, 1e-2, 1e-3),
+                                                 (torch.bfloat16, 3e-2, 3e-2, 3e-2)])
+@pytest.mark.parametrize("b,h,hk,n,m,causal", PER_BATCH_CASES)
+def test_per_batch_bias_kernels_match_plain_version(cuda, b, h, hk, n, m, causal, dtype, tol,
+                                                    rtol, atol):
+    # K1, K2 (writing dbias = dS per batch row in its launch) and K3 with a
+    # (B, H, N, M) bias, MQA and not, N != M (causal at the bottom right),
+    # beside the plain versions; each launched once a call, no K4 or K5
+    q, k, v, g, bias, mask = _per_batch_inputs(cuda, dtype, b, h, hk, n, m)
+    kw = dict(bias=bias, key_mask=mask, causal=causal)
+    names = ("launches", "launches_dq", "launches_dkv", "launches_dtab", "launches_dbias",
+             "launches_dbias_per_batch")
+    before = [getattr(fa, x) for x in names]
+    out, lse = fa.flash_attention(q, k, v, **kw, return_lse=True)
+    grads = fa.flash_attention_bwd(q, k, v, None, mask, out, lse, g, bias=bias, causal=causal,
+                                   scale=64 ** -0.5)
+    torch.cuda.synchronize()
+    assert [getattr(fa, x) - c for x, c in zip(names, before)] == [1, 1, 1, 0, 0, 1]
+    ref, ref_lse = fa.flash_attention_ref(q, k, v, **kw, return_lse=True)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, ref_lse, rtol=2e-3, atol=2e-3)
+    want = fa.flash_attention_bwd_ref(q, k, v, None, mask, out, lse, g, bias=bias,
+                                      causal=causal, scale=64 ** -0.5)
+    for name, a, r in zip(("dq", "dk", "dv", "dbias"), grads, want):
+        assert a.dtype == r.dtype and a.shape == r.shape, name
+        torch.testing.assert_close(a.float(), r.float(), rtol=rtol, atol=atol, msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_per_batch_dbias_gives_the_same_bits_every_run(cuda, dtype):
+    q, k, v, g, bias, mask = _per_batch_inputs(cuda, dtype, 4, 8, 1, 300, 300)
+    out, lse = fa.flash_attention(q, k, v, bias=bias, key_mask=mask, causal=True,
+                                  return_lse=True)
+    runs = [fa.flash_attention_bwd(q, k, v, None, mask, out, lse, g, bias=bias, causal=True,
+                                   scale=64 ** -0.5) for _ in range(3)]
+    for run in runs[1:]:
+        for a, r in zip(run, runs[0]):
+            assert torch.equal(a, r)
+    assert runs[0][3].abs().max() > 0
+
+
+def test_per_batch_bias_through_the_transformer_card_matches_cpu(cuda):
+    # the port's Transformer with a (B, H, N, N) attn_bias: scoring and a
+    # gradient on the card (K1-K3) against the CPU
+    from audiolm_pytorch_tpu_torch.models.transformer import Transformer
+    torch.manual_seed(0)
+    cpu = Transformer(dim=64, depth=2, heads=4, dim_head=16, device="cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    rng = np.random.default_rng(60)
+    x = torch.from_numpy(rng.normal(size=(2, 90, 64)).astype(np.float32))
+    bias = torch.from_numpy((0.5 * rng.normal(size=(2, 4, 90, 90))).astype(np.float32))
+    # the loss <out, g>: the final LayerNorm makes |out|^2 all but constant
+    g = torch.from_numpy(rng.normal(size=(2, 90, 64)).astype(np.float32))
+    outs, grads = [], []
+    for model, dev in ((cpu, "cpu"), (card, cuda)):
+        xb = bias.to(dev).requires_grad_()
+        out = model(x.to(dev), attn_bias=xb)
+        grads.append(torch.autograd.grad((out * g.to(dev)).sum(), [xb, *model.parameters()],
+                                         allow_unused=True))
+        outs.append(out.detach().cpu())
+    torch.testing.assert_close(outs[1], outs[0], rtol=2e-3, atol=2e-3)
+    for a, r in zip(grads[1], grads[0]):
+        if r is not None:
+            torch.testing.assert_close(a.cpu(), r, rtol=1e-2, atol=1e-3)
+
+
+@pytest.mark.parametrize("b,h", [(1, 65600), (65600, 1)])
+def test_flash_kernels_past_the_65535_grid_limit(cuda, b, h):
+    # K2's heads (1 x 65600) and K3's b * hk (65600 x 1) past 65535, where
+    # their grids' y extents once stopped; K1 with them
+    rng = np.random.default_rng(b)
+    q = torch.from_numpy(rng.normal(size=(b, h, 64, 32)).astype(np.float32)).to(cuda)
+    k, v = (torch.from_numpy(rng.normal(size=(b, 1, 64, 32)).astype(np.float32)).to(cuda)
+            for _ in range(2))
+    g = torch.from_numpy(rng.normal(size=(b, h, 64, 32)).astype(np.float32)).to(cuda)
+    out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    grads = fa.flash_attention_bwd(q, k, v, None, None, out, lse, g, causal=True,
+                                   scale=32 ** -0.5)
+    ref = fa.flash_attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(out, ref, rtol=2e-3, atol=2e-3)
+    want = fa.flash_attention_bwd_ref(q, k, v, None, None, out, lse, g, causal=True,
+                                      scale=32 ** -0.5)
+    for a, r in zip(grads[:3], want[:3]):
+        torch.testing.assert_close(a, r, rtol=1e-2, atol=1e-3)
+
+
+@pytest.mark.parametrize("w", [32, 64])
+def test_local_attention_past_the_65535_grid_limit(cuda, w):
+    # T / 64 = 65537 query tiles, where the grid's y extent once stopped
+    t = 64 * 65536 + 64
+    rng = np.random.default_rng(w)
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, 1, t, 32)).astype(np.float32)).to(cuda)
+               for _ in range(3))
+    out = la.local_attention(q, k, v, window_size=w)
+    ref = la.local_attention_ref(q, k, v, window_size=w)
+    torch.testing.assert_close(out, ref, rtol=2e-3, atol=2e-3)
+
+
+def test_vq_kernel_past_the_65535_grid_limit(cuda):
+    # 65537 row tiles of a narrow codebook, where the grid's z extent once stopped
+    n = 64 * 65536 + 1
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.normal(size=(n, 8)).astype(np.float32)).to(cuda)
+    cb = torch.from_numpy(rng.normal(size=(16, 8)).astype(np.float32)).to(cuda)
+    got = vq.vq_nearest_code(x, cb)
+    want = vq.vq_nearest_code_ref(x, cb)
+    assert got.shape == want.shape == (n,)
+    # identical, but where the float64 scores of the two picks differ by under
+    # 1e-5 of the score's terms (the kernel sums in another order)
+    bad = (got != want).nonzero()[:, 0]
+    xd, ed = x[bad].double(), cb.double()
+
+    def score(idx):
+        e = ed[idx.long()]
+        return -2 * (xd * e).sum(-1) + e.square().sum(-1)
+
+    scale = xd.square().sum(-1) + ed.square().sum(-1).max()
+    assert ((score(got[bad]) - score(want[bad])).abs() <= 1e-5 * scale).all()

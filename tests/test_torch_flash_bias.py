@@ -133,3 +133,49 @@ def test_bias_arguments_the_wrapper_refuses():
         fa.flash_attention(q, k, v, bias=bias[:, :8], causal=True)
     with pytest.raises(ValueError, match="bias must be"):
         fa.flash_attention(q, k, v, bias=bias[:1], causal=True)
+
+
+def test_transformer_with_a_per_batch_attn_bias_matches_jax():
+    """The port's Transformer given a (B, H, N, N) `attn_bias` (a bias a batch
+    row, in place of the rel-pos bias) against JAX's with its flash path (the
+    Pallas forward in interpret mode, the chunked XLA backward): the output,
+    and the gradients of the input, the bias and every weight."""
+    from audiolm_pytorch_tpu.models import transformer as jtr
+
+    from audiolm_pytorch_tpu_torch.models import transformer as ptr
+    from audiolm_pytorch_tpu_torch.weights import state_dict_from_jax
+
+    from torch_port_util import jax_named, load_into, randomize_dynamic
+
+    rng = np.random.default_rng(21)
+    kw = dict(dim=32, depth=2, heads=2, dim_head=16, num_residual_streams=2)
+    jm = randomize_dynamic(jtr.Transformer(**kw, flash_attn=True, key=jax.random.PRNGKey(21)),
+                           rng, scale=0.1)
+    pm = load_into(ptr.Transformer(**kw, device="cpu"), jm)
+    b, n = 2, 40
+    x = rng.normal(size=(b, n, 32)).astype(np.float32)
+    bias = (0.5 * rng.normal(size=(b, 2, n, n))).astype(np.float32)
+    mask = np.ones((b, n), bool)
+    mask[1, 31:] = False
+    g = rng.normal(size=(b, n, 32)).astype(np.float32)
+
+    def jloss(m, x_, bias_):
+        return (m(x_, self_attn_mask=jnp.asarray(mask), attn_bias=bias_) * g).sum()
+
+    jout = jax.jit(lambda m, x_, bias_: m(x_, self_attn_mask=jnp.asarray(mask),
+                                          attn_bias=bias_))(jm, jnp.asarray(x), jnp.asarray(bias))
+    jgm, jgx, jgb = jax.jit(jax.grad(jloss, argnums=(0, 1, 2)))(jm, jnp.asarray(x),
+                                                                jnp.asarray(bias))
+    xs, bs = t(x).requires_grad_(), t(bias).requires_grad_()
+    out = pm(xs, self_attn_mask=t(mask), attn_bias=bs)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), **TOL)
+    params = dict(pm.named_parameters())
+    # the rel-pos MLP, replaced by the bias, gets no gradient (zeros in JAX)
+    grads = torch.autograd.grad((out * t(g)).sum(), [xs, bs, *params.values()],
+                                allow_unused=True)
+    np.testing.assert_allclose(grads[0].numpy(), np.asarray(jgx), **GRAD_TOL)
+    np.testing.assert_allclose(grads[1].numpy(), np.asarray(jgb), **GRAD_TOL)
+    want = state_dict_from_jax(jax_named(jgm))
+    for (name, p_), got in zip(params.items(), grads[2:]):
+        got = torch.zeros_like(p_) if got is None else got
+        np.testing.assert_allclose(got.numpy(), want[name].numpy(), **GRAD_TOL, err_msg=name)

@@ -64,7 +64,7 @@ def _port(q, k, v, mask, bias, w, **kw):
 @pytest.mark.parametrize("masked,biased", [(False, False), (True, False), (False, True),
                                            (True, True)])
 @pytest.mark.parametrize("n,w", [(16, 16), (100, 64), (128, 64), (300, 64), (100, 16),
-                                 (300, 16)])
+                                 (300, 16), (61, 8), (150, 32), (130, 48), (250, 96)])
 def test_plain_k7_matches_xla_and_pallas(n, w, masked, biased):
     rng = np.random.default_rng(n + w + 2 * masked + biased)
     q, k, v, mask, bias = _inputs(rng, 2, 2, n, 16, w, masked, biased)
@@ -145,7 +145,8 @@ def test_plain_k7_evaluates_float64_inputs_in_float64():
 
 
 @pytest.mark.parametrize("masked,biased", [(False, False), (True, True)])
-@pytest.mark.parametrize("n,w", [(64, 16), (100, 64)])
+@pytest.mark.parametrize("n,w", [(64, 16), (100, 64), (45, 8), (70, 32), (110, 48),
+                                 (150, 96)])
 def test_k7_gradients_match_jax(n, w, masked, biased):
     rng = np.random.default_rng(7 + n)
     q, k, v, mask, bias = _inputs(rng, 2, 2, n, 16, w, masked, biased)
@@ -166,6 +167,34 @@ def test_k7_gradients_match_jax(n, w, masked, biased):
     got = torch.autograd.grad(out, leaves, t(g))
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **GRAD_TOL)
+
+
+def _tile_keys(q0, t_, w):
+    """csrc/local_attn.cu's walk (k_lo, ntiles) for its block of queries
+    [q0, q0 + 63]: the first key, from the first row's look-back (none
+    before key 0), and the 64-key tiles up to the block's last query (none
+    at or past T)."""
+    k_lo = max(0, (q0 // w - 1) * w)
+    return k_lo, (min(q0 + 63, t_ - 1) - k_lo) // 64 + 1
+
+
+@pytest.mark.parametrize("w", [1, 2, 7, 8, 16, 31, 32, 48, 63, 64, 65, 96, 128, 160])
+def test_k7_tile_walk_visits_every_allowed_pair(w):
+    """Each 64-query block of the kernel visits the keys of its walk
+    (`_tile_keys`, the kernel's arithmetic): every pair the function allows
+    (the key at or before the query, in its window or the one before) lies
+    in them, and every visited tile holds a key some query of the block may
+    see. The GPU tests hold the kernel's own walk to the plain version."""
+    for t_ in (1, 7, 64, 65, 100, 129, 257, 400, 700):
+        pos = np.arange(t_)
+        lo = np.maximum(0, (pos // w - 1) * w)  # each query's first allowed key
+        for q0 in range(0, t_, 64):
+            k_lo, ntiles = _tile_keys(q0, t_, w)
+            rows = pos[q0:q0 + 64]
+            assert ntiles >= 1 and k_lo <= lo[rows].min() and k_lo + 64 * ntiles > rows.max()
+            for i in range(ntiles):  # no tile of keys that no row sees
+                k0 = k_lo + 64 * i
+                assert k0 < t_ and (lo[rows] <= k0 + 63).any() and (rows >= k0).any()
 
 
 @pytest.mark.parametrize("scale_base,invert", [(512.0, False), (8.0, True), (64.0, False)])
