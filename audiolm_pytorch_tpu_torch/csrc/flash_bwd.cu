@@ -146,8 +146,11 @@
 //       order (launches_dkv counts one call). No atomics anywhere: the same
 //       bits every run. The plan (cluster, chunks) is dkv_plan, which
 //       ops/kernels/flash_attention.py::dkv_plan states for the tests.
-// Head dims. Instantiated for D = 32, 64 and 128 (the wrapper zero-pads any
-// other D up to 128 into the next of them), on csrc/wgmma.cuh's boxes: a
+// Head dims. The native forms are instantiated for D = 32, 64 and 128 (the
+// wrapper zero-pads any other D up to 128 into the next of them); over 128
+// the column-sliced forms below take every D that is a multiple of 64 (any
+// other D zero-padded to the next one). The native forms sit on
+// csrc/wgmma.cuh's boxes: a
 // D-wide row is D * sizeof(T) / 128 boxes (a 32-wide bf16 row half of one,
 // read as zeros past the row's end), the products over D run D * sizeof(T)
 // / 32 k-steps, and those whose N index is D (dq += dS K, dV += P^T dO, dK
@@ -166,6 +169,29 @@
 // no overlap: right, and simple, not yet fast (PERF.md). The products are
 // the same, in the same order, as at the other head dims, so the sums keep
 // their fixed order and bits.
+//
+// Over D = 128 (flash_bwd_dq_wide_kernel, flash_bwd_dkv_wide_kernel). At D
+// = 256 K3's dk and dv would take 256 registers a thread in one warpgroup
+// and K2's Q, dO, K and V tiles with their small parts 512 KB. So a block
+// owns one 64-wide slice of its output's columns (dq, or dk and dv) and
+// keeps 16 x 64 strips of it a warp; S and dP (K2: rows queries; K3: S^T
+// and dP^T, rows keys) are summed over the depth 64 columns at a time, each
+// chunk's two operand tiles streamed by cp.async through a ring of two
+// stages with the slice's operands after them, on mma.sync (csrc/mma.cuh's
+// tc::Wide; 3xTF32 in float32, each chunk's product and each tile's dq, dk
+// or dv product from zero, added in float32). 4 warps, two blocks an SM.
+// One writer: only slice 0 of K2 writes the bias's gradient, so the sums
+// keep a fixed order: K4's partial sums as the native K2 forms them (its
+// skewed rows and delta slots after the ring) with the same second pass;
+// K5's batch sum over a cluster of the batch rows' slice-0 blocks, each
+// tile's dS added in rank order through batch_sum_rows between two cluster
+// barriers (atomics only where B has no divisor cluster holding it all, as
+// in the native form); the per-batch bias's dS written straight out. K3's
+// block walks every query head of its kv head and their query tiles in
+// order, no cluster and no query split: dk and dv written once, the same
+// bits every run. The price: each slice recomputes S and dP (D / 64 times
+// the native forms' products), and the operands are read again for each
+// tile (mostly from L2). Right first, not yet fast: PERF.md has its times.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1146,6 +1172,353 @@ __global__ void dkv_sum_kernel(const float* __restrict__ part, T* __restrict__ d
   }
 }
 
+// ---- Head dims over 128: the column-sliced forms of K2 and K3 (see the
+// note at the top) ----
+constexpr int WIDE_NT = 128;  // 4 warps, each a 16-row strip of the tile
+constexpr int WIDE_BLOCKS = 2;
+
+// the (2n-1, heads) table's entry of (qp, kp) times log2(e), 0 outside it
+__device__ __forceinline__ float tab_at(const float* tab, int qp, int kp, int n, int heads, int h) {
+  const int idx = qp - kp + n - 1;
+  return idx >= 0 && idx < 2 * n - 1 ? tc::LOG2E * tab[(size_t)idx * heads + h] : 0.f;
+}
+
+// K2: one block per (batch row, head, dq slice, 64-row query tile), batch
+// rows fastest (K5's cluster: consecutive blocks of one slice), the longest
+// causal rows first. Its ring items, a key tile's 2 D / 64 + 1 of them: the
+// chunks of (Q, K) for S = Q K^T, the chunks of (dO, V) for dP = dO V^T,
+// then K's slice for dq += dS K. The epilogue is K2's, each element's table
+// entry, key flag and bias read from device memory. Slice 0 alone writes
+// the bias's gradient: K4's partial sums (K2's skewed rows and delta slots
+// after the ring in shared memory, the same second pass), K5's batch sum
+// (dS into a tile after the ring, then the cluster's blocks add their tiles
+// in rank order through batch_sum_rows between two cluster barriers: no
+// atomics for B <= 8, as K2's), or the per-batch bias's dS.
+template <typename T, int DB>
+__global__ void __launch_bounds__(WIDE_NT, WIDE_BLOCKS)
+flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ g,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         const float* __restrict__ tab, const float* __restrict__ bias,
+                         const int8_t* __restrict__ kmask, T* __restrict__ dq,
+                         float* __restrict__ dpart, float* __restrict__ dbias, int bcount,
+                         int heads, int group, int n, int m, int d, float scale, int causal,
+                         int bias_batched) {
+  constexpr bool SUM = DB == DB_SUM, EACH = DB == DB_EACH;
+  using W = tc::Wide<T>;
+  constexpr int P = W::P, WC = tc::WC;
+  extern __shared__ __align__(16) unsigned char dq_wide_smem[];
+  auto X = [&](int s) { return reinterpret_cast<T*>(dq_wide_smem + s * W::STAGE); };
+  auto Y = [&](int s) { return reinterpret_cast<T*>(dq_wide_smem + s * W::STAGE + W::TILE); };
+  float* extra = reinterpret_cast<float*>(dq_wide_smem + W::RING);  // K4's or K5's buffers
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nch = d / WC;  // chunks of the depth, and slices of dq
+  const int b = blockIdx.x % bcount, h = blockIdx.x / bcount % heads;
+  const int slice = blockIdx.x / bcount / heads % nch;
+  const int nqt = (n + BQ - 1) / BQ, qt = blockIdx.x / bcount / heads / nch;
+  const int q0 = (nqt - 1 - qt) * BQ;  // the longest causal rows first
+  const size_t bh = (size_t)b * heads + h;
+  const int off = m - n;
+  const int kv_end = tc::causal_end(causal, q0 + BQ, off, m);
+  const int ntiles = (kv_end + BK - 1) / BK;
+  const int per = 2 * nch + 1, nitems = per * ntiles;
+  const bool lead = slice == 0;  // the one slice that writes the bias's gradient
+  const bool atomic = SUM && (int)cluster.num_blocks() < bcount;
+  float* out = SUM ? dbias + (size_t)h * n * m : EACH ? dbias + bh * n * m : nullptr;
+  const T* qb = q + bh * n * d;
+  const T* gb = g + bh * n * d;
+  const T* kb = k + bh / group * m * d;
+  const T* vb = v + bh / group * m * d;
+  auto issue = [&](int i) {
+    const int s = i & 1, c = i % per, k0 = i / per * BK;
+    if (c < nch) {
+      tc::cp_chunk<T, WIDE_NT>(X(s), qb, q0, n, c * WC, d);
+      tc::cp_chunk<T, WIDE_NT>(Y(s), kb, k0, m, c * WC, d);
+    } else if (c < 2 * nch) {
+      tc::cp_chunk<T, WIDE_NT>(X(s), gb, q0, n, (c - nch) * WC, d);
+      tc::cp_chunk<T, WIDE_NT>(Y(s), vb, k0, m, (c - nch) * WC, d);
+    } else {
+      tc::cp_chunk<T, WIDE_NT>(X(s), kb, k0, m, slice * WC, d);
+    }
+    tc::cp_async_commit();
+  };
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, gq = lane / 4, t = lane % 4;
+  const int rl[2] = {warp * 16 + gq, warp * 16 + gq + 8};  // this thread's rows in the tile
+  const float* biash = bias != nullptr ? bias + (bias_batched ? bh : h) * n * m : nullptr;
+  const float* brow[2] = {biash != nullptr && q0 + rl[0] < n ? biash + (size_t)(q0 + rl[0]) * m
+                                                             : nullptr,
+                          biash != nullptr && q0 + rl[1] < n ? biash + (size_t)(q0 + rl[1]) * m
+                                                             : nullptr};
+  float lse_r[2], dl_r[2];  // log2(e) lse (+inf where p = 0) and Delta
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    const int qp = q0 + rl[ri];
+    const float l = qp < n ? lse[bh * n + qp] : INFINITY;
+    lse_r[ri] = l > 0.5f * NEG ? tc::LOG2E * l : INFINITY;
+    dl_r[ri] = qp < n ? delta[bh * n + qp] : 0.f;
+  }
+  // K4, as in flash_bwd_dq_kernel: a strip's skewed dS rows, then the delta
+  // slots of tile it (two buffers), and the delta this thread owns
+  const bool k4 = lead && dpart != nullptr;
+  float* sk = extra + warp * 8 * SKP;
+  auto dsl = [&](int it) { return extra + BQ * SKP + (it & 1) * 4 * DSL; };
+  const int nkt = (m + BK - 1) / BK;
+  float* prow = k4 ? dpart + (bh * nqt + q0 / BQ) * (size_t)(BK * (nkt + 1)) : nullptr;
+  int a_cur = -1;
+  float a_sum = 0.f;
+  if (k4)
+    for (int i = tid; i < BQ * SKP + 2 * 4 * DSL; i += WIDE_NT) extra[i] = 0.f;
+  const float sl = scale * tc::LOG2E, one[2] = {1.f, 1.f};
+  float dqa[8][4], sc[8][4], ds[8][4];  // dq's slice; S; dP, then dS
+  tc::zero(dqa);
+  tc::zero(sc);
+  tc::zero(ds);
+  if (nitems > 0) issue(0);
+  for (int i = 0; i < nitems; ++i) {
+    tc::cp_async_wait_all();
+    __syncthreads();  // item i has landed; every warp is done with item i - 1's stage
+    if (i + 1 < nitems) issue(i + 1);
+    const int s = i & 1, c = i % per, it = i / per, k0 = it * BK;
+    if (c == 0) {
+      tc::zero(sc);
+      tc::zero(ds);
+    }
+    if (c < nch) {
+      tc::chunk_nk<T>(sc, X(s), Y(s));
+      continue;
+    }
+    if (c < 2 * nch) {
+      tc::chunk_nk<T>(ds, X(s), Y(s));
+      continue;
+    }
+    // p = 2^(y - log2(e) lse) by K2's masking rule, then dS = P (dP - Delta)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ri = e / 2, kp = k0 + 8 * j + 2 * t + (e & 1), qp = q0 + rl[ri];
+        float bb = 0.f;
+        if (tab != nullptr) bb = tab_at(tab, qp, kp, n, heads, h);
+        else if (brow[ri] != nullptr && kp < m) bb = tc::LOG2E * __ldg(brow[ri] + kp);
+        const float f = tc::key_flag(kmask, b, m, kp);
+        float y = fmaf(sc[j][e], sl, bb);
+        y = causal && tc::above(kp, qp, off) ? fminf(NEG, f) : y + f;
+        ds[j][e] = tc::ex2(y - lse_r[ri]) * (ds[j][e] - dl_r[ri]);
+      }
+    const float* dsf = &ds[0][0];  // flat: element 4j + e, as flash_bwd_dq_kernel's
+    if (k4) {
+      float* row = sk + gq * SKP + 2 * t - gq + 15;
+#pragma unroll
+      for (int j = -1; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          row[8 * j + e] = (j >= 0 ? dsf[4 * j + e] : 0.f)
+                           + (j + 1 < BK / 8 ? dsf[4 * j + 6 + e] : 0.f);
+      __syncwarp();
+      for (int x = lane; x < BK + 15; x += 32) {
+        float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+        for (int r = 0; r < 8; r += 2) {
+          sum0 += sk[r * SKP + x];
+          sum1 += sk[(r + 1) * SKP + x];
+        }
+        dsl(it)[warp * DSL + 48 - 16 * warp + x] = sum0 + sum1;
+      }
+    }
+    if (EACH && lead) {
+#pragma unroll
+      for (int ri = 0; ri < 2; ++ri) {
+        const int qp = q0 + rl[ri];
+        if (qp >= n) continue;
+        float* o = out + (size_t)qp * m + k0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int cc = 8 * j + 2 * t + e;
+            if (k0 + cc < m) o[cc] = ds[j][2 * ri + e];
+          }
+      }
+    }
+    if (SUM && lead) {
+      // K5: the tile's dS into shared memory, then every rank's share of
+      // the rows summed over the cluster in rank order
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int ri = 0; ri < 2; ++ri)
+          tc::store2(extra + ds_at(rl[ri], 8 * j + 2 * t), ds[j][2 * ri], ds[j][2 * ri + 1]);
+      tc::cluster_arrive();
+      tc::cluster_wait();
+      batch_sum_rows(cluster, extra, out, q0, k0, n, m, atomic, tid);
+      tc::cluster_arrive_relaxed();  // every rank's tile read before it is written again
+      tc::cluster_wait();
+    }
+    tc::add_tile<T, WC, 8>(dqa, ds, X(s), P, one);  // dq += dS K (the slice)
+    if (k4) {
+      __syncthreads();  // every strip's slots of this tile are in
+      const int a = k0 + ((tid - k0) & (DSL - 1));
+      if (a != a_cur) {
+        if (a_cur >= 0) prow[a_cur] = a_sum;
+        a_cur = a;
+        a_sum = 0.f;
+      }
+      const float* dd = dsl(it) + (a - k0);
+      a_sum += ((dd[0] + dd[DSL]) + dd[2 * DSL]) + dd[3 * DSL];
+    }
+  }
+  if (k4 && a_cur >= 0) prow[a_cur] = a_sum;
+  if (EACH && lead) {
+    // the keys past the last tile (above the causal diagonal): dS = 0
+    for (int r = 0; r < BQ && q0 + r < n; ++r)
+      for (int c = ntiles * BK + tid; c < m; c += WIDE_NT) out[(size_t)(q0 + r) * m + c] = 0.f;
+  }
+  if (SUM && lead && !atomic && kv_end < m) {
+    // K5: the keys past the causal diagonal, this rank's share of the rows
+    const int rank = (int)cluster.block_rank(), csize = (int)cluster.num_blocks();
+    const int r_hi = min((rank + 1) * BQ / csize, n - q0);
+    for (int r = rank * BQ / csize; r < r_hi; ++r) {
+      float* o = out + (size_t)(q0 + r) * m;
+      for (int c = kv_end + tid; c < m; c += WIDE_NT) o[c] = 0.f;
+    }
+  }
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    const int qp = q0 + rl[ri];
+    if (qp >= n) continue;
+    T* o = dq + (bh * n + qp) * d + slice * WC;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      tc::store2(o + 8 * j + 2 * t, dqa[j][2 * ri] * scale, dqa[j][2 * ri + 1] * scale);
+  }
+}
+
+// K3: one block per (b*hk + kv head, dk/dv slice, 64-key tile), kv heads
+// fastest. It walks every query head of its kv head and, in each, the query
+// tiles from the diagonal on, in that order; the ring items of a (head,
+// query tile), 2 D / 64 + 1 of them: the chunks of (K, Q) for S^T = K Q^T,
+// the chunks of (V, dO) for dP^T = V dO^T, then Q's and dO's slices for dK
+// += dS^T Q and dV += P^T dO. The epilogue is K3's, each element's lse,
+// Delta, table entry and bias read from device memory. No cluster, no
+// query split: each block writes its slice of dk and dv once, summed in a
+// fixed order, the same bits every run.
+template <typename T>
+__global__ void __launch_bounds__(WIDE_NT, WIDE_BLOCKS)
+flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const T* __restrict__ g,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          const float* __restrict__ tab, const float* __restrict__ bias,
+                          const int8_t* __restrict__ kmask, T* __restrict__ dk,
+                          T* __restrict__ dv, int bhk, int heads, int hk, int n, int m, int d,
+                          float scale, int causal, int bias_batched) {
+  using W = tc::Wide<T>;
+  constexpr int P = W::P, WC = tc::WC;
+  extern __shared__ __align__(16) unsigned char dkv_wide_smem[];
+  auto X = [&](int s) { return reinterpret_cast<T*>(dkv_wide_smem + s * W::STAGE); };
+  auto Y = [&](int s) { return reinterpret_cast<T*>(dkv_wide_smem + s * W::STAGE + W::TILE); };
+  const int nch = d / WC;  // chunks of the depth, and slices of dk and dv
+  const int kvh = blockIdx.x % bhk, slice = blockIdx.x / bhk % nch;
+  const int k0 = blockIdx.x / bhk / nch * BK;
+  const int b = kvh / hk, kh = kvh % hk, group = heads / hk;
+  // causal: the first query that sees key k0 is k0 - off (off = m - n >= 0)
+  const int off = m - n;
+  const int q_start = causal ? max(0, k0 - off) : 0;
+  const int nqt = q_start < n ? (n - q_start + BQ - 1) / BQ : 0;
+  const int per = 2 * nch + 1, nitems = per * group * nqt;
+  const T* kb = k + (size_t)kvh * m * d;
+  const T* vb = v + (size_t)kvh * m * d;
+  // item it: query head kh * group + it / nqt, its query tile it % nqt
+  auto plane = [&](int it) { return (size_t)b * heads + kh * group + it / nqt; };
+  auto qtile = [&](int it) { return q_start + it % nqt * BQ; };
+  auto issue = [&](int i) {
+    const int s = i & 1, c = i % per, it = i / per, q0 = qtile(it);
+    const T* qb = q + plane(it) * n * d;
+    const T* gb = g + plane(it) * n * d;
+    if (c < nch) {
+      tc::cp_chunk<T, WIDE_NT>(X(s), kb, k0, m, c * WC, d);
+      tc::cp_chunk<T, WIDE_NT>(Y(s), qb, q0, n, c * WC, d);
+    } else if (c < 2 * nch) {
+      tc::cp_chunk<T, WIDE_NT>(X(s), vb, k0, m, (c - nch) * WC, d);
+      tc::cp_chunk<T, WIDE_NT>(Y(s), gb, q0, n, (c - nch) * WC, d);
+    } else {
+      tc::cp_chunk<T, WIDE_NT>(X(s), qb, q0, n, slice * WC, d);
+      tc::cp_chunk<T, WIDE_NT>(Y(s), gb, q0, n, slice * WC, d);
+    }
+    tc::cp_async_commit();
+  };
+
+  const int tid = threadIdx.x, warp = tid / 32, gq = (tid % 32) / 4, t = tid % 4;
+  const int kl[2] = {warp * 16 + gq, warp * 16 + gq + 8};  // this thread's keys in the tile
+  const float fk[2] = {tc::key_flag(kmask, b, m, k0 + kl[0]), tc::key_flag(kmask, b, m, k0 + kl[1])};
+  const float sl = scale * tc::LOG2E, one[2] = {1.f, 1.f};
+  float dka[8][4], dva[8][4], st[8][4], dpt[8][4];  // S^T and dP^T: rows keys, columns queries
+  tc::zero(dka);
+  tc::zero(dva);
+  tc::zero(st);
+  tc::zero(dpt);
+  if (nitems > 0) issue(0);
+  for (int i = 0; i < nitems; ++i) {
+    tc::cp_async_wait_all();
+    __syncthreads();  // item i has landed; every warp is done with item i - 1's stage
+    if (i + 1 < nitems) issue(i + 1);
+    const int s = i & 1, c = i % per, it = i / per;
+    if (c == 0) {
+      tc::zero(st);
+      tc::zero(dpt);
+    }
+    if (c < nch) {
+      tc::chunk_nk<T>(st, X(s), Y(s));
+      continue;
+    }
+    if (c < 2 * nch) {
+      tc::chunk_nk<T>(dpt, X(s), Y(s));
+      continue;
+    }
+    const size_t bh = plane(it);
+    const int h = (int)(bh % heads), q0 = qtile(it);
+    const float* bh_bias =
+        bias != nullptr ? bias + ((bias_batched ? bh : (size_t)h) * n) * m : nullptr;
+    // p = 2^(y - log2(e) lse) by K3's masking rule, dS^T = P^T (dP^T - Delta)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const int qp = q0 + 8 * j + 2 * t + x;
+        const float l = qp < n ? lse[bh * n + qp] : INFINITY;
+        const float l2 = l > 0.5f * NEG ? tc::LOG2E * l : INFINITY;
+        const float dl = qp < n ? delta[bh * n + qp] : 0.f;
+#pragma unroll
+        for (int ri = 0; ri < 2; ++ri) {
+          const int kp = k0 + kl[ri], e = 2 * ri + x;
+          float bc = 0.f;
+          if (tab != nullptr) bc = tab_at(tab, qp, kp, n, heads, h);
+          else if (bh_bias != nullptr && qp < n && kp < m)
+            bc = tc::LOG2E * __ldg(bh_bias + (size_t)qp * m + kp);
+          float y = fmaf(st[j][e], sl, bc);
+          y = causal && tc::above(kp, qp, off) ? fminf(NEG, fk[ri]) : y + fk[ri];
+          const float p = tc::ex2(y - l2);
+          st[j][e] = p;
+          dpt[j][e] = p * (dpt[j][e] - dl);
+        }
+      }
+    tc::add_tile<T, WC, 8>(dva, st, Y(s), P, one);   // dV += P^T dO (the slice)
+    tc::add_tile<T, WC, 8>(dka, dpt, X(s), P, one);  // dK += dS^T Q (the slice)
+  }
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    const int kp = k0 + kl[ri];
+    if (kp >= m) continue;
+    const size_t o = ((size_t)kvh * m + kp) * d + slice * WC;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      tc::store2(dk + o + 8 * j + 2 * t, dka[j][2 * ri] * scale, dka[j][2 * ri + 1] * scale);
+      tc::store2(dv + o + 8 * j + 2 * t, dva[j][2 * ri], dva[j][2 * ri + 1]);
+    }
+  }
+}
+
 template <typename K>
 cudaError_t set_smem(K kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1350,6 +1723,96 @@ cudaError_t launch_dkv(const Args& a, const DkvPlan& plan, void* dk, void* dv) {
   return err != cudaSuccess ? err : freed;
 }
 
+// a head dim the column-sliced forms take: over 128, a multiple of their chunk
+bool wide_dim(int d) { return d > 128 && d % tc::WC == 0; }
+
+// the column-sliced K2's shared memory: the ring, then K4's or K5's buffers
+template <typename T>
+size_t dq_wide_smem(bool sum, bool dtab) {
+  using L = Dq<T, 64, false>;  // K4's and K5's buffers are every form's
+  return tc::Wide<T>::RING + (sum ? L::K5_BYTES : dtab ? L::K4_BYTES : 0);
+}
+
+// K2's column-sliced form; o2 as launch_dq's
+template <typename T, int DB>
+cudaError_t launch_dq_wide(const Args& a, int d, void* dq, void* o2, void* part) {
+  constexpr bool SUM = DB == DB_SUM;
+  const bool dtab = a.bias == nullptr && o2 != nullptr;
+  auto kernel = flash_bwd_dq_wide_kernel<T, DB>;
+  static unsigned sized = 0;  // the devices whose attribute is set, once per instantiation
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && (dev >= 32 || !(sized >> dev & 1))) {
+    err = set_smem(kernel, dq_wide_smem<T>(true, false) > dq_wide_smem<T>(false, true)
+                               ? dq_wide_smem<T>(true, false) : dq_wide_smem<T>(false, true));
+    if (err == cudaSuccess) sized |= 1u << dev;
+  }
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1] = {cluster_attr(SUM ? cluster_size(a.b) : 1)};
+  cudaLaunchConfig_t cfg = {};
+  err = grid_1d((long long)a.b * a.heads * (d / tc::WC) * ((a.n + BQ - 1) / BQ), &cfg.gridDim);
+  if (err != cudaSuccess) return err;
+  cfg.blockDim = dim3(WIDE_NT);
+  cfg.dynamicSmemBytes = dq_wide_smem<T>(SUM, dtab);
+  cfg.stream = a.stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.g), static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<const float*>(a.tab),
+      static_cast<const float*>(a.bias), static_cast<const int8_t*>(a.kmask), static_cast<T*>(dq),
+      static_cast<float*>(dtab ? part : nullptr),
+      static_cast<float*>(DB != DB_NONE ? o2 : nullptr), a.b, a.heads, a.heads / a.hk, a.n, a.m,
+      d, a.scale, a.causal, a.bias_batched);
+  if (err != cudaSuccess || !dtab) return err;
+  dim3 grid;
+  err = grid_1d((long long)(2 * a.n - 1 + NT_DTAB - 1) / NT_DTAB * a.heads, &grid);
+  if (err != cudaSuccess) return err;
+  dtab_sum_kernel<<<grid, NT_DTAB, 0, a.stream>>>(static_cast<const float*>(part),
+                                                  static_cast<float*>(o2), a.b, a.heads, a.n,
+                                                  a.m, a.causal);
+  return cudaGetLastError();
+}
+
+// K3's column-sliced form
+template <typename T>
+cudaError_t launch_dkv_wide(const Args& a, int d, void* dk, void* dv) {
+  auto kernel = flash_bwd_dkv_wide_kernel<T>;
+  static unsigned sized = 0;  // the devices whose attribute is set
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && (dev >= 32 || !(sized >> dev & 1))) {
+    err = set_smem(kernel, tc::Wide<T>::RING);
+    if (err == cudaSuccess) sized |= 1u << dev;
+  }
+  if (err != cudaSuccess) return err;
+  dim3 grid;
+  err = grid_1d((long long)a.b * a.hk * (d / tc::WC) * ((a.m + BK - 1) / BK), &grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, WIDE_NT, tc::Wide<T>::RING, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.g), static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<const float*>(a.tab),
+      static_cast<const float*>(a.bias), static_cast<const int8_t*>(a.kmask), static_cast<T*>(dk),
+      static_cast<T*>(dv), a.b * a.hk, a.heads, a.hk, a.n, a.m, d, a.scale, a.causal,
+      a.bias_batched);
+  return cudaGetLastError();
+}
+
+// which: as dispatch's, for a head dim the column-sliced forms take
+template <typename T>
+cudaError_t dispatch_wide(int which, int d, const Args& a, void* o1, void* o2, void* part) {
+  if (a.tab != nullptr && a.bias != nullptr) return cudaErrorInvalidValue;
+  if (which == 1) return launch_dkv_wide<T>(a, d, o1, o2);
+  if (o2 != nullptr && (a.tab == nullptr ? a.bias == nullptr : a.n != a.m || part == nullptr))
+    return cudaErrorInvalidValue;
+  if (a.bias != nullptr && o2 != nullptr)
+    return a.bias_batched ? launch_dq_wide<T, DB_EACH>(a, d, o1, o2, part)
+                          : launch_dq_wide<T, DB_SUM>(a, d, o1, o2, part);
+  return launch_dq_wide<T, DB_NONE>(a, d, o1, o2, part);
+}
+
 // which: 0 dq (and the bias's gradient in o2 when not null), 1 dk/dv
 template <typename T, int D>
 cudaError_t dispatch(int which, const Args& a, void* o1, void* o2, void* part) {
@@ -1372,6 +1835,7 @@ cudaError_t dispatch(int which, const Args& a, void* o1, void* o2, void* part) {
 
 template <typename T>
 cudaError_t dispatch_dim(int which, int d, const Args& a, void* o1, void* o2, void* part) {
+  if (wide_dim(d)) return dispatch_wide<T>(which, d, a, o1, o2, part);
   switch (d) {
     case 32: return dispatch<T, 32>(which, a, o1, o2, part);
     case 64: return dispatch<T, 64>(which, a, o1, o2, part);
@@ -1393,7 +1857,8 @@ int run(int which, const void* q, const void* k, const void* v, const void* g,
 
 }  // namespace
 
-// q, g (b*heads, n, d); k, v (b*hk, m, d), d in 32, 64, 128, in one dtype
+// q, g (b*heads, n, d); k, v (b*hk, m, d), d in 32, 64, 128 or over 128 a
+// multiple of 64, in one dtype
 // (0 float32, 1 bfloat16); lse, delta (b*heads, n) float32; tab (2n-1, heads) float32 or
 // null; bias float32 or null, at most one of tab and bias: (heads, n, m)
 // shared over the batch, or with bias_batched (b, heads, n, m); kmask (b,
@@ -1441,7 +1906,11 @@ extern "C" int flash_dq_plan(int b, int heads, int hk, int n, int m, int d, int 
   if (hk <= 0 || heads % hk || b <= 0 || n <= 0 || m <= 0 || (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
   DqPlan plan;
-  switch (d * 2 + dtype) {
+  if (wide_dim(d)) {  // the column-sliced form: K5's cluster, two stages
+    const size_t smem = dtype == 0 ? dq_wide_smem<float>(sum != 0, sum == 0)
+                                   : dq_wide_smem<__nv_bfloat16>(sum != 0, sum == 0);
+    plan = {sum ? cluster_size(b) : 1, 2, (int)smem, WIDE_BLOCKS};
+  } else switch (d * 2 + dtype) {
     case 64: plan = dq_plan<float, 32>(b, sum != 0); break;
     case 65: plan = dq_plan<__nv_bfloat16, 32>(b, sum != 0); break;
     case 128: plan = dq_plan<float, 64>(b, sum != 0); break;
@@ -1465,6 +1934,13 @@ extern "C" int flash_dq_plan(int b, int heads, int hk, int n, int m, int d, int 
 extern "C" int flash_dkv_plan(int b, int heads, int hk, int n, int m, int d, int dtype,
                               int* out) {
   if (hk <= 0 || heads % hk || (dtype != 0 && dtype != 1)) return cudaErrorInvalidValue;
+  if (wide_dim(d)) {  // the column-sliced form: no cluster, no query chunks, two stages
+    const int shape[6] = {1, 1, 1, 2,
+                          (int)(dtype == 0 ? tc::Wide<float>::RING
+                                           : tc::Wide<__nv_bfloat16>::RING), WIDE_BLOCKS};
+    for (int i = 0; i < 6; ++i) out[i] = shape[i];
+    return cudaSuccess;
+  }
   const DkvPlan plan = dkv_plan(dtype == 0, b, heads, hk, n, m, d);
   switch (d * 2 + dtype) {
     case 64: dkv_shape<float, 32>(plan.two, out + 3); break;

@@ -61,8 +61,10 @@
 // and the bias blocks fill ~200 KB), each tile's product from zero and
 // added on the CUDA cores (tc::add_tile's reason).
 //
-// Head dims. Instantiated for D = 32, 64 and 128 (the wrapper zero-pads any
-// other D up to 128 into the next of them). A D-wide row is D * sizeof(T) /
+// Head dims. The native form is instantiated for D = 32, 64 and 128 (the
+// wrapper zero-pads any other D up to 128 into the next of them); over 128
+// the column-sliced form below takes every D that is a multiple of 64 (the
+// wrapper zero-pads any other D to the next one). A D-wide row is D * sizeof(T) /
 // 128 boxes of csrc/wgmma.cuh's 128-byte swizzle (a 32-wide bf16 row half
 // of one, its other half read as zeros past the row's end), S = Q K^T runs
 // over D * sizeof(T) / 32 k-steps, and P V one product a 64-column box. At
@@ -73,6 +75,20 @@
 // one stage, and no setmaxnreg (255 registers each), its ring ordering a
 // tile's split before the next tile's load. Simple, not yet fast: see
 // PERF.md.
+//
+// Over D = 128 (flash_fwd_wide_kernel). At D = 256 Q alone with its tf32
+// small parts is 128 KB, a stage of K and V 256 KB, and O's 64 x D
+// accumulator 128 registers a thread: neither the tiles nor the accumulator
+// of the native form fit. So a block owns one 64-wide slice of the output's
+// columns and keeps a 16 x 64 strip of O a warp; S = Q K^T is summed over
+// the depth 64 columns at a time, each chunk's Q and K tiles (64 x 64, a
+// pitch of 64 + 16 bytes) streamed by cp.async through a ring of two stages
+// with V's slice after them, on mma.sync (csrc/mma.cuh's tc::Wide,
+// chunk_nk, add_tile: 3xTF32 in float32, each chunk's product from zero).
+// 4 warps, 68 KB (float32) or 36 KB (bf16), two blocks an SM, any D. Its
+// price: every slice recomputes S, D / 64 times the native form's S
+// products, and Q is read again for each key tile (mostly from L2). Slice 0
+// alone writes lse. Right first, not yet fast: PERF.md has its times.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -431,6 +447,164 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
   }
 }
 
+// ---- Head dims over 128: the column-sliced form (see the note at the top) ----
+constexpr int WIDE_NT = 128;  // 4 warps, each 16 query rows
+constexpr int WIDE_BLOCKS = 2;
+
+// One block per (b*h, output slice, 64-query tile), on a one-dimensional
+// grid, the longest causal rows first. Its ring items, a key tile's D / 64 +
+// 1 of them: the chunks of (Q, K) for S = Q K^T, then V's slice for O += P
+// V. The masking rule is K1's, each element's table entry, key flag and
+// (H, N, M) bias read from device memory (L1 and L2) in the epilogue. Every
+// slice forms the same S and softmax; slice 0 alone writes lse.
+template <typename T>
+__global__ void __launch_bounds__(WIDE_NT, WIDE_BLOCKS)
+flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                      const float* __restrict__ tab, const float* __restrict__ bias,
+                      const int8_t* __restrict__ kmask, T* __restrict__ out,
+                      float* __restrict__ lse, int bh_count, int heads, int group, int n, int m,
+                      int d, float scale, int causal, int bias_batched) {
+  using W = tc::Wide<T>;
+  constexpr int P = W::P, WC = tc::WC;
+  extern __shared__ __align__(16) unsigned char fwd_wide_smem[];
+  auto X = [&](int s) { return reinterpret_cast<T*>(fwd_wide_smem + s * W::STAGE); };
+  auto Y = [&](int s) { return reinterpret_cast<T*>(fwd_wide_smem + s * W::STAGE + W::TILE); };
+  const int nch = d / WC;  // chunks of the depth, and slices of the output
+  const int bh = blockIdx.x % bh_count, slice = blockIdx.x / bh_count % nch;
+  const int qt = blockIdx.x / bh_count / nch;
+  const int q0 = ((n + BQ - 1) / BQ - 1 - qt) * BQ;  // the longest causal rows first
+  const int h = bh % heads, b = bh / heads;
+  const float* biash = bias != nullptr ? bias + (size_t)(bias_batched ? bh : h) * n * m : nullptr;
+  const int off = m - n;
+  const int kv_end = tc::causal_end(causal, q0 + BQ, off, m);
+  const int ntiles = (kv_end + BK - 1) / BK;
+  const int per = nch + 1, nitems = per * ntiles;
+  const T* qb = q + (size_t)bh * n * d;
+  const T* kb = k + (size_t)(bh / group) * m * d;
+  const T* vb = v + (size_t)(bh / group) * m * d;
+  auto issue = [&](int i) {
+    const int s = i & 1, c = i % per, k0 = i / per * BK;
+    if (c < nch) {
+      tc::cp_chunk<T, WIDE_NT>(X(s), qb, q0, n, c * WC, d);
+      tc::cp_chunk<T, WIDE_NT>(Y(s), kb, k0, m, c * WC, d);
+    } else {
+      tc::cp_chunk<T, WIDE_NT>(X(s), vb, k0, m, slice * WC, d);
+    }
+    tc::cp_async_commit();
+  };
+
+  const int tid = threadIdx.x, warp = tid / 32, g = (tid % 32) / 4, t = tid % 4;
+  const int rl[2] = {warp * 16 + g, warp * 16 + g + 8};  // this thread's rows in the tile
+  const float* brow[2] = {biash != nullptr && q0 + rl[0] < n ? biash + (size_t)(q0 + rl[0]) * m
+                                                             : nullptr,
+                          biash != nullptr && q0 + rl[1] < n ? biash + (size_t)(q0 + rl[1]) * m
+                                                             : nullptr};
+  const float sl = scale * tc::LOG2E;
+  float m_i[2] = {NEG, NEG}, l_i[2] = {0.f, 0.f};
+  float o[8][4], sc[8][4];
+  tc::zero(o);
+  tc::zero(sc);
+  if (nitems > 0) issue(0);
+  for (int i = 0; i < nitems; ++i) {
+    tc::cp_async_wait_all();
+    __syncthreads();  // item i has landed; every warp is done with item i - 1's stage
+    if (i + 1 < nitems) issue(i + 1);
+    const int s = i & 1, c = i % per, k0 = i / per * BK;
+    if (c == 0) tc::zero(sc);
+    if (c < nch) {
+      tc::chunk_nk<T>(sc, X(s), Y(s));
+      continue;
+    }
+    // the scores in base-2 units by K1's masking rule (tc::score): the
+    // key's flag added (y + NEG rounds to NEG), NEG above the diagonal
+    // unless the flag is -inf
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ri = e / 2, kp = k0 + 8 * j + 2 * t + (e & 1), qp = q0 + rl[ri];
+        float bb = 0.f;
+        if (tab != nullptr) {
+          const int idx = qp - kp + n - 1;
+          bb = idx >= 0 && idx < 2 * n - 1 ? tc::LOG2E * tab[(size_t)idx * heads + h] : 0.f;
+        } else if (brow[ri] != nullptr && kp < m) {
+          bb = tc::LOG2E * __ldg(brow[ri] + kp);
+        }
+        const float f = tc::key_flag(kmask, b, m, kp);
+        float y = fmaf(sc[j][e], sl, bb);
+        y = causal && tc::above(kp, qp, off) ? fminf(NEG, f) : y + f;
+        sc[j][e] = y;
+        mx[ri] = fmaxf(mx[ri], y);
+      }
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri) {
+      mx[ri] = fmaxf(mx[ri], __shfl_xor_sync(0xffffffffu, mx[ri], 1));
+      mx[ri] = fmaxf(mx[ri], __shfl_xor_sync(0xffffffffu, mx[ri], 2));
+      const float m_new = fmaxf(m_i[ri], mx[ri]);
+      alpha[ri] = tc::ex2(m_i[ri] - m_new);
+      m_i[ri] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = tc::ex2(sc[j][e] - m_i[e / 2]);
+        sc[j][e] = p;
+        rs[e / 2] += p;
+      }
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri) {
+      rs[ri] += __shfl_xor_sync(0xffffffffu, rs[ri], 1);
+      rs[ri] += __shfl_xor_sync(0xffffffffu, rs[ri], 2);
+      l_i[ri] = l_i[ri] * alpha[ri] + rs[ri];
+    }
+    tc::add_tile<T, WC, 8>(o, sc, X(s), P, alpha);  // O = O * alpha + P V (the slice)
+  }
+
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    const int qp = q0 + rl[ri];
+    if (qp >= n) continue;
+    const float l = l_i[ri], inv = 1.f / (l == 0.f ? 1.f : l);
+    T* orow = out + ((size_t)bh * n + qp) * d + slice * WC;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      tc::store2(orow + 8 * j + 2 * t, o[j][2 * ri] * inv, o[j][2 * ri + 1] * inv);
+    if (slice == 0 && t == 0)
+      lse[(size_t)bh * n + qp] = (m_i[ri] == NEG ? NEG : m_i[ri] * LN2) + logf(l == 0.f ? 1.f : l);
+  }
+}
+
+template <typename T>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, const void* tab,
+                        const void* bias, const void* kmask, void* out, void* lse, int bh,
+                        int heads, int group, int n, int m, int d, float scale, int causal,
+                        int bias_batched, cudaStream_t stream) {
+  using W = tc::Wide<T>;
+  static unsigned sized = 0;  // the devices whose attribute is set
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && (dev >= 32 || !(sized >> dev & 1))) {
+    err = cudaFuncSetAttribute(flash_fwd_wide_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)W::RING);
+    if (err == cudaSuccess) sized |= 1u << dev;
+  }
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)bh * (d / tc::WC) * ((n + BQ - 1) / BQ);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;  // the grid's x limit, 2^31 - 1
+  flash_fwd_wide_kernel<T><<<(unsigned)blocks, WIDE_NT, W::RING, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const float*>(tab), static_cast<const float*>(bias),
+      static_cast<const int8_t*>(kmask), static_cast<T*>(out), static_cast<float*>(lse), bh,
+      heads, group, n, m, d, scale, causal, bias_batched);
+  return cudaGetLastError();
+}
+
+// a head dim the column-sliced form takes: over 128, a multiple of its chunk
+bool wide_dim(int d) { return d > 128 && d % tc::WC == 0; }
+
 // two consumer warpgroups a block (fwd_plan in ops/kernels/flash_attention.py);
 // at D = 128 one shape a dtype: two in bf16, one in float32
 bool fwd_two(bool f32, int bh, int n, int m, int d) {
@@ -486,6 +660,9 @@ cudaError_t launch_dim(int d, const void* q, const void* k, const void* v, const
                        const void* bias, const void* kmask, void* out, void* lse, int bh,
                        int heads, int group, int n, int m, float scale, int causal,
                        int bias_batched, cudaStream_t stream) {
+  if (wide_dim(d))
+    return launch_wide<T>(q, k, v, tab, bias, kmask, out, lse, bh, heads, group, n, m, d, scale,
+                          causal, bias_batched, stream);
   const bool two = fwd_two(sizeof(T) == 4, bh, n, m, d);
   switch (d) {
     case 32:
@@ -519,7 +696,8 @@ void fwd_plan_of(bool two, int* out) {
 
 }  // namespace
 
-// q (bh, n, d); k, v (bh / group, m, d), d in 32, 64, 128; tab (2n-1, heads)
+// q (bh, n, d); k, v (bh / group, m, d), d in 32, 64, 128 or over 128 a
+// multiple of 64; tab (2n-1, heads)
 // float32 or null; bias float32 or null, at most one of the two: (heads,
 // n, m) shared over the batch, or with bias_batched (bh / heads, heads, n,
 // m); kmask (bh / heads, m) int8 or null; out (bh, n, d) in q's type; lse
@@ -549,6 +727,13 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void
 // fwd_plan mirrors it)
 extern "C" int flash_fwd_plan(int bh, int n, int m, int d, int dtype, int* out) {
   if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
+  if (wide_dim(d)) {  // the column-sliced form: one consumer of the ring, two stages
+    out[0] = 1;
+    out[1] = 2;
+    out[2] = (int)(dtype == 0 ? tc::Wide<float>::RING : tc::Wide<__nv_bfloat16>::RING);
+    out[3] = WIDE_BLOCKS;
+    return cudaSuccess;
+  }
   const bool two = fwd_two(dtype == 0, bh, n, m, d);
   switch (d * 2 + dtype) {
     case 64: fwd_plan_of<float, 32>(two, out); break;

@@ -59,7 +59,16 @@
 // to 128 into the next of them); in float32 at D = 128 Q's 3xTF32 fragments
 // (128 registers a thread) would not fit beside O's, so Q stays in a tile of
 // its own in shared memory and is read at each k-step, and O += P V runs 64
-// columns at a time.
+// columns at a time. Over D = 128 the column-sliced form
+// (local_attn_wide_kernel) takes every D that is a multiple of 64 (any other
+// D zero-padded to the next one): in float32 at D = 256 two stages of K and
+// V tiles and Q's would take ~330 KB. A block owns one 64-wide slice of the
+// output, S = Q K^T is summed over the depth 64 columns at a time (Q's and
+// K's chunks streamed by cp.async through a ring of two stages, then V's
+// slice; csrc/mma.cuh's tc::Wide), each row reads its key flag and bias
+// element from device memory, and the keyless rows' window sums are taken in
+// the slice's columns (65 windows x 64 floats fit the ring). Each slice
+// recomputes S: D / 64 times the products of one pass.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -353,13 +362,180 @@ cudaError_t launch_form(const void* q, const void* k, const void* v, const void*
 #endif
 }
 
+// ---- Head dims over 128: the column-sliced form (see the note at the top) ----
+//
+// One block per (b*h, output slice, 64-query tile), kv heads fastest, of 4
+// warps. Its ring items, a key tile's D / 64 + 1 of them: the chunks of
+// (Q, K) for S = Q K^T, then V's slice for O += P V, through csrc/mma.cuh's
+// column-sliced tiles (tc::Wide). K7's rule as above, for any window: each
+// row tests its own window's first key (where w is a multiple of 64 that
+// test always passes), and reads its bias element and key flag from device
+// memory. A row with no allowed key takes the mean of its window's value
+// slots in its slice's columns, from the sums of those columns.
+template <typename T>
+__global__ void __launch_bounds__(NT, 2)
+local_attn_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                       const float* __restrict__ bias, const int8_t* __restrict__ kmask,
+                       T* __restrict__ out, Strides sq, Strides sk, Strides sv, Strides so,
+                       int bh_count, int heads, int t, int w, int d, float scale) {
+  using W = tc::Wide<T>;
+  constexpr int P = W::P, WC = tc::WC;
+  extern __shared__ __align__(16) unsigned char wide_smem[];
+  auto X = [&](int s) { return reinterpret_cast<T*>(wide_smem + s * W::STAGE); };
+  auto Y = [&](int s) { return reinterpret_cast<T*>(wide_smem + s * W::STAGE + W::TILE); };
+  const int nch = d / WC;  // chunks of the depth, and slices of the output
+  const int bh = blockIdx.x % bh_count, slice = blockIdx.x / bh_count % nch;
+  const int h = bh % heads, b = bh / heads;
+  const int q0 = blockIdx.x / bh_count / nch * BQ;  // first query of the tile
+  const int win0 = q0 / w;
+  const int tid = threadIdx.x, warp = tid / 32, g = (tid % 32) / 4, t4 = tid % 4;
+  const T* qb = q + b * sq.b + h * sq.h;
+  const T* kb = k + b * sk.b + h * sk.h;
+  const T* vb = v + b * sv.b + h * sv.h;
+  const float* biash = bias != nullptr ? bias + (size_t)h * w * 2 * w : nullptr;
+  const int k_lo = max(0, (win0 - 1) * w);
+  const int k_hi = min(q0 + BQ - 1, t - 1);
+  const int ntiles = (k_hi - k_lo) / BK + 1;  // k_hi >= k_lo: q0 < t
+  const int per = nch + 1, nitems = per * ntiles;
+  auto issue = [&](int i) {
+    const int s = i & 1, c = i % per, kp0 = k_lo + i / per * BK;
+    if (c < nch) {
+      tc::cp_chunk<T, NT>(X(s), qb, q0, t, c * WC, sq.t);
+      tc::cp_chunk<T, NT>(Y(s), kb, kp0, t, c * WC, sk.t);
+    } else {
+      tc::cp_chunk<T, NT>(X(s), vb, kp0, t, slice * WC, sv.t);
+    }
+    tc::cp_async_commit();
+  };
+
+  const int rl[2] = {warp * 16 + g, warp * 16 + g + 8};  // this thread's rows in the tile
+  int rwin[2], rfirst[2];  // each row's window, and the first key of its look-back
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    rwin[ri] = (q0 + rl[ri]) / w;
+    rfirst[ri] = (rwin[ri] - 1) * w;
+  }
+  float m_i[2] = {tc::NEG, tc::NEG}, l_i[2] = {0.f, 0.f};
+  float o[8][4], sc[8][4];
+  tc::zero(o);
+  tc::zero(sc);
+  issue(0);
+  for (int i = 0; i < nitems; ++i) {
+    tc::cp_async_wait_all();
+    __syncthreads();  // item i has landed; every warp is done with item i - 1's stage
+    if (i + 1 < nitems) issue(i + 1);
+    const int s = i & 1, c = i % per, kp0 = k_lo + i / per * BK;
+    if (c == 0) tc::zero(sc);
+    if (c < nch) {
+      tc::chunk_nk<T>(sc, X(s), Y(s));
+      continue;
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ri = e / 2, kp = kp0 + 8 * j + 2 * t4 + (e & 1), qp = q0 + rl[ri];
+        // key kp is allowed for query qp iff it is a real, unmasked key at or
+        // before the query and at or after its look-back's first key
+        const bool ok = kp < t && (kmask == nullptr || kmask[(size_t)b * t + kp] != 0)
+                        && kp <= qp && kp >= rfirst[ri];
+        float bb = 0.f;
+        if (ok && biash != nullptr)
+          bb = biash[(size_t)(qp - rwin[ri] * w) * 2 * w + kp - rfirst[ri]];
+        const float x = ok ? fmaf(sc[j][e], scale, bb) : MASKED;
+        sc[j][e] = x;
+        mx[ri] = fmaxf(mx[ri], x);
+      }
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri) {
+      mx[ri] = fmaxf(mx[ri], __shfl_xor_sync(0xffffffffu, mx[ri], 1));
+      mx[ri] = fmaxf(mx[ri], __shfl_xor_sync(0xffffffffu, mx[ri], 2));
+      const float m_new = fmaxf(m_i[ri], mx[ri]);
+      alpha[ri] = tc::exp_rel(m_i[ri], m_new);
+      m_i[ri] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = tc::exp_rel(sc[j][e], m_i[e / 2]);
+        sc[j][e] = p;
+        rs[e / 2] += p;
+      }
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri) {
+      rs[ri] += __shfl_xor_sync(0xffffffffu, rs[ri], 1);
+      rs[ri] += __shfl_xor_sync(0xffffffffu, rs[ri], 2);
+      l_i[ri] = l_i[ri] * alpha[ri] + rs[ri];
+    }
+    tc::add_tile<T, WC, 8>(o, sc, X(s), P, alpha);  // O = O * alpha + P V (the slice)
+  }
+
+  // rows with no allowed key: the mean of their window's 2w value slots in
+  // this slice's columns (wsum[i]: window wl + i's sums, in the ring)
+  bool empty[2];
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) empty[ri] = q0 + rl[ri] < t && !(m_i[ri] > MASKED);
+  float* wsum = reinterpret_cast<float*>(wide_smem);  // [windows][WC]
+  const int wl = win0 - 1;
+  if (__syncthreads_or(empty[0] || empty[1])) {
+    const int nwin = k_hi / w - wl + 1;
+    for (int i = tid; i < nwin * WC; i += NT) {
+      const int col = slice * WC + i % WC, wi = i / WC;
+      float sum = 0.f;
+      for (int kp = max(0, (wl + wi) * w); kp < min((wl + wi + 1) * w, t); ++kp)
+        sum += to_f(vb[kp * sv.t + col]);
+      wsum[i] = sum;
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    const int qp = q0 + rl[ri];
+    if (qp >= t) continue;
+    const float inv = 1.f / l_i[ri];
+    T* orow = out + b * so.b + h * so.h + qp * so.t + slice * WC;
+    const float* prev = wsum + (rwin[ri] - 1 - wl) * WC;  // its look-back's sums, then its own
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = 8 * j + 2 * t4;
+      if (empty[ri])
+        tc::store2(orow + c, (prev[c] + prev[WC + c]) / (2 * w),
+                   (prev[c + 1] + prev[WC + c + 1]) / (2 * w));
+      else tc::store2(orow + c, o[j][2 * ri] * inv, o[j][2 * ri + 1] * inv);
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, const void* bias,
+                        const void* kmask, void* out, const Strides (&st)[4], int bh, int heads,
+                        int t, int w, int d, float scale, cudaStream_t stream) {
+  using W = tc::Wide<T>;
+  static_assert(MAX_WINDOWS * tc::WC * sizeof(float) <= W::RING, "the windows' sums fit");
+  auto kernel = local_attn_wide_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)W::RING);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)bh * (d / tc::WC) * ((t + BQ - 1) / BQ);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;  // the grid's x limit, 2^31 - 1
+  kernel<<<(unsigned)blocks, NT, W::RING, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const float*>(bias), static_cast<const int8_t*>(kmask), static_cast<T*>(out),
+      st[0], st[1], st[2], st[3], bh, heads, t, w, d, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // q, k, v, out (bh / heads, heads, t, d) in one type, each with element
 // strides (batch, head, time) in `strides` (q's three, then k's, v's and
 // out's), the last dimension contiguous, rows 16-byte aligned; bias (heads,
 // w, 2w) float32 or null; kmask (bh / heads, t) int8 or null. Any window
-// w >= 1 and any t >= 1, d in {32, 64, 128}. dtype 0 = float32, 1 =
+// w >= 1 and any t >= 1, d in {32, 64, 128} or over 128 a multiple of 64.
+// dtype 0 = float32, 1 =
 // bfloat16. Returns a cudaError_t.
 extern "C" int local_attn_fwd(const void* q, const void* k, const void* v, const void* bias,
                               const void* kmask, void* out, const long long* strides, int bh,
@@ -370,6 +546,12 @@ extern "C" int local_attn_fwd(const void* q, const void* k, const void* v, const
   Strides st[4];
   for (int i = 0; i < 4; ++i)
     st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  if (d > 128 && d % tc::WC == 0)  // the column-sliced form
+    return dtype == 0 ? launch_wide<float>(q, k, v, bias, kmask, out, st, bh, heads, t, w, d,
+                                           scale, s)
+         : dtype == 1 ? launch_wide<__nv_bfloat16>(q, k, v, bias, kmask, out, st, bh, heads, t,
+                                                   w, d, scale, s)
+                      : cudaErrorInvalidValue;
   switch (d * 2 + dtype) {
     case 64: return launch_form<float, 32>(q, k, v, bias, kmask, out, st, bh, heads, t, w, scale, s);
     case 65:

@@ -506,6 +506,57 @@ __device__ __forceinline__ void store_acc(float* s, int pitch, const float (&acc
   }
 }
 
+// ---- Head dims over 128: the column-sliced form's tiles. ----
+//
+// Over D = 128 the flash kernels (K1, K2, K3) and K7 run a form of their
+// own, for any D that is a multiple of WC (the wrappers zero-pad another D
+// to the next one). Its block owns one WC-wide slice of the output's columns
+// and recomputes the score products (S, and K2's and K3's dP) over the whole
+// depth, WC columns at a time: each chunk of a product over D is a pair of
+// 64 x WC operand tiles, and the slice's own operand a tile as well, all
+// streamed through one ring of two stages of two tiles by cp.async. No tile
+// grows with D, so every D takes the same shared memory; the price is S (and
+// dP) computed once a slice, D / WC times in all.
+constexpr int WC = 64;  // a chunk's depth, and a slice's width
+
+template <typename T>
+struct Wide {
+  static constexpr int P = pitch<T, WC>();  // a tile's row pitch, in elements
+  static constexpr size_t TILE = (size_t)64 * P * sizeof(T);
+  static constexpr size_t STAGE = 2 * TILE;  // the ring item's two tiles
+  static constexpr size_t RING = 2 * STAGE;
+};
+
+// acc (this warp's 16 x 64 strip) += A B^T over one WC-deep chunk, A and B
+// 64 x WC tiles at a and b (the warp's rows of A: 16w ..). In float32 the
+// chunk's product starts from zero and is added in float32 (add_tile's
+// reason: S over D = 512 is 64 k-steps of three products).
+template <typename T>
+__device__ __forceinline__ void chunk_nk(float (&acc)[8][4], const T* a, const T* b) {
+  constexpr int P = Wide<T>::P;
+  const ASmem<T> as{a + (int)(threadIdx.x / 32 % 4) * 16 * P, P};
+  if constexpr (sizeof(T) == 4) {
+    float part[8][4];
+    zero(part);
+    gemm_nk<T, WC, 8>(part, as, b, P);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
+  } else {
+    gemm_nk<T, WC, 8>(acc, as, b, P);
+  }
+}
+
+// the 64 x WC block at (r0, c0) of a row-major matrix whose rows lie
+// `stride` elements apart into a tile at dst (rows past `rows` zeros); the
+// NT threads of the block take a share, by cp.async (not committed)
+template <typename T, int NT>
+__device__ __forceinline__ void cp_chunk(T* dst, const T* src, int r0, int rows, int c0,
+                                         long long stride) {
+  cp_tile<T, WC, 64, NT>(dst, Wide<T>::P, src + c0, r0, rows, stride);
+}
+
 // ---- The score epilogue's masking rule, as the TPU kernel's. ----
 
 constexpr float NEG = -1e30f;  // a masked score

@@ -21,12 +21,16 @@ B, H, N or M is limited but by the grid's 2^31 - 1 blocks. On a CUDA tensor
 the wrappers launch the kernels or raise; only a CPU tensor takes the plain
 versions.
 
-Head dims. The kernels are built for D = 32, 64 and 128 (`HEAD_DIMS`). On a
-CUDA tensor any other D up to 128 goes through the next larger of them: q,
-k and v are zero-padded along D, the scale stays D ** -0.5 of the true D,
-and the output and the gradients are sliced back. That is exact (a zero
-column adds nothing to q.k and gives a zero output column) and it is the
-kernel that runs, counted as its launch. A D over 128 raises.
+Head dims. The kernels take every D. They are built for D = 32, 64 and 128
+(`HEAD_DIMS`), and over 128 they run a column-sliced form of their own for
+any multiple of 64 (`WIDE_CHUNK`): a block owns one 64-wide slice of the
+output's columns and recomputes S (and dP) over the whole depth, 64 columns
+at a time, so no tile grows with D. On a CUDA tensor any other D goes
+through the next of those head dims (`native_head_dim`): q, k and v are
+zero-padded along D, the scale stays D ** -0.5 of the true D, and the
+output and the gradients are sliced back. That is exact (a zero column adds
+nothing to q.k and gives a zero output column) and it is the kernel that
+runs, counted as its launch.
 """
 from __future__ import annotations
 
@@ -43,11 +47,12 @@ __all__ = ["flash_attention", "flash_attention_ref", "flash_attention_bwd",
            "SOURCE_BWD", "HEAD_DIMS", "launches", "launches_dq", "launches_dkv",
            "launches_dtab", "launches_dbias", "launches_dbias_per_batch", "PLAN_SMS", "fwd_plan", "dq_plan", "dkv_plan",
            "dkv_items", "fwd_plan_built", "dq_plan_built", "dkv_plan_built", "native_head_dim",
-           "SMEM_LIMIT"]
+           "SMEM_LIMIT", "WIDE_CHUNK"]
 
 SOURCE = "flash_fwd.cu"
 SOURCE_BWD = "flash_bwd.cu"
-HEAD_DIMS = (32, 64, 128)  # the head dims the kernels are built for; others up to 128 padded
+HEAD_DIMS = (32, 64, 128)  # the head dims of the kernels' native forms; others up to 128 padded
+WIDE_CHUNK = 64  # over 128: the column-sliced forms' chunk and slice (D a multiple of it)
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -82,14 +87,29 @@ def _tiles(x):
 
 
 def native_head_dim(d):
-    """The head dim of the kernels that run a D-wide head: D where it is one
-    of HEAD_DIMS, else the next larger (q, k and v zero-padded to it)."""
+    """The head dim of the kernels that run a D-wide head: up to 128, D
+    where it is one of HEAD_DIMS, else the next larger; over 128, D rounded
+    up to a multiple of WIDE_CHUNK (the column-sliced forms). q, k and v are
+    zero-padded to it."""
+    if d < 1:
+        raise ValueError(f"head dim {d}: the kernels take head dims of 1 and more")
     for native in HEAD_DIMS:
         if d <= native:
             return native
-    raise ValueError(f"head dim {d} is over the kernels' largest, {HEAD_DIMS[-1]}: the card "
-                     f"takes head dims up to {HEAD_DIMS[-1]} (built for {HEAD_DIMS}, others "
-                     f"zero-padded to the next of them)")
+    return -(-d // WIDE_CHUNK) * WIDE_CHUNK
+
+
+def _slices(d):
+    """The output slices a block of the kernels owns one of: D / 64 in the
+    column-sliced forms (D over 128), else one."""
+    return native_head_dim(d) // WIDE_CHUNK if d > HEAD_DIMS[-1] else 1
+
+
+def _wide_smem(dtype):
+    """The column-sliced forms' ring: two stages of two 64 x 64 tiles, each
+    row padded by 16 bytes (csrc/mma.cuh's tc::Wide)."""
+    esize = 4 if dtype == torch.float32 else 2
+    return 4 * 64 * (64 + 16 // esize) * esize
 
 
 def _operand_bytes(d, dtype):
@@ -110,25 +130,31 @@ def fwd_plan(b, h, n, m, causal, dtype=torch.float32, d=64):
     consumer, else three), the block's shared memory (Q, the stages' K and
     V, their table slices and flags, the barriers) and the blocks an SM it
     is built for; and for each query tile (by its index) the key tiles each
-    consumer takes, in order."""
+    consumer takes, in order. Over D = 128 the column-sliced form: one
+    consumer, two stages, `slices` blocks (one a 64-wide slice of the
+    output) for each of the grid's, each visiting the same key tiles."""
     f32 = dtype == torch.float32
     grid = (b * h, _tiles(n))
-    if d > 64:
-        two = not f32
+    slices = _slices(d)
+    if slices > 1:  # the column-sliced form
+        two, stages, smem, blocks = False, 2, _wide_smem(dtype), 2
     else:
-        two = m > _TILE if f32 else grid[0] * grid[1] < 2 * PLAN_SMS
-    stages = 1 if f32 and not two else 3
-    oper = _operand_bytes(d, dtype)
-    smem = oper + stages * (2 * oper + _MISC_FWD) + 128
-    blocks = 1 if two or (f32 and d > 64) else 2 if f32 else 3
+        if d > 64:
+            two = not f32
+        else:
+            two = m > _TILE if f32 else grid[0] * grid[1] < 2 * PLAN_SMS
+        stages = 1 if f32 and not two else 3
+        oper = _operand_bytes(d, dtype)
+        smem = oper + stages * (2 * oper + _MISC_FWD) + 128
+        blocks = 1 if two or (f32 and d > 64) else 2 if f32 else 3
     tiles = {}
     for i in range(_tiles(n)):
         q0 = i * _TILE
         kv_end = min(m, q0 + _TILE + m - n) if causal else m
         keys = list(range(_tiles(kv_end)))
         tiles[i] = (keys[0::2], keys[1::2]) if two else (keys, [])
-    return {"grid": grid, "consumers": 2 if two else 1, "stages": stages, "smem": smem,
-            "blocks": blocks, "tiles": tiles}
+    return {"grid": grid, "slices": slices, "consumers": 2 if two else 1, "stages": stages,
+            "smem": smem, "blocks": blocks, "tiles": tiles}
 
 
 def dq_plan(b, h, hk, n, m, causal, dtype=torch.float32, dbias=False, d=64):
@@ -143,21 +169,31 @@ def dq_plan(b, h, hk, n, m, causal, dtype=torch.float32, dbias=False, d=64):
     b > 8 without such a divisor, only where b / cluster > 1), else clusters
     of one; the block's shared memory (with K5's buffers, else K4's) and the
     blocks an SM it is built for; and for each query tile (by its index) the
-    key tiles, in order."""
+    key tiles, in order. Over D = 128 the column-sliced form: `slices`
+    blocks (one a 64-wide slice of dq; slice 0's write the bias's gradient)
+    for each of the grid's, two stages, `items` 2 D / 64 + 1 a key tile (the
+    chunks of S's and dP's operands, then K's slice), K5's cluster as
+    above."""
     f32 = dtype == torch.float32
-    seq = f32 and d > 64
-    stages = 1 if seq else 2 if f32 else 3
-    oper = _operand_bytes(d, dtype)
-    smem = (2 * oper + stages * ((oper if seq else 2 * oper) + _MISC_FWD) + 256
-            + (_K5_BYTES if dbias else _K4_BYTES))
+    slices = _slices(d)
+    grad = _K5_BYTES if dbias else _K4_BYTES  # the bias gradient's buffers
+    if slices > 1:  # the column-sliced form
+        stages, items, smem, blocks = 2, 2 * slices + 1, _wide_smem(dtype) + grad, 2
+    else:
+        seq = f32 and d > 64
+        stages = 1 if seq else 2 if f32 else 3
+        items = 2 if seq else 1
+        oper = _operand_bytes(d, dtype)
+        smem = 2 * oper + stages * ((oper if seq else 2 * oper) + _MISC_FWD) + 256 + grad
+        blocks = 1 if f32 or d > 64 else 2
     cluster = max(c for c in range(1, _MAX_CLUSTER + 1) if b % c == 0) if dbias else 1
     tiles = {}
     for i in range(_tiles(n)):
         kv_end = min(m, i * _TILE + _TILE + m - n) if causal else m
         tiles[i] = list(range(_tiles(kv_end)))
-    return {"grid": (b, h, _tiles(n)), "cluster": cluster, "stages": stages,
-            "items": 2 if seq else 1, "smem": smem, "blocks": 1 if f32 or d > 64 else 2,
-            "atomic": dbias and cluster < b, "tiles": tiles}
+    return {"grid": (b, h, _tiles(n)), "slices": slices, "cluster": cluster, "stages": stages,
+            "items": items, "smem": smem, "blocks": blocks, "atomic": dbias and cluster < b,
+            "tiles": tiles}
 
 
 def dkv_plan(b, h, hk, n, m, dtype=torch.float32, d=64):
@@ -171,8 +207,17 @@ def dkv_plan(b, h, hk, n, m, dtype=torch.float32, d=64):
     two in bf16, one in float32), the ring's stages (in float32 at D = 128
     one slot that an item's Q, dO and Q again take in turn, `items` 3 an
     item), the block's shared memory and the blocks an SM it is built for,
-    and the grid (cluster, b*hk, key tiles * chunks)."""
+    and the grid (cluster, b*hk, key tiles * chunks). Over D = 128 the
+    column-sliced form: `slices` blocks (one a 64-wide slice of dk and dv)
+    for each of the grid's, no cluster and no chunks (a block walks every
+    query head of its kv head), one consumer, two stages, `items` 2 D / 64 +
+    1 a (head, query tile)."""
     f32 = dtype == torch.float32
+    slices = _slices(d)
+    if slices > 1:
+        return {"cluster": 1, "qsplit": 1, "consumers": 1, "stages": 2,
+                "items": 2 * slices + 1, "smem": _wide_smem(dtype), "blocks": 2,
+                "grid": (1, b * hk, _tiles(m)), "slices": slices}
     seq = f32 and d > 64
     group = h // hk
     cluster = max(c for c in range(1, _MAX_DKV_CLUSTER + 1) if group % c == 0)
@@ -184,7 +229,8 @@ def dkv_plan(b, h, hk, n, m, dtype=torch.float32, d=64):
     smem = 2 * oper + stages * ((oper if seq else 2 * oper) + _MISC_DKV) + (64 + 4) * 4 + 128
     return {"cluster": cluster, "qsplit": qsplit, "consumers": 2 if two else 1,
             "stages": stages, "items": 3 if seq else 1, "smem": smem,
-            "blocks": 1 if two or seq else 2, "grid": (cluster, b * hk, _tiles(m) * qsplit)}
+            "blocks": 1 if two or seq else 2, "grid": (cluster, b * hk, _tiles(m) * qsplit),
+            "slices": 1}
 
 
 def dkv_items(plan, h, hk, n, m, causal, kv_head, key_tile, rank, chunk):
@@ -252,7 +298,6 @@ def _check(q, k, v, bias_tab, key_mask, causal, bias=None):
 def _check_cuda(q):
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention path for device {q.device}")
-    native_head_dim(q.shape[-1])  # raises for a head dim over the kernels' largest
 
 
 def _padded(*xs):
@@ -447,7 +492,8 @@ def _bwd_launch(name, outs, q, k, v, g, lse, delta, tab, kmask, *, causal, scale
 
 
 def bwd_dq(q, k, v, g, lse, delta, tab, kmask, *, causal: bool, scale: float, bias=None):
-    """K2 on prepared arguments (contiguous, D in HEAD_DIMS; tab and bias
+    """K2 on prepared arguments (contiguous, D native: `native_head_dim(D) ==
+    D`; tab and bias
     float32 and kmask int8 or None; lse and delta (B, H, N) float32): dq in
     q's dtype, and in the same launch the float32 gradient of the bias given, summed over the
     batch: with a table K4, the (2N-1, H) gradient, its partial sums in K2's

@@ -19,10 +19,12 @@ the plain version under autograd, as the JAX package's custom VJP goes to
 its XLA version. On a CUDA tensor the forward launches the kernel or raises;
 only a CPU tensor takes the plain version. The kernel takes any window w >=
 1 and any T (a one-dimensional grid); its blocks are 64-query tiles, each
-walking the keys from its first row's look-back to its last query. It is built for head dims 32, 64 and
-128; another D up to 128 is zero-padded into the next of them (with the
-scale of the true D) and the output sliced back, as the flash kernels'
-wrappers do; a D over 128 raises.
+walking the keys from its first row's look-back to its last query. It
+takes every head dim: it is built for 32, 64 and 128, and over 128 runs a
+column-sliced form for any multiple of 64 (a block owns one 64-wide slice
+of the output and recomputes S over the whole depth, 64 columns at a time);
+another D is zero-padded into the next of those (with the scale of the true
+D) and the output sliced back, as the flash kernels' wrappers do.
 """
 from __future__ import annotations
 
@@ -130,7 +132,7 @@ def _forward(q, k, v, window_size, mask, attn_bias, scale):
     b, h, t, d = q.shape
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share a dtype in {list(_DTYPES)}")
-    dn = native_head_dim(d)  # raises for a head dim over the kernel's largest
+    dn = native_head_dim(d)
     if dn != d:
         q, k, v = (F.pad(x, (0, dn - d)) for x in (q, k, v))
     q, k, v = (_readable(x) for x in (q, k, v))

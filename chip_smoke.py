@@ -332,6 +332,28 @@ Phases, each printing its name and seconds:
                    frames; the Semantic, Coarse and Fine trainers' steps;
                    AudioLM (batch 1, 32 semantic ids, 16 coarse steps,
                    greedy) with its stages' tokens equal card vs CPU.
+  Last, the head dims over 128 (the kernels' column-sliced form; every
+  other head dim over 128 runs zero-padded to the next multiple of 64):
+     kernels (head dims over 128) - K1-K4 at the flagship's training shape
+                   with 4 heads of 256 (4 x 4 x 2049 x 256, the table), K5 at
+                   the Coarse LM's 4 x 2 x 603 x 256 and the Fine LM's 4 x 2
+                   x 1201 x 320, K7 at 8 x 8 x 100 x 256 (w 128), fp32 and
+                   bf16: against the plain versions, timed beside the plain
+                   version, SDPA and the bound (the function's own work, so
+                   the recomputed S and dP show as the gap; device times from
+                   the flash device times phase), float32 within 1e-5 of
+                   float64 (plain TF32 rejected), K2 and K3 the same bits over
+                   three runs; then at head dims 192, 320 and 512 a small
+                   shape each of the table, the (H, N, N) bias and the
+                   per-batch bias (each kernel launched once, the same bits,
+                   float64) and K7 at window 32 with a key mask, a bias and
+                   keyless rows.
+     scoring, generation, greedy card vs CPU, training (4 heads of 256) -
+                   the flagship with heads=4, dim_head=256 as in phases 4-6,
+                   and its greedy ids card vs CPU (batch 2, 128 + 32);
+     coarse scoring and training (2 heads of 256), fine scoring and
+                   training (2 heads of 320) - as in 7-12;
+     codec (attn_dim_head 256) - as in 13.
 The training phases (6, and the Coarse step in 7-12) also train in bf16
 compute beside float32: ms per step of both, and on one batch with the
 same weights and mask the bf16 loss and gradients held to float32's
@@ -543,13 +565,19 @@ def kernel_label(mangled):
     (<..., per-batch>); a bool argument, true, is K1's and K3's block with
     two consumer warpgroups (flash_fwd_kernel<bf16, d64, two>) and K7's for
     windows that are multiples of 64 (local_attn_kernel<bf16, d64,
-    aligned>)."""
+    aligned>). A `_wide_kernel` is the column-sliced form of head dims over
+    128: flash_fwd_kernel<bf16, wide>, flash_bwd_dq_kernel<bf16, wide,
+    sum>."""
     entry = re.search(r"\d([a-z][a-z_]*_kernel)(I?)", mangled)
     if not entry.group(2):
         return entry.group(1)
     name = entry.group(1)
     dtype = "bf16" if "bfloat16" in mangled else "fp32"
     ints = re.findall(r"Li(\d+)E", mangled)
+    if name.endswith("_wide_kernel"):  # the column-sliced form: its int argument K2's form
+        name = name.replace("_wide_kernel", "_kernel")
+        flag = {"1": "sum", "2": "per-batch"}.get(ints[0]) if ints else None
+        return f"{name}<{dtype}, wide{', ' + flag if flag else ''}>"
     if name == "flash_bwd_dq_kernel":
         flag = {"1": "sum", "2": "per-batch"}.get(ints[1]) if len(ints) > 1 else None
     else:
@@ -920,6 +948,9 @@ K3_PLAN_SHAPES = ((4, 8, 1, 2049, 2049), (4, 8, 1, 2048, 2048), (4, 8, 8, 603, 6
                   (4, 8, 1, 1, 17), (2, 4, 1, 2049, 2049))
 
 
+# the head dims whose plans are checked: the native forms' and two of the
+# column-sliced form's
+PLAN_HEAD_DIMS = (*fa.HEAD_DIMS, 256, 320)
 # (rows, codes, dim): the shapes the port's paths give K6
 VQ_PLAN_SHAPES = ((1, 1024, 512), (7, 1024, 512), (192, 1024, 512), (400, 1024, 512),
                   (600, 1024, 512), (800, 1024, 512), (1300, 1024, 512), (1200, 1024, 128))
@@ -939,7 +970,7 @@ def check_plans():
             raise AssertionError(f"K6's plan at {(n, c, d)}: the library's {got}, the "
                                  f"wrapper's {want}")
     for (b, h, hk, n, m), dtype, d in itertools.product(
-            K3_PLAN_SHAPES, (torch.float32, torch.bfloat16), fa.HEAD_DIMS):
+            K3_PLAN_SHAPES, (torch.float32, torch.bfloat16), PLAN_HEAD_DIMS):
         at = f"{(b, h, hk, n, m)} d{d} {dtype}"
         for dbias in (False, True):
             want = fa.dq_plan(b, h, hk, n, m, True, dtype, dbias=dbias, d=d)
@@ -958,7 +989,7 @@ def check_plans():
             raise AssertionError(f"K3's plan at {at}: the library's {got}, the wrapper's {want}")
     print(f"plans: K1's, K2's and K3's launch plans as built (consumers, cluster, chunks, "
           f"stages, shared memory, blocks an SM) equal fwd_plan's, dq_plan's and dkv_plan's at "
-          f"{len(K3_PLAN_SHAPES)} shapes and head dims {fa.HEAD_DIMS}, K6's vq_plan's at "
+          f"{len(K3_PLAN_SHAPES)} shapes and head dims {PLAN_HEAD_DIMS}, K6's vq_plan's at "
           f"{len(VQ_PLAN_SHAPES)}")
 
 
@@ -1026,7 +1057,9 @@ def stage_kernels(rng, d, seed):
 def sass_phase():
     """Tensor-core instructions of each kernel in the built libraries' SASS
     (cuobjdump -sass): HMMA (mma.sync), HGMMA (wgmma), UTMALDG (TMA loads)
-    and FFMA. K7 must issue HMMA in both dtypes at head dims 32, 64 and 128;
+    and FFMA. The column-sliced form of head dims over 128 (K1, K2 in its
+    three forms, K3 and K7; `wide` in the labels) must issue HMMA in both
+    dtypes. K7 must issue HMMA in both dtypes at head dims 32, 64 and 128;
     K1, K2 and K3, the Hopper design, HGMMA and UTMALDG in both dtypes,
     every head dim and every block shape (K1's and K3's one consumer
     warpgroup or two, K3's float32 only two, at 128 one shape a dtype; K2
@@ -1047,6 +1080,11 @@ def sass_phase():
                           + ["bf16, d128, two", "fp32, d128"]),
             "vq": ["fp32"], "local": sorted(f"{t}, d{d}{x}" for d in fa.HEAD_DIMS
                                            for t in ("bf16", "fp32") for x in ("", ", aligned"))}
+    # the column-sliced form of head dims over 128, on mma.sync (HMMA)
+    for key in ("fwd", "dkv", "local"):
+        want[key] = sorted(want[key] + ["bf16, wide", "fp32, wide"])
+    want["dq"] = sorted(want["dq"] + [f"{t}, wide{x}" for t in ("bf16", "fp32")
+                                      for x in ("", ", sum", ", per-batch")])
     need = {key: ("HGMMA", "UTMALDG") for key in ("fwd", "dq", "dkv", "vq")}
     result = {key: {} for key, _ in kernels}
     for src in SOURCES:
@@ -1061,7 +1099,8 @@ def sass_phase():
                     result[key][label[len(kernel) + 1:-1]] = ops
     for key, by_dtype in result.items():
         ok = sorted(by_dtype) == want[key] and all(
-            all(ops[op] for op in need.get(key, ("HMMA",))) for ops in by_dtype.values())
+            all(ops[op] for op in (("HMMA",) if "wide" in form else need.get(key, ("HMMA",))))
+            for form, ops in by_dtype.items())
         if not ok:
             raise AssertionError(f"{key}: tensor-core instructions by dtype {by_dtype}, "
                                  f"each needs {need.get(key, ('HMMA',))}")
@@ -1251,19 +1290,21 @@ def head_dims_kernel_phase(seed):
     return {"rows": rows, "f64": head_dims_accuracy(rng)}
 
 
-def head_dims_accuracy(rng):
-    """float32 at head dims 128 and 32 within F64_TOL of float64, the
-    1xTF32 build rejected: K1's out, K2's dq (and dbias) and K3's dk, dv at
-    the flagship's training shape (the table) and at the Coarse and Fine
-    LMs' (H, N, N)-bias shapes; K7 at the codec's shape. K2's dq with K4's
-    dtab or K5's dbias and K3's dk, dv the same bits over three runs, fp32
-    and bf16."""
+def head_dims_accuracy(rng, cases=None, codec_dims=CODEC_HEAD_DIMS):
+    """float32 at head dims 128 and 32 (or the (label, b, heads, n, d,
+    dense bias) `cases`) within F64_TOL of float64, the 1xTF32 build
+    rejected: K1's out, K2's dq (and dbias) and K3's dk, dv at the
+    flagship's training shape (the table) and at the Coarse and Fine LMs'
+    (H, N, N)-bias shapes; K7 at the codec's shape (its head dims
+    `codec_dims`). K2's dq with K4's dtab or K5's dbias and K3's dk, dv the
+    same bits over three runs, fp32 and bf16."""
     result = {}
-    h = FLAGSHIP["heads"]
-    cases = [(f"table d{d}", TRAIN_IDS[0], h, TRAIN_N, d, False) for d in (128, 32)]
-    cases += [(f"bias {kind} d{cfg['dim_head']}", CLIP_B, cfg["heads"], n, cfg["dim_head"], True)
-              for kind, cfg, n in (("coarse", ACOUSTIC_HEADS["coarse"], COARSE_N),
-                                   ("fine", ACOUSTIC_HEADS["fine"], FINE_N))]
+    if cases is None:
+        h = FLAGSHIP["heads"]
+        cases = [(f"table d{d}", TRAIN_IDS[0], h, TRAIN_N, d, False) for d in (128, 32)]
+        cases += [(f"bias {kind} d{cfg['dim_head']}", CLIP_B, cfg["heads"], n, cfg["dim_head"],
+                   True) for kind, cfg, n in (("coarse", ACOUSTIC_HEADS["coarse"], COARSE_N),
+                                              ("fine", ACOUSTIC_HEADS["fine"], FINE_N))]
     for label, b, heads, n, d, dense in cases:
         scale = d ** -0.5
         q, k, v, tab, mask = flash_inputs(rng, b, heads, n, d, torch.float32, forget_p=0.15)
@@ -1300,7 +1341,7 @@ def head_dims_accuracy(rng):
                         raise AssertionError(f"{name} differ between runs [{at}, {dtype}]")
             print(f"tf32: K2 dq (with {'dbias' if dense else 'dtab'}) and K3 dk, dv bitwise "
                   f"equal over 3 runs ({str(dtype)[6:]}, {b}x{heads}x{n}x{d})")
-    for d in CODEC_HEAD_DIMS:
+    for d in codec_dims:
         q, k, v = local_views(rng, CODEC_B, 8, CODEC_S * HZ, d, torch.float32)
         three = local_f64_error(q, k, v, 128, None, None, scale=d ** -0.5)
         with _build.built_with(ONE_PASS):
@@ -6110,6 +6151,252 @@ def demo_phase(seed):
     return paths, report
 
 
+# Head dims over 128, the kernels' column-sliced form (every other head dim
+# over 128 runs zero-padded to the next multiple of 64): the flagship
+# Semantic LM with 4 heads of 256 (an inner width of 1024), the Coarse LM
+# at ACOUSTIC's width with 2 heads of 256 (K5) and the Fine LM with 2 heads
+# of 320, a head dim past 256; the codec with attn_dim_head 256 (K7); beside
+# them one small shape each at head dims 192, 320 and 512.
+WIDE_FLAGSHIP = dict(heads=4, dim_head=256)
+WIDE_ACOUSTIC = {"coarse": dict(heads=2, dim_head=256), "fine": dict(heads=2, dim_head=320)}
+WIDE_CODEC_HEAD = 256
+WIDE_DIMS = (192, 320, 512)
+# the flash device times phase's labels of the same shapes
+WIDE_DEVICE_LABELS = {"table": "4x4x2049x256 table (flagship training, 4 heads of 256)",
+                      "coarse": "4x2x603x256 bias (Coarse training, 2 heads of 256)",
+                      "fine": "4x2x1201x320 bias (Fine training, 2 heads of 320)",
+                      "local": "8x8x100x256 w128, strided (codec 2 s, attn_dim_head 256)"}
+WIDE_KERNEL_OF = {"fwd": "K1", "dq": "K2", "dkv": "K3", "dtab": "K2+K4", "dbias": "K2+K5"}
+
+
+def check_wide_form(rng, b, h, n, d, form, seed):
+    """One small shape at head dim d in the column-sliced form (`form`: the
+    table, an (H, N, N) bias or a per-batch (B, H, N, N) one; causal, 15% of
+    the keys forgotten), fp32 and bf16: K1, K2 (with K4, K5 or dS) and K3
+    through the autograd.Function, each launched once, against the plain
+    versions; K2's dq with its bias gradient and K3's dk, dv the same bits
+    over three runs; float32 within F64_TOL of float64 (out, dq, dk, dv and
+    dbias), the 1xTF32 build rejected. Returns {"fp32": errs, "bf16": errs,
+    "f64": {...}}."""
+    scale = d ** -0.5
+    kw = dict(causal=True, scale=scale)
+    names = ("launches", "launches_dq", "launches_dkv", "launches_dtab", "launches_dbias",
+             "launches_dbias_per_batch")
+    want = [1, 1, 1, form == "table", form == "bias", form == "batch"]
+    result = {}
+    for dtype, tn in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        label = f"{tn} {b}x{h}x{n}x{d} {form}"
+        q, k, v, tab, mask = flash_inputs(rng, b, h, n, d, dtype, forget_p=0.15)
+        bias = None
+        if form != "table":
+            shape = (h, n, n) if form == "bias" else (b, h, n, n)
+            bias = torch.from_numpy(0.5 * rng.standard_normal(shape, dtype=np.float32)).to(DEV)
+            tab = None
+        g = torch.from_numpy(rng.standard_normal(q.shape, dtype=np.float32)).to(DEV, dtype)
+        before = [getattr(fa, x) for x in names]
+        leaves = [a.detach().requires_grad_() for a in (q, k, v, tab if bias is None else bias)]
+        extra = {"bias_tab": leaves[3]} if bias is None else {"bias": leaves[3]}
+        out, lse = fa.flash_attention(*leaves[:3], key_mask=mask, causal=True, return_lse=True,
+                                      **extra)
+        grads = torch.autograd.grad(out, leaves, g)
+        torch.cuda.synchronize()
+        if [getattr(fa, x) - c for x, c in zip(names, before)] != want:
+            raise AssertionError(f"column-sliced [{label}]: launches "
+                                 f"{[getattr(fa, x) - c for x, c in zip(names, before)]} != "
+                                 f"{want}")
+        out, lse = out.detach(), lse.detach()
+        ref_out = fa.flash_attention_ref(q, k, v, bias_tab=tab, bias=bias, key_mask=mask,
+                                         causal=True)
+        ref = fa.flash_attention_bwd_ref(q, k, v, tab, mask, out, lse, g, bias=bias, **kw)
+        errs = {"out": (out.float() - ref_out.float()).abs().max().item()}
+        ok = torch.allclose(out.float(), ref_out.float(), rtol=TOL[dtype], atol=TOL[dtype])
+        for name, a, r in zip(("dq", "dk", "dv", "dbias"), grads, ref):
+            errs[name] = (a.float() - r.float()).abs().max().item()
+            ok = ok and a.shape == r.shape and torch.allclose(a.float(), r.float(),
+                                                              **GRAD_TOL[dtype])
+        if not ok:
+            raise AssertionError(f"column-sliced vs plain [{label}]: {errs}")
+        bargs = (q, k, v, g, lse, (g.float() * out.float()).sum(-1), tab,
+                 mask.to(torch.int8).contiguous())
+        for what, fn in (("K2 dq and its bias gradient", fa.bwd_dq), ("K3 dk, dv", fa.bwd_dkv)):
+            first = fn(*bargs, bias=bias, **kw)
+            for _ in range(2):
+                if not all(torch.equal(x, y) for x, y in zip(fn(*bargs, bias=bias, **kw), first)
+                           if x is not None):
+                    raise AssertionError(f"column-sliced [{label}]: {what} differ between runs")
+        print(f"column-sliced [{label}]: vs plain max abs err "
+              + " ".join(f"{x} {e:.3e}" for x, e in errs.items())
+              + " | K2 (with its bias gradient) and K3 bitwise equal over 3 runs")
+        result[tn] = errs
+        if dtype == torch.float32:
+            ref64 = attention_f64(q, k, v, tab, bias, mask, g.float(), scale)
+            args = (q, k, v, tab, bias, mask, g, ref64, scale)
+            three = f64_errors(*args)
+            with fa.built_with(ONE_PASS):
+                one = f64_errors(*args)
+            print(f"tf32 [{label}]: 3xTF32 vs float64 "
+                  + " ".join(f"{x} {e:.2e}" for x, e in three.items())
+                  + f" (limit {F64_TOL}) | 1xTF32 " + " ".join(f"{x} {e:.2e}" for x, e in one.items()))
+            if max(three.values()) > F64_TOL:
+                raise AssertionError(f"3xTF32 vs float64 [{label}]: {three} over {F64_TOL}")
+            if min(one.values()) <= F64_TOL:
+                raise AssertionError(f"the float64 check let the 1xTF32 build through [{label}]: "
+                                     f"{one}")
+            result["f64"] = {"3xtf32": three, "1xtf32": one}
+    return result
+
+
+@phase("kernels (head dims over 128)")
+def wide_kernels_phase(seed, device_rows):
+    """The column-sliced form of K1-K5 and K7, fp32 and bf16, against the
+    plain versions with its time beside the plain version's, SDPA's and its
+    bound (the function's own work: the recomputed S and dP of each slice
+    show as the gap), the device times from the flash device times phase:
+    the table form (K1-K4) at the flagship's training shape with 4 heads of
+    256, the (H, N, N) bias (K5) at the Coarse LM's 2 heads of 256 (N = 603)
+    and the Fine LM's 2 heads of 320 (N = 1201), K7 at the codec's 8 x 8 x
+    100 with 256-wide heads (w 128); float32 within F64_TOL of float64 at
+    those shapes (the 1xTF32 build rejected) and K2, K3 the same bits over
+    three runs. Then at head dims 192, 320 and 512 one small shape each of
+    the table, the (H, N, N) bias (a cluster of 3 batch rows) and the
+    per-batch bias (check_wide_form), and K7 at window 32 with a key mask,
+    a bias and rows without a key (float32 within F64_TOL of float64).
+    Returns {"rows": {kernel: {label: row}}, "f64": {...}, "small": {...}}."""
+    rng = np.random.default_rng(seed + 45)
+    rows = {key: {} for key in ("fwd", "dq", "dkv", "dtab", "dbias", "local")}
+    h, d = WIDE_FLAGSHIP["heads"], WIDE_FLAGSHIP["dim_head"]
+    for dtype in (torch.float32, torch.bfloat16):
+        tn = str(dtype)[6:]
+        at = f"{tn} {TRAIN_IDS[0]}x{h}x{TRAIN_N}x{d} (training, {h} heads of {d}), 15% of keys forgotten"
+        dev = device_rows.get(f"{tn} {WIDE_DEVICE_LABELS['table']}")
+        args = flash_inputs(rng, TRAIN_IDS[0], h, TRAIN_N, d, dtype, forget_p=0.15)
+        rows["fwd"][at] = device_numbers(check_flash(*args, at), dev, "K1")
+        for key, row in check_flash_bwd(*args, at, seed).items():
+            rows[key][at] = device_numbers(row, dev, WIDE_KERNEL_OF[key])
+        del args
+    for kind, n in (("coarse", COARSE_N), ("fine", FINE_N)):
+        heads, dh = WIDE_ACOUSTIC[kind]["heads"], WIDE_ACOUSTIC[kind]["dim_head"]
+        label = f"({kind.capitalize()} training, {heads} heads of {dh}), 15% of keys forgotten"
+        for name, got in check_bias_form(rng, CLIP_B, heads, n, dh, label, seed,
+                                         forget_p=0.15).items():
+            dev = device_rows.get(f"{'float32' if name == 'fp32' else 'bfloat16'} "
+                                  f"{WIDE_DEVICE_LABELS[kind]}")
+            for key, row in got.items():
+                rows[key][row["at"]] = device_numbers(row, dev, WIDE_KERNEL_OF[key])
+    dl = WIDE_CODEC_HEAD
+    for dtype in (torch.float32, torch.bfloat16):
+        tn = str(dtype)[6:]
+        at = (f"{tn} {CODEC_B}x8x{CODEC_S * HZ}x{dl} w128 (codec, attn_dim_head {dl}), "
+              f"LocalMHA's strided q, k, v")
+        row = check_local(*local_views(rng, CODEC_B, 8, CODEC_S * HZ, dl, dtype), 128, None, None,
+                          at, seed, scale=dl ** -0.5, profile=False)
+        rows["local"][at] = device_numbers(row, device_rows.get(f"{tn} {WIDE_DEVICE_LABELS['local']}"))
+    cases = [(f"table d{d}", TRAIN_IDS[0], h, TRAIN_N, d, False)]
+    cases += [(f"bias {kind} d{cfg['dim_head']}", CLIP_B, cfg["heads"], n, cfg["dim_head"], True)
+              for kind, cfg, n in (("coarse", WIDE_ACOUSTIC["coarse"], COARSE_N),
+                                   ("fine", WIDE_ACOUSTIC["fine"], FINE_N))]
+    f64 = head_dims_accuracy(rng, cases, (dl,))
+    small = {}
+    for dw in WIDE_DIMS:
+        for form, b, n in (("table", 2, 300), ("bias", 3, 200), ("batch", 2, 150)):
+            small[f"{form} d{dw}"] = check_wide_form(rng, b, 4 if form == "table" else 2, n, dw,
+                                                     form, seed)
+        t, w = 150, 32
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = local_views(rng, 2, 2, t, dw, dtype)
+            mask = window_keyless_mask(rng, 2, t, w)
+            bias = torch.from_numpy(0.3 * rng.standard_normal((2, w, 2 * w),
+                                                              dtype=np.float32)).to(DEV)
+            label = f"{str(dtype)[6:]} 2x2x{t}x{dw} w{w}, strided, key mask, bias, keyless rows"
+            small[f"local {label}"] = check_local(q, k, v, w, mask, bias, label, seed,
+                                                  scale=dw ** -0.5, profile=False)
+            check_keyless_rows(q, k, v, w, mask, label)
+        q, k, v, _, bias = local_inputs(rng, 2, 2, t, dw, torch.float32, w, biased=True)
+        mask = window_keyless_mask(rng, 2, t, w)
+        three = local_f64_error(q, k, v, w, mask, bias, scale=dw ** -0.5)
+        with _build.built_with(ONE_PASS):
+            one = local_f64_error(q, k, v, w, mask, bias, scale=dw ** -0.5)
+        print(f"tf32 [K7 fp32 2x2x{t}x{dw} w{w}, key mask, bias]: 3xTF32 vs float64 {three:.2e} "
+              f"(limit {F64_TOL}) | 1xTF32 {one:.2e}")
+        if three > F64_TOL or one <= F64_TOL:
+            raise AssertionError(f"K7 float64 check [d{dw} w{w}]: 3xTF32 {three}, 1xTF32 {one}")
+        small[f"local d{dw} f64"] = {"3xtf32": three, "1xtf32": one}
+    return {"rows": rows, "f64": f64, "small": small}
+
+
+def wide_greedy_card_vs_cpu(seed, model, cpu_model):
+    """Greedy KV-cached generation of the flagship with wide heads on the
+    card and on the CPU from one prompt (batch 2, 128 ids, 32 new): the ids
+    must be identical, unless the first step where they part is a near tie
+    of the CPU's logits (its two best within 2 LOGITS_TOL), which float32's
+    summation order may break either way."""
+    rng = np.random.default_rng(seed + 46)
+    vocab = FLAGSHIP["num_semantic_tokens"]
+    prompt = np.cumsum(rng.integers(1, vocab, (2, 128)), axis=1) % vocab
+    gen = dict(max_length=128 + 32, temperature=1e-10)
+    ids = {}
+    for where, m, dev in (("card", model, DEV), ("cpu", cpu_model, torch.device("cpu"))):
+        w = SemanticTransformerWrapper(transformer=m)
+        got, logits = w.generate(prime_ids=torch.from_numpy(prompt).to(dev), return_logits=True,
+                                 generator=torch.Generator(device=dev).manual_seed(seed), **gen)
+        ids[where] = (got.cpu(), logits.cpu())
+    (card, _), (cpu, cpu_logits) = ids["card"], ids["cpu"]
+    if card.shape != cpu.shape or not torch.equal(card, cpu):
+        differ = (card != cpu).nonzero()
+        row, pos = (int(x) for x in differ[0])
+        top2 = cpu_logits[row, pos - 1].float().topk(2).values
+        gap = (top2[0] - top2[1]).item()
+        if gap > 2 * LOGITS_TOL:
+            raise AssertionError(f"greedy ids card vs CPU part at row {row}, step {pos}, where "
+                                 f"the CPU's two best logits are {gap:.3e} apart")
+        print(f"greedy ids card vs CPU part at row {row}, step {pos}: a near tie "
+              f"({gap:.3e} apart)")
+        return False
+    print(f"greedy generation b2 prompt 128 + 32 (4 heads of 256): ids identical card vs CPU")
+    return True
+
+
+def wide_head_paths(seed):
+    """The paths at heads over 128 (each phase zeroes the launch counts just
+    before its own calls and reads them just after): the flagship with 4
+    heads of 256 scored, generated (and its greedy ids card vs CPU) and
+    trained (float32 and bf16), card vs CPU; the Coarse LM with 2 heads of
+    256 and the Fine LM with 2 heads of 320 scored and trained, card vs CPU;
+    the codec with attn_dim_head 256 in a round trip, card vs CPU. Returns
+    ({path: launches}, {label: bf16 numbers}, greedy ids identical)."""
+    paths, bf16_runs = {}, {}
+    cpu_model = flagship(seed, **WIDE_FLAGSHIP)
+    model = copy.deepcopy(cpu_model).to(DEV)
+    tag = f"{WIDE_FLAGSHIP['heads']} heads of {WIDE_FLAGSHIP['dim_head']}"
+    paths["scoring_d256"] = phase(f"scoring ({tag})")(scoring_phase)(seed, model, cpu_model)
+    paths["generation_d256"] = phase(f"generation ({tag})")(generation_phase)(seed, model)
+    identical = phase(f"greedy card vs CPU ({tag})")(wide_greedy_card_vs_cpu)(seed, model,
+                                                                              cpu_model)
+    del model
+    paths["training_d256"], paths["training_bf16_d256"], bf16_runs["training_d256"] = phase(
+        f"training ({tag})")(training_phase)(seed, cpu_model)
+    del cpu_model
+    torch.cuda.empty_cache()
+    for kind in ("coarse", "fine"):
+        cfg = WIDE_ACOUSTIC[kind]
+        tag = f"{cfg['heads']} heads of {cfg['dim_head']}"
+        cpu_lm = acoustic_model(kind, seed, **cfg)
+        lm = copy.deepcopy(cpu_lm).to(DEV)
+        key = f"{kind}_d{cfg['dim_head']}"
+        paths[f"{key}_scoring"] = phase(f"{kind} scoring ({tag})")(acoustic_scoring)(
+            kind, seed, lm, cpu_lm)
+        del lm
+        paths[f"{key}_training"], bf16 = phase(f"{kind} training ({tag})")(acoustic_training)(
+            kind, seed, cpu_lm)
+        if bf16 is not None:
+            paths[f"{key}_training_bf16"], bf16_runs[f"{key}_training"] = bf16
+        del cpu_lm
+        torch.cuda.empty_cache()
+    paths[f"codec_d{WIDE_CODEC_HEAD}"] = phase(f"codec (attn_dim_head {WIDE_CODEC_HEAD})")(
+        codec_phase)(seed, attn_dim_head=WIDE_CODEC_HEAD)
+    return paths, bf16_runs, identical
+
+
 # the outputs of each row's kernel in the tf32 phase's float64 check
 F64_OUTPUTS = {"fwd": ("out",), "dq": ("dq",), "dkv": ("dk", "dv"), "dbias": ("dbias",)}
 # the TPU kernel each port replaces, by line in the JAX package
@@ -6238,6 +6525,12 @@ def main():
     timings["grid"] = grid_phase(args.seed)
     demo_paths, timings["demo"] = demo_phase(args.seed)
     paths.update(demo_paths)
+    # heads over 128, the kernels' column-sliced form (its paths' profiler
+    # windows last, after every phase that reads launches from torch.profiler)
+    timings["wide"] = wide_kernels_phase(args.seed, device_rows)
+    wide_paths, wide_bf16, timings["wide_greedy_identical"] = wide_head_paths(args.seed)
+    paths.update(wide_paths)
+    bf16_runs.update(wide_bf16)
     rows = []
     for key, name, source, replaces, counter in KERNELS:
         per_path = {f"launches_{p}": launched[counter] for p, launched in paths.items()}
@@ -6276,6 +6569,16 @@ def main():
                 label: {kind: {x: e for x, e in errs.items() if x in F64_OUTPUTS.get(key, ())}
                         if isinstance(errs, dict) else errs for kind, errs in got.items()}
                 for label, got in timings["head_dims"]["f64"].items()
+                if label.startswith("local") == (key == "local")}
+        if key != "vq":
+            # the column-sliced form: the flagship with 4 heads of 256, the Coarse
+            # and Fine LMs with 2 heads of 256 and 320, the codec at attn_dim_head
+            # 256, and the float64 check there
+            numbers["head_dims_over_128"] = timings["wide"]["rows"][key]
+            numbers["head_dims_over_128_f64"] = {
+                label: {kind: {x: e for x, e in errs.items() if x in F64_OUTPUTS.get(key, ())}
+                        if isinstance(errs, dict) else errs for kind, errs in got.items()}
+                for label, got in timings["wide"]["f64"].items()
                 if label.startswith("local") == (key == "local")}
         if key in ("vq", "local"):
             # K6 at 1300 rows; K7 in bf16 and at 10 s, with the float64 check;
@@ -6343,7 +6646,8 @@ def main():
                       "tensor_parallel": {k: v for k, v in timings["tensor_parallel"].items()
                                           if k != "kernels"},
                       "per_batch_transformer": timings["per_batch"]["transformer"],
-                      "demo": timings["demo"]}))
+                      "demo": timings["demo"], "head_dims_over_128_small": timings["wide"]["small"],
+                      "wide_greedy_identical": timings["wide_greedy_identical"]}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -35,8 +35,12 @@ to the sequential sampler, and the VQ EMA's all-reduce over a one-rank
 NCCL group the identity; K7 at windows 8, 32, 48 and 256 (and the demo
 codec's window 32 over heads of 16), K1-K3 with a per-batch (B, H, N, M)
 bias and its gradient (the same bits every run), and each kernel past the
-65535 blocks a grid's y or z extent once held it to. They skip where there
-is no card.
+65535 blocks a grid's y or z extent once held it to; the column-sliced form
+of head dims over 128 (K1-K5 and K7 at 192, 256, 320 and 512, every bias
+form, against the plain versions, float32 within 1e-5 of float64 where plain
+TF32 fails, the same bits every run, HMMA in each instantiation, and every
+head dim from 129 to 512 launching the kernels). They skip where there is
+no card.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine without them:
@@ -141,11 +145,22 @@ def test_cached_generation_logits_match_scoring(cuda):
         torch.testing.assert_close(logits[row, :n], full[row, :n], rtol=2e-3, atol=2e-3)
 
 
-@pytest.mark.parametrize("d", [160, 256])
+@pytest.mark.parametrize("d", [160, 512])
 def test_wrapper_raises_on_a_cuda_tensor_it_cannot_take(cuda, d):
-    q = torch.zeros(1, 2, 16, d, device=cuda)  # the kernels take head dims up to 128
-    with pytest.raises(ValueError, match="up to 128"):
-        fa.flash_attention(q, q[:, :1].contiguous(), q[:, :1].contiguous(), causal=True)
+    # head dims over 128 were refused on the card; now the column-sliced form
+    # takes them (160 zero-padded to 192): K1 launches and agrees with the
+    # plain version. A head dim under 1 is still refused.
+    rng = np.random.default_rng(d)
+    q = torch.from_numpy(rng.normal(size=(1, 2, 70, d)).astype(np.float32)).to(cuda)
+    kv = q[:, :1].contiguous()
+    before = fa.launches
+    out = fa.flash_attention(q, kv, kv, causal=True)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1 and out.shape == q.shape
+    torch.testing.assert_close(out, fa.flash_attention_ref(q, kv, kv, causal=True),
+                               rtol=2e-3, atol=2e-3)
+    with pytest.raises(ValueError, match="1 and more"):
+        fa.native_head_dim(0)
 
 
 def _counts():
@@ -194,13 +209,26 @@ def test_flash_attention_on_a_card_is_differentiable(cuda):
         torch.testing.assert_close(a.cpu(), r, rtol=1e-2, atol=1e-3)
 
 
-@pytest.mark.parametrize("d", [160, 256])
+@pytest.mark.parametrize("d", [160, 512])
 def test_backward_raises_on_a_cuda_tensor_it_cannot_take(cuda, d):
-    q = torch.zeros(1, 2, 16, d, device=cuda)
+    # head dims over 128 were refused on the card; now K2 and K3 launch in
+    # their column-sliced form (160 zero-padded to 192) and agree with the
+    # plain backward
+    rng = np.random.default_rng(d + 1)
+    q, g = (torch.from_numpy(rng.normal(size=(1, 2, 70, d)).astype(np.float32)).to(cuda)
+            for _ in range(2))
     kv = q[:, :1].contiguous()
-    lse = torch.zeros(1, 2, 16, device=cuda)
-    with pytest.raises(ValueError):
-        fa.flash_attention_bwd(q, kv, kv, None, None, q, lse, q, causal=True, scale=1.0)
+    out, lse = fa.flash_attention(q, kv, kv, causal=True, return_lse=True)
+    before = fa.launches_dq, fa.launches_dkv
+    grads = fa.flash_attention_bwd(q, kv, kv, None, None, out, lse, g, causal=True,
+                                   scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert (fa.launches_dq, fa.launches_dkv) == (before[0] + 1, before[1] + 1)
+    ref = fa.flash_attention_bwd_ref(q, kv, kv, None, None, out, lse, g, causal=True,
+                                     scale=d ** -0.5)
+    for name, a, r in zip(("dq", "dk", "dv"), grads, ref):
+        assert a.shape == r.shape, name
+        torch.testing.assert_close(a, r, rtol=1e-2, atol=1e-3, msg=name)
 
 
 def _leaf_errors(got, ref, ref_grads):
@@ -332,7 +360,7 @@ def test_flash_bias_kernels_match_plain_version(cuda, n, causal, mqa, masked, dt
 
 def test_per_batch_bias_raises_on_a_cuda_tensor(cuda):
     # a per-batch (B, H, N, M) bias was refused on the card; now K1-K3 take it,
-    # through autograd, as the plain version does (only a head dim over 128 raises)
+    # through autograd, as the plain version does
     rng = np.random.default_rng(3)
     q = torch.from_numpy(rng.normal(size=(2, 2, 16, 64)).astype(np.float32)).to(cuda)
     kv = q[:, :1].contiguous()
@@ -346,9 +374,18 @@ def test_per_batch_bias_raises_on_a_cuda_tensor(cuda):
     torch.testing.assert_close(out.cpu(), ref, rtol=2e-3, atol=2e-3)
     for a, r in zip(grads, want):
         torch.testing.assert_close(a.cpu(), r, rtol=1e-2, atol=1e-3)
-    wide = torch.zeros(2, 2, 16, 160, device=cuda)
-    with pytest.raises(ValueError, match="up to 128"):
-        fa.flash_attention(wide, wide[:, :1], wide[:, :1], bias=bias, causal=True)
+    # a head dim over 128 was refused here too; now the column-sliced form
+    # takes it with the per-batch bias, through autograd
+    wide = torch.from_numpy(rng.normal(size=(2, 2, 16, 160)).astype(np.float32)).to(cuda)
+    leaves = [a.clone().requires_grad_() for a in (wide, wide[:, :1], wide[:, :1], bias)]
+    out = fa.flash_attention(*leaves[:3], bias=leaves[3], causal=True)
+    grads = torch.autograd.grad(out.square().sum(), leaves)
+    cpu = [a.detach().cpu().requires_grad_() for a in leaves]
+    ref = fa.flash_attention_ref(*cpu[:3], bias=cpu[3], causal=True)
+    want = torch.autograd.grad(ref.square().sum(), cpu)
+    torch.testing.assert_close(out.cpu(), ref, rtol=2e-3, atol=2e-3)
+    for a, r in zip(grads, want):
+        torch.testing.assert_close(a.cpu(), r, rtol=1e-2, atol=1e-3)
 
 
 @pytest.mark.parametrize("kind", ["coarse", "fine"])
@@ -643,16 +680,15 @@ def test_local_attention_on_a_card_is_differentiable(cuda):
         torch.testing.assert_close(a.cpu(), r, rtol=1e-2, atol=1e-3)
 
 
-@pytest.mark.parametrize("w,d", [(32, 64), (256, 64), (128, 160), (64, 256)])
+@pytest.mark.parametrize("w,d", [(32, 64), (256, 64), (128, 160), (64, 256), (32, 512)])
 def test_local_attention_raises_on_a_cuda_tensor_it_cannot_take(cuda, w, d):
-    # windows 32 and 256 were refused on the card; now only a head dim over 128 is
+    # windows 32 and 256, then head dims over 128, were refused on the card;
+    # now K7 takes every window and head dim (160 zero-padded to 192)
     q = torch.from_numpy(np.random.default_rng(w + d).normal(size=(1, 2, 100, d))
                          .astype(np.float32)).to(cuda)
-    if d > 128:
-        with pytest.raises(ValueError, match="up to 128"):
-            la.local_attention(q, q, q, window_size=w)
-        return
+    before = la.launches
     out = la.local_attention(q, q, q, window_size=w)
+    assert la.launches == before + 1
     torch.testing.assert_close(out, la.local_attention_ref(q, q, q, window_size=w),
                                rtol=2e-3, atol=2e-3)
 
@@ -1874,3 +1910,171 @@ def test_vq_kernel_past_the_65535_grid_limit(cuda):
 
     scale = xd.square().sum(-1) + ed.square().sum(-1).max()
     assert ((score(got[bad]) - score(want[bad])).abs() <= 1e-5 * scale).all()
+
+
+# Head dims over 128: the kernels' column-sliced form (csrc/mma.cuh's
+# tc::Wide), at 192, 256, 320 and 512 in both dtypes; every other head dim
+# over 128 zero-padded to the next multiple of 64
+WIDE_DIMS = (192, 256, 320, 512)
+WIDE_FORMS = {"table": (2, 4, 1, 150, 150, True), "bias": (3, 2, 2, 130, 130, True),
+              "batch": (2, 2, 1, 100, 100, True), "prefix": (2, 2, 1, 80, 97, True),
+              "cross": (2, 4, 1, 90, 17, False)}
+
+
+def _wide_inputs(cuda, form, d, dtype, seed=0):
+    b, h, hk, n, m, causal = WIDE_FORMS[form]
+    rng = np.random.default_rng(seed + d)
+
+    def normal(*shape, s=1.0):
+        return torch.from_numpy((s * rng.normal(size=shape)).astype(np.float32)).to(cuda)
+
+    q, g = normal(b, h, n, d).to(dtype), normal(b, h, n, d).to(dtype)
+    k, v = normal(b, hk, m, d).to(dtype), normal(b, hk, m, d).to(dtype)
+    mask = torch.from_numpy(rng.random((b, m)) > 0.2).to(cuda)
+    mask[:, 0] = True
+    tab = normal(2 * n - 1, h, s=0.5) if form == "table" else None
+    bias = normal(h, n, m, s=0.5) if form in ("bias", "prefix") else \
+        normal(b, h, n, m, s=0.5) if form == "batch" else None
+    return q, k, v, g, tab, bias, mask, causal
+
+
+@pytest.mark.parametrize("dtype,tol,gtol", [(torch.float32, 2e-3, dict(rtol=1e-2, atol=1e-3)),
+                                            (torch.bfloat16, 3e-2, dict(rtol=3e-2, atol=3e-2))])
+@pytest.mark.parametrize("form", list(WIDE_FORMS))
+@pytest.mark.parametrize("d", WIDE_DIMS)
+def test_column_sliced_kernels_match_plain_versions(cuda, d, form, dtype, tol, gtol):
+    # K1, K2 (with K4, K5 or the per-batch bias's dS) and K3, each launched once
+    q, k, v, g, tab, bias, mask, causal = _wide_inputs(cuda, form, d, dtype)
+    names = ("launches", "launches_dq", "launches_dkv", "launches_dtab", "launches_dbias",
+             "launches_dbias_per_batch")
+    before = [getattr(fa, x) for x in names]
+    out, lse = fa.flash_attention(q, k, v, bias_tab=tab, bias=bias, key_mask=mask,
+                                  causal=causal, return_lse=True)
+    grads = fa.flash_attention_bwd(q, k, v, tab, mask, out, lse, g, bias=bias, causal=causal,
+                                   scale=d ** -0.5)
+    torch.cuda.synchronize()
+    want = [1, 1, 1, form == "table", form in ("bias", "prefix"), form == "batch"]
+    assert [getattr(fa, x) - c for x, c in zip(names, before)] == want
+    ref, ref_lse = fa.flash_attention_ref(q, k, v, bias_tab=tab, bias=bias, key_mask=mask,
+                                          causal=causal, return_lse=True)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, ref_lse, rtol=2e-3, atol=2e-3)
+    refs = fa.flash_attention_bwd_ref(q, k, v, tab, mask, out, lse, g, bias=bias, causal=causal,
+                                      scale=d ** -0.5)
+    for name, a, r in zip(("dq", "dk", "dv", "dgrad"), grads, refs):
+        if r is None:
+            assert a is None
+            continue
+        assert a.shape == r.shape, name
+        torch.testing.assert_close(a.float(), r.float(), **gtol, msg=name)
+
+
+def _wide_f64_error(cuda, form, d):
+    """max |kernel - float64| / max |float64| over K1's out, K2's dq (and
+    its bias gradient) and K3's dk, dv, fed the float64 lse and Delta."""
+    q, k, v, g, tab, bias, mask, causal = _wide_inputs(cuda, form, d, torch.float32, seed=1)
+    scale = d ** -0.5
+    f64 = [None if a is None else a.double() for a in (q, k, v, g, tab, bias)]
+    out64, lse64 = fa.flash_attention_ref(f64[0], f64[1], f64[2], bias_tab=f64[4], bias=f64[5],
+                                          key_mask=mask, causal=causal, scale=scale,
+                                          return_lse=True)
+    refs = fa.flash_attention_bwd_ref(*f64[:3], f64[4], mask, out64, lse64, f64[3],
+                                      causal=causal, scale=scale, bias=f64[5])
+    out = fa.flash_attention(q, k, v, bias_tab=tab, bias=bias, key_mask=mask, causal=causal)
+    args = (q, k, v, g, lse64.float(), (f64[3] * out64).sum(-1).float(), tab,
+            mask.to(torch.int8).contiguous())
+    dq, dgrad = fa.bwd_dq(*args, causal=causal, scale=scale, bias=bias)
+    dk, dv = fa.bwd_dkv(*args, causal=causal, scale=scale, bias=bias)
+    pairs = [(out, out64), (dq, refs[0]), (dk, refs[1]), (dv, refs[2])]
+    if refs[3] is not None:
+        pairs.append((dgrad, refs[3]))
+    return max(((a.double() - r).abs().max() / r.abs().max()).item() for a, r in pairs)
+
+
+@pytest.mark.parametrize("form", ["table", "bias", "batch"])
+@pytest.mark.parametrize("d", WIDE_DIMS)
+def test_column_sliced_float32_within_1e5_of_float64(cuda, d, form):
+    assert _wide_f64_error(cuda, form, d) <= 1e-5
+    with _build.built_with(("MMA_TF32_ONE_PASS",)):
+        assert _wide_f64_error(cuda, form, d) > 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["table", "bias", "batch"])
+@pytest.mark.parametrize("d", WIDE_DIMS)
+def test_column_sliced_backward_gives_the_same_bits_every_run(cuda, d, form, dtype):
+    # K2 with K4's fixed-order sums, K5's rank-order batch sum or dS, and K3
+    q, k, v, g, tab, bias, mask, causal = _wide_inputs(cuda, form, d, dtype, seed=2)
+    out, lse = fa.flash_attention(q, k, v, bias_tab=tab, bias=bias, key_mask=mask,
+                                  causal=causal, return_lse=True)
+    args = (q, k, v, g, lse, (g.float() * out.float()).sum(-1), tab,
+            mask.to(torch.int8).contiguous())
+    for fn in (fa.bwd_dq, fa.bwd_dkv):
+        first = fn(*args, causal=causal, scale=d ** -0.5, bias=bias)
+        for _ in range(2):
+            again = fn(*args, causal=causal, scale=d ** -0.5, bias=bias)
+            assert all(torch.equal(a, b) for a, b in zip(first, again) if a is not None)
+
+
+@pytest.mark.parametrize("d", [129, 160, 192, 256, 320, 512])
+def test_every_head_dim_over_128_launches_the_kernels(cuda, d):
+    # no ValueError: K1-K3 and K7 launch, counted by the wrappers
+    rng = np.random.default_rng(d)
+    q = torch.from_numpy(rng.normal(size=(2, 2, 80, d)).astype(np.float32)).to(cuda)
+    kv = q[:, :1].contiguous()
+    before = fa.launches, fa.launches_dq, fa.launches_dkv, la.launches
+    leaves = [a.clone().requires_grad_() for a in (q, kv, kv)]
+    out = fa.flash_attention(*leaves, causal=True)
+    grads = torch.autograd.grad(out.square().sum(), leaves)
+    local = la.local_attention(q, q, q, window_size=32)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.launches_dq, fa.launches_dkv, la.launches) == tuple(
+        c + 1 for c in before)
+    assert out.shape == q.shape and local.shape == q.shape
+    assert all(torch.isfinite(a).all() for a in (out, local, *grads))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w,masked,biased", [(128, False, False), (32, True, True),
+                                             (64, True, False)])
+@pytest.mark.parametrize("d", WIDE_DIMS)
+def test_column_sliced_k7_matches_plain_version(cuda, d, w, masked, biased, dtype):
+    rng = np.random.default_rng(d + w)
+    t = 3 * w + 37 if w < 128 else 100
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, 2, t, d)).astype(np.float32)).to(cuda, dtype)
+               for _ in range(3))
+    mask = bias = None
+    if masked:
+        mask = torch.from_numpy(rng.random((2, t)) > 0.2).to(cuda)
+        mask[0, :w + 5] = False  # rows without a key: their window's mean
+    if biased:
+        bias = torch.from_numpy(0.3 * rng.normal(size=(2, w, 2 * w)).astype(np.float32)).to(cuda)
+    out = la.local_attention(q, k, v, window_size=w, mask=mask, attn_bias=bias)
+    ref = la.local_attention_ref(q, k, v, window_size=w, mask=mask, attn_bias=bias)
+    tol = 2e-3 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    if dtype == torch.float32:
+        kw = dict(window_size=w, mask=mask, attn_bias=None if bias is None else bias.double())
+        ref64 = la.local_attention_ref(q.double(), k.double(), v.double(), **kw)
+        err = ((out.double() - ref64).abs().max() / ref64.abs().max()).item()
+        assert err <= 1e-5
+        with _build.built_with(("MMA_TF32_ONE_PASS",)):
+            one = la.local_attention(q, k, v, window_size=w, mask=mask, attn_bias=bias)
+        assert ((one.double() - ref64).abs().max() / ref64.abs().max()).item() > 1e-5
+
+
+def test_column_sliced_forms_issue_tensor_core_instructions(cuda):
+    # mma.sync (HMMA) in every column-sliced instantiation: K1, K2 in its
+    # three forms (none or K4, K5's sum, the per-batch dS), K3 and K7
+    found = {}
+    for src in (fa.SOURCE, fa.SOURCE_BWD, la.SOURCE):
+        for mangled, ops in _build.sass_counts(src).items():
+            hit = re.search(r"(flash_fwd|flash_bwd_dq|flash_bwd_dkv|local_attn)_wide_kernel",
+                            mangled)
+            if hit:
+                ints = re.findall(r"Li(\d+)E", mangled)
+                key = (hit.group(1), "bf16" if "bfloat16" in mangled else "fp32",
+                       ints[0] if ints else "")
+                found[key] = ops["HMMA"]
+    assert len(found) == 2 * (1 + 3 + 1 + 1), found
+    assert all(found.values()), found

@@ -166,12 +166,13 @@ FORMS = {"table": (50, 50, True), "bias": (50, 50, True), "prefix": (40, 56, Tru
 
 
 @pytest.mark.parametrize("form", list(FORMS))
-@pytest.mark.parametrize("d", [16, 128])
+@pytest.mark.parametrize("d", [16, 128, 256, 320])
 def test_plain_versions_match_pallas_at_head_dims(d, form):
     """The forward and every gradient of the port's plain versions (the ones
     the kernels are held to on the card, here through the autograd.Function
     on CPU tensors) against JAX's Pallas kernels under `jax.vjp`, at a head
-    dim the kernels take by zero padding (16) and at their widest (128). JAX's
+    dim the kernels take by zero padding (16), at the widest of their native
+    forms (128) and at two of the column-sliced form's (256, 320). JAX's
     Pallas kernel aligns a causal mask with M > N to the top left (a recorded
     divergence, tests/test_torch_conditioning.py), so the prefix's
     bottom-right mask reaches it as a -1e30 bias, non-causal."""
@@ -211,7 +212,7 @@ def test_plain_versions_match_pallas_at_head_dims(d, form):
         np.testing.assert_allclose(a.numpy(), np.asarray(r), **TOL, err_msg=name)
 
 
-@pytest.mark.parametrize("d", [8, 48, 96])
+@pytest.mark.parametrize("d", [8, 48, 96, 160, 300])
 def test_padded_route_equals_the_unpadded_plain_version(d):
     """What the CUDA wrappers do with a head dim the kernels are not built
     for, computed through the plain versions in float64: q, k, v (and, for
@@ -219,7 +220,7 @@ def test_padded_route_equals_the_unpadded_plain_version(d):
     true D's scale, the results sliced back. The padded columns of the
     output and of every gradient are zeros, the rest equal the unpadded
     plain version's."""
-    assert fa.native_head_dim(d) == {8: 32, 48: 64, 96: 128}[d]
+    assert fa.native_head_dim(d) == {8: 32, 48: 64, 96: 128, 160: 192, 300: 320}[d]
     rng = np.random.default_rng(d)
     q, k, v, tab, mask = _inputs(70, True, True, seed=d, d=d)
     q, k, v, tab = (torch.from_numpy(a.astype(np.float64)) for a in (q, k, v, tab))
@@ -245,8 +246,14 @@ def test_padded_route_equals_the_unpadded_plain_version(d):
 
 
 def test_wrapper_names_the_head_dims_the_card_takes():
-    assert fa.HEAD_DIMS == (32, 64, 128)
+    """Every head dim: the native forms' 32, 64 and 128 (another D up to 128
+    padded to the next of them), and over 128 the column-sliced form's
+    multiples of 64 (another D padded to the next of them); a head dim under
+    1 is no head dim."""
+    assert fa.HEAD_DIMS == (32, 64, 128) and fa.WIDE_CHUNK == 64
     assert [fa.native_head_dim(d) for d in (1, 16, 32, 33, 64, 80, 128)] == [32, 32, 32, 64, 64,
                                                                            128, 128]
-    with pytest.raises(ValueError, match="up to 128"):
-        fa.native_head_dim(160)
+    assert [fa.native_head_dim(d) for d in (129, 160, 192, 256, 257, 320, 512, 1000)] == [
+        192, 192, 192, 256, 320, 320, 512, 1024]
+    with pytest.raises(ValueError, match="1 and more"):
+        fa.native_head_dim(0)

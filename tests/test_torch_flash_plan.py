@@ -23,6 +23,7 @@ import torch
 from audiolm_pytorch_tpu.ops.attention import attend
 
 from audiolm_pytorch_tpu_torch.ops.kernels import flash_attention as fa
+from audiolm_pytorch_tpu_torch.ops.relpos import toeplitz_expand
 
 from torch_port_util import t
 
@@ -293,13 +294,14 @@ def test_k3_split_and_fixed_order_sum_matches_jax(causal, consumers):
 SM_SMEM = 233472
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128, 256, 320, 512])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("label,b,h,hk,n,m,causal", SHAPES, ids=[s[0] for s in SHAPES])
 def test_plans_fit_the_card_at_each_head_dim(label, b, h, hk, n, m, causal, dtype, d):
     """K1's, K2's (with K4's and with K5's buffers) and K3's blocks at head
-    dims 32, 64 and 128: each within a block's shared memory, and as many
-    blocks as each is built for within an SM's."""
+    dims 32, 64 and 128 and at the column-sliced form's 256, 320 and 512:
+    each within a block's shared memory, and as many blocks as each is built
+    for within an SM's."""
     plans = [fa.fwd_plan(b, h, n, m, causal, dtype, d),
              fa.dq_plan(b, h, hk, n, m, causal, dtype, d=d),
              fa.dq_plan(b, h, hk, n, m, causal, dtype, dbias=True, d=d),
@@ -338,3 +340,160 @@ def test_plans_at_head_dim_128(dtype):
     fwd64 = fa.fwd_plan(4, 8, 2049, 2049, True, dtype)
     assert sorted(sum(fwd["tiles"][0], [])) == sorted(sum(fwd64["tiles"][0], []))
     assert dq["tiles"] == fa.dq_plan(4, 8, 1, 2049, 2049, True, dtype, dbias=True)["tiles"]
+
+
+@pytest.mark.parametrize("d", [192, 256, 320, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("label,b,h,hk,n,m,causal", SHAPES, ids=[s[0] for s in SHAPES])
+def test_column_sliced_plans_visit_each_attended_pair_once_a_slice(label, b, h, hk, n, m,
+                                                                   causal, dtype, d):
+    """Over D = 128 every kernel runs D / 64 blocks for each block of its
+    grid, one a 64-wide slice of the output, with one shared memory for
+    every D: K1's and K2's blocks of a slice visit each attended (query tile,
+    key tile) once, K2's in order, and K3's blocks of a slice each attended
+    (query head, query row) of their kv head once, in head order."""
+    slices = d // 64
+    fwd = fa.fwd_plan(b, h, n, m, causal, dtype, d)
+    dq = fa.dq_plan(b, h, hk, n, m, causal, dtype, dbias=True, d=d)
+    dkv = fa.dkv_plan(b, h, hk, n, m, dtype, d)
+    for plan in (fwd, dq, dkv):
+        assert plan["slices"] == slices and plan["stages"] == 2
+        assert plan["smem"] == fa.fwd_plan(b, h, n, m, causal, dtype, 192)["smem"] + (
+            0 if plan is not dq else fa._K5_BYTES)
+    assert fwd["consumers"] == dkv["consumers"] == 1
+    assert dq["items"] == dkv["items"] == 2 * slices + 1
+    assert (dkv["cluster"], dkv["qsplit"]) == (1, 1)
+    # each slice's blocks walk the same tiles: once each, over the attended ones
+    for plan in (fwd, dq):
+        seen = collections.Counter()
+        for qi, keys in plan["tiles"].items():
+            keys = keys[0] if plan is fwd else keys
+            assert keys == sorted(keys)
+            seen.update((qi, ki) for ki in keys)
+        assert max(seen.values()) == 1 and set(seen) >= attended_tiles(n, m, causal)
+    keep = np.tril(np.ones((n, m), bool), m - n) if causal else np.ones((n, m), bool)
+    group = h // hk
+    for kv_head in range(hk):
+        for ki in range(-(-m // 64)):
+            first, second = fa.dkv_items(dkv, h, hk, n, m, causal, kv_head, ki, 0, 0)
+            assert not second and [x[0] for x in first] == sorted(x[0] for x in first)
+            rows = np.zeros((h, n), int)
+            for head, q0 in first:
+                rows[head, q0:q0 + 64] += 1
+            sees = keep[:, ki * 64:(ki + 1) * 64].any(1)
+            heads = list(range(kv_head * group, (kv_head + 1) * group))
+            assert rows.max() == 1 and (rows[heads][:, sees] == 1).all()
+
+
+def emulate_column_sliced(q, k, v, g, tab, mask, causal, scale):
+    """The column-sliced forms' arithmetic in float64 (D a multiple of 64):
+    for each 64-wide output slice, each 64-row query tile against each key
+    tile, S (and dP) summed over the depth's 64-wide chunks, each chunk from
+    zero; the online softmax over the key tiles in order (K1), dS K's slice
+    for dq (K2), and dS^T Q's and P^T dO's slices summed over the kv head's
+    query heads, then their query tiles, in order (K3). Returns out, lse
+    (slice 0's, and every slice's equal), dq, dk, dv."""
+    b, h, n, d = q.shape
+    hk, m = k.shape[1], k.shape[2]
+    group, chunks = h // hk, range(0, d, 64)
+    keep = torch.ones(n, m, dtype=torch.bool)
+    keep = keep.tril(m - n) if causal else keep
+    rel = toeplitz_expand(tab, n, m) if tab is not None else torch.zeros(h, n, m, dtype=q.dtype)
+
+    def scores(x, y, qs, ks, head, bi, kv):
+        s = sum(x[bi, head, qs, c:c + 64] @ y[bi, kv, ks, c:c + 64].T for c in chunks)
+        allowed = keep[qs, ks] & mask[bi, ks][None, :]
+        return (scale * s + rel[head, qs, ks]).masked_fill(~allowed, -1e30)
+
+    out = torch.zeros_like(q)
+    lse = torch.zeros(b, h, n, dtype=q.dtype)
+    dq = torch.zeros_like(q)
+    for bi in range(b):
+        for head in range(h):
+            kv = head // group
+            for q0 in range(0, n, 64):
+                qs = slice(q0, min(n, q0 + 64))
+                kv_end = min(m, q0 + 64 + m - n) if causal else m
+                for c0 in chunks:
+                    cs = slice(c0, c0 + 64)
+                    mx = torch.full((qs.stop - q0,), -1e30, dtype=q.dtype)
+                    l = torch.zeros_like(mx)
+                    o = torch.zeros(qs.stop - q0, 64, dtype=q.dtype)
+                    for k0 in range(0, kv_end, 64):
+                        ks = slice(k0, min(m, k0 + 64))
+                        s = scores(q, k, qs, ks, head, bi, kv)
+                        m_new = torch.maximum(mx, s.max(1).values)
+                        alpha, p = torch.exp(mx - m_new), torch.exp(s - m_new[:, None])
+                        l, mx = l * alpha + p.sum(1), m_new
+                        o = o * alpha[:, None] + p @ v[bi, kv, ks, cs]
+                    out[bi, head, qs, cs] = o / l[:, None]
+                    row_lse = mx + torch.log(l)
+                    if c0 > 0:
+                        assert torch.equal(row_lse, lse[bi, head, qs])
+                    lse[bi, head, qs] = row_lse
+    delta = (g * out).sum(-1)
+    for bi in range(b):
+        for head in range(h):
+            kv = head // group
+            for q0 in range(0, n, 64):
+                qs = slice(q0, min(n, q0 + 64))
+                kv_end = min(m, q0 + 64 + m - n) if causal else m
+                for c0 in chunks:
+                    acc = torch.zeros(qs.stop - q0, 64, dtype=q.dtype)
+                    for k0 in range(0, kv_end, 64):
+                        ks = slice(k0, min(m, k0 + 64))
+                        p = torch.exp(scores(q, k, qs, ks, head, bi, kv) - lse[bi, head, qs, None])
+                        dp = sum(g[bi, head, qs, c:c + 64] @ v[bi, kv, ks, c:c + 64].T
+                                 for c in chunks)
+                        acc = acc + (p * (dp - delta[bi, head, qs, None])) @ k[bi, kv, ks, c0:c0 + 64]
+                    dq[bi, head, qs, c0:c0 + 64] = scale * acc
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for bi in range(b):
+        for kv in range(hk):
+            for k0 in range(0, m, 64):
+                ks = slice(k0, min(m, k0 + 64))
+                q_start = max(0, k0 - (m - n)) if causal else 0
+                for c0 in chunks:
+                    cs = slice(c0, c0 + 64)
+                    sk = torch.zeros(ks.stop - k0, 64, dtype=q.dtype)
+                    sv = torch.zeros_like(sk)
+                    for head in range(kv * group, (kv + 1) * group):
+                        for q0 in range(q_start, n, 64):
+                            qs = slice(q0, min(n, q0 + 64))
+                            p = torch.exp(scores(q, k, qs, ks, head, bi, kv)
+                                          - lse[bi, head, qs, None])
+                            dp = sum(g[bi, head, qs, c:c + 64] @ v[bi, kv, ks, c:c + 64].T
+                                     for c in chunks)
+                            ds = p * (dp - delta[bi, head, qs, None])
+                            sk = sk + ds.T @ q[bi, head, qs, cs]
+                            sv = sv + p.T @ g[bi, head, qs, cs]
+                    dk[bi, kv, ks, cs] = scale * sk
+                    dv[bi, kv, ks, cs] = sv
+    return out, lse, dq, dk, dv
+
+
+@pytest.mark.parametrize("causal,m_extra", [(True, 0), (True, 17), (False, -53)])
+@pytest.mark.parametrize("d", [192, 256])
+def test_column_sliced_scheme_equals_the_unsliced_plain_version(d, causal, m_extra):
+    """The column-sliced forms' scheme, emulated in float64 (2 x 4 heads over
+    one kv head, 130 queries; causal over 130 keys with the rel-pos table,
+    causal over a prefix of 17 more, and cross attention over 77 keys; one
+    batch row's keys partly masked), equals the plain versions to 1e-12:
+    slicing the output and chunking the depth change no result."""
+    b, h, hk, n = 2, 4, 1, 130
+    m = n + m_extra
+    rng = np.random.default_rng(d + m)
+    q, g = (torch.from_numpy(rng.normal(size=(b, h, n, d))) for _ in range(2))
+    k, v = (torch.from_numpy(rng.normal(size=(b, hk, m, d))) for _ in range(2))
+    tab = torch.from_numpy(0.5 * rng.normal(size=(2 * n - 1, h))) if m == n else None
+    mask = torch.ones(b, m, dtype=torch.bool)
+    mask[1, (2 * m) // 3:] = False
+    scale = d ** -0.5
+    got = emulate_column_sliced(q, k, v, g, tab, mask, causal, scale)
+    out, lse = fa.flash_attention_ref(q, k, v, bias_tab=tab, key_mask=mask, causal=causal,
+                                      scale=scale, return_lse=True)
+    dq, dk, dv, _ = fa.flash_attention_bwd_ref(q, k, v, tab, mask, out, lse, g, causal=causal,
+                                               scale=scale)
+    tight = dict(rtol=1e-12, atol=1e-12)
+    for name, a, r in zip(("out", "lse", "dq", "dk", "dv"), got, (out, lse, dq, dk, dv)):
+        torch.testing.assert_close(a, r, **tight, msg=name)

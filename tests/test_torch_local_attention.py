@@ -250,10 +250,11 @@ def test_local_transformer_matches_jax(dynamic_pos_bias):
     np.testing.assert_allclose(pm(t(x)).detach().numpy(), np.asarray(want), **TOL)
 
 
-@pytest.mark.parametrize("d", [16, 128])
+@pytest.mark.parametrize("d", [16, 128, 256])
 def test_plain_k7_matches_xla_and_pallas_at_head_dims(d):
-    """A head dim the kernel takes by zero padding (16) and its widest
-    (128), masked and biased, T past a window multiple."""
+    """A head dim the kernel takes by zero padding (16), the widest of its
+    native forms (128) and one of its column-sliced form's (256), masked
+    and biased, T past a window multiple."""
     rng = np.random.default_rng(d)
     q, k, v, mask, bias = _inputs(rng, 2, 2, 150, d, 64, True, True)
     got = _port(q, k, v, mask, bias, 64).numpy()
@@ -262,7 +263,7 @@ def test_plain_k7_matches_xla_and_pallas_at_head_dims(d):
                                          interpret=True), **TOL)
 
 
-@pytest.mark.parametrize("d", [8, 48, 96])
+@pytest.mark.parametrize("d", [8, 48, 96, 160])
 def test_k7_padded_route_equals_the_unpadded_plain_version(d):
     """What the CUDA wrapper does with a head dim the kernel is not built
     for, through the plain version in float64: q, k, v zero-padded to the
@@ -272,7 +273,7 @@ def test_k7_padded_route_equals_the_unpadded_plain_version(d):
     q, k, v, mask, bias = _inputs(rng, 2, 2, 150, d, 64, True, True)
     q, k, v, bias = (torch.from_numpy(a.astype(np.float64)) for a in (q, k, v, bias))
     dn = pk.native_head_dim(d)
-    assert dn == {8: 32, 48: 64, 96: 128}[d]
+    assert dn == {8: 32, 48: 64, 96: 128, 160: 192}[d]
     kw = dict(window_size=64, mask=t(mask), attn_bias=bias, scale=d ** -0.5)
     want = pk.local_attention_ref(q, k, v, **kw)
     pad = [torch.nn.functional.pad(a, (0, dn - d)) for a in (q, k, v)]

@@ -15,8 +15,8 @@ turns: this build, the forced one, the forced one, this. With --parent DIR it al
 (the parent commit's `audiolm_pytorch_tpu_torch/csrc/flash_fwd.cu`,
 `flash_bwd.cu`, `vq.cu` and `local_attn.cu` with their headers), in one
 process, in turns: the parent's build, this one's, this one's again and
-the parent's again, at the shapes the parent's kernels take (head dim 64,
-K7's windows 64 and 128, no per-batch bias). The builds share the C
+the parent's again, at the shapes the parent's kernels take (head dims up
+to 128 with every bias form, K7's windows 64 and 128). The builds share the C
 interfaces (the flash kernels' per-batch flag comes last, which an older
 library ignores), so the parent's libraries are loaded in place of this
 one's behind the same wrappers.
@@ -57,8 +57,9 @@ cuda_ms = functools.partial(cuda_timing.cuda_ms, iters=20, warmup=3)
 # keys (the first kept), "ragged" masks keys >= 700 of row 1, "text" keeps
 # each row's text tokens (7, 13, 9, 16 of the first P) and forgets 15% of
 # the rest, "null" keeps the null key and each row's text tokens. The head
-# dims 32 and 128 are timed for this checkout alone (a parent's kernels may
-# take 64 only).
+# dims 32 and 128 are timed against a parent's as head dim 64 is; the head
+# dims over 128 (the kernels' column-sliced form: the flagship's and the
+# Coarse LM's 256, the Fine LM's 320) for this checkout alone.
 SHAPES = (("4x8x2048 table", 4, 8, 2048, 2048, "table", True, "forget", False),
           ("4x8x2049 table (training)", 4, 8, 2049, 2049, "table", True, "forget", False),
           ("2x8x1000 table, ragged", 2, 8, 1000, 1000, "table", True, "ragged", False),
@@ -83,7 +84,13 @@ SHAPES = (("4x8x2048 table", 4, 8, 2048, 2048, "table", True, "forget", False),
            "forget", False, 32),
           ("4x8x1201 per-batch bias", 4, 8, 1201, 1201, "batch_bias", True, "forget", False),
           ("4x4x603x128 per-batch bias", 4, 4, 603, 603, "batch_bias", True, "forget", False,
-           128))
+           128),
+          ("4x4x2049x256 table (flagship training, 4 heads of 256)", 4, 4, 2049, 2049, "table",
+           True, "forget", False, 256),
+          ("4x2x603x256 bias (Coarse training, 2 heads of 256)", 4, 2, 603, 603, "bias", True,
+           "forget", False, 256),
+          ("4x2x1201x320 bias (Fine training, 2 heads of 320)", 4, 2, 1201, 1201, "bias", True,
+           "forget", False, 320))
 STAGE_ONLY_BF16 = ("trainer)",)
 TEXT_LENGTHS = (7, 13, 9, 16)
 # K6: (rows, codes, dim): a decode step's and a short prompt's rows, a
@@ -106,7 +113,9 @@ LOCAL_SHAPES = (("8x8x100x64 w128 (codec 2 s)", 8, 8, 100, 64, 128, False),
                 *((f"8x8x500x64 w{w}, strided", 8, 8, 500, 64, w, True)
                   for w in (8, 16, 32, 48, 96, 256)),
                 ("8x4x400x16 w32, strided (demo codec, 8 x 2 s)", 8, 4, 400, 16, 32, True),
-                ("2x4x128x16 w32, strided (demo codec training)", 2, 4, 128, 16, 32, True))
+                ("2x4x128x16 w32, strided (demo codec training)", 2, 4, 128, 16, 32, True),
+                ("8x8x100x256 w128, strided (codec 2 s, attn_dim_head 256)", 8, 8, 100, 256, 128,
+                 True))
 
 
 def parent_library(parent: Path, name: str) -> ctypes.CDLL:
@@ -191,15 +200,18 @@ def times(q, k, v, g, tab, bias, mask, causal, fwd_only):
     def k3():
         return fa.bwd_dkv(*args, bias=dense, **kw)
 
-    got = {"K1": (cuda_ms(k1), *cuda_timing.named_device_ms(k1, ["flash_fwd_kernel"]))}
+    # each kernel's native and column-sliced (`_wide_`) instantiations
+    got = {"K1": (cuda_ms(k1), *cuda_timing.named_device_ms(
+        k1, ["flash_fwd_kernel", "flash_fwd_wide_kernel"]))}
     if not fwd_only:
-        got["K2"] = (cuda_ms(k2), *cuda_timing.named_device_ms(k2, ["flash_bwd_dq_kernel"]))
+        got["K2"] = (cuda_ms(k2), *cuda_timing.named_device_ms(
+            k2, ["flash_bwd_dq_kernel", "flash_bwd_dq_wide_kernel"]))
         if tab is not None or bias is not None:
             grad = "K2+K4" if tab is not None else "K2+K5" if bias.ndim == 3 else "K2+dS"
             got[grad] = (cuda_ms(k2_grad), *cuda_timing.named_device_ms(
-                k2_grad, ["flash_bwd_dq_kernel", "dtab_sum_kernel"]))
+                k2_grad, ["flash_bwd_dq_kernel", "flash_bwd_dq_wide_kernel", "dtab_sum_kernel"]))
         got["K3"] = (cuda_ms(k3), *cuda_timing.named_device_ms(
-            k3, ["flash_bwd_dkv_kernel", "dkv_sum_kernel"]))
+            k3, ["flash_bwd_dkv_kernel", "flash_bwd_dkv_wide_kernel", "dkv_sum_kernel"]))
     return got
 
 
@@ -318,7 +330,7 @@ def compare(parent=None, seed=0, shapes=SHAPES):
         for dtype in dtypes:
             tensors = inputs(np.random.default_rng(seed), dtype, b, h, n, m, form, keys, d)
             runs = {"this": []}
-            if parent is not None and d == 64 and form != "batch_bias":
+            if parent is not None and d <= 128:
                 runs["parent"] = []
                 for which in ("parent", "this", "this", "parent"):
                     with parent_kernels(parent) if which == "parent" else contextlib.nullcontext():
@@ -412,7 +424,7 @@ def compare_local(parent=None, seed=0, shapes=LOCAL_SHAPES):
                           else _build.built_with(ANY_WINDOW_BLOCK) if which == "general"
                           else contextlib.nullcontext()):
                         runs[which].append((cuda_ms(k7), *cuda_timing.named_device_ms(
-                            k7, ["local_attn_kernel"])))
+                            k7, ["local_attn_kernel", "local_attn_wide_kernel"])))
                 at = f"{str(dtype)[6:]} {label}{form}"
                 if aligned:
                     with _build.built_with(ANY_WINDOW_BLOCK):
