@@ -46,7 +46,8 @@
 //       warpgroup and a consumer warpgroup. The producer's first thread loads the block's Q and dO
 //       tiles once by TMA (3-D maps (64, rows, planes), so a head's ragged
 //       last tile reads zeros) and streams the K and V tiles up to the
-//       diagonal through a ring of stages (two in float32, three in bf16)
+//       diagonal through a ring of stages (two in float32 and at bf16's D
+//       = 256, three in bf16 up to D = 128)
 //       with full and empty mbarriers; its threads write each stage's table
 //       slice (log2(e) scaled) and key flags, loaded a tile ahead into
 //       registers, and in float32 split Q, dO, K and V into tf32 big/small
@@ -147,10 +148,12 @@
 //       bits every run. The plan (cluster, chunks) is dkv_plan, which
 //       ops/kernels/flash_attention.py::dkv_plan states for the tests.
 // Head dims. The native forms are instantiated for D = 32, 64 and 128 (the
-// wrapper zero-pads any other D up to 128 into the next of them); over 128
-// the column-sliced forms below take every D that is a multiple of 64 (any
-// other D zero-padded to the next one). The native forms sit on
-// csrc/wgmma.cuh's boxes: a
+// wrapper zero-pads any other D up to 128 into the next of them), and in
+// bf16 for D = 256 (K2 flash_bwd_dq_kernel<bf16, 256, DB>, K3
+// flash_bwd_dkv_pair_kernel; the wrapper zero-pads bf16's 129 to 255 to
+// it); over 128 in float32, and over 256 in bf16, the column-sliced forms
+// below take every D that is a multiple of 64 (any other D zero-padded to
+// the next one). The native forms sit on csrc/wgmma.cuh's boxes: a
 // D-wide row is D * sizeof(T) / 128 boxes (a 32-wide bf16 row half of one,
 // read as zeros past the row's end), the products over D run D * sizeof(T)
 // / 32 k-steps, and those whose N index is D (dq += dS K, dV += P^T dO, dK
@@ -168,11 +171,17 @@
 // consumer, one block an SM, the slot's split ordered before the next load,
 // no overlap: right, and simple, not yet fast (PERF.md). The products are
 // the same, in the same order, as at the other head dims, so the sums keep
-// their fixed order and bits.
+// their fixed order and bits. In bf16 at D = 256 every tile doubles again
+// (32 KB): K2 keeps its block with two stages (231,200 bytes with K5's
+// buffers, 1,248 under the limit; its consumer's dq 128 registers a
+// thread), and K3 takes a block of its own, flash_bwd_dkv_pair_kernel, whose
+// two consumers hold one gradient each and hand P^T and dS^T to each other
+// (see there). S and dP are formed once a tile, as at every native D.
 //
-// Over D = 128 (flash_bwd_dq_wide_kernel, flash_bwd_dkv_wide_kernel). At D
-// = 256 K3's dk and dv would take 256 registers a thread in one warpgroup
-// and K2's Q, dO, K and V tiles with their small parts 512 KB. So a block
+// Over D = 128 in float32, over 256 in bf16 (flash_bwd_dq_wide_kernel,
+// flash_bwd_dkv_wide_kernel). In float32 an operand tile with its tf32
+// small parts is 128 KB at D = 256, so K3's K and V (or K2's Q and dO)
+// alone would fill 256 KB, over the 227 KB a block may have. So a block
 // owns one 64-wide slice of its output's columns (dq, or dk and dv) and
 // keeps 16 x 64 strips of it a warp; S and dP (K2: rows queries; K3: S^T
 // and dP^T, rows keys) are summed over the depth 64 columns at a time, each
@@ -209,6 +218,8 @@ constexpr int BQ = 64;          // query rows per tile
 constexpr int BK = 64;          // keys per tile
 constexpr int ND = BQ + BK - 1; // deltas a tile covers
 constexpr int MAX_CLUSTER = 8;  // the portable cluster size
+constexpr int BF16_DIM = 256;   // bf16's Hopper form of K2 and K3 over D = 128 (the
+                                // wrapper pads bf16's 129 to 255 to it)
 // K2's forms of the bias's gradient: none or K4's (the table's, by its
 // dpart pointer), K5's batch sum, or a per-batch bias's dS
 constexpr int DB_NONE = 0, DB_SUM = 1, DB_EACH = 2;
@@ -241,18 +252,22 @@ constexpr int PLAN_SMS = 132;  // the H100's SMs, which the launch plans fill
 // 231,072 of 232,448 bytes (two stages; one block an SM); bf16 16 + 3 x 16
 // + 32 KB (three stages; ~99 KB, two blocks an SM, setmaxnreg giving the
 // producer's registers to the consumer). Float32 at D = 128 (SEQ): a stage
-// is one slot that K and V take in turn, two ring items a key tile.
+// is one slot that K and V take in turn, two ring items a key tile. Bf16 at
+// D = 256: Q and dO 64 KB, two stages of K and V 128 KB, the rest 1.8 KB
+// (EXTRA 198,432 bytes), K4's buffers 24 KB (223,008) or K5's two dS
+// buffers 32 KB (231,200: 1,248 bytes under the limit); one block an SM,
+// no setmaxnreg, the consumer's dq 128 registers a thread.
 template <typename T, int D, bool SUM>
 struct Dq {
   static constexpr bool F32 = sizeof(T) == 4;
-  static constexpr bool WIDE = D > 64;  // D = 128
+  static constexpr bool WIDE = D > 64;  // D = 128, or bf16's 256
   static constexpr bool SEQ = F32 && WIDE;
   static constexpr int PER = SEQ ? 2 : 1;  // ring items a key tile: V then K, or both
   static constexpr int NT = 256;  // the producer warpgroup, then the consumer warpgroup
   static constexpr int MIN_BLOCKS = F32 || WIDE ? 1 : 2;
   static constexpr bool NREG = MIN_BLOCKS == 2;  // setmaxnreg: bf16 at D <= 64
   static constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 200;  // with NREG
-  static constexpr int ST = SEQ ? 1 : F32 ? 2 : 3;  // stages
+  static constexpr int ST = SEQ ? 1 : F32 || D > 128 ? 2 : 3;  // stages
   static constexpr int TILE = wg::tile_bytes<T, D>();
   static constexpr int NA = wg::acc_blocks<T, D>();  // the dq accumulator's n-blocks
   static constexpr int OPER = F32 ? 2 * TILE : TILE;
@@ -1155,6 +1170,349 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
   tc::cluster_wait();
 }
 
+// K3 in bf16 at D = 256: one block per (query head set, b*hk, 64-key tile,
+// query chunk), its grid, cluster and query split those of flash_bwd_dkv_kernel
+// (dkv_plan), of a producer warpgroup and two consumer warpgroups, one a
+// gradient. dK and dV of 64 keys x 256 are 128 float32 registers a thread
+// each, so one warpgroup cannot hold both, and the D <= 128 shape (two
+// consumers taking the items in turn, each with both) would need 256. So
+// both consumers take every item: consumer A holds dK, forms S^T = K Q^T and
+// P^T; consumer B holds dV, forms dP^T = V dO^T. A hands P^T to B and B
+// hands dS^T = P^T (dP^T - Delta) back; then A takes dK += dS^T Q and B dV
+// += P^T dO, each on wgmma with the tile as a transposed B. Every product
+// runs once an item and the two consumers carry equal work; A's dK product
+// of one item runs while B forms the next item's dP^T. The hand-offs go
+// through shared memory in the accumulator's own layout (thread i of A and
+// thread i of B hold the same elements: 16-byte stores and loads at [j *
+// 128 + i], no swizzle, no bank conflict): P^T as float32 (16 KB, so B forms
+// dS from P as the other forms do), dS^T as the bf16 pairs of the A operand
+// (8 KB, the bits gemm_pk packs), single-buffered, each behind a full and a
+// free mbarrier (a writer waits for the reader to free the previous
+// item's). dk and dv sum over the items in order, each in one warpgroup,
+// then over the cluster in rank order: the same bits every run.
+// Shared memory (offsets from a 1024-byte aligned base): K and V (64 KB);
+// two stages of (Q, dO) (128 KB); per stage lse [64], Delta [64] and the
+// table slice [128]; the key flags [64] and two words; P^T (16 KB) and dS^T
+// (8 KB); the barriers: 223,632 bytes, one block an SM. After the loop the
+// dK and dV partials (pitch D + 4, 133,120 bytes) take K's, V's and the
+// ring's place.
+template <typename T, int D>
+struct DkvPair {
+  static_assert(sizeof(T) == 2, "bf16 only: float32's tiles with their small parts do not fit");
+  static constexpr int NT = 384;  // the producer, consumer A (dK), consumer B (dV)
+  static constexpr int MIN_BLOCKS = 1;
+  static constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+  static constexpr int ST = 2;  // stages
+  static constexpr int TILE = wg::tile_bytes<T, D>();
+  static constexpr int NA = wg::acc_blocks<T, D>();  // dk's or dv's n-blocks
+  static constexpr int STAGE0 = 2 * TILE;
+  static constexpr int STAGE = 2 * TILE;
+  static constexpr int MISC = STAGE0 + ST * STAGE;
+  static constexpr int MISC_STAGE = (64 + 64 + 128) * 4;
+  static constexpr int FLAGS = MISC + ST * MISC_STAGE;
+  static constexpr int PX = FLAGS + (64 + 4) * 4;  // P^T: 32 floats a thread of A
+  static constexpr int DSX = PX + BK * BQ * 4;     // dS^T: 16 bf16 pairs a thread of B
+  static constexpr int BARS = DSX + BK * BQ * 2;
+  static constexpr int RP = D + 4;  // the partials' pitch in floats
+  static constexpr size_t bytes = BARS + 128;
+  static_assert(PX % 16 == 0 && DSX % 16 == 0, "16-byte hand-off stores");
+  static_assert(MISC >= 2 * BK * RP * 4, "the partials fit in K's, V's and the ring's place");
+  static_assert((2 + 2 * ST + 4) * 8 <= 128, "the barriers fit");
+  static_assert(bytes <= 232448, "a block's shared memory");
+  static_assert(((65536 / NT) & ~7) * 3 == PRODUCER_REGS + 2 * CONSUMER_REGS,
+                "setmaxnreg hands over exactly the launch's registers");
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(DkvPair<T, D>::NT, DkvPair<T, D>::MIN_BLOCKS)
+flash_bwd_dkv_pair_kernel(const __grid_constant__ CUtensorMap qmap,
+                          const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap,
+                          const __grid_constant__ CUtensorMap gmap, const float* __restrict__ lse,
+                          const float* __restrict__ delta, const float* __restrict__ tab,
+                          const float* __restrict__ bias, const int8_t* __restrict__ kmask,
+                          T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ part,
+                          int bhk, int heads, int hk, int n, int m, float scale, int causal,
+                          int qsplit, int bias_batched) {
+  using L = DkvPair<T, D>;
+  constexpr int ST = L::ST;
+  extern __shared__ __align__(1024) unsigned char dkv_pair_smem[];
+  unsigned char* sm = dkv_pair_smem;
+  if (threadIdx.x == 0 && (tc::smem_u32(sm) & 1023) != 0) __trap();  // the tiles' swizzle
+  T* Ks = reinterpret_cast<T*>(sm);
+  T* Vs = reinterpret_cast<T*>(sm + L::TILE);
+  auto Qs = [&](int s) { return reinterpret_cast<T*>(sm + L::STAGE0 + s * L::STAGE); };
+  auto Gs = [&](int s) { return reinterpret_cast<T*>(sm + L::STAGE0 + s * L::STAGE + L::TILE); };
+  // log2(e) lse (+inf where p = 0), Delta, log2(e) times the table slice, as
+  // flash_bwd_dkv_kernel's
+  auto Ls = [&](int s) { return reinterpret_cast<float*>(sm + L::MISC + s * L::MISC_STAGE); };
+  float* Fs = reinterpret_cast<float*>(sm + L::FLAGS);
+  int* Fany = reinterpret_cast<int*>(Fs + 64);  // nonzero where a flag of keys 0-31 (32-63) is
+  float4* px = reinterpret_cast<float4*>(sm + L::PX);
+  uint4* dsx = reinterpret_cast<uint4*>(sm + L::DSX);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  uint64_t *kvload = bars, *kvfull = bars + 1, *full = bars + 2, *empty = full + ST,
+           *pready = empty + ST, *pfree = pready + 1, *dsready = pfree + 1, *dsfree = dsready + 1;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), csize = (int)cluster.num_blocks();
+  // the grid as flash_bwd_dkv_kernel's: the cluster's ranks, then b * hk +
+  // kv head, then (key tile, query chunk)
+  const int kvh = blockIdx.x / csize % bhk;
+  const int b = kvh / hk, kh = kvh % hk, group = heads / hk;
+  const int zz = blockIdx.x / csize / bhk;
+  const int k0 = (zz / qsplit) * BK, z = zz % qsplit;
+  const int off = m - n;
+  const int q_start = causal ? max(0, k0 - off) : 0;
+  const int nqt = q_start < n ? (n - q_start + BQ - 1) / BQ : 0;
+  const int per = (nqt + qsplit - 1) / qsplit;
+  const int qa = min(nqt, z * per), nq = min(nqt, qa + per) - qa;
+  const int total = (group / csize) * nq;
+  auto head = [&](int it) { return kh * group + rank + csize * (it / nq); };
+  auto qtile = [&](int it) { return q_start + (qa + it % nq) * BQ; };
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    wg::mbar_init(kvload, 1);
+    wg::mbar_init(kvfull, 128);
+    for (int s = 0; s < ST; ++s) {
+      wg::mbar_init(&full[s], 128);
+      wg::mbar_init(&empty[s], 256);  // both consumers take every item
+    }
+    wg::mbar_init(pready, 128);
+    wg::mbar_init(pfree, 128);
+    wg::mbar_init(dsready, 128);
+    wg::mbar_init(dsfree, 128);
+    wg::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // ---- the producer: flash_bwd_dkv_kernel's in bf16, one ring item an item ----
+    wg::setmaxnreg_dec<L::PRODUCER_REGS>();
+    if (tid == 0) {
+      wg::mbar_arrive_tx(kvload, 2 * L::TILE);
+      wg::load_tile<T, D>(Ks, &kmap, kvload, k0, kvh);
+      wg::load_tile<T, D>(Vs, &vmap, kvload, k0, kvh);
+    }
+    if (tid < BK) {
+      const float f = tc::key_flag(kmask, b, m, k0 + tid);
+      Fs[tid] = f;
+      const unsigned any = __ballot_sync(0xffffffffu, f != 0.f);
+      if (tid % 32 == 0) Fany[tid / 32] = any != 0u;
+    }
+    float row_r = 0.f, tab_r = 0.f;
+    auto fetch = [&](int it) {
+      const int h = head(it), q0 = qtile(it);
+      const size_t bh = (size_t)b * heads + h;
+      const int qp = q0 + tid % BQ;
+      if (tid < BQ) {
+        const float x = qp < n ? lse[bh * n + qp] : INFINITY;
+        row_r = x > 0.5f * NEG ? tc::LOG2E * x : INFINITY;
+      } else {
+        row_r = qp < n ? delta[bh * n + qp] : 0.f;
+      }
+      if (tab != nullptr && tid < BQ + BK - 1)
+        tab_r = tc::LOG2E * tc::tab_entry(tab, q0, k0, BK, tid, n, heads, h);
+    };
+    auto issue = [&](int it) {
+      const int s = it % ST, q0 = qtile(it);
+      const size_t bh = (size_t)b * heads + head(it);
+      const float row_it = row_r, tab_it = tab_r;
+      if (it + 1 < total) fetch(it + 1);
+      wg::mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
+      if (tid == 0) {
+        wg::mbar_expect_tx(&full[s], 2 * L::TILE);
+        wg::load_tile<T, D>(Qs(s), &qmap, &full[s], q0, (int)bh);
+        wg::load_tile<T, D>(Gs(s), &gmap, &full[s], q0, (int)bh);
+      }
+      float* ls = Ls(s);
+      ls[tid] = row_it;
+      if (tab != nullptr && tid < BQ + BK - 1) ls[2 * BQ + tid] = tab_it;
+      wg::mbar_arrive(&full[s]);
+    };
+    if (total > 0) {
+      fetch(0);
+      issue(0);
+    }
+    wg::mbar_wait(kvload, 0);
+    wg::mbar_arrive(kvfull);
+    for (int it = 1; it < total; ++it) issue(it);
+    // the cluster's two barriers of the head sum below
+    tc::cluster_arrive();
+    tc::cluster_wait();
+    tc::cluster_arrive_relaxed();
+    tc::cluster_wait();
+    return;
+  }
+
+  // ---- the consumers: A (threads 128-255) dK, B (256-383) dV ----
+  wg::setmaxnreg_inc<L::CONSUMER_REGS>();
+  const bool holds_dk = tid < 256;
+  const int ctid = tid % 128, warp = ctid / 32, gq = (ctid % 32) / 4, t = ctid % 4;
+  const int kl[2] = {warp * 16 + gq, warp * 16 + gq + 8};  // this thread's keys in the tile
+  wg::mbar_wait(kvfull, 0);
+  const float fk[2] = {Fs[kl[0]], Fs[kl[1]]};
+  const bool flagged = Fany[0] || Fany[1];
+  const float sl = scale * tc::LOG2E;
+  float acc[4 * L::NA];  // dK (A) or dV (B): rows keys, columns the head dim
+#pragma unroll
+  for (int i = 0; i < 4 * L::NA; ++i) acc[i] = 0.f;
+  const T* rows_op = holds_dk ? Ks : Vs;
+
+  for (int it = 0; it < total; ++it) {
+    const int s = it % ST, q0 = qtile(it);
+    wg::mbar_wait(&full[s], (it / ST) & 1);
+    // A: S^T = K Q^T, then P^T; B: dP^T = V dO^T, then dS^T (rows keys,
+    // columns queries)
+    float x[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) x[i] = 0.f;
+    wg::fence_acc(x);
+    wg::wgmma_fence();
+    wg::gemm_nk<T, D>(x, rows_op, nullptr, holds_dk ? Qs(s) : Gs(s), nullptr);
+    const float* ls = Ls(s);
+    if (holds_dk) {
+      // The (H, N, M) bias, loaded while the product runs, as in
+      // flash_bwd_dkv_kernel
+      float bv[32];
+      if (bias != nullptr) {
+        const float* bh_bias =
+            bias + (((bias_batched ? (size_t)b * heads : 0) + head(it)) * n + q0) * m + k0;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int cq = 8 * (i / 4) + 2 * t + (i & 1), kr = kl[(i / 2) & 1];
+          bv[i] = q0 + cq < n && k0 + kr < m ? __ldg(bh_bias + (size_t)cq * m + kr) : 0.f;
+        }
+      }
+      wg::wgmma_wait<0>();
+      wg::fence_acc(x);
+      // p = 2^(y - log2(e) lse) by flash_bwd_dkv_kernel's masking rule
+      const bool diag = causal && tc::above(k0 + warp * 16 + 15, q0, off);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int cq = 8 * (i / 4) + 2 * t + (i & 1), ri = (i / 2) & 1, kr = kl[ri];
+        float bc = 0.f;
+        if (tab != nullptr) bc = ls[2 * BQ + cq - kr + BK - 1];
+        else if (bias != nullptr) bc = tc::LOG2E * bv[i];
+        float y = fmaf(x[i], sl, bc);
+        if (diag) y = tc::above(k0 + kr, q0 + cq, off) ? fminf(NEG, fk[ri]) : y + fk[ri];
+        else if (flagged) y += fk[ri];
+        x[i] = tc::ex2(y - ls[cq]);
+      }
+      // P^T to B once B has read the previous item's; dS^T back from B
+      if (it > 0) wg::mbar_wait(pfree, (it - 1) & 1);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        px[j * 128 + ctid] = make_float4(x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]);
+      wg::mbar_arrive(pready);
+      uint32_t da[4][4];
+      wg::mbar_wait(dsready, it & 1);
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        const uint4 w = dsx[ks * 128 + ctid];
+        da[ks][0] = w.x;
+        da[ks][1] = w.y;
+        da[ks][2] = w.z;
+        da[ks][3] = w.w;
+      }
+      wg::mbar_arrive(dsfree);
+      // dK += dS^T Q, Q's tile as a transposed B
+      wg::fence_acc(acc);
+      wg::gemm_rk<L::NA / 8>(acc, da, Qs(s));
+      wg::wgmma_wait<0>();
+      wg::fence_acc(acc);
+    } else {
+      wg::wgmma_wait<0>();
+      wg::fence_acc(x);
+      float p[32];
+      wg::mbar_wait(pready, it & 1);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 v = px[j * 128 + ctid];
+        p[4 * j] = v.x;
+        p[4 * j + 1] = v.y;
+        p[4 * j + 2] = v.z;
+        p[4 * j + 3] = v.w;
+      }
+      wg::mbar_arrive(pfree);
+      // dS^T = P^T (dP^T - Delta), packed as the A operand of A's product
+      uint32_t ds[4][4];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) x[i] = p[i] * (x[i] - ls[BQ + 8 * (i / 4) + 2 * t + (i & 1)]);
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          ds[ks][i] = tc::pack_bf16(x[8 * ks + 2 * i], x[8 * ks + 2 * i + 1]);
+      if (it > 0) wg::mbar_wait(dsfree, (it - 1) & 1);
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        dsx[ks * 128 + ctid] = make_uint4(ds[ks][0], ds[ks][1], ds[ks][2], ds[ks][3]);
+      wg::mbar_arrive(dsready);
+      // dV += P^T dO, dO's tile as a transposed B
+      wg::fence_acc(acc);
+      uint32_t pa[4][4];
+      wg::gemm_pk<L::NA / 8>(acc, p, pa, Gs(s));
+      wg::wgmma_wait<0>();
+      wg::fence_acc(acc);
+    }
+    wg::mbar_arrive(&empty[s]);
+  }
+
+  // The partials (A's dK, B's dV) into K's, V's and the ring's place once
+  // both consumers are done with them; then the head sum over the cluster
+  // in rank order, as flash_bwd_dkv_kernel's: no atomics.
+  float* red = reinterpret_cast<float*>(sm);
+  tc::bar_sync(1, 256);
+  float* mine = red + (holds_dk ? 0 : BK * L::RP);
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri)
+      tc::store2(mine + kl[ri] * L::RP + 8 * j + 2 * t, acc[4 * j + 2 * ri],
+                 acc[4 * j + 2 * ri + 1]);
+  tc::cluster_arrive();
+  tc::cluster_wait();
+  if (rank == 0) {
+    const size_t plane = (size_t)bhk * m * D;  // one chunk's dk or dv partial
+    for (int i = tid - 128; i < BK * D; i += 256) {
+      const int r = i / D, cc = i % D;
+      if (k0 + r >= m) continue;
+      float sk = 0.f, sv = 0.f;
+      for (int src = 0; src < csize; ++src) {
+        const float* p = cluster.map_shared_rank(red, src);
+        sk += p[r * L::RP + cc];
+        sv += p[(BK + r) * L::RP + cc];
+      }
+      const size_t o = ((size_t)kvh * m + k0 + r) * D + cc;
+      if (part == nullptr) {
+        dk[o] = from_f<T>(sk * scale);
+        dv[o] = from_f<T>(sv);
+      } else {
+        part[z * plane + o] = sk;
+        part[(qsplit + z) * plane + o] = sv;
+      }
+    }
+  }
+  // every block's partials stay until rank 0 has read them
+  tc::cluster_arrive_relaxed();
+  tc::cluster_wait();
+}
+
+// K3's block and kernel: Dkv's (one or two consumers that take the items in
+// turn), or for bf16 at D = 256 DkvPair's (one consumer a gradient)
+template <typename T, int D, bool TWO>
+struct DkvForm {
+  using L = Dkv<T, D, TWO>;
+  static auto kernel() { return flash_bwd_dkv_kernel<T, D, TWO>; }
+};
+template <bool TWO>
+struct DkvForm<__nv_bfloat16, BF16_DIM, TWO> {
+  using L = DkvPair<__nv_bfloat16, BF16_DIM>;
+  static auto kernel() { return flash_bwd_dkv_pair_kernel<__nv_bfloat16, BF16_DIM>; }
+};
+
 // K3's second pass with the query range split over `qsplit` chunks: dk =
 // scale * sum_z part_k[z], dv = sum_z part_v[z], in chunk order
 template <typename T>
@@ -1630,7 +1988,7 @@ cudaError_t launch_dq(const Args& a, void* dq, void* o2, void* part) {
 // block per SM fills the card (while each chunk keeps 4 query tiles), and
 // two consumer warpgroups a block for float32, and for bf16 where fewer
 // than two blocks an SM would run; at D = 128 two in bf16 and one (the
-// SEQ slot) in float32.
+// SEQ slot) in float32; at bf16's D = 256 two, one a gradient (DkvPair).
 struct DkvPlan {
   int cluster, qsplit;
   bool two;
@@ -1655,20 +2013,20 @@ void dkv_shape_of(int* out) {
 
 template <typename T, int D>
 void dkv_shape(bool two, int* out) {
-  if constexpr (D > 64) dkv_shape_of<Dkv<T, D, sizeof(T) == 2>>(out);
+  if constexpr (D > 64) dkv_shape_of<typename DkvForm<T, D, sizeof(T) == 2>::L>(out);
   else if (two) dkv_shape_of<Dkv<T, D, true>>(out);
   else dkv_shape_of<Dkv<T, D, false>>(out);
 }
 
 template <typename T, int D, bool TWO>
 cudaError_t launch_dkv(const Args& a, const DkvPlan& plan, void* dk, void* dv) {
-  using L = Dkv<T, D, TWO>;
+  using L = typename DkvForm<T, D, TWO>::L;
   CUtensorMap qm, km, vm, gm;
   cudaError_t err = wg::tile_map(&qm, a.q, sizeof(T), a.n, a.b * a.heads, D);
   if (err == cudaSuccess) err = wg::tile_map(&gm, a.g, sizeof(T), a.n, a.b * a.heads, D);
   if (err == cudaSuccess) err = wg::tile_map(&km, a.k, sizeof(T), a.m, a.b * a.hk, D);
   if (err == cudaSuccess) err = wg::tile_map(&vm, a.v, sizeof(T), a.m, a.b * a.hk, D);
-  auto kernel = flash_bwd_dkv_kernel<T, D, TWO>;
+  auto kernel = DkvForm<T, D, TWO>::kernel();
   static unsigned sized = 0;  // the devices whose attribute is set, once per instantiation
   int dev = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
@@ -1723,8 +2081,9 @@ cudaError_t launch_dkv(const Args& a, const DkvPlan& plan, void* dk, void* dv) {
   return err != cudaSuccess ? err : freed;
 }
 
-// a head dim the column-sliced forms take: over 128, a multiple of their chunk
-bool wide_dim(int d) { return d > 128 && d % tc::WC == 0; }
+// a head dim the column-sliced forms take: over 128, a multiple of their
+// chunk, and in bf16 over BF16_DIM
+bool wide_dim(int d, bool bf16) { return d > (bf16 ? BF16_DIM : 128) && d % tc::WC == 0; }
 
 // the column-sliced K2's shared memory: the ring, then K4's or K5's buffers
 template <typename T>
@@ -1835,12 +2194,15 @@ cudaError_t dispatch(int which, const Args& a, void* o1, void* o2, void* part) {
 
 template <typename T>
 cudaError_t dispatch_dim(int which, int d, const Args& a, void* o1, void* o2, void* part) {
-  if (wide_dim(d)) return dispatch_wide<T>(which, d, a, o1, o2, part);
+  constexpr bool BF16 = sizeof(T) == 2;
+  if (wide_dim(d, BF16)) return dispatch_wide<T>(which, d, a, o1, o2, part);
   switch (d) {
     case 32: return dispatch<T, 32>(which, a, o1, o2, part);
     case 64: return dispatch<T, 64>(which, a, o1, o2, part);
     case 128: return dispatch<T, 128>(which, a, o1, o2, part);
   }
+  if constexpr (BF16)
+    if (d == BF16_DIM) return dispatch<T, BF16_DIM>(which, a, o1, o2, part);
   return cudaErrorInvalidValue;
 }
 
@@ -1857,8 +2219,8 @@ int run(int which, const void* q, const void* k, const void* v, const void* g,
 
 }  // namespace
 
-// q, g (b*heads, n, d); k, v (b*hk, m, d), d in 32, 64, 128 or over 128 a
-// multiple of 64, in one dtype
+// q, g (b*heads, n, d); k, v (b*hk, m, d), d in 32, 64, 128, in bf16 256,
+// or over those (float32 128, bf16 256) a multiple of 64, in one dtype
 // (0 float32, 1 bfloat16); lse, delta (b*heads, n) float32; tab (2n-1, heads) float32 or
 // null; bias float32 or null, at most one of tab and bias: (heads, n, m)
 // shared over the batch, or with bias_batched (b, heads, n, m); kmask (b,
@@ -1906,7 +2268,7 @@ extern "C" int flash_dq_plan(int b, int heads, int hk, int n, int m, int d, int 
   if (hk <= 0 || heads % hk || b <= 0 || n <= 0 || m <= 0 || (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
   DqPlan plan;
-  if (wide_dim(d)) {  // the column-sliced form: K5's cluster, two stages
+  if (wide_dim(d, dtype == 1)) {  // the column-sliced form: K5's cluster, two stages
     const size_t smem = dtype == 0 ? dq_wide_smem<float>(sum != 0, sum == 0)
                                    : dq_wide_smem<__nv_bfloat16>(sum != 0, sum == 0);
     plan = {sum ? cluster_size(b) : 1, 2, (int)smem, WIDE_BLOCKS};
@@ -1917,6 +2279,7 @@ extern "C" int flash_dq_plan(int b, int heads, int hk, int n, int m, int d, int 
     case 129: plan = dq_plan<__nv_bfloat16, 64>(b, sum != 0); break;
     case 256: plan = dq_plan<float, 128>(b, sum != 0); break;
     case 257: plan = dq_plan<__nv_bfloat16, 128>(b, sum != 0); break;
+    case 2 * BF16_DIM + 1: plan = dq_plan<__nv_bfloat16, BF16_DIM>(b, sum != 0); break;
     default: return cudaErrorInvalidValue;
   }
   out[0] = plan.cluster;
@@ -1934,7 +2297,7 @@ extern "C" int flash_dq_plan(int b, int heads, int hk, int n, int m, int d, int 
 extern "C" int flash_dkv_plan(int b, int heads, int hk, int n, int m, int d, int dtype,
                               int* out) {
   if (hk <= 0 || heads % hk || (dtype != 0 && dtype != 1)) return cudaErrorInvalidValue;
-  if (wide_dim(d)) {  // the column-sliced form: no cluster, no query chunks, two stages
+  if (wide_dim(d, dtype == 1)) {  // the column-sliced form: no cluster or query chunks, 2 stages
     const int shape[6] = {1, 1, 1, 2,
                           (int)(dtype == 0 ? tc::Wide<float>::RING
                                            : tc::Wide<__nv_bfloat16>::RING), WIDE_BLOCKS};
@@ -1949,6 +2312,7 @@ extern "C" int flash_dkv_plan(int b, int heads, int hk, int n, int m, int d, int
     case 129: dkv_shape<__nv_bfloat16, 64>(plan.two, out + 3); break;
     case 256: dkv_shape<float, 128>(plan.two, out + 3); break;
     case 257: dkv_shape<__nv_bfloat16, 128>(plan.two, out + 3); break;
+    case 2 * BF16_DIM + 1: dkv_shape<__nv_bfloat16, BF16_DIM>(plan.two, out + 3); break;
     default: return cudaErrorInvalidValue;
   }
   out[0] = plan.cluster;

@@ -31,10 +31,9 @@
 //            a gemm_nk) * B, B a k-major tile (8NB rows of D): O += P V in K1;
 //            dq += dS K in K2; dV += P^T dO and dK += dS^T Q in K3, through
 //            add_tile, which keeps float32's long sums accurate (see there).
-// An A operand fixed for a whole loop sits in registers (K1's Q, K2's bf16
-// Q and dO: ARegs), is split into tf32 pairs once into shared memory (K2's
-// float32 Q and dO: ASplit), or is read from shared memory at each use (K3's
-// K and V: ASmem).
+// An A operand fixed for a whole loop sits in registers (ARegs: K7's Q) or
+// is read from shared memory at each use (ASmem: K7's float32 Q at D = 128,
+// the column-sliced forms' chunks).
 // bf16 B operands of gemm_pk come through ldmatrix.trans. ldmatrix moves
 // 16-bit elements, so for float32 the fragments are read as 32-bit words
 // instead, with the k index of each 8-wide step permuted (kk = t <-> column
@@ -127,12 +126,6 @@ __device__ __forceinline__ void cp_async_commit() {
 // waits for every copy this thread issued; a __syncthreads() then shows them to the block
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// waits until at most N of the groups this thread committed are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // the named barrier `id` (1 to 15; 0 is __syncthreads') of `count` threads,
@@ -310,7 +303,7 @@ __device__ __forceinline__ void a_from_acc(Frag<float>::A& a, const float (&p)[N
   split(p[ks][3], a.hi[3], a.lo[3]);
 }
 
-// A operand held in registers for a whole loop (K1's Q)
+// A operand held in registers for a whole loop (K7's Q)
 template <typename T, int D>
 struct ARegs {
   typename Frag<T>::A f[D / Frag<T>::K];
@@ -321,45 +314,8 @@ struct ARegs {
   __device__ __forceinline__ void get(typename Frag<T>::A& a, int ks) const { a = f[ks]; }
 };
 
-// A operand split into tf32 pairs once and kept in shared memory, in
-// fragment order (K2's float32 Q and dO: registers for both would not fit).
-// Each k-step holds 32 lanes x 16 bytes of big parts, then of small parts,
-// so a lane reads its fragment by two conflict-free 16-byte loads. One warp
-// loads it; the warps that share it read it after a barrier.
-template <int D>
-struct ASplit {
-  static constexpr size_t bytes = (size_t)D / 8 * 64 * sizeof(uint4);  // one warp's
-  uint4* s;  // this warp's region
-  __device__ __forceinline__ void load(const float* src, int pitch) {
-    const int l = lane_id();
-#pragma unroll
-    for (int ks = 0; ks < D / 8; ++ks) {
-      Frag<float>::A a;
-      load_a(a, src, pitch, ks);
-      s[ks * 64 + l] = make_uint4(a.hi[0], a.hi[1], a.hi[2], a.hi[3]);
-      s[ks * 64 + 32 + l] = make_uint4(a.lo[0], a.lo[1], a.lo[2], a.lo[3]);
-    }
-  }
-  __device__ __forceinline__ void get(Frag<float>::A& a, int ks) const {
-    const int l = lane_id();
-    const uint4 hi = s[ks * 64 + l], lo = s[ks * 64 + 32 + l];
-    a.hi[0] = hi.x, a.hi[1] = hi.y, a.hi[2] = hi.z, a.hi[3] = hi.w;
-    a.lo[0] = lo.x, a.lo[1] = lo.y, a.lo[2] = lo.z, a.lo[3] = lo.w;
-  }
-};
-
-// the A operand a warp keeps for a whole loop: registers in bf16, split
-// pairs in `bytes` of shared memory per warp in float32
-template <typename T, int D> struct AFixed {
-  using type = ARegs<T, D>;
-  static constexpr size_t bytes = 0;
-};
-template <int D> struct AFixed<float, D> {
-  using type = ASplit<D>;
-  static constexpr size_t bytes = ASplit<D>::bytes;
-};
-
-// A operand read from shared memory at each use (K3's K and V)
+// A operand read from shared memory at each use (K7's float32 Q at D =
+// 128; the column-sliced forms' chunks, chunk_nk)
 template <typename T>
 struct ASmem {
   const T* s;
@@ -491,19 +447,6 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-// accumulators (16 x 8NB in the C layout) into rows 0..15 of a row-major
-// float32 tile at s (pitch floats; with a pitch of 8 mod 32 the float2
-// stores meet no bank conflict)
-template <int NB>
-__device__ __forceinline__ void store_acc(float* s, int pitch, const float (&acc)[NB][4]) {
-  const int l = lane_id(), g = l >> 2, t = l & 3;
-#pragma unroll
-  for (int j = 0; j < NB; ++j) {
-    store2(s + g * pitch + 8 * j + 2 * t, acc[j][0], acc[j][1]);
-    store2(s + (g + 8) * pitch + 8 * j + 2 * t, acc[j][2], acc[j][3]);
-  }
 }
 
 // ---- Head dims over 128: the column-sliced form's tiles. ----

@@ -12,8 +12,9 @@
 // box starts 1024-byte aligned, as the swizzle is taken on address bits). A
 // D-wide row of the flash kernels spans D * sizeof(T) / 128 such boxes, one
 // after another (boxes<T, D>): a bf16 tile of 64 values a row is one box,
-// of 128 values two; a float32 tile of 32, 64 or 128 values a row one, two
-// or four (TMA loads each box as its own 128-byte-wide column range). A
+// of 128 values two, of 256 four; a float32 tile of 32, 64 or 128 values a
+// row one, two or four (TMA loads each box as its own 128-byte-wide column
+// range). A
 // 32-wide bf16 row is half a box: TMA reads the box 64 columns wide from a
 // tensor map whose rows end at 32, so columns 32-63 arrive as zeros, which
 // add nothing to a product. K6 streams float32 rows 32 columns (one box) at
@@ -259,10 +260,10 @@ inline EncodeTiled encode_tiled() {
 }
 
 // the map of a (planes, rows, d) row-major tensor of 2-byte (bf16) or
-// 4-byte (float32) elements (d in 32, 64, 128), read as (64 or 32 columns)
-// x 64-row boxes of 128 bytes a row, 128-byte swizzled; rows past `rows` of
-// a plane read as zeros, never the next plane's, and so do columns past d
-// (a 32-wide bf16 row's box: columns 32-63)
+// 4-byte (float32) elements (d in 32, 64, 128; in bf16 also 256), read as
+// (64 or 32 columns) x 64-row boxes of 128 bytes a row, 128-byte swizzled;
+// rows past `rows` of a plane read as zeros, never the next plane's, and so
+// do columns past d (a 32-wide bf16 row's box: columns 32-63)
 inline cudaError_t tile_map(CUtensorMap* map, const void* base, int elem_bytes, int rows,
                             int planes, int d = 64) {
   EncodeTiled encode = encode_tiled();
@@ -391,6 +392,23 @@ __device__ __forceinline__ void gemm_nk(float (&acc)[32], const T* a, const T* a
   wgmma_commit();
 }
 
+// acc (64 x 64 NB) += A B as gemm_pk's, A already packed: a[k-step] the
+// four bf16 pairs of this thread's accumulator positions (gemm_pk's
+// packing); issued and committed, not waited for
+template <int NB>
+__device__ __forceinline__ void gemm_rk(float (&acc)[32 * NB], const uint32_t (&a)[4][4],
+                                        const __nv_bfloat16* b) {
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    const uint64_t db = desc(reinterpret_cast<const unsigned char*>(b) + 8192 * j);
+    float(&box)[32] = *reinterpret_cast<float(*)[32]>(acc + 32 * j);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) mma_bf16_rs_t(box, a[ks], db + 128 * ks);  // 16 rows of 128 B
+  }
+  wgmma_commit();
+}
+
 // acc (64 x 64 NB) += P (64 x 64, this warpgroup's accumulators) B, B a
 // bf16 tile of NB boxes (64 columns each) in shared memory with its N index
 // contiguous, one product a box into acc's n-blocks 8j ..; issued and
@@ -404,15 +422,7 @@ __device__ __forceinline__ void gemm_pk(float (&acc)[32 * NB], const float (&p)[
   for (int ks = 0; ks < 4; ++ks)
 #pragma unroll
     for (int i = 0; i < 4; ++i) a[ks][i] = tc::pack_bf16(p[8 * ks + 2 * i], p[8 * ks + 2 * i + 1]);
-  wgmma_fence();
-#pragma unroll
-  for (int j = 0; j < NB; ++j) {
-    const uint64_t db = desc(reinterpret_cast<const unsigned char*>(b) + 8192 * j);
-    float(&box)[32] = *reinterpret_cast<float(*)[32]>(acc + 32 * j);
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) mma_bf16_rs_t(box, a[ks], db + 128 * ks);  // 16 rows of 128 B
-  }
-  wgmma_commit();
+  gemm_rk<NB>(acc, a, b);
 }
 
 // part (16 x 8 NB8, this warp's strip, mma.sync's C layout) = P (this

@@ -17,8 +17,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["load", "built_with", "library_path", "source_digest", "sass_counts", "BUILD_DIR",
-           "CSRC", "NVCC_FLAGS"]
+__all__ = ["load", "built_with", "library_path", "source_digest", "sass_counts",
+           "sass_counts_of", "BUILD_DIR", "CSRC", "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -108,7 +108,12 @@ def sass_counts(name: str) -> "dict[str, dict[str, int]]":
     (mma.sync), HGMMA a warpgroup's (wgmma), UTMALDG a TMA tile load, FFMA a
     float32 FMA."""
     load(name)
-    proc = subprocess.run([_tool("cuobjdump"), "-sass", str(library_path(name))],
+    return sass_counts_of(library_path(name))
+
+
+def sass_counts_of(so: Path) -> "dict[str, dict[str, int]]":
+    """`sass_counts` of the library at `so` (another checkout's, say)."""
+    proc = subprocess.run([_tool("cuobjdump"), "-sass", str(so)],
                           capture_output=True, text=True, timeout=300, check=True)
     counts: "dict[str, dict[str, int]]" = {}
     current = None

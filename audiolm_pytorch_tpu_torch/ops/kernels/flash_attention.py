@@ -25,12 +25,15 @@ Head dims. The kernels take every D. They are built for D = 32, 64 and 128
 (`HEAD_DIMS`), and over 128 they run a column-sliced form of their own for
 any multiple of 64 (`WIDE_CHUNK`): a block owns one 64-wide slice of the
 output's columns and recomputes S (and dP) over the whole depth, 64 columns
-at a time, so no tile grows with D. On a CUDA tensor any other D goes
-through the next of those head dims (`native_head_dim`): q, k and v are
-zero-padded along D, the scale stays D ** -0.5 of the true D, and the
-output and the gradients are sliced back. That is exact (a zero column adds
-nothing to q.k and gives a zero output column) and it is the kernel that
-runs, counted as its launch.
+at a time, so no tile grows with D. The backward in bf16 has one more
+native head dim, 256 (`BF16_BWD_DIM`): K2 and K3 run their Hopper forms
+there, S and dP formed once a tile, and only bf16 over 256 and float32 over
+128 take the column-sliced backward (`bwd_head_dim`). On a CUDA tensor any
+other D goes through the next of those head dims (`native_head_dim` for
+K1, `bwd_head_dim` for K2 and K3): q, k and v are zero-padded along D, the
+scale stays D ** -0.5 of the true D, and the output and the gradients are
+sliced back. That is exact (a zero column adds nothing to q.k and gives a
+zero output column) and it is the kernel that runs, counted as its launch.
 """
 from __future__ import annotations
 
@@ -47,12 +50,13 @@ __all__ = ["flash_attention", "flash_attention_ref", "flash_attention_bwd",
            "SOURCE_BWD", "HEAD_DIMS", "launches", "launches_dq", "launches_dkv",
            "launches_dtab", "launches_dbias", "launches_dbias_per_batch", "PLAN_SMS", "fwd_plan", "dq_plan", "dkv_plan",
            "dkv_items", "fwd_plan_built", "dq_plan_built", "dkv_plan_built", "native_head_dim",
-           "SMEM_LIMIT", "WIDE_CHUNK"]
+           "bwd_head_dim", "SMEM_LIMIT", "WIDE_CHUNK", "BF16_BWD_DIM"]
 
 SOURCE = "flash_fwd.cu"
 SOURCE_BWD = "flash_bwd.cu"
 HEAD_DIMS = (32, 64, 128)  # the head dims of the kernels' native forms; others up to 128 padded
 WIDE_CHUNK = 64  # over 128: the column-sliced forms' chunk and slice (D a multiple of it)
+BF16_BWD_DIM = 256  # bf16's K2 and K3 run their Hopper forms at this head dim too
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -80,6 +84,7 @@ _MISC_FWD = (128 + 64 + 4) * 4  # a stage's table slice, key flags and two words
 _MISC_DKV = (64 + 64 + 128) * 4  # a stage's lse, Delta and table slice (K3)
 _K4_BYTES = (64 * 80 + 2 * 4 * 128) * 4  # K2's skewed dS rows and delta slots
 _K5_BYTES = 2 * 64 * 64 * 4  # K2's two dS buffers of K5's batch sum
+_PAIR_BYTES = 64 * 64 * 4 + 64 * 64 * 2  # bf16 K3 at 256: P^T (float32) and dS^T (bf16) handed over
 
 
 def _tiles(x):
@@ -99,9 +104,23 @@ def native_head_dim(d):
     return -(-d // WIDE_CHUNK) * WIDE_CHUNK
 
 
-def _slices(d):
+def bwd_head_dim(d, dtype):
+    """The head dim of the backward kernels (K2, K3) that run a D-wide head:
+    `native_head_dim`'s, but in bf16 every D from 129 to 256 goes to 256,
+    where K2 and K3 have a Hopper form (float32 over 128, and bf16 over 256,
+    keep the column-sliced form). q, k, v, out and dO are zero-padded to
+    it."""
+    if dtype == torch.bfloat16 and HEAD_DIMS[-1] < d <= BF16_BWD_DIM:
+        return BF16_BWD_DIM
+    return native_head_dim(d)
+
+
+def _slices(d, dtype=None):
     """The output slices a block of the kernels owns one of: D / 64 in the
-    column-sliced forms (D over 128), else one."""
+    column-sliced forms (D over 128), else one; with `dtype`, the backward's
+    (bf16 up to 256 in its Hopper form)."""
+    if dtype == torch.bfloat16 and bwd_head_dim(d, dtype) == BF16_BWD_DIM:
+        return 1
     return native_head_dim(d) // WIDE_CHUNK if d > HEAD_DIMS[-1] else 1
 
 
@@ -169,19 +188,21 @@ def dq_plan(b, h, hk, n, m, causal, dtype=torch.float32, dbias=False, d=64):
     b > 8 without such a divisor, only where b / cluster > 1), else clusters
     of one; the block's shared memory (with K5's buffers, else K4's) and the
     blocks an SM it is built for; and for each query tile (by its index) the
-    key tiles, in order. Over D = 128 the column-sliced form: `slices`
-    blocks (one a 64-wide slice of dq; slice 0's write the bias's gradient)
-    for each of the grid's, two stages, `items` 2 D / 64 + 1 a key tile (the
-    chunks of S's and dP's operands, then K's slice), K5's cluster as
-    above."""
+    key tiles, in order. In bf16 at D = 256 (129 to 256 padded to it) the
+    same block with two stages, one an SM. Over D = 128 in float32, and over
+    256 in bf16, the column-sliced form: `slices` blocks (one a 64-wide
+    slice of dq; slice 0's write the bias's gradient) for each of the
+    grid's, two stages, `items` 2 D / 64 + 1 a key tile (the chunks of S's
+    and dP's operands, then K's slice), K5's cluster as above."""
     f32 = dtype == torch.float32
-    slices = _slices(d)
+    slices = _slices(d, dtype)
     grad = _K5_BYTES if dbias else _K4_BYTES  # the bias gradient's buffers
     if slices > 1:  # the column-sliced form
         stages, items, smem, blocks = 2, 2 * slices + 1, _wide_smem(dtype) + grad, 2
     else:
+        d = bwd_head_dim(d, dtype)
         seq = f32 and d > 64
-        stages = 1 if seq else 2 if f32 else 3
+        stages = 1 if seq else 2 if f32 or d > HEAD_DIMS[-1] else 3
         items = 2 if seq else 1
         oper = _operand_bytes(d, dtype)
         smem = 2 * oper + stages * ((oper if seq else 2 * oper) + _MISC_FWD) + 256 + grad
@@ -207,27 +228,33 @@ def dkv_plan(b, h, hk, n, m, dtype=torch.float32, d=64):
     two in bf16, one in float32), the ring's stages (in float32 at D = 128
     one slot that an item's Q, dO and Q again take in turn, `items` 3 an
     item), the block's shared memory and the blocks an SM it is built for,
-    and the grid (cluster, b*hk, key tiles * chunks). Over D = 128 the
+    and the grid (cluster, b*hk, key tiles * chunks). In bf16 at D = 256
+    (129 to 256 padded to it) the pair form (`pair`): two consumers that
+    both take every item, one holding dk and the other dv, two stages, one
+    block an SM. Over D = 128 in float32, and over 256 in bf16, the
     column-sliced form: `slices` blocks (one a 64-wide slice of dk and dv)
     for each of the grid's, no cluster and no chunks (a block walks every
     query head of its kv head), one consumer, two stages, `items` 2 D / 64 +
     1 a (head, query tile)."""
     f32 = dtype == torch.float32
-    slices = _slices(d)
+    slices = _slices(d, dtype)
     if slices > 1:
-        return {"cluster": 1, "qsplit": 1, "consumers": 1, "stages": 2,
+        return {"cluster": 1, "qsplit": 1, "consumers": 1, "pair": False, "stages": 2,
                 "items": 2 * slices + 1, "smem": _wide_smem(dtype), "blocks": 2,
                 "grid": (1, b * hk, _tiles(m)), "slices": slices}
+    d = bwd_head_dim(d, dtype)
+    pair = not f32 and d == BF16_BWD_DIM
     seq = f32 and d > 64
     group = h // hk
     cluster = max(c for c in range(1, _MAX_DKV_CLUSTER + 1) if group % c == 0)
     base = cluster * b * hk * _tiles(m)
     qsplit = 1 if base >= PLAN_SMS else max(1, min(PLAN_SMS // base, _tiles(n) // 4))
     two = (not f32) if d > 64 else f32 or base * qsplit < 2 * PLAN_SMS
-    stages = 1 if seq else 2 if f32 else 4
+    stages = 1 if seq else 2 if f32 or pair else 4
     oper = _operand_bytes(d, dtype)
-    smem = 2 * oper + stages * ((oper if seq else 2 * oper) + _MISC_DKV) + (64 + 4) * 4 + 128
-    return {"cluster": cluster, "qsplit": qsplit, "consumers": 2 if two else 1,
+    smem = 2 * oper + stages * ((oper if seq else 2 * oper) + _MISC_DKV) + (64 + 4) * 4 \
+        + (_PAIR_BYTES if pair else 0) + 128
+    return {"cluster": cluster, "qsplit": qsplit, "consumers": 2 if two else 1, "pair": pair,
             "stages": stages, "items": 3 if seq else 1, "smem": smem,
             "blocks": 1 if two or seq else 2, "grid": (cluster, b * hk, _tiles(m) * qsplit),
             "slices": 1}
@@ -237,9 +264,10 @@ def dkv_items(plan, h, hk, n, m, causal, kv_head, key_tile, rank, chunk):
     """The (query head, first query row) items of one K3 block, each 64 query
     rows from the diagonal on (so not aligned to 64 where M - N is not), as
     its consumer warpgroups take them, in order: ([first's], [second's], the
-    second empty with one consumer). The block's dk, dv is the first's sum
-    plus the second's; the cluster adds its blocks' in rank order, and the
-    chunks add in chunk order."""
+    second empty with one consumer, and in the pair form, whose two
+    consumers take every item, one for dk and one for dv). The block's dk,
+    dv is the first's sum plus the second's; the cluster adds its blocks' in
+    rank order, and the chunks add in chunk order."""
     group, cluster, qsplit = h // hk, plan["cluster"], plan["qsplit"]
     k0 = key_tile * _TILE
     q_start = max(0, k0 - (m - n)) if causal else 0
@@ -249,7 +277,8 @@ def dkv_items(plan, h, hk, n, m, causal, kv_head, key_tile, rank, chunk):
     nq = min(nqt, qa + per) - qa
     items = [(kv_head * group + rank + cluster * (it // nq), q_start + (qa + it % nq) * _TILE)
              for it in range(group // cluster * nq)]
-    return (items[0::2], items[1::2]) if plan["consumers"] == 2 else (items, [])
+    return (items[0::2], items[1::2]) if plan["consumers"] == 2 and not plan["pair"] \
+        else (items, [])
 
 
 def _fn(source, name, argtypes):
@@ -300,10 +329,11 @@ def _check_cuda(q):
         raise ValueError(f"no flash-attention path for device {q.device}")
 
 
-def _padded(*xs):
-    """xs zero-padded along their last dim to the kernels' head dim (the
-    tensors themselves where it is native)."""
-    dn = native_head_dim(xs[0].shape[-1])
+def _padded(*xs, d=None):
+    """xs zero-padded along their last dim to the head dim d (the forward's,
+    `native_head_dim`, when not given; the tensors themselves where they
+    have it)."""
+    dn = native_head_dim(xs[0].shape[-1]) if d is None else d
     return [x if x.shape[-1] == dn else F.pad(x, (0, dn - x.shape[-1])) for x in xs]
 
 
@@ -492,8 +522,8 @@ def _bwd_launch(name, outs, q, k, v, g, lse, delta, tab, kmask, *, causal, scale
 
 
 def bwd_dq(q, k, v, g, lse, delta, tab, kmask, *, causal: bool, scale: float, bias=None):
-    """K2 on prepared arguments (contiguous, D native: `native_head_dim(D) ==
-    D`; tab and bias
+    """K2 on prepared arguments (contiguous, D the backward's own:
+    `bwd_head_dim(D, dtype) == D`; tab and bias
     float32 and kmask int8 or None; lse and delta (B, H, N) float32): dq in
     q's dtype, and in the same launch the float32 gradient of the bias given, summed over the
     batch: with a table K4, the (2N-1, H) gradient, its partial sums in K2's
@@ -526,9 +556,10 @@ def bwd_dq(q, k, v, g, lse, delta, tab, kmask, *, causal: bool, scale: float, bi
 
 
 def bwd_dkv(q, k, v, g, lse, delta, tab, kmask, *, causal: bool, scale: float, bias=None):
-    """K3 on prepared arguments: dk, dv in k's dtype, the query heads of each
-    kv head summed in the kernel (and, where `dkv_plan` splits the query
-    range, the chunks' partials by a second launch of the same call)."""
+    """K3 on prepared arguments (as `bwd_dq`'s): dk, dv in k's dtype, the
+    query heads of each kv head summed in the kernel (and, where `dkv_plan`
+    splits the query range, the chunks' partials by a second launch of the
+    same call)."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _bwd_launch("flash_bwd_dkv", (dk, dv), q, k, v, g, lse, delta, tab, kmask,
                 causal=causal, scale=scale, bias=bias)
@@ -579,7 +610,7 @@ def flash_attention_bwd(q, k, v, bias_tab, key_mask, out, lse, g, *, causal: boo
     _check_cuda(q)
     d = q.shape[-1]
     # padded: out's and dO's extra columns are zeros, so Delta is unchanged
-    q, k, v, g, out = _padded(q, k, v, g.to(q.dtype), out)
+    q, k, v, g, out = _padded(q, k, v, g.to(q.dtype), out, d=bwd_head_dim(d, q.dtype))
     _check_layout(q, k, v)
     g = g.contiguous()
     if g.data_ptr() % 16:  # a view into a larger buffer: K3 copies its rows 16 bytes at a time

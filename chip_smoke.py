@@ -333,7 +333,8 @@ Phases, each printing its name and seconds:
                    AudioLM (batch 1, 32 semantic ids, 16 coarse steps,
                    greedy) with its stages' tokens equal card vs CPU.
   Last, the head dims over 128 (the kernels' column-sliced form; every
-  other head dim over 128 runs zero-padded to the next multiple of 64):
+  other head dim over 128 runs zero-padded to the next multiple of 64;
+  in bf16 K2 and K3 run their Hopper form at 256, 129-255 padded to it):
      kernels (head dims over 128) - K1-K4 at the flagship's training shape
                    with 4 heads of 256 (4 x 4 x 2049 x 256, the table), K5 at
                    the Coarse LM's 4 x 2 x 603 x 256 and the Fine LM's 4 x 2
@@ -347,7 +348,9 @@ Phases, each printing its name and seconds:
                    shape each of the table, the (H, N, N) bias and the
                    per-batch bias (each kernel launched once, the same bits,
                    float64) and K7 at window 32 with a key mask, a bias and
-                   keyless rows.
+                   keyless rows. Beside the bf16 rows at 256 (and 4 x 4 x
+                   2049 x 192) the parent's column-sliced K2 and K3 with
+                   --parent.
      scoring, generation, greedy card vs CPU, training (4 heads of 256) -
                    the flagship with heads=4, dim_head=256 as in phases 4-6,
                    and its greedy ids card vs CPU (batch 2, 128 + 32);
@@ -567,13 +570,16 @@ def kernel_label(mangled):
     windows that are multiples of 64 (local_attn_kernel<bf16, d64,
     aligned>). A `_wide_kernel` is the column-sliced form of head dims over
     128: flash_fwd_kernel<bf16, wide>, flash_bwd_dq_kernel<bf16, wide,
-    sum>."""
+    sum>; `flash_bwd_dkv_pair_kernel` K3's form for bf16 at D = 256, one
+    consumer a gradient: flash_bwd_dkv_kernel<bf16, d256, pair>."""
     entry = re.search(r"\d([a-z][a-z_]*_kernel)(I?)", mangled)
     if not entry.group(2):
         return entry.group(1)
     name = entry.group(1)
     dtype = "bf16" if "bfloat16" in mangled else "fp32"
     ints = re.findall(r"Li(\d+)E", mangled)
+    if name.endswith("_pair_kernel"):
+        return f"{name.replace('_pair_kernel', '_kernel')}<{dtype}, d{ints[0]}, pair>"
     if name.endswith("_wide_kernel"):  # the column-sliced form: its int argument K2's form
         name = name.replace("_wide_kernel", "_kernel")
         flag = {"1": "sum", "2": "per-batch"}.get(ints[0]) if ints else None
@@ -1059,8 +1065,9 @@ def sass_phase():
     (cuobjdump -sass): HMMA (mma.sync), HGMMA (wgmma), UTMALDG (TMA loads)
     and FFMA. The column-sliced form of head dims over 128 (K1, K2 in its
     three forms, K3 and K7; `wide` in the labels) must issue HMMA in both
-    dtypes. K7 must issue HMMA in both dtypes at head dims 32, 64 and 128;
-    K1, K2 and K3, the Hopper design, HGMMA and UTMALDG in both dtypes,
+    dtypes; bf16's K2 (three forms) and K3 (the pair form) at D = 256,
+    HGMMA and UTMALDG. K7 must issue HMMA in both dtypes at head dims 32,
+    64 and 128; K1, K2 and K3, the Hopper design, HGMMA and UTMALDG in both dtypes,
     every head dim and every block shape (K1's and K3's one consumer
     warpgroup or two, K3's float32 only two, at 128 one shape a dtype; K2
     with K5's sum, with a per-batch bias's dS and without; K7 for any window
@@ -1073,11 +1080,12 @@ def sass_phase():
     # (K1 and K3: two consumers in bf16, one in float32; fa.fwd_plan, dkv_plan)
     want = {"fwd": sorted([f"{t}, d{d}{x}" for d in (32, 64) for t in ("bf16", "fp32")
                            for x in ("", ", two")] + ["bf16, d128, two", "fp32, d128"]),
-            "dq": sorted(f"{t}, d{d}{x}" for d in fa.HEAD_DIMS for t in ("bf16", "fp32")
-                         for x in ("", ", sum", ", per-batch")),
+            "dq": sorted([f"{t}, d{d}{x}" for d in fa.HEAD_DIMS for t in ("bf16", "fp32")
+                          for x in ("", ", sum", ", per-batch")]
+                         + [f"bf16, d{fa.BF16_BWD_DIM}{x}" for x in ("", ", sum", ", per-batch")]),
             "dkv": sorted([f"{t}, d{d}" for d in (32, 64) for t in ("bf16",)]
                           + [f"{t}, d{d}, two" for d in (32, 64) for t in ("bf16", "fp32")]
-                          + ["bf16, d128, two", "fp32, d128"]),
+                          + ["bf16, d128, two", "fp32, d128", f"bf16, d{fa.BF16_BWD_DIM}, pair"]),
             "vq": ["fp32"], "local": sorted(f"{t}, d{d}{x}" for d in fa.HEAD_DIMS
                                            for t in ("bf16", "fp32") for x in ("", ", aligned"))}
     # the column-sliced form of head dims over 128, on mma.sync (HMMA)
@@ -5548,16 +5556,20 @@ def device_numbers(row, dev, kernel=None):
     """row with the kernel's device time, its device launches per call and
     its library call's device time from the flash device times phase's row
     `dev` (this checkout's runs; None where that process saw no launch: not
-    measured)."""
+    measured), and with --parent the parent checkout's device time of the
+    same call (parent_device_ms)."""
     if dev is None:
-        return dict(row, device_ms=None, device_launches=None, library_device_ms=None)
+        return dict(row, device_ms=None, device_launches=None, library_device_ms=None,
+                    parent_device_ms=None)
     runs = dev[kernel] if kernel is not None else dev
     seen = [(x, n) for x, n in zip(runs["this"]["device_ms"], runs["this"]["device_launches"])
             if x is not None]
+    parent = [x for x in runs.get("parent", {}).get("device_ms", []) if x is not None]
     return dict(row, device_ms=float(np.mean([x for x, _ in seen])) if seen else None,
                 device_launches=float(np.mean([n for _, n in seen])) if seen else None,
                 library_device_ms=dev.get("sdpa_device_ms") if kernel in (None, "K1")
-                else dev.get("sdpa_bwd_device_ms"))
+                else dev.get("sdpa_bwd_device_ms"),
+                parent_device_ms=float(np.mean(parent)) if parent else None)
 
 
 def window_keyless_mask(rng, b, t, w):
@@ -6163,6 +6175,7 @@ WIDE_CODEC_HEAD = 256
 WIDE_DIMS = (192, 320, 512)
 # the flash device times phase's labels of the same shapes
 WIDE_DEVICE_LABELS = {"table": "4x4x2049x256 table (flagship training, 4 heads of 256)",
+                      "table192": "4x4x2049x192 table (4 heads of 192)",
                       "coarse": "4x2x603x256 bias (Coarse training, 2 heads of 256)",
                       "fine": "4x2x1201x320 bias (Fine training, 2 heads of 320)",
                       "local": "8x8x100x256 w128, strided (codec 2 s, attn_dim_head 256)"}
@@ -6216,8 +6229,10 @@ def check_wide_form(rng, b, h, n, d, form, seed):
                                                               **GRAD_TOL[dtype])
         if not ok:
             raise AssertionError(f"column-sliced vs plain [{label}]: {errs}")
-        bargs = (q, k, v, g, lse, (g.float() * out.float()).sum(-1), tab,
-                 mask.to(torch.int8).contiguous())
+        # prepared as the wrapper prepares them: bf16's head dims up to 256
+        # padded to 256, where K2 and K3 run their Hopper form
+        bargs = (*fa._padded(q, k, v, g, d=fa.bwd_head_dim(d, dtype)), lse,
+                 (g.float() * out.float()).sum(-1), tab, mask.to(torch.int8).contiguous())
         for what, fn in (("K2 dq and its bias gradient", fa.bwd_dq), ("K3 dk, dv", fa.bwd_dkv)):
             first = fn(*bargs, bias=bias, **kw)
             for _ in range(2):
@@ -6260,8 +6275,13 @@ def wide_kernels_phase(seed, device_rows):
     three runs. Then at head dims 192, 320 and 512 one small shape each of
     the table, the (H, N, N) bias (a cluster of 3 batch rows) and the
     per-batch bias (check_wide_form), and K7 at window 32 with a key mask,
-    a bias and rows without a key (float32 within F64_TOL of float64).
-    Returns {"rows": {kernel: {label: row}}, "f64": {...}, "small": {...}}."""
+    a bias and rows without a key (float32 within F64_TOL of float64). In
+    bf16 up to D = 256 K2 and K3 run their Hopper form (192 padded to 256):
+    its device times at the flagship's and the Coarse LM's shapes (and at
+    4 x 4 x 2049 x 192) beside the parent's column-sliced K2 and K3 and
+    SDPA's backward, where the flash device times phase ran with --parent.
+    Returns {"rows": {kernel: {label: row}}, "f64": {...}, "small": {...},
+    "bf16_d256": {shape: {kernel: {device_ms, parent_device_ms}}}}."""
     rng = np.random.default_rng(seed + 45)
     rows = {key: {} for key in ("fwd", "dq", "dkv", "dtab", "dbias", "local")}
     h, d = WIDE_FLAGSHIP["heads"], WIDE_FLAGSHIP["dim_head"]
@@ -6296,6 +6316,21 @@ def wide_kernels_phase(seed, device_rows):
               for kind, cfg, n in (("coarse", WIDE_ACOUSTIC["coarse"], COARSE_N),
                                    ("fine", WIDE_ACOUSTIC["fine"], FINE_N))]
     f64 = head_dims_accuracy(rng, cases, (dl,))
+    bf16_d256 = {}
+    for shape, grad in (("table", "K2+K4"), ("coarse", "K2+K5"), ("table192", "K2+K4")):
+        dev = device_rows.get(f"bfloat16 {WIDE_DEVICE_LABELS[shape]}")
+        got = {kernel: {x: device_numbers({}, dev, kernel)[x]
+                        for x in ("device_ms", "parent_device_ms")}
+               for kernel in ("K2", grad, "K3")}
+        bf16_d256[shape] = dict(got, sdpa_bwd_device_ms=None if dev is None
+                                else dev.get("sdpa_bwd_device_ms"))
+        pair = [got[grad][x] + got["K3"][x] if got[grad][x] is not None
+                and got["K3"][x] is not None else None for x in ("device_ms", "parent_device_ms")]
+        print(f"bf16 K2 and K3 Hopper form [{WIDE_DEVICE_LABELS[shape]}] on the device: "
+              + " | ".join(f"{k} {fmt_ms(v['device_ms'])} (parent's column-sliced "
+                           f"{fmt_ms(v['parent_device_ms'])})" for k, v in got.items())
+              + f" | {grad} + K3 {fmt_ms(pair[0])} (parent {fmt_ms(pair[1])}), SDPA's backward "
+              f"{fmt_ms(bf16_d256[shape]['sdpa_bwd_device_ms'])}")
     small = {}
     for dw in WIDE_DIMS:
         for form, b, n in (("table", 2, 300), ("bias", 3, 200), ("batch", 2, 150)):
@@ -6321,7 +6356,7 @@ def wide_kernels_phase(seed, device_rows):
         if three > F64_TOL or one <= F64_TOL:
             raise AssertionError(f"K7 float64 check [d{dw} w{w}]: 3xTF32 {three}, 1xTF32 {one}")
         small[f"local d{dw} f64"] = {"3xtf32": three, "1xtf32": one}
-    return {"rows": rows, "f64": f64, "small": small}
+    return {"rows": rows, "f64": f64, "small": small, "bf16_d256": bf16_d256}
 
 
 def wide_greedy_card_vs_cpu(seed, model, cpu_model):
@@ -6575,6 +6610,13 @@ def main():
             # and Fine LMs with 2 heads of 256 and 320, the codec at attn_dim_head
             # 256, and the float64 check there
             numbers["head_dims_over_128"] = timings["wide"]["rows"][key]
+            if key in ("dq", "dkv"):
+                # bf16's Hopper form at D = 256: its instantiations, and its device
+                # times beside the parent's column-sliced form (with --parent)
+                numbers["bf16_d256"] = dict(
+                    timings["wide"]["bf16_d256"],
+                    instantiations=[f"{name}_kernel<{form}>" for form in timings["sass"][key]
+                                    if f"d{fa.BF16_BWD_DIM}" in form])
             numbers["head_dims_over_128_f64"] = {
                 label: {kind: {x: e for x, e in errs.items() if x in F64_OUTPUTS.get(key, ())}
                         if isinstance(errs, dict) else errs for kind, errs in got.items()}

@@ -39,8 +39,11 @@ bias and its gradient (the same bits every run), and each kernel past the
 of head dims over 128 (K1-K5 and K7 at 192, 256, 320 and 512, every bias
 form, against the plain versions, float32 within 1e-5 of float64 where plain
 TF32 fails, the same bits every run, HMMA in each instantiation, and every
-head dim from 129 to 512 launching the kernels). They skip where there is
-no card.
+head dim from 129 to 512 launching the kernels); bf16's K2 (every form of
+the bias's gradient) and K3 at D = 256 and 192 padded to it, their Hopper
+form, against the plain versions, the same bits every run, their plans as
+the library computes them, HGMMA and UTMALDG. They skip where there is no
+card.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine without them:
@@ -2004,11 +2007,13 @@ def test_column_sliced_float32_within_1e5_of_float64(cuda, d, form):
 @pytest.mark.parametrize("d", WIDE_DIMS)
 def test_column_sliced_backward_gives_the_same_bits_every_run(cuda, d, form, dtype):
     # K2 with K4's fixed-order sums, K5's rank-order batch sum or dS, and K3
+    # (in bf16 up to 256 their Hopper form, on inputs padded to 256 as the
+    # wrapper pads them)
     q, k, v, g, tab, bias, mask, causal = _wide_inputs(cuda, form, d, dtype, seed=2)
     out, lse = fa.flash_attention(q, k, v, bias_tab=tab, bias=bias, key_mask=mask,
                                   causal=causal, return_lse=True)
-    args = (q, k, v, g, lse, (g.float() * out.float()).sum(-1), tab,
-            mask.to(torch.int8).contiguous())
+    args = (*fa._padded(q, k, v, g, d=fa.bwd_head_dim(d, dtype)), lse,
+            (g.float() * out.float()).sum(-1), tab, mask.to(torch.int8).contiguous())
     for fn in (fa.bwd_dq, fa.bwd_dkv):
         first = fn(*args, causal=causal, scale=d ** -0.5, bias=bias)
         for _ in range(2):
@@ -2078,3 +2083,123 @@ def test_column_sliced_forms_issue_tensor_core_instructions(cuda):
                 found[key] = ops["HMMA"]
     assert len(found) == 2 * (1 + 3 + 1 + 1), found
     assert all(found.values()), found
+
+
+# bf16's K2 (none or K4, K5's cluster sum, the per-batch dS) and K3 (the pair
+# form: one consumer a gradient) at D = 256, their Hopper form over 128;
+# 192 is padded to 256 by the wrappers. (b, h, hk, n, m, causal): K5 with a
+# cluster of 3 batch rows, and at B = 12 two clusters of 6 a tile meeting by
+# atomics; cross attention over 17 keys splits K3's query range (qsplit 4)
+BF16_WIDE_FORMS = {"none": (2, 4, 1, 150, 150, True), "table": (2, 4, 1, 150, 150, True),
+                   "bias": (3, 2, 2, 130, 130, True), "batch": (2, 2, 1, 100, 100, True),
+                   "bias12": (12, 2, 1, 100, 100, True), "cross": (2, 8, 1, 1100, 17, False)}
+
+
+def _bf16_wide_inputs(cuda, form, d, seed):
+    b, h, hk, n, m, causal = BF16_WIDE_FORMS[form]
+    rng = np.random.default_rng(seed + d)
+
+    def normal(*shape, s=1.0):
+        return torch.from_numpy((s * rng.normal(size=shape)).astype(np.float32)).to(cuda)
+
+    q, g = normal(b, h, n, d).to(torch.bfloat16), normal(b, h, n, d).to(torch.bfloat16)
+    k, v = normal(b, hk, m, d).to(torch.bfloat16), normal(b, hk, m, d).to(torch.bfloat16)
+    mask = torch.from_numpy(rng.random((b, m)) > 0.2).to(cuda)
+    mask[:, 0] = True
+    tab = normal(2 * n - 1, h, s=0.5) if form == "table" else None
+    bias = normal(h, n, m, s=0.5) if form in ("bias", "bias12") else \
+        normal(b, h, n, m, s=0.5) if form == "batch" else None
+    out, lse = fa.flash_attention_ref(q, k, v, bias_tab=tab, bias=bias, key_mask=mask,
+                                      causal=causal, return_lse=True)
+    return q, k, v, g, tab, bias, mask, out, lse, causal
+
+
+@pytest.mark.parametrize("form", list(BF16_WIDE_FORMS))
+@pytest.mark.parametrize("d", [256, 192])
+def test_bf16_d256_backward_matches_plain_version(cuda, d, form):
+    # K2 in the form its bias asks for and K3, each launched once, against the
+    # plain backward on the same out and lse (bf16's tolerance)
+    q, k, v, g, tab, bias, mask, out, lse, causal = _bf16_wide_inputs(cuda, form, d, seed=60)
+    names = ("launches_dq", "launches_dkv", "launches_dtab", "launches_dbias",
+             "launches_dbias_per_batch")
+    before = [getattr(fa, x) for x in names]
+    grads = fa.flash_attention_bwd(q, k, v, tab, mask, out, lse, g, bias=bias, causal=causal,
+                                   scale=d ** -0.5)
+    torch.cuda.synchronize()
+    want = [1, 1, form == "table", form in ("bias", "bias12"), form == "batch"]
+    assert [getattr(fa, x) - c for x, c in zip(names, before)] == want
+    b, h, hk, n, m, _ = BF16_WIDE_FORMS[form]
+    plan = fa.dq_plan(b, h, hk, n, m, causal, torch.bfloat16, dbias=True, d=d)
+    assert (plan["cluster"], plan["atomic"]) == {"bias": (3, False), "bias12": (6, True)}.get(
+        form, (plan["cluster"], plan["atomic"]))
+    if form == "cross":
+        assert fa.dkv_plan(b, h, hk, n, m, torch.bfloat16, d)["qsplit"] == 4
+    refs = fa.flash_attention_bwd_ref(q, k, v, tab, mask, out, lse, g, bias=bias, causal=causal,
+                                      scale=d ** -0.5)
+    for name, a, r in zip(("dq", "dk", "dv", "dgrad"), grads, refs):
+        if r is None:
+            assert a is None
+            continue
+        assert a.shape == r.shape, name
+        if form == "cross" and name in ("dk", "dv"):
+            # 8800 query rows sum into each of 17 keys: the bf16 rounding of dS^T
+            # and P^T, the products' operands in every bf16 form (D = 64 and 128
+            # as well), leaves noise over an absolute 3e-2 where a sum cancels,
+            # so dk and dv are held to 1e-2 of their largest element
+            assert (a.float() - r.float()).abs().max() <= 1e-2 * r.float().abs().max(), name
+            continue
+        torch.testing.assert_close(a.float(), r.float(), rtol=3e-2, atol=3e-2, msg=name)
+
+
+@pytest.mark.parametrize("form", list(BF16_WIDE_FORMS))
+@pytest.mark.parametrize("d", [256, 192])
+def test_bf16_d256_backward_gives_the_same_bits_every_run(cuda, d, form):
+    # K2 with K4's fixed-order sums, K5's rank-order batch sum or dS, and K3
+    # summing dk and dv each in one consumer, then the cluster in rank order
+    q, k, v, g, tab, bias, mask, out, lse, causal = _bf16_wide_inputs(cuda, form, d, seed=61)
+    tabc, kmask, dense = fa._kernel_args(tab, mask, bias)
+    args = (*fa._padded(q, k, v, g, d=256), lse, (g.float() * out.float()).sum(-1), tabc, kmask)
+    for fn in (fa.bwd_dq, fa.bwd_dkv):
+        if form == "bias12" and fn is fa.bwd_dq:
+            continue  # K5's clusters meet by atomics at B = 12: the sum's order is not fixed
+        first = fn(*args, causal=causal, scale=d ** -0.5, bias=dense)
+        for _ in range(2):
+            again = fn(*args, causal=causal, scale=d ** -0.5, bias=dense)
+            assert all(torch.equal(a, b) for a, b in zip(first, again) if a is not None)
+
+
+def test_bf16_d256_backward_refuses_an_unpadded_head_dim(cuda):
+    # the library takes bf16's 129-255 only padded to 256 (bwd_head_dim), so
+    # no launch quietly takes the column-sliced form there
+    q, k, v, g, tab, bias, mask, out, lse, _ = _bf16_wide_inputs(cuda, "none", 192, seed=62)
+    args = (q, k, v, g, lse, (g.float() * out.float()).sum(-1), None, None)
+    for fn in (fa.bwd_dq, fa.bwd_dkv):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            fn(*args, causal=True, scale=192 ** -0.5)
+
+
+def test_bf16_d256_plans_match_the_librarys(cuda):
+    bf16 = torch.bfloat16
+    for b, h, hk, n, m in ((4, 4, 1, 2049, 2049), (4, 2, 2, 603, 603), (4, 2, 1, 603, 603),
+                           (4, 8, 1, 2049, 17), (9, 8, 8, 130, 130), (12, 8, 1, 100, 100),
+                           (3, 2, 2, 130, 130), (2, 4, 1, 90, 17)):
+        for dbias in (False, True):
+            plan = fa.dq_plan(b, h, hk, n, m, True, bf16, dbias=dbias, d=256)
+            assert fa.dq_plan_built(b, h, hk, n, m, bf16, dbias=dbias, d=256) == (
+                plan["cluster"], plan["stages"], plan["smem"], plan["blocks"]), (b, h, n, m)
+        plan = fa.dkv_plan(b, h, hk, n, m, bf16, 256)
+        assert fa.dkv_plan_built(b, h, hk, n, m, bf16, 256) == tuple(
+            plan[x] for x in ("cluster", "qsplit", "consumers", "stages", "smem", "blocks"))
+
+
+def test_bf16_d256_backward_issues_tensor_core_instructions(cuda):
+    # warpgroup products (HGMMA) fed by TMA loads (UTMALDG) in K2's three
+    # forms at <bf16, 256> and in K3's pair form
+    found = {}
+    for mangled, ops in _build.sass_counts(fa.SOURCE_BWD).items():
+        if "bfloat16" in mangled and "Li256E" in mangled and "flash_bwd_d" in mangled:
+            ints = re.findall(r"Li(\d+)E", mangled)
+            key = ("dkv_pair" if "dkv_pair" in mangled else f"dq {ints[1]}")
+            found[key] = (ops["HGMMA"], ops["UTMALDG"])
+    assert sorted(found) == ["dkv_pair", "dq 0", "dq 1", "dq 2"], found
+    assert all(all(x) for x in found.values()), found

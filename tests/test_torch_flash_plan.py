@@ -8,7 +8,10 @@ tensor-parallel shapes, and K5's cluster is the largest divisor of the
 batch up to 8; and plain emulations of K3's blocks (each warpgroup's items,
 the two warpgroups' sum, the cluster's rank order, the query chunks' order)
 and of K2's (each query tile's key tiles in order) give JAX's gradients of
-`attend`.
+`attend`. The same for the head dims: each plan's fit at every head dim,
+the column-sliced form over 128, and the backward's rule that sends bf16's
+129 to 256 to K2's and K3's Hopper form at 256 (its plans, fit, cluster
+rules, K3's pair form's sum order and the padding's exactness).
 
 Tolerances: rtol 1e-2 / atol 1e-3 against JAX, the JAX package's gradient
 tolerance (tests/test_flash_attention.py)."""
@@ -351,26 +354,34 @@ def test_column_sliced_plans_visit_each_attended_pair_once_a_slice(label, b, h, 
     grid, one a 64-wide slice of the output, with one shared memory for
     every D: K1's and K2's blocks of a slice visit each attended (query tile,
     key tile) once, K2's in order, and K3's blocks of a slice each attended
-    (query head, query row) of their kv head once, in head order."""
+    (query head, query row) of their kv head once, in head order. In bf16 up
+    to D = 256 only K1 does: K2 and K3 run their Hopper form there
+    (test_bf16_d256_backward_plans_visit_each_attended_tile_once)."""
     slices = d // 64
     fwd = fa.fwd_plan(b, h, n, m, causal, dtype, d)
     dq = fa.dq_plan(b, h, hk, n, m, causal, dtype, dbias=True, d=d)
     dkv = fa.dkv_plan(b, h, hk, n, m, dtype, d)
-    for plan in (fwd, dq, dkv):
+    backward = dtype == torch.float32 or d > fa.BF16_BWD_DIM
+    if not backward:
+        assert dq["slices"] == dkv["slices"] == 1
+    for plan in (fwd, dq, dkv) if backward else (fwd,):
         assert plan["slices"] == slices and plan["stages"] == 2
         assert plan["smem"] == fa.fwd_plan(b, h, n, m, causal, dtype, 192)["smem"] + (
             0 if plan is not dq else fa._K5_BYTES)
-    assert fwd["consumers"] == dkv["consumers"] == 1
-    assert dq["items"] == dkv["items"] == 2 * slices + 1
-    assert (dkv["cluster"], dkv["qsplit"]) == (1, 1)
+    assert fwd["consumers"] == 1
     # each slice's blocks walk the same tiles: once each, over the attended ones
-    for plan in (fwd, dq):
+    for plan in (fwd, dq) if backward else (fwd,):
         seen = collections.Counter()
         for qi, keys in plan["tiles"].items():
             keys = keys[0] if plan is fwd else keys
             assert keys == sorted(keys)
             seen.update((qi, ki) for ki in keys)
         assert max(seen.values()) == 1 and set(seen) >= attended_tiles(n, m, causal)
+    if not backward:
+        return
+    assert dkv["consumers"] == 1 and not dkv["pair"]
+    assert dq["items"] == dkv["items"] == 2 * slices + 1
+    assert (dkv["cluster"], dkv["qsplit"]) == (1, 1)
     keep = np.tril(np.ones((n, m), bool), m - n) if causal else np.ones((n, m), bool)
     group = h // hk
     for kv_head in range(hk):
@@ -497,3 +508,159 @@ def test_column_sliced_scheme_equals_the_unsliced_plain_version(d, causal, m_ext
     tight = dict(rtol=1e-12, atol=1e-12)
     for name, a, r in zip(("out", "lse", "dq", "dk", "dv"), got, (out, lse, dq, dk, dv)):
         torch.testing.assert_close(a, r, **tight, msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1, 32, 33, 100, 128, 129, 160, 192, 200, 255, 256, 257, 320, 512])
+def test_backward_head_dim_rule(d, dtype):
+    """The backward's head dim: the forward's (`native_head_dim`) but in
+    bf16 from 129 to 256, which all go to 256, the head dim of K2's and K3's
+    Hopper form there; float32 over 128, and bf16 over 256, keep the
+    column-sliced form (a multiple of 64, one slice a block)."""
+    got = fa.bwd_head_dim(d, dtype)
+    if dtype == torch.bfloat16 and 128 < d <= 256:
+        assert got == fa.BF16_BWD_DIM == 256
+        assert fa._slices(d, dtype) == 1
+    else:
+        assert got == fa.native_head_dim(d)
+        assert fa._slices(d, dtype) == fa._slices(d) == (got // 64 if d > 128 else 1)
+    # the forward keeps its own rule: K1 at 129-256 in bf16 stays column-sliced
+    assert fa.fwd_plan(4, 4, 2049, 2049, True, dtype, d)["slices"] == fa._slices(d)
+
+
+@pytest.mark.parametrize("d", [192, 256])
+@pytest.mark.parametrize("label,b,h,hk,n,m,causal", SHAPES, ids=[s[0] for s in SHAPES])
+def test_bf16_d256_backward_plans_visit_each_attended_tile_once(label, b, h, hk, n, m, causal,
+                                                                d):
+    """bf16's K2 and K3 at D = 256 (192 padded to it): K2 the native block
+    with two stages, its key tiles up to the diagonal in order, each
+    attended (query tile, key tile) once; K3 the pair form, whose two
+    consumers both take every item of the block (one for dk, one for dv),
+    each attended (query head, query row) of the kv head once over the
+    cluster's ranks and the query chunks."""
+    bf16 = torch.bfloat16
+    for dbias in (False, True):
+        dq = fa.dq_plan(b, h, hk, n, m, causal, bf16, dbias=dbias, d=d)
+        assert (dq["slices"], dq["stages"], dq["items"], dq["blocks"]) == (1, 2, 1, 1)
+        assert dq["grid"] == (b, h, -(-n // 64))
+        seen = collections.Counter()
+        for qi, keys in dq["tiles"].items():
+            assert keys == sorted(keys)
+            seen.update((qi, ki) for ki in keys)
+        assert max(seen.values()) == 1 and set(seen) >= attended_tiles(n, m, causal)
+        assert all(ki * 64 < m for _, ki in seen)
+    dkv = fa.dkv_plan(b, h, hk, n, m, bf16, d)
+    assert (dkv["slices"], dkv["consumers"], dkv["pair"], dkv["stages"], dkv["items"],
+            dkv["blocks"]) == (1, 2, True, 2, 1, 1)
+    keep = np.tril(np.ones((n, m), bool), m - n) if causal else np.ones((n, m), bool)
+    group = h // hk
+    for kv_head in range(hk):
+        for ki in range(-(-m // 64)):
+            sees = keep[:, ki * 64:(ki + 1) * 64].any(1)
+            rows = np.zeros((h, n), int)
+            for rank in range(dkv["cluster"]):
+                for z in range(dkv["qsplit"]):
+                    first, second = fa.dkv_items(dkv, h, hk, n, m, causal, kv_head, ki, rank, z)
+                    assert not second
+                    for head, q0 in first:
+                        rows[head, q0:q0 + 64] += 1
+            heads = list(range(kv_head * group, (kv_head + 1) * group))
+            assert rows.max() == 1 and (rows[heads][:, sees] == 1).all()
+            assert not rows[[x for x in range(h) if x not in heads]].any()
+
+
+@pytest.mark.parametrize("label,b,h,hk,n,m,causal", SHAPES, ids=[s[0] for s in SHAPES])
+def test_bf16_d256_backward_plans_fit_the_card(label, b, h, hk, n, m, causal):
+    """K2's block at bf16's D = 256: Q and dO 64 KB, two stages of K and V
+    128 KB, the rest 1.8 KB, then K4's buffers (223,008 bytes) or K5's two dS
+    buffers (231,200, the repo's tightest fit: 1,248 bytes under the
+    232,448 a block may have); K3's pair form: K and V, two stages of Q and
+    dO, P^T and dS^T handed between its consumers: 223,632. One block an
+    SM each."""
+    bf16 = torch.bfloat16
+    with_k4 = fa.dq_plan(b, h, hk, n, m, causal, bf16, d=256)
+    with_k5 = fa.dq_plan(b, h, hk, n, m, causal, bf16, dbias=True, d=256)
+    dkv = fa.dkv_plan(b, h, hk, n, m, bf16, 256)
+    assert (with_k4["smem"], with_k5["smem"], dkv["smem"]) == (223008, 231200, 223632)
+    assert fa.SMEM_LIMIT - with_k5["smem"] == 1248
+    for plan in (with_k4, with_k5, dkv):
+        assert plan["blocks"] == 1 and plan["smem"] + 1024 <= SM_SMEM
+
+
+@pytest.mark.parametrize("d", [192, 256])
+@pytest.mark.parametrize("label,b,h,hk,n,m,causal", SHAPES, ids=[s[0] for s in SHAPES])
+def test_bf16_d256_backward_keeps_the_cluster_and_query_split_rules(label, b, h, hk, n, m,
+                                                                    causal, d):
+    """K5's cluster (the largest divisor of the batch up to 8, atomics past
+    one cluster a tile) and K3's cluster and query split are those of every
+    native head dim."""
+    bf16 = torch.bfloat16
+    for batch in (b, 3, 9, 12):
+        got = fa.dq_plan(batch, h, hk, n, m, causal, bf16, dbias=True, d=d)
+        want = fa.dq_plan(batch, h, hk, n, m, causal, bf16, dbias=True)
+        assert (got["cluster"], got["atomic"], got["grid"]) == (want["cluster"], want["atomic"],
+                                                                want["grid"])
+    got, want = fa.dkv_plan(b, h, hk, n, m, bf16, d), fa.dkv_plan(b, h, hk, n, m, bf16)
+    assert (got["cluster"], got["qsplit"], got["grid"]) == (want["cluster"], want["qsplit"],
+                                                            want["grid"])
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_k3_pair_form_sum_order_matches_jax(causal):
+    """bf16's K3 at D = 256 sums dk in one consumer and dv in the other, each
+    over all of the block's items in order, then the cluster's ranks in rank
+    order, then the query chunks in order: that scheme, emulated in float32
+    at D = 256 with the plan's query split forced on (2 x 4 heads x 130
+    queries over one kv head, 17 keys or a causal prefix of 17 more, one
+    batch row's keys half masked), gives JAX's gradients of `attend`."""
+    b, h, hk, n, d = 2, 4, 1, 130, 256
+    m = 17 if not causal else n + 17
+    rng = np.random.default_rng(3)
+    q = rng.normal(size=(b, h, n, d)).astype(np.float32)
+    k = rng.normal(size=(b, hk, m, d)).astype(np.float32)
+    v = rng.normal(size=(b, hk, m, d)).astype(np.float32)
+    g = rng.normal(size=(b, h, n, d)).astype(np.float32)
+    mask = np.ones((b, m), bool)
+    mask[1, m // 2:] = False
+    scale = d ** -0.5
+    plan = dict(fa.dkv_plan(b, h, hk, n, m, torch.bfloat16, d), qsplit=2)
+    assert plan["pair"] and plan["cluster"] == 4
+    dk, dv = emulate_dkv(t(q), t(k), t(v), t(g), t(mask), causal, scale, plan)
+
+    def f(k_, v_):
+        return attend(jnp.asarray(q), k_, v_, mask=jnp.asarray(mask)[:, None, None, :],
+                      causal=causal, scale=scale)
+
+    _, vjp = jax.vjp(f, jnp.asarray(k), jnp.asarray(v))
+    jdk, jdv = vjp(jnp.asarray(g))
+    np.testing.assert_allclose(dk.numpy(), np.asarray(jdk), **GRAD_TOL)
+    np.testing.assert_allclose(dv.numpy(), np.asarray(jdv), **GRAD_TOL)
+
+
+@pytest.mark.parametrize("d", [129, 192, 255])
+def test_bf16_backward_padding_to_256_is_exact(d):
+    """What the CUDA wrapper does with a bf16 head dim from 129 to 255 in the
+    backward, through the plain backward in float64: q, k, v, out and dO
+    zero-padded to 256 (`bwd_head_dim`), the true D's scale, the gradients
+    sliced back, equal the unpadded plain backward's to 1e-12, and their
+    padded columns are zeros."""
+    b, h, hk, n = 2, 2, 1, 70
+    rng = np.random.default_rng(d)
+    q, g = (torch.from_numpy(rng.normal(size=(b, h, n, d))) for _ in range(2))
+    k, v = (torch.from_numpy(rng.normal(size=(b, hk, n, d))) for _ in range(2))
+    tab = torch.from_numpy(0.5 * rng.normal(size=(2 * n - 1, h)))
+    mask = torch.ones(b, n, dtype=torch.bool)
+    mask[1, 50:] = False
+    kw = dict(causal=True, scale=d ** -0.5)
+    out, lse = fa.flash_attention_ref(q, k, v, bias_tab=tab, key_mask=mask, return_lse=True, **kw)
+    want = fa.flash_attention_bwd_ref(q, k, v, tab, mask, out, lse, g, **kw)
+    dn = fa.bwd_head_dim(d, torch.bfloat16)
+    padded = fa._padded(q, k, v, g, out, d=dn)
+    assert dn == 256 and all(x.shape[-1] == 256 for x in padded)
+    qp, kp, vp, gp, outp = padded
+    got = fa.flash_attention_bwd_ref(qp, kp, vp, tab, mask, outp, lse, gp, **kw)
+    tight = dict(rtol=1e-12, atol=1e-12)
+    for name, a, r in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(a[..., :d], r, **tight, msg=name)
+        assert not a[..., d:].any(), name
+    torch.testing.assert_close(got[3], want[3], **tight)

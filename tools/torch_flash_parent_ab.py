@@ -15,8 +15,10 @@ turns: this build, the forced one, the forced one, this. With --parent DIR it al
 (the parent commit's `audiolm_pytorch_tpu_torch/csrc/flash_fwd.cu`,
 `flash_bwd.cu`, `vq.cu` and `local_attn.cu` with their headers), in one
 process, in turns: the parent's build, this one's, this one's again and
-the parent's again, at the shapes the parent's kernels take (head dims up
-to 128 with every bias form, K7's windows 64 and 128). The builds share the C
+the parent's again, at every flash shape (the parent's kernels take every
+head dim since its column-sliced form; bf16's head dims up to 256, which
+this checkout's K2 and K3 take padded to 256, their Hopper form, reach the
+parent's as they are) and at K7's windows 64 and 128. The builds share the C
 interfaces (the flash kernels' per-batch flag comes last, which an older
 library ignores), so the parent's libraries are loaded in place of this
 one's behind the same wrappers.
@@ -57,9 +59,9 @@ cuda_ms = functools.partial(cuda_timing.cuda_ms, iters=20, warmup=3)
 # keys (the first kept), "ragged" masks keys >= 700 of row 1, "text" keeps
 # each row's text tokens (7, 13, 9, 16 of the first P) and forgets 15% of
 # the rest, "null" keeps the null key and each row's text tokens. The head
-# dims 32 and 128 are timed against a parent's as head dim 64 is; the head
-# dims over 128 (the kernels' column-sliced form: the flagship's and the
-# Coarse LM's 256, the Fine LM's 320) for this checkout alone.
+# dims over 128: the flagship's and the Coarse LM's 256, the Fine LM's 320,
+# and 192 at the flagship's shape (in bf16 K2 and K3 there take their Hopper
+# form at 256, the rest the column-sliced form).
 SHAPES = (("4x8x2048 table", 4, 8, 2048, 2048, "table", True, "forget", False),
           ("4x8x2049 table (training)", 4, 8, 2049, 2049, "table", True, "forget", False),
           ("2x8x1000 table, ragged", 2, 8, 1000, 1000, "table", True, "ragged", False),
@@ -90,7 +92,9 @@ SHAPES = (("4x8x2048 table", 4, 8, 2048, 2048, "table", True, "forget", False),
           ("4x2x603x256 bias (Coarse training, 2 heads of 256)", 4, 2, 603, 603, "bias", True,
            "forget", False, 256),
           ("4x2x1201x320 bias (Fine training, 2 heads of 320)", 4, 2, 1201, 1201, "bias", True,
-           "forget", False, 320))
+           "forget", False, 320),
+          ("4x4x2049x192 table (4 heads of 192)", 4, 4, 2049, 2049, "table", True, "forget",
+           False, 192))
 STAGE_ONLY_BF16 = ("trainer)",)
 TEXT_LENGTHS = (7, 13, 9, 16)
 # K6: (rows, codes, dim): a decode step's and a short prompt's rows, a
@@ -176,17 +180,21 @@ def inputs(rng, dtype, b, h, n, m, form, keys, d=64):
     return q, k, v, g, tab, bias, mask
 
 
-def times(q, k, v, g, tab, bias, mask, causal, fwd_only):
+def times(q, k, v, g, tab, bias, mask, causal, fwd_only, pad=True):
     """{K1, K2, K2 with its bias gradient (K4, K5 or a per-batch bias's dS),
     K3: (event ms, device ms, device launches per call)} of the wrappers as
-    they stand."""
+    they stand, K2's and K3's prepared arguments padded to `fa.bwd_head_dim`
+    (outside the timed calls; with pad False as they are, as a parent's
+    library takes them)."""
     scale = q.shape[-1] ** -0.5
     kw = dict(causal=causal, scale=scale)
     with torch.no_grad():
         out, lse = fa._forward(q, k, v, tab, bias, mask, causal, scale)
     tabc, kmask, dense = fa._kernel_args(tab, mask, bias)
-    args = (q, k, v, g, lse, (g.float() * out.float()).sum(-1), tabc, kmask)
-    dq_out = torch.empty_like(q)
+    prepared = fa._padded(q, k, v, g, d=fa.bwd_head_dim(q.shape[-1], q.dtype)) if pad \
+        else (q, k, v, g)
+    args = (*prepared, lse, (g.float() * out.float()).sum(-1), tabc, kmask)
+    dq_out = torch.empty_like(prepared[0])
 
     def k1():
         return fa._forward(q, k, v, tab, bias, mask, causal, scale)
@@ -200,7 +208,8 @@ def times(q, k, v, g, tab, bias, mask, causal, fwd_only):
     def k3():
         return fa.bwd_dkv(*args, bias=dense, **kw)
 
-    # each kernel's native and column-sliced (`_wide_`) instantiations
+    # each kernel's native and column-sliced (`_wide_`) instantiations, and
+    # K3's pair form (bf16 at D = 256)
     got = {"K1": (cuda_ms(k1), *cuda_timing.named_device_ms(
         k1, ["flash_fwd_kernel", "flash_fwd_wide_kernel"]))}
     if not fwd_only:
@@ -211,7 +220,8 @@ def times(q, k, v, g, tab, bias, mask, causal, fwd_only):
             got[grad] = (cuda_ms(k2_grad), *cuda_timing.named_device_ms(
                 k2_grad, ["flash_bwd_dq_kernel", "flash_bwd_dq_wide_kernel", "dtab_sum_kernel"]))
         got["K3"] = (cuda_ms(k3), *cuda_timing.named_device_ms(
-            k3, ["flash_bwd_dkv_kernel", "flash_bwd_dkv_wide_kernel", "dkv_sum_kernel"]))
+            k3, ["flash_bwd_dkv_kernel", "flash_bwd_dkv_pair_kernel", "flash_bwd_dkv_wide_kernel",
+                 "dkv_sum_kernel"]))
     return got
 
 
@@ -330,11 +340,12 @@ def compare(parent=None, seed=0, shapes=SHAPES):
         for dtype in dtypes:
             tensors = inputs(np.random.default_rng(seed), dtype, b, h, n, m, form, keys, d)
             runs = {"this": []}
-            if parent is not None and d <= 128:
+            if parent is not None:
                 runs["parent"] = []
                 for which in ("parent", "this", "this", "parent"):
                     with parent_kernels(parent) if which == "parent" else contextlib.nullcontext():
-                        runs[which].append(times(*tensors, causal, fwd_only))
+                        runs[which].append(times(*tensors, causal, fwd_only,
+                                                 pad=which != "parent"))
             else:
                 runs["this"].append(times(*tensors, causal, fwd_only))
             sdpa_ms, sdpa_dev, sdpa_bwd_dev = sdpa_times(*tensors, causal, fwd_only)
