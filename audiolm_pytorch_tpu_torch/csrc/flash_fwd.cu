@@ -62,33 +62,54 @@
 // added on the CUDA cores (tc::add_tile's reason).
 //
 // Head dims. The native form is instantiated for D = 32, 64 and 128 (the
-// wrapper zero-pads any other D up to 128 into the next of them); over 128
-// the column-sliced form below takes every D that is a multiple of 64 (the
-// wrapper zero-pads any other D to the next one). A D-wide row is D * sizeof(T) /
-// 128 boxes of csrc/wgmma.cuh's 128-byte swizzle (a 32-wide bf16 row half
-// of one, its other half read as zeros past the row's end), S = Q K^T runs
-// over D * sizeof(T) / 32 k-steps, and P V one product a 64-column box. At
-// D = 32 the block shapes are those of D = 64 with smaller tiles. At D = 128
-// every tile doubles, so a block's three stages (112 KB) leave room for one
-// block an SM: bf16 always takes the two-consumer block; float32 (Q 64 KB
-// and a stage of K and V 128 KB with their small parts) one consumer and
-// one stage, and no setmaxnreg (255 registers each), its ring ordering a
-// tile's split before the next tile's load. Simple, not yet fast: see
-// PERF.md.
+// wrapper zero-pads any other D up to 128 into the next of them), and in
+// bf16 for D = 256 (the wrapper zero-pads bf16's 129 to 255 to it; the
+// library refuses them unpadded); over 128 in float32, and over 256 in
+// bf16, the column-sliced form below takes every D that is a multiple of 64
+// (the wrapper zero-pads any other D to the next one). A D-wide row is D *
+// sizeof(T) / 128 boxes of csrc/wgmma.cuh's 128-byte swizzle (a 32-wide
+// bf16 row half of one, its other half read as zeros past the row's end),
+// S = Q K^T runs over D * sizeof(T) / 32 k-steps, and P V one product a
+// 64-column box. At D = 32 the block shapes are those of D = 64 with
+// smaller tiles. At D = 128 every tile doubles, so a block's three stages
+// (112 KB) leave room for one block an SM: bf16 always takes the
+// two-consumer block; float32 (Q 64 KB and a stage of K and V 128 KB with
+// their small parts) one consumer and one stage, and no setmaxnreg (255
+// registers each), its ring ordering a tile's split before the next tile's
+// load. Simple, not yet fast: see PERF.md.
 //
-// Over D = 128 (flash_fwd_wide_kernel). At D = 256 Q alone with its tf32
-// small parts is 128 KB, a stage of K and V 256 KB, and O's 64 x D
-// accumulator 128 registers a thread: neither the tiles nor the accumulator
-// of the native form fit. So a block owns one 64-wide slice of the output's
-// columns and keeps a 16 x 64 strip of O a warp; S = Q K^T is summed over
-// the depth 64 columns at a time, each chunk's Q and K tiles (64 x 64, a
-// pitch of 64 + 16 bytes) streamed by cp.async through a ring of two stages
-// with V's slice after them, on mma.sync (csrc/mma.cuh's tc::Wide,
-// chunk_nk, add_tile: 3xTF32 in float32, each chunk's product from zero).
-// 4 warps, 68 KB (float32) or 36 KB (bf16), two blocks an SM, any D. Its
-// price: every slice recomputes S, D / 64 times the native form's S
-// products, and Q is read again for each key tile (mostly from L2). Slice 0
-// alone writes lse. Right first, not yet fast: PERF.md has its times.
+// bf16 at D = 256 (flash_fwd_kernel<bf16, 256, true>). A 64 x 256 tile is
+// 32 KB, a stage of K and V 64 KB, and O's 64 x 256 float32 accumulator 128
+// registers a consumer thread. Of the two ways to give the block two
+// consumer warpgroups, this one takes the rows form (ROWS): the consumers
+// own the two 64-row halves of a 128-row query block, each with its own Q
+// tile, and both take every key tile of a two-stage ring (Q 64 KB, two
+// stages of 64 KB, the slices 2.6 KB: 199,328 bytes), setmaxnreg giving
+// them 240 registers each and the producer 24. A key tile, loaded once from
+// L2 by TMA, then serves 128 query rows, where the shared-rows form (the D
+// = 128 block at 256: two consumers on 64 rows taking the key tiles in
+// turn, merged at the end) would load it for every 64: at the flagship's 4
+// x 4 x 2049, 320 MB from L2 instead of 588 (worked out from the shapes).
+// There is no merge: a row's output comes from one consumer's walk over the
+// key tiles in order, so the same bits every run. A consumer stops at its
+// own rows' causal end (the first half's is a key tile short of the
+// block's) and only hands the later stages back, as a half past N does
+// with all of them. The price: half as many blocks as 64-row tiles (the
+// Coarse LM's 4 x 2 x 603 runs 40).
+//
+// Over D = 128 in float32, over 256 in bf16 (flash_fwd_wide_kernel). In
+// float32 at D = 256 Q alone with its tf32 small parts is 128 KB, a stage
+// of K and V 256 KB: neither the tiles nor the accumulator of the native
+// form fit. So a block owns one 64-wide slice of the output's columns and
+// keeps a 16 x 64 strip of O a warp; S = Q K^T is summed over the depth 64
+// columns at a time, each chunk's Q and K tiles (64 x 64, a pitch of 64 +
+// 16 bytes) streamed by cp.async through a ring of two stages with V's
+// slice after them, on mma.sync (csrc/mma.cuh's tc::Wide, chunk_nk,
+// add_tile: 3xTF32 in float32, each chunk's product from zero). 4 warps,
+// 68 KB (float32) or 36 KB (bf16), two blocks an SM, any D. Its price:
+// every slice recomputes S, D / 64 times the native form's S products, and
+// Q is read again for each key tile (mostly from L2). Slice 0 alone writes
+// lse. Right first, not yet fast: PERF.md has its times.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -100,16 +121,19 @@ namespace {
 constexpr int BQ = 64;          // query rows per block
 constexpr int BK = 64;          // keys per tile
 constexpr int PLAN_SMS = 132;   // the H100's SMs, which the launch's choice of block fills
+constexpr int BF16_DIM = 256;   // bf16's Hopper form over D = 128 (the wrapper pads bf16's
+                                // 129 to 255 to it)
 using tc::NEG;
 constexpr float LN2 = 0.6931471805599453f;
 
 // The block and its shared memory (offsets from its base, which the launch
 // leaves 1024-byte aligned: the tiles' swizzle is taken on address bits):
 // Q; the ring's stages of (K, V), each an operand tile (with its small
-// parts in float32); per stage the table slice [128], the key flags [64]
-// and two words that say whether any key of the tile is flagged; the
-// barriers. Two shapes of block, chosen by the launch from the sizes
-// (fwd_shape; ops/kernels/flash_attention.py::fwd_plan states the rule):
+// parts in float32); per stage the table slice [128] ([256] for a 128-row
+// block), the key flags [64] and two words that say whether any key of the
+// tile is flagged; the barriers. Three shapes of block, chosen by the
+// launch from the sizes (fwd_two; ops/kernels/flash_attention.py::
+// fwd_plan states the rule):
 //   - one consumer warpgroup: bf16 with three stages (~58 KB and 80
 //     registers a thread at launch: three blocks share an SM and one's
 //     softmax runs while another's products do), float32 where one key
@@ -120,34 +144,42 @@ constexpr float LN2 = 0.6931471805599453f;
 //     two blocks an SM would run (the stage trainers' 4 x 4 x 602: 160
 //     blocks), so each block's rows finish in half the time. After the loop
 //     the second consumer's (O, m, l) take the first stage's place and the
-//     first merges them.
+//     first merges them;
+//   - bf16 at D = 256 (ROWS): two consumer warpgroups on the two 64-row
+//     halves of a 128-row query block, each its own Q tile, both taking
+//     every key tile, with two stages (see the note at the top).
 template <typename T, int D, bool TWO>
 struct Fwd {
   static constexpr bool F32 = sizeof(T) == 4;
-  static constexpr bool WIDE = D > 64;  // D = 128
+  static constexpr bool WIDE = D > 64;  // D = 128, or bf16's 256
+  static constexpr bool ROWS = D > 128;  // bf16's 256: a consumer a 64-row half
   static constexpr int NC = TWO ? 2 : 1;  // consumer warpgroups
   static constexpr int NT = 128 * (1 + NC);
+  static constexpr int QB = ROWS ? 2 * BQ : BQ;  // query rows a block
   static constexpr int MIN_BLOCKS = TWO || (F32 && WIDE) ? 1 : F32 ? 2 : 3;
   // registers a thread: the producer's and a consumer's, within the launch's
   // (65536 / (NT * MIN_BLOCKS), rounded down to 8, each thread), handed over
   // by setmaxnreg (NREG); float32 at D = 128 (one consumer, one block an
-  // SM) keeps 255 each
+  // SM) keeps 255 each; at D = 256 a consumer's O alone takes 128
   static constexpr bool NREG = !(F32 && WIDE);
-  static constexpr int PRODUCER_REGS = TWO ? 56 : F32 ? 40 : 24;
-  static constexpr int CONSUMER_REGS = TWO ? 224 : F32 ? 216 : 136;
-  static constexpr int ST = F32 && !TWO ? 1 : 3;  // stages
+  static constexpr int PRODUCER_REGS = ROWS ? 24 : TWO ? 56 : F32 ? 40 : 24;
+  static constexpr int CONSUMER_REGS = ROWS ? 240 : TWO ? 224 : F32 ? 216 : 136;
+  static constexpr int ST = ROWS ? 2 : F32 && !TWO ? 1 : 3;  // stages
   static constexpr int TILE = wg::tile_bytes<T, D>();
   static constexpr int NA = wg::acc_blocks<T, D>();  // the O accumulator's n-blocks
   static constexpr int TP = D + 8;  // the merge's pitch: float2 stores and reads without conflicts
   static constexpr int OPER = F32 ? 2 * TILE : TILE;
-  static constexpr int STAGE0 = OPER;
+  static constexpr int STAGE0 = (ROWS ? NC : 1) * OPER;  // Q: a tile a consumer under ROWS
   static constexpr int STAGE = 2 * OPER;
   static constexpr int MISC = STAGE0 + ST * STAGE;
-  static constexpr int MISC_STAGE = (128 + 64 + 4) * 4;
+  static constexpr int SLICE = ROWS ? 256 : 128;  // a stage's table slice: QB + BK - 1 entries
+  static constexpr int MISC_STAGE = (SLICE + 64 + 4) * 4;
   static constexpr int BARS = MISC + ST * MISC_STAGE;
   static constexpr size_t bytes = BARS + 128;
   static_assert(bytes <= 232448, "a block's shared memory");
-  static_assert(NC == 1 || ST * STAGE >= (BQ * TP + 2 * BQ) * 4, "the merge fits");
+  static_assert(!ROWS || (TWO && !F32), "the rows form: bf16, two consumers");
+  static_assert(QB + BK - 1 <= SLICE, "the table slice fits");
+  static_assert(NC == 1 || ROWS || ST * STAGE >= (BQ * TP + 2 * BQ) * 4, "the merge fits");
   static_assert((2 + 3 * ST) * 8 <= 128, "the barriers fit");
   static_assert(!NREG || ((PRODUCER_REGS + NC * CONSUMER_REGS) * MIN_BLOCKS * 128 <= 65536
                           && ((65536 / (NT * MIN_BLOCKS)) & ~7) * (1 + NC)
@@ -180,22 +212,25 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
   // so the bias of (q0 + r, k0 + c) is Bs[r - c + BK - 1]; then the key
   // flags; then two words, nonzero where a flag of keys 0-31 (32-63) is
   auto Bs = [&](int s) { return reinterpret_cast<float*>(sm + L::MISC + s * L::MISC_STAGE); };
-  auto Fs = [&](int s) { return Bs(s) + 128; };
-  auto As = [&](int s) { return reinterpret_cast<int*>(Bs(s) + 128 + 64); };
+  auto Fs = [&](int s) { return Bs(s) + L::SLICE; };
+  auto As = [&](int s) { return reinterpret_cast<int*>(Bs(s) + L::SLICE + 64); };
   uint64_t* bars = reinterpret_cast<uint64_t*>(sm + L::BARS);
   uint64_t *qload = bars, *qfull = bars + 1, *loaded = bars + 2, *full = loaded + ST,
            *empty = full + ST;
 
   // one-dimensional grid: the (b*h)s of a query tile run together
   const int bh = blockIdx.x % bh_count, qt = blockIdx.x / bh_count;
-  const int q0 = ((n + BQ - 1) / BQ - 1 - qt) * BQ;  // the longest causal rows first
+  constexpr int QB = L::QB;
+  const int q0 = ((n + QB - 1) / QB - 1 - qt) * QB;  // the longest causal rows first
   const int h = bh % heads, b = bh / heads;
   // bias[h], or bias[b, h] of a per-batch bias
   const float* biash = bias != nullptr ? bias + (size_t)(bias_batched ? bh : h) * n * m : nullptr;
   // causal: key k is seen by query q iff k <= q + off (bottom-right aligned, m >= n)
   const int off = m - n;
-  const int kv_end = tc::causal_end(causal, q0 + BQ, off, m);
+  const int kv_end = tc::causal_end(causal, q0 + QB, off, m);
   const int ntiles = (kv_end + BK - 1) / BK;
+  // ROWS: the second half's Q tile is loaded only where it has rows
+  const int qtiles = L::ROWS && q0 + BQ < n ? 2 : 1;
   const int tid = threadIdx.x;
 
   if (tid == 0) {
@@ -204,7 +239,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
     for (int s = 0; s < ST; ++s) {
       wg::mbar_init(&loaded[s], 1);
       wg::mbar_init(&full[s], 128);
-      wg::mbar_init(&empty[s], 128);
+      wg::mbar_init(&empty[s], L::ROWS ? 256 : 128);  // ROWS: both consumers take every tile
     }
     wg::fence_barrier_init();
   }
@@ -215,22 +250,32 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
     if constexpr (L::NREG) wg::setmaxnreg_dec<L::PRODUCER_REGS>();
     const int kvp = bh / group;
     if (tid == 0) {
-      wg::mbar_arrive_tx(qload, L::TILE);
-      wg::load_tile<T, D>(Qs, &qmap, qload, q0, bh);
+      if constexpr (L::ROWS) {
+        wg::mbar_arrive_tx(qload, qtiles * L::TILE);
+        for (int i = 0; i < qtiles; ++i)
+          wg::load_tile<T, D>(Qs + i * (L::TILE / sizeof(T)), &qmap, qload, q0 + i * BQ, bh);
+      } else {
+        wg::mbar_arrive_tx(qload, L::TILE);
+        wg::load_tile<T, D>(Qs, &qmap, qload, q0, bh);
+      }
     }
     // Tile it into stage it % ST: K and V by TMA, the table slice and key
     // flags from registers loaded a tile ahead (a load's latency, not the
-    // copies', would otherwise pace the ring).
-    float tab_r = 0.f, flag_r = 0.f;
+    // copies', would otherwise pace the ring). A 128-row block's slice of
+    // 191 entries: two a thread, the second from thread 128 on.
+    float tab_r = 0.f, tab_r2 = 0.f, flag_r = 0.f;
     auto fetch = [&](int it) {
       const int k0 = it * BK;
-      if (tab != nullptr && tid < BQ + BK - 1)
+      if (tab != nullptr && tid < QB + BK - 1)
         tab_r = tc::LOG2E * tc::tab_entry(tab, q0, k0, BK, tid, n, heads, h);
+      if constexpr (L::ROWS)
+        if (tab != nullptr && tid + 128 < QB + BK - 1)
+          tab_r2 = tc::LOG2E * tc::tab_entry(tab, q0, k0, BK, tid + 128, n, heads, h);
       if (tid < BK) flag_r = tc::key_flag(kmask, b, m, k0 + tid);
     };
     auto issue = [&](int it) {
       const int s = it % ST, k0 = it * BK;
-      const float tab_it = tab_r, flag_it = flag_r;
+      const float tab_it = tab_r, tab_it2 = tab_r2, flag_it = flag_r;
       if (it + 1 < ntiles) fetch(it + 1);
       wg::mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
       if (tid == 0) {
@@ -240,7 +285,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
         wg::load_tile<T, D>(Ks(s), &kmap, bar, k0, kvp);
         wg::load_tile<T, D>(Vs(s), &vmap, bar, k0, kvp);
       }
-      if (tab != nullptr && tid < BQ + BK - 1) Bs(s)[tid] = tab_it;
+      if (tab != nullptr && tid < QB + BK - 1) Bs(s)[tid] = tab_it;
+      if constexpr (L::ROWS)
+        if (tab != nullptr && tid + 128 < QB + BK - 1) Bs(s)[tid + 128] = tab_it2;
       if (tid < BK) {
         Fs(s)[tid] = flag_it;
         const unsigned any = __ballot_sync(0xffffffffu, flag_it != 0.f);
@@ -279,31 +326,42 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
     return;
   }
 
-  // ---- the consumers: warpgroup c takes the key tiles c, c + NC, ... ----
+  // ---- the consumers: warpgroup c takes the key tiles c, c + NC, ...; in
+  // the rows form every key tile, for its own 64-row half ----
   if constexpr (L::NREG) wg::setmaxnreg_inc<L::CONSUMER_REGS>();
   const int c = tid / 128 - 1, ctid = tid % 128, warp = ctid / 32, g = (ctid % 32) / 4,
             t = ctid % 4;
+  const int qc = L::ROWS ? q0 + c * BQ : q0;  // this consumer's first query row
+  const T* Qc = L::ROWS ? Qs + c * (L::TILE / sizeof(T)) : Qs;
   const int rl[2] = {warp * 16 + g, warp * 16 + g + 8};  // this thread's rows in the tile
   // this thread's rows of the (H, N, M) bias (rows past n: none)
-  const float* brow[2] = {biash != nullptr && q0 + rl[0] < n ? biash + (size_t)(q0 + rl[0]) * m
+  const float* brow[2] = {biash != nullptr && qc + rl[0] < n ? biash + (size_t)(qc + rl[0]) * m
                                                              : nullptr,
-                          biash != nullptr && q0 + rl[1] < n ? biash + (size_t)(q0 + rl[1]) * m
+                          biash != nullptr && qc + rl[1] < n ? biash + (size_t)(qc + rl[1]) * m
                                                              : nullptr};
+  // the rows form: the key tiles this half's rows attend (none for a half
+  // past n); the block's later ones it only hands back
+  const int own = !L::ROWS ? ntiles
+                  : qc >= n ? 0 : (tc::causal_end(causal, qc + BQ, off, m) + BK - 1) / BK;
   float m_i[2] = {NEG, NEG}, l_i[2] = {0.f, 0.f};
   float o[4 * L::NA];
 #pragma unroll
   for (int i = 0; i < 4 * L::NA; ++i) o[i] = 0.f;
   wg::mbar_wait(qfull, 0);
 
-  for (int it = c; it < ntiles; it += NC) {
+  for (int it = L::ROWS ? 0 : c; it < ntiles; it += L::ROWS ? 1 : NC) {
     const int s = it % ST, k0 = it * BK;
     wg::mbar_wait(&full[s], (it / ST) & 1);
+    if (L::ROWS && it >= own) {
+      wg::mbar_arrive(&empty[s]);
+      continue;
+    }
     float sc[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) sc[i] = 0.f;
     wg::fence_acc(sc);
     wg::wgmma_fence();
-    wg::gemm_nk<T, D>(sc, Qs, Ql, Ks(s), Kl(s));
+    wg::gemm_nk<T, D>(sc, Qc, Ql, Ks(s), Kl(s));
     // The (H, N, M) bias: this thread's 32 elements straight from device
     // memory (mostly L2: the batch rows of a head run together), loaded
     // while the product runs. Its rows (M floats) are not 16-byte multiples,
@@ -329,10 +387,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
     // (tc::score), a key's flag (NEG or -inf) is added (y + NEG rounds to
     // NEG, as |y| < 2^75), only on tiles with a flagged key, and the causal
     // mask is tested only on tiles that reach above this warp's rows.
-    const float* bs = Bs(s);
+    const float* bs = Bs(s) + (L::ROWS ? c * BQ : 0);  // this half's rows of the slice
     const float* fs = Fs(s);
     const float sl = scale * tc::LOG2E;
-    const bool diag = causal && tc::above(k0 + BK - 1, q0 + warp * 16, off);
+    const bool diag = causal && tc::above(k0 + BK - 1, qc + warp * 16, off);
     const bool flagged = As(s)[0] || As(s)[1];
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -350,7 +408,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
         }
         float y0 = fmaf(sc[4 * j + 2 * ri], sl, bb.x), y1 = fmaf(sc[4 * j + 2 * ri + 1], sl, bb.y);
         if (diag) {
-          const int qp = q0 + rl[ri];
+          const int qp = qc + rl[ri];
           y0 = tc::above(k0 + cc, qp, off) ? fminf(NEG, f.x) : y0 + f.x;
           y1 = tc::above(k0 + cc + 1, qp, off) ? fminf(NEG, f.y) : y1 + f.y;
         } else if (flagged) {
@@ -399,11 +457,13 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
     wg::mbar_arrive(&empty[s]);
   }
 
-  // two consumers: the second's (O, m, l) into the first stage; the first merges
+  // two consumers on one set of rows: the second's (O, m, l) into the first
+  // stage; the first merges them (the rows form: each writes its own rows)
+  constexpr bool MERGE = NC == 2 && !L::ROWS;
   float* mo = reinterpret_cast<float*>(sm + L::STAGE0);
   float* mm = mo + BQ * L::TP;
   float* ml = mm + BQ;
-  if constexpr (NC == 2) {
+  if constexpr (MERGE) {
     tc::bar_sync(1, 256);
     if (c == 1) {
 #pragma unroll
@@ -423,20 +483,20 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
 #pragma unroll
   for (int ri = 0; ri < 2; ++ri) {
     float mn = m_i[ri], a0 = 1.f, a1 = 0.f, l = l_i[ri];
-    if constexpr (NC == 2) {
+    if constexpr (MERGE) {
       const float m1 = mm[rl[ri]];
       mn = fmaxf(m_i[ri], m1);
       a0 = tc::ex2(m_i[ri] - mn), a1 = tc::ex2(m1 - mn);
       l = l_i[ri] * a0 + ml[rl[ri]] * a1;
     }
-    const int qp = q0 + rl[ri];
+    const int qp = qc + rl[ri];
     if (qp >= n) continue;
     const float inv = 1.f / (l == 0.f ? 1.f : l);
     T* orow = out + ((size_t)bh * n + qp) * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       float2 o1 = make_float2(0.f, 0.f);
-      if constexpr (NC == 2) o1 = *reinterpret_cast<const float2*>(mo + rl[ri] * L::TP + 8 * j + 2 * t);
+      if constexpr (MERGE) o1 = *reinterpret_cast<const float2*>(mo + rl[ri] * L::TP + 8 * j + 2 * t);
       tc::store2(orow + 8 * j + 2 * t, (o[4 * j + 2 * ri] * a0 + o1.x * a1) * inv,
                  (o[4 * j + 2 * ri + 1] * a0 + o1.y * a1) * inv);
     }
@@ -602,11 +662,13 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v, const void*
   return cudaGetLastError();
 }
 
-// a head dim the column-sliced form takes: over 128, a multiple of its chunk
-bool wide_dim(int d) { return d > 128 && d % tc::WC == 0; }
+// a head dim the column-sliced form takes: over 128 in float32 and over
+// BF16_DIM in bf16, a multiple of its chunk
+bool wide_dim(int d, bool bf16) { return d > (bf16 ? BF16_DIM : 128) && d % tc::WC == 0; }
 
 // two consumer warpgroups a block (fwd_plan in ops/kernels/flash_attention.py);
-// at D = 128 one shape a dtype: two in bf16, one in float32
+// at D = 128 one shape a dtype: two in bf16, one in float32; at bf16's 256
+// two, the rows form
 bool fwd_two(bool f32, int bh, int n, int m, int d) {
   if (d > 64) return !f32;
   return f32 ? m > BK : (long long)bh * ((n + BQ - 1) / BQ) < 2 * PLAN_SMS;
@@ -631,7 +693,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* tab,
     if (err == cudaSuccess) sized |= 1u << dev;
   }
   if (err != cudaSuccess) return err;
-  const long long blocks = (long long)bh * ((n + BQ - 1) / BQ);
+  const long long blocks = (long long)bh * ((n + L::QB - 1) / L::QB);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;  // the grid's x limit, 2^31 - 1
   flash_fwd_kernel<T, D, TWO><<<(unsigned)blocks, L::NT, L::bytes, stream>>>(
       qm, km, vm, static_cast<const float*>(tab), static_cast<const float*>(bias),
@@ -660,7 +722,8 @@ cudaError_t launch_dim(int d, const void* q, const void* k, const void* v, const
                        const void* bias, const void* kmask, void* out, void* lse, int bh,
                        int heads, int group, int n, int m, float scale, int causal,
                        int bias_batched, cudaStream_t stream) {
-  if (wide_dim(d))
+  constexpr bool BF16 = sizeof(T) == 2;
+  if (wide_dim(d, BF16))
     return launch_wide<T>(q, k, v, tab, bias, kmask, out, lse, bh, heads, group, n, m, d, scale,
                           causal, bias_batched, stream);
   const bool two = fwd_two(sizeof(T) == 4, bh, n, m, d);
@@ -674,6 +737,11 @@ cudaError_t launch_dim(int d, const void* q, const void* k, const void* v, const
     case 128:
       return launch_shape<T, 128>(two, q, k, v, tab, bias, kmask, out, lse, bh, heads, group,
                                   n, m, scale, causal, bias_batched, stream);
+    case BF16_DIM:  // bf16 only (float32 at 256 is column-sliced); 129-255 refused unpadded
+      if constexpr (BF16)
+        return launch<T, BF16_DIM, true>(q, k, v, tab, bias, kmask, out, lse, bh, heads, group,
+                                         n, m, scale, causal, bias_batched, stream);
+      break;
   }
   return cudaErrorInvalidValue;
 }
@@ -696,8 +764,8 @@ void fwd_plan_of(bool two, int* out) {
 
 }  // namespace
 
-// q (bh, n, d); k, v (bh / group, m, d), d in 32, 64, 128 or over 128 a
-// multiple of 64; tab (2n-1, heads)
+// q (bh, n, d); k, v (bh / group, m, d), d in 32, 64, 128, in bf16 256,
+// or over those (float32 128, bf16 256) a multiple of 64; tab (2n-1, heads)
 // float32 or null; bias float32 or null, at most one of the two: (heads,
 // n, m) shared over the batch, or with bias_batched (bh / heads, heads, n,
 // m); kmask (bh / heads, m) int8 or null; out (bh, n, d) in q's type; lse
@@ -727,7 +795,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void
 // fwd_plan mirrors it)
 extern "C" int flash_fwd_plan(int bh, int n, int m, int d, int dtype, int* out) {
   if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
-  if (wide_dim(d)) {  // the column-sliced form: one consumer of the ring, two stages
+  if (wide_dim(d, dtype == 1)) {  // the column-sliced form: one consumer of the ring, two stages
     out[0] = 1;
     out[1] = 2;
     out[2] = (int)(dtype == 0 ? tc::Wide<float>::RING : tc::Wide<__nv_bfloat16>::RING);
@@ -742,6 +810,7 @@ extern "C" int flash_fwd_plan(int bh, int n, int m, int d, int dtype, int* out) 
     case 129: fwd_plan_of<__nv_bfloat16, 64>(two, out); break;
     case 256: fwd_plan_of<float, 128>(two, out); break;
     case 257: fwd_plan_of<__nv_bfloat16, 128>(two, out); break;
+    case 2 * BF16_DIM + 1: fwd_plan_of<__nv_bfloat16, BF16_DIM>(two, out); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaSuccess;

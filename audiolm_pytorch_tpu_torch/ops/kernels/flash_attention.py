@@ -25,15 +25,15 @@ Head dims. The kernels take every D. They are built for D = 32, 64 and 128
 (`HEAD_DIMS`), and over 128 they run a column-sliced form of their own for
 any multiple of 64 (`WIDE_CHUNK`): a block owns one 64-wide slice of the
 output's columns and recomputes S (and dP) over the whole depth, 64 columns
-at a time, so no tile grows with D. The backward in bf16 has one more
-native head dim, 256 (`BF16_BWD_DIM`): K2 and K3 run their Hopper forms
-there, S and dP formed once a tile, and only bf16 over 256 and float32 over
-128 take the column-sliced backward (`bwd_head_dim`). On a CUDA tensor any
-other D goes through the next of those head dims (`native_head_dim` for
-K1, `bwd_head_dim` for K2 and K3): q, k and v are zero-padded along D, the
-scale stays D ** -0.5 of the true D, and the output and the gradients are
-sliced back. That is exact (a zero column adds nothing to q.k and gives a
-zero output column) and it is the kernel that runs, counted as its launch.
+at a time, so no tile grows with D. In bf16 they have one more native head
+dim, 256 (`BF16_DIM`): K1, K2 and K3 run their Hopper forms there, S (and
+dP) formed once a tile, and only bf16 over 256 and float32 over 128 take
+the column-sliced forms. On a CUDA tensor any other D goes through the next
+of those head dims (`flash_head_dim`, the one rule of K1, K2 and K3): q, k
+and v are zero-padded along D, the scale stays D ** -0.5 of the true D, and
+the output and the gradients are sliced back. That is exact (a zero column
+adds nothing to q.k and gives a zero output column) and it is the kernel
+that runs, counted as its launch.
 """
 from __future__ import annotations
 
@@ -46,17 +46,17 @@ from ..relpos import toeplitz_expand
 from ._build import built_with, load
 
 __all__ = ["flash_attention", "flash_attention_ref", "flash_attention_bwd",
-           "flash_attention_bwd_ref", "bwd_dq", "bwd_dkv", "built_with", "SOURCE",
+           "flash_attention_bwd_ref", "fwd", "bwd_dq", "bwd_dkv", "built_with", "SOURCE",
            "SOURCE_BWD", "HEAD_DIMS", "launches", "launches_dq", "launches_dkv",
            "launches_dtab", "launches_dbias", "launches_dbias_per_batch", "PLAN_SMS", "fwd_plan", "dq_plan", "dkv_plan",
            "dkv_items", "fwd_plan_built", "dq_plan_built", "dkv_plan_built", "native_head_dim",
-           "bwd_head_dim", "SMEM_LIMIT", "WIDE_CHUNK", "BF16_BWD_DIM"]
+           "flash_head_dim", "SMEM_LIMIT", "WIDE_CHUNK", "BF16_DIM"]
 
 SOURCE = "flash_fwd.cu"
 SOURCE_BWD = "flash_bwd.cu"
 HEAD_DIMS = (32, 64, 128)  # the head dims of the kernels' native forms; others up to 128 padded
 WIDE_CHUNK = 64  # over 128: the column-sliced forms' chunk and slice (D a multiple of it)
-BF16_BWD_DIM = 256  # bf16's K2 and K3 run their Hopper forms at this head dim too
+BF16_DIM = 256  # bf16's K1, K2 and K3 run their Hopper forms at this head dim too
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -81,6 +81,7 @@ SMEM_LIMIT = 232448  # the shared memory one block may have on the H100
 _TILE = 64      # query rows and keys per tile of both kernels
 _MAX_DKV_CLUSTER = 8
 _MISC_FWD = (128 + 64 + 4) * 4  # a stage's table slice, key flags and two words (K1, K2)
+_MISC_ROWS = (256 + 64 + 4) * 4  # the same for K1's 128-row block (bf16 at D = 256)
 _MISC_DKV = (64 + 64 + 128) * 4  # a stage's lse, Delta and table slice (K3)
 _K4_BYTES = (64 * 80 + 2 * 4 * 128) * 4  # K2's skewed dS rows and delta slots
 _K5_BYTES = 2 * 64 * 64 * 4  # K2's two dS buffers of K5's batch sum
@@ -92,10 +93,10 @@ def _tiles(x):
 
 
 def native_head_dim(d):
-    """The head dim of the kernels that run a D-wide head: up to 128, D
-    where it is one of HEAD_DIMS, else the next larger; over 128, D rounded
-    up to a multiple of WIDE_CHUNK (the column-sliced forms). q, k and v are
-    zero-padded to it."""
+    """The head dim of K7 (and of the flash kernels in float32) for a D-wide
+    head: up to 128, D where it is one of HEAD_DIMS, else the next larger;
+    over 128, D rounded up to a multiple of WIDE_CHUNK (the column-sliced
+    forms). q, k and v are zero-padded to it."""
     if d < 1:
         raise ValueError(f"head dim {d}: the kernels take head dims of 1 and more")
     for native in HEAD_DIMS:
@@ -104,24 +105,22 @@ def native_head_dim(d):
     return -(-d // WIDE_CHUNK) * WIDE_CHUNK
 
 
-def bwd_head_dim(d, dtype):
-    """The head dim of the backward kernels (K2, K3) that run a D-wide head:
-    `native_head_dim`'s, but in bf16 every D from 129 to 256 goes to 256,
-    where K2 and K3 have a Hopper form (float32 over 128, and bf16 over 256,
-    keep the column-sliced form). q, k, v, out and dO are zero-padded to
-    it."""
-    if dtype == torch.bfloat16 and HEAD_DIMS[-1] < d <= BF16_BWD_DIM:
-        return BF16_BWD_DIM
+def flash_head_dim(d, dtype):
+    """The head dim of the flash kernels (K1, K2, K3) that run a D-wide
+    head: `native_head_dim`'s, but in bf16 every D from 129 to 256 goes to
+    256, where the three have a Hopper form (float32 over 128, and bf16 over
+    256, keep the column-sliced forms). q, k, v (and in the backward out and
+    dO) are zero-padded to it."""
+    if dtype == torch.bfloat16 and HEAD_DIMS[-1] < d <= BF16_DIM:
+        return BF16_DIM
     return native_head_dim(d)
 
 
-def _slices(d, dtype=None):
-    """The output slices a block of the kernels owns one of: D / 64 in the
-    column-sliced forms (D over 128), else one; with `dtype`, the backward's
-    (bf16 up to 256 in its Hopper form)."""
-    if dtype == torch.bfloat16 and bwd_head_dim(d, dtype) == BF16_BWD_DIM:
-        return 1
-    return native_head_dim(d) // WIDE_CHUNK if d > HEAD_DIMS[-1] else 1
+def _slices(d, dtype):
+    """The output slices a block of the flash kernels owns one of: D / 64 in
+    the column-sliced forms (float32 over 128, bf16 over 256), else one."""
+    wide = d > (BF16_DIM if dtype == torch.bfloat16 else HEAD_DIMS[-1])
+    return native_head_dim(d) // WIDE_CHUNK if wide else 1
 
 
 def _wide_smem(dtype):
@@ -141,39 +140,49 @@ def _operand_bytes(d, dtype):
 
 
 def fwd_plan(b, h, n, m, causal, dtype=torch.float32, d=64):
-    """K1's launch: grid (b*h, query tiles); its consumer warpgroups a block,
-    two (which take the key tiles in turn, the second's softmax state merged
-    into the first's at the end) for float32 over more than one key tile
-    and for bf16 grids under two blocks an SM, else one (at D = 128 two in
-    bf16, one in float32); the ring's stages (one for float32 with one
-    consumer, else three), the block's shared memory (Q, the stages' K and
-    V, their table slices and flags, the barriers) and the blocks an SM it
-    is built for; and for each query tile (by its index) the key tiles each
-    consumer takes, in order. Over D = 128 the column-sliced form: one
-    consumer, two stages, `slices` blocks (one a 64-wide slice of the
-    output) for each of the grid's, each visiting the same key tiles."""
+    """K1's launch: grid (b*h, query blocks of `rows` query rows); its
+    consumer warpgroups a block, two (which take the key tiles in turn, the
+    second's softmax state merged into the first's at the end) for float32
+    over more than one key tile and for bf16 grids under two blocks an SM,
+    else one (at D = 128 two in bf16, one in float32); the ring's stages
+    (one for float32 with one consumer, else three), the block's shared
+    memory (Q, the stages' K and V, their table slices and flags, the
+    barriers) and the blocks an SM it is built for; and for each 64-row
+    query tile (by its index) the key tiles each consumer takes, in order.
+    In bf16 at D = 256 (129 to 256 padded to it) the rows form: blocks of
+    128 query rows whose two consumers own a 64-row half each (query tile i
+    is consumer i % 2 of block i // 2) and both take every key tile, each
+    computing those its rows attend; two stages. Over D = 128 in float32,
+    and over 256 in bf16, the column-sliced form: one consumer, two stages,
+    `slices` blocks (one a 64-wide slice of the output) for each of the
+    grid's, each visiting the same key tiles."""
     f32 = dtype == torch.float32
-    grid = (b * h, _tiles(n))
-    slices = _slices(d)
+    slices = _slices(d, dtype)
+    rows = False
     if slices > 1:  # the column-sliced form
         two, stages, smem, blocks = False, 2, _wide_smem(dtype), 2
     else:
+        d = flash_head_dim(d, dtype)
+        rows = d == BF16_DIM
         if d > 64:
             two = not f32
         else:
-            two = m > _TILE if f32 else grid[0] * grid[1] < 2 * PLAN_SMS
-        stages = 1 if f32 and not two else 3
+            two = m > _TILE if f32 else b * h * _tiles(n) < 2 * PLAN_SMS
+        stages = 2 if rows else 1 if f32 and not two else 3
         oper = _operand_bytes(d, dtype)
-        smem = oper + stages * (2 * oper + _MISC_FWD) + 128
+        misc = _MISC_ROWS if rows else _MISC_FWD
+        smem = (2 if rows else 1) * oper + stages * (2 * oper + misc) + 128
         blocks = 1 if two or (f32 and d > 64) else 2 if f32 else 3
     tiles = {}
     for i in range(_tiles(n)):
         q0 = i * _TILE
         kv_end = min(m, q0 + _TILE + m - n) if causal else m
         keys = list(range(_tiles(kv_end)))
-        tiles[i] = (keys[0::2], keys[1::2]) if two else (keys, [])
-    return {"grid": grid, "slices": slices, "consumers": 2 if two else 1, "stages": stages,
-            "smem": smem, "blocks": blocks, "tiles": tiles}
+        tiles[i] = (keys[0::2], keys[1::2]) if two and not rows else (keys, [])
+    block_rows = 2 * _TILE if rows else _TILE
+    return {"grid": (b * h, -(-n // block_rows)), "rows": block_rows, "slices": slices,
+            "consumers": 2 if two else 1, "stages": stages, "smem": smem, "blocks": blocks,
+            "tiles": tiles}
 
 
 def dq_plan(b, h, hk, n, m, causal, dtype=torch.float32, dbias=False, d=64):
@@ -200,7 +209,7 @@ def dq_plan(b, h, hk, n, m, causal, dtype=torch.float32, dbias=False, d=64):
     if slices > 1:  # the column-sliced form
         stages, items, smem, blocks = 2, 2 * slices + 1, _wide_smem(dtype) + grad, 2
     else:
-        d = bwd_head_dim(d, dtype)
+        d = flash_head_dim(d, dtype)
         seq = f32 and d > 64
         stages = 1 if seq else 2 if f32 or d > HEAD_DIMS[-1] else 3
         items = 2 if seq else 1
@@ -242,8 +251,8 @@ def dkv_plan(b, h, hk, n, m, dtype=torch.float32, d=64):
         return {"cluster": 1, "qsplit": 1, "consumers": 1, "pair": False, "stages": 2,
                 "items": 2 * slices + 1, "smem": _wide_smem(dtype), "blocks": 2,
                 "grid": (1, b * hk, _tiles(m)), "slices": slices}
-    d = bwd_head_dim(d, dtype)
-    pair = not f32 and d == BF16_BWD_DIM
+    d = flash_head_dim(d, dtype)
+    pair = not f32 and d == BF16_DIM
     seq = f32 and d > 64
     group = h // hk
     cluster = max(c for c in range(1, _MAX_DKV_CLUSTER + 1) if group % c == 0)
@@ -330,8 +339,8 @@ def _check_cuda(q):
 
 
 def _padded(*xs, d=None):
-    """xs zero-padded along their last dim to the head dim d (the forward's,
-    `native_head_dim`, when not given; the tensors themselves where they
+    """xs zero-padded along their last dim to the head dim d
+    (`native_head_dim`'s when not given; the tensors themselves where they
     have it)."""
     dn = native_head_dim(xs[0].shape[-1]) if d is None else d
     return [x if x.shape[-1] == dn else F.pad(x, (0, dn - x.shape[-1])) for x in xs]
@@ -376,21 +385,29 @@ def _forward(q, k, v, bias_tab, bias, key_mask, causal, scale):
                                    causal=causal, scale=scale, return_lse=True)
     _check_cuda(q)
     d = q.shape[-1]
-    q, k, v = _padded(q, k, v)
+    q, k, v = _padded(q, k, v, d=flash_head_dim(d, q.dtype))
     _check_layout(q, k, v)
-    b, h, n, dn = q.shape
-    hk, m = k.shape[1], k.shape[2]
     tab, kmask, dense = _kernel_args(bias_tab, key_mask, bias)
+    out, lse = fwd(q, k, v, tab, kmask, causal=causal, scale=scale, bias=dense)
+    return out[..., :d], lse
+
+
+def fwd(q, k, v, tab, kmask, *, causal: bool, scale: float, bias=None):
+    """K1 on prepared arguments (contiguous, D the kernels' own:
+    `flash_head_dim(D, dtype) == D`; tab and bias float32 and kmask int8 or
+    None): out in q's dtype and lse (B, H, N) float32."""
+    b, h, n, d = q.shape
+    hk, m = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
-    err = _fwd_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(tab), _ptr(dense),
-                    _ptr(kmask), out.data_ptr(), lse.data_ptr(), b * h, h, h // hk, n, m, dn,
-                    scale, int(causal), _DTYPES[q.dtype], _stream(q), _batched(dense))
+    err = _fwd_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(tab), _ptr(bias),
+                    _ptr(kmask), out.data_ptr(), lse.data_ptr(), b * h, h, h // hk, n, m, d,
+                    scale, int(causal), _DTYPES[q.dtype], _stream(q), _batched(bias))
     if err != 0:
         raise RuntimeError(f"flash_fwd launch failed with CUDA error {err}")
     global launches
     launches += 1
-    return out[..., :d], lse
+    return out, lse
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -523,7 +540,7 @@ def _bwd_launch(name, outs, q, k, v, g, lse, delta, tab, kmask, *, causal, scale
 
 def bwd_dq(q, k, v, g, lse, delta, tab, kmask, *, causal: bool, scale: float, bias=None):
     """K2 on prepared arguments (contiguous, D the backward's own:
-    `bwd_head_dim(D, dtype) == D`; tab and bias
+    `flash_head_dim(D, dtype) == D`; tab and bias
     float32 and kmask int8 or None; lse and delta (B, H, N) float32): dq in
     q's dtype, and in the same launch the float32 gradient of the bias given, summed over the
     batch: with a table K4, the (2N-1, H) gradient, its partial sums in K2's
@@ -610,7 +627,7 @@ def flash_attention_bwd(q, k, v, bias_tab, key_mask, out, lse, g, *, causal: boo
     _check_cuda(q)
     d = q.shape[-1]
     # padded: out's and dO's extra columns are zeros, so Delta is unchanged
-    q, k, v, g, out = _padded(q, k, v, g.to(q.dtype), out, d=bwd_head_dim(d, q.dtype))
+    q, k, v, g, out = _padded(q, k, v, g.to(q.dtype), out, d=flash_head_dim(d, q.dtype))
     _check_layout(q, k, v)
     g = g.contiguous()
     if g.data_ptr() % 16:  # a view into a larger buffer: K3 copies its rows 16 bytes at a time

@@ -328,13 +328,16 @@ Phases, each printing its name and seconds:
                    width: the codec (window 32, 4 heads of 16) round trip of
                    8 x 2 s (K6 8 times, K7 twice) and card vs CPU; its
                    trainer's G + D step at batch 2, grad_accum_every 2, and
-                   card vs CPU gradients; streaming both ways at chunks of 32
+                   card vs CPU gradients (on the same state every run: crops
+                   seeded by the clip, cuDNN deterministic before the check;
+                   the state's digest printed); streaming both ways at chunks of 32
                    frames; the Semantic, Coarse and Fine trainers' steps;
                    AudioLM (batch 1, 32 semantic ids, 16 coarse steps,
                    greedy) with its stages' tokens equal card vs CPU.
   Last, the head dims over 128 (the kernels' column-sliced form; every
   other head dim over 128 runs zero-padded to the next multiple of 64;
-  in bf16 K2 and K3 run their Hopper form at 256, 129-255 padded to it):
+  in bf16 K1, K2 and K3 run their Hopper forms at 256, 129-255 padded to
+  it):
      kernels (head dims over 128) - K1-K4 at the flagship's training shape
                    with 4 heads of 256 (4 x 4 x 2049 x 256, the table), K5 at
                    the Coarse LM's 4 x 2 x 603 x 256 and the Fine LM's 4 x 2
@@ -349,13 +352,16 @@ Phases, each printing its name and seconds:
                    per-batch bias (each kernel launched once, the same bits,
                    float64) and K7 at window 32 with a key mask, a bias and
                    keyless rows. Beside the bf16 rows at 256 (and 4 x 4 x
-                   2049 x 192) the parent's column-sliced K2 and K3 with
-                   --parent.
+                   2049 x 192) the parent's K1, K2 and K3 with --parent, and
+                   SDPA's forward and backward.
      scoring, generation, greedy card vs CPU, training (4 heads of 256) -
                    the flagship with heads=4, dim_head=256 as in phases 4-6,
-                   and its greedy ids card vs CPU (batch 2, 128 + 32);
+                   and its greedy ids card vs CPU (batch 2, 128 + 32); the
+                   bf16 step's idle share and flash kernels (no column-sliced
+                   form among them);
      coarse scoring and training (2 heads of 256), fine scoring and
-                   training (2 heads of 320) - as in 7-12;
+                   training (2 heads of 320) - as in 7-12 (Coarse's bf16 step
+                   as the flagship's);
      codec (attn_dim_head 256) - as in 13.
 The training phases (6, and the Coarse step in 7-12) also train in bf16
 compute beside float32: ms per step of both, and on one batch with the
@@ -399,11 +405,14 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import hashlib
 import itertools
 import json
+import random
 import re
 import subprocess
 import sys
+import threading
 import time
 import traceback
 from concurrent.futures import ThreadPoolExecutor
@@ -415,8 +424,9 @@ import torch
 from audiolm_pytorch_tpu_torch import (AudioLM, AudioLMSoundStream, CoarseTransformer,
                                        CoarseTransformerWrapper, FineTransformer,
                                        FineTransformerWrapper, SemanticTransformer,
-                                       SemanticTransformerWrapper, TransformerTrainStep,
-                                       decode_acoustic_tokens, t5_encode_text)
+                                       SemanticTransformerWrapper, SoundDataset,
+                                       TransformerTrainStep, decode_acoustic_tokens,
+                                       t5_encode_text)
 from audiolm_pytorch_tpu_torch.ops.kernels import _build
 from audiolm_pytorch_tpu_torch.ops.kernels import flash_attention as fa
 from audiolm_pytorch_tpu_torch.ops.kernels import local_attention as la
@@ -571,7 +581,9 @@ def kernel_label(mangled):
     aligned>). A `_wide_kernel` is the column-sliced form of head dims over
     128: flash_fwd_kernel<bf16, wide>, flash_bwd_dq_kernel<bf16, wide,
     sum>; `flash_bwd_dkv_pair_kernel` K3's form for bf16 at D = 256, one
-    consumer a gradient: flash_bwd_dkv_kernel<bf16, d256, pair>."""
+    consumer a gradient: flash_bwd_dkv_kernel<bf16, d256, pair>; K1's block
+    at D = 256 (bf16), two consumers on the halves of a 128-row block:
+    flash_fwd_kernel<bf16, d256, rows>."""
     entry = re.search(r"\d([a-z][a-z_]*_kernel)(I?)", mangled)
     if not entry.group(2):
         return entry.group(1)
@@ -586,6 +598,8 @@ def kernel_label(mangled):
         return f"{name}<{dtype}, wide{', ' + flag if flag else ''}>"
     if name == "flash_bwd_dq_kernel":
         flag = {"1": "sum", "2": "per-batch"}.get(ints[1]) if len(ints) > 1 else None
+    elif name == "flash_fwd_kernel" and ints and int(ints[0]) > 128:
+        flag = "rows"
     else:
         flag = ("aligned" if name == "local_attn_kernel" else "two") if "Lb1E" in mangled \
             else None
@@ -993,10 +1007,17 @@ def check_plans():
         if got != tuple(want[x] for x in ("cluster", "qsplit", "consumers", "stages", "smem",
                                           "blocks")):
             raise AssertionError(f"K3's plan at {at}: the library's {got}, the wrapper's {want}")
+        if dtype == torch.bfloat16 and d == fa.BF16_DIM:
+            # bf16's 192 runs K1's D = 256 block, padded by the wrapper
+            want = fa.fwd_plan(b, h, n, m, True, dtype, 192)
+            got = fa.fwd_plan_built(b, h, n, m, dtype, fa.flash_head_dim(192, dtype))
+            if got != tuple(want[x] for x in ("consumers", "stages", "smem", "blocks")):
+                raise AssertionError(f"K1's plan at {at} for d192: the library's {got}, the "
+                                     f"wrapper's {want}")
     print(f"plans: K1's, K2's and K3's launch plans as built (consumers, cluster, chunks, "
           f"stages, shared memory, blocks an SM) equal fwd_plan's, dq_plan's and dkv_plan's at "
-          f"{len(K3_PLAN_SHAPES)} shapes and head dims {PLAN_HEAD_DIMS}, K6's vq_plan's at "
-          f"{len(VQ_PLAN_SHAPES)}")
+          f"{len(K3_PLAN_SHAPES)} shapes and head dims {PLAN_HEAD_DIMS} (K1's bf16 192 as "
+          f"the 256 it is padded to), K6's vq_plan's at {len(VQ_PLAN_SHAPES)}")
 
 
 @phase("kernels")
@@ -1065,8 +1086,8 @@ def sass_phase():
     (cuobjdump -sass): HMMA (mma.sync), HGMMA (wgmma), UTMALDG (TMA loads)
     and FFMA. The column-sliced form of head dims over 128 (K1, K2 in its
     three forms, K3 and K7; `wide` in the labels) must issue HMMA in both
-    dtypes; bf16's K2 (three forms) and K3 (the pair form) at D = 256,
-    HGMMA and UTMALDG. K7 must issue HMMA in both dtypes at head dims 32,
+    dtypes; bf16's K1 (the rows form), K2 (three forms) and K3 (the pair
+    form) at D = 256, HGMMA and UTMALDG. K7 must issue HMMA in both dtypes at head dims 32,
     64 and 128; K1, K2 and K3, the Hopper design, HGMMA and UTMALDG in both dtypes,
     every head dim and every block shape (K1's and K3's one consumer
     warpgroup or two, K3's float32 only two, at 128 one shape a dtype; K2
@@ -1079,13 +1100,14 @@ def sass_phase():
     # every head dim: at 32 and 64 both block shapes, at 128 one a dtype
     # (K1 and K3: two consumers in bf16, one in float32; fa.fwd_plan, dkv_plan)
     want = {"fwd": sorted([f"{t}, d{d}{x}" for d in (32, 64) for t in ("bf16", "fp32")
-                           for x in ("", ", two")] + ["bf16, d128, two", "fp32, d128"]),
+                           for x in ("", ", two")]
+                          + ["bf16, d128, two", "fp32, d128", f"bf16, d{fa.BF16_DIM}, rows"]),
             "dq": sorted([f"{t}, d{d}{x}" for d in fa.HEAD_DIMS for t in ("bf16", "fp32")
                           for x in ("", ", sum", ", per-batch")]
-                         + [f"bf16, d{fa.BF16_BWD_DIM}{x}" for x in ("", ", sum", ", per-batch")]),
+                         + [f"bf16, d{fa.BF16_DIM}{x}" for x in ("", ", sum", ", per-batch")]),
             "dkv": sorted([f"{t}, d{d}" for d in (32, 64) for t in ("bf16",)]
                           + [f"{t}, d{d}, two" for d in (32, 64) for t in ("bf16", "fp32")]
-                          + ["bf16, d128, two", "fp32, d128", f"bf16, d{fa.BF16_BWD_DIM}, pair"]),
+                          + ["bf16, d128, two", "fp32, d128", f"bf16, d{fa.BF16_DIM}, pair"]),
             "vq": ["fp32"], "local": sorted(f"{t}, d{d}{x}" for d in fa.HEAD_DIMS
                                            for t in ("bf16", "fp32") for x in ("", ", aligned"))}
     # the column-sliced form of head dims over 128, on mma.sync (HMMA)
@@ -1686,10 +1708,22 @@ def bf16_training(label, wrapper, cpu_model, batch, seed, fp32_ms, depth, table)
           + f" | {step_ms:.2f} ms per step against float32's {fp32_ms:.2f} ms "
           f"({fp32_ms / step_ms:.2f}x; {tokens / step_ms * 1e3:.0f} tokens/s) | "
           f"max_memory_allocated {peak / 2**30:.3f} GiB | launches {launched}")
-    busy, wall, _ = profile(f"{label} bf16 (one step)", lambda: trainer.step(*batch), top=10)
+    busy, wall, rows = profile(f"{label} bf16 (one step)", lambda: trainer.step(*batch), top=10)
     gate = bf16_gate(label, wrapper, model, batch, seed, depth)
     return launched, dict(step_ms=step_ms, fp32_step_ms=fp32_ms, peak_bytes=peak,
-                          idle=1 - busy / wall, **gate)
+                          idle=1 - busy / wall, busy_ms=busy, profiled_ms=wall,
+                          flash_kernels=flash_kernels(rows), **gate)
+
+
+def flash_kernels(rows):
+    """{flash kernel with its template arguments: launches} in profile()'s
+    rows (flash_fwd_kernel<__nv_bfloat16, 256, true>)."""
+    seen = {}
+    for _, count, name in rows:
+        hit = re.search(r"flash_\w+?_kernel(?:<[^()]*>)?", name)
+        if hit:
+            seen[hit.group(0)] = seen.get(hit.group(0), 0) + count
+    return seen
 
 
 def check_card_grads(label, wrapper, model, batch, seed, fault, depth, named=None):
@@ -5940,6 +5974,38 @@ def demo_lm(kind, seed):
     return cls(**DEMO_LM, **DEMO_LMS[kind], seed=seed, device=DEV)
 
 
+class ClipSeededCrops(SoundDataset):
+    """A SoundDataset whose crop of a clip is drawn from a generator seeded
+    by (seed, the clip's index): the same crop whichever thread loads the
+    clip and whenever. The dataset (the JAX package's semantics) draws every
+    crop from one generator, `rng`, that the train and validation loaders'
+    worker threads share, so which clip got which draw, and so the trainer
+    state that card_vs_cpu checks, varied with the threads' timing. Here
+    `rng` is the dataset itself, its randint keyed by the clip that this
+    thread loads."""
+
+    def __init__(self, folder, *, seed, **kw):
+        super().__init__(folder, seed=seed, **kw)
+        self.seed, self.rng, self.clip = seed, self, threading.local()
+
+    def randint(self, a, b):
+        return random.Random(f"{self.seed}:{self.clip.idx}").randint(a, b)
+
+    def __getitem__(self, idx):
+        self.clip.idx = idx
+        return super().__getitem__(idx)
+
+
+def state_digest(module):
+    """sha256 of a module's floating-point state, in order: equal digests
+    are bit-equal states."""
+    h = hashlib.sha256()
+    for v in module.state_dict().values():
+        if v.is_floating_point():
+            h.update(v.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 @phase("demo")
 def demo_phase(seed):
     """examples/train_audiolm_demo.py's configuration at its own width on the
@@ -5954,7 +6020,10 @@ def demo_phase(seed):
         samples, warmup 1) one warm step and one counted G + D step, then
         card vs CPU gradients of one G and one D step (with the penalty) on
         2 clips of 8000 samples (card_vs_cpu, shown to reject a zeroed K7
-        output gradient);
+        output gradient). So that the gate checks the same state every run,
+        each clip's crop is seeded by the clip (ClipSeededCrops) and the
+        steps before it run cuDNN's deterministic algorithms; the state's
+        digest is printed;
       - streaming: a 2-s clip through StreamingCodecEncoder and its codes
         through StreamingCodecDecoder (chunks of 32 frames: one K7 a chunk),
         against the offline tokenize and decode;
@@ -6021,25 +6090,35 @@ def demo_phase(seed):
     with tempfile.TemporaryDirectory(dir=build) as tmp:
         tmp = Path(tmp)
         write_clips(tmp / "clips", seed)
-        # the codec's trainer
-        trainer = SoundStreamTrainer(demo_codec(seed), folder=tmp / "clips",
-                                     results_folder=tmp / "codec", num_train_steps=9,
-                                     warmup_steps=1, save_results_every=10 ** 9,
-                                     save_model_every=10 ** 9, seed=seed, device=DEV,
-                                     **DEMO_TRAIN)
+        # the codec's trainer, on crops seeded by the clip
+        codec_t = demo_codec(seed)
+        crops = ClipSeededCrops(tmp / "clips", target_sample_hz=codec_t.target_sample_hz,
+                                max_length=DEMO_TRAIN["data_max_length"],
+                                seq_len_multiple_of=codec_t.seq_len_multiple_of, seed=seed)
+        trainer = SoundStreamTrainer(codec_t, dataset=crops, results_folder=tmp / "codec",
+                                     num_train_steps=9, warmup_steps=1,
+                                     save_results_every=10 ** 9, save_model_every=10 ** 9,
+                                     seed=seed, device=DEV, **DEMO_TRAIN)
+        deterministic = torch.backends.cudnn.deterministic
         try:
             probe = StepProbe(trainer)
+            torch.backends.cudnn.deterministic = True
             check_loss_terms(trainer.train_step(), "demo, warm step")  # kmeans init
             logs, launched = train_launches(trainer, probe, "demo")
+            torch.backends.cudnn.deterministic = deterministic
             check_loss_terms(logs, "demo, counted step")
             paths["demo_codec_training"] = launched
+            digest = state_digest(trainer.model)
+            print(f"demo codec trainer: the state card_vs_cpu checks, digest {digest} (crops "
+                  f"seeded by the clip, cuDNN deterministic before it)")
             from audiolm_pytorch_tpu_torch.utils.audio_io import load_audio
             wave = torch.from_numpy(np.stack([
                 load_audio(f)[0][0, :DEMO_CHECK_SAMPLES]
                 for f in sorted((tmp / "clips").glob("*.wav"))[:2]])).to(DEV)
             report["codec_training"] = dict(card_vs_cpu(trainer, wave, seed, DEMO_CODEC),
-                                            logs=logs)
+                                            logs=logs, state_digest=digest)
         finally:
+            torch.backends.cudnn.deterministic = deterministic
             trainer.close()
         # streaming: a 2-s clip each way
         enc = StreamingCodecEncoder(codec, chunk_frames=32)
@@ -6187,8 +6266,10 @@ def check_wide_form(rng, b, h, n, d, form, seed):
     table, an (H, N, N) bias or a per-batch (B, H, N, N) one; causal, 15% of
     the keys forgotten), fp32 and bf16: K1, K2 (with K4, K5 or dS) and K3
     through the autograd.Function, each launched once, against the plain
-    versions; K2's dq with its bias gradient and K3's dk, dv the same bits
-    over three runs; float32 within F64_TOL of float64 (out, dq, dk, dv and
+    versions; K1's out and lse, K2's dq with its bias gradient and K3's dk,
+    dv the same bits over three runs (bf16's arguments up to 256 padded to
+    256 as the wrapper pads them: K1's rows form, K2's and K3's Hopper
+    forms); float32 within F64_TOL of float64 (out, dq, dk, dv and
     dbias), the 1xTF32 build rejected. Returns {"fp32": errs, "bf16": errs,
     "f64": {...}}."""
     scale = d ** -0.5
@@ -6230,18 +6311,21 @@ def check_wide_form(rng, b, h, n, d, form, seed):
         if not ok:
             raise AssertionError(f"column-sliced vs plain [{label}]: {errs}")
         # prepared as the wrapper prepares them: bf16's head dims up to 256
-        # padded to 256, where K2 and K3 run their Hopper form
-        bargs = (*fa._padded(q, k, v, g, d=fa.bwd_head_dim(d, dtype)), lse,
-                 (g.float() * out.float()).sum(-1), tab, mask.to(torch.int8).contiguous())
-        for what, fn in (("K2 dq and its bias gradient", fa.bwd_dq), ("K3 dk, dv", fa.bwd_dkv)):
-            first = fn(*bargs, bias=bias, **kw)
+        # padded to 256, where K1, K2 and K3 run their Hopper forms
+        padded = fa._padded(q, k, v, g, d=fa.flash_head_dim(d, dtype))
+        kmask = mask.to(torch.int8).contiguous()
+        bargs = (*padded, lse, (g.float() * out.float()).sum(-1), tab, kmask)
+        for what, fn, fargs in (("K1 out and lse", fa.fwd, (*padded[:3], tab, kmask)),
+                                ("K2 dq and its bias gradient", fa.bwd_dq, bargs),
+                                ("K3 dk, dv", fa.bwd_dkv, bargs)):
+            first = fn(*fargs, bias=bias, **kw)
             for _ in range(2):
-                if not all(torch.equal(x, y) for x, y in zip(fn(*bargs, bias=bias, **kw), first)
+                if not all(torch.equal(x, y) for x, y in zip(fn(*fargs, bias=bias, **kw), first)
                            if x is not None):
                     raise AssertionError(f"column-sliced [{label}]: {what} differ between runs")
         print(f"column-sliced [{label}]: vs plain max abs err "
               + " ".join(f"{x} {e:.3e}" for x, e in errs.items())
-              + " | K2 (with its bias gradient) and K3 bitwise equal over 3 runs")
+              + " | K1, K2 (with its bias gradient) and K3 bitwise equal over 3 runs")
         result[tn] = errs
         if dtype == torch.float32:
             ref64 = attention_f64(q, k, v, tab, bias, mask, g.float(), scale)
@@ -6276,12 +6360,14 @@ def wide_kernels_phase(seed, device_rows):
     the table, the (H, N, N) bias (a cluster of 3 batch rows) and the
     per-batch bias (check_wide_form), and K7 at window 32 with a key mask,
     a bias and rows without a key (float32 within F64_TOL of float64). In
-    bf16 up to D = 256 K2 and K3 run their Hopper form (192 padded to 256):
-    its device times at the flagship's and the Coarse LM's shapes (and at
-    4 x 4 x 2049 x 192) beside the parent's column-sliced K2 and K3 and
-    SDPA's backward, where the flash device times phase ran with --parent.
-    Returns {"rows": {kernel: {label: row}}, "f64": {...}, "small": {...},
-    "bf16_d256": {shape: {kernel: {device_ms, parent_device_ms}}}}."""
+    bf16 up to D = 256 K1, K2 and K3 run their Hopper forms (192 padded to
+    256): their device times at the flagship's and the Coarse LM's shapes
+    (and at 4 x 4 x 2049 x 192) beside the parent's (column-sliced where
+    the flash device times phase ran with --parent), SDPA's forward (K1)
+    and its backward (K2, K3). Returns {"rows": {kernel: {label: row}},
+    "f64": {...}, "small": {...}, "bf16_d256": {shape: {kernel: {device_ms,
+    parent_device_ms}, "sdpa_fwd_device_ms": ..., "sdpa_bwd_device_ms":
+    ...}}}."""
     rng = np.random.default_rng(seed + 45)
     rows = {key: {} for key in ("fwd", "dq", "dkv", "dtab", "dbias", "local")}
     h, d = WIDE_FLAGSHIP["heads"], WIDE_FLAGSHIP["dim_head"]
@@ -6321,13 +6407,19 @@ def wide_kernels_phase(seed, device_rows):
         dev = device_rows.get(f"bfloat16 {WIDE_DEVICE_LABELS[shape]}")
         got = {kernel: {x: device_numbers({}, dev, kernel)[x]
                         for x in ("device_ms", "parent_device_ms")}
-               for kernel in ("K2", grad, "K3")}
-        bf16_d256[shape] = dict(got, sdpa_bwd_device_ms=None if dev is None
-                                else dev.get("sdpa_bwd_device_ms"))
+               for kernel in ("K1", "K2", grad, "K3")}
+        sdpa = {f"sdpa_{x}_device_ms": None if dev is None else dev.get(key)
+                for x, key in (("fwd", "sdpa_device_ms"), ("bwd", "sdpa_bwd_device_ms"))}
+        bf16_d256[shape] = dict(got, **sdpa)
+        print(f"bf16 K1 rows form [{WIDE_DEVICE_LABELS[shape]}] on the device: "
+              f"{fmt_ms(got['K1']['device_ms'])} (parent's "
+              f"{fmt_ms(got['K1']['parent_device_ms'])}), SDPA's forward "
+              f"{fmt_ms(sdpa['sdpa_fwd_device_ms'])}")
+        got.pop("K1")
         pair = [got[grad][x] + got["K3"][x] if got[grad][x] is not None
                 and got["K3"][x] is not None else None for x in ("device_ms", "parent_device_ms")]
         print(f"bf16 K2 and K3 Hopper form [{WIDE_DEVICE_LABELS[shape]}] on the device: "
-              + " | ".join(f"{k} {fmt_ms(v['device_ms'])} (parent's column-sliced "
+              + " | ".join(f"{k} {fmt_ms(v['device_ms'])} (parent's "
                            f"{fmt_ms(v['parent_device_ms'])})" for k, v in got.items())
               + f" | {grad} + K3 {fmt_ms(pair[0])} (parent {fmt_ms(pair[1])}), SDPA's backward "
               f"{fmt_ms(bf16_d256[shape]['sdpa_bwd_device_ms'])}")
@@ -6391,12 +6483,25 @@ def wide_greedy_card_vs_cpu(seed, model, cpu_model):
     return True
 
 
+def hopper_step(label, tag, run):
+    """A bf16 step at a head dim from 129 to 256: its time, its profiled
+    step's device idle share and flash kernels; none of them may be a
+    column-sliced form (K1, K2 and K3 run their Hopper forms at 256)."""
+    kernels = run["flash_kernels"]
+    print(f"{label} ({tag}) bf16 step: {run['step_ms']:.2f} ms a step | one profiled step "
+          f"{run['busy_ms']:.2f} ms device busy of {run['profiled_ms']:.2f} ms, "
+          f"{100 * run['idle']:.1f}% idle | its flash kernels: {kernels}")
+    if any("_wide_kernel" in k for k in kernels):
+        raise AssertionError(f"{label} ({tag}) bf16 step: a column-sliced form ran: {kernels}")
+
+
 def wide_head_paths(seed):
     """The paths at heads over 128 (each phase zeroes the launch counts just
     before its own calls and reads them just after): the flagship with 4
     heads of 256 scored, generated (and its greedy ids card vs CPU) and
-    trained (float32 and bf16), card vs CPU; the Coarse LM with 2 heads of
-    256 and the Fine LM with 2 heads of 320 scored and trained, card vs CPU;
+    trained (float32 and bf16, the bf16 step's device idle share printed),
+    card vs CPU; the Coarse LM with 2 heads of 256 and the Fine LM with 2
+    heads of 320 scored and trained, card vs CPU;
     the codec with attn_dim_head 256 in a round trip, card vs CPU. Returns
     ({path: launches}, {label: bf16 numbers}, greedy ids identical)."""
     paths, bf16_runs = {}, {}
@@ -6410,6 +6515,7 @@ def wide_head_paths(seed):
     del model
     paths["training_d256"], paths["training_bf16_d256"], bf16_runs["training_d256"] = phase(
         f"training ({tag})")(training_phase)(seed, cpu_model)
+    hopper_step("flagship", tag, bf16_runs["training_d256"])
     del cpu_model
     torch.cuda.empty_cache()
     for kind in ("coarse", "fine"):
@@ -6425,6 +6531,8 @@ def wide_head_paths(seed):
             kind, seed, cpu_lm)
         if bf16 is not None:
             paths[f"{key}_training_bf16"], bf16_runs[f"{key}_training"] = bf16
+            if cfg["dim_head"] <= fa.BF16_DIM:
+                hopper_step(kind, tag, bf16[1])
         del cpu_lm
         torch.cuda.empty_cache()
     paths[f"codec_d{WIDE_CODEC_HEAD}"] = phase(f"codec (attn_dim_head {WIDE_CODEC_HEAD})")(
@@ -6610,13 +6718,13 @@ def main():
             # and Fine LMs with 2 heads of 256 and 320, the codec at attn_dim_head
             # 256, and the float64 check there
             numbers["head_dims_over_128"] = timings["wide"]["rows"][key]
-            if key in ("dq", "dkv"):
+            if key in ("fwd", "dq", "dkv"):
                 # bf16's Hopper form at D = 256: its instantiations, and its device
-                # times beside the parent's column-sliced form (with --parent)
+                # times beside the parent's (with --parent)
                 numbers["bf16_d256"] = dict(
                     timings["wide"]["bf16_d256"],
                     instantiations=[f"{name}_kernel<{form}>" for form in timings["sass"][key]
-                                    if f"d{fa.BF16_BWD_DIM}" in form])
+                                    if f"d{fa.BF16_DIM}" in form])
             numbers["head_dims_over_128_f64"] = {
                 label: {kind: {x: e for x, e in errs.items() if x in F64_OUTPUTS.get(key, ())}
                         if isinstance(errs, dict) else errs for kind, errs in got.items()}

@@ -42,8 +42,11 @@ TF32 fails, the same bits every run, HMMA in each instantiation, and every
 head dim from 129 to 512 launching the kernels); bf16's K2 (every form of
 the bias's gradient) and K3 at D = 256 and 192 padded to it, their Hopper
 form, against the plain versions, the same bits every run, their plans as
-the library computes them, HGMMA and UTMALDG. They skip where there is no
-card.
+the library computes them, HGMMA and UTMALDG; bf16's K1 at D = 256 and
+192 padded to it, its Hopper rows form, in the table, (H, N, M) and per-batch
+bias, prefix, cross, decode and ragged forms against the plain version, the
+same bits every run, an unpadded 129-255 refused, its plan as the library
+computes it, HGMMA and UTMALDG. They skip where there is no card.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine without them:
@@ -2012,7 +2015,7 @@ def test_column_sliced_backward_gives_the_same_bits_every_run(cuda, d, form, dty
     q, k, v, g, tab, bias, mask, causal = _wide_inputs(cuda, form, d, dtype, seed=2)
     out, lse = fa.flash_attention(q, k, v, bias_tab=tab, bias=bias, key_mask=mask,
                                   causal=causal, return_lse=True)
-    args = (*fa._padded(q, k, v, g, d=fa.bwd_head_dim(d, dtype)), lse,
+    args = (*fa._padded(q, k, v, g, d=fa.flash_head_dim(d, dtype)), lse,
             (g.float() * out.float()).sum(-1), tab, mask.to(torch.int8).contiguous())
     for fn in (fa.bwd_dq, fa.bwd_dkv):
         first = fn(*args, causal=causal, scale=d ** -0.5, bias=bias)
@@ -2169,7 +2172,7 @@ def test_bf16_d256_backward_gives_the_same_bits_every_run(cuda, d, form):
 
 
 def test_bf16_d256_backward_refuses_an_unpadded_head_dim(cuda):
-    # the library takes bf16's 129-255 only padded to 256 (bwd_head_dim), so
+    # the library takes bf16's 129-255 only padded to 256 (flash_head_dim), so
     # no launch quietly takes the column-sliced form there
     q, k, v, g, tab, bias, mask, out, lse, _ = _bf16_wide_inputs(cuda, "none", 192, seed=62)
     args = (q, k, v, g, lse, (g.float() * out.float()).sum(-1), None, None)
@@ -2203,3 +2206,95 @@ def test_bf16_d256_backward_issues_tensor_core_instructions(cuda):
             found[key] = (ops["HGMMA"], ops["UTMALDG"])
     assert sorted(found) == ["dkv_pair", "dq 0", "dq 1", "dq 2"], found
     assert all(all(x) for x in found.values()), found
+
+
+# bf16's K1 at D = 256, its rows form (two consumers on the halves of a
+# 128-row block); 192 is padded to 256 by the wrapper. (b, h, hk, n, m,
+# causal, bias form): a key mask in every form; N = 130 and 193 leave the
+# last block's second half without rows or with one
+BF16_FWD_FORMS = {"table": (2, 4, 1, 300, 300, True, "table"),
+                  "bias": (3, 2, 2, 130, 130, True, "bias"),
+                  "batch": (2, 2, 1, 100, 100, True, "batch"),
+                  "prefix": (2, 2, 1, 80, 97, True, "bias"),
+                  "cross": (2, 4, 1, 90, 17, False, None),
+                  "decode": (2, 4, 1, 1, 17, False, None),
+                  "ragged": (2, 2, 1, 193, 193, True, "table"),
+                  "ragged_half": (2, 2, 1, 130, 130, False, "table")}
+
+
+def _bf16_fwd_inputs(cuda, form, d, seed):
+    b, h, hk, n, m, causal, kind = BF16_FWD_FORMS[form]
+    rng = np.random.default_rng(seed + d)
+
+    def normal(*shape, s=1.0):
+        return torch.from_numpy((s * rng.normal(size=shape)).astype(np.float32)).to(cuda)
+
+    q = normal(b, h, n, d).to(torch.bfloat16)
+    k, v = normal(b, hk, m, d).to(torch.bfloat16), normal(b, hk, m, d).to(torch.bfloat16)
+    mask = torch.from_numpy(rng.random((b, m)) > 0.2).to(cuda)
+    mask[:, 0] = True
+    tab = normal(2 * n - 1, h, s=0.5) if kind == "table" else None
+    bias = normal(h, n, m, s=0.5) if kind == "bias" else \
+        normal(b, h, n, m, s=0.5) if kind == "batch" else None
+    return q, k, v, tab, bias, mask, causal
+
+
+@pytest.mark.parametrize("form", list(BF16_FWD_FORMS))
+@pytest.mark.parametrize("d", [256, 192])
+def test_bf16_d256_forward_matches_plain_version(cuda, d, form):
+    # K1 launched once through the wrapper (192 padded to 256) against the
+    # plain forward (bf16's tolerance; lse in float32)
+    q, k, v, tab, bias, mask, causal = _bf16_fwd_inputs(cuda, form, d, seed=70)
+    before = fa.launches
+    out, lse = fa.flash_attention(q, k, v, bias_tab=tab, bias=bias, key_mask=mask,
+                                  causal=causal, return_lse=True)
+    torch.cuda.synchronize()
+    assert fa.launches - before == 1
+    ref, ref_lse = fa.flash_attention_ref(q, k, v, bias_tab=tab, bias=bias, key_mask=mask,
+                                          causal=causal, return_lse=True)
+    assert out.shape == ref.shape and out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), ref.float(), rtol=3e-2, atol=3e-2)
+    torch.testing.assert_close(lse, ref_lse, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("form", list(BF16_FWD_FORMS))
+@pytest.mark.parametrize("d", [256, 192])
+def test_bf16_d256_forward_gives_the_same_bits_every_run(cuda, d, form):
+    # each row's output from one consumer's walk over the key tiles in order
+    q, k, v, tab, bias, mask, causal = _bf16_fwd_inputs(cuda, form, d, seed=71)
+    tabc, kmask, dense = fa._kernel_args(tab, mask, bias)
+    args = (*fa._padded(q, k, v, d=256), tabc, kmask)
+    kw = dict(causal=causal, scale=d ** -0.5, bias=dense)
+    first = fa.fwd(*args, **kw)
+    for _ in range(2):
+        again = fa.fwd(*args, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_bf16_d256_forward_refuses_an_unpadded_head_dim(cuda):
+    # the library takes bf16's 129-255 only padded to 256 (flash_head_dim), so
+    # no launch quietly takes the column-sliced form there
+    for d in (129, 192, 255):
+        q, k, v, tab, bias, mask, causal = _bf16_fwd_inputs(cuda, "table", d, seed=72)
+        tabc, kmask, _ = fa._kernel_args(tab, mask)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            fa.fwd(q, k, v, tabc, kmask, causal=causal, scale=d ** -0.5)
+        with pytest.raises(ValueError, match="no K1 plan"):
+            fa.fwd_plan_built(2, 4, 300, 300, torch.bfloat16, d)
+
+
+def test_bf16_d256_forward_plans_match_the_librarys(cuda):
+    for b, h, n, m in ((4, 4, 2049, 2049), (4, 2, 603, 603), (4, 8, 2049, 17), (4, 8, 1, 17),
+                       (2, 2, 193, 193), (4, 8, 2049, 2065)):
+        for d in (192, 256):
+            plan = fa.fwd_plan(b, h, n, m, True, torch.bfloat16, d)
+            assert fa.fwd_plan_built(b, h, n, m, torch.bfloat16, 256) == tuple(
+                plan[x] for x in ("consumers", "stages", "smem", "blocks")), (b, h, n, m, d)
+
+
+def test_bf16_d256_forward_issues_tensor_core_instructions(cuda):
+    # warpgroup products (HGMMA) fed by TMA loads (UTMALDG) in K1's rows form
+    found = {mangled: (ops["HGMMA"], ops["UTMALDG"])
+             for mangled, ops in _build.sass_counts(fa.SOURCE).items()
+             if "flash_fwd_kernel" in mangled and "bfloat16" in mangled and "Li256E" in mangled}
+    assert len(found) == 1 and all(all(x) for x in found.values()), found

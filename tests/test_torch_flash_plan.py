@@ -9,9 +9,10 @@ batch up to 8; and plain emulations of K3's blocks (each warpgroup's items,
 the two warpgroups' sum, the cluster's rank order, the query chunks' order)
 and of K2's (each query tile's key tiles in order) give JAX's gradients of
 `attend`. The same for the head dims: each plan's fit at every head dim,
-the column-sliced form over 128, and the backward's rule that sends bf16's
-129 to 256 to K2's and K3's Hopper form at 256 (its plans, fit, cluster
-rules, K3's pair form's sum order and the padding's exactness).
+the column-sliced form over 128, and the one head-dim rule of K1, K2 and
+K3 that sends bf16's 129 to 256 to their Hopper forms at 256 (the plans,
+fit, cluster rules, K3's pair form's sum order, K1's rows form's walk and
+table slice, and the padding's exactness).
 
 Tolerances: rtol 1e-2 / atol 1e-3 against JAX, the JAX package's gradient
 tolerance (tests/test_flash_attention.py)."""
@@ -302,9 +303,10 @@ SM_SMEM = 233472
 @pytest.mark.parametrize("label,b,h,hk,n,m,causal", SHAPES, ids=[s[0] for s in SHAPES])
 def test_plans_fit_the_card_at_each_head_dim(label, b, h, hk, n, m, causal, dtype, d):
     """K1's, K2's (with K4's and with K5's buffers) and K3's blocks at head
-    dims 32, 64 and 128 and at the column-sliced form's 256, 320 and 512:
-    each within a block's shared memory, and as many blocks as each is built
-    for within an SM's."""
+    dims 32, 64 and 128, at 256 (bf16's Hopper forms of all three, float32's
+    column-sliced ones) and at the column-sliced forms' 320 and 512: each
+    within a block's shared memory, and as many blocks as each is built for
+    within an SM's."""
     plans = [fa.fwd_plan(b, h, n, m, causal, dtype, d),
              fa.dq_plan(b, h, hk, n, m, causal, dtype, d=d),
              fa.dq_plan(b, h, hk, n, m, causal, dtype, dbias=True, d=d),
@@ -350,35 +352,33 @@ def test_plans_at_head_dim_128(dtype):
 @pytest.mark.parametrize("label,b,h,hk,n,m,causal", SHAPES, ids=[s[0] for s in SHAPES])
 def test_column_sliced_plans_visit_each_attended_pair_once_a_slice(label, b, h, hk, n, m,
                                                                    causal, dtype, d):
-    """Over D = 128 every kernel runs D / 64 blocks for each block of its
-    grid, one a 64-wide slice of the output, with one shared memory for
-    every D: K1's and K2's blocks of a slice visit each attended (query tile,
-    key tile) once, K2's in order, and K3's blocks of a slice each attended
-    (query head, query row) of their kv head once, in head order. In bf16 up
-    to D = 256 only K1 does: K2 and K3 run their Hopper form there
-    (test_bf16_d256_backward_plans_visit_each_attended_tile_once)."""
+    """Over D = 128 in float32, and over 256 in bf16, every kernel runs D /
+    64 blocks for each block of its grid, one a 64-wide slice of the output,
+    with one shared memory for every D: K1's and K2's blocks of a slice
+    visit each attended (query tile, key tile) once, K2's in order, and K3's
+    blocks of a slice each attended (query head, query row) of their kv head
+    once, in head order. In bf16 up to D = 256 none does: K1, K2 and K3 run
+    their Hopper forms there (the bf16 D = 256 plan tests below)."""
     slices = d // 64
     fwd = fa.fwd_plan(b, h, n, m, causal, dtype, d)
     dq = fa.dq_plan(b, h, hk, n, m, causal, dtype, dbias=True, d=d)
     dkv = fa.dkv_plan(b, h, hk, n, m, dtype, d)
-    backward = dtype == torch.float32 or d > fa.BF16_BWD_DIM
-    if not backward:
-        assert dq["slices"] == dkv["slices"] == 1
-    for plan in (fwd, dq, dkv) if backward else (fwd,):
+    if dtype == torch.bfloat16 and d <= fa.BF16_DIM:
+        assert fwd["slices"] == dq["slices"] == dkv["slices"] == 1
+        return
+    for plan in (fwd, dq, dkv):
         assert plan["slices"] == slices and plan["stages"] == 2
-        assert plan["smem"] == fa.fwd_plan(b, h, n, m, causal, dtype, 192)["smem"] + (
+        assert plan["smem"] == fa.fwd_plan(b, h, n, m, causal, dtype, 512)["smem"] + (
             0 if plan is not dq else fa._K5_BYTES)
-    assert fwd["consumers"] == 1
+    assert fwd["consumers"] == 1 and fwd["rows"] == 64
     # each slice's blocks walk the same tiles: once each, over the attended ones
-    for plan in (fwd, dq) if backward else (fwd,):
+    for plan in (fwd, dq):
         seen = collections.Counter()
         for qi, keys in plan["tiles"].items():
             keys = keys[0] if plan is fwd else keys
             assert keys == sorted(keys)
             seen.update((qi, ki) for ki in keys)
         assert max(seen.values()) == 1 and set(seen) >= attended_tiles(n, m, causal)
-    if not backward:
-        return
     assert dkv["consumers"] == 1 and not dkv["pair"]
     assert dq["items"] == dkv["items"] == 2 * slices + 1
     assert (dkv["cluster"], dkv["qsplit"]) == (1, 1)
@@ -513,19 +513,25 @@ def test_column_sliced_scheme_equals_the_unsliced_plain_version(d, causal, m_ext
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [1, 32, 33, 100, 128, 129, 160, 192, 200, 255, 256, 257, 320, 512])
 def test_backward_head_dim_rule(d, dtype):
-    """The backward's head dim: the forward's (`native_head_dim`) but in
-    bf16 from 129 to 256, which all go to 256, the head dim of K2's and K3's
-    Hopper form there; float32 over 128, and bf16 over 256, keep the
-    column-sliced form (a multiple of 64, one slice a block)."""
-    got = fa.bwd_head_dim(d, dtype)
+    """The head dim of K1, K2 and K3 (`flash_head_dim`, one rule for the
+    three): K7's (`native_head_dim`) but in bf16 from 129 to 256, which all
+    go to 256, the head dim of their Hopper forms there; float32 over 128,
+    and bf16 over 256, keep the column-sliced forms (a multiple of 64, one
+    slice a block). K7 keeps `native_head_dim`."""
+    got = fa.flash_head_dim(d, dtype)
     if dtype == torch.bfloat16 and 128 < d <= 256:
-        assert got == fa.BF16_BWD_DIM == 256
+        assert got == fa.BF16_DIM == 256
         assert fa._slices(d, dtype) == 1
     else:
         assert got == fa.native_head_dim(d)
-        assert fa._slices(d, dtype) == fa._slices(d) == (got // 64 if d > 128 else 1)
-    # the forward keeps its own rule: K1 at 129-256 in bf16 stays column-sliced
-    assert fa.fwd_plan(4, 4, 2049, 2049, True, dtype, d)["slices"] == fa._slices(d)
+        assert fa._slices(d, dtype) == (got // 64 if d > 128 else 1)
+    # the forward, the backward and their plans follow the one rule
+    for plan in (fa.fwd_plan(4, 4, 2049, 2049, True, dtype, d),
+                 fa.dq_plan(4, 4, 1, 2049, 2049, True, dtype, d=d),
+                 fa.dkv_plan(4, 4, 1, 2049, 2049, dtype, d)):
+        assert plan["slices"] == fa._slices(d, dtype)
+    assert fa.fwd_plan(4, 4, 2049, 2049, True, dtype, d)["rows"] == (
+        128 if got == fa.BF16_DIM and dtype == torch.bfloat16 else 64)
 
 
 @pytest.mark.parametrize("d", [192, 256])
@@ -641,7 +647,7 @@ def test_k3_pair_form_sum_order_matches_jax(causal):
 def test_bf16_backward_padding_to_256_is_exact(d):
     """What the CUDA wrapper does with a bf16 head dim from 129 to 255 in the
     backward, through the plain backward in float64: q, k, v, out and dO
-    zero-padded to 256 (`bwd_head_dim`), the true D's scale, the gradients
+    zero-padded to 256 (`flash_head_dim`), the true D's scale, the gradients
     sliced back, equal the unpadded plain backward's to 1e-12, and their
     padded columns are zeros."""
     b, h, hk, n = 2, 2, 1, 70
@@ -654,7 +660,7 @@ def test_bf16_backward_padding_to_256_is_exact(d):
     kw = dict(causal=True, scale=d ** -0.5)
     out, lse = fa.flash_attention_ref(q, k, v, bias_tab=tab, key_mask=mask, return_lse=True, **kw)
     want = fa.flash_attention_bwd_ref(q, k, v, tab, mask, out, lse, g, **kw)
-    dn = fa.bwd_head_dim(d, torch.bfloat16)
+    dn = fa.flash_head_dim(d, torch.bfloat16)
     padded = fa._padded(q, k, v, g, out, d=dn)
     assert dn == 256 and all(x.shape[-1] == 256 for x in padded)
     qp, kp, vp, gp, outp = padded
@@ -664,3 +670,158 @@ def test_bf16_backward_padding_to_256_is_exact(d):
         torch.testing.assert_close(a[..., :d], r, **tight, msg=name)
         assert not a[..., d:].any(), name
     torch.testing.assert_close(got[3], want[3], **tight)
+
+
+@pytest.mark.parametrize("d", [192, 256])
+@pytest.mark.parametrize("label,b,h,hk,n,m,causal", SHAPES, ids=[s[0] for s in SHAPES])
+def test_bf16_d256_forward_plans_visit_each_attended_tile_once_a_row(label, b, h, hk, n, m,
+                                                                     causal, d):
+    """bf16's K1 at D = 256 (192 padded to it), the rows form: blocks of 128
+    query rows, two consumers on a 64-row half each, two stages, one block
+    an SM. Each query row's consumer visits every key tile the row attends
+    once, in order, and none past the keys; a block's ring carries the key
+    tiles up to its later half's causal end (the kernel's `ntiles`), which
+    no half of it exceeds."""
+    plan = fa.fwd_plan(b, h, n, m, causal, torch.bfloat16, d)
+    assert (plan["rows"], plan["consumers"], plan["stages"], plan["blocks"],
+            plan["slices"]) == (128, 2, 2, 1, 1)
+    assert plan["grid"] == (b * h, -(-n // 128))
+    key_tiles = -(-m // 64)
+    keep = np.tril(np.ones((n, m), bool), m - n) if causal else np.ones((n, m), bool)
+    attended = np.stack([keep[:, ki * 64:(ki + 1) * 64].any(1) for ki in range(key_tiles)], 1)
+    visits = np.zeros((n, key_tiles), int)
+    for qi, (keys, second) in plan["tiles"].items():
+        assert not second and keys == sorted(keys) and all(ki < key_tiles for ki in keys)
+        visits[qi * 64:(qi + 1) * 64, keys] += 1
+    assert visits.max() == 1 and (visits[attended] == 1).all()
+    for blk in range(plan["grid"][1]):
+        q0 = 128 * blk
+        kv_end = min(m, q0 + 128 + m - n) if causal else m
+        halves = [plan["tiles"][i][0] for i in (2 * blk, 2 * blk + 1) if i in plan["tiles"]]
+        assert max(len(keys) for keys in halves) == -(-kv_end // 64)
+
+
+@pytest.mark.parametrize("label,b,h,hk,n,m,causal", SHAPES, ids=[s[0] for s in SHAPES])
+def test_bf16_d256_forward_plan_fits_the_card(label, b, h, hk, n, m, causal):
+    """K1's rows form at bf16's D = 256: two Q tiles 64 KB, two stages of K
+    and V 128 KB, each stage's table slice (191 of 256 floats), key flags
+    and two words 1,296 bytes, the barriers 128: 199,328 bytes, one block an
+    SM."""
+    plan = fa.fwd_plan(b, h, n, m, causal, torch.bfloat16, 256)
+    assert plan["smem"] == 2 * 32768 + 2 * (2 * 32768 + 1296) + 128 == 199328
+    assert plan["smem"] <= fa.SMEM_LIMIT and plan["blocks"] * (plan["smem"] + 1024) <= SM_SMEM
+
+
+def emulate_rows_form(q, k, v, tab, bias, mask, causal, scale):
+    """K1's rows form in float64, as csrc/flash_fwd.cu walks it: blocks of
+    128 query rows, the last block first; the producer's table slice of a
+    key tile, Bs[i] = tab[q0 - k0 - 63 + i + n - 1] for i < 191 (zero
+    outside the table), read by the consumer of half c at 64 c + r - j + 63
+    for its row r and key j of the tile; each half's online softmax over the
+    key tiles up to its own rows' causal end, in order (a half past N
+    computes nothing); the (H, N, M) bias, key flags and causal mask as the
+    kernel adds them. Returns out, lse."""
+    b, h, n, d = q.shape
+    hk, m = k.shape[1], k.shape[2]
+    group = h // hk
+    out = torch.zeros_like(q)
+    lse = torch.zeros(b, h, n, dtype=q.dtype)
+    for bh in range(b * h):
+        bi, head = divmod(bh, h)
+        kv = head // group
+        for blk in reversed(range(-(-n // 128))):
+            q0 = 128 * blk
+            for c in range(2):
+                qc = q0 + 64 * c
+                if qc >= n:
+                    continue
+                rows = torch.arange(qc, min(n, qc + 64))
+                own = min(m, qc + 64 + m - n) if causal else m
+                mx = torch.full((len(rows),), -1e30, dtype=q.dtype)
+                l = torch.zeros_like(mx)
+                o = torch.zeros(len(rows), d, dtype=q.dtype)
+                for k0 in range(0, own, 64):
+                    keys = torch.arange(k0, min(m, k0 + 64))
+                    s = scale * q[bi, head, rows] @ k[bi, kv, keys].T
+                    if tab is not None:
+                        idx = q0 - k0 - 63 + torch.arange(191) + n - 1
+                        inside = (idx >= 0) & (idx < 2 * n - 1)
+                        slice_ = torch.where(inside, tab[idx.clamp(0, 2 * n - 2), head],
+                                             torch.zeros((), dtype=q.dtype))
+                        at = 64 * c + (rows - qc)[:, None] - (keys - k0)[None, :] + 63
+                        s = s + slice_[at]
+                    if bias is not None:
+                        s = s + (bias[bi, head] if bias.ndim == 4 else bias[head])[rows][:, keys]
+                    allowed = mask[bi, keys][None, :].expand(len(rows), -1)
+                    if causal:
+                        allowed = allowed & (keys[None, :] <= rows[:, None] + m - n)
+                    s = s.masked_fill(~allowed, -1e30)
+                    m_new = torch.maximum(mx, s.max(1).values)
+                    alpha, p_ = torch.exp(mx - m_new), torch.exp(s - m_new[:, None])
+                    l, mx = l * alpha + p_.sum(1), m_new
+                    o = o * alpha[:, None] + p_ @ v[bi, kv, keys]
+                out[bi, head, rows] = o / l[:, None]
+                lse[bi, head, rows] = mx + torch.log(l)
+    return out, lse
+
+
+@pytest.mark.parametrize("form,n,m,causal", [("table", 200, 200, True),
+                                             ("bias", 150, 150 + 17, True),
+                                             ("batch", 70, 70, True),
+                                             ("none", 130, 77, False),
+                                             ("none", 1, 17, False)],
+                         ids=["table", "prefix", "per-batch", "cross", "decode"])
+def test_rows_form_scheme_equals_the_plain_version(form, n, m, causal):
+    """K1's rows form at bf16's D = 256 (`emulate_rows_form`: the 128-row
+    blocks, each half's own causal end, the table slice of 191 entries read
+    at the half's offset), in float64 at D = 256 (2 x 4 heads over one kv
+    head; one batch row's keys partly masked), equals the plain forward to
+    1e-12 in the table, prefix (causal over 17 more keys, an (H, N, M)
+    bias), per-batch bias, cross (77 keys) and decode (n = 1) forms, with
+    ragged N: the walk and the slice's addressing change no result."""
+    b, h, hk, d = 2, 4, 1, 256
+    rng = np.random.default_rng(n + m)
+    q = torch.from_numpy(rng.normal(size=(b, h, n, d)))
+    k, v = (torch.from_numpy(rng.normal(size=(b, hk, m, d))) for _ in range(2))
+    tab = torch.from_numpy(0.5 * rng.normal(size=(2 * n - 1, h))) if form == "table" else None
+    bias = torch.from_numpy(0.5 * rng.normal(size=(h, n, m))) if form == "bias" else \
+        torch.from_numpy(0.5 * rng.normal(size=(b, h, n, m))) if form == "batch" else None
+    mask = torch.ones(b, m, dtype=torch.bool)
+    mask[1, (2 * m) // 3:] = False
+    scale = d ** -0.5
+    got = emulate_rows_form(q, k, v, tab, bias, mask, causal, scale)
+    want = fa.flash_attention_ref(q, k, v, bias_tab=tab, bias=bias, key_mask=mask,
+                                  causal=causal, scale=scale, return_lse=True)
+    for name, a, r in zip(("out", "lse"), got, want):
+        torch.testing.assert_close(a, r, rtol=1e-12, atol=1e-12, msg=name)
+
+
+@pytest.mark.parametrize("d", [129, 160, 200, 255])
+def test_bf16_forward_padding_to_256_is_exact(d):
+    """What the CUDA wrapper does with a bf16 head dim from 129 to 255 in the
+    forward, through the plain forward in float64: q, k and v zero-padded to
+    256 (`flash_head_dim`), the true D's scale, the output sliced back,
+    equal the unpadded plain forward's out and lse to 1e-12, and the padded
+    output columns are zeros; with the table (causal, a key mask) and with
+    an (H, N, M) bias over a prefix of 9 more keys."""
+    b, h, hk, n = 2, 2, 1, 70
+    rng = np.random.default_rng(d)
+    dn = fa.flash_head_dim(d, torch.bfloat16)
+    assert dn == 256
+    for m, form in ((n, "table"), (n + 9, "bias")):
+        q = torch.from_numpy(rng.normal(size=(b, h, n, d)))
+        k, v = (torch.from_numpy(rng.normal(size=(b, hk, m, d))) for _ in range(2))
+        extra = dict(bias_tab=torch.from_numpy(0.5 * rng.normal(size=(2 * n - 1, h))))
+        if form == "bias":
+            extra = dict(bias=torch.from_numpy(0.5 * rng.normal(size=(h, n, m))))
+        mask = torch.ones(b, m, dtype=torch.bool)
+        mask[1, 50:] = False
+        kw = dict(key_mask=mask, causal=True, scale=d ** -0.5, return_lse=True, **extra)
+        want = fa.flash_attention_ref(q, k, v, **kw)
+        padded = fa._padded(q, k, v, d=dn)
+        assert all(x.shape[-1] == 256 for x in padded)
+        got = fa.flash_attention_ref(*padded, **kw)
+        tight = dict(rtol=1e-12, atol=1e-12)
+        torch.testing.assert_close(got[0][..., :d], want[0], **tight, msg=form)
+        assert not got[0][..., d:].any(), form
+        torch.testing.assert_close(got[1], want[1], **tight, msg=form)

@@ -17,8 +17,8 @@ turns: this build, the forced one, the forced one, this. With --parent DIR it al
 process, in turns: the parent's build, this one's, this one's again and
 the parent's again, at every flash shape (the parent's kernels take every
 head dim since its column-sliced form; bf16's head dims up to 256, which
-this checkout's K2 and K3 take padded to 256, their Hopper form, reach the
-parent's as they are) and at K7's windows 64 and 128. The builds share the C
+this checkout's K1, K2 and K3 take padded to 256, their Hopper forms, reach
+the parent's as they are) and at K7's windows 64 and 128. The builds share the C
 interfaces (the flash kernels' per-batch flag comes last, which an older
 library ignores), so the parent's libraries are loaded in place of this
 one's behind the same wrappers.
@@ -60,8 +60,8 @@ cuda_ms = functools.partial(cuda_timing.cuda_ms, iters=20, warmup=3)
 # each row's text tokens (7, 13, 9, 16 of the first P) and forgets 15% of
 # the rest, "null" keeps the null key and each row's text tokens. The head
 # dims over 128: the flagship's and the Coarse LM's 256, the Fine LM's 320,
-# and 192 at the flagship's shape (in bf16 K2 and K3 there take their Hopper
-# form at 256, the rest the column-sliced form).
+# and 192 at the flagship's shape (in bf16 K1, K2 and K3 there take their
+# Hopper forms at 256, the rest the column-sliced form).
 SHAPES = (("4x8x2048 table", 4, 8, 2048, 2048, "table", True, "forget", False),
           ("4x8x2049 table (training)", 4, 8, 2049, 2049, "table", True, "forget", False),
           ("2x8x1000 table, ragged", 2, 8, 1000, 1000, "table", True, "ragged", False),
@@ -180,23 +180,43 @@ def inputs(rng, dtype, b, h, n, m, form, keys, d=64):
     return q, k, v, g, tab, bias, mask
 
 
-def times(q, k, v, g, tab, bias, mask, causal, fwd_only, pad=True):
+def times(q, k, v, g, tab, bias, mask, causal, fwd_only, parent=False):
     """{K1, K2, K2 with its bias gradient (K4, K5 or a per-batch bias's dS),
     K3: (event ms, device ms, device launches per call)} of the wrappers as
-    they stand, K2's and K3's prepared arguments padded to `fa.bwd_head_dim`
-    (outside the timed calls; with pad False as they are, as a parent's
-    library takes them)."""
-    scale = q.shape[-1] ** -0.5
+    they stand, K2's and K3's prepared arguments padded to `fa.flash_head_dim`
+    (outside the timed calls). With `parent` (a parent's libraries loaded
+    behind the wrappers) K1 and K2, K3 take the head dim that library has a
+    plan for: D itself where it has one, else `fa.flash_head_dim`'s (a
+    library that refuses D unpadded), padded outside the timed calls, so a
+    parent's kernels run as they ran there."""
+    b, h, n, d = q.shape
+    hk, m = k.shape[1], k.shape[2]
+    scale = d ** -0.5
     kw = dict(causal=causal, scale=scale)
-    with torch.no_grad():
-        out, lse = fa._forward(q, k, v, tab, bias, mask, causal, scale)
+
+    def head_dim(plan_built):
+        if parent:
+            try:
+                plan_built(d)
+                return d
+            except ValueError:
+                pass
+        return fa.flash_head_dim(d, q.dtype)
+
     tabc, kmask, dense = fa._kernel_args(tab, mask, bias)
-    prepared = fa._padded(q, k, v, g, d=fa.bwd_head_dim(q.shape[-1], q.dtype)) if pad \
-        else (q, k, v, g)
+    fwd_args = fa._padded(q, k, v, d=head_dim(
+        lambda x: fa.fwd_plan_built(b, h, n, m, q.dtype, x)))
+    with torch.no_grad():
+        out, lse = fa.fwd(*fwd_args, tabc, kmask, bias=dense, **kw)
+    out = out[..., :d]
+    prepared = fa._padded(q, k, v, g, d=head_dim(
+        lambda x: fa.dq_plan_built(b, h, hk, n, m, q.dtype, d=x)))
     args = (*prepared, lse, (g.float() * out.float()).sum(-1), tabc, kmask)
     dq_out = torch.empty_like(prepared[0])
 
     def k1():
+        if parent:
+            return fa.fwd(*fwd_args, tabc, kmask, bias=dense, **kw)
         return fa._forward(q, k, v, tab, bias, mask, causal, scale)
 
     def k2():  # the bias read, its gradient not asked for: K2 alone
@@ -345,7 +365,7 @@ def compare(parent=None, seed=0, shapes=SHAPES):
                 for which in ("parent", "this", "this", "parent"):
                     with parent_kernels(parent) if which == "parent" else contextlib.nullcontext():
                         runs[which].append(times(*tensors, causal, fwd_only,
-                                                 pad=which != "parent"))
+                                                 parent=which == "parent"))
             else:
                 runs["this"].append(times(*tensors, causal, fwd_only))
             sdpa_ms, sdpa_dev, sdpa_bwd_dev = sdpa_times(*tensors, causal, fwd_only)
