@@ -148,12 +148,13 @@
 //       bits every run. The plan (cluster, chunks) is dkv_plan, which
 //       ops/kernels/flash_attention.py::dkv_plan states for the tests.
 // Head dims. The native forms are instantiated for D = 32, 64 and 128 (the
-// wrapper zero-pads any other D up to 128 into the next of them), and in
-// bf16 for D = 256 (K2 flash_bwd_dq_kernel<bf16, 256, DB>, K3
-// flash_bwd_dkv_pair_kernel; the wrapper zero-pads bf16's 129 to 255 to
-// it); over 128 in float32, and over 256 in bf16, the column-sliced forms
-// below take every D that is a multiple of 64 (any other D zero-padded to
-// the next one). The native forms sit on csrc/wgmma.cuh's boxes: a
+// wrapper zero-pads any other D up to 128 into the next of them), and for
+// D = 256 (bf16: K2 flash_bwd_dq_kernel<bf16, 256, DB>, K3
+// flash_bwd_dkv_pair_kernel; float32: the chunked forms
+// flash_bwd_dq_chunk_kernel and flash_bwd_dkv_chunk_kernel; the wrapper
+// zero-pads 129 to 255 to 256 in both dtypes); over 256 the column-sliced
+// forms below take every D that is a multiple of 64 (any other D
+// zero-padded to the next one). The native forms sit on csrc/wgmma.cuh's boxes: a
 // D-wide row is D * sizeof(T) / 128 boxes (a 32-wide bf16 row half of one,
 // read as zeros past the row's end), the products over D run D * sizeof(T)
 // / 32 k-steps, and those whose N index is D (dq += dS K, dV += P^T dO, dK
@@ -177,12 +178,28 @@
 // thread), and K3 takes a block of its own, flash_bwd_dkv_pair_kernel, whose
 // two consumers hold one gradient each and hand P^T and dS^T to each other
 // (see there). S and dP are formed once a tile, as at every native D.
+// In float32 at D = 256 an operand tile with its tf32 small parts is 128
+// KB, so K2's Q and dO (or K3's K and V) split whole would alone fill 256
+// KB, over the 227 KB a block may have. The chunked forms keep those two
+// resident and unsplit (128 KB), each the A operand of its score product
+// (S = Q K^T, dP = dO V^T; K3: S^T = K Q^T, dP^T = V dO^T), its fragment
+// read into registers k-step by k-step and split there by the same
+// tc::to_tf32 rounding (wgmma takes a tf32 A from registers, wgmma.cuh's
+// gemm_nk_rs_chunk). The streamed operands come through a two-stage TMA
+// ring 64 columns at a time (a 16 KB chunk, 32 KB with its small parts,
+// split in place). The products whose N index is D (dq += dS K, dV += P^T
+// dO, dK += dS^T Q) take their chunks again, split transposed (wgmma's tf32
+// B is K-major only), and run on wgmma too, one 64-column chunk of the
+// output a ring item, A from the registers or a hand-off (wg::split_tile_t,
+// wg::add_pk_chunk): on mma.sync, reading B fragment by fragment, they took
+// the largest share of both kernels' time (tools/torch_flash_ablate.py
+// measures each part's). K2 keeps one consumer and its producer's splits
+// (198,432 bytes and K5's 32 KB: 231,200), K3 the pair form's two consumers,
+// each splitting the chunks it takes (231,824 bytes); see there. S and dP
+// are formed once a tile.
 //
-// Over D = 128 in float32, over 256 in bf16 (flash_bwd_dq_wide_kernel,
-// flash_bwd_dkv_wide_kernel). In float32 an operand tile with its tf32
-// small parts is 128 KB at D = 256, so K3's K and V (or K2's Q and dO)
-// alone would fill 256 KB, over the 227 KB a block may have. So a block
-// owns one 64-wide slice of its output's columns (dq, or dk and dv) and
+// Over D = 256 (flash_bwd_dq_wide_kernel, flash_bwd_dkv_wide_kernel): a
+// block owns one 64-wide slice of its output's columns (dq, or dk and dv) and
 // keeps 16 x 64 strips of it a warp; S and dP (K2: rows queries; K3: S^T
 // and dP^T, rows keys) are summed over the depth 64 columns at a time, each
 // chunk's two operand tiles streamed by cp.async through a ring of two
@@ -220,6 +237,8 @@ constexpr int ND = BQ + BK - 1; // deltas a tile covers
 constexpr int MAX_CLUSTER = 8;  // the portable cluster size
 constexpr int BF16_DIM = 256;   // bf16's Hopper form of K2 and K3 over D = 128 (the
                                 // wrapper pads bf16's 129 to 255 to it)
+constexpr int F32_DIM = 256;    // float32's chunked form of K2 and K3 over D = 128 (the
+                                // wrapper pads float32's 129 to 255 to it)
 // K2's forms of the bias's gradient: none or K4's (the table's, by its
 // dpart pointer), K5's batch sum, or a per-batch bias's dS
 constexpr int DB_NONE = 0, DB_SUM = 1, DB_EACH = 2;
@@ -1500,8 +1519,736 @@ flash_bwd_dkv_pair_kernel(const __grid_constant__ CUtensorMap qmap,
   tc::cluster_wait();
 }
 
+// K2 in float32 at D = 256, the chunked form (see the note at the top): one
+// block per (batch row, head, 64-row query tile), its grid, order and
+// cluster flash_bwd_dq_kernel's, of a producer warpgroup and one consumer
+// warpgroup. Q and dO are resident and unsplit, each the A operand of its
+// score product, split k-step by k-step in registers
+// (wg::gemm_nk_rs_chunk); K and V stream through a two-stage TMA ring 64
+// columns at a time, each chunk split in place by the producer. A key
+// tile's 12 ring items: K's four chunks for S = Q K^T, V's four for dP = dO
+// V^T, then K's four again, split transposed (wg::split_tile_t), for dq +=
+// dS K on wgmma with dS from the registers (wg::add_pk_chunk). K4, K5 and
+// the per-batch dS as flash_bwd_dq_kernel's, in the same order.
+// Shared memory (offsets from a 1024-byte aligned base): Q and dO, 64 KB
+// each; two stages of a chunk and its small parts, 32 KB each; for each key
+// tile's parity log2(e) times the table slice [128], the key flags [64] and
+// two words (784 bytes each); the barriers (256): EXTRA 198,432 bytes; then
+// K4's buffers (24 KB: 223,008) or K5's two dS buffers (32 KB: 231,200,
+// 1,248 bytes under the limit). One block an SM; no setmaxnreg: the
+// consumer's dq takes 128 registers a thread.
+template <int D, bool SUM>
+struct DqChunk {
+  static_assert(D == F32_DIM, "float32's chunked form is laid out for D = 256");
+  static constexpr int NT = 256;  // the producer warpgroup, then the consumer warpgroup
+  static constexpr int MIN_BLOCKS = 1;
+  static constexpr int ST = 2;  // stages
+  static constexpr int NCH = D / wg::CHUNK;  // chunks of the depth
+  static constexpr int PER = 3 * NCH;  // ring items a key tile: K's, V's, K's chunks
+  static constexpr int TILE = wg::tile_bytes<float, D>();  // Q or dO, unsplit
+  static constexpr int STAGE0 = 2 * TILE;
+  static constexpr int STAGE = 2 * wg::CHUNK_BYTES;  // a chunk and its small parts
+  static constexpr int MISC = STAGE0 + ST * STAGE;
+  static constexpr int MISC_TILE = (128 + 64 + 4) * 4;
+  static constexpr int BARS = MISC + 2 * MISC_TILE;
+  static constexpr int EXTRA = BARS + 256;
+  static constexpr int K4_BYTES = Dq<float, 64, false>::K4_BYTES;
+  static constexpr int K5_BYTES = Dq<float, 64, false>::K5_BYTES;
+  static constexpr size_t most = EXTRA + (SUM ? K5_BYTES : K4_BYTES);
+  static_assert(EXTRA == 198432 && most <= 232448, "a block's shared memory");
+  static_assert((1 + 3 * ST + 4) * 8 <= 256, "the barriers fit");
+};
+
+template <int D, int DB>
+__global__ void __launch_bounds__(DqChunk<D, DB == DB_SUM>::NT, 1)
+flash_bwd_dq_chunk_kernel(const __grid_constant__ CUtensorMap qmap,
+                          const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap,
+                          const __grid_constant__ CUtensorMap gmap, const float* __restrict__ lse,
+                          const float* __restrict__ delta, const float* __restrict__ tab,
+                          const float* __restrict__ bias, const int8_t* __restrict__ kmask,
+                          float* __restrict__ dq, float* __restrict__ dpart,
+                          float* __restrict__ dbias, int bcount, int heads, int group, int n,
+                          int m, float scale, int causal, int bias_batched) {
+  constexpr bool SUM = DB == DB_SUM, EACH = DB == DB_EACH;
+  using L = DqChunk<D, SUM>;
+  constexpr int ST = L::ST, PER = L::PER, NCH = L::NCH, CH = wg::CHUNK;
+  extern __shared__ __align__(1024) unsigned char dq_chunk_smem[];
+  unsigned char* sm = dq_chunk_smem;
+  if (threadIdx.x == 0 && (tc::smem_u32(sm) & 1023) != 0) __trap();  // the tiles' swizzle
+  float* Qs = reinterpret_cast<float*>(sm);
+  float* Gs = reinterpret_cast<float*>(sm + L::TILE);
+  auto Xh = [&](int s) { return reinterpret_cast<float*>(sm + L::STAGE0 + s * L::STAGE); };
+  auto Xl = [&](int s) {
+    return reinterpret_cast<float*>(sm + L::STAGE0 + s * L::STAGE + wg::CHUNK_BYTES);
+  };
+  // key tile it's table slice (as flash_bwd_dq_kernel's Bs), key flags and
+  // two words, in the buffer of its parity
+  auto Bs = [&](int it) { return reinterpret_cast<float*>(sm + L::MISC + (it & 1) * L::MISC_TILE); };
+  auto Fs = [&](int it) { return Bs(it) + 128; };
+  auto As = [&](int it) { return reinterpret_cast<int*>(Bs(it) + 128 + 64); };
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  uint64_t *qload = bars, *loaded = bars + 1, *full = loaded + ST, *empty = full + ST,
+           *dsready = empty + ST, *dsfree = dsready + 2;
+  float* extra = reinterpret_cast<float*>(sm + L::EXTRA);
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int csize = (int)cluster.num_blocks();
+  // one-dimensional grid: batch rows fastest, then heads, then query tiles
+  const int b = blockIdx.x % bcount, h = blockIdx.x / bcount % heads;
+  const int nqt = (n + BQ - 1) / BQ, qt = blockIdx.x / bcount / heads;
+  const int q0 = (nqt - 1 - qt) * BQ;  // the longest causal rows first
+  const size_t bh = (size_t)b * heads + h;
+  const int off = m - n;
+  const int kv_end = tc::causal_end(causal, q0 + BQ, off, m);
+  const int ntiles = (kv_end + BK - 1) / BK;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    wg::mbar_init(qload, 1);
+    for (int s = 0; s < ST; ++s) {
+      wg::mbar_init(&loaded[s], 1);
+      wg::mbar_init(&full[s], 128);
+      wg::mbar_init(&empty[s], 128);
+    }
+    for (int i = 0; i < 2; ++i) {  // K5: one arrival from each rank of the cluster
+      wg::mbar_init(&dsready[i], csize);
+      wg::mbar_init(&dsfree[i], csize);
+    }
+    wg::fence_barrier_init();
+  }
+  __syncthreads();
+  if constexpr (SUM) {
+    tc::cluster_arrive();
+    tc::cluster_wait();
+  }
+  const bool atomic = SUM && csize < bcount;
+  float* out = SUM ? dbias + (size_t)h * n * m : EACH ? dbias + bh * n * m : nullptr;
+  auto dsb = [&](int it) { return extra + (it & 1) * BQ * BK; };
+
+  if (tid < 128) {
+    // ---- the producer ----
+    const int kvp = (int)(bh / group);
+    if (tid == 0) {
+      wg::mbar_arrive_tx(qload, 2 * L::TILE);
+      wg::load_tile<float, D>(Qs, &qmap, qload, q0, (int)bh);
+      wg::load_tile<float, D>(Gs, &gmap, qload, q0, (int)bh);
+    }
+    float tab_r = 0.f, flag_r = 0.f;
+    auto fetch = [&](int it) {
+      const int k0 = it * BK;
+      if (tab != nullptr && tid < BQ + BK - 1)
+        tab_r = tc::LOG2E * tc::tab_entry(tab, q0, k0, BK, tid, n, heads, h);
+      if (tid < BK) flag_r = tc::key_flag(kmask, b, m, k0 + tid);
+    };
+    // Ring item i into stage i % ST: chunk j % NCH of K (j < NCH, and j >=
+    // 2 NCH) or V, j = i % PER, by TMA; the table slice and key flags with
+    // the tile's first item, from registers loaded a tile ahead
+    auto issue = [&](int i) {
+      const int s = i % ST, it = i / PER, j = i % PER;
+      const float tab_it = tab_r, flag_it = flag_r;
+      if (j == 0 && it + 1 < ntiles) fetch(it + 1);
+      wg::mbar_wait(&empty[s], ((i / ST) & 1) ^ 1);
+      if (tid == 0) {
+        wg::mbar_arrive_tx(&loaded[s], wg::CHUNK_BYTES);
+        wg::load_chunk(Xh(s), j / NCH == 1 ? &vmap : &kmap, &loaded[s], j % NCH * CH, it * BK,
+                       kvp);
+      }
+      if (j == 0) {
+        if (tab != nullptr && tid < BQ + BK - 1) Bs(it)[tid] = tab_it;
+        if (tid < BK) {
+          Fs(it)[tid] = flag_it;
+          const unsigned any = __ballot_sync(0xffffffffu, flag_it != 0.f);
+          if (tid % 32 == 0) As(it)[tid / 32] = any != 0u;
+        }
+      }
+    };
+    // item i's copies landed: split them in place (K's chunks for dq
+    // transposed, as that product's B), then hand the stage over
+    auto finish = [&](int i) {
+      const int s = i % ST;
+      wg::mbar_wait(&loaded[s], (i / ST) & 1);
+      if (i % PER < 2 * NCH) wg::split_tile<wg::CHUNK_BYTES>(Xh(s), Xl(s), tid, 128);
+      else wg::split_tile_t(Xh(s), Xl(s), tid, 3);
+      wg::fence_proxy_async();
+      wg::mbar_arrive(&full[s]);
+    };
+    // K5 of tile it, as flash_bwd_dq_kernel's: after tile it + 1's first
+    // item is issued (and tile it's last split), so this block's consumer is
+    // done with tile it's dS by then or soon
+    auto batch_sum = [&](int it) {
+      wg::mbar_wait<true>(&dsready[it & 1], (it / 2) & 1);
+      batch_sum_rows(cluster, dsb(it), out, q0, it * BK, n, m, atomic, tid);
+      tc::bar_sync(2, 128);
+      if (tid < csize) wg::mbar_arrive_remote(&dsfree[it & 1], tid);
+    };
+    const int nitems = PER * ntiles;
+    fetch(0);
+    if (nitems > 0) issue(0);
+    for (int i = 1; i < nitems; ++i) {
+      issue(i);
+      finish(i - 1);
+      if constexpr (SUM)
+        if (i % PER == 0) batch_sum(i / PER - 1);
+    }
+    if (nitems > 0) finish(nitems - 1);
+    if constexpr (SUM) {
+      if (ntiles > 0) batch_sum(ntiles - 1);
+      // no block leaves while the cluster still reads its dS
+      wg::mbar_wait<true>(&dsfree[(ntiles - 1) & 1], ((ntiles - 1) / 2) & 1);
+      if (ntiles >= 2) wg::mbar_wait<true>(&dsfree[ntiles & 1], ((ntiles - 2) / 2) & 1);
+      if (!atomic && kv_end < m) {
+        const int rank = (int)cluster.block_rank();
+        const int r_hi = min((rank + 1) * BQ / csize, n - q0);
+        for (int r = rank * BQ / csize; r < r_hi; ++r) {
+          float* o = out + (size_t)(q0 + r) * m;
+          for (int c = kv_end + tid; c < m; c += 128) o[c] = 0.f;
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- the consumer ----
+  const int ctid = tid - 128, warp = ctid / 32, lane = ctid % 32, gq = lane / 4, t = lane % 4;
+  const int rl[2] = {warp * 16 + gq, warp * 16 + gq + 8};  // this thread's rows in the tile
+  const float* biash = bias != nullptr ? bias + (bias_batched ? bh : h) * n * m : nullptr;
+  const float* brow[2] = {biash != nullptr && q0 + rl[0] < n ? biash + (size_t)(q0 + rl[0]) * m
+                                                             : nullptr,
+                          biash != nullptr && q0 + rl[1] < n ? biash + (size_t)(q0 + rl[1]) * m
+                                                             : nullptr};
+  float lse_r[2], dl_r[2];  // log2(e) lse (+inf where p = 0) and Delta
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    const int qp = q0 + rl[ri];
+    const float l = qp < n ? lse[bh * n + qp] : INFINITY;
+    lse_r[ri] = l > 0.5f * NEG ? tc::LOG2E * l : INFINITY;
+    dl_r[ri] = qp < n ? delta[bh * n + qp] : 0.f;
+  }
+  // K4, as flash_bwd_dq_kernel's: a strip's skewed dS rows, the delta slots
+  // of tile it (two buffers), and the delta this thread owns
+  float* sk = extra + warp * 8 * SKP;
+  auto dsl = [&](int it) { return extra + BQ * SKP + (it & 1) * 4 * DSL; };
+  const int nkt = (m + BK - 1) / BK;
+  float* prow = dpart != nullptr
+                    ? dpart + (bh * nqt + q0 / BQ) * (size_t)(BK * (nkt + 1)) : nullptr;
+  int a_cur = -1;
+  float a_sum = 0.f;
+  if (dpart != nullptr) {
+    for (int i = ctid; i < BQ * SKP + 2 * 4 * DSL; i += 128) extra[i] = 0.f;
+    tc::bar_sync(1, 128);
+  }
+  const float sl = scale * tc::LOG2E;
+  float dqa[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+  wg::mbar_wait(qload, 0);
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int i0 = PER * it, k0 = it * BK;  // i0 is even: chunk c's stage is c % 2
+    float sc[32], ds[32], bv[32];  // S, then P; dP, then dS (rows queries, columns keys)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    // S = Q K^T over K's chunks; the (H, N, M) bias read from device memory
+    // while the last chunk's products run
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+      const int i = i0 + c, s = c % ST;
+      wg::mbar_wait(&full[s], (i / ST) & 1);
+      wg::fence_acc(sc);
+      wg::gemm_nk_rs_chunk(sc, Qs, c * CH, Xh(s), Xl(s), c == 0);
+      if (c == NCH - 1 && biash != nullptr) {
+        const bool whole = k0 + BK <= m;
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const float* row = brow[(e / 2) & 1];
+          const int kc = k0 + 8 * (e / 4) + 2 * t + (e & 1);
+          bv[e] = row != nullptr && (whole || kc < m) ? __ldg(row + kc) : 0.f;
+        }
+      }
+      wg::wgmma_wait<0>();
+      wg::fence_acc(sc);
+      wg::mbar_arrive(&empty[s]);
+    }
+    // p = 2^(y - log2(e) lse) by flash_bwd_dq_kernel's masking rule, into sc
+    const float* bs = Bs(it);
+    const float* fs = Fs(it);
+    const bool diag = causal && tc::above(k0 + BK - 1, q0 + warp * 16, off);
+    const bool flagged = As(it)[0] || As(it)[1];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const int cc = 8 * j + 2 * t;
+      const float2 f = flagged || diag ? *reinterpret_cast<const float2*>(fs + cc)
+                                       : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int ri = 0; ri < 2; ++ri) {
+        float2 bb = make_float2(0.f, 0.f);
+        if (tab != nullptr) {
+          bb = make_float2(bs[rl[ri] - cc + BK - 1], bs[rl[ri] - cc + BK - 2]);
+        } else if (biash != nullptr) {
+          bb = make_float2(tc::LOG2E * bv[4 * j + 2 * ri], tc::LOG2E * bv[4 * j + 2 * ri + 1]);
+        }
+        const int e = 4 * j + 2 * ri;
+        float y0 = fmaf(sc[e], sl, bb.x), y1 = fmaf(sc[e + 1], sl, bb.y);
+        if (diag) {
+          const int qp = q0 + rl[ri];
+          y0 = tc::above(k0 + cc, qp, off) ? fminf(NEG, f.x) : y0 + f.x;
+          y1 = tc::above(k0 + cc + 1, qp, off) ? fminf(NEG, f.y) : y1 + f.y;
+        } else if (flagged) {
+          y0 += f.x;
+          y1 += f.y;
+        }
+        sc[e] = tc::ex2(y0 - lse_r[ri]);
+        sc[e + 1] = tc::ex2(y1 - lse_r[ri]);
+      }
+    }
+    // dP = dO V^T over V's chunks, then dS = P (dP - Delta)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) ds[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+      const int i = i0 + NCH + c, s = c % ST;
+      wg::mbar_wait(&full[s], (i / ST) & 1);
+      wg::fence_acc(ds);
+      wg::gemm_nk_rs_chunk(ds, Gs, c * CH, Xh(s), Xl(s), c == 0);
+      wg::wgmma_wait<0>();
+      wg::fence_acc(ds);
+      wg::mbar_arrive(&empty[s]);
+    }
+#pragma unroll
+    for (int e = 0; e < 32; ++e) ds[e] = sc[e] * (ds[e] - dl_r[(e / 2) & 1]);
+    if (dpart != nullptr) {
+      // K4: the strip's diagonals, as flash_bwd_dq_kernel's
+      float* row = sk + gq * SKP + 2 * t - gq + 15;
+#pragma unroll
+      for (int j = -1; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          row[8 * j + e] = (j >= 0 ? ds[4 * j + e] : 0.f) + (j + 1 < BK / 8 ? ds[4 * j + 6 + e] : 0.f);
+      __syncwarp();
+      for (int x = lane; x < BK + 15; x += 32) {
+        float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+        for (int r = 0; r < 8; r += 2) {
+          sum0 += sk[r * SKP + x];
+          sum1 += sk[(r + 1) * SKP + x];
+        }
+        dsl(it)[warp * DSL + 48 - 16 * warp + x] = sum0 + sum1;
+      }
+    }
+    if constexpr (EACH) {
+      // a per-batch bias: this thread's dS elements are their gradient
+#pragma unroll
+      for (int ri = 0; ri < 2; ++ri) {
+        const int qp = q0 + rl[ri];
+        if (qp >= n) continue;
+        float* o = out + (size_t)qp * m + k0;
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int cc = 8 * j + 2 * t + e;
+            if (k0 + cc < m) o[cc] = ds[4 * j + 2 * ri + e];
+          }
+      }
+    }
+    if constexpr (SUM) {
+      // K5: dS into buffer it % 2 once every rank has summed tile it - 2
+      // from it, then every rank told
+      if (it >= 2) wg::mbar_wait<true>(&dsfree[it & 1], ((it / 2) - 1) & 1);
+      float* dst = dsb(it);
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int ri = 0; ri < 2; ++ri)
+          tc::store2(dst + ds_at(rl[ri], 8 * j + 2 * t), ds[4 * j + 2 * ri], ds[4 * j + 2 * ri + 1]);
+      tc::bar_sync(1, 128);
+      if (ctid < csize) wg::mbar_arrive_remote(&dsready[it & 1], ctid);
+    }
+    // dq += dS K over K's chunks again (transposed), on wgmma with dS from
+    // the registers, one 64-column chunk of dq each
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+      const int i = i0 + 2 * NCH + c, s = c % ST;
+      wg::mbar_wait(&full[s], (i / ST) & 1);
+      wg::add_pk_chunk<D>(dqa, ds, Xh(s), Xl(s), c * CH);
+      wg::mbar_arrive(&empty[s]);
+    }
+    if (dpart != nullptr) {
+      tc::bar_sync(1, 128);  // every strip's slots of this tile are in
+      const int a = k0 + ((ctid - k0) & (DSL - 1));
+      if (a != a_cur) {
+        if (a_cur >= 0) prow[a_cur] = a_sum;
+        a_cur = a;
+        a_sum = 0.f;
+      }
+      const float* d = dsl(it) + (a - k0);
+      a_sum += ((d[0] + d[DSL]) + d[2 * DSL]) + d[3 * DSL];
+    }
+  }
+  if (dpart != nullptr && a_cur >= 0) prow[a_cur] = a_sum;
+  if constexpr (EACH) {
+    for (int r = 0; r < BQ && q0 + r < n; ++r)
+      for (int c = ntiles * BK + ctid; c < m; c += 128) out[(size_t)(q0 + r) * m + c] = 0.f;
+  }
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    const int qp = q0 + rl[ri];
+    if (qp >= n) continue;
+    float* o = dq + (bh * n + qp) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      tc::store2(o + 8 * j + 2 * t, dqa[4 * j + 2 * ri] * scale, dqa[4 * j + 2 * ri + 1] * scale);
+  }
+}
+
+// K3 in float32 at D = 256, the chunked pair form: one block per (query head
+// set, b*hk, 64-key tile, query chunk), its grid, cluster and query split
+// those of flash_bwd_dkv_kernel (dkv_plan), of a producer warpgroup and two
+// consumer warpgroups, one a gradient, as flash_bwd_dkv_pair_kernel's: dK
+// and dV of 64 keys x 256 are 128 float32 registers a thread each. K and V
+// are resident and unsplit, each the A operand of its score product, split
+// k-step by k-step in registers. Q and dO stream through a two-stage TMA ring
+// 64 columns at a time, in turns: stage 0 holds consumer A's chunks (Q),
+// stage 1 consumer B's (dO), so each consumer waits only on its own stage
+// and the two work at once. An item's 16 ring items: Q's and dO's four
+// chunks in turns, A taking Q's for S^T = K Q^T and B dO's for dP^T = V
+// dO^T; then both four again in turns, for dK += dS^T Q (A) and dV += P^T dO
+// (B), on wgmma with the chunk split transposed (wg::split_tile_t,
+// wg::add_pk_chunk). A consumer splits each chunk it takes in place itself
+// (the producer only issues the copies): A's and B's splits run at once,
+// where one producer's would take turns. A hands P^T to B and B hands dS^T
+// = P^T (dP^T - Delta) back, both as float32 through shared memory in the
+// accumulator's own layout, read k-step by k-step by the products, each
+// behind a full and a free mbarrier; the producer's lse, Delta and table
+// slice of an item behind one more (mready). dk and dv sum over the items in
+// order, each in one warpgroup, then over the cluster in rank order: the
+// same bits every run. Shared memory (offsets from a 1024-byte aligned
+// base): K and V unsplit (128 KB); the two stages of a chunk and its small
+// parts (64 KB); for each item's parity lse [64], Delta [64] and the table
+// slice [128] (2 x 1,024 bytes); the key flags [64] and two words; P^T and
+// dS^T (16 KB each); the barriers: 231,824 bytes, one block an SM. After the
+// loop the dK and dV partials (pitch D + 4, 133,120 bytes) take K's, V's and
+// the ring's place.
+template <int D>
+struct DkvChunk {
+  static_assert(D == F32_DIM, "float32's chunked form is laid out for D = 256");
+  static constexpr int NT = 384;  // the producer, consumer A (dK), consumer B (dV)
+  static constexpr int MIN_BLOCKS = 1;
+  static constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+  static constexpr int ST = 2;  // stages: A's and B's
+  static constexpr int NCH = D / wg::CHUNK;  // chunks of the depth
+  static constexpr int PER = 4 * NCH;  // ring items an item: Q's and dO's, then both again
+  static constexpr int TILE = wg::tile_bytes<float, D>();  // K or V, unsplit
+  static constexpr int STAGE0 = 2 * TILE;
+  static constexpr int STAGE = 2 * wg::CHUNK_BYTES;
+  static constexpr int MISC = STAGE0 + ST * STAGE;
+  static constexpr int MISC_ITEM = (64 + 64 + 128) * 4;
+  static constexpr int FLAGS = MISC + 2 * MISC_ITEM;
+  static constexpr int PX = FLAGS + (64 + 4) * 4;  // P^T: 32 floats a thread of A
+  static constexpr int DSX = PX + BK * BQ * 4;     // dS^T: 32 floats a thread of B
+  static constexpr int BARS = DSX + BK * BQ * 4;
+  static constexpr int RP = D + 4;  // the partials' pitch in floats
+  static constexpr size_t bytes = BARS + 128;
+  static_assert(PX % 16 == 0 && DSX % 16 == 0, "16-byte hand-off stores");
+  static_assert(MISC >= 2 * BK * RP * 4, "the partials fit in K's, V's and the ring's place");
+  static_assert((2 + 2 * ST + 4 + 2) * 8 <= 128, "the barriers fit");
+  static_assert(bytes == 231824 && bytes <= 232448, "a block's shared memory");
+  static_assert(ST == 2 && PER % 2 == 0, "ring item i in stage i % 2: A's even, B's odd");
+  static_assert(((65536 / NT) & ~7) * 3 == PRODUCER_REGS + 2 * CONSUMER_REGS,
+                "setmaxnreg hands over exactly the launch's registers");
+};
+
+template <int D>
+__global__ void __launch_bounds__(DkvChunk<D>::NT, 1)
+flash_bwd_dkv_chunk_kernel(const __grid_constant__ CUtensorMap qmap,
+                           const __grid_constant__ CUtensorMap kmap,
+                           const __grid_constant__ CUtensorMap vmap,
+                           const __grid_constant__ CUtensorMap gmap,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           const float* __restrict__ tab, const float* __restrict__ bias,
+                           const int8_t* __restrict__ kmask, float* __restrict__ dk,
+                           float* __restrict__ dv, float* __restrict__ part, int bhk, int heads,
+                           int hk, int n, int m, float scale, int causal, int qsplit,
+                           int bias_batched) {
+  using L = DkvChunk<D>;
+  constexpr int ST = L::ST, PER = L::PER, NCH = L::NCH, CH = wg::CHUNK;
+  extern __shared__ __align__(1024) unsigned char dkv_chunk_smem[];
+  unsigned char* sm = dkv_chunk_smem;
+  if (threadIdx.x == 0 && (tc::smem_u32(sm) & 1023) != 0) __trap();  // the tiles' swizzle
+  float* Ks = reinterpret_cast<float*>(sm);
+  float* Vs = reinterpret_cast<float*>(sm + L::TILE);
+  auto Xh = [&](int s) { return reinterpret_cast<float*>(sm + L::STAGE0 + s * L::STAGE); };
+  auto Xl = [&](int s) {
+    return reinterpret_cast<float*>(sm + L::STAGE0 + s * L::STAGE + wg::CHUNK_BYTES);
+  };
+  // item it's log2(e) lse, Delta and log2(e) times the table slice, as
+  // flash_bwd_dkv_kernel's, in the buffer of its parity
+  auto Ls = [&](int it) { return reinterpret_cast<float*>(sm + L::MISC + (it & 1) * L::MISC_ITEM); };
+  float* Fs = reinterpret_cast<float*>(sm + L::FLAGS);
+  int* Fany = reinterpret_cast<int*>(Fs + 64);  // nonzero where a flag of keys 0-31 (32-63) is
+  float4* px = reinterpret_cast<float4*>(sm + L::PX);
+  float4* dsx = reinterpret_cast<float4*>(sm + L::DSX);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  uint64_t *kvload = bars, *kvfull = bars + 1, *loaded = bars + 2, *empty = loaded + ST,
+           *pready = empty + ST, *pfree = pready + 1, *dsready = pfree + 1, *dsfree = dsready + 1,
+           *mready = dsfree + 1;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), csize = (int)cluster.num_blocks();
+  // the grid as flash_bwd_dkv_kernel's: the cluster's ranks, then b * hk +
+  // kv head, then (key tile, query chunk)
+  const int kvh = blockIdx.x / csize % bhk;
+  const int b = kvh / hk, kh = kvh % hk, group = heads / hk;
+  const int zz = blockIdx.x / csize / bhk;
+  const int k0 = (zz / qsplit) * BK, z = zz % qsplit;
+  const int off = m - n;
+  const int q_start = causal ? max(0, k0 - off) : 0;
+  const int nqt = q_start < n ? (n - q_start + BQ - 1) / BQ : 0;
+  const int per = (nqt + qsplit - 1) / qsplit;
+  const int qa = min(nqt, z * per), nq = min(nqt, qa + per) - qa;
+  const int total = (group / csize) * nq;
+  auto head = [&](int it) { return kh * group + rank + csize * (it / nq); };
+  auto qtile = [&](int it) { return q_start + (qa + it % nq) * BQ; };
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    wg::mbar_init(kvload, 1);
+    wg::mbar_init(kvfull, 128);
+    for (int s = 0; s < ST; ++s) {
+      wg::mbar_init(&loaded[s], 1);
+      wg::mbar_init(&empty[s], 128);  // the stage's consumer
+      wg::mbar_init(&mready[s], 128);
+    }
+    wg::mbar_init(pready, 128);
+    wg::mbar_init(pfree, 128);
+    wg::mbar_init(dsready, 128);
+    wg::mbar_init(dsfree, 128);
+    wg::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // ---- the producer ----
+    wg::setmaxnreg_dec<L::PRODUCER_REGS>();
+    if (tid == 0) {
+      wg::mbar_arrive_tx(kvload, 2 * L::TILE);
+      wg::load_tile<float, D>(Ks, &kmap, kvload, k0, kvh);
+      wg::load_tile<float, D>(Vs, &vmap, kvload, k0, kvh);
+    }
+    if (tid < BK) {
+      const float f = tc::key_flag(kmask, b, m, k0 + tid);
+      Fs[tid] = f;
+      const unsigned any = __ballot_sync(0xffffffffu, f != 0.f);
+      if (tid % 32 == 0) Fany[tid / 32] = any != 0u;
+    }
+    wg::mbar_arrive(kvfull);
+    float row_r = 0.f, tab_r = 0.f;
+    auto fetch = [&](int it) {
+      const int h = head(it), q0 = qtile(it);
+      const size_t bh = (size_t)b * heads + h;
+      const int qp = q0 + tid % BQ;
+      if (tid < BQ) {
+        const float x = qp < n ? lse[bh * n + qp] : INFINITY;
+        row_r = x > 0.5f * NEG ? tc::LOG2E * x : INFINITY;
+      } else {
+        row_r = qp < n ? delta[bh * n + qp] : 0.f;
+      }
+      if (tab != nullptr && tid < BQ + BK - 1)
+        tab_r = tc::LOG2E * tc::tab_entry(tab, q0, k0, BK, tid, n, heads, h);
+    };
+    // Ring item i into stage i % 2, j = i % PER: chunk (j / 2) % NCH of the
+    // item's Q (j even, A's) or dO (j odd, B's) by TMA. With the item's
+    // first, its lse, Delta and table slice, from registers loaded an item
+    // ahead, once stage 0 has been handed back from the previous item's last
+    // Q chunk (both consumers then done with the buffer's previous item).
+    const int nitems = PER * total;
+    if (nitems > 0) fetch(0);
+    for (int i = 0; i < nitems; ++i) {
+      const int s = i % ST, it = i / PER, j = i % PER;
+      const float row_it = row_r, tab_it = tab_r;
+      if (j == 0 && it + 1 < total) fetch(it + 1);
+      wg::mbar_wait(&empty[s], ((i / ST) & 1) ^ 1);
+      if (tid == 0) {
+        wg::mbar_arrive_tx(&loaded[s], wg::CHUNK_BYTES);
+        wg::load_chunk(Xh(s), s == 0 ? &qmap : &gmap, &loaded[s], (j / 2) % NCH * CH,
+                       qtile(it), (int)((size_t)b * heads + head(it)));
+      }
+      if (j == 0) {
+        float* ls = Ls(it);
+        ls[tid] = row_it;
+        if (tab != nullptr && tid < BQ + BK - 1) ls[2 * BQ + tid] = tab_it;
+        wg::mbar_arrive(&mready[it & 1]);
+      }
+    }
+    // the cluster's two barriers of the head sum below
+    tc::cluster_arrive();
+    tc::cluster_wait();
+    tc::cluster_arrive_relaxed();
+    tc::cluster_wait();
+    return;
+  }
+
+  // ---- the consumers: A (threads 128-255) dK, B (256-383) dV ----
+  wg::setmaxnreg_inc<L::CONSUMER_REGS>();
+  const bool holds_dk = tid < 256;
+  const int ctid = tid % 128, warp = ctid / 32, gq = (ctid % 32) / 4, t = ctid % 4;
+  const int kl[2] = {warp * 16 + gq, warp * 16 + gq + 8};  // this thread's keys in the tile
+  const int s = holds_dk ? 0 : 1;  // this consumer's stage (and named barrier 2 + s)
+  float* xh = Xh(s);
+  float* xl = Xl(s);
+  wg::mbar_wait(kvload, 0);
+  wg::mbar_wait(kvfull, 0);
+  const float fk[2] = {Fs[kl[0]], Fs[kl[1]]};
+  const bool flagged = Fany[0] || Fany[1];
+  const float sl = scale * tc::LOG2E;
+  float acc[D / 2];  // dK (A) or dV (B): rows keys, columns the head dim
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  // this consumer's ring item i (i % 2 == s) has landed: split it in place
+  // (transposed for the dK and dV products) for the warpgroup's products
+  auto take = [&](int i, bool transposed) {
+    wg::mbar_wait(&loaded[s], (i / ST) & 1);
+    if (transposed) wg::split_tile_t(xh, xl, ctid, 2 + s);
+    else wg::split_tile<wg::CHUNK_BYTES>(xh, xl, ctid, 128);
+    wg::fence_proxy_async();
+    tc::bar_sync(2 + s, 128);
+  };
+
+  for (int it = 0; it < total; ++it) {
+    const int i0 = PER * it + s, q0 = qtile(it);  // this consumer's first ring item
+    const float* ls = Ls(it);
+    float x[32];  // A: S^T, then P^T; B: dP^T, then dS^T (rows keys, columns queries)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) x[i] = 0.f;
+    // S^T = K Q^T (A) or dP^T = V dO^T (B) over the chunks; A reads the (H,
+    // N, M) bias from device memory while the last chunk's products run
+    float bv[32];
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+      take(i0 + 2 * c, false);
+      wg::fence_acc(x);
+      wg::gemm_nk_rs_chunk(x, holds_dk ? Ks : Vs, c * CH, xh, xl, c == 0);
+      if (holds_dk && c == NCH - 1 && bias != nullptr) {
+        const float* bh_bias =
+            bias + (((bias_batched ? (size_t)b * heads : 0) + head(it)) * n + q0) * m + k0;
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int cq = 8 * (e / 4) + 2 * t + (e & 1), kr = kl[(e / 2) & 1];
+          bv[e] = q0 + cq < n && k0 + kr < m ? __ldg(bh_bias + (size_t)cq * m + kr) : 0.f;
+        }
+      }
+      wg::wgmma_wait<0>();
+      wg::fence_acc(x);
+      wg::mbar_arrive(&empty[s]);
+    }
+    wg::mbar_wait(&mready[it & 1], (it >> 1) & 1);
+    if (holds_dk) {
+      // p = 2^(y - log2(e) lse) by flash_bwd_dkv_kernel's masking rule
+      const bool diag = causal && tc::above(k0 + warp * 16 + 15, q0, off);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int cq = 8 * (e / 4) + 2 * t + (e & 1), ri = (e / 2) & 1, kr = kl[ri];
+        float bc = 0.f;
+        if (tab != nullptr) bc = ls[2 * BQ + cq - kr + BK - 1];
+        else if (bias != nullptr) bc = tc::LOG2E * bv[e];
+        float y = fmaf(x[e], sl, bc);
+        if (diag) y = tc::above(k0 + kr, q0 + cq, off) ? fminf(NEG, fk[ri]) : y + fk[ri];
+        else if (flagged) y += fk[ri];
+        x[e] = tc::ex2(y - ls[cq]);
+      }
+      // P^T to B once B is done with the previous item's; dS^T back from B
+      if (it > 0) wg::mbar_wait(pfree, (it - 1) & 1);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        px[j * 128 + ctid] = make_float4(x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]);
+      wg::mbar_arrive(pready);
+      wg::mbar_wait(dsready, it & 1);
+    } else {
+      // dS^T = P^T (dP^T - Delta) to A once A is done with the previous item's
+      wg::mbar_wait(pready, it & 1);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 p = px[j * 128 + ctid];
+        const float pj[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          x[4 * j + e] = pj[e] * (x[4 * j + e] - ls[BQ + 8 * j + 2 * t + (e & 1)]);
+      }
+      if (it > 0) wg::mbar_wait(dsfree, (it - 1) & 1);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        dsx[j * 128 + ctid] = make_float4(x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]);
+      wg::mbar_arrive(dsready);
+    }
+    // dK += dS^T Q (A) or dV += P^T dO (B) over the transposed chunks, one
+    // 64-column chunk of the gradient each, dS^T or P^T read from the
+    // hand-off
+    const float4* hand = holds_dk ? dsx : px;
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+      take(i0 + 2 * (NCH + c), true);
+      wg::add_pk_chunk<D>(acc, hand, xh, xl, c * CH);
+      wg::mbar_arrive(&empty[s]);
+    }
+    wg::mbar_arrive(holds_dk ? dsfree : pfree);
+  }
+
+  // The partials (A's dK, B's dV) into K's, V's and the ring's place once
+  // both consumers are done with them; then the head sum over the cluster
+  // in rank order, as flash_bwd_dkv_kernel's: no atomics.
+  float* red = reinterpret_cast<float*>(sm);
+  tc::bar_sync(1, 256);
+  float* mine = red + (holds_dk ? 0 : BK * L::RP);
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri)
+      tc::store2(mine + kl[ri] * L::RP + 8 * j + 2 * t, acc[4 * j + 2 * ri],
+                 acc[4 * j + 2 * ri + 1]);
+  tc::cluster_arrive();
+  tc::cluster_wait();
+  if (rank == 0) {
+    const size_t plane = (size_t)bhk * m * D;  // one chunk's dk or dv partial
+    for (int i = tid - 128; i < BK * D; i += 256) {
+      const int r = i / D, cc = i % D;
+      if (k0 + r >= m) continue;
+      float sk = 0.f, sv = 0.f;
+      for (int src = 0; src < csize; ++src) {
+        const float* p = cluster.map_shared_rank(red, src);
+        sk += p[r * L::RP + cc];
+        sv += p[(BK + r) * L::RP + cc];
+      }
+      const size_t o = ((size_t)kvh * m + k0 + r) * D + cc;
+      if (part == nullptr) {
+        dk[o] = sk * scale;
+        dv[o] = sv;
+      } else {
+        part[z * plane + o] = sk;
+        part[(qsplit + z) * plane + o] = sv;
+      }
+    }
+  }
+  // every block's partials stay until rank 0 has read them
+  tc::cluster_arrive_relaxed();
+  tc::cluster_wait();
+}
+
+// K2's block and kernel: Dq's, or for float32 at D = 256 DqChunk's
+template <typename T, int D, int DB>
+struct DqForm {
+  using L = Dq<T, D, DB == DB_SUM>;
+  static auto kernel() { return flash_bwd_dq_kernel<T, D, DB>; }
+};
+template <int DB>
+struct DqForm<float, F32_DIM, DB> {
+  using L = DqChunk<F32_DIM, DB == DB_SUM>;
+  static auto kernel() { return flash_bwd_dq_chunk_kernel<F32_DIM, DB>; }
+};
+
 // K3's block and kernel: Dkv's (one or two consumers that take the items in
-// turn), or for bf16 at D = 256 DkvPair's (one consumer a gradient)
+// turn), or at D = 256 the pair forms (one consumer a gradient): bf16's
+// DkvPair, float32's chunked DkvChunk
 template <typename T, int D, bool TWO>
 struct DkvForm {
   using L = Dkv<T, D, TWO>;
@@ -1511,6 +2258,11 @@ template <bool TWO>
 struct DkvForm<__nv_bfloat16, BF16_DIM, TWO> {
   using L = DkvPair<__nv_bfloat16, BF16_DIM>;
   static auto kernel() { return flash_bwd_dkv_pair_kernel<__nv_bfloat16, BF16_DIM>; }
+};
+template <bool TWO>
+struct DkvForm<float, F32_DIM, TWO> {
+  using L = DkvChunk<F32_DIM>;
+  static auto kernel() { return flash_bwd_dkv_chunk_kernel<F32_DIM>; }
 };
 
 // K3's second pass with the query range split over `qsplit` chunks: dk =
@@ -1924,7 +2676,7 @@ struct DqPlan {
 
 template <typename T, int D, bool SUM>
 DqPlan dq_plan_of(int b) {
-  using L = Dq<T, D, SUM>;
+  using L = typename DqForm<T, D, SUM ? DB_SUM : DB_NONE>::L;
   return {SUM ? cluster_size(b) : 1, L::ST, (int)L::most, L::MIN_BLOCKS};
 }
 
@@ -1939,14 +2691,14 @@ DqPlan dq_plan(int b, bool sum) {
 template <typename T, int D, int DB>
 cudaError_t launch_dq(const Args& a, void* dq, void* o2, void* part) {
   constexpr bool SUM = DB == DB_SUM;
-  using L = Dq<T, D, SUM>;
+  using L = typename DqForm<T, D, DB>::L;
   const bool dtab = a.bias == nullptr && o2 != nullptr;
   CUtensorMap qm, km, vm, gm;
   cudaError_t err = wg::tile_map(&qm, a.q, sizeof(T), a.n, a.b * a.heads, D);
   if (err == cudaSuccess) err = wg::tile_map(&gm, a.g, sizeof(T), a.n, a.b * a.heads, D);
   if (err == cudaSuccess) err = wg::tile_map(&km, a.k, sizeof(T), a.m, a.b * a.hk, D);
   if (err == cudaSuccess) err = wg::tile_map(&vm, a.v, sizeof(T), a.m, a.b * a.hk, D);
-  auto kernel = flash_bwd_dq_kernel<T, D, DB>;
+  auto kernel = DqForm<T, D, DB>::kernel();
   static unsigned sized = 0;  // the devices whose attribute is set, once per instantiation
   int dev = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
@@ -1985,10 +2737,12 @@ cudaError_t launch_dq(const Args& a, void* dq, void* o2, void* part) {
 // K3's launch plan, as ops/kernels/flash_attention.py::dkv_plan gives it:
 // the cluster (the largest divisor of the group up to MAX_CLUSTER), the
 // number of chunks the query range is split into, so that a grid below one
-// block per SM fills the card (while each chunk keeps 4 query tiles), and
+// block per SM fills the card (while each chunk keeps 4 query tiles; in
+// float32's chunked form, below two blocks an SM, with 2), and
 // two consumer warpgroups a block for float32, and for bf16 where fewer
 // than two blocks an SM would run; at D = 128 two in bf16 and one (the
-// SEQ slot) in float32; at bf16's D = 256 two, one a gradient (DkvPair).
+// SEQ slot) in float32; at D = 256 two, one a gradient (bf16's DkvPair,
+// float32's DkvChunk).
 struct DkvPlan {
   int cluster, qsplit;
   bool two;
@@ -1999,7 +2753,12 @@ DkvPlan dkv_plan(bool f32, int b, int heads, int hk, int n, int m, int d) {
   const long long base = (long long)cluster * b * hk * ((m + BK - 1) / BK);
   int qsplit = 1;
   if (base < PLAN_SMS) qsplit = max(1, min((int)(PLAN_SMS / base), (n + BQ - 1) / BQ / 4));
-  return {cluster, qsplit, d > 64 ? !f32 : f32 || base * qsplit < 2 * PLAN_SMS};
+  // float32's chunked form at D = 256: its blocks are few and long (one
+  // block an SM), so a grid under two blocks an SM is split further, into
+  // chunks of at least 2 query tiles
+  if (f32 && d == F32_DIM && base < 2 * PLAN_SMS)
+    qsplit = max(qsplit, min((int)((2 * PLAN_SMS + base - 1) / base), (n + BQ - 1) / BQ / 2));
+  return {cluster, qsplit, d > 64 ? !f32 || d == F32_DIM : f32 || base * qsplit < 2 * PLAN_SMS};
 }
 
 // K3's block shape L: out[0] its stages, out[1] its shared memory, out[2]
@@ -2081,9 +2840,9 @@ cudaError_t launch_dkv(const Args& a, const DkvPlan& plan, void* dk, void* dv) {
   return err != cudaSuccess ? err : freed;
 }
 
-// a head dim the column-sliced forms take: over 128, a multiple of their
-// chunk, and in bf16 over BF16_DIM
-bool wide_dim(int d, bool bf16) { return d > (bf16 ? BF16_DIM : 128) && d % tc::WC == 0; }
+// a head dim the column-sliced forms take: a multiple of their chunk over
+// BF16_DIM in bf16, over F32_DIM in float32
+bool wide_dim(int d, bool bf16) { return d > (bf16 ? BF16_DIM : F32_DIM) && d % tc::WC == 0; }
 
 // the column-sliced K2's shared memory: the ring, then K4's or K5's buffers
 template <typename T>
@@ -2201,8 +2960,11 @@ cudaError_t dispatch_dim(int which, int d, const Args& a, void* o1, void* o2, vo
     case 64: return dispatch<T, 64>(which, a, o1, o2, part);
     case 128: return dispatch<T, 128>(which, a, o1, o2, part);
   }
-  if constexpr (BF16)
+  if constexpr (BF16) {
     if (d == BF16_DIM) return dispatch<T, BF16_DIM>(which, a, o1, o2, part);
+  } else if (d == F32_DIM) {
+    return dispatch<T, F32_DIM>(which, a, o1, o2, part);
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -2219,8 +2981,8 @@ int run(int which, const void* q, const void* k, const void* v, const void* g,
 
 }  // namespace
 
-// q, g (b*heads, n, d); k, v (b*hk, m, d), d in 32, 64, 128, in bf16 256,
-// or over those (float32 128, bf16 256) a multiple of 64, in one dtype
+// q, g (b*heads, n, d); k, v (b*hk, m, d), d in 32, 64, 128, 256, or over
+// 256 a multiple of 64, in one dtype
 // (0 float32, 1 bfloat16); lse, delta (b*heads, n) float32; tab (2n-1, heads) float32 or
 // null; bias float32 or null, at most one of tab and bias: (heads, n, m)
 // shared over the batch, or with bias_batched (b, heads, n, m); kmask (b,
@@ -2280,6 +3042,7 @@ extern "C" int flash_dq_plan(int b, int heads, int hk, int n, int m, int d, int 
     case 256: plan = dq_plan<float, 128>(b, sum != 0); break;
     case 257: plan = dq_plan<__nv_bfloat16, 128>(b, sum != 0); break;
     case 2 * BF16_DIM + 1: plan = dq_plan<__nv_bfloat16, BF16_DIM>(b, sum != 0); break;
+    case 2 * F32_DIM: plan = dq_plan<float, F32_DIM>(b, sum != 0); break;
     default: return cudaErrorInvalidValue;
   }
   out[0] = plan.cluster;
@@ -2313,6 +3076,7 @@ extern "C" int flash_dkv_plan(int b, int heads, int hk, int n, int m, int d, int
     case 256: dkv_shape<float, 128>(plan.two, out + 3); break;
     case 257: dkv_shape<__nv_bfloat16, 128>(plan.two, out + 3); break;
     case 2 * BF16_DIM + 1: dkv_shape<__nv_bfloat16, BF16_DIM>(plan.two, out + 3); break;
+    case 2 * F32_DIM: dkv_shape<float, F32_DIM>(plan.two, out + 3); break;
     default: return cudaErrorInvalidValue;
   }
   out[0] = plan.cluster;

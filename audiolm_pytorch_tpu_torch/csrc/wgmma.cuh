@@ -27,13 +27,19 @@
 // tf32(x) and small = tf32(x - big), by tc::to_tf32's integer rounding,
 // once, into a pair of tiles of one layout (big over x in place, small in a
 // second tile), and a*b is a_big*b_small + a_small*b_big + a_big*b_big.
+// At D = 256 (flash_bwd.cu's chunked K2 and K3) a whole tile's pair does not
+// fit beside the rest: the fixed A operand stays unsplit in shared memory
+// and each k-step's fragment is split in registers by the same rounding,
+// the same bits (gemm_nk_rs_chunk: wgmma takes a tf32 A from registers).
 // Built with -DMMA_TF32_ONE_PASS (tests only) only a_big*b_big is kept.
 // wgmma takes tf32 operands K-major only, so a float32 product whose B
 // operand lies with its N index contiguous (P V, P^T dO, dS^T Q, dS K) runs
 // on mma.sync instead, reading the B fragments from the split tiles
-// (gemm_pk_split): registers for a transposed second copy of those tiles
-// would not fit beside the ring of stages (see flash_fwd.cu and
-// flash_bwd.cu for the budgets).
+// (gemm_pk_split): a transposed second copy of those tiles would not fit
+// beside the ring of stages (see flash_fwd.cu and flash_bwd.cu for the
+// budgets). At D = 256 those operands stream through the ring a chunk at a
+// time, so the producer splits the chunks these products take transposed
+// (split_tile_t) and they run on wgmma too (gemm_pk_rs_chunk).
 //
 // Accumulators of a m64nN product are in mma.sync's C layout per warp: warp
 // w of the warpgroup holds rows 16w + g and 16w + g + 8 (g = lane / 4),
@@ -233,6 +239,20 @@ __device__ __forceinline__ void mma_tf32_ss(float (&d)[32], uint64_t a, uint64_t
       ", %32, %33, p, 1, 1;\n}\n"
       : WG_ACC32_OUT(d)
       : "l"(a), "l"(b), "r"(acc));
+}
+
+// d (64 x 64) = A (64 x 8, registers) B^T (+ d if acc), B K-major tf32 in
+// shared memory. A's fragment is mma.sync m16n8k8's per warp: a[0] row g,
+// column t; a[1] row g + 8; a[2] column t + 4; a[3] both (g = lane / 4, t =
+// lane % 4, rows of warp w from 16w)
+__device__ __forceinline__ void mma_tf32_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                            int acc) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " WG_ACC32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : WG_ACC32_OUT(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
 }
 
 #undef WG_ACC32
@@ -485,6 +505,170 @@ __device__ __forceinline__ void add_pk_split(float (&acc)[D / 2], const float (&
         else a += part[j][e];
       }
   }
+}
+
+// ---- Float32 at D = 256: one 64-column chunk of the depth at a time ----
+// An operand tile with its tf32 small parts is 128 KB at D = 256, so two
+// such tiles do not fit in a block's shared memory. The kernels keep their
+// two fixed operands whole and unsplit (each the A operand of a score
+// product, split k-step by k-step in registers) and stream the other
+// operands through the ring 64 columns at a time, each chunk split in place
+// by the producer into a pair of 16 KB tiles (two 32-column boxes).
+
+constexpr int CHUNK = 64;            // columns of the depth a streamed chunk holds
+constexpr int CHUNK_BYTES = 16384;   // one 64-row float32 chunk: two boxes
+
+// columns c0 .. c0 + 63 of rows r0 .. r0 + 63 of plane p of a float32
+// tensor map into a chunk tile at s, on `bar`: one TMA load a 32-column box
+__device__ __forceinline__ void load_chunk(float* s, const CUtensorMap* map, uint64_t* bar,
+                                           int c0, int r0, int p) {
+  tma_load_3d(s, map, bar, c0, r0, p);
+  tma_load_3d(reinterpret_cast<unsigned char*>(s) + 8192, map, bar, c0 + 32, r0, p);
+}
+
+// acc (64 x 64) (+)= A B^T over columns c0 .. c0 + 63 of the depth: A a
+// float32 tile of 64 rows in shared memory, unsplit (boxes of 32 columns,
+// as load_tile lays them out), each k-step's fragment read into registers
+// and split there by tc::split (the bits split_tile gives a tile); B the
+// chunk's split tiles (bh, bl) in shared memory. 3xTF32 in gemm_nk's order,
+// from zero where `first`. Each k-step is a group of its own, and at most
+// three are in flight (a k-step's fragment is 8 registers, held until its
+// products complete); returns with the last two not waited for.
+__device__ __forceinline__ void gemm_nk_rs_chunk(float (&acc)[32], const float* a, int c0,
+                                                 const float* bh, const float* bl, bool first) {
+  const int l = tc::lane_id(), g = l >> 2, t = l & 3, r = (threadIdx.x & 127) / 32 * 16 + g;
+  const unsigned char* a8 = reinterpret_cast<const unsigned char*>(a);
+  const unsigned char *bh8 = reinterpret_cast<const unsigned char*>(bh),
+                      *bl8 = reinterpret_cast<const unsigned char*>(bl);
+#pragma unroll
+  for (int ks = 0; ks < CHUNK / 8; ++ks) {
+    const int c = c0 + 8 * ks + t;
+    uint32_t hi[4], lo[4];
+    tc::split(*reinterpret_cast<const float*>(a8 + f32_offset(r, c)), hi[0], lo[0]);
+    tc::split(*reinterpret_cast<const float*>(a8 + f32_offset(r + 8, c)), hi[1], lo[1]);
+    tc::split(*reinterpret_cast<const float*>(a8 + f32_offset(r, c + 4)), hi[2], lo[2]);
+    tc::split(*reinterpret_cast<const float*>(a8 + f32_offset(r + 8, c + 4)), hi[3], lo[3]);
+    const int o = (ks >> 2) * 8192;   // the chunk's 32-column box
+    const uint64_t k = 2 * (ks & 3);  // 32 bytes a k-step, in 16-byte units
+    const uint64_t dbh = desc(bh8 + o) + k;
+    const int from = !first || ks > 0;
+    wgmma_fence();  // the fragment's registers were just written
+#ifndef MMA_TF32_ONE_PASS
+    mma_tf32_rs(acc, hi, desc(bl8 + o) + k, from);
+    mma_tf32_rs(acc, lo, dbh, 1);
+    mma_tf32_rs(acc, hi, dbh, 1);
+#else
+    (void)lo;
+    mma_tf32_rs(acc, hi, dbh, from);
+#endif
+    wgmma_commit();
+    wgmma_wait<2>();
+  }
+}
+
+// The split of a streamed chunk, transposed: the chunk at hi (64 rows of 64
+// columns as TMA wrote it) becomes its split hi^T and lo^T (64 rows, the
+// chunk's columns, of 64 positions, the chunk's rows in groups of 8 in the
+// order 0, 2, 4, 6, 1, 3, 5, 7): the K-major B operand of a product whose
+// N index the chunk's columns are (dq += dS K, dV += P^T dO, dK += dS^T Q;
+// gemm_pk_rs_chunk, whose A fragment of k-step j holds k = t and t + 4
+// where the accumulator layout holds columns 8j + 2t and 8j + 2t + 1). 128
+// threads, this one i of them: warp w reads its 16-byte groups 4w .. 4w + 3
+// of rows l and l + 32 (l its lane; conflict-free), every thread's reads
+// done (named barrier `bar` of the 128) before any write; a warp's writes of
+// one value each hit 32 positions of one row (conflict-free).
+__device__ __forceinline__ void split_tile_t(float* hi, float* lo, int i, int bar) {
+  const int w = i >> 5, l = i & 31;
+  unsigned char* h8 = reinterpret_cast<unsigned char*>(hi);
+  unsigned char* l8 = reinterpret_cast<unsigned char*>(lo);
+  float4 v[8];
+#pragma unroll
+  for (int q = 0; q < 8; ++q)
+    v[q] = *reinterpret_cast<const float4*>(h8 + f32_offset(l + 32 * (q & 1), 16 * w + 4 * (q >> 1)));
+  tc::bar_sync(bar, 128);
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const int r = l + 32 * (q & 1), p = (r & ~7) + ((r & 7) >> 1) + 4 * (r & 1);
+    const float x[4] = {v[q].x, v[q].y, v[q].z, v[q].w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int o = f32_offset(16 * w + 4 * (q >> 1) + e, p);
+      uint32_t h, s;
+      tc::split(x[e], h, s);
+      *reinterpret_cast<uint32_t*>(h8 + o) = h;
+      *reinterpret_cast<uint32_t*>(l8 + o) = s;
+    }
+  }
+}
+
+// k-step j's A values of a 64 x 64 accumulator-layout tile P (rows 16w + g
+// and + 8; columns 8j + 2t and + 1) as wgmma's tf32 fragment holds them with
+// k = t <-> column 2t and k = t + 4 <-> column 2t + 1: from registers, or
+// from a hand-off in shared memory (thread i's values 4j .. 4j + 3 at pf[j *
+// 128 + i])
+__device__ __forceinline__ void pk_a(float (&a)[4], const float (&p)[32], int j) {
+  a[0] = p[4 * j];
+  a[1] = p[4 * j + 2];
+  a[2] = p[4 * j + 1];
+  a[3] = p[4 * j + 3];
+}
+__device__ __forceinline__ void pk_a(float (&a)[4], const float4* pf, int j) {
+  const float4 v = pf[j * 128 + (threadIdx.x & 127)];
+  a[0] = v.x;
+  a[1] = v.z;
+  a[2] = v.y;
+  a[3] = v.w;
+}
+
+// part (64 x 64) = P B over k = 64, P a 64 x 64 accumulator-layout tile
+// (pk_a's two sources), B a chunk split and transposed by split_tile_t (bh,
+// bl) in shared memory: wgmma with A from registers, each k-step's fragment
+// split by tc::split; 3xTF32 in gemm_nk's order, from zero. Each k-step is a
+// group of its own, at most three in flight; returns with the last two not
+// waited for.
+template <class P>
+__device__ __forceinline__ void gemm_pk_rs_chunk(float (&part)[32], const P& p, const float* bh,
+                                                 const float* bl) {
+  const unsigned char *bh8 = reinterpret_cast<const unsigned char*>(bh),
+                      *bl8 = reinterpret_cast<const unsigned char*>(bl);
+#pragma unroll
+  for (int j = 0; j < CHUNK / 8; ++j) {
+    float a[4];
+    pk_a(a, p, j);
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) tc::split(a[e], hi[e], lo[e]);
+    const int o = (j >> 2) * 8192;   // the chunk's 32-position box
+    const uint64_t k = 2 * (j & 3);  // 32 bytes a k-step, in 16-byte units
+    const uint64_t dbh = desc(bh8 + o) + k;
+    wgmma_fence();  // the fragment's registers were just written
+#ifndef MMA_TF32_ONE_PASS
+    mma_tf32_rs(part, hi, desc(bl8 + o) + k, j > 0);
+    mma_tf32_rs(part, lo, dbh, 1);
+    mma_tf32_rs(part, hi, dbh, 1);
+#else
+    (void)lo;
+    mma_tf32_rs(part, hi, dbh, j > 0);
+#endif
+    wgmma_commit();
+    wgmma_wait<2>();
+  }
+}
+
+// acc (a 64 x D accumulator, this warpgroup's) columns c0 .. c0 + 63 += P
+// B (gemm_pk_rs_chunk), the chunk's product from zero, added in float32
+// (tc::add_tile's reason). c0 must be known once the caller's loop is
+// unrolled, so that acc stays in registers.
+template <int D, class P>
+__device__ __forceinline__ void add_pk_chunk(float (&acc)[D / 2], const P& p, const float* bh,
+                                             const float* bl, int c0) {
+  float part[32];
+  fence_acc(part);
+  gemm_pk_rs_chunk(part, p, bh, bl);
+  wgmma_wait<0>();
+  fence_acc(part);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[c0 / 2 + i] += part[i];
 }
 
 }  // namespace wg

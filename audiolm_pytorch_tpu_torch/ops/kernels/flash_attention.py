@@ -25,13 +25,16 @@ Head dims. The kernels take every D. They are built for D = 32, 64 and 128
 (`HEAD_DIMS`), and over 128 they run a column-sliced form of their own for
 any multiple of 64 (`WIDE_CHUNK`): a block owns one 64-wide slice of the
 output's columns and recomputes S (and dP) over the whole depth, 64 columns
-at a time, so no tile grows with D. In bf16 they have one more native head
-dim, 256 (`BF16_DIM`): K1, K2 and K3 run their Hopper forms there, S (and
-dP) formed once a tile, and only bf16 over 256 and float32 over 128 take
-the column-sliced forms. On a CUDA tensor any other D goes through the next
-of those head dims (`flash_head_dim`, the one rule of K1, K2 and K3): q, k
-and v are zero-padded along D, the scale stays D ** -0.5 of the true D, and
-the output and the gradients are sliced back. That is exact (a zero column
+at a time, so no tile grows with D. They have one more native head dim,
+256, where S (and dP) are formed once a tile: in bf16 (`BF16_DIM`) K1, K2
+and K3 run their Hopper forms there; in float32 (`F32_DIM`) K2 and K3 run
+their chunked Hopper forms (the streamed operands 64 columns at a time),
+while float32's K1 keeps the column-sliced form over 128. So the backward's
+head dim differs from the forward's in float32. On a CUDA tensor any other
+D goes through the next head dim its kernel has (`flash_head_dim`, the one
+rule of K1, K2 and K3, the kernel an argument): q, k and v (and in the
+backward out and dO) are zero-padded along D, the scale stays D ** -0.5 of
+the true D, and the output and the gradients are sliced back. That is exact (a zero column
 adds nothing to q.k and gives a zero output column) and it is the kernel
 that runs, counted as its launch.
 """
@@ -50,13 +53,15 @@ __all__ = ["flash_attention", "flash_attention_ref", "flash_attention_bwd",
            "SOURCE_BWD", "HEAD_DIMS", "launches", "launches_dq", "launches_dkv",
            "launches_dtab", "launches_dbias", "launches_dbias_per_batch", "PLAN_SMS", "fwd_plan", "dq_plan", "dkv_plan",
            "dkv_items", "fwd_plan_built", "dq_plan_built", "dkv_plan_built", "native_head_dim",
-           "flash_head_dim", "SMEM_LIMIT", "WIDE_CHUNK", "BF16_DIM"]
+           "flash_head_dim", "SMEM_LIMIT", "WIDE_CHUNK", "BF16_DIM", "F32_DIM"]
 
 SOURCE = "flash_fwd.cu"
 SOURCE_BWD = "flash_bwd.cu"
 HEAD_DIMS = (32, 64, 128)  # the head dims of the kernels' native forms; others up to 128 padded
 WIDE_CHUNK = 64  # over 128: the column-sliced forms' chunk and slice (D a multiple of it)
 BF16_DIM = 256  # bf16's K1, K2 and K3 run their Hopper forms at this head dim too
+F32_DIM = 256  # float32's K2 and K3 run their chunked Hopper forms at this head dim too
+_KERNELS = ("K1", "K2", "K3")
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -86,6 +91,9 @@ _MISC_DKV = (64 + 64 + 128) * 4  # a stage's lse, Delta and table slice (K3)
 _K4_BYTES = (64 * 80 + 2 * 4 * 128) * 4  # K2's skewed dS rows and delta slots
 _K5_BYTES = 2 * 64 * 64 * 4  # K2's two dS buffers of K5's batch sum
 _PAIR_BYTES = 64 * 64 * 4 + 64 * 64 * 2  # bf16 K3 at 256: P^T (float32) and dS^T (bf16) handed over
+_CHUNK_STAGE = 2 * 64 * 64 * 4  # float32 at 256: a streamed 64-column chunk and its small parts
+_CHUNK_FIXED = 2 * 64 * F32_DIM * 4  # float32 at 256: K2's Q and dO (K3's K and V), unsplit
+_CHUNK_ITEMS = F32_DIM // 64  # float32 at 256: a 64-row operand's chunks (ring items)
 
 
 def _tiles(x):
@@ -105,21 +113,33 @@ def native_head_dim(d):
     return -(-d // WIDE_CHUNK) * WIDE_CHUNK
 
 
-def flash_head_dim(d, dtype):
-    """The head dim of the flash kernels (K1, K2, K3) that run a D-wide
-    head: `native_head_dim`'s, but in bf16 every D from 129 to 256 goes to
-    256, where the three have a Hopper form (float32 over 128, and bf16 over
-    256, keep the column-sliced forms). q, k, v (and in the backward out and
-    dO) are zero-padded to it."""
-    if dtype == torch.bfloat16 and HEAD_DIMS[-1] < d <= BF16_DIM:
-        return BF16_DIM
+def _hopper_256(dtype, kernel):
+    """Whether `kernel` has a Hopper form at D = 256 in this dtype: all
+    three in bf16, K2 and K3 in float32."""
+    if kernel not in _KERNELS:
+        raise ValueError(f"kernel {kernel!r}: one of {_KERNELS}")
+    return dtype == torch.bfloat16 or kernel != "K1"
+
+
+def flash_head_dim(d, dtype, kernel="K1"):
+    """The head dim at which the flash kernel `kernel` ("K1" the forward,
+    "K2" dq, "K3" dk and dv) runs a D-wide head: `native_head_dim`'s, but
+    every D from 129 to 256 goes to 256 where the kernel has a Hopper form
+    there (K1, K2 and K3 in bf16; K2 and K3 in float32, whose K1 keeps the
+    column-sliced form over 128). Over 256 every kernel keeps the
+    column-sliced form. q, k, v (and in the backward out and dO) are
+    zero-padded to it."""
+    top = BF16_DIM if dtype == torch.bfloat16 else F32_DIM
+    if _hopper_256(dtype, kernel) and HEAD_DIMS[-1] < d <= top:
+        return top
     return native_head_dim(d)
 
 
-def _slices(d, dtype):
-    """The output slices a block of the flash kernels owns one of: D / 64 in
-    the column-sliced forms (float32 over 128, bf16 over 256), else one."""
-    wide = d > (BF16_DIM if dtype == torch.bfloat16 else HEAD_DIMS[-1])
+def _slices(d, dtype, kernel="K1"):
+    """The output slices a block of `kernel` owns one of: D / 64 in the
+    column-sliced forms (over 256; float32's K1 over 128), else one."""
+    top = BF16_DIM if dtype == torch.bfloat16 else F32_DIM
+    wide = d > (top if _hopper_256(dtype, kernel) else HEAD_DIMS[-1])
     return native_head_dim(d) // WIDE_CHUNK if wide else 1
 
 
@@ -198,18 +218,24 @@ def dq_plan(b, h, hk, n, m, causal, dtype=torch.float32, dbias=False, d=64):
     of one; the block's shared memory (with K5's buffers, else K4's) and the
     blocks an SM it is built for; and for each query tile (by its index) the
     key tiles, in order. In bf16 at D = 256 (129 to 256 padded to it) the
-    same block with two stages, one an SM. Over D = 128 in float32, and over
-    256 in bf16, the column-sliced form: `slices` blocks (one a 64-wide
-    slice of dq; slice 0's write the bias's gradient) for each of the
-    grid's, two stages, `items` 2 D / 64 + 1 a key tile (the chunks of S's
-    and dP's operands, then K's slice), K5's cluster as above."""
+    same block with two stages, one an SM. In float32 at D = 256 (129 to 256
+    padded to it) the chunked form: Q and dO resident unsplit, K and V
+    streamed 64 columns at a time through two stages, `items` 12 a key tile
+    (K's four chunks for S, V's four for dP, K's four again, transposed, for
+    dq), one block an SM. Over 256 the column-sliced form: `slices` blocks (one a
+    64-wide slice of dq; slice 0's write the bias's gradient) for each of
+    the grid's, two stages, `items` 2 D / 64 + 1 a key tile (the chunks of
+    S's and dP's operands, then K's slice), K5's cluster as above."""
     f32 = dtype == torch.float32
-    slices = _slices(d, dtype)
+    slices = _slices(d, dtype, "K2")
     grad = _K5_BYTES if dbias else _K4_BYTES  # the bias gradient's buffers
     if slices > 1:  # the column-sliced form
         stages, items, smem, blocks = 2, 2 * slices + 1, _wide_smem(dtype) + grad, 2
+    elif f32 and flash_head_dim(d, dtype, "K2") == F32_DIM:  # the chunked form
+        stages, items, blocks = 2, 3 * _CHUNK_ITEMS, 1
+        smem = _CHUNK_FIXED + stages * _CHUNK_STAGE + 2 * _MISC_FWD + 256 + grad
     else:
-        d = flash_head_dim(d, dtype)
+        d = flash_head_dim(d, dtype, "K2")
         seq = f32 and d > 64
         stages = 1 if seq else 2 if f32 or d > HEAD_DIMS[-1] else 3
         items = 2 if seq else 1
@@ -240,33 +266,47 @@ def dkv_plan(b, h, hk, n, m, dtype=torch.float32, d=64):
     and the grid (cluster, b*hk, key tiles * chunks). In bf16 at D = 256
     (129 to 256 padded to it) the pair form (`pair`): two consumers that
     both take every item, one holding dk and the other dv, two stages, one
-    block an SM. Over D = 128 in float32, and over 256 in bf16, the
-    column-sliced form: `slices` blocks (one a 64-wide slice of dk and dv)
-    for each of the grid's, no cluster and no chunks (a block walks every
-    query head of its kv head), one consumer, two stages, `items` 2 D / 64 +
-    1 a (head, query tile)."""
+    block an SM. In float32 at D = 256 (129 to 256 padded to it) the chunked
+    pair form: its two consumers one a gradient as in bf16's, K and V
+    resident unsplit, Q and dO streamed 64 columns at a time through two
+    stages, `items` 16 an item (Q's and dO's four chunks in turns, the dk
+    consumer taking Q's for S^T and the dv consumer dO's for dP^T, then both
+    four again, transposed, for dK and dV), P^T and dS^T handed over as
+    float32, one block an SM; under two blocks an SM its grid is split into
+    query chunks of at least 2 query tiles.
+    Over 256 the column-sliced form: `slices` blocks (one a 64-wide slice of
+    dk and dv) for each of the grid's, no cluster and no chunks (a block
+    walks every query head of its kv head), one consumer, two stages,
+    `items` 2 D / 64 + 1 a (head, query tile)."""
     f32 = dtype == torch.float32
-    slices = _slices(d, dtype)
+    slices = _slices(d, dtype, "K3")
     if slices > 1:
         return {"cluster": 1, "qsplit": 1, "consumers": 1, "pair": False, "stages": 2,
                 "items": 2 * slices + 1, "smem": _wide_smem(dtype), "blocks": 2,
                 "grid": (1, b * hk, _tiles(m)), "slices": slices}
-    d = flash_head_dim(d, dtype)
-    pair = not f32 and d == BF16_DIM
-    seq = f32 and d > 64
+    d = flash_head_dim(d, dtype, "K3")
+    chunked = f32 and d == F32_DIM
+    pair = chunked or (not f32 and d == BF16_DIM)
+    seq = f32 and d > 64 and not chunked
     group = h // hk
     cluster = max(c for c in range(1, _MAX_DKV_CLUSTER + 1) if group % c == 0)
     base = cluster * b * hk * _tiles(m)
     qsplit = 1 if base >= PLAN_SMS else max(1, min(PLAN_SMS // base, _tiles(n) // 4))
-    two = (not f32) if d > 64 else f32 or base * qsplit < 2 * PLAN_SMS
+    if chunked and base < 2 * PLAN_SMS:  # few, long blocks: split under two an SM
+        qsplit = max(qsplit, min(-(-2 * PLAN_SMS // base), _tiles(n) // 2))
+    two = (not f32 or chunked) if d > 64 else f32 or base * qsplit < 2 * PLAN_SMS
     stages = 1 if seq else 2 if f32 or pair else 4
-    oper = _operand_bytes(d, dtype)
-    smem = 2 * oper + stages * ((oper if seq else 2 * oper) + _MISC_DKV) + (64 + 4) * 4 \
-        + (_PAIR_BYTES if pair else 0) + 128
+    if chunked:  # K, V unsplit; the ring; two items' misc; flags; P^T, dS^T float32; barriers
+        smem = _CHUNK_FIXED + stages * _CHUNK_STAGE + 2 * _MISC_DKV \
+            + (64 + 4) * 4 + 2 * 64 * 64 * 4 + 128
+    else:
+        oper = _operand_bytes(d, dtype)
+        smem = 2 * oper + stages * ((oper if seq else 2 * oper) + _MISC_DKV) + (64 + 4) * 4 \
+            + (_PAIR_BYTES if pair else 0) + 128
     return {"cluster": cluster, "qsplit": qsplit, "consumers": 2 if two else 1, "pair": pair,
-            "stages": stages, "items": 3 if seq else 1, "smem": smem,
-            "blocks": 1 if two or seq else 2, "grid": (cluster, b * hk, _tiles(m) * qsplit),
-            "slices": 1}
+            "stages": stages, "items": 4 * _CHUNK_ITEMS if chunked else 3 if seq else 1,
+            "smem": smem, "blocks": 1 if two or seq else 2,
+            "grid": (cluster, b * hk, _tiles(m) * qsplit), "slices": 1}
 
 
 def dkv_items(plan, h, hk, n, m, causal, kv_head, key_tile, rank, chunk):
@@ -540,7 +580,7 @@ def _bwd_launch(name, outs, q, k, v, g, lse, delta, tab, kmask, *, causal, scale
 
 def bwd_dq(q, k, v, g, lse, delta, tab, kmask, *, causal: bool, scale: float, bias=None):
     """K2 on prepared arguments (contiguous, D the backward's own:
-    `flash_head_dim(D, dtype) == D`; tab and bias
+    `flash_head_dim(D, dtype, "K2") == D`; tab and bias
     float32 and kmask int8 or None; lse and delta (B, H, N) float32): dq in
     q's dtype, and in the same launch the float32 gradient of the bias given, summed over the
     batch: with a table K4, the (2N-1, H) gradient, its partial sums in K2's
@@ -626,8 +666,10 @@ def flash_attention_bwd(q, k, v, bias_tab, key_mask, out, lse, g, *, causal: boo
                                        causal=causal, scale=scale, bias=bias)
     _check_cuda(q)
     d = q.shape[-1]
-    # padded: out's and dO's extra columns are zeros, so Delta is unchanged
-    q, k, v, g, out = _padded(q, k, v, g.to(q.dtype), out, d=flash_head_dim(d, q.dtype))
+    # padded to the backward's head dim (float32's 129-255 to 256, where K1
+    # keeps the column-sliced form): out's and dO's extra columns are zeros,
+    # so Delta is unchanged
+    q, k, v, g, out = _padded(q, k, v, g.to(q.dtype), out, d=flash_head_dim(d, q.dtype, "K2"))
     _check_layout(q, k, v)
     g = g.contiguous()
     if g.data_ptr() % 16:  # a view into a larger buffer: K3 copies its rows 16 bytes at a time

@@ -583,15 +583,19 @@ def kernel_label(mangled):
     sum>; `flash_bwd_dkv_pair_kernel` K3's form for bf16 at D = 256, one
     consumer a gradient: flash_bwd_dkv_kernel<bf16, d256, pair>; K1's block
     at D = 256 (bf16), two consumers on the halves of a 128-row block:
-    flash_fwd_kernel<bf16, d256, rows>."""
+    flash_fwd_kernel<bf16, d256, rows>. A `_chunk_kernel` is float32's
+    chunked form at D = 256: K2's flash_bwd_dq_kernel<fp32, d256[, sum |,
+    per-batch]>, K3's pair form flash_bwd_dkv_kernel<fp32, d256, pair>."""
     entry = re.search(r"\d([a-z][a-z_]*_kernel)(I?)", mangled)
     if not entry.group(2):
         return entry.group(1)
     name = entry.group(1)
     dtype = "bf16" if "bfloat16" in mangled else "fp32"
     ints = re.findall(r"Li(\d+)E", mangled)
-    if name.endswith("_pair_kernel"):
-        return f"{name.replace('_pair_kernel', '_kernel')}<{dtype}, d{ints[0]}, pair>"
+    if name.endswith("_pair_kernel") or name == "flash_bwd_dkv_chunk_kernel":
+        return f"flash_bwd_dkv_kernel<{dtype}, d{ints[0]}, pair>"
+    if name.endswith("_chunk_kernel"):  # K2's chunked form: its ints the head dim and its form
+        name = name.replace("_chunk_kernel", "_kernel")
     if name.endswith("_wide_kernel"):  # the column-sliced form: its int argument K2's form
         name = name.replace("_wide_kernel", "_kernel")
         flag = {"1": "sum", "2": "per-batch"}.get(ints[0]) if ints else None
@@ -1014,10 +1018,26 @@ def check_plans():
             if got != tuple(want[x] for x in ("consumers", "stages", "smem", "blocks")):
                 raise AssertionError(f"K1's plan at {at} for d192: the library's {got}, the "
                                      f"wrapper's {want}")
+        if dtype == torch.float32 and d == fa.F32_DIM:
+            # float32's 192 runs K2's and K3's chunked D = 256 blocks, padded by the wrapper
+            for dbias in (False, True):
+                want = fa.dq_plan(b, h, hk, n, m, True, dtype, dbias=dbias, d=192)
+                got = fa.dq_plan_built(b, h, hk, n, m, dtype, dbias=dbias,
+                                       d=fa.flash_head_dim(192, dtype, "K2"))
+                if got != tuple(want[x] for x in ("cluster", "stages", "smem", "blocks")):
+                    raise AssertionError(f"K2's plan at {at} for d192 dbias {dbias}: the "
+                                         f"library's {got}, the wrapper's {want}")
+            want = fa.dkv_plan(b, h, hk, n, m, dtype, 192)
+            got = fa.dkv_plan_built(b, h, hk, n, m, dtype, fa.flash_head_dim(192, dtype, "K3"))
+            if got != tuple(want[x] for x in ("cluster", "qsplit", "consumers", "stages", "smem",
+                                              "blocks")):
+                raise AssertionError(f"K3's plan at {at} for d192: the library's {got}, the "
+                                     f"wrapper's {want}")
     print(f"plans: K1's, K2's and K3's launch plans as built (consumers, cluster, chunks, "
           f"stages, shared memory, blocks an SM) equal fwd_plan's, dq_plan's and dkv_plan's at "
-          f"{len(K3_PLAN_SHAPES)} shapes and head dims {PLAN_HEAD_DIMS} (K1's bf16 192 as "
-          f"the 256 it is padded to), K6's vq_plan's at {len(VQ_PLAN_SHAPES)}")
+          f"{len(K3_PLAN_SHAPES)} shapes and head dims {PLAN_HEAD_DIMS} (K1's bf16 192, "
+          f"K2's and K3's float32 192 as the 256 they are padded to), K6's vq_plan's at "
+          f"{len(VQ_PLAN_SHAPES)}")
 
 
 @phase("kernels")
@@ -1087,7 +1107,8 @@ def sass_phase():
     and FFMA. The column-sliced form of head dims over 128 (K1, K2 in its
     three forms, K3 and K7; `wide` in the labels) must issue HMMA in both
     dtypes; bf16's K1 (the rows form), K2 (three forms) and K3 (the pair
-    form) at D = 256, HGMMA and UTMALDG. K7 must issue HMMA in both dtypes at head dims 32,
+    form) at D = 256, and float32's chunked K2 (three forms) and K3 (its
+    pair form) there, HGMMA and UTMALDG. K7 must issue HMMA in both dtypes at head dims 32,
     64 and 128; K1, K2 and K3, the Hopper design, HGMMA and UTMALDG in both dtypes,
     every head dim and every block shape (K1's and K3's one consumer
     warpgroup or two, K3's float32 only two, at 128 one shape a dtype; K2
@@ -1104,10 +1125,12 @@ def sass_phase():
                           + ["bf16, d128, two", "fp32, d128", f"bf16, d{fa.BF16_DIM}, rows"]),
             "dq": sorted([f"{t}, d{d}{x}" for d in fa.HEAD_DIMS for t in ("bf16", "fp32")
                           for x in ("", ", sum", ", per-batch")]
-                         + [f"bf16, d{fa.BF16_DIM}{x}" for x in ("", ", sum", ", per-batch")]),
+                         + [f"{t}, d256{x}" for t in ("bf16", "fp32")
+                            for x in ("", ", sum", ", per-batch")]),
             "dkv": sorted([f"{t}, d{d}" for d in (32, 64) for t in ("bf16",)]
                           + [f"{t}, d{d}, two" for d in (32, 64) for t in ("bf16", "fp32")]
-                          + ["bf16, d128, two", "fp32, d128", f"bf16, d{fa.BF16_DIM}, pair"]),
+                          + ["bf16, d128, two", "fp32, d128", f"bf16, d{fa.BF16_DIM}, pair",
+                             f"fp32, d{fa.F32_DIM}, pair"]),
             "vq": ["fp32"], "local": sorted(f"{t}, d{d}{x}" for d in fa.HEAD_DIMS
                                            for t in ("bf16", "fp32") for x in ("", ", aligned"))}
     # the column-sliced form of head dims over 128, on mma.sync (HMMA)
@@ -1184,15 +1207,19 @@ def rel_err(a, ref):
 
 def f64_errors(q, k, v, tab, bias, mask, g, ref, scale, causal=True):
     """K1's out, and K2's dq (with a bias its dbias) and K3's dk and dv fed
-    the float64 lse and Delta, against the float64 reference: max |kernel -
-    ref| / max |ref| of each (the table's gradient is held to the plain
-    version in the kernels phase)."""
+    the float64 lse and Delta (their arguments padded to the backward's head
+    dim as the wrapper pads them), against the float64 reference: max
+    |kernel - ref| / max |ref| of each (the table's gradient is held to the
+    plain version in the kernels phase)."""
     out64, lse64, delta64, dq64, dk64, dv64, dgrad64 = ref
     out = fa.flash_attention(q, k, v, bias_tab=tab, bias=bias, key_mask=mask, causal=causal)
     kmask = mask.to(torch.int8).contiguous() if mask is not None else None
-    bargs = (q, k, v, g, lse64.float(), delta64.float(), tab, kmask)
+    d = q.shape[-1]
+    padded = fa._padded(q, k, v, g, d=fa.flash_head_dim(d, q.dtype, "K2"))
+    bargs = (*padded, lse64.float(), delta64.float(), tab, kmask)
     dq, dgrad = fa.bwd_dq(*bargs, causal=causal, scale=scale, bias=bias)
     dk, dv = fa.bwd_dkv(*bargs, causal=causal, scale=scale, bias=bias)
+    dq, dk, dv = dq[..., :d], dk[..., :d], dv[..., :d]
     errs = {"out": rel_err(out, out64), "dq": rel_err(dq, dq64), "dk": rel_err(dk, dk64),
             "dv": rel_err(dv, dv64)}
     if bias is not None:
@@ -1527,17 +1554,22 @@ def flagship(seed, **kw):
     return model
 
 
-def profile(label, fn, top=8):
+def profile(label, fn, top=8, windows=1):
     """Device time of one call of fn by kernel, from torch.profiler, and the
     share of the call's wall time the device was busy: (busy ms, wall ms,
-    [(ms, launches, kernel name)])."""
+    [(ms, launches, kernel name)]). With windows > 1, fn is called again, in
+    a window of its own, while the profiler has seen no device kernel (a
+    whole window has been seen to record none); no rows where none did."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(e.self_device_time_total / 1e3, e.count, e.key) for e in kernel_events(prof)]
+    for _ in range(windows):
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = [(e.self_device_time_total / 1e3, e.count, e.key) for e in kernel_events(prof)]
+        if rows:
+            break
     busy = sum(r[0] for r in rows)
     print(f"{label} profile: device busy {busy:.2f} ms of {wall_ms:.2f} ms "
           f"wall under the profiler ({100 * (1 - busy / wall_ms):.1f}% idle)")
@@ -1668,10 +1700,19 @@ def training_phase(seed, cpu_model):
     # card vs CPU gradients at 1 x 256, same weights, same forgetful mask
     check_card_grads("training 1x256", SemanticTransformerWrapper, model, (ids[:1, :256],), seed,
                      ("bwd_dq", 0, "dq"), FLAGSHIP["depth"])
-    profile("training (one 4x2048 step)", lambda: trainer.step(ids), top=12)
+    fp32 = fp32_profile("training (one 4x2048 step)", lambda: trainer.step(ids))
     launched16, bf16 = bf16_training("training", SemanticTransformerWrapper, cpu_model, (ids,),
                                      seed, step_ms, depth, table=True)
-    return launched, launched16, bf16
+    return launched, launched16, dict(bf16, **fp32)
+
+
+def fp32_profile(label, step):
+    """One profiled float32 step: its device busy time, idle share and flash
+    kernels, under the keys fp32_* (they ride with the bf16 step's numbers)."""
+    busy, wall, rows = profile(label, step, top=12, windows=3)
+    return dict(fp32_busy_ms=busy, fp32_profiled_ms=wall,
+                fp32_idle=1 - busy / wall if rows else None,
+                fp32_flash_kernels=flash_kernels(rows))
 
 
 def bf16_training(label, wrapper, cpu_model, batch, seed, fp32_ms, depth, table):
@@ -2063,14 +2104,14 @@ def acoustic_training(kind, seed, cpu_model):
     small = acoustic_batch(kind, np.random.default_rng(seed + 10), 1, 1)
     check_card_grads(f"{kind} training 1x1s", wrapper, model, small, seed, ("bwd_dq", 1, "dbias"),
                      depth)
-    profile(f"{kind} training (one {CLIP_B}x{CLIP_S}s step)", lambda: trainer.step(*batch),
-            top=12)
+    fp32 = fp32_profile(f"{kind} training (one {CLIP_B}x{CLIP_S}s step)",
+                        lambda: trainer.step(*batch))
     if kind != "coarse":
         return launched, None
     # the Coarse step in bf16: K1's bias form and K5 in bf16
     launched16, bf16 = bf16_training(f"{kind} training", wrapper, cpu_model, batch, seed,
                                      step_ms, depth, table=False)
-    return launched, (launched16, bf16)
+    return launched, (launched16, dict(bf16, **fp32))
 
 
 # the codec at bench.py's width (bench.py:134, `bench_codec`): AudioLMSoundStream(
@@ -2167,7 +2208,15 @@ def check_vq(x, cb, label, want_first=None):
     e2 = cb.square().sum(-1)
     ms = cuda_ms(lambda: vq.vq_nearest_code(x, cb), iters=20)
     dev_ms, dev_launches, dev_names = profiled(lambda: vq.vq_nearest_code(x, cb))
-    if dev_launches != 1 or not all("vq_nearest_kernel" in k for k in dev_names):
+    if dev_ms is None:
+        # the profiler saw no device event: the wrapper's count of the
+        # launches it made says one a call, the device time is not measured
+        before = vq.launches
+        for _ in range(20):
+            vq.vq_nearest_code(x, cb)
+        if vq.launches - before != 20:
+            raise AssertionError(f"K6 [{label}]: {vq.launches - before} launches in 20 calls")
+    elif dev_launches != 1 or not all("vq_nearest_kernel" in k for k in dev_names):
         raise AssertionError(f"K6 [{label}]: not one device launch a call: {dev_names}")
     plain_ms = cuda_ms(lambda: vq.vq_nearest_code_ref(x, cb), iters=20)
 
@@ -2190,7 +2239,7 @@ def check_vq(x, cb, label, want_first=None):
     bound_ms, bound_by = max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
     bound_fma_ms = max(2 * n * c * d / PEAK_FLOPS[torch.float32] * 1e3, t_bytes)
     print(f"vq [{label}]: {differ} near-tie rows differ (score gap {gap:.3e}) | kernel "
-          f"{ms:.4f} ms, on the device {dev_ms:.4f} ms in {dev_launches:g} launch per call | "
+          f"{ms:.4f} ms, on the device {fmt_ms(dev_ms)} in 1 launch per call | "
           f"plain {plain_ms:.4f} ms | addmm+argmin {library_ms:.4f} ms (device "
           f"{fmt_ms(library_dev_ms)}), |e|^2 given {library_e2_given_ms:.4f} ms (device "
           f"{fmt_ms(library_e2_given_dev_ms)}) | bound {bound_ms:.4f} ms ({bound_by}; at the FMA "
@@ -2292,13 +2341,13 @@ def local_bias_elements(h, t, w, mask):
 
 def profiled(fn):
     """(device ms, device launches, {kernel name: launches}) per call of fn
-    from torch.profiler, up to three windows: the profiler has been seen to
+    from torch.profiler, up to five windows: the profiler has been seen to
     record no device event in a whole window (a K7 call read 0.0 ms in 0
-    launches) and to miss one of 20 launches (K6 read 0.95 a call). A second
-    kernel would show in every window, so the first window with one launch
-    a call or more is kept. None where no window saw a launch: not
-    measured."""
-    for _ in range(3):
+    launches; a K6 call in three windows running) and to miss one of 20
+    launches (K6 read 0.95 a call). A second kernel would show in every
+    window, so the first window with one launch a call or more is kept.
+    None where no window saw a launch: not measured."""
+    for _ in range(5):
         dev_ms, dev_launches, names = device_per_call(fn)
         if dev_launches >= 1:
             return dev_ms, dev_launches, names
@@ -6262,16 +6311,17 @@ WIDE_KERNEL_OF = {"fwd": "K1", "dq": "K2", "dkv": "K3", "dtab": "K2+K4", "dbias"
 
 
 def check_wide_form(rng, b, h, n, d, form, seed):
-    """One small shape at head dim d in the column-sliced form (`form`: the
-    table, an (H, N, N) bias or a per-batch (B, H, N, N) one; causal, 15% of
-    the keys forgotten), fp32 and bf16: K1, K2 (with K4, K5 or dS) and K3
-    through the autograd.Function, each launched once, against the plain
-    versions; K1's out and lse, K2's dq with its bias gradient and K3's dk,
-    dv the same bits over three runs (bf16's arguments up to 256 padded to
-    256 as the wrapper pads them: K1's rows form, K2's and K3's Hopper
-    forms); float32 within F64_TOL of float64 (out, dq, dk, dv and
-    dbias), the 1xTF32 build rejected. Returns {"fp32": errs, "bf16": errs,
-    "f64": {...}}."""
+    """One small shape at head dim d over 128 (`form`: the table, an (H, N,
+    N) bias or a per-batch (B, H, N, N) one; causal, 15% of the keys
+    forgotten), fp32 and bf16: K1, K2 (with K4, K5 or dS) and K3 through the
+    autograd.Function, each launched once, against the plain versions; K1's
+    out and lse, K2's dq with its bias gradient and K3's dk, dv the same
+    bits over three runs, each kernel's arguments padded as the wrapper pads
+    them (`fa.flash_head_dim` of that kernel: up to 256 bf16's K1 rows form
+    and K2's and K3's Hopper forms, float32's chunked K2 and K3 at 256 and
+    its column-sliced K1 at D); float32 within F64_TOL of float64 (out, dq,
+    dk, dv and dbias), the 1xTF32 build rejected. Returns {"fp32": errs,
+    "bf16": errs, "f64": {...}}."""
     scale = d ** -0.5
     kw = dict(causal=True, scale=scale)
     names = ("launches", "launches_dq", "launches_dkv", "launches_dtab", "launches_dbias",
@@ -6295,7 +6345,7 @@ def check_wide_form(rng, b, h, n, d, form, seed):
         grads = torch.autograd.grad(out, leaves, g)
         torch.cuda.synchronize()
         if [getattr(fa, x) - c for x, c in zip(names, before)] != want:
-            raise AssertionError(f"column-sliced [{label}]: launches "
+            raise AssertionError(f"head dim over 128 [{label}]: launches "
                                  f"{[getattr(fa, x) - c for x, c in zip(names, before)]} != "
                                  f"{want}")
         out, lse = out.detach(), lse.detach()
@@ -6309,21 +6359,23 @@ def check_wide_form(rng, b, h, n, d, form, seed):
             ok = ok and a.shape == r.shape and torch.allclose(a.float(), r.float(),
                                                               **GRAD_TOL[dtype])
         if not ok:
-            raise AssertionError(f"column-sliced vs plain [{label}]: {errs}")
-        # prepared as the wrapper prepares them: bf16's head dims up to 256
-        # padded to 256, where K1, K2 and K3 run their Hopper forms
-        padded = fa._padded(q, k, v, g, d=fa.flash_head_dim(d, dtype))
+            raise AssertionError(f"head dim over 128 vs plain [{label}]: {errs}")
+        # prepared as the wrapper prepares them: head dims up to 256 padded to
+        # 256 where the kernel runs its Hopper form there (bf16's K1, K2 and
+        # K3; float32's K2 and K3)
+        padded = fa._padded(q, k, v, g, d=fa.flash_head_dim(d, dtype, "K2"))
+        fwd_padded = fa._padded(q, k, v, d=fa.flash_head_dim(d, dtype, "K1"))
         kmask = mask.to(torch.int8).contiguous()
         bargs = (*padded, lse, (g.float() * out.float()).sum(-1), tab, kmask)
-        for what, fn, fargs in (("K1 out and lse", fa.fwd, (*padded[:3], tab, kmask)),
+        for what, fn, fargs in (("K1 out and lse", fa.fwd, (*fwd_padded, tab, kmask)),
                                 ("K2 dq and its bias gradient", fa.bwd_dq, bargs),
                                 ("K3 dk, dv", fa.bwd_dkv, bargs)):
             first = fn(*fargs, bias=bias, **kw)
             for _ in range(2):
                 if not all(torch.equal(x, y) for x, y in zip(fn(*fargs, bias=bias, **kw), first)
                            if x is not None):
-                    raise AssertionError(f"column-sliced [{label}]: {what} differ between runs")
-        print(f"column-sliced [{label}]: vs plain max abs err "
+                    raise AssertionError(f"head dim over 128 [{label}]: {what} differ between runs")
+        print(f"head dim over 128 [{label}]: vs plain max abs err "
               + " ".join(f"{x} {e:.3e}" for x, e in errs.items())
               + " | K1, K2 (with its bias gradient) and K3 bitwise equal over 3 runs")
         result[tn] = errs
@@ -6359,15 +6411,16 @@ def wide_kernels_phase(seed, device_rows):
     three runs. Then at head dims 192, 320 and 512 one small shape each of
     the table, the (H, N, N) bias (a cluster of 3 batch rows) and the
     per-batch bias (check_wide_form), and K7 at window 32 with a key mask,
-    a bias and rows without a key (float32 within F64_TOL of float64). In
-    bf16 up to D = 256 K1, K2 and K3 run their Hopper forms (192 padded to
-    256): their device times at the flagship's and the Coarse LM's shapes
-    (and at 4 x 4 x 2049 x 192) beside the parent's (column-sliced where
-    the flash device times phase ran with --parent), SDPA's forward (K1)
-    and its backward (K2, K3). Returns {"rows": {kernel: {label: row}},
-    "f64": {...}, "small": {...}, "bf16_d256": {shape: {kernel: {device_ms,
+    a bias and rows without a key (float32 within F64_TOL of float64). Up to
+    D = 256 bf16's K1, K2 and K3 and float32's K2 and K3 run their Hopper
+    forms (192 padded to 256; float32's K1 stays column-sliced): their
+    device times at the flagship's and the Coarse LM's shapes (and at 4 x 4
+    x 2049 x 192) beside the parent's (as that checkout ran them, where the
+    flash device times phase ran with --parent), SDPA's forward (K1) and
+    its backward (K2, K3). Returns {"rows": {kernel: {label: row}}, "f64":
+    {...}, "small": {...}, "bf16_d256": {shape: {kernel: {device_ms,
     parent_device_ms}, "sdpa_fwd_device_ms": ..., "sdpa_bwd_device_ms":
-    ...}}}."""
+    ...}}, "fp32_d256": {shape: {kernel: {...}, "sdpa_bwd_device_ms": ...}}}."""
     rng = np.random.default_rng(seed + 45)
     rows = {key: {} for key in ("fwd", "dq", "dkv", "dtab", "dbias", "local")}
     h, d = WIDE_FLAGSHIP["heads"], WIDE_FLAGSHIP["dim_head"]
@@ -6423,6 +6476,21 @@ def wide_kernels_phase(seed, device_rows):
                            f"{fmt_ms(v['parent_device_ms'])})" for k, v in got.items())
               + f" | {grad} + K3 {fmt_ms(pair[0])} (parent {fmt_ms(pair[1])}), SDPA's backward "
               f"{fmt_ms(bf16_d256[shape]['sdpa_bwd_device_ms'])}")
+    fp32_d256 = {}
+    for shape, grad in (("table", "K2+K4"), ("coarse", "K2+K5"), ("table192", "K2+K4")):
+        dev = device_rows.get(f"float32 {WIDE_DEVICE_LABELS[shape]}")
+        got = {kernel: {x: device_numbers({}, dev, kernel)[x]
+                        for x in ("device_ms", "parent_device_ms")}
+               for kernel in ("K2", grad, "K3")}
+        fp32_d256[shape] = dict(got, sdpa_bwd_device_ms=None if dev is None
+                                else dev.get("sdpa_bwd_device_ms"))
+        pair = [got[grad][x] + got["K3"][x] if got[grad][x] is not None
+                and got["K3"][x] is not None else None for x in ("device_ms", "parent_device_ms")]
+        print(f"fp32 K2 and K3 chunked form [{WIDE_DEVICE_LABELS[shape]}] on the device: "
+              + " | ".join(f"{k} {fmt_ms(v['device_ms'])} (parent's "
+                           f"{fmt_ms(v['parent_device_ms'])})" for k, v in got.items())
+              + f" | {grad} + K3 {fmt_ms(pair[0])} (parent {fmt_ms(pair[1])}), SDPA's backward "
+              f"{fmt_ms(fp32_d256[shape]['sdpa_bwd_device_ms'])}")
     small = {}
     for dw in WIDE_DIMS:
         for form, b, n in (("table", 2, 300), ("bias", 3, 200), ("batch", 2, 150)):
@@ -6448,7 +6516,8 @@ def wide_kernels_phase(seed, device_rows):
         if three > F64_TOL or one <= F64_TOL:
             raise AssertionError(f"K7 float64 check [d{dw} w{w}]: 3xTF32 {three}, 1xTF32 {one}")
         small[f"local d{dw} f64"] = {"3xtf32": three, "1xtf32": one}
-    return {"rows": rows, "f64": f64, "small": small, "bf16_d256": bf16_d256}
+    return {"rows": rows, "f64": f64, "small": small, "bf16_d256": bf16_d256,
+            "fp32_d256": fp32_d256}
 
 
 def wide_greedy_card_vs_cpu(seed, model, cpu_model):
@@ -6495,13 +6564,40 @@ def hopper_step(label, tag, run):
         raise AssertionError(f"{label} ({tag}) bf16 step: a column-sliced form ran: {kernels}")
 
 
+def chunked_step(label, tag, run, d):
+    """A float32 step at a head dim from 129 to 256: its time, its profiled
+    step's device idle share and flash kernels; K2 and K3 must run their
+    chunked forms and no column-sliced backward (float32's K1 keeps the
+    column-sliced form). Where the profiler saw no device kernel in any of
+    its windows, the forms are read from the plans (held to the library's
+    by `check_plans`) at the step's head dim `d`."""
+    kernels = run["fp32_flash_kernels"]
+    if not run["fp32_busy_ms"]:
+        print(f"{label} ({tag}) float32 step: {run['fp32_step_ms']:.2f} ms a step | the profiler "
+              f"saw no device kernel: busy time and idle share not measured")
+        if not all(fa.flash_head_dim(d, torch.float32, x) == fa.F32_DIM
+                   and fa._slices(d, torch.float32, x) == 1 for x in ("K2", "K3")):
+            raise AssertionError(f"{label} ({tag}) float32 step: K2 and K3 are not routed to "
+                                 f"their chunked forms at D = {d}")
+        return
+    print(f"{label} ({tag}) float32 step: {run['fp32_step_ms']:.2f} ms a step | one profiled "
+          f"step {run['fp32_busy_ms']:.2f} ms device busy of {run['fp32_profiled_ms']:.2f} ms, "
+          f"{100 * run['fp32_idle']:.1f}% idle | its flash kernels: {kernels}")
+    backward = [k for k in kernels if "flash_bwd_d" in k]
+    if any("_wide_kernel" in k for k in backward) or not all(
+            any(f"flash_bwd_{x}_chunk_kernel" in k for k in backward) for x in ("dq", "dkv")):
+        raise AssertionError(f"{label} ({tag}) float32 step: K2 and K3 did not run (only) their "
+                             f"chunked forms: {kernels}")
+
+
 def wide_head_paths(seed):
     """The paths at heads over 128 (each phase zeroes the launch counts just
     before its own calls and reads them just after): the flagship with 4
     heads of 256 scored, generated (and its greedy ids card vs CPU) and
-    trained (float32 and bf16, the bf16 step's device idle share printed),
-    card vs CPU; the Coarse LM with 2 heads of 256 and the Fine LM with 2
-    heads of 320 scored and trained, card vs CPU;
+    trained (float32 and bf16, each step's device idle share printed, K2
+    and K3 in their Hopper forms in both), card vs CPU; the Coarse LM with
+    2 heads of 256 (its steps held alike) and the Fine LM with 2 heads of
+    320 scored and trained, card vs CPU;
     the codec with attn_dim_head 256 in a round trip, card vs CPU. Returns
     ({path: launches}, {label: bf16 numbers}, greedy ids identical)."""
     paths, bf16_runs = {}, {}
@@ -6516,6 +6612,7 @@ def wide_head_paths(seed):
     paths["training_d256"], paths["training_bf16_d256"], bf16_runs["training_d256"] = phase(
         f"training ({tag})")(training_phase)(seed, cpu_model)
     hopper_step("flagship", tag, bf16_runs["training_d256"])
+    chunked_step("flagship", tag, bf16_runs["training_d256"], WIDE_FLAGSHIP["dim_head"])
     del cpu_model
     torch.cuda.empty_cache()
     for kind in ("coarse", "fine"):
@@ -6533,6 +6630,7 @@ def wide_head_paths(seed):
             paths[f"{key}_training_bf16"], bf16_runs[f"{key}_training"] = bf16
             if cfg["dim_head"] <= fa.BF16_DIM:
                 hopper_step(kind, tag, bf16[1])
+                chunked_step(kind, tag, bf16[1], cfg["dim_head"])
         del cpu_lm
         torch.cuda.empty_cache()
     paths[f"codec_d{WIDE_CODEC_HEAD}"] = phase(f"codec (attn_dim_head {WIDE_CODEC_HEAD})")(
@@ -6724,7 +6822,14 @@ def main():
                 numbers["bf16_d256"] = dict(
                     timings["wide"]["bf16_d256"],
                     instantiations=[f"{name}_kernel<{form}>" for form in timings["sass"][key]
-                                    if f"d{fa.BF16_DIM}" in form])
+                                    if f"d{fa.BF16_DIM}" in form and form.startswith("bf16")])
+            if key in ("dq", "dkv"):
+                # float32's chunked form of K2 and K3 at D = 256: its
+                # instantiations, and its device times beside the parent's
+                numbers["fp32_d256"] = dict(
+                    timings["wide"]["fp32_d256"],
+                    instantiations=[f"{name}_kernel<{form}>" for form in timings["sass"][key]
+                                    if f"d{fa.F32_DIM}" in form and form.startswith("fp32")])
             numbers["head_dims_over_128_f64"] = {
                 label: {kind: {x: e for x, e in errs.items() if x in F64_OUTPUTS.get(key, ())}
                         if isinstance(errs, dict) else errs for kind, errs in got.items()}

@@ -1977,7 +1977,9 @@ def test_column_sliced_kernels_match_plain_versions(cuda, d, form, dtype, tol, g
 
 def _wide_f64_error(cuda, form, d):
     """max |kernel - float64| / max |float64| over K1's out, K2's dq (and
-    its bias gradient) and K3's dk, dv, fed the float64 lse and Delta."""
+    its bias gradient) and K3's dk, dv, fed the float64 lse and Delta (K2's
+    and K3's arguments padded to the backward's head dim as the wrapper
+    pads them: float32's 129-255 to 256, their chunked form)."""
     q, k, v, g, tab, bias, mask, causal = _wide_inputs(cuda, form, d, torch.float32, seed=1)
     scale = d ** -0.5
     f64 = [None if a is None else a.double() for a in (q, k, v, g, tab, bias)]
@@ -1987,10 +1989,12 @@ def _wide_f64_error(cuda, form, d):
     refs = fa.flash_attention_bwd_ref(*f64[:3], f64[4], mask, out64, lse64, f64[3],
                                       causal=causal, scale=scale, bias=f64[5])
     out = fa.flash_attention(q, k, v, bias_tab=tab, bias=bias, key_mask=mask, causal=causal)
-    args = (q, k, v, g, lse64.float(), (f64[3] * out64).sum(-1).float(), tab,
+    padded = fa._padded(q, k, v, g, d=fa.flash_head_dim(d, torch.float32, "K2"))
+    args = (*padded, lse64.float(), (f64[3] * out64).sum(-1).float(), tab,
             mask.to(torch.int8).contiguous())
     dq, dgrad = fa.bwd_dq(*args, causal=causal, scale=scale, bias=bias)
     dk, dv = fa.bwd_dkv(*args, causal=causal, scale=scale, bias=bias)
+    dq, dk, dv = dq[..., :d], dk[..., :d], dv[..., :d]
     pairs = [(out, out64), (dq, refs[0]), (dk, refs[1]), (dv, refs[2])]
     if refs[3] is not None:
         pairs.append((dgrad, refs[3]))
@@ -2010,12 +2014,12 @@ def test_column_sliced_float32_within_1e5_of_float64(cuda, d, form):
 @pytest.mark.parametrize("d", WIDE_DIMS)
 def test_column_sliced_backward_gives_the_same_bits_every_run(cuda, d, form, dtype):
     # K2 with K4's fixed-order sums, K5's rank-order batch sum or dS, and K3
-    # (in bf16 up to 256 their Hopper form, on inputs padded to 256 as the
-    # wrapper pads them)
+    # (up to 256 their Hopper forms, bf16's and float32's chunked, on inputs
+    # padded to 256 as the wrapper pads them)
     q, k, v, g, tab, bias, mask, causal = _wide_inputs(cuda, form, d, dtype, seed=2)
     out, lse = fa.flash_attention(q, k, v, bias_tab=tab, bias=bias, key_mask=mask,
                                   causal=causal, return_lse=True)
-    args = (*fa._padded(q, k, v, g, d=fa.flash_head_dim(d, dtype)), lse,
+    args = (*fa._padded(q, k, v, g, d=fa.flash_head_dim(d, dtype, "K2")), lse,
             (g.float() * out.float()).sum(-1), tab, mask.to(torch.int8).contiguous())
     for fn in (fa.bwd_dq, fa.bwd_dkv):
         first = fn(*args, causal=causal, scale=d ** -0.5, bias=bias)
@@ -2298,3 +2302,167 @@ def test_bf16_d256_forward_issues_tensor_core_instructions(cuda):
              for mangled, ops in _build.sass_counts(fa.SOURCE).items()
              if "flash_fwd_kernel" in mangled and "bfloat16" in mangled and "Li256E" in mangled}
     assert len(found) == 1 and all(all(x) for x in found.values()), found
+
+
+# float32's K2 (none or K4, K5's cluster sum, the per-batch dS) and K3 at D =
+# 256, their chunked Hopper forms (Q and dO, or K and V, resident unsplit,
+# the streamed operands 64 columns at a time); 192 is padded to 256 by the
+# wrappers. (b, h, hk, n, m, causal, bias form): K5 with a cluster of 3
+# batch rows, and at B = 12 two clusters of 6 a tile meeting by atomics; a
+# causal prefix of 17 keys with an (H, N, M) bias; cross attention over 17
+# keys splits K3's query range (qsplit 4); ragged N with the table, not
+# causal
+F32_WIDE_FORMS = {"none": (2, 4, 1, 150, 150, True, None),
+                  "table": (2, 4, 1, 150, 150, True, "table"),
+                  "bias": (3, 2, 2, 130, 130, True, "bias"),
+                  "batch": (2, 2, 1, 100, 100, True, "batch"),
+                  "bias12": (12, 2, 1, 100, 100, True, "bias"),
+                  "prefix": (2, 2, 1, 80, 97, True, "bias"),
+                  "cross": (2, 8, 1, 1100, 17, False, None),
+                  "ragged": (2, 2, 1, 193, 193, False, "table")}
+
+
+def _f32_wide_inputs(cuda, form, d, seed, dtype=torch.float32):
+    b, h, hk, n, m, causal, kind = F32_WIDE_FORMS[form]
+    rng = np.random.default_rng(seed + d)
+
+    def normal(*shape, s=1.0):
+        return torch.from_numpy((s * rng.normal(size=shape)).astype(np.float32)).to(cuda)
+
+    q, g = normal(b, h, n, d).to(dtype), normal(b, h, n, d).to(dtype)
+    k, v = normal(b, hk, m, d).to(dtype), normal(b, hk, m, d).to(dtype)
+    mask = torch.from_numpy(rng.random((b, m)) > 0.2).to(cuda)
+    mask[:, 0] = True
+    tab = normal(2 * n - 1, h, s=0.5) if kind == "table" else None
+    bias = normal(h, n, m, s=0.5) if kind == "bias" else \
+        normal(b, h, n, m, s=0.5) if kind == "batch" else None
+    out, lse = fa.flash_attention_ref(q, k, v, bias_tab=tab, bias=bias, key_mask=mask,
+                                      causal=causal, return_lse=True)
+    return q, k, v, g, tab, bias, mask, out, lse, causal
+
+
+@pytest.mark.parametrize("form", list(F32_WIDE_FORMS))
+@pytest.mark.parametrize("d", [256, 192])
+def test_f32_d256_backward_matches_plain_version(cuda, d, form):
+    # K2 in the form its bias asks for and K3, each launched once, against the
+    # plain backward on the same out and lse (float32's gradient tolerance)
+    q, k, v, g, tab, bias, mask, out, lse, causal = _f32_wide_inputs(cuda, form, d, seed=80)
+    names = ("launches_dq", "launches_dkv", "launches_dtab", "launches_dbias",
+             "launches_dbias_per_batch")
+    before = [getattr(fa, x) for x in names]
+    grads = fa.flash_attention_bwd(q, k, v, tab, mask, out, lse, g, bias=bias, causal=causal,
+                                   scale=d ** -0.5)
+    torch.cuda.synchronize()
+    per_batch = bias is not None and bias.ndim == 4
+    want = [1, 1, tab is not None, bias is not None and not per_batch, per_batch]
+    assert [getattr(fa, x) - c for x, c in zip(names, before)] == want
+    b, h, hk, n, m, _, _ = F32_WIDE_FORMS[form]
+    plan = fa.dq_plan(b, h, hk, n, m, causal, torch.float32, dbias=True, d=d)
+    assert (plan["slices"], plan["items"]) == (1, 12)
+    assert (plan["cluster"], plan["atomic"]) == {"bias": (3, False), "bias12": (6, True)}.get(
+        form, (plan["cluster"], plan["atomic"]))
+    dkv = fa.dkv_plan(b, h, hk, n, m, torch.float32, d)
+    assert dkv["pair"] and dkv["items"] == 16 and (form != "cross" or dkv["qsplit"] > 1)
+    refs = fa.flash_attention_bwd_ref(q, k, v, tab, mask, out, lse, g, bias=bias, causal=causal,
+                                      scale=d ** -0.5)
+    for name, a, r in zip(("dq", "dk", "dv", "dgrad"), grads, refs):
+        if r is None:
+            assert a is None
+            continue
+        assert a.shape == r.shape, name
+        torch.testing.assert_close(a, r, rtol=1e-2, atol=1e-3, msg=name)
+
+
+def _f32_d256_f64_error(cuda, form, d):
+    """max |kernel - float64| / max |float64| over K2's dq (and its bias
+    gradient) and K3's dk, dv at D = 256 (192 padded to it), fed the float64
+    lse and Delta."""
+    q, k, v, g, tab, bias, mask, _, _, causal = _f32_wide_inputs(cuda, form, d, seed=81)
+    scale = d ** -0.5
+    f64 = [None if a is None else a.double() for a in (q, k, v, g, tab, bias)]
+    out64, lse64 = fa.flash_attention_ref(f64[0], f64[1], f64[2], bias_tab=f64[4], bias=f64[5],
+                                          key_mask=mask, causal=causal, scale=scale,
+                                          return_lse=True)
+    refs = fa.flash_attention_bwd_ref(*f64[:3], f64[4], mask, out64, lse64, f64[3],
+                                      causal=causal, scale=scale, bias=f64[5])
+    tabc, kmask, dense = fa._kernel_args(tab, mask, bias)
+    args = (*fa._padded(q, k, v, g, d=256), lse64.float(), (f64[3] * out64).sum(-1).float(),
+            tabc, kmask)
+    dq, dgrad = fa.bwd_dq(*args, causal=causal, scale=scale, bias=dense)
+    dk, dv = fa.bwd_dkv(*args, causal=causal, scale=scale, bias=dense)
+    pairs = [(dq[..., :d], refs[0]), (dk[..., :d], refs[1]), (dv[..., :d], refs[2])]
+    if refs[3] is not None:
+        pairs.append((dgrad, refs[3]))
+    return max(((a.double() - r).abs().max() / r.abs().max()).item() for a, r in pairs)
+
+
+@pytest.mark.parametrize("form", ["table", "bias", "batch", "prefix", "cross"])
+@pytest.mark.parametrize("d", [256, 192])
+def test_f32_d256_backward_within_1e5_of_float64(cuda, d, form):
+    assert _f32_d256_f64_error(cuda, form, d) <= 1e-5
+    with _build.built_with(("MMA_TF32_ONE_PASS",)):
+        assert _f32_d256_f64_error(cuda, form, d) > 1e-5
+
+
+@pytest.mark.parametrize("form", list(F32_WIDE_FORMS))
+@pytest.mark.parametrize("d", [256, 192])
+def test_f32_d256_backward_gives_the_same_bits_every_run(cuda, d, form):
+    # K2 with K4's fixed-order sums, K5's rank-order batch sum or dS, and K3
+    # summing dk and dv each in one consumer, then the cluster in rank order
+    q, k, v, g, tab, bias, mask, out, lse, causal = _f32_wide_inputs(cuda, form, d, seed=82)
+    tabc, kmask, dense = fa._kernel_args(tab, mask, bias)
+    args = (*fa._padded(q, k, v, g, d=256), lse, (g.float() * out.float()).sum(-1), tabc, kmask)
+    for fn in (fa.bwd_dq, fa.bwd_dkv):
+        if form == "bias12" and fn is fa.bwd_dq:
+            continue  # K5's clusters meet by atomics at B = 12: the sum's order is not fixed
+        first = fn(*args, causal=causal, scale=d ** -0.5, bias=dense)
+        for _ in range(2):
+            again = fn(*args, causal=causal, scale=d ** -0.5, bias=dense)
+            assert all(torch.equal(a, b) for a, b in zip(first, again) if a is not None)
+
+
+def test_f32_d256_backward_refuses_an_unpadded_head_dim(cuda):
+    # the library takes float32's 129-255 in the backward only padded to 256
+    # (flash_head_dim(d, dtype, "K2")), so no launch quietly takes the
+    # column-sliced form there; float32's K1 keeps it
+    for d in (129, 192, 255):
+        q, k, v, g, tab, bias, mask, out, lse, _ = _f32_wide_inputs(cuda, "none", d, seed=83)
+        args = (q, k, v, g, lse, (g.float() * out.float()).sum(-1), None, None)
+        for fn in (fa.bwd_dq, fa.bwd_dkv):
+            with pytest.raises(RuntimeError, match="CUDA error"):
+                fn(*args, causal=True, scale=d ** -0.5)
+        with pytest.raises(ValueError, match="no K2 plan"):
+            fa.dq_plan_built(2, 4, 1, 150, 150, torch.float32, d=d)
+        assert fa.fwd_plan_built(2, 4, 150, 150, torch.float32, fa.flash_head_dim(d, q.dtype)) \
+            == tuple(fa.fwd_plan(2, 4, 150, 150, True, torch.float32, d)[x]
+                     for x in ("consumers", "stages", "smem", "blocks"))
+
+
+def test_f32_d256_plans_match_the_librarys(cuda):
+    f32 = torch.float32
+    for b, h, hk, n, m in ((4, 4, 1, 2049, 2049), (4, 2, 2, 603, 603), (4, 2, 1, 603, 603),
+                           (4, 8, 1, 2049, 17), (9, 8, 8, 130, 130), (12, 8, 1, 100, 100),
+                           (3, 2, 2, 130, 130), (2, 4, 1, 90, 17)):
+        for d in (192, 256):
+            for dbias in (False, True):
+                plan = fa.dq_plan(b, h, hk, n, m, True, f32, dbias=dbias, d=d)
+                assert fa.dq_plan_built(b, h, hk, n, m, f32, dbias=dbias, d=256) == (
+                    plan["cluster"], plan["stages"], plan["smem"], plan["blocks"]), (b, h, n, m)
+            plan = fa.dkv_plan(b, h, hk, n, m, f32, d)
+            assert fa.dkv_plan_built(b, h, hk, n, m, f32, 256) == tuple(
+                plan[x] for x in ("cluster", "qsplit", "consumers", "stages", "smem", "blocks"))
+
+
+def test_f32_d256_backward_issues_tensor_core_instructions(cuda):
+    # warpgroup products (HGMMA) fed by TMA loads (UTMALDG) in K2's three
+    # chunked forms at D = 256 and in K3's chunked pair form: every product,
+    # the ones whose N index is D too, on wgmma (no HMMA)
+    found = {}
+    for mangled, ops in _build.sass_counts(fa.SOURCE_BWD).items():
+        if "_chunk_kernel" in mangled:
+            ints = re.findall(r"Li(\d+)E", mangled)
+            key = "dkv" if "dkv_chunk" in mangled else f"dq {ints[1]}"
+            assert ints[0] == "256", mangled
+            found[key] = (ops["HGMMA"], ops["UTMALDG"], ops["HMMA"])
+    assert sorted(found) == ["dkv", "dq 0", "dq 1", "dq 2"], found
+    assert all(x[0] and x[1] and not x[2] for x in found.values()), found

@@ -10,9 +10,10 @@ the two warpgroups' sum, the cluster's rank order, the query chunks' order)
 and of K2's (each query tile's key tiles in order) give JAX's gradients of
 `attend`. The same for the head dims: each plan's fit at every head dim,
 the column-sliced form over 128, and the one head-dim rule of K1, K2 and
-K3 that sends bf16's 129 to 256 to their Hopper forms at 256 (the plans,
-fit, cluster rules, K3's pair form's sum order, K1's rows form's walk and
-table slice, and the padding's exactness).
+K3 (the kernel its argument) that sends bf16's 129 to 256 to their Hopper
+forms at 256, and float32's in K2 and K3 to their chunked forms (the plans,
+fit, cluster and query-split rules, K3's pair forms' sum order, K1's rows
+form's walk and table slice, and the padding's exactness).
 
 Tolerances: rtol 1e-2 / atol 1e-3 against JAX, the JAX package's gradient
 tolerance (tests/test_flash_attention.py)."""
@@ -303,10 +304,10 @@ SM_SMEM = 233472
 @pytest.mark.parametrize("label,b,h,hk,n,m,causal", SHAPES, ids=[s[0] for s in SHAPES])
 def test_plans_fit_the_card_at_each_head_dim(label, b, h, hk, n, m, causal, dtype, d):
     """K1's, K2's (with K4's and with K5's buffers) and K3's blocks at head
-    dims 32, 64 and 128, at 256 (bf16's Hopper forms of all three, float32's
-    column-sliced ones) and at the column-sliced forms' 320 and 512: each
-    within a block's shared memory, and as many blocks as each is built for
-    within an SM's."""
+    dims 32, 64 and 128, at 256 (bf16's Hopper forms of all three; float32's
+    chunked K2 and K3 and column-sliced K1) and at the column-sliced forms'
+    320 and 512: each within a block's shared memory, and as many blocks as
+    each is built for within an SM's."""
     plans = [fa.fwd_plan(b, h, n, m, causal, dtype, d),
              fa.dq_plan(b, h, hk, n, m, causal, dtype, d=d),
              fa.dq_plan(b, h, hk, n, m, causal, dtype, dbias=True, d=d),
@@ -352,33 +353,38 @@ def test_plans_at_head_dim_128(dtype):
 @pytest.mark.parametrize("label,b,h,hk,n,m,causal", SHAPES, ids=[s[0] for s in SHAPES])
 def test_column_sliced_plans_visit_each_attended_pair_once_a_slice(label, b, h, hk, n, m,
                                                                    causal, dtype, d):
-    """Over D = 128 in float32, and over 256 in bf16, every kernel runs D /
-    64 blocks for each block of its grid, one a 64-wide slice of the output,
+    """Over D = 256, and in float32's K1 over 128, every kernel runs D / 64
+    blocks for each block of its grid, one a 64-wide slice of the output,
     with one shared memory for every D: K1's and K2's blocks of a slice
     visit each attended (query tile, key tile) once, K2's in order, and K3's
     blocks of a slice each attended (query head, query row) of their kv head
-    once, in head order. In bf16 up to D = 256 none does: K1, K2 and K3 run
-    their Hopper forms there (the bf16 D = 256 plan tests below)."""
+    once, in head order. Up to D = 256 K2 and K3 are not sliced (their
+    Hopper forms: bf16's, float32's chunked), nor is bf16's K1 (the D = 256
+    plan tests below)."""
     slices = d // 64
     fwd = fa.fwd_plan(b, h, n, m, causal, dtype, d)
     dq = fa.dq_plan(b, h, hk, n, m, causal, dtype, dbias=True, d=d)
     dkv = fa.dkv_plan(b, h, hk, n, m, dtype, d)
-    if dtype == torch.bfloat16 and d <= fa.BF16_DIM:
-        assert fwd["slices"] == dq["slices"] == dkv["slices"] == 1
-        return
-    for plan in (fwd, dq, dkv):
+    if d <= 256:
+        assert dq["slices"] == dkv["slices"] == 1
+        if dtype == torch.bfloat16:
+            assert fwd["slices"] == 1
+            return
+    for plan in (fwd, dq, dkv) if d > 256 else (fwd,):
         assert plan["slices"] == slices and plan["stages"] == 2
         assert plan["smem"] == fa.fwd_plan(b, h, n, m, causal, dtype, 512)["smem"] + (
             0 if plan is not dq else fa._K5_BYTES)
     assert fwd["consumers"] == 1 and fwd["rows"] == 64
     # each slice's blocks walk the same tiles: once each, over the attended ones
-    for plan in (fwd, dq):
+    for plan in (fwd, dq) if d > 256 else (fwd,):
         seen = collections.Counter()
         for qi, keys in plan["tiles"].items():
             keys = keys[0] if plan is fwd else keys
             assert keys == sorted(keys)
             seen.update((qi, ki) for ki in keys)
         assert max(seen.values()) == 1 and set(seen) >= attended_tiles(n, m, causal)
+    if d <= 256:
+        return
     assert dkv["consumers"] == 1 and not dkv["pair"]
     assert dq["items"] == dkv["items"] == 2 * slices + 1
     assert (dkv["cluster"], dkv["qsplit"]) == (1, 1)
@@ -513,25 +519,34 @@ def test_column_sliced_scheme_equals_the_unsliced_plain_version(d, causal, m_ext
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [1, 32, 33, 100, 128, 129, 160, 192, 200, 255, 256, 257, 320, 512])
 def test_backward_head_dim_rule(d, dtype):
-    """The head dim of K1, K2 and K3 (`flash_head_dim`, one rule for the
-    three): K7's (`native_head_dim`) but in bf16 from 129 to 256, which all
-    go to 256, the head dim of their Hopper forms there; float32 over 128,
-    and bf16 over 256, keep the column-sliced forms (a multiple of 64, one
-    slice a block). K7 keeps `native_head_dim`."""
-    got = fa.flash_head_dim(d, dtype)
-    if dtype == torch.bfloat16 and 128 < d <= 256:
-        assert got == fa.BF16_DIM == 256
-        assert fa._slices(d, dtype) == 1
-    else:
-        assert got == fa.native_head_dim(d)
-        assert fa._slices(d, dtype) == (got // 64 if d > 128 else 1)
-    # the forward, the backward and their plans follow the one rule
-    for plan in (fa.fwd_plan(4, 4, 2049, 2049, True, dtype, d),
-                 fa.dq_plan(4, 4, 1, 2049, 2049, True, dtype, d=d),
-                 fa.dkv_plan(4, 4, 1, 2049, 2049, dtype, d)):
-        assert plan["slices"] == fa._slices(d, dtype)
+    """The head dim of K1, K2 and K3 (`flash_head_dim`, one rule with the
+    kernel as its argument): K7's (`native_head_dim`), but from 129 to 256
+    every D goes to 256 where the kernel has a Hopper form there: K1, K2 and
+    K3 in bf16, K2 and K3 (the chunked forms) in float32. So float32's
+    backward runs 129-256 at 256 while its K1 keeps the column-sliced form
+    over 128; over 256 every kernel is column-sliced (a multiple of 64, one
+    slice a block). The forward's rule is the default; K7 keeps
+    `native_head_dim`."""
+    hopper = 128 < d <= 256
+    for kernel in ("K1", "K2", "K3"):
+        got = fa.flash_head_dim(d, dtype, kernel)
+        if hopper and (dtype == torch.bfloat16 or kernel != "K1"):
+            assert got == 256 and fa._slices(d, dtype, kernel) == 1
+        else:
+            assert got == fa.native_head_dim(d)
+            assert fa._slices(d, dtype, kernel) == (got // 64 if d > 128 else 1)
+    assert fa.flash_head_dim(d, dtype) == fa.flash_head_dim(d, dtype, "K1")
+    assert fa.F32_DIM == fa.BF16_DIM == 256
+    with pytest.raises(ValueError, match="kernel"):
+        fa.flash_head_dim(d, dtype, "K7")
+    # the forward, the backward and their plans follow the one rule, each
+    # with its own kernel
+    for plan, kernel in ((fa.fwd_plan(4, 4, 2049, 2049, True, dtype, d), "K1"),
+                         (fa.dq_plan(4, 4, 1, 2049, 2049, True, dtype, d=d), "K2"),
+                         (fa.dkv_plan(4, 4, 1, 2049, 2049, dtype, d), "K3")):
+        assert plan["slices"] == fa._slices(d, dtype, kernel)
     assert fa.fwd_plan(4, 4, 2049, 2049, True, dtype, d)["rows"] == (
-        128 if got == fa.BF16_DIM and dtype == torch.bfloat16 else 64)
+        128 if hopper and dtype == torch.bfloat16 else 64)
 
 
 @pytest.mark.parametrize("d", [192, 256])
@@ -825,3 +840,259 @@ def test_bf16_forward_padding_to_256_is_exact(d):
         torch.testing.assert_close(got[0][..., :d], want[0], **tight, msg=form)
         assert not got[0][..., d:].any(), form
         torch.testing.assert_close(got[1], want[1], **tight, msg=form)
+
+
+@pytest.mark.parametrize("d", [192, 256])
+@pytest.mark.parametrize("label,b,h,hk,n,m,causal", SHAPES, ids=[s[0] for s in SHAPES])
+def test_f32_d256_backward_plans_visit_each_attended_tile_once(label, b, h, hk, n, m, causal,
+                                                               d):
+    """float32's K2 and K3 at D = 256 (192 padded to it), the chunked forms:
+    K2 one consumer, two stages, 12 ring items a key tile (K's, V's, K's
+    four 64-column chunks), its key tiles up to the diagonal in order, each
+    attended (query tile, key tile) once; K3 the chunked pair form, whose two
+    consumers take every item of the block between them (one for dk, one
+    for dv), 16 ring items an item (Q's, dO's, then both again in turns),
+    each attended (query head, query row) of
+    the kv head once over the cluster's ranks and the query chunks."""
+    f32 = torch.float32
+    for dbias in (False, True):
+        dq = fa.dq_plan(b, h, hk, n, m, causal, f32, dbias=dbias, d=d)
+        assert (dq["slices"], dq["stages"], dq["items"], dq["blocks"]) == (1, 2, 12, 1)
+        assert dq["grid"] == (b, h, -(-n // 64))
+        seen = collections.Counter()
+        for qi, keys in dq["tiles"].items():
+            assert keys == sorted(keys)
+            seen.update((qi, ki) for ki in keys)
+        assert max(seen.values()) == 1 and set(seen) >= attended_tiles(n, m, causal)
+        assert all(ki * 64 < m for _, ki in seen)
+    dkv = fa.dkv_plan(b, h, hk, n, m, f32, d)
+    assert (dkv["slices"], dkv["consumers"], dkv["pair"], dkv["stages"], dkv["items"],
+            dkv["blocks"]) == (1, 2, True, 2, 16, 1)
+    keep = np.tril(np.ones((n, m), bool), m - n) if causal else np.ones((n, m), bool)
+    group = h // hk
+    for kv_head in range(hk):
+        for ki in range(-(-m // 64)):
+            sees = keep[:, ki * 64:(ki + 1) * 64].any(1)
+            rows = np.zeros((h, n), int)
+            for rank in range(dkv["cluster"]):
+                for z in range(dkv["qsplit"]):
+                    first, second = fa.dkv_items(dkv, h, hk, n, m, causal, kv_head, ki, rank, z)
+                    assert not second
+                    for head, q0 in first:
+                        rows[head, q0:q0 + 64] += 1
+            heads = list(range(kv_head * group, (kv_head + 1) * group))
+            assert rows.max() == 1 and (rows[heads][:, sees] == 1).all()
+            assert not rows[[x for x in range(h) if x not in heads]].any()
+
+
+@pytest.mark.parametrize("label,b,h,hk,n,m,causal", SHAPES, ids=[s[0] for s in SHAPES])
+def test_f32_d256_backward_plans_fit_the_card(label, b, h, hk, n, m, causal):
+    """K2's chunked block at float32's D = 256: Q and dO unsplit 128 KB, two
+    stages of a 64-column chunk with its small parts 64 KB, two key tiles'
+    table slices and flags 1,568 bytes, the barriers 256 (198,432), then
+    K4's buffers (223,008 bytes) or K5's two dS buffers (231,200: 1,248
+    bytes under the 232,448 a block may have); K3's chunked pair form: K and
+    V unsplit, the two stages, two items' lse, Delta and table slices, the
+    flags, P^T and dS^T as float32, the barriers: 231,824 (624 under). One
+    block an SM each."""
+    f32 = torch.float32
+    with_k4 = fa.dq_plan(b, h, hk, n, m, causal, f32, d=256)
+    with_k5 = fa.dq_plan(b, h, hk, n, m, causal, f32, dbias=True, d=256)
+    dkv = fa.dkv_plan(b, h, hk, n, m, f32, 256)
+    assert (with_k4["smem"], with_k5["smem"], dkv["smem"]) == (223008, 231200, 231824)
+    assert 2 * 65536 + 2 * 32768 + 2 * 784 + 256 == 223008 - fa._K4_BYTES
+    assert 2 * 65536 + 2 * 32768 + 2 * 1024 + 272 + 2 * 16384 + 128 == 231824
+    assert (fa.SMEM_LIMIT - with_k5["smem"], fa.SMEM_LIMIT - dkv["smem"]) == (1248, 624)
+    for plan in (with_k4, with_k5, dkv):
+        assert plan["blocks"] == 1 and plan["smem"] + 1024 <= SM_SMEM
+
+
+@pytest.mark.parametrize("d", [192, 256])
+@pytest.mark.parametrize("label,b,h,hk,n,m,causal", SHAPES, ids=[s[0] for s in SHAPES])
+def test_f32_d256_backward_keeps_the_cluster_and_query_split_rules(label, b, h, hk, n, m,
+                                                                   causal, d):
+    """K5's cluster (the largest divisor of the batch up to 8, atomics past
+    one cluster a tile) and K3's cluster are those of every native head dim;
+    K3's query split too, but under two blocks an SM (its blocks are few
+    and long, one an SM), where the chunked form splits further, into
+    chunks of at least 2 query tiles, so that its grid reaches two blocks
+    an SM where the query tiles allow."""
+    f32 = torch.float32
+    for batch in (b, 3, 9, 12):
+        got = fa.dq_plan(batch, h, hk, n, m, causal, f32, dbias=True, d=d)
+        want = fa.dq_plan(batch, h, hk, n, m, causal, f32, dbias=True)
+        assert (got["cluster"], got["atomic"], got["grid"], got["tiles"]) == (
+            want["cluster"], want["atomic"], want["grid"], want["tiles"])
+    got, want = fa.dkv_plan(b, h, hk, n, m, f32, d), fa.dkv_plan(b, h, hk, n, m, f32)
+    assert got["cluster"] == want["cluster"]
+    base = got["cluster"] * b * hk * -(-m // 64)
+    if base >= 2 * fa.PLAN_SMS:
+        assert got["qsplit"] == want["qsplit"] == 1
+    else:
+        qtiles = -(-n // 64)
+        assert got["qsplit"] == max(want["qsplit"], min(-(-2 * fa.PLAN_SMS // base), qtiles // 2))
+        assert got["qsplit"] == 1 or qtiles // got["qsplit"] >= 2
+    assert got["grid"] == (got["cluster"], b * hk, -(-m // 64) * got["qsplit"])
+
+
+def emulate_chunked(q, k, v, g, mask, causal, scale, dq_plan, dkv_plan):
+    """float32's chunked K2 and K3 at D = 256, in the inputs' dtype, from a
+    plain forward's lse: the depth in 64-column chunks, S (S^T) and dP (dP^T)
+    summed over the chunks in order; K2 per query tile over its key tiles in
+    the plan's order, each tile's dS K from zero and added, one 64-column
+    chunk of dq at a time; K3's pair form per block: the dk consumer forms
+    P^T and hands it over, the dv consumer takes dO's chunks for dP^T and
+    hands dS^T back, then the two take the transposed chunks in turns, one
+    64-column chunk of dK += dS^T Q and of dV += P^T dO each; each
+    consumer's sum over the block's items in order, then the cluster's
+    blocks in rank order, then the query chunks in order, dk (and dq)
+    scaled at the end. Returns dq, dk, dv."""
+    b, h, n, d = q.shape
+    hk, m = k.shape[1], k.shape[2]
+    chunks = [slice(c, c + 64) for c in range(0, d, 64)]
+    out, lse = fa.flash_attention_ref(q, k, v, key_mask=mask, causal=causal, scale=scale,
+                                      return_lse=True)
+    delta = (g * out).sum(-1)
+    keep = torch.ones(n, m, dtype=torch.bool)
+    keep = keep.tril(m - n) if causal else keep
+
+    def tile(bi, head, kv, qs, ks):
+        allowed = keep[qs, ks] & mask[bi, ks][None, :]
+        s = sum((q[bi, head, qs, c] @ k[bi, kv, ks, c].T for c in chunks[1:]),
+                q[bi, head, qs, chunks[0]] @ k[bi, kv, ks, chunks[0]].T)
+        p = torch.exp((scale * s).masked_fill(~allowed, -1e30) - lse[bi, head, qs, None])
+        return p, allowed
+
+    dq = torch.zeros_like(q)
+    for bi in range(b):
+        for head in range(h):
+            kv = head // (h // hk)
+            for qi, keys in dq_plan["tiles"].items():
+                qs = slice(qi * 64, min(n, qi * 64 + 64))
+                acc = torch.zeros(qs.stop - qs.start, d, dtype=q.dtype)
+                for ki in keys:
+                    ks = slice(ki * 64, min(m, ki * 64 + 64))
+                    p, _ = tile(bi, head, kv, qs, ks)
+                    dp = sum((g[bi, head, qs, c] @ v[bi, kv, ks, c].T for c in chunks[1:]),
+                             g[bi, head, qs, chunks[0]] @ v[bi, kv, ks, chunks[0]].T)
+                    ds = p * (dp - delta[bi, head, qs, None])
+                    for c in chunks:
+                        acc[:, c] = acc[:, c] + ds @ k[bi, kv, ks, c]
+                dq[bi, head, qs] = scale * acc
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for bi in range(b):
+        for kv_head in range(hk):
+            for ki in range(-(-m // 64)):
+                ks = slice(ki * 64, min(m, ki * 64 + 64))
+                by_chunk = []
+                for z in range(dkv_plan["qsplit"]):
+                    by_rank = []
+                    for rank in range(dkv_plan["cluster"]):
+                        items, rest = fa.dkv_items(dkv_plan, h, hk, n, m, causal, kv_head, ki,
+                                                   rank, z)
+                        assert not rest
+                        sk = torch.zeros(ks.stop - ks.start, d, dtype=q.dtype)  # consumer A
+                        sv = torch.zeros_like(sk)  # consumer B
+                        for head, q0 in items:
+                            qs = slice(q0, min(n, q0 + 64))
+                            pt = tile(bi, head, kv_head, qs, ks)[0].T  # A: P^T, handed to B
+                            dpt = torch.zeros_like(pt)
+                            for c in chunks:  # B: dO's chunks
+                                dpt = dpt + v[bi, kv_head, ks, c] @ g[bi, head, qs, c].T
+                            dst = pt * (dpt - delta[bi, head, qs][None, :])  # B: dS^T, to A
+                            for c in chunks:  # Q's and dO's chunks again, in turns
+                                sk[:, c] = sk[:, c] + dst @ q[bi, head, qs, c]
+                                sv[:, c] = sv[:, c] + pt @ g[bi, head, qs, c]
+                        by_rank.append((sk, sv))
+                    by_chunk.append((sum(x[0] for x in by_rank[1:]) + by_rank[0][0],
+                                     sum(x[1] for x in by_rank[1:]) + by_rank[0][1]))
+                dk[bi, kv_head, ks] = scale * (sum(x[0] for x in by_chunk[1:]) + by_chunk[0][0])
+                dv[bi, kv_head, ks] = sum(x[1] for x in by_chunk[1:]) + by_chunk[0][1]
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_k3_chunked_pair_form_sum_order_matches_jax(causal):
+    """float32's chunked K2 and K3 at D = 256 (`emulate_chunked`: the depth
+    in 64-column chunks, K3's P^T and dS^T handed between its consumers
+    and its dK and dV chunks taken in turns,
+    each consumer's sum over the items in order, then the cluster's ranks in
+    rank order, then the query chunks in order), emulated in float64 with
+    the plan's query split forced on (2 x 4 heads x 130 queries over one kv
+    head, 17 keys or a causal prefix of 17 more, one batch row's keys half
+    masked): the plain float64 backward's dq, dk, dv to 1e-12, and JAX's
+    gradients of `attend` to its tolerance."""
+    b, h, hk, n, d = 2, 4, 1, 130, 256
+    m = 17 if not causal else n + 17
+    rng = np.random.default_rng(4)
+    q = rng.normal(size=(b, h, n, d)).astype(np.float32)
+    k = rng.normal(size=(b, hk, m, d)).astype(np.float32)
+    v = rng.normal(size=(b, hk, m, d)).astype(np.float32)
+    g = rng.normal(size=(b, h, n, d)).astype(np.float32)
+    mask = np.ones((b, m), bool)
+    mask[1, m // 2:] = False
+    scale = d ** -0.5
+    f32 = torch.float32
+    dkv = dict(fa.dkv_plan(b, h, hk, n, m, f32, d), qsplit=2)
+    assert dkv["pair"] and dkv["items"] == 16 and dkv["cluster"] == 4
+    dq_plan = fa.dq_plan(b, h, hk, n, m, causal, f32, d=d)
+    assert dq_plan["items"] == 12
+    x64 = [torch.from_numpy(a.astype(np.float64)) for a in (q, k, v, g)]
+    mask_t = torch.from_numpy(mask)
+    dq, dk, dv = emulate_chunked(*x64, mask_t, causal, scale, dq_plan, dkv)
+    out, lse = fa.flash_attention_ref(*x64[:3], key_mask=mask_t, causal=causal, scale=scale,
+                                      return_lse=True)
+    want = fa.flash_attention_bwd_ref(*x64[:3], None, mask_t, out, lse, x64[3], causal=causal,
+                                      scale=scale)
+    for name, a, r in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        torch.testing.assert_close(a, r, rtol=1e-12, atol=1e-12, msg=name)
+
+    def f(q_, k_, v_):
+        kr, vr = (jnp.repeat(a, h // hk, axis=1) for a in (k_, v_))
+        return attend(q_, kr, vr, mask=jnp.asarray(mask)[:, None, None, :], causal=causal,
+                      scale=scale)
+
+    _, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    jdq, jdk, jdv = vjp(jnp.asarray(g))
+    for a, r in ((dq, jdq), (dk, jdk), (dv, jdv)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), **GRAD_TOL)
+
+
+@pytest.mark.parametrize("d", [160, 200])
+def test_f32_backward_padding_to_256_is_exact(d):
+    """What the CUDA wrapper does with a float32 head dim from 129 to 255 in
+    the backward, through the plain backward in float64: q, k, v, out and dO
+    zero-padded to 256 (`flash_head_dim(d, dtype, "K2")`; K1 keeps
+    `native_head_dim`'s 192 or 256, column-sliced), the true D's scale, the
+    gradients sliced back, equal the unpadded plain backward's to 1e-12, and
+    their padded columns are zeros: dq, dk, dv and the bias's gradient, with
+    the table (causal, a key mask) and with an (H, N, M) bias over a prefix
+    of 9 more keys."""
+    b, h, hk, n = 2, 2, 1, 70
+    rng = np.random.default_rng(d)
+    dn = fa.flash_head_dim(d, torch.float32, "K2")
+    assert dn == fa.flash_head_dim(d, torch.float32, "K3") == 256
+    assert fa.flash_head_dim(d, torch.float32) == fa.native_head_dim(d)  # K1's, column-sliced
+    for m, form in ((n, "table"), (n + 9, "bias")):
+        q, g = (torch.from_numpy(rng.normal(size=(b, h, n, d))) for _ in range(2))
+        k, v = (torch.from_numpy(rng.normal(size=(b, hk, m, d))) for _ in range(2))
+        tab = bias = None
+        if form == "table":
+            tab = torch.from_numpy(0.5 * rng.normal(size=(2 * n - 1, h)))
+        else:
+            bias = torch.from_numpy(0.5 * rng.normal(size=(h, n, m)))
+        mask = torch.ones(b, m, dtype=torch.bool)
+        mask[1, 50:] = False
+        kw = dict(causal=True, scale=d ** -0.5)
+        out, lse = fa.flash_attention_ref(q, k, v, bias_tab=tab, bias=bias, key_mask=mask,
+                                          return_lse=True, **kw)
+        want = fa.flash_attention_bwd_ref(q, k, v, tab, mask, out, lse, g, bias=bias, **kw)
+        padded = fa._padded(q, k, v, g, out, d=dn)
+        assert all(x.shape[-1] == 256 for x in padded)
+        qp, kp, vp, gp, outp = padded
+        got = fa.flash_attention_bwd_ref(qp, kp, vp, tab, mask, outp, lse, gp, bias=bias, **kw)
+        tight = dict(rtol=1e-12, atol=1e-12)
+        for name, a, r in zip(("dq", "dk", "dv"), got, want):
+            torch.testing.assert_close(a[..., :d], r, **tight, msg=f"{form} {name}")
+            assert not a[..., d:].any(), f"{form} {name}"
+        torch.testing.assert_close(got[3], want[3], **tight, msg=f"{form} bias gradient")

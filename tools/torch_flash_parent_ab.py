@@ -16,9 +16,9 @@ turns: this build, the forced one, the forced one, this. With --parent DIR it al
 `flash_bwd.cu`, `vq.cu` and `local_attn.cu` with their headers), in one
 process, in turns: the parent's build, this one's, this one's again and
 the parent's again, at every flash shape (the parent's kernels take every
-head dim since its column-sliced form; bf16's head dims up to 256, which
-this checkout's K1, K2 and K3 take padded to 256, their Hopper forms, reach
-the parent's as they are) and at K7's windows 64 and 128. The builds share the C
+head dim since its column-sliced form; a head dim up to 256 that this
+checkout's kernels take padded to 256, their Hopper forms, reaches the
+parent's as that library takes it: D itself where it has a plan for D) and at K7's windows 64 and 128. The builds share the C
 interfaces (the flash kernels' per-batch flag comes last, which an older
 library ignores), so the parent's libraries are loaded in place of this
 one's behind the same wrappers.
@@ -61,7 +61,8 @@ cuda_ms = functools.partial(cuda_timing.cuda_ms, iters=20, warmup=3)
 # the rest, "null" keeps the null key and each row's text tokens. The head
 # dims over 128: the flagship's and the Coarse LM's 256, the Fine LM's 320,
 # and 192 at the flagship's shape (in bf16 K1, K2 and K3 there take their
-# Hopper forms at 256, the rest the column-sliced form).
+# Hopper forms at 256, in float32 K2 and K3 their chunked forms at 256, the
+# rest the column-sliced form).
 SHAPES = (("4x8x2048 table", 4, 8, 2048, 2048, "table", True, "forget", False),
           ("4x8x2049 table (training)", 4, 8, 2049, 2049, "table", True, "forget", False),
           ("2x8x1000 table, ragged", 2, 8, 1000, 1000, "table", True, "ragged", False),
@@ -183,34 +184,34 @@ def inputs(rng, dtype, b, h, n, m, form, keys, d=64):
 def times(q, k, v, g, tab, bias, mask, causal, fwd_only, parent=False):
     """{K1, K2, K2 with its bias gradient (K4, K5 or a per-batch bias's dS),
     K3: (event ms, device ms, device launches per call)} of the wrappers as
-    they stand, K2's and K3's prepared arguments padded to `fa.flash_head_dim`
-    (outside the timed calls). With `parent` (a parent's libraries loaded
-    behind the wrappers) K1 and K2, K3 take the head dim that library has a
-    plan for: D itself where it has one, else `fa.flash_head_dim`'s (a
-    library that refuses D unpadded), padded outside the timed calls, so a
-    parent's kernels run as they ran there."""
+    they stand, K2's and K3's prepared arguments padded to the backward's
+    `fa.flash_head_dim` (outside the timed calls). With `parent` (a parent's
+    libraries loaded behind the wrappers) K1 and K2, K3 take the head dim
+    that library has a plan for: D itself where it has one, else
+    `fa.flash_head_dim`'s (a library that refuses D unpadded), padded outside
+    the timed calls, so a parent's kernels run as they ran there."""
     b, h, n, d = q.shape
     hk, m = k.shape[1], k.shape[2]
     scale = d ** -0.5
     kw = dict(causal=causal, scale=scale)
 
-    def head_dim(plan_built):
+    def head_dim(plan_built, kernel):
         if parent:
             try:
                 plan_built(d)
                 return d
             except ValueError:
                 pass
-        return fa.flash_head_dim(d, q.dtype)
+        return fa.flash_head_dim(d, q.dtype, kernel)
 
     tabc, kmask, dense = fa._kernel_args(tab, mask, bias)
     fwd_args = fa._padded(q, k, v, d=head_dim(
-        lambda x: fa.fwd_plan_built(b, h, n, m, q.dtype, x)))
+        lambda x: fa.fwd_plan_built(b, h, n, m, q.dtype, x), "K1"))
     with torch.no_grad():
         out, lse = fa.fwd(*fwd_args, tabc, kmask, bias=dense, **kw)
     out = out[..., :d]
     prepared = fa._padded(q, k, v, g, d=head_dim(
-        lambda x: fa.dq_plan_built(b, h, hk, n, m, q.dtype, d=x)))
+        lambda x: fa.dq_plan_built(b, h, hk, n, m, q.dtype, d=x), "K2"))
     args = (*prepared, lse, (g.float() * out.float()).sum(-1), tabc, kmask)
     dq_out = torch.empty_like(prepared[0])
 
@@ -228,20 +229,22 @@ def times(q, k, v, g, tab, bias, mask, causal, fwd_only, parent=False):
     def k3():
         return fa.bwd_dkv(*args, bias=dense, **kw)
 
-    # each kernel's native and column-sliced (`_wide_`) instantiations, and
-    # K3's pair form (bf16 at D = 256)
+    # each kernel's native and column-sliced (`_wide_`) instantiations, K3's
+    # pair form (bf16 at D = 256) and K2's and K3's chunked forms (float32 at
+    # D = 256)
     got = {"K1": (cuda_ms(k1), *cuda_timing.named_device_ms(
         k1, ["flash_fwd_kernel", "flash_fwd_wide_kernel"]))}
     if not fwd_only:
         got["K2"] = (cuda_ms(k2), *cuda_timing.named_device_ms(
-            k2, ["flash_bwd_dq_kernel", "flash_bwd_dq_wide_kernel"]))
+            k2, ["flash_bwd_dq_kernel", "flash_bwd_dq_wide_kernel", "flash_bwd_dq_chunk_kernel"]))
         if tab is not None or bias is not None:
             grad = "K2+K4" if tab is not None else "K2+K5" if bias.ndim == 3 else "K2+dS"
             got[grad] = (cuda_ms(k2_grad), *cuda_timing.named_device_ms(
-                k2_grad, ["flash_bwd_dq_kernel", "flash_bwd_dq_wide_kernel", "dtab_sum_kernel"]))
+                k2_grad, ["flash_bwd_dq_kernel", "flash_bwd_dq_wide_kernel",
+                          "flash_bwd_dq_chunk_kernel", "dtab_sum_kernel"]))
         got["K3"] = (cuda_ms(k3), *cuda_timing.named_device_ms(
             k3, ["flash_bwd_dkv_kernel", "flash_bwd_dkv_pair_kernel", "flash_bwd_dkv_wide_kernel",
-                 "dkv_sum_kernel"]))
+                 "flash_bwd_dkv_chunk_kernel", "dkv_sum_kernel"]))
     return got
 
 
